@@ -11,9 +11,11 @@ device: ``Solver(asm, device="cuda")`` by default, ``device="cpu"`` for the
 kernels' plain PyTorch versions.  This package imports neither JAX nor (on
 the ``ArrayNetwork`` path) networkx.
 
-Ported so far: the blocked forest Schur solve (uniformly-K-ary trees, scalar,
-per-edge or per-cell R and f, any flux degree, DG0 pressure).  ROADMAP.md
-lists what remains.
+Ported so far: the Schur solve of every forest with DG0 pressure — the
+blocked route for uniformly-K-ary trees with scalar, per-edge or per-cell R
+and f, and the general level route for any other forest (irregular trees)
+and for callable (quadrature-mode) R and f, at any flux degree.  Cyclic
+bifurcation graphs and the rest are listed in ROADMAP.md.
 """
 
 from . import network_generation, post_processing

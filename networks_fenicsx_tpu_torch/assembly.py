@@ -4,6 +4,7 @@ Counterpart of ``networks_fenicsx_tpu/assembly.py`` (host NumPy).  The port
 carries what the Schur path reads: the dof maps (``_build_dof_maps``), the
 coefficient classification of :meth:`HydraulicNetworkAssembler.compute_forms`
 (including the R-generation counter the factor-reuse path keys on), the
+quadrature rule that quad-mode (callable) coefficients are sampled on, the
 per-edge boundary data and :meth:`~HydraulicNetworkAssembler.schur_arguments`.
 Explicit matrix assembly (kinds bcoo/dense/nest/csr) is ROADMAP A8.
 
@@ -190,28 +191,31 @@ class HydraulicNetworkAssembler:
         # Quadrature in along-edge parametrisation (callable coefficients).
         nq = k + 1
         xi, w = elements.gauss_legendre(nq)
+        self._set_quadrature()
+
+        points: list[np.ndarray] = []  # Gauss points of every cell, built once
 
         def _quad_coords() -> np.ndarray:
-            asc = mesh.orientation > 0
-            v_start = np.where(
-                asc[:, None], mesh.vertices[mesh.cells[:, 0]], mesh.vertices[mesh.cells[:, 1]]
-            )
-            v_end = np.where(
-                asc[:, None], mesh.vertices[mesh.cells[:, 1]], mesh.vertices[mesh.cells[:, 0]]
-            )
-            return (
-                v_start[:, None, :] * (1 - xi)[None, :, None]
-                + v_end[:, None, :] * xi[None, :, None]
-            )  # (C, nq, gdim)
+            """(C·nq, gdim) Gauss points in along-edge order; each callable
+            gets its own padded (3, C·nq) copy of them."""
+            if not points:
+                asc = mesh.orientation > 0
+                first = np.where(asc, mesh.cells[:, 0], mesh.cells[:, 1])
+                second = np.where(asc, mesh.cells[:, 1], mesh.cells[:, 0])
+                v_start, v_end = mesh.vertices[first], mesh.vertices[second]
+                pts = (
+                    v_start[:, None, :] * (1 - xi)[None, :, None]
+                    + v_end[:, None, :] * xi[None, :, None]
+                )  # (C, nq, gdim)
+                points.append(pts.reshape(-1, mesh.geometric_dim))
+            return points[0]
 
         def _classify(coeff, default: float) -> tuple[str, np.ndarray]:
             """Classify a coefficient and keep it in its most compact form."""
             if coeff is None:
                 return "scalar", np.array([default])
             if callable(coeff):
-                vals = coeff(
-                    _as_padded_coords(_quad_coords().reshape(-1, mesh.geometric_dim))
-                )
+                vals = coeff(_as_padded_coords(_quad_coords()))
                 return "quad", np.asarray(vals, dtype=np.float64).reshape(C, nq)
             arr = np.asarray(coeff, dtype=np.float64)
             if arr.ndim == 0:
@@ -260,6 +264,29 @@ class HydraulicNetworkAssembler:
         )
         self._edge_end_pbc = np.where(self._edge_end_bif < 0, node_pbc[edges[:, 1]], 0.0)
         self._forms_computed = True
+
+    def _set_quadrature(self) -> None:
+        """Keep the Gauss rule of the quad-mode coefficients on the
+        assembler: weights ``(nq,)`` and basis ``φ (nq, k+1)`` at its points
+        (reference ``assembly.py:348-352, 432-433``)."""
+        xi, w = elements.gauss_legendre(self._k + 1)
+        self._quad_weights = w
+        self._quad_phi = elements.tabulate(self._k, xi)
+
+    def _expand_quad_host(self, mode: str, data: np.ndarray) -> np.ndarray | None:
+        """Expand a compact coefficient to (C, nq), or None if exactly 0
+        (reference ``assembly.py:708-722``)."""
+        C = self._network_mesh.num_cells
+        nq = self._quad_weights.shape[0]
+        if mode == "scalar":
+            if data[0] == 0.0:
+                return None
+            return np.broadcast_to(data.reshape(1, 1), (C, nq))
+        if mode == "edge":
+            return np.broadcast_to(data[self._network_mesh.cell_edge][:, None], (C, nq))
+        if mode == "cell":
+            return np.broadcast_to(data[:, None], (C, nq))
+        return data
 
     def assemble(self, *args, **kwargs):
         """Explicit matrix assembly (kinds bcoo/dense/nest/csr) — not ported."""
@@ -332,7 +359,8 @@ class HydraulicNetworkAssembler:
 
     def schur_arguments(self, device: bool = False):
         """Compact host arguments of the Schur executor:
-        ``(R_data, f_data, edge_start_pbc, edge_end_pbc)`` as NumPy arrays.
+        ``(R_data, f_data, edge_start_pbc, edge_end_pbc)`` as NumPy arrays;
+        a quad-mode coefficient is its ``(C, nq)`` quadrature values.
 
         The executor permutes them into its internal edge order on the host
         and uploads them itself, so only ``device=False`` exists here."""

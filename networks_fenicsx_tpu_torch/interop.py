@@ -24,15 +24,20 @@ STATE_KEYS = (
     "N",  # cells per edge
     "flux_degree",
     "pressure_degree",
-    "R_mode",  # 'scalar' | 'edge' | 'cell'
-    "R_data",  # (1,), (E,) or (C,) float64
+    "R_mode",  # 'scalar' | 'edge' | 'cell' | 'quad'
+    "R_data",  # (1,), (E,), (C,) or (C, nq) float64
     "f_mode",
     "f_data",
     "edge_start_pbc",  # (E,) float64 boundary pressure at edge sources (0 at bifs)
     "edge_end_pbc",  # (E,) float64 boundary pressure at edge targets (0 at bifs)
 )
 
-_SIZES = {"scalar": lambda E, C: 1, "edge": lambda E, C: E, "cell": lambda E, C: C}
+_SHAPES = {
+    "scalar": lambda E, C, nq: (1,),
+    "edge": lambda E, C, nq: (E,),
+    "cell": lambda E, C, nq: (C,),
+    "quad": lambda E, C, nq: (C, nq),  # values at the Gauss points of each cell
+}
 
 
 def assembler_from_reference_state(
@@ -65,15 +70,18 @@ def assembler_from_reference_state(
         pressure_degree=int(state["pressure_degree"]),
     )
     E, C = mesh.num_edges, mesh.num_cells
+    asm._set_quadrature()
+    nq = asm._quad_weights.shape[0]
     coeffs = {}
     for name in ("R", "f"):
         mode = str(state[f"{name}_mode"])
-        if mode not in _SIZES:
-            raise ValueError(f"{name}_mode {mode!r} is not carried over (quad mode: ROADMAP A5)")
-        data = np.array(state[f"{name}_data"], dtype=np.float64).reshape(-1)
-        if data.size != _SIZES[mode](E, C):
+        if mode not in _SHAPES:
+            raise ValueError(f"{name}_mode {mode!r} is not a coefficient mode")
+        data = np.array(state[f"{name}_data"], dtype=np.float64)
+        shape = _SHAPES[mode](E, C, nq)
+        if data.size != int(np.prod(shape)):
             raise ValueError(f"{name}_data has {data.size} entries for mode {mode!r}")
-        coeffs[name] = (mode, data)
+        coeffs[name] = (mode, data.reshape(shape))
     pbc = {}
     for key in ("edge_start_pbc", "edge_end_pbc"):
         arr = np.array(state[key], dtype=np.float64)

@@ -1,10 +1,18 @@
-"""Hand-written CUDA kernels of the blocked forest solve.
+"""Hand-written CUDA kernels of the port.
 
-Each module holds one kernel's wrapper beside its plain PyTorch version:
+Each module holds one kernel's wrapper beside its plain PyTorch version.
+The blocked forest solve (uniformly-K-ary forests):
 
 * :mod:`.condense` — K1, per-edge static condensation;
 * :mod:`.tree_sweep` — K2 + K3 + K4, the level sweep (fold and back-substitution);
 * :mod:`.expand` — K5, λ to the solution blocks.
+
+The general forest solve (any forest, any coefficient mode):
+
+* :mod:`.edge_data` — K8a, element formation and condensation in four layouts;
+* :mod:`.segsum` — K6, exact sorted-segment sums;
+* :mod:`.level_eliminate` — K7, the level-ordered elimination (through K6);
+* :mod:`.backsub` — K8b, λ to the solution blocks.
 
 A wrapper launches its kernel for CUDA tensors (building the library from
 ``csrc/`` at first use, see :mod:`.build`) and runs the plain version for
@@ -12,11 +20,16 @@ CPU tensors.  Each wrapper counts its launches in a plain integer attribute
 ``launches``.
 """
 
-from . import condense, expand, tree_sweep
+from . import backsub, condense, edge_data, expand, level_eliminate, segsum, tree_sweep
 
-__all__ = ["condense", "expand", "tree_sweep", "WRAPPERS", "reset_launches", "launches"]
+__all__ = [
+    "backsub", "condense", "edge_data", "expand", "level_eliminate", "segsum", "tree_sweep",
+    "WRAPPERS", "BLOCKED", "GENERAL", "reset_launches", "launches",
+]
 
-WRAPPERS = (condense.condense, tree_sweep.tree_sweep, expand.expand)
+BLOCKED = (condense.condense, tree_sweep.tree_sweep, expand.expand)
+GENERAL = (segsum.segsum, edge_data.edge_data, level_eliminate.level_eliminate, backsub.backsub)
+WRAPPERS = BLOCKED + GENERAL
 
 
 def reset_launches() -> None:

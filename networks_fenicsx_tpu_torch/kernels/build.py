@@ -25,7 +25,10 @@ __all__ = ["library", "check", "require_cuda", "require_coefficients", "stream_h
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).parent / "_build"
-CUDA_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a")
+# -fmad=false: every product is rounded before it is added, as in the plain
+# versions' separate PyTorch operations, so a kernel and its plain version
+# agree to the last bit where they add in the same order
+CUDA_FLAGS = ("-O3", "-std=c++17", "-fmad=false", "-gencode=arch=compute_90a,code=sm_90a")
 
 _p, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
@@ -46,6 +49,36 @@ _SIGNATURES = {
         _p, _p, _p, _p, _p,  # W, w, g, Ftot, h_e
         _p, _i, _p, _i,  # R, mode, f, mode
         _d, _d, _d, _d, _p,  # condensed matrix, Minv
+        _p, _p, _p, _p,  # q_T, p_T, finite, stream
+    ],
+    "nxfx_segsum": [
+        _i, _i, _i, _i,  # S, K, C, n
+        _p, _p, _p, _p,  # idx, vals, out, stream
+    ],
+    "nxfx_edge_data": [
+        _i, _i, _i, _i, _i,  # layout, E, N, k, nq
+        _p, _p, _i, _p, _i, _i,  # h_e, R, mode, f, mode, elide_f
+        _p, _p, _d, _d, _d,  # wq, wphi, wt, cs0, cs1
+        _p, _p, _p, _p, _p, _p,  # mt, minv, work, cumF, W, g
+        _p, _p, _p, _p,  # rh, ua, uF, stream
+    ],
+    "nxfx_level_prepare": [
+        _i, _p, _p, _p,  # E, W, g, Ftot
+        _p, _p, _p, _p,  # start_pbc, end_pbc, start_bif, end_bif
+        _p, _p, _p, _p,  # w, vt, vs, stream
+    ],
+    "nxfx_level_eliminate": [
+        _i, _i, _p,  # B, L, host level offsets
+        _p, _p, _p, _p,  # parent_pos, parent_pair, child_ptr, perm
+        _p, _p, _p,  # w_pairs, dt_t, dt_s
+        _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam_perm, lam, rhs_norm, stream
+    ],
+    "nxfx_backsub": [
+        _i, _i, _i, _i, _i,  # layout, E, B, N, k
+        _p, _p, _p, _p, _p,  # lam, start_bif, end_bif, start_pbc, end_pbc
+        _p, _p, _p,  # W, g, cumF
+        _p, _p, _p, _i, _p, _p,  # mt, rh, minv, per_cell, ua, uF
+        _d, _d, _d, _d,  # condensed matrix
         _p, _p, _p, _p,  # q_T, p_T, finite, stream
     ],
 }

@@ -1,23 +1,32 @@
-"""Solver for the hydraulic network saddle-point system (blocked forest path).
+"""Solver for the hydraulic network saddle-point system (forest paths).
 
 Counterpart of ``networks_fenicsx_tpu/solver.py``: :class:`Solver`
 (``__init__``, ``assemble``, ``solve``, ``_scatter_functions``,
-``solution_vector``), :func:`build_schur_executor` with the blocked route,
-``_BlockedExecutor`` and its ``prepare_args``, ``_schur_solve`` with the
-same convergence gate, and ``_flatten_blocks_host``.
+``solution_vector``), :func:`build_schur_executor` with the forest routes,
+``_BlockedExecutor`` and its ``prepare_args``, the general forest executor
+(the reference's generic ``core`` + ``_finish`` on a level plan),
+``_schur_solve`` with the same convergence gate, and
+``_flatten_blocks_host``.
 
 With discontinuous (degree-0) pressure the system decouples into per-edge
 chains tied together only by the bifurcation multipliers λ; eliminating
-flux and pressure edge by edge (K1, :mod:`.kernels.condense`) reduces it to
-an SPD weighted graph Laplacian on the bifurcations, which a uniformly-K-ary
-forest eliminates exactly level by level (K2–K4, :mod:`.kernels.tree_sweep`);
-flux and pressure then follow from λ in closed form (K5,
-:mod:`.kernels.expand`).
+flux and pressure edge by edge reduces it to an SPD weighted graph
+Laplacian on the bifurcations, which a forest eliminates exactly level by
+level; flux and pressure then follow from λ edge by edge.  Two routes:
+
+* blocked — uniformly-K-ary forests with cellwise coefficients: K1
+  (:mod:`.kernels.condense`), K2–K4 (:mod:`.kernels.tree_sweep`), K5
+  (:mod:`.kernels.expand`);
+* level — every other forest, and callable (quad-mode) R or f: K8a
+  (:mod:`.kernels.edge_data`), K7 with its K6 sums
+  (:mod:`.kernels.level_eliminate`, :mod:`.kernels.segsum`), K8b
+  (:mod:`.kernels.backsub`).
 
 The device is explicit: ``Solver(asm, device="cuda")`` (the default) runs the
 CUDA kernels and raises when CUDA is absent; ``device="cpu"`` runs their
-plain PyTorch versions.  Everything outside the blocked envelope raises
-``NotImplementedError`` naming its ROADMAP item.
+plain PyTorch versions.  A bifurcation graph with cycles, and everything
+else outside the forest routes, raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,8 +38,10 @@ import torch
 
 from . import assembly as _assembly
 from .blocked import _permute_coefficient, _plan_blocked, device_plan
+from .edge_data import edge_layout
 from .function import NetworkFunction
-from .kernels import condense, expand, tree_sweep
+from .kernels import backsub, condense, edge_data, expand, level_eliminate, tree_sweep
+from .levels import _cached_tree_plan, _plan_level_elimination, device_level_plan
 from .utils.config import SolverOptions
 from .utils.timing import timed
 
@@ -204,11 +215,33 @@ class Solver:
 
 
 # ======================================================================
-# Blocked forest executor
+# Forest executors (blocked and level routes)
 # ======================================================================
 
 
-class _BlockedExecutor:
+class _Executor:
+    """What both forest executors share: the upload of the host arguments
+    and the kernel / plain entry points around the subclass's ``_run``."""
+
+    blocks_out = True
+
+    def upload(self, *arrays) -> list[torch.Tensor]:
+        """Host arrays -> contiguous float64 tensors on the executor's device."""
+        return [
+            torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64), device=self._device)
+            for a in arrays
+        ]
+
+    def __call__(self, R_data, f_data, start_pbc, end_pbc):
+        return self._run(R_data, f_data, start_pbc, end_pbc, plain=False)
+
+    def plain(self, R_data, f_data, start_pbc, end_pbc):
+        """The same solve through the kernels' plain PyTorch versions, on the
+        executor's device — what the kernels are checked against."""
+        return self._run(R_data, f_data, start_pbc, end_pbc, plain=True)
+
+
+class _BlockedExecutor(_Executor):
     """The blocked forest solve on one device.
 
     Holds the host plan, its index tensors and the internal-order cell
@@ -219,8 +252,6 @@ class _BlockedExecutor:
     reference's 7-tuple blocks contract
     ``(q_T, p_T, lam, iters, residual, rhs_norm, finite)`` in internal order
     (``edge_order``/``bif_order`` map it back to the public layout)."""
-
-    blocks_out = True
 
     def __init__(self, asm, plan, R_mode: str, f_mode: str, device: torch.device):
         mesh = asm.network
@@ -252,21 +283,6 @@ class _BlockedExecutor:
             np.asarray(end_pbc)[eo],
         )
 
-    def upload(self, *arrays) -> list[torch.Tensor]:
-        """Host arrays -> contiguous float64 tensors on the executor's device."""
-        return [
-            torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64), device=self._device)
-            for a in arrays
-        ]
-
-    def __call__(self, R_data, f_data, start_pbc, end_pbc):
-        return self._run(R_data, f_data, start_pbc, end_pbc, plain=False)
-
-    def plain(self, R_data, f_data, start_pbc, end_pbc):
-        """The same solve through the kernels' plain PyTorch versions, on the
-        executor's device — what the kernels are checked against."""
-        return self._run(R_data, f_data, start_pbc, end_pbc, plain=True)
-
     def _run(self, R_data, f_data, start_pbc, end_pbc, plain: bool):
         R, f, sp, ep = self.upload(R_data, f_data, start_pbc, end_pbc)
         dp, N, k = self.device_plan, self._N, self._k
@@ -292,19 +308,80 @@ class _BlockedExecutor:
         return q_T, p_T, lam, iters, residual, rhs_norm, finite
 
 
+class _LevelExecutor(_Executor):
+    """The general forest solve on one device (the reference's generic
+    ``core`` and ``_finish`` on a level plan).
+
+    Holds the host tree and level plans, the level plan's index tensors
+    and the per-edge cell widths (uploaded once).  Edges and bifurcations
+    stay in public order: ``prepare_args`` passes the assembler's compact
+    arguments through, ``__call__`` uploads them and runs K8a → K6 + K7 →
+    K8b (``plain`` runs their plain versions instead), returning the
+    reference's 7-tuple blocks contract
+    ``(q_T, p_T, lam, iters, residual, rhs_norm, finite)``; ``edge_order``
+    and ``bif_order`` are None."""
+
+    edge_order = None
+    bif_order = None
+
+    def __init__(self, asm, tree_plan, level_plan, R_mode, f_mode, f_is_zero, device):
+        mesh = asm.network
+        self.tree_plan = tree_plan
+        self.level_plan = level_plan
+        self._N = mesh.N
+        self._k = asm.flux_degree
+        self._R_mode = R_mode
+        self._f_mode = f_mode
+        self._f_is_zero = bool(f_is_zero)
+        self.layout = edge_layout(self._k, R_mode, f_mode)
+        self._device = device
+        self.device_plan = device_level_plan(level_plan, tree_plan, device)
+        self._h_e = torch.as_tensor(
+            np.asarray(mesh.edge_length, dtype=np.float64) / mesh.N, device=device
+        )
+        self._quad_w, self._quad_phi = self.upload(asm._quad_weights, asm._quad_phi)
+
+    def prepare_args(self, R_data, f_data, start_pbc, end_pbc):
+        return R_data, f_data, start_pbc, end_pbc
+
+    def _run(self, R_data, f_data, start_pbc, end_pbc, plain: bool):
+        R, f, sp, ep = self.upload(R_data, f_data, start_pbc, end_pbc)
+        if plain:
+            make, eliminate, expand_lam = (
+                edge_data.edge_data_plain,
+                level_eliminate.level_eliminate_plain,
+                backsub.backsub_plain,
+            )
+        else:
+            make, eliminate, expand_lam = (
+                edge_data.edge_data, level_eliminate.level_eliminate, backsub.backsub
+            )
+        dlp, N, k = self.device_plan, self._N, self._k
+        ed = make(
+            dlp, N, k, self._h_e, self._quad_w, self._quad_phi, R, f,
+            self._R_mode, self._f_mode, self._f_is_zero, sp, ep,
+        )
+        lam, rhs_norm = eliminate(dlp, ed)
+        q_T, p_T, finite = expand_lam(ed, lam, N, k)
+        iters = torch.zeros((), dtype=torch.int32, device=self._device)
+        residual = torch.zeros((), dtype=torch.float64, device=self._device)
+        return q_T, p_T, lam, iters, residual, rhs_norm, finite
+
+
 def build_schur_executor(
     asm: _assembly.HydraulicNetworkAssembler,
     opts: SolverOptions,
     device: torch.device | str = "cuda",
-) -> _BlockedExecutor:
-    """Build the blocked forest executor, or raise ``NotImplementedError``
-    (naming the ROADMAP item) outside its envelope.
+) -> _BlockedExecutor | _LevelExecutor:
+    """Build the forest executor, or raise ``NotImplementedError`` (naming
+    the ROADMAP item) outside the forest routes.
 
-    The reference routes ``Solver`` through
-    ``build_schur_executor(outputs="blocks", internal_layout=True)`` to the
-    blocked-sibling plan on uniformly-K-ary forests; that route is the one
-    the port has.  ``level_scan="on"`` runs the same kernels (the two
-    reference variants are pinned equal)."""
+    Routes as the reference's
+    ``build_schur_executor(outputs="blocks", internal_layout=True)`` does
+    on a forest: the tree plan, then the level plan; the blocked executor
+    when ``_plan_blocked`` succeeds and neither coefficient is quad-mode,
+    the level executor otherwise.  ``level_scan="on"`` runs the same
+    kernels (the two reference variants are pinned equal)."""
     if opts.dtype != "float64" or opts.output_dtype not in ("same", "float64"):
         raise NotImplementedError("ROADMAP A4: float32 solves and outputs are not ported yet")
     if opts.schur_method not in ("auto", "tree"):
@@ -314,24 +391,31 @@ def build_schur_executor(
         )
     if asm.pressure_degree != 0:
         raise ValueError("schur method requires discontinuous (degree-0) pressure")
-    R_mode, f_mode, _ = asm.coefficient_modes()
-    if "quad" in (R_mode, f_mode):
+    device = resolve_device(device)
+    if asm.network.num_multipliers == 0:
         raise NotImplementedError(
-            "ROADMAP A5: callable (quadrature-mode) R or f is not ported yet"
+            "ROADMAP A6: a network without bifurcations takes the reference's dense "
+            "route, which is not ported yet"
         )
-    plan = _plan_blocked(asm)
-    if plan is None:
+    R_mode, f_mode, f_zero = asm.coefficient_modes()
+    tree_plan = _cached_tree_plan(asm)
+    if tree_plan.core_size > 0:
         raise NotImplementedError(
-            "the network is not a uniformly-K-ary forest: general forests are "
-            "ROADMAP A5, cyclic cores A6 and lattices A7"
+            f"ROADMAP A6/A7: the bifurcation graph has a cycle core of {tree_plan.core_size} "
+            "nodes; peel + core elimination is ROADMAP A6 and lattice solves are A7"
         )
-    return _BlockedExecutor(asm, plan, R_mode, f_mode, resolve_device(device))
+    if "quad" not in (R_mode, f_mode):
+        plan = _plan_blocked(asm)
+        if plan is not None:
+            return _BlockedExecutor(asm, plan, R_mode, f_mode, device)
+    level_plan = _plan_level_elimination(asm, tree_plan)
+    return _LevelExecutor(asm, tree_plan, level_plan, R_mode, f_mode, f_zero, device)
 
 
 def _schur_solve(
     asm: _assembly.HydraulicNetworkAssembler,
     opts: SolverOptions,
-    executor: _BlockedExecutor,
+    executor: _BlockedExecutor | _LevelExecutor,
 ) -> tuple[np.ndarray, SolveInfo]:
     args = executor.prepare_args(*asm.schur_arguments(device=False))
     q_T, p_T, lam, iters, residual, rhs_norm, finite = executor(*args)
@@ -340,14 +424,14 @@ def _schur_solve(
         p_T.cpu().numpy(),
         lam.cpu().numpy(),
         asm.network.edge_color,
-        edge_order=executor.edge_order,
-        bif_order=executor.bif_order,
+        edge_order=getattr(executor, "edge_order", None),
+        bif_order=getattr(executor, "bif_order", None),
     )
     residual = float(residual)
     rhs_norm = float(rhs_norm)
-    # Direct-solve convergence gate of the reference: the blocked
-    # elimination reports residual 0 and no conditioning hint, so it holds
-    # exactly when every precursor of the solution is finite.
+    # Direct-solve convergence gate of the reference: the forest
+    # eliminations report residual 0 and no conditioning hint, so it holds
+    # exactly when the solution (or every precursor of it) is finite.
     kappa = 0.0
     floor = 64.0 * float(np.finfo(np.float64).eps) * kappa * rhs_norm
     converged = (

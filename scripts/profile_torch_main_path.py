@@ -1,7 +1,15 @@
-"""Where the time of the port's main path goes, on one GPU.
+"""Where the time of the port's main paths goes, on one GPU.
 
-Builds the benchmark configuration (16-generation arterial tree, N = 40,
-Poiseuille R, p_bc = y; 5,341,102 dofs), then
+Builds one configuration of ``chip_smoke.py`` (``--path``):
+
+* ``blocked`` — the benchmark configuration (16-generation arterial tree,
+  N = 40, Poiseuille R, p_bc = y; 5,341,102 dofs), blocked route;
+* ``callable`` — the same tree with callable R and f (5,341,102 dofs),
+  general level route;
+* ``forest`` — the 100,001-vessel irregular forest, N = 8, flux degree 2
+  (2,563,442 dofs), general level route;
+
+then
 
 1. times each phase of ``compute_forms`` + ``Solver.solve`` on the host
    clock, CUDA-synchronised at every phase boundary (best of ``--reps``);
@@ -10,7 +18,7 @@ Poiseuille R, p_bc = y; 5,341,102 dofs), then
 
 Run from the repository root on a machine with a CUDA device::
 
-    python3 scripts/profile_torch_main_path.py [--generations 16] [--reps 5]
+    python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
 
 Prints one JSON object; ``--out`` also writes it to a file.
 """
@@ -29,6 +37,7 @@ import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
+import chip_smoke  # noqa: E402
 import networks_fenicsx_tpu_torch as P  # noqa: E402
 from networks_fenicsx_tpu_torch.solver import _flatten_blocks_host  # noqa: E402
 
@@ -38,11 +47,33 @@ def sync_clock() -> float:
     return time.perf_counter()
 
 
-def phases(asm, solver, R) -> dict[str, float]:
+def configure(path: str, generations: int):
+    """``(assembler, forms)`` of a main path; ``forms(asm)`` recomputes its
+    coefficient data, as a user changing them between solves would."""
+    if path == "blocked":
+        net = P.network_generation.make_arterial_tree(generations, direction=[0.1, 1, 0],
+                                                      arrays=True)
+        mesh = P.NetworkMesh(net, N=40, color_strategy="fast")
+        asm = P.HydraulicNetworkAssembler(mesh)
+        R = 1.0 / mesh.edge_radius**4
+
+        def forms(a):
+            a.compute_forms(p_bc_ex=lambda x: x[1], R=R)
+    elif path == "callable":
+        asm = chip_smoke.callable_assembler(P, generations)
+        forms = chip_smoke.callable_forms
+    else:
+        asm = chip_smoke.forest_assembler(P, chip_smoke.forest_mesh(P))
+        forms = chip_smoke.forest_forms
+    forms(asm)
+    return asm, forms
+
+
+def phases(asm, solver, forms) -> dict[str, float]:
     """One compute_forms + solve, split at its phase boundaries (ms)."""
     ex = solver._executor
     t = [sync_clock()]
-    asm.compute_forms(p_bc_ex=lambda x: x[1], R=R)
+    forms(asm)
     t.append(sync_clock())
     args = ex.prepare_args(*asm.schur_arguments())
     t.append(sync_clock())
@@ -53,7 +84,8 @@ def phases(asm, solver, R) -> dict[str, float]:
     host = [out[0].cpu().numpy(), out[1].cpu().numpy(), out[2].cpu().numpy()]
     t.append(sync_clock())
     x = _flatten_blocks_host(*host, asm.network.edge_color,
-                             edge_order=ex.edge_order, bif_order=ex.bif_order)
+                             edge_order=getattr(ex, "edge_order", None),
+                             bif_order=getattr(ex, "bif_order", None))
     t.append(sync_clock())
     solver._scatter_functions(None, x)
     t.append(sync_clock())
@@ -65,6 +97,7 @@ def phases(asm, solver, R) -> dict[str, float]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("blocked", "callable", "forest"), default="blocked")
     ap.add_argument("--generations", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", type=pathlib.Path, default=None)
@@ -77,16 +110,11 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
 
-    net = P.network_generation.make_arterial_tree(args.generations, direction=[0.1, 1, 0],
-                                                  arrays=True)
-    mesh = P.NetworkMesh(net, N=40, color_strategy="fast")
-    asm = P.HydraulicNetworkAssembler(mesh)
-    R = 1.0 / mesh.edge_radius**4
-    asm.compute_forms(p_bc_ex=lambda x: x[1], R=R)
+    asm, forms = configure(args.path, args.generations)
     solver = P.Solver(asm, device="cuda")
     solver.solve()  # builds the kernels and the executor
 
-    runs = [phases(asm, solver, R) for _ in range(args.reps)]
+    runs = [phases(asm, solver, forms) for _ in range(args.reps)]
     best = {k: min(r[k] for r in runs) for k in runs[0]}
 
     solve_ms = []
@@ -108,6 +136,8 @@ def main() -> int:
     mean_solve = float(np.mean(solve_ms))
     result = {
         "card": card,
+        "path": args.path,
+        "executor": type(solver._executor).__name__,
         "dofs": asm.num_dofs,
         "phase_best_ms": best,
         "solve_ms_profiled": solve_ms,

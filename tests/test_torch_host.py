@@ -170,11 +170,13 @@ def _coefficient(rng, kind, E, C):
         "scalar": 1.7,
         "edge": rng.uniform(0.5, 2.0, E),
         "cell": rng.uniform(0.5, 2.0, C),
+        "quad": lambda x: 1.0 + 0.5 * x[1] ** 2 - 0.2 * x[0],
     }[kind]
 
 
 @pytest.mark.parametrize("R_kind,f_kind", [
     ("none", "none"), ("scalar", "scalar"), ("edge", "edge"), ("cell", "cell"), ("edge", "cell"),
+    ("quad", "quad"), ("cell", "quad"),
 ])
 def test_schur_arguments_equal(R_kind, f_kind):
     rng = np.random.default_rng(2)
@@ -188,6 +190,11 @@ def test_schur_arguments_equal(R_kind, f_kind):
     assert aj.coefficient_modes() == ap.coefficient_modes()
     for a, b in zip(aj.schur_arguments(device=False), ap.schur_arguments()):
         assert np.array_equal(a, b)
+    assert np.array_equal(aj._quad_weights, ap._quad_weights)
+    assert np.array_equal(aj._quad_phi, ap._quad_phi)
+    for mode, data in ((ap._R_mode, ap._R_data), (ap._f_mode, ap._f_data)):
+        a, b = aj._expand_quad_host(mode, data), ap._expand_quad_host(mode, data)
+        assert (a is None and b is None) or np.array_equal(a, b)
 
 
 def test_r_generation_counter_equal():
@@ -356,6 +363,31 @@ def test_interop_rejects_bad_state():
         interop.assembler_from_reference_state({k: state[k] for k in list(state)[:-3]})
     with pytest.raises(ValueError, match="entries"):
         interop.assembler_from_reference_state({**state, "R_mode": "edge"})
+    with pytest.raises(ValueError, match="entries"):
+        interop.assembler_from_reference_state({**state, "R_mode": "quad"})
+    with pytest.raises(ValueError, match="not a coefficient mode"):
+        interop.assembler_from_reference_state({**state, "R_mode": "cellwise"})
+
+
+def test_interop_carries_quad_mode():
+    """Callable R and f arrive as their (C, nq) quadrature values; the
+    carried assembler solves to the same bits as one given the callables."""
+    G = J.network_generation.make_arterial_tree(5, direction=[0.1, 1, 0], arrays=True)
+    forms = dict(p_bc_ex=lambda x: x[1], R=lambda x: 1 + 0.5 * x[1] ** 2, f=lambda x: 0.1 * x[0])
+    aj = J.HydraulicNetworkAssembler(J.NetworkMesh(G, N=3, color_strategy="fast"), flux_degree=2)
+    aj.compute_forms(**forms)
+    carried = interop.assembler_from_reference_state(reference_state(aj), color_strategy="fast")
+    mp = P.NetworkMesh(P.ArrayNetwork(G.pos, G.edges, G.radius), N=3, color_strategy="fast")
+    ap = P.HydraulicNetworkAssembler(mp, flux_degree=2)
+    ap.compute_forms(**forms)
+    assert carried.coefficient_modes() == ap.coefficient_modes() == ("quad", "quad", False)
+    for a, b in zip(carried.schur_arguments(), ap.schur_arguments()):
+        assert np.array_equal(a, b)
+    x_carried = np.concatenate([fn.values for fn in P.Solver(carried, device="cpu").solve()])
+    x_port = np.concatenate([fn.values for fn in P.Solver(ap, device="cpu").solve()])
+    assert np.array_equal(x_carried, x_port)
+    x_ref = np.concatenate([np.ravel(fn.values) for fn in J.Solver(aj).solve()])
+    np.testing.assert_allclose(x_port, x_ref, rtol=0, atol=1e-12 * max(1.0, np.abs(x_ref).max()))
 
 
 def test_timing_registry():

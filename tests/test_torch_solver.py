@@ -1,10 +1,11 @@
 """``Solver.solve()`` of the PyTorch port against the JAX reference.
 
 The port runs on ``device="cpu"`` here (the kernels' plain versions); it
-must equal the reference's blocked forest solve at 1e-12·scale (scale =
-max(1, max |x|)) on the cases of ``tests/test_blocked.py``, match every
-golden the reference serves through its blocked executor at 1e-10, and
-raise ``NotImplementedError`` outside that envelope.
+must equal the reference's forest solves at 1e-12·scale (scale = max(1,
+max |x|)) — the blocked route on the cases of ``tests/test_blocked.py``, the
+general level route on irregular forests and callable (quad-mode)
+coefficients — match every golden the reference serves on a forest at
+1e-10, and raise ``NotImplementedError`` outside the forest routes.
 """
 
 import ast
@@ -19,6 +20,9 @@ import torch
 import networks_fenicsx_tpu as J
 import networks_fenicsx_tpu_torch as P
 from networks_fenicsx_tpu import solver as JS
+from networks_fenicsx_tpu_torch import levels as PL
+from networks_fenicsx_tpu_torch import solver as PS
+from networks_fenicsx_tpu_torch.ops import elements
 
 from _torch_cases import arterial, asymmetric, kary
 
@@ -29,16 +33,29 @@ GOLDEN_DIR = Path(__file__).parent / "goldens"
 GOLDEN_NAMES = sorted(p.stem for p in GOLDEN_DIR.glob("*.json"))
 
 
+class Quad:
+    """A coordinate callable handed to ``compute_forms`` as it is (quad mode)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+
+def _coefficient(spec, mesh):
+    if isinstance(spec, Quad):
+        return spec.fn
+    return spec(mesh) if callable(spec) else spec
+
+
 def _solve_both(graph_fn, N=3, k=1, R=None, f=None, p_bc=lambda x: x[0] + 0.7 * x[1],
-                options=None, strategy="fast"):
-    """Solve the same problem with both packages; returns (x_jax, x_port, port solver)."""
+                options=None, strategy="fast", route="blocked"):
+    """Solve the same problem with both packages; returns (x_jax, x_port,
+    port solver).  ``route`` is the port executor's: ``"blocked"`` (the
+    reference's blocked executor too) or ``"level"``."""
     xs = []
     for pkg in (J, P):
         mesh = pkg.NetworkMesh(graph_fn(pkg), N=N, color_strategy=strategy)
         asm = pkg.HydraulicNetworkAssembler(mesh, flux_degree=k)
-        Rv = R(mesh) if callable(R) else R
-        fv = f(mesh) if callable(f) else f
-        asm.compute_forms(p_bc_ex=p_bc, R=Rv, f=fv)
+        asm.compute_forms(p_bc_ex=p_bc, R=_coefficient(R, mesh), f=_coefficient(f, mesh))
         kw = {"device": "cpu"} if pkg is P else {}
         s = pkg.Solver(asm, options=options, **kw)
         s.assemble()
@@ -46,7 +63,9 @@ def _solve_both(graph_fn, N=3, k=1, R=None, f=None, p_bc=lambda x: x[0] + 0.7 * 
         assert s.info.converged
         xs.append(np.concatenate([np.ravel(fn.values) for fn in sol]))
         if pkg is J:
-            assert isinstance(s._executor, JS._BlockedExecutor)
+            assert isinstance(s._executor, JS._BlockedExecutor) == (route == "blocked")
+    want = PS._BlockedExecutor if route == "blocked" else PS._LevelExecutor
+    assert isinstance(s._executor, want)
     return xs[0], xs[1], s
 
 
@@ -107,6 +126,95 @@ CASES = {
 def test_solve_matches_reference(name):
     x_ref, x_port, _ = _solve_both(**CASES[name])
     _assert_equal_at_scale(x_port, x_ref)
+
+
+def _irregular(pkg):
+    """``test_solver.py``'s irregular forest: the spanning tree of a
+    120-site Delaunay web."""
+    return pkg.network_generation.make_random_network(120, keep=0.0, seed=5, arrays=True)
+
+
+LEVEL_CASES = {
+    "arterial6_callable_R_f": dict(
+        graph_fn=lambda pkg: arterial(pkg, 6), N=4,
+        R=Quad(lambda x: 1 + 0.5 * x[1] ** 2), f=Quad(lambda x: 0.1 * x[0]),
+        p_bc=lambda x: x[1],
+    ),
+    "irregular_forest": dict(
+        graph_fn=_irregular, N=2, R=_per_edge(0.5, 2.0, 11), f=_per_edge(-1.0, 1.0, 12),
+        p_bc=lambda x: x[0],
+    ),
+    "irregular_edge_R_scalar_f": dict(
+        graph_fn=_irregular, N=3, R=_per_edge(0.5, 2.0, 3), f=0.7, p_bc=lambda x: x[0],
+    ),
+    "irregular_cell_R_k2": dict(
+        graph_fn=_irregular, N=3, k=2, R=_per_cell(0.5, 2.0, 4), f=_per_cell(-1.0, 1.0, 5),
+        p_bc=lambda x: x[0] - x[1],
+    ),
+    "quad_R_k2": dict(
+        graph_fn=lambda pkg: pkg.network_generation.make_tree(4, 1.5, 2.0, arrays=True), N=3, k=2,
+        R=Quad(lambda x: 1 + x[0] ** 2 + 0.3 * x[1]), f=0.4, p_bc=lambda x: x[1],
+    ),
+    "quad_R_k3": dict(
+        graph_fn=lambda pkg: pkg.network_generation.make_tree(4, 1.5, 2.0, arrays=True), N=3, k=3,
+        R=Quad(lambda x: 1 + x[0] ** 2 + 0.3 * x[1]), f=Quad(lambda x: np.sin(x[1])),
+        p_bc=lambda x: x[1],
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LEVEL_CASES))
+def test_level_route_matches_reference(name):
+    x_ref, x_port, s = _solve_both(**LEVEL_CASES[name], route="level")
+    _assert_equal_at_scale(x_port, x_ref)
+    assert s._executor.edge_order is None and s._executor.bif_order is None
+
+
+def test_callable_resistance_y_analytic_and_reference():
+    """``test_solver.py``'s callable-R Y: λ is the conductance-weighted mean
+    of the boundary pressures, with each edge's resistance the 2-point
+    Gauss sum of R over its cells."""
+    R = lambda x: 1.0 + 0.5 * x[1] ** 2  # noqa: E731
+    x_ref, x_port, s = _solve_both(
+        lambda pkg: pkg.network_generation.make_tree(2, 1, 3), N=3, R=Quad(R),
+        p_bc=lambda x: x[1], strategy=None, route="level",
+    )
+    _assert_equal_at_scale(x_port, x_ref)
+    mesh = s.assembler.network
+    xi, w = elements.gauss_legendre(2)
+    W = np.zeros(mesh.num_edges)
+    for c in range(mesh.num_cells):
+        a, b = mesh.vertices[mesh.cells[c]]
+        X = np.zeros((3, xi.size))
+        X[: a.size] = (a[None, :] + xi[:, None] * (b - a)[None, :]).T
+        W[mesh.cell_edge[c]] += mesh.cell_h[c] * np.sum(w * R(X))
+    p_ends = np.where(mesh.edges[:, 0] == mesh.bifurcation_values[0],
+                      mesh.vertices[mesh.edges[:, 1], 1], mesh.vertices[mesh.edges[:, 0], 1])
+    lam = -np.sum(p_ends / W) / np.sum(1.0 / W)
+    assert abs(x_port[-1] - lam) <= 1e-12
+
+
+def test_source_zero_and_nonzero_in_turn_on_one_solver():
+    """The executor cache keys on the full coefficient_modes() tuple: a
+    zero-source executor (which elides the source) is not reused for a
+    nonzero source, and back."""
+    R = _per_cell(0.5, 2.0, 8)
+    solvers = {}
+    outs = {pkg: [] for pkg in (J, P)}
+    for f in (None, 0.9, None, 0.0, -0.4):
+        for pkg in (J, P):
+            if pkg not in solvers:
+                mesh = pkg.NetworkMesh(_irregular(pkg), N=3, color_strategy="fast")
+                asm = pkg.HydraulicNetworkAssembler(mesh)
+                solvers[pkg] = pkg.Solver(asm, **({"device": "cpu"} if pkg is P else {}))
+            s = solvers[pkg]
+            s.assembler.compute_forms(p_bc_ex=lambda x: x[0], R=R(s.assembler.network), f=f)
+            outs[pkg].append(np.concatenate([fn.values for fn in s.solve()]))
+    assert solvers[P]._executor_key == solvers[P].assembler.coefficient_modes()
+    for x_ref, x_port in zip(outs[J], outs[P]):
+        _assert_equal_at_scale(x_port, x_ref)
+    assert not np.allclose(outs[P][0], outs[P][1])
+    assert np.array_equal(outs[P][0], outs[P][2])
 
 
 def test_level_scan_runs_the_same_kernels():
@@ -180,16 +288,18 @@ def _check_golden(golden, mesh, asm, sol, tol):
 
 @pytest.mark.parametrize("name", GOLDEN_NAMES)
 def test_goldens(name):
-    """Every golden the reference serves through its blocked executor
-    matches at 1e-10; the others raise NotImplementedError in the port."""
+    """Every golden the reference serves on a forest — blocked or through
+    its level plan — matches at 1e-10; the others raise
+    NotImplementedError in the port."""
     golden = json.loads((GOLDEN_DIR / f"{name}.json").read_text())
     _, asm_ref = _golden_problem(J, golden)
     ex = JS.build_schur_executor(
         asm_ref, J.SolverOptions(), jit=False, outputs="blocks", internal_layout=True
     )
+    forest = JS._plan_level_elimination(asm_ref, JS._cached_tree_plan(asm_ref)) is not None
     mesh, asm = _golden_problem(P, golden)
     solver = P.Solver(asm, device="cpu")
-    if not isinstance(ex, JS._BlockedExecutor):
+    if not (isinstance(ex, JS._BlockedExecutor) or forest):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             solver.solve()
         return
@@ -203,7 +313,7 @@ def test_goldens_outside_envelope_are_grid_and_web():
     for name in ("grid5x4", "web48"):
         golden = json.loads((GOLDEN_DIR / f"{name}.json").read_text())
         _, asm = _golden_problem(P, golden)
-        with pytest.raises(NotImplementedError, match="ROADMAP A5.*A6.*A7"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A6.*cycle core.*A7"):
             P.Solver(asm, device="cpu").solve()
 
 
@@ -224,8 +334,7 @@ def _tree_assembler(k=1, kp=0, **forms):
                       options=P.SolverOptions(dtype="float32")).solve(), "ROADMAP A4"),
     (lambda: P.Solver(_tree_assembler(), device="cpu",
                       options=P.SolverOptions(schur_method="cg")).solve(), "ROADMAP A7"),
-    (lambda: P.Solver(_tree_assembler(R=lambda x: 1.0 + x[0] ** 2), device="cpu").solve(),
-     "ROADMAP A5"),
+    (lambda: PL._cached_tree_plan(_tree_assembler(), attach=True), "ROADMAP A6"),
     (lambda: _tree_assembler().assemble(), "ROADMAP A8"),
 ])
 def test_outside_envelope_raises(make, match):
