@@ -14,22 +14,39 @@ The general forest solve (any forest, any coefficient mode):
 * :mod:`.level_eliminate` — K7, the level-ordered elimination (through K6);
 * :mod:`.backsub` — K8b, λ to the solution blocks.
 
+The cyclic solve (peel rounds, then the cycle core), after K8a and before K8b:
+
+* :mod:`.peel` — K9, the bifurcation system and the peel rounds
+  (``lambda_system``, ``peel``);
+* :mod:`.fold` — K10, the multi-level gather-fold sums, on K6's kernel;
+* :mod:`.dense_core` — K11, the dense core of at most 512 nodes;
+* :mod:`.mf_factor` — K13 + K14, the multifrontal factor;
+* :mod:`.mf_apply` — K15, the multifrontal apply with its refinement.
+
 A wrapper launches its kernel for CUDA tensors (building the library from
 ``csrc/`` at first use, see :mod:`.build`) and runs the plain version for
 CPU tensors.  Each wrapper counts its launches in a plain integer attribute
 ``launches``.
 """
 
-from . import backsub, condense, edge_data, expand, level_eliminate, segsum, tree_sweep
+from . import (
+    backsub, condense, dense_core, edge_data, expand, fold, level_eliminate, mf_apply, mf_factor,
+    peel, segsum, tree_sweep,
+)
 
 __all__ = [
-    "backsub", "condense", "edge_data", "expand", "level_eliminate", "segsum", "tree_sweep",
-    "WRAPPERS", "BLOCKED", "GENERAL", "reset_launches", "launches",
+    "backsub", "condense", "dense_core", "edge_data", "expand", "fold", "level_eliminate",
+    "mf_apply", "mf_factor", "peel", "segsum", "tree_sweep",
+    "WRAPPERS", "BLOCKED", "GENERAL", "CYCLIC", "reset_launches", "launches",
 ]
 
 BLOCKED = (condense.condense, tree_sweep.tree_sweep, expand.expand)
 GENERAL = (segsum.segsum, edge_data.edge_data, level_eliminate.level_eliminate, backsub.backsub)
-WRAPPERS = BLOCKED + GENERAL
+CYCLIC = (
+    fold.fold_apply, peel.lambda_system, peel.peel, dense_core.dense_core,
+    mf_factor.mf_factor, mf_apply.mf_apply,
+)
+WRAPPERS = BLOCKED + GENERAL + CYCLIC
 
 
 def reset_launches() -> None:

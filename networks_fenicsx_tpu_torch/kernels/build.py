@@ -55,6 +55,10 @@ _SIGNATURES = {
         _i, _i, _i, _i,  # S, K, C, n
         _p, _p, _p, _p,  # idx, vals, out, stream
     ],
+    "nxfx_segsum_into": [
+        _i, _i, _i, _i,  # S, K, C, n
+        _p, _p, _p, _p, _p,  # idx, vals, bins, out, stream
+    ],
     "nxfx_edge_data": [
         _i, _i, _i, _i, _i,  # layout, E, N, k, nq
         _p, _p, _i, _p, _i, _i,  # h_e, R, mode, f, mode, elide_f
@@ -81,6 +85,46 @@ _SIGNATURES = {
         _d, _d, _d, _d,  # condensed matrix
         _p, _p, _p, _p,  # q_T, p_T, finite, stream
     ],
+    "nxfx_lambda_prepare": [
+        _i, _p, _p, _p,  # E, W, g, Ftot
+        _p, _p, _p, _p,  # start_pbc, end_pbc, start_bif, end_bif
+        _p, _p, _p, _p,  # w, vt, vs, stream
+    ],
+    "nxfx_rhs_norm": [_i, _p, _p, _p],  # B, dr, out, stream
+    "nxfx_peel_forward": [
+        _i, _p, _p, _p, _i,  # n, elim, parents, pair_ids, has_pairs
+        _p, _p,  # w_pairs, dr
+        _p, _p, _p, _p, _p,  # w, db, rb, terms, stream
+    ],
+    "nxfx_peel_parents": [_i, _p, _p, _p, _p],  # U, upar, s, dr, stream
+    "nxfx_core_gather": [_i, _p, _p, _p, _p, _p],  # n, nodes, dr, dc, rc, stream
+    "nxfx_core_scatter": [_i, _p, _p, _p, _p],  # n, nodes, x, lam, stream
+    "nxfx_peel_back": [
+        _i, _p, _p,  # n, elim, parents
+        _p, _p, _p, _p, _p,  # w, db, rb, lam, stream
+    ],
+    "nxfx_dense_core": [
+        _i, _i, _i, _p, _p, _p, _p,  # n, P0, n_refine, ci, cj, pid, w_pairs
+        _p, _p, _p, _p, _p, _p, _p,  # dc, rc, Lc, C, x, ok, stream
+    ],
+    "nxfx_mf_factor": [
+        _i, _p, _p, _i, _i,  # G, host group table, consume table, n_core, P0
+        _p, _p, _p,  # init_slot, w_pairs, dc
+        _p, _p, _p, _p, _p,  # nodes_all, cval_all, ccol_all, cidx_all, lminv_all
+        _p, _p, _p, _p, _p,  # vals, fac, pools, ok, stream
+    ],
+    "nxfx_mf_sweep": [
+        _i, _p, _p, _i, _i,  # G, host group table, consume table, n_core, lam_len
+        _p, _p, _p, _p, _p, _p,  # rc, nodes_all, bndpos_all, cidx_all, lminv_all, lam_pos
+        _p, _p, _p, _p, _p, _i, _p,  # fac, vpools, ys, lam, x, accumulate, stream
+    ],
+    "nxfx_mf_terms": [_i, _p, _p, _p, _p, _p, _p, _p],  # P0, vals, pci, pcj, x, ti, tj, stream
+    "nxfx_mf_residual": [
+        _i, _p, _p, _p,  # n, rc, dc, x
+        _p, _i, _p, _p, _i, _p,  # inv_i, n_i, si, inv_j, n_j, sj
+        _p, _p,  # r, stream
+    ],
+    "nxfx_mf_gate": [_i, _p, _p, _p],  # n, ok, x, stream
 }
 
 
@@ -89,8 +133,9 @@ def sources() -> list[pathlib.Path]:
 
 
 def source_digest() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(CUDA_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

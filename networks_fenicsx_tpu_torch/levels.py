@@ -2,15 +2,17 @@
 
 Counterpart of the tree and level planners in
 ``networks_fenicsx_tpu/solver.py``: ``_TreePlan`` and
-``_plan_tree_elimination`` (``:1617-1733``), ``_cached_tree_plan``
-(``:3384-3410``, without the attached core plan), ``_LevelPlan`` and
-``_plan_level_elimination`` (``:1820-1965``).  The same inputs give
-``np.array_equal`` plans, so the elimination order, and with it every
-rounding, follows the reference.
+``_plan_tree_elimination`` (``:1617-1733``), ``attach_core_plan``
+(``:1735-1817``, its multifrontal branch), ``_cached_tree_plan``
+(``:3384-3410``), ``_LevelPlan`` and ``_plan_level_elimination``
+(``:1820-1965``), ``_LambdaPlan`` and ``_build_lambda_plan``
+(``:673-697``).  The same inputs give ``np.array_equal`` plans, so the
+elimination order, and with it every rounding, follows the reference.
 
 :func:`device_level_plan` flattens a level plan into the index tensors the
 general-forest kernels read (:mod:`.kernels.segsum`,
-:mod:`.kernels.level_eliminate`, :mod:`.kernels.backsub`).
+:mod:`.kernels.level_eliminate`, :mod:`.kernels.backsub`); the cyclic
+counterpart is :func:`.tree.device_tree_plan`.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import torch
 
 __all__ = [
     "DeviceLevelPlan",
+    "MinDegreeCorePlan",
+    "attach_core_plan",
     "device_level_plan",
     "flatten_level_plan",
     "segsum_matrix",
@@ -34,7 +38,8 @@ class _TreePlan(typing.NamedTuple):
     """Static peel-then-core elimination plan for the bifurcation graph.
 
     Degree-≤1 nodes eliminate fill-in-free in rounds (exact for forests);
-    whatever cycle core remains is left to the core solvers (ROADMAP A6).
+    whatever cycle core remains is solved densely (at most 512 nodes) or by
+    the sparse core plan :func:`attach_core_plan` attaches.
     """
 
     pair_nodes: np.ndarray  # (P, 2) bifurcation index pairs with >=1 edge
@@ -42,7 +47,7 @@ class _TreePlan(typing.NamedTuple):
     rounds: tuple  # tuple of (elim_nodes, parents, pair_ids) int32 arrays
     core_nodes: np.ndarray = np.empty(0, np.int32)  # un-peeled (cycle) nodes
     core_pairs: np.ndarray = np.empty((0, 3), np.int32)  # (ci, cj, pair_id)
-    core_plan: "object | None" = None  # sparse core plan: ROADMAP A6
+    core_plan: "object | None" = None  # MFPlan, MinDegreeCorePlan or None
 
     @property
     def core_size(self) -> int:
@@ -135,18 +140,97 @@ def _plan_tree_elimination(asm, force_rounds: bool = False) -> _TreePlan:
     return _TreePlan(pairs, edge_pair, tuple(rounds), core_nodes, core_pairs)
 
 
-def _cached_tree_plan(asm, force_rounds: bool = False, attach: bool = False) -> _TreePlan:
-    """Memoized :func:`_plan_tree_elimination` (the plan depends on the
-    topology only, fixed at assembler construction)."""
-    if attach:
-        raise NotImplementedError(
-            "ROADMAP A6: the sparse core-elimination plan (attach_core_plan) is not ported yet"
+class MinDegreeCorePlan(typing.NamedTuple):
+    """Stands where the reference attaches a min-degree core plan
+    (``plan_core_elimination``: a core of 513–2,048 nodes, or one the
+    multifrontal planner refused), which the port does not run yet: an
+    executor given it raises ``NotImplementedError`` naming ROADMAP A6b."""
+
+    core_size: int
+
+    def message(self) -> str:
+        return (
+            f"ROADMAP A6b: the cycle core of {self.core_size} nodes takes the reference's "
+            "min-degree core elimination (plan_core_elimination, K12), which is not ported yet"
         )
+
+
+def attach_core_plan(tree_plan: _TreePlan, max_core: int = 300_000) -> _TreePlan:
+    """Attach a sparse core-elimination plan when the cycle core admits one.
+
+    A core above 2,048 nodes is planned by the tree multifrontal engine
+    (:func:`.ops.multifrontal.plan_multifrontal`).  Where the reference
+    goes on to its min-degree planners (the multifrontal planner refused,
+    or the core has 2,048 nodes or fewer) the plan gets a
+    :class:`MinDegreeCorePlan` (ROADMAP A6b; their ``dense_cutoff`` and
+    ``tail_stop`` arguments come with it).  Returns the plan unchanged
+    when it has a core plan already, no core, or a core above
+    ``max_core``."""
+    if tree_plan.core_plan is not None or tree_plan.core_size == 0:
+        return tree_plan
+    if tree_plan.core_size > max_core:
+        return tree_plan
+    cp = None
+    if tree_plan.core_size > 2048:
+        from .ops.multifrontal import plan_multifrontal
+
+        cp = plan_multifrontal(np.asarray(tree_plan.core_pairs), tree_plan.core_size)
+    if cp is None:
+        cp = MinDegreeCorePlan(tree_plan.core_size)
+    return tree_plan._replace(core_plan=cp)
+
+
+def _cached_tree_plan(asm, force_rounds: bool = False, attach: bool = False) -> _TreePlan:
+    """Memoized :func:`_plan_tree_elimination` / :func:`attach_core_plan`.
+
+    The plan depends on the topology only, fixed at assembler
+    construction, so executors built over one assembler share it and the
+    host symbolic phase is paid once per assembler.  The attached core
+    plan is shared across the ``force_rounds`` variants, which must have
+    equal ``core_pairs`` (asserted).  Device payloads are not cached here:
+    each executor uploads its own and keeps it for its lifetime."""
     cache = asm.__dict__.setdefault("_nxfx_plan_cache", {})
     key = ("plan", force_rounds)
     if key not in cache:
         cache[key] = _plan_tree_elimination(asm, force_rounds=force_rounds)
-    return cache[key]
+    plan = cache[key]
+    if not attach or plan.core_size == 0:
+        return plan
+    akey = ("attached", force_rounds)
+    if akey not in cache:
+        other = cache.get(("attached", not force_rounds))
+        if other is not None and other.core_plan is not None:
+            assert np.array_equal(other.core_pairs, plan.core_pairs)
+            cache[akey] = plan._replace(core_plan=other.core_plan)
+        else:
+            cache[akey] = attach_core_plan(plan)
+    return cache[akey]
+
+
+class _LambdaPlan(typing.NamedTuple):
+    """Sorted-segment plan for assembling the bifurcation system: the
+    edge → bifurcation incidences of each side, sorted once on the host,
+    turn the (E → B) reductions into sorted segment sums plus adds into
+    sorted unique bins."""
+
+    t_sel: np.ndarray  # edges with a bifurcation at their target, sorted by it
+    t_bins: np.ndarray  # sorted unique target bifurcations
+    t_seg: np.ndarray  # segment id of each t_sel entry
+    s_sel: np.ndarray
+    s_bins: np.ndarray
+    s_seg: np.ndarray
+
+
+def _build_lambda_plan(asm) -> _LambdaPlan:
+    def side(bif: np.ndarray):
+        sel = np.flatnonzero(bif >= 0)
+        order = sel[np.argsort(bif[sel], kind="stable")]
+        bins, seg = np.unique(bif[order], return_inverse=True)
+        return order.astype(np.int32), bins.astype(np.int32), seg.astype(np.int32)
+
+    t_sel, t_bins, t_seg = side(asm._edge_end_bif)
+    s_sel, s_bins, s_seg = side(asm._edge_start_bif)
+    return _LambdaPlan(t_sel, t_bins, t_seg, s_sel, s_bins, s_seg)
 
 
 class _LevelPlan(typing.NamedTuple):

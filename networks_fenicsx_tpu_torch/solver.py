@@ -1,18 +1,18 @@
-"""Solver for the hydraulic network saddle-point system (forest paths).
+"""Solver for the hydraulic network saddle-point system.
 
 Counterpart of ``networks_fenicsx_tpu/solver.py``: :class:`Solver`
 (``__init__``, ``assemble``, ``solve``, ``_scatter_functions``,
-``solution_vector``), :func:`build_schur_executor` with the forest routes,
-``_BlockedExecutor`` and its ``prepare_args``, the general forest executor
-(the reference's generic ``core`` + ``_finish`` on a level plan),
-``_schur_solve`` with the same convergence gate, and
-``_flatten_blocks_host``.
+``solution_vector``), :func:`build_schur_executor` with the forest and
+peel-then-core routes, ``_BlockedExecutor`` and its ``prepare_args``, the
+general executors (the reference's generic ``core`` + ``_finish`` on a
+level plan, or on a tree plan with a cycle core), ``_schur_solve`` with the
+same convergence gate, and ``_flatten_blocks_host``.
 
 With discontinuous (degree-0) pressure the system decouples into per-edge
 chains tied together only by the bifurcation multipliers λ; eliminating
 flux and pressure edge by edge reduces it to an SPD weighted graph
 Laplacian on the bifurcations, which a forest eliminates exactly level by
-level; flux and pressure then follow from λ edge by edge.  Two routes:
+level; flux and pressure then follow from λ edge by edge.  Three routes:
 
 * blocked — uniformly-K-ary forests with cellwise coefficients: K1
   (:mod:`.kernels.condense`), K2–K4 (:mod:`.kernels.tree_sweep`), K5
@@ -20,13 +20,18 @@ level; flux and pressure then follow from λ edge by edge.  Two routes:
 * level — every other forest, and callable (quad-mode) R or f: K8a
   (:mod:`.kernels.edge_data`), K7 with its K6 sums
   (:mod:`.kernels.level_eliminate`, :mod:`.kernels.segsum`), K8b
-  (:mod:`.kernels.backsub`).
+  (:mod:`.kernels.backsub`);
+* tree — a bifurcation graph with cycles: K8a, the bifurcation system and
+  the peel rounds with their folds (K9, K10 on K6), the cycle core densely
+  for at most 512 nodes (K11) or by the tree multifrontal engine (K13–K15),
+  the reversed rounds, K8b (:mod:`.tree`).
 
 The device is explicit: ``Solver(asm, device="cuda")`` (the default) runs the
 CUDA kernels and raises when CUDA is absent; ``device="cpu"`` runs their
-plain PyTorch versions.  A bifurcation graph with cycles, and everything
-else outside the forest routes, raises ``NotImplementedError`` naming its
-ROADMAP item.
+plain PyTorch versions.  Everything outside these routes — a cycle core of
+513–2,048 nodes or one the multifrontal planner refuses (A6b), a scalar-R
+lattice above the dense cutoff (A7), other methods (A8) — raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,7 +46,16 @@ from .blocked import _permute_coefficient, _plan_blocked, device_plan
 from .edge_data import edge_layout
 from .function import NetworkFunction
 from .kernels import backsub, condense, edge_data, expand, level_eliminate, tree_sweep
-from .levels import _cached_tree_plan, _plan_level_elimination, device_level_plan
+from .lattice import lattice_solve_applicable
+from .levels import (
+    MinDegreeCorePlan,
+    _build_lambda_plan,
+    _cached_tree_plan,
+    _plan_level_elimination,
+    attach_core_plan,
+    device_level_plan,
+)
+from .tree import device_tree_plan, tree_schur_solve
 from .utils.config import SolverOptions
 from .utils.timing import timed
 
@@ -49,8 +63,8 @@ __all__ = ["Solver", "SolveInfo", "build_schur_executor", "resolve_device"]
 
 # ROADMAP items of the schur_method variants the port does not run yet
 _SCHUR_METHOD_ITEM = {
-    "dense": "A6",
-    "dense_f64": "A6",
+    "dense": "A8",
+    "dense_f64": "A8",
     "cg": "A7",
     "dct": "A7",
     "tree_dist": "A10",
@@ -215,15 +229,23 @@ class Solver:
 
 
 # ======================================================================
-# Forest executors (blocked and level routes)
+# Executors (blocked, level and tree routes)
 # ======================================================================
 
 
 class _Executor:
-    """What both forest executors share: the upload of the host arguments
-    and the kernel / plain entry points around the subclass's ``_run``."""
+    """What the executors share: the upload of the host arguments and the
+    kernel / plain entry points around the subclass's ``_run``.  By default
+    edges and bifurcations stay in public order (``edge_order`` and
+    ``bif_order`` None) and ``prepare_args`` passes the assembler's compact
+    arguments through."""
 
     blocks_out = True
+    edge_order = None
+    bif_order = None
+
+    def prepare_args(self, R_data, f_data, start_pbc, end_pbc):
+        return R_data, f_data, start_pbc, end_pbc
 
     def upload(self, *arrays) -> list[torch.Tensor]:
         """Host arrays -> contiguous float64 tensors on the executor's device."""
@@ -321,9 +343,6 @@ class _LevelExecutor(_Executor):
     ``(q_T, p_T, lam, iters, residual, rhs_norm, finite)``; ``edge_order``
     and ``bif_order`` are None."""
 
-    edge_order = None
-    bif_order = None
-
     def __init__(self, asm, tree_plan, level_plan, R_mode, f_mode, f_is_zero, device):
         mesh = asm.network
         self.tree_plan = tree_plan
@@ -340,9 +359,6 @@ class _LevelExecutor(_Executor):
             np.asarray(mesh.edge_length, dtype=np.float64) / mesh.N, device=device
         )
         self._quad_w, self._quad_phi = self.upload(asm._quad_weights, asm._quad_phi)
-
-    def prepare_args(self, R_data, f_data, start_pbc, end_pbc):
-        return R_data, f_data, start_pbc, end_pbc
 
     def _run(self, R_data, f_data, start_pbc, end_pbc, plain: bool):
         R, f, sp, ep = self.upload(R_data, f_data, start_pbc, end_pbc)
@@ -368,20 +384,106 @@ class _LevelExecutor(_Executor):
         return q_T, p_T, lam, iters, residual, rhs_norm, finite
 
 
+class _TreeExecutor(_Executor):
+    """The peel-then-core solve of a cyclic bifurcation graph on one device
+    (the reference's generic ``core`` and the cyclic branch of ``_finish``,
+    ``:4112-4118`` and ``:4249-4264``).
+
+    Holds the host tree plan (with its attached core plan) and λ-system
+    plan, their index tensors and the multifrontal payload (uploaded once,
+    kept for the executor's lifetime), and the per-edge cell widths.
+    ``__call__`` runs K8a in the layout dispatch, the bifurcation system,
+    the peel rounds and the core (K9, K10, K11 or K13–K15), and K8b with
+    the finiteness flag over ``q_T``, ``p_T`` and ``λ``; ``plain`` runs
+    their plain versions.  Returns the 7-tuple blocks contract in public
+    order (``edge_order``/``bif_order`` None)."""
+
+    def __init__(self, asm, tree_plan, R_mode, f_mode, f_is_zero, device):
+        mesh = asm.network
+        self.tree_plan = tree_plan
+        self.lambda_plan = _build_lambda_plan(asm)
+        self._N = mesh.N
+        self._k = asm.flux_degree
+        self._R_mode = R_mode
+        self._f_mode = f_mode
+        self._f_is_zero = bool(f_is_zero)
+        self.layout = edge_layout(self._k, R_mode, f_mode)
+        self._device = device
+        self.device_plan = device_tree_plan(tree_plan, self.lambda_plan, asm, device)
+        self._h_e = torch.as_tensor(
+            np.asarray(mesh.edge_length, dtype=np.float64) / mesh.N, device=device
+        )
+        self._quad_w, self._quad_phi = self.upload(asm._quad_weights, asm._quad_phi)
+
+    def _run(self, R_data, f_data, start_pbc, end_pbc, plain: bool):
+        R, f, sp, ep = self.upload(R_data, f_data, start_pbc, end_pbc)
+        make, expand_lam = (
+            (edge_data.edge_data_plain, backsub.backsub_plain) if plain
+            else (edge_data.edge_data, backsub.backsub)
+        )
+        dtp, N, k = self.device_plan, self._N, self._k
+        ed = make(
+            dtp, N, k, self._h_e, self._quad_w, self._quad_phi, R, f,
+            self._R_mode, self._f_mode, self._f_is_zero, sp, ep,
+        )
+        lam, rhs_norm = tree_schur_solve(dtp, ed, plain)
+        q_T, p_T, finite = expand_lam(ed, lam, N, k)
+        iters = torch.zeros((), dtype=torch.int32, device=self._device)
+        residual = torch.zeros((), dtype=torch.float64, device=self._device)
+        return q_T, p_T, lam, iters, residual, rhs_norm, finite
+
+
+def _resolve_core(asm, opts: SolverOptions, tree_plan, override: bool, R_mode: str):
+    """The tree plan the cyclic route runs, with its core plan, or raise.
+
+    The reference's routing (``:3922-3966``): a core of at most 512 nodes
+    stays dense; under ``auto`` a larger core first meets the separable-DCT
+    lattice check (ROADMAP A7), then the attached sparse core plan.  The
+    multifrontal plan runs here; a min-degree plan (A6b) and the dense/CG
+    fallbacks (A7) raise."""
+    if tree_plan.core_size <= 512:
+        return tree_plan
+    if opts.schur_method == "auto" and R_mode == "scalar" and lattice_solve_applicable(asm):
+        raise NotImplementedError(
+            f"ROADMAP A7: a uniform scalar-R lattice with a cycle core of {tree_plan.core_size} "
+            "nodes takes the reference's separable-DCT solve, which is not ported yet"
+        )
+    tree_plan = attach_core_plan(tree_plan) if override else _cached_tree_plan(asm, attach=True)
+    cp = tree_plan.core_plan
+    if isinstance(cp, MinDegreeCorePlan):
+        raise NotImplementedError(cp.message())
+    if cp is None:
+        if opts.schur_method == "tree" and tree_plan.core_size > 4096:
+            raise ValueError(
+                f"schur_method='tree' on a graph whose cycle core has {tree_plan.core_size} "
+                "nodes: the sparse core elimination could not be planned and a dense core "
+                "factor would need O(core²) memory"
+            )
+        raise NotImplementedError(
+            f"ROADMAP A7: a cycle core of {tree_plan.core_size} nodes without a sparse core "
+            "plan takes the reference's dense or CG route, which is not ported yet"
+        )
+    return tree_plan
+
+
 def build_schur_executor(
     asm: _assembly.HydraulicNetworkAssembler,
     opts: SolverOptions,
     device: torch.device | str = "cuda",
-) -> _BlockedExecutor | _LevelExecutor:
-    """Build the forest executor, or raise ``NotImplementedError`` (naming
-    the ROADMAP item) outside the forest routes.
+    _tree_plan=None,
+) -> _BlockedExecutor | _LevelExecutor | _TreeExecutor:
+    """Build the executor, or raise ``NotImplementedError`` (naming the
+    ROADMAP item) outside the ported routes.
 
     Routes as the reference's
-    ``build_schur_executor(outputs="blocks", internal_layout=True)`` does
-    on a forest: the tree plan, then the level plan; the blocked executor
-    when ``_plan_blocked`` succeeds and neither coefficient is quad-mode,
-    the level executor otherwise.  ``level_scan="on"`` runs the same
-    kernels (the two reference variants are pinned equal)."""
+    ``build_schur_executor(outputs="blocks", internal_layout=True)``: the
+    tree plan; on a forest the level plan, then the blocked executor when
+    ``_plan_blocked`` succeeds and neither coefficient is quad-mode, the
+    level executor otherwise; with a cycle core the tree executor (see
+    :func:`_resolve_core`).  ``_tree_plan`` overrides the cached tree plan
+    (tests use it to force the multifrontal engine on a small core).
+    ``level_scan="on"`` runs the same kernels (the two reference variants
+    are pinned equal)."""
     if opts.dtype != "float64" or opts.output_dtype not in ("same", "float64"):
         raise NotImplementedError("ROADMAP A4: float32 solves and outputs are not ported yet")
     if opts.schur_method not in ("auto", "tree"):
@@ -394,16 +496,14 @@ def build_schur_executor(
     device = resolve_device(device)
     if asm.network.num_multipliers == 0:
         raise NotImplementedError(
-            "ROADMAP A6: a network without bifurcations takes the reference's dense "
+            "ROADMAP A8: a network without bifurcations takes the reference's dense "
             "route, which is not ported yet"
         )
     R_mode, f_mode, f_zero = asm.coefficient_modes()
-    tree_plan = _cached_tree_plan(asm)
+    tree_plan = _tree_plan if _tree_plan is not None else _cached_tree_plan(asm)
     if tree_plan.core_size > 0:
-        raise NotImplementedError(
-            f"ROADMAP A6/A7: the bifurcation graph has a cycle core of {tree_plan.core_size} "
-            "nodes; peel + core elimination is ROADMAP A6 and lattice solves are A7"
-        )
+        tree_plan = _resolve_core(asm, opts, tree_plan, _tree_plan is not None, R_mode)
+        return _TreeExecutor(asm, tree_plan, R_mode, f_mode, f_zero, device)
     if "quad" not in (R_mode, f_mode):
         plan = _plan_blocked(asm)
         if plan is not None:
@@ -415,7 +515,7 @@ def build_schur_executor(
 def _schur_solve(
     asm: _assembly.HydraulicNetworkAssembler,
     opts: SolverOptions,
-    executor: _BlockedExecutor | _LevelExecutor,
+    executor: _BlockedExecutor | _LevelExecutor | _TreeExecutor,
 ) -> tuple[np.ndarray, SolveInfo]:
     args = executor.prepare_args(*asm.schur_arguments(device=False))
     q_T, p_T, lam, iters, residual, rhs_norm, finite = executor(*args)
@@ -429,7 +529,7 @@ def _schur_solve(
     )
     residual = float(residual)
     rhs_norm = float(rhs_norm)
-    # Direct-solve convergence gate of the reference: the forest
+    # Direct-solve convergence gate of the reference: the tree-family
     # eliminations report residual 0 and no conditioning hint, so it holds
     # exactly when the solution (or every precursor of it) is finite.
     kappa = 0.0

@@ -8,6 +8,12 @@ Builds one configuration of ``chip_smoke.py`` (``--path``):
   general level route;
 * ``forest`` — the 100,001-vessel irregular forest, N = 8, flux degree 2
   (2,563,442 dofs), general level route;
+* ``web`` — the 100,000-site web with anastomoses, N = 8, flux degree 2
+  (2,817,749 dofs), cyclic route: 18 peel rounds, multifrontal core;
+* ``web1000`` — the same web at 1,000 sites, cyclic route: 11 peel rounds
+  and a 455-node dense core (K11);
+* ``bed`` — the perfusion bed ``make_vascular_bed(5, 96, 64)``, N = 2
+  (67,476 dofs), cyclic route: multifrontal core;
 
 then
 
@@ -62,9 +68,15 @@ def configure(path: str, generations: int):
     elif path == "callable":
         asm = chip_smoke.callable_assembler(P, generations)
         forms = chip_smoke.callable_forms
-    else:
+    elif path == "forest":
         asm = chip_smoke.forest_assembler(P, chip_smoke.forest_mesh(P))
         forms = chip_smoke.forest_forms
+    elif path == "web":
+        asm, forms = chip_smoke.web_assembler(P), chip_smoke.forest_forms
+    elif path == "web1000":
+        asm, forms = chip_smoke.web_assembler(P, sites=1_000), chip_smoke.forest_forms
+    else:
+        asm, forms = chip_smoke.bed_assembler(P), chip_smoke.bed_forms
     forms(asm)
     return asm, forms
 
@@ -97,7 +109,8 @@ def phases(asm, solver, forms) -> dict[str, float]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("blocked", "callable", "forest"), default="blocked")
+    ap.add_argument("--path", choices=("blocked", "callable", "forest", "web", "web1000", "bed"),
+                    default="blocked")
     ap.add_argument("--generations", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", type=pathlib.Path, default=None)

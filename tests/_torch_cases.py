@@ -5,9 +5,14 @@ Each builder takes the package (``networks_fenicsx_tpu`` or
 packages see identical node and edge numbering.
 """
 
+import json
+from pathlib import Path
+
 import numpy as np
 
 from _topologies import kary_tree
+
+GOLDEN_DIR = Path(__file__).parent / "goldens"
 
 
 def kary(pkg, K: int, depth: int):
@@ -37,3 +42,15 @@ def chain(pkg):
 
 def arterial(pkg, gens: int = 5):
     return pkg.network_generation.make_arterial_tree(gens, direction=[0.1, 1, 0], arrays=True)
+
+
+def golden_graph(pkg, name):
+    """The network of a grid or random-web golden (``tests/goldens``), as
+    its generator makes it (a networkx DiGraph)."""
+    spec = json.loads((GOLDEN_DIR / f"{name}.json").read_text())["config"]
+    g = pkg.network_generation
+    if spec["graph"] == "grid":
+        return g.make_grid(spec["nx"], spec["ny"])
+    return g.make_random_network(
+        spec["n"], keep=spec["keep"], num_boundary=spec["num_boundary"], seed=spec["seed"]
+    )

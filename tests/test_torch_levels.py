@@ -10,9 +10,6 @@ summation order).  The CUDA kernels are held against the plain versions by
 the ``cuda``-marked test and by ``chip_smoke.py`` on a card.
 """
 
-import json
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -26,14 +23,11 @@ from networks_fenicsx_tpu_torch import levels as PL
 from networks_fenicsx_tpu_torch.edge_data import _EdgeData, edge_layout
 from networks_fenicsx_tpu_torch.kernels import backsub, edge_data, level_eliminate, segsum
 
-from _torch_cases import arterial, asymmetric
+from _torch_cases import arterial, asymmetric, golden_graph
 
 torch.set_num_threads(1)
 
 TOL = 1e-12
-GOLDEN_DIR = Path(__file__).parent / "goldens"
-
-
 def _close(got, want, tol=TOL):
     got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     want = np.asarray(want)
@@ -46,16 +40,6 @@ def _t(a):
     return torch.as_tensor(np.array(a, dtype=np.float64))
 
 
-def _golden_graph(pkg, name):
-    spec = json.loads((GOLDEN_DIR / f"{name}.json").read_text())["config"]
-    g = pkg.network_generation
-    if spec["graph"] == "grid":
-        return g.make_grid(spec["nx"], spec["ny"])
-    return g.make_random_network(
-        spec["n"], keep=spec["keep"], num_boundary=spec["num_boundary"], seed=spec["seed"]
-    )
-
-
 def _irregular(pkg, n=120, seed=5):
     return pkg.network_generation.make_random_network(n, keep=0.0, seed=seed, arrays=True)
 
@@ -64,8 +48,8 @@ GRAPHS = {
     "arterial6": lambda pkg: arterial(pkg, 6),
     "asymmetric": asymmetric,
     "irregular120": _irregular,
-    "web48": lambda pkg: _golden_graph(pkg, "web48"),
-    "grid5x4": lambda pkg: _golden_graph(pkg, "grid5x4"),
+    "web48": lambda pkg: golden_graph(pkg, "web48"),
+    "grid5x4": lambda pkg: golden_graph(pkg, "grid5x4"),
 }
 FORESTS = ("arterial6", "asymmetric", "irregular120")
 
@@ -95,8 +79,12 @@ def test_tree_plan_equal(name):
             assert all(np.array_equal(a, b) for a, b in zip(rj, rp))
     assert (pp.core_size > 0) == (name in ("web48", "grid5x4"))
     assert PL._cached_tree_plan(ap) is PL._cached_tree_plan(ap)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        PL._cached_tree_plan(ap, attach=True)
+    attached = PL._cached_tree_plan(ap, attach=True)
+    if pp.core_size == 0:  # nothing to attach to a forest
+        assert attached is PL._cached_tree_plan(ap)
+    else:  # a core of at most 2,048 nodes takes the min-degree planner (A6b)
+        assert isinstance(attached.core_plan, PL.MinDegreeCorePlan)
+        assert "ROADMAP A6b" in attached.core_plan.message()
 
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))

@@ -4,8 +4,9 @@ The port runs on ``device="cpu"`` here (the kernels' plain versions); it
 must equal the reference's forest solves at 1e-12·scale (scale = max(1,
 max |x|)) — the blocked route on the cases of ``tests/test_blocked.py``, the
 general level route on irregular forests and callable (quad-mode)
-coefficients — match every golden the reference serves on a forest at
-1e-10, and raise ``NotImplementedError`` outside the forest routes.
+coefficients —, its cyclic solves (peel rounds, then a dense or multifrontal
+core) at 1e-10·scale, match every golden at 1e-10, and raise
+``NotImplementedError`` outside the ported routes.
 """
 
 import ast
@@ -24,7 +25,7 @@ from networks_fenicsx_tpu_torch import levels as PL
 from networks_fenicsx_tpu_torch import solver as PS
 from networks_fenicsx_tpu_torch.ops import elements
 
-from _torch_cases import arterial, asymmetric, kary
+from _torch_cases import arterial, asymmetric, golden_graph, kary
 
 torch.set_num_threads(1)
 
@@ -170,6 +171,112 @@ def test_level_route_matches_reference(name):
     assert s._executor.edge_order is None and s._executor.bif_order is None
 
 
+def _web(n, keep=0.05, seed=7):
+    return lambda pkg: pkg.network_generation.make_random_network(
+        n, keep=keep, seed=seed, arrays=True)
+
+
+def _bed3(pkg):
+    return pkg.network_generation.make_vascular_bed(3, 12, 8, arrays=True)
+
+
+# name: (problem, (peel rounds, core size, core engine), the reference's method)
+CYCLIC_CASES = {
+    "web48_dense": (
+        dict(graph_fn=lambda pkg: golden_graph(pkg, "web48"), N=3,
+             R=_per_edge(0.5, 2.0, 3), f=0.4),
+        (None, None, "dense"), "schur"),
+    "grid5x4_dense": (
+        dict(graph_fn=lambda pkg: golden_graph(pkg, "grid5x4"), N=2, k=2,
+             R=_per_cell(0.5, 2.0, 4), f=_per_cell(-1.0, 1.0, 5)),
+        (None, None, "dense"), "schur"),
+    "bed3_poiseuille": (
+        dict(graph_fn=_bed3, N=2, R=lambda mesh: 1.0 / mesh.edge_radius**4, p_bc=lambda x: x[1]),
+        (0, 110, "dense"), "schur"),
+    "web1000_peel_dense": (
+        dict(graph_fn=_web(1000), N=2, k=2, R=_per_edge(0.5, 2.0, 5), f=_per_cell(-1.0, 1.0, 6),
+             p_bc=lambda x: x[0]),
+        (11, 455, "dense"), "schur"),
+    "web2600_multifrontal": (
+        dict(graph_fn=_web(2600, keep=0.7, seed=3), N=1, R=_per_edge(0.5, 3.0, 1),
+             p_bc=lambda x: x[1]),
+        (0, 2588, "mf"), "host_lu"),
+    "grid52_multifrontal": (
+        dict(graph_fn=lambda pkg: pkg.network_generation.make_grid(52, 52, arrays=True), N=1,
+             R=_per_edge(0.5, 2.0, 7), f=0.2, p_bc=lambda x: x[0]),
+        (0, 2704, "mf"), "host_lu"),
+    "web5000_peel_multifrontal": (
+        dict(graph_fn=_web(5000), N=2, R=_per_edge(0.5, 2.0, 8), f=_per_edge(-1.0, 1.0, 9),
+             p_bc=lambda x: x[0]),
+        (9, 2625, "mf"), "host_lu"),
+}
+
+
+def _cyclic_problem(pkg, graph_fn, N=2, k=1, R=None, f=None, p_bc=lambda x: x[0] + 0.7 * x[1]):
+    mesh = pkg.NetworkMesh(graph_fn(pkg), N=N, color_strategy="fast")
+    asm = pkg.HydraulicNetworkAssembler(mesh, flux_degree=k)
+    asm.compute_forms(p_bc_ex=p_bc, R=_coefficient(R, mesh), f=_coefficient(f, mesh))
+    return asm
+
+
+def _reference_solution(problem, method="schur"):
+    """The JAX package's solution vector; ``host_lu`` is its exact sparse
+    direct solve, which the reference pins equal to its multifrontal Schur
+    solve at 1e-10 (``tests/test_multifrontal.py``)."""
+    s = J.Solver(_cyclic_problem(J, **problem), options=J.SolverOptions(method=method))
+    s.assemble()
+    s.solve()
+    assert s.info.converged
+    return np.asarray(s.solution_vector())
+
+
+@pytest.mark.parametrize("name", sorted(CYCLIC_CASES))
+def test_cyclic_route_matches_reference(name):
+    problem, (rounds, core, engine), method = CYCLIC_CASES[name]
+    x_ref = _reference_solution(problem, method)
+    s = P.Solver(_cyclic_problem(P, **problem), device="cpu")
+    s.solve()
+    assert s.info.converged
+    ex = s._executor
+    assert isinstance(ex, PS._TreeExecutor) and ex.edge_order is None and ex.bif_order is None
+    plan = ex.tree_plan
+    if rounds is not None:
+        assert (len(plan.rounds), plan.core_size) == (rounds, core)
+    assert (ex.device_plan.mf is not None) == (engine == "mf")
+    if engine == "mf" and core == 2625:
+        assert len(plan.core_plan.groups) == 23
+    _assert_equal_at_scale(s.solution_vector(), x_ref, tol=1e-10)
+
+
+def test_forced_multifrontal_engine_on_small_core():
+    """``_tree_plan=`` forces the multifrontal engine on the web48 golden's
+    small core (many tiny groups); the solve equals the reference's dense
+    one."""
+    from networks_fenicsx_tpu_torch.ops.multifrontal import plan_multifrontal
+
+    problem = CYCLIC_CASES["web48_dense"][0]
+    x_ref = _reference_solution(problem)
+    asm = _cyclic_problem(P, **problem)
+    plan = PL._plan_tree_elimination(asm)
+    forced = plan._replace(core_plan=plan_multifrontal(
+        np.asarray(plan.core_pairs), plan.core_size, leaf=4))
+    assert len(forced.core_plan.groups) > 3
+    opts = P.SolverOptions()
+    ex = PS.build_schur_executor(asm, opts, device="cpu", _tree_plan=forced)
+    assert ex.device_plan.mf is not None
+    x, info = PS._schur_solve(asm, opts, ex)
+    assert info.converged
+    _assert_equal_at_scale(x, x_ref, tol=1e-10)
+
+
+def test_explicit_tree_method_envelope():
+    """``schur_method="tree"`` on a core the port cannot plan: a core of
+    513–2,048 nodes raises A6b, as under ``auto``."""
+    asm = _cyclic_assembler(_bed4)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+        P.Solver(asm, device="cpu", options=P.SolverOptions(schur_method="tree")).solve()
+
+
 def test_callable_resistance_y_analytic_and_reference():
     """``test_solver.py``'s callable-R Y: λ is the conductance-weighted mean
     of the boundary pressures, with each edge's resistance the 2-point
@@ -288,33 +395,58 @@ def _check_golden(golden, mesh, asm, sol, tol):
 
 @pytest.mark.parametrize("name", GOLDEN_NAMES)
 def test_goldens(name):
-    """Every golden the reference serves on a forest — blocked or through
-    its level plan — matches at 1e-10; the others raise
-    NotImplementedError in the port."""
+    """Every golden — forests on the blocked or level route, the grid and
+    web goldens on the cyclic route — matches at 1e-10."""
     golden = json.loads((GOLDEN_DIR / f"{name}.json").read_text())
-    _, asm_ref = _golden_problem(J, golden)
-    ex = JS.build_schur_executor(
-        asm_ref, J.SolverOptions(), jit=False, outputs="blocks", internal_layout=True
-    )
-    forest = JS._plan_level_elimination(asm_ref, JS._cached_tree_plan(asm_ref)) is not None
     mesh, asm = _golden_problem(P, golden)
     solver = P.Solver(asm, device="cpu")
-    if not (isinstance(ex, JS._BlockedExecutor) or forest):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            solver.solve()
-        return
     sol = solver.solve()
     assert solver.info.converged
     _check_golden(golden, mesh, asm, sol, tol=1e-10)
 
 
 def test_goldens_outside_envelope_are_grid_and_web():
+    """The two goldens outside the forest routes — the grid and the web —
+    run the cyclic route with a dense core and equal the reference."""
     assert {"grid5x4", "web48"} <= set(GOLDEN_NAMES)
     for name in ("grid5x4", "web48"):
         golden = json.loads((GOLDEN_DIR / f"{name}.json").read_text())
-        _, asm = _golden_problem(P, golden)
-        with pytest.raises(NotImplementedError, match="ROADMAP A6.*cycle core.*A7"):
-            P.Solver(asm, device="cpu").solve()
+        xs = []
+        for pkg in (J, P):
+            _, asm = _golden_problem(pkg, golden)
+            s = pkg.Solver(asm, **({"device": "cpu"} if pkg is P else {}))
+            sol = s.solve()
+            assert s.info.converged
+            xs.append(np.concatenate([np.ravel(fn.values) for fn in sol]))
+        ex = s._executor
+        assert isinstance(ex, PS._TreeExecutor) and ex.device_plan.mf is None
+        assert 0 < ex.tree_plan.core_size <= 512
+        _assert_equal_at_scale(xs[1], xs[0], tol=1e-10)
+
+
+def _bed4(pkg):
+    """A perfusion bed whose cycle core has 670 nodes."""
+    return pkg.network_generation.make_vascular_bed(4, 32, 20, arrays=True)
+
+
+def _web2000(pkg):
+    """A 2,000-site web with 5 % of its non-tree edges: a core of 1,012."""
+    return pkg.network_generation.make_random_network(2000, keep=0.05, seed=7, arrays=True)
+
+
+def _grid24(pkg):
+    """A 24 x 24 lattice: a core of 576."""
+    return pkg.network_generation.make_grid(24, 24, arrays=True)
+
+
+def _cyclic_assembler(graph_fn, R="edge"):
+    """The port's assembler at N = 1 with per-edge R from a seed (or scalar)."""
+    mesh = P.NetworkMesh(graph_fn(P), N=1, color_strategy="fast")
+    asm = P.HydraulicNetworkAssembler(mesh)
+    if R == "edge":
+        R = np.random.default_rng(2).uniform(0.5, 2.0, mesh.num_edges)
+    asm.compute_forms(p_bc_ex=lambda x: x[0], R=R)
+    return asm
 
 
 def _tree_assembler(k=1, kp=0, **forms):
@@ -334,7 +466,9 @@ def _tree_assembler(k=1, kp=0, **forms):
                       options=P.SolverOptions(dtype="float32")).solve(), "ROADMAP A4"),
     (lambda: P.Solver(_tree_assembler(), device="cpu",
                       options=P.SolverOptions(schur_method="cg")).solve(), "ROADMAP A7"),
-    (lambda: PL._cached_tree_plan(_tree_assembler(), attach=True), "ROADMAP A6"),
+    (lambda: P.Solver(_cyclic_assembler(_bed4), device="cpu").solve(), "ROADMAP A6b"),
+    (lambda: P.Solver(_cyclic_assembler(_web2000), device="cpu").solve(), "ROADMAP A6b"),
+    (lambda: P.Solver(_cyclic_assembler(_grid24, R=None), device="cpu").solve(), "ROADMAP A7"),
     (lambda: _tree_assembler().assemble(), "ROADMAP A8"),
 ])
 def test_outside_envelope_raises(make, match):
