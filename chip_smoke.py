@@ -16,7 +16,17 @@ paths through the public API, checks each solution and times it:
   ``make_vascular_bed(5, 96, 64)`` (67,476 dofs, a 6,206-node multifrontal
   core); kernels K6, K8 and K9–K15;
 * the cyclic solve of the web at 1,000 sites (11 peel rounds, a 455-node
-  dense core: K11).
+  dense core: K11);
+* the separable-DCT λ solve of the reference benchmark's 512² capillary
+  lattice ``make_grid(512, 512)`` (1,831,942 dofs) under
+  ``schur_method="dct"`` and ``auto`` on the grid route (K1, K17, K16, K5),
+  and with a callable source on the general DCT route (K8a, K9's
+  bifurcation system, K6, K16 with K18, K8b); kernels K16–K18.
+
+Each kernel is held against its plain version on the card, timed per call
+beside its bound (the bytes it must move over the memory rate or its
+float64 operations over the peak rate, whichever is larger) and, where one
+PyTorch call computes the same function, that call's time.
 
 Run from the repository root::
 
@@ -36,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -45,6 +56,9 @@ N_CELLS = 40
 DOFS = 5_341_102
 TOL = 1e-12  # kernel vs plain and port vs plain, times max(1, max |plain|)
 REPS = 20  # timed launches per kernel
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+FP64_FLOPS = 34e12  # H100 SXM float64 peak outside the tensor cores: element-wise, matvec work
+FP64_MATRIX_FLOPS = 67e12  # H100 SXM float64 tensor-core (DMMA) peak: matrix products, factors
 
 FOREST_SITES = 100_000  # make_random_network(FOREST_SITES, keep=0.0, seed=7)
 FOREST_N = 8
@@ -59,6 +73,10 @@ BED_SIZES = {"edges": 12_254, "bifurcations": 6_206, "rounds": 0, "core": 6_206,
 CYCLIC_TOL = 1e-10  # refined core solves (K11, K15) and the cyclic paths, times the scale
 WEB1000_SIZES = {"edges": 1_100, "bifurcations": 706, "rounds": 11, "core": 455, "groups": None,
                  "dofs": 28_206}  # make_random_network(1000, keep=WEB_KEEP, seed=7): a dense core
+
+LATTICE_N = 512  # make_grid(512, 512): the reference benchmark's lattice stage (bench.py:597-657)
+LATTICE_SIZES = {"edges": 523_266, "bifurcations": 262_144, "dofs": 1_831_942}
+LATTICE_TOL = 1e-10  # refined lattice solves and the lattice paths, times the scale
 
 KERNEL_RECORD = {
     "condense": ("networks_fenicsx_tpu_torch/kernels/csrc/condense.cu",
@@ -87,6 +105,19 @@ KERNEL_RECORD = {
                   "networks_fenicsx_tpu/ops/multifrontal.py:679"),
     "mf_apply": ("networks_fenicsx_tpu_torch/kernels/csrc/mf_apply.cu",
                  "networks_fenicsx_tpu/ops/multifrontal.py:744"),
+    "dct_lattice": ("networks_fenicsx_tpu_torch/kernels/csrc/dct_lattice.cu",
+                    "networks_fenicsx_tpu/solver.py:941"),
+    "grid_core": ("networks_fenicsx_tpu_torch/kernels/csrc/grid_core.cu",
+                  "networks_fenicsx_tpu/solver.py:1184"),
+    "shift_matvec": ("networks_fenicsx_tpu_torch/kernels/csrc/shift_matvec.cu",
+                     "networks_fenicsx_tpu/solver.py:806"),
+}
+# the checks of each lattice wrapper in the kernels-lattice sets
+LATTICE_CHECKS = {
+    "dct_lattice": ("dct_factor", "dct_forward", "dct_inverse", "dct_lplus",
+                    "dct_lattice_unrefined", "dct_lattice", "dct_matrix"),
+    "grid_core": ("grid_core", "grid_core_stencil"),
+    "shift_matvec": ("shift_matvec",),
 }
 # the wrappers the cyclic executor may launch, besides the CYCLIC group
 CYCLIC_SHARED = ("segsum", "edge_data", "backsub")
@@ -141,6 +172,41 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of the tensors in ``objs`` (tensors, or nested tuples/lists of them)."""
+    total = 0
+    for x in objs:
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, (tuple, list)):
+            total += tensor_bytes(*x)
+    return total
+
+
+def plan_bytes(plan) -> int:
+    """Bytes of the index tensors a device-plan dataclass holds."""
+    return tensor_bytes(*(getattr(plan, f.name) for f in dataclasses.fields(plan)))
+
+
+def valid_entries(idx: torch.Tensor, n: int) -> int:
+    """Entries of a K6/K10 gather matrix that name a value (not the pad slot n)."""
+    return int(((idx >= 0) & (idx < n)).sum())
+
+
+def bound(nbytes: int, flops: float, matrix_flops: float = 0.0) -> dict:
+    """The least time the card could take for the work: the bytes it must move
+    (each input read once, each output written once) over the memory rate, or
+    its float64 operations over the peak rate for their kind, whichever is
+    larger.  ``matrix_flops`` (matrix products and dense factors, which the
+    float64 tensor cores can run) count at 67 TFLOP/s, whatever the kernel
+    uses; the other ``flops`` at 34 TFLOP/s."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (flops / FP64_FLOPS + matrix_flops / FP64_MATRIX_FLOPS) * 1e3
+    return {"bytes": int(nbytes), "flops": float(flops), "matrix_flops": float(matrix_flops),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def arterial_assembler(P, gens: int, N: int, k: int = 1, per_cell: bool = False, seed: int = 0):
@@ -244,6 +310,16 @@ def compare_kernels(P, asm, device, timed: bool) -> dict:
         "expand": (lambda: expand.expand(dp, *x_args),
                    lambda: expand.expand_plain(plan, *x_args), x_plain),
     }
+    E, B = dp.num_edges, dp.num_bifurcations
+    ends = (dp.edge_src, dp.edge_tgt)
+    cell = 1 if "cell" not in (Rm, fm) else N
+    work = {
+        "condense": (tensor_bytes(h, R, f, sp, ep, ends, c_plain), 12 * E * cell),
+        "tree_sweep": (tensor_bytes(w, const, Ftot, dp.bif_in, dp.bif_out, dp.bif_child,
+                                    dp.bif_parent, s_plain), 16 * B + 4 * dp.bif_out.numel()),
+        "expand": (tensor_bytes(lam, sp, ep, W, w, g, Ftot, h, R, f, ends, x_plain),
+                   10 * (k * N + 1) * E),
+    }
     record = {}
     for name, (kernel, plain, want) in runs.items():
         got = kernel()
@@ -254,6 +330,7 @@ def compare_kernels(P, asm, device, timed: bool) -> dict:
         if timed:
             record[name]["ms"] = cuda_ms(kernel)
             record[name]["plain_ms"] = cuda_ms(plain)
+            record[name].update(bound(*work[name]))
     return record
 
 
@@ -366,6 +443,30 @@ def compare_level_kernels(P, asm, device, timed: bool) -> dict:
         "backsub": (lambda: backsub.backsub(ed, lam, N, k),
                     lambda: backsub.backsub_plain(ed, lam, N, k)),
     }
+    E, B, C, nq = dlp.num_edges, dlp.num_bifurcations, asm.network.num_cells, k + 1
+    ed_arrays = [t for t in (ed.mt, ed.cumF, ed.W, ed.g, ed.rh, ed.ua, ed.uF) if t is not None]
+    ed_arrays += list(ed.interior)
+    sums_in = ((dlp.p_idx, w), (dlp.t_idx, vt), (dlp.s_idx, vs))
+    q_T, p_T, _ = backsub.backsub_plain(ed, lam, N, k)
+    work = {
+        "edge_data": (tensor_bytes(ex._h_e, ex._quad_w, ex._quad_phi, R, f, sp, ep, dlp.start_bif,
+                                   dlp.end_bif, ed_arrays),
+                      (3 * nq * (k + 1) ** 2 + 2 * nq + 10) * C),
+        "segsum": (sum(tensor_bytes(i, v) + i.shape[0] * v[0].numel() * 8 for i, v in sums_in),
+                   sum(valid_entries(i, v.shape[0]) * v[0].numel() for i, v in sums_in)),
+        "level_eliminate": (tensor_bytes(ed.W, ed.g, ed.cumF[-1], sp, ep, lam, rhs_norm)
+                            + plan_bytes(dlp), 8 * E + 12 * B),
+        "backsub": (tensor_bytes(lam, ed_arrays, sp, ep, dlp.start_bif, dlp.end_bif, q_T, p_T),
+                    10 * (k * N + 1) * E),
+    }
+    # K6's yardstick: index_add_ of the same gathered values into the same segments
+    adds = []
+    for i, v in sums_in:
+        ok = (i >= 0) & (i < v.shape[0])
+        seg = torch.arange(i.shape[0], device=i.device)[:, None].expand_as(i)[ok]
+        adds.append((torch.zeros((i.shape[0],) + tuple(v.shape[1:]), dtype=v.dtype,
+                                 device=v.device), seg, v[i[ok].long()]))
+    library = {"segsum": lambda: [out.index_add_(0, seg, src) for out, seg, src in adds]}
     record = {"layout": ex.layout, "levels": dlp.num_levels}
     for name, (kernel, plain) in runs.items():
         got = kernel()
@@ -377,6 +478,9 @@ def compare_level_kernels(P, asm, device, timed: bool) -> dict:
         if timed:
             record[name]["ms"] = cuda_ms(kernel)
             record[name]["plain_ms"] = cuda_ms(plain, reps=5)
+            record[name].update(bound(*work[name]))
+            if name in library:
+                record[name]["library_ms"] = cuda_ms(library[name])
     q_T, p_T, finite = backsub.backsub(ed, lam, N, k)
     assert bool(finite), "backsub: non-finite solution"
     return record
@@ -577,6 +681,8 @@ def compare_cyclic_kernels(P, asm, device, timed: bool, force_mf_leaf: int | Non
         dmf0 = dataclasses.replace(dmf, plan=dmf.plan._replace(n_refine=0))
         runs["mf_apply_unrefined"] = (lambda: mf_apply.mf_apply(dmf0, st, rc),
                                       lambda: mf_apply.mf_apply_plain(dmf0, st, rc), TOL)
+    work, library = cyclic_work(dtp, ed, dr, w_edges, w_pairs, dc, rc, folds, dmf,
+                                st if dmf is not None else None)
     record = {"rounds": len(dtp.rounds), "core": dtp.core_size,
               "groups": None if dmf is None else len(dmf.plan.groups)}
     for name, (kernel, plain, tol) in runs.items():
@@ -590,7 +696,82 @@ def compare_cyclic_kernels(P, asm, device, timed: bool, force_mf_leaf: int | Non
             kernel, plain = timed_runs.get(name, (kernel, plain))
             record[name]["ms"] = cuda_ms(kernel, reps=5)
             record[name]["plain_ms"] = cuda_ms(plain, reps=3)
+            record[name].update(bound(*work[name]))
+            if name in library:
+                record[name]["library_ms"] = cuda_ms(library[name], reps=5)
     return record
+
+
+def fold_work(levels, n: int, C: int) -> tuple[int, int]:
+    """(index bytes, additions) of one K10 fold of an ``(n, C)`` input."""
+    nbytes = adds = 0
+    for lv in levels:
+        adds += valid_entries(lv, n) * C
+        nbytes += tensor_bytes(lv)
+        n = lv.shape[0]
+    return nbytes, adds
+
+
+def cyclic_work(dtp, ed, dr, w_edges, w_pairs, dc, rc, folds, dmf, st):
+    """``({name: (bytes, float64 operations[, matrix operations])}, {name:
+    library call})`` of the cyclic kernels' timed calls (peel with its
+    Jacobi core), on these inputs.  Operations: the λ system ~8 per edge; a
+    fold one per summed entry and channel; a peel round ~6 per node plus its
+    fold; the dense core n³/3 matrix operations for the factor and 4n² + 2P₀
+    per solve and refinement pass; the multifrontal factor w³/3 + w²b + wb²
+    matrix operations and each sweep 2w² + 4wb per front of pivot width w and
+    boundary b, with 4P₀ per refinement matvec."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core
+
+    E, B = dtp.num_edges, dtp.num_bifurcations
+    n_c, P0 = dtp.core_size, int(dtp.core_ci.shape[0])
+    lam_plan = (dtp.t_idx, dtp.t_bins, dtp.s_idx, dtp.s_bins, dtp.start_bif, dtp.end_bif)
+    t_adds = valid_entries(dtp.t_idx, E) + valid_entries(dtp.s_idx, E)
+    folded = [fold_work(lv, v.shape[0], 2) for lv, v in folds]
+    rounds = [(rd.elim, rd.parents, rd.pair_ids, rd.upar, rd.fold) for rd in dtp.rounds]
+    round_folds = [fold_work(rd.fold, rd.size, 2)[1] for rd in dtp.rounds if rd.fold]
+    n_peeled = sum(rd.size for rd in dtp.rounds)
+    work = {
+        "lambda_system": (tensor_bytes(ed.W, ed.g, ed.cumF[-1], ed.start_pbc, ed.end_pbc,
+                                       lam_plan, dr, w_edges) + 8, 8 * E + 2 * t_adds + 2 * B),
+        "fold_apply": (sum(b for b, _ in folded) + sum(tensor_bytes(v) + 16 * lv[-1].shape[0]
+                                                       for lv, v in folds),
+                       sum(a for _, a in folded)),
+        "peel": (tensor_bytes(dr, w_pairs, rounds) + 8 * B, 6 * n_peeled + sum(round_folds)
+                 + 2 * n_c),
+    }
+    if n_c and n_c <= 512:
+        nr = dense_core.N_REFINE
+        work["dense_core"] = (tensor_bytes(dtp.core_ci, dtp.core_cj, dtp.core_pid, dc, rc,
+                                           w_pairs) + 8 * n_c,
+                              (1 + nr) * (4 * n_c**2 + 2 * P0), n_c**3 / 3)
+    library = {}
+    if dmf is not None:
+        groups = dmf.plan.groups
+        fac_ops = sum(g.k * (g.w**3 / 3 + g.w**2 * g.b + g.w * g.b**2) for g in groups)
+        nr = dmf.plan.n_refine
+        sweep_ops = sum(g.k * (2 * g.w**2 + 4 * g.w * g.b) for g in groups)
+        mf_index = tensor_bytes(dmf.init_slot, dmf.nodes_all, dmf.cval_all, dmf.ccol_all,
+                                dmf.cidx_all, dmf.lminv_all, dmf.consume)
+        work["mf_factor"] = (mf_index + tensor_bytes(dc, w_pairs, st.fac, st.vals, st.ok),
+                             0.0, fac_ops)
+        work["mf_apply"] = (tensor_bytes(dmf.bndpos_all, dmf.lam_pos, dmf.pci, dmf.pcj,
+                                         dmf.mv_inv_i, dmf.mv_inv_j, st.fac, st.vals, dc, rc)
+                            + 8 * n_c,
+                            (1 + nr) * sweep_ops + nr * 4 * P0)
+    # K10's yardstick: index_add_ of each round's terms into its parents
+    adds = []
+    for rd, (lv, v) in zip([rd for rd in dtp.rounds if rd.fold], folds):
+        ok = rd.parents >= 0
+        seg = torch.searchsorted(rd.upar, rd.parents[ok])
+        adds.append((torch.zeros((rd.upar.shape[0], 2), dtype=v.dtype, device=v.device),
+                     seg, v[ok]))
+    library["fold_apply"] = lambda: [out.index_add_(0, seg, src) for out, seg, src in adds]
+    if n_c and n_c <= 512:
+        Lc = dense_core.assemble_core(dtp.core_ci, dtp.core_cj, dtp.core_pid, dc, w_pairs)
+        library["dense_core"] = lambda: torch.cholesky_solve(
+            rc[:, None], torch.linalg.cholesky(Lc))
+    return work, library
 
 
 def cyclic_main_path(P, device, label: str, build, expect: dict) -> dict:
@@ -694,6 +875,401 @@ def cyclic_timing(P, state: dict, forms, label: str, name_power: str) -> dict:
             "cuda_launches": cuda_launches}
 
 
+def lattice_forms(asm) -> None:
+    """The reference benchmark's lattice stage: R = 1, f = 0, p_bc = y."""
+    asm.compute_forms(p_bc_ex=lambda x: x[1], R=1.0)
+
+
+def lattice_source(x):
+    return x[0] + 0.3 * x[1]
+
+
+def lattice_callable_forms(asm) -> None:
+    """The same lattice with a distributed source f = x + 0.3·y (quad mode)."""
+    asm.compute_forms(p_bc_ex=lambda x: x[1], R=1.0, f=lattice_source)
+
+
+def lattice_assembler(P, nx: int = LATTICE_N, ny: int = LATTICE_N, N: int = 1, k: int = 1,
+                      forms=lattice_forms):
+    """``make_grid(nx, ny)``, the capillary lattice, at N cells per vessel."""
+    net = P.network_generation.make_grid(nx, ny, arrays=True)
+    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(net, N=N, color_strategy="fast"),
+                                      flux_degree=k, pressure_degree=0)
+    forms(asm)
+    return asm
+
+
+def lattice_small(P):
+    """``make_grid(9, 4)`` at N = 2, k = 3, per-cell f from a seed, R = 2.5,
+    p_bc = x + 0.2·y: the grid route at flux degree 3."""
+    def forms(asm):
+        f = np.random.default_rng(4).uniform(-1.0, 1.0, asm.network.num_cells)
+        asm.compute_forms(p_bc_ex=lambda x: x[0] + 0.2 * x[1], f=f, R=2.5)
+    return lattice_assembler(P, 9, 4, N=2, k=3, forms=forms)
+
+
+def lattice_wide(P):
+    """``make_grid(5000, 3)`` at N = 1, f = 0.3, R = 1.7: a side above 4,096,
+    whose DCT-II matrix is generated on the device."""
+    def forms(asm):
+        asm.compute_forms(p_bc_ex=lambda x: x[0] + 0.2 * x[1], f=0.3, R=1.7)
+    return lattice_assembler(P, 5000, 3, forms=forms)
+
+
+def compare_lattice_kernels(P, asm, device, timed: bool, tol_solve: float = LATTICE_TOL) -> dict:
+    """K16–K18 (and the kernels their routes share) against their plain
+    versions on the inputs the DCT executor gives them, on the card.
+
+    Grid route: K1, K17's assembly and stencil, K5; general route: K8a, K9's
+    bifurcation system, K6's class weights, K18, K8b.  Then K16: the factor,
+    the forward and inverse transforms, one transform solve, one unrefined
+    direct pass (no refinement pass, which would hide an error) — all at
+    ``TOL`` — and the refined solve at ``tol_solve``, each times the scale."""
+    from networks_fenicsx_tpu_torch import lattice
+    from networks_fenicsx_tpu_torch.kernels import (
+        backsub, condense, dct_lattice as K16, edge_data, expand, grid_core, peel, segsum,
+        shift_matvec,
+    )
+    from networks_fenicsx_tpu_torch.solver import _GridExecutor, build_schur_executor
+
+    ex = build_schur_executor(asm, P.SolverOptions(schur_method="dct"), device=device)
+    grid = isinstance(ex, _GridExecutor)
+    R, f, sp, ep = ex.upload(*ex.prepare_args(*asm.schur_arguments()))
+    Rm, fm, f_zero = asm.coefficient_modes()
+    N, k, h = ex._N, ex._k, ex._h_e
+    gen = torch.Generator(device=device).manual_seed(1)
+    runs, timed_runs, library = {}, {}, {}
+    if grid:
+        gdp, op = ex.device_plan, ex.operator
+        c_args = (N, k, h, R, f, Rm, fm, sp, ep)
+        W, w, g, Ftot, const = condense.condense_plain(gdp.plan, *c_args)
+        rhs, diag, _ = grid_core.grid_core_plain(gdp, w, const, Ftot)
+        lam_any = torch.randn(op.B, generator=gen, dtype=torch.float64, device=device)
+
+        def res_kernel(lam):
+            return grid_core.grid_residual(gdp, w, diag, lam, rhs)
+
+        def res_plain(lam):
+            return grid_core.grid_residual_plain(gdp, w, diag, lam, rhs)
+
+        runs["condense"] = (lambda: condense.condense(gdp, *c_args),
+                            lambda: condense.condense_plain(gdp.plan, *c_args), TOL)
+        runs["grid_core"] = (lambda: grid_core.grid_core(gdp, w, const, Ftot),
+                             lambda: grid_core.grid_core_plain(gdp, w, const, Ftot), TOL)
+        runs["grid_core_stencil"] = (
+            lambda: grid_core.grid_residual(gdp, w, diag, lam_any, rhs, norm=True),
+            lambda: grid_core.grid_residual_plain(gdp, w, diag, lam_any, rhs, norm=True), TOL)
+        w_edges = w
+    else:
+        dlp, op = ex.device_plan, ex.operator
+        e_args = (dlp, N, k, h, ex._quad_w, ex._quad_phi, R, f, Rm, fm, f_zero, sp, ep)
+        ed = edge_data.edge_data_plain(*e_args)
+        dr, w_edges, _ = peel.lambda_system_plain(dlp, ed)
+        n_cls = dlp.offsets.size
+        cw = lattice._shift_class_weights(w_edges, dlp.class_idx, n_cls, segsum.segsum_plain)
+        rhs = dr[:, 1].contiguous()
+        lam_any = torch.randn(op.B, generator=gen, dtype=torch.float64, device=device)
+
+        def res_kernel(lam):
+            return shift_matvec.shift_matvec(dlp.offsets, cw, dr, lam)
+
+        def res_plain(lam):
+            return shift_matvec.shift_matvec_plain(dlp.offsets, cw, dr, lam)
+
+        runs["edge_data"] = (lambda: edge_data.edge_data(*e_args),
+                             lambda: edge_data.edge_data_plain(*e_args), TOL)
+        runs["lambda_system"] = (lambda: peel.lambda_system(dlp, ed),
+                                 lambda: peel.lambda_system_plain(dlp, ed), TOL)
+        runs["segsum"] = (
+            lambda: lattice._shift_class_weights(w_edges, dlp.class_idx, n_cls, segsum.segsum),
+            lambda: lattice._shift_class_weights(w_edges, dlp.class_idx, n_cls,
+                                                 segsum.segsum_plain), TOL)
+        runs["shift_matvec"] = (
+            lambda: shift_matvec.shift_matvec(dlp.offsets, cw, dr, lam_any, norm=True),
+            lambda: shift_matvec.shift_matvec_plain(dlp.offsets, cw, dr, lam_any, norm=True), TOL)
+        # the library yardstick: one CSR product with the same Laplacian
+        L = lattice_csr(dlp.offsets, cw, dr[:, 0])
+        library["shift_matvec"] = lambda: torch.mv(L, lam_any)
+        timed_runs["shift_matvec"] = (lambda: shift_matvec.shift_matvec(dlp.offsets, cw, dr,
+                                                                        lam_any),
+                                      lambda: shift_matvec.shift_matvec_plain(dlp.offsets, cw, dr,
+                                                                              lam_any))
+    st = K16.factor_plain(op, w_edges)
+    spec = K16.transform_plain(op, rhs)
+    runs["dct_factor"] = (lambda: K16._factor(op, w_edges), lambda: K16.factor_plain(op, w_edges),
+                          TOL)
+    runs["dct_forward"] = (lambda: K16.transform(op, rhs), lambda: K16.transform_plain(op, rhs),
+                           TOL)
+    runs["dct_inverse"] = (lambda: K16.transform(op, spec, inverse=True),
+                           lambda: K16.transform_plain(op, spec, inverse=True), TOL)
+    runs["dct_lplus"] = (lambda: K16._lplus(op, st, rhs), lambda: K16.lplus_plain(op, st, rhs), TOL)
+    runs["dct_lattice_unrefined"] = (
+        lambda: K16.dct_lattice(op, w_edges, rhs, res_kernel, n_refine=0),
+        lambda: K16.dct_lattice_plain(op, w_edges, rhs, res_plain, n_refine=0), TOL)
+    runs["dct_lattice"] = (lambda: K16.dct_lattice(op, w_edges, rhs, res_kernel),
+                           lambda: K16.dct_lattice_plain(op, w_edges, rhs, res_plain), tol_solve)
+    lam = K16.dct_lattice_plain(op, w_edges, rhs, res_plain)
+    if grid:
+        x_args = (N, k, lam, sp, ep, W, w, g, Ftot, h, R, f, Rm, fm)
+        runs["expand"] = (lambda: expand.expand(gdp, *x_args),
+                          lambda: expand.expand_plain(gdp.plan, *x_args), TOL)
+        # K17 is timed on its assembly; the stencil's time is recorded beside it
+        timed_runs["grid_core_stencil"] = (
+            lambda: grid_core.grid_residual(gdp, w, diag, lam_any, rhs),
+            lambda: grid_core.grid_residual_plain(gdp, w, diag, lam_any, rhs))
+        L = lattice_csr_grid(gdp, w, diag)
+        library["grid_core_stencil"] = lambda: torch.mv(L, lam_any)
+    else:
+        runs["backsub"] = (lambda: backsub.backsub(ed, lam, N, k),
+                           lambda: backsub.backsub_plain(ed, lam, N, k), TOL)
+    # K16 is timed alone: its refinement residuals are fixed tensors here
+    fixed = res_plain(lam)
+    timed_runs["dct_lattice"] = (lambda: K16.dct_lattice(op, w_edges, rhs, lambda _: fixed),
+                                 lambda: K16.dct_lattice_plain(op, w_edges, rhs, lambda _: fixed))
+    library["dct_lattice"] = lambda: [K16.lplus_plain(op, st, rhs) for _ in range(1 + K16.N_REFINE)]
+
+    # bytes and float64 operations of the timed calls: K16 reads the DCT
+    # matrices, eigenvalues, stub columns, rhs and the two refinement
+    # residuals and writes λ; its four products per pass are 4·ny·s·(ny + s)
+    # matrix operations, the stub correction (2r + 3)·B; K17's assembly reads
+    # three (E,) vectors and writes two grids (~12 operations a node), its
+    # stencil ~10 a node; K18 (2 + 2C) a row
+    B, n_pass = op.B, 1 + K16.N_REFINE
+    stub_tables = (op.stub_rows, op.stub_edge, op.stub_group)
+    work = {
+        "dct_lattice": (tensor_bytes(op.Dx, op.Dy, op.lamx, op.lamy, op.g_geo, stub_tables)
+                        + 8 * (2 + op.stub_edge.numel()) + 8 * B * (2 + K16.N_REFINE),
+                        n_pass * (2 * op.r + 3) * B + 5 * B + op.r * B,
+                        n_pass * 4 * op.ny * op.s * (op.ny + op.s)),
+    }
+    if grid:
+        work["grid_core"] = (tensor_bytes(w, const, Ftot, gdp.stub_rows, gdp.stub_s_bif)
+                             + 16 * B + 8, 12 * B)
+        work["grid_core_stencil"] = (tensor_bytes(w, diag, lam_any, rhs) + 8 * B, 10 * B)
+    else:
+        work["shift_matvec"] = (tensor_bytes(cw, dr, lam_any) + 8 * B + 4 * n_cls,
+                                (2 + 2 * n_cls) * B)
+    record = {"route": "grid" if grid else "general", "s": op.s, "ny": op.ny, "r": op.r}
+    for name, (kernel, plain, tol) in runs.items():
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        err, scale = max_err(got, want)
+        assert err <= tol * scale, (name, err, scale, tol)
+        record[name] = {"max_abs_err": err, "scale": scale}
+        if timed and name in work:
+            kernel, plain = timed_runs.get(name, (kernel, plain))
+            record[name]["ms"] = cuda_ms(kernel, reps=10)
+            record[name]["plain_ms"] = cuda_ms(plain, reps=5)
+            record[name].update(bound(*work[name]))
+            if name in library:
+                record[name]["library_ms"] = cuda_ms(library[name], reps=10)
+    return record
+
+
+def lattice_csr(offsets, cw, diag):
+    """The bifurcation Laplacian of the shift classes as a CSR tensor: the
+    sparse-product yardstick of K17's stencil and K18."""
+    B = diag.shape[0]
+    i = torch.arange(B, device=diag.device)
+    rows, cols, vals = [i], [i], [diag]
+    for c, d in enumerate(np.asarray(offsets).tolist()):
+        j = i + int(d)
+        keep = (j >= 0) & (j < B)
+        rows.append(i[keep])
+        cols.append(j[keep])
+        vals.append(-cw[c][keep])
+    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    with warnings.catch_warnings():  # sparse CSR is "beta" in PyTorch
+        warnings.simplefilter("ignore")
+        coo = torch.sparse_coo_tensor(idx, torch.cat(vals), (B, B), check_invariants=True)
+        return coo.coalesce().to_sparse_csr()
+
+
+def lattice_csr_grid(gdp, w, diag):
+    """The grid route's Laplacian as a CSR tensor (see :func:`lattice_csr`)."""
+    nx, ny = gdp.nx, gdp.ny
+    Ex, Ey = ny * (nx - 1), (ny - 1) * nx
+    B = nx * ny
+    cw = torch.zeros((4, B), dtype=torch.float64, device=w.device)
+    wx = w[:Ex].reshape(ny, nx - 1)
+    wy = w[Ex:Ex + Ey].reshape(ny - 1, nx)
+    cw[0].view(ny, nx)[1:, :] = wy  # offset -nx
+    cw[1].view(ny, nx)[:, 1:] = wx  # offset -1
+    cw[2].view(ny, nx)[:, :-1] = wx  # offset +1
+    cw[3].view(ny, nx)[:-1, :] = wy  # offset +nx
+    return lattice_csr(np.array([-nx, -1, 1, nx]), cw, diag)
+
+
+def inlet_outlet(asm, x: np.ndarray, source=None) -> float:
+    """|q out of the outlet stub − q into the inlet stub − ∫f|: zero by mass
+    balance.  ∫f over the network of a ``source`` linear in x is exact as
+    the edge lengths times f at the edge midpoints."""
+    mesh = asm.network
+    base = asm._edge_flux_base
+    q_start = x[base]
+    q_end = x[base + asm._dofs_per_edge - 1]
+    edges = np.asarray(mesh.edges)
+    B = mesh.num_multipliers
+    inlet = int(np.flatnonzero(edges[:, 0] == B)[0])
+    outlet = int(np.flatnonzero(edges[:, 1] == B + 1)[0])
+    src = 0.0
+    if source is not None:
+        mid = 0.5 * (mesh.vertices[edges[:, 0]] + mesh.vertices[edges[:, 1]])
+        src = float(np.sum(np.asarray(mesh.edge_length) * source(mid.T)))
+    return float(abs(q_end[outlet] - q_start[inlet] - src))
+
+
+def lattice_main_path(P, device, label: str, build, options, route: str, source=None) -> dict:
+    """A lattice solve through the public API, counted and checked: the
+    grid or general DCT executor, only its kernels launched, the sizes of
+    the reference's 512² stage, relative λ residual ≤ 1e-10, converged,
+    mass conserved at every junction and between inlet and outlet, equal to
+    the plain path on the card at ``LATTICE_TOL``."""
+    from networks_fenicsx_tpu_torch import kernels
+    from networks_fenicsx_tpu_torch.lattice import _GridPlan
+    from networks_fenicsx_tpu_torch.solver import _DctExecutor, _GridExecutor, _flatten_blocks_host
+
+    t0 = time.perf_counter()
+    asm = build()
+    mesh = asm.network
+    solver = P.Solver(asm, options=options, device=device)
+    sizes = {"edges": mesh.num_edges, "bifurcations": mesh.num_multipliers, "dofs": asm.num_dofs}
+    for key, want in LATTICE_SIZES.items():
+        assert sizes[key] == want, (key, sizes[key], want)
+    log(f"phase {label}: set-up {time.perf_counter() - t0:.3f} s, {sizes['edges']} edges, "
+        f"{sizes['bifurcations']} bifurcations, {sizes['dofs']} dofs")
+
+    torch.cuda.reset_peak_memory_stats(device)
+    t1 = time.perf_counter()
+    kernels.reset_launches()
+    sol = solver.solve()
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    first_s = time.perf_counter() - t1
+    peak_mb = torch.cuda.max_memory_allocated(device) / 2**20
+    ex = solver._executor
+    if route == "grid":
+        assert isinstance(ex, _GridExecutor) and isinstance(ex.blocked_plan, _GridPlan), type(ex)
+        used = ("condense", "grid_core", "dct_lattice", "expand")
+    else:
+        assert isinstance(ex, _DctExecutor), type(ex)
+        used = ("edge_data", "lambda_system", "segsum", "dct_lattice", "shift_matvec", "backsub")
+    assert all(launches[name] >= 1 for name in used), launches
+    assert all(n == 0 for name, n in launches.items() if name not in used), launches
+
+    info = solver.info
+    x = solver.solution_vector()
+    assert info.converged and info.iterations == 0, info
+    rel_res = info.residual / float(ex(*ex.prepare_args(*asm.schur_arguments()))[5])
+    assert rel_res <= 1e-10, rel_res
+    assert x.shape == (asm.num_dofs,) and np.all(np.isfinite(x))
+    assert sum(fn.values.size for fn in sol) == asm.num_dofs
+    imbalance, qmax = conservation(asm, x)
+    assert imbalance <= 1e-10 * qmax, (imbalance, qmax)
+    # the inlet-outlet balance is the sum of all B junction imbalances, so its
+    # float64 floor sits above the per-junction one: 1.3e-10·max |q| at 512²
+    # on the card; 1e-9 leaves a margin of about 7 and no more
+    io_bar = 1e-9
+    through = inlet_outlet(asm, x, source)
+    assert through <= io_bar * qmax, (through, qmax, io_bar)
+
+    out = ex.plain(*ex.prepare_args(*asm.schur_arguments()))
+    x_plain = _flatten_blocks_host(
+        out[0].cpu().numpy(), out[1].cpu().numpy(), out[2].cpu().numpy(), mesh.edge_color,
+        edge_order=ex.edge_order, bif_order=ex.bif_order,
+    )
+    err = float(np.abs(x - x_plain).max())
+    scale = max(1.0, float(np.abs(x_plain).max()))
+    assert err <= LATTICE_TOL * scale, (err, scale)
+    log(f"phase {label}: {route} route, {type(ex).__name__}, first solve (executor build + "
+        f"solve) {first_s:.3f} s, relative λ residual {rel_res:.3e}, converged, finite, "
+        f"conservation {imbalance:.3e}, inlet-outlet balance {through:.3e} "
+        f"({through / qmax:.3e} of max |q| {qmax:.3e}, bar {io_bar:.3e}), "
+        f"vs plain path {err:.3e} (scale {scale:.3e}), peak device memory {peak_mb:.1f} MiB, "
+        f"launches {launches}")
+    return {"asm": asm, "solver": solver, "launches": launches, "sizes": sizes,
+            "rel_res": rel_res}
+
+
+def lattice_timing(P, state: dict, forms, label: str, name_power: str) -> dict:
+    """compute_forms + solve best of 5 on the host clock, CUDA-synchronised;
+    device time per solve for the kernels and the plain versions; wrapper
+    calls per solve (the CUDA kernels per solve are counted by the profiler
+    of ``scripts/profile_torch_main_path.py``)."""
+    asm, solver = state["asm"], state["solver"]
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forms(asm)
+        solver.solve()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ex = solver._executor
+    args = ex.prepare_args(*asm.schur_arguments())
+    dev_ms = cuda_ms(lambda: ex(*args), reps=5)
+    plain_ms = cuda_ms(lambda: ex.plain(*args), reps=3)
+    wrapper_launches = sum(state["launches"].values())
+    log(f"phase timing {label}: compute_forms+solve best {min(times):.3f} ms "
+        f"(all {[round(t, 3) for t in times]}); device per solve (upload + kernels) "
+        f"{dev_ms:.3f} ms, plain versions {plain_ms:.3f} ms; launches per solve "
+        f"{wrapper_launches} wrapper calls; card {name_power}")
+    return {"best_ms": min(times), "device_ms": dev_ms, "plain_ms": plain_ms}
+
+
+def lattice_phases(P, device, name_power: str) -> dict:
+    """The lattice slice: kernels-lattice sets (a)–(d), then the 512² main
+    paths under ``schur_method="dct"`` and ``auto`` (grid route) and with a
+    callable source (general DCT route)."""
+    lat = {}
+    lat["a"] = compare_lattice_kernels(P, lattice_assembler(P), device, timed=True)
+    log("phase kernels-lattice (a) 512^2 lattice, N=1, k=1, R=1, f=0, grid route: "
+        + json.dumps(lat["a"]))
+    lat["b"] = compare_lattice_kernels(P, lattice_small(P), device, timed=False)
+    log("phase kernels-lattice (b) 9x4 lattice, N=2, k=3, cell f, R=2.5, grid route: "
+        + json.dumps(lat["b"]))
+    lat["c"] = compare_lattice_kernels(
+        P, lattice_assembler(P, forms=lattice_callable_forms), device, timed=True)
+    log("phase kernels-lattice (c) 512^2 lattice, callable f = x + 0.3y, general route: "
+        + json.dumps(lat["c"]))
+    from networks_fenicsx_tpu_torch.kernels import dct_lattice
+    from networks_fenicsx_tpu_torch.lattice import _dct2_matrix_device
+
+    wide = lattice_wide(P)
+    n_long = 5000
+    bar = max(1e-10, 256 * n_long**2 * float(np.finfo(np.float64).eps))
+    lat["d"] = compare_lattice_kernels(P, wide, device, timed=False, tol_solve=bar)
+    D, D_plain = dct_lattice.dct_matrix(n_long, device), _dct2_matrix_device(n_long, device)
+    torch.cuda.synchronize()
+    err, scale = max_err(D, D_plain)
+    assert err <= TOL * scale, ("dct_matrix", err, scale)
+    lat["d"]["dct_matrix"] = {"max_abs_err": err, "scale": scale}
+    log(f"phase kernels-lattice (d) 5000x3 lattice, f=0.3, R=1.7, device DCT matrices "
+        f"(bar {bar:.3e}): " + json.dumps(lat["d"]))
+    assert [lat[c]["route"] for c in "abcd"] == ["grid", "grid", "general", "grid"], lat
+    del wide, D, D_plain
+
+    paths = {}
+    paths["dct"] = lattice_main_path(P, device, "lattice main path (schur_method='dct')",
+                                     lambda: lattice_assembler(P),
+                                     P.SolverOptions(schur_method="dct"), "grid")
+    lattice_timing(P, paths["dct"], lattice_forms, "lattice (dct)", name_power)
+    del paths["dct"]["asm"], paths["dct"]["solver"]
+    paths["auto"] = lattice_main_path(P, device, "lattice main path (auto)",
+                                      lambda: lattice_assembler(P), P.SolverOptions(), "grid")
+    lattice_timing(P, paths["auto"], lattice_forms, "lattice (auto)", name_power)
+    del paths["auto"]["asm"], paths["auto"]["solver"]
+
+    paths["general"] = lattice_main_path(
+        P, device, "lattice general-route main path",
+        lambda: lattice_assembler(P, forms=lattice_callable_forms), P.SolverOptions(), "general",
+        source=lattice_source)
+    lattice_timing(P, paths["general"], lattice_callable_forms, "lattice (general)", name_power)
+    del paths["general"]["asm"], paths["general"]["solver"]
+    return {"sets": lat, "paths": paths}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -781,27 +1357,42 @@ def main() -> int:
                                lambda: web_assembler(P, sites=1_000), WEB1000_SIZES)
     cyclic_timing(P, web1000, forest_forms, "web1000", name_power)
 
+    del web1000["asm"], web1000["solver"]
+
+    lattice = lattice_phases(P, device, name_power)
+    lat = lattice["sets"]
+
     runs = (state["launches"], tree["launches"], forest["launches"], web["launches"],
-            bed["launches"], web1000["launches"])
+            bed["launches"], web1000["launches"],
+            *(path["launches"] for path in lattice["paths"].values()))
     timed_cyclic = {"dense_core": cyc["e"]}
+    timed_lattice = {"dct_lattice": lat["a"], "grid_core": lat["a"], "shift_matvec": lat["c"]}
     kernels = []
     for name, (source, replaces) in KERNEL_RECORD.items():
+        lattice_errs = tuple(lat[c][name]["max_abs_err"] for c in "abcd" if name in lat[c])
         if name in full:
-            errs = (full[name]["max_abs_err"], small[name]["max_abs_err"])
+            errs = (full[name]["max_abs_err"], small[name]["max_abs_err"]) + lattice_errs
             timed_on = full[name]
         elif name in sets["a"]:
-            errs = tuple(sets[c][name]["max_abs_err"] for c in "abcd")
+            errs = tuple(sets[c][name]["max_abs_err"] for c in "abcd") + lattice_errs
             timed_on = sets["a"][name]
+        elif name in LATTICE_CHECKS:
+            errs = tuple(lat[c][key]["max_abs_err"] for c in "abcd"
+                         for key in LATTICE_CHECKS[name] if key in lat[c])
+            timed_on = timed_lattice[name][name]
         else:
             errs = tuple(cyc[c][key]["max_abs_err"] for c in "abcde"
-                         for key in (name, name + "_unrefined") if key in cyc[c])
+                         for key in (name, name + "_unrefined") if key in cyc[c]) + lattice_errs
             timed_on = timed_cyclic.get(name, cyc["a"])[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(r[name] for r in runs),
             "max_abs_err": max(errs),
             "ms": timed_on["ms"], "plain_ms": timed_on["plain_ms"],
+            "bound_ms": timed_on["bound_ms"], "bound_by": timed_on["bound_by"],
+            "library_ms": timed_on.get("library_ms"),
         })
+    assert len(kernels) == 16 and all(kr["launches"] > 0 for kr in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,14 @@ The cyclic solve (peel rounds, then the cycle core), after K8a and before K8b:
 * :mod:`.mf_factor` — K13 + K14, the multifrontal factor;
 * :mod:`.mf_apply` — K15, the multifrontal apply with its refinement.
 
+The uniform-lattice solve (the separable-DCT λ solve on its two routes):
+
+* :mod:`.dct_lattice` — K16, the DCT capacitance solve with its refinement;
+* :mod:`.grid_core` — K17, the grid route's assembly, stencil and norms
+  (between K1 and K5);
+* :mod:`.shift_matvec` — K18, the general route's shift-class matvec (with
+  K8a, K9's ``lambda_system``, K6 and K8b).
+
 A wrapper launches its kernel for CUDA tensors (building the library from
 ``csrc/`` at first use, see :mod:`.build`) and runs the plain version for
 CPU tensors.  Each wrapper counts its launches in a plain integer attribute
@@ -30,14 +38,15 @@ CPU tensors.  Each wrapper counts its launches in a plain integer attribute
 """
 
 from . import (
-    backsub, condense, dense_core, edge_data, expand, fold, level_eliminate, mf_apply, mf_factor,
-    peel, segsum, tree_sweep,
+    backsub, condense, dct_lattice, dense_core, edge_data, expand, fold, grid_core,
+    level_eliminate, mf_apply, mf_factor, peel, segsum, shift_matvec, tree_sweep,
 )
 
 __all__ = [
-    "backsub", "condense", "dense_core", "edge_data", "expand", "fold", "level_eliminate",
-    "mf_apply", "mf_factor", "peel", "segsum", "tree_sweep",
-    "WRAPPERS", "BLOCKED", "GENERAL", "CYCLIC", "reset_launches", "launches",
+    "backsub", "condense", "dct_lattice", "dense_core", "edge_data", "expand", "fold",
+    "grid_core", "level_eliminate", "mf_apply", "mf_factor", "peel", "segsum", "shift_matvec",
+    "tree_sweep",
+    "WRAPPERS", "BLOCKED", "GENERAL", "CYCLIC", "LATTICE", "reset_launches", "launches",
 ]
 
 BLOCKED = (condense.condense, tree_sweep.tree_sweep, expand.expand)
@@ -46,7 +55,8 @@ CYCLIC = (
     fold.fold_apply, peel.lambda_system, peel.peel, dense_core.dense_core,
     mf_factor.mf_factor, mf_apply.mf_apply,
 )
-WRAPPERS = BLOCKED + GENERAL + CYCLIC
+LATTICE = (dct_lattice.dct_lattice, grid_core.grid_core, shift_matvec.shift_matvec)
+WRAPPERS = BLOCKED + GENERAL + CYCLIC + LATTICE
 
 
 def reset_launches() -> None:

@@ -125,6 +125,42 @@ _SIGNATURES = {
         _p, _p,  # r, stream
     ],
     "nxfx_mf_gate": [_i, _p, _p, _p],  # n, ok, x, stream
+    "nxfx_dct_gemm": [
+        _i, _i, _i,  # M, N, K
+        _p, _i, _p, _i,  # A, transA, B, transB
+        _p, _p, _i, _p, _p,  # S (or null), C, split, work (or null), stream
+    ],
+    "nxfx_dct_scale": [
+        _i, _i, _i, _i,  # s, ny, r, B
+        _p, _i, _i, _d,  # w, rep_x, rep_y, len_x
+        _p, _p, _p,  # lamx, lamy, g_geo
+        _p, _p, _p,  # inv, g, stream
+    ],
+    "nxfx_dct_minv": [
+        _i, _i, _i, _p,  # r, n_stub, B, w
+        _p, _p, _p,  # stub_edge, stub_group, stub_rows
+        _p, _p, _p,  # g, Minv, stream
+    ],
+    "nxfx_dct_border": [
+        _i, _i, _p, _p, _p, _p,  # B, r, b, z, rows, Minv
+        _p, _p, _p,  # partial, sol, stream
+    ],
+    "nxfx_dct_correct": [_i, _i, _p, _p, _p, _p, _p, _p],  # B, r, z, g, sol, lam_in, out, stream
+    "nxfx_dct_matrix": [_i, _d, _d, _p, _p],  # n, scale, scale0, D, stream
+    "nxfx_grid_assemble": [
+        _i, _i, _i,  # nx, ny, n_stub
+        _p, _p, _p, _p, _p,  # w, const, Ftot, stub_rows, stub_s_bif
+        _p, _p, _p, _p, _p,  # rhs, diag, partial, rhs_norm, stream
+    ],
+    "nxfx_grid_residual": [
+        _i, _i, _p, _p, _p, _p,  # nx, ny, w, diag, lam, rhs
+        _p, _p, _p, _p,  # res, partial (or null), norm (or null), stream
+    ],
+    "nxfx_shift_matvec": [
+        _i, _i, _p,  # B, C, host offsets
+        _p, _p, _p,  # cw, dr, lam
+        _p, _p, _p, _p,  # res, partial (or null), norm (or null), stream
+    ],
 }
 
 

@@ -3,10 +3,12 @@
 Replaces ``networks_fenicsx_tpu/solver.py:_blocked_lambda_to_edges``
 (``:2743-2773``), the ``back`` closure of ``_blocked_condense_f``
 (``:2866-2909``) and the tail of ``_blocked_uniform_solve``
-(``:2954-2971``): per edge the endpoint multipliers, ``r0``, ``rN`` and
-``q0``, then the j-major solution columns ``q_T (k·N+1, E)`` and
-``p_T (N, E)`` in closed form, and a finiteness flag over the (E,)-sized
-precursors ``W, g, Ftot, λ, q0, r0`` (the blocks are affine in them).
+(``:2954-2971``), and the same tail of the lattice grid route
+(``_grid_blocked_core``, ``:1264-1279``): per edge the endpoint
+multipliers, ``r0``, ``rN`` and ``q0``, then the j-major solution columns
+``q_T (k·N+1, E)`` and ``p_T (N, E)`` in closed form, and a finiteness flag
+over the (E,)-sized precursors ``W, g, Ftot, λ, q0, r0`` (the blocks are
+affine in them).
 
 :func:`expand` launches the kernel for CUDA tensors and runs
 :func:`expand_plain`, the eager transcription of the reference, for CPU
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..blocked import DevicePlan, _BlockedPlan, _condensed_scalar_constants
+from ..lattice import _GridPlan
 from . import build
 from .condense import MODES
 
@@ -36,9 +39,28 @@ def _recovery_matrix(k: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(flat if flat.size else np.zeros(1), device=device)
 
 
-def _lambda_to_edges(plan: _BlockedPlan, lam: torch.Tensor):
+def _grid_lambda_to_edges(plan: _GridPlan, lam: torch.Tensor):
+    """The grid route's ``(lam_s, lam_t)``: 2-D slices of the λ grid plus the
+    stub gather (reference ``_grid_blocked_core``, ``:1264-1273``)."""
+    nx, ny = plan.nx, plan.ny
+    l2 = lam.reshape(ny, nx)
+    rows = torch.as_tensor(plan.stub_rows_e, device=lam.device)
+    s_bif = torch.as_tensor(plan.stub_s_bif, device=lam.device)
+    lam_st = lam[rows]
+    zero = torch.zeros_like(lam_st)
+    lam_s = torch.cat([l2[:, : nx - 1].reshape(-1), l2[: ny - 1, :].reshape(-1),
+                       torch.where(s_bif, lam_st, zero)])
+    lam_t = torch.cat([l2[:, 1:].reshape(-1), l2[1:, :].reshape(-1),
+                       torch.where(s_bif, zero, lam_st)])
+    return lam_s, lam_t
+
+
+def _lambda_to_edges(plan: _BlockedPlan | _GridPlan, lam: torch.Tensor):
     """Per-edge ``(lam_s, lam_t)`` in internal edge order, zeros at
-    boundary endpoints (reference ``_blocked_lambda_to_edges``)."""
+    boundary endpoints (reference ``_blocked_lambda_to_edges``; on a grid
+    plan, the grid route's slices)."""
+    if isinstance(plan, _GridPlan):
+        return _grid_lambda_to_edges(plan, lam)
     dt, dev = lam.dtype, lam.device
     sizes = np.diff(plan.bif_offsets).tolist()
     lam_lev = list(torch.split(lam, sizes))

@@ -2,17 +2,18 @@
 
 Counterpart of ``networks_fenicsx_tpu/solver.py``: :class:`Solver`
 (``__init__``, ``assemble``, ``solve``, ``_scatter_functions``,
-``solution_vector``), :func:`build_schur_executor` with the forest and
-peel-then-core routes, ``_BlockedExecutor`` and its ``prepare_args``, the
-general executors (the reference's generic ``core`` + ``_finish`` on a
-level plan, or on a tree plan with a cycle core), ``_schur_solve`` with the
-same convergence gate, and ``_flatten_blocks_host``.
+``solution_vector``), :func:`build_schur_executor` with the forest,
+peel-then-core and lattice routes, ``_BlockedExecutor`` and its
+``prepare_args``, the general executors (the reference's generic ``core`` +
+``_finish`` on a level plan, on a tree plan with a cycle core, or on the
+DCT lattice plan), ``_schur_solve`` with the same convergence gate, and
+``_flatten_blocks_host``.
 
 With discontinuous (degree-0) pressure the system decouples into per-edge
 chains tied together only by the bifurcation multipliers λ; eliminating
 flux and pressure edge by edge reduces it to an SPD weighted graph
 Laplacian on the bifurcations, which a forest eliminates exactly level by
-level; flux and pressure then follow from λ edge by edge.  Three routes:
+level; flux and pressure then follow from λ edge by edge.  The routes:
 
 * blocked — uniformly-K-ary forests with cellwise coefficients: K1
   (:mod:`.kernels.condense`), K2–K4 (:mod:`.kernels.tree_sweep`), K5
@@ -24,14 +25,21 @@ level; flux and pressure then follow from λ edge by edge.  Three routes:
 * tree — a bifurcation graph with cycles: K8a, the bifurcation system and
   the peel rounds with their folds (K9, K10 on K6), the cycle core densely
   for at most 512 nodes (K11) or by the tree multifrontal engine (K13–K15),
-  the reversed rounds, K8b (:mod:`.tree`).
+  the reversed rounds, K8b (:mod:`.tree`);
+* lattice — a uniform rectangular lattice with scalar R
+  (``schur_method="dct"``, or ``auto`` above a 4,096-node core): the exact
+  separable-DCT λ solve (K16, :mod:`.kernels.dct_lattice`), on the grid
+  route (K1, K17 :mod:`.kernels.grid_core`, K16, K5) when the lattice
+  layout applies and f is not quad-mode, otherwise on the general route in
+  public order (K8a, K9's bifurcation system, K6 class weights, K16 with
+  K18 :mod:`.kernels.shift_matvec`, K8b).
 
 The device is explicit: ``Solver(asm, device="cuda")`` (the default) runs the
 CUDA kernels and raises when CUDA is absent; ``device="cpu"`` runs their
 plain PyTorch versions.  Everything outside these routes — a cycle core of
-513–2,048 nodes or one the multifrontal planner refuses (A6b), a scalar-R
-lattice above the dense cutoff (A7), other methods (A8) — raises
-``NotImplementedError`` naming its ROADMAP item.
+513–2,048 nodes or one the multifrontal planner refuses, a scalar-R lattice
+whose core has 513–4,096 nodes (A6b), the CG route (A7b), other methods
+(A8) — raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -45,8 +53,18 @@ from . import assembly as _assembly
 from .blocked import _permute_coefficient, _plan_blocked, device_plan
 from .edge_data import edge_layout
 from .function import NetworkFunction
-from .kernels import backsub, condense, edge_data, expand, level_eliminate, tree_sweep
-from .lattice import lattice_solve_applicable
+from .kernels import (
+    backsub, condense, dct_lattice, edge_data, expand, grid_core, level_eliminate, peel, segsum,
+    shift_matvec, tree_sweep,
+)
+from .lattice import (
+    _DctPlan,
+    _plan_grid_layout,
+    _shift_class_weights,
+    device_grid_plan,
+    device_lattice_plan,
+    lattice_dct_plan,
+)
 from .levels import (
     MinDegreeCorePlan,
     _build_lambda_plan,
@@ -65,8 +83,7 @@ __all__ = ["Solver", "SolveInfo", "build_schur_executor", "resolve_device"]
 _SCHUR_METHOD_ITEM = {
     "dense": "A8",
     "dense_f64": "A8",
-    "cg": "A7",
-    "dct": "A7",
+    "cg": "A7b",
     "tree_dist": "A10",
 }
 
@@ -229,7 +246,7 @@ class Solver:
 
 
 # ======================================================================
-# Executors (blocked, level and tree routes)
+# Executors (blocked, level, tree and lattice routes)
 # ======================================================================
 
 
@@ -275,7 +292,10 @@ class _BlockedExecutor(_Executor):
     ``(q_T, p_T, lam, iters, residual, rhs_norm, finite)`` in internal order
     (``edge_order``/``bif_order`` map it back to the public layout)."""
 
-    def __init__(self, asm, plan, R_mode: str, f_mode: str, device: torch.device):
+    def __init__(
+        self, asm, plan, R_mode: str, f_mode: str, device: torch.device,
+        make_device_plan=device_plan,
+    ):
         mesh = asm.network
         self.blocked_plan = plan
         self.edge_order = plan.edge_order
@@ -285,12 +305,9 @@ class _BlockedExecutor(_Executor):
         self._N = mesh.N
         self._k = asm.flux_degree
         self._device = device
-        self.device_plan = device_plan(plan, device)
-        self._h_e = (
-            torch.as_tensor(
-                np.asarray(mesh.edge_length, dtype=np.float64)[plan.edge_order], device=device
-            )
-            / mesh.N
+        self.device_plan = make_device_plan(plan, device)
+        (self._h_e,) = self.upload(
+            np.asarray(mesh.edge_length, dtype=np.float64)[plan.edge_order] / mesh.N
         )
 
     def _permute(self, arr, mode):
@@ -433,20 +450,143 @@ class _TreeExecutor(_Executor):
         return q_T, p_T, lam, iters, residual, rhs_norm, finite
 
 
+class _GridExecutor(_BlockedExecutor):
+    """The lattice grid route on one device (the reference's
+    ``_grid_blocked_core`` behind ``_BlockedExecutor``, ``:4030-4054``).
+
+    Holds the grid plan (``blocked_plan``, a :class:`.lattice._GridPlan`),
+    its endpoint and stub tables, the internal-order cell widths and K16's
+    operator (DCT matrices, eigenvalues, stub columns), all uploaded once.
+    ``prepare_args`` permutes the coefficients into the internal edge order
+    (x-edges, y-edges, stubs); ``__call__`` runs K1 → K17 assembly → K16
+    (one direct and two refinement passes on K17's stencil) → K17 residual
+    → K5, returning the 7-tuple blocks contract in internal edge order
+    (``bif_order`` None: λ stays in node order) with the residual norm and
+    ``iters = 0``."""
+
+    def __init__(self, asm, plan, R_mode: str, f_mode: str, device: torch.device):
+        super().__init__(asm, plan, R_mode, f_mode, device, make_device_plan=device_grid_plan)
+        n_stub = plan.stub_rows_e.size
+        tail = plan.Ex + plan.Ey
+        self.operator = dct_lattice.dct_operator(
+            plan.dct, device, stub_edge=tail + np.arange(n_stub), stub_group=plan.stub_group,
+            rep_x=0, rep_y=plan.Ex,
+        )
+        # conditioning hint of the λ-residual convergence gate (reference :4049-4053)
+        self.kappa_hint = float(max(plan.dct.s, plan.dct.ny)) ** 2
+
+    def _run(self, R_data, f_data, start_pbc, end_pbc, plain: bool):
+        R, f, sp, ep = self.upload(R_data, f_data, start_pbc, end_pbc)
+        gdp, N, k = self.device_plan, self._N, self._k
+        if plain:
+            plan = gdp.plan
+            run_condense, assemble, residual, solve, run_expand = (
+                condense.condense_plain, grid_core.grid_core_plain,
+                grid_core.grid_residual_plain, dct_lattice.dct_lattice_plain,
+                expand.expand_plain,
+            )
+        else:
+            plan = gdp
+            run_condense, assemble, residual, solve, run_expand = (
+                condense.condense, grid_core.grid_core, grid_core.grid_residual,
+                dct_lattice.dct_lattice, expand.expand,
+            )
+        W, w, g, Ftot, const = run_condense(
+            plan, N, k, self._h_e, R, f, self._R_mode, self._f_mode, sp, ep
+        )
+        rhs, diag, rhs_norm = assemble(gdp, w, const, Ftot)
+        lam = solve(self.operator, w, rhs, lambda lam: residual(gdp, w, diag, lam, rhs))
+        _, res_norm = residual(gdp, w, diag, lam, rhs, norm=True)
+        q_T, p_T, finite = run_expand(
+            plan, N, k, lam, sp, ep, W, w, g, Ftot, self._h_e, R, f, self._R_mode, self._f_mode
+        )
+        iters = torch.zeros((), dtype=torch.int32, device=self._device)
+        return q_T, p_T, lam, iters, res_norm, rhs_norm, finite
+
+
+class _DctExecutor(_Executor):
+    """The general DCT lattice route on one device (the reference's generic
+    ``core`` and the DCT branch of ``_finish``, ``:4121-4142``, ``:4242-4264``).
+
+    Holds the device tables (:func:`.lattice.device_lattice_plan`) and K16's
+    operator, uploaded once.  Edges and bifurcations stay in public order.
+    ``__call__`` runs K8a, the bifurcation system (K9's ``lambda_system``),
+    the class weights (K6), K16 with K18 as its refinement matvec, K18's
+    final residual and K8b, and returns the 7-tuple blocks contract with
+    the residual norm and ``iters = 0``; ``plain`` runs their plain
+    versions."""
+
+    def __init__(self, asm, dct: _DctPlan, R_mode, f_mode, f_is_zero, device):
+        mesh = asm.network
+        self._N = mesh.N
+        self._k = asm.flux_degree
+        self._R_mode = R_mode
+        self._f_mode = f_mode
+        self._f_is_zero = bool(f_is_zero)
+        self._device = device
+        self.device_plan = device_lattice_plan(asm, _build_lambda_plan(asm), device)
+        self.operator = dct_lattice.dct_operator(dct, device)
+        self._h_e = torch.as_tensor(
+            np.asarray(mesh.edge_length, dtype=np.float64) / mesh.N, device=device
+        )
+        self._quad_w, self._quad_phi = self.upload(asm._quad_weights, asm._quad_phi)
+        # conditioning hint of the λ-residual convergence gate (reference :4350-4352)
+        self.kappa_hint = float(max(dct.s, dct.ny)) ** 2
+
+    def _run(self, R_data, f_data, start_pbc, end_pbc, plain: bool):
+        R, f, sp, ep = self.upload(R_data, f_data, start_pbc, end_pbc)
+        if plain:
+            make, lam_sys, sums, matvec, solve, expand_lam = (
+                edge_data.edge_data_plain, peel.lambda_system_plain, segsum.segsum_plain,
+                shift_matvec.shift_matvec_plain, dct_lattice.dct_lattice_plain,
+                backsub.backsub_plain,
+            )
+        else:
+            make, lam_sys, sums, matvec, solve, expand_lam = (
+                edge_data.edge_data, peel.lambda_system, segsum.segsum,
+                shift_matvec.shift_matvec, dct_lattice.dct_lattice, backsub.backsub,
+            )
+        dlp, N, k = self.device_plan, self._N, self._k
+        ed = make(
+            dlp, N, k, self._h_e, self._quad_w, self._quad_phi, R, f,
+            self._R_mode, self._f_mode, self._f_is_zero, sp, ep,
+        )
+        dr, w_edges, rhs_norm = lam_sys(dlp, ed)
+        cw = _shift_class_weights(w_edges, dlp.class_idx, dlp.offsets.size, sums)
+        rhs = dr[:, 1].contiguous()
+        lam = solve(self.operator, w_edges, rhs, lambda lam: matvec(dlp.offsets, cw, dr, lam))
+        _, res_norm = matvec(dlp.offsets, cw, dr, lam, norm=True)
+        q_T, p_T, finite = expand_lam(ed, lam, N, k)
+        iters = torch.zeros((), dtype=torch.int32, device=self._device)
+        return q_T, p_T, lam, iters, res_norm, rhs_norm, finite
+
+
+def _dct_executor(asm, dct: _DctPlan, R_mode, f_mode, f_zero, device):
+    """The grid route when the lattice layout applies and f is not
+    quad-mode, the general DCT route otherwise (reference ``:4030-4054``)."""
+    if f_mode in ("scalar", "edge", "cell"):
+        grid = _plan_grid_layout(asm, dct)
+        if grid is not None:
+            return _GridExecutor(asm, grid, R_mode, f_mode, device)
+    return _DctExecutor(asm, dct, R_mode, f_mode, f_zero, device)
+
+
 def _resolve_core(asm, opts: SolverOptions, tree_plan, override: bool, R_mode: str):
     """The tree plan the cyclic route runs, with its core plan, or raise.
 
     The reference's routing (``:3922-3966``): a core of at most 512 nodes
-    stays dense; under ``auto`` a larger core first meets the separable-DCT
-    lattice check (ROADMAP A7), then the attached sparse core plan.  The
-    multifrontal plan runs here; a min-degree plan (A6b) and the dense/CG
-    fallbacks (A7) raise."""
+    stays dense; under ``auto`` a scalar-R lattice with a larger core of at
+    most 4,096 nodes takes the dense core (ROADMAP A6b: the port's dense
+    core stops at 512), a larger one the DCT solve (the caller's); any
+    other large core meets the attached sparse core plan.  The multifrontal
+    plan runs here; a min-degree plan (A6b) and the CG fallback (A7b)
+    raise."""
     if tree_plan.core_size <= 512:
         return tree_plan
-    if opts.schur_method == "auto" and R_mode == "scalar" and lattice_solve_applicable(asm):
+    if opts.schur_method == "auto" and lattice_dct_plan(asm, R_mode) is not None:
         raise NotImplementedError(
-            f"ROADMAP A7: a uniform scalar-R lattice with a cycle core of {tree_plan.core_size} "
-            "nodes takes the reference's separable-DCT solve, which is not ported yet"
+            f"ROADMAP A6b: a uniform scalar-R lattice with a cycle core of {tree_plan.core_size} "
+            "nodes takes the reference's dense core above 512 nodes, which is not ported yet"
         )
     tree_plan = attach_core_plan(tree_plan) if override else _cached_tree_plan(asm, attach=True)
     cp = tree_plan.core_plan
@@ -460,8 +600,8 @@ def _resolve_core(asm, opts: SolverOptions, tree_plan, override: bool, R_mode: s
                 "factor would need O(core²) memory"
             )
         raise NotImplementedError(
-            f"ROADMAP A7: a cycle core of {tree_plan.core_size} nodes without a sparse core "
-            "plan takes the reference's dense or CG route, which is not ported yet"
+            f"ROADMAP A7b: a cycle core of {tree_plan.core_size} nodes without a sparse core "
+            "plan takes the reference's CG route, which is not ported yet"
         )
     return tree_plan
 
@@ -471,22 +611,26 @@ def build_schur_executor(
     opts: SolverOptions,
     device: torch.device | str = "cuda",
     _tree_plan=None,
-) -> _BlockedExecutor | _LevelExecutor | _TreeExecutor:
+) -> _BlockedExecutor | _LevelExecutor | _TreeExecutor | _DctExecutor:
     """Build the executor, or raise ``NotImplementedError`` (naming the
     ROADMAP item) outside the ported routes.
 
     Routes as the reference's
-    ``build_schur_executor(outputs="blocks", internal_layout=True)``: the
-    tree plan; on a forest the level plan, then the blocked executor when
+    ``build_schur_executor(outputs="blocks", internal_layout=True)``:
+    ``schur_method="dct"`` takes the DCT lattice solve or raises the
+    reference's ``ValueError`` without a DCT plan; otherwise the tree plan;
+    on a forest the level plan, then the blocked executor when
     ``_plan_blocked`` succeeds and neither coefficient is quad-mode, the
-    level executor otherwise; with a cycle core the tree executor (see
-    :func:`_resolve_core`).  ``_tree_plan`` overrides the cached tree plan
-    (tests use it to force the multifrontal engine on a small core).
-    ``level_scan="on"`` runs the same kernels (the two reference variants
-    are pinned equal)."""
+    level executor otherwise; with a cycle core, under ``auto`` a scalar-R
+    lattice whose core exceeds 4,096 nodes takes the DCT solve, anything
+    else the tree executor (see :func:`_resolve_core`).  The DCT solve runs
+    on the grid executor or the general DCT executor (:func:`_dct_executor`).
+    ``_tree_plan`` overrides the cached tree plan (tests use it to force
+    the multifrontal engine on a small core).  ``level_scan="on"`` runs the
+    same kernels (the two reference variants are pinned equal)."""
     if opts.dtype != "float64" or opts.output_dtype not in ("same", "float64"):
         raise NotImplementedError("ROADMAP A4: float32 solves and outputs are not ported yet")
-    if opts.schur_method not in ("auto", "tree"):
+    if opts.schur_method not in ("auto", "tree", "dct"):
         item = _SCHUR_METHOD_ITEM[opts.schur_method]
         raise NotImplementedError(
             f"ROADMAP {item}: schur_method={opts.schur_method!r} is not ported yet"
@@ -500,8 +644,20 @@ def build_schur_executor(
             "route, which is not ported yet"
         )
     R_mode, f_mode, f_zero = asm.coefficient_modes()
+    if opts.schur_method == "dct":
+        dct = lattice_dct_plan(asm, R_mode)
+        if dct is None:
+            raise ValueError(
+                "schur_method='dct' requires a uniform rectangular-lattice "
+                "multiplier graph (make_grid family) with scalar resistance"
+            )
+        return _dct_executor(asm, dct, R_mode, f_mode, f_zero, device)
     tree_plan = _tree_plan if _tree_plan is not None else _cached_tree_plan(asm)
     if tree_plan.core_size > 0:
+        if opts.schur_method == "auto" and tree_plan.core_size > 4096:
+            dct = lattice_dct_plan(asm, R_mode)
+            if dct is not None:
+                return _dct_executor(asm, dct, R_mode, f_mode, f_zero, device)
         tree_plan = _resolve_core(asm, opts, tree_plan, _tree_plan is not None, R_mode)
         return _TreeExecutor(asm, tree_plan, R_mode, f_mode, f_zero, device)
     if "quad" not in (R_mode, f_mode):
@@ -515,7 +671,7 @@ def build_schur_executor(
 def _schur_solve(
     asm: _assembly.HydraulicNetworkAssembler,
     opts: SolverOptions,
-    executor: _BlockedExecutor | _LevelExecutor | _TreeExecutor,
+    executor: _BlockedExecutor | _LevelExecutor | _TreeExecutor | _DctExecutor,
 ) -> tuple[np.ndarray, SolveInfo]:
     args = executor.prepare_args(*asm.schur_arguments(device=False))
     q_T, p_T, lam, iters, residual, rhs_norm, finite = executor(*args)
@@ -529,10 +685,12 @@ def _schur_solve(
     )
     residual = float(residual)
     rhs_norm = float(rhs_norm)
-    # Direct-solve convergence gate of the reference: the tree-family
-    # eliminations report residual 0 and no conditioning hint, so it holds
-    # exactly when the solution (or every precursor of it) is finite.
-    kappa = 0.0
+    # Direct-solve convergence gate of the reference (:4405-4414): a
+    # κ-conditioned system's float64 residual cannot land below ~κ·ε·‖rhs‖
+    # for any backward-stable direct method; the DCT executors carry κ ≈ n²
+    # of an n-wide lattice, the tree-family eliminations report residual 0
+    # and no hint, so for them it holds exactly when the solution is finite.
+    kappa = float(getattr(executor, "kappa_hint", 0.0))
     floor = 64.0 * float(np.finfo(np.float64).eps) * kappa * rhs_norm
     converged = (
         residual <= max(opts.rtol * rhs_norm * 10, opts.atol, 1e-9, floor)

@@ -14,13 +14,19 @@ Builds one configuration of ``chip_smoke.py`` (``--path``):
   and a 455-node dense core (K11);
 * ``bed`` — the perfusion bed ``make_vascular_bed(5, 96, 64)``, N = 2
   (67,476 dofs), cyclic route: multifrontal core;
+* ``lattice`` — the 512² capillary lattice ``make_grid(512, 512)``, N = 1,
+  R = 1, f = 0, p_bc = y (1,831,942 dofs), the separable-DCT solve on the
+  grid route;
+* ``lattice-callable`` — the same lattice with f = x + 0.3·y, the general
+  DCT route;
 
 then
 
 1. times each phase of ``compute_forms`` + ``Solver.solve`` on the host
    clock, CUDA-synchronised at every phase boundary (best of ``--reps``);
 2. traces ``--reps`` solves with ``torch.profiler`` and sums device time by
-   kernel and copy, giving the device's busy and idle share of the solve.
+   kernel and copy, giving the device's busy and idle share of the solve
+   and the device launches (kernels and copies) per solve.
 
 Run from the repository root on a machine with a CUDA device::
 
@@ -75,6 +81,11 @@ def configure(path: str, generations: int):
         asm, forms = chip_smoke.web_assembler(P), chip_smoke.forest_forms
     elif path == "web1000":
         asm, forms = chip_smoke.web_assembler(P, sites=1_000), chip_smoke.forest_forms
+    elif path == "lattice":
+        asm, forms = chip_smoke.lattice_assembler(P), chip_smoke.lattice_forms
+    elif path == "lattice-callable":
+        forms = chip_smoke.lattice_callable_forms
+        asm = chip_smoke.lattice_assembler(P, forms=forms)
     else:
         asm, forms = chip_smoke.bed_assembler(P), chip_smoke.bed_forms
     forms(asm)
@@ -109,7 +120,8 @@ def phases(asm, solver, forms) -> dict[str, float]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("blocked", "callable", "forest", "web", "web1000", "bed"),
+    ap.add_argument("--path", choices=("blocked", "callable", "forest", "web", "web1000", "bed",
+                                       "lattice", "lattice-callable"),
                     default="blocked")
     ap.add_argument("--generations", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
@@ -139,12 +151,14 @@ def main() -> int:
             solver.solve()
             solve_ms.append((sync_clock() - t0) * 1e3)
     device_us: dict[str, float] = {}
+    launches: dict[str, float] = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
         if us and ev.device_type == torch.autograd.DeviceType.CUDA:
             device_us[ev.key] = us / args.reps
+            launches[ev.key] = ev.count / args.reps
     busy_ms = sum(device_us.values()) / 1e3
     mean_solve = float(np.mean(solve_ms))
     result = {
@@ -155,6 +169,8 @@ def main() -> int:
         "phase_best_ms": best,
         "solve_ms_profiled": solve_ms,
         "device_us_per_solve": dict(sorted(device_us.items(), key=lambda kv: -kv[1])),
+        "device_launches_per_solve": launches,
+        "device_launches_total_per_solve": sum(launches.values()),
         "device_busy_ms_per_solve": busy_ms,
         "device_idle_share": 1.0 - busy_ms / mean_solve if mean_solve else None,
     }

@@ -465,10 +465,10 @@ def _tree_assembler(k=1, kp=0, **forms):
     (lambda: P.Solver(_tree_assembler(), device="cpu",
                       options=P.SolverOptions(dtype="float32")).solve(), "ROADMAP A4"),
     (lambda: P.Solver(_tree_assembler(), device="cpu",
-                      options=P.SolverOptions(schur_method="cg")).solve(), "ROADMAP A7"),
+                      options=P.SolverOptions(schur_method="cg")).solve(), "ROADMAP A7b"),
     (lambda: P.Solver(_cyclic_assembler(_bed4), device="cpu").solve(), "ROADMAP A6b"),
     (lambda: P.Solver(_cyclic_assembler(_web2000), device="cpu").solve(), "ROADMAP A6b"),
-    (lambda: P.Solver(_cyclic_assembler(_grid24, R=None), device="cpu").solve(), "ROADMAP A7"),
+    (lambda: P.Solver(_cyclic_assembler(_grid24, R=None), device="cpu").solve(), "ROADMAP A6b"),
     (lambda: _tree_assembler().assemble(), "ROADMAP A8"),
 ])
 def test_outside_envelope_raises(make, match):
