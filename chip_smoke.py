@@ -21,7 +21,13 @@ paths through the public API, checks each solution and times it:
   lattice ``make_grid(512, 512)`` (1,831,942 dofs) under
   ``schur_method="dct"`` and ``auto`` on the grid route (K1, K17, K16, K5),
   and with a callable source on the general DCT route (K8a, K9's
-  bifurcation system, K6, K16 with K18, K8b); kernels K16–K18.
+  bifurcation system, K6, K16 with K18, K8b); kernels K16–K18;
+* the mid-size cycle cores: the reference's 2k-junction web (16,367 dofs,
+  a 1,994-node core: 7 min-degree rounds and a 628-node dense tail; K12a
+  with K10 and K11) and its 64² lattice under ``auto`` (28,294 dofs, a
+  4,096-node dense core, K11), and the 128² per-edge-R lattice with the
+  reference's nested-dissection plan and forced supernodal fronts (K12b),
+  through the tree executor the reference's own tests force plans into.
 
 Each kernel is held against its plain version on the card, timed per call
 beside its bound (the bytes it must move over the memory rate or its
@@ -78,6 +84,22 @@ LATTICE_N = 512  # make_grid(512, 512): the reference benchmark's lattice stage 
 LATTICE_SIZES = {"edges": 523_266, "bifurcations": 262_144, "dofs": 1_831_942}
 LATTICE_TOL = 1e-10  # refined lattice solves and the lattice paths, times the scale
 
+WEB2K_SIZES = {"edges": 4_791, "bifurcations": 1_994, "rounds": 0, "core": 1_994,
+               "core_rounds": 7, "dense_tail": 628, "fronts": 0, "dofs": 16_367}
+LATTICE64_SIZES = {"edges": 8_066, "bifurcations": 4_096, "rounds": 0, "core": 4_096,
+                   "core_rounds": None, "dofs": 28_294}
+BED4_SIZES = {"core": 670, "core_rounds": 1, "dense_tail": 360, "fronts": 0}
+GRID128_ND_SIZES = {"core": 16_384, "core_rounds": 5, "dense_tail": 7_583, "fronts": 0}
+GRID128_FRONTS_SIZES = {"core": 16_384, "core_rounds": 28, "dense_tail": 0,
+                        "fronts": ((1024, 216), (942, 0))}
+# the reference's nested-dissection plan of a large core (solver.py:1789-1801)
+ND_KWARGS = dict(dense_cutoff=8192, kcap=64, tail_stop=True, dense_cap=8192, supernodal_tail=True)
+# the same order with a forced supernodal tail (fronts of at most 1,024 pivots)
+FRONTS_KWARGS = dict(kcap=64, tail_stop=False, dense_cap=16, supernodal_tail=True, front_max=1024)
+K11_SIZES = (455, 628, 2_048, 4_096, 8_192)  # K11 alone, set (j)
+K11_TIMED = 4_096  # the kernels line's K11 shape: the 64² lattice's dense core
+EPS = float(np.finfo(np.float64).eps)
+
 KERNEL_RECORD = {
     "condense": ("networks_fenicsx_tpu_torch/kernels/csrc/condense.cu",
                  "networks_fenicsx_tpu/solver.py:2776"),
@@ -111,6 +133,10 @@ KERNEL_RECORD = {
                   "networks_fenicsx_tpu/solver.py:1184"),
     "shift_matvec": ("networks_fenicsx_tpu_torch/kernels/csrc/shift_matvec.cu",
                      "networks_fenicsx_tpu/solver.py:806"),
+    "core_elim": ("networks_fenicsx_tpu_torch/kernels/csrc/core_elim.cu",
+                  "networks_fenicsx_tpu/ops/core_elim.py:879"),
+    "core_fronts": ("networks_fenicsx_tpu_torch/kernels/csrc/core_fronts.cu",
+                    "networks_fenicsx_tpu/ops/core_elim.py:934"),
 }
 # the checks of each lattice wrapper in the kernels-lattice sets
 LATTICE_CHECKS = {
@@ -578,10 +604,10 @@ def bed_forms(asm) -> None:
     asm.compute_forms(p_bc_ex=lambda x: x[1], R=1.0 / asm.network.edge_radius**4)
 
 
-def bed_assembler(P, gens: int = 5, nx: int = 96, ny: int = 64):
-    """The perfusion bed ``make_vascular_bed(gens, nx, ny)`` at N = 2, k = 1."""
+def bed_assembler(P, gens: int = 5, nx: int = 96, ny: int = 64, N: int = 2):
+    """The perfusion bed ``make_vascular_bed(gens, nx, ny)`` at N cells a vessel, k = 1."""
     net = P.network_generation.make_vascular_bed(gens, nx, ny, arrays=True)
-    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(net, N=2, color_strategy="fast"),
+    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(net, N=N, color_strategy="fast"),
                                       flux_degree=1, pressure_degree=0)
     bed_forms(asm)
     return asm
@@ -774,10 +800,50 @@ def cyclic_work(dtp, ed, dr, w_edges, w_pairs, dc, rc, folds, dmf, st):
     return work, library
 
 
-def cyclic_main_path(P, device, label: str, build, expect: dict) -> dict:
+def core_sizes(dtp) -> dict:
+    """The core engine's sizes: min-degree rounds, dense tail, fronts (w, b)."""
+    ce = dtp.ce
+    if ce is None:
+        return {"core_rounds": None, "dense_tail": None, "fronts": None}
+    fronts = tuple((fr.w, fr.b) for fr in ce.fronts)
+    return {"core_rounds": len(ce.rounds), "dense_tail": int(ce.dense_nodes.shape[0]),
+            "fronts": fronts or 0}
+
+
+def core_engine(dtp) -> tuple[tuple, tuple]:
+    """(wrappers the core solve of ``dtp`` launches, cyclic core wrappers it
+    must not launch)."""
+    ce = dtp.ce
+    if dtp.mf is not None:
+        used = ("mf_factor", "mf_apply")
+    elif ce is not None:
+        tail = bool(ce.dense_nodes.shape[0])
+        used = ((("core_elim",) if ce.rounds or tail else ())
+                + (("fold_apply",) if ce.rounds else ())
+                + (("core_fronts",) if ce.fronts else ()) + (("dense_core",) if tail else ()))
+    else:
+        used = ("dense_core",)
+    core = ("mf_factor", "mf_apply", "dense_core", "core_elim", "core_fronts")
+    return used, tuple(name for name in core if name not in used)
+
+
+def core_text(dtp) -> str:
+    if dtp.mf is not None:
+        mf = dtp.mf.plan.stats
+        return (f"multifrontal: {mf['mf_groups']} groups, {mf['mf_fronts']} fronts, "
+                f"front_max {mf['front_max']}; factor {dtp.mf.device_bytes / 2**20:.1f} MiB")
+    if dtp.ce is not None:
+        return f"min-degree: {dtp.ce.plan.stats}"
+    return "dense"
+
+
+def cyclic_main_path(P, device, label: str, build, expect: dict, attach: bool = True) -> dict:
     """A cyclic solve through the public API, counted and checked: the tree
-    executor, only the cyclic wrappers and K6/K8, converged, finite,
-    conserving mass and equal to the plain path on the card."""
+    executor, only the cyclic wrappers and K6/K8 with the core engine its
+    plan names, converged, finite, conserving mass and equal to the plain
+    path on the card.  ``attach``: the host planning timed is the tree plan
+    with its sparse core plan (False: without, as ``auto`` plans a scalar-R
+    lattice's dense core)."""
     from networks_fenicsx_tpu_torch import kernels
     from networks_fenicsx_tpu_torch.levels import _cached_tree_plan
     from networks_fenicsx_tpu_torch.solver import _TreeExecutor, _flatten_blocks_host
@@ -785,7 +851,7 @@ def cyclic_main_path(P, device, label: str, build, expect: dict) -> dict:
     t0 = time.perf_counter()
     asm = build()
     t1 = time.perf_counter()
-    _cached_tree_plan(asm, attach=True)  # the host planning, paid once per assembler
+    _cached_tree_plan(asm, attach=attach)  # the host planning, paid once per assembler
     t2 = time.perf_counter()
     mesh = asm.network
     solver = P.Solver(asm, device=device)
@@ -805,14 +871,14 @@ def cyclic_main_path(P, device, label: str, build, expect: dict) -> dict:
     dtp = ex.device_plan
     sizes["rounds"], sizes["core"] = len(dtp.rounds), dtp.core_size
     sizes["groups"] = None if dtp.mf is None else len(dtp.mf.plan.groups)
+    sizes.update(core_sizes(dtp))
     for key, want in expect.items():
         assert sizes[key] == want, (key, sizes[key], want)
     allowed = {fn.__name__ for fn in kernels.CYCLIC} | set(CYCLIC_SHARED)
     assert all(n == 0 for name, n in launches.items() if name not in allowed), launches
-    core = ("mf_factor", "mf_apply") if dtp.mf is not None else ("dense_core",)
-    for name in ("lambda_system", "peel", *core, *CYCLIC_SHARED):
-        assert launches[name] >= 1, launches
-    unused = ("dense_core",) if dtp.mf is not None else ("mf_factor", "mf_apply")
+    used, unused = core_engine(dtp)
+    for name in ("lambda_system", "peel", *used, *CYCLIC_SHARED):
+        assert launches[name] >= 1, (name, launches)
     assert all(launches[name] == 0 for name in unused), launches
     assert launches["fold_apply"] >= 1 or not dtp.rounds, launches
 
@@ -831,14 +897,8 @@ def cyclic_main_path(P, device, label: str, build, expect: dict) -> dict:
     err = float(np.abs(x - x_plain).max())
     scale = max(1.0, float(np.abs(x_plain).max()))
     assert err <= CYCLIC_TOL * scale, (err, scale)
-    if dtp.mf is None:
-        core_text = "dense"
-    else:
-        mf = dtp.mf.plan.stats
-        core_text = (f"multifrontal: {mf['mf_groups']} groups, {mf['mf_fronts']} fronts, "
-                     f"front_max {mf['front_max']}; factor {dtp.mf.device_bytes / 2**20:.1f} MiB")
     log(f"phase {label}: {len(dtp.rounds)} peel rounds, core {dtp.core_size} "
-        f"({core_text}), converged, finite, "
+        f"({core_text(dtp)}), converged, finite, "
         f"conservation {imbalance:.3e} (max |q| {qmax:.3e}), vs plain path {err:.3e} "
         f"(scale {scale:.3e}), peak device memory {peak_mb:.1f} MiB, launches {launches}")
     return {"asm": asm, "solver": solver, "launches": launches, "sizes": sizes,
@@ -873,6 +933,312 @@ def cyclic_timing(P, state: dict, forms, label: str, name_power: str) -> dict:
         f"{cuda_launches} CUDA kernels; card {name_power}")
     return {"best_ms": min(times), "device_ms": dev_ms, "plain_ms": plain_ms,
             "cuda_launches": cuda_launches}
+
+
+def web2k_forms(asm) -> None:
+    """The reference's mid-size web stage (``__graft_entry__.py:244-252``):
+    R from ``default_rng(7)`` per edge, f = 0, p_bc = x."""
+    R = np.random.default_rng(7).uniform(0.5, 2.0, asm.network.num_edges)
+    asm.compute_forms(p_bc_ex=lambda x: x[0], R=R)
+
+
+def web2k_assembler(P):
+    """``make_random_network(2000, keep=0.7, num_boundary=8, seed=5)`` at N = 1, k = 1."""
+    net = P.network_generation.make_random_network(2000, keep=0.7, num_boundary=8, seed=5,
+                                                   arrays=True)
+    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(net, N=1, color_strategy="fast"))
+    web2k_forms(asm)
+    return asm
+
+
+def grid128_assembler(P):
+    """The 128² lattice at N = 1 with per-edge R from ``default_rng(128)``, p_bc = x."""
+    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(
+        P.network_generation.make_grid(128, 128, arrays=True), N=1, color_strategy="fast"))
+    R = np.random.default_rng(128).uniform(0.5, 2.0, asm.network.num_edges)
+    asm.compute_forms(p_bc_ex=lambda x: x[0], R=R)
+    return asm
+
+
+def nd_tree_plan(P, asm, **kwargs):
+    """The tree plan of ``asm`` with a min-degree core plan on the reference's
+    nested-dissection order (leaf 8) and ``kwargs``."""
+    from networks_fenicsx_tpu_torch.levels import _plan_tree_elimination
+    from networks_fenicsx_tpu_torch.ops.core_elim import (
+        nested_dissection_order, plan_core_elimination,
+    )
+
+    plan = _plan_tree_elimination(asm)
+    pairs = np.asarray(plan.core_pairs)
+    nd = nested_dissection_order(pairs, plan.core_size, leaf=8)
+    cp = plan_core_elimination(pairs, plan.core_size, order=nd, **kwargs)
+    assert cp is not None, kwargs
+    return plan._replace(core_plan=cp)
+
+
+def forced_plans_web48(P, asm) -> dict:
+    """The reference's forced plans of the web48 golden (``tests/test_golden.py:148,
+    183``): the sparse rounds (``dense_cutoff=4``, no tail stop) and tiny
+    supernodal fronts."""
+    from networks_fenicsx_tpu_torch.levels import _plan_tree_elimination, attach_core_plan
+    from networks_fenicsx_tpu_torch.ops.core_elim import (
+        nested_dissection_order, plan_core_elimination,
+    )
+
+    plan = _plan_tree_elimination(asm)
+    pairs = np.asarray(plan.core_pairs)
+    nd = nested_dissection_order(pairs, plan.core_size, leaf=4)
+    fronts = plan_core_elimination(pairs, plan.core_size, dense_cutoff=8, kcap=16, order=nd,
+                                   dense_cap=4, supernodal_tail=True, front_max=7, front_cap=64,
+                                   tail_stop=False)
+    return {"sparse": attach_core_plan(plan, dense_cutoff=4, tail_stop=False),
+            "supernodal": plan._replace(core_plan=fronts)}
+
+
+def spd_laplacian(n: int, device, seed: int = 0) -> tuple:
+    """A seeded SPD lattice-like Laplacian of order n as K11's arguments
+    ``(ci, cj, pid, dc, rc, w_pairs)``: a chain and a stride-√n coupling,
+    conductances in [0.5, 2], a diagonal excess in [0.01, 0.1]."""
+    rng = np.random.default_rng(seed)
+    side, i = int(np.sqrt(n)), np.arange(n)
+    ci = np.concatenate([i[:-1], i[:-side]])
+    cj = np.concatenate([i[1:], i[side:]])
+    w = rng.uniform(0.5, 2.0, ci.size)
+    dc = rng.uniform(0.01, 0.1, n)
+    np.add.at(dc, ci, w)
+    np.add.at(dc, cj, w)
+    rc = rng.standard_normal(n)
+
+    def up(a, dt=torch.float64):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+
+    return (up(ci, torch.int32), up(cj, torch.int32), up(np.arange(ci.size), torch.int32), up(dc),
+            up(rc), up(w))
+
+
+def factor_backward_error(args) -> tuple[float, float]:
+    """(max |Ls − C Cᵀ| of K11's factor on the card, its bar 8·n·ε)."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core
+
+    ci, cj, pid, dc, _, w = args
+    Lc, s, C = dense_core.dense_factor(ci, cj, pid, dc, w)
+    Ls = (Lc / s[:, None]) / s[None, :]
+    L = torch.tril(C)
+    err = float((Ls - L @ L.T).abs().max())
+    return err, 8 * dc.shape[0] * EPS
+
+
+def compare_dense_sizes(device, timed: bool) -> dict:
+    """Set (j): K11 alone at each of ``K11_SIZES`` on a seeded SPD Laplacian
+    against its plain version (the refined solve and one unrefined pass:
+    1e-12·scale up to 628 nodes, 1e-10·scale above, where the two factors'
+    summation orders differ by about κ·ε), the factor's backward error from
+    2,048 nodes (≤ 8·n·ε), and the time of ``torch.linalg.cholesky`` +
+    ``cholesky_solve`` at the same n."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core
+
+    record = {}
+    for n in K11_SIZES:
+        args = spd_laplacian(n, device, seed=n)
+        tol = TOL if n <= 628 else CYCLIC_TOL
+        rec = {}
+        for key, nr in (("refined", dense_core.N_REFINE), ("unrefined", 0)):
+            got = dense_core.dense_core(*args, n_refine=nr)
+            want = dense_core.dense_core_plain(*args, n_refine=nr)
+            torch.cuda.synchronize()
+            err, scale = max_err(got, want)
+            assert err <= tol * scale, (n, key, err, scale)
+            rec[key] = {"max_abs_err": err, "scale": scale}
+        if n >= 2048:
+            berr, bar = factor_backward_error(args)
+            assert berr <= bar, (n, berr, bar)
+            rec["backward_error"], rec["backward_bar"] = berr, bar
+        rec["max_abs_err"] = max(rec["refined"]["max_abs_err"], rec["unrefined"]["max_abs_err"])
+        if timed:
+            ci, cj, pid, dc, rc, w = args
+            Lc = dense_core.assemble_core(ci, cj, pid, dc, w)
+            rec["ms"] = cuda_ms(lambda: dense_core.dense_core(*args), reps=3)
+            rec["plain_ms"] = cuda_ms(lambda: dense_core.dense_core_plain(*args), reps=3)
+            rec["library_ms"] = cuda_ms(
+                lambda: torch.cholesky_solve(rc[:, None], torch.linalg.cholesky(Lc)), reps=3)
+            nr, P0 = dense_core.N_REFINE, int(ci.shape[0])
+            rec.update(bound(tensor_bytes(*args) + 8 * n, (1 + nr) * (4 * n**2 + 2 * P0), n**3 / 3))
+        record[n] = rec
+    return record
+
+
+def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=None) -> dict:
+    """K12a (:mod:`core_elim`), K12b (:mod:`core_fronts`) and K11 on a dense
+    tail against their plain versions on the inputs the tree executor gives
+    the core (``tree_plan`` forces a plan, as the reference's tests do): the
+    whole core solve, refined and with one unrefined tail pass, at 1e-12·scale
+    where the tail has at most 628 nodes and there are no fronts, at
+    1e-10·scale otherwise; the fronts alone and the dense tail alone on
+    their own inputs; the tail's factor backward error from 2,048 nodes.
+    Timed: K12a on the rounds alone (with their K10 folds, the tail left
+    out), K12b on the fronts alone, K11 on the tail."""
+    from networks_fenicsx_tpu_torch.kernels import (
+        core_elim, core_fronts, dense_core, edge_data, fold, peel, segsum,
+    )
+    from networks_fenicsx_tpu_torch.solver import _TreeExecutor, build_schur_executor
+
+    opts = P.SolverOptions(schur_method="tree") if tree_plan is not None else P.SolverOptions()
+    ex = build_schur_executor(asm, opts, device=device, _tree_plan=tree_plan)
+    assert isinstance(ex, _TreeExecutor), type(ex)
+    dtp = ex.device_plan
+    dcp = dtp.ce
+    assert dcp is not None, "no min-degree core plan"
+    sizes = {"core": dtp.core_size, **core_sizes(dtp)}
+    for key, want in (expect or {}).items():
+        assert sizes[key] == want, (key, sizes[key], want)
+    R, f, sp, ep = ex.upload(*ex.prepare_args(*asm.schur_arguments()))
+    Rm, fm, f_zero = asm.coefficient_modes()
+    ed = edge_data.edge_data_plain(dtp, ex._N, ex._k, ex._h_e, ex._quad_w, ex._quad_phi, R, f,
+                                   Rm, fm, f_zero, sp, ep)
+    dr, w_edges, _ = peel.lambda_system_plain(dtp, ed)
+    w_pairs = segsum.segsum_plain(dtp.pair_idx, w_edges)
+    core_in = {}
+
+    def capture(dc, rc):
+        core_in["dc"], core_in["rc"] = dc, rc
+        return core_elim.core_elim_plain(dcp, dc, w_pairs, rc)
+
+    peel.peel_plain(dtp, dr, w_pairs, capture)
+    dc, rc = core_in["dc"], core_in["rc"]
+    n_tail = int(dcp.dense_nodes.shape[0])
+    tol = TOL if n_tail <= 628 and not dcp.fronts else CYCLIC_TOL
+    runs = {
+        "core_elim": (lambda: core_elim.core_elim(dcp, dc, w_pairs, rc),
+                      lambda: core_elim.core_elim_plain(dcp, dc, w_pairs, rc), tol),
+    }
+    if n_tail:
+        runs["core_elim_unrefined"] = (
+            lambda: core_elim.core_elim(dcp, dc, w_pairs, rc, n_refine=0),
+            lambda: core_elim.core_elim_plain(dcp, dc, w_pairs, rc, n_refine=0), tol)
+    # the rounds' outputs (plain), the inputs of the fronts and of the tail
+    st = core_elim.core_factor_plain(dcp, dc, w_pairs)
+    r_fw = rc.clone()
+    zero = torch.zeros(1, dtype=torch.float64, device=device)
+    for rd, (a, inv) in zip(dcp.rounds, st.rounds):
+        rv = r_fw[rd.elim.long()]
+        s_ = fold.fold_apply_plain(((a * inv[:, None]) * rv[:, None]).reshape(-1), rd.d_fold)
+        r_fw = r_fw - torch.cat([s_, zero])[rd.d_inv.long()]
+    timed_runs, work = {}, {}
+    if dcp.fronts:
+        runs["core_fronts"] = (
+            lambda: core_fronts.core_fronts(dcp, st.d, st.ustream[:-1], w_pairs, r_fw.clone()),
+            lambda: core_fronts.core_fronts_plain(dcp, st.d, st.ustream, w_pairs, r_fw),
+            CYCLIC_TOL)
+        fl = sum(fr.w**3 / 3 + fr.w**2 * fr.b + fr.w * fr.b**2 for fr in dcp.fronts)
+        front_tables = [(fr.nodes, fr.bnd, fr.slot_i, fr.slot_j, fr.f_init, fr.f_fold, fr.lminv)
+                        for fr in dcp.fronts]
+        work["core_fronts"] = (tensor_bytes(front_tables, st.d, r_fw) + 16 * dcp.n_core,
+                               sum(2 * fr.w**2 + 4 * fr.w * fr.b for fr in dcp.fronts), fl)
+    tail_args = None
+    if n_tail:
+        dn = dcp.dense_nodes.long()
+        ov = core_elim.init_values_plain(dcp, w_pairs)[dcp.dp_init.long()]
+        if dcp.dp_fold:
+            ov = ov - fold.fold_apply_plain(st.ustream, dcp.dp_fold)
+        tail_args = (dcp.dense_di, dcp.dense_dj, dcp.dense_pid, st.d[dn].contiguous(),
+                     r_fw[dn].contiguous(), (-ov).contiguous())
+        runs["dense_core"] = (lambda: dense_core.dense_core(*tail_args),
+                              lambda: dense_core.dense_core_plain(*tail_args),
+                              TOL if n_tail <= 628 else CYCLIC_TOL)
+        nr, Pd = dense_core.N_REFINE, int(dcp.dense_di.shape[0])
+        work["dense_core"] = (tensor_bytes(*tail_args) + 8 * n_tail,
+                              (1 + nr) * (4 * n_tail**2 + 2 * Pd), n_tail**3 / 3)
+    # K12a timed on its rounds alone: the tail and the fronts left out
+    rounds_only = dataclasses.replace(
+        dcp, fronts=(), dense_nodes=dcp.dense_nodes[:0], dp_init=dcp.dp_init[:0])
+    timed_runs["core_elim"] = (lambda: core_elim.core_elim(rounds_only, dc, w_pairs, rc),
+                               lambda: core_elim.core_elim_plain(rounds_only, dc, w_pairs, rc))
+    round_tables = [(rd.elim, rd.nbr_node, rd.init_idx, rd.u_read, rd.d_fold, rd.d_inv,
+                     rd.u_src_i, rd.u_src_j, rd.u_fold, rd.e_inv) for rd in dcp.rounds]
+    used_pairs = sum(int((rd.init_idx < dcp.n_pairs).sum()) for rd in dcp.rounds)
+    work["core_elim"] = (
+        tensor_bytes(round_tables, dcp.init_slot, dc, rc) + 8 * (used_pairs + dcp.n_core)
+        + 8 * dcp.mu_all,
+        sum(4 * rd.S * rd.K + 3 * rd.M2 for rd in dcp.rounds)
+        + sum(fold_work(rd.d_fold, rd.S * rd.K, 1)[1] * 2 for rd in dcp.rounds)
+        + dcp.mu_all)
+    record = dict(sizes)
+    for name, (kernel, plain, tol_) in runs.items():
+        got = kernel()
+        want = plain()
+        torch.cuda.synchronize()
+        err, scale = max_err(got, want)
+        assert err <= tol_ * scale, (name, err, scale, tol_)
+        record[name] = {"max_abs_err": err, "scale": scale, "tol": tol_}
+        if timed and name in work:
+            kernel, plain = timed_runs.get(name, (kernel, plain))
+            record[name]["ms"] = cuda_ms(kernel, reps=5)
+            record[name]["plain_ms"] = cuda_ms(plain, reps=3)
+            record[name].update(bound(*work[name]))
+            record[name]["library_ms"] = None
+    if tail_args is not None and n_tail >= 2048:
+        berr, bar = factor_backward_error(tail_args)
+        assert berr <= bar, (berr, bar)
+        record["dense_core"]["backward_error"], record["dense_core"]["backward_bar"] = berr, bar
+    if tail_args is not None and timed:
+        Lc = dense_core.assemble_core(*tail_args[:3], tail_args[3], tail_args[5])
+        r_t = tail_args[4]
+        record["dense_core"]["library_ms"] = cuda_ms(
+            lambda: torch.cholesky_solve(r_t[:, None], torch.linalg.cholesky(Lc)), reps=5)
+    return record
+
+
+def forced_core_path(P, device, label: str, asm, tree_plan, expect: dict, name_power: str) -> dict:
+    """A solve through the tree executor with a forced core plan (the hook
+    the reference's own tests use: ``build_schur_executor(_tree_plan=...)``
+    then ``_schur_solve``), counted and checked like a main path: converged,
+    finite, conserving mass, equal to the plain path on the card and to the
+    default route's solve; device time per solve against the plain
+    versions."""
+    from networks_fenicsx_tpu_torch import kernels, tree
+    from networks_fenicsx_tpu_torch.solver import (
+        _flatten_blocks_host, _schur_solve, build_schur_executor,
+    )
+
+    opts = P.SolverOptions(schur_method="tree")
+    ex = build_schur_executor(asm, opts, device=device, _tree_plan=tree_plan)
+    _schur_solve(asm, opts, ex)  # first call: allocation warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    x, info = _schur_solve(asm, opts, ex)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    dtp = ex.device_plan
+    sizes = {"core": dtp.core_size, **core_sizes(dtp)}
+    for key, want in expect.items():
+        assert sizes[key] == want, (key, sizes[key], want)
+    used, unused = core_engine(dtp)
+    for name in ("lambda_system", "peel", *used, *CYCLIC_SHARED):
+        assert launches[name] >= 1, (name, launches)
+    assert all(launches[name] == 0 for name in unused), launches
+    assert info.converged and np.all(np.isfinite(x)), info
+    imbalance, qmax = conservation(asm, x)
+    assert imbalance <= 1e-10 * qmax, (imbalance, qmax)
+    out = ex.plain(*ex.prepare_args(*asm.schur_arguments()))
+    x_plain = _flatten_blocks_host(out[0].cpu().numpy(), out[1].cpu().numpy(),
+                                   out[2].cpu().numpy(), asm.network.edge_color)
+    err = float(np.abs(x - x_plain).max())
+    scale = max(1.0, float(np.abs(x_plain).max()))
+    assert err <= CYCLIC_TOL * scale, (err, scale)
+    ref = P.Solver(asm, device=device)
+    ref.solve()
+    err_ref = float(np.abs(x - ref.solution_vector()).max())
+    assert err_ref <= CYCLIC_TOL * scale, (err_ref, scale)
+    args = ex.prepare_args(*asm.schur_arguments())
+    dev_ms = cuda_ms(lambda: ex(*args), reps=5)
+    plain_ms = cuda_ms(lambda: ex.plain(*args), reps=3)
+    log(f"phase {label}: core {dtp.core_size} ({core_text(dtp)}), converged, finite, "
+        f"conservation {imbalance:.3e} (max |q| {qmax:.3e}), vs plain path {err:.3e}, vs the "
+        f"default route ({type(ref._executor).__name__}) {err_ref:.3e} (scale {scale:.3e}); "
+        f"device per solve (upload + kernels) {dev_ms:.3f} ms, plain versions {plain_ms:.3f} ms, "
+        f"{sum(launches.values())} wrapper calls, {2 + tree.cuda_launches(dtp)} CUDA kernels; "
+        f"launches {launches}; card {name_power}")
+    return {"launches": launches, "sizes": sizes, "device_ms": dev_ms, "plain_ms": plain_ms}
 
 
 def lattice_forms(asm) -> None:
@@ -1270,7 +1636,63 @@ def lattice_phases(P, device, name_power: str) -> dict:
     return {"sets": lat, "paths": paths}
 
 
+def core_phases(P, device, name_power: str) -> dict:
+    """The mid-size cycle-core slice: kernels-core sets (f)–(i) and the
+    web48 golden's forced plans, set (j) K11 alone, the web2k and 64²
+    lattice main paths, and the forced paths that run K12b and the forced
+    web48 plans end to end."""
+    core = {}
+    core["f"] = compare_core_kernels(P, web2k_assembler(P), device, timed=True,
+                                     expect={k: WEB2K_SIZES[k] for k in BED4_SIZES})
+    log("phase kernels-core (f) web2k, N=1, edge R, min-degree rounds + dense tail 628: "
+        + json.dumps(core["f"]))
+    core["g"] = compare_core_kernels(P, bed_assembler(P, 4, 32, 20, N=1), device, timed=False,
+                                     expect=BED4_SIZES)
+    log("phase kernels-core (g) bed (4, 32, 20), N=1, R=1/r^4: " + json.dumps(core["g"]))
+    grid = grid128_assembler(P)
+    t0 = time.perf_counter()
+    plan_h = nd_tree_plan(P, grid, **ND_KWARGS)
+    t_h = time.perf_counter() - t0
+    core["h"] = compare_core_kernels(P, grid, device, timed=True, tree_plan=plan_h,
+                                     expect=GRID128_ND_SIZES)
+    log(f"phase kernels-core (h) 128^2 edge-R lattice, ND plan (host planning {t_h:.3f} s), "
+        "dense tail 7,583: " + json.dumps(core["h"]))
+    t0 = time.perf_counter()
+    plan_i = nd_tree_plan(P, grid, **FRONTS_KWARGS)
+    t_i = time.perf_counter() - t0
+    core["i"] = compare_core_kernels(P, grid, device, timed=True, tree_plan=plan_i,
+                                     expect=GRID128_FRONTS_SIZES)
+    log(f"phase kernels-core (i) 128^2 edge-R lattice, forced fronts (host planning {t_i:.3f} s): "
+        + json.dumps(core["i"]))
+    web48 = golden_web48(P)
+    for key, plan in forced_plans_web48(P, web48).items():
+        core["web48-" + key] = compare_core_kernels(P, web48, device, timed=False, tree_plan=plan)
+        log(f"phase kernels-core web48 golden, forced {key} plan: " + json.dumps(core["web48-" + key]))
+
+    k11 = compare_dense_sizes(device, timed=True)
+    log("phase kernels-dense (j) K11 alone on seeded SPD Laplacians: "
+        + json.dumps({str(n): rec for n, rec in k11.items()}))
+
+    paths = {}
+    paths["web2k"] = cyclic_main_path(P, device, "web2k main path", lambda: web2k_assembler(P),
+                                      WEB2K_SIZES)
+    cyclic_timing(P, paths["web2k"], web2k_forms, "web2k", name_power)
+    del paths["web2k"]["asm"], paths["web2k"]["solver"]
+    paths["lattice64"] = cyclic_main_path(P, device, "lattice64 main path",
+                                          lambda: lattice_assembler(P, 64, 64), LATTICE64_SIZES,
+                                          attach=False)
+    cyclic_timing(P, paths["lattice64"], lattice_forms, "lattice64", name_power)
+    del paths["lattice64"]["asm"], paths["lattice64"]["solver"]
+    paths["fronts"] = forced_core_path(P, device, "128^2 forced-fronts path", grid, plan_i,
+                                       GRID128_FRONTS_SIZES, name_power)
+    for key, plan in forced_plans_web48(P, web48).items():
+        paths["web48-" + key] = forced_core_path(P, device, f"web48 forced {key} path", web48, plan,
+                                                 {}, name_power)
+    return {"sets": core, "k11": k11, "paths": paths}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1362,11 +1784,17 @@ def main() -> int:
     lattice = lattice_phases(P, device, name_power)
     lat = lattice["sets"]
 
+    mid = core_phases(P, device, name_power)
+    core, k11 = mid["sets"], mid["k11"]
+
     runs = (state["launches"], tree["launches"], forest["launches"], web["launches"],
             bed["launches"], web1000["launches"],
-            *(path["launches"] for path in lattice["paths"].values()))
-    timed_cyclic = {"dense_core": cyc["e"]}
+            *(path["launches"] for path in lattice["paths"].values()),
+            *(path["launches"] for path in mid["paths"].values()))
+    timed_cyclic = {"dense_core": k11[K11_TIMED], "core_elim": core["f"]["core_elim"],
+                    "core_fronts": core["i"]["core_fronts"]}
     timed_lattice = {"dct_lattice": lat["a"], "grid_core": lat["a"], "shift_matvec": lat["c"]}
+    log(f"phase wall: the script so far {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNEL_RECORD.items():
         lattice_errs = tuple(lat[c][name]["max_abs_err"] for c in "abcd" if name in lat[c])
@@ -1383,7 +1811,11 @@ def main() -> int:
         else:
             errs = tuple(cyc[c][key]["max_abs_err"] for c in "abcde"
                          for key in (name, name + "_unrefined") if key in cyc[c]) + lattice_errs
-            timed_on = timed_cyclic.get(name, cyc["a"])[name]
+            errs += tuple(rec[key]["max_abs_err"] for rec in core.values()
+                          for key in (name, name + "_unrefined") if key in rec)
+            if name == "dense_core":
+                errs += tuple(rec["max_abs_err"] for rec in k11.values())
+            timed_on = timed_cyclic[name] if name in timed_cyclic else cyc["a"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(r[name] for r in runs),
@@ -1392,7 +1824,7 @@ def main() -> int:
             "bound_ms": timed_on["bound_ms"], "bound_by": timed_on["bound_by"],
             "library_ms": timed_on.get("library_ms"),
         })
-    assert len(kernels) == 16 and all(kr["launches"] > 0 for kr in kernels), kernels
+    assert len(kernels) == 18 and all(kr["launches"] > 0 for kr in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

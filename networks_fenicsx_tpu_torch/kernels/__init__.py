@@ -19,7 +19,10 @@ The cyclic solve (peel rounds, then the cycle core), after K8a and before K8b:
 * :mod:`.peel` — K9, the bifurcation system and the peel rounds
   (``lambda_system``, ``peel``);
 * :mod:`.fold` — K10, the multi-level gather-fold sums, on K6's kernel;
-* :mod:`.dense_core` — K11, the dense core of at most 512 nodes;
+* :mod:`.dense_core` — K11, the dense core or dense tail (a tiled
+  multi-block factor, up to 8,192 nodes);
+* :mod:`.core_elim` — K12a, the min-degree rounds of a sparse core plan;
+* :mod:`.core_fronts` — K12b, its supernodal fronts;
 * :mod:`.mf_factor` — K13 + K14, the multifrontal factor;
 * :mod:`.mf_apply` — K15, the multifrontal apply with its refinement.
 
@@ -38,12 +41,12 @@ CPU tensors.  Each wrapper counts its launches in a plain integer attribute
 """
 
 from . import (
-    backsub, condense, dct_lattice, dense_core, edge_data, expand, fold, grid_core,
-    level_eliminate, mf_apply, mf_factor, peel, segsum, shift_matvec, tree_sweep,
+    backsub, condense, core_elim, core_fronts, dct_lattice, dense_core, edge_data, expand, fold,
+    grid_core, level_eliminate, mf_apply, mf_factor, peel, segsum, shift_matvec, tree_sweep,
 )
 
 __all__ = [
-    "backsub", "condense", "dct_lattice", "dense_core", "edge_data", "expand", "fold",
+    "backsub", "condense", "core_elim", "core_fronts", "dct_lattice", "dense_core", "edge_data", "expand", "fold",
     "grid_core", "level_eliminate", "mf_apply", "mf_factor", "peel", "segsum", "shift_matvec",
     "tree_sweep",
     "WRAPPERS", "BLOCKED", "GENERAL", "CYCLIC", "LATTICE", "reset_launches", "launches",
@@ -53,7 +56,7 @@ BLOCKED = (condense.condense, tree_sweep.tree_sweep, expand.expand)
 GENERAL = (segsum.segsum, edge_data.edge_data, level_eliminate.level_eliminate, backsub.backsub)
 CYCLIC = (
     fold.fold_apply, peel.lambda_system, peel.peel, dense_core.dense_core,
-    mf_factor.mf_factor, mf_apply.mf_apply,
+    mf_factor.mf_factor, mf_apply.mf_apply, core_elim.core_elim, core_fronts.core_fronts,
 )
 LATTICE = (dct_lattice.dct_lattice, grid_core.grid_core, shift_matvec.shift_matvec)
 WRAPPERS = BLOCKED + GENERAL + CYCLIC + LATTICE

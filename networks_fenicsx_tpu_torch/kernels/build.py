@@ -30,7 +30,7 @@ BUILD_ROOT = pathlib.Path(__file__).parent / "_build"
 # agree to the last bit where they add in the same order
 CUDA_FLAGS = ("-O3", "-std=c++17", "-fmad=false", "-gencode=arch=compute_90a,code=sm_90a")
 
-_p, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_p, _i, _d, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 _SIGNATURES = {
     "nxfx_condense": [
         _i, _i, _p, _p, _i, _p, _i, _p, _p, _p, _p,  # E, N, h_e, R, mode, f, mode, pbc, bifs
@@ -105,8 +105,36 @@ _SIGNATURES = {
     ],
     "nxfx_dense_core": [
         _i, _i, _i, _p, _p, _p, _p,  # n, P0, n_refine, ci, cj, pid, w_pairs
-        _p, _p, _p, _p, _p, _p, _p,  # dc, rc, Lc, C, x, ok, stream
+        _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,  # dc, rc, Lc, C, s, v, y, x, ok, stream
     ],
+    "nxfx_dense_factor": [
+        _i, _i, _p, _p, _p, _p,  # n, P0, ci, cj, pid, w_pairs
+        _p, _p, _p, _p, _p,  # dc, Lc, C, s, stream
+    ],
+    "nxfx_core_round_terms": [
+        _i, _i, _i, _p, _p, _p, _p,  # S, K, P0, elim, init_idx, init_slot, w_pairs
+        _p, _p, _p, _p, _p, _p,  # ur (or null), d, a, inv, t, stream
+    ],
+    "nxfx_core_round_update": [
+        _i, _i, _i, _i, _p, _p, _p,  # n_core, U1, M2, K, d_inv, sd, d
+        _p, _p, _p, _p, _p, _p,  # u_src_i, u_src_j, a, inv, contrib, stream
+    ],
+    "nxfx_core_apply_terms": [_i, _i, _p, _p, _p, _p, _p, _p, _p],  # S, K, elim, a, inv, r, rv, t
+    "nxfx_core_apply_update": [_i, _i, _p, _p, _p, _p],  # n_core, U1, d_inv, sr, r, stream
+    "nxfx_core_back": [_i, _i, _p, _p, _p, _p, _p, _p, _p],  # S, K, elim, nbr, a, inv, rv, lam
+    "nxfx_core_tail_gather": [
+        _i, _i, _i, _p, _p, _p,  # Bd, Pd, P0, dense nodes, d, r
+        _p, _p, _p, _p, _p, _p, _p, _p,  # dp_init, init_slot, w_pairs, dpf (or null), dd, rr, -ov, stream
+    ],
+    "nxfx_core_scatter_nodes": [_i, _p, _p, _p, _p],  # n, nodes, x, lam, stream
+    "nxfx_front_factor": [
+        _i, _i, _i, _i, _i, _p, _p,  # w, b, ns, P0, first, nodes, d
+        _p, _p, _p, _p, _p, _p,  # slot_i, slot_j, f_init, init_slot, w_pairs, sf (or null)
+        _i, _p, _p, _p, _l, _p, _p,  # n_cons, host cons table, lminv, fbuf, f_off, ok, stream
+    ],
+    "nxfx_front_forward": [_i, _i, _p, _p, _p, _l, _p, _p, _p, _p],  # w, b, nodes, bnd, fbuf, f_off, r, t, y
+    "nxfx_front_back": [_i, _i, _p, _p, _p, _l, _p, _p, _p, _p, _p],  # ..., y, t, u, lam, stream
+    "nxfx_front_nan_gate": [_i, _p, _p, _p],  # n, ok, lam, stream
     "nxfx_mf_factor": [
         _i, _p, _p, _i, _i,  # G, host group table, consume table, n_core, P0
         _p, _p, _p,  # init_slot, w_pairs, dc

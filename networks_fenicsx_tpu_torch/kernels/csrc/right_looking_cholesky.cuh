@@ -1,6 +1,6 @@
-// The right-looking Cholesky shared by the dense core (dense_core.cu, K11)
-// and the multifrontal fronts (mf_factor.cu, K13), and the triangular
-// solves of the dense core and the multifrontal apply (mf_apply.cu, K15).
+// The one-block right-looking Cholesky of the multifrontal fronts
+// (mf_factor.cu, K13), and the triangular solves of the multifrontal apply
+// (mf_apply.cu, K15).
 //
 // The buffers are written by one thread and read by others after a barrier,
 // so they carry no __restrict__: with it the compiler may keep a value in a

@@ -22,28 +22,40 @@ from . import build, segsum
 __all__ = ["fold_apply", "fold_apply_plain"]
 
 
-def fold_apply_plain(vec: torch.Tensor, levels: tuple) -> torch.Tensor:
+def fold_apply_plain(vec: torch.Tensor, levels: tuple, out: torch.Tensor | None = None) -> torch.Tensor:
     """Eager version: per level ``cat([vec, 0])[lv]`` summed along K in
-    ascending order (K6's plain version)."""
+    ascending order (K6's plain version); with ``out``, the sums are also
+    written into it (and it is returned)."""
     for lv in levels:
         vec = segsum.segsum_plain(lv, vec)
+    if out is not None:
+        out.copy_(vec)
+        return out
     return vec
 
 
-def fold_apply(vec: torch.Tensor, levels: tuple) -> torch.Tensor:
-    """K10 on ``vec``'s device: ``(U,) + vec.shape[1:]`` fold sums."""
+def fold_apply(vec: torch.Tensor, levels: tuple, out: torch.Tensor | None = None) -> torch.Tensor:
+    """K10 on ``vec``'s device: ``(U,) + vec.shape[1:]`` fold sums; the last
+    level writes into ``out`` when given (a contiguous view, e.g. a segment
+    of the core elimination's update stream)."""
     if vec.device.type == "cpu":
-        return fold_apply_plain(vec, levels)
+        return fold_apply_plain(vec, levels, out)
     build.require_cuda("fold_apply", vec)
     if vec.dim() not in (1, 2):
         raise ValueError("fold_apply: vec must be (n,) or (n, C)")
     launched = False
-    for lv in levels:
+    for i, lv in enumerate(levels):
         build.require_cuda("fold_apply", lv, dtype=torch.int32)
-        out = torch.empty((lv.shape[0],) + tuple(vec.shape[1:]), dtype=torch.float64,
-                          device=vec.device)
-        launched |= segsum.launch(lv, vec, out, name="fold_apply")
-        vec = out
+        shape = (lv.shape[0],) + tuple(vec.shape[1:])
+        if out is not None and i == len(levels) - 1:
+            build.require_cuda("fold_apply", out)
+            if tuple(out.shape) != shape:
+                raise ValueError("fold_apply: out must have the fold's output shape")
+            dst = out
+        else:
+            dst = torch.empty(shape, dtype=torch.float64, device=vec.device)
+        launched |= segsum.launch(lv, vec, dst, name="fold_apply")
+        vec = dst
     if launched:
         fold_apply.launches += 1
     return vec

@@ -3,7 +3,7 @@
 Counterpart of the tree and level planners in
 ``networks_fenicsx_tpu/solver.py``: ``_TreePlan`` and
 ``_plan_tree_elimination`` (``:1617-1733``), ``attach_core_plan``
-(``:1735-1817``, its multifrontal branch), ``_cached_tree_plan``
+(``:1735-1817``), ``_cached_tree_plan``
 (``:3384-3410``), ``_LevelPlan`` and ``_plan_level_elimination``
 (``:1820-1965``), ``_LambdaPlan`` and ``_build_lambda_plan``
 (``:673-697``).  The same inputs give ``np.array_equal`` plans, so the
@@ -26,7 +26,6 @@ import torch
 
 __all__ = [
     "DeviceLevelPlan",
-    "MinDegreeCorePlan",
     "attach_core_plan",
     "device_level_plan",
     "flatten_level_plan",
@@ -38,8 +37,8 @@ class _TreePlan(typing.NamedTuple):
     """Static peel-then-core elimination plan for the bifurcation graph.
 
     Degree-≤1 nodes eliminate fill-in-free in rounds (exact for forests);
-    whatever cycle core remains is solved densely (at most 512 nodes) or by
-    the sparse core plan :func:`attach_core_plan` attaches.
+    whatever cycle core remains is solved densely or by the sparse core
+    plan :func:`attach_core_plan` attaches.
     """
 
     pair_nodes: np.ndarray  # (P, 2) bifurcation index pairs with >=1 edge
@@ -47,7 +46,7 @@ class _TreePlan(typing.NamedTuple):
     rounds: tuple  # tuple of (elim_nodes, parents, pair_ids) int32 arrays
     core_nodes: np.ndarray = np.empty(0, np.int32)  # un-peeled (cycle) nodes
     core_pairs: np.ndarray = np.empty((0, 3), np.int32)  # (ci, cj, pair_id)
-    core_plan: "object | None" = None  # MFPlan, MinDegreeCorePlan or None
+    core_plan: "object | None" = None  # MFPlan, CoreElimPlan or None
 
     @property
     def core_size(self) -> int:
@@ -140,43 +139,53 @@ def _plan_tree_elimination(asm, force_rounds: bool = False) -> _TreePlan:
     return _TreePlan(pairs, edge_pair, tuple(rounds), core_nodes, core_pairs)
 
 
-class MinDegreeCorePlan(typing.NamedTuple):
-    """Stands where the reference attaches a min-degree core plan
-    (``plan_core_elimination``: a core of 513–2,048 nodes, or one the
-    multifrontal planner refused), which the port does not run yet: an
-    executor given it raises ``NotImplementedError`` naming ROADMAP A6b."""
-
-    core_size: int
-
-    def message(self) -> str:
-        return (
-            f"ROADMAP A6b: the cycle core of {self.core_size} nodes takes the reference's "
-            "min-degree core elimination (plan_core_elimination, K12), which is not ported yet"
-        )
-
-
-def attach_core_plan(tree_plan: _TreePlan, max_core: int = 300_000) -> _TreePlan:
+def attach_core_plan(
+    tree_plan: _TreePlan,
+    dense_cutoff: int = 384,
+    max_core: int = 300_000,
+    tail_stop: bool = True,
+) -> _TreePlan:
     """Attach a sparse core-elimination plan when the cycle core admits one.
 
-    A core above 2,048 nodes is planned by the tree multifrontal engine
-    (:func:`.ops.multifrontal.plan_multifrontal`).  Where the reference
-    goes on to its min-degree planners (the multifrontal planner refused,
-    or the core has 2,048 nodes or fewer) the plan gets a
-    :class:`MinDegreeCorePlan` (ROADMAP A6b; their ``dense_cutoff`` and
-    ``tail_stop`` arguments come with it).  Returns the plan unchanged
-    when it has a core plan already, no core, or a core above
-    ``max_core``."""
+    A core above 2,048 nodes is first planned by the tree multifrontal
+    engine (:func:`.ops.multifrontal.plan_multifrontal`); a refused or
+    smaller core of at most 65,536 nodes by the min-degree planner
+    (:func:`.ops.core_elim.plan_core_elimination`), and above 4,096 nodes,
+    when that blows its fill budget, by the same planner on a
+    nested-dissection order with a dense tail of up to 8,192 nodes or
+    supernodal fronts beyond it (retried without the front-stop when a front
+    outgrows its cap).  Returns the plan unchanged when it has a core plan
+    already, no core, a core above ``max_core``, or no planner succeeds
+    (callers then keep the dense / CG behaviour)."""
     if tree_plan.core_plan is not None or tree_plan.core_size == 0:
         return tree_plan
     if tree_plan.core_size > max_core:
         return tree_plan
+    from .ops.core_elim import nested_dissection_order, plan_core_elimination
+
     cp = None
     if tree_plan.core_size > 2048:
         from .ops.multifrontal import plan_multifrontal
 
         cp = plan_multifrontal(np.asarray(tree_plan.core_pairs), tree_plan.core_size)
+    if cp is None and tree_plan.core_size <= 65_536:
+        cp = plan_core_elimination(
+            tree_plan.core_pairs, tree_plan.core_size, dense_cutoff=dense_cutoff,
+            tail_stop=tail_stop,
+        )
+    if cp is None and tree_plan.core_size > 4096:
+        nd = nested_dissection_order(np.asarray(tree_plan.core_pairs), tree_plan.core_size, leaf=8)
+        nd_kwargs = dict(
+            dense_cutoff=8192, kcap=64, tail_stop=tail_stop, order=nd, dense_cap=8192,
+            supernodal_tail=True,
+        )
+        cp = plan_core_elimination(tree_plan.core_pairs, tree_plan.core_size, **nd_kwargs)
+        if cp is None:
+            cp = plan_core_elimination(
+                tree_plan.core_pairs, tree_plan.core_size, front_stop=False, **nd_kwargs
+            )
     if cp is None:
-        cp = MinDegreeCorePlan(tree_plan.core_size)
+        return tree_plan
     return tree_plan._replace(core_plan=cp)
 
 

@@ -23,9 +23,10 @@ level; flux and pressure then follow from λ edge by edge.  The routes:
   (:mod:`.kernels.level_eliminate`, :mod:`.kernels.segsum`), K8b
   (:mod:`.kernels.backsub`);
 * tree — a bifurcation graph with cycles: K8a, the bifurcation system and
-  the peel rounds with their folds (K9, K10 on K6), the cycle core densely
-  for at most 512 nodes (K11) or by the tree multifrontal engine (K13–K15),
-  the reversed rounds, K8b (:mod:`.tree`);
+  the peel rounds with their folds (K9, K10 on K6), the cycle core by the
+  tree multifrontal engine (K13–K15), by the min-degree rounds (K12a) with
+  a dense tail (K11) or supernodal fronts (K12b), or densely (K11, up to
+  8,192 nodes), the reversed rounds, K8b (:mod:`.tree`);
 * lattice — a uniform rectangular lattice with scalar R
   (``schur_method="dct"``, or ``auto`` above a 4,096-node core): the exact
   separable-DCT λ solve (K16, :mod:`.kernels.dct_lattice`), on the grid
@@ -36,10 +37,10 @@ level; flux and pressure then follow from λ edge by edge.  The routes:
 
 The device is explicit: ``Solver(asm, device="cuda")`` (the default) runs the
 CUDA kernels and raises when CUDA is absent; ``device="cpu"`` runs their
-plain PyTorch versions.  Everything outside these routes — a cycle core of
-513–2,048 nodes or one the multifrontal planner refuses, a scalar-R lattice
-whose core has 513–4,096 nodes (A6b), the CG route (A7b), other methods
-(A8) — raises ``NotImplementedError`` naming its ROADMAP item.
+plain PyTorch versions.  Everything outside these routes — the CG route
+(``schur_method="cg"``, or a core above 4,096 nodes that no sparse planner
+takes: A7b), other methods (A8) — raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -66,7 +67,6 @@ from .lattice import (
     lattice_dct_plan,
 )
 from .levels import (
-    MinDegreeCorePlan,
     _build_lambda_plan,
     _cached_tree_plan,
     _plan_level_elimination,
@@ -574,34 +574,33 @@ def _dct_executor(asm, dct: _DctPlan, R_mode, f_mode, f_zero, device):
 def _resolve_core(asm, opts: SolverOptions, tree_plan, override: bool, R_mode: str):
     """The tree plan the cyclic route runs, with its core plan, or raise.
 
-    The reference's routing (``:3922-3966``): a core of at most 512 nodes
-    stays dense; under ``auto`` a scalar-R lattice with a larger core of at
-    most 4,096 nodes takes the dense core (ROADMAP A6b: the port's dense
-    core stops at 512), a larger one the DCT solve (the caller's); any
-    other large core meets the attached sparse core plan.  The multifrontal
-    plan runs here; a min-degree plan (A6b) and the CG fallback (A7b)
-    raise."""
+    The reference's routing (``:3928-3966``): a core of at most 512 nodes
+    is dense (or runs the core plan a caller attached).  Under ``auto`` a
+    larger core gets a sparse core plan attached unless the graph is a
+    scalar-R lattice; it runs with a core plan or, without one, densely up
+    to 4,096 nodes; above, the reference falls to CG (ROADMAP A7b; the
+    lattices among these the caller has sent to the DCT solve already).  An
+    explicit ``"tree"`` attaches a plan the same way and raises the
+    reference's ``ValueError`` without one above 4,096 nodes."""
     if tree_plan.core_size <= 512:
         return tree_plan
-    if opts.schur_method == "auto" and lattice_dct_plan(asm, R_mode) is not None:
-        raise NotImplementedError(
-            f"ROADMAP A6b: a uniform scalar-R lattice with a cycle core of {tree_plan.core_size} "
-            "nodes takes the reference's dense core above 512 nodes, which is not ported yet"
-        )
-    tree_plan = attach_core_plan(tree_plan) if override else _cached_tree_plan(asm, attach=True)
-    cp = tree_plan.core_plan
-    if isinstance(cp, MinDegreeCorePlan):
-        raise NotImplementedError(cp.message())
-    if cp is None:
-        if opts.schur_method == "tree" and tree_plan.core_size > 4096:
-            raise ValueError(
-                f"schur_method='tree' on a graph whose cycle core has {tree_plan.core_size} "
-                "nodes: the sparse core elimination could not be planned and a dense core "
-                "factor would need O(core²) memory"
-            )
+    if opts.schur_method == "auto":
+        is_lattice = R_mode == "scalar" and lattice_dct_plan(asm, R_mode) is not None
+        if not is_lattice:
+            tree_plan = (attach_core_plan(tree_plan) if override
+                         else _cached_tree_plan(asm, attach=True))
+        if tree_plan.core_plan is not None or tree_plan.core_size <= 4096:
+            return tree_plan
         raise NotImplementedError(
             f"ROADMAP A7b: a cycle core of {tree_plan.core_size} nodes without a sparse core "
             "plan takes the reference's CG route, which is not ported yet"
+        )
+    tree_plan = attach_core_plan(tree_plan) if override else _cached_tree_plan(asm, attach=True)
+    if tree_plan.core_plan is None and tree_plan.core_size > 4096:
+        raise ValueError(
+            f"schur_method='tree' on a graph whose cycle core has {tree_plan.core_size} "
+            "nodes: the sparse core elimination could not be planned and a dense core "
+            "factor would need O(core²) memory"
         )
     return tree_plan
 

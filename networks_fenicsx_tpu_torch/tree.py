@@ -11,10 +11,14 @@ Laplacian ``L λ = rhs``:
    and the per-pair conductances ``w_pairs`` (K6);
 2. peel the degree-≤1 nodes in the plan's rounds, folding each round into
    its parents (K9 with its K10 folds, :mod:`.kernels.peel`);
-3. solve the cycle core: densely for at most 512 nodes (K11,
-   :mod:`.kernels.dense_core`), by the tree multifrontal engine otherwise
-   (K13–K14 factor, K15 apply: :mod:`.kernels.mf_factor`,
-   :mod:`.kernels.mf_apply`);
+3. solve the cycle core as ``_tree_eliminate_factor/_apply`` dispatch
+   (``:3718-3743``, ``:3777-3798``): by the tree multifrontal engine when
+   its plan is an ``MFPlan`` (K13–K14 factor, K15 apply:
+   :mod:`.kernels.mf_factor`, :mod:`.kernels.mf_apply`), by the min-degree
+   elimination when it is a ``CoreElimPlan`` (K12a rounds with K10 folds,
+   then the dense tail on K11 or the supernodal fronts K12b:
+   :mod:`.kernels.core_elim`, :mod:`.kernels.core_fronts`), and densely
+   without a plan (K11, :mod:`.kernels.dense_core`);
 4. back-substitute the rounds in reverse (K9).
 
 :func:`device_tree_plan` precomputes, once per executor, every round's
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 
 from .levels import _LambdaPlan, _TreePlan, segsum_matrix
-from .ops.core_elim import _plan_fold
+from .ops.core_elim import CoreElimPlan, DeviceCorePlan, _plan_fold, device_core_plan
 from .ops.multifrontal import DeviceMFPlan, MFPlan, device_mf_plan
 
 __all__ = [
@@ -84,6 +88,8 @@ class DeviceTreePlan:
         core_ci, core_cj, core_pid: ``(P0,)`` the core pairs (core ranks,
             pair id), read by the dense core.
         mf: the multifrontal device plan when the core plan is one, else None.
+        ce: the min-degree device plan when the core plan is a
+            ``CoreElimPlan``, else None.
         num_bifurcations: B.
     """
 
@@ -102,6 +108,7 @@ class DeviceTreePlan:
     core_cj: torch.Tensor
     core_pid: torch.Tensor
     mf: DeviceMFPlan | None
+    ce: DeviceCorePlan | None
     num_bifurcations: int
 
     @property
@@ -137,7 +144,8 @@ def device_tree_plan(
 ) -> DeviceTreePlan:
     """Upload the peel rounds, the λ-system plan and the core to ``device``;
     the core runs the multifrontal engine when its plan is an
-    :class:`.ops.multifrontal.MFPlan` and the dense core otherwise."""
+    :class:`.ops.multifrontal.MFPlan`, the min-degree elimination when it is
+    a :class:`.ops.core_elim.CoreElimPlan`, and the dense core otherwise."""
 
     def up(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
@@ -177,6 +185,8 @@ def device_tree_plan(
         core_pid=up(cp[:, 2]),
         mf=(device_mf_plan(tree_plan.core_plan, device)
             if isinstance(tree_plan.core_plan, MFPlan) else None),
+        ce=(device_core_plan(tree_plan.core_plan, device)
+            if isinstance(tree_plan.core_plan, CoreElimPlan) else None),
         num_bifurcations=int(asm.network.num_multipliers),
     )
 
@@ -185,20 +195,24 @@ def cuda_launches(dtp: DeviceTreePlan) -> int:
     """CUDA kernel launches of one :func:`tree_schur_solve` on the card: the
     bifurcation system (prepare, two sums, norm) and the pair sum; per peel
     round a forward pass, its fold levels and the parent add, and a back
-    pass; the core's gather and scatter; the dense core's one launch, or the
+    pass; the core's gather and scatter and the core solve — the dense
+    core's (:func:`.kernels.dense_core.cuda_launches`), the min-degree
+    elimination's (:func:`.kernels.core_elim.cuda_launches`), or the
     multifrontal factor's values pass and one launch per group plus the
     apply's (:func:`.kernels.mf_apply.cuda_launches`)."""
-    from .kernels import mf_apply
+    from .kernels import core_elim, dense_core, mf_apply
 
     n = 4 + (1 if dtp.num_pairs else 0)
     for rd in dtp.rounds:
         n += 2 + (len(rd.fold) + 1 if rd.upar.shape[0] else 0)
     if dtp.core_size:
         n += 2
-        if dtp.mf is None:
-            n += 1
-        else:
+        if dtp.mf is not None:
             n += 1 + len(dtp.mf.plan.groups) + mf_apply.cuda_launches(dtp.mf)
+        elif dtp.ce is not None:
+            n += core_elim.cuda_launches(dtp.ce)
+        else:
+            n += dense_core.cuda_launches(dtp.core_size, int(dtp.core_ci.shape[0]))
     return n
 
 
@@ -206,16 +220,19 @@ def tree_schur_solve(dtp: DeviceTreePlan, ed, plain: bool):
     """``(λ (B,), ‖rhs‖)`` of the cyclic bifurcation system of ``ed``:
     the reference's ``_lambda_system_sorted`` then ``_tree_schur_solve``,
     through the kernels (``plain=False``) or their plain versions."""
-    from .kernels import dense_core, mf_apply, mf_factor, peel, segsum
+    from .kernels import core_elim, dense_core, mf_apply, mf_factor, peel, segsum
 
     if plain:
         lam_sys, sums, run_peel = peel.lambda_system_plain, segsum.segsum_plain, peel.peel_plain
-        dense, factor, apply = (
-            dense_core.dense_core_plain, mf_factor.mf_factor_plain, mf_apply.mf_apply_plain
+        dense, factor, apply, sparse = (
+            dense_core.dense_core_plain, mf_factor.mf_factor_plain, mf_apply.mf_apply_plain,
+            core_elim.core_elim_plain,
         )
     else:
         lam_sys, sums, run_peel = peel.lambda_system, segsum.segsum, peel.peel
-        dense, factor, apply = dense_core.dense_core, mf_factor.mf_factor, mf_apply.mf_apply
+        dense, factor, apply, sparse = (
+            dense_core.dense_core, mf_factor.mf_factor, mf_apply.mf_apply, core_elim.core_elim
+        )
     dr, w_edges, rhs_norm = lam_sys(dtp, ed)
     if dtp.num_pairs > 0:
         w_pairs = sums(dtp.pair_idx, w_edges)
@@ -225,6 +242,9 @@ def tree_schur_solve(dtp: DeviceTreePlan, ed, plain: bool):
     if dtp.mf is not None:
         def solve_core(dc, rc):
             return apply(dtp.mf, factor(dtp.mf, dc, w_pairs), rc)
+    elif dtp.ce is not None:
+        def solve_core(dc, rc):
+            return sparse(dtp.ce, dc, w_pairs, rc)
     else:
         def solve_core(dc, rc):
             return dense(dtp.core_ci, dtp.core_cj, dtp.core_pid, dc, rc, w_pairs)

@@ -19,6 +19,12 @@ Builds one configuration of ``chip_smoke.py`` (``--path``):
   grid route;
 * ``lattice-callable`` — the same lattice with f = x + 0.3·y, the general
   DCT route;
+* ``web2k`` — the reference's mid-size web ``make_random_network(2000,
+  keep=0.7, num_boundary=8, seed=5)``, N = 1, per-edge R (16,367 dofs),
+  cyclic route: a 1,994-node core in 7 min-degree rounds (K12a) and a
+  628-node dense tail (K11);
+* ``lattice64`` — ``make_grid(64, 64)``, N = 1, R = 1, f = 0, p_bc = y
+  (28,294 dofs), cyclic route under ``auto``: a 4,096-node dense core (K11);
 
 then
 
@@ -86,6 +92,10 @@ def configure(path: str, generations: int):
     elif path == "lattice-callable":
         forms = chip_smoke.lattice_callable_forms
         asm = chip_smoke.lattice_assembler(P, forms=forms)
+    elif path == "web2k":
+        asm, forms = chip_smoke.web2k_assembler(P), chip_smoke.web2k_forms
+    elif path == "lattice64":
+        asm, forms = chip_smoke.lattice_assembler(P, 64, 64), chip_smoke.lattice_forms
     else:
         asm, forms = chip_smoke.bed_assembler(P), chip_smoke.bed_forms
     forms(asm)
@@ -121,7 +131,7 @@ def phases(asm, solver, forms) -> dict[str, float]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("blocked", "callable", "forest", "web", "web1000", "bed",
-                                       "lattice", "lattice-callable"),
+                                       "lattice", "lattice-callable", "web2k", "lattice64"),
                     default="blocked")
     ap.add_argument("--generations", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)

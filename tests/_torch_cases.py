@@ -54,3 +54,23 @@ def golden_graph(pkg, name):
     return g.make_random_network(
         spec["n"], keep=spec["keep"], num_boundary=spec["num_boundary"], seed=spec["seed"]
     )
+
+
+def assert_plans_equal(a, b, path="plan"):
+    """Two host plans (NamedTuples of arrays, ints and nested tuples) field
+    for field: arrays ``np.array_equal`` with equal dtypes, the rest ``==``."""
+    if isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray), path
+        assert a.dtype == b.dtype, (path, a.dtype, b.dtype)
+        assert np.array_equal(a, b), path
+    elif isinstance(a, tuple):
+        assert isinstance(b, tuple) and len(a) == len(b), path
+        if hasattr(a, "_fields"):
+            assert a._fields == b._fields, path
+            for field in a._fields:
+                assert_plans_equal(getattr(a, field), getattr(b, field), f"{path}.{field}")
+        else:
+            for i, (x, y) in enumerate(zip(a, b)):
+                assert_plans_equal(x, y, f"{path}[{i}]")
+    else:
+        assert type(a) is type(b) and a == b, (path, a, b)

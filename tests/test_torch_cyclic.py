@@ -46,7 +46,7 @@ from networks_fenicsx_tpu_torch.kernels import dense_core, fold, mf_apply, mf_fa
 from networks_fenicsx_tpu_torch.ops import core_elim as PCE
 from networks_fenicsx_tpu_torch.ops import multifrontal as PMF
 
-from _torch_cases import golden_graph
+from _torch_cases import assert_plans_equal, golden_graph
 
 torch.set_num_threads(1)
 
@@ -147,8 +147,8 @@ def _assert_mf_plans_equal(mj, mp):
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_attached_core_plan_equal(name):
     """A core above 2,048 nodes attaches the reference's multifrontal plan,
-    buffer for buffer; a smaller one the min-degree marker (ROADMAP A6b),
-    where the reference plans no multifrontal core either."""
+    buffer for buffer; a smaller one the reference's min-degree plan, field
+    by field."""
     aj, ap = _assemblers(name)
     pj = JS.attach_core_plan(JS._plan_tree_elimination(aj))
     pp = PL._cached_tree_plan(ap, attach=True)
@@ -159,9 +159,10 @@ def test_attached_core_plan_equal(name):
         # the force_rounds variant shares the attached plan
         assert PL._cached_tree_plan(ap, force_rounds=True, attach=True).core_plan is pp.core_plan
     else:
-        assert not isinstance(pj.core_plan, JMF.MFPlan)
-        assert isinstance(pp.core_plan, PL.MinDegreeCorePlan)
-        assert pp.core_plan.core_size == pp.core_size
+        assert isinstance(pj.core_plan, JCE.CoreElimPlan)
+        assert isinstance(pp.core_plan, PCE.CoreElimPlan)
+        assert pp.core_plan.n_core == pp.core_size
+        assert_plans_equal(pj.core_plan, pp.core_plan)
 
 
 @pytest.mark.parametrize("leaf", [4, 16, 64])

@@ -431,8 +431,8 @@ def test_new_resistance_on_one_executor():
 
 
 def test_dct_on_a_576_node_core():
-    """make_grid(24, 24): under ``auto`` a dense core of 576 (A6b), under
-    ``"dct"`` the grid route."""
+    """make_grid(24, 24): under ``auto`` a dense core of 576 (the tree
+    route), under ``"dct"`` the grid route."""
     x_ref, x_port, s = _solve_both(lambda pkg: _grid(pkg, 24, 24), {"schur_method": "dct"}, N=1,
                                    R=None, f=0.2, p_bc=lambda x: x[0])
     assert isinstance(s._executor, PS._GridExecutor)

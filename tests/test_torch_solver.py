@@ -269,12 +269,66 @@ def test_forced_multifrontal_engine_on_small_core():
     _assert_equal_at_scale(x, x_ref, tol=1e-10)
 
 
-def test_explicit_tree_method_envelope():
-    """``schur_method="tree"`` on a core the port cannot plan: a core of
-    513–2,048 nodes raises A6b, as under ``auto``."""
-    asm = _cyclic_assembler(_bed4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-        P.Solver(asm, device="cpu", options=P.SolverOptions(schur_method="tree")).solve()
+def test_explicit_tree_method_envelope(monkeypatch):
+    """``schur_method="tree"`` attaches the min-degree plan as ``auto`` does
+    (bed4: the same solve); a core above 4,096 nodes that no planner takes
+    raises the reference's ``ValueError`` there and "ROADMAP A7b" (the CG
+    fallback) under ``auto``."""
+    asm = _cyclic_assembler(_bed4, R="poiseuille")
+    tree = P.Solver(asm, device="cpu", options=P.SolverOptions(schur_method="tree"))
+    auto = P.Solver(asm, device="cpu")
+    tree.solve()
+    auto.solve()
+    assert tree._executor.device_plan.ce is not None
+    assert np.array_equal(tree.solution_vector(), auto.solution_vector())
+    monkeypatch.setattr(PS, "_cached_tree_plan", lambda a, attach=False: PL._plan_tree_elimination(a))
+    big = _cyclic_assembler(lambda pkg: pkg.network_generation.make_grid(70, 70, arrays=True))
+    with pytest.raises(ValueError, match="could not be planned"):
+        P.Solver(big, device="cpu", options=P.SolverOptions(schur_method="tree")).solve()
+    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
+        P.Solver(big, device="cpu").solve()
+
+
+def _forced_web48(core_plan_fn):
+    """The web48 golden's problem and a core plan forced onto its small core."""
+    golden = json.loads((GOLDEN_DIR / "web48.json").read_text())
+    mesh, asm = _golden_problem(P, golden)
+    plan = PL._plan_tree_elimination(asm)
+    return golden, mesh, asm, plan._replace(core_plan=core_plan_fn(plan))
+
+
+@pytest.mark.parametrize("engine", ["sparse", "supernodal"])
+def test_golden_web_forced_core_plans(engine):
+    """``test_golden.py:148, 183``: the web48 golden through a forced
+    min-degree plan (``dense_cutoff=4``, no tail stop: the rounds carry the
+    solve) and through forced supernodal fronts, at 1e-10 of the exact
+    rational solution."""
+    from networks_fenicsx_tpu_torch.ops.core_elim import (
+        nested_dissection_order, plan_core_elimination,
+    )
+
+    def forced(plan):
+        if engine == "sparse":
+            return PL.attach_core_plan(plan, dense_cutoff=4, tail_stop=False).core_plan
+        pairs = np.asarray(plan.core_pairs)
+        nd = nested_dissection_order(pairs, plan.core_size, leaf=4)
+        return plan_core_elimination(pairs, plan.core_size, dense_cutoff=8, kcap=16, order=nd,
+                                     dense_cap=4, supernodal_tail=True, front_max=7, front_cap=64,
+                                     tail_stop=False)
+
+    golden, mesh, asm, plan = _forced_web48(forced)
+    cp = plan.core_plan
+    assert (cp.stats["fronts"] > 0) if engine == "supernodal" else (cp.stats["rounds"] > 0)
+    opts = P.SolverOptions(schur_method="tree")
+    ex = PS.build_schur_executor(asm, opts, device="cpu", _tree_plan=plan)
+    assert ex.device_plan.ce is not None
+    x, info = PS._schur_solve(asm, opts, ex)
+    assert info.converged
+    solver = P.Solver(asm, device="cpu")
+    solver._executor, solver._executor_key = ex, asm.coefficient_modes()
+    sol = solver.solve()
+    assert np.array_equal(solver.solution_vector(), x)
+    _check_golden(golden, mesh, asm, sol, tol=1e-10)
 
 
 def test_callable_resistance_y_analytic_and_reference():
@@ -439,14 +493,64 @@ def _grid24(pkg):
     return pkg.network_generation.make_grid(24, 24, arrays=True)
 
 
-def _cyclic_assembler(graph_fn, R="edge"):
-    """The port's assembler at N = 1 with per-edge R from a seed (or scalar)."""
-    mesh = P.NetworkMesh(graph_fn(P), N=1, color_strategy="fast")
-    asm = P.HydraulicNetworkAssembler(mesh)
+def _web2k(pkg):
+    """The reference's mid-size web (``__graft_entry__.py:244-252``): a core
+    of 1,994 nodes, 7 min-degree rounds and a dense tail of 628."""
+    return pkg.network_generation.make_random_network(2000, keep=0.7, num_boundary=8, seed=5,
+                                                      arrays=True)
+
+
+def _grid48(pkg):
+    """A 48 x 48 lattice: a core of 2,304, dense under ``auto`` with scalar R."""
+    return pkg.network_generation.make_grid(48, 48, arrays=True)
+
+
+def _cyclic_assembler(graph_fn, R="edge", pkg=P, seed=2):
+    """An assembler at N = 1 with per-edge R from a seed (or scalar R)."""
+    mesh = pkg.NetworkMesh(graph_fn(pkg), N=1, color_strategy="fast")
+    asm = pkg.HydraulicNetworkAssembler(mesh)
     if R == "edge":
-        R = np.random.default_rng(2).uniform(0.5, 2.0, mesh.num_edges)
+        R = np.random.default_rng(seed).uniform(0.5, 2.0, mesh.num_edges)
+    elif R == "poiseuille":
+        R = 1.0 / mesh.edge_radius**4
     asm.compute_forms(p_bc_ex=lambda x: x[0], R=R)
     return asm
+
+
+# the cycle cores above 512 nodes that the reference solves with its
+# min-degree elimination (a dense tail on K11) or, for a scalar-R lattice
+# under auto, its dense core: (graph, R, core, min-degree rounds or None)
+MID_CORES = {
+    "bed4": (_bed4, "poiseuille", 670, 1),
+    "web2000": (_web2000, "edge", 1012, 2),
+    "web2k": (_web2k, "edge", 1994, 7),
+    "grid24": (_grid24, None, 576, None),
+    "grid48": (_grid48, None, 2304, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MID_CORES))
+def test_mid_size_cores_solve(name):
+    """Cores of 513–4,096 nodes (min-degree rounds with a dense tail, or a
+    scalar-R lattice's dense core under ``auto``) solve on the tree route
+    and equal the JAX package (its SciPy ``host_lu``) at 1e-10·scale."""
+    graph_fn, R, core, rounds = MID_CORES[name]
+    asm = _cyclic_assembler(graph_fn, R=R, seed=7 if name == "web2k" else 2)
+    solver = P.Solver(asm, device="cpu")
+    sol = solver.solve()
+    assert solver.info.converged
+    dtp = solver._executor.device_plan
+    assert isinstance(solver._executor, PS._TreeExecutor) and dtp.core_size == core
+    assert dtp.mf is None
+    if rounds is None:  # the dense core, no plan attached
+        assert dtp.ce is None and dtp.plan.core_plan is None
+    else:
+        assert len(dtp.ce.rounds) == rounds and dtp.ce.dense_nodes.shape[0] > 0
+    ref_asm = _cyclic_assembler(graph_fn, R=R, pkg=J, seed=7 if name == "web2k" else 2)
+    ref = J.Solver(ref_asm, options=J.SolverOptions(method="host_lu"))
+    ref.solve()
+    _assert_equal_at_scale(solver.solution_vector(), np.asarray(ref.solution_vector()), tol=1e-10)
+    assert sum(fn.values.size for fn in sol) == asm.num_dofs
 
 
 def _tree_assembler(k=1, kp=0, **forms):
@@ -466,9 +570,6 @@ def _tree_assembler(k=1, kp=0, **forms):
                       options=P.SolverOptions(dtype="float32")).solve(), "ROADMAP A4"),
     (lambda: P.Solver(_tree_assembler(), device="cpu",
                       options=P.SolverOptions(schur_method="cg")).solve(), "ROADMAP A7b"),
-    (lambda: P.Solver(_cyclic_assembler(_bed4), device="cpu").solve(), "ROADMAP A6b"),
-    (lambda: P.Solver(_cyclic_assembler(_web2000), device="cpu").solve(), "ROADMAP A6b"),
-    (lambda: P.Solver(_cyclic_assembler(_grid24, R=None), device="cpu").solve(), "ROADMAP A6b"),
     (lambda: _tree_assembler().assemble(), "ROADMAP A8"),
 ])
 def test_outside_envelope_raises(make, match):
