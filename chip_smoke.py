@@ -27,7 +27,13 @@ paths through the public API, checks each solution and times it:
   with K10 and K11) and its 64² lattice under ``auto`` (28,294 dofs, a
   4,096-node dense core, K11), and the 128² per-edge-R lattice with the
   reference's nested-dissection plan and forced supernodal fronts (K12b),
-  through the tree executor the reference's own tests force plans into.
+  through the tree executor the reference's own tests force plans into;
+* the iterative λ solve under ``schur_method="cg"``: the 512² lattice with
+  per-edge R (1,831,942 dofs; conjugate gradients with the 2-D aggregation
+  multigrid, K19a + K18 + K19c) and the 100k-site web (2,817,749 dofs;
+  Chebyshev-Jacobi on the gather-fold matvec, K19a + K19b), then the
+  3×2000 lattice's 1-D multigrid (K19d) and the 128² lattice under
+  Chebyshev and Jacobi.
 
 Each kernel is held against its plain version on the card, timed per call
 beside its bound (the bytes it must move over the memory rate or its
@@ -100,6 +106,16 @@ K11_SIZES = (455, 628, 2_048, 4_096, 8_192)  # K11 alone, set (j)
 K11_TIMED = 4_096  # the kernels line's K11 shape: the 64² lattice's dense core
 EPS = float(np.finfo(np.float64).eps)
 
+# the iterative λ solve: the 512² lattice with per-edge R under schur_method="cg"
+# (tests/test_krylov.py:214-223 at 512²) takes the 2-D multigrid (B > 32,768)
+CG512_SIZES = {"edges": 523_266, "bifurcations": 262_144, "dofs": 1_831_942,
+               "precond": "2d", "levels": 5, "bottom": (16, 16)}
+CG512_MAX_ITERS = 20  # the reference's own bound (tests/test_krylov.py:240-245)
+WEB_CG_SIZES = {"edges": 109_873, "bifurcations": 70_924, "dofs": 2_817_749,
+                "precond": "chebyshev"}
+SKINNY_SIZES = {"bifurcations": 6_000, "precond": "1d", "levels": 4, "bottom": 375}
+CG_TOL = 1e-9  # whole CG solves, kernel path vs plain path, times the scale (the reference's bar)
+
 KERNEL_RECORD = {
     "condense": ("networks_fenicsx_tpu_torch/kernels/csrc/condense.cu",
                  "networks_fenicsx_tpu/solver.py:2776"),
@@ -137,6 +153,23 @@ KERNEL_RECORD = {
                   "networks_fenicsx_tpu/ops/core_elim.py:879"),
     "core_fronts": ("networks_fenicsx_tpu_torch/kernels/csrc/core_fronts.cu",
                     "networks_fenicsx_tpu/ops/core_elim.py:934"),
+    "krylov": ("networks_fenicsx_tpu_torch/kernels/csrc/krylov.cu",
+               "networks_fenicsx_tpu/ops/krylov.py:78"),
+    "gather_matvec": ("networks_fenicsx_tpu_torch/kernels/csrc/gather_matvec.cu",
+                      "networks_fenicsx_tpu/solver.py:1561"),
+    "mg2d": ("networks_fenicsx_tpu_torch/kernels/csrc/mg2d.cu",
+             "networks_fenicsx_tpu/solver.py:1315"),
+    "mg1d": ("networks_fenicsx_tpu_torch/kernels/csrc/mg1d.cu",
+             "networks_fenicsx_tpu/solver.py:1482"),
+}
+# the checks of each iterative wrapper in the kernels-cg sets (k)-(m), and the
+# set whose record times it
+CG_CHECKS = {
+    "krylov": ("k", ("krylov_cg_step", "krylov_chebyshev")),
+    "gather_matvec": ("k", ("gather_matvec", "gather_matvec_residual")),
+    "mg2d": ("l", ("mg2d_hierarchy", "mg2d_stencil", "mg2d_restrict", "mg2d_prolong",
+                   "mg2d_coarse_factor", "mg2d_coarse_solve", "mg2d")),
+    "mg1d": ("m", ("mg1d_hierarchy", "mg1d_restrict", "mg1d_prolong", "mg1d")),
 }
 # the checks of each lattice wrapper in the kernels-lattice sets
 LATTICE_CHECKS = {
@@ -951,12 +984,17 @@ def web2k_assembler(P):
     return asm
 
 
-def grid128_assembler(P):
-    """The 128² lattice at N = 1 with per-edge R from ``default_rng(128)``, p_bc = x."""
-    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(
-        P.network_generation.make_grid(128, 128, arrays=True), N=1, color_strategy="fast"))
+def grid128_forms(asm) -> None:
+    """Per-edge R from ``default_rng(128)``, f = 0, p_bc = x."""
     R = np.random.default_rng(128).uniform(0.5, 2.0, asm.network.num_edges)
     asm.compute_forms(p_bc_ex=lambda x: x[0], R=R)
+
+
+def grid128_assembler(P):
+    """The 128² lattice at N = 1 with :func:`grid128_forms`."""
+    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(
+        P.network_generation.make_grid(128, 128, arrays=True), N=1, color_strategy="fast"))
+    grid128_forms(asm)
     return asm
 
 
@@ -1335,12 +1373,13 @@ def compare_lattice_kernels(P, asm, device, timed: bool, tol_solve: float = LATT
         cw = lattice._shift_class_weights(w_edges, dlp.class_idx, n_cls, segsum.segsum_plain)
         rhs = dr[:, 1].contiguous()
         lam_any = torch.randn(op.B, generator=gen, dtype=torch.float64, device=device)
+        diag_v, rhs_v = dr[:, 0], dr[:, 1]  # strided views, as the DCT route passes them
 
         def res_kernel(lam):
-            return shift_matvec.shift_matvec(dlp.offsets, cw, dr, lam)
+            return shift_matvec.shift_matvec(dlp.offsets, cw, diag_v, lam, rhs_v)
 
         def res_plain(lam):
-            return shift_matvec.shift_matvec_plain(dlp.offsets, cw, dr, lam)
+            return shift_matvec.shift_matvec_plain(dlp.offsets, cw, diag_v, lam, rhs_v)
 
         runs["edge_data"] = (lambda: edge_data.edge_data(*e_args),
                              lambda: edge_data.edge_data_plain(*e_args), TOL)
@@ -1351,15 +1390,13 @@ def compare_lattice_kernels(P, asm, device, timed: bool, tol_solve: float = LATT
             lambda: lattice._shift_class_weights(w_edges, dlp.class_idx, n_cls,
                                                  segsum.segsum_plain), TOL)
         runs["shift_matvec"] = (
-            lambda: shift_matvec.shift_matvec(dlp.offsets, cw, dr, lam_any, norm=True),
-            lambda: shift_matvec.shift_matvec_plain(dlp.offsets, cw, dr, lam_any, norm=True), TOL)
+            lambda: shift_matvec.shift_matvec(dlp.offsets, cw, diag_v, lam_any, rhs_v, norm=True),
+            lambda: shift_matvec.shift_matvec_plain(dlp.offsets, cw, diag_v, lam_any, rhs_v,
+                                                    norm=True), TOL)
         # the library yardstick: one CSR product with the same Laplacian
         L = lattice_csr(dlp.offsets, cw, dr[:, 0])
         library["shift_matvec"] = lambda: torch.mv(L, lam_any)
-        timed_runs["shift_matvec"] = (lambda: shift_matvec.shift_matvec(dlp.offsets, cw, dr,
-                                                                        lam_any),
-                                      lambda: shift_matvec.shift_matvec_plain(dlp.offsets, cw, dr,
-                                                                              lam_any))
+        timed_runs["shift_matvec"] = (lambda: res_kernel(lam_any), lambda: res_plain(lam_any))
     st = K16.factor_plain(op, w_edges)
     spec = K16.transform_plain(op, rhs)
     runs["dct_factor"] = (lambda: K16._factor(op, w_edges), lambda: K16.factor_plain(op, w_edges),
@@ -1691,6 +1728,438 @@ def core_phases(P, device, name_power: str) -> dict:
     return {"sets": core, "k11": k11, "paths": paths}
 
 
+def cg512_forms(asm) -> None:
+    """Per-edge R from ``default_rng(7)``, f = 0, p_bc = x
+    (``tests/test_krylov.py:214-223``)."""
+    R = np.random.default_rng(7).uniform(0.5, 2.0, asm.network.num_edges)
+    asm.compute_forms(p_bc_ex=lambda x: x[0], R=R)
+
+
+def skinny_forms(asm) -> None:
+    """Per-edge R from ``default_rng(4)``, f = 0, p_bc = y (``tests/test_krylov.py:185-189``)."""
+    R = np.random.default_rng(4).uniform(0.5, 2.0, asm.network.num_edges)
+    asm.compute_forms(p_bc_ex=lambda x: x[1], R=R)
+
+
+def cg_used(ex) -> set:
+    """The wrappers a CG executor launches: its λ system (K9 on K6's sums) and
+    back-substitution, K19a, the matvec (K18 or K19b) and the
+    preconditioner's kernels."""
+    used = {"edge_data", "lambda_system", "segsum", "backsub", "krylov"}
+    used |= {"gather_matvec"} if ex.device_plan.classes is None else {"shift_matvec"}
+    used |= {"2d": {"mg2d"}, "1d": {"mg1d", "mg2d"}}.get(ex.precond_kind[0], set())
+    return used
+
+
+def cg_sizes(ex, asm) -> dict:
+    mesh, plan = asm.network, ex.precond_plan
+    sizes = {"edges": mesh.num_edges, "bifurcations": mesh.num_multipliers, "dofs": asm.num_dofs,
+             "precond": ex.precond_kind[0]}
+    if ex.precond_kind[0] == "2d":
+        sizes["levels"], sizes["bottom"] = len(plan.shapes), tuple(plan.bottom)
+    elif ex.precond_kind[0] == "1d":
+        sizes["levels"], sizes["bottom"] = len(plan.levels), plan.m_bottom
+    return sizes
+
+
+def cg_path(P, device, label: str, build, options, expect: dict, lattice: bool = False,
+            max_iters: int | None = None) -> dict:
+    """A CG solve through the public API, counted and checked: the CG
+    executor, only its kernels launched, the expected sizes and
+    preconditioner, converged, kernel-path iterations within 1 of the plain
+    path's and the solution at ``CG_TOL``·scale of it, mass conserved at
+    every junction to the bound the λ residual implies (a junction's
+    imbalance is its row of Lλ − rhs) and, on a lattice, between inlet and
+    outlet at 1e-9·max|q|; the host reads of the done flag per solve."""
+    from networks_fenicsx_tpu_torch import kernels
+    from networks_fenicsx_tpu_torch.ops import krylov as cg_loop
+    from networks_fenicsx_tpu_torch.solver import _CgExecutor, _flatten_blocks_host
+
+    t0 = time.perf_counter()
+    asm = build()
+    solver = P.Solver(asm, options=options, device=device)
+    log(f"phase {label}: set-up {time.perf_counter() - t0:.3f} s, {asm.network.num_edges} edges, "
+        f"{asm.network.num_multipliers} bifurcations, {asm.num_dofs} dofs")
+    torch.cuda.reset_peak_memory_stats(device)
+    t1 = time.perf_counter()
+    kernels.reset_launches()
+    cg_loop.cg.flag_reads = 0
+    sol = solver.solve()
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    reads = cg_loop.cg.flag_reads
+    first_s = time.perf_counter() - t1
+    peak_mb = torch.cuda.max_memory_allocated(device) / 2**20
+    ex = solver._executor
+    assert isinstance(ex, _CgExecutor), type(ex)
+    sizes = cg_sizes(ex, asm)
+    for key, want in expect.items():
+        assert sizes[key] == want, (key, sizes[key], want)
+    used = cg_used(ex)
+    assert all(launches[name] >= 1 for name in used), launches
+    assert all(n == 0 for name, n in launches.items() if name not in used), launches
+
+    info = solver.info
+    x = solver.solution_vector()
+    assert info.converged and info.iterations > 0, info
+    assert max_iters is None or info.iterations <= max_iters, (info.iterations, max_iters)
+    assert x.shape == (asm.num_dofs,) and np.all(np.isfinite(x))
+    assert sum(fn.values.size for fn in sol) == asm.num_dofs
+    out = ex.plain(*ex.prepare_args(*asm.schur_arguments()))
+    it_plain = int(out[3])
+    assert abs(info.iterations - it_plain) <= 1, (info.iterations, it_plain)
+    x_plain = _flatten_blocks_host(out[0].cpu().numpy(), out[1].cpu().numpy(), out[2].cpu().numpy(),
+                                   asm.network.edge_color)
+    err = float(np.abs(x - x_plain).max())
+    scale = max(1.0, float(np.abs(x_plain).max()))
+    assert err <= CG_TOL * scale, (err, scale)
+    rhs_norm = float(out[5])
+    res_bar = 10 * options.rtol * rhs_norm
+    imbalance, qmax = conservation(asm, x)
+    assert imbalance <= info.residual + 1e-10 * qmax, (imbalance, info.residual, qmax)
+    through = inlet_outlet(asm, x) if lattice else None
+    assert through is None or through <= 1e-9 * qmax, (through, qmax)
+    io_text = "" if through is None else f", inlet-outlet balance {through / qmax:.3e} of max |q|"
+    log(f"phase {label}: {sizes}, {info.iterations} iterations (plain path {it_plain}), first solve "
+        f"(executor build + solve) {first_s:.3f} s, λ residual {info.residual:.3e} against "
+        f"10·rtol·‖rhs‖ {res_bar:.3e} (gate max(that, 1e-9)), converged, finite, conservation "
+        f"{imbalance:.3e} (max |q| {qmax:.3e}){io_text}, vs plain path {err:.3e} (scale "
+        f"{scale:.3e}), host flag reads {reads}, peak device memory {peak_mb:.1f} MiB, "
+        f"launches {launches}")
+    return {"asm": asm, "solver": solver, "launches": launches, "sizes": sizes,
+            "iters": info.iterations, "reads": reads, "residual": info.residual,
+            "res_bar": res_bar, "imbalance": imbalance, "qmax": qmax, "through": through}
+
+
+def cg_timing(P, state: dict, forms, label: str, name_power: str) -> dict:
+    """compute_forms + solve best of 5 on the host clock, CUDA-synchronised;
+    device time per solve for the kernels and the plain versions; wrapper
+    launches and host flag reads per solve."""
+    asm, solver = state["asm"], state["solver"]
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forms(asm)
+        solver.solve()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ex = solver._executor
+    args = ex.prepare_args(*asm.schur_arguments())
+    dev_ms = cuda_ms(lambda: ex(*args), reps=5)
+    plain_ms = cuda_ms(lambda: ex.plain(*args), reps=3)
+    log(f"phase timing {label}: compute_forms+solve best {min(times):.3f} ms "
+        f"(all {[round(t, 3) for t in times]}); executor per solve (upload + kernels) "
+        f"{dev_ms:.3f} ms, plain versions {plain_ms:.3f} ms; {state['iters']} iterations, "
+        f"{sum(state['launches'].values())} wrapper calls and {state['reads']} host flag reads "
+        f"per solve (chunk {state['chunk']}); card {name_power}")
+    return {"best_ms": min(times), "device_ms": dev_ms, "plain_ms": plain_ms}
+
+
+def cg_system(P, asm, device, options):
+    """``(executor, diag, rhs, w_edges, class weights or None)`` of the CG
+    executor's λ system, from the plain versions on the card."""
+    from networks_fenicsx_tpu_torch.kernels import edge_data, peel, segsum
+    from networks_fenicsx_tpu_torch.lattice import _shift_class_weights
+    from networks_fenicsx_tpu_torch.solver import _CgExecutor, build_schur_executor
+
+    ex = build_schur_executor(asm, options, device=device)
+    assert isinstance(ex, _CgExecutor), type(ex)
+    dlp = ex.device_plan
+    R, f, sp, ep = ex.upload(*ex.prepare_args(*asm.schur_arguments()))
+    Rm, fm, f_zero = asm.coefficient_modes()
+    ed = edge_data.edge_data_plain(dlp, ex._N, ex._k, ex._h_e, ex._quad_w, ex._quad_phi, R, f, Rm,
+                                   fm, f_zero, sp, ep)
+    dr, w_edges, _ = peel.lambda_system_plain(dlp, ed)
+    cw = None
+    if dlp.classes is not None:
+        cw = _shift_class_weights(w_edges, dlp.class_idx, dlp.offsets.size, segsum.segsum_plain)
+    return ex, dr[:, 0].contiguous(), dr[:, 1].contiguous(), w_edges, cw
+
+
+def run_checks(runs: dict, record: dict, timed: dict, work: dict, library: dict) -> None:
+    """Each ``(kernel, plain, tol)`` of ``runs`` against the other, every
+    tensor of a result at ``tol`` times its own scale (a CG state's γ and
+    the vectors it updates differ by orders of magnitude); the ``timed``
+    ones timed with their bound and library call."""
+    for name, (kernel, plain, tol) in runs.items():
+        got = float_tensors(kernel())
+        want = float_tensors(plain())
+        torch.cuda.synchronize()
+        assert len(got) == len(want), (name, len(got), len(want))
+        parts = [max_err(a, b) for a, b in zip(got, want)]
+        for i, (err, scale) in enumerate(parts):
+            assert err <= tol * scale, (name, i, err, scale, tol)
+        record[name] = {"max_abs_err": max(e for e, _ in parts), "errs": [e for e, _ in parts],
+                        "scales": [sc for _, sc in parts], "tol": tol}
+    for name, (kernel, plain) in timed.items():
+        record[name]["ms"] = cuda_ms(kernel, reps=10)
+        record[name]["plain_ms"] = cuda_ms(plain, reps=3)
+        record[name].update(bound(*work[name]))
+        record[name]["library_ms"] = cuda_ms(library[name], reps=10) if name in library else None
+
+
+def gather_csr(dlp, w_edges, diag):
+    """The gather-fold Laplacian as a CSR tensor: K19b's sparse-product yardstick."""
+    B = diag.shape[0]
+    i = torch.arange(B, device=diag.device)
+    ok = dlp.mv_edge >= 0
+    rows = torch.cat([i, i[None, :].expand_as(dlp.mv_edge)[ok]])
+    cols = torch.cat([i, dlp.mv_other[ok].long()])
+    vals = torch.cat([diag, -w_edges[dlp.mv_edge[ok].long()]])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (B, B), check_invariants=True)
+        return coo.coalesce().to_sparse_csr()
+
+
+def compare_krylov_kernels(P, asm, device) -> dict:
+    """Set (k): K19a and K19b against their plain versions on the web's λ
+    system: one K19b matvec and residual, one Chebyshev-Jacobi application
+    (degree 8) on it, one CG step pair from the same state; all at
+    ``TOL``·scale.  Timed: the K19b matvec (CSR ``torch.mv`` beside it) and
+    the CG step pair's K19a launches on fixed vectors (tol 0, so that no
+    update stops)."""
+    from networks_fenicsx_tpu_torch.kernels import gather_matvec, krylov
+    from networks_fenicsx_tpu_torch.multigrid import GatherOperator
+    from networks_fenicsx_tpu_torch.ops.krylov import chebyshev_preconditioner
+
+    ex, diag, rhs, w, _ = cg_system(P, asm, device, P.SolverOptions(schur_method="cg"))
+    dlp = ex.device_plan
+    assert dlp.classes is None and ex.precond_kind == ("chebyshev", 8), ex.precond_kind
+    B = diag.shape[0]
+    gen = torch.Generator(device=device).manual_seed(2)
+    x = torch.randn(B, generator=gen, dtype=torch.float64, device=device)
+    tables = (dlp.mv_edge, dlp.mv_other)
+    ops = {plain: GatherOperator(*tables, w, diag, plain) for plain in (False, True)}
+    cheb = {plain: chebyshev_preconditioner(ops[plain].step, diag, degree=8, plain=plain)
+            for plain in (False, True)}
+    z0 = cheb[True](rhs)
+    Ap0 = ops[True].apply(z0)
+
+    def step_pair(plain: bool, maxiter: int = 100, rtol: float = 1e-12):
+        start, ux, up = ((krylov.cg_start_plain, krylov.cg_update_x_plain, krylov.cg_update_p_plain)
+                         if plain else (krylov.cg_start, krylov.cg_update_x, krylov.cg_update_p))
+        st, part = krylov.new_state(device), krylov.partials(B, device)
+        xx, r, p = torch.zeros_like(rhs), rhs.clone(), z0.clone()
+        start(st, rhs, r, z0, part, rtol, 0.0, maxiter)
+
+        def pair():
+            ux(st, p, Ap0, xx, r, part)
+            up(st, r, z0, p, part)
+            return st[[0, 1, 2, 3, 5, 6, 7]], xx, r, p
+
+        return pair
+
+    runs = {
+        "gather_matvec": (lambda: gather_matvec.gather_matvec(*tables, w, diag, x),
+                          lambda: gather_matvec.gather_matvec_plain(*tables, w, diag, x), TOL),
+        "gather_matvec_residual": (
+            lambda: gather_matvec.gather_matvec(*tables, w, diag, x, rhs, norm=True),
+            lambda: gather_matvec.gather_matvec_plain(*tables, w, diag, x, rhs, norm=True), TOL),
+        "krylov_chebyshev": (lambda: cheb[False](rhs), lambda: cheb[True](rhs), TOL),
+        "krylov_cg_step": (lambda: step_pair(False)(), lambda: step_pair(True)(), TOL),
+    }
+    K, E = dlp.mv_edge.shape[0], w.shape[0]
+    valid = valid_entries(dlp.mv_edge, E)
+    work = {
+        # the tables, w, diag and x read, L x written; 2 operations an entry, 2 a row
+        "gather_matvec": (tensor_bytes(dlp.mv_edge, dlp.mv_other, w, diag, x) + 8 * B,
+                          2 * valid + 2 * B),
+        # the pair reads p, Ap, x, r and z once and writes x, r and p once (the
+        # second kernel's reads of r and p are the first's outputs), and the state
+        "krylov_cg_step": (8 * 8 * B + 8 * 8, 12 * B),
+    }
+    L = gather_csr(dlp, w, diag)
+    library = {"gather_matvec": lambda: torch.mv(L, x)}
+    timed = {"gather_matvec": runs["gather_matvec"][:2],
+             "krylov_cg_step": (step_pair(False, 10**9, 0.0), step_pair(True, 10**9, 0.0))}
+    record = {"B": B, "K": K}
+    run_checks(runs, record, timed, work, library)
+    return record
+
+
+def mg2d_levels(mod, cw, dirs, diag, plan) -> list:
+    """The 2-D hierarchy of ``plan`` built with ``mod``'s wrappers (or plain versions)."""
+    levels = [mod.level0(cw, dirs, diag)]
+    for f, c in zip(plan.shapes, plan.shapes[1:] + (plan.bottom,)):
+        levels.append(mod.coarsen(levels[-1], f, c))
+    return levels
+
+
+def compare_mg2d_kernels(P, asm, device) -> dict:
+    """Set (l): K19c against its plain versions on the 512² per-edge-R
+    lattice's λ system: the hierarchy, the level-0 stencil, a restriction, a
+    prolongation, the coarsest factor (its lower triangle) and solve, one
+    V-cycle application; all at ``TOL``·scale.  Timed: the V-cycle (no one
+    PyTorch call computes it), the stencil beside a CSR ``torch.mv``, the
+    coarsest factor and solve beside ``cholesky`` + ``cholesky_solve``."""
+    from networks_fenicsx_tpu_torch.kernels import mg2d
+    from networks_fenicsx_tpu_torch.multigrid import Mg2dPreconditioner
+
+    opts = P.SolverOptions(schur_method="cg")
+    ex, diag, rhs, w, cw = cg_system(P, asm, device, opts)
+    plan = ex.precond_plan
+    assert ex.precond_kind[0] == "2d" and (len(plan.shapes), plan.bottom) == (5, (16, 16)), plan
+    B = diag.shape[0]
+    gen = torch.Generator(device=device).manual_seed(3)
+    r = torch.randn(B, generator=gen, dtype=torch.float64, device=device)
+    pre = {plain: Mg2dPreconditioner(plan, cw, diag, opts.mg_overcorrect, plain)
+           for plain in (False, True)}
+    lev, shape, shape_c = pre[True].levels[0], plan.shapes[0], plan.shapes[1]
+    bottom = pre[True].bottom
+    rc = torch.randn(shape_c[0] * shape_c[1], generator=gen, dtype=torch.float64, device=device)
+    rb = torch.randn(bottom.shape[1], generator=gen, dtype=torch.float64, device=device)
+    Lc = mg2d._banded(plan.bottom_offsets, bottom[:4], bottom[mg2d.FD])
+    factor_p = pre[True].factor
+
+    def prolonged(fn):
+        def run():
+            xx = r.clone()
+            fn(xx, shape, shape_c, rc, opts.mg_overcorrect)
+            return xx
+        return run
+
+    coarse = (plan.bottom_offsets, bottom[:4], bottom[mg2d.FD])
+    runs = {
+        "mg2d_hierarchy": (lambda: mg2d_levels(mg2d, cw, plan.dirs, diag, plan),
+                           lambda: mg2d_levels(pre[True].k, cw, plan.dirs, diag, plan), TOL),
+        "mg2d_stencil": (lambda: mg2d.stencil(lev, shape, r, rhs),
+                         lambda: mg2d.stencil_plain(lev, shape, r, rhs), TOL),
+        "mg2d_restrict": (lambda: mg2d.restrict(r, shape, shape_c),
+                          lambda: mg2d.restrict_plain(r, shape, shape_c), TOL),
+        "mg2d_prolong": (prolonged(mg2d.prolong), prolonged(mg2d.prolong_plain), TOL),
+        "mg2d_coarse_factor": (lambda: torch.tril(mg2d.coarse_factor(*coarse)),
+                               lambda: mg2d.coarse_factor_plain(*coarse), TOL),
+        "mg2d_coarse_solve": (lambda: mg2d.coarse_solve(pre[False].factor, rb),
+                              lambda: mg2d.coarse_solve_plain(factor_p, rb), TOL),
+        "mg2d": (lambda: pre[False](r), lambda: pre[True](r), TOL),
+    }
+    sizes = [s[0] * s[1] for s in plan.shapes]
+    mb = bottom.shape[1]
+    tri = mb * (mb + 1) // 2  # the factor's lower triangle, all that the solves read
+    work = {
+        # r, the six fields a smoothed level's smoothers and stencils read (not
+        # ``extra``, which only the hierarchy build reads) and the factor's
+        # lower triangle read once, z written; ~90 operations a cell a cycle
+        # (two smoothers, two stencils, the transfers) and 2 mb² for the
+        # coarsest solves
+        "mg2d": (8 * (2 * B + 6 * sum(sizes) + tri), 90 * sum(sizes) + 2 * mb * mb),
+        "mg2d_stencil": (8 * (8 * B), 10 * B),
+        "mg2d_coarse_factor": (8 * (5 * mb + tri), 0.0, mb**3 / 3),
+        "mg2d_coarse_solve": (8 * (tri + 2 * mb), 2 * mb * mb),
+    }
+    L = lattice_csr(np.array([1, -1, shape[1], -shape[1]]), lev[:4], lev[mg2d.FD])
+    library = {
+        "mg2d_stencil": lambda: torch.mv(L, r),
+        "mg2d_coarse_factor": lambda: torch.linalg.cholesky(Lc),
+        "mg2d_coarse_solve": lambda: torch.cholesky_solve(rb[:, None], factor_p),
+    }
+    timed = {name: runs[name][:2] for name in work}
+    timed["mg2d_coarse_factor"] = (lambda: mg2d.coarse_factor(*coarse),
+                                   lambda: mg2d.coarse_factor_plain(*coarse))
+    record = {"shapes": [list(s) for s in plan.shapes], "bottom": list(plan.bottom)}
+    run_checks(runs, record, timed, work, library)
+    return record
+
+
+def compare_mg1d_kernels(P, asm, device) -> dict:
+    """Set (m): K19d against its plain versions on the 3×2000 lattice's λ
+    system under ``cg_precond="mg"``: the hierarchy, a restriction and a
+    prolongation and one V-cycle, all at ``TOL``·scale.  Timed: the V-cycle."""
+    from networks_fenicsx_tpu_torch.kernels import mg1d
+    from networks_fenicsx_tpu_torch.multigrid import Mg1dPreconditioner
+
+    opts = P.SolverOptions(schur_method="cg", cg_precond="mg")
+    ex, diag, rhs, w, cw = cg_system(P, asm, device, opts)
+    plan, offsets = ex.precond_plan, ex.device_plan.offsets
+    assert ex.precond_kind[0] == "1d" and (len(plan.levels), plan.m_bottom) == (4, 375), plan
+    B = diag.shape[0]
+    gen = torch.Generator(device=device).manual_seed(4)
+    r = torch.randn(B, generator=gen, dtype=torch.float64, device=device)
+    ec = torch.randn((B + 1) // 2, generator=gen, dtype=torch.float64, device=device)
+    pre = {plain: Mg1dPreconditioner(plan, offsets, cw, diag, opts.mg_overcorrect, plain)
+           for plain in (False, True)}
+
+    def hierarchy(mod):
+        def run():
+            extra, dis = mod.level0(cw, diag)
+            out, c, e = [extra, dis], cw, extra
+            for lvl in plan.levels:
+                c, e, d, s = mod.coarsen(lvl, c, e)
+                out += [c, e, d, s]
+            return out
+        return run
+
+    def prolonged(fn):
+        def run():
+            xx = r.clone()
+            fn(xx, ec, opts.mg_overcorrect)
+            return xx
+        return run
+
+    runs = {
+        "mg1d_hierarchy": (hierarchy(mg1d), hierarchy(pre[True].k), TOL),
+        "mg1d_restrict": (lambda: mg1d.restrict(r, (B + 1) // 2),
+                          lambda: mg1d.restrict_plain(r, (B + 1) // 2), TOL),
+        "mg1d_prolong": (prolonged(mg1d.prolong), prolonged(mg1d.prolong_plain), TOL),
+        "mg1d": (lambda: pre[False](r), lambda: pre[True](r), TOL),
+    }
+    sizes = [lvl.m for lvl in plan.levels]
+    ncls = [lvl.offsets.size for lvl in plan.levels]
+    mb = plan.m_bottom
+    work = {
+        # r, every level's class weights, diagonal and scaling, the factor's
+        # lower triangle read once, z written; ~(20 C + 60) operations a row a
+        # cycle, 2 mb² coarsest
+        "mg1d": (8 * (2 * B + sum((c + 2) * m for c, m in zip(ncls, sizes)) + mb * (mb + 1) // 2),
+                 sum((20 * c + 60) * m for c, m in zip(ncls, sizes)) + 2 * mb * mb),
+    }
+    record = {"levels": len(plan.levels), "bottom": mb}
+    run_checks(runs, record, {"mg1d": runs["mg1d"][:2]}, work, {})
+    return record
+
+
+def cg_phases(P, device, name_power: str) -> dict:
+    """The iterative λ solve: kernels-cg sets (k) the web, (l) the 512²
+    lattice, (m) the 3×2000 lattice; the cg512 and web-cg main paths with
+    their timings; the skinny lattice's 1-D multigrid solve and the 128²
+    lattice under Chebyshev and Jacobi, each through ``Solver.solve()``."""
+    from networks_fenicsx_tpu_torch.ops.krylov import CHUNK
+
+    sets = {}
+    sets["k"] = compare_krylov_kernels(P, web_assembler(P), device)
+    log("phase kernels-cg (k) 100k web with anastomoses, N=8, k=2, gather-fold λ system: "
+        + json.dumps(sets["k"]))
+    cg512 = lambda: lattice_assembler(P, forms=cg512_forms)  # noqa: E731
+    sets["l"] = compare_mg2d_kernels(P, cg512(), device)
+    log("phase kernels-cg (l) 512^2 lattice, edge R, 2-D multigrid: " + json.dumps(sets["l"]))
+    skinny = lambda: lattice_assembler(P, 3, 2000, forms=skinny_forms)  # noqa: E731
+    sets["m"] = compare_mg1d_kernels(P, skinny(), device)
+    log("phase kernels-cg (m) 3x2000 lattice, edge R, 1-D multigrid: " + json.dumps(sets["m"]))
+
+    paths = {}
+    paths["cg512"] = cg_path(P, device, "cg512 main path", cg512, P.SolverOptions(schur_method="cg"),
+                             CG512_SIZES, lattice=True, max_iters=CG512_MAX_ITERS)
+    paths["web-cg"] = cg_path(P, device, "web-cg main path", lambda: web_assembler(P),
+                              P.SolverOptions(schur_method="cg"), WEB_CG_SIZES)
+    for key, forms in (("cg512", cg512_forms), ("web-cg", forest_forms)):
+        paths[key]["chunk"] = CHUNK
+        paths[key]["timing"] = cg_timing(P, paths[key], forms, key, name_power)
+        del paths[key]["asm"], paths[key]["solver"]
+    paths["skinny-mg"] = cg_path(P, device, "(m) 3x2000 lattice, cg_precond='mg'", skinny,
+                                 P.SolverOptions(schur_method="cg", cg_precond="mg"), SKINNY_SIZES,
+                                 lattice=True)
+    for precond in ("chebyshev", "jacobi"):
+        paths["grid128-" + precond] = cg_path(
+            P, device, f"(n) 128^2 edge-R lattice, cg_precond='{precond}'",
+            lambda: grid128_assembler(P), P.SolverOptions(schur_method="cg", cg_precond=precond),
+            {"bifurcations": 16_384, "precond": precond}, lattice=True)
+    for path in paths.values():
+        path.pop("asm", None), path.pop("solver", None)
+    return {"sets": sets, "paths": paths}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1787,10 +2256,14 @@ def main() -> int:
     mid = core_phases(P, device, name_power)
     core, k11 = mid["sets"], mid["k11"]
 
+    iterative = cg_phases(P, device, name_power)
+    cgs = iterative["sets"]
+
     runs = (state["launches"], tree["launches"], forest["launches"], web["launches"],
             bed["launches"], web1000["launches"],
             *(path["launches"] for path in lattice["paths"].values()),
-            *(path["launches"] for path in mid["paths"].values()))
+            *(path["launches"] for path in mid["paths"].values()),
+            *(path["launches"] for path in iterative["paths"].values()))
     timed_cyclic = {"dense_core": k11[K11_TIMED], "core_elim": core["f"]["core_elim"],
                     "core_fronts": core["i"]["core_fronts"]}
     timed_lattice = {"dct_lattice": lat["a"], "grid_core": lat["a"], "shift_matvec": lat["c"]}
@@ -1808,6 +2281,10 @@ def main() -> int:
             errs = tuple(lat[c][key]["max_abs_err"] for c in "abcd"
                          for key in LATTICE_CHECKS[name] if key in lat[c])
             timed_on = timed_lattice[name][name]
+        elif name in CG_CHECKS:
+            on, keys = CG_CHECKS[name]
+            errs = tuple(cgs[on][key]["max_abs_err"] for key in keys)
+            timed_on = cgs[on]["krylov_cg_step" if name == "krylov" else name]
         else:
             errs = tuple(cyc[c][key]["max_abs_err"] for c in "abcde"
                          for key in (name, name + "_unrefined") if key in cyc[c]) + lattice_errs
@@ -1824,7 +2301,7 @@ def main() -> int:
             "bound_ms": timed_on["bound_ms"], "bound_by": timed_on["bound_by"],
             "library_ms": timed_on.get("library_ms"),
         })
-    assert len(kernels) == 18 and all(kr["launches"] > 0 for kr in kernels), kernels
+    assert len(kernels) == 22 and all(kr["launches"] > 0 for kr in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,17 @@ device: ``Solver(asm, device="cuda")`` by default, ``device="cpu"`` for the
 kernels' plain PyTorch versions.  This package imports neither JAX nor (on
 the ``ArrayNetwork`` path) networkx.
 
-Ported so far: the Schur solve of every forest with DG0 pressure — the
-blocked route for uniformly-K-ary trees with scalar, per-edge or per-cell R
-and f, and the general level route for any other forest (irregular trees)
-and for callable (quadrature-mode) R and f, at any flux degree.  Cyclic
-bifurcation graphs and the rest are listed in ROADMAP.md.
+Ported so far: the Schur solve of every network with DG0 pressure, at any
+flux degree, on the reference's routes (:mod:`.solver`): the blocked route
+for uniformly-K-ary trees with scalar, per-edge or per-cell R and f; the
+level route for any other forest and for callable (quadrature-mode) R and
+f; the tree route for bifurcation graphs with cycles (peel rounds, then a
+dense, min-degree or multifrontal cycle core); the separable-DCT route for
+uniform scalar-R lattices; and the CG route (``schur_method="cg"``, and
+``auto``'s fallback for a large core without a sparse plan) with its
+multigrid, Chebyshev-Jacobi and Jacobi preconditioners.  What is left
+(other methods and matrix kinds, factor reuse, float32, batches,
+multi-device, output) is listed in ROADMAP.md.
 """
 
 from . import network_generation, post_processing

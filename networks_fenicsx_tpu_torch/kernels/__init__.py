@@ -34,22 +34,34 @@ The uniform-lattice solve (the separable-DCT λ solve on its two routes):
 * :mod:`.shift_matvec` — K18, the general route's shift-class matvec (with
   K8a, K9's ``lambda_system``, K6 and K8b).
 
+The iterative λ solve (CG, after K8a, K9's ``lambda_system`` and K6, before
+K8b; its matvec on K18 or K19b):
+
+* :mod:`.krylov` — K19a, the CG steps, the Chebyshev start, Jacobi;
+* :mod:`.gather_matvec` — K19b, the gather-fold matvec of graphs without a
+  shift plan, with its Chebyshev step;
+* :mod:`.mg2d` — K19c, the 2-D aggregation V-cycle's pieces and the
+  coarsest dense solve;
+* :mod:`.mg1d` — K19d, the 1-D pairing V-cycle's hierarchy and transfers.
+
 A wrapper launches its kernel for CUDA tensors (building the library from
 ``csrc/`` at first use, see :mod:`.build`) and runs the plain version for
 CPU tensors.  Each wrapper counts its launches in a plain integer attribute
-``launches``.
+``launches``; a kernel with several wrappers counts them in one
+:class:`.build.Counter` named like it.
 """
 
 from . import (
     backsub, condense, core_elim, core_fronts, dct_lattice, dense_core, edge_data, expand, fold,
-    grid_core, level_eliminate, mf_apply, mf_factor, peel, segsum, shift_matvec, tree_sweep,
+    gather_matvec, grid_core, krylov, level_eliminate, mf_apply, mf_factor, mg1d, mg2d, peel,
+    segsum, shift_matvec, tree_sweep,
 )
 
 __all__ = [
     "backsub", "condense", "core_elim", "core_fronts", "dct_lattice", "dense_core", "edge_data", "expand", "fold",
-    "grid_core", "level_eliminate", "mf_apply", "mf_factor", "peel", "segsum", "shift_matvec",
-    "tree_sweep",
-    "WRAPPERS", "BLOCKED", "GENERAL", "CYCLIC", "LATTICE", "reset_launches", "launches",
+    "gather_matvec", "grid_core", "krylov", "level_eliminate", "mf_apply", "mf_factor", "mg1d", "mg2d",
+    "peel", "segsum", "shift_matvec", "tree_sweep",
+    "WRAPPERS", "BLOCKED", "GENERAL", "CYCLIC", "LATTICE", "ITERATIVE", "reset_launches", "launches",
 ]
 
 BLOCKED = (condense.condense, tree_sweep.tree_sweep, expand.expand)
@@ -59,7 +71,8 @@ CYCLIC = (
     mf_factor.mf_factor, mf_apply.mf_apply, core_elim.core_elim, core_fronts.core_fronts,
 )
 LATTICE = (dct_lattice.dct_lattice, grid_core.grid_core, shift_matvec.shift_matvec)
-WRAPPERS = BLOCKED + GENERAL + CYCLIC + LATTICE
+ITERATIVE = (krylov.LAUNCHES, gather_matvec.gather_matvec, mg2d.LAUNCHES, mg1d.LAUNCHES)
+WRAPPERS = BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE
 
 
 def reset_launches() -> None:

@@ -21,7 +21,9 @@ import pathlib
 
 import torch
 
-__all__ = ["library", "check", "require_cuda", "require_coefficients", "stream_handle", "BUILD_ROOT"]
+__all__ = [
+    "library", "check", "require_cuda", "require_coefficients", "stream_handle", "Counter", "BUILD_ROOT",
+]
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).parent / "_build"
@@ -186,9 +188,48 @@ _SIGNATURES = {
     ],
     "nxfx_shift_matvec": [
         _i, _i, _p,  # B, C, host offsets
-        _p, _p, _p,  # cw, dr, lam
-        _p, _p, _p, _p,  # res, partial (or null), norm (or null), stream
+        _p, _p, _i, _p, _p, _i,  # cw, diag, its stride, x, b (or null), its stride
+        _p, _p, _p, _p,  # out, partial (or null), norm (or null), stream
     ],
+    "nxfx_shift_cheb": [
+        _i, _i, _p,  # B, C, host offsets
+        _p, _p, _p, _p, _p, _p, _p,  # cw, diag, s, rs, dvec, x_in, x_out
+        _d, _d, _p, _p, _p,  # c1, c2, z (or null), base (or null), stream
+    ],
+    "nxfx_krylov_cg_start": [_i, _p, _p, _p, _p, _p, _d, _d, _d, _p],  # n, b, r, z, part, st, rtol, atol, maxiter
+    "nxfx_krylov_cg_update_x": [_i, _p, _p, _p, _p, _p, _p, _p],  # n, p, Ap, x, r, part, st, stream
+    "nxfx_krylov_cg_update_p": [_i, _p, _p, _p, _p, _p, _p],  # n, r, z, p, part, st, stream
+    "nxfx_krylov_cheb_start": [_i, _p, _p, _d, _p, _p, _p, _p, _p, _p],  # n, s, r, theta, rs, dvec, x, z, base
+    "nxfx_krylov_jacobi": [_i, _p, _p, _p, _p],  # n, v, diag, z, stream
+    "nxfx_krylov_inv_sqrt": [_i, _p, _p, _p],  # n, d, s, stream
+    "nxfx_gather_apply": [
+        _i, _i, _p, _p, _p, _p,  # B, K, edge table, neighbour table, w, diag
+        _p, _p, _p, _p, _p, _p,  # x, b (or null), out, partial (or null), norm (or null), stream
+    ],
+    "nxfx_gather_cheb": [
+        _i, _i, _p, _p, _p, _p,  # B, K, edge table, neighbour table, w, diag
+        _p, _p, _p, _p, _p,  # s, rs, dvec, x_in, x_out
+        _d, _d, _p, _p, _p,  # c1, c2, z (or null), base (or null), stream
+    ],
+    "nxfx_mg2d_level0": [_i, _p, _i, _i, _i, _i, _p, _p, _p],  # m, cw, E W S N classes, diag0, lev
+    "nxfx_mg2d_coarsen": [_i, _i, _p, _i, _i, _p, _p],  # nyf, nxf, fine, nyc, nxc, coarse, stream
+    "nxfx_mg2d_stencil": [_i, _i, _p, _p, _p, _p, _p],  # ny, nx, lev, x, b (or null), out, stream
+    "nxfx_mg2d_cheb": [
+        _i, _i, _p, _p, _p, _p, _p,  # ny, nx, lev, rs, dvec, x_in, x_out
+        _d, _d, _p, _p, _p,  # c1, c2, z (or null), base (or null), stream
+    ],
+    "nxfx_mg2d_restrict": [_i, _i, _p, _i, _i, _p, _p],  # nyf, nxf, res, nyc, nxc, rc, stream
+    "nxfx_mg2d_prolong": [_i, _i, _p, _i, _p, _d, _p],  # nyf, nxf, x, nxc, ec, overcorrect, stream
+    "nxfx_mg_coarse_factor": [_i, _i, _p, _p, _p, _p, _p],  # m, C, host offsets, cw, diag, A, stream
+    "nxfx_mg_coarse_solve": [_i, _p, _p, _p, _p, _p, _p],  # m, A, r, v, y, x, stream
+    "nxfx_mg1d_level0": [_i, _i, _p, _p, _p, _p, _p],  # m, C, cw, diag, extra, dis, stream
+    "nxfx_mg1d_coarsen": [
+        _i, _i, _p, _p, _i,  # m, mc, cw_f, extra_f, Cc
+        _p, _p, _p,  # map_ptr, map_ci, map_p
+        _p, _p, _p, _p, _p,  # cw_c, extra_c, diag_c, dis_c, stream
+    ],
+    "nxfx_mg1d_restrict": [_i, _i, _p, _p, _p],  # m, mc, res, rc, stream
+    "nxfx_mg1d_prolong": [_i, _p, _p, _d, _p],  # m, x, ec, overcorrect, stream
 }
 
 
@@ -229,6 +270,15 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+class Counter:
+    """The launch count of a kernel whose wrappers are several functions:
+    named like the kernel and counted as a wrapper's ``launches`` is."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
 def check(code: int, name: str) -> None:
     """Raise when a launcher reported a CUDA error."""
     if code != 0:
@@ -239,15 +289,17 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float64) -> None:
-    """Validate what a kernel takes: CUDA, one device, ``dtype``, contiguous."""
+def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float64,
+                 contiguous: bool = True) -> None:
+    """Validate what a kernel takes: CUDA, one device, ``dtype``, and
+    contiguous unless the kernel reads them at a stride."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: tensors must share one CUDA device")
         if t.dtype != dtype:
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
 
 

@@ -1,0 +1,277 @@
+"""K19c: the 2-D aggregation multigrid V-cycle of lattice λ systems, and the
+coarsest dense solve it shares with K19d (``csrc/mg2d.cu``).
+
+Replaces ``networks_fenicsx_tpu/solver.py:_mg2d_preconditioner``
+(``:1315-1438``).  A level is an ``(ny, nx)`` grid held as one ``(7, ny·nx)``
+float64 tensor of :data:`FIELDS`: the direction weights E (+1), W (−1), S
+(+nx), N (−nx), the boundary excess ``extra``, the diagonal (1.0 in padded
+cells) and its Jacobi scaling ``diag^-1/2``.  The wrappers:
+
+* :func:`level0` and :func:`coarsen` — the hierarchy, built once per solve
+  from the class weights and the diagonal;
+* :func:`stencil` — the 5-point weighted stencil ``L x`` or ``b − L x``;
+* :func:`cheb` — one fused step of the level's Chebyshev-Jacobi smoother;
+* :func:`restrict` and :func:`prolong` — 2×2 block sums with even padding,
+  and ``x += overcorrect·e`` repeated over 2×2 blocks, cropped;
+* :func:`coarse_factor` and :func:`coarse_solve` — the coarsest level's
+  banded matrix from its classes, its Cholesky factor (the port's tiled
+  factor, ``tiled_cholesky.cuh``) and the two triangular solves per V-cycle.
+
+Every wrapper launches its kernel for CUDA tensors (counted in
+:data:`LAUNCHES`) and runs its plain version — the reference's reshapes,
+pads and shifts in eager PyTorch, and ``torch.linalg.cholesky`` /
+``cholesky_solve`` for the coarsest solve, as the reference calls
+``jnp.linalg.cholesky`` / ``cho_solve`` — for CPU tensors.  The block sums
+add in one stated order, ``((x00 + x01) + x10) + x11``, in both.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import build
+
+__all__ = [
+    "level0", "level0_plain", "coarsen", "coarsen_plain", "stencil", "stencil_plain", "cheb",
+    "cheb_plain", "restrict", "restrict_plain", "prolong", "prolong_plain", "coarse_factor",
+    "coarse_factor_plain", "coarse_solve", "coarse_solve_plain", "FIELDS", "LAUNCHES",
+]
+
+FIELDS = ("E", "W", "S", "N", "extra", "diag", "dis")
+FE, FW, FS, FN, FX, FD, FI = range(len(FIELDS))
+MAX_CLASSES = 16
+MAX_COARSE = 8192
+LAUNCHES = build.Counter("mg2d")
+
+Shape = tuple[int, int]
+
+
+# ------------------------------------------------------------------ plain
+
+
+def _level(e, w, s, n, extra) -> torch.Tensor:
+    d = (((extra + e) + w) + s) + n
+    d = torch.where(d > 0, d, 1.0)
+    return torch.stack([e, w, s, n, extra, d, 1.0 / torch.sqrt(d)])
+
+
+def level0_plain(cw, dirs, diag0) -> torch.Tensor:
+    zero = torch.zeros_like(diag0)
+    e, w, s, n = (cw[c] if c >= 0 else zero for c in dirs)
+    return _level(e, w, s, n, diag0 - (((e + w) + s) + n))
+
+
+def _blocks(a: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``(ny, nx)`` → ``(ny/2, 2, nx/2, 2)`` after even padding."""
+    ny, nx = shape
+    a = torch.nn.functional.pad(a.reshape(ny, nx), (0, nx % 2, 0, ny % 2))
+    return a.reshape(a.shape[0] // 2, 2, a.shape[1] // 2, 2)
+
+
+def _block_sum(b: torch.Tensor) -> torch.Tensor:
+    return ((b[:, 0, :, 0] + b[:, 0, :, 1]) + b[:, 1, :, 0]) + b[:, 1, :, 1]
+
+
+def coarsen_plain(lev, shape_f: Shape, shape_c: Shape) -> torch.Tensor:
+    bE, bW, bS, bN, bX = (_blocks(lev[f], shape_f) for f in (FE, FW, FS, FN, FX))
+    return _level(
+        (bE[:, 0, :, 1] + bE[:, 1, :, 1]).reshape(-1),
+        (bW[:, 0, :, 0] + bW[:, 1, :, 0]).reshape(-1),
+        (bS[:, 1, :, 0] + bS[:, 1, :, 1]).reshape(-1),
+        (bN[:, 0, :, 0] + bN[:, 0, :, 1]).reshape(-1),
+        _block_sum(bX).reshape(-1),
+    )
+
+
+def _shift2(v: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """``out[i, j] = v[i + dy, j + dx]``, 0 outside."""
+    ny, nx = v.shape
+    out = torch.zeros_like(v)
+    out[max(-dy, 0): ny - max(dy, 0), max(-dx, 0): nx - max(dx, 0)] = \
+        v[max(dy, 0): ny + min(dy, 0), max(dx, 0): nx + min(dx, 0)]
+    return out
+
+
+def _stencil(lev, shape: Shape, y) -> torch.Tensor:
+    v = y.reshape(shape)
+    e, w, s, n, _, d, _ = (f.reshape(shape) for f in lev)
+    out = d * v - e * _shift2(v, 0, 1) - w * _shift2(v, 0, -1) - s * _shift2(v, 1, 0) \
+        - n * _shift2(v, -1, 0)
+    return out.reshape(-1)
+
+
+def stencil_plain(lev, shape: Shape, x, b=None) -> torch.Tensor:
+    out = _stencil(lev, shape, x)
+    return out if b is None else b - out
+
+
+def cheb_plain(lev, shape: Shape, rs, dvec, x_in, x_out, c1: float, c2: float, z=None,
+               base=None) -> None:
+    s = lev[FI]
+    mv = s * _stencil(lev, shape, s * x_in)
+    dv = c1 * dvec + c2 * (rs - mv)
+    dvec.copy_(dv)
+    xn = x_in + dv
+    x_out.copy_(xn)
+    if z is not None:
+        z.copy_(s * xn if base is None else base + s * xn)
+
+
+def restrict_plain(res, shape_f: Shape, shape_c: Shape) -> torch.Tensor:
+    del shape_c
+    return _block_sum(_blocks(res, shape_f)).reshape(-1)
+
+
+def prolong_plain(x, shape_f: Shape, shape_c: Shape, ec, overcorrect: float) -> None:
+    ny, nx = shape_f
+    up = ec.reshape(shape_c).repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)[:ny, :nx]
+    x.copy_(x + overcorrect * up.reshape(-1))
+
+
+def _banded(offsets, cw, diag) -> torch.Tensor:
+    Lc = torch.diag(diag)
+    m = diag.shape[0]
+    for c, d in enumerate(np.asarray(offsets).tolist()):
+        d = int(d)
+        Lc = Lc - (torch.diag(cw[c][: m - d], d) if d > 0 else torch.diag(cw[c][-d:], d))
+    return Lc
+
+
+def coarse_factor_plain(offsets, cw, diag) -> torch.Tensor:
+    """The Cholesky factor of the coarsest banded matrix (lower)."""
+    return torch.linalg.cholesky(_banded(offsets, cw, diag))
+
+
+def coarse_solve_plain(factor, r) -> torch.Tensor:
+    return torch.cholesky_solve(r[:, None], factor)[:, 0]
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def _launch(name: str, device, *args) -> None:
+    with torch.cuda.device(device):
+        code = getattr(build.library(), name)(*args, build.stream_handle(device))
+    build.check(code, "mg2d")
+    LAUNCHES.launches += 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check(name, m: int, *vecs, lev=None):
+    build.require_cuda(name, *vecs, *(() if lev is None else (lev,)))
+    if any(tuple(v.shape) != (m,) for v in vecs):
+        raise ValueError(f"{name}: vectors must be ({m},)")
+    if lev is not None and tuple(lev.shape) != (len(FIELDS), m):
+        raise ValueError(f"{name}: a level must be ({len(FIELDS)}, {m})")
+
+
+def level0(cw, dirs, diag0) -> torch.Tensor:
+    """Level 0 from the ``(C, B)`` class weights, the class index of each
+    direction E, W, S, N (−1 when absent) and the diagonal."""
+    if diag0.device.type == "cpu":
+        return level0_plain(cw, dirs, diag0)
+    m = diag0.shape[0]
+    _check("mg2d", m, diag0)
+    build.require_cuda("mg2d", cw)
+    if cw.dim() != 2 or cw.shape[1] != m or max(dirs) >= cw.shape[0]:
+        raise ValueError("mg2d: cw must be (C, B) and hold the named classes")
+    lev = torch.empty((len(FIELDS), m), dtype=torch.float64, device=diag0.device)
+    _launch("nxfx_mg2d_level0", diag0.device, m, cw.data_ptr(), *(int(c) for c in dirs),
+            diag0.data_ptr(), lev.data_ptr())
+    return lev
+
+
+def coarsen(lev, shape_f: Shape, shape_c: Shape) -> torch.Tensor:
+    """The next level: 2×2 aggregation of ``lev``."""
+    if lev.device.type == "cpu":
+        return coarsen_plain(lev, shape_f, shape_c)
+    _check("mg2d", shape_f[0] * shape_f[1], lev=lev)
+    if shape_c != ((shape_f[0] + 1) // 2, (shape_f[1] + 1) // 2):
+        raise ValueError("mg2d: the coarse shape halves the fine one, rounded up")
+    out = torch.empty((len(FIELDS), shape_c[0] * shape_c[1]), dtype=torch.float64, device=lev.device)
+    _launch("nxfx_mg2d_coarsen", lev.device, *shape_f, lev.data_ptr(), *shape_c, out.data_ptr())
+    return out
+
+
+def stencil(lev, shape: Shape, x, b=None) -> torch.Tensor:
+    """``L x`` of the level, or ``b − L x`` when ``b`` is given."""
+    if x.device.type == "cpu":
+        return stencil_plain(lev, shape, x, b)
+    m = shape[0] * shape[1]
+    _check("mg2d", m, x, *(() if b is None else (b,)), lev=lev)
+    out = torch.empty_like(x)
+    _launch("nxfx_mg2d_stencil", x.device, *shape, lev.data_ptr(), x.data_ptr(), _ptr(b),
+            out.data_ptr())
+    return out
+
+
+def cheb(lev, shape: Shape, rs, dvec, x_in, x_out, c1: float, c2: float, z=None, base=None) -> None:
+    """One fused smoother step: ``dvec`` in place, ``x_out`` (another buffer
+    than ``x_in``) and, on the last step, ``z``."""
+    if x_in.device.type == "cpu":
+        return cheb_plain(lev, shape, rs, dvec, x_in, x_out, c1, c2, z, base)
+    m = shape[0] * shape[1]
+    _check("mg2d", m, rs, dvec, x_in, x_out, *(t for t in (z, base) if t is not None), lev=lev)
+    if x_in.data_ptr() == x_out.data_ptr():
+        raise ValueError("mg2d: x_out must be another buffer than x_in")
+    _launch("nxfx_mg2d_cheb", x_in.device, *shape, lev.data_ptr(), rs.data_ptr(), dvec.data_ptr(),
+            x_in.data_ptr(), x_out.data_ptr(), float(c1), float(c2), _ptr(z), _ptr(base))
+
+
+def restrict(res, shape_f: Shape, shape_c: Shape) -> torch.Tensor:
+    """2×2 block sums of ``res`` (even padding)."""
+    if res.device.type == "cpu":
+        return restrict_plain(res, shape_f, shape_c)
+    _check("mg2d", shape_f[0] * shape_f[1], res)
+    rc = torch.empty(shape_c[0] * shape_c[1], dtype=torch.float64, device=res.device)
+    _launch("nxfx_mg2d_restrict", res.device, *shape_f, res.data_ptr(), *shape_c, rc.data_ptr())
+    return rc
+
+
+def prolong(x, shape_f: Shape, shape_c: Shape, ec, overcorrect: float) -> None:
+    """``x += overcorrect·e`` repeated over 2×2 blocks and cropped, in place."""
+    if x.device.type == "cpu":
+        return prolong_plain(x, shape_f, shape_c, ec, overcorrect)
+    _check("mg2d", shape_f[0] * shape_f[1], x)
+    _check("mg2d", shape_c[0] * shape_c[1], ec)
+    _launch("nxfx_mg2d_prolong", x.device, *shape_f, x.data_ptr(), shape_c[1], ec.data_ptr(),
+            float(overcorrect))
+
+
+def coarse_factor(offsets, cw, diag) -> torch.Tensor:
+    """The coarsest banded matrix ``diag(diag) − Σ_c band(cw[c], d_c)``
+    factored: an ``(m, m)`` buffer whose lower triangle is the Cholesky
+    factor (the strict upper triangle of its 64×64 diagonal tiles holds their
+    inverses, which :func:`coarse_solve` reads)."""
+    if diag.device.type == "cpu":
+        return coarse_factor_plain(offsets, cw, diag)
+    m = diag.shape[0]
+    offsets = np.ascontiguousarray(offsets, dtype=np.int32)
+    C = offsets.shape[0]
+    _check("mg2d", m, diag)
+    build.require_cuda("mg2d", cw)
+    if C > MAX_CLASSES or tuple(cw.shape) != (C, m) or m > MAX_COARSE:
+        raise ValueError(f"mg2d: at most {MAX_CLASSES} classes, cw (C, m), m <= {MAX_COARSE}")
+    A = torch.empty((m, m), dtype=torch.float64, device=diag.device)
+    _launch("nxfx_mg_coarse_factor", diag.device, m, C, offsets.ctypes.data, cw.data_ptr(),
+            diag.data_ptr(), A.data_ptr())
+    return A
+
+
+def coarse_solve(factor, r) -> torch.Tensor:
+    """``A⁻¹ r`` on :func:`coarse_factor`'s factor."""
+    if r.device.type == "cpu":
+        return coarse_solve_plain(factor, r)
+    m = r.shape[0]
+    _check("mg2d", m, r)
+    build.require_cuda("mg2d", factor)
+    if tuple(factor.shape) != (m, m):
+        raise ValueError("mg2d: the factor must be (m, m)")
+    v, y, x = (torch.empty_like(r) for _ in range(3))
+    _launch("nxfx_mg_coarse_solve", r.device, m, factor.data_ptr(), r.data_ptr(), v.data_ptr(),
+            y.data_ptr(), x.data_ptr())
+    return x

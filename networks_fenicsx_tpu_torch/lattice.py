@@ -1,7 +1,8 @@
 """Lattice planners of the bifurcation graph (host NumPy + SciPy).
 
 Counterpart of ``networks_fenicsx_tpu/solver.py``: ``_directed_half_edges``
-(``:740-749``), ``_plan_shift_matvec`` (``:765-796``),
+(``:740-749``), ``_build_matvec_plan`` (``:752-762``), ``_plan_shift_matvec``
+(``:765-796``),
 ``_shift_class_weights`` (``:799-803``), ``_DctPlan`` and
 ``_plan_dct_lattice`` (``:829-924``), the orthonormal DCT-II matrix
 providers (``:985-999``, ``:1043-1059``), ``_GridPlan`` and
@@ -11,7 +12,9 @@ providers (``:985-999``, ``:1043-1059``), ``_GridPlan`` and
 The plans feed the exact separable-DCT λ solve of uniform scalar-R lattices
 (K16, :mod:`.kernels.dct_lattice`) on its two routes: the gather-free grid
 route (K17, :mod:`.kernels.grid_core`) and the general route in public edge
-order (K18, :mod:`.kernels.shift_matvec`).
+order (K18, :mod:`.kernels.shift_matvec`).  The shift plan, or else the
+gather-fold tables of the matvec plan (K19b, :mod:`.kernels.gather_matvec`),
+also carry the CG route's λ matvec.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import torch
 from .levels import segsum_matrix
 
 __all__ = [
-    "lattice_solve_applicable", "lattice_dct_plan", "shift_class_matrix", "grid_edge_ends",
+    "lattice_solve_applicable", "lattice_dct_plan", "shift_class_matrix", "gather_matvec_tables",
+    "grid_edge_ends",
     "GridDevicePlan", "device_grid_plan", "DeviceLatticePlan", "device_lattice_plan",
 ]
 
@@ -45,6 +49,35 @@ def _directed_half_edges(asm):
     other = np.concatenate([s[e], t[e]])
     edge = np.concatenate([e, e])
     return own, other, edge
+
+
+def _build_matvec_plan(asm):
+    """Host incidence plan of the gather-fold matvec: the directed
+    half-edges sorted by their owning node, ``(edge_sel, other_sel,
+    own_sorted)`` int32 (reference ``:752-762``)."""
+    own, other, edge = _directed_half_edges(asm)
+    order = np.argsort(own, kind="stable")
+    return (
+        edge[order].astype(np.int32),
+        other[order].astype(np.int32),
+        own[order].astype(np.int32),
+    )
+
+
+def gather_matvec_tables(plan, B: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(edge_idx, other_idx)``, each ``(K, B)``: column ``k`` of row ``i``
+    names the edge and the neighbour of row ``i``'s ``k``-th half-edge in
+    the fold order of the reference's ``_segsum_sorted`` (its K6 gather
+    matrix :func:`.levels.segsum_matrix` with the plan composed in), ``-1``
+    past the row's last half-edge."""
+    edge_sel, other_sel, own_sorted = plan
+    H = own_sorted.size
+    idx = segsum_matrix(own_sorted, B, H)  # (B, K), pad slot H
+    valid = idx < H
+    at = np.minimum(idx, max(H - 1, 0))  # empty when H = 0
+    edge_idx = np.where(valid, edge_sel[at], -1)
+    other_idx = np.where(valid, other_sel[at], -1)
+    return edge_idx.T.astype(np.int32), other_idx.T.astype(np.int32)
 
 
 def _plan_shift_matvec(asm, max_classes: int = 16):
@@ -335,11 +368,14 @@ def device_grid_plan(plan: _GridPlan, device: torch.device | str) -> GridDeviceP
 
 @dataclasses.dataclass(frozen=True)
 class DeviceLatticePlan:
-    """The general DCT route's tables on one device (public edge order),
-    uploaded once per executor: what K8a and K9's ``lambda_system`` read
-    (``start_bif``, ``end_bif``, the λ-system sum matrices and bins), and
-    K6's class-weight gather matrix ``class_idx`` ``(C·B, K)`` with the host
-    class ``offsets`` (int32, ascending, as the reference orders them)."""
+    """The tables of the general DCT route and of the CG route on one device
+    (public edge order), uploaded once per executor: what K8a and K9's
+    ``lambda_system`` read (``start_bif``, ``end_bif``, the λ-system sum
+    matrices and bins); with a shift plan, K6's class-weight gather matrix
+    ``class_idx`` ``(C·B, K)`` and the host class ``offsets`` (int32,
+    ascending, as the reference orders them); without one, the gather-fold
+    matvec's ``mv_edge`` and ``mv_other`` ``(K, B)``
+    (:func:`gather_matvec_tables`)."""
 
     start_bif: torch.Tensor
     end_bif: torch.Tensor
@@ -347,9 +383,12 @@ class DeviceLatticePlan:
     t_bins: torch.Tensor
     s_idx: torch.Tensor
     s_bins: torch.Tensor
-    class_idx: torch.Tensor
-    offsets: np.ndarray
+    class_idx: torch.Tensor | None
+    offsets: np.ndarray | None
     num_bifurcations: int
+    classes: list | None = None  # the host shift plan
+    mv_edge: torch.Tensor | None = None
+    mv_other: torch.Tensor | None = None
 
     @property
     def num_edges(self) -> int:
@@ -357,8 +396,9 @@ class DeviceLatticePlan:
 
 
 def device_lattice_plan(asm, lam_plan, device: torch.device | str) -> DeviceLatticePlan:
-    """Upload the general DCT route's tables; ``lam_plan`` is the
-    assembler's :class:`.levels._LambdaPlan`."""
+    """Upload the tables; ``lam_plan`` is the assembler's
+    :class:`.levels._LambdaPlan`.  The class tables when the graph has a
+    shift plan, the gather-fold tables otherwise."""
 
     def i32(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
@@ -367,6 +407,10 @@ def device_lattice_plan(asm, lam_plan, device: torch.device | str) -> DeviceLatt
     B, E = mesh.num_multipliers, mesh.num_edges
     classes = _plan_shift_matvec(asm)
     lp = lam_plan
+    mv = {}
+    if classes is None:
+        edge_idx, other_idx = gather_matvec_tables(_build_matvec_plan(asm), B)
+        mv = {"mv_edge": i32(edge_idx), "mv_other": i32(other_idx)}
     return DeviceLatticePlan(
         start_bif=i32(asm._edge_start_bif),
         end_bif=i32(asm._edge_end_bif),
@@ -374,9 +418,11 @@ def device_lattice_plan(asm, lam_plan, device: torch.device | str) -> DeviceLatt
         t_bins=i32(lp.t_bins),
         s_idx=i32(segsum_matrix(lp.s_seg, lp.s_bins.size, E, sel=lp.s_sel)),
         s_bins=i32(lp.s_bins),
-        class_idx=i32(shift_class_matrix(classes, B, E)),
-        offsets=np.asarray([d for d, _, _ in classes], dtype=np.int32),
+        class_idx=None if classes is None else i32(shift_class_matrix(classes, B, E)),
+        offsets=None if classes is None else np.asarray([d for d, _, _ in classes], np.int32),
         num_bifurcations=B,
+        classes=classes,
+        **mv,
     )
 
 

@@ -7,7 +7,7 @@ peel-then-core and lattice routes, ``_BlockedExecutor`` and its
 ``prepare_args``, the general executors (the reference's generic ``core`` +
 ``_finish`` on a level plan, on a tree plan with a cycle core, or on the
 DCT lattice plan), ``_schur_solve`` with the same convergence gate, and
-``_flatten_blocks_host``.
+``_flatten_blocks_host``, and the CG route (``_CgExecutor``).
 
 With discontinuous (degree-0) pressure the system decouples into per-edge
 chains tied together only by the bifurcation multipliers λ; eliminating
@@ -33,14 +33,21 @@ level; flux and pressure then follow from λ edge by edge.  The routes:
   route (K1, K17 :mod:`.kernels.grid_core`, K16, K5) when the lattice
   layout applies and f is not quad-mode, otherwise on the general route in
   public order (K8a, K9's bifurcation system, K6 class weights, K16 with
-  K18 :mod:`.kernels.shift_matvec`, K8b).
+  K18 :mod:`.kernels.shift_matvec`, K8b);
+* CG — ``schur_method="cg"`` on any network, or under ``auto`` a cycle
+  core above 4,096 nodes that no sparse planner takes and that is not a
+  scalar-R lattice: K8a, K9's bifurcation system, preconditioned conjugate
+  gradients (K19a :mod:`.kernels.krylov`) on the K18 shift-class matvec or
+  the K19b gather-fold matvec (:mod:`.kernels.gather_matvec`), with the 2-D
+  or 1-D aggregation multigrid (K19c :mod:`.kernels.mg2d`, K19d
+  :mod:`.kernels.mg1d`), Chebyshev-Jacobi or Jacobi as the reference picks
+  them (:mod:`.multigrid`), then K8b.
 
 The device is explicit: ``Solver(asm, device="cuda")`` (the default) runs the
 CUDA kernels and raises when CUDA is absent; ``device="cpu"`` runs their
-plain PyTorch versions.  Everything outside these routes — the CG route
-(``schur_method="cg"``, or a core above 4,096 nodes that no sparse planner
-takes: A7b), other methods (A8) — raises ``NotImplementedError`` naming its
-ROADMAP item.
+plain PyTorch versions.  Everything outside these routes — the other
+methods and ``schur_method`` values (A8, A10) — raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -55,8 +62,8 @@ from .blocked import _permute_coefficient, _plan_blocked, device_plan
 from .edge_data import edge_layout
 from .function import NetworkFunction
 from .kernels import (
-    backsub, condense, dct_lattice, edge_data, expand, grid_core, level_eliminate, peel, segsum,
-    shift_matvec, tree_sweep,
+    backsub, condense, dct_lattice, edge_data, expand, grid_core, krylov, level_eliminate, peel,
+    segsum, shift_matvec, tree_sweep,
 )
 from .lattice import (
     _DctPlan,
@@ -73,6 +80,16 @@ from .levels import (
     attach_core_plan,
     device_level_plan,
 )
+from .multigrid import (
+    GatherOperator,
+    Mg1dPreconditioner,
+    Mg2dPreconditioner,
+    ShiftOperator,
+    choose_preconditioner,
+    device_mg1d_plan,
+    mg2d_plan,
+)
+from .ops.krylov import cg, chebyshev_preconditioner
 from .tree import device_tree_plan, tree_schur_solve
 from .utils.config import SolverOptions
 from .utils.timing import timed
@@ -83,7 +100,6 @@ __all__ = ["Solver", "SolveInfo", "build_schur_executor", "resolve_device"]
 _SCHUR_METHOD_ITEM = {
     "dense": "A8",
     "dense_f64": "A8",
-    "cg": "A7b",
     "tree_dist": "A10",
 }
 
@@ -553,11 +569,98 @@ class _DctExecutor(_Executor):
         )
         dr, w_edges, rhs_norm = lam_sys(dlp, ed)
         cw = _shift_class_weights(w_edges, dlp.class_idx, dlp.offsets.size, sums)
-        rhs = dr[:, 1].contiguous()
-        lam = solve(self.operator, w_edges, rhs, lambda lam: matvec(dlp.offsets, cw, dr, lam))
-        _, res_norm = matvec(dlp.offsets, cw, dr, lam, norm=True)
+        diag, rhs = dr[:, 0], dr[:, 1]
+        lam = solve(self.operator, w_edges, rhs.contiguous(),
+                    lambda lam: matvec(dlp.offsets, cw, diag, lam, rhs))
+        _, res_norm = matvec(dlp.offsets, cw, diag, lam, rhs, norm=True)
         q_T, p_T, finite = expand_lam(ed, lam, N, k)
         iters = torch.zeros((), dtype=torch.int32, device=self._device)
+        return q_T, p_T, lam, iters, res_norm, rhs_norm, finite
+
+
+class _CgExecutor(_Executor):
+    """The iterative λ solve on one device (the reference's generic ``core``
+    and the CG branch of ``_finish``, ``:4122-4133``, ``:4167-4243``).
+
+    Holds the device tables (:func:`.lattice.device_lattice_plan`: the shift
+    classes, or else the gather-fold tables), the preconditioner's kind
+    (:func:`.multigrid.choose_preconditioner`, which raises the reference's
+    ``ValueError`` for ``cg_precond="mg"`` on a graph that does not qualify)
+    and its host plan, all made once.  Edges and bifurcations stay in public
+    order.  ``__call__`` runs K8a, the bifurcation system (K9's
+    ``lambda_system``), the class weights (K6) on a shift plan, the
+    preconditioner's hierarchy (K19c or K19d, once per solve), CG (K19a
+    around the K18 or K19b matvec and the preconditioner), the residual
+    ``‖Lλ − rhs‖`` (K18 or K19b) and K8b, and returns the 7-tuple blocks
+    contract with the iteration count and that residual (no conditioning
+    hint: CG's own gate); ``plain`` runs their plain versions."""
+
+    def __init__(self, asm, opts: SolverOptions, R_mode, f_mode, f_is_zero, device):
+        mesh = asm.network
+        self._N = mesh.N
+        self._k = asm.flux_degree
+        self._R_mode = R_mode
+        self._f_mode = f_mode
+        self._f_is_zero = bool(f_is_zero)
+        self._device = device
+        self._opts = opts
+        self.device_plan = dlp = device_lattice_plan(asm, _build_lambda_plan(asm), device)
+        self.precond_kind = kind = choose_preconditioner(opts, dlp.classes, mesh.num_multipliers)
+        if kind[0] == "2d":
+            self.precond_plan = mg2d_plan(dlp.offsets, mesh.num_multipliers, kind[1])
+        elif kind[0] == "1d":
+            self.precond_plan = device_mg1d_plan(kind[1], device)
+        else:
+            self.precond_plan = None
+        self._h_e = torch.as_tensor(
+            np.asarray(mesh.edge_length, dtype=np.float64) / mesh.N, device=device
+        )
+        self._quad_w, self._quad_phi = self.upload(asm._quad_weights, asm._quad_phi)
+
+    def _operator(self, dr, w_edges, plain: bool):
+        """``(operator, class weights or None)`` of this solve's λ system."""
+        dlp = self.device_plan
+        diag = dr[:, 0].contiguous()
+        if dlp.classes is None:
+            return GatherOperator(dlp.mv_edge, dlp.mv_other, w_edges, diag, plain), None
+        sums = segsum.segsum_plain if plain else segsum.segsum
+        cw = _shift_class_weights(w_edges, dlp.class_idx, dlp.offsets.size, sums)
+        return ShiftOperator(dlp.offsets, cw, diag, plain), cw
+
+    def _preconditioner(self, op, cw, plain: bool):
+        kind, opts = self.precond_kind[0], self._opts
+        if kind == "2d":
+            return Mg2dPreconditioner(self.precond_plan, cw, op.diag, opts.mg_overcorrect, plain)
+        if kind == "1d":
+            return Mg1dPreconditioner(self.precond_plan, op.offsets, cw, op.diag,
+                                      opts.mg_overcorrect, plain)
+        if kind == "chebyshev":
+            return chebyshev_preconditioner(op.step, op.diag, degree=self.precond_kind[1], plain=plain)
+        jac = krylov.jacobi_plain if plain else krylov.jacobi
+        return lambda v: jac(v, op.diag)
+
+    def _run(self, R_data, f_data, start_pbc, end_pbc, plain: bool):
+        R, f, sp, ep = self.upload(R_data, f_data, start_pbc, end_pbc)
+        if plain:
+            make, lam_sys, expand_lam = (
+                edge_data.edge_data_plain, peel.lambda_system_plain, backsub.backsub_plain,
+            )
+        else:
+            make, lam_sys, expand_lam = edge_data.edge_data, peel.lambda_system, backsub.backsub
+        dlp, N, k, opts = self.device_plan, self._N, self._k, self._opts
+        ed = make(
+            dlp, N, k, self._h_e, self._quad_w, self._quad_phi, R, f,
+            self._R_mode, self._f_mode, self._f_is_zero, sp, ep,
+        )
+        dr, w_edges, rhs_norm = lam_sys(dlp, ed)
+        op, cw = self._operator(dr, w_edges, plain)
+        rhs = dr[:, 1].contiguous()
+        result = cg(op.apply, rhs, precond=self._preconditioner(op, cw, plain), rtol=opts.rtol,
+                    atol=opts.atol, maxiter=opts.maxiter, plain=plain)
+        lam = result.x
+        _, res_norm = op.residual(rhs, lam, norm=True)
+        q_T, p_T, finite = expand_lam(ed, lam, N, k)
+        iters = torch.tensor(result.iters, dtype=torch.int32)
         return q_T, p_T, lam, iters, res_norm, rhs_norm, finite
 
 
@@ -572,13 +675,14 @@ def _dct_executor(asm, dct: _DctPlan, R_mode, f_mode, f_zero, device):
 
 
 def _resolve_core(asm, opts: SolverOptions, tree_plan, override: bool, R_mode: str):
-    """The tree plan the cyclic route runs, with its core plan, or raise.
+    """The tree plan the cyclic route runs, with its core plan; None for
+    the CG route; or raise.
 
     The reference's routing (``:3928-3966``): a core of at most 512 nodes
     is dense (or runs the core plan a caller attached).  Under ``auto`` a
     larger core gets a sparse core plan attached unless the graph is a
     scalar-R lattice; it runs with a core plan or, without one, densely up
-    to 4,096 nodes; above, the reference falls to CG (ROADMAP A7b; the
+    to 4,096 nodes; above, the reference falls to CG (None here; the
     lattices among these the caller has sent to the DCT solve already).  An
     explicit ``"tree"`` attaches a plan the same way and raises the
     reference's ``ValueError`` without one above 4,096 nodes."""
@@ -591,10 +695,7 @@ def _resolve_core(asm, opts: SolverOptions, tree_plan, override: bool, R_mode: s
                          else _cached_tree_plan(asm, attach=True))
         if tree_plan.core_plan is not None or tree_plan.core_size <= 4096:
             return tree_plan
-        raise NotImplementedError(
-            f"ROADMAP A7b: a cycle core of {tree_plan.core_size} nodes without a sparse core "
-            "plan takes the reference's CG route, which is not ported yet"
-        )
+        return None
     tree_plan = attach_core_plan(tree_plan) if override else _cached_tree_plan(asm, attach=True)
     if tree_plan.core_plan is None and tree_plan.core_size > 4096:
         raise ValueError(
@@ -610,26 +711,28 @@ def build_schur_executor(
     opts: SolverOptions,
     device: torch.device | str = "cuda",
     _tree_plan=None,
-) -> _BlockedExecutor | _LevelExecutor | _TreeExecutor | _DctExecutor:
+) -> _BlockedExecutor | _LevelExecutor | _TreeExecutor | _DctExecutor | _CgExecutor:
     """Build the executor, or raise ``NotImplementedError`` (naming the
     ROADMAP item) outside the ported routes.
 
     Routes as the reference's
     ``build_schur_executor(outputs="blocks", internal_layout=True)``:
     ``schur_method="dct"`` takes the DCT lattice solve or raises the
-    reference's ``ValueError`` without a DCT plan; otherwise the tree plan;
+    reference's ``ValueError`` without a DCT plan; ``"cg"`` the CG executor
+    (never the DCT solve); otherwise the tree plan;
     on a forest the level plan, then the blocked executor when
     ``_plan_blocked`` succeeds and neither coefficient is quad-mode, the
     level executor otherwise; with a cycle core, under ``auto`` a scalar-R
     lattice whose core exceeds 4,096 nodes takes the DCT solve, anything
-    else the tree executor (see :func:`_resolve_core`).  The DCT solve runs
+    else the tree executor or, a core above 4,096 nodes without a sparse
+    plan, the CG executor (see :func:`_resolve_core`).  The DCT solve runs
     on the grid executor or the general DCT executor (:func:`_dct_executor`).
     ``_tree_plan`` overrides the cached tree plan (tests use it to force
     the multifrontal engine on a small core).  ``level_scan="on"`` runs the
     same kernels (the two reference variants are pinned equal)."""
     if opts.dtype != "float64" or opts.output_dtype not in ("same", "float64"):
         raise NotImplementedError("ROADMAP A4: float32 solves and outputs are not ported yet")
-    if opts.schur_method not in ("auto", "tree", "dct"):
+    if opts.schur_method not in ("auto", "tree", "dct", "cg"):
         item = _SCHUR_METHOD_ITEM[opts.schur_method]
         raise NotImplementedError(
             f"ROADMAP {item}: schur_method={opts.schur_method!r} is not ported yet"
@@ -651,6 +754,8 @@ def build_schur_executor(
                 "multiplier graph (make_grid family) with scalar resistance"
             )
         return _dct_executor(asm, dct, R_mode, f_mode, f_zero, device)
+    if opts.schur_method == "cg":  # never the DCT solve (reference :3985-3996)
+        return _CgExecutor(asm, opts, R_mode, f_mode, f_zero, device)
     tree_plan = _tree_plan if _tree_plan is not None else _cached_tree_plan(asm)
     if tree_plan.core_size > 0:
         if opts.schur_method == "auto" and tree_plan.core_size > 4096:
@@ -658,6 +763,8 @@ def build_schur_executor(
             if dct is not None:
                 return _dct_executor(asm, dct, R_mode, f_mode, f_zero, device)
         tree_plan = _resolve_core(asm, opts, tree_plan, _tree_plan is not None, R_mode)
+        if tree_plan is None:
+            return _CgExecutor(asm, opts, R_mode, f_mode, f_zero, device)
         return _TreeExecutor(asm, tree_plan, R_mode, f_mode, f_zero, device)
     if "quad" not in (R_mode, f_mode):
         plan = _plan_blocked(asm)
@@ -670,7 +777,7 @@ def build_schur_executor(
 def _schur_solve(
     asm: _assembly.HydraulicNetworkAssembler,
     opts: SolverOptions,
-    executor: _BlockedExecutor | _LevelExecutor | _TreeExecutor | _DctExecutor,
+    executor: _BlockedExecutor | _LevelExecutor | _TreeExecutor | _DctExecutor | _CgExecutor,
 ) -> tuple[np.ndarray, SolveInfo]:
     args = executor.prepare_args(*asm.schur_arguments(device=False))
     q_T, p_T, lam, iters, residual, rhs_norm, finite = executor(*args)
@@ -684,11 +791,12 @@ def _schur_solve(
     )
     residual = float(residual)
     rhs_norm = float(rhs_norm)
-    # Direct-solve convergence gate of the reference (:4405-4414): a
-    # κ-conditioned system's float64 residual cannot land below ~κ·ε·‖rhs‖
-    # for any backward-stable direct method; the DCT executors carry κ ≈ n²
-    # of an n-wide lattice, the tree-family eliminations report residual 0
-    # and no hint, so for them it holds exactly when the solution is finite.
+    # Convergence gate of the reference (:4405-4414): a κ-conditioned
+    # system's float64 residual cannot land below ~κ·ε·‖rhs‖ for any
+    # backward-stable direct method; the DCT executors carry κ ≈ n² of an
+    # n-wide lattice, the tree-family eliminations report residual 0 and no
+    # hint, so for them it holds exactly when the solution is finite; CG
+    # reports its true residual ‖Lλ − rhs‖ and no hint.
     kappa = float(getattr(executor, "kappa_hint", 0.0))
     floor = 64.0 * float(np.finfo(np.float64).eps) * kappa * rhs_norm
     converged = (

@@ -25,6 +25,18 @@ Builds one configuration of ``chip_smoke.py`` (``--path``):
   628-node dense tail (K11);
 * ``lattice64`` — ``make_grid(64, 64)``, N = 1, R = 1, f = 0, p_bc = y
   (28,294 dofs), cyclic route under ``auto``: a 4,096-node dense core (K11);
+* ``fronts128`` — the 128² lattice with per-edge R under the reference's
+  nested-dissection plan with forced supernodal fronts (1,024 + 216 and 942
+  wide), the tree executor the reference's tests force plans into: K12b;
+* ``cg512`` — the 512² lattice with per-edge R (1,831,942 dofs) under
+  ``schur_method="cg"``: CG with the 2-D aggregation multigrid (K19a, K18,
+  K19c);
+* ``web-cg`` — the 100,000-site web (2,817,749 dofs) under
+  ``schur_method="cg"``: Chebyshev-Jacobi CG on the gather-fold matvec
+  (K19a, K19b);
+* ``skinny-mg`` — ``make_grid(3, 2000)``, N = 1, per-edge R from seed 4,
+  p_bc = y (35,997 dofs) under ``cg_precond="mg"``: CG with the 1-D pairing
+  multigrid (K19a, K18, K19d, K19c's coarsest solve);
 
 then
 
@@ -32,7 +44,8 @@ then
    clock, CUDA-synchronised at every phase boundary (best of ``--reps``);
 2. traces ``--reps`` solves with ``torch.profiler`` and sums device time by
    kernel and copy, giving the device's busy and idle share of the solve
-   and the device launches (kernels and copies) per solve.
+   and the device launches (kernels and copies) per solve, also summed by
+   the CUDA source that defines each kernel.
 
 Run from the repository root on a machine with a CUDA device::
 
@@ -46,6 +59,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -57,7 +71,23 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
 import networks_fenicsx_tpu_torch as P  # noqa: E402
-from networks_fenicsx_tpu_torch.solver import _flatten_blocks_host  # noqa: E402
+from networks_fenicsx_tpu_torch.ops import krylov as cg_loop  # noqa: E402
+from networks_fenicsx_tpu_torch.solver import (  # noqa: E402
+    _CgExecutor, _flatten_blocks_host, build_schur_executor,
+)
+
+
+def kernel_sources() -> dict[str, str]:
+    """Each ``__global__`` kernel's name -> the ``kernels/csrc`` file that
+    defines it (a header's kernels under the header's name: its includers
+    share them; a name two files define under both, joined by " + ")."""
+    csrc = pathlib.Path(P.__file__).resolve().parent / "kernels" / "csrc"
+    out: dict[str, list[str]] = {}
+    for path in sorted(csrc.glob("*.cu*")):
+        for m in re.finditer(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                             path.read_text()):
+            out.setdefault(m.group(1), []).append(path.name)
+    return {name: " + ".join(files) for name, files in out.items()}
 
 
 def sync_clock() -> float:
@@ -66,8 +96,10 @@ def sync_clock() -> float:
 
 
 def configure(path: str, generations: int):
-    """``(assembler, forms)`` of a main path; ``forms(asm)`` recomputes its
-    coefficient data, as a user changing them between solves would."""
+    """``(assembler, forms, options, tree plan or None)`` of a main path;
+    ``forms(asm)`` recomputes its coefficient data, as a user changing them
+    between solves would."""
+    options, tree_plan = P.SolverOptions(), None
     if path == "blocked":
         net = P.network_generation.make_arterial_tree(generations, direction=[0.1, 1, 0],
                                                       arrays=True)
@@ -96,10 +128,24 @@ def configure(path: str, generations: int):
         asm, forms = chip_smoke.web2k_assembler(P), chip_smoke.web2k_forms
     elif path == "lattice64":
         asm, forms = chip_smoke.lattice_assembler(P, 64, 64), chip_smoke.lattice_forms
+    elif path == "fronts128":
+        asm, forms = chip_smoke.grid128_assembler(P), chip_smoke.grid128_forms
+        options = P.SolverOptions(schur_method="tree")
+        tree_plan = chip_smoke.nd_tree_plan(P, asm, **chip_smoke.FRONTS_KWARGS)
+    elif path == "cg512":
+        forms = chip_smoke.cg512_forms
+        asm, options = chip_smoke.lattice_assembler(P, forms=forms), P.SolverOptions(schur_method="cg")
+    elif path == "web-cg":
+        asm, forms = chip_smoke.web_assembler(P), chip_smoke.forest_forms
+        options = P.SolverOptions(schur_method="cg")
+    elif path == "skinny-mg":
+        forms = chip_smoke.skinny_forms
+        asm = chip_smoke.lattice_assembler(P, 3, 2000, forms=forms)
+        options = P.SolverOptions(schur_method="cg", cg_precond="mg")
     else:
         asm, forms = chip_smoke.bed_assembler(P), chip_smoke.bed_forms
     forms(asm)
-    return asm, forms
+    return asm, forms, options, tree_plan
 
 
 def phases(asm, solver, forms) -> dict[str, float]:
@@ -131,7 +177,8 @@ def phases(asm, solver, forms) -> dict[str, float]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("blocked", "callable", "forest", "web", "web1000", "bed",
-                                       "lattice", "lattice-callable", "web2k", "lattice64"),
+                                       "lattice", "lattice-callable", "web2k", "lattice64",
+                                       "fronts128", "cg512", "web-cg", "skinny-mg"),
                     default="blocked")
     ap.add_argument("--generations", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
@@ -145,13 +192,17 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
 
-    asm, forms = configure(args.path, args.generations)
-    solver = P.Solver(asm, device="cuda")
+    asm, forms, options, tree_plan = configure(args.path, args.generations)
+    solver = P.Solver(asm, options=options, device="cuda")
+    if tree_plan is not None:  # the forced plan's executor, as the reference's tests build it
+        solver._executor = build_schur_executor(asm, options, device="cuda", _tree_plan=tree_plan)
+        solver._executor_key = asm.coefficient_modes()
     solver.solve()  # builds the kernels and the executor
 
     runs = [phases(asm, solver, forms) for _ in range(args.reps)]
     best = {k: min(r[k] for r in runs) for k in runs[0]}
 
+    cg_loop.cg.flag_reads = 0
     solve_ms = []
     from torch.profiler import ProfilerActivity, profile
 
@@ -171,6 +222,15 @@ def main() -> int:
             launches[ev.key] = ev.count / args.reps
     busy_ms = sum(device_us.values()) / 1e3
     mean_solve = float(np.mean(solve_ms))
+    by_source: dict[str, list[float]] = {}
+    sources = kernel_sources()
+    for key, us in device_us.items():
+        name = key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+        name = name.split("::")[-1].strip()
+        src = "copies" if key.startswith("Memcpy") else sources.get(name, "PyTorch")
+        acc = by_source.setdefault(src, [0.0, 0.0])
+        acc[0] += us
+        acc[1] += launches[key]
     result = {
         "card": card,
         "path": args.path,
@@ -181,9 +241,15 @@ def main() -> int:
         "device_us_per_solve": dict(sorted(device_us.items(), key=lambda kv: -kv[1])),
         "device_launches_per_solve": launches,
         "device_launches_total_per_solve": sum(launches.values()),
+        "device_us_and_launches_per_source": dict(
+            sorted(by_source.items(), key=lambda kv: -kv[1][0])),
         "device_busy_ms_per_solve": busy_ms,
         "device_idle_share": 1.0 - busy_ms / mean_solve if mean_solve else None,
     }
+    if isinstance(solver._executor, _CgExecutor):
+        result["cg"] = {"iterations": solver.info.iterations, "chunk": cg_loop.CHUNK,
+                        "flag_reads_per_solve": cg_loop.cg.flag_reads / args.reps,
+                        "preconditioner": solver._executor.precond_kind[0]}
     text = json.dumps(result, indent=1)
     print(text)
     if args.out is not None:

@@ -293,7 +293,7 @@ def test_shift_matvec_plain_matches_reference(graph):
     dr = _t(np.stack([np.asarray(diag_j), np.asarray(rhs_j)], axis=1))
     lam = np.random.default_rng(5).standard_normal(B)
     want = rhs_j - JS._shift_matvec(class_w, diag_j, B)(jnp.asarray(lam))
-    got, norm = shift_matvec.shift_matvec(offsets, cw, dr, _t(lam), norm=True)
+    got, norm = shift_matvec.shift_matvec(offsets, cw, dr[:, 0], _t(lam), dr[:, 1], norm=True)
     _close(got, want, 1e-12)
     _close(norm, jnp.linalg.norm(want), 1e-12)
 
@@ -320,7 +320,7 @@ def test_dct_lattice_plain_matches_capacitance_solve(graph):
     cw = _t(np.stack([np.asarray(v) for _, v in class_w]))
 
     def residual(lam):
-        return shift_matvec.shift_matvec(offsets, cw, dr, lam)
+        return shift_matvec.shift_matvec(offsets, cw, dr[:, 0], lam, dr[:, 1])
 
     got = dct_lattice.dct_lattice(op, _t(w), dr[:, 1].contiguous(), residual)
     # two refined float64 solves meet at the conditioning floor, ~κ·ε relative
@@ -502,7 +502,7 @@ def test_lattice_wrappers_never_fall_back_off_the_cpu():
     rhs, diag, _ = grid_core.grid_core(gdp, w, _t(np.ones(E)), _t(np.zeros(E)))
     dct_lattice.dct_lattice(op, w, rhs, lambda lam: grid_core.grid_residual(gdp, w, diag, lam, rhs))
     shift_matvec.shift_matvec(np.array([-1, 1], np.int32), _t(np.ones((2, B))),
-                              _t(np.ones((B, 2))), _t(np.ones(B)))
+                              _t(np.ones(B)), _t(np.ones(B)), _t(np.ones(B)))
     assert all(n == 0 for n in kernels.launches().values())
     meta = torch.ones(B, dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -569,7 +569,7 @@ def test_lattice_kernels_match_plain_on_card():
     offsets = np.asarray([d for d, _, _ in classes], np.int32)
     cw = _t(np.stack([np.asarray(v) for _, v in class_w])).to(dev)
     dr = _t(np.stack([np.asarray(diag_j), np.asarray(rhs_j)], axis=1)).to(dev)
-    for a, b in zip(shift_matvec.shift_matvec(offsets, cw, dr, lam, norm=True),
-                    shift_matvec.shift_matvec_plain(offsets, cw, dr, lam, norm=True)):
+    for a, b in zip(shift_matvec.shift_matvec(offsets, cw, dr[:, 0], lam, dr[:, 1], norm=True),
+                    shift_matvec.shift_matvec_plain(offsets, cw, dr[:, 0], lam, dr[:, 1], norm=True)):
         _close(a.cpu(), b.cpu().numpy(), 1e-12)
     torch.cuda.synchronize()

@@ -272,8 +272,9 @@ def test_forced_multifrontal_engine_on_small_core():
 def test_explicit_tree_method_envelope(monkeypatch):
     """``schur_method="tree"`` attaches the min-degree plan as ``auto`` does
     (bed4: the same solve); a core above 4,096 nodes that no planner takes
-    raises the reference's ``ValueError`` there and "ROADMAP A7b" (the CG
-    fallback) under ``auto``."""
+    raises the reference's ``ValueError`` there and, under ``auto``, takes
+    the CG route, equal to the reference's under the same patch at its bar
+    (1e-9·scale, ``tests/test_krylov.py:165``)."""
     asm = _cyclic_assembler(_bed4, R="poiseuille")
     tree = P.Solver(asm, device="cpu", options=P.SolverOptions(schur_method="tree"))
     auto = P.Solver(asm, device="cpu")
@@ -285,8 +286,16 @@ def test_explicit_tree_method_envelope(monkeypatch):
     big = _cyclic_assembler(lambda pkg: pkg.network_generation.make_grid(70, 70, arrays=True))
     with pytest.raises(ValueError, match="could not be planned"):
         P.Solver(big, device="cpu", options=P.SolverOptions(schur_method="tree")).solve()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        P.Solver(big, device="cpu").solve()
+    auto_big = P.Solver(big, device="cpu")
+    auto_big.solve()
+    assert isinstance(auto_big._executor, PS._CgExecutor) and auto_big.info.converged
+    monkeypatch.setattr(JS, "_cached_tree_plan",
+                        lambda a, force_rounds=False, attach=False: JS._plan_tree_elimination(a))
+    ref = J.Solver(_cyclic_assembler(lambda pkg: pkg.network_generation.make_grid(70, 70, arrays=True),
+                                     pkg=J))
+    ref.solve()
+    assert abs(auto_big.info.iterations - ref.info.iterations) <= 1, (auto_big.info, ref.info)
+    _assert_equal_at_scale(auto_big.solution_vector(), np.asarray(ref.solution_vector()), tol=1e-9)
 
 
 def _forced_web48(core_plan_fn):
@@ -569,12 +578,31 @@ def _tree_assembler(k=1, kp=0, **forms):
     (lambda: P.Solver(_tree_assembler(), device="cpu",
                       options=P.SolverOptions(dtype="float32")).solve(), "ROADMAP A4"),
     (lambda: P.Solver(_tree_assembler(), device="cpu",
-                      options=P.SolverOptions(schur_method="cg")).solve(), "ROADMAP A7b"),
+                      options=P.SolverOptions(schur_method="tree_dist")).solve(), "ROADMAP A10"),
     (lambda: _tree_assembler().assemble(), "ROADMAP A8"),
 ])
 def test_outside_envelope_raises(make, match):
     with pytest.raises(NotImplementedError, match=match):
         make()
+
+
+def test_cg_on_a_tree_matches_reference():
+    """``schur_method="cg"`` on a forest: the irregular one (no shift plan:
+    the gather-fold matvec, Chebyshev-Jacobi) equals the JAX package's CG
+    solve at its bar."""
+    xs, infos = [], []
+    for pkg in (J, P):
+        asm = pkg.HydraulicNetworkAssembler(pkg.NetworkMesh(_irregular(pkg), N=2))
+        asm.compute_forms(p_bc_ex=lambda x: x[1], R=_per_edge(0.5, 2.0, 3)(asm.network))
+        kw = {"device": "cpu"} if pkg is P else {}
+        s = pkg.Solver(asm, options=pkg.SolverOptions(schur_method="cg"), **kw)
+        s.solve()
+        assert s.info.converged
+        xs.append(np.asarray(s.solution_vector()))
+        infos.append(s.info)
+    assert isinstance(s._executor, PS._CgExecutor) and s._executor.device_plan.classes is None
+    assert abs(infos[1].iterations - infos[0].iterations) <= 1, infos
+    _assert_equal_at_scale(xs[1], xs[0], tol=1e-9)
 
 
 def test_schur_with_continuous_pressure_is_a_value_error():
