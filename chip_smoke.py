@@ -116,6 +116,16 @@ WEB_CG_SIZES = {"edges": 109_873, "bifurcations": 70_924, "dofs": 2_817_749,
 SKINNY_SIZES = {"bifurcations": 6_000, "precond": "1d", "levels": 4, "bottom": 375}
 CG_TOL = 1e-9  # whole CG solves, kernel path vs plain path, times the scale (the reference's bar)
 
+# continuous pressure: the 16-generation tree at N = 40 with the stable P2/P1 pairing
+P1TREE_SIZES = {"edges": 65_535, "bifurcations": 32_767, "dofs": 7_962_503, "flux": 5_308_335,
+                "reduced": 2_654_168, "J_raw": 15_826_701, "J_nnz": 13_270_836}
+CSR_SIZES = {"raw": 55_246_002, "nnz": 47_578_407, "max_dup": 2}  # its whole assembled matrix
+SCHUR_P_TOL = 1e-9  # whole schur_p solves, kernel path vs plain path, times the scale
+LU_N = 4_096  # K21b alone, set (q)
+DENSE_DOFS = 8_033  # method="dense": make_arterial_tree(8), N = 10, k = 2, kp = 1
+MINRES_DOFS = 2_422  # method="minres": make_arterial_tree(8), N = 4, k = 1
+MINRES_TOL = 1e-7  # MINRES against host_lu, times the scale (tests/test_solver.py:91)
+
 KERNEL_RECORD = {
     "condense": ("networks_fenicsx_tpu_torch/kernels/csrc/condense.cu",
                  "networks_fenicsx_tpu/solver.py:2776"),
@@ -161,6 +171,18 @@ KERNEL_RECORD = {
              "networks_fenicsx_tpu/solver.py:1315"),
     "mg1d": ("networks_fenicsx_tpu_torch/kernels/csrc/mg1d.cu",
              "networks_fenicsx_tpu/solver.py:1482"),
+    "csr_fold": ("networks_fenicsx_tpu_torch/kernels/csrc/csr.cu",
+                 "networks_fenicsx_tpu/ops/csr_assembly.py:76"),
+    "csr_spmv": ("networks_fenicsx_tpu_torch/kernels/csrc/csr.cu",
+                 "networks_fenicsx_tpu/ops/sparse.py:40"),
+    "schur_p_factor": ("networks_fenicsx_tpu_torch/kernels/csrc/schur_p.cu",
+                       "networks_fenicsx_tpu/solver.py:4670"),
+    "schur_p_solve": ("networks_fenicsx_tpu_torch/kernels/csrc/schur_p.cu",
+                      "networks_fenicsx_tpu/solver.py:4682"),
+    "dense_lu": ("networks_fenicsx_tpu_torch/kernels/csrc/dense_lu.cu",
+                 "networks_fenicsx_tpu/solver.py:4763"),
+    "minres": ("networks_fenicsx_tpu_torch/kernels/csrc/krylov.cu",
+               "networks_fenicsx_tpu/ops/krylov.py:120"),
 }
 # the checks of each iterative wrapper in the kernels-cg sets (k)-(m), and the
 # set whose record times it
@@ -177,6 +199,16 @@ LATTICE_CHECKS = {
                     "dct_lattice_unrefined", "dct_lattice", "dct_matrix"),
     "grid_core": ("grid_core", "grid_core_stencil"),
     "shift_matvec": ("shift_matvec",),
+}
+# the checks of each assembled-matrix wrapper in the generic sets (o)-(r),
+# and the set and check whose record times it
+GENERIC_CHECKS = {
+    "csr_fold": (("p", "csr_fold"),),
+    "csr_spmv": (("o", "csr_spmv"), ("o", "csr_spmv_T"), ("o", "csr_tdiag")),
+    "schur_p_factor": (("o", "schur_p_factor"),),
+    "schur_p_solve": (("o", "schur_p_solve"),),
+    "dense_lu": (("q", "dense_lu"), ("q", "dense_lu_saddle")),
+    "minres": (("r", "minres"),),
 }
 # the wrappers the cyclic executor may launch, besides the CYCLIC group
 CYCLIC_SHARED = ("segsum", "edge_data", "backsub")
@@ -2160,6 +2192,504 @@ def cg_phases(P, device, name_power: str) -> dict:
     return {"sets": sets, "paths": paths}
 
 
+def p1tree_forms(asm) -> None:
+    asm.compute_forms(p_bc_ex=lambda x: x[1], R=1.0 / asm.network.edge_radius**4)
+
+
+def p1tree_assembler(P, gens: int = GENERATIONS, N: int = N_CELLS, k: int = 2, kp: int = 1):
+    """The benchmark tree with continuous pressure, the stable Pk/P(k-1)
+    pairing (Poiseuille R = 1/r⁴, p_bc = y)."""
+    net = P.network_generation.make_arterial_tree(gens, direction=[0.1, 1, 0], arrays=True)
+    mesh = P.NetworkMesh(net, N=N, color_strategy="fast")
+    asm = P.HydraulicNetworkAssembler(mesh, flux_degree=k, pressure_degree=kp)
+    p1tree_forms(asm)
+    return asm
+
+
+def nonzero(launches: dict) -> dict:
+    """The wrappers a run launched, with their counts."""
+    return {name: n for name, n in launches.items() if n}
+
+
+def csr_bytes(M, n_in: int) -> int:
+    """Bytes a CSR matvec must move: the structure, the values, the vector
+    once and the result once."""
+    indptr, indices, data = M.device_arrays
+    return tensor_bytes(indptr, indices, data) + 8 * (n_in + M.shape[0])
+
+
+def p1tree_path(P, device, name_power: str) -> dict:
+    """The continuous-pressure main path through the public API, counted and
+    checked: ``auto`` picks ``schur_p``, only its kernels launched (K20 and
+    K20b, K21a, K19a), the expected sizes, converged, the kernel path's
+    iterations within 2 of the plain path's and its solution at
+    ``SCHUR_P_TOL``·scale of it, mass conserved at every junction to the
+    bound the CG residual implies (a junction's imbalance is its λ row of
+    ``T z − rhs``); then compute_forms + solve best of 3."""
+    from networks_fenicsx_tpu_torch import kernels
+    from networks_fenicsx_tpu_torch.ops import krylov as loop
+    from networks_fenicsx_tpu_torch.solver import _SchurPExecutor
+
+    t0 = time.perf_counter()
+    asm = p1tree_assembler(P)
+    setup_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    asm._build_static_structure()
+    coo_s = time.perf_counter() - t1
+    solver = P.Solver(asm, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    loop.cg.flag_reads = 0
+    t2 = time.perf_counter()
+    sol = solver.solve()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t2
+    launches = kernels.launches()
+    reads = loop.cg.flag_reads
+    tol = loop.cg.last_tol
+    peak_mb = torch.cuda.max_memory_allocated(device) / 2**20
+    ex = solver._executor
+    assert isinstance(ex, _SchurPExecutor), type(ex)
+    used = {"csr_fold", "csr_spmv", "schur_p_factor", "schur_p_solve", "krylov"}
+    assert all(launches[name] >= 1 for name in used), launches
+    assert all(n == 0 for name, n in launches.items() if name not in used), launches
+    mesh = asm.network
+    sizes = {"edges": mesh.num_edges, "bifurcations": mesh.num_multipliers, "dofs": asm.num_dofs,
+             "flux": ex.n_flux, "reduced": asm.num_dofs - ex.n_flux, "J_raw": ex.j_raw,
+             "J_nnz": ex.J.nnz}
+    assert sizes == P1TREE_SIZES, sizes
+    info = solver.info
+    x = solver.solution_vector()
+    assert info.method == "schur_p" and info.converged and info.iterations > 0, info
+    assert x.shape == (asm.num_dofs,) and np.all(np.isfinite(x))
+    assert sum(fn.values.size for fn in sol) == asm.num_dofs
+
+    t3 = time.perf_counter()
+    xp, it_plain, _, ok_plain = ex.plain()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t3
+    xp = xp.cpu().numpy()
+    assert ok_plain and abs(info.iterations - it_plain) <= 2, (info.iterations, it_plain)
+    err = float(np.abs(x - xp).max())
+    scale = max(1.0, float(np.abs(xp).max()))
+    assert err <= SCHUR_P_TOL * scale, (err, scale)
+    imbalance, qmax = conservation(asm, x)
+    assert imbalance <= info.residual + 1e-10 * qmax, (imbalance, info.residual, qmax)
+    log(f"phase p1tree main path: set-up {setup_s:.3f} s, host planning: COO stream "
+        f"{coo_s:.3f} s, J/Jᵀ patterns and folds {ex.planning_s:.3f} s; {sizes}; "
+        f"{info.iterations} iterations (plain path {it_plain}), first solve (planning + solve) "
+        f"{first_s:.3f} s, CG residual {info.residual:.3e} against its tolerance {tol:.3e}, "
+        f"converged, finite, conservation {imbalance:.3e} (max |q| {qmax:.3e}), vs plain path "
+        f"{err:.3e} (scale {scale:.3e}), plain whole solve {plain_s:.3f} s, host flag reads "
+        f"{reads}, peak device memory {peak_mb:.1f} MiB, wrapper calls {nonzero(launches)}")
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p1tree_forms(asm)
+        solver.solve()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ex_ms = cuda_ms(lambda: ex(), reps=3)
+    log(f"phase timing p1tree: compute_forms+solve best {min(times):.3f} ms (all "
+        f"{[round(t, 3) for t in times]}); executor per solve (factor, b upload, CG, back "
+        f"substitution) {ex_ms:.3f} ms, plain versions {plain_s * 1e3:.3f} ms (one solve); "
+        f"{info.iterations} iterations, {reads} host flag reads, "
+        f"{sum(launches.values())} wrapper calls per solve (chunk {loop.CHUNK}); card {name_power}")
+    return {"asm": asm, "solver": solver, "launches": launches, "sizes": sizes,
+            "iters": info.iterations, "iters_plain": it_plain, "reads": reads,
+            "residual": info.residual, "tol": tol, "imbalance": imbalance, "qmax": qmax,
+            "err": err, "best_ms": min(times), "executor_ms": ex_ms, "plain_ms": plain_s * 1e3}
+
+
+def compare_schur_p_kernels(asm, ex, device) -> dict:
+    """Set (o): K21a and K20b against their plain versions on the p1tree's
+    own data at full width — the band factor (and the flux diagonal) and one
+    A⁻¹ apply at ``TOL``·scale, J·v and Jᵀ·z at ``TOL``·scale, the Jacobi
+    diagonal Σ J² / A_diag at 1e-14 relative; timed beside ``cholesky`` and
+    ``cholesky_solve`` on the dense (E, m, m) blocks and CSR ``torch.mv``."""
+    from networks_fenicsx_tpu_torch.kernels import csr, schur_p
+
+    N, k, base, n_flux = ex._N, ex._k, ex.base, ex.n_flux
+    E, m = base.shape[0], k * N + 1
+    cm = asm._cell_mass_on(device)
+    J, JT = ex.J.device_arrays, ex.JT.device_arrays
+    n_red = ex.J.shape[0]
+    gen = torch.Generator(device=device).manual_seed(5)
+    v = torch.randn(n_flux, generator=gen, dtype=torch.float64, device=device)
+    z = torch.randn(n_red, generator=gen, dtype=torch.float64, device=device)
+    Lb, adiag = schur_p.schur_p_factor_plain(cm, base, N, k, n_flux)
+    runs = {
+        "schur_p_factor": (lambda: schur_p.schur_p_factor(cm, base, N, k, n_flux),
+                           lambda: schur_p.schur_p_factor_plain(cm, base, N, k, n_flux), TOL),
+        "schur_p_solve": (lambda: schur_p.schur_p_solve(Lb, base, N, k, v),
+                          lambda: schur_p.schur_p_solve_plain(Lb, base, N, k, v), TOL),
+        "csr_spmv": (lambda: csr.csr_spmv(*J, v), lambda: csr.csr_spmv_plain(*J, v), TOL),
+        "csr_spmv_T": (lambda: csr.csr_spmv(*JT, z), lambda: csr.csr_spmv_plain(*JT, z), TOL),
+    }
+    record = {}
+    td, td_plain = csr.csr_tdiag(*J, adiag), csr.csr_tdiag_plain(*J, adiag)
+    rel = float(((td - td_plain).abs() / td_plain.abs()).max())
+    assert rel <= 1e-14, rel
+    record["csr_tdiag"] = {"max_abs_err": float((td - td_plain).abs().max()), "max_rel_err": rel,
+                           "tol": 1e-14}
+    # the library yardsticks on the same matrices: the dense blocks and their
+    # dense factor, and J as a CSR tensor
+    dofs = base.long()[:, None] + torch.arange(m, device=device)[None, :]
+    dense = torch.zeros((E, m, m), dtype=torch.float64, device=device)
+    li = k * torch.arange(N, device=device)[:, None] + torch.arange(k + 1, device=device)[None, :]
+    cmv = cm.reshape(E, N, k + 1, k + 1)
+    for j in range(N):
+        dense[:, li[j][:, None], li[j][None, :]] += cmv[:, j]
+    L_dense = torch.linalg.cholesky(dense)
+    v_e = v[dofs][:, :, None]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        J_csr = torch.sparse_csr_tensor(J[0], J[1].long(), J[2], size=ex.J.shape)
+        library = {
+            "schur_p_factor": lambda: torch.linalg.cholesky(dense),
+            "schur_p_solve": lambda: torch.cholesky_solve(v_e, L_dense),
+            "csr_spmv": lambda: torch.mv(J_csr, v),
+        }
+        work = {
+            "schur_p_factor": (tensor_bytes(cm, base, Lb, adiag), E * m * (k + 1) * (k + 2)),
+            "schur_p_solve": (tensor_bytes(Lb, base) + 16 * n_flux, E * m * (4 * k + 2)),
+            "csr_spmv": (csr_bytes(ex.J, n_flux), 2 * ex.J.nnz),
+        }
+        timed = {name: runs[name][:2] for name in library}
+        run_checks(runs, record, timed, work, library)
+    del dense, L_dense
+    return record
+
+
+def compare_csr_assembly(P, asm, device) -> dict:
+    """Set (p): the p1tree's whole matrix through ``assemble(kind="csr")``
+    (counted), its host pattern timed once, K20's fold against its plain
+    version bit for bit; timed beside ``sparse_coo_tensor(...).coalesce()``."""
+    from networks_fenicsx_tpu_torch import kernels
+    from networks_fenicsx_tpu_torch.kernels import csr
+
+    t0 = time.perf_counter()
+    pattern, fold = asm._csr_plan()
+    host_s = time.perf_counter() - t0
+    vals = asm._values(device)
+    perm, table = fold.tables(device)
+    sizes = {"raw": pattern.nraw, "nnz": pattern.nnz, "max_dup": int(table.shape[1])}
+    assert sizes == CSR_SIZES, sizes
+    kernels.reset_launches()
+    A, b = asm.assemble(kind="csr", device=device)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    assert launches["csr_fold"] == 1 and sum(launches.values()) == 1, launches
+    got, want = csr.csr_fold(perm, table, vals), csr.csr_fold_plain(perm, table, vals)
+    assert torch.equal(got, want) and torch.equal(A.data, got)
+    assert b.shape == (asm.num_dofs,)
+    idx = torch.stack([torch.as_tensor(asm._all_rows, device=device).long(),
+                       torch.as_tensor(asm._all_cols, device=device).long()])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        coo = torch.sparse_coo_tensor(idx, vals, pattern.shape, check_invariants=False)
+        record = {"csr_fold": {"max_abs_err": 0.0, "tol": 0.0, "host_pattern_s": host_s, **sizes,
+                               "ms": cuda_ms(lambda: csr.csr_fold(perm, table, vals), reps=10),
+                               "plain_ms": cuda_ms(lambda: csr.csr_fold_plain(perm, table, vals),
+                                                   reps=3),
+                               "library_ms": cuda_ms(lambda: coo.coalesce(), reps=3)}}
+    record["csr_fold"].update(bound(tensor_bytes(perm, table, vals) + 8 * pattern.nnz,
+                                    pattern.nnz * (table.shape[1] - 1)))
+    record["launches"] = launches
+    log(f"phase (p) assemble(kind='csr') at full width: host pattern {host_s:.3f} s, {sizes}, "
+        f"wrapper calls {nonzero(launches)}")
+    del coo, idx
+    return record
+
+
+def lu_residual(A, LU, piv) -> float:
+    """max |P A − L U| with the swaps of ``piv`` applied to A's rows."""
+    n = A.shape[0]
+    order = list(range(n))
+    for k_, p_ in enumerate(piv.tolist()):
+        order[k_], order[p_] = order[p_], order[k_]
+    L = torch.tril(LU, -1) + torch.eye(n, dtype=LU.dtype, device=LU.device)
+    U = torch.triu(LU)
+    return float((A[torch.as_tensor(order, device=A.device)] - L @ U).abs().max())
+
+
+def compare_dense_lu(P, device) -> dict:
+    """Set (q): K21b on a random diagonally dominant matrix of order
+    ``LU_N`` — pivots equal to the plain version's, factors at
+    ``TOL``·scale, max |PA − LU| ≤ 8·n·ε·max |A| — and on the 8,033-dof
+    saddle matrix of ``method="dense"`` (pivots equal, solve at
+    ``TOL``·scale); timed beside ``lu_factor`` + ``lu_solve``."""
+    from networks_fenicsx_tpu_torch.kernels import dense_lu
+
+    record = {}
+    gen = torch.Generator(device=device).manual_seed(4)
+    n = LU_N
+    A = torch.randn((n, n), generator=gen, dtype=torch.float64, device=device)
+    A += n * torch.eye(n, dtype=torch.float64, device=device)
+    b = torch.randn(n, generator=gen, dtype=torch.float64, device=device)
+    LU, piv = dense_lu.lu_factor(A)
+    LU_p, piv_p = dense_lu.lu_factor_plain(A)
+    assert torch.equal(piv, piv_p)
+    err_f, scale_f = max_err(LU, LU_p)
+    assert err_f <= TOL * scale_f, (err_f, scale_f)
+    back = lu_residual(A, LU, piv)
+    a_max = float(A.abs().max())
+    assert back <= 8 * n * EPS * a_max, (back, a_max)
+    x, x_p = dense_lu.lu_solve(LU, piv, b), dense_lu.lu_solve_plain(LU_p, piv_p, b)
+    err_x, scale_x = max_err(x, x_p)
+    assert err_x <= TOL * scale_x, (err_x, scale_x)
+    record["dense_lu"] = {"max_abs_err": max(err_f, err_x), "errs": [err_f, err_x],
+                          "scales": [scale_f, scale_x], "backward_error": back,
+                          "backward_bound": 8 * n * EPS * a_max, "tol": TOL, "n": n}
+    record["dense_lu"]["ms"] = cuda_ms(lambda: dense_lu.lu_solve(*dense_lu.lu_factor(A), b), reps=3)
+    record["dense_lu"]["plain_ms"] = cuda_ms(
+        lambda: dense_lu.lu_solve_plain(*dense_lu.lu_factor_plain(A), b), reps=1)
+    record["dense_lu"]["library_ms"] = cuda_ms(
+        lambda: torch.linalg.lu_solve(*torch.linalg.lu_factor(A), b[:, None]), reps=3)
+    record["dense_lu"].update(bound(3 * 8 * n * n + 4 * n + 16 * n, 2 * n, 2 * n**3 / 3 + 2 * n * n))
+
+    asm = p1tree_assembler(P, 8, 10)
+    assert asm.num_dofs == DENSE_DOFS, asm.num_dofs
+    S, bs = asm.assemble(kind="dense", device=device)
+    LU, piv = dense_lu.lu_factor(S)
+    LU_p, piv_p = dense_lu.lu_factor_plain(S)
+    assert torch.equal(piv, piv_p)
+    xs, xs_p = dense_lu.lu_solve(LU, piv, bs), dense_lu.lu_solve_plain(LU_p, piv_p, bs)
+    parts = [max_err(LU, LU_p), max_err(xs, xs_p)]
+    for err, scale in parts:
+        assert err <= TOL * scale, (err, scale)
+    record["dense_lu_saddle"] = {"max_abs_err": max(e for e, _ in parts),
+                                 "errs": [e for e, _ in parts], "scales": [sc for _, sc in parts],
+                                 "tol": TOL, "n": DENSE_DOFS, "pivots_moved": int(
+                                     (piv != torch.arange(DENSE_DOFS, device=device)).sum())}
+    return record
+
+
+def dense_path(P, device) -> dict:
+    """``method="dense"`` on the 8,033-dof P2/P1 tree through the public API,
+    counted: assemble (K20) and solve (K21b); against ``host_lu`` at
+    1e-10·scale, with the residual gate."""
+    from networks_fenicsx_tpu_torch import kernels
+
+    asm = p1tree_assembler(P, 8, 10)
+    solver = P.Solver(asm, options=P.SolverOptions(method="dense"), device=device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    solver.assemble()
+    solver.solve()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = kernels.launches()
+    assert launches["csr_fold"] == 1 and launches["dense_lu"] == 2, launches
+    info, x = solver.info, solver.solution_vector()
+    ref = P.Solver(asm, options=P.SolverOptions(method="host_lu"), device=device)
+    ref.assemble()
+    ref.solve()
+    x_ref = ref.solution_vector()
+    err = float(np.abs(x - x_ref).max())
+    scale = max(1.0, float(np.abs(x_ref).max()))
+    gate = max(100 * solver._options.rtol * float(np.linalg.norm(asm._b_host)), 1e-8)
+    assert info.method == "dense" and info.converged and info.residual <= gate, (info, gate)
+    assert err <= CYCLIC_TOL * scale, (err, scale)
+    log(f"phase dense path (q) make_arterial_tree(8), N=10, k=2, kp=1, {asm.num_dofs} dofs: "
+        f"assemble + solve {solve_s:.3f} s, residual {info.residual:.3e} against the gate "
+        f"{gate:.3e}, vs host_lu {err:.3e} (scale {scale:.3e}), host_lu residual "
+        f"{ref.info.residual:.3e}, wrapper calls {nonzero(launches)}")
+    return {"launches": launches, "residual": info.residual, "err": err, "solve_s": solve_s}
+
+
+def minres_assembler(P, gens: int = 8, N: int = 4):
+    net = P.network_generation.make_arterial_tree(gens, direction=[0.1, 1, 0], arrays=True)
+    mesh = P.NetworkMesh(net, N=N, color_strategy="fast")
+    asm = P.HydraulicNetworkAssembler(mesh, flux_degree=1, pressure_degree=0)
+    p1tree_forms(asm)
+    return asm
+
+
+def minres_path(P, device, name_power: str) -> dict:
+    """Set (r), ``method="minres"`` (rtol 1e-12) through the public API,
+    counted: assemble (K20) and solve (K19e on K20b, K19a's Jacobi);
+    converged, against ``host_lu`` at ``MINRES_TOL``·scale, kernel and plain
+    iterations within 1 %; a MINRES step pair on fixed vectors timed."""
+    from networks_fenicsx_tpu_torch import kernels
+    from networks_fenicsx_tpu_torch.kernels import krylov
+    from networks_fenicsx_tpu_torch.ops import krylov as loop
+    from networks_fenicsx_tpu_torch.solver import _generic_solve
+
+    asm = minres_assembler(P)
+    assert asm.num_dofs == MINRES_DOFS, asm.num_dofs
+    opts = P.SolverOptions(method="minres", rtol=1e-12)
+    solver = P.Solver(asm, options=opts, device=device)
+    kernels.reset_launches()
+    loop.minres.flag_reads = 0
+    t0 = time.perf_counter()
+    solver.assemble()
+    solver.solve()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = kernels.launches()
+    reads, tol = loop.minres.flag_reads, loop.minres.last_tol
+    used = {"csr_fold", "csr_spmv", "krylov", "minres"}
+    assert all(launches[name] >= 1 for name in used), launches
+    assert all(n == 0 for name, n in launches.items() if name not in used), launches
+    info, x = solver.info, solver.solution_vector()
+    assert info.method == "minres" and info.converged, info
+    t1 = time.perf_counter()
+    x_plain, info_plain = _generic_solve(solver.A, solver.b, asm, "minres", opts, plain=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    reads_plain = loop.minres.flag_reads - reads
+    assert info_plain.converged
+    assert abs(info.iterations - info_plain.iterations) <= 0.01 * info_plain.iterations, (
+        info.iterations, info_plain.iterations)
+    ref = P.Solver(asm, options=P.SolverOptions(method="host_lu"), device=device)
+    ref.assemble()
+    ref.solve()
+    x_ref = ref.solution_vector()
+    scale = max(1.0, float(np.abs(x_ref).max()))
+    err, err_plain = float(np.abs(x - x_ref).max()), float(np.abs(x_plain - x_ref).max())
+    assert err <= MINRES_TOL * scale and err_plain <= MINRES_TOL * scale, (err, err_plain, scale)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p1tree_forms(asm)
+        solver.assemble()
+        solver.solve()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ex_ms = cuda_ms(lambda: _generic_solve(solver.A, solver.b, asm, "minres", opts), reps=3)
+    log(f"phase minres path (r) make_arterial_tree(8), N=4, k=1, {asm.num_dofs} dofs: "
+        f"{info.iterations} iterations (plain path {info_plain.iterations}), host flag reads "
+        f"{reads} (plain {reads_plain}), residual |φ̄| {info.residual:.3e} against its tolerance "
+        f"{tol:.3e}, vs host_lu {err:.3e} (plain path {err_plain:.3e}, scale {scale:.3e}); first "
+        f"assemble + solve {first_s:.3f} s; compute_forms + assemble + solve best "
+        f"{min(times):.3f} ms (all {[round(t, 3) for t in times]}); solve per call "
+        f"{ex_ms:.3f} ms, plain versions {plain_s * 1e3:.3f} ms; {sum(launches.values())} wrapper "
+        f"calls per assemble + solve {nonzero(launches)}; card {name_power}")
+
+    # one MINRES step pair (K19e) on the system's own vectors, timed
+    n = asm.num_dofs
+    gen = torch.Generator(device=device).manual_seed(6)
+    vecs = [torch.randn(n, generator=gen, dtype=torch.float64, device=device) for _ in range(8)]
+    b0 = vecs[0]
+
+    def step_pair(plain: bool):
+        alpha, update = ((krylov.minres_alpha_plain, krylov.minres_update_plain) if plain
+                         else (krylov.minres_alpha, krylov.minres_update))
+        start = krylov.minres_start_plain if plain else krylov.minres_start
+        ms, part = krylov.minres_state(device), krylov.partials(n, device)
+        v, yv, r1, r2, y, w, w2, x_ = (t.clone() for t in vecs)
+        start(ms, b0, r2, r2, v, part, 0.0, 0.0, 100)
+        alpha(ms, v, yv, r1, r2, part)
+        update(ms, yv, y, v, w, w2, x_, part)
+        return ms, v, yv, w, x_
+
+    record = {}
+    runs = {"minres": (lambda: step_pair(False), lambda: step_pair(True), TOL)}
+    run_checks(runs, record, {}, {}, {})
+    ms_k, ms_p = (cuda_ms(lambda: step_pair(plain), reps=10) for plain in (False, True))
+    record["minres"].update({"ms": ms_k, "plain_ms": ms_p, "library_ms": None,
+                             "note": "a start and one step pair (alpha, update), n = 2,422"})
+    # the start reads b, r, y and writes v; the pair reads v, yv, r1, r2, y, w,
+    # w2, x and writes yv, v, w, x
+    record["minres"].update(bound(8 * n * 16, 30 * n))
+    return {"launches": launches, "iters": info.iterations, "iters_plain": info_plain.iterations,
+            "reads": reads, "residual": info.residual, "tol": tol, "err": err,
+            "best_ms": min(times), "solve_ms": ex_ms, "plain_ms": plain_s * 1e3, "record": record}
+
+
+def rest_phases(P, device) -> dict:
+    """Set (s): ``schur_method="dense"`` and ``"dense_f64"`` on lattice64
+    (B = 4,096) against its tree route at ``CYCLIC_TOL``·scale; B = 0
+    (``make_tree(1)``, N = 8, f = 0.5) against the plain path at
+    ``TOL``·scale; ``kind="nest"`` with the default method."""
+    from networks_fenicsx_tpu_torch import kernels
+    from networks_fenicsx_tpu_torch.solver import _DenseExecutor, _EdgeExecutor, _flatten_blocks_host
+
+    out = {"launches": []}
+    asm = lattice_assembler(P, 64, 64)
+    tree = P.Solver(asm, device=device)
+    tree.solve()
+    x_tree = tree.solution_vector()
+    for method in ("dense", "dense_f64"):
+        solver = P.Solver(asm, options=P.SolverOptions(schur_method=method), device=device)
+        kernels.reset_launches()
+        solver.solve()
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        assert isinstance(solver._executor, _DenseExecutor) and launches["dense_core"] >= 1
+        assert (launches["dense_lu"] == 2) == (method == "dense_f64"), launches
+        info, x = solver.info, solver.solution_vector()
+        err = float(np.abs(x - x_tree).max())
+        scale = max(1.0, float(np.abs(x_tree).max()))
+        assert info.converged and err <= CYCLIC_TOL * scale, (info, err, scale)
+        out[method] = {"err": err, "residual": info.residual, "launches": launches}
+        out["launches"].append(launches)
+        log(f"phase (s) lattice64 schur_method={method!r}: vs tree route {err:.3e} (scale "
+            f"{scale:.3e}), λ residual {info.residual:.3e}, wrapper calls {nonzero(launches)}")
+
+    net = P.network_generation.make_tree(1, 1, 3, arrays=True)
+    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(net, N=8))
+    asm.compute_forms(p_bc_ex=lambda x: x[1], f=0.5)
+    solver = P.Solver(asm, device=device)
+    kernels.reset_launches()
+    solver.solve()
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    ex = solver._executor
+    assert isinstance(ex, _EdgeExecutor) and launches["edge_data"] == launches["backsub"] == 1
+    q_T, p_T, lam = ex.plain(*ex.prepare_args(*asm.schur_arguments()))[:3]
+    x_plain = _flatten_blocks_host(q_T.cpu().numpy(), p_T.cpu().numpy(), lam.cpu().numpy(),
+                                   asm.network.edge_color)
+    err, scale = float(np.abs(solver.solution_vector() - x_plain).max()), max(
+        1.0, float(np.abs(x_plain).max()))
+    assert solver.info.converged and err <= TOL * scale, (err, scale)
+    out["b0"] = {"err": err, "launches": launches}
+    out["launches"].append(launches)
+
+    asm = p1tree_assembler(P, 6, 4, k=1, kp=0)
+    plain_solve = P.Solver(asm, device=device)
+    plain_solve.solve()
+    nest = P.Solver(asm, kind="nest", device=device)
+    nest.assemble()
+    nest.solve()
+    assert isinstance(nest.A, dict) and nest.info.method == "schur" and nest.info.converged
+    assert np.array_equal(nest.solution_vector(), plain_solve.solution_vector())
+    log(f"phase (s) B = 0 (make_tree(1), N=8, f=0.5): vs plain path {err:.3e}, wrapper calls "
+        f"{nonzero(launches)}; kind='nest' with the default method: {len(nest.A)} blocks, solved "
+        "by Schur")
+    return out
+
+
+def generic_phases(P, device, name_power: str) -> dict:
+    """Continuous pressure and the assembled-matrix routes: the p1tree main
+    path and its timing, sets (o) its schur_p pieces and (p) its CSR
+    assembly at full width, (q) K21b and the dense path, (r) the MINRES
+    path, (s) the dense Schur variants, B = 0 and ``kind="nest"``."""
+    sets, paths = {}, {}
+    paths["p1tree"] = p1tree_path(P, device, name_power)
+    asm, ex = paths["p1tree"]["asm"], paths["p1tree"]["solver"]._executor
+    sets["o"] = compare_schur_p_kernels(asm, ex, device)
+    log("phase kernels-generic (o) p1tree schur_p pieces at full width: " + json.dumps(sets["o"]))
+    sets["p"] = compare_csr_assembly(P, asm, device)
+    csr_launches = sets["p"].pop("launches")
+    log("phase kernels-generic (p) p1tree CSR assembly at full width: " + json.dumps(sets["p"]))
+    del paths["p1tree"]["asm"], paths["p1tree"]["solver"], asm, ex
+    sets["q"] = compare_dense_lu(P, device)
+    log("phase kernels-generic (q) dense LU: " + json.dumps(sets["q"]))
+    paths["dense"] = dense_path(P, device)
+    paths["minres"] = minres_path(P, device, name_power)
+    sets["r"] = paths["minres"].pop("record")
+    log("phase kernels-generic (r) MINRES: " + json.dumps(sets["r"]))
+    rest = rest_phases(P, device)
+    runs = [paths[key]["launches"] for key in ("p1tree", "dense", "minres")]
+    runs += [csr_launches] + rest["launches"]
+    return {"sets": sets, "paths": paths, "rest": rest, "runs": runs}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2259,11 +2789,14 @@ def main() -> int:
     iterative = cg_phases(P, device, name_power)
     cgs = iterative["sets"]
 
+    generic = generic_phases(P, device, name_power)
+    gen_sets = generic["sets"]
+
     runs = (state["launches"], tree["launches"], forest["launches"], web["launches"],
             bed["launches"], web1000["launches"],
             *(path["launches"] for path in lattice["paths"].values()),
             *(path["launches"] for path in mid["paths"].values()),
-            *(path["launches"] for path in iterative["paths"].values()))
+            *(path["launches"] for path in iterative["paths"].values()), *generic["runs"])
     timed_cyclic = {"dense_core": k11[K11_TIMED], "core_elim": core["f"]["core_elim"],
                     "core_fronts": core["i"]["core_fronts"]}
     timed_lattice = {"dct_lattice": lat["a"], "grid_core": lat["a"], "shift_matvec": lat["c"]}
@@ -2285,6 +2818,10 @@ def main() -> int:
             on, keys = CG_CHECKS[name]
             errs = tuple(cgs[on][key]["max_abs_err"] for key in keys)
             timed_on = cgs[on]["krylov_cg_step" if name == "krylov" else name]
+        elif name in GENERIC_CHECKS:
+            checks = GENERIC_CHECKS[name]
+            errs = tuple(gen_sets[on][key]["max_abs_err"] for on, key in checks)
+            timed_on = gen_sets[checks[0][0]][checks[0][1]]
         else:
             errs = tuple(cyc[c][key]["max_abs_err"] for c in "abcde"
                          for key in (name, name + "_unrefined") if key in cyc[c]) + lattice_errs
@@ -2301,7 +2838,7 @@ def main() -> int:
             "bound_ms": timed_on["bound_ms"], "bound_by": timed_on["bound_by"],
             "library_ms": timed_on.get("library_ms"),
         })
-    assert len(kernels) == 22 and all(kr["launches"] > 0 for kr in kernels), kernels
+    assert len(kernels) == 28 and all(kr["launches"] > 0 for kr in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

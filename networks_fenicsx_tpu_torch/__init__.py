@@ -17,11 +17,16 @@ for uniformly-K-ary trees with scalar, per-edge or per-cell R and f; the
 level route for any other forest and for callable (quadrature-mode) R and
 f; the tree route for bifurcation graphs with cycles (peel rounds, then a
 dense, min-degree or multifrontal cycle core); the separable-DCT route for
-uniform scalar-R lattices; and the CG route (``schur_method="cg"``, and
+uniform scalar-R lattices; the CG route (``schur_method="cg"``, and
 ``auto``'s fallback for a large core without a sparse plan) with its
-multigrid, Chebyshev-Jacobi and Jacobi preconditioners.  What is left
-(other methods and matrix kinds, factor reuse, float32, batches,
-multi-device, output) is listed in ROADMAP.md.
+multigrid, Chebyshev-Jacobi and Jacobi preconditioners; the whole-Laplacian
+``schur_method="dense"``/``"dense_f64"``; networks without bifurcations.
+Continuous pressure (degree ≥ 1) solves by the reduced ``schur_p`` method;
+explicit assembly returns every matrix kind (dense, sparse COO, per-block,
+CSR), and the generic methods ``"dense"``, ``"minres"`` and ``"host_lu"``
+solve the assembled system.  What is left (factor reuse, float32, batches,
+multi-device, the distributed Schur solve, output) is listed in
+ROADMAP.md.
 """
 
 from . import network_generation, post_processing

@@ -31,6 +31,8 @@ STATE_KEYS = (
     "edge_start_pbc",  # (E,) float64 boundary pressure at edge sources (0 at bifs)
     "edge_end_pbc",  # (E,) float64 boundary pressure at edge targets (0 at bifs)
 )
+# optional: "node_pbc" (V,) float64 boundary pressure at every graph node;
+# without it the boundary nodes' values are read off the edge arrays
 
 _SHAPES = {
     "scalar": lambda E, C, nq: (1,),
@@ -48,7 +50,10 @@ def assembler_from_reference_state(
     ``color_strategy`` must be the one the reference mesh was built with
     (``None``, its default, or ``"fast"``); when ``state`` also holds
     ``"edge_color"`` the port's coloring is checked against it, since the
-    global dof layout follows the colors.
+    global dof layout follows the colors.  The assembler also carries what
+    the assembled forms read: the boundary values (``state["node_pbc"]``
+    when given, else each boundary node's value from the edge arrays) and
+    the source load from ``f_mode``/``f_data``.
     """
     missing = [k for k in STATE_KEYS if k not in state]
     if missing:
@@ -92,6 +97,20 @@ def assembler_from_reference_state(
     asm._f_mode, asm._f_data = coeffs["f"]
     asm._edge_start_pbc = pbc["edge_start_pbc"]
     asm._edge_end_pbc = pbc["edge_end_pbc"]
+    V = mesh.num_graph_nodes
+    if state.get("node_pbc") is not None:
+        node_pbc = np.array(state["node_pbc"], dtype=np.float64)
+        if node_pbc.shape != (V,):
+            raise ValueError(f"node_pbc must have shape ({V},)")
+    else:
+        node_pbc = np.zeros(V)
+        edges = mesh.edges
+        at_start, at_end = asm._edge_start_bif < 0, asm._edge_end_bif < 0
+        node_pbc[edges[at_start, 0]] = pbc["edge_start_pbc"][at_start]
+        node_pbc[edges[at_end, 1]] = pbc["edge_end_pbc"][at_end]
+    asm._node_pbc = node_pbc
+    asm._b_host_cache = None
+    asm._set_source_load()
     asm._R_generation = 1
     asm._R_src = None
     asm._R_src_immutable = False

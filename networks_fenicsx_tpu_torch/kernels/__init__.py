@@ -44,6 +44,16 @@ K8b; its matvec on K18 or K19b):
   coarsest dense solve;
 * :mod:`.mg1d` — K19d, the 1-D pairing V-cycle's hierarchy and transfers.
 
+The assembled-matrix and continuous-pressure routes:
+
+* :mod:`.csr` — K20, the CSR duplicate fold of explicit assembly, and
+  K20b, the CSR matvec with the diagonal and Jacobi row reductions;
+* :mod:`.schur_p` — K21a, the per-edge flux blocks' band Cholesky factor
+  and solves of the continuous-pressure reduced solve;
+* :mod:`.dense_lu` — K21b, the float64 LU with partial pivoting, its solve
+  and the triangular solves;
+* :mod:`.krylov` also holds K19e, the MINRES steps.
+
 A wrapper launches its kernel for CUDA tensors (building the library from
 ``csrc/`` at first use, see :mod:`.build`) and runs the plain version for
 CPU tensors.  Each wrapper counts its launches in a plain integer attribute
@@ -52,16 +62,17 @@ CPU tensors.  Each wrapper counts its launches in a plain integer attribute
 """
 
 from . import (
-    backsub, condense, core_elim, core_fronts, dct_lattice, dense_core, edge_data, expand, fold,
-    gather_matvec, grid_core, krylov, level_eliminate, mf_apply, mf_factor, mg1d, mg2d, peel,
-    segsum, shift_matvec, tree_sweep,
+    backsub, condense, core_elim, core_fronts, csr, dct_lattice, dense_core, dense_lu, edge_data,
+    expand, fold, gather_matvec, grid_core, krylov, level_eliminate, mf_apply, mf_factor, mg1d,
+    mg2d, peel, schur_p, segsum, shift_matvec, tree_sweep,
 )
 
 __all__ = [
-    "backsub", "condense", "core_elim", "core_fronts", "dct_lattice", "dense_core", "edge_data", "expand", "fold",
-    "gather_matvec", "grid_core", "krylov", "level_eliminate", "mf_apply", "mf_factor", "mg1d", "mg2d",
-    "peel", "segsum", "shift_matvec", "tree_sweep",
-    "WRAPPERS", "BLOCKED", "GENERAL", "CYCLIC", "LATTICE", "ITERATIVE", "reset_launches", "launches",
+    "backsub", "condense", "core_elim", "core_fronts", "csr", "dct_lattice", "dense_core", "dense_lu",
+    "edge_data", "expand", "fold", "gather_matvec", "grid_core", "krylov", "level_eliminate",
+    "mf_apply", "mf_factor", "mg1d", "mg2d", "peel", "schur_p", "segsum", "shift_matvec",
+    "tree_sweep", "WRAPPERS", "BLOCKED", "GENERAL", "CYCLIC", "LATTICE", "ITERATIVE", "ASSEMBLED",
+    "reset_launches", "launches",
 ]
 
 BLOCKED = (condense.condense, tree_sweep.tree_sweep, expand.expand)
@@ -72,7 +83,8 @@ CYCLIC = (
 )
 LATTICE = (dct_lattice.dct_lattice, grid_core.grid_core, shift_matvec.shift_matvec)
 ITERATIVE = (krylov.LAUNCHES, gather_matvec.gather_matvec, mg2d.LAUNCHES, mg1d.LAUNCHES)
-WRAPPERS = BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE
+ASSEMBLED = (csr.FOLD, csr.SPMV, schur_p.FACTOR, schur_p.SOLVE, dense_lu.LAUNCHES, krylov.MINRES)
+WRAPPERS = BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE + ASSEMBLED
 
 
 def reset_launches() -> None:

@@ -230,6 +230,19 @@ _SIGNATURES = {
     ],
     "nxfx_mg1d_restrict": [_i, _i, _p, _p, _p],  # m, mc, res, rc, stream
     "nxfx_mg1d_prolong": [_i, _p, _p, _d, _p],  # m, x, ec, overcorrect, stream
+    "nxfx_krylov_minres_start": [
+        _i, _p, _p, _p, _p, _p, _p, _d, _d, _d, _p,  # n, b, r, y, v, part, ms, rtol, atol, maxiter
+    ],
+    "nxfx_krylov_minres_alpha": [_i, _p, _p, _p, _p, _p, _p, _p],  # n, v, yv, r1, r2, part, ms
+    "nxfx_krylov_minres_update": [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p],  # n, yv, y, v, w, w2, x, part, ms
+    "nxfx_csr_fold": [_l, _i, _l, _p, _p, _p, _p, _p],  # nnz, max_dup, nraw, perm, idx, vals, data
+    "nxfx_csr_spmv": [_i, _p, _p, _p, _p, _p, _p, _p],  # n, indptr, indices, data, v, signs, out
+    "nxfx_csr_rows": [_i, _i, _p, _p, _p, _p, _p, _p],  # n, mode, indptr, indices, data, adiag, out
+    "nxfx_schur_p_factor": [_i, _i, _i, _p, _p, _p, _p, _p],  # E, N, k, cell masses, base, Lb, adiag
+    "nxfx_schur_p_solve": [_i, _i, _i, _p, _p, _p, _p, _p, _p],  # E, N, k, Lb, base, v, Y, out
+    "nxfx_lu_factor": [_i, _p, _p, _p],  # n, A, piv, stream
+    "nxfx_lu_solve": [_i, _p, _p, _p, _p, _p],  # n, LU, piv, b, x, stream
+    "nxfx_trsv": [_i, _p, _i, _i, _i, _p, _p],  # n, A, lower, trans, unit, x, stream
 }
 
 

@@ -30,8 +30,8 @@ import torch
 from . import build
 
 __all__ = [
-    "cuda_launches", "dense_core", "dense_core_plain", "dense_factor", "assemble_core", "MAX_CORE", "PIVOT_RTOL",
-    "N_REFINE",
+    "cuda_launches", "dense_core", "dense_core_plain", "dense_factor", "dense_factor_plain",
+    "assemble_core", "MAX_CORE", "PIVOT_RTOL", "N_REFINE",
 ]
 
 MAX_CORE = 8192
@@ -106,12 +106,26 @@ def dense_core(ci, cj, pid, dc, rc, w_pairs, n_refine: int = N_REFINE) -> torch.
 dense_core.launches = 0
 
 
+def dense_factor_plain(ci, cj, pid, dc, w_pairs) -> tuple:
+    """Eager version of :func:`dense_factor`: ``(Lc, s, C)``, ``C`` lower
+    (NaN where the factor breaks down, as the kernel's square roots give)."""
+    Lc = assemble_core(ci, cj, pid, dc, w_pairs)
+    s = torch.sqrt(torch.diagonal(Lc))
+    chol, info = torch.linalg.cholesky_ex((Lc / s[:, None]) / s[None, :])
+    if int(info):
+        chol = torch.full_like(chol, torch.nan)
+    return Lc, s, chol
+
+
 def dense_factor(ci, cj, pid, dc, w_pairs) -> tuple:
-    """K11's assembly and factor alone, on the card: ``(Lc, s, C)`` with
-    ``s = sqrt(diag Lc)`` and ``C``'s lower triangle the Cholesky factor of
-    ``Ls = (Lc / s_i) / s_j`` (its strict upper triangle is scratch) —
-    what a check of the factor's backward error ``max|Ls − C Cᵀ|`` reads.
-    Counted with :func:`dense_core`'s launches."""
+    """K11's assembly and factor alone: ``(Lc, s, C)`` with ``s =
+    sqrt(diag Lc)`` and ``C``'s lower triangle the Cholesky factor of ``Ls =
+    (Lc / s_i) / s_j`` (its strict upper triangle is scratch) — what a check
+    of the factor's backward error ``max|Ls − C Cᵀ|`` reads, and the factor
+    of ``schur_method="dense_f64"``.  Counted with :func:`dense_core`'s
+    launches; runs :func:`dense_factor_plain` for CPU tensors."""
+    if dc.device.type == "cpu":
+        return dense_factor_plain(ci, cj, pid, dc, w_pairs)
     build.require_cuda("dense_factor", dc, w_pairs)
     build.require_cuda("dense_factor", ci, cj, pid, dtype=torch.int32)
     n = dc.shape[0]

@@ -11,8 +11,9 @@ rule, and the host reads the flag once per chunk.  The iteration count is
 the per-iteration rule's; a chunk's launches after ``done`` are wasted work.
 ``plain=True`` runs the same loop on the plain versions.
 
-``minres`` (``:120-224``) is not ported here: its one caller is the
-assembled-matrix route of ROADMAP A8.
+``minres`` (``:120-224``), the preconditioned MINRES of the assembled
+saddle-point route, is driven the same way on K19e's steps
+(``minres.flag_reads`` counts its host reads).
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ import torch
 
 from ..kernels import krylov as K19a
 
-__all__ = ["KrylovResult", "cg", "chebyshev_coefficients", "chebyshev_preconditioner", "CHUNK"]
+__all__ = [
+    "KrylovResult", "cg", "chebyshev_coefficients", "chebyshev_preconditioner", "minres", "CHUNK",
+]
 
 CHUNK = 4  # CG iterations launched between two host reads of the done flag
 
@@ -115,7 +118,55 @@ def cg(matvec, b: torch.Tensor, x0: torch.Tensor | None = None, precond=None, rt
             update_x(st, p, matvec(p), x, r, part)
             update_p(st, r, M(r), p, part)
     rnorm = state[K19a.RNORM]
+    cg.last_tol = state[K19a.TOL]
     return KrylovResult(x, int(state[K19a.K]), rnorm, rnorm <= state[K19a.TOL])
 
 
 cg.flag_reads = 0
+cg.last_tol = None  # the stop rule's max(rtol·‖b‖, atol) of the last run
+
+
+def minres(matvec, b: torch.Tensor, x0: torch.Tensor | None = None, precond=None,
+           rtol: float = 1e-12, atol: float = 0.0, maxiter: int | None = None, plain: bool = False,
+           chunk: int = CHUNK) -> KrylovResult:
+    """Preconditioned MINRES for symmetric (possibly indefinite) systems, the
+    preconditioner SPD (the reference's Paige-Saunders recurrence and stop
+    rule: iterate while ``k < maxiter`` and ``|φ̄| > max(rtol·‖b‖, atol)``,
+    ``maxiter = 4n + 20`` by default).  ``matvec`` and ``precond`` return
+    new vectors; counts its host reads in ``minres.flag_reads`` and keeps
+    the stop rule's tolerance in ``minres.last_tol``."""
+    if plain:
+        start, alpha, update = K19a.minres_start_plain, K19a.minres_alpha_plain, K19a.minres_update_plain
+    else:
+        start, alpha, update = K19a.minres_start, K19a.minres_alpha, K19a.minres_update
+    n = b.shape[0]
+    maxiter = int(maxiter) if maxiter is not None else 4 * n + 20
+    M = precond if precond is not None else (lambda v: v)
+    if x0 is None:
+        x, r = torch.zeros_like(b), b.clone()  # b − A·0
+    else:
+        x, r = x0.clone(), b - matvec(x0)
+    ms = K19a.minres_state(b.device)
+    part = K19a.partials(n, b.device)
+    v = torch.empty_like(b)
+    start(ms, b, r, M(r), v, part, rtol, atol, maxiter)
+    r1, r2 = torch.zeros_like(b), r
+    w, w2 = torch.zeros_like(b), torch.zeros_like(b)
+    while True:
+        state = ms.tolist()  # the one host read of a chunk
+        minres.flag_reads += 1
+        if state[K19a.M_DONE]:
+            break
+        for _ in range(chunk):
+            yv = matvec(v)
+            alpha(ms, v, yv, r1, r2, part)
+            r1, r2 = r2, yv
+            update(ms, yv, M(yv), v, w, w2, x, part)
+            w, w2 = w2, w
+    res = abs(state[K19a.M_PHIBAR])
+    minres.last_tol = state[K19a.M_TOL]
+    return KrylovResult(x, int(state[K19a.M_K]), res, res <= state[K19a.M_TOL])
+
+
+minres.flag_reads = 0
+minres.last_tol = None  # the stop rule's max(rtol·‖b‖, atol) of the last run

@@ -43,15 +43,33 @@ level; flux and pressure then follow from λ edge by edge.  The routes:
   :mod:`.kernels.mg1d`), Chebyshev-Jacobi or Jacobi as the reference picks
   them (:mod:`.multigrid`), then K8b.
 
+* dense — ``schur_method="dense"`` or ``"dense_f64"``: K8a, K9's
+  bifurcation system, the whole B×B Laplacian on K11 (its scaled factor
+  with the pivot gate and three refinement passes, or the factor alone and
+  one solve on K21b's triangular solves with the reference's unscaled
+  pivot gate), the residual on K18 or K19b, K8b;
+* no multiplier — a network without bifurcations: K8a and K8b, λ empty.
+
+Besides ``"schur"``: ``"schur_p"`` (``auto`` with continuous pressure), the
+reduced solve of :func:`_continuous_pressure_solve` — the per-edge flux
+blocks factored and applied by K21a (:mod:`.kernels.schur_p`), ``J = [B;
+G]`` and ``Jᵀ`` as CSR matrices (K20 fold, K20b products,
+:mod:`.kernels.csr`), CG (K19a) on ``J A⁻¹ Jᵀ``; and the generic methods on
+the assembled matrix (:func:`_generic_solve`): ``"dense"`` (K21b
+:mod:`.kernels.dense_lu`), ``"minres"`` (K19e on K20b) and ``"host_lu"``
+(SciPy on the host, as the reference).
+
 The device is explicit: ``Solver(asm, device="cuda")`` (the default) runs the
 CUDA kernels and raises when CUDA is absent; ``device="cpu"`` runs their
-plain PyTorch versions.  Everything outside these routes — the other
-methods and ``schur_method`` values (A8, A10) — raises
-``NotImplementedError`` naming its ROADMAP item.
+plain PyTorch versions.  ``schur_method="tree_dist"`` (A10), ``factorize()``
+(A3) and float32 (A4) raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 import typing
 
 import numpy as np
@@ -62,8 +80,8 @@ from .blocked import _permute_coefficient, _plan_blocked, device_plan
 from .edge_data import edge_layout
 from .function import NetworkFunction
 from .kernels import (
-    backsub, condense, dct_lattice, edge_data, expand, grid_core, krylov, level_eliminate, peel,
-    segsum, shift_matvec, tree_sweep,
+    backsub, condense, csr, dct_lattice, dense_core, dense_lu, edge_data, expand, grid_core, krylov,
+    level_eliminate, peel, schur_p, segsum, shift_matvec, tree_sweep,
 )
 from .lattice import (
     _DctPlan,
@@ -79,6 +97,7 @@ from .levels import (
     _plan_level_elimination,
     attach_core_plan,
     device_level_plan,
+    segsum_matrix,
 )
 from .multigrid import (
     GatherOperator,
@@ -89,7 +108,9 @@ from .multigrid import (
     device_mg1d_plan,
     mg2d_plan,
 )
-from .ops.krylov import cg, chebyshev_preconditioner
+from .ops.csr_assembly import build_csr_pattern, make_csr_assembler
+from .ops.krylov import cg, chebyshev_preconditioner, minres
+from .ops.sparse import CSRMatrix
 from .tree import device_tree_plan, tree_schur_solve
 from .utils.config import SolverOptions
 from .utils.timing import timed
@@ -98,8 +119,6 @@ __all__ = ["Solver", "SolveInfo", "build_schur_executor", "resolve_device"]
 
 # ROADMAP items of the schur_method variants the port does not run yet
 _SCHUR_METHOD_ITEM = {
-    "dense": "A8",
-    "dense_f64": "A8",
     "tree_dist": "A10",
 }
 
@@ -109,6 +128,15 @@ class SolveInfo(typing.NamedTuple):
     iterations: int
     residual: float
     converged: bool
+
+
+def _symmetrize_signs(offsets: np.ndarray, M: int, n: int) -> np.ndarray:
+    """Diagonal ±1 making the block system symmetric: the pressure rows
+    carry +div while the flux rows carry −divᵀ; negating the pressure rows
+    restores symmetry (reference ``solver.py:79-85``)."""
+    s = np.ones(n)
+    s[offsets[M] : offsets[M + 1]] = -1.0
+    return s
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -134,7 +162,9 @@ class Solver:
         petsc_options_prefix: Accepted for reference API parity; unused.
         petsc_options: Reference-style options dict; ``ksp_monitor`` and
             ``ksp_error_if_not_converged`` map onto :class:`SolverOptions`.
-        kind: Explicit matrix layout — not ported (ROADMAP A8); must be None.
+        kind: Matrix layout of :meth:`assemble` for the generic methods
+            ("bcoo"/"mpi"/"dense"/"nest"/"csr"); the Schur paths never
+            materialise the global matrix, and solve by Schur whatever it is.
         options: :class:`SolverOptions` or dict.
         device: ``"cuda"`` (default; raises without CUDA) or ``"cpu"``.
     """
@@ -166,11 +196,23 @@ class Solver:
         self._info: SolveInfo | None = None
         self._executor = None
         self._executor_key = None
+        self._A = None
+        self._b = None
 
     # ------------------------------------------------------------ properties
     @property
     def assembler(self) -> _assembly.HydraulicNetworkAssembler:
         return self._assembler
+
+    @property
+    def A(self):
+        """The assembled matrix of the last :meth:`assemble` (None before)."""
+        return self._A
+
+    @property
+    def b(self):
+        """The assembled right-hand side of the last :meth:`assemble`."""
+        return self._b
 
     @property
     def info(self) -> SolveInfo | None:
@@ -183,23 +225,23 @@ class Solver:
 
     def _method(self) -> str:
         m = self._options.method
-        if m == "auto":
-            m = "schur" if self._assembler.pressure_degree == 0 else "schur_p"
-        if m != "schur":
-            raise NotImplementedError(
-                f"ROADMAP A8: method {m!r} is not ported yet (the port runs 'schur')"
-            )
-        return m
+        if m != "auto":
+            return m
+        return "schur" if self._assembler.pressure_degree == 0 else "schur_p"
 
     # -------------------------------------------------------------- assemble
     def assemble(self, lhs: bool = True, rhs: bool = True) -> None:
-        """Prepare the solve: the Schur path materialises nothing, so this
-        only checks that the forms exist."""
-        del lhs, rhs
-        self._method()
-        if self._kind is not None:
-            raise NotImplementedError("ROADMAP A8: explicit matrix kinds are not ported yet")
-        self._assembler._require_forms()
+        """Assemble the system (reference ``solver.py:217-233``): nothing for
+        the Schur method, the global matrix and vector on the solver's
+        device for the other methods or an explicit ``kind``."""
+        method = self._method()
+        if method == "schur":
+            self._assembler._require_forms()
+        if method != "schur" or self._kind is not None:
+            kind = self._kind or ("dense" if method == "dense" else "bcoo")
+            self._A, self._b = self._assembler.assemble(
+                assemble_lhs=lhs, assemble_rhs=rhs, kind=kind, device=self._device
+            )
 
     # ----------------------------------------------------------------- solve
     @timed("nxfx:Solver:solve", block=True)
@@ -210,22 +252,30 @@ class Solver:
         ``[flux_color_0, ..., flux_color_{M-1}, pressure, global_flux]``
         where ``global_flux`` holds the multiplier values.
         """
-        self._method()
-        if self._kind is not None:
-            raise NotImplementedError("ROADMAP A8: explicit matrix kinds are not ported yet")
-        if self._assembler.network.has_floating_component():
+        method = self._method()
+        asm = self._assembler
+        if method in ("schur", "schur_p") and asm.network.has_floating_component():
             raise RuntimeError(
                 "Solver did not converge: network has a component with no "
                 "boundary node — the system is singular (pressure level "
                 "undetermined)"
             )
-        key = self._assembler.coefficient_modes()
-        if self._executor is None or self._executor_key != key:
-            self._executor = build_schur_executor(
-                self._assembler, self._options, device=self._device
-            )
-            self._executor_key = key
-        x, info = _schur_solve(self._assembler, self._options, self._executor)
+        if method == "schur":
+            key = asm.coefficient_modes()
+            if self._executor is None or self._executor_key != key:
+                self._executor = build_schur_executor(asm, self._options, device=self._device)
+                self._executor_key = key
+            x, info = _schur_solve(asm, self._options, self._executor)
+        elif method == "schur_p":
+            asm._require_forms()
+            if not isinstance(self._executor, _SchurPExecutor):
+                self._executor = _SchurPExecutor(asm, self._options, self._device)
+                self._executor_key = None
+            x, info = _continuous_pressure_solve(self._executor)
+        else:
+            if self._A is None or self._b is None:
+                self.assemble()
+            x, info = _generic_solve(self._A, self._b, asm, method, self._options)
         self._x = x
         self._info = info
         if self._options.monitor:
@@ -604,18 +654,23 @@ class _CgExecutor(_Executor):
         self._f_is_zero = bool(f_is_zero)
         self._device = device
         self._opts = opts
-        self.device_plan = dlp = device_lattice_plan(asm, _build_lambda_plan(asm), device)
-        self.precond_kind = kind = choose_preconditioner(opts, dlp.classes, mesh.num_multipliers)
-        if kind[0] == "2d":
-            self.precond_plan = mg2d_plan(dlp.offsets, mesh.num_multipliers, kind[1])
-        elif kind[0] == "1d":
-            self.precond_plan = device_mg1d_plan(kind[1], device)
-        else:
-            self.precond_plan = None
+        self.device_plan = device_lattice_plan(asm, _build_lambda_plan(asm), device)
         self._h_e = torch.as_tensor(
             np.asarray(mesh.edge_length, dtype=np.float64) / mesh.N, device=device
         )
         self._quad_w, self._quad_phi = self.upload(asm._quad_weights, asm._quad_phi)
+        self._plan_lambda_solve(asm)
+
+    def _plan_lambda_solve(self, asm) -> None:
+        """The preconditioner's kind and host plan."""
+        B, dlp = asm.network.num_multipliers, self.device_plan
+        self.precond_kind = kind = choose_preconditioner(self._opts, dlp.classes, B)
+        if kind[0] == "2d":
+            self.precond_plan = mg2d_plan(dlp.offsets, B, kind[1])
+        elif kind[0] == "1d":
+            self.precond_plan = device_mg1d_plan(kind[1], self._device)
+        else:
+            self.precond_plan = None
 
     def _operator(self, dr, w_edges, plain: bool):
         """``(operator, class weights or None)`` of this solve's λ system."""
@@ -655,13 +710,125 @@ class _CgExecutor(_Executor):
         dr, w_edges, rhs_norm = lam_sys(dlp, ed)
         op, cw = self._operator(dr, w_edges, plain)
         rhs = dr[:, 1].contiguous()
-        result = cg(op.apply, rhs, precond=self._preconditioner(op, cw, plain), rtol=opts.rtol,
-                    atol=opts.atol, maxiter=opts.maxiter, plain=plain)
-        lam = result.x
+        lam, iters = self._solve_lambda(op, cw, w_edges, rhs, plain)
         _, res_norm = op.residual(rhs, lam, norm=True)
         q_T, p_T, finite = expand_lam(ed, lam, N, k)
-        iters = torch.tensor(result.iters, dtype=torch.int32)
-        return q_T, p_T, lam, iters, res_norm, rhs_norm, finite
+        return q_T, p_T, lam, torch.tensor(iters, dtype=torch.int32), res_norm, rhs_norm, finite
+
+    def _solve_lambda(self, op, cw, w_edges, rhs, plain: bool):
+        """``(λ, iterations)``: preconditioned CG."""
+        opts = self._opts
+        result = cg(op.apply, rhs, precond=self._preconditioner(op, cw, plain), rtol=opts.rtol,
+                    atol=opts.atol, maxiter=opts.maxiter, plain=plain)
+        return result.x, result.iters
+
+
+class _DenseExecutor(_CgExecutor):
+    """The λ solve on the whole B×B bifurcation Laplacian (the reference's
+    ``schur_method="dense"`` and ``"dense_f64"`` branch of ``_finish``,
+    ``:4143-4166``), on one device.
+
+    As :class:`_CgExecutor` — K8a, K9's bifurcation system, the residual
+    ``‖Lλ − rhs‖`` on K18 or K19b, K8b — with the pair conductances (K6) and,
+    in place of CG, ``"dense"``: K11 on the whole Laplacian (Jacobi-scaled
+    factor, the pivot gate ``min > 1e-7·max``, three refinement passes);
+    ``"dense_f64"``: K11's factor alone and one solve on K21b's triangular
+    solves, λ NaN unless every unscaled pivot ``s_i·C_ii`` (the reference's
+    ``diag(cholesky(L))``) is finite and ``min > 1e-7·max``."""
+
+    def _plan_lambda_solve(self, asm) -> None:
+        """The pairs of the Laplacian (pair nodes, ids) and the K6 gather
+        matrix of their conductances."""
+        mesh = asm.network
+        if mesh.num_multipliers > dense_core.MAX_CORE:
+            raise ValueError(
+                f"schur_method={self._opts.schur_method!r} factors the B×B Laplacian densely: at "
+                f"most {dense_core.MAX_CORE} bifurcations, got {mesh.num_multipliers}"
+            )
+        tree_plan = _cached_tree_plan(asm)
+        pairs, ep = tree_plan.pair_nodes, tree_plan.edge_pair
+        sel = np.flatnonzero(ep >= 0)
+        order = np.argsort(ep[sel], kind="stable")
+
+        def i32(a):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=self._device)
+
+        self._pair_idx = i32(segsum_matrix(ep[sel][order], pairs.shape[0], mesh.num_edges,
+                                           sel=sel[order]))
+        self._ci, self._cj = i32(pairs[:, 0]), i32(pairs[:, 1])
+        self._pid = i32(np.arange(pairs.shape[0]))
+
+    def _solve_lambda(self, op, cw, w_edges, rhs, plain: bool):
+        sums = segsum.segsum_plain if plain else segsum.segsum
+        if self._pid.shape[0]:
+            w_pairs = sums(self._pair_idx, w_edges)
+        else:
+            w_pairs = torch.zeros(0, dtype=torch.float64, device=rhs.device)
+        pairs = (self._ci, self._cj, self._pid)
+        if self._opts.schur_method == "dense":
+            solve = dense_core.dense_core_plain if plain else dense_core.dense_core
+            return solve(*pairs, op.diag, rhs, w_pairs), 0
+        factor = dense_core.dense_factor_plain if plain else dense_core.dense_factor
+        tri = dense_lu.trsv_plain if plain else dense_lu.trsv
+        _, s, C = factor(*pairs, op.diag, w_pairs)
+        y = tri(C, (rhs / s).contiguous(), lower=True)
+        lam = tri(C, y, lower=True, trans=True) / s
+        piv = s * torch.diagonal(C)
+        ok = torch.all(torch.isfinite(piv)) & (piv.min() > dense_core.PIVOT_RTOL * piv.max())
+        return torch.where(ok, lam, torch.nan), 0
+
+
+@dataclasses.dataclass(frozen=True)
+class _EdgePlan:
+    """The bifurcation at each edge end (-1 at a boundary node) on the
+    device: what the edge-data and back-substitution kernels read."""
+
+    start_bif: torch.Tensor
+    end_bif: torch.Tensor
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.start_bif.shape[0])
+
+
+class _EdgeExecutor(_Executor):
+    """A network without bifurcations (the reference's ``B = 0`` branch of
+    ``_finish``, ``:4244-4248``): K8a and K8b with an empty λ, in public
+    order; iterations 0, residual 0 and ``‖rhs‖ = 0``."""
+
+    def __init__(self, asm, R_mode, f_mode, f_is_zero, device):
+        mesh = asm.network
+        self._N = mesh.N
+        self._k = asm.flux_degree
+        self._R_mode = R_mode
+        self._f_mode = f_mode
+        self._f_is_zero = bool(f_is_zero)
+        self._device = device
+
+        def i32(a):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
+
+        self.device_plan = _EdgePlan(i32(asm._edge_start_bif), i32(asm._edge_end_bif))
+        self._h_e = torch.as_tensor(
+            np.asarray(mesh.edge_length, dtype=np.float64) / mesh.N, device=device
+        )
+        self._quad_w, self._quad_phi = self.upload(asm._quad_weights, asm._quad_phi)
+
+    def _run(self, R_data, f_data, start_pbc, end_pbc, plain: bool):
+        R, f, sp, ep = self.upload(R_data, f_data, start_pbc, end_pbc)
+        make, expand_lam = (
+            (edge_data.edge_data_plain, backsub.backsub_plain) if plain
+            else (edge_data.edge_data, backsub.backsub)
+        )
+        ed = make(
+            self.device_plan, self._N, self._k, self._h_e, self._quad_w, self._quad_phi, R, f,
+            self._R_mode, self._f_mode, self._f_is_zero, sp, ep,
+        )
+        lam = torch.zeros(0, dtype=torch.float64, device=self._device)
+        q_T, p_T, finite = expand_lam(ed, lam, self._N, self._k)
+        zero = torch.zeros((), dtype=torch.float64, device=self._device)
+        iters = torch.zeros((), dtype=torch.int32, device=self._device)
+        return q_T, p_T, lam, iters, zero, zero, finite
 
 
 def _dct_executor(asm, dct: _DctPlan, R_mode, f_mode, f_zero, device):
@@ -711,14 +878,16 @@ def build_schur_executor(
     opts: SolverOptions,
     device: torch.device | str = "cuda",
     _tree_plan=None,
-) -> _BlockedExecutor | _LevelExecutor | _TreeExecutor | _DctExecutor | _CgExecutor:
+) -> _Executor:
     """Build the executor, or raise ``NotImplementedError`` (naming the
     ROADMAP item) outside the ported routes.
 
     Routes as the reference's
     ``build_schur_executor(outputs="blocks", internal_layout=True)``:
     ``schur_method="dct"`` takes the DCT lattice solve or raises the
-    reference's ``ValueError`` without a DCT plan; ``"cg"`` the CG executor
+    reference's ``ValueError`` without a DCT plan; any other method on a
+    network without bifurcations the edge executor (λ empty);
+    ``"dense"``/``"dense_f64"`` the dense executor; ``"cg"`` the CG executor
     (never the DCT solve); otherwise the tree plan;
     on a forest the level plan, then the blocked executor when
     ``_plan_blocked`` succeeds and neither coefficient is quad-mode, the
@@ -732,7 +901,7 @@ def build_schur_executor(
     same kernels (the two reference variants are pinned equal)."""
     if opts.dtype != "float64" or opts.output_dtype not in ("same", "float64"):
         raise NotImplementedError("ROADMAP A4: float32 solves and outputs are not ported yet")
-    if opts.schur_method not in ("auto", "tree", "dct", "cg"):
+    if opts.schur_method in _SCHUR_METHOD_ITEM:
         item = _SCHUR_METHOD_ITEM[opts.schur_method]
         raise NotImplementedError(
             f"ROADMAP {item}: schur_method={opts.schur_method!r} is not ported yet"
@@ -740,12 +909,11 @@ def build_schur_executor(
     if asm.pressure_degree != 0:
         raise ValueError("schur method requires discontinuous (degree-0) pressure")
     device = resolve_device(device)
-    if asm.network.num_multipliers == 0:
-        raise NotImplementedError(
-            "ROADMAP A8: a network without bifurcations takes the reference's dense "
-            "route, which is not ported yet"
-        )
     R_mode, f_mode, f_zero = asm.coefficient_modes()
+    if asm.network.num_multipliers == 0 and opts.schur_method != "dct":
+        return _EdgeExecutor(asm, R_mode, f_mode, f_zero, device)
+    if opts.schur_method in ("dense", "dense_f64"):
+        return _DenseExecutor(asm, opts, R_mode, f_mode, f_zero, device)
     if opts.schur_method == "dct":
         dct = lattice_dct_plan(asm, R_mode)
         if dct is None:
@@ -775,9 +943,7 @@ def build_schur_executor(
 
 
 def _schur_solve(
-    asm: _assembly.HydraulicNetworkAssembler,
-    opts: SolverOptions,
-    executor: _BlockedExecutor | _LevelExecutor | _TreeExecutor | _DctExecutor | _CgExecutor,
+    asm: _assembly.HydraulicNetworkAssembler, opts: SolverOptions, executor: _Executor
 ) -> tuple[np.ndarray, SolveInfo]:
     args = executor.prepare_args(*asm.schur_arguments(device=False))
     q_T, p_T, lam, iters, residual, rhs_norm, finite = executor(*args)
@@ -795,8 +961,8 @@ def _schur_solve(
     # system's float64 residual cannot land below ~κ·ε·‖rhs‖ for any
     # backward-stable direct method; the DCT executors carry κ ≈ n² of an
     # n-wide lattice, the tree-family eliminations report residual 0 and no
-    # hint, so for them it holds exactly when the solution is finite; CG
-    # reports its true residual ‖Lλ − rhs‖ and no hint.
+    # hint, so for them it holds exactly when the solution is finite; CG and
+    # the dense executor report the true residual ‖Lλ − rhs‖ and no hint.
     kappa = float(getattr(executor, "kappa_hint", 0.0))
     floor = 64.0 * float(np.finfo(np.float64).eps) * kappa * rhs_norm
     converged = (
@@ -804,6 +970,197 @@ def _schur_solve(
         and bool(finite)
     )
     return x, SolveInfo("schur", int(iters), residual, converged)
+
+
+# ======================================================================
+# Continuous pressure: the reduced (p, λ) solve
+# ======================================================================
+
+
+class _SchurPExecutor:
+    """The continuous-pressure reduced solve on one device (reference
+    ``_continuous_pressure_solve``, ``:4644-4747``).
+
+    Holds what is static per assembler, built once (its time in
+    ``planning_s``): ``J = [B; G]`` — the reduced rows' flux columns of the
+    COO stream — and ``Jᵀ`` as two :class:`.ops.sparse.CSRMatrix` whose
+    values the K20 fold writes, the first flux dof of every edge, the
+    ``(p, −λ)`` sign vector.  ``__call__`` solves from the assembler's
+    current cell masses and right-hand side; ``plain`` runs the kernels'
+    plain versions.  Returns ``(x (n,) on the device, iterations, CG
+    residual, converged)``."""
+
+    def __init__(self, asm, opts: SolverOptions, device: torch.device):
+        t0 = time.perf_counter()
+        mesh = asm.network
+        self._asm, self._opts, self._device = asm, opts, device
+        self._N, self._k = mesh.N, asm.flux_degree
+        M = mesh.num_edge_colors
+        n_flux = int(asm.block_offsets[M])
+        n_red = asm.num_dofs - n_flux
+        self.n_flux = n_flux
+        nm = mesh.num_cells * (self._k + 1) ** 2  # the mass block: flux rows only
+        rows, cols = asm._all_rows[nm:], asm._all_cols[nm:]
+        sel = np.flatnonzero((rows >= n_flux) & (cols < n_flux))
+        jr, jc = rows[sel] - n_flux, cols[sel]
+        self.j_raw = int(sel.size)
+        vals = torch.as_tensor(asm._static_vals[sel], device=device)
+
+        def folded(r, c, shape) -> CSRMatrix:
+            pattern = build_csr_pattern(r, c, shape)
+            return CSRMatrix(make_csr_assembler(pattern)(vals), pattern.indices, pattern.indptr,
+                             shape)
+
+        self.J = folded(jr, jc, (n_red, n_flux))
+        self.JT = folded(jc, jr, (n_flux, n_red))
+        self.base = torch.as_tensor(asm._edge_flux_base.astype(np.int32), device=device)
+        B = mesh.num_multipliers
+        self.sign = torch.cat([torch.ones(n_red - B, dtype=torch.float64, device=device),
+                               -torch.ones(B, dtype=torch.float64, device=device)])
+        self.planning_s = time.perf_counter() - t0
+
+    def __call__(self):
+        return self._run(plain=False)
+
+    def plain(self):
+        return self._run(plain=True)
+
+    def _run(self, plain: bool):
+        asm, opts, N, k = self._asm, self._opts, self._N, self._k
+        if plain:
+            factor, solve, tdiag, jac = (schur_p.schur_p_factor_plain, schur_p.schur_p_solve_plain,
+                                         csr.csr_tdiag_plain, krylov.jacobi_plain)
+            spmv = csr.csr_spmv_plain
+        else:
+            factor, solve, tdiag, jac = (schur_p.schur_p_factor, schur_p.schur_p_solve,
+                                         csr.csr_tdiag, krylov.jacobi)
+            spmv = csr.csr_spmv
+        J, JT = self.J.device_arrays, self.JT.device_arrays
+        Lb, A_diag = factor(asm._cell_mass_on(self._device), self.base, N, k, self.n_flux)
+
+        def A_inv(v):
+            return solve(Lb, self.base, N, k, v)
+
+        Tdiag = tdiag(*J, A_diag)
+        b = torch.as_tensor(asm._b_host, device=self._device)
+        b_q, b_red = b[: self.n_flux], b[self.n_flux :]
+        rhs = b_red - spmv(*J, A_inv(b_q))
+        # T = J A⁻¹ Jᵀ on z = (p, −λ): SPD for inf-sup stable pairings
+        result = cg(lambda z: spmv(*J, A_inv(spmv(*JT, z))), rhs,
+                    precond=lambda v: jac(v, Tdiag), rtol=opts.rtol if opts.rtol > 0 else 1e-12,
+                    atol=opts.atol, maxiter=opts.maxiter, plain=plain)
+        z = result.x
+        q = A_inv(b_q + spmv(*JT, z))
+        return torch.cat([q, self.sign * z]), result.iters, result.residual, result.converged
+
+
+def _continuous_pressure_solve(executor: _SchurPExecutor) -> tuple[np.ndarray, SolveInfo]:
+    """Structure-exploiting solve for continuous pressure (degree >= 1): q
+    eliminated edge by edge, Jacobi-preconditioned CG on the SPD reduced
+    operator ``T = J A⁻¹ Jᵀ`` for ``z = (p, −λ)``, then ``q = A⁻¹(b_q +
+    Jᵀz)`` (reference ``:4644-4747``)."""
+    x, iters, residual, converged = executor()
+    return x.cpu().numpy(), SolveInfo("schur_p", int(iters), float(residual), bool(converged))
+
+
+# ======================================================================
+# Generic paths: dense / minres / host LU on the assembled system
+# ======================================================================
+
+
+def _to_dense(A) -> torch.Tensor:
+    """The assembled matrix as a dense tensor (its unique entries written)."""
+    if isinstance(A, CSRMatrix):
+        return A.todense()
+    if isinstance(A, torch.Tensor) and A.is_sparse:
+        out = torch.zeros(A.shape, dtype=A.dtype, device=A.device)
+        idx = A.indices()
+        out[idx[0], idx[1]] = A.values()
+        return out
+    if isinstance(A, torch.Tensor):
+        return A
+    raise TypeError(f"the generic methods take one assembled matrix, not {type(A).__name__}")
+
+
+def _as_csr(A) -> CSRMatrix:
+    """The assembled matrix as a :class:`.ops.sparse.CSRMatrix` (values on
+    its device, structure on the host)."""
+    if isinstance(A, CSRMatrix):
+        return A
+    if isinstance(A, torch.Tensor) and not A.is_sparse:
+        A = A.to_sparse()
+    if not (isinstance(A, torch.Tensor) and A.is_sparse):
+        raise TypeError(f"the generic methods take one assembled matrix, not {type(A).__name__}")
+    idx = A.indices().cpu().numpy()
+    indptr = np.zeros(A.shape[0] + 1, dtype=np.int64)
+    np.cumsum(np.bincount(idx[0], minlength=A.shape[0]), out=indptr[1:])
+    return CSRMatrix(A.values(), idx[1].astype(np.int32), indptr, tuple(A.shape))
+
+
+def _to_scipy(A):
+    import scipy.sparse as sp
+
+    if isinstance(A, CSRMatrix):
+        return A.to_scipy().tocsc()
+    if isinstance(A, torch.Tensor) and A.is_sparse:
+        idx = A.indices().cpu().numpy()
+        return sp.csc_matrix((A.values().cpu().numpy(), (idx[0], idx[1])), shape=tuple(A.shape))
+    return sp.csc_matrix(_to_dense(A).cpu().numpy())
+
+
+def _extract_diagonal(A, plain: bool = False) -> torch.Tensor:
+    """The diagonal of the assembled matrix (K20b's row reduction)."""
+    return (csr.csr_diagonal_plain if plain else csr.csr_diagonal)(*_as_csr(A).device_arrays)
+
+
+def _generic_solve(A, b: torch.Tensor, asm: _assembly.HydraulicNetworkAssembler, method: str,
+                   opts: SolverOptions, plain: bool = False) -> tuple[np.ndarray, SolveInfo]:
+    """``"dense"`` (K21b: LU with partial pivoting, the residual gate
+    ``‖Ax − b‖ ≤ max(100·rtol·‖b‖, 1e-8)``), ``"host_lu"`` (SciPy ``splu``
+    on the host, gate 1e-6) or ``"minres"`` (K19e on ``signs ⊙ (A·v)``
+    through K20b, Jacobi on ``|diag|`` with 1 where it is 0) on the
+    assembled system (reference ``:4781-4839``); ``plain`` runs the
+    kernels' plain versions."""
+    n = asm.num_dofs
+    M = asm.network.num_edge_colors
+    if method == "dense":
+        Ad = _to_dense(A)
+        factor, solve = ((dense_lu.lu_factor_plain, dense_lu.lu_solve_plain) if plain
+                         else (dense_lu.lu_factor, dense_lu.lu_solve))
+        x = solve(*factor(Ad), b)
+        res = float(torch.linalg.norm(Ad @ x - b))
+        ok = res <= max(opts.rtol * float(torch.linalg.norm(b)) * 100, 1e-8)
+        finite = bool(torch.all(torch.isfinite(x)))
+        return x.cpu().numpy(), SolveInfo("dense", 0, res, ok and finite)
+
+    if method == "host_lu":
+        import scipy.sparse.linalg as spla
+
+        As = _to_scipy(A)
+        b_np = b.cpu().numpy()
+        x = spla.splu(As.tocsc()).solve(b_np)
+        res = float(np.linalg.norm(As @ x - b_np))
+        return x, SolveInfo("host_lu", 0, res, res <= 1e-6)
+
+    if method == "minres":
+        csr_A = _as_csr(A)
+        dev = csr_A.data.device
+        signs = torch.as_tensor(_symmetrize_signs(asm.block_offsets, M, n), device=dev)
+        arrays = csr_A.device_arrays
+        spmv, jac = ((csr.csr_spmv_plain, krylov.jacobi_plain) if plain
+                     else (csr.csr_spmv, krylov.jacobi))
+        # Jacobi on |diag| of the symmetrized operator, 1 where it vanishes
+        # (the p and λ rows)
+        d = _extract_diagonal(csr_A, plain).abs()
+        d = torch.where(d > 0, d, 1.0)
+        result = minres(lambda v: spmv(*arrays, v, signs), signs * b.to(dev),
+                        precond=lambda v: jac(v, d), rtol=opts.rtol, atol=opts.atol,
+                        maxiter=opts.maxiter, plain=plain)
+        return result.x.cpu().numpy(), SolveInfo(
+            "minres", int(result.iters), float(result.residual), bool(result.converged)
+        )
+
+    raise ValueError(f"unknown solver method {method!r}")
 
 
 def _flatten_blocks_host(

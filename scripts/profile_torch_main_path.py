@@ -37,6 +37,12 @@ Builds one configuration of ``chip_smoke.py`` (``--path``):
 * ``skinny-mg`` — ``make_grid(3, 2000)``, N = 1, per-edge R from seed 4,
   p_bc = y (35,997 dofs) under ``cg_precond="mg"``: CG with the 1-D pairing
   multigrid (K19a, K18, K19d, K19c's coarsest solve);
+* ``p1tree`` — the benchmark tree with continuous pressure (flux degree 2,
+  pressure degree 1; 7,962,503 dofs): the reduced ``schur_p`` solve (K21a,
+  K20b, K19a; K20 once, building J and Jᵀ);
+* ``minres`` — ``make_arterial_tree(8)``, N = 4, flux degree 1 (2,422
+  dofs) under ``method="minres"``, rtol 1e-12: assemble (K20) and MINRES
+  (K19e on K20b, K19a's Jacobi);
 
 then
 
@@ -50,6 +56,8 @@ then
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
+
+(``--generations`` sets the depth of ``blocked``, ``callable`` and ``p1tree``.)
 
 Prints one JSON object; ``--out`` also writes it to a file.
 """
@@ -73,8 +81,10 @@ import chip_smoke  # noqa: E402
 import networks_fenicsx_tpu_torch as P  # noqa: E402
 from networks_fenicsx_tpu_torch.ops import krylov as cg_loop  # noqa: E402
 from networks_fenicsx_tpu_torch.solver import (  # noqa: E402
-    _CgExecutor, _flatten_blocks_host, build_schur_executor,
+    _CgExecutor, _flatten_blocks_host, _generic_solve, build_schur_executor,
 )
+
+GENERIC_PATHS = ("p1tree", "minres")
 
 
 def kernel_sources() -> dict[str, str]:
@@ -138,6 +148,11 @@ def configure(path: str, generations: int):
     elif path == "web-cg":
         asm, forms = chip_smoke.web_assembler(P), chip_smoke.forest_forms
         options = P.SolverOptions(schur_method="cg")
+    elif path == "p1tree":
+        asm, forms = chip_smoke.p1tree_assembler(P, generations), chip_smoke.p1tree_forms
+    elif path == "minres":
+        asm, forms = chip_smoke.minres_assembler(P), chip_smoke.p1tree_forms
+        options = P.SolverOptions(method="minres", rtol=1e-12)
     elif path == "skinny-mg":
         forms = chip_smoke.skinny_forms
         asm = chip_smoke.lattice_assembler(P, 3, 2000, forms=forms)
@@ -174,11 +189,43 @@ def phases(asm, solver, forms) -> dict[str, float]:
     return {n: (b - a) * 1e3 for n, a, b in zip(names, t[:-1], t[1:])}
 
 
+def generic_phases(asm, solver, forms, path: str) -> dict[str, float]:
+    """One compute_forms + solve of ``p1tree`` or ``minres``, split at its
+    phase boundaries (ms)."""
+    t = [sync_clock()]
+    forms(asm)
+    t.append(sync_clock())
+    if path == "p1tree":
+        x = solver._executor()[0]
+        t.append(sync_clock())
+        x = x.cpu().numpy()
+        names = ["compute_forms", "executor (factor, b upload, CG, flux)", "device_to_host"]
+    else:
+        solver.assemble()
+        t.append(sync_clock())
+        x, _ = _generic_solve(solver.A, solver.b, asm, "minres", solver._options)
+        names = ["compute_forms", "assemble (values upload, K20 fold, b)",
+                 "minres (with the copy to the host)"]
+    t.append(sync_clock())
+    solver._scatter_functions(None, x)
+    t.append(sync_clock())
+    names.append("scatter")
+    return {n: (b - a) * 1e3 for n, a, b in zip(names, t[:-1], t[1:])}
+
+
+def solve_once(solver, path: str) -> None:
+    """What a user runs after compute_forms: the generic methods assemble again."""
+    if path == "minres":
+        solver.assemble()
+    solver.solve()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("blocked", "callable", "forest", "web", "web1000", "bed",
                                        "lattice", "lattice-callable", "web2k", "lattice64",
-                                       "fronts128", "cg512", "web-cg", "skinny-mg"),
+                                       "fronts128", "cg512", "web-cg", "skinny-mg",
+                                       *GENERIC_PATHS),
                     default="blocked")
     ap.add_argument("--generations", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
@@ -197,19 +244,25 @@ def main() -> int:
     if tree_plan is not None:  # the forced plan's executor, as the reference's tests build it
         solver._executor = build_schur_executor(asm, options, device="cuda", _tree_plan=tree_plan)
         solver._executor_key = asm.coefficient_modes()
-    solver.solve()  # builds the kernels and the executor
+    t0 = sync_clock()
+    solve_once(solver, args.path)  # builds the kernels and the executor
+    first_ms = (sync_clock() - t0) * 1e3
 
-    runs = [phases(asm, solver, forms) for _ in range(args.reps)]
+    if args.path in GENERIC_PATHS:
+        runs = [generic_phases(asm, solver, forms, args.path) for _ in range(args.reps)]
+    else:
+        runs = [phases(asm, solver, forms) for _ in range(args.reps)]
     best = {k: min(r[k] for r in runs) for k in runs[0]}
 
     cg_loop.cg.flag_reads = 0
+    cg_loop.minres.flag_reads = 0
     solve_ms = []
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.reps):
             t0 = sync_clock()
-            solver.solve()
+            solve_once(solver, args.path)
             solve_ms.append((sync_clock() - t0) * 1e3)
     device_us: dict[str, float] = {}
     launches: dict[str, float] = {}
@@ -226,7 +279,8 @@ def main() -> int:
     sources = kernel_sources()
     for key, us in device_us.items():
         name = key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
-        name = name.split("::")[-1].strip()
+        # a template's key starts with its return type
+        name = (name.split("::")[-1].split() or [""])[-1]
         src = "copies" if key.startswith("Memcpy") else sources.get(name, "PyTorch")
         acc = by_source.setdefault(src, [0.0, 0.0])
         acc[0] += us
@@ -236,6 +290,7 @@ def main() -> int:
         "path": args.path,
         "executor": type(solver._executor).__name__,
         "dofs": asm.num_dofs,
+        "first_solve_ms": first_ms,
         "phase_best_ms": best,
         "solve_ms_profiled": solve_ms,
         "device_us_per_solve": dict(sorted(device_us.items(), key=lambda kv: -kv[1])),
@@ -246,6 +301,12 @@ def main() -> int:
         "device_busy_ms_per_solve": busy_ms,
         "device_idle_share": 1.0 - busy_ms / mean_solve if mean_solve else None,
     }
+    if args.path in GENERIC_PATHS:
+        loop = cg_loop.cg if args.path == "p1tree" else cg_loop.minres
+        result["iterative"] = {"method": solver.info.method, "iterations": solver.info.iterations,
+                               "chunk": cg_loop.CHUNK,
+                               "flag_reads_per_solve": loop.flag_reads / args.reps,
+                               "residual": solver.info.residual, "tolerance": loop.last_tol}
     if isinstance(solver._executor, _CgExecutor):
         result["cg"] = {"iterations": solver.info.iterations, "chunk": cg_loop.CHUNK,
                         "flag_reads_per_solve": cg_loop.cg.flag_reads / args.reps,
