@@ -28,7 +28,7 @@ import torch
 
 from .ops import elements
 
-__all__ = ["DevicePlan", "device_plan", "flatten_plan"]
+__all__ = ["DevicePlan", "EndsPlan", "IndexedEnds", "device_plan", "ends_plan", "flatten_plan"]
 
 
 class _BlockedLevel(typing.NamedTuple):
@@ -317,3 +317,48 @@ def device_plan(plan: _BlockedPlan, device: torch.device | str) -> DevicePlan:
         level_offsets=tuple(int(o) for o in plan.bif_offsets),
         **tensors,
     )
+
+
+class IndexedEnds(typing.NamedTuple):
+    """Edge ends by index into a multiplier vector, for rows that no level
+    structure orders (a shard's rows, whose ends reach past its own
+    bifurcations): ``edge_src``/``edge_tgt (E,)``, ``-1`` at a boundary."""
+
+    edge_src: np.ndarray
+    edge_tgt: np.ndarray
+
+    @property
+    def s_is_bif(self) -> np.ndarray:
+        return self.edge_src >= 0
+
+    @property
+    def t_is_bif(self) -> np.ndarray:
+        return self.edge_tgt >= 0
+
+
+@dataclasses.dataclass(frozen=True)
+class EndsPlan:
+    """An :class:`IndexedEnds` on one device: what K1 and K5 read of a plan
+    (``edge_src``, ``edge_tgt`` int32, and the λ length
+    ``num_bifurcations`` they index)."""
+
+    plan: IndexedEnds
+    edge_src: torch.Tensor
+    edge_tgt: torch.Tensor
+    num_bifurcations: int
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.edge_src.shape[0])
+
+
+def ends_plan(edge_src, edge_tgt, n_lambda: int, device: torch.device | str) -> EndsPlan:
+    """Upload edge ends indexing a λ vector of length ``n_lambda``."""
+    src = np.asarray(edge_src, np.int64)
+    tgt = np.asarray(edge_tgt, np.int64)
+
+    def i32(a):
+        return torch.as_tensor(a.astype(np.int32), device=device)
+
+    return EndsPlan(plan=IndexedEnds(src, tgt), edge_src=i32(src), edge_tgt=i32(tgt),
+                    num_bifurcations=int(n_lambda))

@@ -54,6 +54,20 @@ The assembled-matrix and continuous-pressure routes:
   and the triangular solves;
 * :mod:`.krylov` also holds K19e, the MINRES steps.
 
+The sharded solves (:mod:`..parallel`), per shard and across the shards:
+
+* :mod:`.shard_top` — K22-reduce, the shards' partials summed in shard
+  order (also placed as strip windows, and the finiteness min), and the T
+  solve of the top forest;
+* :mod:`.shard_blocked` — K22a, the blocked shard's T partials and λ around
+  its K1, K2–K4 (split at level 0: ``tree_sweep_forward``/``_backward``) and K5;
+* :mod:`.shard_grid` — K22b, the lattice strip's windows and stub groups,
+  and the replicated per-edge conductances, around K1, K16, K17 and K5;
+* :mod:`.dist_tree` — K22c, the distributed tree shard's folds and level
+  walks around K8a and K8b;
+* :mod:`.shard_general` — K22d, the general shard's λ-system partials and
+  its part of the CG matvec, on the kernels of K9, K6 and K19b.
+
 A wrapper launches its kernel for CUDA tensors (building the library from
 ``csrc/`` at first use, see :mod:`.build`) and runs the plain version for
 CPU tensors.  Each wrapper counts its launches in a plain integer attribute
@@ -63,15 +77,17 @@ CPU tensors.  Each wrapper counts its launches in a plain integer attribute
 
 from . import (
     backsub, condense, core_elim, core_fronts, csr, dct_lattice, dense_core, dense_lu, edge_data,
-    expand, fold, gather_matvec, grid_core, krylov, level_eliminate, mf_apply, mf_factor, mg1d,
-    mg2d, peel, schur_p, segsum, shift_matvec, tree_sweep,
+    dist_tree, expand, fold, gather_matvec, grid_core, krylov, level_eliminate, mf_apply, mf_factor,
+    mg1d, mg2d, peel, schur_p, segsum, shard_blocked, shard_general, shard_grid, shard_top,
+    shift_matvec, tree_sweep,
 )
 
 __all__ = [
     "backsub", "condense", "core_elim", "core_fronts", "csr", "dct_lattice", "dense_core", "dense_lu",
     "edge_data", "expand", "fold", "gather_matvec", "grid_core", "krylov", "level_eliminate",
     "mf_apply", "mf_factor", "mg1d", "mg2d", "peel", "schur_p", "segsum", "shift_matvec",
-    "tree_sweep", "WRAPPERS", "BLOCKED", "GENERAL", "CYCLIC", "LATTICE", "ITERATIVE", "ASSEMBLED",
+    "tree_sweep", "dist_tree", "shard_blocked", "shard_general", "shard_grid", "shard_top",
+    "WRAPPERS", "BLOCKED", "GENERAL", "CYCLIC", "LATTICE", "ITERATIVE", "ASSEMBLED", "SHARDED",
     "reset_launches", "launches",
 ]
 
@@ -84,7 +100,9 @@ CYCLIC = (
 LATTICE = (dct_lattice.dct_lattice, grid_core.grid_core, shift_matvec.shift_matvec)
 ITERATIVE = (krylov.LAUNCHES, gather_matvec.gather_matvec, mg2d.LAUNCHES, mg1d.LAUNCHES)
 ASSEMBLED = (csr.FOLD, csr.SPMV, schur_p.FACTOR, schur_p.SOLVE, dense_lu.LAUNCHES, krylov.MINRES)
-WRAPPERS = BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE + ASSEMBLED
+SHARDED = (shard_top.REDUCE, shard_top.T_SOLVE, shard_blocked.LAUNCHES, shard_grid.LAUNCHES,
+           dist_tree.LAUNCHES, shard_general.LAUNCHES)
+WRAPPERS = BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE + ASSEMBLED + SHARDED
 
 
 def reset_launches() -> None:

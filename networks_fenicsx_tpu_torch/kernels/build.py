@@ -45,6 +45,16 @@ _SIGNATURES = {
         _p, _p, _p,  # w, const, Ftot
         _p, _p, _p, _p, _p, _p,  # d, r, wn, lam, rhs_norm, stream
     ],
+    "nxfx_tree_sweep_forward": [
+        _i, _i, _i, _p,  # B, Kmax, L, host level offsets
+        _p, _p, _p,  # bif_in, bif_out, bif_child
+        _p, _p, _p,  # w, const, Ftot
+        _p, _p, _p, _p, _p,  # d, r, wn, rhs_sq, stream
+    ],
+    "nxfx_tree_sweep_backward": [
+        _i, _i, _p, _p,  # B, L, host level offsets, bif_parent
+        _p, _p, _p, _p, _p,  # d, r, wn, lam, stream
+    ],
     "nxfx_expand": [
         _i, _i, _i, _i,  # E, B, N, k
         _p, _p, _p, _p, _p,  # lam, edge_src, edge_tgt, start_pbc, end_pbc
@@ -77,6 +87,12 @@ _SIGNATURES = {
         _i, _i, _p,  # B, L, host level offsets
         _p, _p, _p, _p,  # parent_pos, parent_pair, child_ptr, perm
         _p, _p, _p,  # w_pairs, dt_t, dt_s
+        _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam_perm, lam, rhs_norm, stream
+    ],
+    "nxfx_level_eliminate_system": [
+        _i, _i, _p,  # B, L, host level offsets
+        _p, _p, _p, _p,  # parent_pos, parent_pair, child_ptr, perm
+        _p, _p,  # w_pairs, dr
         _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam_perm, lam, rhs_norm, stream
     ],
     "nxfx_backsub": [
@@ -243,6 +259,48 @@ _SIGNATURES = {
     "nxfx_lu_factor": [_i, _p, _p, _p],  # n, A, piv, stream
     "nxfx_lu_solve": [_i, _p, _p, _p, _p, _p],  # n, LU, piv, b, x, stream
     "nxfx_trsv": [_i, _p, _i, _i, _i, _p, _p],  # n, A, lower, trans, unit, x, stream
+    "nxfx_shard_reduce": [_i, _l, _l, _l, _p, _p, _p],  # D, n, stride, offset, parts, out, stream
+    "nxfx_shard_reduce_placed": [
+        _i, _i, _i, _i, _i, _i, _l,  # D, d0, C, h, nx, ny, stride
+        _p, _p, _p,  # parts, out, stream
+    ],
+    "nxfx_shard_all": [_i, _p, _p, _p],  # D, flags, out, stream
+    "nxfx_t_solve": [
+        _i, _i, _p, _p, _p, _p, _p,  # Tn, n_lvl, order, lvl_off, child_ptr, child_idx, parent
+        _p, _p, _p, _p,  # dT, rT, wT, sq_extra (or null)
+        _p, _p, _p, _p, _p,  # d, r, lam scratch and out, norm (or null), stream
+    ],
+    "nxfx_shard_blocked_partials": [
+        _i, _i, _i, _i, _i,  # Tn, Kt, Ks, Kp, Kr
+        _p, _p, _p, _p,  # tfold, sfold, pfold, rfold
+        _p, _p, _p, _p, _p, _p, _p,  # w, const, Ftot, d0, r0, w0, rhs_sq
+        _p, _p,  # part, stream
+    ],
+    "nxfx_shard_blocked_lambda": [
+        _i, _i, _i, _p,  # c, B_sub, Tn, root_T
+        _p, _p, _p, _p, _p, _p,  # d0, r0, w0, lam_T, lam_ext, stream
+    ],
+    "nxfx_dist_folds": [
+        _i, _i, _p, _p, _p, _p, _p, _p, _p,  # B_loc, Tn, W, g, Ftot, spbc, epbc, sbif, ebif
+        _p, _i, _p, _i, _p, _i,  # t, s, w edge tables and widths
+        _p, _i, _p, _i, _p, _i,  # tT, sT, wT
+        _p, _p, _p, _p, _p,  # d, r, wn, part, stream
+    ],
+    "nxfx_dist_forward": [
+        _i, _i, _p, _p, _p, _p,  # L, Tn, offs, lf_off, lf_K, lf
+        _p, _i, _p, _p, _p, _p, _p,  # rfold, Kr, wn, d, r, part, stream
+    ],
+    "nxfx_dist_back": [
+        _i, _i, _i, _p, _p, _p,  # L, B_loc, Tn, offs, parent_pos, root_T
+        _p, _p, _p, _p, _p, _p,  # d, r, wn, lam_T, lam, stream
+    ],
+    "nxfx_shard_grid_window": [
+        _i, _i, _i, _i, _i, _i, _i,  # h, nx, U, Kc, r, Kg, first
+        _p, _p, _p, _p,  # w, const, Ftot, valid
+        _p, _p, _p, _p,  # st_cell, st_fold, grp_fold, st_sb
+        _p, _p,  # part, stream
+    ],
+    "nxfx_shard_grid_fill": [_l, _l, _l, _p, _p, _p],  # Ex, Ey, E, wxy, w_grid, stream
 }
 
 

@@ -143,6 +143,49 @@ __global__ void level_unpermute_kernel(
     lam[i] = lam_perm[perm[i]];
 }
 
+// the system given: (d, r) from the public-order dr (B, 2) into the
+// permuted positions, wn from the pair conductances
+__global__ void level_system_kernel(
+    int B, const int* __restrict__ perm, const double* __restrict__ dr,
+    const int* __restrict__ parent_pair, const double* __restrict__ w_pairs,
+    double* __restrict__ d, double* __restrict__ r, double* __restrict__ wn)
+{
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= B) return;
+    const int p = perm[i];
+    d[p] = dr[2 * i];
+    r[p] = dr[2 * i + 1];
+    const int pp = parent_pair[i];
+    wn[i] = pp >= 0 ? w_pairs[pp] : 0.0;
+}
+
+// norm, folds, back-substitution and un-permute after the assembly
+int eliminate_levels(
+    int B, int L, const long long* level_offsets,
+    const int* parent_pos, const int* child_ptr, const int* perm,
+    double* d, double* r, double* wn, double* lam_perm, double* lam, double* rhs_norm,
+    cudaStream_t stream)
+{
+    cudaError_t err;
+    level_norm_kernel<<<1, REDUCE_THREADS, 0, stream>>>(B, r, rhs_norm);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    for (int l = L - 2; l >= 0; --l) {  // parents at level l, children at l + 1
+        const int lo = static_cast<int>(level_offsets[l]);
+        const int hi = static_cast<int>(level_offsets[l + 1]);
+        level_fold_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(lo, hi, child_ptr, wn, d, r);
+        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+    for (int l = 0; l < L; ++l) {
+        const int lo = static_cast<int>(level_offsets[l]);
+        const int hi = static_cast<int>(level_offsets[l + 1]);
+        level_backsub_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(
+            lo, hi, parent_pos, d, r, wn, lam_perm);
+        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+    level_unpermute_kernel<<<blocks_for(B), THREADS, 0, stream>>>(B, perm, lam_perm, lam);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int nxfx_level_prepare(
@@ -171,21 +214,25 @@ extern "C" int nxfx_level_eliminate(
     level_assemble_kernel<<<blocks_for(B), THREADS, 0, stream>>>(
         B, dt_t, dt_s, parent_pair, w_pairs, d, r, wn);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    level_norm_kernel<<<1, REDUCE_THREADS, 0, stream>>>(B, r, rhs_norm);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    for (int l = L - 2; l >= 0; --l) {  // parents at level l, children at l + 1
-        const int lo = static_cast<int>(level_offsets[l]);
-        const int hi = static_cast<int>(level_offsets[l + 1]);
-        level_fold_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(lo, hi, child_ptr, wn, d, r);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    }
-    for (int l = 0; l < L; ++l) {
-        const int lo = static_cast<int>(level_offsets[l]);
-        const int hi = static_cast<int>(level_offsets[l + 1]);
-        level_backsub_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(
-            lo, hi, parent_pos, d, r, wn, lam_perm);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    }
-    level_unpermute_kernel<<<blocks_for(B), THREADS, 0, stream>>>(B, perm, lam_perm, lam);
-    return static_cast<int>(cudaGetLastError());
+    return eliminate_levels(B, L, level_offsets, parent_pos, child_ptr, perm, d, r, wn, lam_perm,
+                            lam, rhs_norm, stream);
+}
+
+// The same elimination from an assembled system: the interleaved public-order
+// (diag, rhs) dr (B, 2) and the pair conductances, as the sharded general
+// solve has them after its reduce (the reference's _level_eliminate_core).
+extern "C" int nxfx_level_eliminate_system(
+    int B, int L, const long long* level_offsets,
+    const int* parent_pos, const int* parent_pair, const int* child_ptr, const int* perm,
+    const double* w_pairs, const double* dr,
+    double* d, double* r, double* wn, double* lam_perm, double* lam, double* rhs_norm,
+    cudaStream_t stream)
+{
+    if (B <= 0) return 0;
+    level_system_kernel<<<blocks_for(B), THREADS, 0, stream>>>(
+        B, perm, dr, parent_pair, w_pairs, d, r, wn);
+    const int code = static_cast<int>(cudaGetLastError());
+    if (code != 0) return code;
+    return eliminate_levels(B, L, level_offsets, parent_pos, child_ptr, perm, d, r, wn, lam_perm,
+                            lam, rhs_norm, stream);
 }

@@ -11,6 +11,10 @@
 //              d_b += sum_c -wn_c (wn_c / d_c),   r_b += sum_c (wn_c / d_c) r_c
 //   back-sub, top-down:  lam_root = r / d,  lam_c = (r_c + wn_c lam_parent) / d_c
 //
+// The sharded blocked solve runs the same kernels in two entries: the
+// forward (assemble, |r|^2 without the root, folds down to level 0), and
+// the back-substitution of levels 1.. from a level 0 it computes itself.
+//
 // Bound: launch latency.  The work is O(B) doubles, a few MB at 16
 // generations, but the fold and the back-substitution are sequential in the
 // tree depth: one launch per level (2 L + 2 launches in all).  The parent
@@ -54,7 +58,9 @@ __global__ void assemble_kernel(
     wn[b] = w_in;
 }
 
-// sqrt(sum x^2) over n entries, one block, fixed summation order
+// sum x^2 over n entries (its square root with SQRT), one block, fixed
+// summation order
+template <bool SQRT>
 __global__ void norm_kernel(int n, const double* __restrict__ x, double* __restrict__ out)
 {
     __shared__ double part[REDUCE_THREADS];
@@ -66,7 +72,7 @@ __global__ void norm_kernel(int n, const double* __restrict__ x, double* __restr
         if (threadIdx.x < stride) part[threadIdx.x] += part[threadIdx.x + stride];
         __syncthreads();
     }
-    if (threadIdx.x == 0) out[0] = sqrt(part[0]);
+    if (threadIdx.x == 0) out[0] = SQRT ? sqrt(part[0]) : part[0];
 }
 
 // fold the children of the parents in [lo, hi) into them
@@ -127,7 +133,7 @@ extern "C" int nxfx_tree_sweep(
     assemble_kernel<<<blocks_for(B), THREADS, 0, stream>>>(
         B, Kmax, bif_in, bif_out, w, cst, Ftot, d, r, wn);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    norm_kernel<<<1, REDUCE_THREADS, 0, stream>>>(B, r, rhs_norm);
+    norm_kernel<true><<<1, REDUCE_THREADS, 0, stream>>>(B, r, rhs_norm);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     for (int l = L - 2; l >= 0; --l) {  // parents at level l, children at l + 1
         const int lo = static_cast<int>(level_offsets[l]);
@@ -139,6 +145,51 @@ extern "C" int nxfx_tree_sweep(
     for (int l = 0; l < L; ++l) {
         const int lo = static_cast<int>(level_offsets[l]);
         const int hi = static_cast<int>(level_offsets[l + 1]);
+        backsub_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(
+            lo, hi, bif_parent, d, r, wn, lam);
+        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
+}
+
+// The forward half: d, r, wn folded down to level 0 and sum r^2 over the
+// unfolded r (no square root).
+extern "C" int nxfx_tree_sweep_forward(
+    int B, int Kmax, int L, const long long* level_offsets,
+    const int* bif_in, const int* bif_out, const int* bif_child,
+    const double* w, const double* cst, const double* Ftot,
+    double* d, double* r, double* wn, double* rhs_sq,
+    cudaStream_t stream)
+{
+    cudaError_t err;
+    if (B <= 0) return 0;
+    assemble_kernel<<<blocks_for(B), THREADS, 0, stream>>>(
+        B, Kmax, bif_in, bif_out, w, cst, Ftot, d, r, wn);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    norm_kernel<false><<<1, REDUCE_THREADS, 0, stream>>>(B, r, rhs_sq);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    for (int l = L - 2; l >= 0; --l) {
+        const int lo = static_cast<int>(level_offsets[l]);
+        const int hi = static_cast<int>(level_offsets[l + 1]);
+        fold_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(
+            lo, hi, Kmax, bif_child, wn, d, r);
+        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
+}
+
+// The backward half: lam of levels 1 .. L-1 from lam's level 0, which the
+// caller has written.
+extern "C" int nxfx_tree_sweep_backward(
+    int B, int L, const long long* level_offsets, const int* bif_parent,
+    const double* d, const double* r, const double* wn, double* lam,
+    cudaStream_t stream)
+{
+    cudaError_t err;
+    for (int l = 1; l < L; ++l) {
+        const int lo = static_cast<int>(level_offsets[l]);
+        const int hi = static_cast<int>(level_offsets[l + 1]);
+        if (hi <= lo) continue;
         backsub_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(
             lo, hi, bif_parent, d, r, wn, lam);
         if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);

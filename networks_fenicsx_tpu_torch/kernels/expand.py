@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from ..blocked import DevicePlan, _BlockedPlan, _condensed_scalar_constants
+from ..blocked import DevicePlan, IndexedEnds, _BlockedPlan, _condensed_scalar_constants
 from ..lattice import _GridPlan
 from . import build
 from .condense import MODES
@@ -58,9 +58,17 @@ def _grid_lambda_to_edges(plan: _GridPlan, lam: torch.Tensor):
 def _lambda_to_edges(plan: _BlockedPlan | _GridPlan, lam: torch.Tensor):
     """Per-edge ``(lam_s, lam_t)`` in internal edge order, zeros at
     boundary endpoints (reference ``_blocked_lambda_to_edges``; on a grid
-    plan, the grid route's slices)."""
+    plan, the grid route's slices; on :class:`..blocked.IndexedEnds`, the
+    gather by index a shard's rows take)."""
     if isinstance(plan, _GridPlan):
         return _grid_lambda_to_edges(plan, lam)
+    if isinstance(plan, IndexedEnds):
+        zero = torch.zeros(1, dtype=lam.dtype, device=lam.device)
+        lp = torch.cat([lam, zero])
+        n = lam.shape[0]
+        src = torch.as_tensor(np.where(plan.edge_src >= 0, plan.edge_src, n), device=lam.device)
+        tgt = torch.as_tensor(np.where(plan.edge_tgt >= 0, plan.edge_tgt, n), device=lam.device)
+        return lp[src], lp[tgt]
     dt, dev = lam.dtype, lam.device
     sizes = np.diff(plan.bif_offsets).tolist()
     lam_lev = list(torch.split(lam, sizes))

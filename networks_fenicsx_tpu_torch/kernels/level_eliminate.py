@@ -11,7 +11,9 @@ down and un-permute it to the public bifurcation order.
 pass, the three K6 sums (:func:`.segsum.segsum`), then one launcher that
 runs the assembly, the norm, one fold and one back-substitution launch per
 level and the un-permute — and runs :func:`level_eliminate_plain`, the eager
-transcription of the reference, for CPU tensors.
+transcription of the reference, for CPU tensors.  :func:`level_eliminate_system`
+runs the same elimination from an assembled public-order ``(diag, rhs)`` and
+the pair conductances (the sharded general solve's replicated stage).
 """
 
 from __future__ import annotations
@@ -22,7 +24,10 @@ from ..edge_data import _EdgeData
 from ..levels import DeviceLevelPlan
 from . import build, segsum
 
-__all__ = ["level_eliminate", "level_eliminate_plain", "cuda_launches"]
+__all__ = [
+    "level_eliminate", "level_eliminate_plain", "level_eliminate_system",
+    "level_eliminate_system_plain", "cuda_launches",
+]
 
 
 def cuda_launches(dlp: DeviceLevelPlan) -> int:
@@ -58,6 +63,13 @@ def level_eliminate_plain(dlp: DeviceLevelPlan, ed: _EdgeData):
     else:
         w_pairs = torch.zeros(0, dtype=dt, device=dev)
     dr = segsum.segsum_plain(dlp.t_idx, vt) + segsum.segsum_plain(dlp.s_idx, vs)
+    return _levels_plain(dlp, dr, w_pairs)
+
+
+def _levels_plain(dlp: DeviceLevelPlan, dr: torch.Tensor, w_pairs: torch.Tensor):
+    """``(λ public, ‖rhs‖)`` from the permuted-order ``dr (B, 2)`` (modified)."""
+    dt, dev = torch.float64, dr.device
+    B = dlp.num_bifurcations
     rhs_norm = torch.linalg.norm(dr[:, 1])
 
     pp = dlp.parent_pair.long()
@@ -81,6 +93,45 @@ def level_eliminate_plain(dlp: DeviceLevelPlan, ed: _EdgeData):
         o, o1 = offs[lev], offs[lev + 1]
         lam[o:o1] = (dr[o:o1, 1] + w_node[o:o1] * lam[parent[o:o1]]) / dr[o:o1, 0]
     return lam[dlp.perm.long()], rhs_norm
+
+
+def level_eliminate_system_plain(dlp: DeviceLevelPlan, dr: torch.Tensor, w_pairs: torch.Tensor):
+    """Eager version of :func:`level_eliminate_system`."""
+    dr_perm = torch.empty_like(dr)
+    dr_perm[dlp.perm.long()] = dr
+    return _levels_plain(dlp, dr_perm, w_pairs)
+
+
+def level_eliminate_system(dlp: DeviceLevelPlan, dr: torch.Tensor, w_pairs: torch.Tensor):
+    """K7 from an assembled system on ``dr``'s device: ``(λ, ‖rhs‖)`` from the
+    public-order ``dr (B, 2)`` (diagonal, rhs) and the pair conductances
+    ``w_pairs (P,)`` — the sharded general solve's replicated elimination
+    (the reference's ``_level_eliminate_core``, ``:2163-2241``)."""
+    if dr.device.type == "cpu":
+        return level_eliminate_system_plain(dlp, dr, w_pairs)
+    build.require_cuda("level_eliminate", dr, w_pairs)
+    build.require_cuda(
+        "level_eliminate", dlp.parent_pos, dlp.parent_pair, dlp.child_ptr, dlp.perm,
+        dtype=torch.int32,
+    )
+    B = dlp.num_bifurcations
+    if tuple(dr.shape) != (B, 2) or tuple(w_pairs.shape) != (dlp.num_pairs,):
+        raise ValueError("level_eliminate: dr must be (B, 2) and w_pairs (P,)")
+    dev, dt = dr.device, torch.float64
+    d, r, wn, lam_perm, lam = (torch.empty(B, dtype=dt, device=dev) for _ in range(5))
+    rhs_norm = torch.zeros((), dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        code = build.library().nxfx_level_eliminate_system(
+            B, dlp.num_levels, dlp.host_offsets.ctypes.data,
+            dlp.parent_pos.data_ptr(), dlp.parent_pair.data_ptr(),
+            dlp.child_ptr.data_ptr(), dlp.perm.data_ptr(),
+            w_pairs.data_ptr(), dr.data_ptr(),
+            d.data_ptr(), r.data_ptr(), wn.data_ptr(), lam_perm.data_ptr(), lam.data_ptr(),
+            rhs_norm.data_ptr(), build.stream_handle(dev),
+        )
+    build.check(code, "level_eliminate")
+    level_eliminate.launches += 1
+    return lam, rhs_norm
 
 
 def level_eliminate(dlp: DeviceLevelPlan, ed: _EdgeData):

@@ -34,7 +34,9 @@ level; flux and pressure then follow from λ edge by edge.  The routes:
   layout applies and f is not quad-mode, otherwise on the general route in
   public order (K8a, K9's bifurcation system, K6 class weights, K16 with
   K18 :mod:`.kernels.shift_matvec`, K8b);
-* CG — ``schur_method="cg"`` on any network, or under ``auto`` a cycle
+* CG — ``schur_method="cg"`` (or ``"tree_dist"``, which the reference's
+  serial solver resolves nowhere, so that it reaches the same branch) on any
+  network, or under ``auto`` a cycle
   core above 4,096 nodes that no sparse planner takes and that is not a
   scalar-R lattice: K8a, K9's bifurcation system, preconditioned conjugate
   gradients (K19a :mod:`.kernels.krylov`) on the K18 shift-class matvec or
@@ -61,9 +63,9 @@ the assembled matrix (:func:`_generic_solve`): ``"dense"`` (K21b
 
 The device is explicit: ``Solver(asm, device="cuda")`` (the default) runs the
 CUDA kernels and raises when CUDA is absent; ``device="cpu"`` runs their
-plain PyTorch versions.  ``schur_method="tree_dist"`` (A10), ``factorize()``
-(A3) and float32 (A4) raise ``NotImplementedError`` naming their ROADMAP
-item.
+plain PyTorch versions.  ``factorize()`` (A3) and float32 (A4) raise
+``NotImplementedError`` naming their ROADMAP item; the sharded solves are
+:mod:`.parallel`.
 """
 
 from __future__ import annotations
@@ -116,12 +118,6 @@ from .utils.config import SolverOptions
 from .utils.timing import timed
 
 __all__ = ["Solver", "SolveInfo", "build_schur_executor", "resolve_device"]
-
-# ROADMAP items of the schur_method variants the port does not run yet
-_SCHUR_METHOD_ITEM = {
-    "tree_dist": "A10",
-}
-
 
 class SolveInfo(typing.NamedTuple):
     method: str
@@ -880,15 +876,16 @@ def build_schur_executor(
     _tree_plan=None,
 ) -> _Executor:
     """Build the executor, or raise ``NotImplementedError`` (naming the
-    ROADMAP item) outside the ported routes.
+    ROADMAP item) for float32.
 
     Routes as the reference's
     ``build_schur_executor(outputs="blocks", internal_layout=True)``:
     ``schur_method="dct"`` takes the DCT lattice solve or raises the
     reference's ``ValueError`` without a DCT plan; any other method on a
     network without bifurcations the edge executor (λ empty);
-    ``"dense"``/``"dense_f64"`` the dense executor; ``"cg"`` the CG executor
-    (never the DCT solve); otherwise the tree plan;
+    ``"dense"``/``"dense_f64"`` the dense executor; ``"cg"`` and
+    ``"tree_dist"`` the CG executor (never the DCT solve); otherwise the
+    tree plan;
     on a forest the level plan, then the blocked executor when
     ``_plan_blocked`` succeeds and neither coefficient is quad-mode, the
     level executor otherwise; with a cycle core, under ``auto`` a scalar-R
@@ -901,11 +898,6 @@ def build_schur_executor(
     same kernels (the two reference variants are pinned equal)."""
     if opts.dtype != "float64" or opts.output_dtype not in ("same", "float64"):
         raise NotImplementedError("ROADMAP A4: float32 solves and outputs are not ported yet")
-    if opts.schur_method in _SCHUR_METHOD_ITEM:
-        item = _SCHUR_METHOD_ITEM[opts.schur_method]
-        raise NotImplementedError(
-            f"ROADMAP {item}: schur_method={opts.schur_method!r} is not ported yet"
-        )
     if asm.pressure_degree != 0:
         raise ValueError("schur method requires discontinuous (degree-0) pressure")
     device = resolve_device(device)
@@ -922,7 +914,9 @@ def build_schur_executor(
                 "multiplier graph (make_grid family) with scalar resistance"
             )
         return _dct_executor(asm, dct, R_mode, f_mode, f_zero, device)
-    if opts.schur_method == "cg":  # never the DCT solve (reference :3985-3996)
+    # never the DCT solve (reference :3985-3996); "tree_dist" is resolved
+    # nowhere in the reference's serial solver and falls to its CG branch
+    if opts.schur_method in ("cg", "tree_dist"):
         return _CgExecutor(asm, opts, R_mode, f_mode, f_zero, device)
     tree_plan = _tree_plan if _tree_plan is not None else _cached_tree_plan(asm)
     if tree_plan.core_size > 0:

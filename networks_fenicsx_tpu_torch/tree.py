@@ -39,6 +39,7 @@ from .ops.multifrontal import DeviceMFPlan, MFPlan, device_mf_plan
 
 __all__ = [
     "DeviceRound", "DeviceTreePlan", "cuda_launches", "device_tree_plan", "tree_schur_solve",
+    "tree_solve_system",
 ]
 
 
@@ -220,24 +221,38 @@ def tree_schur_solve(dtp: DeviceTreePlan, ed, plain: bool):
     """``(λ (B,), ‖rhs‖)`` of the cyclic bifurcation system of ``ed``:
     the reference's ``_lambda_system_sorted`` then ``_tree_schur_solve``,
     through the kernels (``plain=False``) or their plain versions."""
-    from .kernels import core_elim, dense_core, mf_apply, mf_factor, peel, segsum
+    from .kernels import peel, segsum
 
     if plain:
-        lam_sys, sums, run_peel = peel.lambda_system_plain, segsum.segsum_plain, peel.peel_plain
-        dense, factor, apply, sparse = (
-            dense_core.dense_core_plain, mf_factor.mf_factor_plain, mf_apply.mf_apply_plain,
-            core_elim.core_elim_plain,
-        )
+        lam_sys, sums = peel.lambda_system_plain, segsum.segsum_plain
     else:
-        lam_sys, sums, run_peel = peel.lambda_system, segsum.segsum, peel.peel
-        dense, factor, apply, sparse = (
-            dense_core.dense_core, mf_factor.mf_factor, mf_apply.mf_apply, core_elim.core_elim
-        )
+        lam_sys, sums = peel.lambda_system, segsum.segsum
     dr, w_edges, rhs_norm = lam_sys(dtp, ed)
     if dtp.num_pairs > 0:
         w_pairs = sums(dtp.pair_idx, w_edges)
     else:
         w_pairs = torch.zeros(0, dtype=torch.float64, device=w_edges.device)
+    return tree_solve_system(dtp, dr, w_pairs, plain), rhs_norm
+
+
+def tree_solve_system(dtp: DeviceTreePlan, dr: torch.Tensor, w_pairs: torch.Tensor, plain: bool):
+    """``λ (B,)`` of the assembled cyclic system — ``dr (B, 2)`` the diagonal
+    and rhs, ``w_pairs (P,)`` the pair conductances: the peel rounds, the
+    core and the reversed rounds (the reference's ``_tree_schur_solve``;
+    the sharded general solve's replicated stage)."""
+    from .kernels import core_elim, dense_core, mf_apply, mf_factor, peel
+
+    if plain:
+        run_peel = peel.peel_plain
+        dense, factor, apply, sparse = (
+            dense_core.dense_core_plain, mf_factor.mf_factor_plain, mf_apply.mf_apply_plain,
+            core_elim.core_elim_plain,
+        )
+    else:
+        run_peel = peel.peel
+        dense, factor, apply, sparse = (
+            dense_core.dense_core, mf_factor.mf_factor, mf_apply.mf_apply, core_elim.core_elim
+        )
 
     if dtp.mf is not None:
         def solve_core(dc, rc):
@@ -249,5 +264,4 @@ def tree_schur_solve(dtp: DeviceTreePlan, ed, plain: bool):
         def solve_core(dc, rc):
             return dense(dtp.core_ci, dtp.core_cj, dtp.core_pid, dc, rc, w_pairs)
 
-    lam = run_peel(dtp, dr, w_pairs, solve_core)
-    return lam, rhs_norm
+    return run_peel(dtp, dr, w_pairs, solve_core)

@@ -43,6 +43,13 @@ Builds one configuration of ``chip_smoke.py`` (``--path``):
 * ``minres`` — ``make_arterial_tree(8)``, N = 4, flux degree 1 (2,422
   dofs) under ``method="minres"``, rtol 1e-12: assemble (K20) and MINRES
   (K19e on K20b, K19a's Jacobi);
+* ``sharded-tree``, ``sharded-forest``, ``sharded-lattice``, ``sharded-web``
+  — the ``blocked``, ``forest``, ``lattice`` and ``web`` configurations
+  through ``parallel.ShardedNetworkSolver`` on 8, 8, 8 and 4 shards of the
+  card: the blocked route (K1, K2–K4 split, K22a, K22-reduce, the T solve,
+  K5), the distributed tree elimination (K8a, K22c, K8b), the lattice
+  strips (K1, K22b, K16, K17, K5) and the general route's replicated tree
+  solve (K8a, K22d, K9–K15, K8b);
 
 then
 
@@ -85,6 +92,7 @@ from networks_fenicsx_tpu_torch.solver import (  # noqa: E402
 )
 
 GENERIC_PATHS = ("p1tree", "minres")
+SHARDED_PATHS = {"sharded-tree": 8, "sharded-forest": 8, "sharded-lattice": 8, "sharded-web": 4}
 
 
 def kernel_sources() -> dict[str, str]:
@@ -110,7 +118,7 @@ def configure(path: str, generations: int):
     ``forms(asm)`` recomputes its coefficient data, as a user changing them
     between solves would."""
     options, tree_plan = P.SolverOptions(), None
-    if path == "blocked":
+    if path in ("blocked", "sharded-tree"):
         net = P.network_generation.make_arterial_tree(generations, direction=[0.1, 1, 0],
                                                       arrays=True)
         mesh = P.NetworkMesh(net, N=40, color_strategy="fast")
@@ -122,14 +130,14 @@ def configure(path: str, generations: int):
     elif path == "callable":
         asm = chip_smoke.callable_assembler(P, generations)
         forms = chip_smoke.callable_forms
-    elif path == "forest":
+    elif path in ("forest", "sharded-forest"):
         asm = chip_smoke.forest_assembler(P, chip_smoke.forest_mesh(P))
         forms = chip_smoke.forest_forms
-    elif path == "web":
+    elif path in ("web", "sharded-web"):
         asm, forms = chip_smoke.web_assembler(P), chip_smoke.forest_forms
     elif path == "web1000":
         asm, forms = chip_smoke.web_assembler(P, sites=1_000), chip_smoke.forest_forms
-    elif path == "lattice":
+    elif path in ("lattice", "sharded-lattice"):
         asm, forms = chip_smoke.lattice_assembler(P), chip_smoke.lattice_forms
     elif path == "lattice-callable":
         forms = chip_smoke.lattice_callable_forms
@@ -213,6 +221,30 @@ def generic_phases(asm, solver, forms, path: str) -> dict[str, float]:
     return {n: (b - a) * 1e3 for n, a, b in zip(names, t[:-1], t[1:])}
 
 
+def sharded_split(asm, solver, forms) -> dict[str, float]:
+    """One compute_forms + assemble + solve of a sharded path, split at its
+    phase boundaries (ms); the host's share of the solve (the shards'
+    rows back to the public layout, the scatter) is the whole solve less
+    the argument layout and the executor."""
+    ex = solver._blocked_exec or solver._dist_exec or solver._pipeline
+    t = [sync_clock()]
+    forms(asm)
+    t.append(sync_clock())
+    solver.assemble()
+    t.append(sync_clock())
+    args = ex.prepare_args(*solver._coeff_args)
+    t.append(sync_clock())
+    ex(args)
+    t.append(sync_clock())
+    solver.solve()
+    t.append(sync_clock())
+    names = ["compute_forms", "assemble (snapshot)", "prepare_args (per-shard rows, upload)",
+             "executor (shards, reduce, replicated solve)", "solve (whole)"]
+    out = {n: (b - a) * 1e3 for n, a, b in zip(names, t[:-1], t[1:])}
+    out["host rest of the solve"] = out["solve (whole)"] - out[names[2]] - out[names[3]]
+    return out
+
+
 def solve_once(solver, path: str) -> None:
     """What a user runs after compute_forms: the generic methods assemble again."""
     if path == "minres":
@@ -225,7 +257,7 @@ def main() -> int:
     ap.add_argument("--path", choices=("blocked", "callable", "forest", "web", "web1000", "bed",
                                        "lattice", "lattice-callable", "web2k", "lattice64",
                                        "fronts128", "cg512", "web-cg", "skinny-mg",
-                                       *GENERIC_PATHS),
+                                       *GENERIC_PATHS, *SHARDED_PATHS),
                     default="blocked")
     ap.add_argument("--generations", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
@@ -240,7 +272,13 @@ def main() -> int:
     ).stdout.strip()
 
     asm, forms, options, tree_plan = configure(args.path, args.generations)
-    solver = P.Solver(asm, options=options, device="cuda")
+    if args.path in SHARDED_PATHS:
+        from networks_fenicsx_tpu_torch.parallel import ShardedNetworkSolver
+
+        solver = ShardedNetworkSolver(asm, devices=["cuda:0"] * SHARDED_PATHS[args.path])
+        solver.assemble()
+    else:
+        solver = P.Solver(asm, options=options, device="cuda")
     if tree_plan is not None:  # the forced plan's executor, as the reference's tests build it
         solver._executor = build_schur_executor(asm, options, device="cuda", _tree_plan=tree_plan)
         solver._executor_key = asm.coefficient_modes()
@@ -250,6 +288,8 @@ def main() -> int:
 
     if args.path in GENERIC_PATHS:
         runs = [generic_phases(asm, solver, forms, args.path) for _ in range(args.reps)]
+    elif args.path in SHARDED_PATHS:
+        runs = [sharded_split(asm, solver, forms) for _ in range(args.reps)]
     else:
         runs = [phases(asm, solver, forms) for _ in range(args.reps)]
     best = {k: min(r[k] for r in runs) for k in runs[0]}
@@ -288,7 +328,8 @@ def main() -> int:
     result = {
         "card": card,
         "path": args.path,
-        "executor": type(solver._executor).__name__,
+        "executor": (type(solver._executor).__name__ if args.path not in SHARDED_PATHS
+                     else f"{solver.info.method} on {solver.device_mesh.D} shards"),
         "dofs": asm.num_dofs,
         "first_solve_ms": first_ms,
         "phase_best_ms": best,
@@ -307,7 +348,7 @@ def main() -> int:
                                "chunk": cg_loop.CHUNK,
                                "flag_reads_per_solve": loop.flag_reads / args.reps,
                                "residual": solver.info.residual, "tolerance": loop.last_tol}
-    if isinstance(solver._executor, _CgExecutor):
+    if isinstance(getattr(solver, "_executor", None), _CgExecutor):
         result["cg"] = {"iterations": solver.info.iterations, "chunk": cg_loop.CHUNK,
                         "flag_reads_per_solve": cg_loop.cg.flag_reads / args.reps,
                         "preconditioner": solver._executor.precond_kind[0]}

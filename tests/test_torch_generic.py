@@ -417,15 +417,27 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 
 def test_items_left_still_raise():
-    """``factorize()`` (A3), float32 (A4) and ``"tree_dist"`` (A10) raise
-    naming their ROADMAP items."""
+    """``factorize()`` (A3) and float32 (A4) raise naming their ROADMAP
+    items; serial ``"tree_dist"`` runs the reference's CG branch and equals
+    the JAX package (method, iterations within 1, values at 1e-9·scale)."""
     asm = P.HydraulicNetworkAssembler(P.NetworkMesh(_tree()(P), N=2))
     asm.compute_forms(p_bc_ex=lambda x: x[1])
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         P.Solver(asm, device="cpu").factorize()
-    for opts, item in (({"dtype": "float32"}, "A4"), ({"schur_method": "tree_dist"}, "A10")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            P.Solver(asm, device="cpu", options=P.SolverOptions(**opts)).solve()
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        P.Solver(asm, device="cpu", options=P.SolverOptions(dtype="float32")).solve()
+    xs, infos = [], []
+    for pkg in (J, P):
+        a = pkg.HydraulicNetworkAssembler(pkg.NetworkMesh(_tree()(pkg), N=2))
+        a.compute_forms(p_bc_ex=lambda x: x[1])
+        kw = {"device": "cpu"} if pkg is P else {}
+        s = pkg.Solver(a, options=pkg.SolverOptions(schur_method="tree_dist"), **kw)
+        s.solve()
+        xs.append(np.asarray(s.solution_vector()))
+        infos.append(s.info)
+    assert infos[0].method == infos[1].method == "schur" and infos[1].converged
+    assert abs(infos[0].iterations - infos[1].iterations) <= 1, infos
+    _close(xs[1], xs[0], 1e-9)
 
 
 # ------------------------------------------------------------------- card

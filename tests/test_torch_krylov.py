@@ -51,7 +51,9 @@ def _close(got, want, tol):
 
 
 def _t(a, dtype=torch.float64, device="cpu"):
-    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    # a C-ordered copy: the kernels take contiguous tensors, and the gather
+    # tables come transposed (column-major) from gather_matvec_tables
+    return torch.as_tensor(np.array(a, order="C"), dtype=dtype, device=device)
 
 
 def _grid(nx, ny):
