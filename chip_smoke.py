@@ -230,7 +230,7 @@ GENERIC_CHECKS = {
     "csr_spmv": (("o", "csr_spmv"), ("o", "csr_spmv_T"), ("o", "csr_tdiag")),
     "schur_p_factor": (("o", "schur_p_factor"),),
     "schur_p_solve": (("o", "schur_p_solve"),),
-    "dense_lu": (("q", "dense_lu"), ("q", "dense_lu_saddle")),
+    "dense_lu": (("q", "dense_lu"), ("q", "dense_lu_saddle"), ("q", "dense_lu_trsv")),
     "minres": (("r", "minres"),),
 }
 # the wrappers the cyclic executor may launch, besides the CYCLIC group
@@ -296,6 +296,8 @@ def tensor_bytes(*objs) -> int:
             total += x.numel() * x.element_size()
         elif isinstance(x, (tuple, list)):
             total += tensor_bytes(*x)
+        elif hasattr(x, "levels"):  # a K10 FoldPlan
+            total += tensor_bytes(*x.levels)
     return total
 
 
@@ -760,19 +762,26 @@ def compare_cyclic_kernels(P, asm, device, timed: bool, force_mf_leaf: int | Non
     folds = [(rd.fold, torch.randn((rd.size, 2), generator=gen, dtype=torch.float64,
                                    device=device)) for rd in dtp.rounds if rd.fold]
 
-    def fold_all(fn):
-        return lambda: [fn(v, lv) for lv, v in folds]
+    checked = folds + [three_level_fold(device)]
+
+    def fold_all(fn, pairs):
+        return lambda: [fn(v, lv) for lv, v in pairs]
 
     runs = {
         "lambda_system": (lambda: peel.lambda_system(dtp, ed),
                           lambda: peel.lambda_system_plain(dtp, ed), TOL),
-        "fold_apply": (fold_all(fold.fold_apply), fold_all(fold.fold_apply_plain), TOL),
+        # bit for bit (tolerance 0), one launch a fold
+        "fold_apply": (counted_folds(fold_all(fold.fold_apply, checked), len(checked)),
+                       fold_all(fold.fold_apply_plain, checked), 0.0),
         "peel": (lambda: peel.peel(dtp, dr, w_pairs, plain_core),
                  lambda: peel.peel_plain(dtp, dr, w_pairs, plain_core), TOL),
     }
-    # K9 is timed around a trivial core solve, so that the time is the rounds'
+    # K9 is timed around a trivial core solve, so that the time is the rounds';
+    # K10 on the peel rounds' folds alone
     timed_runs = {"peel": (lambda: peel.peel(dtp, dr, w_pairs, jacobi_core),
-                           lambda: peel.peel_plain(dtp, dr, w_pairs, jacobi_core))}
+                           lambda: peel.peel_plain(dtp, dr, w_pairs, jacobi_core)),
+                  "fold_apply": (fold_all(fold.fold_apply, folds),
+                                 fold_all(fold.fold_apply_plain, folds))}
     core_pairs = (dtp.core_ci, dtp.core_cj, dtp.core_pid)
     if dtp.core_size <= 512:
         runs["dense_core"] = (lambda: dense_core.dense_core(*core_pairs, dc, rc, w_pairs),
@@ -814,6 +823,51 @@ def compare_cyclic_kernels(P, asm, device, timed: bool, force_mf_leaf: int | Non
             if name in library:
                 record[name]["library_ms"] = cuda_ms(library[name], reps=5)
     return record
+
+
+def three_level_fold(device) -> tuple:
+    """``(FoldPlan, values)``: a seeded fold whose segments are wider than 64
+    twice over (5,000, 300, ...: three levels), two channels."""
+    from networks_fenicsx_tpu_torch.kernels import fold
+    from networks_fenicsx_tpu_torch.ops.core_elim import _plan_fold
+
+    rng = np.random.default_rng(9)
+    widths = np.concatenate([[0, 5000, 300, 1], rng.integers(1, 70, 40)])
+    seg = np.repeat(np.arange(widths.size), widths)
+    rng.shuffle(seg)
+    plan = fold.FoldPlan(torch.as_tensor(lv.astype(np.int32), device=device)
+                         for lv in _plan_fold(seg, widths.size, np.arange(seg.size), seg.size))
+    assert len(plan) == 3
+    return plan, torch.as_tensor(rng.standard_normal((seg.size, 2)), device=device)
+
+
+def counted_folds(run, n_folds: int):
+    """``run`` (K10 over ``n_folds`` folds), asserting one launch a fold."""
+    from networks_fenicsx_tpu_torch.kernels import fold
+
+    def counted():
+        before = fold.fold_apply.launches
+        out = run()
+        assert fold.fold_apply.launches - before == n_folds, (fold.fold_apply.launches - before,
+                                                              n_folds)
+        return out
+    return counted
+
+
+def core_folds(dcp, device) -> list:
+    """``(FoldPlan, values)`` of every K10 fold of a min-degree core plan,
+    on seeded values of its source's length: per round the prior-update
+    reads (the update stream), the diagonal fold (S·K terms) and the update
+    fold (M2 contributions); the dense tail's and the fronts' reads."""
+    gen = torch.Generator(device=device).manual_seed(12)
+    out = []
+    for plan, n in ([(rd.u_read, dcp.mu_all) for rd in dcp.rounds]
+                    + [(rd.d_fold, rd.S * rd.K) for rd in dcp.rounds]
+                    + [(rd.u_fold, rd.M2) for rd in dcp.rounds]
+                    + [(dcp.dp_fold, dcp.mu_all)] + [(fr.f_fold, dcp.mu_all) for fr in dcp.fronts]):
+        if len(plan) and plan[-1].shape[0]:
+            out.append((plan, torch.randn(n, generator=gen, dtype=torch.float64, device=device)))
+    return out
 
 
 def fold_work(levels, n: int, C: int) -> tuple[int, int]:
@@ -1168,8 +1222,9 @@ def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=Non
     where the tail has at most 628 nodes and there are no fronts, at
     1e-10·scale otherwise; the fronts alone and the dense tail alone on
     their own inputs; the tail's factor backward error from 2,048 nodes.
-    Timed: K12a on the rounds alone (with their K10 folds, the tail left
-    out), K12b on the fronts alone, K11 on the tail."""
+    Every K10 fold of the plan bit for bit, one launch a fold.  Timed: K12a
+    on the rounds alone (with their K10 folds, the tail left out), K12b on
+    the fronts alone, K11 on the tail."""
     from networks_fenicsx_tpu_torch.kernels import (
         core_elim, core_fronts, dense_core, edge_data, fold, peel, segsum,
     )
@@ -1200,9 +1255,13 @@ def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=Non
     dc, rc = core_in["dc"], core_in["rc"]
     n_tail = int(dcp.dense_nodes.shape[0])
     tol = TOL if n_tail <= 628 and not dcp.fronts else CYCLIC_TOL
+    folds = core_folds(dcp, device)
     runs = {
         "core_elim": (lambda: core_elim.core_elim(dcp, dc, w_pairs, rc),
                       lambda: core_elim.core_elim_plain(dcp, dc, w_pairs, rc), tol),
+        # K12a's K10 folds, bit for bit (tolerance 0), one launch a fold
+        "fold_apply": (counted_folds(lambda: [fold.fold_apply(v, lv) for lv, v in folds], len(folds)),
+                       lambda: [fold.fold_apply_plain(v, lv) for lv, v in folds], 0.0),
     }
     if n_tail:
         runs["core_elim_unrefined"] = (
@@ -2438,13 +2497,37 @@ def lu_residual(A, LU, piv) -> float:
     return float((A[torch.as_tensor(order, device=A.device)] - L @ U).abs().max())
 
 
+def lu_timed(A, b) -> dict:
+    """K21b's factor and solve of ``A`` timed apart, beside
+    ``torch.linalg.lu_factor`` and ``lu_solve`` on the same inputs, and the
+    device launches of one factor."""
+    from networks_fenicsx_tpu_torch.kernels import dense_lu
+
+    before = dense_lu.LAUNCHES.device
+    LU, piv = dense_lu.lu_factor(A)
+    launches = dense_lu.LAUNCHES.device - before
+    LU_l, piv_l = torch.linalg.lu_factor(A)
+    return {
+        "factor_ms": cuda_ms(lambda: dense_lu.lu_factor(A), reps=3),
+        "solve_ms": cuda_ms(lambda: dense_lu.lu_solve(LU, piv, b)),
+        "library_factor_ms": cuda_ms(lambda: torch.linalg.lu_factor(A), reps=3),
+        "library_solve_ms": cuda_ms(lambda: torch.linalg.lu_solve(LU_l, piv_l, b[:, None])),
+        "device_launches_per_factor": launches,
+        "launch_budget": 10 * -(-A.shape[0] // dense_lu.NB),
+    }
+
+
 def compare_dense_lu(P, device) -> dict:
     """Set (q): K21b on a random diagonally dominant matrix of order
-    ``LU_N`` — pivots equal to the plain version's, factors at
-    ``TOL``·scale, max |PA − LU| ≤ 8·n·ε·max |A| — and on the 8,033-dof
-    saddle matrix of ``method="dense"`` (pivots equal, solve at
-    ``TOL``·scale); timed beside ``lu_factor`` + ``lu_solve``."""
-    from networks_fenicsx_tpu_torch.kernels import dense_lu
+    ``LU_N`` and on the 8,033-dof saddle matrix of ``method="dense"``: the
+    pivots and the factor equal to the plain version's bit for bit
+    (``torch.equal``), max |PA − LU| ≤ 8·n·ε·max |A|, the solve at
+    ``TOL``·scale; the factor and the solve timed apart beside
+    ``lu_factor`` and ``lu_solve``, with the device launches of a factor
+    (at most 10 per 64-column panel); and K21b's triangular solves on K11's
+    Cholesky factor of a 4,096-node Laplacian (``schur_method="dense_f64"``),
+    equal to the plain version, timed beside ``solve_triangular``."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core, dense_lu
 
     record = {}
     gen = torch.Generator(device=device).manual_seed(4)
@@ -2454,39 +2537,55 @@ def compare_dense_lu(P, device) -> dict:
     b = torch.randn(n, generator=gen, dtype=torch.float64, device=device)
     LU, piv = dense_lu.lu_factor(A)
     LU_p, piv_p = dense_lu.lu_factor_plain(A)
-    assert torch.equal(piv, piv_p)
-    err_f, scale_f = max_err(LU, LU_p)
-    assert err_f <= TOL * scale_f, (err_f, scale_f)
+    assert torch.equal(piv, piv_p) and torch.equal(LU, LU_p)
     back = lu_residual(A, LU, piv)
     a_max = float(A.abs().max())
     assert back <= 8 * n * EPS * a_max, (back, a_max)
     x, x_p = dense_lu.lu_solve(LU, piv, b), dense_lu.lu_solve_plain(LU_p, piv_p, b)
     err_x, scale_x = max_err(x, x_p)
     assert err_x <= TOL * scale_x, (err_x, scale_x)
-    record["dense_lu"] = {"max_abs_err": max(err_f, err_x), "errs": [err_f, err_x],
-                          "scales": [scale_f, scale_x], "backward_error": back,
-                          "backward_bound": 8 * n * EPS * a_max, "tol": TOL, "n": n}
-    record["dense_lu"]["ms"] = cuda_ms(lambda: dense_lu.lu_solve(*dense_lu.lu_factor(A), b), reps=3)
-    record["dense_lu"]["plain_ms"] = cuda_ms(
-        lambda: dense_lu.lu_solve_plain(*dense_lu.lu_factor_plain(A), b), reps=1)
-    record["dense_lu"]["library_ms"] = cuda_ms(
+    rec = {"max_abs_err": err_x, "factor_equal": True, "errs": [0.0, err_x], "scale": scale_x,
+           "backward_error": back, "backward_bound": 8 * n * EPS * a_max, "tol": TOL, "n": n}
+    rec.update(lu_timed(A, b))
+    assert rec["device_launches_per_factor"] <= rec["launch_budget"], rec
+    rec["ms"] = cuda_ms(lambda: dense_lu.lu_solve(*dense_lu.lu_factor(A), b), reps=3)
+    rec["plain_ms"] = cuda_ms(lambda: dense_lu.lu_solve_plain(*dense_lu.lu_factor_plain(A), b), reps=1,
+                              warmup=1)
+    rec["library_ms"] = cuda_ms(
         lambda: torch.linalg.lu_solve(*torch.linalg.lu_factor(A), b[:, None]), reps=3)
-    record["dense_lu"].update(bound(3 * 8 * n * n + 4 * n + 16 * n, 2 * n, 2 * n**3 / 3 + 2 * n * n))
+    rec.update(bound(3 * 8 * n * n + 4 * n + 16 * n, 2 * n, 2 * n**3 / 3 + 2 * n * n))
+    record["dense_lu"] = rec
 
     asm = p1tree_assembler(P, 8, 10)
     assert asm.num_dofs == DENSE_DOFS, asm.num_dofs
     S, bs = asm.assemble(kind="dense", device=device)
     LU, piv = dense_lu.lu_factor(S)
     LU_p, piv_p = dense_lu.lu_factor_plain(S)
-    assert torch.equal(piv, piv_p)
+    assert torch.equal(piv, piv_p) and torch.equal(LU, LU_p)
     xs, xs_p = dense_lu.lu_solve(LU, piv, bs), dense_lu.lu_solve_plain(LU_p, piv_p, bs)
-    parts = [max_err(LU, LU_p), max_err(xs, xs_p)]
-    for err, scale in parts:
-        assert err <= TOL * scale, (err, scale)
-    record["dense_lu_saddle"] = {"max_abs_err": max(e for e, _ in parts),
-                                 "errs": [e for e, _ in parts], "scales": [sc for _, sc in parts],
-                                 "tol": TOL, "n": DENSE_DOFS, "pivots_moved": int(
-                                     (piv != torch.arange(DENSE_DOFS, device=device)).sum())}
+    err, scale = max_err(xs, xs_p)
+    assert err <= TOL * scale, (err, scale)
+    rec = {"max_abs_err": err, "factor_equal": True, "scale": scale, "tol": TOL, "n": DENSE_DOFS,
+           "pivots_moved": int((piv != torch.arange(DENSE_DOFS, device=device)).sum())}
+    rec.update(lu_timed(S, bs))
+    assert rec["device_launches_per_factor"] <= rec["launch_budget"], rec
+    record["dense_lu_saddle"] = rec
+    del S, LU, LU_p
+
+    ci, cj, pid, dc, rc, w = spd_laplacian(K11_TIMED, device, seed=K11_TIMED)
+    _, s_, C = dense_core.dense_factor(ci, cj, pid, dc, w)
+    y = (rc / s_).contiguous()
+    got = dense_lu.trsv(C, dense_lu.trsv(C, y, lower=True), lower=True, trans=True)
+    want = dense_lu.trsv_plain(C, dense_lu.trsv_plain(C, y, lower=True), lower=True, trans=True)
+    assert torch.equal(got, want)
+    Cl = torch.tril(C)
+    record["dense_lu_trsv"] = {
+        "max_abs_err": 0.0, "equal": True, "n": K11_TIMED,
+        "ms": cuda_ms(lambda: dense_lu.trsv(C, y, lower=True)),
+        "plain_ms": cuda_ms(lambda: dense_lu.trsv_plain(C, y, lower=True), reps=1, warmup=1),
+        "library_ms": cuda_ms(lambda: torch.linalg.solve_triangular(Cl, y[:, None], upper=False)),
+        **bound(8 * K11_TIMED * (K11_TIMED + 1) // 2 + 16 * K11_TIMED, K11_TIMED**2),
+    }
     return record
 
 

@@ -18,7 +18,8 @@ The cyclic solve (peel rounds, then the cycle core), after K8a and before K8b:
 
 * :mod:`.peel` — K9, the bifurcation system and the peel rounds
   (``lambda_system``, ``peel``);
-* :mod:`.fold` — K10, the multi-level gather-fold sums, on K6's kernel;
+* :mod:`.fold` — K10, the multi-level gather-fold sums, one launch a fold
+  (``nxfx_fold`` in K6's source) through a :class:`.fold.FoldPlan`;
 * :mod:`.dense_core` — K11, the dense core or dense tail (a tiled
   multi-block factor, up to 8,192 nodes);
 * :mod:`.core_elim` — K12a, the min-degree rounds of a sparse core plan;
@@ -50,8 +51,9 @@ The assembled-matrix and continuous-pressure routes:
   K20b, the CSR matvec with the diagonal and Jacobi row reductions;
 * :mod:`.schur_p` — K21a, the per-edge flux blocks' band Cholesky factor
   and solves of the continuous-pressure reduced solve;
-* :mod:`.dense_lu` — K21b, the float64 LU with partial pivoting, its solve
-  and the triangular solves;
+* :mod:`.dense_lu` — K21b, the float64 LU with partial pivoting (blocked,
+  in the unblocked loop's order: a cluster panel factor with lookahead),
+  its solve and the tiled triangular solves;
 * :mod:`.krylov` also holds K19e, the MINRES steps.
 
 The sharded solves (:mod:`..parallel`), per shard and across the shards:

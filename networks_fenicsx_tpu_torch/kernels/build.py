@@ -22,7 +22,8 @@ import pathlib
 import torch
 
 __all__ = [
-    "library", "check", "require_cuda", "require_coefficients", "stream_handle", "Counter", "BUILD_ROOT",
+    "library", "check", "require_cuda", "require_coefficients", "stream_handle", "raw_stream", "Counter",
+    "BUILD_ROOT",
 ]
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
@@ -70,6 +71,10 @@ _SIGNATURES = {
     "nxfx_segsum_into": [
         _i, _i, _i, _i,  # S, K, C, n
         _p, _p, _p, _p, _p,  # idx, vals, bins, out, stream
+    ],
+    "nxfx_fold": [
+        _i, _p, _p, _p, _i, _i,  # L, host level pointers, rows, widths, C, n
+        _p, _p, _p,  # vals, out, stream
     ],
     "nxfx_edge_data": [
         _i, _i, _i, _i, _i,  # layout, E, N, k, nq
@@ -256,9 +261,9 @@ _SIGNATURES = {
     "nxfx_csr_rows": [_i, _i, _p, _p, _p, _p, _p, _p],  # n, mode, indptr, indices, data, adiag, out
     "nxfx_schur_p_factor": [_i, _i, _i, _p, _p, _p, _p, _p],  # E, N, k, cell masses, base, Lb, adiag
     "nxfx_schur_p_solve": [_i, _i, _i, _p, _p, _p, _p, _p, _p],  # E, N, k, Lb, base, v, Y, out
-    "nxfx_lu_factor": [_i, _p, _p, _p],  # n, A, piv, stream
-    "nxfx_lu_solve": [_i, _p, _p, _p, _p, _p],  # n, LU, piv, b, x, stream
-    "nxfx_trsv": [_i, _p, _i, _i, _i, _p, _p],  # n, A, lower, trans, unit, x, stream
+    "nxfx_lu_factor": [_i, _p, _p, _p, _p],  # n, A, piv, host launch count, stream
+    "nxfx_lu_solve": [_i, _p, _p, _p, _p, _p, _p],  # n, LU, piv, b, x, tile flags, stream
+    "nxfx_trsv": [_i, _p, _i, _i, _i, _p, _p, _p],  # n, A, lower, trans, unit, x, tile flags, stream
     "nxfx_shard_reduce": [_i, _l, _l, _l, _p, _p, _p],  # D, n, stride, offset, parts, out, stream
     "nxfx_shard_reduce_placed": [
         _i, _i, _i, _i, _i, _i, _l,  # D, d0, C, h, nx, ny, stride
@@ -358,6 +363,12 @@ def check(code: int, name: str) -> None:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as a handle, without a
+    Python ``Stream`` object (the lean launch path of K6 and K10)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float64,

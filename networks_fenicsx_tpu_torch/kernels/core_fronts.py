@@ -151,9 +151,9 @@ def core_fronts(dcp: DeviceCorePlan, d: torch.Tensor, ustream: torch.Tensor,
 core_fronts.launches = 0
 
 
-def fold_launches(levels: tuple) -> int:
-    """K10 launches of one fold (a level with no rows launches nothing)."""
-    return sum(1 for lv in levels if lv.shape[0])
+def fold_launches(levels) -> int:
+    """K10 launches of one fold: one, unless it has no output rows."""
+    return 1 if len(levels) and levels[-1].shape[0] else 0
 
 
 def cuda_launches(dcp: DeviceCorePlan) -> int:

@@ -17,6 +17,21 @@
 //   out[bins[s], c] += sum_j vals[idx[s, j], c]
 // with bins sorted and unique (the reference's sorted-unique scatter-add of
 // _lambda_system_sorted), so each output row has one writer: no atomics.
+//
+// nxfx_fold is K10 (networks_fenicsx_tpu/ops/core_elim.py:_fold_apply,
+// :394-415): a chain of L such gather levels, level l summing K_l entries
+// of level l-1's rows (level 0 of vals), a pad index (>= the previous
+// level's rows) reading 0.  One launch a fold, whatever L:
+//   L = 1: the segment sum above, one thread an output;
+//   L >= 2 (segments wider than 64, chunked by the host plan): one warp an
+//   (output, channel); level-1 rows are computed lane-parallel over their
+//   entries (each lane a level-0 chunk sum) and added across the lanes in
+//   ascending order; higher levels walk their entries in ascending order.
+// Every intermediate sum is the value the level-by-level plain version
+// rounds to, added in its order, so the fold equals it bit for bit.
+// Bound: the latency of a few dependent gathers; the launch count (one a
+// fold instead of one a level) and the host's per-call work are what move
+// the launch-bound chains K10 runs in.
 
 #include <cuda_runtime.h>
 
@@ -47,6 +62,70 @@ __global__ void segsum_kernel(
         const size_t o = static_cast<size_t>(bins[s]) * C + c;
         out[o] = out[o] + acc;
     }
+}
+
+constexpr int FOLD_MAX_LEVELS = 8;
+constexpr int FOLD_THREADS = 256;
+
+struct FoldLevels {
+    const int* idx[FOLD_MAX_LEVELS];
+    int rows[FOLD_MAX_LEVELS];
+    int K[FOLD_MAX_LEVELS];
+};
+
+// level 0's row r, channel c: its K_0 gathers of vals (n rows) in ascending order
+__device__ double fold_level0(const FoldLevels& F, int n, int C, const double* vals, int r, int c)
+{
+    const int K = F.K[0];
+    const int* row = F.idx[0] + static_cast<size_t>(r) * K;
+    double acc = 0.0;
+    for (int j = 0; j < K; ++j) {
+        const int i = row[j];
+        const double v = (i >= 0 && i < n) ? vals[static_cast<size_t>(i) * C + c] : 0.0;
+        acc = j == 0 ? v : acc + v;
+    }
+    return acc;
+}
+
+// level l's row r (l >= 1), warp-uniform: every lane returns the sum
+__device__ double fold_row(const FoldLevels& F, int l, int r, int n, int C, const double* vals, int c)
+{
+    const int K = F.K[l];
+    const int* row = F.idx[l] + static_cast<size_t>(r) * K;
+    const int lane = threadIdx.x & 31;
+    double acc = 0.0;
+    if (l == 1) {
+        for (int j0 = 0; j0 < K; j0 += 32) {
+            const int j = j0 + lane;
+            double v = 0.0;
+            if (j < K) {
+                const int e = row[j];
+                if (e >= 0 && e < F.rows[0]) v = fold_level0(F, n, C, vals, e, c);
+            }
+            for (int jj = 0; jj < 32 && j0 + jj < K; ++jj) {
+                const double vj = __shfl_sync(0xffffffffu, v, jj);
+                acc = j0 + jj == 0 ? vj : acc + vj;
+            }
+        }
+        return acc;
+    }
+    for (int j = 0; j < K; ++j) {
+        const int e = row[j];
+        const double v = (e >= 0 && e < F.rows[l - 1]) ? fold_row(F, l - 1, e, n, C, vals, c) : 0.0;
+        acc = j == 0 ? v : acc + v;
+    }
+    return acc;
+}
+
+__global__ void __launch_bounds__(FOLD_THREADS) fold_kernel(FoldLevels F, int L, int C, int n,
+                                                            const double* __restrict__ vals,
+                                                            double* __restrict__ out)
+{
+    const long long wid = (static_cast<long long>(blockIdx.x) * FOLD_THREADS + threadIdx.x) >> 5;
+    if (wid >= static_cast<long long>(F.rows[L - 1]) * C) return;  // warp-uniform
+    const int g = static_cast<int>(wid / C), c = static_cast<int>(wid % C);
+    const double v = fold_row(F, L - 1, g, n, C, vals, c);
+    if ((threadIdx.x & 31) == 0) out[wid] = v;
 }
 
 }  // namespace
@@ -81,4 +160,25 @@ extern "C" int nxfx_segsum_into(
     cudaStream_t stream)
 {
     return launch_segsum(S, K, C, n, idx, vals, bins, out, stream);
+}
+
+// K10: L levels (host arrays of their device pointers, rows and widths)
+// folded from vals (n, C) into out (rows[L - 1], C) in one launch
+extern "C" int nxfx_fold(
+    int L, const int* const* idx, const int* rows, const int* K, int C, int n,
+    const double* vals, double* out, cudaStream_t stream)
+{
+    if (L < 1 || L > FOLD_MAX_LEVELS) return static_cast<int>(cudaErrorInvalidValue);
+    if (L == 1) return launch_segsum(rows[0], K[0], C, n, idx[0], vals, nullptr, out, stream);
+    FoldLevels F = {};
+    for (int l = 0; l < L; ++l) {
+        F.idx[l] = idx[l];
+        F.rows[l] = rows[l];
+        F.K[l] = K[l];
+    }
+    const long long warps = static_cast<long long>(rows[L - 1]) * C;
+    if (warps <= 0) return 0;
+    const long long blocks = (warps * 32 + FOLD_THREADS - 1) / FOLD_THREADS;
+    fold_kernel<<<static_cast<unsigned>(blocks), FOLD_THREADS, 0, stream>>>(F, L, C, n, vals, out);
+    return static_cast<int>(cudaGetLastError());
 }

@@ -23,6 +23,7 @@ import torch
 
 from ..ops.multifrontal import G_BNDPOS, G_FAC, G_LAM, G_VPOOL, DeviceMFPlan
 from . import build, fold
+from .core_fronts import fold_launches
 from .mf_factor import MFState, _child_pool, group_views
 
 __all__ = ["mf_apply", "mf_apply_plain", "cuda_launches"]
@@ -31,9 +32,9 @@ __all__ = ["mf_apply", "mf_apply_plain", "cuda_launches"]
 def cuda_launches(dmf: DeviceMFPlan) -> int:
     """CUDA kernel launches of one :func:`mf_apply` call (the K10 folds
     included): ``(1 + n_refine)`` sweeps of ``2 G + 1``, per refinement
-    pass a terms pass, the fold levels and a residual pass, and the gate."""
+    pass a terms pass, the two folds and a residual pass, and the gate."""
     G = len(dmf.plan.groups)
-    per_pass = 2 + len(dmf.mv_fold_i) + len(dmf.mv_fold_j)
+    per_pass = 2 + fold_launches(dmf.mv_fold_i) + fold_launches(dmf.mv_fold_j)
     n = dmf.plan.n_refine
     return (1 + n) * (2 * G + 1) + n * per_pass + 1
 

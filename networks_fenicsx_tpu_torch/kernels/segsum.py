@@ -82,23 +82,27 @@ segsum.launches = 0
 def launch(idx, vals, out, bins=None, name: str = "segsum") -> bool:
     """One ``nxfx_segsum`` (or, with ``bins``, ``nxfx_segsum_into``) launch on
     validated CUDA tensors, uncounted; False when there was nothing to sum.
-    :func:`segsum` and K10's :func:`.fold.fold_apply` share it and count
-    their own launches."""
+    :func:`segsum` and the sharded partials share it and count their own
+    launches.  The lean path of K10: the stream handle without a Python
+    ``Stream``, no device switch when ``vals`` is on the current device."""
     S, K = idx.shape
     C = 1 if vals.dim() == 1 else vals.shape[1]
     if S * C == 0:
         return False
-    lib = build.library()
-    with torch.cuda.device(vals.device):
-        if bins is None:
-            code = lib.nxfx_segsum(
-                S, K, C, vals.shape[0], idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
-                build.stream_handle(vals.device),
-            )
-        else:
-            code = lib.nxfx_segsum_into(
-                S, K, C, vals.shape[0], idx.data_ptr(), vals.data_ptr(), bins.data_ptr(),
-                out.data_ptr(), build.stream_handle(vals.device),
-            )
+    index = vals.get_device()
+    if index == torch._C._cuda_getDevice():
+        code = _launch(S, K, C, idx, vals, out, bins, index)
+    else:
+        with torch.cuda.device(index):
+            code = _launch(S, K, C, idx, vals, out, bins, index)
     build.check(code, name)
     return True
+
+
+def _launch(S, K, C, idx, vals, out, bins, index: int) -> int:
+    lib, stream = build.library(), build.raw_stream(index)
+    if bins is None:
+        return lib.nxfx_segsum(S, K, C, vals.shape[0], idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
+                               stream)
+    return lib.nxfx_segsum_into(S, K, C, vals.shape[0], idx.data_ptr(), vals.data_ptr(), bins.data_ptr(),
+                                out.data_ptr(), stream)

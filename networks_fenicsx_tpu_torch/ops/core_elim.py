@@ -921,7 +921,10 @@ class DeviceCorePlan:
 def device_core_plan(plan: CoreElimPlan, device: torch.device | str) -> DeviceCorePlan:
     """Upload ``plan``'s index arrays to ``device`` once, as int32 tensors,
     with the offsets of every round's and front's slice of the solve's
-    buffers: a solve then runs the launch loop and nothing else per round."""
+    buffers: a solve then runs the launch loop and nothing else per round.
+    Each fold is a :class:`..kernels.fold.FoldPlan`, validated here once."""
+    from ..kernels.fold import FoldPlan
+
 
     def up(a):
         a = np.asarray(a)
@@ -930,7 +933,7 @@ def device_core_plan(plan: CoreElimPlan, device: torch.device | str) -> DeviceCo
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
 
     def levels(fold):
-        return tuple(up(lv) for lv in fold)
+        return FoldPlan(up(lv) for lv in fold) if fold else ()
 
     rounds = []
     a_off = s_off = 0

@@ -594,7 +594,9 @@ def mf_launch_tables(plan: MFPlan) -> tuple[np.ndarray, np.ndarray, int, int, in
 
 
 def device_mf_plan(plan: MFPlan, device: torch.device | str) -> DeviceMFPlan:
-    """Upload ``plan``'s int buffers to ``device`` once, with its launch tables."""
+    """Upload ``plan``'s int buffers to ``device`` once, with its launch
+    tables; its two matvec folds each a :class:`..kernels.fold.FoldPlan`."""
+    from ..kernels.fold import FoldPlan
 
     def up(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
@@ -612,8 +614,8 @@ def device_mf_plan(plan: MFPlan, device: torch.device | str) -> DeviceMFPlan:
         lam_pos=up(plan.lam_pos),
         pci=up(plan.pci),
         pcj=up(plan.pcj),
-        mv_fold_i=tuple(up(lv) for lv in plan.mv_fold_i),
-        mv_fold_j=tuple(up(lv) for lv in plan.mv_fold_j),
+        mv_fold_i=FoldPlan(up(lv) for lv in plan.mv_fold_i),
+        mv_fold_j=FoldPlan(up(lv) for lv in plan.mv_fold_j),
         mv_inv_i=up(plan.mv_inv_i),
         mv_inv_j=up(plan.mv_inv_j),
         groups=groups,

@@ -33,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .kernels.fold import FoldPlan
 from .levels import _LambdaPlan, _TreePlan, segsum_matrix
 from .ops.core_elim import CoreElimPlan, DeviceCorePlan, _plan_fold, device_core_plan
 from .ops.multifrontal import DeviceMFPlan, MFPlan, device_mf_plan
@@ -164,7 +165,7 @@ def device_tree_plan(
         upar, fold = round_tables(elim, parents)
         rounds.append(DeviceRound(
             elim=up(elim), parents=up(parents), pair_ids=up(pair_ids), upar=up(upar),
-            fold=tuple(up(lv) for lv in fold), offset=off,
+            fold=FoldPlan(up(lv) for lv in fold) if fold else (), offset=off,
         ))
         off += int(elim.size)
     cp = np.asarray(tree_plan.core_pairs)
@@ -195,7 +196,7 @@ def device_tree_plan(
 def cuda_launches(dtp: DeviceTreePlan) -> int:
     """CUDA kernel launches of one :func:`tree_schur_solve` on the card: the
     bifurcation system (prepare, two sums, norm) and the pair sum; per peel
-    round a forward pass, its fold levels and the parent add, and a back
+    round a forward pass, its fold and the parent add, and a back
     pass; the core's gather and scatter and the core solve — the dense
     core's (:func:`.kernels.dense_core.cuda_launches`), the min-degree
     elimination's (:func:`.kernels.core_elim.cuda_launches`), or the
@@ -205,7 +206,7 @@ def cuda_launches(dtp: DeviceTreePlan) -> int:
 
     n = 4 + (1 if dtp.num_pairs else 0)
     for rd in dtp.rounds:
-        n += 2 + (len(rd.fold) + 1 if rd.upar.shape[0] else 0)
+        n += 2 + (2 if rd.upar.shape[0] else 0)
     if dtp.core_size:
         n += 2
         if dtp.mf is not None:

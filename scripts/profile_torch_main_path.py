@@ -43,6 +43,9 @@ Builds one configuration of ``chip_smoke.py`` (``--path``):
 * ``minres`` — ``make_arterial_tree(8)``, N = 4, flux degree 1 (2,422
   dofs) under ``method="minres"``, rtol 1e-12: assemble (K20) and MINRES
   (K19e on K20b, K19a's Jacobi);
+* ``dense`` — ``make_arterial_tree(8)``, N = 10, flux degree 2, pressure
+  degree 1 (8,033 dofs) under ``method="dense"``: assemble (K20), the
+  dense matrix, K21b's factor and solve, the residual gate;
 * ``sharded-tree``, ``sharded-forest``, ``sharded-lattice``, ``sharded-web``
   — the ``blocked``, ``forest``, ``lattice`` and ``web`` configurations
   through ``parallel.ShardedNetworkSolver`` on 8, 8, 8 and 4 shards of the
@@ -51,7 +54,15 @@ Builds one configuration of ``chip_smoke.py`` (``--path``):
   strips (K1, K22b, K16, K17, K5) and the general route's replicated tree
   solve (K8a, K22d, K9–K15, K8b);
 
-then
+or, with ``--kernels``, times the redesigned kernels against their
+library calls on the same inputs: K21b's factor and solve at n = 4,096
+(``lu_factor``, ``lu_solve``) and on the ``dense`` saddle matrix, its
+triangular solve on K11's factor of a 4,096-node Laplacian
+(``solve_triangular``); K10 over the 100k web's 18 peel-round folds (18
+``index_add_``); K12a's rounds on web2k and web2k's executor.  ``--root``
+imports the port from another checkout (e.g. the parent commit unpacked
+with ``git archive``), so that two versions are compared in one call.
+Otherwise the script
 
 1. times each phase of ``compute_forms`` + ``Solver.solve`` on the host
    clock, CUDA-synchronised at every phase boundary (best of ``--reps``);
@@ -63,6 +74,7 @@ then
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
+    python3 scripts/profile_torch_main_path.py --kernels [--root DIR] [--out kernels.json]
 
 (``--generations`` sets the depth of ``blocked``, ``callable`` and ``p1tree``.)
 
@@ -72,6 +84,7 @@ Prints one JSON object; ``--out`` also writes it to a file.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import pathlib
 import re
@@ -82,16 +95,23 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+# the port of this checkout, or with --root of another one; chip_smoke's
+# configurations always from this checkout
+sys.path.insert(0, str(pathlib.Path(sys.argv[sys.argv.index("--root") + 1]).resolve()
+                       if "--root" in sys.argv else ROOT))
+_spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+sys.modules["chip_smoke"] = chip_smoke
+_spec.loader.exec_module(chip_smoke)
 
-import chip_smoke  # noqa: E402
 import networks_fenicsx_tpu_torch as P  # noqa: E402
 from networks_fenicsx_tpu_torch.ops import krylov as cg_loop  # noqa: E402
 from networks_fenicsx_tpu_torch.solver import (  # noqa: E402
-    _CgExecutor, _flatten_blocks_host, _generic_solve, build_schur_executor,
+    _CgExecutor, _flatten_blocks_host, _generic_solve, _to_dense, build_schur_executor,
 )
 
-GENERIC_PATHS = ("p1tree", "minres")
+GENERIC_PATHS = ("p1tree", "minres", "dense")
 SHARDED_PATHS = {"sharded-tree": 8, "sharded-forest": 8, "sharded-lattice": 8, "sharded-web": 4}
 
 
@@ -102,7 +122,7 @@ def kernel_sources() -> dict[str, str]:
     csrc = pathlib.Path(P.__file__).resolve().parent / "kernels" / "csrc"
     out: dict[str, list[str]] = {}
     for path in sorted(csrc.glob("*.cu*")):
-        for m in re.finditer(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        for m in re.finditer(r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s+)*(\w+)\s*\(",
                              path.read_text()):
             out.setdefault(m.group(1), []).append(path.name)
     return {name: " + ".join(files) for name, files in out.items()}
@@ -161,6 +181,9 @@ def configure(path: str, generations: int):
     elif path == "minres":
         asm, forms = chip_smoke.minres_assembler(P), chip_smoke.p1tree_forms
         options = P.SolverOptions(method="minres", rtol=1e-12)
+    elif path == "dense":
+        asm, forms = chip_smoke.p1tree_assembler(P, 8, 10), chip_smoke.p1tree_forms
+        options = P.SolverOptions(method="dense")
     elif path == "skinny-mg":
         forms = chip_smoke.skinny_forms
         asm = chip_smoke.lattice_assembler(P, 3, 2000, forms=forms)
@@ -197,9 +220,37 @@ def phases(asm, solver, forms) -> dict[str, float]:
     return {n: (b - a) * 1e3 for n, a, b in zip(names, t[:-1], t[1:])}
 
 
+def dense_phases(asm, solver, forms) -> dict[str, float]:
+    """One compute_forms + solve of ``dense`` (``_generic_solve``'s dense
+    branch step by step), split at its phase boundaries (ms)."""
+    from networks_fenicsx_tpu_torch.kernels import dense_lu
+
+    t = [sync_clock()]
+    forms(asm)
+    t.append(sync_clock())
+    solver.assemble()
+    t.append(sync_clock())
+    Ad = _to_dense(solver.A)
+    t.append(sync_clock())
+    LU, piv = dense_lu.lu_factor(Ad)
+    t.append(sync_clock())
+    x = dense_lu.lu_solve(LU, piv, solver.b)
+    t.append(sync_clock())
+    float(torch.linalg.norm(Ad @ x - solver.b))
+    x = x.cpu().numpy()
+    t.append(sync_clock())
+    solver._scatter_functions(None, x)
+    t.append(sync_clock())
+    names = ["compute_forms", "assemble (values upload, K20 fold, b)", "dense matrix",
+             "K21b factor", "K21b solve", "residual gate + copy to host", "scatter"]
+    return {n: (b - a) * 1e3 for n, a, b in zip(names, t[:-1], t[1:])}
+
+
 def generic_phases(asm, solver, forms, path: str) -> dict[str, float]:
-    """One compute_forms + solve of ``p1tree`` or ``minres``, split at its
-    phase boundaries (ms)."""
+    """One compute_forms + solve of ``p1tree``, ``minres`` or ``dense``,
+    split at its phase boundaries (ms)."""
+    if path == "dense":
+        return dense_phases(asm, solver, forms)
     t = [sync_clock()]
     forms(asm)
     t.append(sync_clock())
@@ -247,9 +298,89 @@ def sharded_split(asm, solver, forms) -> dict[str, float]:
 
 def solve_once(solver, path: str) -> None:
     """What a user runs after compute_forms: the generic methods assemble again."""
-    if path == "minres":
+    if path in ("minres", "dense"):
         solver.assemble()
     solver.solve()
+
+
+def best_ms(fn, reps: int = 20) -> float:
+    """Best host-clock ms of ``fn`` over ``reps`` CUDA-synchronised calls."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = sync_clock()
+        fn()
+        times.append((sync_clock() - t0) * 1e3)
+    return min(times)
+
+
+def kernel_times(card: str) -> dict:
+    """``--kernels``: K21b, K10 and K12a beside their library calls (see the
+    module docstring), on the port that ``sys.path`` finds first."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core, dense_lu, fold
+
+    dev = torch.device("cuda", 0)
+    ms = chip_smoke.cuda_ms
+    out = {"card": card, "port": str(pathlib.Path(P.__file__).resolve().parent)}
+
+    def lu(A, b, reps_f: int = 5):
+        LU, piv = dense_lu.lu_factor(A)
+        LU_l, piv_l = torch.linalg.lu_factor(A)
+        return {"n": A.shape[0], "factor_ms": ms(lambda: dense_lu.lu_factor(A), reps=reps_f),
+                "solve_ms": ms(lambda: dense_lu.lu_solve(LU, piv, b)),
+                "library_factor_ms": ms(lambda: torch.linalg.lu_factor(A), reps=reps_f),
+                "library_solve_ms": ms(lambda: torch.linalg.lu_solve(LU_l, piv_l, b[:, None]))}
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n = chip_smoke.LU_N
+    A = torch.randn((n, n), generator=gen, dtype=torch.float64, device=dev)
+    A += n * torch.eye(n, dtype=torch.float64, device=dev)
+    b = torch.randn(n, generator=gen, dtype=torch.float64, device=dev)
+    out["k21b_random"] = lu(A, b, reps_f=3)
+    S, bs = chip_smoke.p1tree_assembler(P, 8, 10).assemble(kind="dense", device=dev)
+    out["k21b_saddle"] = lu(S, bs, reps_f=2)
+    del A, S
+    ci, cj, pid, dc, rc, w = chip_smoke.spd_laplacian(chip_smoke.K11_TIMED, dev,
+                                                      seed=chip_smoke.K11_TIMED)
+    _, s_, C = dense_core.dense_factor(ci, cj, pid, dc, w)
+    y, Cl = (rc / s_).contiguous(), torch.tril(C)
+    out["k21b_trsv"] = {"n": chip_smoke.K11_TIMED, "ms": ms(lambda: dense_lu.trsv(C, y, lower=True)),
+                        "library_ms": ms(lambda: torch.linalg.solve_triangular(Cl, y[:, None],
+                                                                               upper=False))}
+
+    asm = chip_smoke.web_assembler(P)
+    ex = build_schur_executor(asm, P.SolverOptions(), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    folds, adds = [], []
+    for rd in ex.device_plan.rounds:
+        if not rd.fold:
+            continue
+        v = torch.randn((rd.size, 2), generator=gen, dtype=torch.float64, device=dev)
+        folds.append((rd.fold, v))
+        ok = rd.parents >= 0
+        adds.append((torch.zeros((rd.upar.shape[0], 2), dtype=torch.float64, device=dev),
+                     torch.searchsorted(rd.upar, rd.parents[ok]), v[ok]))
+    before = fold.fold_apply.launches
+    got = [fold.fold_apply(v, lv) for lv, v in folds]
+    want = [fold.fold_apply_plain(v, lv) for lv, v in folds]
+    out["k10_web"] = {
+        "folds": len(folds), "launches": fold.fold_apply.launches - before,
+        "equal": all(torch.equal(a, b_) for a, b_ in zip(got, want)),
+        "ms": ms(lambda: [fold.fold_apply(v, lv) for lv, v in folds]),
+        "library_ms": ms(lambda: [o.index_add_(0, seg, src) for o, seg, src in adds]),
+        "wrapper_us_per_fold": best_ms(lambda: [fold.fold_apply(v, lv) for lv, v in folds])
+        * 1e3 / len(folds)}
+    del asm, ex, folds, adds, got, want
+
+    asm = chip_smoke.web2k_assembler(P)
+    core = chip_smoke.compare_core_kernels(P, asm, dev, timed=True)["core_elim"]
+    out["k12a_web2k"] = {"ms": core["ms"], "plain_ms": core["plain_ms"]}
+    solver = P.Solver(asm, device="cuda")
+    solver.solve()
+    ex = solver._executor
+    args = ex.prepare_args(*asm.schur_arguments())
+    out["web2k_executor_ms"] = best_ms(lambda: ex(*args))
+    return out
 
 
 def main() -> int:
@@ -262,6 +393,10 @@ def main() -> int:
     ap.add_argument("--generations", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", type=pathlib.Path, default=None)
+    ap.add_argument("--kernels", action="store_true",
+                    help="time K21b, K10 and K12a beside their library calls instead of a path")
+    ap.add_argument("--root", type=pathlib.Path, default=None,
+                    help="import the port from this checkout instead of this one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
@@ -270,6 +405,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
+    if args.kernels:
+        text = json.dumps(kernel_times(card), indent=1)
+        print(text)
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(text)
+        return 0
 
     asm, forms, options, tree_plan = configure(args.path, args.generations)
     if args.path in SHARDED_PATHS:
@@ -342,7 +484,7 @@ def main() -> int:
         "device_busy_ms_per_solve": busy_ms,
         "device_idle_share": 1.0 - busy_ms / mean_solve if mean_solve else None,
     }
-    if args.path in GENERIC_PATHS:
+    if args.path in ("p1tree", "minres"):
         loop = cg_loop.cg if args.path == "p1tree" else cg_loop.minres
         result["iterative"] = {"method": solver.info.method, "iterations": solver.info.iterations,
                                "chunk": cg_loop.CHUNK,

@@ -234,10 +234,39 @@ def test_fold_plain_matches_fold_apply(channels):
     tgt = rng.permutation(40)[:9]
     assert np.array_equal(JCE._inverse_map(tgt, 40, 9), PCE._inverse_map(tgt, 40, 9))
     vec = rng.standard_normal((src_len, channels)) * 100
-    got = fold.fold_apply(_t(vec), tuple(_t(lv, torch.int32) for lv in levels_p))
+    levels_t = tuple(_t(lv, torch.int32) for lv in levels_p)
+    got = fold.fold_apply(_t(vec), levels_t)
+    plan = fold.FoldPlan(levels_t)
+    assert (len(plan), plan.rows, plan.src_max) == (3, widths.size, src_len)
+    assert torch.equal(fold.fold_apply(_t(vec), plan), got)
     for c in range(channels):
         want = JCE._fold_apply(jnp.asarray(vec[:, c]), levels_j)
         _close(got[:, c], want, 1e-12)
+
+
+def test_fold_plan_validates_at_construction():
+    """A :class:`FoldPlan` checks its levels once: int32, 2-D, contiguous,
+    with data on one device, each level's indices within the previous
+    level's rows and its pad; on a non-CPU tensor ``fold_apply`` takes only
+    a plan."""
+    rng = np.random.default_rng(4)
+    seg = _segments(rng, np.array([130, 3, 70]))
+    levels = tuple(_t(lv, torch.int32) for lv in PCE._plan_fold(seg, 3, np.arange(seg.size),
+                                                                seg.size))
+    assert len(fold.FoldPlan(levels)) == 2
+    with pytest.raises(ValueError, match="int32"):
+        fold.FoldPlan((levels[0].long(), levels[1]))
+    with pytest.raises(ValueError, match="contiguous"):
+        fold.FoldPlan((levels[0].t().contiguous().t(), levels[1]))
+    with pytest.raises(ValueError, match="level 1"):
+        fold.FoldPlan((levels[0][:2].contiguous(), levels[1]))  # level 1 names 6 chunks
+    with pytest.raises(ValueError, match="meta"):
+        fold.FoldPlan(tuple(lv.to("meta") for lv in levels))
+    with pytest.raises(ValueError, match="levels"):
+        fold.FoldPlan(())
+    meta = torch.ones(seg.size, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fold.fold_apply(meta, fold.FoldPlan(levels))
 
 
 def _peel_problem(n=1000, seed=0):
@@ -488,8 +517,9 @@ def test_cyclic_wrappers_never_fall_back_off_the_cpu():
 
 @pytest.mark.cuda
 def test_cyclic_kernels_match_plain_on_card():
-    """On a CUDA device: K10, K9, K11 and K13–K15 each equal their plain
-    versions on the same inputs (``pytest -m cuda`` on the card)."""
+    """On a CUDA device: K10 (bit for bit, one launch a fold, a one-level
+    round fold and a three-level fold), K9, K11 and K13–K15 each equal their
+    plain versions on the same inputs (``pytest -m cuda`` on the card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -515,8 +545,18 @@ def test_cyclic_kernels_match_plain_on_card():
            dense_core.dense_core_plain(*pairs, *core_in, n_refine=0).cpu().numpy(), 1e-12)
     rd = dtp.rounds[0]
     v = torch.rand((rd.size, 2), dtype=torch.float64, device=dev)
-    _close(fold.fold_apply(v, rd.fold).cpu(), fold.fold_apply_plain(v, rd.fold).cpu().numpy(),
-           1e-12)
+    launched = fold.fold_apply.launches
+    assert torch.equal(fold.fold_apply(v, rd.fold), fold.fold_apply_plain(v, rd.fold))
+    # a three-level fold (segments wider than 64 twice over), one launch
+    rng = np.random.default_rng(1)
+    seg = _segments(rng, np.concatenate([[0, 5000, 300, 1], rng.integers(1, 70, 40)]))
+    plan = fold.FoldPlan(_t(lv, torch.int32).to(dev)
+                         for lv in PCE._plan_fold(seg, 44, np.arange(seg.size), seg.size))
+    assert len(plan) == 3
+    for C in (1, 2):
+        v3 = torch.randn((seg.size, C), dtype=torch.float64, device=dev).squeeze(1 if C == 1 else -1)
+        assert torch.equal(fold.fold_apply(v3, plan), fold.fold_apply_plain(v3, plan))
+    assert fold.fold_apply.launches == launched + 3
     cp, nc = _lattice_core(24)
     dc, w, rc = _spd_core(cp, nc, seed=3)
     dmf = PMF.device_mf_plan(PMF.plan_multifrontal(cp, nc, leaf=16), dev)

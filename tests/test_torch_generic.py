@@ -390,6 +390,98 @@ def test_plain_lu_pivots_equal_lapack_on_the_saddle_matrix():
         _close(dense_lu.lu_solve(LU, piv, b), np.linalg.solve(A.numpy(), b.numpy()), 1e-12)
 
 
+def _unblocked_lu(A):
+    """The unblocked right-looking loop, step by step: the oracle of the
+    blocked schedule."""
+    LU = A.clone()
+    n = LU.shape[0]
+    piv = torch.empty(n, dtype=torch.int32)
+    for k in range(n):
+        p = k + int(torch.argmax(LU[k:, k].abs()))
+        piv[k] = p
+        LU[[k, p]] = LU[[p, k]]
+        if k + 1 < n:
+            r = 1.0 / LU[k, k]
+            LU[k + 1:, k] = LU[k + 1:, k] * r
+            LU[k + 1:, k + 1:] = LU[k + 1:, k + 1:] - torch.outer(LU[k + 1:, k], LU[k, k + 1:])
+    return LU, piv
+
+
+def _column_trsv(A, x, lower, trans, unit):
+    """The column loop: x[c] final, then every later row subtracts a(i, c) x[c]."""
+    x = x.clone()
+    n = x.shape[0]
+    forward = lower != trans
+    for s_ in range(n):
+        c = s_ if forward else n - 1 - s_
+        if not unit:
+            x[c] = x[c] / A[c, c]
+        col = A[c, :] if trans else A[:, c]
+        if forward:
+            x[c + 1:] = x[c + 1:] - col[c + 1:] * x[c]
+        else:
+            x[:c] = x[:c] - col[:c] * x[c]
+    return x
+
+
+def _saddle(graph, N, k, kp):
+    mesh = P.NetworkMesh(graph(P), N=N)
+    asm = P.HydraulicNetworkAssembler(mesh, flux_degree=k, pressure_degree=kp)
+    asm.compute_forms(p_bc_ex=lambda x: x[1])
+    return asm.assemble(kind="dense", device="cpu")[0]
+
+
+LU_MATRICES = {
+    "y_bifurcation": lambda: _saddle(_tree(2, 1, 3), 4, 2, 1),
+    "tree4_p2p1": lambda: _saddle(_tree(4), 3, 2, 1),
+    "random_101": lambda: torch.as_tensor(np.random.default_rng(5).standard_normal((101, 101))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LU_MATRICES))
+def test_blocked_plain_lu_equals_the_unblocked_loop(name):
+    """K21b's schedule keeps the unblocked order: for panel widths 1, 2, 7,
+    32 and 64 (none dividing n = 101; the saddle matrices' ties, zero
+    diagonals and ±1 entries) the pivots and the factor are the unblocked
+    loop's to the last bit.  The pivots are SciPy's on the Y-bifurcation and
+    the random matrix.  On ``make_tree(4)``'s P2/P1 matrix (n = 158) LAPACK's
+    recursive ``dgetrf`` breaks 14 near-ties (candidates equal in exact
+    arithmetic, 1–3 ulp apart in either order) the other way; there the
+    factor is held to a backward error of 8·n·ε·max |A|."""
+    A = LU_MATRICES[name]()
+    want_lu, want_piv = _unblocked_lu(A)
+    n = A.shape[0]
+    if name == "tree4_p2p1":
+        order = list(range(n))
+        for k, p in enumerate(want_piv.tolist()):
+            order[k], order[p] = order[p], order[k]
+        L = torch.tril(want_lu, -1) + torch.eye(n, dtype=A.dtype)
+        back = float((A[order] - L @ torch.triu(want_lu)).abs().max())
+        assert back <= 8 * n * np.finfo(float).eps * float(A.abs().max()), back
+    else:
+        assert np.array_equal(want_piv.numpy(), sla.lu_factor(A.numpy())[1])
+    for nb in (1, 2, 7, 32, 64):
+        LU, piv = dense_lu.lu_factor_plain(A, nb=nb)
+        assert torch.equal(piv, want_piv), nb
+        assert torch.equal(LU, want_lu), nb
+    assert name != "random_101" or int((want_piv != torch.arange(101)).sum()) > 50
+
+
+@pytest.mark.parametrize("unit", [False, True])
+@pytest.mark.parametrize("lower,trans", [(True, False), (True, True), (False, False), (False, True)])
+def test_tiled_plain_trsv_equals_the_column_loop(lower, trans, unit):
+    """The tiled triangular solve (64-row tiles, and 7) is the column loop to
+    the last bit in all four (lower, trans) cases, unit or stored diagonal,
+    at n = 150 (not a multiple of the tile)."""
+    rng = np.random.default_rng(11)
+    n = 150
+    A = torch.as_tensor(rng.standard_normal((n, n)) + 4 * np.eye(n))
+    x = torch.as_tensor(rng.standard_normal(n))
+    want = _column_trsv(A, x, lower, trans, unit)
+    for tile in (dense_lu.TILE, 7, 1):
+        assert torch.equal(dense_lu.trsv_plain(A, x, lower, trans, unit, tile=tile), want), tile
+
+
 def test_wrappers_never_fall_back_off_the_cpu():
     """CPU tensors run the plain versions without counting a launch; a
     tensor on any other device goes to the kernel path, which validates it
@@ -475,28 +567,33 @@ def test_schur_p_kernels_match_plain_on_card():
 
 @pytest.mark.cuda
 def test_dense_lu_kernel_matches_plain_on_card():
-    """K21b on a random diagonally dominant matrix and the Y-bifurcation's
-    saddle matrix: pivots equal, factors at 1e-12·scale, solves; the
-    triangular solves on a Cholesky factor."""
+    """K21b on random diagonally dominant matrices of order 301 and 4,096
+    and on the Y-bifurcation's saddle matrix: pivots and factor equal to the
+    plain version bit for bit, solves equal too; the triangular solves on a
+    Cholesky factor, all four (lower, trans) cases, equal."""
     dev = _card()
     rng = np.random.default_rng(0)
-    n = 300
-    A = torch.as_tensor(rng.standard_normal((n, n)) + n * np.eye(n), device=dev)
     mesh = P.NetworkMesh(P.network_generation.make_tree(2, 1, 3), N=4)
     asm = P.HydraulicNetworkAssembler(mesh)
     asm.compute_forms(p_bc_ex=lambda x: x[1])
     S, _ = asm.assemble(kind="dense", device=dev)
-    for M in (A, S):
-        b = torch.randn(M.shape[0], dtype=torch.float64, device=dev)
-        LU, piv = dense_lu.lu_factor(M)
-        LU_p, piv_p = dense_lu.lu_factor_plain(M)
-        assert torch.equal(piv, piv_p)
-        _close(LU, LU_p, 1e-12)
-        _close(dense_lu.lu_solve(LU, piv, b), dense_lu.lu_solve_plain(LU_p, piv_p, b), 1e-12)
+    for n in (301, 4096):
+        A = torch.as_tensor(rng.standard_normal((n, n)) + n * np.eye(n), device=dev)
+        for M in (A, S):
+            b = torch.randn(M.shape[0], dtype=torch.float64, device=dev)
+            LU, piv = dense_lu.lu_factor(M)
+            LU_p, piv_p = dense_lu.lu_factor_plain(M)
+            assert torch.equal(piv, piv_p)
+            assert torch.equal(LU, LU_p)
+            assert torch.equal(dense_lu.lu_solve(LU, piv, b), dense_lu.lu_solve_plain(LU_p, piv_p, b))
+    n = 301
+    A = torch.as_tensor(rng.standard_normal((n, n)) + n * np.eye(n), device=dev)
     C = torch.linalg.cholesky(A @ A.T).contiguous()
     b = torch.randn(n, dtype=torch.float64, device=dev)
-    for lower, trans in ((True, False), (True, True)):
-        _close(dense_lu.trsv(C, b, lower, trans), dense_lu.trsv_plain(C, b, lower, trans), 1e-12)
+    for lower, trans in ((True, False), (True, True), (False, False), (False, True)):
+        for unit in (False, True):
+            assert torch.equal(dense_lu.trsv(C, b, lower, trans, unit),
+                               dense_lu.trsv_plain(C, b, lower, trans, unit))
 
 
 @pytest.mark.cuda
