@@ -26,8 +26,11 @@ paths through the public API, checks each solution and times it:
   a 1,994-node core: 7 min-degree rounds and a 628-node dense tail; K12a
   with K10 and K11) and its 64² lattice under ``auto`` (28,294 dofs, a
   4,096-node dense core, K11), and the 128² per-edge-R lattice with the
-  reference's nested-dissection plan and forced supernodal fronts (K12b),
-  through the tree executor the reference's own tests force plans into;
+  reference's nested-dissection plan and forced supernodal fronts (K12b;
+  also the 40² lattice's fronts of 37 pivots), through the tree executor
+  the reference's own tests force plans into, then K11 alone from 455 to
+  8,192 nodes with its guards (an indefinite core all NaN, repeat calls
+  bit for bit, its launches within budget);
 * the iterative λ solve under ``schur_method="cg"``: the 512² lattice with
   per-edge R (1,831,942 dofs; conjugate gradients with the 2-D aggregation
   multigrid, K19a + K18 + K19c) and the 100k-site web (2,817,749 dofs;
@@ -44,7 +47,8 @@ paths through the public API, checks each solution and times it:
   K22c, K8b), the 512² lattice in 8 strips (K1, K22b, K16, K17, K5), the
   web over 4 (the general route's replicated peel + multifrontal solve:
   K8a, K22d, K9–K15, K8b) and the 64² lattice under CG over 8 (K22d's
-  matvec part), each against the serial solve of the same assembler.
+  matvec part), each against the serial solve of the same assembler, every
+  K22-reduce call bit for bit.
 
 Each kernel is held against its plain version on the card, timed per call
 beside its bound (the bytes it must move over the memory rate or its
@@ -113,6 +117,9 @@ GRID128_FRONTS_SIZES = {"core": 16_384, "core_rounds": 28, "dense_tail": 0,
 ND_KWARGS = dict(dense_cutoff=8192, kcap=64, tail_stop=True, dense_cap=8192, supernodal_tail=True)
 # the same order with a forced supernodal tail (fronts of at most 1,024 pivots)
 FRONTS_KWARGS = dict(kcap=64, tail_stop=False, dense_cap=16, supernodal_tail=True, front_max=1024)
+# the reference's forced fronts of 37 pivots on a 40² lattice (test_core_elim.py:346)
+FRONTS_40_KWARGS = dict(dense_cutoff=64, kcap=24, dense_cap=16, supernodal_tail=True, front_max=37,
+                        tail_stop=False)
 K11_SIZES = (455, 628, 2_048, 4_096, 8_192)  # K11 alone, set (j)
 K11_TIMED = 4_096  # the kernels line's K11 shape: the 64² lattice's dense core
 EPS = float(np.finfo(np.float64).eps)
@@ -1099,12 +1106,17 @@ def grid128_forms(asm) -> None:
     asm.compute_forms(p_bc_ex=lambda x: x[0], R=R)
 
 
-def grid128_assembler(P):
-    """The 128² lattice at N = 1 with :func:`grid128_forms`."""
+def grid_assembler(P, side: int):
+    """The side² lattice at N = 1 with :func:`grid128_forms`."""
     asm = P.HydraulicNetworkAssembler(P.NetworkMesh(
-        P.network_generation.make_grid(128, 128, arrays=True), N=1, color_strategy="fast"))
+        P.network_generation.make_grid(side, side, arrays=True), N=1, color_strategy="fast"))
     grid128_forms(asm)
     return asm
+
+
+def grid128_assembler(P):
+    """The 128² lattice at N = 1 with :func:`grid128_forms`."""
+    return grid_assembler(P, 128)
 
 
 def nd_tree_plan(P, asm, **kwargs):
@@ -1787,6 +1799,81 @@ def lattice_phases(P, device, name_power: str) -> dict:
     return {"sets": lat, "paths": paths, "auto": auto}
 
 
+def dense_core_guards(device) -> dict:
+    """What the dataflow solves and the panel launches of K11's factor
+    need beside set (j): a core that is not positive definite (the seeded
+    Laplacian without its diagonal excess, less 0.1 % of its diagonal:
+    singular and then indefinite, so that a pivot's square root is NaN and
+    the gate trips whatever the roundoff) at 455 and 4,096 nodes, kernel
+    and plain version both all NaN and the solves finishing; calls of one
+    stream back to back and of different n in turn giving identical bits
+    (the solves' epoch flags, the panels' atomic count), and so calls on two
+    streams at once (each stream's solve state); a call under CUDA-graph
+    capture refused; the launches of a
+    call (``cuda_launches``) within the budget, 40 at 455 and 160 at 4,096."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core
+
+    record = {}
+    for n in (455, K11_TIMED):
+        ci, cj, pid, dc, rc, w = spd_laplacian(n, device, seed=n)
+        ds = torch.zeros_like(dc).index_add_(0, ci.long(), w).index_add_(0, cj.long(), w)
+        ds = ds - 1e-3 * ds
+        got = dense_core.dense_core(ci, cj, pid, ds, rc, w)
+        torch.cuda.synchronize()
+        want = dense_core.dense_core_plain(ci, cj, pid, ds, rc, w)
+        assert bool(torch.isnan(got).all()) and bool(torch.isnan(want).all()), n
+        record[f"indefinite_{n}_all_nan"] = True
+    runs = {n: spd_laplacian(n, device, seed=n) for n in (455, K11_TIMED)}
+    first = {n: dense_core.dense_core(*args) for n, args in runs.items()}
+    again = [dense_core.dense_core(*runs[n]) for n in (455, K11_TIMED, 455, 455, K11_TIMED)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, first[n]) for x, n in zip(again, (455, K11_TIMED, 455, 455, K11_TIMED)))
+    record["back_to_back_equal"] = True
+    record["two_streams_equal"] = two_stream_dense_cores(runs, first)
+    record["capture_refused"] = capture_refused(runs[455])
+    for n, budget in ((455, 40), (K11_TIMED, 160)):
+        record[f"cuda_launches_{n}"] = dense_core.cuda_launches(n, int(runs[n][0].shape[0]))
+        assert record[f"cuda_launches_{n}"] <= budget, (n, record[f"cuda_launches_{n}"])
+    return record
+
+
+def two_stream_dense_cores(runs: dict, first: dict) -> bool:
+    """K11 calls on two streams at once, a 4,096-node call on one beside
+    455-node calls on the other, in both orders: each stream's solves keep
+    their own ticket counter and flags, so every result has the bits of the
+    same call alone."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core
+
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    for big, small in (streams, streams[::-1]):
+        torch.cuda.synchronize()
+        with torch.cuda.stream(big):
+            a = dense_core.dense_core(*runs[K11_TIMED])
+        with torch.cuda.stream(small):
+            b = [dense_core.dense_core(*runs[455]) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert torch.equal(a, first[K11_TIMED]) and all(torch.equal(x, first[455]) for x in b)
+    return True
+
+
+def capture_refused(args) -> bool:
+    """K11 under CUDA-graph capture raises (cudaErrorStreamCaptureUnsupported,
+    900) instead of capturing solves whose replays would reuse their epoch."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core
+
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            dense_core.dense_core(*args)
+    except RuntimeError as err:
+        assert "CUDA error 900" in str(err), err
+    else:
+        raise AssertionError("dense_core was captured into a CUDA graph")
+    del graph
+    torch.cuda.synchronize()
+    return True
+
+
 def core_phases(P, device, name_power: str) -> dict:
     """The mid-size cycle-core slice: kernels-core sets (f)–(i) and the
     web48 golden's forced plans, set (j) K11 alone, the web2k and 64²
@@ -1815,6 +1902,11 @@ def core_phases(P, device, name_power: str) -> dict:
                                      expect=GRID128_FRONTS_SIZES)
     log(f"phase kernels-core (i) 128^2 edge-R lattice, forced fronts (host planning {t_i:.3f} s): "
         + json.dumps(core["i"]))
+    grid40 = grid_assembler(P, 40)
+    core["grid40-fronts"] = compare_core_kernels(
+        P, grid40, device, timed=False, tree_plan=nd_tree_plan(P, grid40, **FRONTS_40_KWARGS))
+    log("phase kernels-core 40^2 edge-R lattice, forced fronts of 37 pivots (a w < m front whose "
+        "panel ends inside its first tile): " + json.dumps(core["grid40-fronts"]))
     web48 = golden_web48(P)
     for key, plan in forced_plans_web48(P, web48).items():
         core["web48-" + key] = compare_core_kernels(P, web48, device, timed=False, tree_plan=plan)
@@ -1823,6 +1915,8 @@ def core_phases(P, device, name_power: str) -> dict:
     k11 = compare_dense_sizes(device, timed=True)
     log("phase kernels-dense (j) K11 alone on seeded SPD Laplacians: "
         + json.dumps({str(n): rec for n, rec in k11.items()}))
+    guards = dense_core_guards(device)
+    log("phase kernels-dense (j) K11's gate, repeat bits and launch budget: " + json.dumps(guards))
 
     paths = {}
     paths["web2k"] = cyclic_main_path(P, device, "web2k main path", lambda: web2k_assembler(P),
@@ -1839,7 +1933,7 @@ def core_phases(P, device, name_power: str) -> dict:
     for key, plan in forced_plans_web48(P, web48).items():
         paths["web48-" + key] = forced_core_path(P, device, f"web48 forced {key} path", web48, plan,
                                                  {}, name_power)
-    return {"sets": core, "k11": k11, "paths": paths}
+    return {"sets": core, "k11": k11, "k11_guards": guards, "paths": paths}
 
 
 def cg512_forms(asm) -> None:
@@ -2872,16 +2966,21 @@ def device_share(fn) -> dict:
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms, "device_launches": launches}
 
 
-def check_pair(kernel, plain, work: tuple | None = None, library=None, tol: float = TOL) -> dict:
+def check_pair(kernel, plain, work: tuple | None = None, library=None, tol: float = TOL,
+               exact: bool = False) -> dict:
     """A wrapper against its plain version on the same inputs (fresh calls:
-    the inputs are not modified), held at ``tol``·scale; timed with its
-    bound (and the library call's time) when ``work`` is given."""
+    the inputs are not modified), held at ``tol``·scale (``exact``: also bit
+    for bit); timed with its bound (and the library call's time) when
+    ``work`` is given."""
     got = kernel()
     torch.cuda.synchronize()
     want = plain()
     err, scale = max_err(got, want)
     assert err <= tol * scale, (err, scale)
     rec = {"max_abs_err": err, "scale": scale}
+    if exact:
+        assert got.dtype == want.dtype and torch.equal(got, want), "not bit for bit"
+        rec["equal"] = True
     if work is not None:
         rec["ms"] = cuda_ms(kernel)
         rec["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
@@ -2988,7 +3087,7 @@ def sharded_tree_checks(state: dict, device) -> dict:
     stacked = ex.mesh.stack([f.part for f in fws])
     n = stacked.shape[1]
     rec["shard_reduce"] = check_pair(
-        lambda: shard_top.reduce(stacked), lambda: shard_top.reduce_plain(stacked),
+        lambda: shard_top.reduce(stacked), lambda: shard_top.reduce_plain(stacked), exact=True,
         work=(tensor_bytes(stacked) + 8 * n, (plan.D - 1) * n),
         library=lambda: torch.sum(stacked, dim=0))
     tot = shard_top.reduce(stacked)
@@ -3061,7 +3160,7 @@ def sharded_forest_checks(state: dict, device) -> dict:
     stacked = ex.mesh.stack([f.part for f in fws])
     n = stacked.shape[1]
     rec["shard_reduce"] = check_pair(
-        lambda: shard_top.reduce(stacked), lambda: shard_top.reduce_plain(stacked),
+        lambda: shard_top.reduce(stacked), lambda: shard_top.reduce_plain(stacked), exact=True,
         work=(tensor_bytes(stacked) + 8 * n, (plan.D - 1) * n),
         library=lambda: torch.sum(stacked, dim=0))
     tot = shard_top.reduce(stacked)
@@ -3117,11 +3216,11 @@ def sharded_lattice_checks(state: dict, device) -> dict:
     stacked = ex.mesh.stack([f.part for f in fws])
     rec["shard_reduce_placed"] = check_pair(
         lambda: shard_top.reduce_placed(stacked, 0, 2, h, nx, ny),
-        lambda: shard_top.reduce_placed_plain(stacked, 0, 2, h, nx, ny))
+        lambda: shard_top.reduce_placed_plain(stacked, 0, 2, h, nx, ny), exact=True)
     tail = shard_top.reduce(stacked, 2 + r, 2 * (h + 1) * nx)
     rec["shard_reduce_tail"] = check_pair(
         lambda: shard_top.reduce(stacked, 2 + r, 2 * (h + 1) * nx),
-        lambda: shard_top.reduce_plain(stacked, 2 + r, 2 * (h + 1) * nx))
+        lambda: shard_top.reduce_plain(stacked, 2 + r, 2 * (h + 1) * nx), exact=True)
     gdp = ex.grid[device]
     Ex, Ey = ny * (nx - 1), (ny - 1) * nx
     rec["shard_grid_fill"] = check_pair(lambda: shard_grid.fill(Ex, Ey, gdp.num_edges, tail),
@@ -3147,7 +3246,7 @@ def sharded_web_checks(state: dict, device) -> dict:
     stacked = ex.mesh.stack([f[1] for f in fws])
     n = stacked.shape[1]
     rec["shard_reduce"] = check_pair(
-        lambda: shard_top.reduce(stacked), lambda: shard_top.reduce_plain(stacked),
+        lambda: shard_top.reduce(stacked), lambda: shard_top.reduce_plain(stacked), exact=True,
         work=(tensor_bytes(stacked) + 8 * n, (stacked.shape[0] - 1) * n),
         library=lambda: torch.sum(stacked, dim=0))
     return rec
@@ -3170,7 +3269,10 @@ def sharded_cg_checks(state: dict, device) -> dict:
         lambda: shard_general.offdiag_plain(tab, w, diag, x))}
     stacked = ex.mesh.stack([f[1] for f in fws])
     rec["shard_reduce"] = check_pair(lambda: shard_top.reduce(stacked),
-                                     lambda: shard_top.reduce_plain(stacked))
+                                     lambda: shard_top.reduce_plain(stacked), exact=True)
+    flags = (torch.arange(9, dtype=torch.int32, device=device) + 3) % 5
+    rec["shard_all_finite"] = check_pair(lambda: shard_top.all_finite(flags),
+                                         lambda: shard_top.all_finite_plain(flags), exact=True)
     return rec
 
 

@@ -25,7 +25,8 @@
 // for its matrix unit: the same factor and sweeps in another association
 // (r_B -= X^T r_S = Y^T (L^-1 r_S); L^-T(L^-1 r_S - Y lam_B) = C^-T C^-1 r_S
 // - X lam_B).  Bound: the fronts' w^3/3 + w^2 b + w b^2 factor operations;
-// the factor and the sweeps run multi-block, a launch per 64 columns.
+// the factor runs multi-block (a panel and a trailing launch per 64
+// columns), each triangular solve of a sweep is one launch.
 // F is written by one thread and read by others in a later launch, and
 // lam and r carry the sweeps between launches: no __restrict__ on them.
 

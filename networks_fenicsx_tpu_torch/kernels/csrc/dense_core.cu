@@ -17,12 +17,16 @@
 // scaled_cholesky_solve) are kept.
 //
 // The assembly and the Jacobi scaling run over the whole card, then the
-// tiled multi-block factor, the blocked triangular solves and the one-block
-// pivot gate of tiled_cholesky.cuh, and a warp per row for each refinement
-// matvec rc - Lc x.  Bound: the factor's n^3/3 operations; then the
-// 2 (1 + n_refine) n^2 / 2 factor entries read by the solves and the
-// n_refine n^2 of Lc read by the matvecs.  (A one-block kernel of the first
-// port, for n <= 512, measured slower than this route at n = 455.)
+// tiled multi-block factor (a panel launch a 64-column panel on a lookahead
+// stream, its trailing updates on the float64 tensor cores beside the next
+// panel), the one-launch dataflow triangular solves and the one-block pivot
+// gate of tiled_cholesky.cuh, and a warp per row for each refinement matvec
+// rc - Lc x: 2 + (2 ceil(n / 64) - 1) + 1 + 4 (1 + n_refine) launches for
+// n > 64 (146 at 4,096 nodes, 34 at 455).  Bound: the factor's n^3/3
+// operations; then the 2 (1 + n_refine) n^2 / 2 factor entries read by the
+// solves and the n_refine n^2 of Lc read by the matvecs.  (A one-block
+// kernel of the first port, for n <= 512, measured slower than this route
+// at n = 455.)
 // The pairs are unique, so the assembly writes each entry once.  Lc, C, s,
 // v and y are written by one thread and read by others, so they carry no
 // __restrict__.
@@ -131,7 +135,7 @@ extern "C" int nxfx_dense_core(
     for (int pass = 0; pass <= n_refine; ++pass) {
         tiled_residual_kernel<<<rows, 256, 0, stream>>>(n, Lc, rc, s, x, pass == 0, v);
         if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-        // y = C^-1 v, then v = C^-T y
+        // y = C^-1 v, then v = C^-T y (a solve reads its v and writes its x)
         if ((err = tiled_solve(C, n, n, v, y, false, stream)) != cudaSuccess) return static_cast<int>(err);
         if ((err = tiled_solve(C, n, n, y, v, true, stream)) != cudaSuccess) return static_cast<int>(err);
         tiled_update_kernel<<<(n + 255) / 256, 256, 0, stream>>>(n, v, s, pass == 0, pass == n_refine,

@@ -17,7 +17,8 @@
 //            T levels, then root-down back-substitution, solves it exactly
 //            in O(Tn) (the reference factors it densely, Tn³/3).
 //
-// Bound: latency.  The partials are a few KB to a few MB; the T solve is
+// Bound: latency.  The partials are a few KB to a few MB (the reduce issues
+// a thread's loads eight shards at a time, before their adds); the T solve is
 // one block of 1,024 threads walking the levels with a barrier between
 // them (Tn <= 4,096).  Each output has one writer and sums in a fixed
 // order: no atomics.
@@ -35,10 +36,19 @@ __global__ void shard_reduce_kernel(
     int D, long long n, long long stride, long long offset,
     const double* __restrict__ parts, double* __restrict__ out)
 {
+    constexpr int UNROLL = 8;
     const long long j = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (j >= n) return;
-    double acc = parts[offset + j];
-    for (int d = 1; d < D; ++d) acc = acc + parts[d * stride + offset + j];
+    double acc = __ldcs(parts + offset + j);
+    for (int d0 = 1; d0 < D; d0 += UNROLL) {
+        double v[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+            if (d0 + u < D) v[u] = __ldcs(parts + (d0 + u) * stride + offset + j);
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+            if (d0 + u < D) acc = acc + v[u];
+    }
     out[j] = acc;
 }
 

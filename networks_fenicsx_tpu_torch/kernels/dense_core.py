@@ -19,8 +19,10 @@ Cholesky is emulated on the TPU; the port factors in float64 (kernel and
 plain version alike) and keeps the gate and the refinement passes.
 
 :func:`dense_core` launches the kernel for CUDA tensors (a tiled
-multi-block factor and blocked triangular solves, any core up to
-``MAX_CORE`` nodes) and runs :func:`dense_core_plain` for CPU tensors.
+multi-block factor with its trailing updates on the float64 tensor cores,
+two launches a 64-column panel, and one-launch triangular solves, any core
+up to ``MAX_CORE`` nodes: 146 launches at 4,096 nodes, 34 at 455) and runs
+:func:`dense_core_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -150,14 +152,27 @@ TILE = 64  # the tiled route's panel width (csrc/tiled_cholesky.cuh)
 
 def tiled_factor_launches(m: int, w: int) -> int:
     """Launches of ``tiled_cholesky`` on the first ``w`` columns of an
-    ``m x m`` block: a diagonal launch per 64 columns, a panel and a
-    trailing launch where rows remain below them, and the inverse launch."""
-    return sum(1 + 2 * (m - k0 - min(TILE, w - k0) > 0) for k0 in range(0, w, TILE)) + (w > 0)
+    ``m x m`` block: for each 64-column panel a panel launch (its diagonal
+    tile and the rows below it, with the previous panel's update of its
+    column of tiles) and a trailing launch on the tensor cores where tiles
+    remain past the next panel's column (after the last panel, or before a
+    panel whose column reaches past ``w``, any tile); then the inverse
+    launch."""
+    if w <= 0:
+        return 0
+    n = 1
+    for k0 in range(0, w, TILE):
+        k1 = k0 + min(TILE, w - k0)
+        tiles = -(-(m - k1) // TILE)
+        j0 = int(k1 < w and (k1 + TILE <= w or w == m))
+        n += 1 + (tiles - j0 > 0)
+    return n
 
 
 def tiled_solve_launches(n: int) -> int:
-    """Launches of one blocked triangular solve of order ``n``."""
-    return -(-n // TILE)
+    """Launches of one triangular solve of order ``n``: one (a dataflow over
+    its 64-row blocks)."""
+    return int(n > 0)
 
 
 def cuda_launches(n: int, P0: int, n_refine: int = N_REFINE) -> int:

@@ -18,7 +18,10 @@ the replicated dense solve of the top forest T
   ``sq_extra`` it also gives ``sqrt(sq_extra + ‖r_T‖²)``.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
-version, which adds in the kernel's order, for CPU tensors.  ``REDUCE``
+version, which adds in the kernel's order, for CPU tensors.  The three
+K22-reduce wrappers take K10's lean launch path (``fold.py``): attribute
+checks once, the device index from ``get_device()``, ``new_empty``, the raw
+stream, and no device switch when the device is already current.  ``REDUCE``
 counts the reduce, placed and finiteness launches, ``T_SOLVE`` the T solves.
 """
 
@@ -52,25 +55,43 @@ def reduce_plain(parts: torch.Tensor, n: int | None = None, offset: int = 0) -> 
     return acc.clone()
 
 
+def _check_parts(parts: torch.Tensor, dtype=torch.float64) -> int:
+    """The device index of a CUDA ``parts`` after the checks every K22-reduce
+    wrapper makes once (raises for a tensor off the card)."""
+    if not parts.is_cuda:
+        build.require_cuda("shard_reduce", parts, dtype=dtype)
+    if parts.dtype is not dtype or not parts.is_contiguous():
+        raise ValueError(f"shard_reduce: expected a contiguous {dtype} tensor")
+    return parts.get_device()
+
+
+def _launch(index: int, fn, *args) -> None:
+    """Launch the library function ``fn`` on device ``index``'s current
+    stream, entering the device only when it is not already current."""
+    if index == torch._C._cuda_getDevice():
+        code = fn(*args, build.raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, build.raw_stream(index))
+    if code:
+        build.check(code, "shard_reduce")
+    REDUCE.launches += 1
+
+
 def reduce(parts: torch.Tensor, n: int | None = None, offset: int = 0) -> torch.Tensor:
     """K22-reduce on ``parts``' device: the ``(n,)`` shard-ordered sum."""
     if parts.device.type == "cpu":
         return reduce_plain(parts, n, offset)
-    build.require_cuda("shard_reduce", parts)
+    index = _check_parts(parts)
     if parts.dim() != 2:
         raise ValueError("shard_reduce: parts must be (D, stride)")
     D, stride = parts.shape
     n = stride - offset if n is None else n
     if offset < 0 or n < 0 or offset + n > stride:
         raise ValueError("shard_reduce: columns out of range")
-    out = torch.empty(n, dtype=torch.float64, device=parts.device)
-    with torch.cuda.device(parts.device):
-        code = build.library().nxfx_shard_reduce(
-            D, n, stride, offset, parts.data_ptr(), out.data_ptr(),
-            build.stream_handle(parts.device),
-        )
-    build.check(code, "shard_reduce")
-    REDUCE.launches += 1
+    out = parts.new_empty(n)
+    _launch(index, build.library().nxfx_shard_reduce, D, n, stride, offset, parts.data_ptr(),
+            out.data_ptr())
     return out
 
 
@@ -95,18 +116,13 @@ def reduce_placed(parts: torch.Tensor, d0: int, C: int, h: int, nx: int, ny: int
     """K22-reduce's placed form on ``parts``' device: ``(C, ny, nx)``."""
     if parts.device.type == "cpu":
         return reduce_placed_plain(parts, d0, C, h, nx, ny)
-    build.require_cuda("shard_reduce", parts)
+    index = _check_parts(parts)
     D, stride = parts.shape
     if stride < C * (h + 1) * nx:
         raise ValueError("shard_reduce: a shard's row is shorter than its windows")
-    out = torch.empty((C, ny, nx), dtype=torch.float64, device=parts.device)
-    with torch.cuda.device(parts.device):
-        code = build.library().nxfx_shard_reduce_placed(
-            D, d0, C, h, nx, ny, stride, parts.data_ptr(), out.data_ptr(),
-            build.stream_handle(parts.device),
-        )
-    build.check(code, "shard_reduce")
-    REDUCE.launches += 1
+    out = parts.new_empty((C, ny, nx))
+    _launch(index, build.library().nxfx_shard_reduce_placed, D, d0, C, h, nx, ny, stride,
+            parts.data_ptr(), out.data_ptr())
     return out
 
 
@@ -119,15 +135,9 @@ def all_finite(flags: torch.Tensor) -> torch.Tensor:
     """The finiteness min over ``(D,)`` int32 shard flags on their device."""
     if flags.device.type == "cpu":
         return all_finite_plain(flags)
-    build.require_cuda("shard_reduce", flags, dtype=torch.int32)
-    out = torch.empty((), dtype=torch.int32, device=flags.device)
-    with torch.cuda.device(flags.device):
-        code = build.library().nxfx_shard_all(
-            int(flags.shape[0]), flags.data_ptr(), out.data_ptr(),
-            build.stream_handle(flags.device),
-        )
-    build.check(code, "shard_reduce")
-    REDUCE.launches += 1
+    index = _check_parts(flags, torch.int32)
+    out = flags.new_empty(())
+    _launch(index, build.library().nxfx_shard_all, int(flags.shape[0]), flags.data_ptr(), out.data_ptr())
     return out
 
 

@@ -59,7 +59,15 @@ library calls on the same inputs: K21b's factor and solve at n = 4,096
 (``lu_factor``, ``lu_solve``) and on the ``dense`` saddle matrix, its
 triangular solve on K11's factor of a 4,096-node Laplacian
 (``solve_triangular``); K10 over the 100k web's 18 peel-round folds (18
-``index_add_``); K12a's rounds on web2k and web2k's executor.  ``--root``
+``index_add_``); K12a's rounds on web2k; the executors of web2k, the 64²
+lattice and the 1k web; K11 at 455 and 4,096 nodes, whole, its factor
+(``dense_factor``) and the refined solve as their difference, with the
+device time and launches of one call by kernel name (``torch.profiler``),
+beside ``cholesky`` and ``cholesky_solve``; K12b on the 128² lattice's
+forced fronts; K19c's coarsest factor and solve beside ``cholesky`` and
+``cholesky_solve``; K22-reduce on 4 × 222,643 partials beside
+``torch.sum``, bit-equality with its plain version, the host µs of a
+synchronised call and of a call issued back to back (dispatch).  ``--root``
 imports the port from another checkout (e.g. the parent commit unpacked
 with ``git archive``), so that two versions are compared in one call.
 Otherwise the script
@@ -314,8 +322,25 @@ def best_ms(fn, reps: int = 20) -> float:
     return min(times)
 
 
+def dispatch_us(fn, calls: int = 500, reps: int = 5) -> float:
+    """Best host-clock µs a call of ``fn`` over ``calls`` calls issued back to
+    back without a synchronisation (the host's dispatch cost, once the
+    device keeps up), of ``reps`` runs."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
 def kernel_times(card: str) -> dict:
-    """``--kernels``: K21b, K10 and K12a beside their library calls (see the
+    """``--kernels``: K21b, K10, K12a, the three executors, K11, K12b, K19c's
+    coarsest level and K22-reduce beside their library calls (see the
     module docstring), on the port that ``sys.path`` finds first."""
     from networks_fenicsx_tpu_torch.kernels import dense_core, dense_lu, fold
 
@@ -375,12 +400,94 @@ def kernel_times(card: str) -> dict:
     asm = chip_smoke.web2k_assembler(P)
     core = chip_smoke.compare_core_kernels(P, asm, dev, timed=True)["core_elim"]
     out["k12a_web2k"] = {"ms": core["ms"], "plain_ms": core["plain_ms"]}
-    solver = P.Solver(asm, device="cuda")
-    solver.solve()
-    ex = solver._executor
-    args = ex.prepare_args(*asm.schur_arguments())
-    out["web2k_executor_ms"] = best_ms(lambda: ex(*args))
+    for key, asm in (("web2k", asm), ("lattice64", chip_smoke.lattice_assembler(P, 64, 64)),
+                     ("web1000", chip_smoke.web_assembler(P, sites=1_000))):
+        solver = P.Solver(asm, device="cuda")
+        solver.solve()
+        ex = solver._executor
+        args = ex.prepare_args(*asm.schur_arguments())
+        out[f"{key}_executor_ms"] = best_ms(lambda: ex(*args))
+    del asm, solver, ex, args
+
+    for n in (455, chip_smoke.K11_TIMED):
+        out[f"k11_{n}"] = k11_times(n, dev)
+    grid = chip_smoke.grid128_assembler(P)
+    plan_i = chip_smoke.nd_tree_plan(P, grid, **chip_smoke.FRONTS_KWARGS)
+    fronts = chip_smoke.compare_core_kernels(P, grid, dev, timed=True, tree_plan=plan_i,
+                                             expect=chip_smoke.GRID128_FRONTS_SIZES)["core_fronts"]
+    out["k12b_fronts128"] = {k: fronts[k] for k in ("ms", "plain_ms", "bound_ms")}
+    del grid, plan_i
+    mg = chip_smoke.compare_mg2d_kernels(
+        P, chip_smoke.lattice_assembler(P, forms=chip_smoke.cg512_forms), dev)
+    for key in ("mg2d_coarse_factor", "mg2d_coarse_solve"):
+        out["k19c_" + key[5:]] = {k: mg[key][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["k22_reduce"] = reduce_times(dev)
     return out
+
+
+def device_split(fn, reps: int = 3) -> dict:
+    """Device µs and launches of one ``fn()`` call by kernel name
+    (``torch.profiler``, the mean of ``reps`` calls after one warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            split[name] = [us / reps, ev.count / reps]
+    return dict(sorted(split.items(), key=lambda kv: -kv[1][0]))
+
+
+def k11_times(n: int, dev) -> dict:
+    """K11 at ``n`` nodes (chip_smoke's seeded Laplacian): the whole call,
+    its assembly and factor alone (``dense_factor``), the refined solve as
+    their difference, the device split by kernel name, beside
+    ``torch.linalg.cholesky`` and ``cholesky_solve`` on the same matrix."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core
+
+    ms = chip_smoke.cuda_ms
+    args = chip_smoke.spd_laplacian(n, dev, seed=n)
+    ci, cj, pid, dc, rc, w = args
+    Lc = dense_core.assemble_core(ci, cj, pid, dc, w)
+    Lf = torch.linalg.cholesky(Lc)
+    rec = {"ms": ms(lambda: dense_core.dense_core(*args), reps=10),
+           "factor_ms": ms(lambda: dense_core.dense_factor(ci, cj, pid, dc, w), reps=10),
+           "library_factor_ms": ms(lambda: torch.linalg.cholesky(Lc), reps=10),
+           "library_solve_ms": ms(lambda: torch.cholesky_solve(rc[:, None], Lf), reps=10)}
+    rec["refined_solve_ms"] = rec["ms"] - rec["factor_ms"]
+    rec["library_ms"] = rec["library_factor_ms"] + rec["library_solve_ms"]
+    split = device_split(lambda: dense_core.dense_core(*args))
+    rec["device_us_by_kernel"] = split
+    rec["device_us"] = sum(us for us, _ in split.values())
+    rec["device_launches"] = sum(c for _, c in split.values())
+    rec["cuda_launches"] = dense_core.cuda_launches(n, int(ci.shape[0]))
+    return rec
+
+
+def reduce_times(dev) -> dict:
+    """K22-reduce on the sharded web's shape (4 × 222,643 partials) beside
+    ``torch.sum(dim=0)``: its time, its host µs a synchronised call and a
+    call issued back to back (dispatch), bit-equality."""
+    from networks_fenicsx_tpu_torch.kernels import shard_top
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    parts = torch.randn((4, 222_643), generator=gen, dtype=torch.float64, device=dev)
+    return {"equal": bool(torch.equal(shard_top.reduce(parts), shard_top.reduce_plain(parts))),
+            "ms": chip_smoke.cuda_ms(lambda: shard_top.reduce(parts)),
+            "library_ms": chip_smoke.cuda_ms(lambda: torch.sum(parts, dim=0)),
+            "wrapper_us": best_ms(lambda: shard_top.reduce(parts)) * 1e3,
+            "library_us": best_ms(lambda: torch.sum(parts, dim=0)) * 1e3,
+            "dispatch_us": dispatch_us(lambda: shard_top.reduce(parts)),
+            "library_dispatch_us": dispatch_us(lambda: torch.sum(parts, dim=0))}
 
 
 def main() -> int:
@@ -394,7 +501,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", type=pathlib.Path, default=None)
     ap.add_argument("--kernels", action="store_true",
-                    help="time K21b, K10 and K12a beside their library calls instead of a path")
+                    help="time the redesigned kernels (K21b, K10, K12a, K11, K12b, K19c's coarsest "
+                         "level, K22-reduce) beside their library calls instead of a path")
     ap.add_argument("--root", type=pathlib.Path, default=None,
                     help="import the port from this checkout instead of this one")
     args = ap.parse_args()

@@ -389,16 +389,72 @@ def test_core_wrappers_never_fall_back_off_the_cpu():
     assert all(n == 0 for n in kernels.launches().values())
 
 
-def test_launch_counts_follow_the_plan():
+@pytest.mark.parametrize("case", ["rounds-and-tail", "tail", "fronts"])
+def test_launch_counts_follow_the_plan(case):
     """The hand count of CUDA launches (what ``chip_smoke.py`` prints beside
-    the profiler's) grows with the rounds, the fronts and the tail."""
+    the profiler's) grows with the rounds, the fronts and the tail: web2k's
+    rounds add to its 628-node tail (two launches a 64-column panel, one
+    a triangular solve), and the 40² lattice's 16 forced fronts
+    each take their assembly, factor, gate and two sweeps."""
+    if case == "fronts":
+        _, pf = _plans("grid40-fronts")
+        dcp = PCE.device_core_plan(pf, "cpu")
+        assert len(dcp.fronts) == 16
+        assert core_elim.cuda_launches(dcp) > 16 * 6
+        return
     _, pp = _plans("web2k-default")
     dcp = PCE.device_core_plan(pp, "cpu")
-    n = core_elim.cuda_launches(dcp)
     tail = dense_core.cuda_launches(628, int(dcp.dp_init.shape[0]))
-    assert n > tail > 2 * dense_core.tiled_solve_launches(628) * (1 + dense_core.N_REFINE)
-    _, pf = _plans("grid40-fronts")
-    assert core_elim.cuda_launches(PCE.device_core_plan(pf, "cpu")) > 16 * 6
+    if case == "rounds-and-tail":
+        assert core_elim.cuda_launches(dcp) > tail
+    else:
+        solves = 2 * dense_core.tiled_solve_launches(628) * (1 + dense_core.N_REFINE)
+        assert dense_core.tiled_solve_launches(628) == 1
+        assert tail > solves
+
+
+@pytest.mark.parametrize("n, want, budget", [(455, 34, 40), (628, 38, 40), (4096, 146, 160),
+                                             (8192, 274, 320)])
+def test_dense_core_launch_budget(n, want, budget):
+    """K11's launches in one call: the assembly (2), the factor (a panel
+    launch for each 64-column panel, a trailing launch for each but the
+    last two, an inverse launch), the gate, and per pass (1 + 3 refinements) a
+    residual, two one-launch solves and an update — within the budget of at
+    most 160 at 4,096 nodes and 40 at 455 (714 and 98 before)."""
+    panels = -(-n // dense_core.TILE)
+    assert dense_core.tiled_factor_launches(n, n) == 2 * panels - 1
+    assert dense_core.cuda_launches(n, 1) == want <= budget
+    assert dense_core.cuda_launches(n, 0) == want - 1
+
+
+@pytest.mark.parametrize("m, w, want", [(64, 64, 2), (100, 64, 3), (1240, 1024, 33), (942, 942, 29),
+                                        (455, 455, 15), (0, 0, 0)])
+def test_tiled_factor_launches(m, w, want):
+    """A panel launch a panel, a trailing launch where tiles remain past
+    the next panel's column of tiles (which its panel launch updates), and
+    the inverse launch: a front (w < m) has tiles past every panel, a whole
+    matrix none past its last two."""
+    assert dense_core.tiled_factor_launches(m, w) == want
+
+
+def test_front_launches_on_the_128_lattice_fronts():
+    """``core_fronts.cuda_launches`` on the 128² lattice's forced fronts
+    (1,024 pivots with a 216-node boundary, then 942): per front its slot
+    fold, assembly, factor, gate and two sweeps of one solve each."""
+    mesh = P.NetworkMesh(P.network_generation.make_grid(128, 128, arrays=True), N=1,
+                         color_strategy="fast")
+    tp = PL._plan_tree_elimination(P.HydraulicNetworkAssembler(mesh))
+    cp, n = np.asarray(tp.core_pairs), tp.core_size
+    plan = PCE.plan_core_elimination(
+        cp, n, order=PCE.nested_dissection_order(cp, n, leaf=8), kcap=64, tail_stop=False,
+        dense_cap=16, supernodal_tail=True, front_max=1024)
+    dcp = PCE.device_core_plan(plan, "cpu")
+    assert [(fr.w, fr.b) for fr in dcp.fronts] == [(1024, 216), (942, 0)]
+    fixed = 1
+    for fr in dcp.fronts:
+        fixed += (core_fronts.fold_launches(fr.f_fold) + 1 + (fr.slot_i.shape[0] > 0)
+                  + len(fr.consume) + 1 + (2 + (fr.b > 0)) + 3)
+    assert core_fronts.cuda_launches(dcp) == fixed + 33 + 29
 
 
 # ------------------------------------------------------------------ card
@@ -424,18 +480,51 @@ def test_core_kernels_match_plain_on_card():
             _close(core_elim.core_elim(dcp, dc, w, rc, n_refine=0).cpu(),
                    core_elim.core_elim_plain(dcp, dc, w, rc, n_refine=0).cpu().numpy(), tol)
     for n, tol in ((628, 1e-12), (2304, 1e-10)):
-        rng = np.random.default_rng(n)
-        i = np.arange(n)
-        side = int(np.sqrt(n))
-        ci = np.concatenate([i[:-1], i[:-side]]).astype(np.int32)
-        cj = np.concatenate([i[1:], i[side:]]).astype(np.int32)
-        w = rng.uniform(0.5, 2.0, ci.size)
-        dc = rng.uniform(0.01, 0.1, n)
-        np.add.at(dc, ci, w)
-        np.add.at(dc, cj, w)
-        args = (_t(ci, torch.int32).to(dev), _t(cj, torch.int32).to(dev),
-                _t(np.arange(ci.size), torch.int32).to(dev), _t(dc).to(dev),
-                _t(rng.standard_normal(n)).to(dev), _t(w).to(dev))
+        args = _card_lattice_core(n, dev)
         _close(dense_core.dense_core(*args).cpu(), dense_core.dense_core_plain(*args).cpu().numpy(),
                tol)
+    torch.cuda.synchronize()
+
+
+def _card_lattice_core(n, dev):
+    """A seeded SPD lattice core of ``n`` nodes as K11's arguments on ``dev``."""
+    rng = np.random.default_rng(n)
+    i = np.arange(n)
+    side = int(np.sqrt(n))
+    ci = np.concatenate([i[:-1], i[:-side]]).astype(np.int32)
+    cj = np.concatenate([i[1:], i[side:]]).astype(np.int32)
+    w = rng.uniform(0.5, 2.0, ci.size)
+    dc = rng.uniform(0.01, 0.1, n)
+    np.add.at(dc, ci, w)
+    np.add.at(dc, cj, w)
+    return (_t(ci, torch.int32).to(dev), _t(cj, torch.int32).to(dev),
+            _t(np.arange(ci.size), torch.int32).to(dev), _t(dc).to(dev),
+            _t(rng.standard_normal(n)).to(dev), _t(w).to(dev))
+
+
+@pytest.mark.cuda
+def test_dense_core_streams_and_capture_on_card():
+    """On a CUDA device: K11 calls on two streams at once (a 2,304-node call
+    beside 628-node calls) keep the bits of the same calls alone, since each
+    stream's one-launch solves have their own ticket counter and flags; a
+    call under CUDA-graph capture raises instead of being captured."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    big, small = _card_lattice_core(2304, dev), _card_lattice_core(628, dev)
+    want_big, want_small = dense_core.dense_core(*big), dense_core.dense_core(*small)
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    for s_big, s_small in (streams, streams[::-1]):
+        torch.cuda.synchronize()
+        with torch.cuda.stream(s_big):
+            got_big = dense_core.dense_core(*big)
+        with torch.cuda.stream(s_small):
+            got_small = [dense_core.dense_core(*small) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert torch.equal(got_big, want_big)
+        assert all(torch.equal(x, want_small) for x in got_small)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA error 900"):
+        with torch.cuda.graph(graph):
+            dense_core.dense_core(*small)
     torch.cuda.synchronize()
