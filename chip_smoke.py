@@ -50,6 +50,11 @@ paths through the public API, checks each solution and times it:
   matvec part), each against the serial solve of the same assembler, every
   K22-reduce call bit for bit.
 
+The lattice sets also hold K17 on two streams at once, on repeated calls
+and in a replayed CUDA graph bit for bit, two K16 solves on two streams bit
+for bit with the solves alone, and K16's product kernel on ragged shapes
+against ``torch.matmul``.
+
 Each kernel is held against its plain version on the card, timed per call
 beside its bound (the bytes it must move over the memory rate or its
 float64 operations over the peak rate, whichever is larger) and, where one
@@ -223,10 +228,13 @@ CG_CHECKS = {
                    "mg2d_coarse_factor", "mg2d_coarse_solve", "mg2d")),
     "mg1d": ("m", ("mg1d_hierarchy", "mg1d_restrict", "mg1d_prolong", "mg1d")),
 }
+# the kernels-lattice sets: (a) 512², (b) 9×4 at k = 3, (c) 512² callable f (the
+# general route), (d) 5000×3 and (d2) 3×4200 (a device-generated DCT matrix)
+LATTICE_SETS = ("a", "b", "c", "d", "d2")
 # the checks of each lattice wrapper in the kernels-lattice sets
 LATTICE_CHECKS = {
     "dct_lattice": ("dct_factor", "dct_forward", "dct_inverse", "dct_lplus",
-                    "dct_lattice_unrefined", "dct_lattice", "dct_matrix"),
+                    "dct_lattice_unrefined", "dct_lattice", "dct_matrix", "dct_product"),
     "grid_core": ("grid_core", "grid_core_stencil"),
     "shift_matvec": ("shift_matvec",),
 }
@@ -1438,12 +1446,13 @@ def lattice_small(P):
     return lattice_assembler(P, 9, 4, N=2, k=3, forms=forms)
 
 
-def lattice_wide(P):
-    """``make_grid(5000, 3)`` at N = 1, f = 0.3, R = 1.7: a side above 4,096,
-    whose DCT-II matrix is generated on the device."""
+def lattice_wide(P, nx: int = 5000, ny: int = 3):
+    """``make_grid(nx, ny)`` (5000 × 3 or 3 × 4200) at N = 1, f = 0.3,
+    R = 1.7: a side above 4,096, whose DCT-II matrix is generated on the
+    device."""
     def forms(asm):
         asm.compute_forms(p_bc_ex=lambda x: x[0] + 0.2 * x[1], f=0.3, R=1.7)
-    return lattice_assembler(P, 5000, 3, forms=forms)
+    return lattice_assembler(P, nx, ny, forms=forms)
 
 
 def compare_lattice_kernels(P, asm, device, timed: bool, tol_solve: float = LATTICE_TOL) -> dict:
@@ -1579,6 +1588,8 @@ def compare_lattice_kernels(P, asm, device, timed: bool, tol_solve: float = LATT
         work["shift_matvec"] = (tensor_bytes(cw, dr, lam_any) + 8 * B + 4 * n_cls,
                                 (2 + 2 * n_cls) * B)
     record = {"route": "grid" if grid else "general", "s": op.s, "ny": op.ny, "r": op.r}
+    if grid:
+        record["streams"] = lattice_stream_checks(gdp, op, w, diag, rhs, lam_any, device)
     for name, (kernel, plain, tol) in runs.items():
         got = kernel()
         want = plain()
@@ -1594,6 +1605,85 @@ def compare_lattice_kernels(P, asm, device, timed: bool, tol_solve: float = LATT
             if name in library:
                 record[name]["library_ms"] = cuda_ms(library[name], reps=10)
     return record
+
+
+def lattice_stream_checks(gdp, op, w, diag, rhs, lam_any, device) -> dict:
+    """K17 and K16 on two streams at once and repeated: each stream has its
+    own scratch (K17's partials and ticket, K16's transform grids and border
+    partials), so the calls keep the bits of the same calls alone; two K17
+    calls back to back give equal bits, and a K17 call captured into a CUDA
+    graph replays to the same bits (its ticket is reset inside the launch).
+    Raises on any difference."""
+    from networks_fenicsx_tpu_torch.kernels import dct_lattice as K16, grid_core
+
+    lams = (lam_any, torch.flip(lam_any, (0,)).contiguous())
+    want = [grid_core.grid_residual(gdp, w, diag, lam, rhs, norm=True) for lam in lams]
+    again = grid_core.grid_residual(gdp, w, diag, lams[0], rhs, norm=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(again, want[0])), "grid_core: repeat calls differ"
+
+    def solve(b):
+        return K16.dct_lattice(op, w, b, lambda lam: grid_core.grid_residual(gdp, w, diag, lam, b))
+
+    rhs2 = (rhs, (rhs + lam_any).contiguous())
+    want_solve = [solve(b) for b in rhs2]
+    torch.cuda.synchronize()
+    streams = torch.cuda.Stream(device), torch.cuda.Stream(device)
+    for order in (streams, streams[::-1]):
+        got, got_solve = [], []
+        for st, lam, b in zip(order, lams, rhs2):
+            with torch.cuda.stream(st):
+                got.append([grid_core.grid_residual(gdp, w, diag, lam, rhs, norm=True)
+                            for _ in range(3)])
+                got_solve.append(solve(b))
+        torch.cuda.synchronize()
+        for runs, ref in zip(got, want):
+            assert all(torch.equal(a, b) for run in runs for a, b in zip(run, ref)), \
+                "grid_core: two streams differ from the calls alone"
+        for x, ref in zip(got_solve, want_solve):
+            assert torch.equal(x, ref), "dct_lattice: two streams differ from the solves alone"
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = grid_core.grid_residual(gdp, w, diag, lams[1], rhs, norm=True)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, want[1])), \
+            "grid_core: a graph replay differs"
+    del graph
+    return {"grid_core_streams": "bit for bit", "grid_core_repeat": "bit for bit",
+            "grid_core_graph_replays": 3, "dct_lattice_streams": "bit for bit"}
+
+
+def product_ragged_checks(device) -> dict:
+    """K16's product kernel against ``torch.matmul`` at ``TOL``·scale on
+    ragged shapes, plain and transposed, scaled and not (the 5000² product
+    against a 5000 × 3 input is the wide lattice's)."""
+    from networks_fenicsx_tpu_torch.kernels import dct_lattice as K16
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    rec = {}
+    for M, N, K in ((3, 3, 3), (66, 66, 66), (517, 300, 300), (300, 517, 517), (3, 5000, 5000)):
+        for tA, tB in ((False, False), (True, False), (False, True), (True, True)):
+            A = torch.randn((K, M) if tA else (M, K), generator=gen, dtype=torch.float64,
+                            device=device)
+            B = torch.randn((N, K) if tB else (K, N), generator=gen, dtype=torch.float64,
+                            device=device)
+            S = torch.randn((M, N), generator=gen, dtype=torch.float64, device=device)
+            for scaled in (False, True):
+                got = K16.product(A, B, tA, tB, S if scaled else None)
+                want = K16.product_plain(A, B, tA, tB, S if scaled else None)
+                torch.cuda.synchronize()
+                err, scale = max_err(got, want)
+                assert err <= TOL * scale, ("dct_product", (M, N, K, tA, tB, scaled), err, scale)
+                key = f"{M}x{N}x{K}"
+                prev = rec.get(key, {"max_abs_err": 0.0, "scale": 1.0})
+                rec[key] = {"max_abs_err": max(prev["max_abs_err"], err),
+                            "scale": max(prev["scale"], scale),
+                            "split": K16.gemm_plan(M, N, K, torch.cuda.get_device_properties(
+                                device).multi_processor_count)}
+    return {"max_abs_err": max(r["max_abs_err"] for r in rec.values()),
+            "scale": max(r["scale"] for r in rec.values()), "shapes": rec}
 
 
 def lattice_csr(offsets, cw, diag):
@@ -1748,7 +1838,7 @@ def lattice_timing(P, state: dict, forms, label: str, name_power: str) -> dict:
 
 
 def lattice_phases(P, device, name_power: str) -> dict:
-    """The lattice slice: kernels-lattice sets (a)–(d), then the 512² main
+    """The lattice slice: kernels-lattice sets (a)–(d2), then the 512² main
     paths under ``schur_method="dct"`` and ``auto`` (grid route) and with a
     callable source (general DCT route)."""
     lat = {}
@@ -1776,8 +1866,18 @@ def lattice_phases(P, device, name_power: str) -> dict:
     lat["d"]["dct_matrix"] = {"max_abs_err": err, "scale": scale}
     log(f"phase kernels-lattice (d) 5000x3 lattice, f=0.3, R=1.7, device DCT matrices "
         f"(bar {bar:.3e}): " + json.dumps(lat["d"]))
-    assert [lat[c]["route"] for c in "abcd"] == ["grid", "grid", "general", "grid"], lat
+    lat["d"]["dct_product"] = product_ragged_checks(device)
+    log("phase kernels-lattice (d') K16's product kernel on ragged shapes vs torch.matmul: "
+        + json.dumps(lat["d"]["dct_product"]))
     del wide, D, D_plain
+    n_long = 4200
+    bar = max(1e-10, 256 * n_long**2 * float(np.finfo(np.float64).eps))
+    lat["d2"] = compare_lattice_kernels(P, lattice_wide(P, 3, n_long), device, timed=False,
+                                        tol_solve=bar)
+    log(f"phase kernels-lattice (d2) 3x4200 lattice, f=0.3, R=1.7, device DCT matrix of the "
+        f"long side (bar {bar:.3e}): " + json.dumps(lat["d2"]))
+    routes = [lat[c]["route"] for c in LATTICE_SETS]
+    assert routes == ["grid", "grid", "general", "grid", "grid"], lat
 
     paths = {}
     paths["dct"] = lattice_main_path(P, device, "lattice main path (schur_method='dct')",
@@ -3493,7 +3593,7 @@ def main() -> int:
     log(f"phase wall: the script so far {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNEL_RECORD.items():
-        lattice_errs = tuple(lat[c][name]["max_abs_err"] for c in "abcd" if name in lat[c])
+        lattice_errs = tuple(lat[c][name]["max_abs_err"] for c in LATTICE_SETS if name in lat[c])
         if name in full:
             errs = (full[name]["max_abs_err"], small[name]["max_abs_err"]) + lattice_errs
             timed_on = full[name]
@@ -3501,7 +3601,7 @@ def main() -> int:
             errs = tuple(sets[c][name]["max_abs_err"] for c in "abcd") + lattice_errs
             timed_on = sets["a"][name]
         elif name in LATTICE_CHECKS:
-            errs = tuple(lat[c][key]["max_abs_err"] for c in "abcd"
+            errs = tuple(lat[c][key]["max_abs_err"] for c in LATTICE_SETS
                          for key in LATTICE_CHECKS[name] if key in lat[c])
             timed_on = timed_lattice[name][name]
         elif name in CG_CHECKS:

@@ -24,8 +24,10 @@ multigrid, Chebyshev-Jacobi and Jacobi preconditioners; the whole-Laplacian
 Continuous pressure (degree ≥ 1) solves by the reduced ``schur_p`` method;
 explicit assembly returns every matrix kind (dense, sparse COO, per-block,
 CSR), and the generic methods ``"dense"``, ``"minres"`` and ``"host_lu"``
-solve the assembled system.  What is left (factor reuse, float32, batches,
-multi-device, the distributed Schur solve, output) is listed in
+solve the assembled system.  Multi-device and distributed solves run through
+:class:`.parallel.ShardedNetworkSolver` (shards on one or several CUDA
+devices, and across processes under ``torch.distributed``).  What is left
+(factor reuse, float32, batched and sharded sweeps, output) is listed in
 ROADMAP.md.
 """
 

@@ -22,8 +22,8 @@ import pathlib
 import torch
 
 __all__ = [
-    "library", "check", "require_cuda", "require_coefficients", "stream_handle", "raw_stream", "Counter",
-    "BUILD_ROOT",
+    "library", "check", "require_cuda", "require_vectors", "require_coefficients", "on_device",
+    "stream_handle", "raw_stream", "Counter", "BUILD_ROOT",
 ]
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
@@ -179,34 +179,14 @@ _SIGNATURES = {
     "nxfx_dct_gemm": [
         _i, _i, _i,  # M, N, K
         _p, _i, _p, _i,  # A, transA, B, transB
-        _p, _p, _i, _p, _p,  # S (or null), C, split, work (or null), stream
+        _p, _p, _i, _p,  # S (or null), C, split, stream
     ],
-    "nxfx_dct_scale": [
-        _i, _i, _i, _i,  # s, ny, r, B
-        _p, _i, _i, _d,  # w, rep_x, rep_y, len_x
-        _p, _p, _p,  # lamx, lamy, g_geo
-        _p, _p, _p,  # inv, g, stream
-    ],
-    "nxfx_dct_minv": [
-        _i, _i, _i, _p,  # r, n_stub, B, w
-        _p, _p, _p,  # stub_edge, stub_group, stub_rows
-        _p, _p, _p,  # g, Minv, stream
-    ],
-    "nxfx_dct_border": [
-        _i, _i, _p, _p, _p, _p,  # B, r, b, z, rows, Minv
-        _p, _p, _p,  # partial, sol, stream
-    ],
-    "nxfx_dct_correct": [_i, _i, _p, _p, _p, _p, _p, _p],  # B, r, z, g, sol, lam_in, out, stream
+    "nxfx_dct_factor": [_p, _p, _p, _p, _p, _p],  # DctArgs, w, inv, g, Minv, stream
+    "nxfx_dct_lplus": [_p, _p, _p, _p, _p],  # DctArgs, inv, b, z, stream
+    "nxfx_dct_pass": [_p, _p, _p, _p, _i, _p],  # DctArgs, w (or null), b, lam, accumulate, stream
     "nxfx_dct_matrix": [_i, _d, _d, _p, _p],  # n, scale, scale0, D, stream
-    "nxfx_grid_assemble": [
-        _i, _i, _i,  # nx, ny, n_stub
-        _p, _p, _p, _p, _p,  # w, const, Ftot, stub_rows, stub_s_bif
-        _p, _p, _p, _p, _p,  # rhs, diag, partial, rhs_norm, stream
-    ],
-    "nxfx_grid_residual": [
-        _i, _i, _p, _p, _p, _p,  # nx, ny, w, diag, lam, rhs
-        _p, _p, _p, _p,  # res, partial (or null), norm (or null), stream
-    ],
+    "nxfx_grid_assemble": [_p, _p, _p, _p, _p, _p, _p, _p],  # GridArgs, w, const, Ftot, rhs, diag, norm, stream
+    "nxfx_grid_residual": [_p, _p, _p, _p, _p, _p, _p, _p],  # GridArgs, w, diag, lam, rhs, res, norm (or null), stream
     "nxfx_shift_matvec": [
         _i, _i, _p,  # B, C, host offsets
         _p, _p, _i, _p, _p, _i,  # cw, diag, its stride, x, b (or null), its stride
@@ -383,6 +363,29 @@ def require_cuda(name: str, *tensors: torch.Tensor, dtype=torch.float64,
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
         if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def require_vectors(name: str, index: int, *pairs) -> None:
+    """The one-pass check of a lean launch path: raise unless every
+    ``(tensor, n)`` is a contiguous 1-D float64 tensor on CUDA device
+    ``index`` with ``n`` entries (at least ``-n`` for a negative ``n``)."""
+    for t, n in pairs:
+        if not t.is_cuda or t.get_device() != index:
+            raise ValueError(f"{name}: tensors must be on CUDA device {index}")
+        if (t.dtype is not torch.float64 or t.dim() != 1 or not t.is_contiguous()
+                or (t.shape[0] != n if n >= 0 else t.shape[0] < -n)):
+            size = n if n >= 0 else f"at least {-n}"
+            raise ValueError(f"{name}: expected a contiguous 1-D float64 tensor of {size} entries, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+
+
+def on_device(index: int, fn, *args):
+    """``fn(*args)`` with CUDA device ``index`` current, entering it only
+    when it is not already."""
+    if index == torch._C._cuda_getDevice():
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
 
 
 def require_coefficients(name: str, N: int, E: int, *coeffs: tuple) -> None:

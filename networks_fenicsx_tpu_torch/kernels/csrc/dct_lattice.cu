@@ -1,7 +1,7 @@
 // K16: the separable-DCT capacitance solve of a uniform scalar-R lattice.
 //
-// Replaces networks_fenicsx_tpu/solver.py:_dct_capacitance_factor,
-// _dct_capacitance_apply, _dct2_matrix_device and _dct_lattice_solve.
+// Replaces networks_fenicsx_tpu/solver.py:941-1102 _dct_capacitance_factor,
+// _dct_capacitance_apply, _dct2_matrix_device and _dct_lattice_solve (927).
 // With the orthonormal DCT-II matrices Dx (s, s) and Dy (ny, ny):
 //   factor (once per solve):
 //     inv = 1 / (wx lamx[col] + wy lamy[row]), 0 at the zero mode     (ny, s)
@@ -13,138 +13,313 @@
 //     out = (z - sum_t sol_t g_t) + sol_r    (+ lam when refining)
 //
 // Bound: float64 operations.  At 512^2 one pass is four 512^3 products,
-// 1.07 GFLOP, against ~8 MB of traffic.  The product is a shared-memory
-// tiled GEMM: a 32 x 64 output tile per 128-thread block, 16-deep k slabs of
-// op(A) and op(B) staged in shared memory (padded by one double against bank
-// conflicts, loaded along the contiguous axis of either layout, the next
-// slab fetched into registers while the current one is multiplied), each
-// thread a 4 x 4 register block with explicit fma (the library builds with
-// -fmad=false).  A 512^2 product has only 128 such tiles for 132 SMs, so
-// the k range is split over up to 8 blocks per tile (about four resident
-// blocks per SM) and a second launch adds the partial products in order.
-// The eigenvalue scaling is the second product's epilogue.  The shared
-// tiles are written and read by different threads across __syncthreads(),
-// so nothing aliases them through __restrict__.  The bordered matrix
-// (r + 1 <= 17) is inverted in one block by Gauss-Jordan with partial
-// pivoting, in float64; sum b is a two-stage reduction.
+// 1.07 GFLOP (16 us at the 67 TFLOP/s of the float64 tensor cores), against
+// ~8 MB of traffic; a solve is three passes.  So the products run on the
+// tensor cores (mma.sync m16n8k16 f64: on an H100 the m16n8k* shapes run at
+// the full rate and m8n8k4 at half of it, in a register-only test).  A block
+// computes a 64 x 64 output tile.  Its warps specialise: four producer
+// warps stage 32-deep k slabs of op(A) and op(B) into shared memory by
+// cp.async, four slabs in flight, and eight consumer warps (32 x 16 of the
+// tile each) multiply, the two sides handing each slab over through a pair
+// of mbarriers (full: the producers' copies have landed, counted by
+// cp.async.mbarrier.arrive; empty: every consumer warp has read it), with no
+// block barrier in the loop.  On an H100, when the same warps both staged
+// and multiplied, a 64 x 64 x 32 slab cost ~1.3 us an SM whatever the warp
+// tile, MMA or pipeline depth: staging alone took ~0.4 us and the fed MMAs
+// ~0.7 us, and the issue of the copies (tens of cycles each a warp) kept
+// them from overlapping; split between warps, a slab costs ~1.0 us.  The
+// copies are 16 bytes where every staged row is 16-byte aligned (8
+// otherwise); they copy bytes and cannot transpose, so an operand whose
+// source is contiguous along k is staged [row][k] and one contiguous along
+// its rows [k][row], both with a row stride of 4 mod 16 doubles, which the
+// fragment reads (templated on the two layouts) take without bank
+// conflicts; ragged M, N and K are zero-filled by the copies and masked at
+// the store.  A 512^2 product has 64 tiles for 132 SMs, so the host may
+// split the k range over up to 8 blocks a tile, launched as one cluster:
+// each block dumps its partial tile into its shared memory, and the
+// cluster's blocks share out the tile's entries, each adding the dumps in
+// rank (= k) order through distributed shared memory, scaling by S and
+// writing C.  No reduce launch, no work buffer, and the same bits every
+// call.  The eigenvalue scaling is the second product's epilogue.  A wait
+// on an mbarrier is bounded: a phase that never completes (a fault) traps
+// instead of hanging the card.
+//
+// The direct pass's border is one launch: per-block partial sums of b, and
+// the last block to finish (a ticket) adds them in block order and forms
+// sol.  So a solve is 2 + 6 (1 + n_refine) launches (20 at two refinement
+// passes), and the host issues a pass's six (eight with the factor) in one
+// call, from a struct of the operator's shapes and pointers built once per
+// calling stream.
+//
+// The border's partials and ticket, like the transform grids, are scratch of
+// the calling stream, held by the Python operator (one buffer per stream,
+// zeroed on that stream at its first use), so solves on two streams never
+// share them; the ticket is put back to 0 by the block that takes its last
+// value, inside the launch, so a CUDA-graph replay finds it at 0 and needs no
+// refusal under capture.  Buffers one block writes and another reads carry
+// no __restrict__ and are read past L1 (__ldcg).  The bordered matrix (r + 1
+// <= 17) is inverted in one block by Gauss-Jordan with partial pivoting, in
+// float64.
 
+#include <atomic>
+#include <cstdint>
+
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "dmma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BM = 32;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int GEMM_THREADS = 128;  // 16 x 8 threads, 4 x 4 outputs each
-constexpr int MAX_BORDER = 17;     // r + 1 for at most 16 stub rows
-constexpr int BORDER_BLOCKS = 1024;  // first-stage blocks of the sum of b
+constexpr int BM = 64;              // output tile rows
+constexpr int BN = 64;              // output tile columns
+constexpr int WM = 2, WN = 4;       // consumer warps down and across the tile: 32 x 16 each
+constexpr int CONSUMERS = WM * WN;  // warps that multiply
+constexpr int PRODUCERS = 4;        // warps that stage the slabs
+constexpr int GEMM_THREADS = (CONSUMERS + PRODUCERS) * 32;
+constexpr int FM = BM / WM / 16;    // m16 fragments a warp (2)
+constexpr int FN = BN / WN / 8;     // n8 fragments a warp (2)
+constexpr int BK = 32;              // k slab depth
+constexpr int KSTEP = 16;           // k depth of one mma (m16n8k16)
+static_assert(BK % KSTEP == 0, "whole mma steps a slab");
+constexpr int STAGES = 4;           // slabs in flight
+constexpr int LDK = BK + 4;         // row stride of a [row][k] slab: 4 mod 16 doubles
+constexpr int LDC = BN + 8;         // row stride of a dumped tile: 8 mod 16 doubles
+constexpr int MAX_SPLIT = 8;        // blocks sharing one tile's k range: a portable cluster
+constexpr int MAX_BORDER = 17;      // r + 1 for at most 16 stub rows
+constexpr int BORDER_THREADS = 256;
+constexpr int BORDER_BLOCKS = 256;  // at most, partial sums of b
 
-// C (M, N) = op(A) (M, K) op(B) (K, N) [o S], all row-major.  op(A) = A
-// stored (M, K), or A^T with A stored (K, M) when transA; likewise op(B) = B
-// stored (K, N), or B^T with B stored (N, K).  Block z of a split-K launch
-// sums k in [z kchunk, (z + 1) kchunk) into its slice of `partial`
-// (split, M, N); dct_splitk_reduce_kernel adds the slices in order.  The
-// next slab's global loads are issued into registers before the current
-// slab is multiplied, so they overlap the arithmetic.
-__global__ void __launch_bounds__(GEMM_THREADS) dct_gemm_kernel(
-    int M, int N, int K, int kchunk,
-    const double* __restrict__ A, int transA,
-    const double* __restrict__ Bm, int transB,
-    const double* __restrict__ S,
-    double* __restrict__ C,
-    double* __restrict__ partial)
+// doubles of one staged slab of ROWS rows in either layout ([row][k] with
+// stride LDK, or [k][row] with stride ROWS + 4, also 4 mod 16)
+template <int ROWS>
+__host__ __device__ constexpr int slab_doubles() { return ROWS * LDK > BK * (ROWS + 4) ? ROWS * LDK : BK * (ROWS + 4); }
+
+constexpr int SLAB_A = slab_doubles<BM>();
+constexpr int SLAB_B = slab_doubles<BN>();
+constexpr int GEMM_SMEM = STAGES * (SLAB_A + SLAB_B) * static_cast<int>(sizeof(double));
+static_assert(BM * LDC <= STAGES * (SLAB_A + SLAB_B), "the dumped tile reuses the slabs");
+
+// Stage rows [r0, r0 + ROWS) and k [k0, k0 + BK) of a matrix op(X) with R
+// rows (zeros past R or k_end) into S by cp.async.  KC (k-contiguous
+// source, element (r, k) at X[r K + k]): S is [row][k], stride LDK; else
+// (element (r, k) at X[k R + r]) S is [k][row], stride ROWS + 4.  Each
+// copy takes two neighbours along the contiguous axis when vec (16-byte
+// aligned rows), else one; producer thread p (of PRODUCERS * 32) takes every
+// (PRODUCERS * 32)-th copy from the p-th.  A warp's copies cover whole 256-
+// or 512-byte runs of a source row and land on distinct banks.
+template <int ROWS, bool KC>
+__device__ __forceinline__ void stage_slab(double* S, const double* X, bool vec, int r0, int R, int K, int k0,
+                                           int k_end, int p)
 {
-    constexpr int A_PER = BM * BK / GEMM_THREADS;  // 4
-    constexpr int B_PER = BK * BN / GEMM_THREADS;  // 8
-    __shared__ double As[BK][BM + 1];
-    __shared__ double Bs[BK][BN + 1];
-    const int tid = threadIdx.x;
-    const int tx = tid % 16;
-    const int ty = tid / 16;
-    const int m0 = blockIdx.y * BM;
-    const int n0 = blockIdx.x * BN;
-    const int k_begin = blockIdx.z * kchunk;
-    const int k_end = min(K, k_begin + kchunk);
-    double acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
-
-    double ra[A_PER], rb[B_PER];
-    auto load = [&](int k0) {
-#pragma unroll
-        for (int u = 0; u < A_PER; ++u) {
-            const int idx = tid + u * GEMM_THREADS;
-            int m, k;
-            if (transA) { k = idx / BM; m = idx % BM; } else { m = idx / BK; k = idx % BK; }
-            const int gm = m0 + m, gk = k0 + k;
-            ra[u] = (gm < M && gk < k_end)
-                        ? (transA ? A[(size_t)gk * M + gm] : A[(size_t)gm * K + gk]) : 0.0;
+    constexpr int LDT = ROWS + 4;
+    constexpr int LANES = PRODUCERS * 32;
+    const int w = vec ? 2 : 1;
+    const int per = ROWS * BK / (LANES * w);
+    for (int u = 0; u < per; ++u) {
+        const int e = (p + LANES * u) * w;
+        int r, k;
+        if (KC) {
+            r = e / BK;
+            k = e % BK;
+        } else {
+            k = e / ROWS;
+            r = e % ROWS;
         }
-#pragma unroll
-        for (int u = 0; u < B_PER; ++u) {
-            const int idx = tid + u * GEMM_THREADS;
-            int k, n;
-            if (transB) { n = idx / BK; k = idx % BK; } else { k = idx / BN; n = idx % BN; }
-            const int gk = k0 + k, gn = n0 + n;
-            rb[u] = (gk < k_end && gn < N)
-                        ? (transB ? Bm[(size_t)gn * K + gk] : Bm[(size_t)gk * N + gn]) : 0.0;
-        }
-    };
-    if (k_begin < k_end) load(k_begin);
-    for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-#pragma unroll
-        for (int u = 0; u < A_PER; ++u) {
-            const int idx = tid + u * GEMM_THREADS;
-            if (transA) As[idx / BM][idx % BM] = ra[u]; else As[idx % BK][idx / BK] = ra[u];
-        }
-#pragma unroll
-        for (int u = 0; u < B_PER; ++u) {
-            const int idx = tid + u * GEMM_THREADS;
-            if (transB) Bs[idx % BK][idx / BK] = rb[u]; else Bs[idx / BN][idx % BN] = rb[u];
-        }
-        __syncthreads();
-        if (k0 + BK < k_end) load(k0 + BK);
-#pragma unroll
-        for (int k = 0; k < BK; ++k) {
-            double a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 8 * i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-    double* out = partial ? partial + (size_t)blockIdx.z * M * N : C;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int gm = m0 + ty + 8 * i;
-        if (gm >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int gn = n0 + tx + 16 * j;
-            if (gn >= N) continue;
-            const size_t o = (size_t)gm * N + gn;
-            out[o] = (partial == nullptr && S) ? acc[i][j] * S[o] : acc[i][j];
-        }
+        const int gr = r0 + r, gk = k0 + k;
+        // elements of the copy inside the matrix: along k (KC) or along the rows
+        const int lim = KC ? (gr < R ? k_end - gk : 0) : (gk < k_end ? R - gr : 0);
+        const int n = lim < 0 ? 0 : (lim < w ? lim : w);
+        const double* src = n > 0 ? (KC ? X + static_cast<size_t>(gr) * K + gk : X + static_cast<size_t>(gk) * R + gr) : X;
+        tc_cp_async_zfill(KC ? S + r * LDK + k : S + k * LDT + r, src, vec, 8 * n);
     }
 }
 
-// C = (sum over z of partial[z]) [o S], the slices added in order
-__global__ void dct_splitk_reduce_kernel(
-    size_t MN, int split,
-    const double* __restrict__ partial, const double* __restrict__ S, double* __restrict__ C)
+// Fragment (row, k) of a staged slab: [row][k] (KC) or [k][row]
+template <int ROWS, bool KC>
+__device__ __forceinline__ double frag(const double* S, int row, int k)
 {
-    const size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (o >= MN) return;
-    double v = partial[o];
-    for (int z = 1; z < split; ++z) v += partial[(size_t)z * MN + o];
-    C[o] = S ? v * S[o] : v;
+    return KC ? S[row * LDK + k] : S[k * (ROWS + 4) + row];
+}
+
+// C (M, N) = op(A) (M, K) op(B) (K, N) [o S], all row-major.  op(A) = A
+// stored (M, K) (k-contiguous: AKC), or A^T with A stored (K, M); op(B) =
+// B stored (K, N), or B^T with B stored (N, K) (k-contiguous: BKC).  Block
+// (x, y, z): the BM x BN output tile (y, x), k in [z kchunk, (z + 1)
+// kchunk); the gridDim.z blocks of a tile form one cluster.  Warp w owns
+// rows 32 (w / WN) .. + 32 and columns 16 (w % WN) .. + 16 of the tile:
+// acc[mi][ni] the 16 x 8 block at rows + 16 mi, columns + 8 ni (see
+// tc_mma16x8x16).
+template <bool AKC, bool BKC>
+__global__ void __launch_bounds__(GEMM_THREADS) dct_gemm_kernel(
+    int M, int N, int K, int kchunk, int vec,
+    const double* __restrict__ A, const double* __restrict__ Bm,
+    const double* __restrict__ S, double* __restrict__ C)
+{
+    extern __shared__ __align__(16) double dct_smem[];
+    double* As = dct_smem;                       // [STAGES][SLAB_A]
+    double* Bs = dct_smem + STAGES * SLAB_A;     // [STAGES][SLAB_B]
+    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, z = blockIdx.z;
+    const int k_begin = z * kchunk;
+    const int k_end = min(K, k_begin + kchunk);
+    const int nk = (k_end - k_begin + BK - 1) / BK;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int wr = BM / WM * (warp / WN), wc = BN / WN * (warp % WN);
+    double acc[FM][FN][4];
+#pragma unroll
+    for (int mi = 0; mi < FM; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < FN; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0;
+
+    // the producer warps stage slab kt into stage kt % STAGES once the
+    // consumers have released it (empty) and signal full[stage] as their
+    // copies land; the consumer warps wait on full[stage], multiply, and
+    // release it
+    __shared__ __align__(8) unsigned long long full[STAGES], empty[STAGES];
+    if (threadIdx.x == 0) {
+        for (int st = 0; st < STAGES; ++st) {
+            tc_mbar_init(&full[st], PRODUCERS * 32);
+            tc_mbar_init(&empty[st], CONSUMERS);
+        }
+    }
+    __syncthreads();
+    if (warp >= CONSUMERS) {
+        const int p = threadIdx.x - CONSUMERS * 32;
+        for (int kt = 0; kt < nk; ++kt) {
+            const int stage = kt % STAGES, k0 = k_begin + kt * BK;
+            if (kt >= STAGES && !tc_mbar_wait(&empty[stage], (kt / STAGES - 1) & 1)) __trap();
+            stage_slab<BM, AKC>(As + stage * SLAB_A, A, vec, m0, M, K, k0, k_end, p);
+            stage_slab<BN, BKC>(Bs + stage * SLAB_B, Bm, vec, n0, N, K, k0, k_end, p);
+            tc_mbar_arrive_copies(&full[stage]);
+        }
+    } else {
+        for (int kt = 0; kt < nk; ++kt) {
+            const int stage = kt % STAGES;
+            if (!tc_mbar_wait(&full[stage], (kt / STAGES) & 1)) __trap();
+            const double* as = As + stage * SLAB_A;
+            const double* bs = Bs + stage * SLAB_B;
+#pragma unroll
+            for (int kk = 0; kk < BK; kk += KSTEP) {
+                double a[FM][KSTEP / 2], b[FN][KSTEP / 4];
+#pragma unroll
+                for (int mi = 0; mi < FM; ++mi)
+#pragma unroll
+                    for (int i = 0; i < KSTEP / 2; ++i)
+                        a[mi][i] = frag<BM, AKC>(as, wr + 16 * mi + g + 8 * (i % 2), kk + t + 4 * (i / 2));
+#pragma unroll
+                for (int ni = 0; ni < FN; ++ni)
+#pragma unroll
+                    for (int i = 0; i < KSTEP / 4; ++i) b[ni][i] = frag<BN, BKC>(bs, wc + 8 * ni + g, kk + t + 4 * i);
+#pragma unroll
+                for (int mi = 0; mi < FM; ++mi)
+#pragma unroll
+                    for (int ni = 0; ni < FN; ++ni) tc_mma16x8x16(acc[mi][ni], a[mi], b[ni]);
+            }
+            __syncwarp();
+            if (lane == 0) tc_mbar_arrive(&empty[stage]);
+        }
+    }
+    __syncthreads();  // every slab landed and read: the slabs are free
+
+    const bool consumer = warp < CONSUMERS;
+    if (gridDim.z == 1) {
+        if (!consumer) return;
+#pragma unroll
+        for (int mi = 0; mi < FM; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < FN; ++ni)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int gm = m0 + wr + 16 * mi + g + 8 * (e >> 1), gn = n0 + wc + 8 * ni + 2 * t + (e & 1);
+                    if (gm >= M || gn >= N) continue;
+                    const size_t o = static_cast<size_t>(gm) * N + gn;
+                    C[o] = S ? acc[mi][ni][e] * S[o] : acc[mi][ni][e];
+                }
+        return;
+    }
+    // split: dump the block's partial tile into the slabs' shared memory
+    // (free once every copy has landed and every warp is past its last
+    // fragment read), then share its entries out over the cluster's blocks,
+    // each adding the cluster's dumps in rank (= slice) order through
+    // distributed shared memory
+    double* dump = dct_smem;  // [BM][LDC]
+    if (consumer) {
+#pragma unroll
+        for (int mi = 0; mi < FM; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < FN; ++ni)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int r = wr + 16 * mi + g + 8 * h, c = wc + 8 * ni + 2 * t;
+                    *reinterpret_cast<double2*>(dump + r * LDC + c) =
+                        make_double2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+                }
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();  // every block's dump is written
+    const int split = gridDim.z;
+    const double* dumps[MAX_SPLIT];
+    for (int q = 0; q < split; ++q) dumps[q] = cluster.map_shared_rank(dump, q);
+#pragma unroll 4
+    for (int idx = z * GEMM_THREADS + threadIdx.x; idx < BM * BN; idx += split * GEMM_THREADS) {
+        const int r = idx / BN, c = idx % BN;
+        const int gm = m0 + r, gn = n0 + c;
+        if (gm >= M || gn >= N) continue;
+        double v = 0.0;
+        for (int q = 0; q < split; ++q) v += dumps[q][r * LDC + c];  // slices in order
+        const size_t o = static_cast<size_t>(gm) * N + gn;
+        C[o] = S ? v * S[o] : v;
+    }
+    cluster.sync();  // no block leaves while another still reads its dump
+}
+
+// Once per device and instance: the product kernel's dynamic shared memory
+// above 48 KB.
+template <bool AKC, bool BKC>
+cudaError_t gemm_allow_smem()
+{
+    static std::atomic<unsigned long long> done{0};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(dct_gemm_kernel<AKC, BKC>, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+    if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+    return err;
+}
+
+// One launch of a cluster of zs blocks a tile (zs = the effective split).
+template <bool AKC, bool BKC>
+int launch_gemm(int M, int N, int K, const double* A, const double* B, const double* S, double* C, int split,
+                cudaStream_t stream)
+{
+    const int kchunk = ((K + split - 1) / split + BK - 1) / BK * BK;
+    const int zs = (K + kchunk - 1) / kchunk;
+    // 16-byte copies when every staged row starts 16-byte aligned
+    const bool vec = (reinterpret_cast<uintptr_t>(A) % 16 == 0) && (reinterpret_cast<uintptr_t>(B) % 16 == 0)
+                     && (AKC ? K : M) % 2 == 0 && (BKC ? K : N) % 2 == 0;
+    cudaError_t err = gemm_allow_smem<AKC, BKC>();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, zs);
+    cfg.blockDim = dim3(GEMM_THREADS);
+    cfg.dynamicSmemBytes = GEMM_SMEM;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = zs;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, dct_gemm_kernel<AKC, BKC>, M, N, K, kchunk, static_cast<int>(vec), A, B, S, C);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // inv (ny, s) and g = kappa g_geo (r, B), one element per thread
@@ -234,36 +409,38 @@ __global__ void dct_minv_kernel(
         Minv[idx] = aug[idx / n][n + idx % n];
 }
 
-// per-block partial sums of b (grid-stride), the first stage of sum b
-__global__ void dct_sum_kernel(int B, const double* __restrict__ b, double* __restrict__ partial)
-{
-    __shared__ double part[256];
-    double acc = 0.0;
-    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < B; i += gridDim.x * blockDim.x)
-        acc += b[i];
-    part[threadIdx.x] = acc;
-    __syncthreads();
-    for (int half = blockDim.x / 2; half > 0; half /= 2) {
-        if (threadIdx.x < half) part[threadIdx.x] = part[threadIdx.x] + part[threadIdx.x + half];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) partial[blockIdx.x] = part[0];
-}
-
-// sol = Minv [z[rows], sum b], in one block, from the m partial sums of b
-__global__ void dct_border_kernel(
-    int m, int r,
-    const double* __restrict__ partial, const double* __restrict__ z,
+// sol = Minv [z[rows], sum b]: per-block partial sums of b (grid-stride),
+// then the last block (a ticket) adds them in block order and forms sol
+__global__ void __launch_bounds__(BORDER_THREADS) dct_border_kernel(
+    int B, int r,
+    const double* __restrict__ b, const double* __restrict__ z,
     const int* __restrict__ stub_rows, const double* __restrict__ Minv,
-    double* __restrict__ sol)
+    double* partial, unsigned int* ticket, double* __restrict__ sol)
 {
-    __shared__ double part[1024];
+    __shared__ double part[BORDER_THREADS];
+    __shared__ bool last;
     const int tid = threadIdx.x;
     double acc = 0.0;
-    for (int i = tid; i < m; i += blockDim.x) acc += partial[i];
+    for (int i = blockIdx.x * BORDER_THREADS + tid; i < B; i += gridDim.x * BORDER_THREADS) acc += b[i];
     part[tid] = acc;
     __syncthreads();
-    for (int half = blockDim.x / 2; half > 0; half /= 2) {
+    for (int half = BORDER_THREADS / 2; half > 0; half /= 2) {
+        if (tid < half) part[tid] = part[tid] + part[tid + half];
+        __syncthreads();
+    }
+    if (tid == 0) {
+        partial[blockIdx.x] = part[0];
+        __threadfence();
+        last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    acc = 0.0;
+    for (int i = tid; i < static_cast<int>(gridDim.x); i += BORDER_THREADS) acc += __ldcg(partial + i);
+    part[tid] = acc;
+    __syncthreads();
+    for (int half = BORDER_THREADS / 2; half > 0; half /= 2) {
         if (tid < half) part[tid] = part[tid] + part[tid + half];
         __syncthreads();
     }
@@ -276,14 +453,15 @@ __global__ void dct_border_kernel(
         }
         sol[tid] = v;
     }
+    if (tid == 0) *ticket = 0u;
 }
 
-// out = (z - sum_t sol_t g_t) + sol_r, plus lam_in when refining
+// out = (z - sum_t sol_t g_t) + sol_r, plus lam_in when refining (lam_out may be
+// lam_in: each thread reads its entry before it writes it)
 __global__ void dct_correct_kernel(
     int B, int r,
     const double* __restrict__ z, const double* __restrict__ g,
-    const double* __restrict__ sol, const double* __restrict__ lam_in,
-    double* __restrict__ lam_out)
+    const double* __restrict__ sol, const double* lam_in, double* lam_out)
 {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= B) return;
@@ -310,70 +488,115 @@ int blocks_for(size_t n, int threads) { return (int)((n + threads - 1) / threads
 
 }  // namespace
 
-// split > 1: work holds split M N doubles for the partial products
-extern "C" int nxfx_dct_gemm(
-    int M, int N, int K,
-    const double* A, int transA, const double* B, int transB,
-    const double* S, double* C, int split, double* work, cudaStream_t stream)
-{
-    if (M <= 0 || N <= 0) return 0;
-    if (split < 1 || (split > 1 && work == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-    const int kchunk = ((K + split - 1) / split + BK - 1) / BK * BK;
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, split);
-    dct_gemm_kernel<<<grid, GEMM_THREADS, 0, stream>>>(
-        M, N, K, kchunk, A, transA, B, transB, S, C, split > 1 ? work : nullptr);
-    int code = static_cast<int>(cudaGetLastError());
-    if (code != 0 || split == 1) return code;
-    const size_t MN = (size_t)M * N;
-    dct_splitk_reduce_kernel<<<blocks_for(MN, 256), 256, 0, stream>>>(MN, split, work, S, C);
-    return static_cast<int>(cudaGetLastError());
-}
+// The shapes and pointers of one operator on one calling stream, built once
+// by the Python operator (a ctypes Structure of the same fields): its DCT
+// matrices, eigenvalues, stub columns and tables, each product's tile rows
+// and k split (y: k = ny, x: k = s), and the stream's scratch.
+struct DctArgs {
+    int s, ny, r, B, n_stub, rep_x, rep_y;
+    int split_y, split_x;
+    double len_x;
+    const double* Dx;
+    const double* Dy;
+    const double* lamx;
+    const double* lamy;
+    const double* g_geo;
+    const int* stub_rows;
+    const int* stub_edge;
+    const int* stub_group;
+    double* inv;
+    double* g;
+    double* Minv;
+    double* t1;
+    double* t2;
+    double* z;
+    double* partial;
+    double* sol;
+    unsigned int* border_ticket;
+};
 
-extern "C" int nxfx_dct_scale(
-    int s, int ny, int r, int B,
-    const double* w, int rep_x, int rep_y, double len_x,
-    const double* lamx, const double* lamy, const double* g_geo,
-    double* inv, double* g, cudaStream_t stream)
+namespace {
+
+// the factor into inv, g and Minv: two launches
+int dct_factor(const DctArgs* a, const double* w, double* inv, double* g, double* Minv, cudaStream_t stream)
 {
-    const size_t n = (size_t)ny * s > (size_t)r * B ? (size_t)ny * s : (size_t)r * B;
-    if (n == 0) return 0;
+    if (a->r < 1 || a->r + 1 > MAX_BORDER) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t n = (size_t)a->ny * a->s > (size_t)a->r * a->B ? (size_t)a->ny * a->s : (size_t)a->r * a->B;
     dct_scale_kernel<<<blocks_for(n, 256), 256, 0, stream>>>(
-        s, ny, r, B, w, rep_x, rep_y, len_x, lamx, lamy, g_geo, inv, g);
-    return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int nxfx_dct_minv(
-    int r, int n_stub, int B, const double* w,
-    const int* stub_edge, const int* stub_group, const int* stub_rows,
-    const double* g, double* Minv, cudaStream_t stream)
-{
-    if (r < 1 || r + 1 > MAX_BORDER) return static_cast<int>(cudaErrorInvalidValue);
-    dct_minv_kernel<<<1, 2 * MAX_BORDER * 4, 0, stream>>>(
-        r, n_stub, B, w, stub_edge, stub_group, stub_rows, g, Minv);
-    return static_cast<int>(cudaGetLastError());
-}
-
-// partial holds BORDER_BLOCKS doubles
-extern "C" int nxfx_dct_border(
-    int B, int r, const double* b, const double* z,
-    const int* stub_rows, const double* Minv, double* partial, double* sol, cudaStream_t stream)
-{
-    const int m = blocks_for((size_t)B, 256) < BORDER_BLOCKS ? blocks_for((size_t)B, 256)
-                                                              : BORDER_BLOCKS;
-    dct_sum_kernel<<<m, 256, 0, stream>>>(B, b, partial);
+        a->s, a->ny, a->r, a->B, w, a->rep_x, a->rep_y, a->len_x, a->lamx, a->lamy, a->g_geo, inv, g);
     int code = static_cast<int>(cudaGetLastError());
     if (code != 0) return code;
-    dct_border_kernel<<<1, 1024, 0, stream>>>(m, r, partial, z, stub_rows, Minv, sol);
+    dct_minv_kernel<<<1, 2 * MAX_BORDER * 4, 0, stream>>>(
+        a->r, a->n_stub, a->B, w, a->stub_edge, a->stub_group, a->stub_rows, g, Minv);
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int nxfx_dct_correct(
-    int B, int r, const double* z, const double* g, const double* sol,
-    const double* lam_in, double* lam_out, cudaStream_t stream)
+int dct_gemm(int M, int N, int K, const double* A, int transA, const double* B, int transB, const double* S,
+             double* C, int split, cudaStream_t stream)
 {
-    if (B <= 0) return 0;
-    dct_correct_kernel<<<blocks_for((size_t)B, 256), 256, 0, stream>>>(
-        B, r, z, g, sol, lam_in, lam_out);
+    if (M <= 0 || N <= 0) return 0;
+    if (K <= 0 || split < 1 || split > MAX_SPLIT || (M + BM - 1) / BM > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (!transA && transB) return launch_gemm<true, true>(M, N, K, A, B, S, C, split, stream);
+    if (!transA) return launch_gemm<true, false>(M, N, K, A, B, S, C, split, stream);
+    if (transB) return launch_gemm<false, true>(M, N, K, A, B, S, C, split, stream);
+    return launch_gemm<false, false>(M, N, K, A, B, S, C, split, stream);
+}
+
+// z = Dy^T ((Dy b Dx^T) o inv) Dx through t1 and t2: four launches
+int dct_lplus(const DctArgs* a, const double* inv, const double* b, double* z, cudaStream_t stream)
+{
+    const int s = a->s, ny = a->ny;
+    int code = dct_gemm(ny, s, ny, a->Dy, 0, b, 0, nullptr, a->t1, a->split_y, stream);
+    if (code == 0) code = dct_gemm(ny, s, s, a->t1, 0, a->Dx, 1, inv, a->t2, a->split_x, stream);
+    if (code == 0) code = dct_gemm(ny, s, ny, a->Dy, 1, a->t2, 0, nullptr, a->t1, a->split_y, stream);
+    if (code == 0) code = dct_gemm(ny, s, s, a->t1, 0, a->Dx, 0, nullptr, z, a->split_x, stream);
+    return code;
+}
+
+}  // namespace
+
+// One launch: C = op(A) op(B) [o S], the tile's k range split over split
+// blocks (a cluster) when split > 1.
+extern "C" int nxfx_dct_gemm(
+    int M, int N, int K, const double* A, int transA, const double* B, int transB,
+    const double* S, double* C, int split, cudaStream_t stream)
+{
+    return dct_gemm(M, N, K, A, transA, B, transB, S, C, split, stream);
+}
+
+// The factor into the given buffers: two launches.
+extern "C" int nxfx_dct_factor(const DctArgs* a, const double* w, double* inv, double* g, double* Minv,
+                               cudaStream_t stream)
+{
+    return dct_factor(a, w, inv, g, Minv, stream);
+}
+
+// One transform solve z = L+ b with the given inv: four launches.
+extern "C" int nxfx_dct_lplus(const DctArgs* a, const double* inv, const double* b, double* z,
+                              cudaStream_t stream)
+{
+    return dct_lplus(a, inv, b, z, stream);
+}
+
+// One direct pass on b into lam (lam plus it when accumulate; lam may be
+// read and written in place): the four products, the border and the
+// correction, six launches on the scratch's factor.  With w non-null the
+// factor comes first, into the scratch: two launches more.
+extern "C" int nxfx_dct_pass(const DctArgs* a, const double* w, const double* b, double* lam, int accumulate,
+                             cudaStream_t stream)
+{
+    int code = w != nullptr ? dct_factor(a, w, a->inv, a->g, a->Minv, stream) : 0;
+    if (code == 0) code = dct_lplus(a, a->inv, b, a->z, stream);
+    if (code != 0) return code;
+    const int m = blocks_for((size_t)a->B, BORDER_THREADS) < BORDER_BLOCKS ? blocks_for((size_t)a->B, BORDER_THREADS)
+                                                                          : BORDER_BLOCKS;
+    dct_border_kernel<<<m, BORDER_THREADS, 0, stream>>>(a->B, a->r, b, a->z, a->stub_rows, a->Minv, a->partial,
+                                                       a->border_ticket, a->sol);
+    code = static_cast<int>(cudaGetLastError());
+    if (code != 0) return code;
+    dct_correct_kernel<<<blocks_for((size_t)a->B, 256), 256, 0, stream>>>(
+        a->B, a->r, a->z, a->g, a->sol, accumulate ? lam : nullptr, lam);
     return static_cast<int>(cudaGetLastError());
 }
 

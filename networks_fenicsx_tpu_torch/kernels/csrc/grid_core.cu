@@ -1,6 +1,6 @@
 // K17: the lattice-layout Schur system of the grid route.
 //
-// Replaces the per-solve body of networks_fenicsx_tpu/solver.py:
+// Replaces the per-solve body of networks_fenicsx_tpu/solver.py:1184
 // _grid_blocked_core (the 2-D assembly, the refinement stencil and the
 // norms; condensation is K1, the expansion K5).  Edges are in the grid
 // plan's internal order: x-edges (ny, nx-1) row-major from 0, y-edges
@@ -10,15 +10,27 @@
 //              diag[n] = sum of w over incident edges,
 //              each stub adding its term at its row (in stub order);
 //   residual:  res = rhs - L lam,  L lam = diag lam - sum w_e lam(neighbour);
-//   norms:     ||rhs||, ||res|| as per-block partial sums of squares, then
-//              one block that adds them up.
+//   norms:     ||rhs||, ||res||.
 // Each node reads its at most four lattice edges by index arithmetic and
 // walks the (at most 16) stubs, adding in the reference's order of slice
-// adds: no gather table, no atomics.
+// adds: no gather table.
 //
 // Bound: device-memory bytes.  At 512^2 the assembly reads three (E,) edge
-// vectors and writes two (B,) grids (~16 MB), a residual reads lam, diag,
-// rhs and the two weight blocks and writes res (~10 MB).
+// vectors and writes two (B,) grids (~16 MB, 5.0 us at 3.35 TB/s), a
+// residual reads lam, diag, rhs and the two weight blocks and writes res
+// (~12.6 MB, 3.75 us).  At that size a call's device time sits at its bound,
+// so what is left is the host's: one launch a call.  The norm is finished
+// inside the launch: every block writes its partial sum of squares, and the
+// last block to finish (a ticket) adds the partials in block order and
+// writes the square root, so repeated calls give the same bits.
+//
+// The ticket and the partials are scratch of the calling stream, held by the
+// Python plan (one buffer per stream, zeroed on that stream at its first
+// call), so calls on two streams never share them.  The last block puts the
+// ticket back to 0 before the launch ends, so every launch, a CUDA-graph
+// replay included, finds it at 0: the kernel needs no refusal under graph
+// capture.  The partials are written by one block and read by another, so
+// they carry no __restrict__ and are read past L1 (__ldcg).
 
 #include <cuda_runtime.h>
 
@@ -26,16 +38,39 @@ namespace {
 
 constexpr int THREADS = 256;
 
-__device__ void block_sumsq(double v, double* partial)
+// The block's sum of v^2 into partial[blockIdx.x]; the last block of the
+// launch adds the gridDim.x partials in block order, writes sqrt(sum) to
+// out and resets the ticket.  Every thread of the block calls it.
+__device__ void block_norm(double v, double* partial, unsigned int* ticket, double* out)
 {
     __shared__ double part[THREADS];
+    __shared__ bool last;
     part[threadIdx.x] = v * v;
     __syncthreads();
     for (int half = THREADS / 2; half > 0; half /= 2) {
         if (threadIdx.x < half) part[threadIdx.x] = part[threadIdx.x] + part[threadIdx.x + half];
         __syncthreads();
     }
-    if (threadIdx.x == 0) partial[blockIdx.x] = part[0];
+    if (threadIdx.x == 0) {
+        partial[blockIdx.x] = part[0];
+        __threadfence();
+        last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    double acc = 0.0;
+    for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += THREADS) acc += __ldcg(partial + i);
+    part[threadIdx.x] = acc;
+    __syncthreads();
+    for (int half = THREADS / 2; half > 0; half /= 2) {
+        if (threadIdx.x < half) part[threadIdx.x] = part[threadIdx.x] + part[threadIdx.x + half];
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) {
+        *out = sqrt(part[0]);
+        *ticket = 0u;
+    }
 }
 
 __global__ void __launch_bounds__(THREADS) grid_assemble_kernel(
@@ -47,7 +82,7 @@ __global__ void __launch_bounds__(THREADS) grid_assemble_kernel(
     const int* __restrict__ stub_s_bif,
     double* __restrict__ rhs,
     double* __restrict__ diag,
-    double* __restrict__ partial)
+    double* partial, unsigned int* ticket, double* rhs_norm)
 {
     const int B = nx * ny;
     const int Ex = ny * (nx - 1);
@@ -79,7 +114,7 @@ __global__ void __launch_bounds__(THREADS) grid_assemble_kernel(
         rhs[n] = acc;
         diag[n] = d;
     }
-    block_sumsq(acc, partial);
+    block_norm(acc, partial, ticket, rhs_norm);
 }
 
 __global__ void __launch_bounds__(THREADS) grid_residual_kernel(
@@ -89,7 +124,7 @@ __global__ void __launch_bounds__(THREADS) grid_residual_kernel(
     const double* __restrict__ lam,
     const double* __restrict__ rhs,
     double* __restrict__ res,
-    double* __restrict__ partial)
+    double* partial, unsigned int* ticket, double* norm)
 {
     const int B = nx * ny;
     const int Ex = ny * (nx - 1);
@@ -105,61 +140,45 @@ __global__ void __launch_bounds__(THREADS) grid_residual_kernel(
         r = rhs[n] - out;
         res[n] = r;
     }
-    if (partial != nullptr) block_sumsq(r, partial);
-}
-
-// out = sqrt(sum of the partial sums), one block
-__global__ void grid_norm_kernel(int m, const double* __restrict__ partial, double* __restrict__ out)
-{
-    __shared__ double part[1024];
-    double acc = 0.0;
-    for (int i = threadIdx.x; i < m; i += blockDim.x) acc += partial[i];
-    part[threadIdx.x] = acc;
-    __syncthreads();
-    for (int half = blockDim.x / 2; half > 0; half /= 2) {
-        if (threadIdx.x < half) part[threadIdx.x] = part[threadIdx.x] + part[threadIdx.x + half];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) *out = sqrt(part[0]);
+    if (norm != nullptr) block_norm(r, partial, ticket, norm);
 }
 
 int grid_blocks(int B) { return (B + THREADS - 1) / THREADS; }
 
-int finish_norm(int m, double* partial, double* out, cudaStream_t stream)
+}  // namespace
+
+// The lattice and the calling stream's scratch, built once per plan and
+// stream by the Python plan (a ctypes Structure of the same fields):
+// partial holds grid_blocks(nx ny) doubles, ticket is 0 on entry and exit.
+struct GridArgs {
+    int nx, ny, n_stub;
+    const int* stub_rows;
+    const int* stub_s_bif;
+    double* partial;
+    unsigned int* ticket;
+};
+
+// One launch: rhs, diag and ||rhs||.
+extern "C" int nxfx_grid_assemble(
+    const GridArgs* a, const double* w, const double* cst, const double* Ftot,
+    double* rhs, double* diag, double* rhs_norm, cudaStream_t stream)
 {
-    grid_norm_kernel<<<1, 1024, 0, stream>>>(m, partial, out);
+    const int B = a->nx * a->ny;
+    if (B <= 0) return 0;
+    grid_assemble_kernel<<<grid_blocks(B), THREADS, 0, stream>>>(
+        a->nx, a->ny, a->n_stub, w, cst, Ftot, a->stub_rows, a->stub_s_bif, rhs, diag, a->partial, a->ticket,
+        rhs_norm);
     return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// partial must hold grid_blocks(nx ny) doubles
-extern "C" int nxfx_grid_assemble(
-    int nx, int ny, int n_stub,
-    const double* w, const double* cst, const double* Ftot,
-    const int* stub_rows, const int* stub_s_bif,
-    double* rhs, double* diag, double* partial, double* rhs_norm, cudaStream_t stream)
-{
-    const int B = nx * ny;
-    if (B <= 0) return 0;
-    grid_assemble_kernel<<<grid_blocks(B), THREADS, 0, stream>>>(
-        nx, ny, n_stub, w, cst, Ftot, stub_rows, stub_s_bif, rhs, diag, partial);
-    const int code = static_cast<int>(cudaGetLastError());
-    if (code != 0) return code;
-    return finish_norm(grid_blocks(B), partial, rhs_norm, stream);
-}
-
-// res = rhs - L lam; with partial and norm non-null also norm = ||res||
+// One launch: res = rhs - L lam; with norm non-null also norm = ||res||.
 extern "C" int nxfx_grid_residual(
-    int nx, int ny,
-    const double* w, const double* diag, const double* lam, const double* rhs,
-    double* res, double* partial, double* norm, cudaStream_t stream)
+    const GridArgs* a, const double* w, const double* diag, const double* lam, const double* rhs,
+    double* res, double* norm, cudaStream_t stream)
 {
-    const int B = nx * ny;
+    const int B = a->nx * a->ny;
     if (B <= 0) return 0;
     grid_residual_kernel<<<grid_blocks(B), THREADS, 0, stream>>>(
-        nx, ny, w, diag, lam, rhs, res, partial);
-    const int code = static_cast<int>(cudaGetLastError());
-    if (code != 0 || partial == nullptr) return code;
-    return finish_norm(grid_blocks(B), partial, norm, stream);
+        a->nx, a->ny, w, diag, lam, rhs, res, a->partial, a->ticket, norm);
+    return static_cast<int>(cudaGetLastError());
 }

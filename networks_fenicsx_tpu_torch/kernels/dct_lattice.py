@@ -25,11 +25,22 @@ port inverts and transforms in float64 throughout and keeps the pass count.
 
 :func:`dct_lattice` launches the kernels for CUDA tensors and runs
 :func:`dct_lattice_plain` (``torch.matmul`` for the four products) for CPU
-tensors.  Its ``launches`` counts solves.
+tensors.  Its ``launches`` counts solves; :func:`cuda_launches` gives the
+kernel launches of one (20 at two refinement passes: the factor's two and
+six a pass — four products on the float64 tensor cores, the border and
+the correction — issued a pass at a time by one library call).  The
+operator is validated once, at construction, reads the device's SM count
+once and plans each product's k split (:func:`gemm_plan`); it holds the
+scratch of every calling stream (the factor, the transform grids, the
+border's partial sums, ``sol`` and its ticket, which the kernel resets
+itself), so a solve checks only ``w``, ``rhs`` and each residual,
+allocates only ``λ`` (updated in place by the refinement passes) and
+launches on the raw stream.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 import typing
@@ -42,16 +53,43 @@ from . import build
 
 __all__ = ["DctOperator", "DctState", "dct_operator", "dct_matrix", "dct_lattice",
            "dct_lattice_plain", "factor_plain", "transform", "transform_plain", "lplus_plain",
-           "direct_plain", "N_REFINE"]
+           "direct_plain", "product", "product_plain", "gemm_plan", "cuda_launches", "N_REFINE"]
 
 N_REFINE = 2  # refinement passes after the direct one (reference ``:1097``)
 
 Residual = typing.Callable[[torch.Tensor], torch.Tensor]
 
 
+TILE = (64, 64)  # the product kernel's output tile (csrc BM, BN)
+SLAB_K = 32  # the k depth of a staged slab (csrc BK)
+MAX_SPLIT = 8  # blocks sharing one tile's k range, one cluster (csrc MAX_SPLIT)
+MAX_ROWS = 16  # stub rows the bordered matrix takes (csrc MAX_BORDER - 1)
+BORDER_BLOCKS = 256  # the border's blocks at most, one partial sum each (csrc BORDER_BLOCKS)
+
+
+def gemm_plan(M: int, N: int, K: int, sms: int) -> int:
+    """The product kernel's k split for ``op(A) (M, K) op(B) (K, N)`` on
+    ``sms`` SMs: the tile's k range shared by as many blocks (one cluster)
+    as fill the SMs once, a power of two up to :data:`MAX_SPLIT`, each at
+    least 64 deep (a 512² product: 64 tiles of 64 × 64, each over two
+    blocks of 256).  Returns the blocks a tile, as the kernel counts them."""
+    tiles = -(-M // TILE[0]) * -(-N // TILE[1])
+    split = 1
+    while 2 * split <= min(MAX_SPLIT, sms // tiles, K // 64):
+        split *= 2
+    kchunk = -(-(-(-K // split)) // SLAB_K) * SLAB_K
+    return -(-K // kchunk)
+
+
 @dataclasses.dataclass(frozen=True)
 class DctOperator:
     """K16's state on one device, built once per executor.
+
+    Validated once, at construction: the float64 matrices, eigenvalues and
+    columns and the int32 tables contiguous, with data, on one device and
+    of the shapes below, the representative and stub edges non-negative;
+    on CUDA also 1 to :data:`MAX_ROWS` stub rows.  A ``ValueError``
+    otherwise.
 
     Attributes:
         s, ny: Lattice width (row stride) and height; ``B = s·ny``.
@@ -63,6 +101,10 @@ class DctOperator:
         stub_edge, stub_group: ``(n_stub,)`` int32 stub edges (in the
             executor's edge order) and their row group.
         rep_x, rep_y: The edges whose conductance is ``wx``, ``wy``.
+        index: The CUDA device index (-1 off CUDA).
+        n_edges: The least length of ``w`` (one past the largest edge read).
+        plans: The products' :func:`gemm_plan` splits on the device (CUDA
+            only): ``(Dy-side, Dx-side)``, k = ``ny`` and k = ``s``.
     """
 
     s: int
@@ -78,6 +120,47 @@ class DctOperator:
     stub_group: torch.Tensor
     rep_x: int
     rep_y: int
+    index: int = dataclasses.field(init=False, compare=False)
+    n_edges: int = dataclasses.field(init=False, compare=False)
+    plans: tuple = dataclasses.field(init=False, compare=False)
+    # the scratch of each calling stream: {raw stream handle: _Scratch}
+    _scratch: dict = dataclasses.field(init=False, compare=False, repr=False)
+
+    def __post_init__(self):
+        s, ny, r = self.s, self.ny, int(self.stub_rows.shape[0])
+        n_stub = int(self.stub_edge.shape[0])
+        dev = self.Dx.device
+        if dev.type == "meta":
+            raise ValueError("DctOperator: tensors must hold data (a meta tensor has none)")
+        shapes = {"Dx": (self.Dx, (s, s), torch.float64), "Dy": (self.Dy, (ny, ny), torch.float64),
+                  "lamx": (self.lamx, (s,), torch.float64), "lamy": (self.lamy, (ny,), torch.float64),
+                  "g_geo": (self.g_geo, (r, s * ny), torch.float64),
+                  "stub_rows": (self.stub_rows, (r,), torch.int32),
+                  "stub_edge": (self.stub_edge, (n_stub,), torch.int32),
+                  "stub_group": (self.stub_group, (n_stub,), torch.int32)}
+        for name, (t, shape, dtype) in shapes.items():
+            if t.device != dev:
+                raise ValueError("DctOperator: tensors must share one device")
+            if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError(f"DctOperator: {name} must be a contiguous {shape} {dtype} tensor, "
+                                 f"got {t.dtype} {tuple(t.shape)}")
+        if s < 1 or ny < 1 or min(self.rep_x, self.rep_y) < 0:
+            raise ValueError("DctOperator: an empty lattice or a negative edge")
+        edge_min, edge_max = (torch.stack([self.stub_edge.min(), self.stub_edge.max()]).tolist()
+                              if n_stub else (0, -1))  # one device read
+        if edge_min < 0:
+            raise ValueError("DctOperator: a negative stub edge")
+        cuda = dev.type == "cuda"
+        if cuda and not 1 <= r <= MAX_ROWS:
+            raise ValueError(f"DctOperator: 1 to {MAX_ROWS} stub rows on CUDA, got {r}")
+        plans = ()
+        if cuda:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            plans = (gemm_plan(ny, s, ny, sms), gemm_plan(ny, s, s, sms))
+        object.__setattr__(self, "index", dev.index if cuda else -1)
+        object.__setattr__(self, "n_edges", max(self.rep_x, self.rep_y, edge_max) + 1)
+        object.__setattr__(self, "plans", plans)
+        object.__setattr__(self, "_scratch", {})
 
     @property
     def r(self) -> int:
@@ -86,6 +169,56 @@ class DctOperator:
     @property
     def B(self) -> int:
         return self.s * self.ny
+
+    def scratch(self, stream: int) -> "_Scratch":
+        """The scratch of the CUDA stream ``stream``, made (zeroed) on that
+        stream at its first use there."""
+        scr = self._scratch.get(stream)
+        if scr is None:
+            scr = self._scratch[stream] = _Scratch(self)
+        return scr
+
+
+class _DctArgs(ctypes.Structure):
+    """``DctArgs`` of ``csrc/dct_lattice.cu``: one operator's shapes and
+    pointers on one calling stream."""
+
+    _fields_ = (
+        [(n, ctypes.c_int) for n in ("s", "ny", "r", "B", "n_stub", "rep_x", "rep_y", "split_y",
+                                     "split_x")]
+        + [("len_x", ctypes.c_double)]
+        + [(n, ctypes.c_void_p) for n in ("Dx", "Dy", "lamx", "lamy", "g_geo", "stub_rows",
+                                          "stub_edge", "stub_group", "inv", "g", "Minv", "t1",
+                                          "t2", "z", "partial", "sol", "border_ticket")]
+    )
+
+
+class _Scratch:
+    """One calling stream's device scratch of a :class:`DctOperator`: one
+    zeroed float64 buffer holding the factor (``inv``, ``g``, ``Minv``), the
+    transform grids ``t1``, ``t2`` and ``z``, the border's ``partial`` sums,
+    ``sol`` and its ticket (a 32-bit word the kernel resets); ``args`` their
+    :class:`_DctArgs` with the operator's, ``ref`` its address."""
+
+    __slots__ = ("buf", "args", "ref")
+
+    def __init__(self, op: DctOperator):
+        B, r = op.B, op.r
+        sizes = (("inv", B), ("g", r * B), ("Minv", (r + 1) ** 2), ("t1", B), ("t2", B), ("z", B),
+                 ("partial", BORDER_BLOCKS), ("sol", r + 1), ("border_ticket", 1))
+        sizes = tuple((name, n + n % 2) for name, n in sizes)  # 16-byte aligned regions
+        self.buf = torch.zeros(sum(n for _, n in sizes), dtype=torch.float64, device=op.Dx.device)
+        ptrs, ptr = {}, self.buf.data_ptr()
+        for name, n in sizes:
+            ptrs[name] = ptr
+            ptr += 8 * n
+        self.args = _DctArgs(
+            s=op.s, ny=op.ny, r=r, B=B, n_stub=int(op.stub_edge.shape[0]), rep_x=op.rep_x,
+            rep_y=op.rep_y, split_y=op.plans[0], split_x=op.plans[1], len_x=op.len_x,
+            Dx=op.Dx.data_ptr(), Dy=op.Dy.data_ptr(), lamx=op.lamx.data_ptr(),
+            lamy=op.lamy.data_ptr(), g_geo=op.g_geo.data_ptr(), stub_rows=op.stub_rows.data_ptr(),
+            stub_edge=op.stub_edge.data_ptr(), stub_group=op.stub_group.data_ptr(), **ptrs)
+        self.ref = ctypes.addressof(self.args)
 
 
 class DctState(typing.NamedTuple):
@@ -204,55 +337,79 @@ def dct_lattice_plain(
 # ------------------------------------------------------------------ kernels
 
 
+def cuda_launches(op: DctOperator, n_refine: int = N_REFINE) -> int:
+    """K16's kernel launches in one :func:`dct_lattice` solve: the factor's
+    two (scale, bordered inverse) and per pass four products, the border
+    and the correction — whatever the lattice's shape or stub rows, since a
+    split product adds its slices in its own launch."""
+    return 2 + 6 * (1 + n_refine)
+
+
+def _lib_stream(index: int):
+    return build.library(), build.raw_stream(index)
+
+
+def _gemm(lib, stream, split, M, N, K, A, transA, Bp, transB, C, S=None) -> None:
+    """One product launch on pointers: ``C = op(A) op(B) [∘ S]``."""
+    code = lib.nxfx_dct_gemm(M, N, K, A, transA, Bp, transB, S, C, split, stream)
+    if code:
+        build.check(code, "dct_lattice")
+
+
+def _require(op: DctOperator, *pairs) -> None:
+    build.require_vectors("dct_lattice", op.index, *pairs)
+
+
 def _factor(op: DctOperator, w: torch.Tensor) -> DctState:
-    """The factor through K16's kernels (plain for a CPU tensor)."""
+    """The factor through K16's kernels into fresh tensors (plain for a CPU
+    tensor)."""
     if w.device.type == "cpu":
         return factor_plain(op, w)
-    dev, dt = w.device, torch.float64
+    _require(op, (w, -op.n_edges))
     r, B = op.r, op.B
-    inv = torch.empty((op.ny, op.s), dtype=dt, device=dev)
-    g = torch.empty((r, B), dtype=dt, device=dev)
-    Minv = torch.empty((r + 1, r + 1), dtype=dt, device=dev)
-    lib, stream = build.library(), build.stream_handle(dev)
-    with torch.cuda.device(dev):
-        code = lib.nxfx_dct_scale(
-            op.s, op.ny, r, B, w.data_ptr(), op.rep_x, op.rep_y, op.len_x,
-            op.lamx.data_ptr(), op.lamy.data_ptr(), op.g_geo.data_ptr(),
-            inv.data_ptr(), g.data_ptr(), stream,
-        )
+    inv = w.new_empty((op.ny, op.s))
+    g = w.new_empty((r, B))
+    Minv = w.new_empty((r + 1, r + 1))
+
+    def run(lib, stream):
+        code = lib.nxfx_dct_factor(op.scratch(stream).ref, w.data_ptr(), inv.data_ptr(),
+                                   g.data_ptr(), Minv.data_ptr(), stream)
         build.check(code, "dct_lattice")
-        code = lib.nxfx_dct_minv(
-            r, int(op.stub_edge.shape[0]), B, w.data_ptr(), op.stub_edge.data_ptr(),
-            op.stub_group.data_ptr(), op.stub_rows.data_ptr(), g.data_ptr(), Minv.data_ptr(),
-            stream,
-        )
-    build.check(code, "dct_lattice")
+
+    build.on_device(op.index, run, *_lib_stream(op.index))
     return DctState(inv, g, Minv)
 
 
-GEMM_TILE = (32, 64)  # the product kernel's output tile (rows, columns)
-BLOCKS_PER_SM = 4  # product blocks to keep resident on each SM
-BORDER_BLOCKS = 1024  # first-stage blocks of the border's sum (csrc BORDER_BLOCKS)
+def product_plain(A: torch.Tensor, Bm: torch.Tensor, transA: bool = False, transB: bool = False,
+                  S: torch.Tensor | None = None) -> torch.Tensor:
+    """``op(A) op(B)`` (``∘ S``) by ``torch.matmul``."""
+    C = (A.T if transA else A) @ (Bm.T if transB else Bm)
+    return C * S if S is not None else C
 
 
-def gemm_split(M: int, N: int, K: int, sms: int) -> int:
-    """How many blocks share one output tile's k range: enough tiles to keep
-    about :data:`BLOCKS_PER_SM` blocks on each of ``sms`` SMs, at most 8,
-    each at least 64 deep."""
-    tiles = -(-M // GEMM_TILE[0]) * -(-N // GEMM_TILE[1])
-    return max(1, min(8, BLOCKS_PER_SM * sms // tiles, K // 64))
-
-
-def _gemm(lib, stream, M, N, K, A, transA, Bm, transB, C, S=None, work=None) -> None:
-    split = gemm_split(M, N, K, torch.cuda.get_device_properties(C.device).multi_processor_count)
-    if split > 1 and (work is None or work.numel() < split * M * N):
-        work = torch.empty(split * M * N, dtype=torch.float64, device=C.device)
-    code = lib.nxfx_dct_gemm(
-        M, N, K, A.data_ptr(), int(transA), Bm.data_ptr(), int(transB),
-        None if S is None else S.data_ptr(), C.data_ptr(), split,
-        None if split == 1 else work.data_ptr(), stream,
-    )
-    build.check(code, "dct_lattice")
+def product(A: torch.Tensor, Bm: torch.Tensor, transA: bool = False, transB: bool = False,
+            S: torch.Tensor | None = None, split: int | None = None) -> torch.Tensor:
+    """K16's product kernel alone on 2-D row-major float64 operands (plain
+    for CPU tensors): ``op(A) op(B)`` (``∘ S``), ``split`` a k split other
+    than :func:`gemm_plan`'s.  Not counted: it checks the kernel on shapes
+    the lattices do not give it."""
+    if A.device.type == "cpu":
+        return product_plain(A, Bm, transA, transB, S)
+    build.require_cuda("dct_lattice", A, Bm, *(() if S is None else (S,)))
+    if A.dim() != 2 or Bm.dim() != 2:
+        raise ValueError("dct_lattice: product operands must be 2-D")
+    M, K = (A.shape[1], A.shape[0]) if transA else tuple(A.shape)
+    Kb, N = (Bm.shape[1], Bm.shape[0]) if transB else tuple(Bm.shape)
+    if K != Kb or (S is not None and tuple(S.shape) != (M, N)):
+        raise ValueError("dct_lattice: product shapes do not match")
+    dev = A.device
+    if split is None:
+        split = gemm_plan(M, N, K, torch.cuda.get_device_properties(dev).multi_processor_count)
+    C = A.new_empty((M, N))
+    build.on_device(dev.index, _gemm, *_lib_stream(dev.index), split, M, N, K, A.data_ptr(),
+               int(transA), Bm.data_ptr(), int(transB), C.data_ptr(),
+               None if S is None else S.data_ptr())
+    return C
 
 
 def transform(op: DctOperator, x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
@@ -260,68 +417,36 @@ def transform(op: DctOperator, x: torch.Tensor, inverse: bool = False) -> torch.
     (two launches, not counted: the solve's passes run the same kernel)."""
     if x.device.type == "cpu":
         return transform_plain(op, x, inverse)
-    build.require_cuda("dct_lattice", x, op.Dx, op.Dy)
-    s, ny = op.s, op.ny
-    t = torch.empty((ny, s), dtype=torch.float64, device=x.device)
-    out = torch.empty(ny * s, dtype=torch.float64, device=x.device)
-    lib, stream = build.library(), build.stream_handle(x.device)
-    with torch.cuda.device(x.device):
-        _gemm(lib, stream, ny, s, ny, op.Dy, inverse, x, False, t)
-        _gemm(lib, stream, ny, s, s, t, False, op.Dx, not inverse, out)
+    _require(op, (x, op.B))
+    out = x.new_empty(op.B)
+
+    def run(lib, stream):
+        t1 = op.scratch(stream).args.t1
+        py, px = op.plans
+        _gemm(lib, stream, py, op.ny, op.s, op.ny, op.Dy.data_ptr(), int(inverse), x.data_ptr(), 0,
+              t1)
+        _gemm(lib, stream, px, op.ny, op.s, op.s, t1, 0, op.Dx.data_ptr(), int(not inverse),
+              out.data_ptr())
+
+    build.on_device(op.index, run, *_lib_stream(op.index))
     return out
 
 
 def _lplus(op: DctOperator, state: DctState, b: torch.Tensor) -> torch.Tensor:
-    """The four products of one transform solve (two scratch grids; plain
+    """The four products of one transform solve into a fresh ``z`` (plain
     for a CPU tensor)."""
     if b.device.type == "cpu":
         return lplus_plain(op, state, b)
-    dev = b.device
-    s, ny = op.s, op.ny
-    t1 = torch.empty((ny, s), dtype=torch.float64, device=dev)
-    t2 = torch.empty((ny, s), dtype=torch.float64, device=dev)
-    z = torch.empty(ny * s, dtype=torch.float64, device=dev)
-    work = torch.empty(8 * ny * s, dtype=torch.float64, device=dev)  # split-K partials
-    lib, stream = build.library(), build.stream_handle(dev)
-    with torch.cuda.device(dev):
-        _gemm(lib, stream, ny, s, ny, op.Dy, False, b, False, t1, work=work)  # Dy b
-        _gemm(lib, stream, ny, s, s, t1, False, op.Dx, True, t2, S=state.inv,
-              work=work)  # (· Dxᵀ) ∘ inv
-        _gemm(lib, stream, ny, s, ny, op.Dy, True, t2, False, t1, work=work)  # Dyᵀ ·
-        _gemm(lib, stream, ny, s, s, t1, False, op.Dx, False, z, work=work)  # · Dx
-    return z
+    _require(op, (b, op.B))
+    z = b.new_empty(op.B)
 
-
-def _direct(op: DctOperator, state: DctState, b: torch.Tensor, lam: torch.Tensor | None = None):
-    """One direct pass on ``b``; with ``lam``, returns ``lam`` plus it."""
-    dev = b.device
-    r, B = op.r, op.B
-    z = _lplus(op, state, b)
-    sol = torch.empty(r + 1, dtype=torch.float64, device=dev)
-    partial = torch.empty(BORDER_BLOCKS, dtype=torch.float64, device=dev)
-    out = torch.empty(B, dtype=torch.float64, device=dev)
-    lib, stream = build.library(), build.stream_handle(dev)
-    with torch.cuda.device(dev):
-        code = lib.nxfx_dct_border(
-            B, r, b.data_ptr(), z.data_ptr(), op.stub_rows.data_ptr(), state.Minv.data_ptr(),
-            partial.data_ptr(), sol.data_ptr(), stream,
-        )
+    def run(lib, stream):
+        code = lib.nxfx_dct_lplus(op.scratch(stream).ref, state.inv.data_ptr(), b.data_ptr(),
+                                  z.data_ptr(), stream)
         build.check(code, "dct_lattice")
-        code = lib.nxfx_dct_correct(
-            B, r, z.data_ptr(), state.g.data_ptr(), sol.data_ptr(),
-            None if lam is None else lam.data_ptr(), out.data_ptr(), stream,
-        )
-    build.check(code, "dct_lattice")
-    return out
 
-
-def _require(op: DctOperator, w: torch.Tensor, rhs: torch.Tensor) -> None:
-    build.require_cuda("dct_lattice", w, rhs, op.Dx, op.Dy, op.lamx, op.lamy, op.g_geo)
-    build.require_cuda("dct_lattice", op.stub_rows, op.stub_edge, op.stub_group, dtype=torch.int32)
-    if tuple(rhs.shape) != (op.B,) or w.dim() != 1:
-        raise ValueError("dct_lattice: rhs must be (B,) and w (E,)")
-    if not 1 <= op.r <= 16:
-        raise ValueError("dct_lattice: 1 to 16 stub rows")
+    build.on_device(op.index, run, *_lib_stream(op.index))
+    return z
 
 
 def dct_lattice(
@@ -333,14 +458,28 @@ def dct_lattice(
     ``n_refine`` passes on ``residual(λ) = rhs − L λ``."""
     if rhs.device.type == "cpu":
         return dct_lattice_plain(op, w, rhs, residual, n_refine)
-    _require(op, w, rhs)
-    state = _factor(op, w)
-    lam = _direct(op, state, rhs)
-    for _ in range(n_refine):
-        res = residual(lam)
-        build.require_cuda("dct_lattice", res)
-        lam = _direct(op, state, res, lam)
+    _require(op, (w, -op.n_edges), (rhs, op.B))
+    lam = build.on_device(op.index, _solve, op, w, rhs, residual, n_refine)
     dct_lattice.launches += 1
+    return lam
+
+
+def _solve(op: DctOperator, w, rhs, residual: Residual, n_refine: int) -> torch.Tensor:
+    """The solve's launches: the factor and the direct pass in one call of
+    the library (eight launches), then each refinement pass in one (six)."""
+    lib, stream = _lib_stream(op.index)
+    ref = op.scratch(stream).ref
+    lam = rhs.new_empty(op.B)
+    lp = lam.data_ptr()
+    code = lib.nxfx_dct_pass(ref, w.data_ptr(), rhs.data_ptr(), lp, 0, stream)
+    for _ in range(n_refine):
+        if code:
+            break
+        res = residual(lam)
+        _require(op, (res, op.B))
+        code = lib.nxfx_dct_pass(ref, None, res.data_ptr(), lp, 1, stream)
+    if code:
+        build.check(code, "dct_lattice")
     return lam
 
 

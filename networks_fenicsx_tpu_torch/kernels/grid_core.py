@@ -11,21 +11,29 @@ expansion, in the grid plan's internal edge order
   refinement passes and the final residual use, optionally with ``‖res‖``.
 
 Both launch the kernels for CUDA tensors and run their plain versions,
-eager transcriptions of the reference's slice adds, for CPU tensors; both
-count on ``grid_core.launches`` (K17's calls: one assembly and three
-stencils a solve).
+eager transcriptions of the reference's slice adds, for CPU tensors.  On
+CUDA each call is one launch, its norm finished inside it, on a lean path:
+the plan (a :class:`..lattice.GridDevicePlan`) was validated once where it
+was uploaded, so a call checks only its float64 tensors (device, dtype,
+shape, contiguity, in one pass), reads the raw stream, enters the device
+only when it is not already current, and takes its partial sums and ticket
+from the plan's scratch of the calling stream.  Outputs are fresh tensors.
+Both count on ``grid_core.launches``: :func:`cuda_launches` a grid-route
+solve (one assembly and three stencils).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..lattice import GridDevicePlan
 from . import build
 
-__all__ = ["grid_core", "grid_core_plain", "grid_residual", "grid_residual_plain"]
-
-THREADS = 256  # the kernels' block size: one partial sum per block
+__all__ = [
+    "grid_core", "grid_core_plain", "grid_residual", "grid_residual_plain", "cuda_launches",
+]
 
 
 def _views(gdp: GridDevicePlan):
@@ -85,9 +93,42 @@ def grid_residual_plain(
     return (res, torch.linalg.norm(res)) if norm else res
 
 
-def _check(gdp: GridDevicePlan, *tensors) -> None:
-    build.require_cuda("grid_core", *tensors)
-    build.require_cuda("grid_core", gdp.stub_rows, gdp.stub_s_bif, dtype=torch.int32)
+def cuda_launches(n_refine: int = 2) -> int:
+    """K17's launches in one grid-route solve with ``n_refine`` refinement
+    passes: the assembly, a stencil a refinement pass and the final
+    residual with its norm (one launch a call)."""
+    return 2 + n_refine
+
+
+class _GridArgs(ctypes.Structure):
+    """``GridArgs`` of ``csrc/grid_core.cu``: a plan's lattice and one calling
+    stream's scratch."""
+
+    _fields_ = [("nx", ctypes.c_int), ("ny", ctypes.c_int), ("n_stub", ctypes.c_int),
+                ("stub_rows", ctypes.c_void_p), ("stub_s_bif", ctypes.c_void_p),
+                ("partial", ctypes.c_void_p), ("ticket", ctypes.c_void_p)]
+
+
+def _args(gdp: GridDevicePlan, stream: int) -> int:
+    """The address of the plan's :class:`_GridArgs` on CUDA stream
+    ``stream``, made at the stream's first call: the scratch (``blocks``
+    float64 partial sums of squares, then the ticket word) zeroed on that
+    stream.  The kernels leave the ticket at 0, so it is never cleared again."""
+    entry = gdp._scratch.get(stream)
+    if entry is None:
+        buf = torch.zeros(gdp.blocks + 1, dtype=torch.float64, device=gdp.stub_rows.device)
+        args = _GridArgs(gdp.nx, gdp.ny, int(gdp.stub_rows.shape[0]), gdp.stub_rows.data_ptr(),
+                         gdp.stub_s_bif.data_ptr(), buf.data_ptr(), buf.data_ptr() + 8 * gdp.blocks)
+        entry = gdp._scratch[stream] = (ctypes.addressof(args), args, buf)
+    return entry[0]
+
+
+def _launch(index: int, fn, *args) -> None:
+    """``fn(*args)`` on device ``index``, counted."""
+    code = build.on_device(index, fn, *args)
+    if code:
+        build.check(code, "grid_core")
+    grid_core.launches += 1
 
 
 def grid_core(gdp: GridDevicePlan, w: torch.Tensor, const: torch.Tensor, Ftot: torch.Tensor):
@@ -95,25 +136,13 @@ def grid_core(gdp: GridDevicePlan, w: torch.Tensor, const: torch.Tensor, Ftot: t
     from the internal-order ``(E,)`` conductances, constants and sources."""
     if w.device.type == "cpu":
         return grid_core_plain(gdp, w, const, Ftot)
-    _check(gdp, w, const, Ftot)
-    E, B = gdp.num_edges, gdp.num_bifurcations
-    if any(tuple(t.shape) != (E,) for t in (w, const, Ftot)):
-        raise ValueError("grid_core: w, const and Ftot must be (E,)")
-    dev, dt = w.device, torch.float64
-    rhs = torch.empty(B, dtype=dt, device=dev)
-    diag = torch.empty(B, dtype=dt, device=dev)
-    partial = torch.empty((B + THREADS - 1) // THREADS, dtype=dt, device=dev)
-    rhs_norm = torch.empty((), dtype=dt, device=dev)
-    with torch.cuda.device(dev):
-        code = build.library().nxfx_grid_assemble(
-            gdp.nx, gdp.ny, int(gdp.stub_rows.shape[0]),
-            w.data_ptr(), const.data_ptr(), Ftot.data_ptr(),
-            gdp.stub_rows.data_ptr(), gdp.stub_s_bif.data_ptr(),
-            rhs.data_ptr(), diag.data_ptr(), partial.data_ptr(), rhs_norm.data_ptr(),
-            build.stream_handle(dev),
-        )
-    build.check(code, "grid_core")
-    grid_core.launches += 1
+    index, E, B = gdp.index, gdp.num_edges, gdp.num_bifurcations
+    build.require_vectors("grid_core", index, (w, E), (const, E), (Ftot, E))
+    rhs, diag, rhs_norm = w.new_empty(B), w.new_empty(B), w.new_empty(())
+    stream = build.raw_stream(index)
+    _launch(index, build.library().nxfx_grid_assemble, _args(gdp, stream), w.data_ptr(),
+            const.data_ptr(), Ftot.data_ptr(), rhs.data_ptr(), diag.data_ptr(), rhs_norm.data_ptr(),
+            stream)
     return rhs, diag, rhs_norm
 
 
@@ -128,20 +157,12 @@ def grid_residual(
     ``norm`` also ``‖res‖``; counted on ``grid_core.launches``."""
     if lam.device.type == "cpu":
         return grid_residual_plain(gdp, w, diag, lam, rhs, norm)
-    _check(gdp, w, diag, lam, rhs)
-    B = gdp.num_bifurcations
-    if tuple(w.shape) != (gdp.num_edges,) or any(tuple(t.shape) != (B,) for t in (diag, lam, rhs)):
-        raise ValueError("grid_residual: w must be (E,) and diag, lam, rhs (B,)")
-    dev, dt = lam.device, torch.float64
-    res = torch.empty(B, dtype=dt, device=dev)
-    partial = torch.empty((B + THREADS - 1) // THREADS, dtype=dt, device=dev) if norm else None
-    out = torch.empty((), dtype=dt, device=dev) if norm else None
-    with torch.cuda.device(dev):
-        code = build.library().nxfx_grid_residual(
-            gdp.nx, gdp.ny, w.data_ptr(), diag.data_ptr(), lam.data_ptr(), rhs.data_ptr(),
-            res.data_ptr(), None if partial is None else partial.data_ptr(),
-            None if out is None else out.data_ptr(), build.stream_handle(dev),
-        )
-    build.check(code, "grid_residual")
-    grid_core.launches += 1
+    index, B = gdp.index, gdp.num_bifurcations
+    build.require_vectors("grid_residual", index, (w, gdp.num_edges), (diag, B), (lam, B), (rhs, B))
+    res = lam.new_empty(B)
+    out = lam.new_empty(()) if norm else None
+    stream = build.raw_stream(index)
+    _launch(index, build.library().nxfx_grid_residual, _args(gdp, stream), w.data_ptr(),
+            diag.data_ptr(), lam.data_ptr(), rhs.data_ptr(), res.data_ptr(),
+            out.data_ptr() if norm else None, stream)
     return (res, out) if norm else res

@@ -321,10 +321,18 @@ def grid_edge_ends(plan: _GridPlan) -> tuple[np.ndarray, np.ndarray]:
     return src.astype(np.int64), tgt.astype(np.int64)
 
 
+GRID_THREADS = 256  # K17's block size (csrc/grid_core.cu THREADS): one partial sum a block
+
+
 @dataclasses.dataclass(frozen=True)
 class GridDevicePlan:
     """A :class:`_GridPlan` on one device, uploaded once per executor: the
     endpoint table of K1 and K5 and the stub table of K17 (int32).
+
+    Validated once, at construction: the four tables contiguous 1-D int32
+    tensors with data on one device, ``(E,)`` and ``(n_stub,)`` as the host
+    plan says, and the lattice within K17's int32 indexing; a ``ValueError``
+    otherwise.  K17's wrappers then check only their float64 arguments.
 
     Attributes:
         plan: The host plan (the plain versions read it).
@@ -332,6 +340,8 @@ class GridDevicePlan:
             (:func:`grid_edge_ends`).
         stub_rows: ``(n_stub,)`` λ row of each stub, in internal order.
         stub_s_bif: ``(n_stub,)`` 1 where the stub's start is the junction.
+        index: The tables' CUDA device index (-1 off CUDA).
+        blocks: K17's blocks a launch, one partial sum of squares each.
     """
 
     plan: _GridPlan
@@ -339,6 +349,32 @@ class GridDevicePlan:
     edge_tgt: torch.Tensor
     stub_rows: torch.Tensor
     stub_s_bif: torch.Tensor
+    index: int = dataclasses.field(init=False, compare=False)
+    blocks: int = dataclasses.field(init=False, compare=False)
+    # K17's scratch of each calling stream, {raw stream handle: scratch},
+    # made by :mod:`.kernels.grid_core` at the stream's first call
+    _scratch: dict = dataclasses.field(init=False, compare=False, repr=False)
+
+    def __post_init__(self):
+        nx, ny = int(self.plan.nx), int(self.plan.ny)
+        n_stub = int(np.asarray(self.plan.stub_rows_e).size)
+        E = int(self.plan.Ex) + int(self.plan.Ey) + n_stub
+        tables = {"edge_src": (self.edge_src, E), "edge_tgt": (self.edge_tgt, E),
+                  "stub_rows": (self.stub_rows, n_stub), "stub_s_bif": (self.stub_s_bif, n_stub)}
+        dev = self.edge_src.device
+        if dev.type == "meta":
+            raise ValueError("GridDevicePlan: tables must hold data (a meta tensor has none)")
+        for name, (t, n) in tables.items():
+            if t.device != dev:
+                raise ValueError("GridDevicePlan: tables must share one device")
+            if t.dtype != torch.int32 or tuple(t.shape) != (n,) or not t.is_contiguous():
+                raise ValueError(f"GridDevicePlan: {name} must be a contiguous ({n},) int32 tensor, "
+                                 f"got {t.dtype} {tuple(t.shape)}")
+        if nx < 1 or ny < 1 or nx * ny >= 2**31 - GRID_THREADS:
+            raise ValueError(f"GridDevicePlan: a {nx} x {ny} lattice is out of K17's range")
+        object.__setattr__(self, "index", dev.index if dev.type == "cuda" else -1)
+        object.__setattr__(self, "blocks", -(-nx * ny // GRID_THREADS))
+        object.__setattr__(self, "_scratch", {})
 
     @property
     def nx(self) -> int:
@@ -355,7 +391,6 @@ class GridDevicePlan:
     @property
     def num_bifurcations(self) -> int:
         return self.plan.nx * self.plan.ny
-
 
 def device_grid_plan(plan: _GridPlan, device: torch.device | str) -> GridDevicePlan:
     def i32(a):

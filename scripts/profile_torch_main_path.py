@@ -67,7 +67,12 @@ beside ``cholesky`` and ``cholesky_solve``; K12b on the 128² lattice's
 forced fronts; K19c's coarsest factor and solve beside ``cholesky`` and
 ``cholesky_solve``; K22-reduce on 4 × 222,643 partials beside
 ``torch.sum``, bit-equality with its plain version, the host µs of a
-synchronised call and of a call issued back to back (dispatch).  ``--root``
+synchronised call and of a call issued back to back (dispatch); and on the
+512² lattice's grid route K16's solve (its refinement residuals fixed) and
+one pass's four products beside 12 ``torch.matmul``, and K17's stencil
+without and with its norm and its assembly beside CSR ``torch.mv``, each
+with its device µs and launches by kernel name and its host and dispatch
+µs (``--select lattice``: these alone).  ``--root``
 imports the port from another checkout (e.g. the parent commit unpacked
 with ``git archive``), so that two versions are compared in one call.
 Otherwise the script
@@ -82,7 +87,7 @@ Otherwise the script
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
-    python3 scripts/profile_torch_main_path.py --kernels [--root DIR] [--out kernels.json]
+    python3 scripts/profile_torch_main_path.py --kernels [--select lattice] [--root DIR] [--out kernels.json]
 
 (``--generations`` sets the depth of ``blocked``, ``callable`` and ``p1tree``.)
 
@@ -422,7 +427,60 @@ def kernel_times(card: str) -> dict:
     for key in ("mg2d_coarse_factor", "mg2d_coarse_solve"):
         out["k19c_" + key[5:]] = {k: mg[key][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     out["k22_reduce"] = reduce_times(dev)
+    out.update(lattice_times(dev))
     return out
+
+
+def lattice_times(dev) -> dict:
+    """K16 and K17 on the 512² lattice's grid route (chip_smoke's inputs):
+
+    * K16 — the solve as ``chip_smoke.py`` times it (the refinement
+      residuals a fixed tensor), and one pass's four products alone, each
+      with its device µs and launches by kernel name (one call, the
+      profiler), the host µs of a synchronised call and of a call issued
+      back to back (dispatch), and the host count of launches where the
+      port gives one (``dct_lattice.cuda_launches``); beside three
+      ``lplus_plain`` calls (12 ``torch.matmul``);
+    * K17 — the stencil without and with its norm and the assembly, the
+      same figures, beside CSR ``torch.mv`` on the same Laplacian
+      (``chip_smoke.lattice_csr_grid``)."""
+    from networks_fenicsx_tpu_torch.kernels import condense, dct_lattice, grid_core
+
+    asm = chip_smoke.lattice_assembler(P)
+    ex = build_schur_executor(asm, P.SolverOptions(schur_method="dct"), device=dev)
+    R, f, sp, ep = ex.upload(*ex.prepare_args(*asm.schur_arguments()))
+    Rm, fm, _ = asm.coefficient_modes()
+    gdp, op = ex.device_plan, ex.operator
+    W, w, g, Ftot, const = condense.condense_plain(gdp.plan, ex._N, ex._k, ex._h_e, R, f, Rm, fm,
+                                                   sp, ep)
+    rhs, diag, _ = grid_core.grid_core_plain(gdp, w, const, Ftot)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    lam_any = torch.randn(op.B, generator=gen, dtype=torch.float64, device=dev)
+    fixed = grid_core.grid_residual_plain(gdp, w, diag, lam_any, rhs)
+    state = dct_lattice.factor_plain(op, w)
+    L = chip_smoke.lattice_csr_grid(gdp, w, diag)
+
+    def timed(fn, reps: int = 20) -> dict:
+        split = device_split(fn)
+        return {"ms": chip_smoke.cuda_ms(fn, reps=reps), "wrapper_us": best_ms(fn) * 1e3,
+                "dispatch_us": dispatch_us(fn, calls=100 if reps < 20 else 500),
+                "device_us": sum(us for us, _ in split.values()),
+                "device_launches": sum(c for _, c in split.values()),
+                "device_us_by_kernel": split}
+
+    count = getattr(dct_lattice, "cuda_launches", None)
+    k16 = {"solve": timed(lambda: dct_lattice.dct_lattice(op, w, rhs, lambda _: fixed), reps=10),
+           "one_pass_products": timed(lambda: dct_lattice._lplus(op, state, rhs)),
+           "library_12_matmul": timed(
+               lambda: [dct_lattice.lplus_plain(op, state, rhs) for _ in range(3)], reps=10),
+           "cuda_launches": None if count is None else count(op)}
+    k17 = {"stencil": timed(lambda: grid_core.grid_residual(gdp, w, diag, lam_any, rhs)),
+           "stencil_norm": timed(lambda: grid_core.grid_residual(gdp, w, diag, lam_any, rhs,
+                                                                 norm=True)),
+           "assembly": timed(lambda: grid_core.grid_core(gdp, w, const, Ftot)),
+           "library_csr_mv": timed(lambda: torch.mv(L, lam_any)),
+           "cuda_launches": getattr(grid_core, "cuda_launches", lambda: None)()}
+    return {"k16_lattice512": k16, "k17_lattice512": k17}
 
 
 def device_split(fn, reps: int = 3) -> dict:
@@ -443,7 +501,9 @@ def device_split(fn, reps: int = 3) -> dict:
             us = getattr(ev, "cuda_time_total", 0.0)
         if us and ev.device_type == torch.autograd.DeviceType.CUDA:
             name = ev.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
-            split[name] = [us / reps, ev.count / reps]
+            acc = split.setdefault(name, [0.0, 0.0])  # a template's instances under one name
+            acc[0] += us / reps
+            acc[1] += ev.count / reps
     return dict(sorted(split.items(), key=lambda kv: -kv[1][0]))
 
 
@@ -502,7 +562,9 @@ def main() -> int:
     ap.add_argument("--out", type=pathlib.Path, default=None)
     ap.add_argument("--kernels", action="store_true",
                     help="time the redesigned kernels (K21b, K10, K12a, K11, K12b, K19c's coarsest "
-                         "level, K22-reduce) beside their library calls instead of a path")
+                         "level, K22-reduce, K16, K17) beside their library calls instead of a path")
+    ap.add_argument("--select", choices=("all", "lattice"), default="all",
+                    help="with --kernels: every entry, or K16 and K17 alone")
     ap.add_argument("--root", type=pathlib.Path, default=None,
                     help="import the port from this checkout instead of this one")
     args = ap.parse_args()
@@ -514,7 +576,12 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     if args.kernels:
-        text = json.dumps(kernel_times(card), indent=1)
+        if args.select == "lattice":
+            rec = {"card": card, "port": str(pathlib.Path(P.__file__).resolve().parent),
+                   **lattice_times(torch.device("cuda", 0))}
+        else:
+            rec = kernel_times(card)
+        text = json.dumps(rec, indent=1)
         print(text)
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)

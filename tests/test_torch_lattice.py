@@ -20,6 +20,7 @@ bar.  The reference inverts its bordered matrix in float32 and polishes it
 with Newton steps; the port inverts in float64; both land at roundoff.
 """
 
+import dataclasses
 import json
 from pathlib import Path
 
@@ -573,3 +574,232 @@ def test_lattice_kernels_match_plain_on_card():
                     shift_matvec.shift_matvec_plain(offsets, cw, dr[:, 0], lam, dr[:, 1], norm=True)):
         _close(a.cpu(), b.cpu().numpy(), 1e-12)
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------------ launch counts, plans
+
+
+def _synthetic_dct_plan(s, ny, r, seed=0):
+    """A DCT plan of an s × ny lattice with r stub rows, from a seed: enough
+    for the operator's construction and its launch count (no solve)."""
+    rng = np.random.default_rng(seed)
+    rows = np.sort(rng.choice(s * ny, size=r, replace=False))
+    return PLat._DctPlan(
+        s=s, ny=ny, len_x=1.0, lamx=rng.uniform(0, 4, s), lamy=rng.uniform(0, 4, ny),
+        g_geo=rng.standard_normal((r, s * ny)), stub_rows=rows, stub_edge_idx=np.arange(r) + 2,
+        stub_edge_group=np.arange(r), rep_x=0, rep_y=1,
+    )
+
+
+@pytest.mark.parametrize("dims,r", [((512, 512), 2), ((5000, 3), 2), ((3, 4200), 2), ((6, 5), 1),
+                                    ((6, 5), 16)])
+def test_dct_lattice_cuda_launches(dims, r):
+    """K16's launches a solve are the factor's two and six a pass, whatever
+    the shape or the stub rows (no split-K reduce launch): 20 at the
+    reference's two refinement passes, within the budget of 20."""
+    s, ny = dims
+    op = dct_lattice.dct_operator(_synthetic_dct_plan(s, ny, r), "cpu")
+    assert op.r == r and op.B == s * ny
+    assert dct_lattice.cuda_launches(op) == dct_lattice.cuda_launches(op, dct_lattice.N_REFINE) == 20
+    assert [dct_lattice.cuda_launches(op, n) for n in range(4)] == [8, 14, 20, 26]
+
+
+def test_grid_route_solve_makes_the_counted_calls(monkeypatch):
+    """One grid-route solve makes K17's four calls (one launch each on the
+    card: the assembly, two refinement stencils and the final residual with
+    its norm) and K16's three passes, as ``grid_core.cuda_launches`` and
+    ``dct_lattice.cuda_launches`` count them."""
+    calls = {"assembly": 0, "stencil": 0, "pass": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(grid_core, "grid_core_plain", counted("assembly", grid_core.grid_core_plain))
+    monkeypatch.setattr(grid_core, "grid_residual_plain",
+                        counted("stencil", grid_core.grid_residual_plain))
+    monkeypatch.setattr(dct_lattice, "direct_plain", counted("pass", dct_lattice.direct_plain))
+    asm = _assembler(P, GRIDS["9x4"], N=1, f=0.3)
+    s = P.Solver(asm, options=P.SolverOptions(schur_method="dct"), device="cpu")
+    s.solve()
+    assert isinstance(s._executor, PS._GridExecutor) and s.info.converged
+    assert calls["assembly"] + calls["stencil"] == grid_core.cuda_launches() == 4
+    assert calls["assembly"] == 1
+    assert calls["pass"] == 1 + dct_lattice.N_REFINE
+    assert dct_lattice.cuda_launches(s._executor.operator) == 2 + 6 * calls["pass"]
+
+
+@pytest.mark.parametrize("M,N,K", [(3, 3, 3), (66, 66, 66), (517, 300, 300), (517, 300, 517),
+                                   (3, 5000, 5000), (5000, 3, 5000), (512, 512, 512), (4200, 3, 4200),
+                                   (1, 1, 1), (64, 64, 64)])
+@pytest.mark.parametrize("sms", [132, 8])
+def test_gemm_plan_on_ragged_shapes(M, N, K, sms):
+    """The product's k split: 1 to 8 blocks a tile (one cluster), a power of
+    two before the 32-deep slab rounding, no more blocks than fill the SMs
+    once (or one a tile), each slice at least 64 deep when split, and the
+    kernel's own count of slices (ceil(K / kchunk)) equal to it."""
+    split = dct_lattice.gemm_plan(M, N, K, sms)
+    tm, tn = dct_lattice.TILE
+    tiles = -(-M // tm) * -(-N // tn)
+    assert 1 <= split <= dct_lattice.MAX_SPLIT
+    assert split == 1 or split * tiles <= sms
+    assert split == 1 or K // split >= 64 - dct_lattice.SLAB_K
+    kchunk = -(-(-(-K // split)) // dct_lattice.SLAB_K) * dct_lattice.SLAB_K
+    assert -(-K // kchunk) == split
+    if (M, N, K, sms) == (512, 512, 512, 132):
+        assert split == min(dct_lattice.MAX_SPLIT, 132 // tiles)
+
+
+@pytest.mark.parametrize("transA,transB,scaled", [(0, 0, 0), (1, 0, 1), (0, 1, 0), (1, 1, 1)])
+def test_product_plain_is_matmul(transA, transB, scaled):
+    """The product's plain version: ``op(A) op(B)`` (``∘ S``) in
+    ``torch.matmul``, the yardstick the card holds the kernel to."""
+    rng = np.random.default_rng(11)
+    M, N, K = 7, 5, 9
+    A = _t(rng.standard_normal((K, M) if transA else (M, K)))
+    B = _t(rng.standard_normal((N, K) if transB else (K, N)))
+    S = _t(rng.standard_normal((M, N))) if scaled else None
+    want = (A.numpy().T if transA else A.numpy()) @ (B.numpy().T if transB else B.numpy())
+    if scaled:
+        want = want * S.numpy()
+    got = dct_lattice.product(A, B, bool(transA), bool(transB), S)
+    _close(got, want, 1e-14)
+
+
+def _cpu_plan_and_operator():
+    ap = _assembler(P, GRIDS["two_stubs"], N=1)
+    dct = PLat._plan_dct_lattice(ap, PLat._plan_shift_matvec(ap))
+    plan = PLat._plan_grid_layout(ap, dct)
+    return plan, PLat.device_grid_plan(plan, "cpu"), dct_lattice.dct_operator(dct, "cpu")
+
+
+@pytest.mark.parametrize("field", ["edge_src", "edge_tgt", "stub_rows", "stub_s_bif"])
+@pytest.mark.parametrize("fault", ["int64", "meta", "short", "strided"])
+def test_grid_device_plan_validates_once(field, fault):
+    """K17's plan is validated where it is built: each table a contiguous
+    int32 tensor of the host plan's length, with data, on the device of the
+    others; an int64 table, a table on another device, a short or a strided
+    one raise at construction (so a call checks only its float64 tensors)."""
+    plan, gdp, _ = _cpu_plan_and_operator()
+    assert gdp.index == -1 and gdp.blocks == -(-gdp.num_bifurcations // PLat.GRID_THREADS)
+    t = getattr(gdp, field)
+    bad = {"int64": lambda: t.long(), "meta": lambda: t.to("meta"), "short": lambda: t[:-1],
+           "strided": lambda: torch.stack([t, t], 1)[:, 0]}[fault]()
+    with pytest.raises(ValueError, match="GridDevicePlan"):
+        dataclasses.replace(gdp, **{field: bad})
+
+
+@pytest.mark.parametrize("field", ["Dx", "Dy", "lamx", "lamy", "g_geo", "stub_rows", "stub_edge",
+                                   "stub_group"])
+@pytest.mark.parametrize("fault", ["dtype", "meta", "shape"])
+def test_dct_operator_validates_once(field, fault):
+    """K16's operator is validated at construction: float64 matrices,
+    eigenvalues and columns and int32 tables, contiguous, of the plan's
+    shapes, on one device with data; an int64 table (or a float32 matrix),
+    a tensor on another device or a wrong shape raise there."""
+    _, _, op = _cpu_plan_and_operator()
+    assert op.index == -1 and op.plans == () and op.n_edges == int(op.stub_edge.max()) + 1
+    t = getattr(op, field)
+    other = torch.int64 if t.dtype == torch.int32 else torch.float32
+    bad = {"dtype": lambda: t.to(other), "meta": lambda: t.to("meta"),
+           "shape": lambda: t.reshape(1, -1) if t.dim() == 1 else t.reshape(-1)}[fault]()
+    with pytest.raises(ValueError, match="DctOperator"):
+        dataclasses.replace(op, **{field: bad})
+
+
+def test_dct_operator_keeps_no_scratch_on_the_cpu():
+    """The plain path neither plans products nor holds per-stream scratch."""
+    _, gdp, op = _cpu_plan_and_operator()
+    w = _t(np.full(gdp.num_edges, 2.0))
+    rhs, diag, _ = grid_core.grid_core(gdp, w, _t(np.ones(gdp.num_edges)), _t(np.zeros(gdp.num_edges)))
+    dct_lattice.dct_lattice(op, w, rhs, lambda lam: grid_core.grid_residual(gdp, w, diag, lam, rhs))
+    assert op._scratch == {} and gdp._scratch == {}
+
+
+@pytest.mark.cuda
+def test_grid_core_streams_repeats_and_capture_on_card():
+    """On a CUDA device: K17 with its norm on two streams at once gives the
+    bits of the calls alone (each stream has its own partials and ticket),
+    two back-to-back calls give equal bits, and a call captured into a CUDA
+    graph replays to the same bits (the ticket is reset inside the launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    ap = _assembler(P, lambda pkg: _grid(pkg, 96, 80), N=1)
+    dct = PLat._plan_dct_lattice(ap, PLat._plan_shift_matvec(ap))
+    gdp = PLat.device_grid_plan(PLat._plan_grid_layout(ap, dct), dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    E, B = gdp.num_edges, gdp.num_bifurcations
+    w = torch.rand(E, generator=gen, dtype=torch.float64, device=dev) + 0.5
+    diag = torch.rand(B, generator=gen, dtype=torch.float64, device=dev) + 4.0
+    rhs = torch.randn(B, generator=gen, dtype=torch.float64, device=dev)
+    lams = [torch.randn(B, generator=gen, dtype=torch.float64, device=dev) for _ in range(2)]
+    want = [grid_core.grid_residual(gdp, w, diag, lam, rhs, norm=True) for lam in lams]
+    again = grid_core.grid_residual(gdp, w, diag, lams[0], rhs, norm=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(again, want[0]))
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    got = []
+    for st, lam in zip(streams, lams):
+        with torch.cuda.stream(st):
+            got.append([grid_core.grid_residual(gdp, w, diag, lam, rhs, norm=True) for _ in range(4)])
+    torch.cuda.synchronize()
+    for runs, ref in zip(got, want):
+        assert all(torch.equal(a, b) for run in runs for a, b in zip(run, ref))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = grid_core.grid_residual(gdp, w, diag, lams[1], rhs, norm=True)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, want[1]))
+
+
+@pytest.mark.cuda
+def test_dct_lattice_streams_and_ragged_products_on_card():
+    """On a CUDA device: two K16 solves on two streams at once equal the
+    solves alone (each stream has its own scratch), and the product kernel
+    holds ``torch.matmul`` at 1e-12·scale on ragged shapes, transposed or
+    not, scaled or not, at every k split."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    ap = _assembler(P, lambda pkg: _grid(pkg, 70, 45), N=1)
+    dct = PLat._plan_dct_lattice(ap, PLat._plan_shift_matvec(ap))
+    plan = PLat._plan_grid_layout(ap, dct)
+    gdp = PLat.device_grid_plan(plan, dev)
+    tail = plan.Ex + plan.Ey + np.arange(plan.stub_rows_e.size)
+    op = dct_lattice.dct_operator(dct, dev, stub_edge=tail, stub_group=plan.stub_group, rep_x=0,
+                                  rep_y=plan.Ex)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    E, B = gdp.num_edges, gdp.num_bifurcations
+    w = torch.full((E,), 0.7, dtype=torch.float64, device=dev)
+    rhs = [torch.randn(B, generator=gen, dtype=torch.float64, device=dev) for _ in range(2)]
+    _, diag, _ = grid_core.grid_core(gdp, w, torch.zeros(E, dtype=torch.float64, device=dev),
+                                     torch.zeros(E, dtype=torch.float64, device=dev))
+
+    def solve(b):
+        return dct_lattice.dct_lattice(op, w, b, lambda lam: grid_core.grid_residual(gdp, w, diag, lam, b))
+
+    want = [solve(b) for b in rhs]
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    got = []
+    for st, b in zip(streams, rhs):
+        with torch.cuda.stream(st):
+            got.append([solve(b) for _ in range(3)])
+    torch.cuda.synchronize()
+    for runs, ref in zip(got, want):
+        assert all(torch.equal(x, ref) for x in runs)
+    for M, N, K in [(3, 3, 3), (66, 66, 66), (517, 300, 300), (300, 517, 517), (130, 70, 1000)]:
+        for tA, tB in [(0, 0), (1, 0), (0, 1), (1, 1)]:
+            A = torch.randn((K, M) if tA else (M, K), generator=gen, dtype=torch.float64, device=dev)
+            Bm = torch.randn((N, K) if tB else (K, N), generator=gen, dtype=torch.float64, device=dev)
+            S = torch.randn((M, N), generator=gen, dtype=torch.float64, device=dev)
+            want_p = dct_lattice.product_plain(A, Bm, bool(tA), bool(tB), S)
+            for split in range(1, dct_lattice.MAX_SPLIT + 1):
+                got_p = dct_lattice.product(A, Bm, bool(tA), bool(tB), S, split=split)
+                _close(got_p.cpu(), want_p.cpu().numpy(), 1e-12)
