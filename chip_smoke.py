@@ -134,6 +134,10 @@ EPS = float(np.finfo(np.float64).eps)
 CG512_SIZES = {"edges": 523_266, "bifurcations": 262_144, "dofs": 1_831_942,
                "precond": "2d", "levels": 5, "bottom": (16, 16)}
 CG512_MAX_ITERS = 20  # the reference's own bound (tests/test_krylov.py:240-245)
+CG512_ITERS = 17  # the kernel path's iterations (and the plain path's)
+# the 512² V-cycle before its fused launch path (PERF.md §6: wrapper ms, chip_smoke.py on an
+# H100 80GB HBM3 at 700 W), and its wrapper launches: 8 K19c and 2 K19a a smoothed level, 1 coarsest
+VCYCLE_BEFORE = {"ms": 1.5350, "mg2d_launches": 41, "krylov_launches": 10}
 WEB_CG_SIZES = {"edges": 109_873, "bifurcations": 70_924, "dofs": 2_817_749,
                 "precond": "chebyshev"}
 SKINNY_SIZES = {"bifurcations": 6_000, "precond": "1d", "levels": 4, "bottom": 375}
@@ -225,6 +229,7 @@ CG_CHECKS = {
     "krylov": ("k", ("krylov_cg_step", "krylov_chebyshev")),
     "gather_matvec": ("k", ("gather_matvec", "gather_matvec_residual")),
     "mg2d": ("l", ("mg2d_hierarchy", "mg2d_stencil", "mg2d_restrict", "mg2d_prolong",
+                   "mg2d_cheb_first", "mg2d_residual_restrict", "mg2d_prolong_residual",
                    "mg2d_coarse_factor", "mg2d_coarse_solve", "mg2d")),
     "mg1d": ("m", ("mg1d_hierarchy", "mg1d_restrict", "mg1d_prolong", "mg1d")),
 }
@@ -562,13 +567,13 @@ def compare_level_kernels(P, asm, device, timed: bool) -> dict:
     w, vt, vs = _prepare_plain(ed)
     lam, rhs_norm = level_eliminate.level_eliminate_plain(dlp, ed)
 
-    def sums(fn):
-        return lambda: (fn(dlp.p_idx, w), fn(dlp.t_idx, vt), fn(dlp.s_idx, vs))
+    def sums(fn):  # K6's one launch for the route's three sums
+        return lambda: fn(dlp.sums, w, vt, vs)
 
     runs = {
         "edge_data": (lambda: edge_data.edge_data(*e_args),
                       lambda: edge_data.edge_data_plain(*e_args)),
-        "segsum": (sums(segsum.segsum), sums(segsum.segsum_plain)),
+        "segsum": (sums(segsum.segsum_plan), sums(segsum.segsum_plan_plain)),
         "level_eliminate": (lambda: level_eliminate.level_eliminate(dlp, ed),
                             lambda: level_eliminate.level_eliminate_plain(dlp, ed)),
         "backsub": (lambda: backsub.backsub(ed, lam, N, k),
@@ -612,6 +617,11 @@ def compare_level_kernels(P, asm, device, timed: bool) -> dict:
             record[name].update(bound(*work[name]))
             if name in library:
                 record[name]["library_ms"] = cuda_ms(library[name])
+    before = segsum.segsum.launches
+    got = sums(segsum.segsum_plan)()
+    assert segsum.segsum.launches == before + 1, "K6: one launch a plan"
+    assert all(torch.equal(a, b) for a, b in zip(got, sums(segsum.segsum_plan_plain)())), "K6 bits"
+    record["segsum"]["equal"] = True
     q_T, p_T, finite = backsub.backsub(ed, lam, N, k)
     assert bool(finite), "backsub: non-finite solution"
     return record
@@ -644,6 +654,7 @@ def level_main_path(P, device, label: str, build, expect: dict) -> dict:
         assert sizes[key] == want, (key, sizes[key], want)
     assert all(fn.launches >= 1 for fn in kernels.GENERAL), launches
     assert all(fn.launches == 0 for fn in kernels.BLOCKED + kernels.CYCLIC), launches
+    assert launches["segsum"] == 1, launches  # the three sums in one planned launch
 
     info = solver.info
     x = solver.solution_vector()
@@ -743,6 +754,7 @@ def compare_cyclic_kernels(P, asm, device, timed: bool, force_mf_leaf: int | Non
     from networks_fenicsx_tpu_torch.kernels import (
         dense_core, edge_data, fold, mf_apply, mf_factor, peel, segsum,
     )
+    from networks_fenicsx_tpu_torch.kernels.level_eliminate import _prepare_plain
     from networks_fenicsx_tpu_torch.ops.multifrontal import device_mf_plan, plan_multifrontal
     from networks_fenicsx_tpu_torch.solver import _TreeExecutor, build_schur_executor
 
@@ -760,6 +772,7 @@ def compare_cyclic_kernels(P, asm, device, timed: bool, force_mf_leaf: int | Non
                                    Rm, fm, f_zero, sp, ep)
     dr, w_edges, _ = peel.lambda_system_plain(dtp, ed)
     w_pairs = segsum.segsum_plain(dtp.pair_idx, w_edges)
+    _, vt, vs = _prepare_plain(ed)
     core_in = {}
 
     def plain_core(dc, rc):
@@ -785,6 +798,12 @@ def compare_cyclic_kernels(P, asm, device, timed: bool, force_mf_leaf: int | Non
     runs = {
         "lambda_system": (lambda: peel.lambda_system(dtp, ed),
                           lambda: peel.lambda_system_plain(dtp, ed), TOL),
+        # K6's planned launches, bit for bit (tolerance 0): the two sides
+        # written once into dr, the pairs
+        "segsum_lambda": (lambda: segsum.segsum_plan(dtp.lambda_sums, vt, vs),
+                          lambda: segsum.segsum_plan_plain(dtp.lambda_sums, vt, vs), 0.0),
+        "segsum_pairs": (lambda: segsum.segsum_plan(dtp.pair_sums, w_edges),
+                         lambda: segsum.segsum_plan_plain(dtp.pair_sums, w_edges), 0.0),
         # bit for bit (tolerance 0), one launch a fold
         "fold_apply": (counted_folds(fold_all(fold.fold_apply, checked), len(checked)),
                        fold_all(fold.fold_apply_plain, checked), 0.0),
@@ -917,6 +936,10 @@ def cyclic_work(dtp, ed, dr, w_edges, w_pairs, dc, rc, folds, dmf, st):
     work = {
         "lambda_system": (tensor_bytes(ed.W, ed.g, ed.cumF[-1], ed.start_pbc, ed.end_pbc,
                                        lam_plan, dr, w_edges) + 8, 8 * E + 2 * t_adds + 2 * B),
+        # the tables and the (E, 2) values read, dr written; one add an entry and channel
+        "segsum_lambda": (tensor_bytes(lam_plan[:4], dr) + 2 * 16 * E, 2 * t_adds),
+        "segsum_pairs": (tensor_bytes(dtp.pair_idx, w_edges, w_pairs),
+                         valid_entries(dtp.pair_idx, E)),
         "fold_apply": (sum(b for b, _ in folded) + sum(tensor_bytes(v) + 16 * lv[-1].shape[0]
                                                        for lv, v in folds),
                        sum(a for _, a in folded)),
@@ -1520,8 +1543,8 @@ def compare_lattice_kernels(P, asm, device, timed: bool, tol_solve: float = LATT
                              lambda: edge_data.edge_data_plain(*e_args), TOL)
         runs["lambda_system"] = (lambda: peel.lambda_system(dlp, ed),
                                  lambda: peel.lambda_system_plain(dlp, ed), TOL)
-        runs["segsum"] = (
-            lambda: lattice._shift_class_weights(w_edges, dlp.class_idx, n_cls, segsum.segsum),
+        runs["segsum"] = (  # the class weights' planned launch, as the executor issues it
+            lambda: segsum.segsum_plan(dlp.class_sums, w_edges)[0].view(n_cls, -1),
             lambda: lattice._shift_class_weights(w_edges, dlp.class_idx, n_cls,
                                                  segsum.segsum_plain), TOL)
         runs["shift_matvec"] = (
@@ -2298,12 +2321,19 @@ def mg2d_levels(mod, cw, dirs, diag, plan) -> list:
 def compare_mg2d_kernels(P, asm, device) -> dict:
     """Set (l): K19c against its plain versions on the 512² per-edge-R
     lattice's λ system: the hierarchy, the level-0 stencil, a restriction, a
-    prolongation, the coarsest factor (its lower triangle) and solve, one
-    V-cycle application; all at ``TOL``·scale.  Timed: the V-cycle (no one
-    PyTorch call computes it), the stencil beside a CSR ``torch.mv``, the
+    prolongation, the V-cycle's fused pieces (the smoother's start folded
+    into its first step, residual and restriction, prolongation and
+    residual; also bit for bit), the coarsest factor (its lower triangle)
+    and solve, one V-cycle application; all at ``TOL``·scale.  The V-cycle's
+    launches (``LAUNCHES`` of K19c and K19a over one application) beside
+    those of the unfused level loop (``VCYCLE_BEFORE``), and two V-cycles
+    on two streams bit for bit with one on the default stream.  Timed: the
+    V-cycle (no one PyTorch call computes it; beside ``VCYCLE_BEFORE``'s
+    ms), the stencil beside a CSR ``torch.mv``, the
     coarsest factor and solve beside ``cholesky`` + ``cholesky_solve``."""
-    from networks_fenicsx_tpu_torch.kernels import mg2d
-    from networks_fenicsx_tpu_torch.multigrid import Mg2dPreconditioner
+    from networks_fenicsx_tpu_torch.kernels import krylov, mg2d
+    from networks_fenicsx_tpu_torch.multigrid import SMOOTH_DEGREE, SMOOTH_RATIO, Mg2dPreconditioner
+    from networks_fenicsx_tpu_torch.ops.krylov import chebyshev_coefficients
 
     opts = P.SolverOptions(schur_method="cg")
     ex, diag, rhs, w, cw = cg_system(P, asm, device, opts)
@@ -2329,6 +2359,24 @@ def compare_mg2d_kernels(P, asm, device) -> dict:
         return run
 
     coarse = (plan.bottom_offsets, bottom[:4], bottom[mg2d.FD])
+    theta, coeffs = chebyshev_coefficients(SMOOTH_DEGREE, ratio=SMOOTH_RATIO)
+    oc = opts.mg_overcorrect
+
+    def first(fn):  # the start and first step, its result added to a base
+        def run():
+            out = [torch.empty_like(r) for _ in range(4)]
+            fn(lev, shape, r, theta, *out[:3], *coeffs[0], out[3], rhs)
+            return out
+        return run
+
+    fused = {
+        "mg2d_cheb_first": (first(mg2d.cheb_first), first(mg2d.cheb_first_plain)),
+        "mg2d_residual_restrict": (lambda: mg2d.residual_restrict(lev, shape, shape_c, r, rhs),
+                                   lambda: mg2d.residual_restrict_plain(lev, shape, shape_c, r, rhs)),
+        "mg2d_prolong_residual": (
+            lambda: mg2d.prolong_residual(lev, shape, shape_c, r, rc, oc, rhs),
+            lambda: mg2d.prolong_residual_plain(lev, shape, shape_c, r, rc, oc, rhs)),
+    }
     runs = {
         "mg2d_hierarchy": (lambda: mg2d_levels(mg2d, cw, plan.dirs, diag, plan),
                            lambda: mg2d_levels(pre[True].k, cw, plan.dirs, diag, plan), TOL),
@@ -2343,6 +2391,7 @@ def compare_mg2d_kernels(P, asm, device) -> dict:
                               lambda: mg2d.coarse_solve_plain(factor_p, rb), TOL),
         "mg2d": (lambda: pre[False](r), lambda: pre[True](r), TOL),
     }
+    runs.update({name: (kernel, plain, TOL) for name, (kernel, plain) in fused.items()})
     sizes = [s[0] * s[1] for s in plan.shapes]
     mb = bottom.shape[1]
     tri = mb * (mb + 1) // 2  # the factor's lower triangle, all that the solves read
@@ -2368,6 +2417,32 @@ def compare_mg2d_kernels(P, asm, device) -> dict:
                                    lambda: mg2d.coarse_factor_plain(*coarse))
     record = {"shapes": [list(s) for s in plan.shapes], "bottom": list(plan.bottom)}
     run_checks(runs, record, timed, work, library)
+    for name, (kernel, plain) in fused.items():
+        assert all(torch.equal(a, b) for a, b in zip(float_tensors(kernel()),
+                                                     float_tensors(plain()))), name
+        record[name]["equal"] = True
+    before = (mg2d.LAUNCHES.launches, krylov.LAUNCHES.launches)
+    z = pre[False](r)
+    cycle = {"mg2d_launches": mg2d.LAUNCHES.launches - before[0],
+             "krylov_launches": krylov.LAUNCHES.launches - before[1],
+             "smoothed_levels": len(plan.shapes), "ms": record["mg2d"]["ms"],
+             "before": VCYCLE_BEFORE}
+    assert (cycle["mg2d_launches"], cycle["krylov_launches"]) == (6 * len(plan.shapes) + 1, 0), cycle
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+    outs = []
+    torch.cuda.synchronize()
+    for st in streams:
+        with torch.cuda.stream(st):
+            outs.append(pre[False](r))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, z) for o in outs), "two V-cycles on two streams"
+    cycle["streams_equal"] = True
+    record["vcycle"] = cycle
+    log(f"phase kernels-cg (l) V-cycle: {cycle['mg2d_launches']} K19c + {cycle['krylov_launches']} "
+        f"K19a wrapper launches a cycle ({len(plan.shapes)} smoothed levels), "
+        f"{cycle['ms']:.4f} ms; before the fused path {VCYCLE_BEFORE['mg2d_launches']} + "
+        f"{VCYCLE_BEFORE['krylov_launches']}, {VCYCLE_BEFORE['ms']:.4f} ms (PERF.md); "
+        f"two streams bit for bit")
     return record
 
 
@@ -2449,6 +2524,7 @@ def cg_phases(P, device, name_power: str) -> dict:
     paths = {}
     paths["cg512"] = cg_path(P, device, "cg512 main path", cg512, P.SolverOptions(schur_method="cg"),
                              CG512_SIZES, lattice=True, max_iters=CG512_MAX_ITERS)
+    assert paths["cg512"]["iters"] == CG512_ITERS, paths["cg512"]["iters"]
     paths["web-cg"] = cg_path(P, device, "web-cg main path", lambda: web_assembler(P),
                               P.SolverOptions(schur_method="cg"), WEB_CG_SIZES)
     for key, forms in (("cg512", cg512_forms), ("web-cg", forest_forms)):
@@ -3329,8 +3405,10 @@ def sharded_lattice_checks(state: dict, device) -> dict:
 
 
 def sharded_web_checks(state: dict, device) -> dict:
-    """K22d's partials and K22-reduce on the sharded web's inputs."""
-    from networks_fenicsx_tpu_torch.kernels import shard_general, shard_top
+    """K22d's partials (and their K6 sums alone, bit for bit) and K22-reduce
+    on the sharded web's inputs."""
+    from networks_fenicsx_tpu_torch.kernels import segsum, shard_general, shard_top
+    from networks_fenicsx_tpu_torch.kernels.level_eliminate import _prepare_plain
 
     ex = state["solver"]._pipeline
     args = ex.prepare_args(*state["solver"]._coeff_args)
@@ -3343,6 +3421,14 @@ def sharded_web_checks(state: dict, device) -> dict:
         work=(tensor_bytes(ed.W, ed.g, ed.cumF[-1], ed.start_pbc, ed.end_pbc, tab.start_bif,
                            tab.end_bif, tab.t_idx, tab.t_bins, tab.s_idx, tab.s_bins, tab.pair_idx)
               + 8 * (n_out + 5 * E_s), 8 * E_s + 2 * n_out))}
+    # the partials' K6 sums alone (both sides written once into dr, then the
+    # pairs: one launch), bit for bit on the plain prepared values
+    w, vt, vs = _prepare_plain(ed)
+    vals = (vt, vs) + ((w,) if tab.P else ())
+    rec["shard_general_sums"] = check_pair(
+        lambda: torch.cat([o.reshape(-1) for o in segsum.launch_plan(tab.sums, vals)]),
+        lambda: torch.cat([o.reshape(-1) for o in segsum.segsum_plan_plain(tab.sums, *vals)]),
+        exact=True)
     stacked = ex.mesh.stack([f[1] for f in fws])
     n = stacked.shape[1]
     rec["shard_reduce"] = check_pair(

@@ -10,7 +10,8 @@ The blocked forest solve (uniformly-K-ary forests):
 The general forest solve (any forest, any coefficient mode):
 
 * :mod:`.edge_data` — K8a, element formation and condensation in four layouts;
-* :mod:`.segsum` — K6, exact sorted-segment sums;
+* :mod:`.segsum` — K6, exact sorted-segment sums, a route's sums in one
+  launch through a :class:`.segsum.SumPlan`;
 * :mod:`.level_eliminate` — K7, the level-ordered elimination (through K6);
 * :mod:`.backsub` — K8b, λ to the solution blocks.
 
@@ -41,8 +42,8 @@ K8b; its matvec on K18 or K19b):
 * :mod:`.krylov` — K19a, the CG steps, the Chebyshev start, Jacobi;
 * :mod:`.gather_matvec` — K19b, the gather-fold matvec of graphs without a
   shift plan, with its Chebyshev step;
-* :mod:`.mg2d` — K19c, the 2-D aggregation V-cycle's pieces and the
-  coarsest dense solve;
+* :mod:`.mg2d` — K19c, the 2-D aggregation V-cycle's pieces, its fused
+  launch path (:class:`.mg2d.Cycle`) and the coarsest dense solve;
 * :mod:`.mg1d` — K19d, the 1-D pairing V-cycle's hierarchy and transfers.
 
 The assembled-matrix and continuous-pressure routes:

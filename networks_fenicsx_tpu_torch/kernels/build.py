@@ -72,6 +72,10 @@ _SIGNATURES = {
         _i, _i, _i, _i,  # S, K, C, n
         _p, _p, _p, _p, _p,  # idx, vals, bins, out, stream
     ],
+    "nxfx_segsum_plan": [
+        _p, _i,  # SumPlanArgs, n
+        _p, _p, _p, _p, _p, _p, _p, _p, _p,  # four value arrays, four outputs, stream
+    ],
     "nxfx_fold": [
         _i, _p, _p, _p, _i, _i,  # L, host level pointers, rows, widths, C, n
         _p, _p, _p,  # vals, out, stream
@@ -219,6 +223,17 @@ _SIGNATURES = {
         _i, _i, _p, _p, _p, _p, _p,  # ny, nx, lev, rs, dvec, x_in, x_out
         _d, _d, _p, _p, _p,  # c1, c2, z (or null), base (or null), stream
     ],
+    "nxfx_mg2d_cheb_first": [
+        _i, _i, _p, _p, _d, _d, _d,  # ny, nx, lev, r, 1 / theta, c1, c2
+        _p, _p, _p, _p, _p, _p,  # rs, dvec, x_out, z (or null), base (or null), stream
+    ],
+    "nxfx_mg2d_residual_restrict": [_i, _i, _p, _p, _p, _i, _i, _p, _p],  # nyf, nxf, lev, x, b, nyc, nxc, rc
+    "nxfx_mg2d_prolong_residual": [
+        _i, _i, _p, _p, _i, _p, _d,  # ny, nx, lev, x, nxc, ec, overcorrect
+        _p, _p, _p, _p,  # b, xp, res, stream
+    ],
+    "nxfx_mg2d_down": [_p, _p, _p],  # Mg2dCycle, r0, stream
+    "nxfx_mg2d_up": [_p, _p, _p, _p, _p],  # Mg2dCycle, r0, e_bottom, out0, stream
     "nxfx_mg2d_restrict": [_i, _i, _p, _i, _i, _p, _p],  # nyf, nxf, res, nyc, nxc, rc, stream
     "nxfx_mg2d_prolong": [_i, _i, _p, _i, _p, _d, _p],  # nyf, nxf, x, nxc, ec, overcorrect, stream
     "nxfx_mg_coarse_factor": [_i, _i, _p, _p, _p, _p, _p],  # m, C, host offsets, cw, diag, A, stream
@@ -347,7 +362,7 @@ def stream_handle(device: torch.device) -> int:
 
 def raw_stream(index: int) -> int:
     """The current CUDA stream of device ``index`` as a handle, without a
-    Python ``Stream`` object (the lean launch path of K6 and K10)."""
+    Python ``Stream`` object (the lean launch path)."""
     return torch._C._cuda_getCurrentRawStream(index)
 
 

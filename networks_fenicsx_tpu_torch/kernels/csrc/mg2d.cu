@@ -20,7 +20,27 @@
 //   restrict  2 x 2 block sums of a residual, even padding
 //   prolong   x += overcorrect * e[i / 2, j / 2], cropped
 //   solve     the two triangular solves on the coarsest factor.
-// Every entry's sum is taken in the plain version's order.  Bound:
+// Every entry's sum is taken in the plain version's order.
+//
+// The V-cycle's own launch path fuses what the level loop composes, each
+// fusion computing what the composed pieces compute, in their order:
+//   cheb_first        the smoother's start (rs = s r, x = dvec = rs (1 / theta))
+//                     folded into its first step: a cell forms the start at
+//                     its four neighbours (a one-cell halo of r).  1 / theta
+//                     is taken on the host: a tensor divided by a host scalar
+//                     is that product on the card in PyTorch, so the fold
+//                     equals the composed plain versions to the bit
+//   residual_restrict each coarse cell forms its <= 4 fine residuals b - L x
+//                     and adds them ((x00 + x01) + x10) + x11; the fine
+//                     residual is never stored
+//   prolong_residual  each fine cell forms x' = x + oc e[i / 2, j / 2] at itself
+//                     and its neighbours, writes x' and b - L x' to two other
+//                     buffers (no in-place race)
+// so a smoothed level takes 6 launches: smoother (2), residual_restrict,
+// prolong_residual, smoother (2).  nxfx_mg2d_down and nxfx_mg2d_up issue a
+// whole cycle's descent and ascent around the coarsest solve, each from one
+// host call, on a per-stream argument struct (Mg2dCycle) holding the
+// levels and the stream's scratch.  Bound:
 // device-memory bytes (seven fields and a few vectors per level), except the
 // coarsest factor, m^3 / 3 operations of a matrix of order m <= 4,096
 // (256 at the 512^2 lattice).
@@ -28,6 +48,36 @@
 #include <cuda_runtime.h>
 
 #include "tiled_cholesky.cuh"
+
+constexpr int MG_MAX_LEVELS = 16;
+constexpr int MG_MAX_STEPS = 8;
+
+// One smoothed level of a V-cycle and the calling stream's scratch, each
+// vector ny nx doubles (a ctypes Structure of the same fields).
+struct Mg2dLevelArgs {
+    int ny, nx;
+    const double* lev;
+    double* r;     // the level's right-hand side (levels >= 1; level 0 takes the caller's)
+    double* x;     // the pre-smoothed iterate
+    double* xp;    // the prolonged iterate, then (levels >= 1) the level's result
+    double* res;   // the post-smoothing residual
+    double* rs;    // the smoother's s r, its dvec and its two iterates
+    double* dvec;
+    double* xa;
+    double* xb;
+};
+
+// A V-cycle's smoothed levels on one stream: L levels, the smoother's start
+// factor 1 / theta and its `steps` step coefficient pairs, the
+// overcorrection, and the coarsest grid's shape and right-hand side.
+struct Mg2dCycle {
+    int L, steps, ny_bottom, nx_bottom;
+    double inv_theta, oc;
+    double c1[MG_MAX_STEPS];
+    double c2[MG_MAX_STEPS];
+    double* r_bottom;
+    Mg2dLevelArgs lv[MG_MAX_LEVELS];
+};
 
 namespace {
 
@@ -98,17 +148,45 @@ __global__ void __launch_bounds__(THREADS) mg2d_coarsen_kernel(int nyf, int nxf,
     write_diag(coarse, static_cast<size_t>(nyc) * nxc, i, extra, e, w, s, n);
 }
 
-// (L y)_i of the level's stencil, y = x or y = s x
-__device__ __forceinline__ double stencil_row(int i, int ny, int nx, const double* lev, const double* x,
-                                              const double* s)
+// the stencil's input y at a cell: x, s x, the smoother's start s (s r (1 / theta)),
+// or the prolonged x + oc e[i / 2, j / 2]
+struct Plain {
+    const double* x;
+    __device__ double operator()(int j) const { return x[j]; }
+};
+struct Scaled {
+    const double* s;
+    const double* x;
+    __device__ double operator()(int j) const { return s[j] * x[j]; }
+};
+struct StartScaled {
+    const double* s;
+    const double* r;
+    double inv_theta;
+    __device__ double operator()(int j) const { return s[j] * ((s[j] * r[j]) * inv_theta); }
+};
+struct Prolonged {
+    const double* x;
+    const double* ec;
+    int nx, nxc;
+    double oc;
+    __device__ double operator()(int j) const
+    {
+        return x[j] + oc * ec[static_cast<size_t>(j / nx / 2) * nxc + (j % nx) / 2];
+    }
+};
+
+// (L y)_i of the level's stencil, zero-padded shifts
+template <class Y>
+__device__ __forceinline__ double stencil_of(int i, int ny, int nx, const double* lev, const Y& y)
 {
     const size_t m = static_cast<size_t>(ny) * nx;
-    const int y = i / nx, c = i % nx;
-    const double xi = s != nullptr ? s[i] * x[i] : x[i];
-    const double xe = c + 1 < nx ? (s != nullptr ? s[i + 1] * x[i + 1] : x[i + 1]) : 0.0;
-    const double xw = c > 0 ? (s != nullptr ? s[i - 1] * x[i - 1] : x[i - 1]) : 0.0;
-    const double xs = y + 1 < ny ? (s != nullptr ? s[i + nx] * x[i + nx] : x[i + nx]) : 0.0;
-    const double xn = y > 0 ? (s != nullptr ? s[i - nx] * x[i - nx] : x[i - nx]) : 0.0;
+    const int r = i / nx, c = i % nx;
+    const double xi = y(i);
+    const double xe = c + 1 < nx ? y(i + 1) : 0.0;
+    const double xw = c > 0 ? y(i - 1) : 0.0;
+    const double xs = r + 1 < ny ? y(i + nx) : 0.0;
+    const double xn = r > 0 ? y(i - nx) : 0.0;
     double o = lev[FD * m + i] * xi;
     o = o - lev[FE * m + i] * xe;
     o = o - lev[FW * m + i] * xw;
@@ -123,7 +201,7 @@ __global__ void __launch_bounds__(THREADS) mg2d_stencil_kernel(int ny, int nx, c
 {
     const int i = blockIdx.x * THREADS + threadIdx.x;
     if (i >= ny * nx) return;
-    const double o = stencil_row(i, ny, nx, lev, x, nullptr);
+    const double o = stencil_of(i, ny, nx, lev, Plain{x});
     out[i] = b != nullptr ? b[i] - o : o;
 }
 
@@ -135,12 +213,67 @@ __global__ void __launch_bounds__(THREADS) mg2d_cheb_kernel(int ny, int nx, cons
     const int i = blockIdx.x * THREADS + threadIdx.x;
     if (i >= ny * nx) return;
     const double* s = lev + FI * static_cast<size_t>(ny) * nx;
-    const double mv = s[i] * stencil_row(i, ny, nx, lev, x_in, s);
+    const double mv = s[i] * stencil_of(i, ny, nx, lev, Scaled{s, x_in});
     const double dv = c1 * dvec[i] + c2 * (rs[i] - mv);
     dvec[i] = dv;
     const double xn = x_in[i] + dv;
     x_out[i] = xn;
     if (z != nullptr) z[i] = base != nullptr ? base[i] + s[i] * xn : s[i] * xn;
+}
+
+// the smoother's start and first step: rs = s r, dvec = x = rs (1 / theta),
+// then the step with (c1, c2); x_out, and with z its result s x (+ base)
+__global__ void __launch_bounds__(THREADS) mg2d_cheb_first_kernel(int ny, int nx, const double* lev,
+                                                                  const double* r, double inv_theta,
+                                                                  double c1, double c2, double* rs,
+                                                                  double* dvec, double* x_out,
+                                                                  double* z, const double* base)
+{
+    const int i = blockIdx.x * THREADS + threadIdx.x;
+    if (i >= ny * nx) return;
+    const double* s = lev + FI * static_cast<size_t>(ny) * nx;
+    const double mv = s[i] * stencil_of(i, ny, nx, lev, StartScaled{s, r, inv_theta});
+    const double rsv = s[i] * r[i];
+    const double dv0 = rsv * inv_theta;
+    const double dv = c1 * dv0 + c2 * (rsv - mv);
+    rs[i] = rsv;
+    dvec[i] = dv;
+    const double xn = dv0 + dv;
+    x_out[i] = xn;
+    if (z != nullptr) z[i] = base != nullptr ? base[i] + s[i] * xn : s[i] * xn;
+}
+
+// b - L x at fine cell (y, c), 0 in the even padding
+__device__ __forceinline__ double fine_residual(int y, int c, int ny, int nx, const double* lev,
+                                                const double* x, const double* b)
+{
+    if (y >= ny || c >= nx) return 0.0;
+    const int i = y * nx + c;
+    return b[i] - stencil_of(i, ny, nx, lev, Plain{x});
+}
+
+__global__ void __launch_bounds__(THREADS) mg2d_residual_restrict_kernel(int nyf, int nxf, const double* lev,
+                                                                         const double* x, const double* b,
+                                                                         int nyc, int nxc, double* rc)
+{
+    const int i = blockIdx.x * THREADS + threadIdx.x;
+    if (i >= nyc * nxc) return;
+    const int y = 2 * (i / nxc), c = 2 * (i % nxc);
+    rc[i] = ((fine_residual(y, c, nyf, nxf, lev, x, b) + fine_residual(y, c + 1, nyf, nxf, lev, x, b))
+             + fine_residual(y + 1, c, nyf, nxf, lev, x, b)) + fine_residual(y + 1, c + 1, nyf, nxf, lev, x, b);
+}
+
+__global__ void __launch_bounds__(THREADS) mg2d_prolong_residual_kernel(int ny, int nx, const double* lev,
+                                                                        const double* x, int nxc,
+                                                                        const double* ec, double oc,
+                                                                        const double* b, double* xp,
+                                                                        double* res)
+{
+    const int i = blockIdx.x * THREADS + threadIdx.x;
+    if (i >= ny * nx) return;
+    const Prolonged y{x, ec, nx, nxc, oc};
+    xp[i] = y(i);
+    res[i] = b[i] - stencil_of(i, ny, nx, lev, y);
 }
 
 __global__ void __launch_bounds__(THREADS) mg2d_restrict_kernel(int nyf, int nxf, const double* res,
@@ -184,6 +317,65 @@ __global__ void __launch_bounds__(THREADS) mg_copy_kernel(int m, const double* s
 
 int last_error() { return static_cast<int>(cudaGetLastError()); }
 
+int launch_cheb(int ny, int nx, const double* lev, const double* rs, double* dvec, const double* x_in,
+                double* x_out, double c1, double c2, double* z, const double* base, cudaStream_t stream)
+{
+    mg2d_cheb_kernel<<<blocks_of(static_cast<long long>(ny) * nx), THREADS, 0, stream>>>(
+        ny, nx, lev, rs, dvec, x_in, x_out, c1, c2, z, base);
+    return last_error();
+}
+
+int launch_cheb_first(int ny, int nx, const double* lev, const double* r, double inv_theta, double c1,
+                      double c2, double* rs, double* dvec, double* x_out, double* z, const double* base,
+                      cudaStream_t stream)
+{
+    mg2d_cheb_first_kernel<<<blocks_of(static_cast<long long>(ny) * nx), THREADS, 0, stream>>>(
+        ny, nx, lev, r, inv_theta, c1, c2, rs, dvec, x_out, z, base);
+    return last_error();
+}
+
+int launch_residual_restrict(int nyf, int nxf, const double* lev, const double* x, const double* b, int nyc,
+                             int nxc, double* rc, cudaStream_t stream)
+{
+    mg2d_residual_restrict_kernel<<<blocks_of(static_cast<long long>(nyc) * nxc), THREADS, 0, stream>>>(
+        nyf, nxf, lev, x, b, nyc, nxc, rc);
+    return last_error();
+}
+
+int launch_prolong_residual(int ny, int nx, const double* lev, const double* x, int nxc, const double* ec,
+                            double oc, const double* b, double* xp, double* res, cudaStream_t stream)
+{
+    mg2d_prolong_residual_kernel<<<blocks_of(static_cast<long long>(ny) * nx), THREADS, 0, stream>>>(
+        ny, nx, lev, x, nxc, ec, oc, b, xp, res);
+    return last_error();
+}
+
+// level l's smoother on r: the folded start and first step, then the other
+// steps; the last writes z (= s x, + base when given)
+int smooth(const Mg2dCycle* a, int l, const double* r, double* z, const double* base, cudaStream_t stream)
+{
+    const Mg2dLevelArgs& v = a->lv[l];
+    const bool last = a->steps == 1;
+    int code = launch_cheb_first(v.ny, v.nx, v.lev, r, a->inv_theta, a->c1[0], a->c2[0], v.rs, v.dvec, v.xa,
+                                 last ? z : nullptr, last ? base : nullptr, stream);
+    double* x_in = v.xa;
+    double* x_out = v.xb;
+    for (int t = 1; t < a->steps && code == 0; ++t) {
+        const bool end = t == a->steps - 1;
+        code = launch_cheb(v.ny, v.nx, v.lev, v.rs, v.dvec, x_in, x_out, a->c1[t], a->c2[t],
+                           end ? z : nullptr, end ? base : nullptr, stream);
+        double* swap = x_in;
+        x_in = x_out;
+        x_out = swap;
+    }
+    return code;
+}
+
+bool cycle_ok(const Mg2dCycle* a)
+{
+    return a->L >= 1 && a->L <= MG_MAX_LEVELS && a->steps >= 1 && a->steps <= MG_MAX_STEPS;
+}
+
 }  // namespace
 
 // class indices of the E, W, S, N directions (-1 when absent)
@@ -217,9 +409,72 @@ extern "C" int nxfx_mg2d_cheb(int ny, int nx, const double* lev, const double* r
                               const double* x_in, double* x_out, double c1, double c2, double* z,
                               const double* base, cudaStream_t stream)
 {
-    mg2d_cheb_kernel<<<blocks_of(static_cast<long long>(ny) * nx), THREADS, 0, stream>>>(
-        ny, nx, lev, rs, dvec, x_in, x_out, c1, c2, z, base);
-    return last_error();
+    return launch_cheb(ny, nx, lev, rs, dvec, x_in, x_out, c1, c2, z, base, stream);
+}
+
+// the smoother's start folded into its first step (inv_theta = 1 / theta);
+// z and base may be null
+extern "C" int nxfx_mg2d_cheb_first(int ny, int nx, const double* lev, const double* r, double inv_theta,
+                                    double c1, double c2, double* rs, double* dvec, double* x_out, double* z,
+                                    const double* base, cudaStream_t stream)
+{
+    return launch_cheb_first(ny, nx, lev, r, inv_theta, c1, c2, rs, dvec, x_out, z, base, stream);
+}
+
+// rc = the 2 x 2 block sums of b - L x
+extern "C" int nxfx_mg2d_residual_restrict(int nyf, int nxf, const double* lev, const double* x,
+                                           const double* b, int nyc, int nxc, double* rc, cudaStream_t stream)
+{
+    return launch_residual_restrict(nyf, nxf, lev, x, b, nyc, nxc, rc, stream);
+}
+
+// xp = x + oc e[i / 2, j / 2], res = b - L xp
+extern "C" int nxfx_mg2d_prolong_residual(int ny, int nx, const double* lev, const double* x, int nxc,
+                                          const double* ec, double oc, const double* b, double* xp,
+                                          double* res, cudaStream_t stream)
+{
+    return launch_prolong_residual(ny, nx, lev, x, nxc, ec, oc, b, xp, res, stream);
+}
+
+// A V-cycle's descent from the caller's r0 (L (steps + 1) launches): per
+// level the smoother into x, then the restricted residual into the next
+// level's r (the coarsest level's r_bottom)
+extern "C" int nxfx_mg2d_down(const Mg2dCycle* a, const double* r0, cudaStream_t stream)
+{
+    if (!cycle_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+    for (int l = 0; l < a->L; ++l) {
+        const Mg2dLevelArgs& v = a->lv[l];
+        const double* r = l == 0 ? r0 : v.r;
+        int code = smooth(a, l, r, v.x, nullptr, stream);
+        if (code != 0) return code;
+        const bool inner = l + 1 < a->L;
+        code = launch_residual_restrict(v.ny, v.nx, v.lev, v.x, r, inner ? a->lv[l + 1].ny : a->ny_bottom,
+                                        inner ? a->lv[l + 1].nx : a->nx_bottom,
+                                        inner ? a->lv[l + 1].r : a->r_bottom, stream);
+        if (code != 0) return code;
+    }
+    return 0;
+}
+
+// Its ascent from the coarsest correction e_bottom (L (steps + 1) launches):
+// per level, deepest first, the prolonged x and its residual, then the
+// smoother on that residual added to the prolonged x, into xp (level 0:
+// into out0)
+extern "C" int nxfx_mg2d_up(const Mg2dCycle* a, const double* r0, const double* e_bottom, double* out0,
+                            cudaStream_t stream)
+{
+    if (!cycle_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+    for (int l = a->L - 1; l >= 0; --l) {
+        const Mg2dLevelArgs& v = a->lv[l];
+        const bool inner = l + 1 < a->L;
+        int code = launch_prolong_residual(v.ny, v.nx, v.lev, v.x, inner ? a->lv[l + 1].nx : a->nx_bottom,
+                                           inner ? a->lv[l + 1].xp : e_bottom, a->oc, l == 0 ? r0 : v.r,
+                                           v.xp, v.res, stream);
+        if (code != 0) return code;
+        code = smooth(a, l, v.res, l == 0 ? out0 : v.xp, v.xp, stream);
+        if (code != 0) return code;
+    }
+    return 0;
 }
 
 extern "C" int nxfx_mg2d_restrict(int nyf, int nxf, const double* res, int nyc, int nxc, double* rc,

@@ -32,8 +32,34 @@
 // Bound: the latency of a few dependent gathers; the launch count (one a
 // fold instead of one a level) and the host's per-call work are what move
 // the launch-bound chains K10 runs in.
+//
+// nxfx_segsum_plan is one launch for all the sums of a route (a sum plan of
+// up to SUM_MAX_GROUPS groups, each a gather matrix over one value array):
+// the grid is flattened over the groups' (segment, channel) outputs by
+// prefix offsets.  A group without bins writes its own output; the groups
+// with bins share one output of `rows` rows, each row written once by one
+// thread as (+0.0 + sum of the first such group) + sum of the next ..., in
+// group order, a group's sum added only where its bins name the row (the
+// plan's inverse table `inv`, -1 elsewhere).  That is the plain version's
+// zero-filled output with each group's sum added into it in turn, to the
+// bit, so neither the zero fill nor a launch a group is needed.
 
 #include <cuda_runtime.h>
+
+constexpr int SUM_MAX_GROUPS = 4;
+
+// A sum plan's tables, made once per plan by the Python plan (a ctypes
+// Structure of the same fields).  inv[g] is null for a group with its own
+// output, else (rows,) the group's segment of each row of the shared
+// output (-1 none).
+struct SumPlanArgs {
+    int G, rows;
+    const int* idx[SUM_MAX_GROUPS];
+    const int* inv[SUM_MAX_GROUPS];
+    int S[SUM_MAX_GROUPS];
+    int K[SUM_MAX_GROUPS];
+    int C[SUM_MAX_GROUPS];
+};
 
 namespace {
 
@@ -128,6 +154,59 @@ __global__ void __launch_bounds__(FOLD_THREADS) fold_kernel(FoldLevels F, int L,
     if ((threadIdx.x & 31) == 0) out[wid] = v;
 }
 
+constexpr int SUM_THREADS = 256;
+
+// One launch's jobs, by value: each group with its own output, then the
+// shared output (group -1); job j owns threads [start[j], start[j + 1]).
+struct SumLaunch {
+    SumPlanArgs p;
+    const double* vals[SUM_MAX_GROUPS];
+    double* out[SUM_MAX_GROUPS];
+    long long start[SUM_MAX_GROUPS + 2];
+    int group[SUM_MAX_GROUPS + 1];
+    int jobs, n, C_shared;
+    double* shared;
+};
+
+// segment s's sum of channel c: its K gathers in ascending order
+__device__ __forceinline__ double row_sum(const int* idx, int K, int s, const double* vals, int n, int C,
+                                          int c)
+{
+    const int* row = idx + static_cast<size_t>(s) * K;
+    double acc = 0.0;
+    for (int j = 0; j < K; ++j) {
+        const int i = row[j];
+        const double v = (i >= 0 && i < n) ? vals[static_cast<size_t>(i) * C + c] : 0.0;
+        acc = j == 0 ? v : acc + v;
+    }
+    return acc;
+}
+
+__global__ void __launch_bounds__(SUM_THREADS) segsum_plan_kernel(SumLaunch L)
+{
+    const long long t = static_cast<long long>(blockIdx.x) * SUM_THREADS + threadIdx.x;
+    if (t >= L.start[L.jobs]) return;
+    int j = 0;
+    while (t >= L.start[j + 1]) ++j;
+    const long long local = t - L.start[j];
+    const int g = L.group[j];
+    if (g >= 0) {
+        const int C = L.p.C[g];
+        L.out[g][local] = row_sum(L.p.idx[g], L.p.K[g], static_cast<int>(local / C), L.vals[g], L.n, C,
+                                  static_cast<int>(local % C));
+        return;
+    }
+    const int C = L.C_shared;
+    const int b = static_cast<int>(local / C), c = static_cast<int>(local % C);
+    double acc = 0.0;
+    for (int h = 0; h < L.p.G; ++h) {
+        if (L.p.inv[h] == nullptr) continue;
+        const int s = L.p.inv[h][b];
+        if (s >= 0) acc = acc + row_sum(L.p.idx[h], L.p.K[h], s, L.vals[h], L.n, C, c);
+    }
+    L.shared[local] = acc;
+}
+
 }  // namespace
 
 namespace {
@@ -180,5 +259,46 @@ extern "C" int nxfx_fold(
     if (warps <= 0) return 0;
     const long long blocks = (warps * 32 + FOLD_THREADS - 1) / FOLD_THREADS;
     fold_kernel<<<static_cast<unsigned>(blocks), FOLD_THREADS, 0, stream>>>(F, L, C, n, vals, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K6 on a sum plan: one launch for all its groups.  vals: the groups' value
+// arrays (n rows each; a null past the plan's groups); out: each group's
+// output (the groups with bins name the shared output).
+extern "C" int nxfx_segsum_plan(
+    const SumPlanArgs* plan, int n,
+    const double* v0, const double* v1, const double* v2, const double* v3,
+    double* o0, double* o1, double* o2, double* o3, cudaStream_t stream)
+{
+    if (plan->G < 1 || plan->G > SUM_MAX_GROUPS) return static_cast<int>(cudaErrorInvalidValue);
+    SumLaunch L = {};
+    L.p = *plan;
+    const double* vals[SUM_MAX_GROUPS] = {v0, v1, v2, v3};
+    double* outs[SUM_MAX_GROUPS] = {o0, o1, o2, o3};
+    L.n = n;
+    long long total = 0;
+    for (int g = 0; g < plan->G; ++g) {
+        L.vals[g] = vals[g];
+        L.out[g] = outs[g];
+        if (plan->inv[g] != nullptr) {
+            if (L.shared == nullptr) {
+                L.shared = outs[g];
+                L.C_shared = plan->C[g];
+            }
+            continue;
+        }
+        L.start[L.jobs] = total;
+        L.group[L.jobs++] = g;
+        total += static_cast<long long>(plan->S[g]) * plan->C[g];
+    }
+    if (L.shared != nullptr) {
+        L.start[L.jobs] = total;
+        L.group[L.jobs++] = -1;
+        total += static_cast<long long>(plan->rows) * L.C_shared;
+    }
+    L.start[L.jobs] = total;
+    if (total <= 0) return 0;
+    const long long blocks = (total + SUM_THREADS - 1) / SUM_THREADS;
+    segsum_plan_kernel<<<static_cast<unsigned>(blocks), SUM_THREADS, 0, stream>>>(L);
     return static_cast<int>(cudaGetLastError());
 }

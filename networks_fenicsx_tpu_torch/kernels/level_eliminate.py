@@ -8,7 +8,8 @@ the levels into their parents deepest first, back-substitute ``λ`` root
 down and un-permute it to the public bifurcation order.
 
 :func:`level_eliminate` launches the kernels for CUDA tensors — a prepare
-pass, the three K6 sums (:func:`.segsum.segsum`), then one launcher that
+pass, the three K6 sums in one launch (:func:`.segsum.segsum_plan` on the
+plan's ``sums``), then one launcher that
 runs the assembly, the norm, one fold and one back-substitution launch per
 level and the un-permute — and runs :func:`level_eliminate_plain`, the eager
 transcription of the reference, for CPU tensors.  :func:`level_eliminate_system`
@@ -32,11 +33,10 @@ __all__ = [
 
 def cuda_launches(dlp: DeviceLevelPlan) -> int:
     """CUDA kernel launches of one :func:`level_eliminate` call: prepare,
-    three segment sums, assemble, norm, ``L - 1`` folds, ``L``
-    back-substitutions and the un-permute."""
+    the three segment sums (one launch), assemble, norm, ``L - 1`` folds,
+    ``L`` back-substitutions and the un-permute."""
     L = dlp.num_levels
-    sums = (1 if dlp.num_pairs else 0) + 2
-    return 1 + sums + 2 + (L - 1) + L + 1
+    return 1 + 1 + 2 + (L - 1) + L + 1
 
 
 def _prepare_plain(ed: _EdgeData):
@@ -162,9 +162,7 @@ def level_eliminate(dlp: DeviceLevelPlan, ed: _EdgeData):
             w_edges.data_ptr(), vt.data_ptr(), vs.data_ptr(), stream,
         )
     build.check(code, "level_eliminate")
-    w_pairs = segsum.segsum(dlp.p_idx, w_edges)
-    dt_t = segsum.segsum(dlp.t_idx, vt)
-    dt_s = segsum.segsum(dlp.s_idx, vs)
+    w_pairs, dt_t, dt_s = segsum.segsum_plan(dlp.sums, w_edges, vt, vs)
     d, r, wn, lam_perm, lam = (torch.empty(B, dtype=dt, device=dev) for _ in range(5))
     rhs_norm = torch.zeros((), dtype=dt, device=dev)
     with torch.cuda.device(dev):

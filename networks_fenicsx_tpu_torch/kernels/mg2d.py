@@ -17,31 +17,56 @@ cells) and its Jacobi scaling ``diag^-1/2``.  The wrappers:
   banded matrix from its classes, its Cholesky factor (the port's tiled
   factor, ``tiled_cholesky.cuh``) and the two triangular solves per V-cycle.
 
+The V-cycle's own path fuses what the level loop composes, each fusion
+computing exactly what the composed plain versions compute, in their order:
+
+* :func:`cheb_first` — the smoother's start (K19a's ``cheb_start``) folded
+  into its first step;
+* :func:`residual_restrict` — ``restrict(b − L x)``, the fine residual
+  never stored;
+* :func:`prolong_residual` — ``x' = x + overcorrect·e`` and ``b − L x'``,
+  into two other buffers.
+
+A :class:`Cycle` holds a hierarchy's smoothed levels on one CUDA device,
+checked once, with a scratch of the calling stream's vectors made at its
+first call; its :meth:`Cycle.down` and :meth:`Cycle.up` issue a V-cycle's
+descent and ascent around the coarsest solve, 3 launches a level each way
+(a smoother's two and one fused transfer), from one host call each.
+
 Every wrapper launches its kernel for CUDA tensors (counted in
 :data:`LAUNCHES`) and runs its plain version — the reference's reshapes,
 pads and shifts in eager PyTorch, and ``torch.linalg.cholesky`` /
 ``cholesky_solve`` for the coarsest solve, as the reference calls
 ``jnp.linalg.cholesky`` / ``cho_solve`` — for CPU tensors.  The block sums
-add in one stated order, ``((x00 + x01) + x10) + x11``, in both.
+add in one stated order, ``((x00 + x01) + x10) + x11``, in both.  The
+launches read the raw stream and enter the device only when it is not the
+current one; :func:`stencil` checks its vectors in one pass.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from . import build
+from . import build, krylov
 
 __all__ = [
     "level0", "level0_plain", "coarsen", "coarsen_plain", "stencil", "stencil_plain", "cheb",
     "cheb_plain", "restrict", "restrict_plain", "prolong", "prolong_plain", "coarse_factor",
-    "coarse_factor_plain", "coarse_solve", "coarse_solve_plain", "FIELDS", "LAUNCHES",
+    "coarse_factor_plain", "coarse_solve", "coarse_solve_plain", "cheb_first", "cheb_first_plain",
+    "residual_restrict", "residual_restrict_plain", "prolong_residual", "prolong_residual_plain",
+    "Cycle", "FIELDS", "LAUNCHES",
 ]
 
 FIELDS = ("E", "W", "S", "N", "extra", "diag", "dis")
 FE, FW, FS, FN, FX, FD, FI = range(len(FIELDS))
 MAX_CLASSES = 16
 MAX_COARSE = 8192
+MAX_LEVELS = 16  # MG_MAX_LEVELS in csrc/mg2d.cu
+MAX_STEPS = 8  # MG_MAX_STEPS: the smoother's steps after its start
+THREADS = 256
 LAUNCHES = build.Counter("mg2d")
 
 Shape = tuple[int, int]
@@ -147,12 +172,34 @@ def coarse_solve_plain(factor, r) -> torch.Tensor:
     return torch.cholesky_solve(r[:, None], factor)[:, 0]
 
 
+def cheb_first_plain(lev, shape: Shape, r, theta: float, rs, dvec, x_out, c1: float, c2: float,
+                     z=None, base=None) -> None:
+    """The composed version: K19a's ``cheb_start_plain`` with the level's
+    scaling into ``rs``, ``dvec`` and a start ``x``, then :func:`cheb_plain`."""
+    x = torch.empty_like(r)
+    krylov.cheb_start_plain(lev[FI], r, theta, rs, dvec, x)
+    cheb_plain(lev, shape, rs, dvec, x, x_out, c1, c2, z, base)
+
+
+def residual_restrict_plain(lev, shape_f: Shape, shape_c: Shape, x, b) -> torch.Tensor:
+    """The composed version: ``restrict(b − L x)``."""
+    return restrict_plain(stencil_plain(lev, shape_f, x, b), shape_f, shape_c)
+
+
+def prolong_residual_plain(lev, shape_f: Shape, shape_c: Shape, x, ec, overcorrect: float, b):
+    """The composed version: ``(x', b − L x')`` with ``x'`` the prolonged
+    copy of ``x`` (which is not modified)."""
+    xp = x.clone()
+    prolong_plain(xp, shape_f, shape_c, ec, overcorrect)
+    return xp, stencil_plain(lev, shape_f, xp, b)
+
+
 # ---------------------------------------------------------------- kernels
 
 
 def _launch(name: str, device, *args) -> None:
-    with torch.cuda.device(device):
-        code = getattr(build.library(), name)(*args, build.stream_handle(device))
+    index = device.index
+    code = build.on_device(index, getattr(build.library(), name), *args, build.raw_stream(index))
     build.check(code, "mg2d")
     LAUNCHES.launches += 1
 
@@ -197,15 +244,28 @@ def coarsen(lev, shape_f: Shape, shape_c: Shape) -> torch.Tensor:
     return out
 
 
+def _require_level(name: str, lev, m: int, index: int) -> None:
+    """A level on CUDA device ``index``: a contiguous ``(7, m)`` float64 tensor."""
+    if (not lev.is_cuda or lev.get_device() != index or lev.dtype is not torch.float64
+            or not lev.is_contiguous() or lev.shape != (len(FIELDS), m)):
+        raise ValueError(f"{name}: a level must be a contiguous ({len(FIELDS)}, {m}) float64 tensor "
+                         f"on CUDA device {index}")
+
+
 def stencil(lev, shape: Shape, x, b=None) -> torch.Tensor:
     """``L x`` of the level, or ``b − L x`` when ``b`` is given."""
     if x.device.type == "cpu":
         return stencil_plain(lev, shape, x, b)
     m = shape[0] * shape[1]
-    _check("mg2d", m, x, *(() if b is None else (b,)), lev=lev)
-    out = torch.empty_like(x)
-    _launch("nxfx_mg2d_stencil", x.device, *shape, lev.data_ptr(), x.data_ptr(), _ptr(b),
-            out.data_ptr())
+    index = x.get_device()
+    build.require_vectors("mg2d", index, (x, m), *(() if b is None else ((b, m),)))
+    _require_level("mg2d", lev, m, index)
+    out = x.new_empty(m)
+    code = build.on_device(index, build.library().nxfx_mg2d_stencil, shape[0], shape[1],
+                           lev.data_ptr(), x.data_ptr(), _ptr(b), out.data_ptr(),
+                           build.raw_stream(index))
+    build.check(code, "mg2d")
+    LAUNCHES.launches += 1
     return out
 
 
@@ -220,6 +280,50 @@ def cheb(lev, shape: Shape, rs, dvec, x_in, x_out, c1: float, c2: float, z=None,
         raise ValueError("mg2d: x_out must be another buffer than x_in")
     _launch("nxfx_mg2d_cheb", x_in.device, *shape, lev.data_ptr(), rs.data_ptr(), dvec.data_ptr(),
             x_in.data_ptr(), x_out.data_ptr(), float(c1), float(c2), _ptr(z), _ptr(base))
+
+
+def cheb_first(lev, shape: Shape, r, theta: float, rs, dvec, x_out, c1: float, c2: float, z=None,
+               base=None) -> None:
+    """The smoother's start folded into its first step: ``rs``, ``dvec``,
+    ``x_out`` and, when it is also the last step, ``z``.  The start is
+    ``rs·(1/θ)``, ``1/θ`` taken on the host: what PyTorch computes for
+    ``rs / θ`` on the card, so the kernel equals :func:`cheb_first_plain` to
+    the bit there."""
+    if r.device.type == "cpu":
+        return cheb_first_plain(lev, shape, r, theta, rs, dvec, x_out, c1, c2, z, base)
+    m = shape[0] * shape[1]
+    _check("mg2d", m, r, rs, dvec, x_out, *(t for t in (z, base) if t is not None), lev=lev)
+    _launch("nxfx_mg2d_cheb_first", r.device, *shape, lev.data_ptr(), r.data_ptr(), 1.0 / float(theta),
+            float(c1), float(c2), rs.data_ptr(), dvec.data_ptr(), x_out.data_ptr(), _ptr(z),
+            _ptr(base))
+
+
+def residual_restrict(lev, shape_f: Shape, shape_c: Shape, x, b) -> torch.Tensor:
+    """``restrict(b − L x)`` in one launch."""
+    if x.device.type == "cpu":
+        return residual_restrict_plain(lev, shape_f, shape_c, x, b)
+    _check("mg2d", shape_f[0] * shape_f[1], x, b, lev=lev)
+    if shape_c != ((shape_f[0] + 1) // 2, (shape_f[1] + 1) // 2):
+        raise ValueError("mg2d: the coarse shape halves the fine one, rounded up")
+    rc = x.new_empty(shape_c[0] * shape_c[1])
+    _launch("nxfx_mg2d_residual_restrict", x.device, *shape_f, lev.data_ptr(), x.data_ptr(),
+            b.data_ptr(), *shape_c, rc.data_ptr())
+    return rc
+
+
+def prolong_residual(lev, shape_f: Shape, shape_c: Shape, x, ec, overcorrect: float, b):
+    """``(x', b − L x')`` with ``x' = x + overcorrect·e`` repeated over 2×2
+    blocks, in one launch (``x`` is not modified)."""
+    if x.device.type == "cpu":
+        return prolong_residual_plain(lev, shape_f, shape_c, x, ec, overcorrect, b)
+    _check("mg2d", shape_f[0] * shape_f[1], x, b, lev=lev)
+    _check("mg2d", shape_c[0] * shape_c[1], ec)
+    if shape_c != ((shape_f[0] + 1) // 2, (shape_f[1] + 1) // 2):
+        raise ValueError("mg2d: the coarse shape halves the fine one, rounded up")
+    xp, res = x.new_empty(x.shape[0]), x.new_empty(x.shape[0])
+    _launch("nxfx_mg2d_prolong_residual", x.device, *shape_f, lev.data_ptr(), x.data_ptr(), shape_c[1],
+            ec.data_ptr(), float(overcorrect), b.data_ptr(), xp.data_ptr(), res.data_ptr())
+    return xp, res
 
 
 def restrict(res, shape_f: Shape, shape_c: Shape) -> torch.Tensor:
@@ -275,3 +379,124 @@ def coarse_solve(factor, r) -> torch.Tensor:
     _launch("nxfx_mg_coarse_solve", r.device, m, factor.data_ptr(), r.data_ptr(), v.data_ptr(),
             y.data_ptr(), x.data_ptr())
     return x
+
+
+# ------------------------------------------------------------- the cycle
+
+
+class _LevelArgs(ctypes.Structure):
+    """``Mg2dLevelArgs`` of ``csrc/mg2d.cu``."""
+
+    _fields_ = [("ny", ctypes.c_int), ("nx", ctypes.c_int)] + [
+        (name, ctypes.c_void_p) for name in ("lev", "r", "x", "xp", "res", "rs", "dvec", "xa", "xb")]
+
+
+class _CycleArgs(ctypes.Structure):
+    """``Mg2dCycle`` of ``csrc/mg2d.cu``."""
+
+    _fields_ = [("L", ctypes.c_int), ("steps", ctypes.c_int), ("ny_bottom", ctypes.c_int),
+                ("nx_bottom", ctypes.c_int), ("inv_theta", ctypes.c_double), ("oc", ctypes.c_double),
+                ("c1", ctypes.c_double * MAX_STEPS), ("c2", ctypes.c_double * MAX_STEPS),
+                ("r_bottom", ctypes.c_void_p), ("lv", _LevelArgs * MAX_LEVELS)]
+
+
+class Cycle:
+    """The smoothed levels of a 2-D V-cycle on one CUDA device, checked at
+    construction: ``levels`` the ``(7, ny·nx)`` fields of each ``shapes``
+    entry, ``bottom`` the coarsest shape, the smoother's start ``theta`` and
+    step coefficients ``coeffs`` (:func:`..ops.krylov.chebyshev_coefficients`,
+    1..:data:`MAX_STEPS` pairs), the overcorrection.
+
+    Raises ``ValueError`` for 0 or more than :data:`MAX_LEVELS` levels, a
+    level that is not a contiguous float64 tensor of its shape on the first
+    level's CUDA device, or shapes that do not halve (rounded up) level by
+    level down to ``bottom``.  Each calling stream gets its own scratch (the
+    levels' right-hand sides, iterates and smoother vectors, one buffer),
+    made at its first call, so cycles on two streams run side by side.
+    A scratch is ``8·Σ ny·nx + ny_bottom·nx_bottom`` float64 (about 22 MB
+    for the 512² hierarchy) and is kept for the cycle's life: one for each
+    stream that ever called it.
+    A cycle is ``rb = down(r)``, the coarsest solve ``e = A⁻¹ rb`` (the
+    caller's), ``z = up(r, e)``; ``rb`` is scratch of the stream, valid
+    until its next :meth:`down`."""
+
+    __slots__ = ("levels", "shapes", "bottom", "index", "sweep_launches", "_base", "_scratch")
+
+    def __init__(self, levels, shapes, bottom, theta: float, coeffs, overcorrect: float):
+        levels = tuple(levels)
+        shapes = tuple((int(ny), int(nx)) for ny, nx in shapes)
+        bottom = (int(bottom[0]), int(bottom[1]))
+        coeffs = tuple((float(c1), float(c2)) for c1, c2 in coeffs)
+        L = len(levels)
+        if not 0 < L <= MAX_LEVELS or len(shapes) != L or not 0 < len(coeffs) <= MAX_STEPS:
+            raise ValueError(f"mg2d: a cycle takes 1..{MAX_LEVELS} levels and 1..{MAX_STEPS} "
+                             f"smoother steps")
+        dev = levels[0].device
+        if dev.type != "cuda":
+            raise ValueError("mg2d: a cycle's levels must be on a CUDA device")
+        for lev, (ny, nx), (nyc, nxc) in zip(levels, shapes, shapes[1:] + (bottom,)):
+            if (lev.device != dev or lev.dtype != torch.float64 or not lev.is_contiguous()
+                    or tuple(lev.shape) != (len(FIELDS), ny * nx)):
+                raise ValueError(f"mg2d: a level of shape {(ny, nx)} must be a contiguous "
+                                 f"({len(FIELDS)}, {ny * nx}) float64 tensor on {dev}")
+            if (nyc, nxc) != ((ny + 1) // 2, (nx + 1) // 2) or ny * nx >= 2**31 - THREADS:
+                raise ValueError("mg2d: each coarse shape halves the fine one, rounded up")
+        self.levels, self.shapes, self.bottom = levels, shapes, bottom
+        self.index = dev.index
+        self.sweep_launches = L * (len(coeffs) + 1)  # a smoother's and a transfer a level
+        base = _CycleArgs()
+        base.L, base.steps, base.ny_bottom, base.nx_bottom = L, len(coeffs), *bottom
+        base.inv_theta, base.oc = 1.0 / float(theta), float(overcorrect)
+        for t, (c1, c2) in enumerate(coeffs):
+            base.c1[t], base.c2[t] = c1, c2
+        for l, (lev, (ny, nx)) in enumerate(zip(levels, shapes)):
+            base.lv[l].ny, base.lv[l].nx, base.lv[l].lev = ny, nx, lev.data_ptr()
+        self._base = base
+        self._scratch = {}  # {raw stream handle: (address, args, buffer, rb)}
+
+    def _args(self, stream: int):
+        """The cycle's arguments on CUDA stream ``stream``, with its scratch:
+        eight vectors a level (seven at level 0) and the coarsest rhs."""
+        entry = self._scratch.get(stream)
+        if entry is None:
+            sizes = [ny * nx for ny, nx in self.shapes]
+            mb = self.bottom[0] * self.bottom[1]
+            buf = torch.empty(8 * sum(sizes) + mb, dtype=torch.float64, device=self.levels[0].device)
+            args = _CycleArgs.from_buffer_copy(self._base)
+            at = buf.data_ptr()
+            for l, m in enumerate(sizes):
+                lv = args.lv[l]
+                for name in ("r", "x", "xp", "res", "rs", "dvec", "xa", "xb"):
+                    setattr(lv, name, at)
+                    at += 8 * m
+            rb = buf[8 * sum(sizes):]
+            args.r_bottom = rb.data_ptr()
+            entry = self._scratch[stream] = (ctypes.addressof(args), args, buf, rb)
+        return entry
+
+    def down(self, r: torch.Tensor) -> torch.Tensor:
+        """The descent from ``r``: per level the smoother and the restricted
+        residual; returns the coarsest right-hand side (scratch)."""
+        index, (ny, nx) = self.index, self.shapes[0]
+        build.require_vectors("mg2d", index, (r, ny * nx))
+        stream = build.raw_stream(index)
+        addr, _, _, rb = self._args(stream)
+        code = build.on_device(index, build.library().nxfx_mg2d_down, addr, r.data_ptr(), stream)
+        build.check(code, "mg2d")
+        LAUNCHES.launches += self.sweep_launches
+        return rb
+
+    def up(self, r: torch.Tensor, e_bottom: torch.Tensor) -> torch.Tensor:
+        """The ascent from the coarsest correction ``e_bottom`` (``r`` the
+        descent's): per level the prolonged iterate with its residual and the
+        post-smoother; returns the cycle's result, a new vector."""
+        index, (ny, nx) = self.index, self.shapes[0]
+        build.require_vectors("mg2d", index, (r, ny * nx), (e_bottom, self.bottom[0] * self.bottom[1]))
+        stream = build.raw_stream(index)
+        addr = self._args(stream)[0]
+        out = r.new_empty(ny * nx)
+        code = build.on_device(index, build.library().nxfx_mg2d_up, addr, r.data_ptr(),
+                               e_bottom.data_ptr(), out.data_ptr(), stream)
+        build.check(code, "mg2d")
+        LAUNCHES.launches += self.sweep_launches
+        return out

@@ -6,8 +6,9 @@ assembly of the bifurcation system, ``_lambda_system_sorted``
 (``:700-737``).
 
 * :func:`lambda_system` — per-edge conductances and rhs terms (prepare
-  kernel), their sums into each side's sorted unique bifurcations (K6,
-  :func:`.segsum.segsum` with ``bins``) and ``‖rhs‖``; returns the
+  kernel), their sums into each side's sorted unique bifurcations (K6, one
+  :func:`.segsum.segsum_plan` launch on the plan's ``lambda_sums``, each
+  row written once) and ``‖rhs‖``; returns the
   interleaved ``dr (B, 2)`` (diagonal, rhs), ``w (E,) = 1/W`` and the norm.
 * :func:`peel` — forward through the rounds (per round: the terms
   ``(−w·factor, factor·r)`` of its eliminated nodes, their K10 fold into
@@ -31,9 +32,17 @@ from ..edge_data import _EdgeData
 from . import build, fold, segsum
 from .level_eliminate import _prepare_plain
 
-__all__ = ["lambda_system", "lambda_system_plain", "peel", "peel_plain"]
+__all__ = ["lambda_system", "lambda_system_plain", "lambda_sums", "peel", "peel_plain"]
 
 CoreSolve = typing.Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def lambda_sums(plan) -> segsum.SumPlan:
+    """The K6 plan of a device plan's bifurcation system: the target side's
+    and then the source side's ``(diag, rhs)`` sums into one ``(B, 2)``
+    output, in the order the reference's ``_lambda_system_sorted`` adds them."""
+    return segsum.SumPlan(((plan.t_idx, plan.t_bins), (plan.s_idx, plan.s_bins)), (2, 2),
+                          rows=plan.num_bifurcations)
 
 
 def lambda_system_plain(dtp, ed: _EdgeData):
@@ -69,9 +78,7 @@ def lambda_system(dtp, ed: _EdgeData):
             w_edges.data_ptr(), vt.data_ptr(), vs.data_ptr(), stream,
         )
     build.check(code, "lambda_system")
-    dr = torch.zeros((B, 2), dtype=dt, device=dev)
-    segsum.segsum(dtp.t_idx, vt, dtp.t_bins, dr)
-    segsum.segsum(dtp.s_idx, vs, dtp.s_bins, dr)
+    dr, = segsum.segsum_plan(dtp.lambda_sums, vt, vs)
     rhs_norm = torch.empty((), dtype=dt, device=dev)
     with torch.cuda.device(dev):
         code = lib.nxfx_rhs_norm(B, dr.data_ptr(), rhs_norm.data_ptr(), stream)

@@ -8,8 +8,9 @@ Replaces ``networks_fenicsx_tpu/parallel/sharding.py:_sharded_schur_pipeline``'s
   the λ-system partials ``(diag, rhs)`` interleaved as ``(B, 2)`` and the
   per-pair conductances ``w_pairs (P,)`` (``:254-286``), through host-sorted
   per-shard tables (:func:`shard_lambda_tables`): the prepare pass of K9's
-  ``lambda_system``, two K6 sums added into the sides' sorted unique
-  bifurcations and one K6 sum into the pairs; ``[dr (2B) | w_pairs (P)]``,
+  ``lambda_system`` and one K6 launch (the tables' :class:`.segsum.SumPlan`,
+  made at the first call) for the two sides' sums into the sorted unique
+  bifurcations and the sum into the pairs; ``[dr (2B) | w_pairs (P)]``,
   and the shard's ``w = 1/W``;
 * :func:`offdiag` — the shard's part of the CG matvec (``:310-314``): K19b's
   gather-fold on the half-edges of the shard's edges, ``diag·x`` on shard 0
@@ -23,6 +24,7 @@ version, the same sums in the same order, for CPU tensors; both count on
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -69,6 +71,15 @@ class ShardLambdaTables:
     @property
     def P(self) -> int:
         return int(self.pair_idx.shape[0])
+
+    @functools.cached_property
+    def sums(self) -> segsum.SumPlan:
+        """K6's plan of the partials: the two sides into ``dr (B, 2)``, then
+        the pairs (made and validated once, at the first kernel call)."""
+        groups = ((self.t_idx, self.t_bins), (self.s_idx, self.s_bins))
+        if self.P:
+            return segsum.SumPlan(groups + ((self.pair_idx, None),), (2, 2, 1), rows=self.B)
+        return segsum.SumPlan(groups, (2, 2), rows=self.B)
 
 
 def shard_lambda_tables(start_bif, end_bif, edge_pair, B: int, P: int, device,
@@ -133,7 +144,7 @@ def partials(tab: ShardLambdaTables, ed: _EdgeData):
     if any(tuple(t.shape) != (E,) for t in (ed.W, ed.g, Ftot, ed.start_pbc, ed.end_pbc)):
         raise ValueError("shard_general: the edge data must be (E_s,) per edge")
     dev, dt = ed.W.device, torch.float64
-    part = torch.zeros(2 * B + P, dtype=dt, device=dev)
+    part = torch.empty(2 * B + P, dtype=dt, device=dev)
     w_edges = torch.empty(E, dtype=dt, device=dev)
     vt = torch.empty((E, 2), dtype=dt, device=dev)
     vs = torch.empty((E, 2), dtype=dt, device=dev)
@@ -146,10 +157,10 @@ def partials(tab: ShardLambdaTables, ed: _EdgeData):
         )
     build.check(code, "shard_general")
     dr = part[: 2 * B].view(B, 2)
-    segsum.launch(tab.t_idx, vt, dr, tab.t_bins, "shard_general")
-    segsum.launch(tab.s_idx, vs, dr, tab.s_bins, "shard_general")
     if P:
-        segsum.launch(tab.pair_idx, w_edges, part[2 * B :], None, "shard_general")
+        segsum.launch_plan(tab.sums, (vt, vs, w_edges), (dr, part[2 * B :]), "shard_general")
+    else:
+        segsum.launch_plan(tab.sums, (vt, vs), (dr,), "shard_general")
     LAUNCHES.launches += 1
     return part, w_edges
 

@@ -424,6 +424,18 @@ class DeviceLatticePlan:
     classes: list | None = None  # the host shift plan
     mv_edge: torch.Tensor | None = None
     mv_other: torch.Tensor | None = None
+    # K6's plans (validated here, at upload): the bifurcation system's two
+    # sides, and the class weights when there is a shift plan
+    lambda_sums: typing.Any = dataclasses.field(init=False, compare=False, repr=False)
+    class_sums: typing.Any = dataclasses.field(init=False, compare=False, repr=False)
+
+    def __post_init__(self):
+        from .kernels.peel import lambda_sums
+        from .kernels.segsum import SumPlan
+
+        object.__setattr__(self, "lambda_sums", lambda_sums(self))
+        object.__setattr__(self, "class_sums", None if self.class_idx is None
+                           else SumPlan(((self.class_idx, None),), (1,)))
 
     @property
     def num_edges(self) -> int:

@@ -454,6 +454,8 @@ class DeviceLevelPlan:
         level_offsets: host ``(L+1,)`` permuted slice bounds per level, as
             a tuple and as the contiguous int64 array the level kernels'
             launcher reads (built once, not per solve).
+        sums: the K6 plan of the three sums (pairs, target side, source
+            side; :class:`.kernels.segsum.SumPlan`), validated at upload.
     """
 
     plan: _LevelPlan
@@ -468,6 +470,13 @@ class DeviceLevelPlan:
     end_bif: torch.Tensor
     level_offsets: tuple
     host_offsets: np.ndarray
+    sums: typing.Any = dataclasses.field(init=False, compare=False, repr=False)
+
+    def __post_init__(self):
+        from .kernels.segsum import SumPlan
+
+        groups = ((self.p_idx, None), (self.t_idx, None), (self.s_idx, None))
+        object.__setattr__(self, "sums", SumPlan(groups, (1, 2, 2)))
 
     @functools.cached_property
     def fold_idx(self) -> tuple:

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .kernels import gather_matvec, mg1d, mg2d, shift_matvec
-from .ops.krylov import chebyshev_preconditioner
+from .ops.krylov import chebyshev_coefficients, chebyshev_preconditioner
 
 __all__ = [
     "_mg2d_feasible", "_plan_mg", "choose_preconditioner", "mg2d_plan", "device_mg1d_plan",
@@ -250,7 +250,14 @@ class Mg2dPreconditioner:
     """The symmetric 2-D aggregation V-cycle for ``{±1, ±stride}`` classes
     (reference ``:1315-1438``): per level a degree-3 Chebyshev smoother, the
     restricted residual, the over-corrected coarse correction and a
-    post-smoothing; the coarsest banded system by Cholesky."""
+    post-smoothing; the coarsest banded system by Cholesky.
+
+    On a CUDA device the smoothed levels run as one :class:`.kernels.mg2d.Cycle`
+    (checked once here): 6 launches a level — the smoother's start folded
+    into its first step, its second step, the residual and restriction in
+    one, the prolongation and the next residual in one, the post-smoother's
+    two — issued in two host calls around the coarsest solve.  ``plain=True``
+    or CPU tensors run the composed plain versions level by level."""
 
     def __init__(self, plan: Mg2dPlan, cw, diag, overcorrect: float = 1.8, plain: bool = False):
         self.plan, self.overcorrect = plan, float(overcorrect)
@@ -260,6 +267,12 @@ class Mg2dPreconditioner:
             levels.append(k.coarsen(levels[-1], f, c))
         self.levels, self.bottom = levels[:-1], levels[-1]
         self.factor = k.coarse_factor(plan.bottom_offsets, self.bottom[:4], self.bottom[mg2d.FD])
+        self.cycle = None
+        if not plain and diag.is_cuda and self.levels:
+            theta, coeffs = chebyshev_coefficients(SMOOTH_DEGREE, ratio=SMOOTH_RATIO)
+            self.cycle = mg2d.Cycle(self.levels, plan.shapes, plan.bottom, theta, coeffs,
+                                    self.overcorrect)
+            return
         self.smoothers = [
             chebyshev_preconditioner(self._step(lev, shape), degree=SMOOTH_DEGREE, ratio=SMOOTH_RATIO,
                                      plain=plain, d_isqrt=lev[mg2d.FI])
@@ -276,7 +289,10 @@ class Mg2dPreconditioner:
         return step
 
     def __call__(self, r):
-        return self._vcycle(0, r)
+        if self.cycle is None:
+            return self._vcycle(0, r)
+        rb = self.cycle.down(r)
+        return self.cycle.up(r, self.k.coarse_solve(self.factor, rb))
 
     def _vcycle(self, lvl: int, r):
         k = self.k

@@ -598,15 +598,15 @@ class _DctExecutor(_Executor):
     def _run(self, R_data, f_data, start_pbc, end_pbc, plain: bool):
         R, f, sp, ep = self.upload(R_data, f_data, start_pbc, end_pbc)
         if plain:
-            make, lam_sys, sums, matvec, solve, expand_lam = (
-                edge_data.edge_data_plain, peel.lambda_system_plain, segsum.segsum_plain,
+            make, lam_sys, matvec, solve, expand_lam = (
+                edge_data.edge_data_plain, peel.lambda_system_plain,
                 shift_matvec.shift_matvec_plain, dct_lattice.dct_lattice_plain,
                 backsub.backsub_plain,
             )
         else:
-            make, lam_sys, sums, matvec, solve, expand_lam = (
-                edge_data.edge_data, peel.lambda_system, segsum.segsum,
-                shift_matvec.shift_matvec, dct_lattice.dct_lattice, backsub.backsub,
+            make, lam_sys, matvec, solve, expand_lam = (
+                edge_data.edge_data, peel.lambda_system, shift_matvec.shift_matvec,
+                dct_lattice.dct_lattice, backsub.backsub,
             )
         dlp, N, k = self.device_plan, self._N, self._k
         ed = make(
@@ -614,7 +614,7 @@ class _DctExecutor(_Executor):
             self._R_mode, self._f_mode, self._f_is_zero, sp, ep,
         )
         dr, w_edges, rhs_norm = lam_sys(dlp, ed)
-        cw = _shift_class_weights(w_edges, dlp.class_idx, dlp.offsets.size, sums)
+        cw = _class_weights(dlp, w_edges, plain)
         diag, rhs = dr[:, 0], dr[:, 1]
         lam = solve(self.operator, w_edges, rhs.contiguous(),
                     lambda lam: matvec(dlp.offsets, cw, diag, lam, rhs))
@@ -622,6 +622,14 @@ class _DctExecutor(_Executor):
         q_T, p_T, finite = expand_lam(ed, lam, N, k)
         iters = torch.zeros((), dtype=torch.int32, device=self._device)
         return q_T, p_T, lam, iters, res_norm, rhs_norm, finite
+
+
+def _class_weights(dlp, w_edges, plain: bool) -> torch.Tensor:
+    """The ``(C, B)`` class weights of a solve: K6 on the device plan's
+    ``class_sums``, or its plain version."""
+    if plain:
+        return _shift_class_weights(w_edges, dlp.class_idx, dlp.offsets.size, segsum.segsum_plain)
+    return segsum.segsum_plan(dlp.class_sums, w_edges)[0].view(dlp.offsets.size, -1)
 
 
 class _CgExecutor(_Executor):
@@ -674,8 +682,7 @@ class _CgExecutor(_Executor):
         diag = dr[:, 0].contiguous()
         if dlp.classes is None:
             return GatherOperator(dlp.mv_edge, dlp.mv_other, w_edges, diag, plain), None
-        sums = segsum.segsum_plain if plain else segsum.segsum
-        cw = _shift_class_weights(w_edges, dlp.class_idx, dlp.offsets.size, sums)
+        cw = _class_weights(dlp, w_edges, plain)
         return ShiftOperator(dlp.offsets, cw, diag, plain), cw
 
     def _preconditioner(self, op, cw, plain: bool):
@@ -751,13 +758,14 @@ class _DenseExecutor(_CgExecutor):
 
         self._pair_idx = i32(segsum_matrix(ep[sel][order], pairs.shape[0], mesh.num_edges,
                                            sel=sel[order]))
+        self._pair_sums = segsum.SumPlan(((self._pair_idx, None),), (1,))
         self._ci, self._cj = i32(pairs[:, 0]), i32(pairs[:, 1])
         self._pid = i32(np.arange(pairs.shape[0]))
 
     def _solve_lambda(self, op, cw, w_edges, rhs, plain: bool):
-        sums = segsum.segsum_plain if plain else segsum.segsum
         if self._pid.shape[0]:
-            w_pairs = sums(self._pair_idx, w_edges)
+            w_pairs = (segsum.segsum_plain(self._pair_idx, w_edges) if plain
+                       else segsum.segsum_plan(self._pair_sums, w_edges)[0])
         else:
             w_pairs = torch.zeros(0, dtype=torch.float64, device=rhs.device)
         pairs = (self._ci, self._cj, self._pid)

@@ -34,6 +34,8 @@ import numpy as np
 import torch
 
 from .kernels.fold import FoldPlan
+from .kernels.peel import lambda_sums
+from .kernels.segsum import SumPlan
 from .levels import _LambdaPlan, _TreePlan, segsum_matrix
 from .ops.core_elim import CoreElimPlan, DeviceCorePlan, _plan_fold, device_core_plan
 from .ops.multifrontal import DeviceMFPlan, MFPlan, device_mf_plan
@@ -93,6 +95,9 @@ class DeviceTreePlan:
         ce: the min-degree device plan when the core plan is a
             ``CoreElimPlan``, else None.
         num_bifurcations: B.
+        lambda_sums, pair_sums: the K6 plans (:class:`.kernels.segsum.SumPlan`)
+            of the two sides' sums into one ``(B, 2)`` system and of the pair
+            sum, validated at upload.
     """
 
     plan: _TreePlan
@@ -112,6 +117,12 @@ class DeviceTreePlan:
     mf: DeviceMFPlan | None
     ce: DeviceCorePlan | None
     num_bifurcations: int
+    lambda_sums: SumPlan = dataclasses.field(init=False, compare=False, repr=False)
+    pair_sums: SumPlan = dataclasses.field(init=False, compare=False, repr=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "lambda_sums", lambda_sums(self))
+        object.__setattr__(self, "pair_sums", SumPlan(((self.pair_idx, None),), (1,)))
 
     @property
     def num_edges(self) -> int:
@@ -195,16 +206,16 @@ def device_tree_plan(
 
 def cuda_launches(dtp: DeviceTreePlan) -> int:
     """CUDA kernel launches of one :func:`tree_schur_solve` on the card: the
-    bifurcation system (prepare, two sums, norm) and the pair sum; per peel
-    round a forward pass, its fold and the parent add, and a back
-    pass; the core's gather and scatter and the core solve — the dense
+    bifurcation system (prepare, the two sides' sums in one launch, norm)
+    and the pair sum; per peel round a forward pass, its fold and the
+    parent add, and a back pass; the core's gather and scatter and the core solve — the dense
     core's (:func:`.kernels.dense_core.cuda_launches`), the min-degree
     elimination's (:func:`.kernels.core_elim.cuda_launches`), or the
     multifrontal factor's values pass and one launch per group plus the
     apply's (:func:`.kernels.mf_apply.cuda_launches`)."""
     from .kernels import core_elim, dense_core, mf_apply
 
-    n = 4 + (1 if dtp.num_pairs else 0)
+    n = 3 + (1 if dtp.num_pairs else 0)
     for rd in dtp.rounds:
         n += 2 + (2 if rd.upar.shape[0] else 0)
     if dtp.core_size:
@@ -224,13 +235,11 @@ def tree_schur_solve(dtp: DeviceTreePlan, ed, plain: bool):
     through the kernels (``plain=False``) or their plain versions."""
     from .kernels import peel, segsum
 
-    if plain:
-        lam_sys, sums = peel.lambda_system_plain, segsum.segsum_plain
-    else:
-        lam_sys, sums = peel.lambda_system, segsum.segsum
+    lam_sys = peel.lambda_system_plain if plain else peel.lambda_system
     dr, w_edges, rhs_norm = lam_sys(dtp, ed)
     if dtp.num_pairs > 0:
-        w_pairs = sums(dtp.pair_idx, w_edges)
+        w_pairs = (segsum.segsum_plain(dtp.pair_idx, w_edges) if plain
+                   else segsum.segsum_plan(dtp.pair_sums, w_edges)[0])
     else:
         w_pairs = torch.zeros(0, dtype=torch.float64, device=w_edges.device)
     return tree_solve_system(dtp, dr, w_pairs, plain), rhs_norm

@@ -72,7 +72,11 @@ synchronised call and of a call issued back to back (dispatch); and on the
 one pass's four products beside 12 ``torch.matmul``, and K17's stencil
 without and with its norm and its assembly beside CSR ``torch.mv``, each
 with its device µs and launches by kernel name and its host and dispatch
-µs (``--select lattice``: these alone).  ``--root``
+µs (``--select lattice``: these alone); ``--select redesign`` times K6 and
+K19c alone as their executors issue them (:func:`redesign_times`): the
+forest's three level sums and the web's bifurcation system beside
+``index_add_``, the 512² lattice's V-cycle with its wrapper launches and its
+stencil beside CSR ``torch.mv``.  ``--root``
 imports the port from another checkout (e.g. the parent commit unpacked
 with ``git archive``), so that two versions are compared in one call.
 Otherwise the script
@@ -87,7 +91,7 @@ Otherwise the script
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
-    python3 scripts/profile_torch_main_path.py --kernels [--select lattice] [--root DIR] [--out kernels.json]
+    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign] [--root DIR] [--out kernels.json]
 
 (``--generations`` sets the depth of ``blocked``, ``callable`` and ``p1tree``.)
 
@@ -422,12 +426,135 @@ def kernel_times(card: str) -> dict:
                                              expect=chip_smoke.GRID128_FRONTS_SIZES)["core_fronts"]
     out["k12b_fronts128"] = {k: fronts[k] for k in ("ms", "plain_ms", "bound_ms")}
     del grid, plan_i
-    mg = chip_smoke.compare_mg2d_kernels(
-        P, chip_smoke.lattice_assembler(P, forms=chip_smoke.cg512_forms), dev)
-    for key in ("mg2d_coarse_factor", "mg2d_coarse_solve"):
-        out["k19c_" + key[5:]] = {k: mg[key][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out.update(coarsest_times(dev))
     out["k22_reduce"] = reduce_times(dev)
     out.update(lattice_times(dev))
+    return out
+
+
+def timed_call(fn, reps: int = 20) -> dict:
+    """``fn``'s ms (CUDA events), host µs of a synchronised call and of a call
+    issued back to back (dispatch), device µs and launches of one call by
+    kernel name (the profiler)."""
+    split = device_split(fn)
+    return {"ms": chip_smoke.cuda_ms(fn, reps=reps), "wrapper_us": best_ms(fn) * 1e3,
+            "dispatch_us": dispatch_us(fn, calls=100 if reps < 20 else 500),
+            "device_us": sum(us for us, _ in split.values()),
+            "device_launches": sum(c for _, c in split.values()),
+            "device_us_by_kernel": split}
+
+
+def cg512_system(dev):
+    """The 512² per-edge-R lattice's λ system under ``schur_method="cg"``
+    (chip_smoke's set (l)): ``(mg2d plan, class weights, diag, rhs)``."""
+    asm = chip_smoke.lattice_assembler(P, forms=chip_smoke.cg512_forms)
+    ex, diag, rhs, _, cw = chip_smoke.cg_system(P, asm, dev, P.SolverOptions(schur_method="cg"))
+    return ex.precond_plan, cw, diag, rhs
+
+
+def coarsest_times(dev) -> dict:
+    """K19c's coarsest factor and solve on the 512² lattice's 16² bottom
+    level beside ``cholesky`` and ``cholesky_solve``."""
+    from networks_fenicsx_tpu_torch.kernels import mg2d
+    from networks_fenicsx_tpu_torch.multigrid import Mg2dPreconditioner
+
+    plan, cw, diag, _ = cg512_system(dev)
+    pre = Mg2dPreconditioner(plan, cw, diag, plain=True)
+    coarse = (plan.bottom_offsets, pre.bottom[:4], pre.bottom[mg2d.FD])
+    Lc, factor = mg2d._banded(*coarse), pre.factor
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rb = torch.randn(pre.bottom.shape[1], generator=gen, dtype=torch.float64, device=dev)
+    A = mg2d.coarse_factor(*coarse)
+    ms = chip_smoke.cuda_ms
+    return {"k19c_coarse_factor": {"ms": ms(lambda: mg2d.coarse_factor(*coarse)),
+                                   "plain_ms": ms(lambda: mg2d.coarse_factor_plain(*coarse), reps=3),
+                                   "library_ms": ms(lambda: torch.linalg.cholesky(Lc))},
+            "k19c_coarse_solve": {"ms": ms(lambda: mg2d.coarse_solve(A, rb)),
+                                  "plain_ms": ms(lambda: mg2d.coarse_solve_plain(factor, rb), reps=3),
+                                  "library_ms": ms(lambda: torch.cholesky_solve(rb[:, None], factor))}}
+
+
+def redesign_times(dev) -> dict:
+    """``--select redesign``: K6 and K19c as their executors issue them, on
+    the port that ``sys.path`` finds first (this checkout's, or ``--root``'s):
+
+    * K6 — the level route's three sums on the 100k forest (a planned port:
+      one ``segsum_plan``; else three ``segsum`` calls) beside 3
+      ``index_add_``, and the bifurcation system's two sides on the 100k web
+      (planned: one launch into ``dr``; else ``zeros`` and two ``segsum``
+      adds) beside 2 ``index_add_``;
+    * K19c — one V-cycle application of the 512² lattice's preconditioner
+      with its K19c and K19a wrapper launches, and the level-0 stencil
+      beside CSR ``torch.mv``;
+
+    each with :func:`timed_call`'s figures."""
+    from networks_fenicsx_tpu_torch.kernels import krylov, mg2d, segsum
+    from networks_fenicsx_tpu_torch.kernels.level_eliminate import _prepare_plain
+    from networks_fenicsx_tpu_torch.multigrid import Mg2dPreconditioner
+
+    planned = hasattr(segsum, "segsum_plan")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {"planned": planned}
+
+    def index_adds(pairs):
+        adds = []
+        for i, v, bins, rows in pairs:
+            ok = (i >= 0) & (i < v.shape[0])
+            seg = torch.arange(i.shape[0], device=dev)[:, None].expand_as(i)[ok]
+            if bins is not None:
+                seg = bins.long()[seg]
+            adds.append((torch.zeros((rows,) + tuple(v.shape[1:]), dtype=v.dtype, device=dev),
+                         seg, v[i[ok].long()]))
+        return lambda: [o.index_add_(0, sg, src) for o, sg, src in adds]
+
+    forest = P.Solver(chip_smoke.forest_assembler(P, chip_smoke.forest_mesh(P)), device="cuda")
+    forest.solve()
+    dlp = forest._executor.device_plan
+    E = dlp.num_edges
+    w = torch.rand(E, generator=gen, dtype=torch.float64, device=dev)
+    vt, vs = (torch.rand((E, 2), generator=gen, dtype=torch.float64, device=dev) for _ in range(2))
+    if planned:
+        level = lambda: segsum.segsum_plan(dlp.sums, w, vt, vs)  # noqa: E731
+    else:
+        level = lambda: (segsum.segsum(dlp.p_idx, w), segsum.segsum(dlp.t_idx, vt),  # noqa: E731
+                         segsum.segsum(dlp.s_idx, vs))
+    out["k6_level_forest"] = timed_call(level)
+    out["k6_level_forest"]["library_3_index_add"] = timed_call(index_adds(
+        [(dlp.p_idx, w, None, dlp.p_idx.shape[0]), (dlp.t_idx, vt, None, dlp.t_idx.shape[0]),
+         (dlp.s_idx, vs, None, dlp.s_idx.shape[0])]))
+    del forest
+
+    web = P.Solver(chip_smoke.web_assembler(P), device="cuda")
+    web.solve()
+    dtp = web._executor.device_plan
+    Ew, B = dtp.num_edges, dtp.num_bifurcations
+    ut, us_ = (torch.rand((Ew, 2), generator=gen, dtype=torch.float64, device=dev) for _ in range(2))
+    if planned:
+        lam = lambda: segsum.segsum_plan(dtp.lambda_sums, ut, us_)  # noqa: E731
+    else:
+        def lam():
+            dr = torch.zeros((B, 2), dtype=torch.float64, device=dev)
+            segsum.segsum(dtp.t_idx, ut, dtp.t_bins, dr)
+            return segsum.segsum(dtp.s_idx, us_, dtp.s_bins, dr)
+    out["k6_lambda_web"] = timed_call(lam)
+    out["k6_lambda_web"]["library_2_index_add"] = timed_call(index_adds(
+        [(dtp.t_idx, ut, dtp.t_bins, B), (dtp.s_idx, us_, dtp.s_bins, B)]))
+    del web, dtp
+
+    plan, cw, diag, rhs = cg512_system(dev)
+    pre = Mg2dPreconditioner(plan, cw, diag)
+    r = torch.randn(diag.shape[0], generator=gen, dtype=torch.float64, device=dev)
+    before = (mg2d.LAUNCHES.launches, krylov.LAUNCHES.launches)
+    pre(r)
+    launches = {"mg2d": mg2d.LAUNCHES.launches - before[0],
+                "krylov": krylov.LAUNCHES.launches - before[1]}  # of one application
+    vcycle = timed_call(lambda: pre(r), reps=10)
+    vcycle["wrapper_launches"] = launches
+    out["k19c_vcycle_cg512"] = vcycle
+    lev, shape = pre.levels[0], plan.shapes[0]
+    L = chip_smoke.lattice_csr(np.array([1, -1, shape[1], -shape[1]]), lev[:4], lev[mg2d.FD])
+    out["k19c_stencil_cg512"] = timed_call(lambda: mg2d.stencil(lev, shape, r, rhs))
+    out["k19c_stencil_cg512"]["library_csr_mv"] = timed_call(lambda: torch.mv(L, r))
     return out
 
 
@@ -460,14 +587,7 @@ def lattice_times(dev) -> dict:
     state = dct_lattice.factor_plain(op, w)
     L = chip_smoke.lattice_csr_grid(gdp, w, diag)
 
-    def timed(fn, reps: int = 20) -> dict:
-        split = device_split(fn)
-        return {"ms": chip_smoke.cuda_ms(fn, reps=reps), "wrapper_us": best_ms(fn) * 1e3,
-                "dispatch_us": dispatch_us(fn, calls=100 if reps < 20 else 500),
-                "device_us": sum(us for us, _ in split.values()),
-                "device_launches": sum(c for _, c in split.values()),
-                "device_us_by_kernel": split}
-
+    timed = timed_call
     count = getattr(dct_lattice, "cuda_launches", None)
     k16 = {"solve": timed(lambda: dct_lattice.dct_lattice(op, w, rhs, lambda _: fixed), reps=10),
            "one_pass_products": timed(lambda: dct_lattice._lplus(op, state, rhs)),
@@ -563,8 +683,8 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="time the redesigned kernels (K21b, K10, K12a, K11, K12b, K19c's coarsest "
                          "level, K22-reduce, K16, K17) beside their library calls instead of a path")
-    ap.add_argument("--select", choices=("all", "lattice"), default="all",
-                    help="with --kernels: every entry, or K16 and K17 alone")
+    ap.add_argument("--select", choices=("all", "lattice", "redesign"), default="all",
+                    help="with --kernels: every entry, K16 and K17 alone, or K6 and K19c alone")
     ap.add_argument("--root", type=pathlib.Path, default=None,
                     help="import the port from this checkout instead of this one")
     args = ap.parse_args()
@@ -576,9 +696,10 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     if args.kernels:
-        if args.select == "lattice":
+        if args.select in ("lattice", "redesign"):
+            times = lattice_times if args.select == "lattice" else redesign_times
             rec = {"card": card, "port": str(pathlib.Path(P.__file__).resolve().parent),
-                   **lattice_times(torch.device("cuda", 0))}
+                   **times(torch.device("cuda", 0))}
         else:
             rec = kernel_times(card)
         text = json.dumps(rec, indent=1)
