@@ -228,8 +228,7 @@ KERNEL_RECORD = {
 CG_CHECKS = {
     "krylov": ("k", ("krylov_cg_step", "krylov_chebyshev")),
     "gather_matvec": ("k", ("gather_matvec", "gather_matvec_residual")),
-    "mg2d": ("l", ("mg2d_hierarchy", "mg2d_stencil", "mg2d_restrict", "mg2d_prolong",
-                   "mg2d_cheb_first", "mg2d_residual_restrict", "mg2d_prolong_residual",
+    "mg2d": ("l", ("mg2d_hierarchy", "mg2d_stencil", "mg2d_cheb_first", "mg2d_residual_restrict", "mg2d_prolong_residual",
                    "mg2d_coarse_factor", "mg2d_coarse_solve", "mg2d")),
     "mg1d": ("m", ("mg1d_hierarchy", "mg1d_restrict", "mg1d_prolong", "mg1d")),
 }
@@ -617,9 +616,9 @@ def compare_level_kernels(P, asm, device, timed: bool) -> dict:
             record[name].update(bound(*work[name]))
             if name in library:
                 record[name]["library_ms"] = cuda_ms(library[name])
-    before = segsum.segsum.launches
+    before = segsum.LAUNCHES.launches
     got = sums(segsum.segsum_plan)()
-    assert segsum.segsum.launches == before + 1, "K6: one launch a plan"
+    assert segsum.LAUNCHES.launches == before + 1, "K6: one launch a plan"
     assert all(torch.equal(a, b) for a, b in zip(got, sums(segsum.segsum_plan_plain)())), "K6 bits"
     record["segsum"]["equal"] = True
     q_T, p_T, finite = backsub.backsub(ed, lam, N, k)
@@ -1534,7 +1533,7 @@ def compare_lattice_kernels(P, asm, device, timed: bool, tol_solve: float = LATT
         diag_v, rhs_v = dr[:, 0], dr[:, 1]  # strided views, as the DCT route passes them
 
         def res_kernel(lam):
-            return shift_matvec.shift_matvec(dlp.offsets, cw, diag_v, lam, rhs_v)
+            return shift_matvec.shift_matvec(dlp.shift, cw, diag_v, lam, rhs_v)
 
         def res_plain(lam):
             return shift_matvec.shift_matvec_plain(dlp.offsets, cw, diag_v, lam, rhs_v)
@@ -1547,14 +1546,13 @@ def compare_lattice_kernels(P, asm, device, timed: bool, tol_solve: float = LATT
             lambda: segsum.segsum_plan(dlp.class_sums, w_edges)[0].view(n_cls, -1),
             lambda: lattice._shift_class_weights(w_edges, dlp.class_idx, n_cls,
                                                  segsum.segsum_plain), TOL)
-        runs["shift_matvec"] = (
-            lambda: shift_matvec.shift_matvec(dlp.offsets, cw, diag_v, lam_any, rhs_v, norm=True),
+        runs["shift_matvec"] = (  # one launch, as the route's final residual
+            lambda: shift_matvec.shift_matvec(dlp.shift, cw, diag_v, lam_any, rhs_v, norm=True),
             lambda: shift_matvec.shift_matvec_plain(dlp.offsets, cw, diag_v, lam_any, rhs_v,
                                                     norm=True), TOL)
         # the library yardstick: one CSR product with the same Laplacian
         L = lattice_csr(dlp.offsets, cw, dr[:, 0])
         library["shift_matvec"] = lambda: torch.mv(L, lam_any)
-        timed_runs["shift_matvec"] = (lambda: res_kernel(lam_any), lambda: res_plain(lam_any))
     st = K16.factor_plain(op, w_edges)
     spec = K16.transform_plain(op, rhs)
     runs["dct_factor"] = (lambda: K16._factor(op, w_edges), lambda: K16.factor_plain(op, w_edges),
@@ -1613,6 +1611,8 @@ def compare_lattice_kernels(P, asm, device, timed: bool, tol_solve: float = LATT
     record = {"route": "grid" if grid else "general", "s": op.s, "ny": op.ny, "r": op.r}
     if grid:
         record["streams"] = lattice_stream_checks(gdp, op, w, diag, rhs, lam_any, device)
+    else:
+        record["streams"] = shift_stream_checks(dlp.shift, cw, diag_v, rhs_v, lam_any)
     for name, (kernel, plain, tol) in runs.items():
         got = kernel()
         want = plain()
@@ -1627,7 +1627,49 @@ def compare_lattice_kernels(P, asm, device, timed: bool, tol_solve: float = LATT
             record[name].update(bound(*work[name]))
             if name in library:
                 record[name]["library_ms"] = cuda_ms(library[name], reps=10)
+    if timed and not grid:  # the refinement residual, K18 without its norm
+        record["shift_matvec"]["residual_ms"] = cuda_ms(lambda: res_kernel(lam_any), reps=10)
     return record
+
+
+def shift_stream_checks(plan, cw, diag, rhs, lam_any) -> dict:
+    """K18 with its norm: one launch a call; two calls back to back give
+    equal bits, calls on two streams at once the bits of the calls alone
+    (each stream has its own partials and ticket), and a call captured into
+    a CUDA graph replays to the same bits (the ticket is reset inside the
+    launch).  Raises on any difference."""
+    from networks_fenicsx_tpu_torch.kernels import shift_matvec
+
+    lams = (lam_any, torch.flip(lam_any, (0,)).contiguous())
+    before = shift_matvec.shift_matvec.launches
+    want = [shift_matvec.shift_matvec(plan, cw, diag, lam, rhs, norm=True) for lam in lams]
+    assert shift_matvec.shift_matvec.launches == before + 2, "shift_matvec: one launch a call"
+    again = shift_matvec.shift_matvec(plan, cw, diag, lams[0], rhs, norm=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(again, want[0])), "shift_matvec: repeat calls differ"
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for order in (streams, streams[::-1]):
+        got = []
+        for st, lam in zip(order, lams):
+            with torch.cuda.stream(st):
+                got.append([shift_matvec.shift_matvec(plan, cw, diag, lam, rhs, norm=True)
+                            for _ in range(3)])
+        torch.cuda.synchronize()
+        for runs, ref in zip(got, want):
+            assert all(torch.equal(a, b) for run in runs for a, b in zip(run, ref)), \
+                "shift_matvec: two streams differ from the calls alone"
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = shift_matvec.shift_matvec(plan, cw, diag, lams[1], rhs, norm=True)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, want[1])), \
+            "shift_matvec: a graph replay differs"
+    del graph
+    return {"shift_matvec_streams": "bit for bit", "shift_matvec_repeat": "bit for bit",
+            "shift_matvec_graph_replays": 3, "shift_matvec_launches_a_normed_call": 1}
 
 
 def lattice_stream_checks(gdp, op, w, diag, rhs, lam_any, device) -> dict:
@@ -2320,8 +2362,8 @@ def mg2d_levels(mod, cw, dirs, diag, plan) -> list:
 
 def compare_mg2d_kernels(P, asm, device) -> dict:
     """Set (l): K19c against its plain versions on the 512² per-edge-R
-    lattice's λ system: the hierarchy, the level-0 stencil, a restriction, a
-    prolongation, the V-cycle's fused pieces (the smoother's start folded
+    lattice's λ system: the hierarchy, the level-0 stencil, the V-cycle's
+    fused pieces (the smoother's start folded
     into its first step, residual and restriction, prolongation and
     residual; also bit for bit), the coarsest factor (its lower triangle)
     and solve, one V-cycle application; all at ``TOL``·scale.  The V-cycle's
@@ -2351,13 +2393,6 @@ def compare_mg2d_kernels(P, asm, device) -> dict:
     Lc = mg2d._banded(plan.bottom_offsets, bottom[:4], bottom[mg2d.FD])
     factor_p = pre[True].factor
 
-    def prolonged(fn):
-        def run():
-            xx = r.clone()
-            fn(xx, shape, shape_c, rc, opts.mg_overcorrect)
-            return xx
-        return run
-
     coarse = (plan.bottom_offsets, bottom[:4], bottom[mg2d.FD])
     theta, coeffs = chebyshev_coefficients(SMOOTH_DEGREE, ratio=SMOOTH_RATIO)
     oc = opts.mg_overcorrect
@@ -2382,9 +2417,6 @@ def compare_mg2d_kernels(P, asm, device) -> dict:
                            lambda: mg2d_levels(pre[True].k, cw, plan.dirs, diag, plan), TOL),
         "mg2d_stencil": (lambda: mg2d.stencil(lev, shape, r, rhs),
                          lambda: mg2d.stencil_plain(lev, shape, r, rhs), TOL),
-        "mg2d_restrict": (lambda: mg2d.restrict(r, shape, shape_c),
-                          lambda: mg2d.restrict_plain(r, shape, shape_c), TOL),
-        "mg2d_prolong": (prolonged(mg2d.prolong), prolonged(mg2d.prolong_plain), TOL),
         "mg2d_coarse_factor": (lambda: torch.tril(mg2d.coarse_factor(*coarse)),
                                lambda: mg2d.coarse_factor_plain(*coarse), TOL),
         "mg2d_coarse_solve": (lambda: mg2d.coarse_solve(pre[False].factor, rb),
@@ -2658,44 +2690,52 @@ def p1tree_path(P, device, name_power: str) -> dict:
 def compare_schur_p_kernels(asm, ex, device) -> dict:
     """Set (o): K21a and K20b against their plain versions on the p1tree's
     own data at full width — the band factor (and the flux diagonal) and one
-    A⁻¹ apply at ``TOL``·scale, J·v and Jᵀ·z at ``TOL``·scale, the Jacobi
-    diagonal Σ J² / A_diag at 1e-14 relative; timed beside ``cholesky`` and
-    ``cholesky_solve`` on the dense (E, m, m) blocks and CSR ``torch.mv``."""
+    A⁻¹ apply at ``TOL``·scale, each one launch, J·v and Jᵀ·z at
+    ``TOL``·scale, the Jacobi diagonal Σ J² / A_diag at 1e-14 relative;
+    timed beside ``cholesky`` and ``cholesky_solve`` on the dense (E, m, m)
+    blocks and CSR ``torch.mv``.  Then K21a on ragged tiles
+    (:func:`schur_p_ragged_checks`)."""
     from networks_fenicsx_tpu_torch.kernels import csr, schur_p
 
-    N, k, base, n_flux = ex._N, ex._k, ex.base, ex.n_flux
-    E, m = base.shape[0], k * N + 1
+    tiles, n_flux = ex.tiles, ex.n_flux
+    N, k, E, m = tiles.N, tiles.k, tiles.E, tiles.m
     cm = asm._cell_mass_on(device)
     J, JT = ex.J.device_arrays, ex.JT.device_arrays
     n_red = ex.J.shape[0]
     gen = torch.Generator(device=device).manual_seed(5)
     v = torch.randn(n_flux, generator=gen, dtype=torch.float64, device=device)
     z = torch.randn(n_red, generator=gen, dtype=torch.float64, device=device)
-    Lb, adiag = schur_p.schur_p_factor_plain(cm, base, N, k, n_flux)
+    Lb, adiag = schur_p.schur_p_factor_plain(cm, tiles)
+    launches = {}
+    for name, counter, call in (("factor", schur_p.FACTOR, lambda: schur_p.schur_p_factor(cm, tiles)),
+                                ("solve", schur_p.SOLVE, lambda: schur_p.schur_p_solve(Lb, tiles, v))):
+        before = counter.launches
+        call()
+        launches[name] = counter.launches - before
+    assert launches == {"factor": 1, "solve": 1}, launches
     runs = {
-        "schur_p_factor": (lambda: schur_p.schur_p_factor(cm, base, N, k, n_flux),
-                           lambda: schur_p.schur_p_factor_plain(cm, base, N, k, n_flux), TOL),
-        "schur_p_solve": (lambda: schur_p.schur_p_solve(Lb, base, N, k, v),
-                          lambda: schur_p.schur_p_solve_plain(Lb, base, N, k, v), TOL),
+        "schur_p_factor": (lambda: schur_p.schur_p_factor(cm, tiles),
+                           lambda: schur_p.schur_p_factor_plain(cm, tiles), TOL),
+        "schur_p_solve": (lambda: schur_p.schur_p_solve(Lb, tiles, v),
+                          lambda: schur_p.schur_p_solve_plain(Lb, tiles, v), TOL),
         "csr_spmv": (lambda: csr.csr_spmv(*J, v), lambda: csr.csr_spmv_plain(*J, v), TOL),
         "csr_spmv_T": (lambda: csr.csr_spmv(*JT, z), lambda: csr.csr_spmv_plain(*JT, z), TOL),
     }
-    record = {}
+    record = {"tiles": tiles.tiles, "tile": schur_p.TILE, "wrapper_launches": launches}
     td, td_plain = csr.csr_tdiag(*J, adiag), csr.csr_tdiag_plain(*J, adiag)
     rel = float(((td - td_plain).abs() / td_plain.abs()).max())
     assert rel <= 1e-14, rel
     record["csr_tdiag"] = {"max_abs_err": float((td - td_plain).abs().max()), "max_rel_err": rel,
                            "tol": 1e-14}
-    # the library yardsticks on the same matrices: the dense blocks and their
-    # dense factor, and J as a CSR tensor
-    dofs = base.long()[:, None] + torch.arange(m, device=device)[None, :]
+    # the library yardsticks on the same matrices: the dense blocks (in flux
+    # order) and their dense factor, and J as a CSR tensor
     dense = torch.zeros((E, m, m), dtype=torch.float64, device=device)
     li = k * torch.arange(N, device=device)[:, None] + torch.arange(k + 1, device=device)[None, :]
-    cmv = cm.reshape(E, N, k + 1, k + 1)
+    cmv = cm.reshape(E, N, k + 1, k + 1)[tiles.perm.long()]
     for j in range(N):
         dense[:, li[j][:, None], li[j][None, :]] += cmv[:, j]
     L_dense = torch.linalg.cholesky(dense)
-    v_e = v[dofs][:, :, None]
+    v_e = v.reshape(E, m)[:, :, None]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         J_csr = torch.sparse_csr_tensor(J[0], J[1].long(), J[2], size=ex.J.shape)
@@ -2705,14 +2745,51 @@ def compare_schur_p_kernels(asm, ex, device) -> dict:
             "csr_spmv": lambda: torch.mv(J_csr, v),
         }
         work = {
-            "schur_p_factor": (tensor_bytes(cm, base, Lb, adiag), E * m * (k + 1) * (k + 2)),
-            "schur_p_solve": (tensor_bytes(Lb, base) + 16 * n_flux, E * m * (4 * k + 2)),
+            "schur_p_factor": (tensor_bytes(cm, tiles.perm, Lb, adiag), E * m * (k + 1) * (k + 2)),
+            "schur_p_solve": (tensor_bytes(Lb) + 16 * n_flux, E * m * (4 * k + 2)),
             "csr_spmv": (csr_bytes(ex.J, n_flux), 2 * ex.J.nnz),
         }
         timed = {name: runs[name][:2] for name in library}
         run_checks(runs, record, timed, work, library)
     del dense, L_dense
+    record["ragged"] = schur_p_ragged_checks(device)
     return record
+
+
+def schur_p_ragged_checks(device) -> dict:
+    """K21a against its plain versions at ``TOL``·scale on a 63-edge tree
+    (a ragged last tile of 31 edges): at k = 2 (the staged solve, its window
+    in registers), k = 5 (the window read back from shared memory) and k = 2
+    with N = 150 (a tile too large for shared memory, solved in device
+    memory); a vector at an 8-byte offset (moved without bulk copies) solves
+    to the same bits."""
+    import networks_fenicsx_tpu_torch as P
+    from networks_fenicsx_tpu_torch.kernels import schur_p
+
+    out = {}
+    net = P.network_generation.make_arterial_tree(6, direction=[0.1, 1, 0], arrays=True)
+    for k, N in ((2, 6), (5, 4), (2, 150)):
+        mesh = P.NetworkMesh(net, N=N, color_strategy="fast")
+        asm = P.HydraulicNetworkAssembler(mesh, flux_degree=k, pressure_degree=k - 1)
+        asm.compute_forms(p_bc_ex=lambda x: x[1], R=1.0 / mesh.edge_radius**4)
+        tiles = schur_p.flux_tiles(asm._edge_flux_base, mesh.edge_color, N, k, device)
+        assert tiles.E % schur_p.TILE, tiles.E
+        cm = asm._cell_mass_on(device)
+        got, want = schur_p.schur_p_factor(cm, tiles), schur_p.schur_p_factor_plain(cm, tiles)
+        gen = torch.Generator(device=device).manual_seed(k + N)
+        buf = torch.randn(tiles.n_flux + 1, generator=gen, dtype=torch.float64, device=device)
+        v = buf[:-1].clone()
+        x = schur_p.schur_p_solve(got[0], tiles, v)
+        x_plain = schur_p.schur_p_solve_plain(want[0], tiles, v)
+        buf[1:] = v
+        shifted = schur_p.schur_p_solve(got[0], tiles, buf[1:])
+        torch.cuda.synchronize()
+        errs = [max_err(a, b) for a, b in ((got[0], want[0]), (got[1], want[1]), (x, x_plain))]
+        assert all(err <= TOL * scale for err, scale in errs), (k, N, errs)
+        assert torch.equal(shifted, x), (k, N, "an unaligned vector solves to other bits")
+        out[f"k{k}_N{N}"] = {"edges": tiles.E, "m": tiles.m, "errs": [e for e, _ in errs],
+                             "unaligned_equal": True}
+    return out
 
 
 def compare_csr_assembly(P, asm, device) -> dict:

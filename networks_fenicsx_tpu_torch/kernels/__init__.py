@@ -34,7 +34,8 @@ The uniform-lattice solve (the separable-DCT λ solve on its two routes):
 * :mod:`.grid_core` — K17, the grid route's assembly, stencil and norms
   (between K1 and K5);
 * :mod:`.shift_matvec` — K18, the general route's shift-class matvec (with
-  K8a, K9's ``lambda_system``, K6 and K8b).
+  K8a, K9's ``lambda_system``, K6 and K8b), one launch a call on a
+  :class:`.shift_matvec.ShiftPlan`.
 
 The iterative λ solve (CG, after K8a, K9's ``lambda_system`` and K6, before
 K8b; its matvec on K18 or K19b):
@@ -51,7 +52,8 @@ The assembled-matrix and continuous-pressure routes:
 * :mod:`.csr` — K20, the CSR duplicate fold of explicit assembly, and
   K20b, the CSR matvec with the diagonal and Jacobi row reductions;
 * :mod:`.schur_p` — K21a, the per-edge flux blocks' band Cholesky factor
-  and solves of the continuous-pressure reduced solve;
+  and solves of the continuous-pressure reduced solve, over the flux-ordered
+  tiles of a :class:`.schur_p.FluxTiles` plan;
 * :mod:`.dense_lu` — K21b, the float64 LU with partial pivoting (blocked,
   in the unblocked loop's order: a cluster panel factor with lookahead),
   its solve and the tiled triangular solves;
@@ -95,7 +97,7 @@ __all__ = [
 ]
 
 BLOCKED = (condense.condense, tree_sweep.tree_sweep, expand.expand)
-GENERAL = (segsum.segsum, edge_data.edge_data, level_eliminate.level_eliminate, backsub.backsub)
+GENERAL = (segsum.LAUNCHES, edge_data.edge_data, level_eliminate.level_eliminate, backsub.backsub)
 CYCLIC = (
     fold.fold_apply, peel.lambda_system, peel.peel, dense_core.dense_core,
     mf_factor.mf_factor, mf_apply.mf_apply, core_elim.core_elim, core_fronts.core_fronts,

@@ -64,14 +64,6 @@ _SIGNATURES = {
         _d, _d, _d, _d, _p,  # condensed matrix, Minv
         _p, _p, _p, _p,  # q_T, p_T, finite, stream
     ],
-    "nxfx_segsum": [
-        _i, _i, _i, _i,  # S, K, C, n
-        _p, _p, _p, _p,  # idx, vals, out, stream
-    ],
-    "nxfx_segsum_into": [
-        _i, _i, _i, _i,  # S, K, C, n
-        _p, _p, _p, _p, _p,  # idx, vals, bins, out, stream
-    ],
     "nxfx_segsum_plan": [
         _p, _i,  # SumPlanArgs, n
         _p, _p, _p, _p, _p, _p, _p, _p, _p,  # four value arrays, four outputs, stream
@@ -191,14 +183,9 @@ _SIGNATURES = {
     "nxfx_dct_matrix": [_i, _d, _d, _p, _p],  # n, scale, scale0, D, stream
     "nxfx_grid_assemble": [_p, _p, _p, _p, _p, _p, _p, _p],  # GridArgs, w, const, Ftot, rhs, diag, norm, stream
     "nxfx_grid_residual": [_p, _p, _p, _p, _p, _p, _p, _p],  # GridArgs, w, diag, lam, rhs, res, norm (or null), stream
-    "nxfx_shift_matvec": [
-        _i, _i, _p,  # B, C, host offsets
-        _p, _p, _i, _p, _p, _i,  # cw, diag, its stride, x, b (or null), its stride
-        _p, _p, _p, _p,  # out, partial (or null), norm (or null), stream
-    ],
+    "nxfx_shift_matvec": [_p, _p, _p, _p, _p, _p, _p, _p],  # ShiftArgs, cw, diag, x, b, out, norm, stream
     "nxfx_shift_cheb": [
-        _i, _i, _p,  # B, C, host offsets
-        _p, _p, _p, _p, _p, _p, _p,  # cw, diag, s, rs, dvec, x_in, x_out
+        _p, _p, _p, _p, _p, _p, _p, _p,  # ShiftArgs, cw, diag, s, rs, dvec, x_in, x_out
         _d, _d, _p, _p, _p,  # c1, c2, z (or null), base (or null), stream
     ],
     "nxfx_krylov_cg_start": [_i, _p, _p, _p, _p, _p, _d, _d, _d, _p],  # n, b, r, z, part, st, rtol, atol, maxiter
@@ -219,10 +206,6 @@ _SIGNATURES = {
     "nxfx_mg2d_level0": [_i, _p, _i, _i, _i, _i, _p, _p, _p],  # m, cw, E W S N classes, diag0, lev
     "nxfx_mg2d_coarsen": [_i, _i, _p, _i, _i, _p, _p],  # nyf, nxf, fine, nyc, nxc, coarse, stream
     "nxfx_mg2d_stencil": [_i, _i, _p, _p, _p, _p, _p],  # ny, nx, lev, x, b (or null), out, stream
-    "nxfx_mg2d_cheb": [
-        _i, _i, _p, _p, _p, _p, _p,  # ny, nx, lev, rs, dvec, x_in, x_out
-        _d, _d, _p, _p, _p,  # c1, c2, z (or null), base (or null), stream
-    ],
     "nxfx_mg2d_cheb_first": [
         _i, _i, _p, _p, _d, _d, _d,  # ny, nx, lev, r, 1 / theta, c1, c2
         _p, _p, _p, _p, _p, _p,  # rs, dvec, x_out, z (or null), base (or null), stream
@@ -234,8 +217,6 @@ _SIGNATURES = {
     ],
     "nxfx_mg2d_down": [_p, _p, _p],  # Mg2dCycle, r0, stream
     "nxfx_mg2d_up": [_p, _p, _p, _p, _p],  # Mg2dCycle, r0, e_bottom, out0, stream
-    "nxfx_mg2d_restrict": [_i, _i, _p, _i, _i, _p, _p],  # nyf, nxf, res, nyc, nxc, rc, stream
-    "nxfx_mg2d_prolong": [_i, _i, _p, _i, _p, _d, _p],  # nyf, nxf, x, nxc, ec, overcorrect, stream
     "nxfx_mg_coarse_factor": [_i, _i, _p, _p, _p, _p, _p],  # m, C, host offsets, cw, diag, A, stream
     "nxfx_mg_coarse_solve": [_i, _p, _p, _p, _p, _p, _p],  # m, A, r, v, y, x, stream
     "nxfx_mg1d_level0": [_i, _i, _p, _p, _p, _p, _p],  # m, C, cw, diag, extra, dis, stream
@@ -254,8 +235,8 @@ _SIGNATURES = {
     "nxfx_csr_fold": [_l, _i, _l, _p, _p, _p, _p, _p],  # nnz, max_dup, nraw, perm, idx, vals, data
     "nxfx_csr_spmv": [_i, _p, _p, _p, _p, _p, _p, _p],  # n, indptr, indices, data, v, signs, out
     "nxfx_csr_rows": [_i, _i, _p, _p, _p, _p, _p, _p],  # n, mode, indptr, indices, data, adiag, out
-    "nxfx_schur_p_factor": [_i, _i, _i, _p, _p, _p, _p, _p],  # E, N, k, cell masses, base, Lb, adiag
-    "nxfx_schur_p_solve": [_i, _i, _i, _p, _p, _p, _p, _p, _p],  # E, N, k, Lb, base, v, Y, out
+    "nxfx_schur_p_factor": [_p, _p, _p, _p, _p],  # SchurTiles, cell masses, Lb, adiag, stream
+    "nxfx_schur_p_solve": [_p, _p, _p, _p, _p],  # SchurTiles, Lb, v, out, stream
     "nxfx_lu_factor": [_i, _p, _p, _p, _p],  # n, A, piv, host launch count, stream
     "nxfx_lu_solve": [_i, _p, _p, _p, _p, _p, _p],  # n, LU, piv, b, x, tile flags, stream
     "nxfx_trsv": [_i, _p, _i, _i, _i, _p, _p, _p],  # n, A, lower, trans, unit, x, tile flags, stream

@@ -24,54 +24,20 @@
 // last block to finish (a ticket) adds the partials in block order and
 // writes the square root, so repeated calls give the same bits.
 //
-// The ticket and the partials are scratch of the calling stream, held by the
-// Python plan (one buffer per stream, zeroed on that stream at its first
-// call), so calls on two streams never share them.  The last block puts the
-// ticket back to 0 before the launch ends, so every launch, a CUDA-graph
-// replay included, finds it at 0: the kernel needs no refusal under graph
-// capture.  The partials are written by one block and read by another, so
-// they carry no __restrict__ and are read past L1 (__ldcg).
+// The ticket and the partials (ticket_norm.cuh) are scratch of the calling
+// stream, held by the Python plan (one buffer per stream, zeroed on that
+// stream at its first call), so calls on two streams never share them.  The
+// last block puts the ticket back to 0 before the launch ends, so every
+// launch, a CUDA-graph replay included, finds it at 0: the kernel needs no
+// refusal under graph capture.
 
 #include <cuda_runtime.h>
+
+#include "ticket_norm.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-
-// The block's sum of v^2 into partial[blockIdx.x]; the last block of the
-// launch adds the gridDim.x partials in block order, writes sqrt(sum) to
-// out and resets the ticket.  Every thread of the block calls it.
-__device__ void block_norm(double v, double* partial, unsigned int* ticket, double* out)
-{
-    __shared__ double part[THREADS];
-    __shared__ bool last;
-    part[threadIdx.x] = v * v;
-    __syncthreads();
-    for (int half = THREADS / 2; half > 0; half /= 2) {
-        if (threadIdx.x < half) part[threadIdx.x] = part[threadIdx.x] + part[threadIdx.x + half];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) {
-        partial[blockIdx.x] = part[0];
-        __threadfence();
-        last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    double acc = 0.0;
-    for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += THREADS) acc += __ldcg(partial + i);
-    part[threadIdx.x] = acc;
-    __syncthreads();
-    for (int half = THREADS / 2; half > 0; half /= 2) {
-        if (threadIdx.x < half) part[threadIdx.x] = part[threadIdx.x] + part[threadIdx.x + half];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) {
-        *out = sqrt(part[0]);
-        *ticket = 0u;
-    }
-}
 
 __global__ void __launch_bounds__(THREADS) grid_assemble_kernel(
     int nx, int ny, int n_stub,
@@ -114,7 +80,7 @@ __global__ void __launch_bounds__(THREADS) grid_assemble_kernel(
         rhs[n] = acc;
         diag[n] = d;
     }
-    block_norm(acc, partial, ticket, rhs_norm);
+    ticket_norm<THREADS>(acc, partial, ticket, rhs_norm);
 }
 
 __global__ void __launch_bounds__(THREADS) grid_residual_kernel(
@@ -140,7 +106,7 @@ __global__ void __launch_bounds__(THREADS) grid_residual_kernel(
         r = rhs[n] - out;
         res[n] = r;
     }
-    if (norm != nullptr) block_norm(r, partial, ticket, norm);
+    if (norm != nullptr) ticket_norm<THREADS>(r, partial, ticket, norm);
 }
 
 int grid_blocks(int B) { return (B + THREADS - 1) / THREADS; }

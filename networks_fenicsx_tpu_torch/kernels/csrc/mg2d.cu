@@ -17,13 +17,13 @@
 //   stencil   the 5-point weighted stencil with zero-padded shifts, as L x or
 //             b - L x, and one fused Chebyshev-Jacobi smoother step
 //             (degree 3 on [lam_max / 4, lam_max]; ops/krylov.py's recurrence)
-//   restrict  2 x 2 block sums of a residual, even padding
-//   prolong   x += overcorrect * e[i / 2, j / 2], cropped
 //   solve     the two triangular solves on the coarsest factor.
 // Every entry's sum is taken in the plain version's order.
 //
-// The V-cycle's own launch path fuses what the level loop composes, each
-// fusion computing what the composed pieces compute, in their order:
+// The V-cycle's launch path fuses what the plain level loop composes (2 x 2
+// block sums of a residual with even padding, and x += overcorrect *
+// e[i / 2, j / 2], cropped), each fusion computing what the composed pieces
+// compute, in their order:
 //   cheb_first        the smoother's start (rs = s r, x = dvec = rs (1 / theta))
 //                     folded into its first step: a cell forms the start at
 //                     its four neighbours (a one-cell halo of r).  1 / theta
@@ -276,25 +276,6 @@ __global__ void __launch_bounds__(THREADS) mg2d_prolong_residual_kernel(int ny, 
     res[i] = b[i] - stencil_of(i, ny, nx, lev, y);
 }
 
-__global__ void __launch_bounds__(THREADS) mg2d_restrict_kernel(int nyf, int nxf, const double* res,
-                                                                int nyc, int nxc, double* rc)
-{
-    const int i = blockIdx.x * THREADS + threadIdx.x;
-    if (i >= nyc * nxc) return;
-    const int I = i / nxc, J = i % nxc;
-    rc[i] = ((at_or_zero(res, nyf, nxf, 2 * I, 2 * J) + at_or_zero(res, nyf, nxf, 2 * I, 2 * J + 1))
-             + at_or_zero(res, nyf, nxf, 2 * I + 1, 2 * J)) + at_or_zero(res, nyf, nxf, 2 * I + 1, 2 * J + 1);
-}
-
-__global__ void __launch_bounds__(THREADS) mg2d_prolong_kernel(int nyf, int nxf, double* x, int nxc,
-                                                               const double* ec, double oc)
-{
-    const int i = blockIdx.x * THREADS + threadIdx.x;
-    if (i >= nyf * nxf) return;
-    const int y = i / nxf, c = i % nxf;
-    x[i] = x[i] + oc * ec[static_cast<size_t>(y / 2) * nxc + c / 2];
-}
-
 // A = diag(diag) - sum_c band(cw[c], d_c), dense m x m row-major:
 // A[i, i + d_c] = -cw[c, i]
 __global__ void __launch_bounds__(THREADS) mg_assemble_kernel(int m, int C, Offsets off, const double* cw,
@@ -404,14 +385,6 @@ extern "C" int nxfx_mg2d_stencil(int ny, int nx, const double* lev, const double
     return last_error();
 }
 
-// one smoother step; z and base may be null
-extern "C" int nxfx_mg2d_cheb(int ny, int nx, const double* lev, const double* rs, double* dvec,
-                              const double* x_in, double* x_out, double c1, double c2, double* z,
-                              const double* base, cudaStream_t stream)
-{
-    return launch_cheb(ny, nx, lev, rs, dvec, x_in, x_out, c1, c2, z, base, stream);
-}
-
 // the smoother's start folded into its first step (inv_theta = 1 / theta);
 // z and base may be null
 extern "C" int nxfx_mg2d_cheb_first(int ny, int nx, const double* lev, const double* r, double inv_theta,
@@ -475,22 +448,6 @@ extern "C" int nxfx_mg2d_up(const Mg2dCycle* a, const double* r0, const double* 
         if (code != 0) return code;
     }
     return 0;
-}
-
-extern "C" int nxfx_mg2d_restrict(int nyf, int nxf, const double* res, int nyc, int nxc, double* rc,
-                                  cudaStream_t stream)
-{
-    mg2d_restrict_kernel<<<blocks_of(static_cast<long long>(nyc) * nxc), THREADS, 0, stream>>>(
-        nyf, nxf, res, nyc, nxc, rc);
-    return last_error();
-}
-
-extern "C" int nxfx_mg2d_prolong(int nyf, int nxf, double* x, int nxc, const double* ec, double oc,
-                                 cudaStream_t stream)
-{
-    mg2d_prolong_kernel<<<blocks_of(static_cast<long long>(nyf) * nxf), THREADS, 0, stream>>>(
-        nyf, nxf, x, nxc, ec, oc);
-    return last_error();
 }
 
 // the coarsest matrix from C classes (host offsets, (C, m) weights) and its

@@ -13,11 +13,6 @@
 // so neither of the reference's TPU branches (slice-and-reshape for
 // contiguous layouts, segment_sum for K > 32) is needed.
 //
-// nxfx_segsum_into adds the sums into rows of an existing output instead:
-//   out[bins[s], c] += sum_j vals[idx[s, j], c]
-// with bins sorted and unique (the reference's sorted-unique scatter-add of
-// _lambda_system_sorted), so each output row has one writer: no atomics.
-//
 // nxfx_fold is K10 (networks_fenicsx_tpu/ops/core_elim.py:_fold_apply,
 // :394-415): a chain of L such gather levels, level l summing K_l entries
 // of level l-1's rows (level 0 of vals), a pad index (>= the previous
@@ -63,12 +58,11 @@ struct SumPlanArgs {
 
 namespace {
 
-// bins == nullptr: out[s, c] = sum; otherwise out[bins[s], c] += sum
+// out[s, c] = sum (K10's one-level fold)
 __global__ void segsum_kernel(
     int S, int K, int C, int n,
     const int* __restrict__ idx,
     const double* __restrict__ vals,
-    const int* __restrict__ bins,
     double* __restrict__ out)
 {
     const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -82,12 +76,7 @@ __global__ void segsum_kernel(
         const double v = (i >= 0 && i < n) ? vals[static_cast<size_t>(i) * C + c] : 0.0;
         acc = j == 0 ? v : acc + v;
     }
-    if (bins == nullptr) {
-        out[t] = acc;
-    } else {
-        const size_t o = static_cast<size_t>(bins[s]) * C + c;
-        out[o] = out[o] + acc;
-    }
+    out[t] = acc;
 }
 
 constexpr int FOLD_MAX_LEVELS = 8;
@@ -212,34 +201,17 @@ __global__ void __launch_bounds__(SUM_THREADS) segsum_plan_kernel(SumLaunch L)
 namespace {
 
 int launch_segsum(
-    int S, int K, int C, int n, const int* idx, const double* vals, const int* bins,
-    double* out, cudaStream_t stream)
+    int S, int K, int C, int n, const int* idx, const double* vals, double* out, cudaStream_t stream)
 {
     const long long total = static_cast<long long>(S) * C;
     if (total <= 0) return 0;
     const int threads = 256;
     const int blocks = static_cast<int>((total + threads - 1) / threads);
-    segsum_kernel<<<blocks, threads, 0, stream>>>(S, K, C, n, idx, vals, bins, out);
+    segsum_kernel<<<blocks, threads, 0, stream>>>(S, K, C, n, idx, vals, out);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
-
-extern "C" int nxfx_segsum(
-    int S, int K, int C, int n,
-    const int* idx, const double* vals, double* out,
-    cudaStream_t stream)
-{
-    return launch_segsum(S, K, C, n, idx, vals, nullptr, out, stream);
-}
-
-extern "C" int nxfx_segsum_into(
-    int S, int K, int C, int n,
-    const int* idx, const double* vals, const int* bins, double* out,
-    cudaStream_t stream)
-{
-    return launch_segsum(S, K, C, n, idx, vals, bins, out, stream);
-}
 
 // K10: L levels (host arrays of their device pointers, rows and widths)
 // folded from vals (n, C) into out (rows[L - 1], C) in one launch
@@ -248,7 +220,7 @@ extern "C" int nxfx_fold(
     const double* vals, double* out, cudaStream_t stream)
 {
     if (L < 1 || L > FOLD_MAX_LEVELS) return static_cast<int>(cudaErrorInvalidValue);
-    if (L == 1) return launch_segsum(rows[0], K[0], C, n, idx[0], vals, nullptr, out, stream);
+    if (L == 1) return launch_segsum(rows[0], K[0], C, n, idx[0], vals, out, stream);
     FoldLevels F = {};
     for (int l = 0; l < L; ++l) {
         F.idx[l] = idx[l];

@@ -5,11 +5,12 @@
 // weights cw (K6 sums of the runtime conductances, once per solve) and the
 // diagonal:
 //   out_i = diag_i x_i - sum_c cw[c, i] x_{i + d_c}   (0 outside [0, B))
-// three forms:
+// two forms:
 //   apply     out = L x, or with b the residual b - L x and, when asked,
-//             ||b - L x|| as per-block partial sums of squares finished by
-//             one block; diag and b are strided (the general DCT route
-//             reads them from the interleaved (B, 2) system dr: stride 2);
+//             ||b - L x||, finished inside the launch by the last block
+//             (ticket_norm.cuh); diag and b are read at the plan's stride
+//             (the general DCT route reads them from the interleaved (B, 2)
+//             system dr: stride 2);
 //   cheb      one step of the Chebyshev-Jacobi smoother of the CG route and
 //             of the 1-D multigrid levels (ops/krylov.py:58-65) with the
 //             Jacobi scaling s = diag^-1/2 fused: y = s x, then
@@ -21,52 +22,62 @@
 // order (ascending offset), so the sum is the plain version's to the last
 // bit; the reads of x at the C offsets are coalesced across the warp.  x_in
 // and x_out are different buffers: a row reads its neighbours' x.
+//
+// Each call is one launch.  The rows, classes, offsets and stride are packed
+// once per plan into a ShiftArgs (kernels/shift_matvec.py:ShiftPlan), with
+// the norm's partials and ticket as scratch of the calling stream, so two
+// streams and CUDA-graph replays give the bits of calls made alone.
 
 #include <cuda_runtime.h>
+
+#include "ticket_norm.cuh"
+
+constexpr int SHIFT_MAX_CLASSES = 16;
+
+// A plan's rows, classes in ascending offset, the stride of diag and b, and
+// one calling stream's scratch: partial holds ceil(B / 256) doubles, ticket
+// is 0 on entry and exit.  Built by the Python plan (a ctypes Structure of
+// the same fields).
+struct ShiftArgs {
+    int B, C, stride;
+    int d[SHIFT_MAX_CLASSES];
+    double* partial;
+    unsigned int* ticket;
+};
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_CLASSES = 16;
-
-struct Offsets {
-    int d[MAX_CLASSES];
-};
 
 __global__ void __launch_bounds__(THREADS) shift_apply_kernel(
-    int B, int C, Offsets off,
+    ShiftArgs a,
     const double* __restrict__ cw,
-    const double* diag, int dstride,
+    const double* diag,
     const double* __restrict__ x,
-    const double* b, int bstride,
+    const double* b,
     double* __restrict__ out,
-    double* __restrict__ partial)
+    double* norm)
 {
-    __shared__ double part[THREADS];
+    const int B = a.B;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     double r = 0.0;
     if (i < B) {
-        double o = diag[static_cast<size_t>(dstride) * i] * x[i];
-        for (int c = 0; c < C; ++c) {
-            const long long j = (long long)i + off.d[c];
+        double o = diag[static_cast<size_t>(a.stride) * i] * x[i];
+#pragma unroll
+        for (int c = 0; c < SHIFT_MAX_CLASSES; ++c) {  // unrolled: the offsets stay kernel parameters
+            if (c >= a.C) break;
+            const long long j = (long long)i + a.d[c];
             const double v = (j >= 0 && j < B) ? x[j] : 0.0;
             o = o - cw[(size_t)c * B + i] * v;
         }
-        r = b != nullptr ? b[static_cast<size_t>(bstride) * i] - o : o;
+        r = b != nullptr ? b[static_cast<size_t>(a.stride) * i] - o : o;
         out[i] = r;
     }
-    if (partial == nullptr) return;
-    part[threadIdx.x] = r * r;
-    __syncthreads();
-    for (int half = THREADS / 2; half > 0; half /= 2) {
-        if (threadIdx.x < half) part[threadIdx.x] = part[threadIdx.x] + part[threadIdx.x + half];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) partial[blockIdx.x] = part[0];
+    if (norm != nullptr) ticket_norm<THREADS>(r, a.partial, a.ticket, norm);
 }
 
 __global__ void __launch_bounds__(THREADS) shift_cheb_kernel(
-    int B, int C, Offsets off,
+    ShiftArgs a,
     const double* __restrict__ cw,
     const double* __restrict__ diag,
     const double* __restrict__ s,
@@ -77,11 +88,14 @@ __global__ void __launch_bounds__(THREADS) shift_cheb_kernel(
     double c1, double c2,
     double* z, const double* base)
 {
+    const int B = a.B;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= B) return;
-    double o = diag[i] * (s[i] * x_in[i]);
-    for (int c = 0; c < C; ++c) {
-        const long long j = (long long)i + off.d[c];
+    double o = diag[static_cast<size_t>(a.stride) * i] * (s[i] * x_in[i]);
+#pragma unroll
+    for (int c = 0; c < SHIFT_MAX_CLASSES; ++c) {
+        if (c >= a.C) break;
+        const long long j = (long long)i + a.d[c];
         const double v = (j >= 0 && j < B) ? s[j] * x_in[j] : 0.0;
         o = o - cw[(size_t)c * B + i] * v;
     }
@@ -93,62 +107,31 @@ __global__ void __launch_bounds__(THREADS) shift_cheb_kernel(
     if (z != nullptr) z[i] = base != nullptr ? base[i] + s[i] * xn : s[i] * xn;
 }
 
-__global__ void sumsq_finish_kernel(int m, const double* __restrict__ partial, double* __restrict__ out)
-{
-    __shared__ double part[1024];
-    double acc = 0.0;
-    for (int i = threadIdx.x; i < m; i += blockDim.x) acc += partial[i];
-    part[threadIdx.x] = acc;
-    __syncthreads();
-    for (int half = blockDim.x / 2; half > 0; half /= 2) {
-        if (threadIdx.x < half) part[threadIdx.x] = part[threadIdx.x] + part[threadIdx.x + half];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) *out = sqrt(part[0]);
-}
-
-int offsets_of(int C, const int* offsets_host, Offsets* off)
-{
-    if (C < 0 || C > MAX_CLASSES) return static_cast<int>(cudaErrorInvalidValue);
-    for (int c = 0; c < C; ++c) off->d[c] = offsets_host[c];
-    return 0;
-}
+int blocks_of(int B) { return (B + THREADS - 1) / THREADS; }
 
 }  // namespace
 
-// out = L x, or b - L x when b is given; diag and b are read at strides
-// dstride and bstride (2 for the columns of the interleaved (B, 2) dr);
-// partial (ceil(B / 256) doubles) and norm may be null
+// One launch: out = L x, or b - L x when b is given; with norm non-null
+// (and b given) also norm = ||b - L x||.
 extern "C" int nxfx_shift_matvec(
-    int B, int C, const int* offsets_host,
-    const double* cw, const double* diag, int dstride, const double* x, const double* b, int bstride,
-    double* out, double* partial, double* norm, cudaStream_t stream)
+    const ShiftArgs* a, const double* cw, const double* diag, const double* x, const double* b,
+    double* out, double* norm, cudaStream_t stream)
 {
-    if (B <= 0) return 0;
-    Offsets off{};
-    int code = offsets_of(C, offsets_host, &off);
-    if (code != 0) return code;
-    const int blocks = (B + THREADS - 1) / THREADS;
-    shift_apply_kernel<<<blocks, THREADS, 0, stream>>>(B, C, off, cw, diag, dstride, x, b, bstride, out,
-                                                       partial);
-    code = static_cast<int>(cudaGetLastError());
-    if (code != 0 || partial == nullptr) return code;
-    sumsq_finish_kernel<<<1, 1024, 0, stream>>>(blocks, partial, norm);
+    if (a->B <= 0) return 0;
+    if (a->C < 0 || a->C > SHIFT_MAX_CLASSES) return static_cast<int>(cudaErrorInvalidValue);
+    shift_apply_kernel<<<blocks_of(a->B), THREADS, 0, stream>>>(*a, cw, diag, x, b, out, norm);
     return static_cast<int>(cudaGetLastError());
 }
 
-// one Chebyshev step; z and base may be null
+// One Chebyshev step; z and base may be null.
 extern "C" int nxfx_shift_cheb(
-    int B, int C, const int* offsets_host,
-    const double* cw, const double* diag, const double* s, const double* rs, double* dvec,
-    const double* x_in, double* x_out, double c1, double c2, double* z, const double* base,
+    const ShiftArgs* a, const double* cw, const double* diag, const double* s, const double* rs,
+    double* dvec, const double* x_in, double* x_out, double c1, double c2, double* z, const double* base,
     cudaStream_t stream)
 {
-    if (B <= 0) return 0;
-    Offsets off{};
-    const int code = offsets_of(C, offsets_host, &off);
-    if (code != 0) return code;
-    shift_cheb_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
-        B, C, off, cw, diag, s, rs, dvec, x_in, x_out, c1, c2, z, base);
+    if (a->B <= 0) return 0;
+    if (a->C < 0 || a->C > SHIFT_MAX_CLASSES) return static_cast<int>(cudaErrorInvalidValue);
+    shift_cheb_kernel<<<blocks_of(a->B), THREADS, 0, stream>>>(*a, cw, diag, s, rs, dvec, x_in, x_out, c1,
+                                                               c2, z, base);
     return static_cast<int>(cudaGetLastError());
 }

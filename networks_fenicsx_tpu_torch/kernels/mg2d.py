@@ -10,14 +10,14 @@ cells) and its Jacobi scaling ``diag^-1/2``.  The wrappers:
 * :func:`level0` and :func:`coarsen` — the hierarchy, built once per solve
   from the class weights and the diagonal;
 * :func:`stencil` — the 5-point weighted stencil ``L x`` or ``b − L x``;
-* :func:`cheb` — one fused step of the level's Chebyshev-Jacobi smoother;
-* :func:`restrict` and :func:`prolong` — 2×2 block sums with even padding,
-  and ``x += overcorrect·e`` repeated over 2×2 blocks, cropped;
 * :func:`coarse_factor` and :func:`coarse_solve` — the coarsest level's
   banded matrix from its classes, its Cholesky factor (the port's tiled
   factor, ``tiled_cholesky.cuh``) and the two triangular solves per V-cycle.
 
-The V-cycle's own path fuses what the level loop composes, each fusion
+The plain level loop composes :func:`cheb_plain` (one step of the level's
+Chebyshev-Jacobi smoother), :func:`restrict_plain` (2×2 block sums with even
+padding) and :func:`prolong_plain` (``x += overcorrect·e`` repeated over 2×2
+blocks, cropped); the V-cycle's kernel path fuses them, each fusion
 computing exactly what the composed plain versions compute, in their order:
 
 * :func:`cheb_first` — the smoother's start (K19a's ``cheb_start``) folded
@@ -53,8 +53,8 @@ import torch
 from . import build, krylov
 
 __all__ = [
-    "level0", "level0_plain", "coarsen", "coarsen_plain", "stencil", "stencil_plain", "cheb",
-    "cheb_plain", "restrict", "restrict_plain", "prolong", "prolong_plain", "coarse_factor",
+    "level0", "level0_plain", "coarsen", "coarsen_plain", "stencil", "stencil_plain",
+    "cheb_plain", "restrict_plain", "prolong_plain", "coarse_factor",
     "coarse_factor_plain", "coarse_solve", "coarse_solve_plain", "cheb_first", "cheb_first_plain",
     "residual_restrict", "residual_restrict_plain", "prolong_residual", "prolong_residual_plain",
     "Cycle", "FIELDS", "LAUNCHES",
@@ -269,19 +269,6 @@ def stencil(lev, shape: Shape, x, b=None) -> torch.Tensor:
     return out
 
 
-def cheb(lev, shape: Shape, rs, dvec, x_in, x_out, c1: float, c2: float, z=None, base=None) -> None:
-    """One fused smoother step: ``dvec`` in place, ``x_out`` (another buffer
-    than ``x_in``) and, on the last step, ``z``."""
-    if x_in.device.type == "cpu":
-        return cheb_plain(lev, shape, rs, dvec, x_in, x_out, c1, c2, z, base)
-    m = shape[0] * shape[1]
-    _check("mg2d", m, rs, dvec, x_in, x_out, *(t for t in (z, base) if t is not None), lev=lev)
-    if x_in.data_ptr() == x_out.data_ptr():
-        raise ValueError("mg2d: x_out must be another buffer than x_in")
-    _launch("nxfx_mg2d_cheb", x_in.device, *shape, lev.data_ptr(), rs.data_ptr(), dvec.data_ptr(),
-            x_in.data_ptr(), x_out.data_ptr(), float(c1), float(c2), _ptr(z), _ptr(base))
-
-
 def cheb_first(lev, shape: Shape, r, theta: float, rs, dvec, x_out, c1: float, c2: float, z=None,
                base=None) -> None:
     """The smoother's start folded into its first step: ``rs``, ``dvec``,
@@ -324,26 +311,6 @@ def prolong_residual(lev, shape_f: Shape, shape_c: Shape, x, ec, overcorrect: fl
     _launch("nxfx_mg2d_prolong_residual", x.device, *shape_f, lev.data_ptr(), x.data_ptr(), shape_c[1],
             ec.data_ptr(), float(overcorrect), b.data_ptr(), xp.data_ptr(), res.data_ptr())
     return xp, res
-
-
-def restrict(res, shape_f: Shape, shape_c: Shape) -> torch.Tensor:
-    """2×2 block sums of ``res`` (even padding)."""
-    if res.device.type == "cpu":
-        return restrict_plain(res, shape_f, shape_c)
-    _check("mg2d", shape_f[0] * shape_f[1], res)
-    rc = torch.empty(shape_c[0] * shape_c[1], dtype=torch.float64, device=res.device)
-    _launch("nxfx_mg2d_restrict", res.device, *shape_f, res.data_ptr(), *shape_c, rc.data_ptr())
-    return rc
-
-
-def prolong(x, shape_f: Shape, shape_c: Shape, ec, overcorrect: float) -> None:
-    """``x += overcorrect·e`` repeated over 2×2 blocks and cropped, in place."""
-    if x.device.type == "cpu":
-        return prolong_plain(x, shape_f, shape_c, ec, overcorrect)
-    _check("mg2d", shape_f[0] * shape_f[1], x)
-    _check("mg2d", shape_c[0] * shape_c[1], ec)
-    _launch("nxfx_mg2d_prolong", x.device, *shape_f, x.data_ptr(), shape_c[1], ec.data_ptr(),
-            float(overcorrect))
 
 
 def coarse_factor(offsets, cw, diag) -> torch.Tensor:

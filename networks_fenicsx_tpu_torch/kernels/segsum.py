@@ -4,13 +4,10 @@ Replaces ``networks_fenicsx_tpu/solver.py:_segsum_sorted`` (``:2058-2128``):
 ``out[s, c] = Σ_j vals[idx[s, j], c]`` over a host-built ``(S, K)`` gather
 matrix (:func:`..levels.segsum_matrix`) whose padding names the zero slot
 ``n = vals.shape[0]``.  ``vals`` is ``(n,)`` or ``(n, C)`` float64.
-Given ``bins`` (sorted, unique) and ``out``, the sums are added into rows
-``out[bins[s]]`` instead, in place — the sorted-unique scatter-add of
-``_lambda_system_sorted`` (``:700-737``).
-
-:func:`segsum` launches the kernel for CUDA tensors and runs
-:func:`segsum_plain` — the reference's padded gather and row sum, in eager
-PyTorch — for CPU tensors.
+Given ``bins`` (sorted, unique), the sums are added into rows ``out[bins[s]]``
+instead — the sorted-unique scatter-add of ``_lambda_system_sorted``
+(``:700-737``).  :func:`segsum_plain` is the reference's padded gather and
+row sum, in eager PyTorch.
 
 A route's sums go through a :class:`SumPlan`: up to :data:`MAX_GROUPS`
 groups ``(idx, bins or None)`` on one device, validated once where the
@@ -23,8 +20,8 @@ device switch when the values' device is the current one.  The groups with
 ``bins`` share one output, written whole: the rows no group names are 0,
 the others ``(+0.0 + sum of the first group) + sum of the next ...`` in
 group order — the plain version's zero-filled output with each group added
-into it in turn (:func:`segsum_plan_plain`), to the bit.  Both wrappers
-count on ``segsum.launches``.
+into it in turn (:func:`segsum_plan_plain`), to the bit.  CPU values run
+:func:`segsum_plan_plain`.  The launches count on :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -35,9 +32,10 @@ import torch
 
 from . import build
 
-__all__ = ["segsum", "segsum_plain", "SumPlan", "segsum_plan", "segsum_plan_plain", "MAX_GROUPS"]
+__all__ = ["segsum_plain", "SumPlan", "segsum_plan", "segsum_plan_plain", "MAX_GROUPS", "LAUNCHES"]
 
 MAX_GROUPS = 4  # SUM_MAX_GROUPS in csrc/segsum.cu
+LAUNCHES = build.Counter("segsum")
 
 
 def segsum_plain(
@@ -67,52 +65,6 @@ def segsum_plain(
     b = bins.long()
     out[b] = out[b] + sums
     return out
-
-
-def segsum(
-    idx: torch.Tensor, vals: torch.Tensor, bins: torch.Tensor | None = None,
-    out: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """K6 on ``vals``' device: ``(S,) + vals.shape[1:]`` segment sums, or
-    with ``bins`` (S,) the sums added into ``out[bins]`` in place."""
-    if vals.device.type == "cpu":
-        return segsum_plain(idx, vals, bins, out)
-    build.require_cuda("segsum", vals)
-    build.require_cuda("segsum", idx, dtype=torch.int32)
-    if vals.dim() not in (1, 2) or idx.dim() != 2:
-        raise ValueError("segsum: vals must be (n,) or (n, C) and idx (S, K)")
-    S = idx.shape[0]
-    if bins is None:
-        out = torch.empty((S,) + tuple(vals.shape[1:]), dtype=torch.float64, device=vals.device)
-    else:
-        build.require_cuda("segsum", out)
-        build.require_cuda("segsum", bins, dtype=torch.int32)
-        if tuple(bins.shape) != (S,) or tuple(out.shape[1:]) != tuple(vals.shape[1:]):
-            raise ValueError("segsum: bins must be (S,) and out (B,) + vals.shape[1:]")
-    C = 1 if vals.dim() == 1 else vals.shape[1]
-    if S * C == 0:
-        return out
-    index = vals.get_device()
-    if index == torch._C._cuda_getDevice():
-        code = _launch(S, idx.shape[1], C, idx, vals, out, bins, index)
-    else:
-        with torch.cuda.device(index):
-            code = _launch(S, idx.shape[1], C, idx, vals, out, bins, index)
-    build.check(code, "segsum")
-    segsum.launches += 1
-    return out
-
-
-segsum.launches = 0
-
-
-def _launch(S, K, C, idx, vals, out, bins, index: int) -> int:
-    lib, stream = build.library(), build.raw_stream(index)
-    if bins is None:
-        return lib.nxfx_segsum(S, K, C, vals.shape[0], idx.data_ptr(), vals.data_ptr(), out.data_ptr(),
-                               stream)
-    return lib.nxfx_segsum_into(S, K, C, vals.shape[0], idx.data_ptr(), vals.data_ptr(), bins.data_ptr(),
-                                out.data_ptr(), stream)
 
 
 class _SumPlanArgs(ctypes.Structure):
@@ -257,7 +209,7 @@ def segsum_plan(plan: SumPlan, *vals: torch.Tensor) -> tuple:
     if vals and vals[0].device.type == "cpu":
         return segsum_plan_plain(plan, *vals)
     outs = launch_plan(plan, vals)
-    segsum.launches += 1
+    LAUNCHES.launches += 1
     return outs
 
 

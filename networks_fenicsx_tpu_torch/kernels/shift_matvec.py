@@ -11,12 +11,19 @@ the final residual of the general DCT route and of the CG route), and
 :func:`shift_cheb` one fused step of the Chebyshev-Jacobi smoother
 (``ops/krylov.py:58-65``); both count in ``shift_matvec.launches``.
 
-Each wrapper launches the kernel for CUDA tensors and runs its plain
+Both take a :class:`ShiftPlan`, made once where the classes are uploaded
+(:func:`..lattice.device_lattice_plan` for the general DCT route, the CG
+executor's operator, the 1-D multigrid levels).  Each wrapper launches the
+kernel for CUDA tensors — one launch a call, the norm finished inside it, on
+the lean path: one pass of checks, the raw stream, no device switch when the
+device is current, the norm's scratch from the plan — and runs its plain
 version, the reference's zero-padded shifts in eager PyTorch, for CPU
 tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -24,11 +31,11 @@ import torch
 from . import build
 
 __all__ = [
-    "shift_matvec", "shift_matvec_plain", "shift_cheb", "shift_cheb_plain",
+    "ShiftPlan", "shift_matvec", "shift_matvec_plain", "shift_cheb", "shift_cheb_plain",
 ]
 
 THREADS = 256
-MAX_CLASSES = 16
+MAX_CLASSES = 16  # SHIFT_MAX_CLASSES in csrc/shift_matvec.cu
 
 
 def _shift(lam: torch.Tensor, d: int, m: int) -> torch.Tensor:
@@ -62,40 +69,93 @@ def shift_cheb_plain(offsets, cw, diag, s, rs, dvec, x_in, x_out, c1: float, c2:
         z.copy_(s * xn if base is None else base + s * xn)
 
 
-def _check_classes(name, offsets, cw, B):
-    C = np.asarray(offsets).shape[0]
-    if C > MAX_CLASSES or tuple(cw.shape) != (C, B):
-        raise ValueError(f"{name}: at most 16 classes and cw (C, B)")
-    return np.ascontiguousarray(offsets, dtype=np.int32), C
+class _ShiftArgs(ctypes.Structure):
+    """``ShiftArgs`` of ``csrc/shift_matvec.cu``."""
+
+    _fields_ = [("B", ctypes.c_int), ("C", ctypes.c_int), ("stride", ctypes.c_int),
+                ("d", ctypes.c_int * MAX_CLASSES), ("partial", ctypes.c_void_p),
+                ("ticket", ctypes.c_void_p)]
 
 
-def shift_matvec(offsets, cw, diag, x, b=None, norm: bool = False):
+class ShiftPlan:
+    """K18's classes on one device, made once where they are uploaded.
+
+    ``offsets`` are the host class offsets in ascending order (int32, at most
+    :data:`MAX_CLASSES`), ``B`` the rows, ``stride`` the stride at which the
+    kernel reads ``diag`` and ``b`` (2 for the columns of the general DCT
+    route's interleaved ``(B, 2)`` system ``dr``, else 1), ``index`` the
+    CUDA device (-1 off CUDA).  The launcher's argument struct (rows,
+    classes, offsets, stride) is packed once per calling stream together with
+    that stream's scratch — the norm's ``blocks`` partial sums and its ticket
+    word, zeroed on the stream at its first call and left at 0 by every
+    launch.  The class weights change every solve and are checked per call,
+    in the pass that checks the vectors.  Raises ``ValueError`` for offsets
+    that are not ascending, more classes than the kernel takes, or a shape
+    out of its range."""
+
+    __slots__ = ("offsets", "B", "C", "stride", "index", "blocks", "_scratch")
+
+    def __init__(self, offsets, B: int, device, stride: int = 1):
+        offsets = np.ascontiguousarray(offsets, dtype=np.int32)
+        if offsets.ndim != 1 or offsets.size > MAX_CLASSES or np.any(np.diff(offsets) <= 0):
+            raise ValueError(f"ShiftPlan: at most {MAX_CLASSES} class offsets, ascending")
+        if not 0 <= B < 2**31 - THREADS or stride not in (1, 2):
+            raise ValueError(f"ShiftPlan: B in [0, 2^31) and stride 1 or 2, got {B}, {stride}")
+        device = torch.device(device)
+        if device.type == "meta":
+            raise ValueError("ShiftPlan: a meta device holds no data")
+        self.offsets, self.B, self.C, self.stride = offsets, int(B), int(offsets.size), int(stride)
+        self.index = (device.index if device.index is not None else torch.cuda.current_device()) \
+            if device.type == "cuda" else -1
+        self.blocks = -(-self.B // THREADS)
+        self._scratch = {}
+
+    def _args(self, stream: int) -> int:
+        """The address of the plan's :class:`_ShiftArgs` on CUDA stream
+        ``stream``, made at the stream's first call."""
+        entry = self._scratch.get(stream)
+        if entry is None:
+            buf = torch.zeros(self.blocks + 1, dtype=torch.float64, device=f"cuda:{self.index}")
+            args = _ShiftArgs(self.B, self.C, self.stride, (ctypes.c_int * MAX_CLASSES)(*self.offsets),
+                              buf.data_ptr(), buf.data_ptr() + 8 * self.blocks)
+            entry = self._scratch[stream] = (ctypes.addressof(args), args, buf)
+        return entry[0]
+
+
+def _require_operator(name: str, plan: ShiftPlan, cw, *strided) -> None:
+    """The per-call check of the class weights (``(C, B)`` contiguous) and of
+    the tensors read at the plan's stride (``diag``, ``b``), one pass."""
+    index, B = plan.index, plan.B
+    if (not cw.is_cuda or cw.get_device() != index or cw.dtype is not torch.float64
+            or tuple(cw.shape) != (plan.C, B) or not cw.is_contiguous()):
+        raise ValueError(f"{name}: cw must be a contiguous float64 ({plan.C}, {B}) tensor on CUDA "
+                         f"device {index}")
+    for t in strided:
+        if (not t.is_cuda or t.get_device() != index or t.dtype is not torch.float64
+                or t.dim() != 1 or t.shape[0] != B or (B > 1 and t.stride(0) != plan.stride)):
+            raise ValueError(f"{name}: diag and b must be float64 ({B},) tensors of stride "
+                             f"{plan.stride} on CUDA device {index}")
+
+
+def shift_matvec(plan: ShiftPlan, cw, diag, x, b=None, norm: bool = False):
     """K18 on ``x``'s device: ``L x``, or ``b − L x`` (and its norm) when
-    ``b`` is given.  ``offsets`` is the host int32 ``(C,)`` array of class
-    offsets in ascending order, ``cw`` the ``(C, B)`` class weights; ``diag``
-    and ``b`` are ``(B,)`` views of any stride (the DCT route passes the two
-    columns of its ``(B, 2)`` system ``dr``), ``x`` is contiguous."""
+    ``b`` is given; ``cw`` the ``(C, B)`` class weights, ``diag`` and ``b``
+    ``(B,)`` at the plan's stride, ``x`` contiguous.  One launch a call."""
     if x.device.type == "cpu":
-        return shift_matvec_plain(offsets, cw, diag, x, b, norm)
-    B = x.shape[0]
-    vecs = (x, diag) if b is None else (x, diag, b)
-    build.require_cuda("shift_matvec", cw, *vecs, contiguous=False)
-    offsets, C = _check_classes("shift_matvec", offsets, cw, B)
-    if (any(tuple(v.shape) != (B,) for v in vecs) or not (cw.is_contiguous() and x.is_contiguous())
-            or (norm and b is None)):
-        raise ValueError("shift_matvec: diag, x and b (B,), cw and x contiguous; norm needs b")
-    dev, dt = x.device, torch.float64
-    out = torch.empty(B, dtype=dt, device=dev)
-    partial = torch.empty((B + THREADS - 1) // THREADS, dtype=dt, device=dev) if norm else None
-    nrm = torch.empty((), dtype=dt, device=dev) if norm else None
-    with torch.cuda.device(dev):
-        code = build.library().nxfx_shift_matvec(
-            B, C, offsets.ctypes.data, cw.data_ptr(), diag.data_ptr(), diag.stride(0), x.data_ptr(),
-            None if b is None else b.data_ptr(), 0 if b is None else b.stride(0), out.data_ptr(),
-            None if partial is None else partial.data_ptr(), None if nrm is None else nrm.data_ptr(),
-            build.stream_handle(dev),
-        )
-    build.check(code, "shift_matvec")
+        return shift_matvec_plain(plan.offsets, cw, diag, x, b, norm)
+    index, B = plan.index, plan.B
+    build.require_vectors("shift_matvec", index, (x, B))
+    _require_operator("shift_matvec", plan, cw, diag, *(() if b is None else (b,)))
+    if norm and b is None:
+        raise ValueError("shift_matvec: the norm is of the residual b - L x: b is needed")
+    out = x.new_empty(B)
+    nrm = x.new_empty(()) if norm else None
+    stream = build.raw_stream(index)
+    code = build.on_device(index, build.library().nxfx_shift_matvec, plan._args(stream), cw.data_ptr(),
+                           diag.data_ptr(), x.data_ptr(), None if b is None else b.data_ptr(),
+                           out.data_ptr(), None if nrm is None else nrm.data_ptr(), stream)
+    if code:
+        build.check(code, "shift_matvec")
     shift_matvec.launches += 1
     return (out, nrm) if norm else out
 
@@ -103,25 +163,23 @@ def shift_matvec(offsets, cw, diag, x, b=None, norm: bool = False):
 shift_matvec.launches = 0
 
 
-def shift_cheb(offsets, cw, diag, s, rs, dvec, x_in, x_out, c1: float, c2: float, z=None,
+def shift_cheb(plan: ShiftPlan, cw, diag, s, rs, dvec, x_in, x_out, c1: float, c2: float, z=None,
                base=None) -> None:
     """K18's fused Chebyshev-Jacobi step: ``dvec`` in place, ``x_out`` (a
     buffer other than ``x_in``) and, on the last step, ``z``."""
     if x_in.device.type == "cpu":
-        return shift_cheb_plain(offsets, cw, diag, s, rs, dvec, x_in, x_out, c1, c2, z, base)
-    B = x_in.shape[0]
-    vecs = [diag, s, rs, dvec, x_in, x_out] + [t for t in (z, base) if t is not None]
-    build.require_cuda("shift_cheb", cw, *vecs)
-    offsets, C = _check_classes("shift_cheb", offsets, cw, B)
-    if any(tuple(v.shape) != (B,) for v in vecs) or x_in.data_ptr() == x_out.data_ptr():
-        raise ValueError("shift_cheb: (B,) vectors, x_out other than x_in")
-    dev = x_in.device
-    with torch.cuda.device(dev):
-        code = build.library().nxfx_shift_cheb(
-            B, C, offsets.ctypes.data, cw.data_ptr(), diag.data_ptr(), s.data_ptr(), rs.data_ptr(),
-            dvec.data_ptr(), x_in.data_ptr(), x_out.data_ptr(), float(c1), float(c2),
-            None if z is None else z.data_ptr(), None if base is None else base.data_ptr(),
-            build.stream_handle(dev),
-        )
-    build.check(code, "shift_cheb")
+        return shift_cheb_plain(plan.offsets, cw, diag, s, rs, dvec, x_in, x_out, c1, c2, z, base)
+    index, B = plan.index, plan.B
+    build.require_vectors("shift_cheb", index, *((t, B) for t in (s, rs, dvec, x_in, x_out, z, base)
+                                               if t is not None))
+    _require_operator("shift_cheb", plan, cw, diag)
+    if x_in.data_ptr() == x_out.data_ptr():
+        raise ValueError("shift_cheb: x_out must be another buffer than x_in")
+    stream = build.raw_stream(index)
+    code = build.on_device(index, build.library().nxfx_shift_cheb, plan._args(stream), cw.data_ptr(),
+                           diag.data_ptr(), s.data_ptr(), rs.data_ptr(), dvec.data_ptr(), x_in.data_ptr(),
+                           x_out.data_ptr(), float(c1), float(c2), None if z is None else z.data_ptr(),
+                           None if base is None else base.data_ptr(), stream)
+    if code:
+        build.check(code, "shift_cheb")
     shift_matvec.launches += 1

@@ -208,7 +208,7 @@ def shift_class_matrix(classes, B: int, E: int) -> np.ndarray:
 def _shift_class_weights(w_edges: torch.Tensor, class_idx: torch.Tensor, n_classes: int, sums):
     """Per-class ``(C, B)`` off-diagonal weights from the runtime
     conductances ``w_edges = 1/W`` (once per solve, reference ``:799-803``);
-    ``sums`` is K6 (:func:`.kernels.segsum.segsum`) or its plain version."""
+    ``sums`` is K6's plain version (:func:`.kernels.segsum.segsum_plain`)."""
     return sums(class_idx, w_edges).view(n_classes, -1)
 
 
@@ -425,17 +425,23 @@ class DeviceLatticePlan:
     mv_edge: torch.Tensor | None = None
     mv_other: torch.Tensor | None = None
     # K6's plans (validated here, at upload): the bifurcation system's two
-    # sides, and the class weights when there is a shift plan
+    # sides, and the class weights when there is a shift plan; K18's plan of
+    # the general DCT route, which reads diag and rhs as the stride-2
+    # columns of the interleaved (B, 2) system dr
     lambda_sums: typing.Any = dataclasses.field(init=False, compare=False, repr=False)
     class_sums: typing.Any = dataclasses.field(init=False, compare=False, repr=False)
+    shift: typing.Any = dataclasses.field(init=False, compare=False, repr=False)
 
     def __post_init__(self):
         from .kernels.peel import lambda_sums
         from .kernels.segsum import SumPlan
+        from .kernels.shift_matvec import ShiftPlan
 
         object.__setattr__(self, "lambda_sums", lambda_sums(self))
         object.__setattr__(self, "class_sums", None if self.class_idx is None
                            else SumPlan(((self.class_idx, None),), (1,)))
+        object.__setattr__(self, "shift", None if self.offsets is None else ShiftPlan(
+            self.offsets, self.num_bifurcations, self.start_bif.device, stride=2))
 
     @property
     def num_edges(self) -> int:

@@ -154,9 +154,10 @@ def mg2d_plan(offsets, B: int, stride: int) -> Mg2dPlan:
 @dataclasses.dataclass(frozen=True)
 class Mg1dLevel:
     """One level of :func:`_plan_mg` on a device: its size, class offsets,
-    host mapping, and the mapping as int32 tables (per coarse class a run
-    of ``(class index, parity)`` pairs: ``map_ptr`` offsets, ``map_ci``,
-    ``map_p``)."""
+    host mapping, the mapping as int32 tables (per coarse class a run of
+    ``(class index, parity)`` pairs: ``map_ptr`` offsets, ``map_ci``,
+    ``map_p``) and K18's :class:`.kernels.shift_matvec.ShiftPlan` of its
+    classes."""
 
     m: int
     mc: int
@@ -165,6 +166,7 @@ class Mg1dLevel:
     map_ptr: torch.Tensor
     map_ci: torch.Tensor
     map_p: torch.Tensor
+    shift: shift_matvec.ShiftPlan  # K18's plan of the level's matvec and smoother
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,6 +191,7 @@ def device_mg1d_plan(plan, device) -> Mg1dPlan:
             map_ptr=i32(np.concatenate([[0], np.cumsum([len(c) for c in runs])])),
             map_ci=i32([ci for c in runs for ci, _ in c]),
             map_p=i32([p for c in runs for _, p in c]),
+            shift=shift_matvec.ShiftPlan(classes, m, device),
         ))
     return Mg1dPlan(tuple(levels), m_bot, np.asarray(classes_bot, dtype=np.int32))
 
@@ -197,22 +200,25 @@ def device_mg1d_plan(plan, device) -> Mg1dPlan:
 
 
 class ShiftOperator:
-    """The λ operator by shift classes (K18): ``offsets`` (host int32),
+    """The λ operator by shift classes (K18): ``plan`` a
+    :class:`.kernels.shift_matvec.ShiftPlan` made once for the classes,
     ``cw`` ``(C, m)``, ``diag`` ``(m,)``."""
 
-    def __init__(self, offsets, cw, diag, plain: bool = False):
-        self.offsets, self.cw, self.diag = offsets, cw, diag
+    def __init__(self, plan, cw, diag, plain: bool = False):
+        self.offsets, self.cw, self.diag = plan.offsets, cw, diag
+        # the plain versions take the host offsets, the kernels the plan
+        self._key = plan.offsets if plain else plan
         self._apply = shift_matvec.shift_matvec_plain if plain else shift_matvec.shift_matvec
         self._cheb = shift_matvec.shift_cheb_plain if plain else shift_matvec.shift_cheb
 
     def apply(self, x):
-        return self._apply(self.offsets, self.cw, self.diag, x)
+        return self._apply(self._key, self.cw, self.diag, x)
 
     def residual(self, b, x, norm: bool = False):
-        return self._apply(self.offsets, self.cw, self.diag, x, b, norm)
+        return self._apply(self._key, self.cw, self.diag, x, b, norm)
 
     def step(self, s, rs, dvec, x_in, x_out, c1, c2, z=None, base=None):
-        self._cheb(self.offsets, self.cw, self.diag, s, rs, dvec, x_in, x_out, c1, c2, z, base)
+        self._cheb(self._key, self.cw, self.diag, s, rs, dvec, x_in, x_out, c1, c2, z, base)
 
 
 class GatherOperator:
@@ -238,12 +244,14 @@ class GatherOperator:
 
 
 class _Mg2d:
-    """K19c's wrappers, or their plain versions."""
+    """K19c's wrappers, or their plain versions; the level loop's smoother
+    step and transfers are plain versions always (on CUDA the kernels run
+    them fused, in :class:`.kernels.mg2d.Cycle`)."""
 
     def __init__(self, plain: bool):
-        for name in ("level0", "coarsen", "stencil", "cheb", "restrict", "prolong",
-                     "coarse_factor", "coarse_solve"):
+        for name in ("level0", "coarsen", "stencil", "coarse_factor", "coarse_solve"):
             setattr(self, name, getattr(mg2d, name + "_plain" if plain else name))
+        self.cheb, self.restrict, self.prolong = mg2d.cheb_plain, mg2d.restrict_plain, mg2d.prolong_plain
 
 
 class Mg2dPreconditioner:
@@ -256,8 +264,9 @@ class Mg2dPreconditioner:
     (checked once here): 6 launches a level — the smoother's start folded
     into its first step, its second step, the residual and restriction in
     one, the prolongation and the next residual in one, the post-smoother's
-    two — issued in two host calls around the coarsest solve.  ``plain=True``
-    or CPU tensors run the composed plain versions level by level."""
+    two — issued in two host calls around the coarsest solve (a hierarchy
+    without smoothed levels is the coarsest solve alone).  ``plain=True`` or
+    CPU tensors run the composed plain versions level by level."""
 
     def __init__(self, plan: Mg2dPlan, cw, diag, overcorrect: float = 1.8, plain: bool = False):
         self.plan, self.overcorrect = plan, float(overcorrect)
@@ -267,11 +276,12 @@ class Mg2dPreconditioner:
             levels.append(k.coarsen(levels[-1], f, c))
         self.levels, self.bottom = levels[:-1], levels[-1]
         self.factor = k.coarse_factor(plan.bottom_offsets, self.bottom[:4], self.bottom[mg2d.FD])
-        self.cycle = None
-        if not plain and diag.is_cuda and self.levels:
-            theta, coeffs = chebyshev_coefficients(SMOOTH_DEGREE, ratio=SMOOTH_RATIO)
-            self.cycle = mg2d.Cycle(self.levels, plan.shapes, plan.bottom, theta, coeffs,
-                                    self.overcorrect)
+        self.cycle, self.smoothers = None, []
+        if not plain and diag.is_cuda:  # the kernels: a Cycle, or the coarsest solve alone
+            if self.levels:
+                theta, coeffs = chebyshev_coefficients(SMOOTH_DEGREE, ratio=SMOOTH_RATIO)
+                self.cycle = mg2d.Cycle(self.levels, plan.shapes, plan.bottom, theta, coeffs,
+                                        self.overcorrect)
             return
         self.smoothers = [
             chebyshev_preconditioner(self._step(lev, shape), degree=SMOOTH_DEGREE, ratio=SMOOTH_RATIO,
@@ -331,7 +341,7 @@ class Mg1dPreconditioner:
         extra, dis = k.level0(cw, diag)
         self.ops, self.smoothers = [], []
         for lvl in plan.levels:
-            op = ShiftOperator(lvl.offsets, cw, diag, plain)
+            op = ShiftOperator(lvl.shift, cw, diag, plain)
             self.ops.append(op)
             self.smoothers.append(chebyshev_preconditioner(
                 op.step, degree=SMOOTH_DEGREE, ratio=SMOOTH_RATIO, plain=plain, d_isqrt=dis))

@@ -616,9 +616,10 @@ class _DctExecutor(_Executor):
         dr, w_edges, rhs_norm = lam_sys(dlp, ed)
         cw = _class_weights(dlp, w_edges, plain)
         diag, rhs = dr[:, 0], dr[:, 1]
+        classes = dlp.offsets if plain else dlp.shift  # the plain version takes the offsets
         lam = solve(self.operator, w_edges, rhs.contiguous(),
-                    lambda lam: matvec(dlp.offsets, cw, diag, lam, rhs))
-        _, res_norm = matvec(dlp.offsets, cw, diag, lam, rhs, norm=True)
+                    lambda lam: matvec(classes, cw, diag, lam, rhs))
+        _, res_norm = matvec(classes, cw, diag, lam, rhs, norm=True)
         q_T, p_T, finite = expand_lam(ed, lam, N, k)
         iters = torch.zeros((), dtype=torch.int32, device=self._device)
         return q_T, p_T, lam, iters, res_norm, rhs_norm, finite
@@ -658,7 +659,10 @@ class _CgExecutor(_Executor):
         self._f_is_zero = bool(f_is_zero)
         self._device = device
         self._opts = opts
-        self.device_plan = device_lattice_plan(asm, _build_lambda_plan(asm), device)
+        self.device_plan = dlp = device_lattice_plan(asm, _build_lambda_plan(asm), device)
+        # K18's plan of the λ operator (contiguous diag and rhs)
+        self.shift_plan = None if dlp.classes is None else shift_matvec.ShiftPlan(
+            dlp.offsets, dlp.num_bifurcations, device)
         self._h_e = torch.as_tensor(
             np.asarray(mesh.edge_length, dtype=np.float64) / mesh.N, device=device
         )
@@ -683,7 +687,7 @@ class _CgExecutor(_Executor):
         if dlp.classes is None:
             return GatherOperator(dlp.mv_edge, dlp.mv_other, w_edges, diag, plain), None
         cw = _class_weights(dlp, w_edges, plain)
-        return ShiftOperator(dlp.offsets, cw, diag, plain), cw
+        return ShiftOperator(self.shift_plan, cw, diag, plain), cw
 
     def _preconditioner(self, op, cw, plain: bool):
         kind, opts = self.precond_kind[0], self._opts
@@ -986,7 +990,8 @@ class _SchurPExecutor:
     Holds what is static per assembler, built once (its time in
     ``planning_s``): ``J = [B; G]`` — the reduced rows' flux columns of the
     COO stream — and ``Jᵀ`` as two :class:`.ops.sparse.CSRMatrix` whose
-    values the K20 fold writes, the first flux dof of every edge, the
+    values the K20 fold writes, K21a's flux-ordered tile plan
+    (:func:`.kernels.schur_p.flux_tiles`, which checks the flux layout), the
     ``(p, −λ)`` sign vector.  ``__call__`` solves from the assembler's
     current cell masses and right-hand side; ``plain`` runs the kernels'
     plain versions.  Returns ``(x (n,) on the device, iterations, CG
@@ -1015,7 +1020,8 @@ class _SchurPExecutor:
 
         self.J = folded(jr, jc, (n_red, n_flux))
         self.JT = folded(jc, jr, (n_flux, n_red))
-        self.base = torch.as_tensor(asm._edge_flux_base.astype(np.int32), device=device)
+        self.tiles = schur_p.flux_tiles(asm._edge_flux_base, mesh.edge_color, self._N, self._k,
+                                        device)
         B = mesh.num_multipliers
         self.sign = torch.cat([torch.ones(n_red - B, dtype=torch.float64, device=device),
                                -torch.ones(B, dtype=torch.float64, device=device)])
@@ -1028,7 +1034,7 @@ class _SchurPExecutor:
         return self._run(plain=True)
 
     def _run(self, plain: bool):
-        asm, opts, N, k = self._asm, self._opts, self._N, self._k
+        asm, opts = self._asm, self._opts
         if plain:
             factor, solve, tdiag, jac = (schur_p.schur_p_factor_plain, schur_p.schur_p_solve_plain,
                                          csr.csr_tdiag_plain, krylov.jacobi_plain)
@@ -1038,10 +1044,10 @@ class _SchurPExecutor:
                                          csr.csr_tdiag, krylov.jacobi)
             spmv = csr.csr_spmv
         J, JT = self.J.device_arrays, self.JT.device_arrays
-        Lb, A_diag = factor(asm._cell_mass_on(self._device), self.base, N, k, self.n_flux)
+        Lb, A_diag = factor(asm._cell_mass_on(self._device), self.tiles)
 
         def A_inv(v):
-            return solve(Lb, self.base, N, k, v)
+            return solve(Lb, self.tiles, v)
 
         Tdiag = tdiag(*J, A_diag)
         b = torch.as_tensor(asm._b_host, device=self._device)

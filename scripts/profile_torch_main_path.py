@@ -72,11 +72,14 @@ synchronised call and of a call issued back to back (dispatch); and on the
 one pass's four products beside 12 ``torch.matmul``, and K17's stencil
 without and with its norm and its assembly beside CSR ``torch.mv``, each
 with its device µs and launches by kernel name and its host and dispatch
-µs (``--select lattice``: these alone); ``--select redesign`` times K6 and
-K19c alone as their executors issue them (:func:`redesign_times`): the
-forest's three level sums and the web's bifurcation system beside
-``index_add_``, the 512² lattice's V-cycle with its wrapper launches and its
-stencil beside CSR ``torch.mv``.  ``--root``
+µs (``--select lattice``: these alone); ``--select redesign`` times K6,
+K19c, K21a and K18 alone as their executors issue them
+(:func:`redesign_times`): the forest's three level sums and the web's
+bifurcation system beside ``index_add_``, the 512² lattice's V-cycle with
+its wrapper launches and its stencil beside CSR ``torch.mv``, the p1tree's
+K21a solve and factor with their bounds and its executor, K18's normed and
+plain residual on the 512² general route beside CSR ``torch.mv``, a
+skinny-mg Chebyshev step and residual and its executor.  ``--root``
 imports the port from another checkout (e.g. the parent commit unpacked
 with ``git archive``), so that two versions are compared in one call.
 Otherwise the script
@@ -475,26 +478,25 @@ def coarsest_times(dev) -> dict:
 
 
 def redesign_times(dev) -> dict:
-    """``--select redesign``: K6 and K19c as their executors issue them, on
-    the port that ``sys.path`` finds first (this checkout's, or ``--root``'s):
+    """``--select redesign``: the redesigned kernels as their executors
+    issue them, on the port that ``sys.path`` finds first (this checkout's,
+    or ``--root``'s):
 
-    * K6 — the level route's three sums on the 100k forest (a planned port:
-      one ``segsum_plan``; else three ``segsum`` calls) beside 3
-      ``index_add_``, and the bifurcation system's two sides on the 100k web
-      (planned: one launch into ``dr``; else ``zeros`` and two ``segsum``
-      adds) beside 2 ``index_add_``;
+    * K6 — the level route's three sums on the 100k forest (one
+      ``segsum_plan``) beside 3 ``index_add_``, and the bifurcation system's
+      two sides on the 100k web (one launch into ``dr``) beside 2
+      ``index_add_``;
     * K19c — one V-cycle application of the 512² lattice's preconditioner
       with its K19c and K19a wrapper launches, and the level-0 stencil
       beside CSR ``torch.mv``;
+    * K21a — :func:`k21a_times`; K18 — :func:`k18_times`;
 
     each with :func:`timed_call`'s figures."""
     from networks_fenicsx_tpu_torch.kernels import krylov, mg2d, segsum
-    from networks_fenicsx_tpu_torch.kernels.level_eliminate import _prepare_plain
     from networks_fenicsx_tpu_torch.multigrid import Mg2dPreconditioner
 
-    planned = hasattr(segsum, "segsum_plan")
     gen = torch.Generator(device=dev).manual_seed(6)
-    out = {"planned": planned}
+    out = {}
 
     def index_adds(pairs):
         adds = []
@@ -513,12 +515,7 @@ def redesign_times(dev) -> dict:
     E = dlp.num_edges
     w = torch.rand(E, generator=gen, dtype=torch.float64, device=dev)
     vt, vs = (torch.rand((E, 2), generator=gen, dtype=torch.float64, device=dev) for _ in range(2))
-    if planned:
-        level = lambda: segsum.segsum_plan(dlp.sums, w, vt, vs)  # noqa: E731
-    else:
-        level = lambda: (segsum.segsum(dlp.p_idx, w), segsum.segsum(dlp.t_idx, vt),  # noqa: E731
-                         segsum.segsum(dlp.s_idx, vs))
-    out["k6_level_forest"] = timed_call(level)
+    out["k6_level_forest"] = timed_call(lambda: segsum.segsum_plan(dlp.sums, w, vt, vs))
     out["k6_level_forest"]["library_3_index_add"] = timed_call(index_adds(
         [(dlp.p_idx, w, None, dlp.p_idx.shape[0]), (dlp.t_idx, vt, None, dlp.t_idx.shape[0]),
          (dlp.s_idx, vs, None, dlp.s_idx.shape[0])]))
@@ -529,14 +526,7 @@ def redesign_times(dev) -> dict:
     dtp = web._executor.device_plan
     Ew, B = dtp.num_edges, dtp.num_bifurcations
     ut, us_ = (torch.rand((Ew, 2), generator=gen, dtype=torch.float64, device=dev) for _ in range(2))
-    if planned:
-        lam = lambda: segsum.segsum_plan(dtp.lambda_sums, ut, us_)  # noqa: E731
-    else:
-        def lam():
-            dr = torch.zeros((B, 2), dtype=torch.float64, device=dev)
-            segsum.segsum(dtp.t_idx, ut, dtp.t_bins, dr)
-            return segsum.segsum(dtp.s_idx, us_, dtp.s_bins, dr)
-    out["k6_lambda_web"] = timed_call(lam)
+    out["k6_lambda_web"] = timed_call(lambda: segsum.segsum_plan(dtp.lambda_sums, ut, us_))
     out["k6_lambda_web"]["library_2_index_add"] = timed_call(index_adds(
         [(dtp.t_idx, ut, dtp.t_bins, B), (dtp.s_idx, us_, dtp.s_bins, B)]))
     del web, dtp
@@ -555,6 +545,108 @@ def redesign_times(dev) -> dict:
     L = chip_smoke.lattice_csr(np.array([1, -1, shape[1], -shape[1]]), lev[:4], lev[mg2d.FD])
     out["k19c_stencil_cg512"] = timed_call(lambda: mg2d.stencil(lev, shape, r, rhs))
     out["k19c_stencil_cg512"]["library_csr_mv"] = timed_call(lambda: torch.mv(L, r))
+    del pre, L
+    out.update(k21a_times(dev))
+    out.update(k18_times(dev))
+    return out
+
+
+def k21a_times(dev) -> dict:
+    """K21a on the p1tree (16 generations, N = 40, P2/P1: 65,535 edges of
+    m = 81 flux dofs): the solve on its own factor and the factor, each with
+    :func:`timed_call`'s figures and its bound (bytes: the band, ``v`` and
+    ``out`` once; the cell masses, the band and the diagonal once), and the
+    executor's whole solve (factor, CG, back substitution; CUDA events, 3
+    solves).  DRAM bytes are not measured (the profiler gives none).  Takes
+    either port's interface: the tile plan, or the first flux dofs."""
+    from networks_fenicsx_tpu_torch.kernels import schur_p
+    from networks_fenicsx_tpu_torch.solver import _SchurPExecutor
+
+    asm = chip_smoke.p1tree_assembler(P)
+    ex = _SchurPExecutor(asm, P.SolverOptions(), dev)
+    cm = asm._cell_mass_on(dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    v = torch.randn(ex.n_flux, generator=gen, dtype=torch.float64, device=dev)
+    tiled = hasattr(schur_p, "flux_tiles")
+    if tiled:
+        f_args = s_args = (ex.tiles,)
+    else:  # the first flux dofs
+        f_args, s_args = (ex.base, ex._N, ex._k, ex.n_flux), (ex.base, ex._N, ex._k)
+
+    def factor():
+        return schur_p.schur_p_factor(cm, *f_args)
+
+    Lb, _ = factor()
+    E, k = asm.network.num_edges, ex._k
+    band = ex.n_flux * (k + 1) * 8  # the band's bytes without the ragged tile's padding
+    solve = timed_call(lambda: schur_p.schur_p_solve(Lb, *s_args, v))
+    solve.update(chip_smoke.bound(band + 16 * ex.n_flux, ex.n_flux * (4 * k + 2)))
+    fac = timed_call(factor, reps=5)
+    fac.update(chip_smoke.bound(chip_smoke.tensor_bytes(cm) + band + 8 * ex.n_flux + 4 * E,
+                                ex.n_flux * (k + 1) * (k + 2)))
+    _, iters, _, ok = ex()
+    return {"k21a_solve_p1tree": solve, "k21a_factor_p1tree": fac,
+            "p1tree_executor": {"ms": chip_smoke.cuda_ms(lambda: ex(), reps=3, warmup=1),
+                                "iterations": int(iters), "converged": bool(ok),
+                                "tiled": tiled}}
+
+
+def k18_times(dev) -> dict:
+    """K18 as its routes issue it: on the 512² lattice's general DCT route
+    (f callable) the residual with its norm (the route's final residual) and
+    without (a refinement residual), from the route's own strided views of
+    the interleaved system, beside CSR ``torch.mv`` on the same Laplacian;
+    on the 3×2000 lattice's 1-D multigrid, one Chebyshev step and the normed
+    residual of level 0, and the executor (CUDA events, a solve); each with
+    :func:`timed_call`'s figures.  Takes either port's interface: a
+    ``ShiftPlan``, or the host offsets."""
+    from networks_fenicsx_tpu_torch import lattice
+    from networks_fenicsx_tpu_torch.kernels import edge_data, peel, segsum, shift_matvec
+    from networks_fenicsx_tpu_torch.multigrid import Mg1dPreconditioner
+
+    out = {}
+    asm = chip_smoke.lattice_assembler(P, forms=chip_smoke.lattice_callable_forms)
+    ex = build_schur_executor(asm, P.SolverOptions(schur_method="dct"), device=dev)
+    dlp = ex.device_plan
+    R, f, sp, ep = ex.upload(*ex.prepare_args(*asm.schur_arguments()))
+    Rm, fm, f_zero = asm.coefficient_modes()
+    ed = edge_data.edge_data_plain(dlp, ex._N, ex._k, ex._h_e, ex._quad_w, ex._quad_phi, R, f, Rm,
+                                   fm, f_zero, sp, ep)
+    dr, w_edges, _ = peel.lambda_system_plain(dlp, ed)
+    n_cls = dlp.offsets.size
+    cw = lattice._shift_class_weights(w_edges, dlp.class_idx, n_cls, segsum.segsum_plain)
+    diag, rhs = dr[:, 0], dr[:, 1]
+    B = diag.shape[0]
+    lam = torch.randn(B, generator=torch.Generator(device=dev).manual_seed(18), dtype=torch.float64,
+                      device=dev)
+    classes = getattr(dlp, "shift", None) or dlp.offsets
+    L = chip_smoke.lattice_csr(dlp.offsets, cw, diag)
+    nbytes = chip_smoke.tensor_bytes(cw, dr, lam) + 8 * B + 4 * n_cls
+    normed = timed_call(lambda: shift_matvec.shift_matvec(classes, cw, diag, lam, rhs, norm=True))
+    normed.update(chip_smoke.bound(nbytes, (2 + 2 * n_cls) * B))
+    out["k18_normed_lattice512"] = normed
+    out["k18_residual_lattice512"] = timed_call(
+        lambda: shift_matvec.shift_matvec(classes, cw, diag, lam, rhs))
+    out["k18_library_csr_mv_lattice512"] = timed_call(lambda: torch.mv(L, lam))
+    del ex, L
+
+    opts = P.SolverOptions(schur_method="cg", cg_precond="mg")
+    skinny = chip_smoke.lattice_assembler(P, 3, 2000, forms=chip_smoke.skinny_forms)
+    cg_ex, d1, rhs1, _, cw1 = chip_smoke.cg_system(P, skinny, dev, opts)
+    pre = Mg1dPreconditioner(cg_ex.precond_plan, cg_ex.device_plan.offsets, cw1, d1,
+                             opts.mg_overcorrect)
+    op = pre.ops[0]
+    s = 1.0 / torch.sqrt(d1)
+    x_in, x_out, dvec = lam[: d1.shape[0]].clone(), torch.empty_like(d1), torch.ones_like(d1)
+    out["k18_cheb_step_skinny"] = timed_call(
+        lambda: op.step(s, rhs1, dvec, x_in, x_out, 0.7, 0.3))
+    out["k18_normed_skinny"] = timed_call(lambda: op.residual(rhs1, x_in, norm=True))
+    solver = P.Solver(skinny, options=opts, device="cuda")
+    solver.solve()
+    args = solver._executor.prepare_args(*skinny.schur_arguments())
+    out["skinny_executor"] = {"ms": chip_smoke.cuda_ms(lambda: solver._executor(*args), reps=3,
+                                                        warmup=1),
+                              "iterations": solver.info.iterations}
     return out
 
 
@@ -684,7 +776,8 @@ def main() -> int:
                     help="time the redesigned kernels (K21b, K10, K12a, K11, K12b, K19c's coarsest "
                          "level, K22-reduce, K16, K17) beside their library calls instead of a path")
     ap.add_argument("--select", choices=("all", "lattice", "redesign"), default="all",
-                    help="with --kernels: every entry, K16 and K17 alone, or K6 and K19c alone")
+                    help="with --kernels: every entry, K16 and K17 alone, or K6, K19c, K21a and "
+                         "K18 alone")
     ap.add_argument("--root", type=pathlib.Path, default=None,
                     help="import the port from this checkout instead of this one")
     args = ap.parse_args()

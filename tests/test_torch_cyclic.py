@@ -329,7 +329,7 @@ def test_lambda_system_plain_matches_reference():
     _close(dr[:, 1], r_j, 1e-12)
     _close(w_edges, 1.0 / W, 1e-12)
     _close(norm, jnp.linalg.norm(r_j), 1e-12)
-    w_pairs = segsum.segsum(dtp.pair_idx, w_edges)
+    w_pairs, = segsum.segsum_plan(dtp.pair_sums, w_edges)
     pj = JS._plan_tree_elimination(aj)
     sel = np.flatnonzero(pj.edge_pair >= 0)
     ids = pj.edge_pair[sel]

@@ -152,19 +152,77 @@ def test_schur_p_pieces_match_reference(k, kp):
     ex = PS._SchurPExecutor(ap, P.SolverOptions(), torch.device("cpu"))
     _close(ex.J.to_scipy().toarray(), Jm.toarray(), 1e-13)
     _close(ex.JT.to_scipy().toarray(), Jm.T.toarray(), 1e-13)
-    N = ap.network.N
-    Lb, adiag = schur_p.schur_p_factor(ap._cell_mass_on(torch.device("cpu")), ex.base, N, k,
-                                       ex.n_flux)
+    Lb, adiag = schur_p.schur_p_factor(ap._cell_mass_on(torch.device("cpu")), ex.tiles)
     assert np.array_equal(adiag.numpy(), A_diag)
     rng = np.random.default_rng(7)
     v = rng.standard_normal(ex.n_flux)
-    _close(schur_p.schur_p_solve(Lb, ex.base, N, k, torch.as_tensor(v)), A_inv(v), 1e-12)
+    _close(schur_p.schur_p_solve(Lb, ex.tiles, torch.as_tensor(v)), A_inv(v), 1e-12)
     z = rng.standard_normal(Jm.shape[0])
     Jz = ex.JT @ torch.as_tensor(z)
-    T = ex.J @ schur_p.schur_p_solve(Lb, ex.base, N, k, Jz)
+    T = ex.J @ schur_p.schur_p_solve(Lb, ex.tiles, Jz)
     _close(T, Jm @ A_inv(Jm.T @ z), 1e-12)
     td = csr.csr_tdiag(*ex.J.device_arrays, adiag).numpy()
     np.testing.assert_allclose(td, Tdiag, rtol=1e-14, atol=0)
+
+
+def _pair(graph, k, kp, N=2):
+    """The reference's and the port's assemblers of ``graph`` (per-edge R)."""
+    asms = []
+    for pkg in (J, P):
+        mesh = pkg.NetworkMesh(graph(pkg), N=N)
+        asm = pkg.HydraulicNetworkAssembler(mesh, flux_degree=k, pressure_degree=kp)
+        asm.compute_forms(p_bc_ex=lambda x: x[1],
+                          R=np.random.default_rng(k).uniform(0.5, 2.0, mesh.num_edges))
+        asms.append(asm)
+    return asms
+
+
+# edge counts against K21a's 32-edge tiles: below one tile, one tile and one
+# edge, and a ragged last tile of a longer run
+TILE_GRAPHS = {
+    "below-a-tile": _tree(),  # 7 edges
+    "tile-plus-one": lambda pkg: random_network(np.random.default_rng(0), 32, 0),  # 33
+    "ragged": lambda pkg: random_network(np.random.default_rng(1), 60, 0),  # 61
+}
+
+
+@pytest.mark.parametrize("k,kp", [(2, 1), (3, 2), (5, 4)])
+@pytest.mark.parametrize("graph", sorted(TILE_GRAPHS))
+def test_schur_p_tiles_match_reference(graph, k, kp):
+    """K21a's tile plan is the reference's flux permutation ``lexsort((arange(E),
+    edge_color))`` with the sorted bases at ``s·m``; the plain factor and solve
+    in the tiled layout equal the reference's pieces (``A_diag`` bit for bit,
+    ``A⁻¹`` at 1e-12·scale), ghost slots of a ragged tile holding the identity."""
+    aj, ap = _pair(TILE_GRAPHS[graph], k, kp)
+    mesh = aj.network
+    E, N = mesh.num_edges, mesh.N
+    m = k * N + 1
+    tiles = schur_p.flux_tiles(ap._edge_flux_base, ap.network.edge_color, N, k, "cpu")
+    perm = np.lexsort((np.arange(E), np.asarray(mesh.edge_color)))
+    assert np.array_equal(tiles.perm.numpy(), perm)
+    assert np.array_equal(np.asarray(ap._edge_flux_base)[perm], np.arange(E) * m)
+    assert tiles.tiles == -(-E // schur_p.TILE) and tiles.n_flux == E * m
+    _, A_inv, A_diag, _ = _reference_pieces(aj)
+    Lb, adiag = schur_p.schur_p_factor(ap._cell_mass_on(torch.device("cpu")), tiles)
+    assert tuple(Lb.shape) == (tiles.tiles, m, k + 1, schur_p.TILE)
+    assert np.array_equal(adiag.numpy(), A_diag)
+    ghost = Lb.permute(1, 2, 0, 3).reshape(m, k + 1, -1)[:, :, E:]
+    assert bool((ghost[:, 0] == 1).all()) and bool((ghost[:, 1:] == 0).all())
+    v = np.random.default_rng(9).standard_normal(E * m)
+    _close(schur_p.schur_p_solve(Lb, tiles, torch.as_tensor(v)), A_inv(v), 1e-12)
+
+
+def test_schur_p_tile_plan_raises_on_another_layout():
+    """The tile plan takes only the reference's flux layout."""
+    ap = _pair(_tree(), 2, 1)[1]
+    base, color = np.asarray(ap._edge_flux_base), ap.network.edge_color
+    N = ap.network.N
+    schur_p.flux_tiles(base, color, N, 2, "cpu")
+    for bad in (base[::-1].copy(), base + 1, base * 2):
+        with pytest.raises(ValueError, match="flux dofs"):
+            schur_p.flux_tiles(bad, color, N, 2, "cpu")
+    with pytest.raises(ValueError, match="k in 1"):
+        schur_p.FluxTiles(torch.zeros(3, dtype=torch.int32), N, schur_p.MAX_K + 1)
 
 
 def test_schur_p_floating_component_raises():
@@ -500,8 +558,13 @@ def test_wrappers_never_fall_back_off_the_cpu():
         csr.csr_fold(imeta, imeta[None], meta)
     with pytest.raises(ValueError, match="CUDA"):
         csr.csr_spmv(imeta.long(), imeta[:3], meta[:3], meta)
+    tiles = schur_p.FluxTiles(torch.zeros(2, dtype=torch.int32), 1, 1)  # E = 2, m = 2
     with pytest.raises(ValueError, match="CUDA"):
-        schur_p.schur_p_solve(meta, imeta, 1, 1, meta)
+        schur_p.schur_p_solve(meta.reshape(1, 2, 2, 1).expand(1, 2, 2, 32), tiles, meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        schur_p.schur_p_factor(meta[:2].reshape(2, 1, 1).expand(2, 2, 2).contiguous(), tiles)
+    with pytest.raises(ValueError, match="meta"):
+        schur_p.FluxTiles(imeta, 1, 1)
     with pytest.raises(ValueError, match="CUDA"):
         dense_lu.lu_factor(meta.reshape(2, 2))
     with pytest.raises(ValueError, match="CUDA"):
@@ -552,17 +615,44 @@ def test_schur_p_kernels_match_plain_on_card():
     asm.compute_forms(p_bc_ex=lambda x: x[1], R=1.0 / mesh.edge_radius**4)
     ex = PS._SchurPExecutor(asm, P.SolverOptions(), dev)
     cm = asm._cell_mass_on(dev)
-    got = schur_p.schur_p_factor(cm, ex.base, mesh.N, 2, ex.n_flux)
-    want = schur_p.schur_p_factor_plain(cm, ex.base, mesh.N, 2, ex.n_flux)
+    got = schur_p.schur_p_factor(cm, ex.tiles)
+    want = schur_p.schur_p_factor_plain(cm, ex.tiles)
     for a, b in zip(got, want):
         _close(a, b, 1e-12)
     v = torch.randn(ex.n_flux, dtype=torch.float64, device=dev)
-    _close(schur_p.schur_p_solve(got[0], ex.base, mesh.N, 2, v),
-           schur_p.schur_p_solve_plain(want[0], ex.base, mesh.N, 2, v), 1e-12)
+    _close(schur_p.schur_p_solve(got[0], ex.tiles, v),
+           schur_p.schur_p_solve_plain(want[0], ex.tiles, v), 1e-12)
     x, iters, _, ok = ex()
     xp, iters_p, _, ok_p = ex.plain()
     assert ok and ok_p and abs(iters - iters_p) <= 2
     _close(x, xp, 1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,N", [(2, 3), (5, 4), (2, 150)])
+def test_schur_p_ragged_tiles_on_card(k, N):
+    """K21a on 61 edges (a ragged last tile) at k = 2 and k = 5 — the staged
+    solve with its window in registers and read back from shared memory —
+    and at N = 150 (a tile too large for shared memory, solved in device
+    memory): factor and solve against the plain versions at 1e-12·scale,
+    one launch each, a vector at an 8-byte offset (moved without bulk
+    copies) to the same values."""
+    dev = _card()
+    ap = _pair(TILE_GRAPHS["ragged"], k, k - 1, N=N)[1]
+    tiles = schur_p.flux_tiles(ap._edge_flux_base, ap.network.edge_color, N, k, dev)
+    cm = ap._cell_mass_on(dev)
+    kernels.reset_launches()
+    got = schur_p.schur_p_factor(cm, tiles)
+    want = schur_p.schur_p_factor_plain(cm, tiles)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-12)
+    buf = torch.randn(tiles.n_flux + 1, dtype=torch.float64, device=dev)
+    v = buf[:-1].clone()
+    x = schur_p.schur_p_solve(got[0], tiles, v)
+    _close(x, schur_p.schur_p_solve_plain(want[0], tiles, v), 1e-12)
+    assert schur_p.FACTOR.launches == 1 and schur_p.SOLVE.launches == 1
+    buf[1:] = v
+    assert torch.equal(schur_p.schur_p_solve(got[0], tiles, buf[1:]), x)
 
 
 @pytest.mark.cuda

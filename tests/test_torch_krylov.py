@@ -148,7 +148,8 @@ def test_gather_matvec_matches_reference_and_shift_matvec():
     _close(got, want, 1e-12)
     offsets = np.asarray([d for d, _, _ in classes], np.int32)
     cw = _t(np.stack([np.asarray(v) for _, v in class_w]))
-    _close(shift_matvec.shift_matvec(offsets, cw, _t(diag), _t(lam)), got, 1e-12)
+    _close(shift_matvec.shift_matvec(shift_matvec.ShiftPlan(offsets, B, "cpu"), cw, _t(diag), _t(lam)),
+           got, 1e-12)
     res, norm = gather_matvec.gather_matvec(*tables, w, _t(diag), _t(lam), _t(rhs), norm=True)
     _close(res, rhs - np.asarray(want), 1e-12)
     _close(norm, np.linalg.norm(rhs - np.asarray(want)), 1e-12)
@@ -165,7 +166,8 @@ def test_chebyshev_application_matches_reference(graph, matvec):
     if matvec == "shift":
         mv = JS._matvec_from_shift_plan(ed, jnp.asarray(diag), classes, B)
         offsets = np.asarray([d for d, _, _ in classes], np.int32)
-        op = PM.ShiftOperator(offsets, _t(np.stack([np.asarray(v) for _, v in class_w])), _t(diag))
+        op = PM.ShiftOperator(shift_matvec.ShiftPlan(offsets, B, "cpu"),
+                              _t(np.stack([np.asarray(v) for _, v in class_w])), _t(diag))
     else:
         assert classes is None
         mv = JS._matvec_from_plan(ed, jnp.asarray(diag), JS._build_matvec_plan(aj), B)
@@ -404,7 +406,7 @@ def test_iterative_wrappers_never_fall_back_off_the_cpu():
     gather_matvec.gather_matvec(*tables, one, one, one)
     krylov.jacobi(one, one)
     mg1d.restrict(one, B // 2)
-    mg2d.restrict(one, (3, 4), (2, 2))
+    mg2d.stencil(torch.ones((len(mg2d.FIELDS), B), dtype=torch.float64), (3, 4), one, one)
     assert all(n == 0 for n in kernels.launches().values())
     meta = torch.ones(B, dtype=torch.float64, device="meta")
     for call in (
@@ -412,9 +414,11 @@ def test_iterative_wrappers_never_fall_back_off_the_cpu():
         lambda: krylov.jacobi(meta, meta),
         lambda: krylov.cg_update_p(krylov.new_state("meta"), meta, meta, meta, meta),
         lambda: mg1d.restrict(meta, B // 2),
-        lambda: mg2d.restrict(meta, (3, 4), (2, 2)),
+        lambda: mg2d.stencil(meta.expand(len(mg2d.FIELDS), B), (3, 4), meta, meta),
         lambda: mg2d.coarse_solve(meta, meta),
-        lambda: shift_matvec.shift_matvec(np.array([1], np.int32), meta[None], meta, meta),
+        lambda: shift_matvec.shift_matvec(shift_matvec.ShiftPlan([1], B, "cpu"), meta[None], meta, meta),
+        lambda: shift_matvec.shift_cheb(shift_matvec.ShiftPlan([1], B, "cpu"), meta[None], meta, meta,
+                                        meta, meta, meta, meta.clone(), 1.0, 1.0),
     ):
         with pytest.raises(ValueError, match="CUDA"):
             call()

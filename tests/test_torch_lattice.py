@@ -195,7 +195,7 @@ def test_shift_class_matrix_matches_segsum_sorted():
     W = np.random.default_rng(3).uniform(0.5, 2.0, E)
     idx = PLat.shift_class_matrix(classes, B, E)
     got = PLat._shift_class_weights(_t(1.0 / W), _t(idx, torch.int32), len(classes),
-                                    segsum.segsum)
+                                    segsum.segsum_plain)
     ed = _edge_data_j(aj, W, np.zeros(E), np.zeros((E, 2)))
     want = JS._shift_class_weights(ed, JS._plan_shift_matvec(aj), B)
     assert [d for d, _ in want] == [d for d, _, _ in classes]
@@ -290,13 +290,56 @@ def test_shift_matvec_plain_matches_reference(graph):
     offsets = np.asarray([d for d, _, _ in classes], np.int32)
     B, E = ap.network.num_multipliers, ap.network.num_edges
     cw = PLat._shift_class_weights(_t(1.0 / W), _t(PLat.shift_class_matrix(classes, B, E),
-                                                    torch.int32), len(classes), segsum.segsum)
+                                                    torch.int32), len(classes), segsum.segsum_plain)
     dr = _t(np.stack([np.asarray(diag_j), np.asarray(rhs_j)], axis=1))
     lam = np.random.default_rng(5).standard_normal(B)
     want = rhs_j - JS._shift_matvec(class_w, diag_j, B)(jnp.asarray(lam))
-    got, norm = shift_matvec.shift_matvec(offsets, cw, dr[:, 0], _t(lam), dr[:, 1], norm=True)
+    plan = shift_matvec.ShiftPlan(offsets, B, "cpu", stride=2)
+    got, norm = shift_matvec.shift_matvec(plan, cw, dr[:, 0], _t(lam), dr[:, 1], norm=True)
     _close(got, want, 1e-12)
     _close(norm, jnp.linalg.norm(want), 1e-12)
+
+
+@pytest.mark.parametrize("graph", sorted(GRIDS))
+def test_shift_plan_apply_equals_plain(graph):
+    """A :class:`ShiftPlan` holds the host plan's offsets in ascending order;
+    its apply, residual, norm and Chebyshev step on the CPU are today's
+    plain versions to the bit, on every offset set of this file's lattices."""
+    ap = _assembler(P, GRIDS[graph], N=1)
+    classes = PLat._plan_shift_matvec(ap)
+    offsets = np.asarray([d for d, _, _ in classes], np.int32)
+    B = ap.network.num_multipliers
+    plan = shift_matvec.ShiftPlan(offsets, B, "cpu", stride=2)
+    assert np.array_equal(plan.offsets, offsets) and plan.C == offsets.size and plan.B == B
+    assert plan.index == -1 and plan.blocks == -(-B // shift_matvec.THREADS)
+    rng = np.random.default_rng(11)
+    cw = _t(rng.uniform(0.5, 2.0, (offsets.size, B)))
+    dr = _t(np.stack([rng.uniform(4.0, 8.0, B), rng.standard_normal(B)], axis=1))
+    lam = _t(rng.standard_normal(B))
+    assert torch.equal(shift_matvec.shift_matvec(plan, cw, dr[:, 0], lam),
+                       shift_matvec.shift_matvec_plain(offsets, cw, dr[:, 0], lam))
+    for a, b in zip(shift_matvec.shift_matvec(plan, cw, dr[:, 0], lam, dr[:, 1], norm=True),
+                    shift_matvec.shift_matvec_plain(offsets, cw, dr[:, 0], lam, dr[:, 1], norm=True)):
+        assert torch.equal(a, b)
+    flat = shift_matvec.ShiftPlan(offsets, B, "cpu")
+    diag = dr[:, 0].contiguous()
+    s, rs = 1.0 / torch.sqrt(diag), _t(rng.standard_normal(B))
+    outs = []
+    for fn, key in ((shift_matvec.shift_cheb, flat), (shift_matvec.shift_cheb_plain, offsets)):
+        dvec, x_out, z = _t(np.ones(B)), torch.empty(B, dtype=torch.float64), torch.empty(B, dtype=torch.float64)
+        fn(key, cw, diag, s, rs, dvec, lam, x_out, 0.7, 0.3, z, lam)
+        outs.append((dvec, x_out, z))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_shift_plan_raises_on_what_the_kernel_does_not_take():
+    for offsets in ([1, -1], [2, 2], list(range(1, 18))):
+        with pytest.raises(ValueError, match="ascending"):
+            shift_matvec.ShiftPlan(np.asarray(offsets, np.int32), 10, "cpu")
+    with pytest.raises(ValueError, match="stride"):
+        shift_matvec.ShiftPlan(np.asarray([-1, 1], np.int32), 10, "cpu", stride=3)
+    with pytest.raises(ValueError, match="meta"):
+        shift_matvec.ShiftPlan(np.asarray([-1, 1], np.int32), 10, "meta")
 
 
 @pytest.mark.parametrize("graph", ["6x5", "9x4", "two_stubs", "66x66"])
@@ -320,8 +363,10 @@ def test_dct_lattice_plain_matches_capacitance_solve(graph):
     offsets = np.asarray([d for d, _, _ in classes], np.int32)
     cw = _t(np.stack([np.asarray(v) for _, v in class_w]))
 
+    plan = shift_matvec.ShiftPlan(offsets, B, "cpu", stride=2)
+
     def residual(lam):
-        return shift_matvec.shift_matvec(offsets, cw, dr[:, 0], lam, dr[:, 1])
+        return shift_matvec.shift_matvec(plan, cw, dr[:, 0], lam, dr[:, 1])
 
     got = dct_lattice.dct_lattice(op, _t(w), dr[:, 1].contiguous(), residual)
     # two refined float64 solves meet at the conditioning floor, ~κ·ε relative
@@ -502,8 +547,11 @@ def test_lattice_wrappers_never_fall_back_off_the_cpu():
     w = _t(np.full(E, 2.0))
     rhs, diag, _ = grid_core.grid_core(gdp, w, _t(np.ones(E)), _t(np.zeros(E)))
     dct_lattice.dct_lattice(op, w, rhs, lambda lam: grid_core.grid_residual(gdp, w, diag, lam, rhs))
-    shift_matvec.shift_matvec(np.array([-1, 1], np.int32), _t(np.ones((2, B))),
-                              _t(np.ones(B)), _t(np.ones(B)), _t(np.ones(B)))
+    plan = shift_matvec.ShiftPlan(np.array([-1, 1], np.int32), B, "cpu")
+    shift_matvec.shift_matvec(plan, _t(np.ones((2, B))), _t(np.ones(B)), _t(np.ones(B)),
+                              _t(np.ones(B)), norm=True)
+    shift_matvec.shift_cheb(plan, _t(np.ones((2, B))), _t(np.ones(B)), _t(np.ones(B)),
+                            _t(np.ones(B)), _t(np.ones(B)), _t(np.ones(B)), _t(np.ones(B)), 1.0, 1.0)
     assert all(n == 0 for n in kernels.launches().values())
     meta = torch.ones(B, dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -513,7 +561,11 @@ def test_lattice_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         dct_lattice.dct_lattice(op, meta, meta, None)
     with pytest.raises(ValueError, match="CUDA"):
-        shift_matvec.shift_matvec(np.array([-1, 1], np.int32), meta, meta, meta)
+        shift_matvec.shift_matvec(plan, meta, meta, meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        shift_matvec.shift_matvec(plan, meta, meta, meta, meta, norm=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        shift_matvec.shift_cheb(plan, meta, meta, meta, meta, meta, meta, meta.clone(), 1.0, 1.0)
     assert all(n == 0 for n in kernels.launches().values())
 
 
@@ -570,7 +622,8 @@ def test_lattice_kernels_match_plain_on_card():
     offsets = np.asarray([d for d, _, _ in classes], np.int32)
     cw = _t(np.stack([np.asarray(v) for _, v in class_w])).to(dev)
     dr = _t(np.stack([np.asarray(diag_j), np.asarray(rhs_j)], axis=1)).to(dev)
-    for a, b in zip(shift_matvec.shift_matvec(offsets, cw, dr[:, 0], lam, dr[:, 1], norm=True),
+    splan = shift_matvec.ShiftPlan(offsets, gdp.num_bifurcations, dev, stride=2)
+    for a, b in zip(shift_matvec.shift_matvec(splan, cw, dr[:, 0], lam, dr[:, 1], norm=True),
                     shift_matvec.shift_matvec_plain(offsets, cw, dr[:, 0], lam, dr[:, 1], norm=True)):
         _close(a.cpu(), b.cpu().numpy(), 1e-12)
     torch.cuda.synchronize()
@@ -756,6 +809,67 @@ def test_grid_core_streams_repeats_and_capture_on_card():
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(captured, want[1]))
+
+
+@pytest.mark.cuda
+def test_shift_matvec_streams_repeats_and_capture_on_card():
+    """On a CUDA device: K18's residual with its norm is one launch a call,
+    its apply the plain version's to the bit; on two streams at once the
+    calls give the bits of the calls alone, two back-to-back calls give equal
+    bits, and a call captured into a CUDA graph replays to the same bits (the
+    ticket is reset inside the launch); the Chebyshev step holds its plain
+    version at 1e-12·scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    ap = _assembler(P, lambda pkg: _grid(pkg, 96, 80), N=1)
+    classes = PLat._plan_shift_matvec(ap)
+    offsets = np.asarray([d for d, _, _ in classes], np.int32)
+    B = ap.network.num_multipliers
+    plan = shift_matvec.ShiftPlan(offsets, B, dev, stride=2)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cw = torch.rand((offsets.size, B), generator=gen, dtype=torch.float64, device=dev) + 0.5
+    dr = torch.randn((B, 2), generator=gen, dtype=torch.float64, device=dev)
+    dr[:, 0] += 8.0
+    diag, rhs = dr[:, 0], dr[:, 1]
+    lams = [torch.randn(B, generator=gen, dtype=torch.float64, device=dev) for _ in range(2)]
+    before = shift_matvec.shift_matvec.launches
+    want = [shift_matvec.shift_matvec(plan, cw, diag, lam, rhs, norm=True) for lam in lams]
+    assert shift_matvec.shift_matvec.launches == before + 2
+    plain = shift_matvec.shift_matvec_plain(offsets, cw, diag, lams[0], rhs, norm=True)
+    assert torch.equal(want[0][0], plain[0])
+    _close(want[0][1].cpu(), plain[1].cpu().numpy(), 1e-12)
+    assert torch.equal(shift_matvec.shift_matvec(plan, cw, diag, lams[0]),
+                       shift_matvec.shift_matvec_plain(offsets, cw, diag, lams[0]))
+    again = shift_matvec.shift_matvec(plan, cw, diag, lams[0], rhs, norm=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(again, want[0]))
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    got = []
+    for st, lam in zip(streams, lams):
+        with torch.cuda.stream(st):
+            got.append([shift_matvec.shift_matvec(plan, cw, diag, lam, rhs, norm=True) for _ in range(4)])
+    torch.cuda.synchronize()
+    for runs, ref in zip(got, want):
+        assert all(torch.equal(a, b) for run in runs for a, b in zip(run, ref))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = shift_matvec.shift_matvec(plan, cw, diag, lams[1], rhs, norm=True)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, want[1]))
+    flat = shift_matvec.ShiftPlan(offsets, B, dev)
+    d = diag.contiguous()
+    s = 1.0 / torch.sqrt(d)
+    outs = []
+    for fn, key in ((shift_matvec.shift_cheb, flat), (shift_matvec.shift_cheb_plain, offsets)):
+        dvec, x_out, z = torch.ones_like(d), torch.empty_like(d), torch.empty_like(d)
+        fn(key, cw, d, s, rhs.contiguous(), dvec, lams[0], x_out, 0.7, 0.3, z, lams[1])
+        outs.append((dvec, x_out, z))
+    for a, b in zip(*outs):
+        _close(a.cpu(), b.cpu().numpy(), 1e-12)
 
 
 @pytest.mark.cuda

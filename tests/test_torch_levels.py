@@ -193,7 +193,7 @@ def test_segsum_plain_matches_segsum_sorted(channels, with_sel, hub):
     want = JS._segsum_sorted(jnp.asarray(vals), seg, S, sel=sel)
     idx = PL.segsum_matrix(seg, S, vals.shape[0], sel=sel)
     assert idx.shape == (S, max(np.bincount(seg, minlength=S)))
-    got = segsum.segsum(torch.as_tensor(idx.astype(np.int32)), _t(vals))
+    got = segsum.segsum_plain(torch.as_tensor(idx.astype(np.int32)), _t(vals))
     _close(got, want)
 
 
@@ -201,7 +201,7 @@ def test_segsum_matrix_pads_to_the_zero_slot():
     idx = PL.segsum_matrix(np.array([0, 0, 2]), 3, n_vals=5, sel=np.array([4, 1, 3]))
     assert np.array_equal(idx, [[4, 1], [5, 5], [3, 5]])
     assert PL.segsum_matrix(np.empty(0, np.int32), 3, 5).shape == (3, 0)
-    got = segsum.segsum(torch.zeros((3, 0), dtype=torch.int32), _t(np.ones(5)))
+    got = segsum.segsum_plain(torch.zeros((3, 0), dtype=torch.int32), _t(np.ones(5)))
     assert torch.equal(got, torch.zeros(3, dtype=torch.float64))
 
 
@@ -349,7 +349,8 @@ def test_general_wrappers_never_fall_back_off_the_cpu():
     assert all(n == 0 for n in kernels.launches().values())
     meta = torch.ones(4, dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        segsum.segsum(torch.zeros((2, 1), dtype=torch.int32), meta)
+        segsum.segsum_plan(segsum.SumPlan(((torch.zeros((2, 1), dtype=torch.int32), None),), (1,)),
+                           meta)
     with pytest.raises(ValueError, match="CUDA"):
         backsub.backsub(ed_p._replace(W=meta), meta, ap.network.N, 1)
     with pytest.raises(ValueError, match="CUDA"):
@@ -387,9 +388,11 @@ def test_general_kernels_match_plain_on_card():
                 _close(a.cpu(), b.cpu())
         for a, b in zip(ed.interior, ed_plain.interior):
             _close(a.cpu(), b.cpu())
-        for idx, vals in ((dlp.t_idx, torch.rand(E, 2, dtype=torch.float64, device=dev)),
-                          (dlp.p_idx, torch.rand(E, dtype=torch.float64, device=dev))):
-            _close(segsum.segsum(idx, vals).cpu(), segsum.segsum_plain(idx, vals).cpu())
+        vals = (torch.rand(E, dtype=torch.float64, device=dev),
+                torch.rand(E, 2, dtype=torch.float64, device=dev),
+                torch.rand(E, 2, dtype=torch.float64, device=dev))
+        for a, b in zip(segsum.segsum_plan(dlp.sums, *vals), segsum.segsum_plan_plain(dlp.sums, *vals)):
+            _close(a.cpu(), b.cpu())
         lam, norm = level_eliminate.level_eliminate(dlp, ed_plain)
         lam_plain, norm_plain = level_eliminate.level_eliminate_plain(dlp, ed_plain)
         _close(lam.cpu(), lam_plain.cpu())

@@ -287,14 +287,14 @@ def test_sum_plan_calls_check_their_values():
     """CPU values run the plain version, uncounted; any other device goes to
     the kernel path, which checks and raises; so do too few values."""
     plan = segsum.SumPlan([(_i32([[0, 1], [2, 4]]), None)], (1,))
-    before = segsum.segsum.launches
+    before = segsum.LAUNCHES.launches
     out, = segsum.segsum_plan(plan, _t(np.arange(4.0)))
-    assert torch.equal(out, _t([1.0, 2.0])) and segsum.segsum.launches == before
+    assert torch.equal(out, _t([1.0, 2.0])) and segsum.LAUNCHES.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         segsum.segsum_plan(plan, torch.ones(4, dtype=torch.float64, device="meta"))
     with pytest.raises(ValueError, match="value tensors"):
         segsum.launch_plan(plan, ())
-    assert segsum.segsum.launches == before
+    assert segsum.LAUNCHES.launches == before
 
 
 # ------------------------------------------------------------------ K19c on the CPU
@@ -398,16 +398,16 @@ def test_fused_mg2d_plain_equal_composed(dims):
         r, x, b = (torch.randn(m, generator=gen, dtype=torch.float64) for _ in range(3))
         ec, base = torch.randn(mc, generator=gen, dtype=torch.float64), torch.randn(m, generator=gen,
                                                                                    dtype=torch.float64)
-        rc = mg2d.restrict(mg2d.stencil(lev, shape, x, b), shape, shape_c)
+        rc = mg2d.restrict_plain(mg2d.stencil(lev, shape, x, b), shape, shape_c)
         xp = x.clone()
-        mg2d.prolong(xp, shape, shape_c, ec, pre.overcorrect)
+        mg2d.prolong_plain(xp, shape, shape_c, ec, pre.overcorrect)
         prolonged = (xp, mg2d.stencil(lev, shape, xp, b))
         for z_base in (None, base):
             fused = [torch.empty(m, dtype=torch.float64) for _ in range(4)]
             mg2d.cheb_first(lev, shape, r, theta, *fused[:3], c1, c2, fused[3], z_base)
             comp = [torch.empty(m, dtype=torch.float64) for _ in range(5)]
             krylov.cheb_start(lev[mg2d.FI], r, theta, comp[0], comp[1], comp[4])
-            mg2d.cheb(lev, shape, comp[0], comp[1], comp[4], comp[2], c1, c2, comp[3], z_base)
+            mg2d.cheb_plain(lev, shape, comp[0], comp[1], comp[4], comp[2], c1, c2, comp[3], z_base)
             _equal(fused, comp[:4])
             cells, cells_rc, cells_prolonged = _fused_kernels_cellwise(
                 lev, shape, shape_c, r, x, b, ec, theta, c1, c2, pre.overcorrect, z_base)
@@ -505,9 +505,9 @@ def test_sum_plans_match_plain_on_card():
              (dtp.lambda_sums, (rand(Ew, 2), rand(Ew, 2))), (dtp.pair_sums, (rand(Ew),)),
              (dgp.lambda_sums, (rand(Eg, 2), rand(Eg, 2))), (dgp.class_sums, (rand(Eg),))]
     for plan, vals in cases:
-        before = segsum.segsum.launches
+        before = segsum.LAUNCHES.launches
         got = segsum.segsum_plan(plan, *vals)
-        assert segsum.segsum.launches == before + 1
+        assert segsum.LAUNCHES.launches == before + 1
         _equal(got, segsum.segsum_plan_plain(plan, *vals))
     tpw = PL._plan_tree_elimination(web)
     half = np.arange(Ew // 2, Ew)
