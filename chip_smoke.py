@@ -53,7 +53,9 @@ paths through the public API, checks each solution and times it:
 The lattice sets also hold K17 on two streams at once, on repeated calls
 and in a replayed CUDA graph bit for bit, two K16 solves on two streams bit
 for bit with the solves alone, and K16's product kernel on ragged shapes
-against ``torch.matmul``.
+against ``torch.matmul``.  Last, the Krylov steps' device launches an
+iteration (K19a, K19e) as their launchers report them are held against
+``torch.profiler``'s count.
 
 Each kernel is held against its plain version on the card, timed per call
 beside its bound (the bytes it must move over the memory rate or its
@@ -75,6 +77,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -152,6 +155,11 @@ LU_N = 4_096  # K21b alone, set (q)
 DENSE_DOFS = 8_033  # method="dense": make_arterial_tree(8), N = 10, k = 2, kp = 1
 MINRES_DOFS = 2_422  # method="minres": make_arterial_tree(8), N = 4, k = 1
 MINRES_TOL = 1e-7  # MINRES against host_lu, times the scale (tests/test_solver.py:91)
+# the Krylov steps before their fused launches (PERF.md §5-§6: the profiler's device launches per
+# solve on an H100 80GB HBM3 at 700 W): p1tree's krylov.cu, 8 an iteration; minres's K19e, 6 an
+# iteration besides the Jacobi apply
+P1TREE_KRYLOV_BEFORE = {"device_launches": 24_197, "an_iteration": 8, "iterations": 3_022}
+MINRES_BEFORE = {"device_launches": 23_404, "an_iteration": 6, "iterations": 3_898}
 
 KERNEL_RECORD = {
     "condense": ("networks_fenicsx_tpu_torch/kernels/csrc/condense.cu",
@@ -226,7 +234,7 @@ KERNEL_RECORD = {
 # the checks of each iterative wrapper in the kernels-cg sets (k)-(m), and the
 # set whose record times it
 CG_CHECKS = {
-    "krylov": ("k", ("krylov_cg_step", "krylov_chebyshev")),
+    "krylov": ("k", ("krylov_cg_step", "krylov_cg_jacobi_step", "krylov_chebyshev")),
     "gather_matvec": ("k", ("gather_matvec", "gather_matvec_residual")),
     "mg2d": ("l", ("mg2d_hierarchy", "mg2d_stencil", "mg2d_cheb_first", "mg2d_residual_restrict", "mg2d_prolong_residual",
                    "mg2d_coarse_factor", "mg2d_coarse_solve", "mg2d")),
@@ -250,7 +258,7 @@ GENERIC_CHECKS = {
     "schur_p_factor": (("o", "schur_p_factor"),),
     "schur_p_solve": (("o", "schur_p_solve"),),
     "dense_lu": (("q", "dense_lu"), ("q", "dense_lu_saddle"), ("q", "dense_lu_trsv")),
-    "minres": (("r", "minres"),),
+    "minres": (("r", "minres"), ("r", "minres_jacobi")),
 }
 # the wrappers the cyclic executor may launch, besides the CYCLIC group
 CYCLIC_SHARED = ("segsum", "edge_data", "backsub")
@@ -2286,13 +2294,142 @@ def gather_csr(dlp, w_edges, diag):
         return coo.coalesce().to_sparse_csr()
 
 
+def cg_jacobi_step(rhs, diag, Ap, plain: bool, maxiter: int = 100, rtol: float = 1e-12):
+    """K19a's Jacobi CG iteration (its 3 fused launches; the plain steps with
+    ``plain``) on ``Ap`` fixed, from a fresh start on ``rhs``: a closure
+    returning the state and the vectors it updates."""
+    from networks_fenicsx_tpu_torch.kernels import krylov
+
+    st, part = krylov.new_state(rhs.device), krylov.partials(rhs.shape[0], rhs.device)
+    x, r = torch.zeros_like(rhs), rhs.clone()
+    p = r / diag
+    (krylov.cg_start_plain if plain else krylov.cg_start)(st, rhs, r, p, part, rtol, 0.0, maxiter)
+    steps = krylov.CgSteps(st, part, x, r, p, diag, plain=plain)
+
+    def iteration():
+        steps.step(Ap)
+        steps.direction()
+        return st[[0, 1, 2, 3, 5, 6, 7]], x, r, p
+
+    iteration.st = st
+    return iteration
+
+
+def round_robin(make, count: int):
+    """Call ``count`` closures ``make()`` in turn, so that each timed call
+    takes an early iteration of a state of its own: on a fixed ``Ap``, no
+    operator CG can run on, one state grows without bound within tens of
+    iterations and then stops (``done``).  ``call.fresh()`` is True while
+    none has stopped."""
+    closures = [make() for _ in range(count)]
+    turn = iter(range(10**12))
+
+    def call():
+        return closures[next(turn) % count]()
+
+    call.fresh = lambda: all(bool(c.st[2] == 0) for c in closures)
+    return call
+
+
+def device_launches(counter, fn) -> int:
+    """The device kernel launches of one ``fn()`` call, as the launchers
+    report them (:func:`krylov_launch_counts` holds these against the
+    profiler)."""
+    before = counter.device
+    fn()
+    return counter.device - before
+
+
+KRYLOV_LAUNCHES = {("cg", 70_924, True): 3, ("cg", 70_924, False): 4,
+                   ("minres", 2_422, True): 1, ("minres", 2_422, False): 2,
+                   ("minres", 8_193, True): 3, ("minres", 8_193, False): 4}
+
+
+def krylov_launch_counts(device) -> dict:
+    """K19a's and K19e's device launches an iteration as the launchers
+    report them and as ``torch.profiler`` sees them, for each case of
+    :data:`KRYLOV_LAUNCHES` (solver, n, Jacobi): 8 iterations on random
+    vectors after a warm-up one (the values do not change the count),
+    between other kernels; the profiler counts ``krylov.cu``'s kernels by
+    name.  Fails unless both equal the expected count.  MINRES runs one cluster
+    launch at n = 2,422 and ticket-finished launches at 8,193.  Run after
+    the timed phases: the profiler's tracing may slow later launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from networks_fenicsx_tpu_torch.kernels import krylov
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    calls = 8
+
+    def vectors(n, count):
+        return [torch.rand(n, generator=gen, dtype=torch.float64, device=device) + 1.0
+                for _ in range(count)]
+
+    def cg(n, jacobi):
+        st, part = krylov.new_state(device), krylov.partials(n, device)
+        b, x, r, p, z, ap, d = vectors(n, 7)
+        krylov.cg_start(st, b, r, z, part, 0.0, 0.0, 10**9)
+        steps = krylov.CgSteps(st, part, x, r, p, d if jacobi else None)
+
+        def iteration():
+            steps.step(ap)
+            steps.direction(*(() if jacobi else (z,)))
+
+        return krylov.LAUNCHES, iteration
+
+    def minres(n, jacobi):
+        ms, part = krylov.minres_state(device), krylov.partials(n, device)
+        b, r, y, v, x, d = vectors(n, 6)
+        krylov.minres_start(ms, b, r, y, v, part, 0.0, 0.0, 10**9)
+        steps = krylov.MinresSteps(ms, part, v, x, r, d if jacobi else None)
+        yvs = iter(vectors(n, calls + 1))
+
+        def iteration():
+            steps.step(next(yvs))
+            if not jacobi:
+                steps.finish(y)
+
+        return krylov.MINRES, iteration
+
+    pad = torch.zeros(64, dtype=torch.float64, device=device)
+
+    def padding():  # other kernels at the window's edges, where the profiler may drop one
+        for _ in range(4):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        padding()  # the first session of a process starts the tracer
+    out = {}
+    for (solver, n, jacobi), want in KRYLOV_LAUNCHES.items():
+        counter, iteration = (cg if solver == "cg" else minres)(n, jacobi)
+        iteration()
+        torch.cuda.synchronize()
+        before = counter.device
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            padding()
+            for _ in range(calls):
+                iteration()
+            torch.cuda.synchronize()
+            padding()
+        reported = (counter.device - before) / calls
+        seen = sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and re.search(r"\b(cg|minres)_\w+_kernel\b", ev.key)) / calls
+        key = f"{solver}_n{n}_{'jacobi' if jacobi else 'generic'}"
+        out[key] = {"reported": reported, "profiler": seen}
+        assert reported == seen == want, (key, reported, seen, want)
+    return out
+
+
 def compare_krylov_kernels(P, asm, device) -> dict:
     """Set (k): K19a and K19b against their plain versions on the web's λ
     system: one K19b matvec and residual, one Chebyshev-Jacobi application
     (degree 8) on it, one CG step pair from the same state; all at
     ``TOL``·scale.  Timed: the K19b matvec (CSR ``torch.mv`` beside it) and
     the CG step pair's K19a launches on fixed vectors (tol 0, so that no
-    update stops)."""
+    update stops), the generic iteration (4 device launches) and the Jacobi
+    one (3: Jacobi inside the steps, on the λ system's diagonal)."""
     from networks_fenicsx_tpu_torch.kernels import gather_matvec, krylov
     from networks_fenicsx_tpu_torch.multigrid import GatherOperator
     from networks_fenicsx_tpu_torch.ops.krylov import chebyshev_preconditioner
@@ -2311,17 +2448,19 @@ def compare_krylov_kernels(P, asm, device) -> dict:
     Ap0 = ops[True].apply(z0)
 
     def step_pair(plain: bool, maxiter: int = 100, rtol: float = 1e-12):
-        start, ux, up = ((krylov.cg_start_plain, krylov.cg_update_x_plain, krylov.cg_update_p_plain)
-                         if plain else (krylov.cg_start, krylov.cg_update_x, krylov.cg_update_p))
+        """The generic iteration (z = M r given): its 4 fused launches, or the
+        plain steps."""
         st, part = krylov.new_state(device), krylov.partials(B, device)
         xx, r, p = torch.zeros_like(rhs), rhs.clone(), z0.clone()
-        start(st, rhs, r, z0, part, rtol, 0.0, maxiter)
+        (krylov.cg_start_plain if plain else krylov.cg_start)(st, rhs, r, z0, part, rtol, 0.0, maxiter)
+        steps = krylov.CgSteps(st, part, xx, r, p, plain=plain)
 
         def pair():
-            ux(st, p, Ap0, xx, r, part)
-            up(st, r, z0, p, part)
+            steps.step(Ap0)
+            steps.direction(z0)
             return st[[0, 1, 2, 3, 5, 6, 7]], xx, r, p
 
+        pair.st = st
         return pair
 
     runs = {
@@ -2332,7 +2471,13 @@ def compare_krylov_kernels(P, asm, device) -> dict:
             lambda: gather_matvec.gather_matvec_plain(*tables, w, diag, x, rhs, norm=True), TOL),
         "krylov_chebyshev": (lambda: cheb[False](rhs), lambda: cheb[True](rhs), TOL),
         "krylov_cg_step": (lambda: step_pair(False)(), lambda: step_pair(True)(), TOL),
+        "krylov_cg_jacobi_step": (lambda: cg_jacobi_step(rhs, diag, Ap0, False)(),
+                                  lambda: cg_jacobi_step(rhs, diag, Ap0, True)(), TOL),
     }
+    iteration_launches = {"generic": device_launches(krylov.LAUNCHES, step_pair(False)),
+                          "jacobi": device_launches(krylov.LAUNCHES,
+                                                    cg_jacobi_step(rhs, diag, Ap0, False))}
+    assert iteration_launches == {"generic": 4, "jacobi": 3}, iteration_launches
     K, E = dlp.mv_edge.shape[0], w.shape[0]
     valid = valid_entries(dlp.mv_edge, E)
     work = {
@@ -2342,13 +2487,29 @@ def compare_krylov_kernels(P, asm, device) -> dict:
         # the pair reads p, Ap, x, r and z once and writes x, r and p once (the
         # second kernel's reads of r and p are the first's outputs), and the state
         "krylov_cg_step": (8 * 8 * B + 8 * 8, 12 * B),
+        # p, Ap, x, r and diag read, x, r and p written once, and the state;
+        # 2 operations an entry for each of 5 products and updates, 1 a division
+        "krylov_cg_jacobi_step": (8 * 8 * B + 8 * 8, 13 * B),
     }
     L = gather_csr(dlp, w, diag)
     library = {"gather_matvec": lambda: torch.mv(L, x)}
+    one_state = step_pair(False, 10**9, 0.0)
     timed = {"gather_matvec": runs["gather_matvec"][:2],
-             "krylov_cg_step": (step_pair(False, 10**9, 0.0), step_pair(True, 10**9, 0.0))}
-    record = {"B": B, "K": K}
+             "krylov_cg_step": (one_state, step_pair(True, 10**9, 0.0)),
+             "krylov_cg_jacobi_step": tuple(
+                 round_robin(lambda plain=plain: cg_jacobi_step(rhs, diag, Ap0, plain, 10**9, 0.0), 16)
+                 for plain in (False, True))}
+    record = {"B": B, "K": K, "device_launches_an_iteration": iteration_launches}
     run_checks(runs, record, timed, work, library)
+    # the kernels line's krylov entry times one state's iterations on the
+    # fixed Ap; the same steps on fresh states of their own, beside them
+    fresh = tuple(round_robin(lambda plain=plain: step_pair(plain, 10**9, 0.0), 16)
+                  for plain in (False, True))
+    record["krylov_cg_step"].update({
+        "timed_state_stopped": bool(one_state.st[krylov.DONE] != 0),
+        "fresh_ms": cuda_ms(fresh[0], reps=10), "fresh_plain_ms": cuda_ms(fresh[1], reps=3)})
+    for fns in (fresh, timed["krylov_cg_jacobi_step"]):
+        assert all(fn.fresh() for fn in fns), "a timed fresh iteration stopped early"
     return record
 
 
@@ -2611,6 +2772,7 @@ def p1tree_path(P, device, name_power: str) -> dict:
     bound the CG residual implies (a junction's imbalance is its λ row of
     ``T z − rhs``); then compute_forms + solve best of 3."""
     from networks_fenicsx_tpu_torch import kernels
+    from networks_fenicsx_tpu_torch.kernels import krylov
     from networks_fenicsx_tpu_torch.ops import krylov as loop
     from networks_fenicsx_tpu_torch.solver import _SchurPExecutor
 
@@ -2624,12 +2786,16 @@ def p1tree_path(P, device, name_power: str) -> dict:
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launches()
     loop.cg.flag_reads = 0
+    steps_before = krylov.LAUNCHES.device
     t2 = time.perf_counter()
     sol = solver.solve()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t2
     launches = kernels.launches()
     reads = loop.cg.flag_reads
+    step_launches = krylov.LAUNCHES.device - steps_before
+    # 3 device launches a launched iteration (whole chunks between flag reads)
+    assert step_launches == 3 * loop.CHUNK * (reads - 1), (step_launches, reads)
     tol = loop.cg.last_tol
     peak_mb = torch.cuda.max_memory_allocated(device) / 2**20
     ex = solver._executor
@@ -2666,6 +2832,11 @@ def p1tree_path(P, device, name_power: str) -> dict:
         f"converged, finite, conservation {imbalance:.3e} (max |q| {qmax:.3e}), vs plain path "
         f"{err:.3e} (scale {scale:.3e}), plain whole solve {plain_s:.3f} s, host flag reads "
         f"{reads}, peak device memory {peak_mb:.1f} MiB, wrapper calls {nonzero(launches)}")
+    before = P1TREE_KRYLOV_BEFORE
+    log(f"phase p1tree K19a: {step_launches} device launches of the CG steps per solve, "
+        f"{step_launches / (loop.CHUNK * (reads - 1)):.0f} a launched iteration, {info.iterations} "
+        f"iterations; before the fused steps (PERF.md) {before['device_launches']} krylov.cu "
+        f"launches, {before['an_iteration']} an iteration, {before['iterations']} iterations")
 
     times = []
     for _ in range(3):
@@ -2683,6 +2854,7 @@ def p1tree_path(P, device, name_power: str) -> dict:
         f"{sum(launches.values())} wrapper calls per solve (chunk {loop.CHUNK}); card {name_power}")
     return {"asm": asm, "solver": solver, "launches": launches, "sizes": sizes,
             "iters": info.iterations, "iters_plain": it_plain, "reads": reads,
+            "k19a_device_launches": step_launches,
             "residual": info.residual, "tol": tol, "imbalance": imbalance, "qmax": qmax,
             "err": err, "best_ms": min(times), "executor_ms": ex_ms, "plain_ms": plain_s * 1e3}
 
@@ -2695,7 +2867,7 @@ def compare_schur_p_kernels(asm, ex, device) -> dict:
     timed beside ``cholesky`` and ``cholesky_solve`` on the dense (E, m, m)
     blocks and CSR ``torch.mv``.  Then K21a on ragged tiles
     (:func:`schur_p_ragged_checks`)."""
-    from networks_fenicsx_tpu_torch.kernels import csr, schur_p
+    from networks_fenicsx_tpu_torch.kernels import csr, krylov, schur_p
 
     tiles, n_flux = ex.tiles, ex.n_flux
     N, k, E, m = tiles.N, tiles.k, tiles.E, tiles.m
@@ -2723,6 +2895,14 @@ def compare_schur_p_kernels(asm, ex, device) -> dict:
     }
     record = {"tiles": tiles.tiles, "tile": schur_p.TILE, "wrapper_launches": launches}
     td, td_plain = csr.csr_tdiag(*J, adiag), csr.csr_tdiag_plain(*J, adiag)
+    # K19a's Jacobi CG iteration at the reduced system's width on T's
+    # diagonal, its vectors scaled by it (z₀ = rhs / diag and the scalars O(1))
+    rz, Az = z * td, torch.randn(n_red, generator=gen, dtype=torch.float64, device=device) * td
+    runs["krylov_cg_jacobi_step"] = (lambda: cg_jacobi_step(rz, td, Az, False)(),
+                                     lambda: cg_jacobi_step(rz, td, Az, True)(), TOL)
+    record["krylov_device_launches_an_iteration"] = device_launches(
+        krylov.LAUNCHES, cg_jacobi_step(rz, td, Az, False))
+    assert record["krylov_device_launches_an_iteration"] == 3, record
     rel = float(((td - td_plain).abs() / td_plain.abs()).max())
     assert rel <= 1e-14, rel
     record["csr_tdiag"] = {"max_abs_err": float((td - td_plain).abs().max()), "max_rel_err": rel,
@@ -2748,9 +2928,14 @@ def compare_schur_p_kernels(asm, ex, device) -> dict:
             "schur_p_factor": (tensor_bytes(cm, tiles.perm, Lb, adiag), E * m * (k + 1) * (k + 2)),
             "schur_p_solve": (tensor_bytes(Lb) + 16 * n_flux, E * m * (4 * k + 2)),
             "csr_spmv": (csr_bytes(ex.J, n_flux), 2 * ex.J.nnz),
+            "krylov_cg_jacobi_step": (8 * 8 * n_red + 8 * 8, 13 * n_red),
         }
         timed = {name: runs[name][:2] for name in library}
+        timed["krylov_cg_jacobi_step"] = tuple(
+            round_robin(lambda plain=plain: cg_jacobi_step(rz, td, Az, plain, 10**9, 0.0), 16)
+            for plain in (False, True))
         run_checks(runs, record, timed, work, library)
+    assert all(fn.fresh() for fn in timed["krylov_cg_jacobi_step"]), "a timed iteration stopped early"
     del dense, L_dense
     record["ragged"] = schur_p_ragged_checks(device)
     return record
@@ -2993,6 +3178,7 @@ def minres_path(P, device, name_power: str) -> dict:
     solver = P.Solver(asm, options=opts, device=device)
     kernels.reset_launches()
     loop.minres.flag_reads = 0
+    steps_before = krylov.MINRES.device
     t0 = time.perf_counter()
     solver.assemble()
     solver.solve()
@@ -3000,6 +3186,9 @@ def minres_path(P, device, name_power: str) -> dict:
     first_s = time.perf_counter() - t0
     launches = kernels.launches()
     reads, tol = loop.minres.flag_reads, loop.minres.last_tol
+    step_launches = krylov.MINRES.device - steps_before
+    # one cluster launch a launched iteration besides the matvec
+    assert step_launches == loop.CHUNK * (reads - 1), (step_launches, reads)
     used = {"csr_fold", "csr_spmv", "krylov", "minres"}
     assert all(launches[name] >= 1 for name in used), launches
     assert all(n == 0 for name, n in launches.items() if name not in used), launches
@@ -3038,34 +3227,59 @@ def minres_path(P, device, name_power: str) -> dict:
         f"{min(times):.3f} ms (all {[round(t, 3) for t in times]}); solve per call "
         f"{ex_ms:.3f} ms, plain versions {plain_s * 1e3:.3f} ms; {sum(launches.values())} wrapper "
         f"calls per assemble + solve {nonzero(launches)}; card {name_power}")
+    log(f"phase minres K19e: {step_launches} device launches of the MINRES steps per solve, "
+        f"{step_launches / (loop.CHUNK * (reads - 1)):.0f} a launched iteration besides the matvec, "
+        f"{info.iterations} iterations; before the fused step (PERF.md) "
+        f"{MINRES_BEFORE['device_launches']} K19e launches, {MINRES_BEFORE['an_iteration']} an "
+        f"iteration besides the matvec and the Jacobi apply, {MINRES_BEFORE['iterations']} iterations")
 
-    # one MINRES step pair (K19e) on the system's own vectors, timed
+    # one MINRES iteration (K19e) on the system's own vectors after a start,
+    # timed: the Jacobi one (one launch) and the generic step pair
     n = asm.num_dofs
     gen = torch.Generator(device=device).manual_seed(6)
     vecs = [torch.randn(n, generator=gen, dtype=torch.float64, device=device) for _ in range(8)]
     b0 = vecs[0]
+    d = vecs[7].abs() + 1.0
 
-    def step_pair(plain: bool):
-        alpha, update = ((krylov.minres_alpha_plain, krylov.minres_update_plain) if plain
-                         else (krylov.minres_alpha, krylov.minres_update))
+    def start_and(plain: bool, jacobi: bool):
         start = krylov.minres_start_plain if plain else krylov.minres_start
         ms, part = krylov.minres_state(device), krylov.partials(n, device)
-        v, yv, r1, r2, y, w, w2, x_ = (t.clone() for t in vecs)
+        v, yv, r2, y, x_ = (t.clone() for t in vecs[1:6])
         start(ms, b0, r2, r2, v, part, 0.0, 0.0, 100)
-        alpha(ms, v, yv, r1, r2, part)
-        update(ms, yv, y, v, w, w2, x_, part)
-        return ms, v, yv, w, x_
+        steps = krylov.MinresSteps(ms, part, v, x_, r2, d if jacobi else None, plain=plain)
+
+        def iteration():
+            steps.step(yv)
+            if not jacobi:
+                steps.finish(y)
+
+        return ms, v, yv, steps, x_, iteration
+
+    def once(plain: bool, jacobi: bool):
+        ms, v, yv, steps, x_, iteration = start_and(plain, jacobi)
+        iteration()
+        return ms, v, yv, steps.w2, x_
 
     record = {}
-    runs = {"minres": (lambda: step_pair(False), lambda: step_pair(True), TOL)}
+    runs = {"minres": (lambda: once(False, False), lambda: once(True, False), TOL),
+            "minres_jacobi": (lambda: once(False, True), lambda: once(True, True), TOL)}
     run_checks(runs, record, {}, {}, {})
-    ms_k, ms_p = (cuda_ms(lambda: step_pair(plain), reps=10) for plain in (False, True))
-    record["minres"].update({"ms": ms_k, "plain_ms": ms_p, "library_ms": None,
-                             "note": "a start and one step pair (alpha, update), n = 2,422"})
-    # the start reads b, r, y and writes v; the pair reads v, yv, r1, r2, y, w,
-    # w2, x and writes yv, v, w, x
-    record["minres"].update(bound(8 * n * 16, 30 * n))
+    an_iteration = {key: device_launches(krylov.MINRES, start_and(False, jac)[-1])
+                    for key, jac in (("jacobi", True), ("generic", False))}
+    assert an_iteration == {"jacobi": 1, "generic": 2}, an_iteration
+    notes = {"minres": "a start, the Lanczos step and the finish on a given y (2 cluster "
+                       "launches), n = 2,422",
+             "minres_jacobi": "a start and one Jacobi iteration (one cluster launch), n = 2,422"}
+    for key, jac in (("minres", False), ("minres_jacobi", True)):
+        record[key].update({"ms": cuda_ms(lambda: once(False, jac), reps=10),
+                            "plain_ms": cuda_ms(lambda: once(True, jac), reps=10),
+                            "library_ms": None, "note": notes[key]})
+        # the start reads b, r, y and writes v; the iteration reads v, yv, r1,
+        # r2, d (or y), w, w2, x and writes yv, v, w, x
+        record[key].update(bound(8 * n * 16, 30 * n))
+    record["device_launches_an_iteration"] = an_iteration
     return {"launches": launches, "iters": info.iterations, "iters_plain": info_plain.iterations,
+            "k19e_device_launches": step_launches,
             "reads": reads, "residual": info.residual, "tol": tol, "err": err,
             "best_ms": min(times), "solve_ms": ex_ms, "plain_ms": plain_s * 1e3, "record": record}
 
@@ -3743,6 +3957,8 @@ def main() -> int:
     sharded = sharded_phases(P, device, name_power, serial)
     log(f"phase wall: the sharded phases {time.perf_counter() - t_sharded:.1f} s")
     shard_sets = sharded["sets"]
+    log("phase krylov launches (an iteration, reported and profiled): "
+        + json.dumps(krylov_launch_counts(device)))
 
     runs = (state["launches"], tree["launches"], forest["launches"], web["launches"],
             bed["launches"], web1000["launches"],

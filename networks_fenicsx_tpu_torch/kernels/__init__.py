@@ -40,7 +40,9 @@ The uniform-lattice solve (the separable-DCT λ solve on its two routes):
 The iterative λ solve (CG, after K8a, K9's ``lambda_system`` and K6, before
 K8b; its matvec on K18 or K19b):
 
-* :mod:`.krylov` — K19a, the CG steps, the Chebyshev start, Jacobi;
+* :mod:`.krylov` — K19a, the CG steps (3 fused launches an iteration with
+  the :class:`.krylov.Jacobi` preconditioner, on a :class:`.krylov.CgSteps`
+  packed once a solve), the Chebyshev start, Jacobi;
 * :mod:`.gather_matvec` — K19b, the gather-fold matvec of graphs without a
   shift plan, with its Chebyshev step;
 * :mod:`.mg2d` — K19c, the 2-D aggregation V-cycle's pieces, its fused
@@ -57,7 +59,8 @@ The assembled-matrix and continuous-pressure routes:
 * :mod:`.dense_lu` — K21b, the float64 LU with partial pivoting (blocked,
   in the unblocked loop's order: a cluster panel factor with lookahead),
   its solve and the tiled triangular solves;
-* :mod:`.krylov` also holds K19e, the MINRES steps.
+* :mod:`.krylov` also holds K19e, the MINRES steps (one launch an
+  iteration with Jacobi up to 8,192 unknowns, :class:`.krylov.MinresSteps`).
 
 The sharded solves (:mod:`..parallel`), per shard and across the shards:
 

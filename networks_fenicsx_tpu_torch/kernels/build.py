@@ -189,8 +189,8 @@ _SIGNATURES = {
         _d, _d, _p, _p, _p,  # c1, c2, z (or null), base (or null), stream
     ],
     "nxfx_krylov_cg_start": [_i, _p, _p, _p, _p, _p, _d, _d, _d, _p],  # n, b, r, z, part, st, rtol, atol, maxiter
-    "nxfx_krylov_cg_update_x": [_i, _p, _p, _p, _p, _p, _p, _p],  # n, p, Ap, x, r, part, st, stream
-    "nxfx_krylov_cg_update_p": [_i, _p, _p, _p, _p, _p, _p],  # n, r, z, p, part, st, stream
+    "nxfx_krylov_cg_step": [_p, _p, _p],  # CgArgs, Ap, stream
+    "nxfx_krylov_cg_direction": [_p, _p, _p],  # CgArgs, z (or null with Jacobi), stream
     "nxfx_krylov_cheb_start": [_i, _p, _p, _d, _p, _p, _p, _p, _p, _p],  # n, s, r, theta, rs, dvec, x, z, base
     "nxfx_krylov_jacobi": [_i, _p, _p, _p, _p],  # n, v, diag, z, stream
     "nxfx_krylov_inv_sqrt": [_i, _p, _p, _p],  # n, d, s, stream
@@ -230,8 +230,8 @@ _SIGNATURES = {
     "nxfx_krylov_minres_start": [
         _i, _p, _p, _p, _p, _p, _p, _d, _d, _d, _p,  # n, b, r, y, v, part, ms, rtol, atol, maxiter
     ],
-    "nxfx_krylov_minres_alpha": [_i, _p, _p, _p, _p, _p, _p, _p],  # n, v, yv, r1, r2, part, ms
-    "nxfx_krylov_minres_update": [_i, _p, _p, _p, _p, _p, _p, _p, _p, _p],  # n, yv, y, v, w, w2, x, part, ms
+    "nxfx_krylov_minres_step": [_p, _p, _p, _p, _p, _p, _p],  # MinresArgs, yv, r1, r2, w, w2, stream
+    "nxfx_krylov_minres_finish": [_p, _p, _p, _p, _p, _p],  # MinresArgs, yv, y, w, w2, stream
     "nxfx_csr_fold": [_l, _i, _l, _p, _p, _p, _p, _p],  # nnz, max_dup, nraw, perm, idx, vals, data
     "nxfx_csr_spmv": [_i, _p, _p, _p, _p, _p, _p, _p],  # n, indptr, indices, data, v, signs, out
     "nxfx_csr_rows": [_i, _i, _p, _p, _p, _p, _p, _p],  # n, mode, indptr, indices, data, adiag, out

@@ -9,11 +9,15 @@ device (K19a, :mod:`..kernels.krylov`): the updates stop changing ``x``,
 ``r`` and ``k`` once the device sets its ``done`` flag by the reference's
 rule, and the host reads the flag once per chunk.  The iteration count is
 the per-iteration rule's; a chunk's launches after ``done`` are wasted work.
-``plain=True`` runs the same loop on the plain versions.
+A :class:`..kernels.krylov.Jacobi` preconditioner is applied inside the
+steps (3 device launches an iteration besides the matvec); any other
+callable between them (4).  ``plain=True`` runs the same loop on the plain
+versions.
 
 ``minres`` (``:120-224``), the preconditioned MINRES of the assembled
 saddle-point route, is driven the same way on K19e's steps
-(``minres.flag_reads`` counts its host reads).
+(``minres.flag_reads`` counts its host reads): with ``Jacobi`` one launch an
+iteration besides the matvec up to 8,192 unknowns.
 """
 
 from __future__ import annotations
@@ -40,9 +44,8 @@ class KrylovResult(typing.NamedTuple):
 
 def _steps(plain: bool):
     if plain:
-        return (K19a.cg_start_plain, K19a.cg_update_x_plain, K19a.cg_update_p_plain,
-                K19a.cheb_start_plain, K19a.inv_sqrt_plain)
-    return K19a.cg_start, K19a.cg_update_x, K19a.cg_update_p, K19a.cheb_start, K19a.inv_sqrt
+        return K19a.cg_start_plain, K19a.jacobi_plain, K19a.cheb_start_plain, K19a.inv_sqrt_plain
+    return K19a.cg_start, K19a.jacobi, K19a.cheb_start, K19a.inv_sqrt
 
 
 def chebyshev_coefficients(degree: int, lam_max: float = 2.0, ratio: float = 30.0):
@@ -71,7 +74,7 @@ def chebyshev_preconditioner(step, diag=None, degree: int = 8, lam_max: float = 
     operator's fused step (K18, K19b or K19c), ``d_isqrt`` the scaling
     ``diag^-1/2`` when the caller has it.  Returns ``apply(r, out=None,
     base=None)``: ``M⁻¹ r`` (plus ``base``), into ``out`` when given."""
-    cheb_start, inv_sqrt = _steps(plain)[3:]
+    cheb_start, inv_sqrt = _steps(plain)[2:]
     s = inv_sqrt(diag) if d_isqrt is None else d_isqrt
     theta, coeffs = chebyshev_coefficients(degree, lam_max, ratio)
 
@@ -95,28 +98,30 @@ def cg(matvec, b: torch.Tensor, x0: torch.Tensor | None = None, precond=None, rt
     """Preconditioned conjugate gradients for SPD systems (the reference's
     stop rule: iterate while ``k < maxiter`` and ``‖r‖ > max(rtol·‖b‖,
     atol)``, ``maxiter = 4n + 20`` by default).  ``matvec`` and ``precond``
-    return new vectors; counts its host reads in ``cg.flag_reads``."""
-    start, update_x, update_p = _steps(plain)[:3]
+    return new vectors; a :class:`..kernels.krylov.Jacobi` ``precond`` runs
+    inside the steps.  Counts its host reads in ``cg.flag_reads``."""
+    start, jacobi = _steps(plain)[:2]
     n = b.shape[0]
     maxiter = int(maxiter) if maxiter is not None else 4 * n + 20
+    diag = precond.diag if isinstance(precond, K19a.Jacobi) else None
     M = precond if precond is not None else (lambda v: v)
     if x0 is None:
         x, r = torch.zeros_like(b), b.clone()  # b − A·0
     else:
         x, r = x0.clone(), b - matvec(x0)
-    z = M(r)
-    p = z.clone()
+    p = jacobi(r, diag) if diag is not None else M(r).clone()  # p₀ = z₀
     st = K19a.new_state(b.device)
     part = K19a.partials(n, b.device)
-    start(st, b, r, z, part, rtol, atol, maxiter)
+    start(st, b, r, p, part, rtol, atol, maxiter)
+    steps = K19a.CgSteps(st, part, x, r, p, diag, plain=plain)
     while True:
         state = st.tolist()  # the one host read of a chunk
         cg.flag_reads += 1
         if state[K19a.DONE]:
             break
         for _ in range(chunk):
-            update_x(st, p, matvec(p), x, r, part)
-            update_p(st, r, M(r), p, part)
+            steps.step(matvec(p))
+            steps.direction(None if diag is not None else M(r))
     rnorm = state[K19a.RNORM]
     cg.last_tol = state[K19a.TOL]
     return KrylovResult(x, int(state[K19a.K]), rnorm, rnorm <= state[K19a.TOL])
@@ -133,14 +138,14 @@ def minres(matvec, b: torch.Tensor, x0: torch.Tensor | None = None, precond=None
     preconditioner SPD (the reference's Paige-Saunders recurrence and stop
     rule: iterate while ``k < maxiter`` and ``|φ̄| > max(rtol·‖b‖, atol)``,
     ``maxiter = 4n + 20`` by default).  ``matvec`` and ``precond`` return
-    new vectors; counts its host reads in ``minres.flag_reads`` and keeps
-    the stop rule's tolerance in ``minres.last_tol``."""
-    if plain:
-        start, alpha, update = K19a.minres_start_plain, K19a.minres_alpha_plain, K19a.minres_update_plain
-    else:
-        start, alpha, update = K19a.minres_start, K19a.minres_alpha, K19a.minres_update
+    new vectors; a :class:`..kernels.krylov.Jacobi` ``precond`` runs inside
+    the steps.  Counts its host reads in ``minres.flag_reads`` and keeps the
+    stop rule's tolerance in ``minres.last_tol``."""
+    start = K19a.minres_start_plain if plain else K19a.minres_start
+    jacobi = _steps(plain)[1]
     n = b.shape[0]
     maxiter = int(maxiter) if maxiter is not None else 4 * n + 20
+    diag = precond.diag if isinstance(precond, K19a.Jacobi) else None
     M = precond if precond is not None else (lambda v: v)
     if x0 is None:
         x, r = torch.zeros_like(b), b.clone()  # b − A·0
@@ -149,9 +154,9 @@ def minres(matvec, b: torch.Tensor, x0: torch.Tensor | None = None, precond=None
     ms = K19a.minres_state(b.device)
     part = K19a.partials(n, b.device)
     v = torch.empty_like(b)
-    start(ms, b, r, M(r), v, part, rtol, atol, maxiter)
-    r1, r2 = torch.zeros_like(b), r
-    w, w2 = torch.zeros_like(b), torch.zeros_like(b)
+    y = jacobi(r, diag) if diag is not None else M(r)
+    start(ms, b, r, y, v, part, rtol, atol, maxiter)
+    steps = K19a.MinresSteps(ms, part, v, x, r, diag, plain=plain)
     while True:
         state = ms.tolist()  # the one host read of a chunk
         minres.flag_reads += 1
@@ -159,10 +164,9 @@ def minres(matvec, b: torch.Tensor, x0: torch.Tensor | None = None, precond=None
             break
         for _ in range(chunk):
             yv = matvec(v)
-            alpha(ms, v, yv, r1, r2, part)
-            r1, r2 = r2, yv
-            update(ms, yv, M(yv), v, w, w2, x, part)
-            w, w2 = w2, w
+            steps.step(yv)
+            if diag is None:
+                steps.finish(M(yv))
     res = abs(state[K19a.M_PHIBAR])
     minres.last_tol = state[K19a.M_TOL]
     return KrylovResult(x, int(state[K19a.M_K]), res, res <= state[K19a.M_TOL])

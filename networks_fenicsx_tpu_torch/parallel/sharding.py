@@ -248,7 +248,6 @@ class ShardedGeneralExecutor:
         diag = total[: 2 * B : 2].contiguous()
         rhs = total[1 : 2 * B : 2].contiguous()
         apply = shard_general.offdiag_plain if plain else shard_general.offdiag
-        jac = krylov.jacobi_plain if plain else krylov.jacobi
         zeros = {}
 
         def matvec(x):
@@ -262,7 +261,7 @@ class ShardedGeneralExecutor:
                 parts.append(apply(sh["tables"], fws[i][2], dg, x.to(dev)))
             return mesh.reduce(mesh.stack(parts), plain=plain)
 
-        return cg(matvec, rhs, precond=lambda v: jac(v, diag), rtol=1e-13, plain=plain).x
+        return cg(matvec, rhs, precond=krylov.Jacobi(diag), rtol=1e-13, plain=plain).x
 
     def back(self, i: int, ed, lam, plain: bool = False):
         """Shard ``i``'s K8b: ``(q_T, p_T, finite)``."""

@@ -698,8 +698,7 @@ class _CgExecutor(_Executor):
                                       opts.mg_overcorrect, plain)
         if kind == "chebyshev":
             return chebyshev_preconditioner(op.step, op.diag, degree=self.precond_kind[1], plain=plain)
-        jac = krylov.jacobi_plain if plain else krylov.jacobi
-        return lambda v: jac(v, op.diag)
+        return krylov.Jacobi(op.diag)
 
     def _run(self, R_data, f_data, start_pbc, end_pbc, plain: bool):
         R, f, sp, ep = self.upload(R_data, f_data, start_pbc, end_pbc)
@@ -1036,12 +1035,11 @@ class _SchurPExecutor:
     def _run(self, plain: bool):
         asm, opts = self._asm, self._opts
         if plain:
-            factor, solve, tdiag, jac = (schur_p.schur_p_factor_plain, schur_p.schur_p_solve_plain,
-                                         csr.csr_tdiag_plain, krylov.jacobi_plain)
+            factor, solve, tdiag = (schur_p.schur_p_factor_plain, schur_p.schur_p_solve_plain,
+                                    csr.csr_tdiag_plain)
             spmv = csr.csr_spmv_plain
         else:
-            factor, solve, tdiag, jac = (schur_p.schur_p_factor, schur_p.schur_p_solve,
-                                         csr.csr_tdiag, krylov.jacobi)
+            factor, solve, tdiag = schur_p.schur_p_factor, schur_p.schur_p_solve, csr.csr_tdiag
             spmv = csr.csr_spmv
         J, JT = self.J.device_arrays, self.JT.device_arrays
         Lb, A_diag = factor(asm._cell_mass_on(self._device), self.tiles)
@@ -1055,7 +1053,7 @@ class _SchurPExecutor:
         rhs = b_red - spmv(*J, A_inv(b_q))
         # T = J A⁻¹ Jᵀ on z = (p, −λ): SPD for inf-sup stable pairings
         result = cg(lambda z: spmv(*J, A_inv(spmv(*JT, z))), rhs,
-                    precond=lambda v: jac(v, Tdiag), rtol=opts.rtol if opts.rtol > 0 else 1e-12,
+                    precond=krylov.Jacobi(Tdiag), rtol=opts.rtol if opts.rtol > 0 else 1e-12,
                     atol=opts.atol, maxiter=opts.maxiter, plain=plain)
         z = result.x
         q = A_inv(b_q + spmv(*JT, z))
@@ -1155,14 +1153,13 @@ def _generic_solve(A, b: torch.Tensor, asm: _assembly.HydraulicNetworkAssembler,
         dev = csr_A.data.device
         signs = torch.as_tensor(_symmetrize_signs(asm.block_offsets, M, n), device=dev)
         arrays = csr_A.device_arrays
-        spmv, jac = ((csr.csr_spmv_plain, krylov.jacobi_plain) if plain
-                     else (csr.csr_spmv, krylov.jacobi))
+        spmv = csr.csr_spmv_plain if plain else csr.csr_spmv
         # Jacobi on |diag| of the symmetrized operator, 1 where it vanishes
         # (the p and λ rows)
         d = _extract_diagonal(csr_A, plain).abs()
         d = torch.where(d > 0, d, 1.0)
         result = minres(lambda v: spmv(*arrays, v, signs), signs * b.to(dev),
-                        precond=lambda v: jac(v, d), rtol=opts.rtol, atol=opts.atol,
+                        precond=krylov.Jacobi(d), rtol=opts.rtol, atol=opts.atol,
                         maxiter=opts.maxiter, plain=plain)
         return result.x.cpu().numpy(), SolveInfo(
             "minres", int(result.iters), float(result.residual), bool(result.converged)

@@ -73,13 +73,17 @@ one pass's four products beside 12 ``torch.matmul``, and K17's stencil
 without and with its norm and its assembly beside CSR ``torch.mv``, each
 with its device µs and launches by kernel name and its host and dispatch
 µs (``--select lattice``: these alone); ``--select redesign`` times K6,
-K19c, K21a and K18 alone as their executors issue them
-(:func:`redesign_times`): the forest's three level sums and the web's
+K19c, K21a, K18, K19a and K19e alone as their executors issue them
+(:func:`redesign_times`; ``--select krylov``: K19a and K19e alone,
+:func:`krylov_times`): the forest's three level sums and the web's
 bifurcation system beside ``index_add_``, the 512² lattice's V-cycle with
 its wrapper launches and its stencil beside CSR ``torch.mv``, the p1tree's
 K21a solve and factor with their bounds and its executor, K18's normed and
 plain residual on the 512² general route beside CSR ``torch.mv``, a
-skinny-mg Chebyshev step and residual and its executor.  ``--root``
+skinny-mg Chebyshev step and residual and its executor, 40 Jacobi CG
+iterations of the p1tree (K19a's device µs and launches an iteration by
+kernel name) and the minres solve (K19e's per solve, and its executor).
+``--root``
 imports the port from another checkout (e.g. the parent commit unpacked
 with ``git archive``), so that two versions are compared in one call.
 Otherwise the script
@@ -94,7 +98,7 @@ Otherwise the script
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
-    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign] [--root DIR] [--out kernels.json]
+    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov] [--root DIR] [--out kernels.json]
 
 (``--generations`` sets the depth of ``blocked``, ``callable`` and ``p1tree``.)
 
@@ -548,6 +552,172 @@ def redesign_times(dev) -> dict:
     del pre, L
     out.update(k21a_times(dev))
     out.update(k18_times(dev))
+    out.update(krylov_times(dev))
+    return out
+
+
+KRYLOV_ITERS = 40  # CG iterations of the p1tree timed (a whole number of chunks)
+
+
+def krylov_split(fn, iterations: int) -> dict:
+    """``fn``'s device µs and launches over ``iterations`` by kernel name
+    (:func:`device_split`), the ``kernels/csrc/krylov.cu`` kernels' total,
+    and both per iteration."""
+    sources = kernel_sources()
+    split = device_split(fn, reps=2)
+    ours = {name: v for name, v in split.items()
+            if sources.get(name.split()[-1]) == "krylov.cu"}
+    us = sum(v[0] for v in ours.values())
+    launches = sum(v[1] for v in ours.values())
+    return {"krylov_cu_us": us, "krylov_cu_launches": launches,
+            "krylov_cu_us_an_iteration": us / iterations,
+            "krylov_cu_launches_an_iteration": launches / iterations,
+            "device_us": sum(v[0] for v in split.values()), "device_us_by_kernel": split}
+
+
+def krylov_times(dev) -> dict:
+    """K19a and K19e as their solves issue them, on the port that
+    ``sys.path`` finds first (either interface: the ``Jacobi``
+    preconditioner, or a lambda on ``jacobi``):
+
+    * K19a — :data:`KRYLOV_ITERS` Jacobi CG iterations on the p1tree's
+      reduced operator ``T = J A⁻¹ Jᵀ`` (tol 0, so that none stops): CUDA
+      events over the loop, and the ``krylov.cu`` kernels' device µs and
+      launches an iteration by kernel name (the profiler, beside K20b and
+      K21a); the bound of an iteration, 13 vectors of the reduced system;
+      and the p1tree's executor (CUDA events, a solve);
+    * K19e — the minres path's solve (``_generic_solve``, 2,422 dofs): CUDA
+      events, its iterations, and the ``krylov.cu`` kernels' device µs and
+      launches per solve and per iteration; the one-launch and ticketed
+      MINRES steps at three sizes (:func:`minres_paths`);
+    * the solutions' digests (:func:`solution_digests`)."""
+    from networks_fenicsx_tpu_torch.kernels import csr, krylov, schur_p
+    from networks_fenicsx_tpu_torch.ops import krylov as loop
+    from networks_fenicsx_tpu_torch.solver import _SchurPExecutor
+
+    def jacobi(diag):
+        if hasattr(krylov, "Jacobi"):
+            return krylov.Jacobi(diag)
+        return lambda v: krylov.jacobi(v, diag)
+
+    out = {}
+    asm = chip_smoke.p1tree_assembler(P)
+    ex = _SchurPExecutor(asm, P.SolverOptions(), dev)
+    cm = asm._cell_mass_on(dev)
+    if hasattr(schur_p, "flux_tiles"):
+        f_args = s_args = (ex.tiles,)
+    else:
+        f_args, s_args = (ex.base, ex._N, ex._k, ex.n_flux), (ex.base, ex._N, ex._k)
+    Lb, adiag = schur_p.schur_p_factor(cm, *f_args)
+    J, JT = ex.J.device_arrays, ex.JT.device_arrays
+    n_red = ex.J.shape[0]
+    rhs = torch.randn(n_red, generator=torch.Generator(device=dev).manual_seed(19),
+                      dtype=torch.float64, device=dev)
+    M = jacobi(csr.csr_tdiag(*J, adiag))
+
+    def matvec(z):
+        return csr.csr_spmv(*J, schur_p.schur_p_solve(Lb, *s_args, csr.csr_spmv(*JT, z)))
+
+    def run():
+        res = loop.cg(matvec, rhs, precond=M, rtol=0.0, atol=0.0, maxiter=KRYLOV_ITERS)
+        assert res.iters == KRYLOV_ITERS, res.iters
+
+    rec = {"iterations": KRYLOV_ITERS, "n": n_red,
+           "loop_ms_an_iteration": chip_smoke.cuda_ms(run, reps=3, warmup=1) / KRYLOV_ITERS}
+    rec.update(krylov_split(run, KRYLOV_ITERS))
+    rec["bound_ms_an_iteration"] = 13 * 8 * n_red / chip_smoke.HBM_BYTES_PER_S * 1e3
+    out["k19a_p1tree_iteration"] = rec
+    ex()
+    out["p1tree_executor"] = {"ms": chip_smoke.cuda_ms(lambda: ex(), reps=3, warmup=1),
+                              "iterations": int(ex()[1])}
+    del ex, Lb, cm, J, JT
+
+    masm = chip_smoke.minres_assembler(P)
+    opts = P.SolverOptions(method="minres", rtol=1e-12)
+    solver = P.Solver(masm, options=opts, device="cuda")
+    solver.assemble()
+    solver.solve()
+    iters = solver.info.iterations
+
+    def solve():
+        _generic_solve(solver.A, solver.b, masm, "minres", opts)
+
+    rec = {"iterations": iters, "n": masm.num_dofs,
+           "executor_ms": chip_smoke.cuda_ms(solve, reps=3, warmup=1)}
+    rec.update(krylov_split(solve, iters))
+    out["k19e_minres"] = rec
+    if hasattr(krylov, "MinresSteps"):
+        out["k19e_one_launch_or_many"] = minres_paths(dev)
+    out["solution_sha256"] = solution_digests(dev, solver, masm, opts)
+    return out
+
+
+def solution_digests(dev, minres_solver, masm, opts) -> dict:
+    """SHA-256 of the float64 solutions of the Krylov routes, so that two
+    ports compare bit for bit in one call: the p1tree (``schur_p``, Jacobi
+    CG), the minres path (Jacobi MINRES), cg512 (2-D multigrid CG) and
+    web-cg (Chebyshev CG)."""
+    import hashlib
+
+    def digest(x) -> str:
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        return hashlib.sha256(np.ascontiguousarray(x, dtype=np.float64).tobytes()).hexdigest()
+
+    out = {"minres": digest(_generic_solve(minres_solver.A, minres_solver.b, masm, "minres", opts)[0])}
+    for key, build in (("p1tree", lambda: chip_smoke.p1tree_assembler(P)),
+                       ("cg512", lambda: chip_smoke.lattice_assembler(P, forms=chip_smoke.cg512_forms)),
+                       ("web-cg", lambda: chip_smoke.web_assembler(P))):
+        options = P.SolverOptions() if key == "p1tree" else P.SolverOptions(schur_method="cg")
+        solver = P.Solver(build(), options=options, device="cuda")
+        solver.solve()
+        out[key] = {"sha256": digest(solver.solution_vector()), "iterations": solver.info.iterations}
+        del solver
+    return out
+
+
+MINRES_ITERS = 200
+
+
+def minres_paths(dev) -> dict:
+    """K19e's Jacobi iteration in one cluster launch against its three
+    ticket-finished launches, at n = 2,422 (the minres path's size) and at
+    the cluster's largest (8,192) and smallest above (8,193): the
+    ``krylov.cu`` device µs an iteration over :data:`MINRES_ITERS`
+    iterations of a seeded tridiagonal SPD operator (the matvec's time
+    apart, by kernel name)."""
+    from networks_fenicsx_tpu_torch.kernels import krylov
+
+    out = {}
+    for n in (2_422, 8_192, 8_193):
+        gen = torch.Generator(device=dev).manual_seed(n)
+        d = torch.rand(n, generator=gen, dtype=torch.float64, device=dev) + 3.0
+        off = torch.rand(n - 1, generator=gen, dtype=torch.float64, device=dev)
+        b = torch.randn(n, generator=gen, dtype=torch.float64, device=dev)
+
+        def mv(v):
+            out_ = d * v
+            out_[:-1] += off * v[1:]
+            out_[1:] += off * v[:-1]
+            return out_
+
+        for one in (True, False):
+            if one and n > krylov.CLUSTER_CHUNKS * 256:
+                continue
+
+            def run(one=one):
+                ms, part, v = krylov.minres_state(dev), krylov.partials(n, dev), torch.empty_like(b)
+                x, r = torch.zeros_like(b), b.clone()
+                krylov.minres_start(ms, b, r, krylov.jacobi(r, d), v, part, 0.0, 0.0, 10**9)
+                cluster_chunks = krylov.CLUSTER_CHUNKS
+                krylov.CLUSTER_CHUNKS = cluster_chunks if one else 0  # 0: the ticketed launches
+                try:
+                    steps = krylov.MinresSteps(ms, part, v, x, r, d)
+                finally:
+                    krylov.CLUSTER_CHUNKS = cluster_chunks
+                for _ in range(MINRES_ITERS):
+                    steps.step(mv(v))
+
+            out[f"n{n}_{'one_launch' if one else 'tickets'}"] = krylov_split(run, MINRES_ITERS)
     return out
 
 
@@ -775,9 +945,9 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="time the redesigned kernels (K21b, K10, K12a, K11, K12b, K19c's coarsest "
                          "level, K22-reduce, K16, K17) beside their library calls instead of a path")
-    ap.add_argument("--select", choices=("all", "lattice", "redesign"), default="all",
-                    help="with --kernels: every entry, K16 and K17 alone, or K6, K19c, K21a and "
-                         "K18 alone")
+    ap.add_argument("--select", choices=("all", "lattice", "redesign", "krylov"), default="all",
+                    help="with --kernels: every entry, K16 and K17 alone, K6, K19c, K21a, K18, "
+                         "K19a and K19e alone, or K19a and K19e alone")
     ap.add_argument("--root", type=pathlib.Path, default=None,
                     help="import the port from this checkout instead of this one")
     args = ap.parse_args()
@@ -789,8 +959,9 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     if args.kernels:
-        if args.select in ("lattice", "redesign"):
-            times = lattice_times if args.select == "lattice" else redesign_times
+        if args.select != "all":
+            times = {"lattice": lattice_times, "redesign": redesign_times,
+                     "krylov": krylov_times}[args.select]
             rec = {"card": card, "port": str(pathlib.Path(P.__file__).resolve().parent),
                    **times(torch.device("cuda", 0))}
         else:

@@ -568,7 +568,7 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         dense_lu.lu_factor(meta.reshape(2, 2))
     with pytest.raises(ValueError, match="CUDA"):
-        krylov.minres_alpha(krylov.minres_state("meta"), meta, meta, meta, meta, meta)
+        krylov.MinresSteps(krylov.minres_state("meta"), meta, meta, meta, meta)
 
 
 def test_items_left_still_raise():

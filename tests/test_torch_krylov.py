@@ -412,7 +412,7 @@ def test_iterative_wrappers_never_fall_back_off_the_cpu():
     for call in (
         lambda: gather_matvec.gather_matvec(*tables, meta, meta, meta),
         lambda: krylov.jacobi(meta, meta),
-        lambda: krylov.cg_update_p(krylov.new_state("meta"), meta, meta, meta, meta),
+        lambda: krylov.CgSteps(krylov.new_state("meta"), meta, meta, meta, meta),
         lambda: mg1d.restrict(meta, B // 2),
         lambda: mg2d.stencil(meta.expand(len(mg2d.FIELDS), B), (3, 4), meta, meta),
         lambda: mg2d.coarse_solve(meta, meta),
@@ -468,15 +468,17 @@ def test_krylov_kernels_match_plain_on_card():
     n = rhs.shape[0]
     x0, p0 = torch.zeros_like(rhs), torch.randn(n, dtype=torch.float64, device=dev)
     states = []
-    for cg_start, update_x, update_p in (
-        (krylov.cg_start, krylov.cg_update_x, krylov.cg_update_p),
-        (krylov.cg_start_plain, krylov.cg_update_x_plain, krylov.cg_update_p_plain),
-    ):
+    for plain in (False, True):  # the generic steps against the unfused plain ones
         st, part = krylov.new_state(dev), krylov.partials(n, dev)
         x, r, p = x0.clone(), rhs.clone(), p0.clone()
-        cg_start(st, rhs, r, p, part, 1e-12, 0.0, 100)
-        update_x(st, p, diag * p, x, r, part)
-        update_p(st, r, r / diag, p, part)
+        (krylov.cg_start_plain if plain else krylov.cg_start)(st, rhs, r, p, part, 1e-12, 0.0, 100)
+        if plain:
+            krylov.cg_update_x_plain(st, p, diag * p, x, r, part)
+            krylov.cg_update_p_plain(st, r, r / diag, p, part)
+        else:
+            steps = krylov.CgSteps(st, part, x, r, p)
+            steps.step(diag * p)
+            steps.direction(r / diag)
         states.append((st, x, r, p))
     for a, b in zip(*states):
         _close(a, b, 1e-12)
