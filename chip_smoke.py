@@ -53,8 +53,11 @@ paths through the public API, checks each solution and times it:
 The lattice sets also hold K17 on two streams at once, on repeated calls
 and in a replayed CUDA graph bit for bit, two K16 solves on two streams bit
 for bit with the solves alone, and K16's product kernel on ragged shapes
-against ``torch.matmul``.  Last, the Krylov steps' device launches an
-iteration (K19a, K19e) as their launchers report them are held against
+against ``torch.matmul``.  The multifrontal sets hold the kernels'
+assembled fronts (K14's extend-add through ``rel``) bit for bit against the
+gather through ``lminv``.  Last, the Krylov steps' device launches an
+iteration (K19a, K19e) and the web's multifrontal factor and apply (K13–K15,
+on the level schedule) as their wrappers report them are held against
 ``torch.profiler``'s count.
 
 Each kernel is held against its plain version on the card, timed per call
@@ -849,6 +852,13 @@ def compare_cyclic_kernels(P, asm, device, timed: bool, force_mf_leaf: int | Non
                                 st if dmf is not None else None)
     record = {"rounds": len(dtp.rounds), "core": dtp.core_size,
               "groups": None if dmf is None else len(dmf.plan.groups)}
+    if dmf is not None:
+        # the kernels' fronts before the factor (the extend-add through rel)
+        # are the gather through lminv's bit for bit, on the kernel's pools
+        assembled = mf_factor.assemble_fronts(dmf, dc, w_pairs, st.pools)
+        assert torch.equal(assembled, mf_factor.assemble_fronts_plain(dmf, dc, w_pairs, st.pools))
+        record["mf_assembled_equal"] = True
+        record["mf_levels"] = dmf.schedule.n_levels
     for name, (kernel, plain, tol) in runs.items():
         got = kernel()
         want = plain()
@@ -965,7 +975,7 @@ def cyclic_work(dtp, ed, dr, w_edges, w_pairs, dc, rc, folds, dmf, st):
         nr = dmf.plan.n_refine
         sweep_ops = sum(g.k * (2 * g.w**2 + 4 * g.w * g.b) for g in groups)
         mf_index = tensor_bytes(dmf.init_slot, dmf.nodes_all, dmf.cval_all, dmf.ccol_all,
-                                dmf.cidx_all, dmf.lminv_all, dmf.consume)
+                                dmf.cidx_all, dmf.lminv_all) + dmf.consume.nbytes  # a host table
         work["mf_factor"] = (mf_index + tensor_bytes(dc, w_pairs, st.fac, st.vals, st.ok),
                              0.0, fac_ops)
         work["mf_apply"] = (tensor_bytes(dmf.bndpos_all, dmf.lam_pos, dmf.pci, dmf.pcj,
@@ -2340,26 +2350,96 @@ def device_launches(counter, fn) -> int:
     return counter.device - before
 
 
+PAD_KERNELS = 8  # padding kernels at each edge of a launch-count window
+
+
+def counted_window(run, pattern: str, device) -> dict:
+    """One ``torch.profiler`` window around ``run()``, with
+    :data:`PAD_KERNELS` padding kernels at each edge (``add_`` before it,
+    ``mul_`` after it, on a vector of their own): ``reported``, what
+    ``run()`` returns (its launches as the wrappers report them);
+    ``profiled``, the device kernels whose name matches ``pattern``;
+    ``pad_start`` and ``pad_end``, the padding kernels recorded; ``other``,
+    the rest of the device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = torch.zeros(64, dtype=torch.float64, device=device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PAD_KERNELS):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+        reported = run()
+        torch.cuda.synchronize()
+        for _ in range(PAD_KERNELS):
+            pad.mul_(1.0)
+        torch.cuda.synchronize()
+    out = {"reported": reported, "profiled": 0, "pad_start": 0, "pad_end": 0, "other": 0}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = ("profiled" if re.search(pattern, ev.key)
+                else "pad_start" if re.search(r"(?i)add", ev.key)
+                else "pad_end" if re.search(r"(?i)mul", ev.key) else "other")
+        out[kind] += ev.count
+    return out
+
+
+def holds_its_run(window: dict) -> bool:
+    """Whether ``window`` (:func:`counted_window`) recorded every kernel
+    of its run.  Where the card's profiler left records out of a window, it
+    left out the window's first ones, from one to all (PERF.md §6), so
+    a window holds its run when its end padding is all there and at least
+    one kernel of its start padding: what was lost, if anything, ended
+    inside the start padding."""
+    return window["pad_start"] >= 1 and window["pad_end"] == PAD_KERNELS
+
+
+def launch_count_windows(run, pattern: str, device, attempts: int = 3) -> list[dict]:
+    """Windows (:func:`counted_window`) of ``run``, at most ``attempts``,
+    until one holds its run (:func:`holds_its_run`): such a window stands,
+    whatever its counts; one that does not shows, by padding kernels that
+    ran and were not recorded, that the profiler lost records past the
+    start padding, and is taken again.  Returns every window taken; the
+    caller's check stands on the last."""
+    windows = []
+    for _ in range(attempts):
+        windows.append(counted_window(run, pattern, device))
+        if holds_its_run(windows[-1]):
+            break
+    return windows
+
+
+def check_launch_windows(key, windows: list[dict], want: float, per: int = 1) -> dict:
+    """Fails unless the last of ``windows`` holds its run and its reported
+    and profiled counts, each over ``per``, equal ``want``; returns the
+    record of the case (every window's counts)."""
+    last = windows[-1]
+    reported, seen = last["reported"] / per, last["profiled"] / per
+    assert holds_its_run(last), (key, "no window held its run", windows)
+    assert reported == seen == want, (key, reported, seen, want, windows)
+    return {"reported": reported, "profiler": seen, "windows": windows}
+
+
 KRYLOV_LAUNCHES = {("cg", 70_924, True): 3, ("cg", 70_924, False): 4,
                    ("minres", 2_422, True): 1, ("minres", 2_422, False): 2,
                    ("minres", 8_193, True): 3, ("minres", 8_193, False): 4}
+KRYLOV_PATTERN = r"\b(cg|minres)_\w+_kernel\b"
+KRYLOV_CALLS = 8  # iterations of a launch-count window
 
 
-def krylov_launch_counts(device) -> dict:
-    """K19a's and K19e's device launches an iteration as the launchers
-    report them and as ``torch.profiler`` sees them, for each case of
-    :data:`KRYLOV_LAUNCHES` (solver, n, Jacobi): 8 iterations on random
-    vectors after a warm-up one (the values do not change the count),
-    between other kernels; the profiler counts ``krylov.cu``'s kernels by
-    name.  Fails unless both equal the expected count.  MINRES runs one cluster
-    launch at n = 2,422 and ticket-finished launches at 8,193.  Run after
-    the timed phases: the profiler's tracing may slow later launches."""
-    from torch.profiler import ProfilerActivity, profile
+def krylov_launch_cases(device) -> dict:
+    """``{key: (run, want)}`` for each case of :data:`KRYLOV_LAUNCHES`
+    (solver, n, Jacobi): ``run()`` takes :data:`KRYLOV_CALLS` iterations on
+    random vectors (the values do not change the count) and returns the
+    device launches the launchers reported for them; ``want`` is an
+    iteration's.  One warm-up iteration is taken here."""
+    import itertools
 
     from networks_fenicsx_tpu_torch.kernels import krylov
 
     gen = torch.Generator(device=device).manual_seed(23)
-    calls = 8
+    calls = KRYLOV_CALLS
 
     def vectors(n, count):
         return [torch.rand(n, generator=gen, dtype=torch.float64, device=device) + 1.0
@@ -2382,7 +2462,7 @@ def krylov_launch_counts(device) -> dict:
         b, r, y, v, x, d = vectors(n, 6)
         krylov.minres_start(ms, b, r, y, v, part, 0.0, 0.0, 10**9)
         steps = krylov.MinresSteps(ms, part, v, x, r, d if jacobi else None)
-        yvs = iter(vectors(n, calls + 1))
+        yvs = itertools.cycle(vectors(n, calls + 1))
 
         def iteration():
             steps.step(next(yvs))
@@ -2391,34 +2471,101 @@ def krylov_launch_counts(device) -> dict:
 
         return krylov.MINRES, iteration
 
-    pad = torch.zeros(64, dtype=torch.float64, device=device)
-
-    def padding():  # other kernels at the window's edges, where the profiler may drop one
-        for _ in range(4):
-            pad.add_(1.0)
-        torch.cuda.synchronize()
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        padding()  # the first session of a process starts the tracer
     out = {}
     for (solver, n, jacobi), want in KRYLOV_LAUNCHES.items():
         counter, iteration = (cg if solver == "cg" else minres)(n, jacobi)
         iteration()
         torch.cuda.synchronize()
-        before = counter.device
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            padding()
+
+        def run(counter=counter, iteration=iteration):
+            before = counter.device
             for _ in range(calls):
                 iteration()
-            torch.cuda.synchronize()
-            padding()
-        reported = (counter.device - before) / calls
-        seen = sum(ev.count for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and re.search(r"\b(cg|minres)_\w+_kernel\b", ev.key)) / calls
-        key = f"{solver}_n{n}_{'jacobi' if jacobi else 'generic'}"
-        out[key] = {"reported": reported, "profiler": seen}
-        assert reported == seen == want, (key, reported, seen, want)
+            return counter.device - before
+
+        out[f"{solver}_n{n}_{'jacobi' if jacobi else 'generic'}"] = (run, want)
+    return out
+
+
+def krylov_launch_counts(device) -> dict:
+    """K19a's and K19e's device launches an iteration, as the launchers
+    report them and as ``torch.profiler`` sees them in the same window
+    (:func:`launch_count_windows`), for each case of
+    :func:`krylov_launch_cases`; the profiler counts ``krylov.cu``'s
+    kernels by name.  Fails unless both equal the expected count.  MINRES
+    runs one cluster launch at n = 2,422 and ticket-finished launches at
+    8,193.  Run after the timed phases: the profiler's tracing may slow
+    later launches."""
+    counted_window(lambda: 0, KRYLOV_PATTERN, device)  # the first session of a process starts the tracer
+    out = {}
+    for key, (run, want) in krylov_launch_cases(device).items():
+        windows = launch_count_windows(run, KRYLOV_PATTERN, device)
+        out[key] = check_launch_windows(key, windows, want, per=KRYLOV_CALLS)
+    return out
+
+
+MF_LAUNCHES = {"factor": 18, "apply": 129}  # the 100k web: 14 levels, 3 split (were 95, 769)
+MF_PATTERNS = {"factor": r"\bmf_(values|front|wide)_kernel\b",
+               "apply": r"\b(mf_(forward|backward|gather|terms|residual|gate)_kernel|fold_kernel"
+                        r"|segsum_kernel)\b"}  # K10's folds: a one-level fold is a segment sum
+
+
+def mf_core_inputs(P, asm) -> tuple:
+    """``(solver, dmf, dc, w_pairs, rc)``: a CUDA solve of ``asm`` and the
+    inputs its tree executor gives the multifrontal factor and apply
+    (captured by wrapping the two for the one solve)."""
+    from networks_fenicsx_tpu_torch.kernels import mf_apply, mf_factor
+
+    factor0, apply0 = mf_factor.mf_factor, mf_apply.mf_apply
+    seen = {}
+
+    def factor(dmf, dc, w):
+        seen.update(dmf=dmf, dc=dc, w=w)
+        return factor0(dmf, dc, w)
+
+    def apply(dmf, st, rc):
+        seen["rc"] = rc
+        return apply0(dmf, st, rc)
+
+    factor.launches = apply.launches = 0  # the wrappers count on their module's name
+    mf_factor.mf_factor, mf_apply.mf_apply = factor, apply
+    try:
+        solver = P.Solver(asm, device="cuda")
+        solver.solve()
+    finally:
+        mf_factor.mf_factor, mf_apply.mf_apply = factor0, apply0
+    return solver, seen["dmf"], seen["dc"], seen["w"], seen["rc"]
+
+
+def mf_launch_cases(P, asm) -> tuple:
+    """``(dmf, {key: run})`` on the web's core (:func:`mf_core_inputs`):
+    ``run()`` makes one factor or one apply and returns its launches as
+    the wrappers' formulas give them (:func:`mf_factor.cuda_launches`,
+    :func:`mf_apply.cuda_launches`).  One of each is made here first."""
+    from networks_fenicsx_tpu_torch.kernels import mf_apply, mf_factor
+
+    _, dmf, dc, w, rc = mf_core_inputs(P, asm)
+    st = mf_factor.mf_factor(dmf, dc, w)
+    mf_apply.mf_apply(dmf, st, rc)
+    torch.cuda.synchronize()
+    return dmf, {"factor": lambda: (mf_factor.mf_factor(dmf, dc, w), mf_factor.cuda_launches(dmf))[1],
+                 "apply": lambda: (mf_apply.mf_apply(dmf, st, rc), mf_apply.cuda_launches(dmf))[1]}
+
+
+def mf_launch_counts(P, asm) -> dict:
+    """K13–K14's and K15's device launches of one factor and one apply on
+    the web's core (:func:`mf_launch_cases`), as the wrappers' formulas
+    give them and as ``torch.profiler`` counts the kernels of
+    ``mf_factor.cu`` and of ``mf_apply.cu`` with K10's folds in the same
+    window (:func:`launch_count_windows`).  Fails unless both equal
+    :data:`MF_LAUNCHES`.  Run after the timed phases."""
+    dmf, runs = mf_launch_cases(P, asm)
+    device = dmf.fronts.device
+    counted_window(lambda: 0, MF_PATTERNS["factor"], device)  # the first session starts the tracer
+    out = {"levels": dmf.schedule.n_levels}
+    for key, run in runs.items():
+        windows = launch_count_windows(run, MF_PATTERNS[key], device)
+        out[key] = check_launch_windows(key, windows, MF_LAUNCHES[key])
     return out
 
 
@@ -3930,6 +4077,7 @@ def main() -> int:
     web = cyclic_main_path(P, device, "web main path", lambda: web_assembler(P), WEB_SIZES)
     cyclic_timing(P, web, forest_forms, "web", name_power)
     serial["web"] = (web.pop("asm"), web.pop("solver").solution_vector())
+    web_asm = serial["web"][0]  # for the multifrontal launch counts at the end
     bed = cyclic_main_path(P, device, "bed main path", lambda: bed_assembler(P), BED_SIZES)
     cyclic_timing(P, bed, bed_forms, "bed", name_power)
 
@@ -3959,6 +4107,8 @@ def main() -> int:
     shard_sets = sharded["sets"]
     log("phase krylov launches (an iteration, reported and profiled): "
         + json.dumps(krylov_launch_counts(device)))
+    log("phase multifrontal launches (a web factor and apply, reported and profiled): "
+        + json.dumps(mf_launch_counts(P, web_asm)))
 
     runs = (state["launches"], tree["launches"], forest["launches"], web["launches"],
             bed["launches"], web1000["launches"],

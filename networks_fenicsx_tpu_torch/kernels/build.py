@@ -155,14 +155,17 @@ _SIGNATURES = {
     "nxfx_front_back": [_i, _i, _p, _p, _p, _l, _p, _p, _p, _p, _p],  # ..., y, t, u, lam, stream
     "nxfx_front_nan_gate": [_i, _p, _p, _p],  # n, ok, lam, stream
     "nxfx_mf_factor": [
-        _i, _p, _p, _i, _i,  # G, host group table, consume table, n_core, P0
+        _i, _p, _i, _i, _i,  # n_levels, host level table, n_core, P0, assemble_only
+        _p, _p,  # device group and front tables
         _p, _p, _p,  # init_slot, w_pairs, dc
-        _p, _p, _p, _p, _p,  # nodes_all, cval_all, ccol_all, cidx_all, lminv_all
+        _p, _p, _p, _p,  # nodes_all, cval_all, ccol_all, rel_all
+        _p, _p, _p,  # xadd_ptr, xadd, pools_in
         _p, _p, _p, _p, _p,  # vals, fac, pools, ok, stream
     ],
     "nxfx_mf_sweep": [
-        _i, _p, _p, _i, _i,  # G, host group table, consume table, n_core, lam_len
-        _p, _p, _p, _p, _p, _p,  # rc, nodes_all, bndpos_all, cidx_all, lminv_all, lam_pos
+        _i, _p, _i, _i,  # n_levels, host level table, n_core, lam_len
+        _p, _p,  # device group and front tables
+        _p, _p, _p, _p, _p, _p,  # rc, nodes_all, bndpos_all, xadd_ptr, xadd, lam_pos
         _p, _p, _p, _p, _p, _i, _p,  # fac, vpools, ys, lam, x, accumulate, stream
     ],
     "nxfx_mf_terms": [_i, _p, _p, _p, _p, _p, _p, _p],  # P0, vals, pci, pcj, x, ti, tj, stream

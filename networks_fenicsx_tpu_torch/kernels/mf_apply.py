@@ -12,31 +12,56 @@ top-down ``λ_S = L⁻ᵀ(y − Y λ_B)`` into the λ stream, read back through
 :mod:`.fold`), and NaN everywhere when the factor's gate tripped.
 
 :func:`mf_apply` launches the kernels for CUDA tensors (per sweep, one C
-loop of 2 launches per group and a gather; per refinement pass, a terms
-pass, two K10 folds and a residual pass) and runs :func:`mf_apply_plain`
-for CPU tensors.
+call of a forward launch per level of the plan's
+:class:`..ops.multifrontal.MFSchedule`, bottom-up, a backward launch per
+level, top-down, and a gather; per refinement pass, a terms pass, two K10
+folds and a residual pass: :func:`cuda_launches`) and runs
+:func:`mf_apply_plain` for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.multifrontal import G_BNDPOS, G_FAC, G_LAM, G_VPOOL, DeviceMFPlan
+from ..ops.multifrontal import G_BNDPOS, G_CONS, G_FAC, G_LAM, G_VPOOL, DeviceMFPlan
 from . import build, fold
 from .core_fronts import fold_launches
-from .mf_factor import MFState, _child_pool, group_views
+from .mf_factor import MFState, _child_pool, _child_rel, group_views
 
-__all__ = ["mf_apply", "mf_apply_plain", "cuda_launches"]
+__all__ = ["mf_apply", "mf_apply_plain", "cuda_launches", "sweep_rhs_plain"]
 
 
 def cuda_launches(dmf: DeviceMFPlan) -> int:
     """CUDA kernel launches of one :func:`mf_apply` call (the K10 folds
-    included): ``(1 + n_refine)`` sweeps of ``2 G + 1``, per refinement
-    pass a terms pass, the two folds and a residual pass, and the gate."""
-    G = len(dmf.plan.groups)
+    included): ``(1 + n_refine)`` sweeps of ``2 L + 1`` for the schedule's
+    ``L`` levels, per refinement pass a terms pass, the two folds and a
+    residual pass, and the gate."""
     per_pass = 2 + fold_launches(dmf.mv_fold_i) + fold_launches(dmf.mv_fold_j)
     n = dmf.plan.n_refine
-    return (1 + n) * (2 * G + 1) + n * per_pass + 1
+    return (1 + n) * dmf.schedule.sweep_launches + n * per_pass + 1
+
+
+def sweep_rhs_plain(dmf: DeviceMFPlan, gi: int, rc_ext: torch.Tensor, vpools: torch.Tensor,
+                    rel: bool = False) -> torch.Tensor:
+    """Group ``gi``'s forward right-hand sides ``bv (k, m)``: ``rc`` on the
+    pivots, 0 on the boundary, plus each consumed child's ``v`` in plan
+    order, gathered through ``lminv`` (the reference's) or, with ``rel``,
+    scattered through ``rel`` (the kernels')."""
+    dt, dev = torch.float64, rc_ext.device
+    k, w, b, _, m, nodes, _, _ = group_views(dmf, gi)
+    bv = torch.cat([rc_ext[nodes.long()], torch.zeros((k, b), dtype=dt, device=dev)], dim=1)
+    ark = torch.arange(k, device=dev)[:, None]
+    for e, (cg, cidx_off, lminv_off) in enumerate(dmf.plan.groups[gi].consume):
+        Vpad = _child_pool(dmf, vpools, cg, 1)
+        cidx = dmf.cidx_all[cidx_off : cidx_off + k].long()
+        if rel:
+            r = _child_rel(dmf, int(dmf.groups[gi][G_CONS]) + e, k)
+            P, A = torch.nonzero(r >= 0, as_tuple=True)
+            bv[P, r[P, A]] = bv[P, r[P, A]] + Vpad[cidx][P, A]
+        else:
+            lminv = dmf.lminv_all[lminv_off : lminv_off + k * m].view(k, m).long()
+            bv = bv + Vpad[cidx][ark, lminv]
+    return bv
 
 
 def _sweep_plain(dmf: DeviceMFPlan, state: MFState, rhs: torch.Tensor) -> torch.Tensor:
@@ -47,20 +72,14 @@ def _sweep_plain(dmf: DeviceMFPlan, state: MFState, rhs: torch.Tensor) -> torch.
     vpools = torch.zeros(dmf.vpool_len, dtype=dt, device=dev)
     rc_ext = torch.cat([rhs, torch.zeros(1, dtype=dt, device=dev)])
     blocks = []
-    for gi, g in enumerate(plan.groups):
-        k, w, b, _, m, nodes, _, _ = group_views(dmf, gi)
+    for gi in range(len(plan.groups)):
+        k, w, b, _, m, _, _, _ = group_views(dmf, gi)
         row = dmf.groups[gi]
         fo = int(row[G_FAC])
         blk = state.fac[fo : fo + k * m * m].view(k, m, m)
         L, Yt = blk[:, :w, :w], blk[:, w:, :w]
         blocks.append((L, Yt))
-        bv = torch.cat([rc_ext[nodes.long()], torch.zeros((k, b), dtype=dt, device=dev)], dim=1)
-        ark = torch.arange(k, device=dev)[:, None]
-        for cg, cidx_off, lminv_off in g.consume:
-            Vpad = _child_pool(dmf, vpools, cg, 1)
-            cidx = dmf.cidx_all[cidx_off : cidx_off + k].long()
-            lminv = dmf.lminv_all[lminv_off : lminv_off + k * m].view(k, m).long()
-            bv = bv + Vpad[cidx][ark, lminv]
+        bv = sweep_rhs_plain(dmf, gi, rc_ext, vpools)
         y = torch.linalg.solve_triangular(L, bv[:, :w, None], upper=False)[..., 0]
         lo = int(row[G_LAM])
         ys[lo : lo + k * w] = y.reshape(-1)
@@ -114,16 +133,18 @@ def mf_apply(dmf: DeviceMFPlan, state: MFState, rc: torch.Tensor) -> torch.Tenso
     build.require_cuda("mf_apply", rc, state.fac, state.pools, state.vals, state.dc)
     build.require_cuda("mf_apply", state.ok, dtype=torch.int32)
     build.require_cuda(
-        "mf_apply", dmf.nodes_all, dmf.bndpos_all, dmf.cidx_all, dmf.lminv_all, dmf.lam_pos,
-        dmf.pci, dmf.pcj, dmf.mv_inv_i, dmf.mv_inv_j, dtype=torch.int32,
+        "mf_apply", dmf.nodes_all, dmf.bndpos_all, dmf.xadd_ptr, dmf.xadd, dmf.fronts,
+        dmf.lam_pos, dmf.pci, dmf.pcj, dmf.mv_inv_i, dmf.mv_inv_j, dtype=torch.int32,
     )
+    build.require_cuda("mf_apply", dmf.groups_dev, dtype=torch.int64)
     plan = dmf.plan
-    n, P0, G = plan.n_core, plan.n_pairs, len(plan.groups)
+    n, P0 = plan.n_core, plan.n_pairs
     if tuple(rc.shape) != (n,) or tuple(state.fac.shape) != (dmf.fac_len,):
         raise ValueError("mf_apply: rc must be (n_core,) and the state this plan's")
     dev, dt = rc.device, torch.float64
     lib = build.library()
     stream = build.stream_handle(dev)
+    sched = dmf.schedule
     ys = torch.empty(plan.lam_len, dtype=dt, device=dev)
     lam = torch.empty(plan.lam_len, dtype=dt, device=dev)
     vpools = torch.empty(max(dmf.vpool_len, 1), dtype=dt, device=dev)
@@ -135,9 +156,11 @@ def mf_apply(dmf: DeviceMFPlan, state: MFState, rc: torch.Tensor) -> torch.Tenso
     def sweep(rhs, accumulate):
         with torch.cuda.device(dev):
             code = lib.nxfx_mf_sweep(
-                G, dmf.groups.ctypes.data, dmf.consume.data_ptr(), n, plan.lam_len,
+                sched.n_levels, sched.levels.ctypes.data, n, plan.lam_len,
+                dmf.groups_dev.data_ptr(), dmf.fronts.data_ptr(),
                 rhs.data_ptr(), dmf.nodes_all.data_ptr(), dmf.bndpos_all.data_ptr(),
-                dmf.cidx_all.data_ptr(), dmf.lminv_all.data_ptr(), dmf.lam_pos.data_ptr(),
+                dmf.xadd_ptr.data_ptr(), dmf.xadd.data_ptr(),
+                dmf.lam_pos.data_ptr(),
                 state.fac.data_ptr(), vpools.data_ptr(), ys.data_ptr(), lam.data_ptr(),
                 x.data_ptr(), int(accumulate), stream,
             )

@@ -20,8 +20,13 @@ that the apply reads both triangles along rows), ``Yᵀ`` (lower-left) and
 pools, the pair values, the f64 diagonal and the gate flag (0 when an entry
 of ``L`` is not finite).
 
-:func:`mf_factor` launches the kernels for CUDA tensors (one launch per
-group, from one C loop) and runs :func:`mf_factor_plain` for CPU tensors.
+:func:`mf_factor` launches the kernels for CUDA tensors (the values pass,
+then per level of the plan's :class:`..ops.multifrontal.MFSchedule` one
+launch of its wide fronts and one of the rest: :func:`cuda_launches`) and
+runs :func:`mf_factor_plain` for CPU tensors.  :func:`assemble_fronts`
+writes the assembled fronts alone (the kernels' extend-add through ``rel``),
+:func:`assemble_fronts_plain` the same by the reference's gather through
+``lminv`` (``rel=True``: by a scatter through ``rel``).
 """
 
 from __future__ import annotations
@@ -31,11 +36,22 @@ import typing
 import torch
 
 from ..ops.multifrontal import (
-    G_B, G_C, G_CVAL, G_FAC, G_K, G_NODES, G_POOL, G_VPOOL, G_W, DeviceMFPlan,
+    C_B, C_REL, G_B, G_C, G_CONS, G_CVAL, G_FAC, G_K, G_NODES, G_POOL, G_VPOOL, G_W,
+    DeviceMFPlan,
 )
 from . import build
 
-__all__ = ["MFState", "front_factor_plain", "mf_factor", "mf_factor_plain", "group_views"]
+__all__ = [
+    "MFState", "assemble_fronts", "assemble_fronts_plain", "cuda_launches", "front_factor_plain",
+    "group_views", "mf_factor", "mf_factor_plain",
+]
+
+
+def cuda_launches(dmf: DeviceMFPlan) -> int:
+    """CUDA kernel launches of one :func:`mf_factor` call: the values pass,
+    and per level one launch of its fronts wider than ``WIDE_M`` and one of
+    the rest, where it has them."""
+    return dmf.schedule.factor_launches
 
 
 class MFState(typing.NamedTuple):
@@ -72,32 +88,79 @@ def _child_pool(dmf: DeviceMFPlan, pools: torch.Tensor, cg: int, width: int) -> 
     return pad
 
 
+def _values(dmf: DeviceMFPlan, dc: torch.Tensor, w_pairs: torch.Tensor) -> tuple:
+    """``(vals, dc_ext)``: ``−w_pairs[init_slot]`` then 0, and ``dc`` then 1."""
+    dt, dev = torch.float64, dc.device
+    vals = torch.cat([-w_pairs[dmf.init_slot.long()], torch.zeros(1, dtype=dt, device=dev)])
+    return vals, torch.cat([dc, torch.ones(1, dtype=dt, device=dev)])
+
+
+def _child_rel(dmf: DeviceMFPlan, edge: int, k: int) -> torch.Tensor:
+    """Consume edge ``edge``'s ``rel (k, cb)`` (−1: no parent index)."""
+    cb, off = (int(v) for v in dmf.consume[edge, [C_B, C_REL]])
+    return dmf.rel_all[off : off + k * cb].view(k, cb).long()
+
+
+def _assemble_group(dmf: DeviceMFPlan, gi: int, vals, dc_ext, pools, rel: bool) -> torch.Tensor:
+    """Group ``gi``'s assembled fronts ``F (k, m, m)``: the pivot-row strips,
+    the diagonal and each consumed child's update, in plan order, gathered
+    through ``lminv`` (the reference's) or, with ``rel``, scattered through
+    ``rel`` (the kernels')."""
+    dt, dev = torch.float64, vals.device
+    g = dmf.plan.groups[gi]
+    k, w, b, c, m, nodes, cval, ccol = group_views(dmf, gi)
+    S = torch.zeros((k, w, m + 1), dtype=dt, device=dev)  # column m: the pads
+    S.scatter_(2, ccol.long(), vals[cval.long()])
+    F = torch.zeros((k, m, m), dtype=dt, device=dev)
+    F[:, :w, :] = S[:, :, :m]
+    F[:, w:, :w] = S[:, :, w:m].transpose(1, 2)
+    ar = torch.arange(w, device=dev)
+    F[:, ar, ar] = F[:, ar, ar] + dc_ext[nodes.long()]
+    ark = torch.arange(k, device=dev)[:, None, None]
+    for e, (cg, cidx_off, lminv_off) in enumerate(g.consume):
+        Upad = _child_pool(dmf, pools, cg, 2)
+        cidx = dmf.cidx_all[cidx_off : cidx_off + k].long()
+        Us = Upad[cidx]
+        if rel:
+            r = _child_rel(dmf, int(dmf.groups[gi][G_CONS]) + e, k)
+            valid = r >= 0
+            # every pair of the child's mapped slots: distinct entries of the
+            # front (rel is one to one), one add each
+            P, A, Q = torch.nonzero(valid[:, :, None] & valid[:, None, :], as_tuple=True)
+            I, J = r[P, A], r[P, Q]
+            F[P, I, J] = F[P, I, J] + Us[P, A, Q]
+        else:
+            lminv = dmf.lminv_all[lminv_off : lminv_off + k * m].view(k, m).long()
+            F = F + Us[ark, lminv[:, :, None], lminv[:, None, :]]
+    return F
+
+
+def assemble_fronts_plain(dmf: DeviceMFPlan, dc: torch.Tensor, w_pairs: torch.Tensor,
+                          pools: torch.Tensor, rel: bool = False) -> torch.Tensor:
+    """Every front's assembled block (before its factor) in the factor
+    buffer's layout ``(fac_len,)``, each child's update read from ``pools``
+    (a factor's :attr:`MFState.pools`): gathered through ``lminv`` or, with
+    ``rel``, scattered through ``rel``."""
+    vals, dc_ext = _values(dmf, dc, w_pairs)
+    out = torch.zeros(dmf.fac_len, dtype=torch.float64, device=dc.device)
+    for gi in range(len(dmf.plan.groups)):
+        F = _assemble_group(dmf, gi, vals, dc_ext, pools, rel)
+        fo = int(dmf.groups[gi][G_FAC])
+        out[fo : fo + F.numel()] = F.reshape(-1)
+    return out
+
+
 def mf_factor_plain(dmf: DeviceMFPlan, dc: torch.Tensor, w_pairs: torch.Tensor) -> MFState:
     """Eager version, batched per group with PyTorch's float64 Cholesky
     and triangular solve."""
     dt, dev = torch.float64, dc.device
-    plan = dmf.plan
-    vals = torch.cat([-w_pairs[dmf.init_slot.long()], torch.zeros(1, dtype=dt, device=dev)])
-    dc_ext = torch.cat([dc, torch.ones(1, dtype=dt, device=dev)])
+    vals, dc_ext = _values(dmf, dc, w_pairs)
     fac = torch.zeros(dmf.fac_len, dtype=dt, device=dev)
     pools = torch.zeros(dmf.pool_len, dtype=dt, device=dev)
     ok = torch.ones((), dtype=torch.bool, device=dev)
-    for gi, g in enumerate(plan.groups):
-        k, w, b, c, m, nodes, cval, ccol = group_views(dmf, gi)
-        S = torch.zeros((k, w, m + 1), dtype=dt, device=dev)  # column m: the pads
-        S.scatter_(2, ccol.long(), vals[cval.long()])
-        F = torch.zeros((k, m, m), dtype=dt, device=dev)
-        F[:, :w, :] = S[:, :, :m]
-        F[:, w:, :w] = S[:, :, w:m].transpose(1, 2)
-        ar = torch.arange(w, device=dev)
-        F[:, ar, ar] = F[:, ar, ar] + dc_ext[nodes.long()]
-        ark = torch.arange(k, device=dev)[:, None, None]
-        for cg, cidx_off, lminv_off in g.consume:
-            Upad = _child_pool(dmf, pools, cg, 2)
-            cidx = dmf.cidx_all[cidx_off : cidx_off + k].long()
-            lminv = dmf.lminv_all[lminv_off : lminv_off + k * m].view(k, m).long()
-            Us = Upad[cidx]
-            F = F + Us[ark, lminv[:, :, None], lminv[:, None, :]]
+    for gi in range(len(dmf.plan.groups)):
+        k, w, b, _, m, _, _, _ = group_views(dmf, gi)
+        F = _assemble_group(dmf, gi, vals, dc_ext, pools, rel=False)
         blk, U, front_ok = front_factor_plain(F, w)
         ok = ok & front_ok
         if b:
@@ -129,17 +192,14 @@ def front_factor_plain(F: torch.Tensor, w: int) -> tuple:
     return blk, U, ok
 
 
-def mf_factor(dmf: DeviceMFPlan, dc: torch.Tensor, w_pairs: torch.Tensor) -> MFState:
-    """K13 + K14 on ``dc``'s device: the factor of the core with peeled
-    diagonal ``dc (n_core,)`` and pair conductances ``w_pairs (P,)``."""
-    if dc.device.type == "cpu":
-        return mf_factor_plain(dmf, dc, w_pairs)
+def _launch(dmf: DeviceMFPlan, dc, w_pairs, pools_in, assemble_only: bool) -> tuple:
+    """``(vals, fac, pools, ok)`` of one ``nxfx_mf_factor`` call."""
     build.require_cuda("mf_factor", dc, w_pairs)
     build.require_cuda(
-        "mf_factor", dmf.init_slot, dmf.nodes_all, dmf.cval_all, dmf.ccol_all, dmf.cidx_all,
-        dmf.lminv_all, dtype=torch.int32,
+        "mf_factor", dmf.init_slot, dmf.nodes_all, dmf.cval_all, dmf.ccol_all, dmf.rel_all,
+        dmf.xadd_ptr, dmf.xadd, dmf.fronts, dtype=torch.int32,
     )
-    build.require_cuda("mf_factor", dmf.consume, dtype=torch.int64)
+    build.require_cuda("mf_factor", dmf.groups_dev, dtype=torch.int64)
     plan = dmf.plan
     if tuple(dc.shape) != (plan.n_core,):
         raise ValueError("mf_factor: dc must be (n_core,)")
@@ -149,18 +209,48 @@ def mf_factor(dmf: DeviceMFPlan, dc: torch.Tensor, w_pairs: torch.Tensor) -> MFS
     fac = torch.empty(dmf.fac_len, dtype=dt, device=dev)
     pools = torch.empty(max(dmf.pool_len, 1), dtype=dt, device=dev)
     ok = torch.empty((), dtype=torch.int32, device=dev)
+    sched = dmf.schedule
     with torch.cuda.device(dev):
         code = build.library().nxfx_mf_factor(
-            len(plan.groups), dmf.groups.ctypes.data, dmf.consume.data_ptr(), plan.n_core, P0,
+            sched.n_levels, sched.levels.ctypes.data, plan.n_core, P0, int(assemble_only),
+            dmf.groups_dev.data_ptr(), dmf.fronts.data_ptr(),
             dmf.init_slot.data_ptr(), w_pairs.data_ptr(), dc.data_ptr(),
             dmf.nodes_all.data_ptr(), dmf.cval_all.data_ptr(), dmf.ccol_all.data_ptr(),
-            dmf.cidx_all.data_ptr(), dmf.lminv_all.data_ptr(),
+            dmf.rel_all.data_ptr(), dmf.xadd_ptr.data_ptr(),
+            dmf.xadd.data_ptr(), (pools if pools_in is None else pools_in).data_ptr(),
             vals.data_ptr(), fac.data_ptr(), pools.data_ptr(), ok.data_ptr(),
             build.stream_handle(dev),
         )
     build.check(code, "mf_factor")
+    return vals, fac, pools[: dmf.pool_len], ok
+
+
+def mf_factor(dmf: DeviceMFPlan, dc: torch.Tensor, w_pairs: torch.Tensor) -> MFState:
+    """K13 + K14 on ``dc``'s device: the factor of the core with peeled
+    diagonal ``dc (n_core,)`` and pair conductances ``w_pairs (P,)``."""
+    if dc.device.type == "cpu":
+        return mf_factor_plain(dmf, dc, w_pairs)
+    vals, fac, pools, ok = _launch(dmf, dc, w_pairs, None, False)
     mf_factor.launches += 1
-    return MFState(fac, pools[: dmf.pool_len], vals, ok, dc)
+    return MFState(fac, pools, vals, ok, dc)
 
 
 mf_factor.launches = 0
+
+
+def assemble_fronts(dmf: DeviceMFPlan, dc: torch.Tensor, w_pairs: torch.Tensor,
+                    pools: torch.Tensor) -> torch.Tensor:
+    """The kernels' assembled fronts (``(fac_len,)``, before the factor),
+    each child's update read from ``pools``: the factor's launches stopped
+    after the extend-add.  CPU tensors: :func:`assemble_fronts_plain`."""
+    if dc.device.type == "cpu":
+        return assemble_fronts_plain(dmf, dc, w_pairs, pools, rel=True)
+    build.require_cuda("assemble_fronts", pools)
+    if pools.numel() < dmf.pool_len:
+        raise ValueError("assemble_fronts: pools must hold pool_len values")
+    fac = _launch(dmf, dc, w_pairs, pools, True)[1]
+    assemble_fronts.launches += 1
+    return fac
+
+
+assemble_fronts.launches = 0

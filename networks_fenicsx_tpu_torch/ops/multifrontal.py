@@ -9,10 +9,14 @@ grouping and the λ stream are the reference's.
 
 The elimination follows the nested-dissection separator tree: each tree
 node is a dense front (its pivots plus the ancestors its subtree touches),
-fronts are grouped by (tree level, padded size class), and a group is one
-batched launch.  :func:`device_mf_plan` uploads the flat int buffers once
-per executor and builds the host launch tables of the factor (K13 + K14,
-:mod:`..kernels.mf_factor`) and the apply (K15, :mod:`..kernels.mf_apply`).
+fronts are grouped by (tree level, padded size class).  :func:`device_mf_plan`
+uploads the flat int buffers once per executor with the launch tables of the
+factor (K13 + K14, :mod:`..kernels.mf_factor`) and the apply (K15,
+:mod:`..kernels.mf_apply`): the group table, the consume edges, the level
+schedule (:func:`mf_schedule`: each level's fronts run in one launch, or
+two in the factor) and ``rel``, the inverse of ``lminv``, through which
+the extend-add scatters a child's block into its parent
+(:func:`mf_rel_tables`).
 """
 
 from __future__ import annotations
@@ -25,9 +29,12 @@ import torch
 
 __all__ = [
     "MFPlan",
+    "MFSchedule",
     "DeviceMFPlan",
     "build_nd_tree",
     "device_mf_plan",
+    "mf_rel_tables",
+    "mf_schedule",
     "plan_multifrontal",
 ]
 
@@ -503,13 +510,149 @@ def plan_multifrontal(
 # ---------------------------------------------------------------------------
 
 # columns of DeviceMFPlan.groups
-G_K, G_W, G_B, G_C, G_NODES, G_CVAL, G_BNDPOS, G_LAM, G_FAC, G_POOL, G_VPOOL, G_CONS, G_NCONS = (
-    range(13)
-)
+(G_K, G_W, G_B, G_C, G_NODES, G_CVAL, G_BNDPOS, G_LAM, G_FAC, G_POOL, G_VPOOL, G_CONS, G_NCONS,
+ G_XADD) = range(14)
 # columns of DeviceMFPlan.consume: the child group's U-pool and v-pool
-# offsets, its front count and boundary width, and this edge's cidx and
-# lminv offsets
-C_POOL, C_VPOOL, C_K, C_B, C_CIDX, C_LMINV = range(6)
+# offsets, its front count and boundary width, and this edge's cidx, lminv
+# and rel offsets
+C_POOL, C_VPOOL, C_K, C_B, C_CIDX, C_LMINV, C_REL = range(7)
+# columns of DeviceMFPlan.xadd: a contribution's child update row in the U
+# pools, its rel row in rel_all, the child's boundary width, its v entry
+X_UROW, X_REL, X_CB, X_V = range(4)
+# columns of MFSchedule.levels: the level's first front in MFSchedule.fronts,
+# its fronts wider than WIDE_M (they come first), all its fronts, the widest
+# m of the wide ones and of the rest (0 where there is none)
+L_START, L_WIDE, L_COUNT, L_WIDE_M, L_NARROW_M = range(5)
+# fronts wider than this (m = w + b) are factored by a cluster of blocks in
+# device memory; the others in one block's shared memory (m (m + 1) doubles)
+WIDE_M = 160
+
+
+class MFSchedule(typing.NamedTuple):
+    """The level schedule of a plan's groups, from the plan alone (host).
+
+    ``level[g]`` is 0 for a group that consumes none, else 1 + the highest
+    level among the groups it consumes; a group's fronts read only the
+    pools of lower levels, and the backward sweep only the λ of higher
+    ones, so the fronts of one level run in one launch.  ``fronts`` lists
+    ``(group, front)`` level by level, the widest front first; ``levels``
+    holds a row per level (columns ``L_*``)."""
+
+    level: np.ndarray  # (G,) int64
+    fronts: np.ndarray  # (n_fronts, 2) int32
+    levels: np.ndarray  # (n_levels, 5) int64
+
+    @property
+    def n_levels(self) -> int:
+        return int(self.levels.shape[0])
+
+    @property
+    def factor_launches(self) -> int:
+        """The factor's launches: the values pass, and per level one launch
+        of its wide fronts and one of the rest, where it has them."""
+        wide = self.levels[:, L_WIDE]
+        return 1 + int(np.count_nonzero(wide)) + int(np.count_nonzero(self.levels[:, L_COUNT] - wide))
+
+    @property
+    def sweep_launches(self) -> int:
+        """One sweep of the apply: a forward and a backward launch per level
+        and the gather."""
+        return 2 * self.n_levels + 1
+
+
+def mf_schedule(plan: MFPlan) -> MFSchedule:
+    """The :class:`MFSchedule` of ``plan``, its fronts wider than
+    :data:`WIDE_M` (``m = w + b``, read at call time) counted as wide."""
+    G = len(plan.groups)
+    level = np.zeros(G, np.int64)
+    for gi, g in enumerate(plan.groups):
+        level[gi] = 1 + max((int(level[cg]) for cg, _, _ in g.consume), default=-1)
+    grp = np.concatenate([np.full(g.k, gi, np.int64) for gi, g in enumerate(plan.groups)])
+    row = np.concatenate([np.arange(g.k, dtype=np.int64) for g in plan.groups])
+    m = np.asarray([g.w + g.b for g in plan.groups], np.int64)[grp]
+    lv = level[grp]
+    order = np.lexsort((row, grp, -m, lv))
+    n_levels = int(level.max()) + 1 if G else 0
+    levels = np.zeros((n_levels, 5), np.int64)
+    starts = np.searchsorted(lv[order], np.arange(n_levels + 1))
+    for L in range(n_levels):
+        ms = m[order[starts[L] : starts[L + 1]]]
+        wide = ms > WIDE_M
+        levels[L] = (starts[L], np.count_nonzero(wide), ms.size,
+                     ms[wide].max(initial=0), ms[~wide].max(initial=0))
+    fronts = np.stack([grp[order], row[order]], axis=1).astype(np.int32)
+    return MFSchedule(level=level, fronts=np.ascontiguousarray(fronts), levels=levels)
+
+
+def mf_rel_tables(plan: MFPlan) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """``(rel_all, rel_off, xadd_ptr, xadd)``.
+
+    ``rel``: per consume edge (in the order of :func:`mf_launch_tables`'
+    consume table) a ``(k, cb)`` int32 block at ``rel_off[edge]``: for
+    front ``p`` of the consuming group and slot ``a < cb`` of the child's
+    boundary, the parent-local index ``i`` with ``lminv[p, i] == a``, or −1
+    where there is none (the child's padding, whose update rows are zero,
+    or a front that consumes nothing on this edge).  Scattering a child's
+    block through ``rel`` adds what gathering it through ``lminv`` adds;
+    raises ``ValueError`` where ``lminv`` maps two parent indices to one
+    slot, since the two would then differ.
+
+    The same entries by parent index, the extend-add's work lists: per
+    group a ``(k·m + 1,)`` block of ``xadd_ptr`` (its offset is the group
+    table's ``G_XADD`` column) whose ``[p·m + i, p·m + i + 1)`` range of
+    ``xadd`` rows holds, for each ``(edge, a)`` with ``rel[edge][p, a] ==
+    i`` in plan order of the edges, the offsets a kernel reads without
+    further lookups (columns ``X_*``): the child's update row ``a`` in the
+    U pools, front ``p``'s ``rel`` row of the edge in ``rel_all``, the
+    child's boundary width ``cb``, and the child's ``v`` entry ``a`` in the
+    apply's v pools.  A thread or warp that owns index ``i`` so takes its
+    contributions in the order of the gather, with no barrier between
+    children."""
+    ks = np.asarray([g.k for g in plan.groups], np.int64)
+    bs = np.asarray([g.b for g in plan.groups], np.int64)
+    pool_off = np.concatenate([[0], np.cumsum(ks * bs * bs)])  # as mf_launch_tables lays them
+    vpool_off = np.concatenate([[0], np.cumsum(ks * bs)])
+    parts, offs, off = [], [], 0
+    ptr_parts, ent_parts, n_ent, edge = [], [], 0, 0
+    for g in plan.groups:
+        m = g.w + g.b
+        P_, I_, E_, A_ = [], [], [], []
+        for cg, cidx_off, lminv_off in g.consume:
+            child = plan.groups[cg]
+            kc, cb = child.k, child.b
+            cidx = plan.cidx_all[cidx_off : cidx_off + g.k].astype(np.int64)
+            lm = plan.lminv_all[lminv_off : lminv_off + g.k * m].reshape(g.k, m).astype(np.int64)
+            p, i = np.nonzero((lm < cb) & (cidx < kc)[:, None])
+            key = p * cb + lm[p, i]
+            if np.unique(key).size != key.size:
+                raise ValueError("mf_rel_tables: lminv maps two parent indices to one child slot")
+            rel = np.full(g.k * cb, -1, np.int32)
+            rel[key] = i
+            parts.append(rel)
+            offs.append(off)
+            off += rel.size
+            a_ = lm[p, i]
+            child_row = cidx[p] * cb + a_
+            P_.append(p)
+            I_.append(i)
+            E_.append(np.stack([pool_off[cg] + child_row * cb, off - rel.size + p * cb,
+                                np.full(p.size, cb), vpool_off[cg] + child_row], axis=1))
+            A_.append(np.full(p.size, edge, np.int64))
+            edge += 1
+        cat = (lambda xs: np.concatenate(xs) if xs else np.empty(0, np.int64))
+        P_, I_, A_ = cat(P_), cat(I_), cat(A_)
+        E_ = np.concatenate(E_) if E_ else np.empty((0, 4), np.int64)
+        order = np.lexsort((A_, I_, P_))  # A_: the edge, in plan order
+        row = P_[order] * m + I_[order]
+        ptr_parts.append(n_ent + np.searchsorted(row, np.arange(g.k * m + 1)))
+        ent_parts.append(E_[order])
+        n_ent += order.size
+    rel_all = np.concatenate(parts) if parts else np.empty(0, np.int32)
+    xadd_ptr = np.concatenate(ptr_parts).astype(np.int32)
+    xadd = np.concatenate(ent_parts) if ent_parts else np.empty((0, 4), np.int64)
+    assert xadd.size == 0 or int(xadd.max()) < np.iinfo(np.int32).max
+    xadd = xadd.astype(np.int32)
+    return rel_all, np.asarray(offs, np.int64), xadd_ptr, np.ascontiguousarray(xadd)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -520,12 +663,20 @@ class DeviceMFPlan:
         plan: The host plan.
         init_slot … mv_inv_j: The plan's flat int32 buffers as tensors
             (the fold plans as tuples of ``(n_grp, K)`` tensors).
-        groups: host ``(G, 13)`` int64 launch table, one row per group in
+        groups: host ``(G, 14)`` int64 launch table, one row per group in
             factor order (columns ``G_*``): shapes, offsets into the flat
             index buffers and the λ stream, offsets into the factor, U-pool
-            and v-pool buffers, and the group's rows of ``consume``.
-        consume: ``(n_consume, 6)`` int64 table on the device (columns
-            ``C_*``).
+            and v-pool buffers, the group's rows of ``consume`` and its
+            block of ``xadd_ptr``.
+        groups_dev: ``groups`` on the device (the kernels read a front's row).
+        consume: host ``(n_consume, 7)`` int64 table (columns ``C_*``),
+            read by the plain versions (the kernels read ``xadd``).
+        rel_all: int32 ``rel`` blocks of the consume edges on the device
+            (:func:`mf_rel_tables`).
+        xadd_ptr, xadd: the extend-add's work lists by parent index on the
+            device (:func:`mf_rel_tables`; ``xadd``'s columns ``X_*``).
+        schedule: The host level schedule (:func:`mf_schedule`).
+        fronts: ``schedule.fronts`` on the device.
         fac_len: f64 length of the factor buffer: Σ k·m² over groups, each
             front's ``(m, m)`` block holding L (pivot block, lower, with Lᵀ
             above its diagonal), Yᵀ = (L⁻¹F_SB)ᵀ (lower-left) and
@@ -550,7 +701,13 @@ class DeviceMFPlan:
     mv_inv_i: torch.Tensor
     mv_inv_j: torch.Tensor
     groups: np.ndarray
-    consume: torch.Tensor
+    groups_dev: torch.Tensor
+    consume: np.ndarray
+    rel_all: torch.Tensor
+    xadd_ptr: torch.Tensor
+    xadd: torch.Tensor
+    schedule: MFSchedule
+    fronts: torch.Tensor
     fac_len: int
     pool_len: int
     vpool_len: int
@@ -565,15 +722,19 @@ class DeviceMFPlan:
         return 8 * (self.fac_len + self.pool_len + self.vpool_len + 2 * self.plan.lam_len)
 
 
-def mf_launch_tables(plan: MFPlan) -> tuple[np.ndarray, np.ndarray, int, int, int]:
-    """``(groups, consume, fac_len, pool_len, vpool_len)`` of
-    :class:`DeviceMFPlan`, from the host plan alone."""
+def mf_launch_tables(plan: MFPlan) -> tuple:
+    """``(groups, consume, (rel_all, xadd_ptr, xadd), fac_len, pool_len,
+    vpool_len)`` of :class:`DeviceMFPlan`, from the host plan alone (the
+    tables of :func:`mf_rel_tables`, their offsets in ``consume``'s
+    ``C_REL`` and ``groups``' ``G_XADD`` columns)."""
     G = len(plan.groups)
-    groups = np.zeros((G, 13), np.int64)
+    groups = np.zeros((G, 14), np.int64)
     pool_off = np.zeros(G, np.int64)
     vpool_off = np.zeros(G, np.int64)
     fac = pool = vpool = 0
     cons_rows = []
+    rel_all, rel_off, xadd_ptr, xadd = mf_rel_tables(plan)
+    xadd_off = 0
     for gi, g in enumerate(plan.groups):
         m = g.w + g.b
         pool_off[gi], vpool_off[gi] = pool, vpool
@@ -582,26 +743,31 @@ def mf_launch_tables(plan: MFPlan) -> tuple[np.ndarray, np.ndarray, int, int, in
             g.nodes_off, g.cval_off, g.bndpos_off, g.lam_off
         )
         groups[gi, [G_FAC, G_POOL, G_VPOOL]] = fac, pool, vpool
-        groups[gi, [G_CONS, G_NCONS]] = len(cons_rows), len(g.consume)
+        groups[gi, [G_CONS, G_NCONS, G_XADD]] = len(cons_rows), len(g.consume), xadd_off
+        xadd_off += g.k * m + 1
         for cg, cidx_off, lminv_off in g.consume:
             child = plan.groups[cg]
-            cons_rows.append((pool_off[cg], vpool_off[cg], child.k, child.b, cidx_off, lminv_off))
+            cons_rows.append((pool_off[cg], vpool_off[cg], child.k, child.b, cidx_off, lminv_off,
+                              rel_off[len(cons_rows)]))
         fac += g.k * m * m
         pool += g.k * g.b * g.b
         vpool += g.k * g.b
-    consume = np.asarray(cons_rows, np.int64).reshape(-1, 6)
-    return groups, consume, fac, pool, vpool
+    consume = np.asarray(cons_rows, np.int64).reshape(-1, 7)
+    return groups, consume, (rel_all, xadd_ptr, xadd), fac, pool, vpool
 
 
 def device_mf_plan(plan: MFPlan, device: torch.device | str) -> DeviceMFPlan:
     """Upload ``plan``'s int buffers to ``device`` once, with its launch
-    tables; its two matvec folds each a :class:`..kernels.fold.FoldPlan`."""
+    tables and level schedule (:func:`mf_schedule`); its two matvec folds
+    each a :class:`..kernels.fold.FoldPlan`."""
     from ..kernels.fold import FoldPlan
 
     def up(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
 
-    groups, consume, fac_len, pool_len, vpool_len = mf_launch_tables(plan)
+    groups, consume, (rel_all, xadd_ptr, xadd), fac_len, pool_len, vpool_len = (
+        mf_launch_tables(plan))
+    schedule = mf_schedule(plan)
     return DeviceMFPlan(
         plan=plan,
         init_slot=up(plan.init_slot),
@@ -619,7 +785,13 @@ def device_mf_plan(plan: MFPlan, device: torch.device | str) -> DeviceMFPlan:
         mv_inv_i=up(plan.mv_inv_i),
         mv_inv_j=up(plan.mv_inv_j),
         groups=groups,
-        consume=torch.as_tensor(consume, device=device),
+        groups_dev=torch.as_tensor(groups, device=device),
+        consume=consume,
+        rel_all=up(rel_all),
+        xadd_ptr=up(xadd_ptr),
+        xadd=up(xadd),
+        schedule=schedule,
+        fronts=up(schedule.fronts),
         fac_len=fac_len,
         pool_len=pool_len,
         vpool_len=vpool_len,

@@ -211,9 +211,10 @@ def cuda_launches(dtp: DeviceTreePlan) -> int:
     parent add, and a back pass; the core's gather and scatter and the core solve — the dense
     core's (:func:`.kernels.dense_core.cuda_launches`), the min-degree
     elimination's (:func:`.kernels.core_elim.cuda_launches`), or the
-    multifrontal factor's values pass and one launch per group plus the
-    apply's (:func:`.kernels.mf_apply.cuda_launches`)."""
-    from .kernels import core_elim, dense_core, mf_apply
+    multifrontal factor's (:func:`.kernels.mf_factor.cuda_launches`: the
+    values pass and one or two launches a level) and the apply's
+    (:func:`.kernels.mf_apply.cuda_launches`)."""
+    from .kernels import core_elim, dense_core, mf_apply, mf_factor
 
     n = 3 + (1 if dtp.num_pairs else 0)
     for rd in dtp.rounds:
@@ -221,7 +222,7 @@ def cuda_launches(dtp: DeviceTreePlan) -> int:
     if dtp.core_size:
         n += 2
         if dtp.mf is not None:
-            n += 1 + len(dtp.mf.plan.groups) + mf_apply.cuda_launches(dtp.mf)
+            n += mf_factor.cuda_launches(dtp.mf) + mf_apply.cuda_launches(dtp.mf)
         elif dtp.ce is not None:
             n += core_elim.cuda_launches(dtp.ce)
         else:

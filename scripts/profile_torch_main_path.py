@@ -82,7 +82,14 @@ K21a solve and factor with their bounds and its executor, K18's normed and
 plain residual on the 512² general route beside CSR ``torch.mv``, a
 skinny-mg Chebyshev step and residual and its executor, 40 Jacobi CG
 iterations of the p1tree (K19a's device µs and launches an iteration by
-kernel name) and the minres solve (K19e's per solve, and its executor).
+kernel name) and the minres solve (K19e's per solve, and its executor);
+``--select mf`` times K13–K15 on the 100k web's multifrontal core
+(:func:`mf_times`: the factor, the apply and the executor, split by level
+or by group, the apply's error against SciPy's ``splu``, and the kernel
+and plain paths' core and web solutions; ``--diff A.npz B.npz`` compares
+two such runs, :func:`vector_diffs`); ``--select windows`` takes
+``chip_smoke.py``'s launch-count cases in 20 profiler windows each
+(:func:`window_probe`).
 ``--root``
 imports the port from another checkout (e.g. the parent commit unpacked
 with ``git archive``), so that two versions are compared in one call.
@@ -98,7 +105,8 @@ Otherwise the script
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
-    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov] [--root DIR] [--out kernels.json]
+    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows] [--root DIR] [--out kernels.json]
+    python3 scripts/profile_torch_main_path.py --diff parent.npz change.npz
 
 (``--generations`` sets the depth of ``blocked``, ``callable`` and ``p1tree``.)
 
@@ -556,6 +564,253 @@ def redesign_times(dev) -> dict:
     return out
 
 
+def launch_list(fn) -> list:
+    """``[(kernel name, device µs), ...]``: each device launch of one ``fn()``
+    call in issue order (``torch.profiler``, after one warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = []
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            out.append((ev.time_range.start, (name.split("::")[-1].split() or [""])[-1],
+                        ev.time_range.elapsed_us()))
+    return [(name, us) for _, name, us in sorted(out)]
+
+
+def group_classes(plan) -> list:
+    """Each multifrontal group's class: ``wide`` (a front wider than 160),
+    else ``leaf`` (it consumes no group), ``few`` (1–3 fronts) or ``other``;
+    and its dependency level (0 for a leaf group, else 1 + the highest level
+    it consumes)."""
+    level, out = [], []
+    for g in plan.groups:
+        level.append(1 + max((level[cg] for cg, _, _ in g.consume), default=-1))
+        cls = ("wide" if g.w + g.b > 160 else "leaf" if not g.consume
+               else "few" if g.k <= 3 else "other")
+        out.append((cls, level[-1]))
+    return out
+
+
+def per_group_split(events: list, names: tuple, G: int, order) -> dict | None:
+    """Device µs of the launches named ``names`` keyed by group, the
+    ``i``-th such launch being group ``order(i)``; None unless their count
+    is a multiple of G (a launch per group and pass)."""
+    mine = [us for name, us in events if name in names]
+    if not mine or len(mine) % G:
+        return None
+    acc = [0.0] * G
+    for i, us in enumerate(mine):
+        acc[order(i)] += us
+    return acc
+
+
+def level_split(what: str, events: list, schedule) -> dict:
+    """Device µs and launches of a level-scheduled factor or apply by level:
+    the factor's front launches are, level by level, one of the wide fronts
+    and one of the rest where the level has them; the
+    apply's i-th forward launch is level i mod L, its i-th backward launch
+    level L − 1 − i mod L."""
+    L = schedule.n_levels
+    out = {}
+
+    def add(key, us):
+        acc = out.setdefault(key, [0.0, 0])
+        acc[0] += us
+        acc[1] += 1
+
+    if what == "factor":
+        labels = [f"L{lv}:{kind}" for lv, row in enumerate(schedule.levels)
+                  for kind, n in (("wide", row[1]), ("narrow", row[2] - row[1])) if n]
+        mine = [(name, us) for name, us in events if name in ("mf_front_kernel", "mf_wide_kernel")]
+        for label, (_, us) in zip(labels, mine):
+            add(label, us)
+    else:
+        for name, order in (("mf_forward_kernel", lambda i: i % L),
+                            ("mf_backward_kernel", lambda i: L - 1 - i % L)):
+            mine = [us for n, us in events if n == name]
+            for i, us in enumerate(mine):
+                add(f"L{order(i)}:{name.split('_')[1]}", us)
+    return out
+
+
+def mf_times(dev) -> dict:
+    """``--select mf``: K13–K14 and K15 on the 100k web's multifrontal core
+    as its executor gives them (``dc``, ``w_pairs``, ``rc`` captured from a
+    solve), on the port that ``sys.path`` finds first:
+
+    * the factor, the apply and the web's executor (CUDA events), each with
+      :func:`timed_call`'s figures for the two kernels;
+    * every device launch of one factor and one apply in issue order (name,
+      µs), summed by kernel name and, where a launch is one group (the
+      one-launch-per-group design), by group key ``k,w,b,n_cons`` and by
+      class (:func:`group_classes`: the leaf groups, the 1–3-front groups,
+      the wide top fronts); where the port has a level schedule
+      (``dmf.schedule``), by level;
+    * the apply's error against SciPy's ``splu`` on the same core, relative
+      to max |x|, for 0, 1 and 3 refinement passes;
+    * the SHA-256 of the apply's result and of the solution;
+    * the same two on the plain versions (``mf_factor_plain`` and
+      ``mf_apply_plain`` on the same inputs, and a solve whose core runs
+      them): ``apply_plain`` and ``solution_plain``.
+
+    With ``--out``, the four vectors are also written beside it (``.npz``;
+    :func:`vector_diffs` compares two runs')."""
+    import dataclasses
+    import hashlib
+
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from networks_fenicsx_tpu_torch.kernels import mf_apply, mf_factor
+
+    factor0, apply0 = mf_factor.mf_factor, mf_apply.mf_apply
+    asm = chip_smoke.web_assembler(P)
+    solver, dmf, dc, w, rc = chip_smoke.mf_core_inputs(P, asm)
+    plan = dmf.plan
+    G = len(plan.groups)
+    st = factor0(dmf, dc, w)
+    x = apply0(dmf, st, rc)
+    out = {"core": plan.n_core, "groups": G, "fronts": sum(g.k for g in plan.groups),
+           "factor": timed_call(lambda: factor0(dmf, dc, w), reps=10),
+           "apply": timed_call(lambda: apply0(dmf, st, rc), reps=10)}
+    ex = solver._executor
+    args = ex.prepare_args(*asm.schur_arguments())
+    out["executor_ms"] = chip_smoke.cuda_ms(lambda: ex(*args), reps=5)
+
+    classes = group_classes(plan)
+    keys = [f"{g.k},{g.w},{g.b},{len(g.consume)}" for g in plan.groups]
+    for what, fn, split in (
+        ("factor", lambda: factor0(dmf, dc, w),
+         ((("mf_factor_group_kernel",), lambda i: i),)),
+        ("apply", lambda: apply0(dmf, st, rc),
+         ((("mf_forward_kernel",), lambda i: i % G),
+          (("mf_backward_kernel",), lambda i: G - 1 - i % G))),
+    ):
+        events = launch_list(fn)
+        rec = {"launches": len(events), "device_us": sum(us for _, us in events),
+               "by_kernel": {}, "events": events}
+        for name, us in events:
+            acc = rec["by_kernel"].setdefault(name, [0.0, 0])
+            acc[0] += us
+            acc[1] += 1
+        by_group = [0.0] * G
+        grouped = False
+        for names, order in split:
+            acc = per_group_split(events, names, G, order)
+            if acc is not None:
+                grouped = True
+                by_group = [a + b for a, b in zip(by_group, acc)]
+        if grouped:
+            rec["by_group"] = {f"{gi}:{keys[gi]}:L{classes[gi][1]}": us
+                               for gi, us in enumerate(by_group)}
+            by_class = {}
+            for (cls, _), us in zip(classes, by_group):
+                acc = by_class.setdefault(cls, [0.0, 0])
+                acc[0] += us
+                acc[1] += 1
+            rec["by_class"] = by_class
+        schedule = getattr(dmf, "schedule", None)
+        if schedule is not None:
+            rec["by_level"] = level_split(what, events, schedule)
+        out[what + "_split"] = rec
+
+    if hasattr(mf_factor, "assemble_fronts"):  # the factor's launches stopped after assembly
+        events = launch_list(lambda: mf_factor.assemble_fronts(dmf, dc, w, st.pools))
+        out["assemble_split"] = {"device_us": sum(us for _, us in events),
+                                 "by_level": level_split("factor", events, dmf.schedule)}
+
+    # the refinement question: the apply against SciPy's splu on this core
+    n = plan.n_core
+    pci, pcj = plan.pci.astype(np.int64), plan.pcj.astype(np.int64)
+    wv = w.cpu().numpy()[plan.init_slot.astype(np.int64)]
+    A = sp.csc_matrix((np.concatenate([dc.cpu().numpy(), -wv, -wv]),
+                       (np.concatenate([np.arange(n), pci, pcj]),
+                        np.concatenate([np.arange(n), pcj, pci]))), shape=(n, n))
+    exact = spla.splu(A).solve(rc.cpu().numpy())
+    scale = float(np.max(np.abs(exact)))
+    out["refinement_vs_splu"] = {"scale": scale}
+    for n_refine in (0, 1, 3):
+        dmf_r = dataclasses.replace(dmf, plan=plan._replace(n_refine=n_refine))
+        got = apply0(dmf_r, st, rc).cpu().numpy()
+        out["refinement_vs_splu"][str(n_refine)] = float(np.max(np.abs(got - exact))) / scale
+
+    def digest(v) -> str:
+        return hashlib.sha256(np.ascontiguousarray(v, dtype=np.float64).tobytes()).hexdigest()
+
+    sol = np.asarray(solver.solution_vector())
+    x_plain = mf_apply.mf_apply_plain(dmf, mf_factor.mf_factor_plain(dmf, dc, w), rc).cpu().numpy()
+    mf_factor.mf_factor, mf_apply.mf_apply = mf_factor.mf_factor_plain, mf_apply.mf_apply_plain
+    try:
+        plain_solver = P.Solver(asm, device="cuda")
+        plain_solver.solve()
+    finally:
+        mf_factor.mf_factor, mf_apply.mf_apply = factor0, apply0
+    sol_plain = np.asarray(plain_solver.solution_vector())
+    out["apply_sha256"], out["solution_sha256"] = digest(x.cpu().numpy()), digest(sol)
+    out["apply_plain_sha256"], out["solution_plain_sha256"] = digest(x_plain), digest(sol_plain)
+    out["fac_sha256"] = digest(st.fac.cpu().numpy())
+    out["_vectors"] = {"apply": x.cpu().numpy(), "solution": sol, "apply_plain": x_plain,
+                       "solution_plain": sol_plain}
+    return out
+
+
+def vector_diffs(a_path: pathlib.Path, b_path: pathlib.Path) -> dict:
+    """``--diff A B``: the vectors of two ``--select mf --out`` runs
+    (``.npz``, e.g. the parent's and the change's): for each key both hold,
+    max |A − B| and the scale max(1, max |A|); and within each run, its
+    kernel path against its plain path (``apply`` against ``apply_plain``,
+    ``solution`` against ``solution_plain``)."""
+    runs = {"A": np.load(a_path), "B": np.load(b_path)}
+    A, B = runs["A"], runs["B"]
+    out = {"A": str(a_path), "B": str(b_path)}
+
+    def diff(u, v) -> dict:
+        return {"max_abs": float(np.max(np.abs(u - v))),
+                "scale": max(1.0, float(np.max(np.abs(u)))),
+                "equal": bool(np.array_equal(u, v))}
+
+    for key in sorted(set(A.files) & set(B.files)):
+        out[f"A-B {key}"] = diff(A[key], B[key])
+    for name, z in runs.items():
+        for key in ("apply", "solution"):
+            if key in z.files and key + "_plain" in z.files:
+                out[f"{name} {key}-{key}_plain"] = diff(z[key], z[key + "_plain"])
+    return out
+
+
+def window_probe(dev, windows: int = 20) -> dict:
+    """``--select windows``: each case of ``chip_smoke.py``'s two
+    launch-count phases (K19a's and K19e's six, K13–K15's factor and apply
+    on the web's core) in ``windows`` profiler windows of
+    :func:`chip_smoke.counted_window`, every window's counts (reported,
+    profiled, the padding kernels at each edge; ``whole``: every padding
+    kernel recorded, ``held``: :func:`chip_smoke.holds_its_run`): how often
+    and where the profiler leaves records out.  On this checkout's port
+    only."""
+    cases = {key: (run, want * chip_smoke.KRYLOV_CALLS, chip_smoke.KRYLOV_PATTERN)
+             for key, (run, want) in chip_smoke.krylov_launch_cases(dev).items()}
+    _, runs = chip_smoke.mf_launch_cases(P, chip_smoke.web_assembler(P))
+    cases.update({key: (run, chip_smoke.MF_LAUNCHES[key], chip_smoke.MF_PATTERNS[key])
+                  for key, run in runs.items()})
+    first = chip_smoke.counted_window(lambda: 0, chip_smoke.KRYLOV_PATTERN, dev)
+    out = {"first_window": first, "pad_kernels": chip_smoke.PAD_KERNELS}
+    for key, (run, want, pattern) in cases.items():
+        ws = [chip_smoke.counted_window(run, pattern, dev) for _ in range(windows)]
+        whole = [w["pad_start"] == w["pad_end"] == chip_smoke.PAD_KERNELS for w in ws]
+        held = [chip_smoke.holds_its_run(w) for w in ws]
+        agree = [w["reported"] == w["profiled"] == want for w in ws]
+        out[key] = {"want": want, "whole": sum(whole), "held": sum(held), "agree": sum(agree),
+                    "held_but_disagree": sum(h and not a for h, a in zip(held, agree)),
+                    "windows": ws}
+    return out
+
+
 KRYLOV_ITERS = 40  # CG iterations of the p1tree timed (a whole number of chunks)
 
 
@@ -945,12 +1200,19 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="time the redesigned kernels (K21b, K10, K12a, K11, K12b, K19c's coarsest "
                          "level, K22-reduce, K16, K17) beside their library calls instead of a path")
-    ap.add_argument("--select", choices=("all", "lattice", "redesign", "krylov"), default="all",
+    ap.add_argument("--select", choices=("all", "lattice", "redesign", "krylov", "mf", "windows"),
+                    default="all",
                     help="with --kernels: every entry, K16 and K17 alone, K6, K19c, K21a, K18, "
-                         "K19a and K19e alone, or K19a and K19e alone")
+                         "K19a and K19e alone, K19a and K19e alone, K13-K15 on the web, or "
+                         "chip_smoke's launch-count cases in 20 profiler windows each")
+    ap.add_argument("--diff", type=pathlib.Path, nargs=2, default=None, metavar=("A", "B"),
+                    help="compare the vectors of two --select mf --out runs (.npz) and exit")
     ap.add_argument("--root", type=pathlib.Path, default=None,
                     help="import the port from this checkout instead of this one")
     args = ap.parse_args()
+    if args.diff is not None:
+        print(json.dumps(vector_diffs(*args.diff), indent=1))
+        return 0
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
         return 1
@@ -961,11 +1223,15 @@ def main() -> int:
     if args.kernels:
         if args.select != "all":
             times = {"lattice": lattice_times, "redesign": redesign_times,
-                     "krylov": krylov_times}[args.select]
+                     "krylov": krylov_times, "mf": mf_times, "windows": window_probe}[args.select]
             rec = {"card": card, "port": str(pathlib.Path(P.__file__).resolve().parent),
                    **times(torch.device("cuda", 0))}
         else:
             rec = kernel_times(card)
+        vectors = rec.pop("_vectors", None)
+        if vectors is not None and args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            np.savez(args.out.with_suffix(".npz"), **vectors)
         text = json.dumps(rec, indent=1)
         print(text)
         if args.out is not None:
