@@ -144,6 +144,10 @@ CG512_ITERS = 17  # the kernel path's iterations (and the plain path's)
 # the 512² V-cycle before its fused launch path (PERF.md §6: wrapper ms, chip_smoke.py on an
 # H100 80GB HBM3 at 700 W), and its wrapper launches: 8 K19c and 2 K19a a smoothed level, 1 coarsest
 VCYCLE_BEFORE = {"ms": 1.5350, "mg2d_launches": 41, "krylov_launches": 10}
+# the 3×2000 1-D V-cycle before its fused launch path (PERF.md §6: CUDA events,
+# profile_torch_main_path.py --select mg1d on an H100 80GB HBM3 at 700 W), and its wrapper
+# launches: 2 K19d, 6 K18 and 2 K19a a smoothed level, 1 coarsest
+MG1D_BEFORE = {"ms": 1.0026, "mg1d_launches": 8, "shift_matvec_launches": 24, "krylov_launches": 8}
 WEB_CG_SIZES = {"edges": 109_873, "bifurcations": 70_924, "dofs": 2_817_749,
                 "precond": "chebyshev"}
 SKINNY_SIZES = {"bifurcations": 6_000, "precond": "1d", "levels": 4, "bottom": 375}
@@ -241,7 +245,8 @@ CG_CHECKS = {
     "gather_matvec": ("k", ("gather_matvec", "gather_matvec_residual")),
     "mg2d": ("l", ("mg2d_hierarchy", "mg2d_stencil", "mg2d_cheb_first", "mg2d_residual_restrict", "mg2d_prolong_residual",
                    "mg2d_coarse_factor", "mg2d_coarse_solve", "mg2d")),
-    "mg1d": ("m", ("mg1d_hierarchy", "mg1d_restrict", "mg1d_prolong", "mg1d")),
+    "mg1d": ("m", ("mg1d_hierarchy", "mg1d_cheb_first", "mg1d_residual_restrict",
+                   "mg1d_prolong_residual", "mg1d_cycle", "mg1d")),
 }
 # the kernels-lattice sets: (a) 512², (b) 9×4 at k = 3, (c) 512² callable f (the
 # general route), (d) 5000×3 and (d2) 3×4200 (a device-generated DCT matrix)
@@ -2569,6 +2574,75 @@ def mf_launch_counts(P, asm) -> dict:
     return out
 
 
+MG1D_CALLS = 4  # V-cycles of a launch-count window
+# the kernels of a 1-D V-cycle: K19d's and K19c's coarsest solve (its copy and its two
+# dataflow triangular solves)
+MG1D_PATTERN = r"\b(mg1d_\w+_kernel|mg_copy_kernel|ts_(lower|upper)_kernel)\b"
+DIST_PATTERN = r"\bdist_(folds|forward|back)_kernel\b"
+DIST_LAUNCHES = 3  # a sharded-forest solve's K22c launches on one card (were 24: 3 a shard)
+
+
+def mg1d_launch_counts(P, device) -> dict:
+    """K19d's device launches of a 1-D V-cycle on the 3×2000 lattice's λ
+    system (4 smoothed levels): as the wrappers report them (``LAUNCHES`` of
+    K19d, and :data:`mg2d.COARSE_SOLVE_LAUNCHES` a coarsest solve) and as
+    ``torch.profiler`` counts ``mg1d.cu``'s kernels and the coarsest solve's
+    in the same window (:func:`launch_count_windows`).  Fails unless both
+    equal 6 a smoothed level plus the coarsest solve's.  Run after the
+    timed phases."""
+    from networks_fenicsx_tpu_torch.kernels import mg1d, mg2d
+    from networks_fenicsx_tpu_torch.multigrid import Mg1dPreconditioner
+
+    opts = P.SolverOptions(schur_method="cg", cg_precond="mg")
+    ex, diag, _, _, cw = cg_system(P, lattice_assembler(P, 3, 2000, forms=skinny_forms), device, opts)
+    plan = ex.precond_plan
+    pre = Mg1dPreconditioner(plan, ex.device_plan.offsets, cw, diag, opts.mg_overcorrect)
+    r = torch.randn(diag.shape[0], generator=torch.Generator(device=device).manual_seed(16),
+                    dtype=torch.float64, device=device)
+    pre(r)
+    torch.cuda.synchronize()
+
+    def run():
+        before = (mg1d.LAUNCHES.launches, mg2d.LAUNCHES.launches)
+        for _ in range(MG1D_CALLS):
+            pre(r)
+        return (mg1d.LAUNCHES.launches - before[0]
+                + mg2d.COARSE_SOLVE_LAUNCHES * (mg2d.LAUNCHES.launches - before[1]))
+
+    counted_window(lambda: 0, MG1D_PATTERN, device)  # the first session of a process starts the tracer
+    L = len(plan.levels)
+    want = 6 * L + mg2d.COARSE_SOLVE_LAUNCHES
+    windows = launch_count_windows(run, MG1D_PATTERN, device)
+    return {"levels": L, "vcycle": check_launch_windows("mg1d_vcycle", windows, want,
+                                                        per=MG1D_CALLS)}
+
+
+def dist_launch_counts(case, device) -> dict:
+    """K22c's device launches of a sharded-forest solve (the folds, the
+    level walks and the back walks of the card's 8 shards, on a solve's
+    inputs): as the wrappers report them (``dist_tree.LAUNCHES``) and as
+    ``torch.profiler`` counts ``dist_tree.cu``'s kernels in the same window.
+    Fails unless both equal :data:`DIST_LAUNCHES` (3,
+    :func:`dist_tree.cuda_launches`)."""
+    from networks_fenicsx_tpu_torch.kernels import dist_tree
+
+    tab, eds, lam_T = case
+    assert dist_tree.cuda_launches(tab) == DIST_LAUNCHES, tab.S
+
+    def run():
+        before = dist_tree.LAUNCHES.launches
+        d_, r_, wn, part = dist_tree.folds(tab, eds)
+        dist_tree.forward(tab, d_, r_, wn, part)
+        dist_tree.back(tab, d_, r_, wn, lam_T)
+        return dist_tree.LAUNCHES.launches - before
+
+    run()
+    torch.cuda.synchronize()
+    counted_window(lambda: 0, DIST_PATTERN, device)  # the first session of a process starts the tracer
+    windows = launch_count_windows(run, DIST_PATTERN, device)
+    return {"shards": tab.S, "solve": check_launch_windows("dist_tree_solve", windows, DIST_LAUNCHES)}
+
+
 def compare_krylov_kernels(P, asm, device) -> dict:
     """Set (k): K19a and K19b against their plain versions on the web's λ
     system: one K19b matvec and residual, one Chebyshev-Jacobi application
@@ -2788,10 +2862,18 @@ def compare_mg2d_kernels(P, asm, device) -> dict:
 
 def compare_mg1d_kernels(P, asm, device) -> dict:
     """Set (m): K19d against its plain versions on the 3×2000 lattice's λ
-    system under ``cg_precond="mg"``: the hierarchy, a restriction and a
-    prolongation and one V-cycle, all at ``TOL``·scale.  Timed: the V-cycle."""
-    from networks_fenicsx_tpu_torch.kernels import mg1d
-    from networks_fenicsx_tpu_torch.multigrid import Mg1dPreconditioner
+    system under ``cg_precond="mg"``: the hierarchy, the V-cycle's fused
+    pieces on level 0 (the smoother's start folded into its first step,
+    residual and restriction, prolongation and residual) and one V-cycle,
+    all at ``TOL``·scale; the fused pieces, and the cycle against the plain
+    pieces composed around the same coarsest solve, also bit for bit.  The V-cycle's wrapper launches (K19d's ``LAUNCHES`` and K19c's
+    coarsest solve over one application) beside those of the unfused level
+    loop (``MG1D_BEFORE``), and two V-cycles on two streams bit for bit with
+    one on the default stream.  Timed: the V-cycle (no one PyTorch call
+    computes it; beside ``MG1D_BEFORE``'s ms)."""
+    from networks_fenicsx_tpu_torch.kernels import krylov, mg1d, mg2d, shift_matvec
+    from networks_fenicsx_tpu_torch.multigrid import SMOOTH_DEGREE, SMOOTH_RATIO, Mg1dPreconditioner
+    from networks_fenicsx_tpu_torch.ops.krylov import chebyshev_coefficients
 
     opts = P.SolverOptions(schur_method="cg", cg_precond="mg")
     ex, diag, rhs, w, cw = cg_system(P, asm, device, opts)
@@ -2803,6 +2885,9 @@ def compare_mg1d_kernels(P, asm, device) -> dict:
     ec = torch.randn((B + 1) // 2, generator=gen, dtype=torch.float64, device=device)
     pre = {plain: Mg1dPreconditioner(plan, offsets, cw, diag, opts.mg_overcorrect, plain)
            for plain in (False, True)}
+    lev = pre[True].levels[0]
+    theta, coeffs = chebyshev_coefficients(SMOOTH_DEGREE, ratio=SMOOTH_RATIO)
+    oc = opts.mg_overcorrect
 
     def hierarchy(mod):
         def run():
@@ -2814,20 +2899,27 @@ def compare_mg1d_kernels(P, asm, device) -> dict:
             return out
         return run
 
-    def prolonged(fn):
+    def first(fn):  # the start and first step, its result added to a base
         def run():
-            xx = r.clone()
-            fn(xx, ec, opts.mg_overcorrect)
-            return xx
+            out = [torch.empty_like(r) for _ in range(4)]
+            fn(lev, r, theta, *out[:3], *coeffs[0], out[3], rhs)
+            return out
         return run
 
-    runs = {
-        "mg1d_hierarchy": (hierarchy(mg1d), hierarchy(pre[True].k), TOL),
-        "mg1d_restrict": (lambda: mg1d.restrict(r, (B + 1) // 2),
-                          lambda: mg1d.restrict_plain(r, (B + 1) // 2), TOL),
-        "mg1d_prolong": (prolonged(mg1d.prolong), prolonged(mg1d.prolong_plain), TOL),
-        "mg1d": (lambda: pre[False](r), lambda: pre[True](r), TOL),
+    fused = {
+        "mg1d_cheb_first": (first(mg1d.cheb_first), first(mg1d.cheb_first_plain)),
+        "mg1d_residual_restrict": (lambda: mg1d.residual_restrict(lev, r, rhs),
+                                   lambda: mg1d.residual_restrict_plain(lev, r, rhs)),
+        "mg1d_prolong_residual": (lambda: mg1d.prolong_residual(lev, r, ec, oc, rhs),
+                                  lambda: mg1d.prolong_residual_plain(lev, r, ec, oc, rhs)),
+        # the cycle against the plain pieces composed around the same coarsest solve
+        "mg1d_cycle": (lambda: pre[False](r), lambda: mg1d.cycle_plain(
+            pre[False].levels, theta, coeffs, oc, lambda rb: mg2d.coarse_solve(pre[False].factor, rb),
+            r)),
     }
+    runs = {"mg1d_hierarchy": (hierarchy(mg1d), hierarchy(pre[True].k), TOL),
+            "mg1d": (lambda: pre[False](r), lambda: pre[True](r), TOL)}
+    runs.update({name: (kernel, plain, TOL) for name, (kernel, plain) in fused.items()})
     sizes = [lvl.m for lvl in plan.levels]
     ncls = [lvl.offsets.size for lvl in plan.levels]
     mb = plan.m_bottom
@@ -2840,6 +2932,36 @@ def compare_mg1d_kernels(P, asm, device) -> dict:
     }
     record = {"levels": len(plan.levels), "bottom": mb}
     run_checks(runs, record, {"mg1d": runs["mg1d"][:2]}, work, {})
+    for name, (kernel, plain) in fused.items():
+        assert all(torch.equal(a, b) for a, b in zip(float_tensors(kernel()),
+                                                     float_tensors(plain()))), name
+        record[name]["equal"] = True
+    before = (mg1d.LAUNCHES.launches, mg2d.LAUNCHES.launches, krylov.LAUNCHES.launches,
+              shift_matvec.shift_matvec.launches)
+    z = pre[False](r)
+    cycle = {"mg1d_launches": mg1d.LAUNCHES.launches - before[0],
+             "mg2d_launches": mg2d.LAUNCHES.launches - before[1],
+             "krylov_launches": krylov.LAUNCHES.launches - before[2],
+             "shift_matvec_launches": shift_matvec.shift_matvec.launches - before[3],
+             "smoothed_levels": len(plan.levels), "ms": record["mg1d"]["ms"], "before": MG1D_BEFORE}
+    L = len(plan.levels)
+    assert (cycle["mg1d_launches"], cycle["mg2d_launches"], cycle["krylov_launches"],
+            cycle["shift_matvec_launches"]) == (6 * L, 1, 0, 0), cycle
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+    outs = []
+    torch.cuda.synchronize()
+    for st in streams:
+        with torch.cuda.stream(st):
+            outs.append(pre[False](r))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, z) for o in outs), "two V-cycles on two streams"
+    cycle["streams_equal"] = True
+    record["vcycle"] = cycle
+    log(f"phase kernels-cg (m) V-cycle: {cycle['mg1d_launches']} K19d + {cycle['mg2d_launches']} "
+        f"K19c wrapper launches a cycle ({L} smoothed levels), {cycle['ms']:.4f} ms, bit for bit "
+        f"with the composed plain cycle; before the fused path {MG1D_BEFORE['mg1d_launches']} "
+        f"K19d + {MG1D_BEFORE['shift_matvec_launches']} K18 + {MG1D_BEFORE['krylov_launches']} "
+        f"K19a + 1 K19c, {MG1D_BEFORE['ms']:.4f} ms (PERF.md); two streams bit for bit")
     return record
 
 
@@ -3593,7 +3715,8 @@ def check_pair(kernel, plain, work: tuple | None = None, library=None, tol: floa
     assert err <= tol * scale, (err, scale)
     rec = {"max_abs_err": err, "scale": scale}
     if exact:
-        assert got.dtype == want.dtype and torch.equal(got, want), "not bit for bit"
+        assert all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(float_tensors(got), float_tensors(want))), "not bit for bit"
         rec["equal"] = True
     if work is not None:
         rec["ms"] = cuda_ms(kernel)
@@ -3750,19 +3873,23 @@ def t_solve_check(tf, T_parent, dT, rT, wT, sq=None) -> dict:
 
 
 def sharded_forest_checks(state: dict, device) -> dict:
-    """K22c (folds, level walk, back-substitution), K22-reduce and the T
-    solve on the sharded forest's inputs."""
+    """K22c (the folds, the level walks and the back walks of the card's 8
+    shards, one launch each), K22-reduce and the T solve on the sharded
+    forest's inputs; each K22c launch bit for bit with its plain version
+    (the per-shard plain version in a loop over the shards).  Keeps the
+    tables, the edge data and λ_T (``launch_case``) for the launch count."""
     from networks_fenicsx_tpu_torch.kernels import dist_tree, shard_top
 
     ex = state["solver"]._dist_exec
     plan = ex.plan
     args = ex.prepare_args(*state["solver"]._coeff_args)
-    fws = [ex.forward(i, a) for i, a in enumerate(args)]
-    tab = ex.shards[0]["tables"]
-    ed = fws[0].ed
-    rec = {"dist_tree_folds": check_pair(lambda: dist_tree.folds(tab, ed),
-                                         lambda: dist_tree.folds_plain(tab, ed))}
-    base = dist_tree.folds_plain(tab, ed)
+    assert len(ex.groups) == 1 and ex.groups[0]["tables"].S == plan.D, ex.groups
+    tab = ex.groups[0]["tables"]
+    fw = ex.forward(0, args)
+    eds = fw.eds
+    rec = {"dist_tree_folds": check_pair(lambda: dist_tree.folds(tab, eds),
+                                         lambda: dist_tree.folds_plain(tab, eds), exact=True)}
+    base = dist_tree.folds_plain(tab, eds)
 
     def walked(fn):
         d_, r_, wn, part = (t.clone() for t in base)
@@ -3770,8 +3897,8 @@ def sharded_forest_checks(state: dict, device) -> dict:
         return d_, r_, part
 
     rec["dist_tree_forward"] = check_pair(lambda: walked(dist_tree.forward),
-                                          lambda: walked(dist_tree.forward_plain))
-    stacked = ex.mesh.stack([f.part for f in fws])
+                                          lambda: walked(dist_tree.forward_plain), exact=True)
+    stacked = ex.mesh.stack(list(fw.part))
     n = stacked.shape[1]
     rec["shard_reduce"] = check_pair(
         lambda: shard_top.reduce(stacked), lambda: shard_top.reduce_plain(stacked), exact=True,
@@ -3783,29 +3910,35 @@ def sharded_forest_checks(state: dict, device) -> dict:
     rec["t_solve"] = t_solve_check(tf, plan.T_parent, tot[:Tn], tot[Tn : 2 * Tn],
                                    tot[2 * Tn : 3 * Tn])
     lam_T = shard_top.t_solve(tf, tot[:Tn], tot[Tn : 2 * Tn], tot[2 * Tn : 3 * Tn])[0]
-    fw = fws[0]
     rec["dist_tree_back"] = check_pair(lambda: dist_tree.back(tab, fw.d, fw.r, fw.wn, lam_T),
-                                       lambda: dist_tree.back_plain(tab, fw.d, fw.r, fw.wn, lam_T))
+                                       lambda: dist_tree.back_plain(tab, fw.d, fw.r, fw.wn, lam_T),
+                                       exact=True)
 
     def k22c(folds, forward, back):
         def run():
-            d_, r_, wn, part = folds(tab, ed)
+            d_, r_, wn, part = folds(tab, eds)
             forward(tab, d_, r_, wn, part)
             return back(tab, d_, r_, wn, lam_T), part
         return run
 
     entries = table_entries(tab.t_edge, tab.s_edge, tab.w_edge, tab.tT_edge, tab.sT_edge,
                             tab.wT_edge)
-    B_loc = plan.B_loc
-    E_loc = ed.W.shape[0]
+    B_loc, S = plan.B_loc, tab.S
+    E_loc = sum(ed.W.shape[0] for ed in eds)
+    edge_bytes = sum(tensor_bytes(ed.W, ed.g, ed.cumF[-1], ed.start_pbc, ed.end_pbc, ed.start_bif,
+                                  ed.end_bif) for ed in eds)
+    # every shard's edge data, tables and lam_T read once, d, r, wn, the partials and
+    # [lam | lam_T] written once; the folds' 8 operations an entry, the walks' 10 a node
     rec["dist_tree"] = check_pair(
         k22c(dist_tree.folds, dist_tree.forward, dist_tree.back),
-        k22c(dist_tree.folds_plain, dist_tree.forward_plain, dist_tree.back_plain),
-        work=(tensor_bytes(ed.W, ed.g, ed.cumF[-1], ed.start_pbc, ed.end_pbc, ed.start_bif,
-                           ed.end_bif, tab.t_edge, tab.s_edge, tab.w_edge, tab.tT_edge,
-                           tab.sT_edge, tab.wT_edge, tab.lf, tab.parent_pos, tab.root_T,
-                           tab.rfold, lam_T) + 8 * (4 * B_loc + 4 * Tn),
-              8 * entries + 10 * B_loc + 2 * E_loc))
+        k22c(dist_tree.folds_plain, dist_tree.forward_plain, dist_tree.back_plain), exact=True,
+        work=(edge_bytes + tensor_bytes(tab.t_edge, tab.s_edge, tab.w_edge, tab.tT_edge,
+                                        tab.sT_edge, tab.wT_edge, tab.levels, tab.kids,
+                                        tab.parent_pos, tab.root_T, tab.rfold, lam_T)
+              + 8 * S * (4 * B_loc + 4 * Tn),
+              8 * entries + 10 * S * B_loc + 2 * E_loc))
+    rec["shards"] = S
+    rec["launch_case"] = (tab, eds, lam_T)
     return rec
 
 
@@ -3950,6 +4083,7 @@ def sharded_phases(P, device, name_power: str, serial: dict) -> dict:
     paths["forest"] = sharded_path(P, device, "sharded-forest main path", asm, forest_forms, 8,
                                    "auto", "schur_sharded_dist", used, x_ser=x)
     sets["forest"] = sharded_forest_checks(paths["forest"], device)
+    dist_case = sets["forest"].pop("launch_case")
     log("phase kernels-sharded (forest): " + json.dumps(sets["forest"]))
     del paths["forest"]["asm"], paths["forest"]["solver"], asm
 
@@ -3991,7 +4125,7 @@ def sharded_phases(P, device, name_power: str, serial: dict) -> dict:
     log(f"phase kernels-sharded (cg{n}): " + json.dumps(sets["cg"]))
     del paths["cg"]["asm"], paths["cg"]["solver"], asm
     log(f"phase sharded: card {name_power}")
-    return {"paths": paths, "sets": sets}
+    return {"paths": paths, "sets": sets, "dist_case": dist_case}
 
 
 def main() -> int:
@@ -4109,6 +4243,10 @@ def main() -> int:
         + json.dumps(krylov_launch_counts(device)))
     log("phase multifrontal launches (a web factor and apply, reported and profiled): "
         + json.dumps(mf_launch_counts(P, web_asm)))
+    log("phase 1-D V-cycle launches (a cycle, reported and profiled): "
+        + json.dumps(mg1d_launch_counts(P, device)))
+    log("phase sharded-forest K22c launches (a solve on 8 shards, reported and profiled): "
+        + json.dumps(dist_launch_counts(sharded.pop("dist_case"), device)))
 
     runs = (state["launches"], tree["launches"], forest["launches"], web["launches"],
             bed["launches"], web1000["launches"],

@@ -47,7 +47,9 @@ K8b; its matvec on K18 or K19b):
   shift plan, with its Chebyshev step;
 * :mod:`.mg2d` — K19c, the 2-D aggregation V-cycle's pieces, its fused
   launch path (:class:`.mg2d.Cycle`) and the coarsest dense solve;
-* :mod:`.mg1d` — K19d, the 1-D pairing V-cycle's hierarchy and transfers.
+* :mod:`.mg1d` — K19d, the 1-D pairing V-cycle: its hierarchy, and its
+  smoothed levels as one fused :class:`.mg1d.Cycle` (6 launches a level,
+  3 host calls a cycle).
 
 The assembled-matrix and continuous-pressure routes:
 
@@ -71,8 +73,8 @@ The sharded solves (:mod:`..parallel`), per shard and across the shards:
   its K1, K2–K4 (split at level 0: ``tree_sweep_forward``/``_backward``) and K5;
 * :mod:`.shard_grid` — K22b, the lattice strip's windows and stub groups,
   and the replicated per-edge conductances, around K1, K16, K17 and K5;
-* :mod:`.dist_tree` — K22c, the distributed tree shard's folds and level
-  walks around K8a and K8b;
+* :mod:`.dist_tree` — K22c, the distributed tree shards' folds and level
+  walks around K8a and K8b, every shard of a device in one launch each;
 * :mod:`.shard_general` — K22d, the general shard's λ-system partials and
   its part of the CG matvec, on the kernels of K9, K6 and K19b.
 

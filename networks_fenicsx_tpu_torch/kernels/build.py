@@ -228,8 +228,14 @@ _SIGNATURES = {
         _p, _p, _p,  # map_ptr, map_ci, map_p
         _p, _p, _p, _p, _p,  # cw_c, extra_c, diag_c, dis_c, stream
     ],
-    "nxfx_mg1d_restrict": [_i, _i, _p, _p, _p],  # m, mc, res, rc, stream
-    "nxfx_mg1d_prolong": [_i, _p, _p, _d, _p],  # m, x, ec, overcorrect, stream
+    "nxfx_mg1d_cheb_first": [
+        _p, _p, _d, _d, _d,  # Mg1dLevelArgs, r, 1 / theta, c1, c2
+        _p, _p, _p, _p, _p, _p,  # rs, dvec, x_out, z (or null), base (or null), stream
+    ],
+    "nxfx_mg1d_residual_restrict": [_p, _p, _p, _p, _p],  # Mg1dLevelArgs, x, b, rc, stream
+    "nxfx_mg1d_prolong_residual": [_p, _p, _p, _d, _p, _p, _p, _p],  # level, x, ec, oc, b, xp, res
+    "nxfx_mg1d_down": [_p, _p, _p],  # Mg1dCycle, r0, stream
+    "nxfx_mg1d_up": [_p, _p, _p, _p, _p],  # Mg1dCycle, r0, e_bottom, out0, stream
     "nxfx_krylov_minres_start": [
         _i, _p, _p, _p, _p, _p, _p, _d, _d, _d, _p,  # n, b, r, y, v, part, ms, rtol, atol, maxiter
     ],
@@ -265,18 +271,20 @@ _SIGNATURES = {
         _p, _p, _p, _p, _p, _p,  # d0, r0, w0, lam_T, lam_ext, stream
     ],
     "nxfx_dist_folds": [
-        _i, _i, _p, _p, _p, _p, _p, _p, _p,  # B_loc, Tn, W, g, Ftot, spbc, epbc, sbif, ebif
+        _p, _i, _i, _i,  # DistFoldArgs, first shard, B_loc, Tn
         _p, _i, _p, _i, _p, _i,  # t, s, w edge tables and widths
         _p, _i, _p, _i, _p, _i,  # tT, sT, wT
         _p, _p, _p, _p, _p,  # d, r, wn, part, stream
     ],
     "nxfx_dist_forward": [
-        _i, _i, _p, _p, _p, _p,  # L, Tn, offs, lf_off, lf_K, lf
-        _p, _i, _p, _p, _p, _p, _p,  # rfold, Kr, wn, d, r, part, stream
+        _i, _i, _i, _i, _i,  # S, L, B_loc, Tn, widest level
+        _p, _p, _p, _i,  # level table, runs of children, rfold, Kr
+        _p, _p, _p, _p, _p, _p,  # wn, d, r, part, scratch (or null), stream
     ],
     "nxfx_dist_back": [
-        _i, _i, _i, _p, _p, _p,  # L, B_loc, Tn, offs, parent_pos, root_T
-        _p, _p, _p, _p, _p, _p,  # d, r, wn, lam_T, lam, stream
+        _i, _i, _i, _i, _i,  # S, L, B_loc, Tn, widest level
+        _p, _p, _p,  # level table, parent_pos, root_T
+        _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam_T, lam, scratch (or null), stream
     ],
     "nxfx_shard_grid_window": [
         _i, _i, _i, _i, _i, _i, _i,  # h, nx, U, Kc, r, Kg, first

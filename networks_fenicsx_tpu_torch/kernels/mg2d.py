@@ -57,7 +57,7 @@ __all__ = [
     "cheb_plain", "restrict_plain", "prolong_plain", "coarse_factor",
     "coarse_factor_plain", "coarse_solve", "coarse_solve_plain", "cheb_first", "cheb_first_plain",
     "residual_restrict", "residual_restrict_plain", "prolong_residual", "prolong_residual_plain",
-    "Cycle", "FIELDS", "LAUNCHES",
+    "Cycle", "FIELDS", "LAUNCHES", "COARSE_SOLVE_LAUNCHES",
 ]
 
 FIELDS = ("E", "W", "S", "N", "extra", "diag", "dis")
@@ -66,6 +66,7 @@ MAX_CLASSES = 16
 MAX_COARSE = 8192
 MAX_LEVELS = 16  # MG_MAX_LEVELS in csrc/mg2d.cu
 MAX_STEPS = 8  # MG_MAX_STEPS: the smoother's steps after its start
+COARSE_SOLVE_LAUNCHES = 3  # device launches of a coarse_solve: a copy, two triangular solves
 THREADS = 256
 LAUNCHES = build.Counter("mg2d")
 

@@ -7,7 +7,8 @@ NumPy, ``np.array_equal`` to the reference's; the preconditioner choice of
 aggregation V-cycle ``_mg2d_preconditioner`` (``:1315-1438``,
 :class:`Mg2dPreconditioner`, on K19c) and the 1-D pairing V-cycle
 ``_mg_preconditioner`` (``:1482-1558``, :class:`Mg1dPreconditioner`, on
-K19d with K18's level matvecs); and the λ operators the CG loop and the
+K19d's fused cycle; its plain loop on K18's matvecs and steps); and the λ
+operators the CG loop and the
 smoothers apply: :class:`ShiftOperator` (K18, a graph with a shift plan) and
 :class:`GatherOperator` (K19b, ``_matvec_from_plan``, any other graph).
 
@@ -319,37 +320,62 @@ class Mg2dPreconditioner:
 
 
 class _Mg1d:
-    """K19d's wrappers (and K19c's coarsest solve), or their plain versions."""
+    """K19d's hierarchy wrappers (and K19c's coarsest solve), or their plain
+    versions; the level loop's transfers are plain versions always (on CUDA
+    the kernels run them fused, in :class:`.kernels.mg1d.Cycle`)."""
 
     def __init__(self, plain: bool):
-        for name in ("level0", "coarsen", "restrict", "prolong"):
+        for name in ("level0", "coarsen"):
             setattr(self, name, getattr(mg1d, name + "_plain" if plain else name))
         for name in ("coarse_factor", "coarse_solve"):
             setattr(self, name, getattr(mg2d, name + "_plain" if plain else name))
+        self.restrict, self.prolong = mg1d.restrict_plain, mg1d.prolong_plain
 
 
 class Mg1dPreconditioner:
     """The symmetric V-cycle over the shift-class hierarchy of
     :func:`_plan_mg` (reference ``:1482-1558``): per level a degree-3
-    Chebyshev smoother on K18, pair-sum restriction, the over-corrected
-    repeat prolongation; the coarsest banded system by Cholesky."""
+    Chebyshev smoother, pair-sum restriction, the over-corrected repeat
+    prolongation; the coarsest banded system by Cholesky.
+
+    On a CUDA device the smoothed levels (:class:`.kernels.mg1d.Level`: each
+    level's ``ShiftPlan`` offsets, class weights, diagonal and scaling) run
+    as one :class:`.kernels.mg1d.Cycle` (checked once here): 6 launches a
+    level — the smoother's start folded into its first step, its second
+    step, the residual and restriction in one, the prolongation and the next
+    residual in one, the post-smoother's two — issued in two host calls
+    around the coarsest solve, so a cycle is 3 host calls.  ``plain=True``
+    or CPU tensors run the composed plain versions level by level (K19a's
+    start, K18's steps and residuals, the pair sums and the repeat)."""
 
     def __init__(self, plan: Mg1dPlan, offsets, cw, diag, overcorrect: float = 1.8,
                  plain: bool = False):
+        del offsets  # each level carries its own classes
         self.plan, self.overcorrect = plan, float(overcorrect)
         self.k = k = _Mg1d(plain)
         extra, dis = k.level0(cw, diag)
-        self.ops, self.smoothers = [], []
+        self.levels = []
         for lvl in plan.levels:
-            op = ShiftOperator(lvl.shift, cw, diag, plain)
-            self.ops.append(op)
-            self.smoothers.append(chebyshev_preconditioner(
-                op.step, degree=SMOOTH_DEGREE, ratio=SMOOTH_RATIO, plain=plain, d_isqrt=dis))
+            self.levels.append(mg1d.Level(lvl.shift.offsets, cw, diag, dis))
             cw, extra, diag, dis = k.coarsen(lvl, cw, extra)
         self.factor = k.coarse_factor(plan.bottom_offsets, cw, diag)
+        self.cycle, self.ops, self.smoothers = None, [], []
+        if not plain and diag.is_cuda:  # the kernels: a Cycle, or the coarsest solve alone
+            if self.levels:
+                theta, coeffs = chebyshev_coefficients(SMOOTH_DEGREE, ratio=SMOOTH_RATIO)
+                self.cycle = mg1d.Cycle(self.levels, theta, coeffs, self.overcorrect)
+            return
+        for lvl, lev in zip(plan.levels, self.levels):
+            op = ShiftOperator(lvl.shift, lev.cw, lev.diag, plain)
+            self.ops.append(op)
+            self.smoothers.append(chebyshev_preconditioner(
+                op.step, degree=SMOOTH_DEGREE, ratio=SMOOTH_RATIO, plain=plain, d_isqrt=lev.dis))
 
     def __call__(self, r):
-        return self._vcycle(0, r)
+        if self.cycle is None:
+            return self._vcycle(0, r)
+        rb = self.cycle.down(r)
+        return self.cycle.up(r, self.k.coarse_solve(self.factor, rb))
 
     def _vcycle(self, lvl: int, r):
         k = self.k

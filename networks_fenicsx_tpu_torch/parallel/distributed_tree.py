@@ -5,9 +5,10 @@ Counterpart of ``networks_fenicsx_tpu/parallel/distributed_tree.py``:
 (``:43-375``), ``plan_rows`` (``:388-393``) and the per-shard program
 ``local_eliminate`` (``:396-515``), which :class:`DistTreeExecutor` runs
 as K22c (:mod:`..kernels.dist_tree`) split around the psum: per shard its
-K8a edge data, the folds and the level walk; across the shards K22-reduce
-and the T solve (once per distinct device); per shard again the
-back-substitution and K8b.
+K8a edge data, then the folds and the level walks of every shard of a
+device in one launch each; across the shards K22-reduce and the T solve
+(once per distinct device); per device again the back walks in one launch,
+then K8b a shard.
 
 The bifurcation forest is partitioned on the host into D bins of complete
 subtrees plus a small replicated top forest T; edges follow the node
@@ -395,7 +396,11 @@ class ShardEdges:
 
 
 class _Fwd(typing.NamedTuple):
-    ed: typing.Any
+    """A device's shards after the forward stage: their K8a edge data (in
+    the group's order) and K22c's stacked ``(S, ·)`` ``d``, ``r``, ``wn``
+    and T partials."""
+
+    eds: list
     d: torch.Tensor
     r: torch.Tensor
     wn: torch.Tensor
@@ -405,9 +410,16 @@ class _Fwd(typing.NamedTuple):
 class DistTreeExecutor:
     """The distributed tree elimination on a :class:`..parallel.mesh.ShardMesh`:
     per owned shard its edges (:class:`ShardEdges`, the plan's remapped
-    ends) and K22c's tables; per distinct device the T forest.  Calling it
-    returns per owned shard ``q_T (k·N+1, E_loc)``, ``p_T (N, E_loc)``,
-    ``λ_loc (B_loc,)``, and ``λ_T (Tn,)`` and the finiteness flag."""
+    ends); per distinct device of the owned shards a group, its shards' K22c
+    tables stacked (:class:`..kernels.dist_tree.DistShardTables`), and the T
+    forest.  A solve is per group K8a a shard, then K22c's folds of all the
+    group's shards in one launch and their level walks in another; across
+    the shards K22-reduce and the T solve (once per device); per group
+    again K22c's back walks in one launch, then K8b a shard.  So K22c makes
+    3 launches a device whatever its number of shards (24 → 3 for 8 shards
+    on one card).  Calling it returns per owned shard ``q_T (k·N+1,
+    E_loc)``, ``p_T (N, E_loc)``, ``λ_loc (B_loc,)``, and ``λ_T (Tn,)`` and
+    the finiteness flag."""
 
     method_name = "schur_sharded_dist"
 
@@ -428,26 +440,35 @@ class DistTreeExecutor:
                 device=dev,
                 edges=ShardEdges(asm, perm[:n_real], plan.e_start_loc[d][:n_real],
                                  plan.e_end_loc[d][:n_real], perm.size, dev),
-                tables=dist_tree.dist_shard_tables(plan, d, dev),
             ))
+        owned = list(mesh.owned)
+        self.groups = []
+        for dev in mesh.local_devices:
+            members = tuple(i for i, sh in enumerate(self.shards) if sh["device"] == dev)
+            self.groups.append(dict(device=dev, members=members, tables=dist_tree.dist_shard_tables(
+                plan, [owned[i] for i in members], dev)))
 
     def prepare_args(self, R_data, f_data, start_pbc, end_pbc):
         R_mode, f_mode, _ = self._modes
         return [sh["edges"].args(self._N, R_data, f_data, start_pbc, end_pbc, R_mode, f_mode)
                 for sh in self.shards]
 
-    def forward(self, i: int, args, plain: bool = False) -> _Fwd:
-        """Shard ``i`` up to its row of the reduce: K8a, K22c's folds and walk."""
-        sh = self.shards[i]
-        ed = sh["edges"].edge_data(self._N, self._k, args, self._modes, plain)
+    def forward(self, g: int, shard_args, plain: bool = False) -> _Fwd:
+        """Group ``g``'s shards up to their rows of the reduce: K8a a shard,
+        then K22c's folds and walks of them all (``shard_args`` every owned
+        shard's, :meth:`prepare_args`)."""
+        grp = self.groups[g]
+        eds = [self.shards[i]["edges"].edge_data(self._N, self._k, shard_args[i], self._modes, plain)
+               for i in grp["members"]]
         run_folds = dist_tree.folds_plain if plain else dist_tree.folds
         run_forward = dist_tree.forward_plain if plain else dist_tree.forward
-        d_, r_, wn, part = run_folds(sh["tables"], ed)
-        run_forward(sh["tables"], d_, r_, wn, part)
-        return _Fwd(ed, d_, r_, wn, part)
+        d_, r_, wn, part = run_folds(grp["tables"], eds)
+        run_forward(grp["tables"], d_, r_, wn, part)
+        return _Fwd(eds, d_, r_, wn, part)
 
     def top(self, parts, plain: bool = False) -> dict:
-        """K22-reduce of the T partials and the T solve: ``{device: λ_T}``."""
+        """K22-reduce of the owned shards' T partials (in owned order) and the
+        T solve: ``{device: λ_T}``."""
         Tn = self.plan.Tn
         total = self.mesh.reduce(self.mesh.stack(parts), plain=plain)
         solve = shard_top.t_solve_plain if plain else shard_top.t_solve
@@ -458,19 +479,30 @@ class DistTreeExecutor:
 
         return self.mesh.replicate(run, total)
 
-    def back(self, i: int, fw: _Fwd, lam_T, plain: bool = False):
-        """Shard ``i``'s K22c back-substitution and K8b: ``(q_T, p_T, λ_loc, finite)``."""
-        sh = self.shards[i]
+    def back(self, g: int, fw: _Fwd, lam_T, plain: bool = False) -> list:
+        """Group ``g``'s K22c back walks and K8b a shard: ``(q_T, p_T, λ_loc,
+        finite)`` of each of its shards, in the group's order."""
+        grp = self.groups[g]
         run_back = dist_tree.back_plain if plain else dist_tree.back
         expand_lam = backsub.backsub_plain if plain else backsub.backsub
-        lam = run_back(sh["tables"], fw.d, fw.r, fw.wn, lam_T)
-        q_T, p_T, finite = expand_lam(fw.ed, lam, self._N, self._k)
-        return q_T, p_T, lam[: self.plan.B_loc], finite
+        lam = run_back(grp["tables"], fw.d, fw.r, fw.wn, lam_T)
+        outs = []
+        for j, ed in enumerate(fw.eds):
+            q_T, p_T, finite = expand_lam(ed, lam[j], self._N, self._k)
+            outs.append((q_T, p_T, lam[j, : self.plan.B_loc], finite))
+        return outs
 
     def __call__(self, shard_args, plain: bool = False):
-        fws = [self.forward(i, args, plain) for i, args in enumerate(shard_args)]
-        top = self.top([fw.part for fw in fws], plain)
-        outs = [self.back(i, fw, top[self.shards[i]["device"]], plain) for i, fw in enumerate(fws)]
+        fws = [self.forward(g, shard_args, plain) for g in range(len(self.groups))]
+        parts = [None] * len(self.shards)
+        for grp, fw in zip(self.groups, fws):
+            for j, i in enumerate(grp["members"]):
+                parts[i] = fw.part[j]
+        top = self.top(parts, plain)
+        outs = [None] * len(self.shards)
+        for g, (grp, fw) in enumerate(zip(self.groups, fws)):
+            for i, out in zip(grp["members"], self.back(g, fw, top[grp["device"]], plain)):
+                outs[i] = out
         finite = self.mesh.all_finite([o[3] for o in outs], plain)
         return ([o[0] for o in outs], [o[1] for o in outs], [o[2] for o in outs],
                 top[self.mesh.home], finite)

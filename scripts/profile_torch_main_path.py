@@ -89,7 +89,9 @@ or by group, the apply's error against SciPy's ``splu``, and the kernel
 and plain paths' core and web solutions; ``--diff A.npz B.npz`` compares
 two such runs, :func:`vector_diffs`); ``--select windows`` takes
 ``chip_smoke.py``'s launch-count cases in 20 profiler windows each
-(:func:`window_probe`).
+(:func:`window_probe`); ``--select mg1d`` times K19d's V-cycle and the
+skinny-mg executor (:func:`mg1d_times`), ``--select dist`` K22c in the
+sharded forest's executor (:func:`dist_times`).
 ``--root``
 imports the port from another checkout (e.g. the parent commit unpacked
 with ``git archive``), so that two versions are compared in one call.
@@ -105,7 +107,7 @@ Otherwise the script
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
-    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows] [--root DIR] [--out kernels.json]
+    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist] [--root DIR] [--out kernels.json]
     python3 scripts/profile_torch_main_path.py --diff parent.npz change.npz
 
 (``--generations`` sets the depth of ``blocked``, ``callable`` and ``p1tree``.)
@@ -830,6 +832,122 @@ def krylov_split(fn, iterations: int) -> dict:
             "device_us": sum(v[0] for v in split.values()), "device_us_by_kernel": split}
 
 
+def _digest(*tensors) -> str:
+    """SHA-256 of the tensors' float64 values, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(np.ascontiguousarray(t.detach().cpu().numpy(), dtype=np.float64).tobytes())
+    return h.hexdigest()
+
+
+def by_source(split: dict) -> dict:
+    """:func:`device_split`'s kernels summed by the CUDA source that defines
+    them (``PyTorch`` for the rest): ``{source: [µs, launches]}``."""
+    sources, out = kernel_sources(), {}
+    for key, (us, n) in split.items():
+        name = (key.split("::")[-1].split() or [""])[-1]
+        acc = out.setdefault(sources.get(name, "PyTorch"), [0.0, 0.0])
+        acc[0] += us
+        acc[1] += n
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
+def mg1d_times(dev) -> dict:
+    """``--select mg1d``: K19d on the 3×2000 lattice's λ system under
+    ``cg_precond="mg"`` (chip_smoke's set (m)), on the port that ``sys.path``
+    finds first (either port's interface):
+
+    * one V-cycle application, :func:`timed_call`'s figures, its wrapper
+      launches by counter, its device µs by source, and its result against
+      the composed plain cycle's on the same inputs (max |diff|, equal);
+    * the skinny-mg executor (CUDA events, a solve), its iterations and one
+      call's device µs and launches by source.
+
+    With ``--out``, the V-cycle's result and the solution are also written
+    beside it (``.npz``; ``--diff`` compares two runs')."""
+    from networks_fenicsx_tpu_torch import kernels
+    from networks_fenicsx_tpu_torch.multigrid import Mg1dPreconditioner
+
+    opts = P.SolverOptions(schur_method="cg", cg_precond="mg")
+    skinny = chip_smoke.lattice_assembler(P, 3, 2000, forms=chip_smoke.skinny_forms)
+    cg_ex, diag, _, _, cw = chip_smoke.cg_system(P, skinny, dev, opts)
+    plan, offsets = cg_ex.precond_plan, cg_ex.device_plan.offsets
+    pre = Mg1dPreconditioner(plan, offsets, cw, diag, opts.mg_overcorrect)
+    plain = Mg1dPreconditioner(plan, offsets, cw, diag, opts.mg_overcorrect, plain=True)
+    r = torch.randn(diag.shape[0], generator=torch.Generator(device=dev).manual_seed(19),
+                    dtype=torch.float64, device=dev)
+    pre(r)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    pre(r)
+    wrapper = {name: n for name, n in kernels.launches().items() if n}
+    rec = timed_call(lambda: pre(r))
+    rec["wrapper_launches"] = wrapper
+    rec["device_by_source"] = by_source(rec["device_us_by_kernel"])
+    z, zp = pre(r), plain(r)
+    rec["vs_plain"] = {"max_abs": float((z - zp).abs().max()), "equal": bool(torch.equal(z, zp)),
+                       "sha256": _digest(z), "plain_sha256": _digest(zp)}
+    rec["levels"] = [lvl.m for lvl in plan.levels] + [plan.m_bottom]
+    out = {"k19d_vcycle_skinny": rec}
+    solver = P.Solver(skinny, options=opts, device="cuda")
+    solver.solve()
+    ex = solver._executor
+    args = ex.prepare_args(*skinny.schur_arguments())
+    split = device_split(lambda: ex(*args), reps=1)
+    out["skinny_executor"] = {
+        "ms": chip_smoke.cuda_ms(lambda: ex(*args), reps=5, warmup=1),
+        "iterations": solver.info.iterations,
+        "device_us": sum(v[0] for v in split.values()),
+        "device_launches": sum(v[1] for v in split.values()),
+        "device_by_source": by_source(split),
+        "solution_sha256": _digest(torch.as_tensor(np.asarray(solver.solution_vector())))}
+    out["_vectors"] = {"skinny_solution": np.asarray(solver.solution_vector()),
+                       "vcycle": z.cpu().numpy()}
+    return out
+
+
+def dist_times(dev) -> dict:
+    """``--select dist``: K22c on the sharded forest (the 100k forest over 8
+    shards of the card, ``tree_dist``; chip_smoke's sharded-forest), on the
+    port that ``sys.path`` finds first (either port's interface): the host
+    plan's level widths and fold widths; the executor (:func:`timed_call`'s
+    figures on one call), its device µs by source and ``dist_tree.cu``'s
+    by kernel with their launches; the SHA-256 of its λ; and
+    compute_forms + assemble + solve (host clock, best of 5)."""
+    from networks_fenicsx_tpu_torch.parallel import ShardedNetworkSolver
+
+    asm = chip_smoke.forest_assembler(P, chip_smoke.forest_mesh(P))
+    solver = ShardedNetworkSolver(asm, devices=[dev] * chip_smoke.SHARD_FOREST["D"])
+    solver.assemble()
+    solver.solve()
+    ex, plan = solver._dist_exec, solver._dist_plan
+    widths = np.diff(plan.level_offsets)
+    out = {"plan": {"D": plan.D, "B_loc": plan.B_loc, "Tn": plan.Tn, "levels": int(widths.size),
+                    "widest": int(widths.max()), "median_width": float(np.median(widths)),
+                    "fold_widths": sorted({int(f.shape[2]) for f in plan.level_folds})}}
+    args = ex.prepare_args(*solver._coeff_args)
+    rec = timed_call(lambda: ex(args), reps=10)
+    rec["device_by_source"] = by_source(rec["device_us_by_kernel"])
+    sources = kernel_sources()
+    rec["dist_tree_by_kernel"] = {
+        key: v for key, v in rec["device_us_by_kernel"].items()
+        if sources.get((key.split("::")[-1].split() or [""])[-1]) == "dist_tree.cu"}
+    q_T, p_T, lam_loc, lam_T, _ = ex(args)
+    rec["lambda_sha256"] = _digest(*lam_loc, lam_T)
+    rec["flux_sha256"] = _digest(*q_T)
+    out["executor"] = rec
+
+    def whole():
+        chip_smoke.forest_forms(asm)
+        solver.assemble()
+        solver.solve()
+
+    out["solve_ms"] = best_ms(whole, reps=5)
+    return out
+
+
 def krylov_times(dev) -> dict:
     """K19a and K19e as their solves issue them, on the port that
     ``sys.path`` finds first (either interface: the ``Jacobi``
@@ -1027,7 +1145,7 @@ def k18_times(dev) -> dict:
     ``ShiftPlan``, or the host offsets."""
     from networks_fenicsx_tpu_torch import lattice
     from networks_fenicsx_tpu_torch.kernels import edge_data, peel, segsum, shift_matvec
-    from networks_fenicsx_tpu_torch.multigrid import Mg1dPreconditioner
+    from networks_fenicsx_tpu_torch.multigrid import ShiftOperator
 
     out = {}
     asm = chip_smoke.lattice_assembler(P, forms=chip_smoke.lattice_callable_forms)
@@ -1058,9 +1176,7 @@ def k18_times(dev) -> dict:
     opts = P.SolverOptions(schur_method="cg", cg_precond="mg")
     skinny = chip_smoke.lattice_assembler(P, 3, 2000, forms=chip_smoke.skinny_forms)
     cg_ex, d1, rhs1, _, cw1 = chip_smoke.cg_system(P, skinny, dev, opts)
-    pre = Mg1dPreconditioner(cg_ex.precond_plan, cg_ex.device_plan.offsets, cw1, d1,
-                             opts.mg_overcorrect)
-    op = pre.ops[0]
+    op = ShiftOperator(cg_ex.precond_plan.levels[0].shift, cw1, d1)  # level 0's smoother step
     s = 1.0 / torch.sqrt(d1)
     x_in, x_out, dvec = lam[: d1.shape[0]].clone(), torch.empty_like(d1), torch.ones_like(d1)
     out["k18_cheb_step_skinny"] = timed_call(
@@ -1200,13 +1316,16 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="time the redesigned kernels (K21b, K10, K12a, K11, K12b, K19c's coarsest "
                          "level, K22-reduce, K16, K17) beside their library calls instead of a path")
-    ap.add_argument("--select", choices=("all", "lattice", "redesign", "krylov", "mf", "windows"),
+    ap.add_argument("--select", choices=("all", "lattice", "redesign", "krylov", "mf", "windows",
+                                         "mg1d", "dist"),
                     default="all",
                     help="with --kernels: every entry, K16 and K17 alone, K6, K19c, K21a, K18, "
-                         "K19a and K19e alone, K19a and K19e alone, K13-K15 on the web, or "
-                         "chip_smoke's launch-count cases in 20 profiler windows each")
+                         "K19a and K19e alone, K19a and K19e alone, K13-K15 on the web, "
+                         "chip_smoke's launch-count cases in 20 profiler windows each, K19d on "
+                         "skinny-mg, or K22c on the sharded forest")
     ap.add_argument("--diff", type=pathlib.Path, nargs=2, default=None, metavar=("A", "B"),
-                    help="compare the vectors of two --select mf --out runs (.npz) and exit")
+                    help="compare the vectors of two --select mf (or mg1d) --out runs (.npz) "
+                         "and exit")
     ap.add_argument("--root", type=pathlib.Path, default=None,
                     help="import the port from this checkout instead of this one")
     args = ap.parse_args()
@@ -1223,7 +1342,8 @@ def main() -> int:
     if args.kernels:
         if args.select != "all":
             times = {"lattice": lattice_times, "redesign": redesign_times,
-                     "krylov": krylov_times, "mf": mf_times, "windows": window_probe}[args.select]
+                     "krylov": krylov_times, "mf": mf_times, "windows": window_probe,
+                     "mg1d": mg1d_times, "dist": dist_times}[args.select]
             rec = {"card": card, "port": str(pathlib.Path(P.__file__).resolve().parent),
                    **times(torch.device("cuda", 0))}
         else:

@@ -405,7 +405,8 @@ def test_iterative_wrappers_never_fall_back_off_the_cpu():
     tables = (_t(np.full((1, B), -1), torch.int32),) * 2
     gather_matvec.gather_matvec(*tables, one, one, one)
     krylov.jacobi(one, one)
-    mg1d.restrict(one, B // 2)
+    level = mg1d.Level(np.array([1], np.int32), one[None], one, one)
+    mg1d.residual_restrict(level, one, one)
     mg2d.stencil(torch.ones((len(mg2d.FIELDS), B), dtype=torch.float64), (3, 4), one, one)
     assert all(n == 0 for n in kernels.launches().values())
     meta = torch.ones(B, dtype=torch.float64, device="meta")
@@ -413,7 +414,8 @@ def test_iterative_wrappers_never_fall_back_off_the_cpu():
         lambda: gather_matvec.gather_matvec(*tables, meta, meta, meta),
         lambda: krylov.jacobi(meta, meta),
         lambda: krylov.CgSteps(krylov.new_state("meta"), meta, meta, meta, meta),
-        lambda: mg1d.restrict(meta, B // 2),
+        lambda: mg1d.residual_restrict(mg1d.Level(np.array([1], np.int32), meta[None], meta, meta),
+                                       meta, meta),
         lambda: mg2d.stencil(meta.expand(len(mg2d.FIELDS), B), (3, 4), meta, meta),
         lambda: mg2d.coarse_solve(meta, meta),
         lambda: shift_matvec.shift_matvec(shift_matvec.ShiftPlan([1], B, "cpu"), meta[None], meta, meta),

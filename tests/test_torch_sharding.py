@@ -531,7 +531,7 @@ def test_sharded_wrappers_never_fall_back_off_the_cpu():
     ap = _assembler(P, _arterial(5), 2)
     plan = PD.plan_distributed_tree(ap, p_tree_plan(ap), 2)
     with pytest.raises(ValueError, match="CUDA"):
-        dist_tree.folds(dist_tree.dist_shard_tables(plan, 0, "meta"), ed)
+        dist_tree.folds(dist_tree.dist_shard_tables(plan, 0, "meta"), [ed])
     lt = shard_general.shard_lambda_tables(np.zeros(4), np.ones(4), -np.ones(4), 2, 0, "meta",
                                            matvec=True)
     with pytest.raises(ValueError, match="CUDA"):
