@@ -148,6 +148,9 @@ VCYCLE_BEFORE = {"ms": 1.5350, "mg2d_launches": 41, "krylov_launches": 10}
 # profile_torch_main_path.py --select mg1d on an H100 80GB HBM3 at 700 W), and its wrapper
 # launches: 2 K19d, 6 K18 and 2 K19a a smoothed level, 1 coarsest
 MG1D_BEFORE = {"ms": 1.0026, "mg1d_launches": 8, "shift_matvec_launches": 24, "krylov_launches": 8}
+# a degree-8 Chebyshev application on the gather-fold operator before its one-call form
+# (K19a's start, then 7 K19b steps, each from its own Python call)
+CHEB_BEFORE = {"host_calls": 8, "k19b_launches": 7, "krylov_launches": 1}
 WEB_CG_SIZES = {"edges": 109_873, "bifurcations": 70_924, "dofs": 2_817_749,
                 "precond": "chebyshev"}
 SKINNY_SIZES = {"bifurcations": 6_000, "precond": "1d", "levels": 4, "bottom": 375}
@@ -242,7 +245,7 @@ KERNEL_RECORD = {
 # set whose record times it
 CG_CHECKS = {
     "krylov": ("k", ("krylov_cg_step", "krylov_cg_jacobi_step", "krylov_chebyshev")),
-    "gather_matvec": ("k", ("gather_matvec", "gather_matvec_residual")),
+    "gather_matvec": ("k", ("gather_matvec", "gather_matvec_residual", "gather_cheb_apply")),
     "mg2d": ("l", ("mg2d_hierarchy", "mg2d_stencil", "mg2d_cheb_first", "mg2d_residual_restrict", "mg2d_prolong_residual",
                    "mg2d_coarse_factor", "mg2d_coarse_solve", "mg2d")),
     "mg1d": ("m", ("mg1d_hierarchy", "mg1d_cheb_first", "mg1d_residual_restrict",
@@ -637,6 +640,20 @@ def compare_level_kernels(P, asm, device, timed: bool) -> dict:
     assert segsum.LAUNCHES.launches == before + 1, "K6: one launch a plan"
     assert all(torch.equal(a, b) for a, b in zip(got, sums(segsum.segsum_plan_plain)())), "K6 bits"
     record["segsum"]["equal"] = True
+    # K7's walks and grid levels against the plain version in the walk's
+    # grouping (the norm in the kernel's order), bit for bit, from the edge
+    # data and from the assembled public-order system
+    dr_perm, w_pairs = level_eliminate._pair_sums_plain(dlp, ed)
+    want = level_eliminate.level_walk_plain(dlp, dr_perm, w_pairs)
+    got = level_eliminate.level_eliminate(dlp, ed)
+    dr_pub = dr_perm[dlp.perm.long()].contiguous()
+    got_sys = level_eliminate.level_eliminate_system(dlp, dr_pub, w_pairs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got + got_sys, want + want)), "K7 walk bits"
+    walk = dlp.walk
+    record["level_eliminate"].update({
+        "walk_equal": True, "schedule": {"forward": walk.fwd.tolist(), "back": walk.back.tolist()},
+        "cuda_launches": level_eliminate.cuda_launches(dlp)})
     q_T, p_T, finite = backsub.backsub(ed, lam, N, k)
     assert bool(finite), "backsub: non-finite solution"
     return record
@@ -711,13 +728,23 @@ def level_timing(P, state: dict, forms, label: str, name_power: str) -> dict:
     dev_ms = cuda_ms(lambda: ex(*args), reps=10)
     plain_ms = cuda_ms(lambda: ex.plain(*args), reps=5)
     wrapper_launches = sum(state["launches"].values())
-    cuda_launches = 2 + level_eliminate.cuda_launches(ex.device_plan)
+    k7 = level_eliminate.cuda_launches(ex.device_plan)
+    k7_before = level_before(ex.device_plan.num_levels)
+    cuda_launches = 2 + k7
     log(f"phase timing {label}: compute_forms+solve best {min(times):.3f} ms "
         f"(all {[round(t, 3) for t in times]}); device per solve (upload + kernels) "
         f"{dev_ms:.3f} ms, plain versions {plain_ms:.3f} ms; launches per solve "
-        f"{wrapper_launches} wrapper calls, {cuda_launches} CUDA kernels; card {name_power}")
+        f"{wrapper_launches} wrapper calls, {cuda_launches} CUDA kernels (K7 {k7} with K6 and the "
+        f"prepare pass, before its level walks {k7_before}); card {name_power}")
     return {"best_ms": min(times), "device_ms": dev_ms, "plain_ms": plain_ms,
-            "cuda_launches": cuda_launches}
+            "cuda_launches": cuda_launches, "k7_launches": k7, "k7_launches_before": k7_before}
+
+
+def level_before(L: int) -> int:
+    """K7's CUDA launches a call on ``L`` levels before its level walks (a
+    launch a level: prepare, K6, assemble, norm, a fold launch a level below
+    the roots, a back-substitution launch a level, the un-permute)."""
+    return 1 + 1 + 2 + (L - 1) + L + 1
 
 
 def web_assembler(P, sites: int = FOREST_SITES, N: int = FOREST_N, k: int = FOREST_K):
@@ -2643,17 +2670,84 @@ def dist_launch_counts(case, device) -> dict:
     return {"shards": tab.S, "solve": check_launch_windows("dist_tree_solve", windows, DIST_LAUNCHES)}
 
 
+LEVEL_PATTERN = r"\b(level_\w+_kernel|segsum_plan_kernel)\b"  # K7's kernels and K6's one
+GATHER_PATTERN = r"\b(cheb_apply_kernel|plan_apply_kernel)\b"  # a K19b application and matvec
+LEVEL_LAUNCHES = 6  # a 100k-forest elimination: prepare, K6, assemble, norm, 2 walks (were 2,484)
+GATHER_LAUNCHES = 2  # web-cg's Chebyshev application and matvec (were 7 K19b steps and the matvec)
+
+
+def level_gather_launch_counts(P, forest_asm, web_asm, device) -> dict:
+    """K7's device launches of one elimination of the 100k forest (the
+    prepare pass, K6's sums, the assembly, the norm and the plan's walks)
+    and K19b's of one Chebyshev application and one CG matvec on web-cg's λ
+    system, made by the executor's own operator and preconditioner
+    (``_operator``, ``_preconditioner``): as the launchers report them (the
+    change in K7's and K19b's ``LAUNCHES.device`` and in K6's launches) and
+    as ``torch.profiler`` counts the kernels in the same window
+    (:func:`launch_count_windows`).  Fails unless both equal
+    :data:`LEVEL_LAUNCHES` (:func:`level_eliminate.cuda_launches`) and
+    :data:`GATHER_LAUNCHES`.  The counts before this design are recorded
+    beside them."""
+    from networks_fenicsx_tpu_torch.kernels import edge_data, gather_matvec, level_eliminate, segsum
+    from networks_fenicsx_tpu_torch.solver import _LevelExecutor, build_schur_executor
+
+    ex = build_schur_executor(forest_asm, P.SolverOptions(), device=device)
+    assert isinstance(ex, _LevelExecutor), type(ex)
+    dlp = ex.device_plan
+    R, f, sp, ep = ex.upload(*ex.prepare_args(*forest_asm.schur_arguments()))
+    Rm, fm, f_zero = forest_asm.coefficient_modes()
+    ed = edge_data.edge_data(dlp, forest_asm.network.N, forest_asm.flux_degree, ex._h_e, ex._quad_w,
+                             ex._quad_phi, R, f, Rm, fm, f_zero, sp, ep)
+    k7 = level_eliminate.cuda_launches(dlp)
+    assert k7 == LEVEL_LAUNCHES, (k7, dlp.walk.fwd, dlp.walk.back)
+
+    def level_run():
+        before = (level_eliminate.LAUNCHES.device, segsum.LAUNCHES.launches)
+        level_eliminate.level_eliminate(dlp, ed)
+        return level_eliminate.LAUNCHES.device - before[0] + segsum.LAUNCHES.launches - before[1]
+
+    cg_ex, diag, rhs, w, _ = cg_system(P, web_asm, device, P.SolverOptions(schur_method="cg"))
+    op, cw = cg_ex._operator(torch.stack([diag, rhs], dim=1), w, False)
+    pre = cg_ex._preconditioner(op, cw, False)
+
+    def gather_run():
+        before = gather_matvec.LAUNCHES.device
+        pre(rhs)
+        op.apply(rhs)
+        return gather_matvec.LAUNCHES.device - before
+
+    calls = gather_matvec.LAUNCHES.launches
+    gather_run()
+    calls = gather_matvec.LAUNCHES.launches - calls
+    out = {}
+    for key, run, pattern, want, before in (
+            ("k7_forest", level_run, LEVEL_PATTERN, LEVEL_LAUNCHES, level_before(dlp.num_levels)),
+            ("k19b_chebyshev_and_matvec", gather_run, GATHER_PATTERN, GATHER_LAUNCHES,
+             CHEB_BEFORE["k19b_launches"] + 1)):
+        run()
+        torch.cuda.synchronize()
+        counted_window(lambda: 0, pattern, device)  # the first session of a process starts the tracer
+        out[key] = check_launch_windows(key, launch_count_windows(run, pattern, device), want)
+        out[key]["before"] = before
+    out["k19b_chebyshev_and_matvec"].update({"host_calls": calls,
+                                             "host_calls_before": CHEB_BEFORE["host_calls"] + 1})
+    return out
+
+
 def compare_krylov_kernels(P, asm, device) -> dict:
     """Set (k): K19a and K19b against their plain versions on the web's λ
-    system: one K19b matvec and residual, one Chebyshev-Jacobi application
-    (degree 8) on it, one CG step pair from the same state; all at
-    ``TOL``·scale.  Timed: the K19b matvec (CSR ``torch.mv`` beside it) and
-    the CG step pair's K19a launches on fixed vectors (tol 0, so that no
-    update stops), the generic iteration (4 device launches) and the Jacobi
-    one (3: Jacobi inside the steps, on the λ system's diagonal)."""
+    system: one K19b matvec and residual, K19a's Chebyshev start, the
+    executor's Chebyshev-Jacobi application (degree 8: K19b's
+    :class:`ChebApply`, one launch) against its plain version bit for bit
+    and the composed plain steps, one CG step pair from the same state; the
+    others at ``TOL``·scale.  Timed: the K19b matvec (CSR ``torch.mv``
+    beside it), the application, and the CG step pair's K19a launches on
+    fixed vectors (tol 0, so that no update stops), the generic iteration
+    (4 device launches) and the Jacobi one (3: Jacobi inside the steps, on
+    the λ system's diagonal)."""
     from networks_fenicsx_tpu_torch.kernels import gather_matvec, krylov
     from networks_fenicsx_tpu_torch.multigrid import GatherOperator
-    from networks_fenicsx_tpu_torch.ops.krylov import chebyshev_preconditioner
+    from networks_fenicsx_tpu_torch.ops.krylov import chebyshev_coefficients, chebyshev_preconditioner
 
     ex, diag, rhs, w, _ = cg_system(P, asm, device, P.SolverOptions(schur_method="cg"))
     dlp = ex.device_plan
@@ -2661,12 +2755,23 @@ def compare_krylov_kernels(P, asm, device) -> dict:
     B = diag.shape[0]
     gen = torch.Generator(device=device).manual_seed(2)
     x = torch.randn(B, generator=gen, dtype=torch.float64, device=device)
-    tables = (dlp.mv_edge, dlp.mv_other)
-    ops = {plain: GatherOperator(*tables, w, diag, plain) for plain in (False, True)}
-    cheb = {plain: chebyshev_preconditioner(ops[plain].step, diag, degree=8, plain=plain)
-            for plain in (False, True)}
-    z0 = cheb[True](rhs)
+    plan = ex.gather_plan
+    tables = (plan.mv_edge, plan.mv_other)
+    ops = {plain: GatherOperator(plan, w, diag, plain) for plain in (False, True)}
+    vals = ops[False].vals
+    s = krylov.inv_sqrt(diag)
+    theta, coeffs = chebyshev_coefficients(8)
+    fused = ex._preconditioner(ops[False], None, False)  # the executor's: one host call, one launch
+    assert isinstance(fused, gather_matvec.ChebApply), type(fused)
+    composed = chebyshev_preconditioner(ops[True].step, diag, degree=8, plain=True, d_isqrt=s)
+    z0 = composed(rhs)
     Ap0 = ops[True].apply(z0)
+
+    def cheb_start(start):
+        """K19a's Chebyshev start (``rs``, ``dvec``, ``x``, ``z`` plus x)."""
+        bufs = tuple(torch.empty_like(rhs) for _ in range(4))
+        start(s, rhs, theta, *bufs, x)
+        return bufs
 
     def step_pair(plain: bool, maxiter: int = 100, rtol: float = 1e-12):
         """The generic iteration (z = M r given): its 4 fused launches, or the
@@ -2685,12 +2790,17 @@ def compare_krylov_kernels(P, asm, device) -> dict:
         return pair
 
     runs = {
-        "gather_matvec": (lambda: gather_matvec.gather_matvec(*tables, w, diag, x),
+        "gather_matvec": (lambda: gather_matvec.gather_matvec(plan, vals, diag, x),
                           lambda: gather_matvec.gather_matvec_plain(*tables, w, diag, x), TOL),
         "gather_matvec_residual": (
-            lambda: gather_matvec.gather_matvec(*tables, w, diag, x, rhs, norm=True),
+            lambda: gather_matvec.gather_matvec(plan, vals, diag, x, rhs, norm=True),
             lambda: gather_matvec.gather_matvec_plain(*tables, w, diag, x, rhs, norm=True), TOL),
-        "krylov_chebyshev": (lambda: cheb[False](rhs), lambda: cheb[True](rhs), TOL),
+        # bit for bit: the executor's application against its plain version
+        "gather_cheb_apply": (lambda: fused(rhs),
+                              lambda: gather_matvec.cheb_apply_plain(*tables, w, diag, s, rhs, theta, coeffs),
+                              0.0),
+        "krylov_chebyshev": (lambda: cheb_start(krylov.cheb_start), lambda: cheb_start(krylov.cheb_start_plain),
+                             TOL),
         "krylov_cg_step": (lambda: step_pair(False)(), lambda: step_pair(True)(), TOL),
         "krylov_cg_jacobi_step": (lambda: cg_jacobi_step(rhs, diag, Ap0, False)(),
                                   lambda: cg_jacobi_step(rhs, diag, Ap0, True)(), TOL),
@@ -2705,6 +2815,10 @@ def compare_krylov_kernels(P, asm, device) -> dict:
         # the tables, w, diag and x read, L x written; 2 operations an entry, 2 a row
         "gather_matvec": (tensor_bytes(dlp.mv_edge, dlp.mv_other, w, diag, x) + 8 * B,
                           2 * valid + 2 * B),
+        # the tables, w, diag, s and r read, z written; the start 3 a row, each of
+        # the 7 steps 2 an entry and 12 a row (the scalings, the update, z)
+        "gather_cheb_apply": (tensor_bytes(dlp.mv_edge, dlp.mv_other, w, diag, s, rhs) + 8 * B,
+                              3 * B + len(coeffs) * (2 * valid + 12 * B)),
         # the pair reads p, Ap, x, r and z once and writes x, r and p once (the
         # second kernel's reads of r and p are the first's outputs), and the state
         "krylov_cg_step": (8 * 8 * B + 8 * 8, 12 * B),
@@ -2716,12 +2830,24 @@ def compare_krylov_kernels(P, asm, device) -> dict:
     library = {"gather_matvec": lambda: torch.mv(L, x)}
     one_state = step_pair(False, 10**9, 0.0)
     timed = {"gather_matvec": runs["gather_matvec"][:2],
+             "gather_cheb_apply": runs["gather_cheb_apply"][:2],
              "krylov_cg_step": (one_state, step_pair(True, 10**9, 0.0)),
              "krylov_cg_jacobi_step": tuple(
                  round_robin(lambda plain=plain: cg_jacobi_step(rhs, diag, Ap0, plain, 10**9, 0.0), 16)
                  for plain in (False, True))}
     record = {"B": B, "K": K, "device_launches_an_iteration": iteration_launches}
     run_checks(runs, record, timed, work, library)
+    z = fused(rhs)
+    assert torch.equal(z, gather_matvec.cheb_apply_plain(*tables, w, diag, s, rhs, theta, coeffs)), "K19b plain"
+    # the composed plain steps divide by θ as PyTorch does on the card (by
+    # its reciprocal), cheb_apply_plain and the kernel elementwise: TOL
+    err, scale = max_err(z, composed(rhs))
+    assert err <= TOL * scale, ("K19b against the composed plain steps", err, scale)
+    calls = gather_matvec.LAUNCHES.launches
+    record["gather_cheb_apply"].update({"equal_plain": True, "composed_plain_err": err,
+                                        "device_launches": device_launches(gather_matvec.LAUNCHES, lambda: fused(rhs)),
+                                        "host_calls": gather_matvec.LAUNCHES.launches - calls,
+                                        "before": CHEB_BEFORE})
     # the kernels line's krylov entry times one state's iterations on the
     # fixed Ap; the same steps on fresh states of their own, beside them
     fresh = tuple(round_robin(lambda plain=plain: step_pair(plain, 10**9, 0.0), 16)
@@ -4186,6 +4312,7 @@ def main() -> int:
                              lambda: forest_assembler(P, forest_mesh(P)), FOREST_SIZES)
     level_timing(P, forest, forest_forms, "irregular-forest", name_power)
     serial["forest"] = (forest.pop("asm"), forest.pop("solver").solution_vector())
+    forest_asm = serial["forest"][0]  # for K7's launch counts at the end
 
     cyc = {}
     web = web_assembler(P)
@@ -4247,6 +4374,9 @@ def main() -> int:
         + json.dumps(mg1d_launch_counts(P, device)))
     log("phase sharded-forest K22c launches (a solve on 8 shards, reported and profiled): "
         + json.dumps(dist_launch_counts(sharded.pop("dist_case"), device)))
+    log("phase K7 and K19b launches (a forest elimination; a web-cg Chebyshev application and "
+        "matvec; reported and profiled, the counts before beside them): "
+        + json.dumps(level_gather_launch_counts(P, forest_asm, web_asm, device)))
 
     runs = (state["launches"], tree["launches"], forest["launches"], web["launches"],
             bed["launches"], web1000["launches"],

@@ -12,7 +12,9 @@ The general forest solve (any forest, any coefficient mode):
 * :mod:`.edge_data` — K8a, element formation and condensation in four layouts;
 * :mod:`.segsum` — K6, exact sorted-segment sums, a route's sums in one
   launch through a :class:`.segsum.SumPlan`;
-* :mod:`.level_eliminate` — K7, the level-ordered elimination (through K6);
+* :mod:`.level_eliminate` — K7, the level-ordered elimination (through K6):
+  each run of levels no wider than 128 walked by one block in one launch
+  each way, a wider level one grid launch each way (:class:`.level_eliminate.LevelWalk`);
 * :mod:`.backsub` — K8b, λ to the solution blocks.
 
 The cyclic solve (peel rounds, then the cycle core), after K8a and before K8b:
@@ -44,7 +46,9 @@ K8b; its matvec on K18 or K19b):
   the :class:`.krylov.Jacobi` preconditioner, on a :class:`.krylov.CgSteps`
   packed once a solve), the Chebyshev start, Jacobi;
 * :mod:`.gather_matvec` — K19b, the gather-fold matvec of graphs without a
-  shift plan, with its Chebyshev step;
+  shift plan on a :class:`.gather_matvec.GatherPlan` checked once and a
+  solve's value table, with its Chebyshev step and a whole Chebyshev
+  application from one host call (:class:`.gather_matvec.ChebApply`);
 * :mod:`.mg2d` — K19c, the 2-D aggregation V-cycle's pieces, its fused
   launch path (:class:`.mg2d.Cycle`) and the coarsest dense solve;
 * :mod:`.mg1d` — K19d, the 1-D pairing V-cycle: its hierarchy, and its
@@ -102,13 +106,13 @@ __all__ = [
 ]
 
 BLOCKED = (condense.condense, tree_sweep.tree_sweep, expand.expand)
-GENERAL = (segsum.LAUNCHES, edge_data.edge_data, level_eliminate.level_eliminate, backsub.backsub)
+GENERAL = (segsum.LAUNCHES, edge_data.edge_data, level_eliminate.LAUNCHES, backsub.backsub)
 CYCLIC = (
     fold.fold_apply, peel.lambda_system, peel.peel, dense_core.dense_core,
     mf_factor.mf_factor, mf_apply.mf_apply, core_elim.core_elim, core_fronts.core_fronts,
 )
 LATTICE = (dct_lattice.dct_lattice, grid_core.grid_core, shift_matvec.shift_matvec)
-ITERATIVE = (krylov.LAUNCHES, gather_matvec.gather_matvec, mg2d.LAUNCHES, mg1d.LAUNCHES)
+ITERATIVE = (krylov.LAUNCHES, gather_matvec.LAUNCHES, mg2d.LAUNCHES, mg1d.LAUNCHES)
 ASSEMBLED = (csr.FOLD, csr.SPMV, schur_p.FACTOR, schur_p.SOLVE, dense_lu.LAUNCHES, krylov.MINRES)
 SHARDED = (shard_top.REDUCE, shard_top.T_SOLVE, shard_blocked.LAUNCHES, shard_grid.LAUNCHES,
            dist_tree.LAUNCHES, shard_general.LAUNCHES)

@@ -85,15 +85,11 @@ _SIGNATURES = {
         _p, _p, _p, _p,  # w, vt, vs, stream
     ],
     "nxfx_level_eliminate": [
-        _i, _i, _p,  # B, L, host level offsets
-        _p, _p, _p, _p,  # parent_pos, parent_pair, child_ptr, perm
-        _p, _p, _p,  # w_pairs, dt_t, dt_s
+        _p, _p, _p, _p,  # LevelWalkArgs, w_pairs, dt_t, dt_s
         _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam_perm, lam, rhs_norm, stream
     ],
     "nxfx_level_eliminate_system": [
-        _i, _i, _p,  # B, L, host level offsets
-        _p, _p, _p, _p,  # parent_pos, parent_pair, child_ptr, perm
-        _p, _p,  # w_pairs, dr
+        _p, _p, _p,  # LevelWalkArgs, w_pairs, dr
         _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam_perm, lam, rhs_norm, stream
     ],
     "nxfx_backsub": [
@@ -201,11 +197,13 @@ _SIGNATURES = {
         _i, _i, _p, _p, _p, _p,  # B, K, edge table, neighbour table, w, diag
         _p, _p, _p, _p, _p, _p,  # x, b (or null), out, partial (or null), norm (or null), stream
     ],
-    "nxfx_gather_cheb": [
-        _i, _i, _p, _p, _p, _p,  # B, K, edge table, neighbour table, w, diag
-        _p, _p, _p, _p, _p,  # s, rs, dvec, x_in, x_out
-        _d, _d, _p, _p, _p,  # c1, c2, z (or null), base (or null), stream
+    "nxfx_gather_values": [_i, _i, _p, _p, _p, _p],  # B, K, edge table, w, values, stream
+    "nxfx_gather_plan_apply": [
+        _i, _i, _p, _p, _p,  # B, K, neighbour table, values, diag
+        _p, _p, _p, _p, _p, _p,  # x, b (or null), out, partial (or null), norm (or null), stream
     ],
+    "nxfx_gather_cheb_blocks": [_i],  # device
+    "nxfx_gather_cheb_apply": [_p, _p, _p, _p, _p],  # GatherChebArgs, r, z, base (or null), stream
     "nxfx_mg2d_level0": [_i, _p, _i, _i, _i, _i, _p, _p, _p],  # m, cw, E W S N classes, diag0, lev
     "nxfx_mg2d_coarsen": [_i, _i, _p, _i, _i, _p, _p],  # nyf, nxf, fine, nyc, nxc, coarse, stream
     "nxfx_mg2d_stencil": [_i, _i, _p, _p, _p, _p, _p],  # ny, nx, lev, x, b (or null), out, stream

@@ -30,28 +30,19 @@
 // Bound: the dependency depth.  A walk is 2 x (L - 1) dependent levels
 // (528 on the 100k forest over 8 shards, <= 79 nodes wide); the bytes it
 // moves take under a microsecond, so a level's cost is what sets the time.
-// A level's chain is kept to a barrier, shared-memory reads, the sums and
-// one division (the IEEE division the plain version divides by; on the
-// card it is ~0.2 us of a level):
-//   * the block is sized to the widest level (<= 128 threads; a wider level
-//     is walked in strides), not 1,024;
-//   * the level table (its bounds, one int2 a level) is staged in shared
-//     memory once (read from device memory above 1,024 levels), and a
-//     thread's own node's d, r, wn and run of children (forward) or r, wn,
-//     d, parent (back) are copied two levels ahead by cp.async into a
-//     3-stage ring of its own;
-//   * a parent's children are a run of the level below (the plan groups
-//     each level by parent), so it gathers them as (first, count): the
-//     plan's folds are checked to be runs when the tables are built;
-//   * each level's results go to device memory (the back walk and K8b read
-//     them) and to a shared buffer the next level reads: the children's
-//     (-wn^2 / d, wn r / d) as one double2 forward, the parents' lam back;
-//     two buffers of the widest level's width (in device scratch above 512).
-// The arithmetic and its order are the per-shard plain version's: one
-// writer per output, sums in table order, no atomics.  Nothing read after
-// a barrier is __restrict__.
+// The walks are level_walk.cuh's (shared with K7), a block a shard: the
+// block sized to the widest level, the level table staged in shared memory,
+// a thread's own node's values copied two levels ahead by cp.async, a
+// parent's children gathered as a run (the plan's folds are checked to be
+// runs when the tables are built), and a level handed to the next through
+// two buffers of the widest level's width (in device scratch above
+// BUF_SMEM).  The arithmetic and its order are the per-shard plain
+// version's: one writer per output, sums in table order, no atomics.
+// Nothing read after a barrier is __restrict__.
 
 #include <cuda_runtime.h>
+
+#include "level_walk.cuh"
 
 constexpr int DIST_MAX_SHARDS = 32;
 
@@ -75,11 +66,9 @@ struct DistFoldArgs {
 
 namespace {
 
+using namespace level_walk;
+
 constexpr int THREADS = 256;
-constexpr int WALK_MAX = 128;       // a walk's block: the widest level, rounded to a warp
-constexpr int AHEAD = 2;            // levels a thread's copies run ahead of its use
-constexpr int STAGES = AHEAD + 1;   // the ring: AHEAD in flight, one in use
-constexpr int META_SMEM = 1024;     // levels whose table rows are staged in shared memory
 constexpr int BUF_SMEM = 512;       // widest level held in shared memory
 
 inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
@@ -160,81 +149,9 @@ __global__ void __launch_bounds__(THREADS) dist_folds_kernel(
     }
 }
 
-__device__ __forceinline__ void copy4(void* dst, const void* src)
-{
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void copy8(void* dst, const void* src)
-{
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-// this thread's copies of all but its AHEAD latest groups have landed
-__device__ __forceinline__ void wait_ahead() { asm volatile("cp.async.wait_group %0;\n" ::"n"(AHEAD) : "memory"); }
-
-// A walk's shared memory: the stage ring (STAGES x blockDim), the level
-// table when staged, then the level buffers when held here.
-struct FwdStage {
-    double d, r, wn;
-    int2 kids;  // the node's first child (in the level below) and its children
-};
-struct BackStage {
-    double r, wn, d;
-    int par, pad;
-};
-
-// The level table: row l = (offs[l], offs[l + 1]); staged into shared memory
-// when it fits.
-__device__ const int2* stage_levels(int L, const int2* lvl, int2* smem)
-{
-    if (L > META_SMEM) return lvl;
-    for (int l = threadIdx.x; l < L; l += blockDim.x) smem[l] = lvl[l];
-    return smem;
-}
-
-// Copy ahead the stage of level lev (parents at lev - 1 gathering level lev):
-// parent p = threadIdx.x's run of children and its d, r, wn.
-__device__ __forceinline__ void fwd_issue(FwdStage* st, const int2* meta, int lev, const int* kids,
-                                          const double* d, const double* r, const double* wn)
-{
-    if (lev >= 1) {
-        const int2 pm = meta[lev - 1];
-        if (static_cast<int>(threadIdx.x) < pm.y - pm.x) {
-            const int pi = pm.x + threadIdx.x;
-            copy8(&st->kids, kids + 2 * static_cast<size_t>(pi));
-            copy8(&st->d, d + pi);
-            copy8(&st->r, r + pi);
-            copy8(&st->wn, wn + pi);
-        }
-    }
-    commit();  // one group a level, empty or not: the waits count groups
-}
-
-__device__ __forceinline__ void back_issue(BackStage* st, const int2* meta, int lev, int L,
-                                           const double* r, const double* wn, const double* d,
-                                           const int* parent_pos)
-{
-    if (lev < L) {
-        const int2 m = meta[lev];
-        const int i = m.x + threadIdx.x;
-        if (i < m.y) {
-            copy8(&st->r, r + i);
-            copy8(&st->wn, wn + i);
-            copy8(&st->d, d + i);
-            copy4(&st->par, parent_pos + i);
-        }
-    }
-    commit();
-}
-
 // one block a shard; d, r and part are written and read back: not restricted
 __global__ void __launch_bounds__(WALK_MAX) dist_forward_kernel(
-    int L, int B_loc, int Tn, int W, const int2* lvl, const int* kids, const int* rfold, int Kr,
+    int L, int B_loc, int Tn, int W, const int2* lvl, const int2* kids, const int* rfold, int Kr,
     const double* wn, double* d, double* r, double* part, double2* scratch)
 {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -242,59 +159,18 @@ __global__ void __launch_bounds__(WALK_MAX) dist_forward_kernel(
     wn += static_cast<size_t>(s) * B_loc;
     d += static_cast<size_t>(s) * B_loc;
     r += static_cast<size_t>(s) * B_loc;
-    kids += static_cast<size_t>(s) * 2 * B_loc;
+    kids += static_cast<size_t>(s) * B_loc;
     part += static_cast<size_t>(s) * 3 * Tn;
     rfold += static_cast<size_t>(s) * Tn * Kr;
     FwdStage* ring = reinterpret_cast<FwdStage*>(smem_raw);
     int2* meta_s = reinterpret_cast<int2*>(ring + STAGES * nt);
     double2* buf = scratch != nullptr ? scratch + static_cast<size_t>(s) * 2 * W
-                                      : reinterpret_cast<double2*>(meta_s + (L > META_SMEM ? 0 : (L + 1) / 2 * 2));
-    double2* terms = buf;  // a level's (-wn^2 / d, wn r / d), what its parents gather
-    double2* next = buf + W;
+                                      : reinterpret_cast<double2*>(meta_s + table_rows(L));
     const int2* meta = stage_levels(L, lvl, meta_s);
     __syncthreads();
-
-    FwdStage* mine = ring + tid;  // slot q of this thread: mine + q nt
-    for (int k = 1; k <= AHEAD; ++k)  // slot (L - k) mod STAGES, kept non-negative
-        fwd_issue(mine + ((L - k + STAGES) % STAGES) * nt, meta, L - k, kids, d, r, wn);
-    {
-        const int2 m = meta[L - 1];
-        for (int c = tid; c < m.y - m.x; c += nt) {  // the deepest level, as folded
-            const int ci = m.x + c;
-            const double f = wn[ci] / d[ci];
-            terms[c] = make_double2(-wn[ci] * f, f * r[ci]);
-        }
-    }
-    __syncthreads();
-    for (int lev = L - 1; lev >= 1; --lev) {
-        fwd_issue(mine + ((lev + 1) % STAGES) * nt, meta, lev - AHEAD, kids, d, r, wn);  // (lev - AHEAD) mod STAGES
-        wait_ahead();
-        const FwdStage* st = mine + (lev % STAGES) * nt;
-        const int2 pm = meta[lev - 1];
-        const int op = pm.x, npar = pm.y - pm.x;
-        for (int p = tid; p < npar; p += nt) {
-            const bool pre = p == tid;
-            const int pi = op + p;
-            const int2 kc = pre ? st->kids : make_int2(kids[2 * pi], kids[2 * pi + 1]);
-            double ud = 0.0, ur = 0.0;
-            for (int k = 0; k < kc.y; ++k) {  // the run of children, in the fold's order
-                const double2 t = terms[kc.x + k];
-                ud = k == 0 ? t.x : ud + t.x;
-                ur = k == 0 ? t.y : ur + t.y;
-            }
-            const double wp = pre ? st->wn : wn[pi];
-            const double dp = (pre ? st->d : d[pi]) + ud;
-            const double rp = (pre ? st->r : r[pi]) + ur;
-            d[pi] = dp;
-            r[pi] = rp;
-            const double f = wp / dp;
-            next[p] = make_double2(-wp * f, f * rp);
-        }
-        __syncthreads();
-        double2* t = terms;
-        terms = next;
-        next = t;
-    }
+    // level 0's (-wn^2 / d, wn r / d), what the T parents gather; strides only for a level wider than the block
+    const double2* terms = W > nt ? fold_run<true, true>(meta, L, ring + tid, kids, wn, d, r, buf, buf + W)
+                                  : fold_run<true, false>(meta, L, ring + tid, kids, wn, d, r, buf, buf + W);
     for (int t = tid; t < Tn; t += nt) {  // level 0's terms into the T partials
         double ad = 0.0, ar = 0.0;
         for (int k = 0; k < Kr; ++k) {
@@ -323,15 +199,11 @@ __global__ void __launch_bounds__(WALK_MAX) dist_back_kernel(
     lam += static_cast<size_t>(s) * (B_loc + Tn);
     BackStage* ring = reinterpret_cast<BackStage*>(smem_raw);
     int2* meta_s = reinterpret_cast<int2*>(ring + STAGES * nt);
-    double* buf = scratch != nullptr ? scratch + static_cast<size_t>(s) * 2 * W
-                                     : reinterpret_cast<double*>(meta_s + (L > META_SMEM ? 0 : L));
-    double* up = buf;        // the level above's lam
-    double* here = buf + W;  // this level's
+    double* up = scratch != nullptr ? scratch + static_cast<size_t>(s) * 2 * W
+                                    : reinterpret_cast<double*>(meta_s + table_rows(L));  // the level above's lam
     const int2* meta = stage_levels(L, lvl, meta_s);
     __syncthreads();
-
-    BackStage* mine = ring + tid;
-    for (int k = 1; k <= AHEAD; ++k) back_issue(mine + (k % STAGES) * nt, meta, k, L, r, wn, d, parent_pos);
+    back_prime(meta, L, ring + tid, r, wn, d, parent_pos, nullptr);
     const int W0 = meta[0].y;
     root_T += static_cast<size_t>(s) * W0;
     for (int j = tid; j < W0; j += nt) {
@@ -342,24 +214,10 @@ __global__ void __launch_bounds__(WALK_MAX) dist_back_kernel(
         up[j] = v;
     }
     __syncthreads();
-    for (int lev = 1; lev < L; ++lev) {
-        back_issue(mine + ((lev + AHEAD) % STAGES) * nt, meta, lev + AHEAD, L, r, wn, d, parent_pos);
-        wait_ahead();
-        const BackStage* st = mine + (lev % STAGES) * nt;
-        const int o = meta[lev].x, o1 = meta[lev].y, op = meta[lev - 1].x;
-        for (int i = o + tid; i < o1; i += nt) {
-            const bool pre = i == o + tid;
-            const int par = pre ? st->par : parent_pos[i];
-            const double v = ((pre ? st->r : r[i]) + (pre ? st->wn : wn[i]) * up[par - op])
-                             / (pre ? st->d : d[i]);
-            lam[i] = v;
-            here[i - o] = v;
-        }
-        __syncthreads();
-        double* t = up;
-        up = here;
-        here = t;
-    }
+    if (W > nt)
+        solve_run<false, true>(meta, L, ring + tid, r, wn, d, parent_pos, nullptr, lam, nullptr, up, up + W);
+    else
+        solve_run<false, false>(meta, L, ring + tid, r, wn, d, parent_pos, nullptr, lam, nullptr, up, up + W);
     for (int t = tid; t < Tn; t += nt) lam[B_loc + t] = lam_T[t];
 }
 
@@ -367,12 +225,6 @@ int walk_threads(int W)
 {
     const int t = (W + 31) / 32 * 32;
     return t < 32 ? 32 : (t > WALK_MAX ? WALK_MAX : t);
-}
-
-size_t walk_smem(int L, int W, int threads, size_t stage, size_t buffers, bool scratch)
-{
-    return STAGES * threads * stage + (L > META_SMEM ? 0 : sizeof(int2) * ((L + 1) / 2 * 2))
-           + (scratch ? 0 : buffers * W);
 }
 
 }  // namespace
@@ -403,9 +255,9 @@ extern "C" int nxfx_dist_forward(
     if (L < 1 || W < 1 || (W > BUF_SMEM) != (scratch != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     const int threads = walk_threads(W);
-    const size_t smem = walk_smem(L, W, threads, sizeof(FwdStage), 2 * sizeof(double2), scratch != nullptr);
+    const size_t smem = smem_bytes(L, threads, sizeof(FwdStage), scratch != nullptr ? 0 : 2 * W * sizeof(double2));
     dist_forward_kernel<<<S, threads, smem, stream>>>(L, B_loc, Tn, W, reinterpret_cast<const int2*>(lvl),
-                                                      kids, rfold, Kr, wn, d, r, part,
+                                                      reinterpret_cast<const int2*>(kids), rfold, Kr, wn, d, r, part,
                                                       reinterpret_cast<double2*>(scratch));
     return static_cast<int>(cudaGetLastError());
 }
@@ -421,7 +273,7 @@ extern "C" int nxfx_dist_back(
     if (L < 1 || W < 1 || (W > BUF_SMEM) != (scratch != nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
     const int threads = walk_threads(W);
-    const size_t smem = walk_smem(L, W, threads, sizeof(BackStage), 2 * sizeof(double), scratch != nullptr);
+    const size_t smem = smem_bytes(L, threads, sizeof(BackStage), scratch != nullptr ? 0 : 2 * W * sizeof(double));
     dist_back_kernel<<<S, threads, smem, stream>>>(L, B_loc, Tn, W, reinterpret_cast<const int2*>(lvl),
                                                    parent_pos, root_T, d, r, wn, lam_T, lam, scratch);
     return static_cast<int>(cudaGetLastError());

@@ -4,7 +4,8 @@
 // Replaces networks_fenicsx_tpu/solver.py:_level_eliminate and
 // _level_eliminate_core2.  Bifurcations are in the level plan's permuted
 // order: levels root-down, each level grouped by parent, so the children of
-// a node are the contiguous positions [child_ptr[p], child_ptr[p + 1]).
+// a node are the contiguous positions [child_ptr[p], child_ptr[p + 1]) of
+// the level below (checked when the plan is uploaded).
 //   prepare, per edge:  w = 1 / W,  const = (-p_s [s not bif] + p_t [t not bif] - g) / W,
 //                       (w, const + Ftot) for the target side, (w, -const) for the source side
 //   (the three sorted-segment sums over the plan's gather matrices are K6)
@@ -12,25 +13,59 @@
 //   |r| over the assembled, unfolded r (the convergence gate's rhs norm)
 //   fold, deepest level first, each parent gathering its children in order:
 //              d_p += sum_c -wn_c (wn_c / d_c),   r_p += sum_c (wn_c / d_c) r_c
-//   back-sub, root-down:  lam_root = r / d,  lam_c = (r_c + wn_c lam_parent) / d_c
-//   un-permute:  lam_public[i] = lam[perm[i]]
+//   back-sub, root-down:  lam_root = r / d,  lam_c = (r_c + wn_c lam_parent) / d_c,
+//              written in the permuted order and, through the inverse
+//              permutation, in the public order.
 //
-// Bound: launch latency.  The work is O(E + B) doubles, but the fold and the
-// back-substitution are sequential in the tree depth: one launch per level
-// each (2 L + 3 launches in all, about 2,500 for an irregular forest of
-// 1,240 levels).  The launch loop runs here in C over a host offset array
-// the plan keeps, so a solve does no per-level work in Python.  The parent
-// gathers its children (no atomics): the siblings' terms are summed first,
-// in order, and then added to its own entry, as the reference does, so the
-// result is deterministic.  The rhs norm is one single-block reduction in a
-// fixed order.
+// Bound: the dependency depth.  The work is O(E + B) doubles (bytes of a
+// few microseconds), but the fold and the back-substitution are chains of
+// L levels (1,240 on the 100k-site forest, at most 126 nodes wide), so a
+// level's latency sets the time.  A launch a level (2 L in all) cost a
+// launch's latency a level; here a run of consecutive levels no wider than
+// WALK_MAX is walked by one block in one launch (level_walk.cuh, shared
+// with K22c), and only a level wider than that (the top of an arterial
+// tree's wide generations) keeps a grid launch of its own, in the same
+// place in the sequence.  The host plan (LevelWalkArgs: the schedule of
+// walks and grid levels, made once per plan) is issued here in C.  The
+// arithmetic and its order are the grid kernels' and the plain version's:
+// one writer per output, siblings summed in order and then added to the
+// parent (a parent without children left as it is), no atomics; the rhs
+// norm is one single-block reduction in a fixed order.  The launchers
+// return the kernels they enqueued, or minus the CUDA error.
 
 #include <cuda_runtime.h>
 
+#include "level_walk.cuh"
+
+// The plan's launch arguments (a ctypes Structure of the same fields, made
+// once per plan).  A schedule row is (kind, first level, last level):
+// forward, a walk folds levels last .. first + 1 into their parents, a grid
+// row folds level first + 1 into level first; back, a walk solves levels
+// first .. last, a grid row level first.
+struct LevelWalkArgs {
+    int B;
+    int L;
+    int n_fwd;
+    int n_back;
+    const int* fwd;           // host (n_fwd, 3), deepest first
+    const int* back;          // host (n_back, 3), root first
+    const long long* offs;    // host (L + 1)
+    const int* lvl;           // (L, 2): each level's (start, end)
+    const int* parent_pos;    // (B,)
+    const int* parent_pair;   // (B,)
+    const int* child_ptr;     // (B + 1,)
+    const int* kids;          // (B, 2): (first child relative to the level below, count)
+    const int* perm;          // (B,) public -> permuted
+    const int* inv_perm;      // (B,) permuted -> public
+};
+
 namespace {
+
+using namespace level_walk;
 
 constexpr int THREADS = 256;
 constexpr int REDUCE_THREADS = 1024;
+constexpr int KIND_WALK = 0;
 
 inline int blocks_for(long long n) { return static_cast<int>((n + THREADS - 1) / THREADS); }
 
@@ -79,6 +114,22 @@ __global__ void level_assemble_kernel(
     wn[b] = pp >= 0 ? w_pairs[pp] : 0.0;
 }
 
+// the system given: (d, r) from the public-order dr (B, 2) into the
+// permuted positions, wn from the pair conductances
+__global__ void level_system_kernel(
+    int B, const int* __restrict__ perm, const double* __restrict__ dr,
+    const int* __restrict__ parent_pair, const double* __restrict__ w_pairs,
+    double* __restrict__ d, double* __restrict__ r, double* __restrict__ wn)
+{
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= B) return;
+    const int p = perm[i];
+    d[p] = dr[2 * i];
+    r[p] = dr[2 * i + 1];
+    const int pp = parent_pair[i];
+    wn[i] = pp >= 0 ? w_pairs[pp] : 0.0;
+}
+
 // sqrt(sum x^2) over n entries, one block, fixed summation order
 __global__ void level_norm_kernel(int n, const double* __restrict__ x, double* __restrict__ out)
 {
@@ -94,13 +145,9 @@ __global__ void level_norm_kernel(int n, const double* __restrict__ x, double* _
     if (threadIdx.x == 0) out[0] = sqrt(part[0]);
 }
 
-// fold the children of the parents in [lo, hi) into them
-__global__ void level_fold_kernel(
-    int lo, int hi,
-    const int* __restrict__ child_ptr,
-    const double* __restrict__ wn,
-    double* __restrict__ d,
-    double* __restrict__ r)
+// a level wider than a walk: fold the children of the parents in [lo, hi) into them
+__global__ void level_fold_kernel(int lo, int hi, const int* __restrict__ child_ptr,
+                                  const double* __restrict__ wn, double* d, double* r)
 {
     const int p = lo + blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= hi) return;
@@ -119,71 +166,129 @@ __global__ void level_fold_kernel(
     r[p] = r[p] + upd_r;
 }
 
-// back-substitute the nodes in [lo, hi)
-__global__ void level_backsub_kernel(
-    int lo, int hi,
-    const int* __restrict__ parent_pos,
-    const double* __restrict__ d,
-    const double* __restrict__ r,
-    const double* __restrict__ wn,
-    double* __restrict__ lam)
+// a level wider than a walk: back-substitute the nodes in [lo, hi)
+__global__ void level_backsub_kernel(int lo, int hi, const int* __restrict__ parent_pos,
+                                     const int* __restrict__ inv_perm, const double* __restrict__ d,
+                                     const double* __restrict__ r, const double* __restrict__ wn,
+                                     double* lam_perm, double* __restrict__ lam)
 {
     const int b = lo + blockIdx.x * blockDim.x + threadIdx.x;
     if (b >= hi) return;
     const int p = parent_pos[b];
-    lam[b] = p < 0 ? r[b] / d[b] : (r[b] + wn[b] * lam[p]) / d[b];
+    const double v = p < 0 ? r[b] / d[b] : (r[b] + wn[b] * lam_perm[p]) / d[b];
+    lam_perm[b] = v;
+    lam[inv_perm[b]] = v;
 }
 
-__global__ void level_unpermute_kernel(
-    int B, const int* __restrict__ perm, const double* __restrict__ lam_perm,
-    double* __restrict__ lam)
+// The folds of the run of levels [first, last] (each no wider than the
+// block), deepest first, in one block.
+__global__ void __launch_bounds__(WALK_MAX) level_walk_kernel(
+    int first, int last, const int2* lvl, const int2* kids, const double* wn, double* d, double* r)
 {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= B) return;
-    lam[i] = lam_perm[perm[i]];
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int nt = blockDim.x, n = last - first + 1;
+    FwdStage* ring = reinterpret_cast<FwdStage*>(smem_raw);
+    int2* meta_s = reinterpret_cast<int2*>(ring + STAGES * nt);
+    double2* terms = reinterpret_cast<double2*>(meta_s + table_rows(n));
+    const int2* meta = stage_levels(n, lvl + first, meta_s);
+    __syncthreads();
+    fold_run<false, false>(meta, n, ring + threadIdx.x, kids, wn, d, r, terms, terms + nt);
 }
 
-// the system given: (d, r) from the public-order dr (B, 2) into the
-// permuted positions, wn from the pair conductances
-__global__ void level_system_kernel(
-    int B, const int* __restrict__ perm, const double* __restrict__ dr,
-    const int* __restrict__ parent_pair, const double* __restrict__ w_pairs,
-    double* __restrict__ d, double* __restrict__ r, double* __restrict__ wn)
+// The back-substitution of the run of levels [first, last] (each no wider
+// than the block), root-down, in one block; level first's parents (if any)
+// are read from lam_perm, written by an earlier launch.
+__global__ void __launch_bounds__(WALK_MAX) level_back_kernel(
+    int first, int last, const int2* lvl, const int* parent_pos, const int* inv_perm,
+    const double* d, const double* r, const double* wn, double* lam_perm, double* lam)
 {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= B) return;
-    const int p = perm[i];
-    d[p] = dr[2 * i];
-    r[p] = dr[2 * i + 1];
-    const int pp = parent_pair[i];
-    wn[i] = pp >= 0 ? w_pairs[pp] : 0.0;
-}
-
-// norm, folds, back-substitution and un-permute after the assembly
-int eliminate_levels(
-    int B, int L, const long long* level_offsets,
-    const int* parent_pos, const int* child_ptr, const int* perm,
-    double* d, double* r, double* wn, double* lam_perm, double* lam, double* rhs_norm,
-    cudaStream_t stream)
-{
-    cudaError_t err;
-    level_norm_kernel<<<1, REDUCE_THREADS, 0, stream>>>(B, r, rhs_norm);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    for (int l = L - 2; l >= 0; --l) {  // parents at level l, children at l + 1
-        const int lo = static_cast<int>(level_offsets[l]);
-        const int hi = static_cast<int>(level_offsets[l + 1]);
-        level_fold_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(lo, hi, child_ptr, wn, d, r);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int tid = threadIdx.x, nt = blockDim.x, n = last - first + 1;
+    BackStage* ring = reinterpret_cast<BackStage*>(smem_raw);
+    int2* meta_s = reinterpret_cast<int2*>(ring + STAGES * nt);
+    double* up = reinterpret_cast<double*>(meta_s + table_rows(n));  // the level above's lam
+    const int2* meta = stage_levels(n, lvl + first, meta_s);
+    __syncthreads();
+    back_prime(meta, n, ring + tid, r, wn, d, parent_pos, inv_perm);
+    {
+        const int2 m = meta[0];
+        const int i = m.x + tid;
+        if (i < m.y) {
+            const int p = parent_pos[i];
+            const double v = p < 0 ? r[i] / d[i] : (r[i] + wn[i] * lam_perm[p]) / d[i];
+            lam_perm[i] = v;
+            lam[inv_perm[i]] = v;
+            up[tid] = v;
+        }
     }
-    for (int l = 0; l < L; ++l) {
-        const int lo = static_cast<int>(level_offsets[l]);
-        const int hi = static_cast<int>(level_offsets[l + 1]);
-        level_backsub_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(
-            lo, hi, parent_pos, d, r, wn, lam_perm);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    __syncthreads();
+    solve_run<true, false>(meta, n, ring + tid, r, wn, d, parent_pos, inv_perm, lam_perm, lam, up, up + nt);
+}
+
+// a walk's block: its widest level, rounded up to a warp
+int walk_threads(const long long* offs, int first, int last)
+{
+    long long w = 1;
+    for (int l = first; l <= last; ++l) w = offs[l + 1] - offs[l] > w ? offs[l + 1] - offs[l] : w;
+    const int t = static_cast<int>((w + 31) / 32 * 32);
+    return t > WALK_MAX ? -1 : t;
+}
+
+int last_error() { return static_cast<int>(cudaGetLastError()); }
+
+// the kernels enqueued, or minus the CUDA error of their launches
+int enqueued(int count)
+{
+    const int err = last_error();
+    return err != 0 ? -err : count;
+}
+
+constexpr int INVALID = -static_cast<int>(cudaErrorInvalidValue);
+
+// norm, folds and back-substitution after the assembly, by the plan's
+// schedule: the kernels enqueued, or minus the CUDA error
+int eliminate_levels(const LevelWalkArgs* a, double* d, double* r, double* wn, double* lam_perm,
+                     double* lam, double* rhs_norm, cudaStream_t stream)
+{
+    level_norm_kernel<<<1, REDUCE_THREADS, 0, stream>>>(a->B, r, rhs_norm);
+    int count = 1, err = last_error();
+    if (err != 0) return -err;
+    const int2* lvl = reinterpret_cast<const int2*>(a->lvl);
+    const int2* kids = reinterpret_cast<const int2*>(a->kids);
+    for (int s = 0; s < a->n_fwd; ++s) {
+        const int kind = a->fwd[3 * s], first = a->fwd[3 * s + 1], last = a->fwd[3 * s + 2];
+        if (first < 0 || last >= a->L || last < first) return INVALID;
+        if (kind == KIND_WALK) {
+            const int threads = walk_threads(a->offs, first, last);
+            if (threads < 0 || last == first) return INVALID;
+            level_walk_kernel<<<1, threads, smem_bytes(last - first + 1, threads, sizeof(FwdStage),
+                                                       2 * threads * sizeof(double2)), stream>>>(
+                first, last, lvl, kids, wn, d, r);
+        } else {
+            const int lo = static_cast<int>(a->offs[first]), hi = static_cast<int>(a->offs[first + 1]);
+            level_fold_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(lo, hi, a->child_ptr, wn, d, r);
+        }
+        ++count;
+        if ((err = last_error()) != 0) return -err;
     }
-    level_unpermute_kernel<<<blocks_for(B), THREADS, 0, stream>>>(B, perm, lam_perm, lam);
-    return static_cast<int>(cudaGetLastError());
+    for (int s = 0; s < a->n_back; ++s) {
+        const int kind = a->back[3 * s], first = a->back[3 * s + 1], last = a->back[3 * s + 2];
+        if (first < 0 || last >= a->L || last < first) return INVALID;
+        if (kind == KIND_WALK) {
+            const int threads = walk_threads(a->offs, first, last);
+            if (threads < 0) return INVALID;
+            level_back_kernel<<<1, threads, smem_bytes(last - first + 1, threads, sizeof(BackStage),
+                                                       2 * threads * sizeof(double)), stream>>>(
+                first, last, lvl, a->parent_pos, a->inv_perm, d, r, wn, lam_perm, lam);
+        } else {
+            const int lo = static_cast<int>(a->offs[first]), hi = static_cast<int>(a->offs[first + 1]);
+            level_backsub_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(
+                lo, hi, a->parent_pos, a->inv_perm, d, r, wn, lam_perm, lam);
+        }
+        ++count;
+        if ((err = last_error()) != 0) return -err;
+    }
+    return count;
 }
 
 }  // namespace
@@ -198,41 +303,38 @@ extern "C" int nxfx_level_prepare(
     if (E <= 0) return 0;
     level_prepare_kernel<<<blocks_for(E), THREADS, 0, stream>>>(
         E, W, g, Ftot, start_pbc, end_pbc, start_bif, end_bif, w, vt, vs);
-    return static_cast<int>(cudaGetLastError());
+    return enqueued(1);
 }
 
-// level_offsets: host array of L + 1 permuted slice bounds per level.
+// The assembly from K6's sums, the norm and the schedule's walks and grid
+// levels (B > 0).
 extern "C" int nxfx_level_eliminate(
-    int B, int L, const long long* level_offsets,
-    const int* parent_pos, const int* parent_pair, const int* child_ptr, const int* perm,
-    const double* w_pairs, const double* dt_t, const double* dt_s,
+    const LevelWalkArgs* a, const double* w_pairs, const double* dt_t, const double* dt_s,
     double* d, double* r, double* wn, double* lam_perm, double* lam, double* rhs_norm,
     cudaStream_t stream)
 {
-    cudaError_t err;
-    if (B <= 0) return 0;
-    level_assemble_kernel<<<blocks_for(B), THREADS, 0, stream>>>(
-        B, dt_t, dt_s, parent_pair, w_pairs, d, r, wn);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    return eliminate_levels(B, L, level_offsets, parent_pos, child_ptr, perm, d, r, wn, lam_perm,
-                            lam, rhs_norm, stream);
+    if (a->B <= 0) return INVALID;
+    level_assemble_kernel<<<blocks_for(a->B), THREADS, 0, stream>>>(
+        a->B, dt_t, dt_s, a->parent_pair, w_pairs, d, r, wn);
+    const int err = last_error();
+    if (err != 0) return -err;
+    const int rest = eliminate_levels(a, d, r, wn, lam_perm, lam, rhs_norm, stream);
+    return rest < 0 ? rest : 1 + rest;
 }
 
 // The same elimination from an assembled system: the interleaved public-order
 // (diag, rhs) dr (B, 2) and the pair conductances, as the sharded general
 // solve has them after its reduce (the reference's _level_eliminate_core).
 extern "C" int nxfx_level_eliminate_system(
-    int B, int L, const long long* level_offsets,
-    const int* parent_pos, const int* parent_pair, const int* child_ptr, const int* perm,
-    const double* w_pairs, const double* dr,
+    const LevelWalkArgs* a, const double* w_pairs, const double* dr,
     double* d, double* r, double* wn, double* lam_perm, double* lam, double* rhs_norm,
     cudaStream_t stream)
 {
-    if (B <= 0) return 0;
-    level_system_kernel<<<blocks_for(B), THREADS, 0, stream>>>(
-        B, perm, dr, parent_pair, w_pairs, d, r, wn);
-    const int code = static_cast<int>(cudaGetLastError());
-    if (code != 0) return code;
-    return eliminate_levels(B, L, level_offsets, parent_pos, child_ptr, perm, d, r, wn, lam_perm,
-                            lam, rhs_norm, stream);
+    if (a->B <= 0) return INVALID;
+    level_system_kernel<<<blocks_for(a->B), THREADS, 0, stream>>>(
+        a->B, a->perm, dr, a->parent_pair, w_pairs, d, r, wn);
+    const int err = last_error();
+    if (err != 0) return -err;
+    const int rest = eliminate_levels(a, d, r, wn, lam_perm, lam, rhs_norm, stream);
+    return rest < 0 ? rest : 1 + rest;
 }

@@ -28,6 +28,7 @@ __all__ = [
     "DeviceLevelPlan",
     "attach_core_plan",
     "device_level_plan",
+    "check_child_runs",
     "flatten_level_plan",
     "segsum_matrix",
 ]
@@ -412,6 +413,13 @@ def flatten_level_plan(lp: _LevelPlan, tree_plan: _TreePlan) -> dict[str, np.nda
     # non-decreasing parent positions (levels ascend, each grouped by parent)
     n_roots = int(lp.level_offsets[1]) if B else 0
     child_ptr = n_roots + np.searchsorted(parent_pos[n_roots:], np.arange(B + 1), side="left")
+    offs = np.asarray(lp.level_offsets, np.int64)
+    check_child_runs(offs, parent_pos, child_ptr)
+    # a node's run of children as (first, count), the first relative to the
+    # start of the level below (what K7's level walks gather)
+    level_of = np.repeat(np.arange(offs.size - 1), np.diff(offs))
+    below = offs[np.minimum(level_of + 1, offs.size - 1)]
+    kids = np.stack([child_ptr[:-1] - below, np.diff(child_ptr)], axis=1)
     # each edge end's bifurcation, back from the sorted side selections
     start_bif = np.full(E, -1, np.int64)
     start_bif[lp.s_sel] = inv_perm[lp.s_seg]
@@ -422,12 +430,42 @@ def flatten_level_plan(lp: _LevelPlan, tree_plan: _TreePlan) -> dict[str, np.nda
         t_idx=segsum_matrix(lp.t_seg, B, E, sel=lp.t_sel),
         s_idx=segsum_matrix(lp.s_seg, B, E, sel=lp.s_sel),
         perm=np.asarray(lp.perm, np.int64),
+        inv_perm=np.asarray(lp.inv_perm, np.int64),
         parent_pos=parent_pos,
         parent_pair=np.asarray(lp.parent_pair, np.int64),
         child_ptr=child_ptr.astype(np.int64),
+        kids=kids.reshape(B, 2),
+        levels=np.stack([offs[:-1], offs[1:]], axis=1),
         start_bif=start_bif,
         end_bif=end_bif,
     )
+
+
+def check_child_runs(level_offsets: np.ndarray, parent_pos: np.ndarray, child_ptr: np.ndarray) -> None:
+    """Raise ``ValueError`` unless every node's children are the run
+    ``[child_ptr[p], child_ptr[p + 1])`` of the level below its own, and
+    every node of a level below the first has its parent in the level above:
+    what the level walks of K7 gather (a parent reads its children's terms
+    as ``(first, count)``)."""
+    offs = np.asarray(level_offsets, np.int64)
+    B = int(parent_pos.size)
+    L = offs.size - 1
+    if L < 1:
+        return
+    n_roots = int(offs[1])
+    if np.any(parent_pos[:n_roots] >= 0):
+        raise ValueError("level plan: a node of level 0 has a parent")
+    level_of = np.repeat(np.arange(L), np.diff(offs))
+    pp = parent_pos[n_roots:]
+    if pp.size and (np.any(pp < 0) or np.any(pp >= B)
+                    or np.any(level_of[np.clip(pp, 0, B - 1)] != level_of[n_roots:] - 1)):
+        raise ValueError("level plan: a node's parent is not in the level above its own")
+    cp = np.asarray(child_ptr, np.int64)
+    if cp.size != B + 1 or cp[0] != n_roots or cp[-1] != B or np.any(np.diff(cp) < 0):
+        raise ValueError("level plan: the children of a parent are not a run")
+    owner = np.repeat(np.arange(B), np.diff(cp))  # the parent whose run holds each position
+    if not np.array_equal(owner, pp):
+        raise ValueError("level plan: the children of a parent are not a run")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -445,10 +483,15 @@ class DeviceLevelPlan:
             All three index rows of an ``(E, C)`` value array; ``E`` is the
             zero pad slot.
         perm: ``(B,)`` public bifurcation -> permuted position.
+        inv_perm: ``(B,)`` permuted position -> public bifurcation.
         parent_pos: ``(B,)`` permuted parent position, ``-1`` for roots.
         parent_pair: ``(B,)`` pair to the parent, ``-1`` for roots.
         child_ptr: ``(B + 1,)`` children of permuted node ``p`` are the
-            positions ``[child_ptr[p], child_ptr[p + 1])``, in order.
+            positions ``[child_ptr[p], child_ptr[p + 1])``, in order
+            (:func:`check_child_runs` holds this at upload).
+        kids: ``(B, 2)`` the same run as ``(first, count)``, ``first``
+            relative to the start of the level below ``p``'s.
+        levels: ``(L, 2)`` each level's permuted bounds ``(start, end)``.
         start_bif, end_bif: ``(E,)`` public bifurcation at each edge end,
             ``-1`` at a boundary node.
         level_offsets: host ``(L+1,)`` permuted slice bounds per level, as
@@ -456,6 +499,8 @@ class DeviceLevelPlan:
             launcher reads (built once, not per solve).
         sums: the K6 plan of the three sums (pairs, target side, source
             side; :class:`.kernels.segsum.SumPlan`), validated at upload.
+        walk: K7's schedule of level walks and grid levels and its launch
+            arguments (:class:`.kernels.level_eliminate.LevelWalk`).
     """
 
     plan: _LevelPlan
@@ -463,20 +508,26 @@ class DeviceLevelPlan:
     t_idx: torch.Tensor
     s_idx: torch.Tensor
     perm: torch.Tensor
+    inv_perm: torch.Tensor
     parent_pos: torch.Tensor
     parent_pair: torch.Tensor
     child_ptr: torch.Tensor
+    kids: torch.Tensor
+    levels: torch.Tensor
     start_bif: torch.Tensor
     end_bif: torch.Tensor
     level_offsets: tuple
     host_offsets: np.ndarray
     sums: typing.Any = dataclasses.field(init=False, compare=False, repr=False)
+    walk: typing.Any = dataclasses.field(init=False, compare=False, repr=False)
 
     def __post_init__(self):
+        from .kernels.level_eliminate import LevelWalk
         from .kernels.segsum import SumPlan
 
         groups = ((self.p_idx, None), (self.t_idx, None), (self.s_idx, None))
         object.__setattr__(self, "sums", SumPlan(groups, (1, 2, 2)))
+        object.__setattr__(self, "walk", LevelWalk(self))
 
     @functools.cached_property
     def fold_idx(self) -> tuple:

@@ -25,7 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .kernels import gather_matvec, mg1d, mg2d, shift_matvec
+from .kernels import gather_matvec, krylov, mg1d, mg2d, shift_matvec
 from .ops.krylov import chebyshev_coefficients, chebyshev_preconditioner
 
 __all__ = [
@@ -206,7 +206,7 @@ class ShiftOperator:
     ``cw`` ``(C, m)``, ``diag`` ``(m,)``."""
 
     def __init__(self, plan, cw, diag, plain: bool = False):
-        self.offsets, self.cw, self.diag = plan.offsets, cw, diag
+        self.offsets, self.cw, self.diag, self.plain = plan.offsets, cw, diag, plain
         # the plain versions take the host offsets, the kernels the plan
         self._key = plan.offsets if plain else plan
         self._apply = shift_matvec.shift_matvec_plain if plain else shift_matvec.shift_matvec
@@ -221,24 +221,54 @@ class ShiftOperator:
     def step(self, s, rs, dvec, x_in, x_out, c1, c2, z=None, base=None):
         self._cheb(self._key, self.cw, self.diag, s, rs, dvec, x_in, x_out, c1, c2, z, base)
 
+    def chebyshev(self, degree: int):
+        """The Chebyshev-Jacobi preconditioner of ``degree`` on this operator's steps."""
+        return chebyshev_preconditioner(self.step, self.diag, degree=degree, plain=self.plain)
+
 
 class GatherOperator:
-    """The λ operator by gather and fold (K19b): the ``(K, B)`` tables of a
-    :class:`..lattice.DeviceLatticePlan`, ``w = 1/W`` per edge, ``diag``."""
+    """A solve's λ operator by gather and fold (K19b): ``plan`` a
+    :class:`.kernels.gather_matvec.GatherPlan` made once for the executor's
+    tables, ``w = 1/W`` per edge, ``diag``.
 
-    def __init__(self, mv_edge, mv_other, w, diag, plain: bool = False):
-        self.tables, self.w, self.diag = (mv_edge, mv_other), w, diag
-        self._apply = gather_matvec.gather_matvec_plain if plain else gather_matvec.gather_matvec
-        self._cheb = gather_matvec.gather_cheb_plain if plain else gather_matvec.gather_cheb
+    The kernels read the solve's value table ``−w[mv_edge]``, gathered here
+    (one launch); :meth:`chebyshev` makes a whole Chebyshev-Jacobi
+    application one host call (:class:`.kernels.gather_matvec.ChebApply`).
+    ``plain=True`` runs the plain versions on the plan's tables, the
+    Chebyshev application as the composed plain steps (:meth:`step`)."""
+
+    def __init__(self, plan, w, diag, plain: bool = False):
+        self.plan, self.w, self.diag, self.plain = plan, w, diag, plain
+        self.tables = (plan.mv_edge, plan.mv_other)
+        self.vals = None if plain else gather_matvec.gather_values(plan, w)
 
     def apply(self, x):
-        return self._apply(*self.tables, self.w, self.diag, x)
+        if self.plain:
+            return gather_matvec.gather_matvec_plain(*self.tables, self.w, self.diag, x)
+        return gather_matvec.gather_matvec(self.plan, self.vals, self.diag, x)
 
     def residual(self, b, x, norm: bool = False):
-        return self._apply(*self.tables, self.w, self.diag, x, b, norm)
+        if self.plain:
+            return gather_matvec.gather_matvec_plain(*self.tables, self.w, self.diag, x, b, norm)
+        return gather_matvec.gather_matvec(self.plan, self.vals, self.diag, x, b, norm)
 
     def step(self, s, rs, dvec, x_in, x_out, c1, c2, z=None, base=None):
-        self._cheb(*self.tables, self.w, self.diag, s, rs, dvec, x_in, x_out, c1, c2, z, base)
+        """One step of the composed application (the plain path's: on the
+        card an application runs whole, :meth:`chebyshev`)."""
+        if not self.plain and x_in.is_cuda:
+            raise ValueError("GatherOperator: on CUDA a Chebyshev application runs whole (chebyshev)")
+        gather_matvec.gather_cheb_plain(*self.tables, self.w, self.diag, s, rs, dvec, x_in, x_out, c1, c2, z,
+                                        base)
+
+    def chebyshev(self, degree: int):
+        """The Chebyshev-Jacobi preconditioner of ``degree``: one
+        :class:`.kernels.gather_matvec.ChebApply`, or with ``plain`` the
+        composed plain steps."""
+        if self.plain:
+            return chebyshev_preconditioner(self.step, self.diag, degree=degree, plain=True)
+        theta, coeffs = chebyshev_coefficients(degree)
+        return gather_matvec.ChebApply(self.plan, self.vals, self.diag, krylov.inv_sqrt(self.diag), theta,
+                                       coeffs)
 
 
 # ----------------------------------------------------------- V-cycles

@@ -71,9 +71,10 @@ def chebyshev_preconditioner(step, diag=None, degree: int = 8, lam_max: float = 
     operator ``D^-1/2 A D^-1/2`` over ``[lam_max/ratio, lam_max]``.
 
     ``step(s, rs, dvec, x_in, x_out, c1, c2, z=None, base=None)`` is the
-    operator's fused step (K18, K19b or K19c), ``d_isqrt`` the scaling
-    ``diag^-1/2`` when the caller has it.  Returns ``apply(r, out=None,
-    base=None)``: ``M⁻¹ r`` (plus ``base``), into ``out`` when given."""
+    operator's fused step (K18 or K19c; K19b's plain step), ``d_isqrt`` the
+    scaling ``diag^-1/2`` when the caller has it.  Returns ``apply(r,
+    out=None, base=None)``: ``M⁻¹ r`` (plus ``base``), into ``out`` when
+    given."""
     cheb_start, inv_sqrt = _steps(plain)[2:]
     s = inv_sqrt(diag) if d_isqrt is None else d_isqrt
     theta, coeffs = chebyshev_coefficients(degree, lam_max, ratio)

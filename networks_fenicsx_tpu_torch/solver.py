@@ -82,8 +82,8 @@ from .blocked import _permute_coefficient, _plan_blocked, device_plan
 from .edge_data import edge_layout
 from .function import NetworkFunction
 from .kernels import (
-    backsub, condense, csr, dct_lattice, dense_core, dense_lu, edge_data, expand, grid_core, krylov,
-    level_eliminate, peel, schur_p, segsum, shift_matvec, tree_sweep,
+    backsub, condense, csr, dct_lattice, dense_core, dense_lu, edge_data, expand, gather_matvec,
+    grid_core, krylov, level_eliminate, peel, schur_p, segsum, shift_matvec, tree_sweep,
 )
 from .lattice import (
     _DctPlan,
@@ -111,7 +111,7 @@ from .multigrid import (
     mg2d_plan,
 )
 from .ops.csr_assembly import build_csr_pattern, make_csr_assembler
-from .ops.krylov import cg, chebyshev_preconditioner, minres
+from .ops.krylov import cg, minres
 from .ops.sparse import CSRMatrix
 from .tree import device_tree_plan, tree_schur_solve
 from .utils.config import SolverOptions
@@ -660,9 +660,11 @@ class _CgExecutor(_Executor):
         self._device = device
         self._opts = opts
         self.device_plan = dlp = device_lattice_plan(asm, _build_lambda_plan(asm), device)
-        # K18's plan of the λ operator (contiguous diag and rhs)
+        # K18's plan of the λ operator (contiguous diag and rhs), or K19b's
         self.shift_plan = None if dlp.classes is None else shift_matvec.ShiftPlan(
             dlp.offsets, dlp.num_bifurcations, device)
+        self.gather_plan = None if dlp.classes is not None else gather_matvec.GatherPlan(
+            dlp.mv_edge, dlp.mv_other, dlp.num_edges)
         self._h_e = torch.as_tensor(
             np.asarray(mesh.edge_length, dtype=np.float64) / mesh.N, device=device
         )
@@ -685,7 +687,7 @@ class _CgExecutor(_Executor):
         dlp = self.device_plan
         diag = dr[:, 0].contiguous()
         if dlp.classes is None:
-            return GatherOperator(dlp.mv_edge, dlp.mv_other, w_edges, diag, plain), None
+            return GatherOperator(self.gather_plan, w_edges, diag, plain), None
         cw = _class_weights(dlp, w_edges, plain)
         return ShiftOperator(self.shift_plan, cw, diag, plain), cw
 
@@ -697,7 +699,7 @@ class _CgExecutor(_Executor):
             return Mg1dPreconditioner(self.precond_plan, op.offsets, cw, op.diag,
                                       opts.mg_overcorrect, plain)
         if kind == "chebyshev":
-            return chebyshev_preconditioner(op.step, op.diag, degree=self.precond_kind[1], plain=plain)
+            return op.chebyshev(self.precond_kind[1])
         return krylov.Jacobi(op.diag)
 
     def _run(self, R_data, f_data, start_pbc, end_pbc, plain: bool):

@@ -91,7 +91,9 @@ two such runs, :func:`vector_diffs`); ``--select windows`` takes
 ``chip_smoke.py``'s launch-count cases in 20 profiler windows each
 (:func:`window_probe`); ``--select mg1d`` times K19d's V-cycle and the
 skinny-mg executor (:func:`mg1d_times`), ``--select dist`` K22c in the
-sharded forest's executor (:func:`dist_times`).
+sharded forest's executor (:func:`dist_times`), ``--select level`` K7 on
+the forest and callable paths (:func:`level_times`) and ``--select gather``
+K19b on web-cg (:func:`gather_times`), each with the λ for ``--diff``.
 ``--root``
 imports the port from another checkout (e.g. the parent commit unpacked
 with ``git archive``), so that two versions are compared in one call.
@@ -107,7 +109,7 @@ Otherwise the script
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
-    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist] [--root DIR] [--out kernels.json]
+    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist|level|gather] [--root DIR] [--out kernels.json]
     python3 scripts/profile_torch_main_path.py --diff parent.npz change.npz
 
 (``--generations`` sets the depth of ``blocked``, ``callable`` and ``p1tree``.)
@@ -948,6 +950,113 @@ def dist_times(dev) -> dict:
     return out
 
 
+def _executor_record(ex, args, reps: int = 10) -> dict:
+    """An executor call's :func:`timed_call` figures, its device µs by
+    source, and the SHA-256 of its λ (out[2]) and fluxes (out[0])."""
+    rec = timed_call(lambda: ex(*args), reps=reps)
+    rec["device_by_source"] = by_source(rec["device_us_by_kernel"])
+    out = ex(*args)
+    rec["lambda_sha256"] = _digest(out[2])
+    rec["flux_sha256"] = _digest(out[0])
+    return rec
+
+
+def level_times(dev) -> dict:
+    """``--select level``: K7 on the forest (the 100k-site forest, N = 8,
+    k = 2) and callable (the 16-generation tree with callable R and f, the
+    general layout) main paths, on the port that ``sys.path`` finds first
+    (either port's interface): each level executor's call (:func:`timed_call`,
+    device µs by source, the λ and flux SHA-256), its plan's levels and
+    widest level, K7 alone (its wrapper on the executor's edge data) and
+    compute_forms + solve (host clock, best of 5).  With ``--out`` the λ are
+    written beside it (``--diff``)."""
+    from networks_fenicsx_tpu_torch.kernels import edge_data, level_eliminate
+
+    out, vectors = {}, {}
+    cases = {"forest": (lambda: chip_smoke.forest_assembler(P, chip_smoke.forest_mesh(P)),
+                        chip_smoke.forest_forms),
+             "callable": (lambda: chip_smoke.callable_assembler(P), chip_smoke.callable_forms)}
+    for name, (build, forms) in cases.items():
+        asm = build()
+        solver = P.Solver(asm, device="cuda")
+        solver.solve()
+        ex = solver._executor
+        args = ex.prepare_args(*asm.schur_arguments())
+        rec = _executor_record(ex, args)
+        dlp = ex.device_plan
+        widths = np.diff(np.asarray(dlp.level_offsets))
+        rec["plan"] = {"levels": int(widths.size), "widest": int(widths.max()),
+                       "wider_than_128": int(np.sum(widths > 128))}
+        R, f, sp, ep = ex.upload(*args)
+        Rm, fm, f_zero = asm.coefficient_modes()
+        ed = edge_data.edge_data(dlp, asm.network.N, asm.flux_degree, ex._h_e, ex._quad_w, ex._quad_phi,
+                                 R, f, Rm, fm, f_zero, sp, ep)
+        k7 = timed_call(lambda: level_eliminate.level_eliminate(dlp, ed), reps=10)
+        k7["by_source"] = by_source(k7["device_us_by_kernel"])
+        k7["cuda_launches_formula"] = level_eliminate.cuda_launches(dlp)
+        rec["k7"] = k7
+
+        def whole(asm=asm, solver=solver, forms=forms):
+            forms(asm)
+            solver.solve()
+
+        rec["solve_ms"] = best_ms(whole, reps=5)
+        out[name] = rec
+        vectors[f"{name}_lambda"] = ex(*args)[2].cpu().numpy()  # the fluxes by their digest only
+        del asm, solver, ex, ed
+    out["_vectors"] = vectors
+    return out
+
+
+def gather_times(dev) -> dict:
+    """``--select gather``: K19b on the web-cg main path (the 100k-site web
+    under ``schur_method="cg"``, Chebyshev degree 8), on the port that
+    ``sys.path`` finds first (either port's interface): the executor's call
+    (:func:`timed_call`, device µs by source, the λ and flux SHA-256), its
+    iterations, the λ system's matvec alone and one Chebyshev application
+    as the executor issues it (a plan's ``ChebApply``, or the composed
+    steps), and compute_forms + solve (host clock, best of 5).  With
+    ``--out`` the λ and the application are written beside it (``--diff``)."""
+    from networks_fenicsx_tpu_torch.kernels import gather_matvec
+    from networks_fenicsx_tpu_torch.multigrid import GatherOperator
+    from networks_fenicsx_tpu_torch.ops.krylov import chebyshev_preconditioner
+
+    opts = P.SolverOptions(schur_method="cg")
+    asm = chip_smoke.web_assembler(P)
+    solver = P.Solver(asm, options=opts, device="cuda")
+    solver.solve()
+    ex = solver._executor
+    args = ex.prepare_args(*asm.schur_arguments())
+    rec = _executor_record(ex, args, reps=5)
+    rec["iterations"] = solver.info.iterations
+    _, diag, rhs, w, _ = chip_smoke.cg_system(P, asm, dev, opts)
+    if hasattr(gather_matvec, "GatherPlan"):
+        op = GatherOperator(ex.gather_plan, w, diag)
+        applies = {"fused": ex._preconditioner(op, None, False)}
+    else:
+        op = GatherOperator(ex.device_plan.mv_edge, ex.device_plan.mv_other, w, diag)
+        applies = {"composed": chebyshev_preconditioner(op.step, diag, degree=8)}
+    x = torch.randn(diag.shape[0], generator=torch.Generator(device=dev).manual_seed(17),
+                    dtype=torch.float64, device=dev)
+    rec["matvec"] = timed_call(lambda: op.apply(x), reps=20)
+    z = {}
+    for key, apply in applies.items():
+        rec[f"chebyshev_{key}"] = timed_call(lambda apply=apply: apply(rhs), reps=20)
+        z[key] = apply(rhs)
+    rec["chebyshev_sha256"] = {key: _digest(v) for key, v in z.items()}
+
+    def whole():
+        chip_smoke.forest_forms(asm)
+        solver.solve()
+
+    rec["solve_ms"] = best_ms(whole, reps=5)
+    res = ex(*args)
+    out = {"web_cg": rec,
+           "_vectors": {"web_cg_lambda": res[2].cpu().numpy(),
+                        "chebyshev": next(iter(z.values())).cpu().numpy()}}
+    return out
+
+
 def krylov_times(dev) -> dict:
     """K19a and K19e as their solves issue them, on the port that
     ``sys.path`` finds first (either interface: the ``Jacobi``
@@ -1317,14 +1426,15 @@ def main() -> int:
                     help="time the redesigned kernels (K21b, K10, K12a, K11, K12b, K19c's coarsest "
                          "level, K22-reduce, K16, K17) beside their library calls instead of a path")
     ap.add_argument("--select", choices=("all", "lattice", "redesign", "krylov", "mf", "windows",
-                                         "mg1d", "dist"),
+                                         "mg1d", "dist", "level", "gather"),
                     default="all",
                     help="with --kernels: every entry, K16 and K17 alone, K6, K19c, K21a, K18, "
                          "K19a and K19e alone, K19a and K19e alone, K13-K15 on the web, "
                          "chip_smoke's launch-count cases in 20 profiler windows each, K19d on "
-                         "skinny-mg, or K22c on the sharded forest")
+                         "skinny-mg, K22c on the sharded forest, K7 on the forest and callable "
+                         "paths, or K19b on web-cg")
     ap.add_argument("--diff", type=pathlib.Path, nargs=2, default=None, metavar=("A", "B"),
-                    help="compare the vectors of two --select mf (or mg1d) --out runs (.npz) "
+                    help="compare the vectors of two --select mf, mg1d, level or gather --out runs (.npz) "
                          "and exit")
     ap.add_argument("--root", type=pathlib.Path, default=None,
                     help="import the port from this checkout instead of this one")
@@ -1343,7 +1453,8 @@ def main() -> int:
         if args.select != "all":
             times = {"lattice": lattice_times, "redesign": redesign_times,
                      "krylov": krylov_times, "mf": mf_times, "windows": window_probe,
-                     "mg1d": mg1d_times, "dist": dist_times}[args.select]
+                     "mg1d": mg1d_times, "dist": dist_times, "level": level_times,
+                     "gather": gather_times}[args.select]
             rec = {"card": card, "port": str(pathlib.Path(P.__file__).resolve().parent),
                    **times(torch.device("cuda", 0))}
         else:

@@ -144,13 +144,15 @@ def test_gather_matvec_matches_reference_and_shift_matvec():
     want = JS._matvec_from_plan(ed, jnp.asarray(diag), JS._build_matvec_plan(aj), B)(jnp.asarray(lam))
     tables = [_t(a, torch.int32) for a in PLat.gather_matvec_tables(PLat._build_matvec_plan(ap), B)]
     w = _t(1.0 / np.asarray(ed.W))
-    got = gather_matvec.gather_matvec(*tables, w, _t(diag), _t(lam))
+    plan = gather_matvec.GatherPlan(*tables, w.shape[0])
+    vals = gather_matvec.gather_values(plan, w)
+    got = gather_matvec.gather_matvec(plan, vals, _t(diag), _t(lam))
     _close(got, want, 1e-12)
     offsets = np.asarray([d for d, _, _ in classes], np.int32)
     cw = _t(np.stack([np.asarray(v) for _, v in class_w]))
     _close(shift_matvec.shift_matvec(shift_matvec.ShiftPlan(offsets, B, "cpu"), cw, _t(diag), _t(lam)),
            got, 1e-12)
-    res, norm = gather_matvec.gather_matvec(*tables, w, _t(diag), _t(lam), _t(rhs), norm=True)
+    res, norm = gather_matvec.gather_matvec(plan, vals, _t(diag), _t(lam), _t(rhs), norm=True)
     _close(res, rhs - np.asarray(want), 1e-12)
     _close(norm, np.linalg.norm(rhs - np.asarray(want)), 1e-12)
 
@@ -173,7 +175,8 @@ def test_chebyshev_application_matches_reference(graph, matvec):
         mv = JS._matvec_from_plan(ed, jnp.asarray(diag), JS._build_matvec_plan(aj), B)
         tables = [_t(a, torch.int32) for a in
                   PLat.gather_matvec_tables(PLat._build_matvec_plan(ap), B)]
-        op = PM.GatherOperator(*tables, _t(1.0 / np.asarray(ed.W)), _t(diag))
+        w = _t(1.0 / np.asarray(ed.W))
+        op = PM.GatherOperator(gather_matvec.GatherPlan(*tables, w.shape[0]), w, _t(diag))
     want = JK.chebyshev_preconditioner(mv, jnp.asarray(diag), degree=8)(jnp.asarray(rhs))
     got = PK.chebyshev_preconditioner(op.step, op.diag, degree=8)(_t(rhs))
     _close(got, want, 1e-12)
@@ -402,8 +405,8 @@ def test_iterative_wrappers_never_fall_back_off_the_cpu():
     kernels.reset_launches()
     B = 12
     one = _t(np.ones(B))
-    tables = (_t(np.full((1, B), -1), torch.int32),) * 2
-    gather_matvec.gather_matvec(*tables, one, one, one)
+    plan = gather_matvec.GatherPlan(*(_t(np.full((1, B), -1), torch.int32),) * 2, B)
+    gather_matvec.gather_matvec(plan, one[None], one, one)
     krylov.jacobi(one, one)
     level = mg1d.Level(np.array([1], np.int32), one[None], one, one)
     mg1d.residual_restrict(level, one, one)
@@ -411,7 +414,7 @@ def test_iterative_wrappers_never_fall_back_off_the_cpu():
     assert all(n == 0 for n in kernels.launches().values())
     meta = torch.ones(B, dtype=torch.float64, device="meta")
     for call in (
-        lambda: gather_matvec.gather_matvec(*tables, meta, meta, meta),
+        lambda: gather_matvec.gather_matvec(plan, meta[None], meta, meta),
         lambda: krylov.jacobi(meta, meta),
         lambda: krylov.CgSteps(krylov.new_state("meta"), meta, meta, meta, meta),
         lambda: mg1d.residual_restrict(mg1d.Level(np.array([1], np.int32), meta[None], meta, meta),
@@ -448,6 +451,7 @@ def _card_system(graph, dev, seed=3):
     else:
         out["tables"] = [_t(a, torch.int32, dev) for a in
                          PLat.gather_matvec_tables(PLat._build_matvec_plan(ap), B)]
+        out["plan"] = gather_matvec.GatherPlan(*out["tables"], w.shape[0])
     return out
 
 
@@ -461,8 +465,8 @@ def test_krylov_kernels_match_plain_on_card():
     diag, rhs = sysd["diag"], sysd["rhs"]
     outs = []
     for plain in (False, True):
-        op = PM.GatherOperator(*sysd["tables"], sysd["w"], diag, plain)
-        M = PK.chebyshev_preconditioner(op.step, diag, plain=plain)
+        op = PM.GatherOperator(sysd["plan"], sysd["w"], diag, plain)
+        M = op.chebyshev(8)  # as the executor makes it: ChebApply, or the composed plain steps
         outs.append((M(rhs), PK.cg(op.apply, rhs, precond=M, plain=plain)))
     _close(outs[0][0], outs[1][0], 1e-12)
     assert abs(outs[0][1].iters - outs[1][1].iters) <= 1
@@ -492,8 +496,9 @@ def test_gather_matvec_kernel_matches_plain_on_card():
     sysd = _card_system(_web2k, dev)
     x = torch.randn(sysd["B"], dtype=torch.float64, device=dev)
     args = (*sysd["tables"], sysd["w"], sysd["diag"], x)
-    _close(gather_matvec.gather_matvec(*args), gather_matvec.gather_matvec_plain(*args), 1e-12)
-    for a, b in zip(gather_matvec.gather_matvec(*args, sysd["rhs"], norm=True),
+    kargs = (sysd["plan"], gather_matvec.gather_values(sysd["plan"], sysd["w"]), sysd["diag"], x)
+    _close(gather_matvec.gather_matvec(*kargs), gather_matvec.gather_matvec_plain(*args), 1e-12)
+    for a, b in zip(gather_matvec.gather_matvec(*kargs, sysd["rhs"], norm=True),
                     gather_matvec.gather_matvec_plain(*args, sysd["rhs"], norm=True)):
         _close(a, b, 1e-12)
 
