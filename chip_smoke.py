@@ -326,6 +326,33 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def panel_launches(fn) -> dict:
+    """The tiled Cholesky's panel and trailing launches of one ``fn()`` call
+    (``torch.profiler``, after one warm-up call): their count, device µs and
+    longest panel; None ("not measured") where the profiler records no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"panels": 0, "panel_us": 0.0, "panel_us_max": 0.0, "trailing": 0, "trailing_us": 0.0}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        if "tc_panel_kernel" in ev.name:
+            out["panels"] += 1
+            out["panel_us"] += us
+            out["panel_us_max"] = max(out["panel_us_max"], us)
+        elif "tc_trailing_kernel" in ev.name:
+            out["trailing"] += 1
+            out["trailing_us"] += us
+    return out if out["panels"] else None
+
+
 def tensor_bytes(*objs) -> int:
     """Bytes of the tensors in ``objs`` (tensors, or nested tuples/lists of them)."""
     total = 0
@@ -1306,20 +1333,13 @@ def compare_dense_sizes(device, timed: bool) -> dict:
     return record
 
 
-def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=None) -> dict:
-    """K12a (:mod:`core_elim`), K12b (:mod:`core_fronts`) and K11 on a dense
-    tail against their plain versions on the inputs the tree executor gives
-    the core (``tree_plan`` forces a plan, as the reference's tests do): the
-    whole core solve, refined and with one unrefined tail pass, at 1e-12·scale
-    where the tail has at most 628 nodes and there are no fronts, at
-    1e-10·scale otherwise; the fronts alone and the dense tail alone on
-    their own inputs; the tail's factor backward error from 2,048 nodes.
-    Every K10 fold of the plan bit for bit, one launch a fold.  Timed: K12a
-    on the rounds alone (with their K10 folds, the tail left out), K12b on
-    the fronts alone, K11 on the tail."""
-    from networks_fenicsx_tpu_torch.kernels import (
-        core_elim, core_fronts, dense_core, edge_data, fold, peel, segsum,
-    )
+def core_inputs(P, asm, device, tree_plan=None) -> dict:
+    """What the tree executor hands the min-degree core on ``asm`` (with
+    ``tree_plan`` forced, as the reference's tests force one), from the plain
+    versions: the plans ``dtp`` and ``dcp``, the core's ``dc``, ``rc`` and
+    ``w_pairs``, and after the rounds the factor state ``st`` and the
+    forward-swept rhs ``r_fw``, the inputs of the fronts and of the tail."""
+    from networks_fenicsx_tpu_torch.kernels import core_elim, edge_data, fold, peel, segsum
     from networks_fenicsx_tpu_torch.solver import _TreeExecutor, build_schur_executor
 
     opts = P.SolverOptions(schur_method="tree") if tree_plan is not None else P.SolverOptions()
@@ -1328,9 +1348,6 @@ def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=Non
     dtp = ex.device_plan
     dcp = dtp.ce
     assert dcp is not None, "no min-degree core plan"
-    sizes = {"core": dtp.core_size, **core_sizes(dtp)}
-    for key, want in (expect or {}).items():
-        assert sizes[key] == want, (key, sizes[key], want)
     R, f, sp, ep = ex.upload(*ex.prepare_args(*asm.schur_arguments()))
     Rm, fm, f_zero = asm.coefficient_modes()
     ed = edge_data.edge_data_plain(dtp, ex._N, ex._k, ex._h_e, ex._quad_w, ex._quad_phi, R, f,
@@ -1345,6 +1362,35 @@ def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=Non
 
     peel.peel_plain(dtp, dr, w_pairs, capture)
     dc, rc = core_in["dc"], core_in["rc"]
+    st = core_elim.core_factor_plain(dcp, dc, w_pairs)
+    r_fw = rc.clone()
+    zero = torch.zeros(1, dtype=torch.float64, device=device)
+    for rd, (a, inv) in zip(dcp.rounds, st.rounds):
+        rv = r_fw[rd.elim.long()]
+        s_ = fold.fold_apply_plain(((a * inv[:, None]) * rv[:, None]).reshape(-1), rd.d_fold)
+        r_fw = r_fw - torch.cat([s_, zero])[rd.d_inv.long()]
+    return {"dtp": dtp, "dcp": dcp, "dc": dc, "rc": rc, "w_pairs": w_pairs, "st": st, "r_fw": r_fw}
+
+
+def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=None) -> dict:
+    """K12a (:mod:`core_elim`), K12b (:mod:`core_fronts`) and K11 on a dense
+    tail against their plain versions on the inputs the tree executor gives
+    the core (``tree_plan`` forces a plan, as the reference's tests do): the
+    whole core solve, refined and with one unrefined tail pass, at 1e-12·scale
+    where the tail has at most 628 nodes and there are no fronts, at
+    1e-10·scale otherwise; the fronts alone and the dense tail alone on
+    their own inputs; the tail's factor backward error from 2,048 nodes.
+    Every K10 fold of the plan bit for bit, one launch a fold.  Timed: K12a
+    on the rounds alone (with their K10 folds, the tail left out), K12b on
+    the fronts alone, K11 on the tail."""
+    from networks_fenicsx_tpu_torch.kernels import core_elim, core_fronts, dense_core, fold
+
+    inp = core_inputs(P, asm, device, tree_plan)
+    dtp, dcp, dc, rc, w_pairs, st, r_fw = (inp[k] for k in ("dtp", "dcp", "dc", "rc", "w_pairs",
+                                                           "st", "r_fw"))
+    sizes = {"core": dtp.core_size, **core_sizes(dtp)}
+    for key, want in (expect or {}).items():
+        assert sizes[key] == want, (key, sizes[key], want)
     n_tail = int(dcp.dense_nodes.shape[0])
     tol = TOL if n_tail <= 628 and not dcp.fronts else CYCLIC_TOL
     folds = core_folds(dcp, device)
@@ -1359,14 +1405,6 @@ def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=Non
         runs["core_elim_unrefined"] = (
             lambda: core_elim.core_elim(dcp, dc, w_pairs, rc, n_refine=0),
             lambda: core_elim.core_elim_plain(dcp, dc, w_pairs, rc, n_refine=0), tol)
-    # the rounds' outputs (plain), the inputs of the fronts and of the tail
-    st = core_elim.core_factor_plain(dcp, dc, w_pairs)
-    r_fw = rc.clone()
-    zero = torch.zeros(1, dtype=torch.float64, device=device)
-    for rd, (a, inv) in zip(dcp.rounds, st.rounds):
-        rv = r_fw[rd.elim.long()]
-        s_ = fold.fold_apply_plain(((a * inv[:, None]) * rv[:, None]).reshape(-1), rd.d_fold)
-        r_fw = r_fw - torch.cat([s_, zero])[rd.d_inv.long()]
     timed_runs, work = {}, {}
     if dcp.fronts:
         runs["core_fronts"] = (
@@ -3971,9 +4009,13 @@ def sharded_tree_checks(state: dict, device) -> dict:
 
 
 def t_solve_check(tf, T_parent, dT, rT, wT, sq=None) -> dict:
-    """The T solve against its plain version and against a dense Cholesky
-    solve of the same T Laplacian (the reference's, and the library call
-    timed beside it), both at ``TOL``·scale."""
+    """The T solve against its plain version (in its order: ``equal`` says
+    whether to the bit), against a dense Cholesky solve of the same T
+    Laplacian (the reference's, and the library call timed beside it) and
+    against the kernel on T's own levels (no compression round: the level
+    walk of the parent design), all at ``TOL``·scale; its launches a call
+    (the wrapper's count) and the plan's shape.  The call is one kernel, so
+    its CUDA-event time is its device time."""
     from networks_fenicsx_tpu_torch.kernels import shard_top
 
     Tn = tf.Tn
@@ -3984,17 +4026,28 @@ def t_solve_check(tf, T_parent, dT, rT, wT, sq=None) -> dict:
     LT[kids, par[kids]] -= wT[kids]
     LT[par[kids], kids] -= wT[kids]
     dense = torch.cholesky_solve(rT[:, None], torch.linalg.cholesky(LT))[:, 0]
+    before = shard_top.T_SOLVE.launches
     lam = shard_top.t_solve(tf, dT, rT, wT, sq)[0]
+    launches = shard_top.T_SOLVE.launches - before
     err_dense = float((lam - dense).abs().max())
     scale = max(1.0, float(dense.abs().max()))
     assert err_dense <= TOL * scale, (err_dense, scale)
+    walk = shard_top.t_forest(T_parent, dT.device, rounds=0)
+    lam_walk = shard_top.t_solve(walk, dT, rT, wT, sq)[0]
+    err_walk = float((lam - lam_walk).abs().max())
+    assert err_walk <= TOL * scale, (err_walk, scale)
     rec = check_pair(
         lambda: shard_top.t_solve(tf, dT, rT, wT, sq), lambda: shard_top.t_solve_plain(tf, dT, rT, wT, sq),
-        work=(tensor_bytes(dT, rT, wT, tf.order, tf.lvl_off, tf.child_ptr, tf.child_idx, tf.parent)
-              + 8 * Tn, 12 * Tn),
+        work=(tensor_bytes(dT, rT, wT, tf.table) + 8 * Tn, 12 * Tn),
         library=lambda: torch.cholesky_solve(rT[:, None], torch.linalg.cholesky(LT)))
+    got, want = shard_top.t_solve(tf, dT, rT, wT, sq), shard_top.t_solve_plain(tf, dT, rT, wT, sq)
+    rec["equal"] = all(torch.equal(a, b) for a, b in zip(float_tensors(got), float_tensors(want)))
     rec["vs_dense_cholesky"] = err_dense
-    rec["Tn"] = Tn
+    rec["vs_level_walk"] = err_walk
+    rec["level_walk_ms"] = cuda_ms(lambda: shard_top.t_solve(walk, dT, rT, wT, sq))
+    rec["launches_a_call"] = launches
+    rec["plan"] = {"Tn": Tn, "levels": tf.depth, "rounds": [int(rd.segs.shape[0]) for rd in tf.rounds],
+                   "left": int(tf.rows.shape[0]), "left_levels": tf.n_lvl}
     return rec
 
 
@@ -4254,6 +4307,33 @@ def sharded_phases(P, device, name_power: str, serial: dict) -> dict:
     return {"paths": paths, "sets": sets, "dist_case": dist_case}
 
 
+def panel_launch_phase(P, device) -> dict:
+    """The tiled Cholesky's panel and trailing launches (``panel_launches``)
+    in one call of K12b on the 128² lattice's forced fronts (set (i)'s
+    inputs), K11 at 455 and 4,096 nodes (set (j)'s) and K19c's coarsest
+    factor on the 512² lattice's bottom level (set (l)'s).  Run after the
+    launch-count phases: each profiler session before them makes the
+    profiler lose more of a later window's first records."""
+    from networks_fenicsx_tpu_torch.kernels import core_fronts, dense_core, mg2d
+    from networks_fenicsx_tpu_torch.multigrid import Mg2dPreconditioner
+
+    grid = grid128_assembler(P)
+    inp = core_inputs(P, grid, device, nd_tree_plan(P, grid, **FRONTS_KWARGS))
+    dcp, st, w_pairs, r_fw = inp["dcp"], inp["st"], inp["w_pairs"], inp["r_fw"]
+    out = {"core_fronts (fronts128)": panel_launches(
+        lambda: core_fronts.core_fronts(dcp, st.d, st.ustream[:-1], w_pairs, r_fw.clone()))}
+    for n in (455, K11_TIMED):
+        args = spd_laplacian(n, device, seed=n)
+        out[f"dense_core ({n})"] = panel_launches(lambda: dense_core.dense_core(*args))
+    opts = P.SolverOptions(schur_method="cg")
+    ex, diag, _, _, cw = cg_system(P, lattice_assembler(P, forms=cg512_forms), device, opts)
+    plan = ex.precond_plan
+    pre = Mg2dPreconditioner(plan, cw, diag, plain=True)
+    coarse = (plan.bottom_offsets, pre.bottom[:4], pre.bottom[mg2d.FD])
+    out["mg2d coarse_factor (512^2)"] = panel_launches(lambda: mg2d.coarse_factor(*coarse))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4377,6 +4457,9 @@ def main() -> int:
     log("phase K7 and K19b launches (a forest elimination; a web-cg Chebyshev application and "
         "matvec; reported and profiled, the counts before beside them): "
         + json.dumps(level_gather_launch_counts(P, forest_asm, web_asm, device)))
+    log("phase panel launches (the tiled Cholesky's panels and trailing updates in one call, "
+        "device µs by the profiler, None where it recorded none): "
+        + json.dumps(panel_launch_phase(P, device)))
 
     runs = (state["launches"], tree["launches"], forest["launches"], web["launches"],
             bed["launches"], web1000["launches"],

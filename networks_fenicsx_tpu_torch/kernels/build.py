@@ -254,9 +254,9 @@ _SIGNATURES = {
     ],
     "nxfx_shard_all": [_i, _p, _p, _p],  # D, flags, out, stream
     "nxfx_t_solve": [
-        _i, _i, _p, _p, _p, _p, _p,  # Tn, n_lvl, order, lvl_off, child_ptr, child_idx, parent
+        _i, _p,  # Tn, the plan's table
         _p, _p, _p, _p,  # dT, rT, wT, sq_extra (or null)
-        _p, _p, _p, _p, _p,  # d, r, lam scratch and out, norm (or null), stream
+        _p, _p, _p,  # lam, norm (or null), stream
     ],
     "nxfx_shard_blocked_partials": [
         _i, _i, _i, _i, _i,  # Tn, Kt, Ks, Kp, Kr

@@ -10,7 +10,7 @@
 // to that rate, each product fused into its sum (not rounded first, as the
 // library's -fmad=false keeps the fma-free kernels).  On an H100, in a
 // register-only test, the m16n8k4/k8/k16 shapes ran at the full 66-67
-// TFLOP/s and m8n8k4 (tc_dmma, K11's) at half of it: K16 takes m16n8k16.  A
+// TFLOP/s and m8n8k4 at half of it: every kernel takes m16n8k16.  A
 // kernel built on them stages its operands in shared memory with cp.async
 // (global to shared without registers; zero-filled past a ragged edge), so
 // that the next slab lands while the current one is multiplied, tracked by
@@ -23,16 +23,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-// d += a b on the float64 tensor cores: one 8 x 8 x 4 product a warp, a (8 x 4,
-// row-major) one entry a lane at (lane / 4, lane % 4), b (4 x 8, by columns)
-// at (lane % 4, lane / 4), d (8 x 8) two entries at (lane / 4, 2 (lane % 4) + e)
-__device__ __forceinline__ void tc_dmma(double& d0, double& d1, double a, double b)
-{
-    asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
-                 : "+d"(d0), "+d"(d1)
-                 : "d"(a), "d"(b));
-}
 
 // one double from global to shared memory, asynchronously
 __device__ __forceinline__ void tc_cp_async8(double* dst, const double* src)

@@ -13,22 +13,35 @@
 //   all:     min over D int flags (the finiteness pmin)
 //   T solve: L_T λ_T = r_T with L_T = diag(d_T) − w_T (child, parent) +
 //            its transpose, a forest of Tn nodes.  Its only off-diagonals
-//            are parent–child, so leaf-to-root elimination over the host's
-//            T levels, then root-down back-substitution, solves it exactly
-//            in O(Tn) (the reference factors it densely, Tn³/3).
+//            are parent–child, so elimination in any order leaves a forest:
+//            eliminating a node with one child and a parent adds one edge
+//            between them (the reference factors it densely, Tn³/3).
 //
 // Bound: latency.  The partials are a few KB to a few MB (the reduce issues
-// a thread's loads eight shards at a time, before their adds); the T solve is
-// one block of 1,024 threads walking the levels with a barrier between
-// them (Tn <= 4,096).  Each output has one writer and sums in a fixed
-// order: no atomics.
+// a thread's loads eight shards at a time, before their adds).  The T solve
+// is one block whose time is its chain of dependent divisions and barriers:
+// the sharded forest's T is 1,128 nodes in 711 levels at most 2 wide, and
+// a walk of its levels took a barrier and a division a level each way.  So
+// the host plan (shard_top.py t_plan) cuts every run of one-child nodes
+// into segments of at most TS_CHAIN; a thread eliminates a segment's run in
+// registers and shared memory, bottom to top with no barrier, leaving one
+// compressed edge between the separators below and above it, and the
+// separators form the next round's forest; the forest left after the
+// rounds (roots, leaves and branching nodes) is walked by levels; then the
+// rounds are undone in reverse, a thread back-substituting its segment.
+// The 711-level T takes 3 rounds and a 3-level walk: ~3 x 16 dependent
+// steps and ~15 barriers each way.  Everything lives in shared memory (7
+// arrays of Tn doubles, 224 KB at the limit of 4,096 nodes).  Each output
+// has one writer and sums in a fixed order: no atomics.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int SOLVE_THREADS = 1024;
+constexpr int TS_THREADS = 256;  // the T solve's block (shard_top.py SOLVE_THREADS)
+constexpr int TS_CHAIN = 16;     // the most nodes of a segment (shard_top.py CHAIN)
+constexpr int TS_ARRAYS = 7;     // the T solve's shared arrays, Tn doubles each
 
 inline int blocks_for(long long n) { return static_cast<int>((n + THREADS - 1) / THREADS); }
 
@@ -81,50 +94,113 @@ __global__ void shard_all_kernel(int D, const int* __restrict__ flags, int* __re
     out[0] = m;
 }
 
-// One block.  order (Tn,) lists the T nodes level by level (roots first),
-// lvl_off (n_lvl + 1,) bounds the levels in it; a node's children are
-// child_idx[child_ptr[t] .. child_ptr[t + 1]) in ascending order; parent
-// (Tn,) is -1 at a root.  d and r are scratch (Tn,), not restricted: they
-// are written by one thread and read by another after a barrier.
-__global__ void __launch_bounds__(SOLVE_THREADS) t_solve_kernel(
-    int Tn, int n_lvl,
-    const int* __restrict__ order, const int* __restrict__ lvl_off,
-    const int* __restrict__ child_ptr, const int* __restrict__ child_idx,
-    const int* __restrict__ parent,
-    const double* __restrict__ dT, const double* __restrict__ rT, const double* __restrict__ wT,
-    const double* sq_extra, double* d, double* r, double* lam, double* norm_out)
+// One block of TS_THREADS.  plan is shard_top.py's int32 table: a header
+// of TS_HEADER words (rounds, levels of the forest left, the offsets of the
+// per-round segment bounds, the per-round gather bounds, the segments
+// (bottom, top, first, length), the gathers (top, first segment, count), the
+// chain of the segments' nodes, the rows of the forest left (node, parent,
+// first child row, children) and its level bounds; its node count), then
+// those sections.  d, r, w, e, lam, td, tr live in shared memory, Tn each.
+__global__ void __launch_bounds__(TS_THREADS) t_solve_kernel(
+    int Tn, const int* __restrict__ plan, const double* __restrict__ dT,
+    const double* __restrict__ rT, const double* __restrict__ wT, const double* sq_extra,
+    double* __restrict__ lam_out, double* norm_out)
 {
-    __shared__ double part[SOLVE_THREADS];
+    extern __shared__ double ts_smem[];
+    __shared__ double warp_sum[TS_THREADS / 32];
+    double* d = ts_smem;
+    double* r = d + Tn;
+    double* w = r + Tn;   // a node's edge weight to its parent in the current forest
+    double* e = w + Tn;   // an eliminated node's coupling to its segment's bottom
+    double* lam = e + Tn;
+    double* td = lam + Tn;  // a segment's terms for its top, kept at its bottom
+    double* tr = td + Tn;
+    const int tid = threadIdx.x;
     double s = 0.0;
-    for (int t = threadIdx.x; t < Tn; t += SOLVE_THREADS) {
+    for (int t = tid; t < Tn; t += TS_THREADS) {
+        const double rv = rT[t];
         d[t] = dT[t];
-        r[t] = rT[t];
-        s += rT[t] * rT[t];
+        r[t] = rv;
+        w[t] = wT[t];
+        s = s + rv * rv;
     }
     if (norm_out != nullptr) {
-        part[threadIdx.x] = s;
-        __syncthreads();
-        for (int half = SOLVE_THREADS / 2; half > 0; half >>= 1) {
-            if (threadIdx.x < half) part[threadIdx.x] += part[threadIdx.x + half];
-            __syncthreads();
-        }
-        if (threadIdx.x == 0) norm_out[0] = sqrt(sq_extra[0] + part[0]);
+        for (int o = 16; o > 0; o >>= 1) s = s + __shfl_xor_sync(0xffffffffu, s, o);
+        if ((tid & 31) == 0) warp_sum[tid >> 5] = s;
     }
     __syncthreads();
-    // leaf to root: the parents of level l gather their children at l + 1
+    if (norm_out != nullptr && tid == 0) {
+        double total = warp_sum[0];
+        for (int k = 1; k < TS_THREADS / 32; ++k) total = total + warp_sum[k];
+        norm_out[0] = sqrt(sq_extra[0] + total);
+    }
+    const int R = plan[0], n_lvl = plan[1];
+    const int* seg_off = plan + plan[2];
+    const int* gat_off = plan + plan[3];
+    const int* seg = plan + plan[4];
+    const int* gat = plan + plan[5];
+    const int* chain = plan + plan[6];
+    const int* rows = plan + plan[7];
+    const int* lvl = plan + plan[8];
+
+    for (int rd = 0; rd < R; ++rd) {
+        // each segment's run, bottom to top, in one thread: no barrier
+        for (int j = seg_off[rd] + tid; j < seg_off[rd + 1]; j += TS_THREADS) {
+            const int b = seg[4 * j], first = seg[4 * j + 2], len = seg[4 * j + 3];
+            double eb = w[b], db = 0.0, rb = 0.0, dn = 0.0, rn = 0.0;
+#pragma unroll
+            for (int k = 0; k < TS_CHAIN; ++k) {
+                if (k < len) {
+                    const int v = chain[first + k];
+                    const double dv = k == 0 ? d[v] : d[v] + dn;
+                    const double rv = k == 0 ? r[v] : r[v] + rn;
+                    const double wv = w[v];
+                    const double fb = eb / dv, ft = wv / dv;
+                    const double cd = -eb * fb, cr = fb * rv;
+                    db = k == 0 ? cd : db + cd;
+                    rb = k == 0 ? cr : rb + cr;
+                    dn = -wv * ft;
+                    rn = ft * rv;
+                    d[v] = dv;
+                    r[v] = rv;
+                    e[v] = eb;
+                    eb = eb * ft;
+                }
+            }
+            d[b] = d[b] + db;
+            r[b] = r[b] + rb;
+            td[b] = dn;
+            tr[b] = rn;
+            w[b] = eb;
+        }
+        __syncthreads();
+        // each top takes its segments' terms in order
+        for (int g = gat_off[rd] + tid; g < gat_off[rd + 1]; g += TS_THREADS) {
+            const int t = gat[3 * g], s0 = gat[3 * g + 1], cnt = gat[3 * g + 2];
+            double ud = td[seg[4 * s0]], ur = tr[seg[4 * s0]];
+            for (int k = 1; k < cnt; ++k) {
+                const int b = seg[4 * (s0 + k)];
+                ud = ud + td[b];
+                ur = ur + tr[b];
+            }
+            d[t] = d[t] + ud;
+            r[t] = r[t] + ur;
+        }
+        __syncthreads();
+    }
+    // the forest left: leaf to root, the parents of level l gathering their
+    // children (a run of level l + 1)
     for (int l = n_lvl - 2; l >= 0; --l) {
-        for (int i = lvl_off[l] + threadIdx.x; i < lvl_off[l + 1]; i += SOLVE_THREADS) {
-            const int p = order[i];
-            const int lo = child_ptr[p], hi = child_ptr[p + 1];
-            if (lo == hi) continue;
+        for (int i = lvl[l] + tid; i < lvl[l + 1]; i += TS_THREADS) {
+            const int p = rows[4 * i], kf = rows[4 * i + 2], kc = rows[4 * i + 3];
+            if (kc == 0) continue;
             double ud = 0.0, ur = 0.0;
-            for (int k = lo; k < hi; ++k) {
-                const int c = child_idx[k];
-                const double factor = wT[c] / d[c];
-                const double cd = -wT[c] * factor;
-                const double cr = factor * r[c];
-                ud = k == lo ? cd : ud + cd;
-                ur = k == lo ? cr : ur + cr;
+            for (int k = 0; k < kc; ++k) {
+                const int c = rows[4 * (kf + k)];
+                const double factor = w[c] / d[c];
+                const double cd = -w[c] * factor, cr = factor * r[c];
+                ud = k == 0 ? cd : ud + cd;
+                ur = k == 0 ? cr : ur + cr;
             }
             d[p] = d[p] + ud;
             r[p] = r[p] + ur;
@@ -133,13 +209,27 @@ __global__ void __launch_bounds__(SOLVE_THREADS) t_solve_kernel(
     }
     // root down
     for (int l = 0; l < n_lvl; ++l) {
-        for (int i = lvl_off[l] + threadIdx.x; i < lvl_off[l + 1]; i += SOLVE_THREADS) {
-            const int t = order[i];
-            const int p = parent[t];
-            lam[t] = p < 0 ? r[t] / d[t] : (r[t] + wT[t] * lam[p]) / d[t];
+        for (int i = lvl[l] + tid; i < lvl[l + 1]; i += TS_THREADS) {
+            const int t = rows[4 * i], p = rows[4 * i + 1];
+            lam[t] = p < 0 ? r[t] / d[t] : (r[t] + w[t] * lam[p]) / d[t];
         }
         __syncthreads();
     }
+    // the rounds reversed: each segment from its two separators' lambda
+    for (int rd = R - 1; rd >= 0; --rd) {
+        for (int j = seg_off[rd] + tid; j < seg_off[rd + 1]; j += TS_THREADS) {
+            const int first = seg[4 * j + 2], len = seg[4 * j + 3];
+            const double lb = lam[seg[4 * j]];
+            double ln = lam[seg[4 * j + 1]];
+            for (int k = len - 1; k >= 0; --k) {
+                const int v = chain[first + k];
+                ln = ((r[v] + e[v] * lb) + w[v] * ln) / d[v];
+                lam[v] = ln;
+            }
+        }
+        __syncthreads();
+    }
+    for (int t = tid; t < Tn; t += TS_THREADS) lam_out[t] = lam[t];
 }
 
 }  // namespace
@@ -171,14 +261,13 @@ extern "C" int nxfx_shard_all(int D, const int* flags, int* out, cudaStream_t st
 }
 
 extern "C" int nxfx_t_solve(
-    int Tn, int n_lvl, const int* order, const int* lvl_off, const int* child_ptr,
-    const int* child_idx, const int* parent, const double* dT, const double* rT,
-    const double* wT, const double* sq_extra, double* d, double* r, double* lam,
-    double* norm_out, cudaStream_t stream)
+    int Tn, const int* plan, const double* dT, const double* rT, const double* wT,
+    const double* sq_extra, double* lam, double* norm_out, cudaStream_t stream)
 {
     if (Tn <= 0 && norm_out == nullptr) return 0;
-    t_solve_kernel<<<1, SOLVE_THREADS, 0, stream>>>(
-        Tn, n_lvl, order, lvl_off, child_ptr, child_idx, parent, dT, rT, wT, sq_extra,
-        d, r, lam, norm_out);
+    const int smem = TS_ARRAYS * Tn * static_cast<int>(sizeof(double));
+    cudaError_t err = cudaFuncSetAttribute(t_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    t_solve_kernel<<<1, TS_THREADS, smem, stream>>>(Tn, plan, dT, rT, wT, sq_extra, lam, norm_out);
     return static_cast<int>(cudaGetLastError());
 }

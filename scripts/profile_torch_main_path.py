@@ -93,7 +93,12 @@ two such runs, :func:`vector_diffs`); ``--select windows`` takes
 skinny-mg executor (:func:`mg1d_times`), ``--select dist`` K22c in the
 sharded forest's executor (:func:`dist_times`), ``--select level`` K7 on
 the forest and callable paths (:func:`level_times`) and ``--select gather``
-K19b on web-cg (:func:`gather_times`), each with the λ for ``--diff``.
+K19b on web-cg (:func:`gather_times`), each with the λ for ``--diff``;
+``--select fronts`` times the kernels on the tiled Cholesky header (K12b
+on fronts128, K11 at 455 and 4,096 nodes, K19c's coarsest factor) split by
+launch kind with each panel launch's µs (:func:`fronts_times`), and
+``--select tsolve`` the T solve on the sharded forest's T and on a 7-node
+one (:func:`tsolve_times`).
 ``--root``
 imports the port from another checkout (e.g. the parent commit unpacked
 with ``git archive``), so that two versions are compared in one call.
@@ -109,7 +114,7 @@ Otherwise the script
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
-    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist|level|gather] [--root DIR] [--out kernels.json]
+    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist|level|gather|fronts|tsolve] [--root DIR] [--out kernels.json]
     python3 scripts/profile_torch_main_path.py --diff parent.npz change.npz
 
 (``--generations`` sets the depth of ``blocked``, ``callable`` and ``p1tree``.)
@@ -640,6 +645,178 @@ def level_split(what: str, events: list, schedule) -> dict:
             mine = [us for n, us in events if n == name]
             for i, us in enumerate(mine):
                 add(f"L{order(i)}:{name.split('_')[1]}", us)
+    return out
+
+
+FRONT_KINDS = {"tc_panel_kernel": "panel", "tc_trailing_kernel": "trailing",
+               "tc_invert_kernel": "inverse", "ts_lower_kernel": "solve", "ts_upper_kernel": "solve",
+               "front_init_kernel": "assembly", "front_slots_kernel": "assembly",
+               "front_consume_kernel": "assembly", "fold_kernel": "slots (K10)",
+               "front_push_kernel": "sweeps", "front_pull_kernel": "sweeps",
+               "tc_gather_kernel": "sweeps", "tc_scatter_kernel": "sweeps",
+               "tc_gate_kernel": "gate", "nan_gate_kernel": "gate",
+               "tiled_init_kernel": "assembly", "tiled_pairs_kernel": "assembly",
+               "tiled_residual_kernel": "refinement", "tiled_update_kernel": "refinement"}
+
+
+def launch_spans(fn) -> dict:
+    """One ``fn()`` call's device launches (``torch.profiler``, after one
+    warm-up call): device µs and launches by kind (:data:`FRONT_KINDS`, a
+    kernel of another name under its own name), the µs of each panel launch
+    in issue order and the gaps between them, the span from the first
+    launch's start to the last one's end, and the union of the launches'
+    intervals (the launches of two streams overlap, so their sum may exceed
+    it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = []
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.name.startswith("Memcpy"):
+            name = ev.name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+            evs.append((ev.time_range.start, ev.time_range.end,
+                        (name.split("::")[-1].split() or [""])[-1]))
+    evs.sort()
+    kinds = {}
+    for t0, t1, name in evs:
+        acc = kinds.setdefault(FRONT_KINDS.get(name, name), [0.0, 0])
+        acc[0] += t1 - t0
+        acc[1] += 1
+    panels = [(t0, t1) for t0, t1, name in evs if name == "tc_panel_kernel"]
+    busy, end = 0.0, None  # the union of the launches' intervals
+    for t0, t1, _ in evs:
+        if end is None or t0 > end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    return {"span_us": (max(e[1] for e in evs) - evs[0][0]) if evs else 0.0,
+            "sum_us": sum(e[1] - e[0] for e in evs), "busy_us": busy, "launches": len(evs),
+            "by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1][0])),
+            "panel_us": [t1 - t0 for t0, t1 in panels],
+            "panel_gap_us": [b0 - a1 for (_, a1), (b0, _) in zip(panels, panels[1:])],
+            "trailing_us": [t1 - t0 for t0, t1, name in evs if name == "tc_trailing_kernel"]}
+
+
+def fronts_times(dev) -> dict:
+    """``--select fronts``: the kernels on ``tiled_cholesky.cuh``, on the
+    port that ``sys.path`` finds first (either port's interface): K12b on the
+    128² lattice's forced fronts (1,024 + 216 and 942 wide; chip_smoke's set
+    (i)) as the tree executor hands them their inputs, K11 at 455 and 4,096
+    nodes and K19c's coarsest factor on the 512² lattice's bottom level, each
+    with CUDA events' ms, its plain version's, the device µs by launch kind
+    and each panel launch's µs (:func:`launch_spans`), and K12b's and K11's
+    results against their plain versions."""
+    from networks_fenicsx_tpu_torch.kernels import core_fronts, dense_core, mg2d
+    from networks_fenicsx_tpu_torch.multigrid import Mg2dPreconditioner
+
+    ms = chip_smoke.cuda_ms
+    out = {}
+    grid = chip_smoke.grid128_assembler(P)
+    plan_i = chip_smoke.nd_tree_plan(P, grid, **chip_smoke.FRONTS_KWARGS)
+    inp = chip_smoke.core_inputs(P, grid, dev, plan_i)
+    dcp, d, ustream, w_pairs, r_fw = (inp["dcp"], inp["st"].d, inp["st"].ustream, inp["w_pairs"],
+                                      inp["r_fw"])
+
+    def k12b():
+        return core_fronts.core_fronts(dcp, d, ustream[:-1], w_pairs, r_fw.clone())
+
+    lam, want = k12b(), core_fronts.core_fronts_plain(dcp, d, ustream, w_pairs, r_fw)
+    rec = {"fronts": [(fr.w, fr.b) for fr in dcp.fronts], "ms": ms(k12b, reps=10),
+           "plain_ms": ms(lambda: core_fronts.core_fronts_plain(dcp, d, ustream, w_pairs, r_fw), reps=3),
+           "cuda_launches": core_fronts.cuda_launches(dcp),
+           "vs_plain": float((lam - want).abs().max()) / max(1.0, float(want.abs().max())),
+           "lambda_sha256": _digest(lam)}
+    rec.update(launch_spans(k12b))
+    out["k12b_fronts128"] = rec
+    del grid, plan_i, inp
+    for n in (455, chip_smoke.K11_TIMED):
+        args = chip_smoke.spd_laplacian(n, dev, seed=n)
+        x, xp = dense_core.dense_core(*args), dense_core.dense_core_plain(*args)
+        rec = {"ms": ms(lambda: dense_core.dense_core(*args), reps=10),
+               "factor_ms": ms(lambda: dense_core.dense_factor(*args[:4], args[5]), reps=10),
+               "cuda_launches": dense_core.cuda_launches(n, int(args[0].shape[0])),
+               "vs_plain": float((x - xp).abs().max()) / max(1.0, float(xp.abs().max())),
+               "backward_error": chip_smoke.factor_backward_error(args)}
+        rec.update(launch_spans(lambda: dense_core.dense_core(*args)))
+        rec["factor"] = launch_spans(lambda: dense_core.dense_factor(*args[:4], args[5]))
+        out[f"k11_{n}"] = rec
+    plan, cw, diag, _ = cg512_system(dev)
+    pre = Mg2dPreconditioner(plan, cw, diag, plain=True)
+    coarse = (plan.bottom_offsets, pre.bottom[:4], pre.bottom[mg2d.FD])
+    Lc = mg2d._banded(*coarse)
+    rec = {"n": int(Lc.shape[0]), "ms": ms(lambda: mg2d.coarse_factor(*coarse)),
+           "plain_ms": ms(lambda: mg2d.coarse_factor_plain(*coarse), reps=3),
+           "library_ms": ms(lambda: torch.linalg.cholesky(Lc))}
+    rec.update(launch_spans(lambda: mg2d.coarse_factor(*coarse)))
+    out["k19c_coarse_factor"] = rec
+    return out
+
+
+def tsolve_times(dev) -> dict:
+    """``--select tsolve``: the T solve on the port that ``sys.path`` finds
+    first (either port's interface): on the sharded forest's T (the 100k
+    forest over 8 shards of the card, Tn = 1,128; the inputs its executor
+    reduces) and on a 7-node binary T (the sharded tree's shape, Tn = 7,
+    with the norm), each with :func:`timed_call`'s figures, λ_T's SHA-256
+    and its error against a dense Cholesky solve (relative to max |λ|);
+    where the port's ``t_forest`` takes ``rounds``, also on T's own levels
+    (no compression round)."""
+    import inspect
+
+    from networks_fenicsx_tpu_torch.kernels import shard_top
+    from networks_fenicsx_tpu_torch.parallel import ShardedNetworkSolver
+
+    asm = chip_smoke.forest_assembler(P, chip_smoke.forest_mesh(P))
+    solver = ShardedNetworkSolver(asm, devices=[dev] * chip_smoke.SHARD_FOREST["D"])
+    solver.assemble()
+    solver.solve()
+    ex = solver._dist_exec
+    args = ex.prepare_args(*solver._coeff_args)
+    fw = ex.forward(0, args)
+    tot = shard_top.reduce(ex.mesh.stack(list(fw.part)))
+    Tn = ex.plan.Tn
+    cases = {"forest": (ex.plan.T_parent, (tot[:Tn], tot[Tn : 2 * Tn], tot[2 * Tn : 3 * Tn]))}
+    binary = np.array([-1, 0, 0, 1, 1, 2, 2])
+    gen = torch.Generator(device=dev).manual_seed(7)
+    wT = torch.rand(7, generator=gen, dtype=torch.float64, device=dev) + 0.5
+    wT[0] = 0.0
+    dT = wT + 1.0
+    dT.index_add_(0, torch.as_tensor(binary[1:], device=dev), wT[1:])
+    cases["tree7"] = (binary, (dT, torch.rand(7, generator=gen, dtype=torch.float64, device=dev) - 0.5,
+                               wT, torch.tensor(0.25, dtype=torch.float64, device=dev)))
+    takes_rounds = "rounds" in inspect.signature(shard_top.t_forest).parameters
+    out = {}
+    for name, (T_parent, targs) in cases.items():
+        par = np.asarray(T_parent)
+        LT = torch.diag(targs[0])
+        kids = torch.as_tensor(np.flatnonzero(par >= 0), device=dev)
+        pk = torch.as_tensor(par[par >= 0], device=dev)
+        LT[kids, pk] -= targs[2][kids]
+        LT[pk, kids] -= targs[2][kids]
+        dense = torch.cholesky_solve(targs[1][:, None], torch.linalg.cholesky(LT))[:, 0]
+        scale = max(1.0, float(dense.abs().max()))
+        forests = {"plan": shard_top.t_forest(par, dev)}
+        if takes_rounds:
+            forests["levels"] = shard_top.t_forest(par, dev, rounds=0)
+        for label, tf in forests.items():
+            lam = shard_top.t_solve(tf, *targs)[0]
+            rec = timed_call(lambda tf=tf: shard_top.t_solve(tf, *targs), reps=20)
+            rec.update({"vs_dense": float((lam - dense).abs().max()) / scale,
+                        "lambda_sha256": _digest(lam), "Tn": int(par.size),
+                        "plain_ms": chip_smoke.cuda_ms(
+                            lambda tf=tf: shard_top.t_solve_plain(tf, *targs), reps=3, warmup=1),
+                        "library_ms": chip_smoke.cuda_ms(
+                            lambda: torch.cholesky_solve(targs[1][:, None], torch.linalg.cholesky(LT)))})
+            if hasattr(tf, "rounds"):
+                rec["plan"] = {"levels": tf.depth, "rounds": [int(rd.segs.shape[0]) for rd in tf.rounds],
+                               "left_levels": tf.n_lvl}
+            out[f"{name}_{label}"] = rec
     return out
 
 
@@ -1426,13 +1603,15 @@ def main() -> int:
                     help="time the redesigned kernels (K21b, K10, K12a, K11, K12b, K19c's coarsest "
                          "level, K22-reduce, K16, K17) beside their library calls instead of a path")
     ap.add_argument("--select", choices=("all", "lattice", "redesign", "krylov", "mf", "windows",
-                                         "mg1d", "dist", "level", "gather"),
+                                         "mg1d", "dist", "level", "gather", "fronts", "tsolve"),
                     default="all",
                     help="with --kernels: every entry, K16 and K17 alone, K6, K19c, K21a, K18, "
                          "K19a and K19e alone, K19a and K19e alone, K13-K15 on the web, "
                          "chip_smoke's launch-count cases in 20 profiler windows each, K19d on "
                          "skinny-mg, K22c on the sharded forest, K7 on the forest and callable "
-                         "paths, or K19b on web-cg")
+                         "paths, K19b on web-cg, the tiled Cholesky's kernels (K12b on fronts128, "
+                         "K11 at 455 and 4,096, K19c's coarsest factor) by launch kind, or the T "
+                         "solve on the sharded forest's and a 7-node T")
     ap.add_argument("--diff", type=pathlib.Path, nargs=2, default=None, metavar=("A", "B"),
                     help="compare the vectors of two --select mf, mg1d, level or gather --out runs (.npz) "
                          "and exit")
@@ -1454,7 +1633,8 @@ def main() -> int:
             times = {"lattice": lattice_times, "redesign": redesign_times,
                      "krylov": krylov_times, "mf": mf_times, "windows": window_probe,
                      "mg1d": mg1d_times, "dist": dist_times, "level": level_times,
-                     "gather": gather_times}[args.select]
+                     "gather": gather_times, "fronts": fronts_times,
+                     "tsolve": tsolve_times}[args.select]
             rec = {"card": card, "port": str(pathlib.Path(P.__file__).resolve().parent),
                    **times(torch.device("cuda", 0))}
         else:

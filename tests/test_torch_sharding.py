@@ -388,6 +388,20 @@ def test_forest_planner_equals_reference_on_an_irregular_forest():
     _sharded_both(G, 8, N=2, R=_rand(0.5, 2.0, 3), method="tree_dist")
 
 
+@pytest.mark.parametrize("seed,D,rounds", [(1, 8, 2), (7, 2, 1)])
+def test_tree_dist_through_t_rounds_matches_reference(seed, D, rounds):
+    """An irregular forest whose T has runs of one-child nodes (62 nodes in
+    36 levels at D = 8, 9 in 9 at D = 2): tree_dist through the
+    chain-compressed T solve equals the reference's sharded solve and the
+    serial one at 1e-10·scale."""
+    G = lambda pkg: pkg.network_generation.make_random_network(  # noqa: E731
+        400, keep=0.0, seed=seed, arrays=True)
+    *_, sp, _ = _sharded_both(G, D, N=2, k=2, R=_rand(0.5, 2.0, 5), f=_rand(-1.0, 1.0, 6, "cell"),
+                              method="tree_dist")
+    tf = next(iter(sp._dist_exec.t_forest.values()))
+    assert len(tf.rounds) == rounds and tf.n_lvl < tf.depth
+
+
 def _random_forest(n, seed):
     rng = np.random.default_rng(seed)
     parent = np.full(n, -1, np.int64)
