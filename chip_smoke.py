@@ -93,6 +93,8 @@ GENERATIONS = 16
 N_CELLS = 40
 DOFS = 5_341_102
 TOL = 1e-12  # kernel vs plain and port vs plain, times max(1, max |plain|)
+SWEEP_LAUNCHES = 3  # K2–K4 on the headline tree: subtree blocks, the top, subtree blocks (were 31)
+CORE_LAUNCHES = 2  # K12a's own a core solve: the rounds forward, the rounds back (web2k: were 36 + 31 K10)
 REPS = 20  # timed launches per kernel
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FP64_FLOPS = 34e12  # H100 SXM float64 peak outside the tensor cores: element-wise, matvec work
@@ -496,8 +498,8 @@ def compare_kernels(P, asm, device, timed: bool) -> dict:
     cell = 1 if "cell" not in (Rm, fm) else N
     work = {
         "condense": (tensor_bytes(h, R, f, sp, ep, ends, c_plain), 12 * E * cell),
-        "tree_sweep": (tensor_bytes(w, const, Ftot, dp.bif_in, dp.bif_out, dp.bif_child,
-                                    dp.bif_parent, s_plain), 16 * B + 4 * dp.bif_out.numel()),
+        "tree_sweep": (tensor_bytes(w, const, Ftot, dp.bif_in, dp.bif_out, dp.bif_parent,
+                                    dp.sweep.levels, s_plain), 16 * B + 4 * dp.bif_out.numel()),
         "expand": (tensor_bytes(lam, sp, ep, W, w, g, Ftot, h, R, f, ends, x_plain),
                    10 * (k * N + 1) * E),
     }
@@ -512,7 +514,28 @@ def compare_kernels(P, asm, device, timed: bool) -> dict:
             record[name]["ms"] = cuda_ms(kernel)
             record[name]["plain_ms"] = cuda_ms(plain)
             record[name].update(bound(*work[name]))
+    # K2–K4's three launches are the blocked plain version's order: λ, d, r,
+    # wn and the norm bit for bit (λ, d, r, wn also the level-by-level plain's)
+    got = tree_sweep.tree_sweep(dp, *s_args)
+    blocked = tree_sweep.tree_sweep_blocked_plain(dp, *s_args)
+    digests = [sha256(t) for t in got]
+    assert digests == [sha256(t) for t in blocked], "tree_sweep: not the blocked plain version's bits"
+    assert all(sha256(got[i]) == sha256(s_plain[i]) for i in (0, 2, 3, 4)), "tree_sweep vs plain"
+    sw = dp.sweep
+    record["_case"] = (dp, s_args)  # for the launch-count phase
+    record["tree_sweep"].update({
+        "bit_for_bit": True, "lambda_sha256": digests[0], "cuda_launches": tree_sweep.cuda_launches(dp),
+        "sweep_plan": {"cut": sw.cut, "top_nodes": sw.top_nodes, "blocks": sw.blocks,
+                       "block_nodes": sw.block_nodes}})
     return record
+
+
+def sha256(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's float64 values."""
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(t.detach().cpu().numpy(), dtype=np.float64).tobytes()
+                          ).hexdigest()
 
 
 def conservation(asm, x: np.ndarray) -> float:
@@ -589,10 +612,16 @@ def timing(P, state: dict, name_power: str) -> dict:
     args = ex.prepare_args(*asm.schur_arguments())
     dev_ms = cuda_ms(lambda: ex(*args), reps=10)
     plain_ms = cuda_ms(lambda: ex.plain(*args), reps=10)
+    from networks_fenicsx_tpu_torch.kernels import tree_sweep
+
+    sweep = tree_sweep.cuda_launches(ex.device_plan)
+    assert sweep == SWEEP_LAUNCHES, sweep
     log(f"phase timing: compute_forms+solve best {min(times):.3f} ms "
         f"(all {[round(t, 3) for t in times]}); device per solve (upload + kernels) "
-        f"{dev_ms:.3f} ms, plain versions {plain_ms:.3f} ms; card {name_power}")
-    return {"best_ms": min(times), "device_ms": dev_ms, "plain_ms": plain_ms}
+        f"{dev_ms:.3f} ms, plain versions {plain_ms:.3f} ms; CUDA launches per solve "
+        f"{2 + sweep} (K1, K2–K4 {sweep}, K5); card {name_power}")
+    return {"best_ms": min(times), "device_ms": dev_ms, "plain_ms": plain_ms,
+            "cuda_launches": 2 + sweep}
 
 
 def compare_level_kernels(P, asm, device, timed: bool) -> dict:
@@ -1075,7 +1104,7 @@ def core_engine(dtp) -> tuple[tuple, tuple]:
     elif ce is not None:
         tail = bool(ce.dense_nodes.shape[0])
         used = ((("core_elim",) if ce.rounds or tail else ())
-                + (("fold_apply",) if ce.rounds else ())
+                + (("fold_apply",) if any(len(fr.f_fold) for fr in ce.fronts) else ())
                 + (("core_fronts",) if ce.fronts else ()) + (("dense_core",) if tail else ()))
     else:
         used = ("dense_core",)
@@ -1380,9 +1409,11 @@ def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=Non
     where the tail has at most 628 nodes and there are no fronts, at
     1e-10·scale otherwise; the fronts alone and the dense tail alone on
     their own inputs; the tail's factor backward error from 2,048 nodes.
-    Every K10 fold of the plan bit for bit, one launch a fold.  Timed: K12a
-    on the rounds alone (with their K10 folds, the tail left out), K12b on
-    the fronts alone, K11 on the tail."""
+    Every fold of the plan through K10 bit for bit, one launch a fold (K12a
+    sums them inside its own launches).  K12a's rounds alone
+    bit for bit with the packed table's plain order.  Timed: K12a on the
+    rounds alone (the tail and fronts left out), K12b on the fronts alone,
+    K11 on the tail."""
     from networks_fenicsx_tpu_torch.kernels import core_elim, core_fronts, dense_core, fold
 
     inp = core_inputs(P, asm, device, tree_plan)
@@ -1397,7 +1428,7 @@ def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=Non
     runs = {
         "core_elim": (lambda: core_elim.core_elim(dcp, dc, w_pairs, rc),
                       lambda: core_elim.core_elim_plain(dcp, dc, w_pairs, rc), tol),
-        # K12a's K10 folds, bit for bit (tolerance 0), one launch a fold
+        # the plan's folds through K10, bit for bit (tolerance 0), one launch a fold
         "fold_apply": (counted_folds(lambda: [fold.fold_apply(v, lv) for lv, v in folds], len(folds)),
                        lambda: [fold.fold_apply_plain(v, lv) for lv, v in folds], 0.0),
     }
@@ -1467,6 +1498,17 @@ def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=Non
         r_t = tail_args[4]
         record["dense_core"]["library_ms"] = cuda_ms(
             lambda: torch.cholesky_solve(r_t[:, None], torch.linalg.cholesky(Lc)), reps=5)
+    # K12a's rounds alone (no tail, no fronts) are the packed table's plain
+    # order to the bit; the whole core's λ by SHA-256 and its launches
+    lam_r = core_elim.core_elim(rounds_only, dc, w_pairs, rc)
+    want_r = core_elim.core_elim_table_plain(rounds_only, dc, w_pairs, rc)
+    assert sha256(lam_r) == sha256(want_r), "core_elim: the rounds are not the table plain version's bits"
+    record["core_elim"].update({
+        "rounds_bit_for_bit": True, "rounds_lambda_sha256": sha256(lam_r),
+        "lambda_sha256": sha256(core_elim.core_elim(dcp, dc, w_pairs, rc)),
+        "cuda_launches": core_elim.cuda_launches(dcp),
+        "launch_grid": core_elim.launch_grid(dcp, device.index or 0)})
+    record["_case"] = (dcp, dc, w_pairs, rc)
     return record
 
 
@@ -2132,13 +2174,21 @@ def core_phases(P, device, name_power: str) -> dict:
     web48 golden's forced plans, set (j) K11 alone, the web2k and 64²
     lattice main paths, and the forced paths that run K12b and the forced
     web48 plans end to end."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core
+
     core = {}
     core["f"] = compare_core_kernels(P, web2k_assembler(P), device, timed=True,
                                      expect={k: WEB2K_SIZES[k] for k in BED4_SIZES})
+    web2k_case = core["f"].pop("_case")
+    k12a = core["f"]["core_elim"]
+    assert k12a["launch_grid"] == 0, k12a  # one block
+    assert k12a["cuda_launches"] == CORE_LAUNCHES + dense_core.cuda_launches(
+        WEB2K_SIZES["dense_tail"], int(web2k_case[0].dp_init.shape[0])), k12a
     log("phase kernels-core (f) web2k, N=1, edge R, min-degree rounds + dense tail 628: "
         + json.dumps(core["f"]))
     core["g"] = compare_core_kernels(P, bed_assembler(P, 4, 32, 20, N=1), device, timed=False,
                                      expect=BED4_SIZES)
+    core["g"].pop("_case")
     log("phase kernels-core (g) bed (4, 32, 20), N=1, R=1/r^4: " + json.dumps(core["g"]))
     grid = grid128_assembler(P)
     t0 = time.perf_counter()
@@ -2146,6 +2196,7 @@ def core_phases(P, device, name_power: str) -> dict:
     t_h = time.perf_counter() - t0
     core["h"] = compare_core_kernels(P, grid, device, timed=True, tree_plan=plan_h,
                                      expect=GRID128_ND_SIZES)
+    core["h"].pop("_case")
     log(f"phase kernels-core (h) 128^2 edge-R lattice, ND plan (host planning {t_h:.3f} s), "
         "dense tail 7,583: " + json.dumps(core["h"]))
     t0 = time.perf_counter()
@@ -2153,16 +2204,20 @@ def core_phases(P, device, name_power: str) -> dict:
     t_i = time.perf_counter() - t0
     core["i"] = compare_core_kernels(P, grid, device, timed=True, tree_plan=plan_i,
                                      expect=GRID128_FRONTS_SIZES)
+    fronts_case = core["i"].pop("_case")
+    assert core["i"]["core_elim"]["launch_grid"] > 0, core["i"]["core_elim"]  # a cooperative grid
     log(f"phase kernels-core (i) 128^2 edge-R lattice, forced fronts (host planning {t_i:.3f} s): "
         + json.dumps(core["i"]))
     grid40 = grid_assembler(P, 40)
     core["grid40-fronts"] = compare_core_kernels(
         P, grid40, device, timed=False, tree_plan=nd_tree_plan(P, grid40, **FRONTS_40_KWARGS))
+    core["grid40-fronts"].pop("_case")
     log("phase kernels-core 40^2 edge-R lattice, forced fronts of 37 pivots (a w < m front whose "
         "panel ends inside its first tile): " + json.dumps(core["grid40-fronts"]))
     web48 = golden_web48(P)
     for key, plan in forced_plans_web48(P, web48).items():
         core["web48-" + key] = compare_core_kernels(P, web48, device, timed=False, tree_plan=plan)
+        core["web48-" + key].pop("_case")
         log(f"phase kernels-core web48 golden, forced {key} plan: " + json.dumps(core["web48-" + key]))
 
     k11 = compare_dense_sizes(device, timed=True)
@@ -2186,7 +2241,8 @@ def core_phases(P, device, name_power: str) -> dict:
     for key, plan in forced_plans_web48(P, web48).items():
         paths["web48-" + key] = forced_core_path(P, device, f"web48 forced {key} path", web48, plan,
                                                  {}, name_power)
-    return {"sets": core, "k11": k11, "k11_guards": guards, "paths": paths}
+    return {"sets": core, "k11": k11, "k11_guards": guards, "paths": paths,
+            "launch_cases": {"web2k": web2k_case, "fronts128": fronts_case}}
 
 
 def cg512_forms(asm) -> None:
@@ -2769,6 +2825,48 @@ def level_gather_launch_counts(P, forest_asm, web_asm, device) -> dict:
         out[key]["before"] = before
     out["k19b_chebyshev_and_matvec"].update({"host_calls": calls,
                                              "host_calls_before": CHEB_BEFORE["host_calls"] + 1})
+    return out
+
+
+SWEEP_PATTERN = r"\b(subtree_forward_kernel|top_kernel|subtree_back_kernel)\b"  # K2–K4's kernels
+CORE_PATTERN = r"\bcore_(forward|back)_kernel\b"  # K12a's two
+
+
+def sweep_core_launch_counts(sweep_case, core_cases, device) -> dict:
+    """K2–K4's device launches of one headline sweep and K12a's of one core
+    solve (web2k in one block, fronts128 in a cooperative grid; K11's and
+    K12b's launches between them are theirs): as the launchers report them
+    (``tree_sweep.device``, ``core_elim.device``) and as ``torch.profiler``
+    counts the kernels in the same window (:func:`launch_count_windows`).
+    Fails unless both equal :data:`SWEEP_LAUNCHES`
+    (:func:`tree_sweep.cuda_launches`) and :data:`CORE_LAUNCHES`."""
+    from networks_fenicsx_tpu_torch.kernels import core_elim, tree_sweep
+
+    dp, s_args = sweep_case
+    assert tree_sweep.cuda_launches(dp) == SWEEP_LAUNCHES
+
+    def sweep_run():
+        before = tree_sweep.tree_sweep.device
+        tree_sweep.tree_sweep(dp, *s_args)
+        return tree_sweep.tree_sweep.device - before
+
+    # before: assemble, norm, a fold launch a parent level, a back launch a level
+    runs = [("k2_k4_headline", sweep_run, SWEEP_PATTERN, SWEEP_LAUNCHES, 2 * dp.sweep.num_levels + 1)]
+    for name, (dcp, dc, w_pairs, rc) in core_cases.items():
+        def core_run(dcp=dcp, dc=dc, w_pairs=w_pairs, rc=rc):
+            before = core_elim.core_elim.device
+            core_elim.core_elim(dcp, dc, w_pairs, rc)
+            return core_elim.core_elim.device - before
+
+        runs.append((f"k12a_{name}", core_run, CORE_PATTERN, CORE_LAUNCHES, None))
+    out = {}
+    for key, run, pattern, want, before in runs:
+        run()
+        torch.cuda.synchronize()
+        counted_window(lambda: 0, pattern, device)  # the first session of a process starts the tracer
+        out[key] = check_launch_windows(key, launch_count_windows(run, pattern, device), want)
+        if before is not None:
+            out[key]["before"] = before
     return out
 
 
@@ -4005,6 +4103,23 @@ def sharded_tree_checks(state: dict, device) -> dict:
     rec["tree_sweep_backward"] = check_pair(
         lambda: tree_sweep.tree_sweep_backward(lp, fw.d, fw.r, fw.wn, lam0.clone()),
         lambda: tree_sweep.tree_sweep_backward_plain(lp.plan, fw.d, fw.r, fw.wn, lam0.clone()))
+    # every shard's halves: the blocked plain order's bits (Σ r² too), λ, d, r,
+    # wn the level-by-level plain version's
+    digests = []
+    for i, (f_, sh_) in enumerate(zip(fws, ex.shards)):
+        got = tree_sweep.tree_sweep_forward(lp, f_.w, f_.const, f_.Ftot)
+        assert [sha256(t) for t in got] == [sha256(t) for t in tree_sweep.tree_sweep_forward_blocked_plain(
+            lp, f_.w, f_.const, f_.Ftot)], ("tree_sweep_forward", i)
+        plain = tree_sweep.tree_sweep_forward_plain(lp.plan, f_.w, f_.const, f_.Ftot)
+        assert all(torch.equal(a, b) for a, b in zip(got[:3], plain[:3])), ("tree_sweep_forward", i)
+        l0 = shard_blocked.lam_ext(sh_["tables"], got[0], got[1], got[2], lam_T)
+        lam = tree_sweep.tree_sweep_backward(lp, *got[:3], l0.clone())
+        assert torch.equal(lam, tree_sweep.tree_sweep_backward_plain(lp.plan, *got[:3], l0.clone())), i
+        digests.append(sha256(lam))
+    rec["tree_sweep_shards"] = {"bit_for_bit": True, "shards": len(digests),
+                                "lambda_sha256": digests,
+                                "launches": [tree_sweep.cuda_launches(lp, m)
+                                             for m in (tree_sweep.FORWARD, tree_sweep.BACKWARD)]}
     return rec
 
 
@@ -4355,10 +4470,13 @@ def main() -> int:
     y_bifurcation(P, device)
 
     full = compare_kernels(P, arterial_assembler(P, GENERATIONS, N_CELLS), device, timed=True)
+    sweep_case = full.pop("_case")
+    assert full["tree_sweep"]["cuda_launches"] == SWEEP_LAUNCHES, full["tree_sweep"]
     log("phase kernels (16 gen, N=40, edge R, zero f, k=1): " + json.dumps(full))
     small = compare_kernels(
         P, arterial_assembler(P, 10, 8, k=2, per_cell=True, seed=3), device, timed=False
     )
+    small.pop("_case")
     log("phase kernels (10 gen, N=8, cell R, cell f, k=2): " + json.dumps(small))
 
     state = main_path(P, device)
@@ -4457,6 +4575,9 @@ def main() -> int:
     log("phase K7 and K19b launches (a forest elimination; a web-cg Chebyshev application and "
         "matvec; reported and profiled, the counts before beside them): "
         + json.dumps(level_gather_launch_counts(P, forest_asm, web_asm, device)))
+    log("phase K2–K4 and K12a launches (a headline sweep; a web2k and a fronts128 core solve's "
+        "rounds; reported and profiled): "
+        + json.dumps(sweep_core_launch_counts(sweep_case, mid.pop("launch_cases"), device)))
     log("phase panel launches (the tiled Cholesky's panels and trailing updates in one call, "
         "device µs by the profiler, None where it recorded none): "
         + json.dumps(panel_launch_phase(P, device)))

@@ -28,7 +28,10 @@ import torch
 
 from .ops import elements
 
-__all__ = ["DevicePlan", "EndsPlan", "IndexedEnds", "device_plan", "ends_plan", "flatten_plan"]
+__all__ = [
+    "DevicePlan", "EndsPlan", "IndexedEnds", "SweepPlan", "block_nodes", "check_sweep_plan",
+    "device_plan", "ends_plan", "flatten_plan", "sweep_plan",
+]
 
 
 class _BlockedLevel(typing.NamedTuple):
@@ -222,6 +225,159 @@ def _condensed_scalar_constants(
     return Mt, Mt.sum(axis=0), float(Mt.sum()), Minv
 
 
+# The subtree-blocked sweep (K2–K4, kernels/csrc/tree_sweep.cu): the plan's
+# constants, read when a sweep plan is made (tests monkeypatch them).
+TOP_MAX = 2048  # nodes of the top, the levels above the cut, walked by one block
+TOP_THREADS = 256  # the top block (a power of two: the norm's halving tree)
+MIN_SUBTREES = 256  # the cut: the first level at least this wide whose top fits
+SUB_NODES = 256  # nodes a subtree block aims at
+SUB_THREADS = 256  # the most threads of a subtree block (a power of two)
+SMS = 132  # the H100's SMs: a subtree launch keeps at least this many blocks where it can
+SUB_SMEM = 96 * 1024  # a subtree block's d, r, wn in shared memory up to this many bytes
+LEVEL_WORDS = 5  # a level's row of the device table: offset, width, children, runs, run prefix
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """How the blocked sweep is cut into launches (see ``kernels/csrc/tree_sweep.cu``).
+
+    The **top** is levels ``0 … cut−1``, internal positions ``[0, top_nodes)``,
+    walked by one block.  The **bottom** is the subtrees rooted at level
+    ``cut``: the descendants of the node at position ``q`` of level ``cut``
+    sit, at each level ``l ≥ cut``, at the positions ``p ≡ q (mod m_cut)``
+    (child ``s`` of position ``p`` of level ``l`` is ``s·m_l + p`` of level
+    ``l + 1``), so ``R_l = m_l / m_cut`` runs of one position each.
+    Subtree block ``b`` takes the ``g_b = min(group, m_cut − b·group)``
+    subtrees ``q0 = b·group, …``; at level ``l`` it holds ``R_l`` runs of
+    ``g_b`` consecutive positions at stride ``m_cut``, its local node
+    ``g_b·P_l + r·g_b + j`` being position ``r·m_cut + q0 + j``
+    (``P_l = Σ_{cut ≤ l' < l} R_l'``).
+
+    Attributes:
+        cut, group, blocks: the cut level, subtrees a block and subtree blocks.
+        threads: a subtree block's threads (a power of two).
+        top_threads: the top block's threads (:data:`TOP_THREADS`).
+        block_nodes: the nodes of a full subtree block, ``group·P_L``.
+        top_nodes: the top's nodes, ``offsets[cut]``.
+        smem: whether a subtree block keeps its values in shared memory.
+        host_levels: ``(L, 5)`` int64 rows ``(offset, width m_l, bifurcation
+            children a node, R_l, P_l)``; ``R_l = P_l = 0`` above the cut.
+        levels: the same table, int32, on the plan's device.
+    """
+
+    cut: int
+    group: int
+    blocks: int
+    threads: int
+    top_threads: int
+    block_nodes: int
+    top_nodes: int
+    smem: bool
+    host_levels: np.ndarray
+    levels: torch.Tensor
+
+    @property
+    def num_levels(self) -> int:
+        return int(self.host_levels.shape[0])
+
+
+def _sweep_cut(offs: np.ndarray, widths: np.ndarray) -> int:
+    """The cut: every level (``L``, one launch) when the forest fits the
+    top, else the first level ``c ≥ 1`` at least :data:`MIN_SUBTREES` wide
+    whose top fits (``offs[c] ≤ TOP_MAX``), else the deepest level whose
+    top fits; 0 when not even level 0 fits."""
+    L = widths.size
+    if offs[L] <= TOP_MAX:
+        return L
+    fits = [c for c in range(1, L + 1) if offs[c] <= TOP_MAX]
+    if not fits:
+        return 0
+    wide = [c for c in fits if c < L and widths[c] >= MIN_SUBTREES]
+    return wide[0] if wide else fits[-1]
+
+
+def sweep_plan(plan: _BlockedPlan, bif_child: np.ndarray, device: torch.device | str) -> SweepPlan:
+    """The subtree-blocked sweep of ``plan`` (its constants this module's),
+    checked by :func:`check_sweep_plan` against ``bif_child``
+    (:func:`flatten_plan`'s) and its level table uploaded."""
+    offs = np.asarray(plan.bif_offsets, np.int64)
+    widths = np.asarray([lv.m for lv in plan.levels], np.int64)
+    L = widths.size
+    c = _sweep_cut(offs, widths)
+    table = np.zeros((L, LEVEL_WORDS), np.int64)
+    table[:, 0], table[:, 1] = offs[:L], widths
+    table[: L - 1, 2] = widths[1:] // widths[:-1]
+    if c < L:
+        table[c:, 3] = widths[c:] // widths[c]
+        table[c:, 4] = np.concatenate([[0], np.cumsum(table[c:-1, 3])])
+        S = int(table[-1, 3] + table[-1, 4])  # a subtree's nodes
+        mc = int(widths[c])
+        group = max(1, min(SUB_NODES // S, mc // SMS))
+        blocks = -(-mc // group)
+        nodes = group * S
+        threads = min(SUB_THREADS, 1 << max(5, (nodes - 1).bit_length()))
+    else:
+        group = blocks = nodes = 0
+        threads = 32
+    sp = SweepPlan(
+        cut=c, group=group, blocks=blocks, threads=threads, top_threads=TOP_THREADS,
+        block_nodes=nodes,
+        top_nodes=int(offs[c]), smem=3 * 8 * nodes <= SUB_SMEM, host_levels=table,
+        levels=torch.as_tensor(table.astype(np.int32), device=device),
+    )
+    check_sweep_plan(sp, bif_child)
+    return sp
+
+
+def block_nodes(sp: SweepPlan, b: int) -> np.ndarray:
+    """Subtree block ``b``'s nodes (internal positions) in its local order."""
+    t, c, g = sp.host_levels, sp.cut, sp.group
+    q0 = b * g
+    gb = min(g, int(t[c, 1]) - q0)
+    mc = int(t[c, 1])
+    out = [int(t[l, 0]) + (np.arange(int(t[l, 3]))[:, None] * mc + q0 + np.arange(gb)[None, :]).ravel()
+           for l in range(c, sp.num_levels)]
+    return np.concatenate(out)
+
+
+def check_sweep_plan(sp: SweepPlan, bif_child: np.ndarray) -> None:
+    """Raise ``ValueError("sweep plan: ...")`` unless every bifurcation is in
+    exactly one subtree block or in the top, each block is closed under
+    ``bif_child`` (the top's children in the top or at the cut), and the top
+    fits one block."""
+    bif_child = np.asarray(bif_child)
+    B, L, c = bif_child.shape[0], sp.num_levels, sp.cut
+    t = sp.host_levels
+    if sp.top_nodes > TOP_MAX or (c > 0 and sp.top_nodes != int(t[c - 1, 0] + t[c - 1, 1])):
+        raise ValueError(f"sweep plan: a top of {sp.top_nodes} nodes does not fit one block")
+    if B and int(t[-1, 0] + t[-1, 1]) != B:
+        raise ValueError("sweep plan: the level table does not cover the bifurcations")
+    owner = np.full(B, -2, np.int64)
+    owner[: sp.top_nodes] = -1
+    for b in range(sp.blocks):
+        nodes = block_nodes(sp, b)
+        if nodes.size and (nodes.min() < sp.top_nodes or nodes.max() >= B):
+            raise ValueError(f"sweep plan: block {b} names a node outside the bottom")
+        if np.any(owner[nodes] != -2):
+            raise ValueError(f"sweep plan: a node of block {b} is in two blocks")
+        owner[nodes] = b
+        if nodes.size > sp.block_nodes:
+            raise ValueError(f"sweep plan: block {b} holds {nodes.size} > {sp.block_nodes} nodes")
+    if np.any(owner == -2):
+        raise ValueError(f"sweep plan: {int(np.sum(owner == -2))} bifurcations in no block")
+    kids = bif_child.reshape(B, -1)
+    par = np.repeat(np.arange(B), kids.shape[1])
+    kid = kids.ravel()
+    ok = kid >= 0
+    par, kid = par[ok], kid[ok]
+    top_par = owner[par] == -1
+    cut_lo = sp.top_nodes
+    cut_hi = int(t[c, 0] + t[c, 1]) if c < L else cut_lo
+    bad_top = top_par & (owner[kid] != -1) & ~((kid >= cut_lo) & (kid < cut_hi))
+    if np.any(bad_top) or np.any(~top_par & (owner[kid] != owner[par])):
+        raise ValueError("sweep plan: a block is not closed under bif_child")
+
+
 @dataclasses.dataclass(frozen=True)
 class DevicePlan:
     """A :class:`_BlockedPlan` flattened into index tensors on one device.
@@ -236,23 +392,21 @@ class DevicePlan:
         bif_in: ``(B,)`` int32 in-edge of each bifurcation.
         bif_out: ``(B, K_max)`` int32 out-edges, each row holding its level's
             K entries then ``-1`` padding.
-        bif_child: ``(B, K_max)`` int32 children in bifurcation-targeting
-            slot order (child ``j`` is the target of the j-th slot that
-            targets bifurcations), then ``-1``.
         bif_parent: ``(B,)`` int32 parent bifurcation, ``-1`` for roots.
         level_offsets: host ``(L+1,)`` bifurcation slice bounds per level.
         edge_src: ``(E,)`` int32 source bifurcation, ``-1`` at a boundary.
         edge_tgt: ``(E,)`` int32 target bifurcation, ``-1`` at a boundary.
+        sweep: the subtree-blocked sweep (:class:`SweepPlan`), checked.
     """
 
     plan: _BlockedPlan
     bif_in: torch.Tensor
     bif_out: torch.Tensor
-    bif_child: torch.Tensor
     bif_parent: torch.Tensor
     level_offsets: tuple
     edge_src: torch.Tensor
     edge_tgt: torch.Tensor
+    sweep: SweepPlan
 
     @property
     def num_bifurcations(self) -> int:
@@ -269,7 +423,10 @@ class DevicePlan:
 
 def flatten_plan(plan: _BlockedPlan) -> dict[str, np.ndarray]:
     """Host arrays of :class:`DevicePlan` (see there), built from the
-    level structure alone."""
+    level structure alone, and ``bif_child (B, K_max)``: the children in
+    bifurcation-targeting slot order (child ``j`` is the target of the j-th
+    slot that targets bifurcations), then ``-1`` (what the sweep plan's
+    check holds the subtree blocks to)."""
     offs = np.asarray(plan.bif_offsets)
     B = int(offs[-1])
     E = int(plan.edge_order.size)
@@ -307,14 +464,17 @@ def flatten_plan(plan: _BlockedPlan) -> dict[str, np.ndarray]:
 
 
 def device_plan(plan: _BlockedPlan, device: torch.device | str) -> DevicePlan:
-    """Upload the flattened plan to ``device`` (int32 index tensors)."""
+    """Upload the flattened plan to ``device`` (int32 index tensors) with
+    its checked sweep plan."""
     host = flatten_plan(plan)
     tensors = {
         k: torch.as_tensor(v.astype(np.int32), device=device) for k, v in host.items()
+        if k != "bif_child"
     }
     return DevicePlan(
         plan=plan,
         level_offsets=tuple(int(o) for o in plan.bif_offsets),
+        sweep=sweep_plan(plan, host["bif_child"], device),
         **tensors,
     )
 

@@ -4,7 +4,8 @@ Each module holds one kernel's wrapper beside its plain PyTorch version.
 The blocked forest solve (uniformly-K-ary forests):
 
 * :mod:`.condense` — K1, per-edge static condensation;
-* :mod:`.tree_sweep` — K2 + K3 + K4, the level sweep (fold and back-substitution);
+* :mod:`.tree_sweep` — K2 + K3 + K4, the level sweep (fold and back-substitution),
+  three launches cut by the device plan's :class:`..blocked.SweepPlan`;
 * :mod:`.expand` — K5, λ to the solution blocks.
 
 The general forest solve (any forest, any coefficient mode):
@@ -25,7 +26,9 @@ The cyclic solve (peel rounds, then the cycle core), after K8a and before K8b:
   (``nxfx_fold`` in K6's source) through a :class:`.fold.FoldPlan`;
 * :mod:`.dense_core` — K11, the dense core or dense tail (a tiled
   multi-block factor, up to 8,192 nodes);
-* :mod:`.core_elim` — K12a, the min-degree rounds of a sparse core plan;
+* :mod:`.core_elim` — K12a, the min-degree rounds of a sparse core plan, two
+  launches a solve on its packed :class:`..ops.core_elim.RoundTable`, the folds
+  inside;
 * :mod:`.core_fronts` — K12b, its supernodal fronts;
 * :mod:`.mf_factor` — K13 + K14, the multifrontal factor;
 * :mod:`.mf_apply` — K15, the multifrontal apply with its refinement.

@@ -41,20 +41,11 @@ _SIGNATURES = {
         _p, _p, _p, _p, _p, _p,  # W, w, g, Ftot, const, stream
     ],
     "nxfx_tree_sweep": [
-        _i, _i, _i, _p,  # B, Kmax, L, host level offsets
-        _p, _p, _p, _p,  # bif_in, bif_out, bif_child, bif_parent
+        _i, _i, _i, _i, _i, _i, _i, _i, _i,  # mode, Kmax, L, cut, group, blocks, threads, nodes, smem
+        _i, _i, _p,  # top nodes, top threads, level table
+        _p, _p, _p,  # bif_in, bif_out, bif_parent
         _p, _p, _p,  # w, const, Ftot
-        _p, _p, _p, _p, _p, _p,  # d, r, wn, lam, rhs_norm, stream
-    ],
-    "nxfx_tree_sweep_forward": [
-        _i, _i, _i, _p,  # B, Kmax, L, host level offsets
-        _p, _p, _p,  # bif_in, bif_out, bif_child
-        _p, _p, _p,  # w, const, Ftot
-        _p, _p, _p, _p, _p,  # d, r, wn, rhs_sq, stream
-    ],
-    "nxfx_tree_sweep_backward": [
-        _i, _i, _p, _p,  # B, L, host level offsets, bif_parent
-        _p, _p, _p, _p, _p,  # d, r, wn, lam, stream
+        _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam, partials, norm or sum r^2, stream
     ],
     "nxfx_expand": [
         _i, _i, _i, _i,  # E, B, N, k
@@ -126,22 +117,9 @@ _SIGNATURES = {
         _i, _i, _p, _p, _p, _p,  # n, P0, ci, cj, pid, w_pairs
         _p, _p, _p, _p, _p,  # dc, Lc, C, s, stream
     ],
-    "nxfx_core_round_terms": [
-        _i, _i, _i, _p, _p, _p, _p,  # S, K, P0, elim, init_idx, init_slot, w_pairs
-        _p, _p, _p, _p, _p, _p,  # ur (or null), d, a, inv, t, stream
-    ],
-    "nxfx_core_round_update": [
-        _i, _i, _i, _i, _p, _p, _p,  # n_core, U1, M2, K, d_inv, sd, d
-        _p, _p, _p, _p, _p, _p,  # u_src_i, u_src_j, a, inv, contrib, stream
-    ],
-    "nxfx_core_apply_terms": [_i, _i, _p, _p, _p, _p, _p, _p, _p],  # S, K, elim, a, inv, r, rv, t
-    "nxfx_core_apply_update": [_i, _i, _p, _p, _p, _p],  # n_core, U1, d_inv, sr, r, stream
-    "nxfx_core_back": [_i, _i, _p, _p, _p, _p, _p, _p, _p],  # S, K, elim, nbr, a, inv, rv, lam
-    "nxfx_core_tail_gather": [
-        _i, _i, _i, _p, _p, _p,  # Bd, Pd, P0, dense nodes, d, r
-        _p, _p, _p, _p, _p, _p, _p, _p,  # dp_init, init_slot, w_pairs, dpf (or null), dd, rr, -ov, stream
-    ],
-    "nxfx_core_scatter_nodes": [_i, _p, _p, _p, _p],  # n, nodes, x, lam, stream
+    "nxfx_core_forward": [_p, _p],  # CoreArgs, stream
+    "nxfx_core_back": [_p, _p],  # CoreArgs, stream
+    "nxfx_core_grid_blocks": [_i, _i, _i],  # device, header words, staged
     "nxfx_front_factor": [
         _i, _i, _i, _i, _i, _p, _p,  # w, b, ns, P0, first, nodes, d
         _p, _p, _p, _p, _p, _p,  # slot_i, slot_j, f_init, init_slot, w_pairs, sf (or null)

@@ -17,29 +17,47 @@ solve the core system ``(diag dc, off-diagonals −w_pairs) λ = rc``.
   reverse, ``λ[elim] = (r_e − Σ_k a·λ[nbr_node])·inv`` (pads read
   ``λ[n_core] = 0``).
 
-Every fold is K10 (:mod:`.fold`); the kernel does the per-round gathers,
-products and inverse-map applies (two launches per round and direction),
-the tail's gathers and its scatter.  The port solves a core in one call
-(factor reuse is ROADMAP A3), so the dense tail's factor and solve run
-together after the forward rounds; the arithmetic is the reference's.
+On the card a solve is two launches around the tail's (K11's) or the
+fronts' (K12b's): the factor's and the forward sweep's rounds with every
+fold inside (as K10 sums it, ``csrc/fold.cuh``) and the tail's gathers,
+then the tail's scatter and the back-substitution, each walking the
+plan's packed round table (:class:`..ops.core_elim.RoundTable`).  A core
+whose phases fit one block runs in one block, ``d`` and ``r`` in shared
+memory; a larger one as a cooperative grid (:func:`launch_grid`).  The port
+solves a core in one call (factor reuse is ROADMAP A3), so the dense tail's
+factor and solve run together after the forward rounds; the arithmetic is
+the reference's.
 
 :func:`core_elim` launches for CUDA tensors and runs :func:`core_elim_plain`
-for CPU tensors.
+for CPU tensors.  :func:`core_elim_table_plain` runs the kernels' order from
+the packed table (the folds' last levels summed by their readers, the
+forward sweep beside the factor): ``λ_core`` equal to :func:`core_elim_plain`'s
+to the bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 import typing
 
+import numpy as np
 import torch
 
+from ..ops import core_elim as plan_words
 from ..ops.core_elim import DeviceCorePlan
-from . import build, core_fronts, dense_core, fold
+from . import build, core_fronts, dense_core, fold, segsum
 
 __all__ = [
-    "CoreState", "core_apply_plain", "core_elim", "core_elim_plain", "core_factor_plain",
-    "cuda_launches", "init_values_plain",
+    "CoreState", "ONE_BLOCK_CORE", "ONE_BLOCK_WORK", "core_apply_plain", "core_elim",
+    "core_elim_plain", "core_elim_table_plain", "core_factor_plain", "cuda_launches",
+    "init_values_plain", "launch_grid",
 ]
+
+# One launch size or the other, by the plan's size (neither runs the plain version):
+ONE_BLOCK_CORE = 4096  # cores whose d and r (64 KB) one block keeps in shared memory
+ONE_BLOCK_WORK = 8192  # the widest phase one block of 1,024 threads takes
+STAGE_HEAD = 48 * 1024  # header bytes a block stages into shared memory (else read in place)
+GRID_THREADS = 512  # a cooperative block's threads, a block an SM (csrc/core_elim.cu)
 
 
 def init_values_plain(dcp: DeviceCorePlan, w_pairs: torch.Tensor) -> torch.Tensor:
@@ -132,9 +150,106 @@ def core_elim_plain(dcp: DeviceCorePlan, dc: torch.Tensor, w_pairs: torch.Tensor
     return core_apply_plain(dcp, core_factor_plain(dcp, dc, w_pairs), w_pairs, rc, n_refine)
 
 
-def _at(t: torch.Tensor, offset: int) -> int:
-    """Device address of float64 element ``offset`` of ``t``."""
-    return t.data_ptr() + 8 * offset
+def core_elim_table_plain(dcp: DeviceCorePlan, dc: torch.Tensor, w_pairs: torch.Tensor,
+                          rc: torch.Tensor, n_refine: int = dense_core.N_REFINE) -> torch.Tensor:
+    """:func:`core_elim_plain` in the kernels' order, every index from the
+    packed round table ``dcp.rt``: per round the terms (the slot values, the
+    pivots' inverses, the swept rhs and both channels of terms), the
+    diagonal and rhs updates, the fill contributions and their stream
+    segment; then the tail or the fronts, and the back-substitution."""
+    W = plan_words
+    words = dcp.rt.host.astype(np.int64)
+    dt, dev = torch.float64, dc.device
+
+    def T(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+    def folded(levels, vec):
+        for lv, _ in levels:
+            vec = segsum.segsum_plain(T(lv), vec)
+        return vec
+
+    n, mu = int(words[W.G_NCORE]), int(words[W.G_MU])
+
+    def init(pid):  # a slot's initial value from its pair id, 0 at -1
+        pid = T(pid)
+        return torch.where(pid >= 0, -w_pairs[pid.clamp(min=0)], torch.zeros((), dtype=dt, device=dev))
+
+    ustream = torch.zeros(mu + 1, dtype=dt, device=dev)
+    d, r = dc.clone(), rc.clone()
+    saved = []
+    for k in range(int(words[W.G_ROUNDS])):
+        rd = W._round_arrays(words, k)
+        S, K = rd["S"], rd["K"]
+        a = init(rd["init_pid"])
+        if rd["u_read"]:
+            a = a - folded(rd["u_read"], ustream[:mu])
+        e = T(rd["elim"])
+        inv, rv = 1.0 / d[e], r[e]
+        ai = a * inv.repeat_interleave(K)
+        sums = folded(rd["d_fold"], torch.stack([a * ai, ai * rv.repeat_interleave(K)], dim=1))
+        node = T(rd["d_node"])
+        hit = node >= 0
+        d[node[hit]] = d[node[hit]] - sums[hit, 0]
+        r[node[hit]] = r[node[hit]] - sums[hit, 1]
+        if rd["M2"]:
+            contrib = a[T(rd["u_src_i"])] * ai[T(rd["u_src_j"])]
+            ustream[rd["u_off"] : rd["u_off"] + rd["U2"]] = folded(rd["u_fold"], contrib)
+        saved.append((rd, a.reshape(S, K), inv, rv))
+    if dcp.fronts:
+        lam = core_fronts.core_fronts_plain(dcp, d, ustream, w_pairs, r)
+    else:
+        lam = torch.zeros(n + 1, dtype=dt, device=dev)
+        # the tail is the plan's (a copy of it without one keeps the table)
+        Bd, Pd = int(dcp.dense_nodes.shape[0]), int(dcp.dp_init.shape[0])
+        if Bd:
+            dn = T(words[int(words[W.G_DN]) : int(words[W.G_DN]) + Bd])
+            ov = init(words[int(words[W.G_DPINIT]) : int(words[W.G_DPINIT]) + Pd])
+            dp = W._fold_levels(words, W.G_DPFOLD)
+            if dp:
+                ov = ov - folded(dp, ustream[:mu])
+            lam[dn] = dense_core.dense_core_plain(dcp.dense_di, dcp.dense_dj, dcp.dense_pid, d[dn],
+                                                  r[dn], -ov, n_refine)
+    for rd, a, inv, rv in reversed(saved):
+        nbr = T(rd["nbr"]).reshape(a.shape)
+        acc = a[:, 0] * lam[nbr[:, 0]]
+        for j in range(1, a.shape[1]):
+            acc = acc + a[:, j] * lam[nbr[:, j]]
+        lam[T(rd["elim"])] = (rv - acc) * inv
+    return lam[:n]
+
+
+class _CoreArgs(ctypes.Structure):
+    """``CoreArgs`` of ``csrc/core_elim.cu``."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in ("head_words", "staged", "n_core", "tail", "zero_lam", "grid")]
+                + [(f, ctypes.c_void_p) for f in ("tab", "w_pairs", "dc", "rc", "d", "r", "work", "dd",
+                                                  "rr", "neg_ov", "x", "lam")])
+
+
+_GRID_BLOCKS: dict = {}
+
+
+def launch_grid(dcp: DeviceCorePlan, index: int | None = None) -> int:
+    """The launch size of ``dcp``'s rounds: 0 for one block (a core of at
+    most :data:`ONE_BLOCK_CORE` nodes whose widest phase is at most
+    :data:`ONE_BLOCK_WORK` entries), else the cooperative grid's blocks
+    (its widest phase over :data:`GRID_THREADS`, at most the blocks resident
+    on CUDA device ``index``; 1 without a device)."""
+    rt = dcp.rt
+    if dcp.n_core <= ONE_BLOCK_CORE and rt.max_work <= ONE_BLOCK_WORK:
+        return 0
+    want = max(1, -(-rt.max_work // GRID_THREADS))
+    if index is None:
+        return want
+    staged = int(4 * rt.head_words <= STAGE_HEAD)
+    key = (index, rt.head_words, staged)
+    if key not in _GRID_BLOCKS:
+        with torch.cuda.device(index):
+            _GRID_BLOCKS[key] = build.library().nxfx_core_grid_blocks(index, rt.head_words, staged)
+        if _GRID_BLOCKS[key] <= 0:
+            raise RuntimeError("core_elim: no cooperative grid fits the device")
+    return min(want, _GRID_BLOCKS[key])
 
 
 def core_elim(dcp: DeviceCorePlan, dc: torch.Tensor, w_pairs: torch.Tensor, rc: torch.Tensor,
@@ -145,104 +260,65 @@ def core_elim(dcp: DeviceCorePlan, dc: torch.Tensor, w_pairs: torch.Tensor, rc: 
     if dc.device.type == "cpu":
         return core_elim_plain(dcp, dc, w_pairs, rc, n_refine)
     build.require_cuda("core_elim", dc, w_pairs, rc)
-    build.require_cuda("core_elim", dcp.init_slot, dcp.dense_nodes, dtype=torch.int32)
+    build.require_cuda("core_elim", dcp.init_slot, dcp.dense_nodes, dcp.rt.table, dtype=torch.int32)
     n = dcp.n_core
     if tuple(dc.shape) != (n,) or tuple(rc.shape) != (n,):
         raise ValueError("core_elim: dc and rc must be (n_core,)")
+    if dcp.rt.table.device != dc.device:
+        raise ValueError("core_elim: the plan's table must be on dc's device")
     dev, dt = dc.device, torch.float64
+    Bd, Pd = int(dcp.dense_nodes.shape[0]), int(dcp.dp_init.shape[0])
+    if not (dcp.rounds or Bd or dcp.fronts):
+        return torch.zeros(n, dtype=dt, device=dev)
+    if not (dcp.rounds or Bd):  # the fronts alone: no round for K12a
+        ustream = torch.empty(dcp.mu_all, dtype=dt, device=dev)
+        return core_fronts.core_fronts(dcp, dc.clone(), ustream, w_pairs, rc.clone())[:n]
+    rt = dcp.rt
     lib = build.library()
     stream = build.stream_handle(dev)
-    P0 = dcp.n_pairs
-    d, r = dc.clone(), rc.clone()  # the rounds update both in place
-    a = torch.empty(dcp.a_len, dtype=dt, device=dev)
-    inv = torch.empty(dcp.s_len, dtype=dt, device=dev)
-    rv = torch.empty(dcp.s_len, dtype=dt, device=dev)
-    t = torch.empty(dcp.max_SK, dtype=dt, device=dev)
-    contrib = torch.empty(dcp.max_M2, dtype=dt, device=dev)
-    # the update stream; a fold's pad index mu_all reads zero
-    ustream = torch.empty(dcp.mu_all, dtype=dt, device=dev)
+    tail = bool(Bd) and not dcp.fronts
+    d = torch.empty(n, dtype=dt, device=dev)
+    r = torch.empty(n, dtype=dt, device=dev)
+    work = torch.empty(max(rt.work_len, 1), dtype=dt, device=dev)
+    dd, rr, neg_ov = (torch.empty(m, dtype=dt, device=dev) for m in (Bd, Bd, Pd))
+    lam = torch.empty(n + 1, dtype=dt, device=dev)
+    args = _CoreArgs(
+        head_words=rt.head_words, staged=int(4 * rt.head_words <= STAGE_HEAD), n_core=n,
+        tail=int(tail), zero_lam=int(not dcp.fronts), grid=launch_grid(dcp, dev.index),
+        tab=rt.table.data_ptr(), w_pairs=w_pairs.data_ptr(),
+        dc=dc.data_ptr(), rc=rc.data_ptr(), d=d.data_ptr(), r=r.data_ptr(), work=work.data_ptr(),
+        dd=dd.data_ptr(), rr=rr.data_ptr(), neg_ov=neg_ov.data_ptr(), lam=lam.data_ptr(),
+    )
     with torch.cuda.device(dev):
-        for rd in dcp.rounds:
-            S, K = rd.S, rd.K
-            ur = fold.fold_apply(ustream, rd.u_read) if rd.u_read else None
-            code = lib.nxfx_core_round_terms(
-                S, K, P0, rd.elim.data_ptr(), rd.init_idx.data_ptr(), dcp.init_slot.data_ptr(),
-                w_pairs.data_ptr(), None if ur is None else ur.data_ptr(), d.data_ptr(),
-                _at(a, rd.a_off), _at(inv, rd.s_off), t.data_ptr(), stream,
-            )
-            build.check(code, "core_elim")
-            sd = fold.fold_apply(t[: S * K], rd.d_fold)
-            code = lib.nxfx_core_round_update(
-                n, rd.U1, rd.M2, K, rd.d_inv.data_ptr(), sd.data_ptr(), d.data_ptr(),
-                rd.u_src_i.data_ptr(), rd.u_src_j.data_ptr(), _at(a, rd.a_off),
-                _at(inv, rd.s_off), contrib.data_ptr(), stream,
-            )
-            build.check(code, "core_elim")
-            if rd.M2:
-                fold.fold_apply(contrib[: rd.M2], rd.u_fold,
-                                out=ustream[rd.u_off : rd.u_off + rd.U2])
-        for rd in dcp.rounds:
-            S, K = rd.S, rd.K
-            code = lib.nxfx_core_apply_terms(
-                S, K, rd.elim.data_ptr(), _at(a, rd.a_off), _at(inv, rd.s_off), r.data_ptr(),
-                _at(rv, rd.s_off), t.data_ptr(), stream,
-            )
-            build.check(code, "core_elim")
-            sr = fold.fold_apply(t[: S * K], rd.d_fold)
-            code = lib.nxfx_core_apply_update(n, rd.U1, rd.d_inv.data_ptr(), sr.data_ptr(),
-                                              r.data_ptr(), stream)
-            build.check(code, "core_elim")
-
+        build.check(lib.nxfx_core_forward(ctypes.byref(args), stream), "core_elim")
         if dcp.fronts:
-            lam = core_fronts.core_fronts(dcp, d, ustream, w_pairs, r)
-        else:
-            lam = torch.zeros(n + 1, dtype=dt, device=dev)
-            Bd, Pd = int(dcp.dense_nodes.shape[0]), int(dcp.dp_init.shape[0])
-            if Bd:
-                dpf = fold.fold_apply(ustream, dcp.dp_fold) if dcp.dp_fold else None
-                dd = torch.empty(Bd, dtype=dt, device=dev)
-                rr = torch.empty(Bd, dtype=dt, device=dev)
-                neg_ov = torch.empty(Pd, dtype=dt, device=dev)
-                code = lib.nxfx_core_tail_gather(
-                    Bd, Pd, P0, dcp.dense_nodes.data_ptr(), d.data_ptr(), r.data_ptr(),
-                    dcp.dp_init.data_ptr(), dcp.init_slot.data_ptr(), w_pairs.data_ptr(),
-                    None if dpf is None else dpf.data_ptr(), dd.data_ptr(), rr.data_ptr(),
-                    neg_ov.data_ptr(), stream,
-                )
-                build.check(code, "core_elim")
-                x = dense_core.dense_core(dcp.dense_di, dcp.dense_dj, dcp.dense_pid, dd, rr, neg_ov,
-                                          n_refine)
-                code = lib.nxfx_core_scatter_nodes(Bd, dcp.dense_nodes.data_ptr(), x.data_ptr(),
-                                                   lam.data_ptr(), stream)
-                build.check(code, "core_elim")
-
-        for rd in reversed(dcp.rounds):
-            code = lib.nxfx_core_back(
-                rd.S, rd.K, rd.elim.data_ptr(), rd.nbr_node.data_ptr(), _at(a, rd.a_off),
-                _at(inv, rd.s_off), _at(rv, rd.s_off), lam.data_ptr(), stream,
-            )
-            build.check(code, "core_elim")
-    if dcp.rounds or dcp.dense_nodes.shape[0]:
-        core_elim.launches += 1
+            us = rt.word(plan_words.G_US)
+            lam = core_fronts.core_fronts(dcp, d, work[us : us + dcp.mu_all], w_pairs, r)
+            args.lam = lam.data_ptr()
+        elif tail:
+            x = dense_core.dense_core(dcp.dense_di, dcp.dense_dj, dcp.dense_pid, dd, rr, neg_ov,
+                                      n_refine)
+            args.x = x.data_ptr()
+        build.check(lib.nxfx_core_back(ctypes.byref(args), stream), "core_elim")
+    core_elim.launches += 1
+    core_elim.device += 2
     return lam[:n]
 
 
 core_elim.launches = 0
+core_elim.device = 0  # K12a's own kernels enqueued (two a call)
 
 
 def cuda_launches(dcp: DeviceCorePlan, n_refine: int = dense_core.N_REFINE) -> int:
-    """CUDA kernel launches of one :func:`core_elim` call: per round the
-    factor's folds and its two launches, the forward sweep's fold and its
-    two launches, and the back-substitution; then the fronts' (K12b) or the
-    dense tail's fold, gather, K11 and scatter."""
-    fl = core_fronts.fold_launches
-    n = 0
-    for rd in dcp.rounds:
-        n += fl(rd.u_read) + 2 + fl(rd.d_fold) + (fl(rd.u_fold) if rd.M2 else 0)
-        n += 2 + fl(rd.d_fold) + 1
+    """CUDA kernel launches of one :func:`core_elim` call: the rounds' two
+    (the factor and forward sweep with the tail's gathers; the back-
+    substitution with the tail's scatter; none for fronts without rounds),
+    and the fronts' (K12b) or the dense tail's K11 between them."""
+    Bd = int(dcp.dense_nodes.shape[0])
+    if not (dcp.rounds or Bd or dcp.fronts):
+        return 0
     if dcp.fronts:
-        n += core_fronts.cuda_launches(dcp)
-    elif dcp.dense_nodes.shape[0]:
-        Bd, Pd = int(dcp.dense_nodes.shape[0]), int(dcp.dp_init.shape[0])
-        n += fl(dcp.dp_fold) + 2 + dense_core.cuda_launches(Bd, Pd, n_refine)
-    return n
+        return 2 * bool(dcp.rounds) + core_fronts.cuda_launches(dcp)
+    if Bd:
+        return 2 + dense_core.cuda_launches(Bd, int(dcp.dp_init.shape[0]), n_refine)
+    return 2

@@ -1,207 +1,461 @@
 // K12a: the min-degree rounds of the sparse core elimination.
 //
 // Replaces networks_fenicsx_tpu/ops/core_elim.py:_core_factor (its rounds)
-// and _core_apply (the forward rounds and the back-substitution).  A round
-// eliminates an independent set elim (S,) whose nodes have at most K
-// neighbours (nbr_node (S, K), padded with n_core); the host planner gives
-// each slot read an index into the initial values and a K10 fold of the
-// update stream.  With init(i) = -w_pairs[init_slot[i]] for i < P0, else 0:
-//
-// factor, per round (the folds between the launches are K10's):
-//   terms:   a[s,k] = init(init_idx[s,k]) - ur[s,k]      (ur: the u_read fold, or 0)
-//            inv[s] = 1 / d[elim[s]],  t[s,k] = a[s,k] (a[s,k] inv[s])
-//   update:  d[i] -= sd[d_inv[i]] where d_inv[i] < U1      (sd: t folded by d_fold)
+// and _core_apply (the forward rounds and the back-substitution), with the
+// K10 folds (_fold_apply, :394) inside.  A round eliminates an independent
+// set elim (S,) whose nodes have at most K neighbours (nbr_node (S, K),
+// padded with n_core); the host planner gives each slot read an index into
+// the initial values and a fold of the update stream.  With the table's
+// pair ids (the plan's init_slot[init_idx], -1 for a fill slot) and
+// init(p) = -w_pairs[p] (0 at -1), per round:
+//   terms:   a[s,k] = init(pid[s,k]) - fold(ustream, u_read)[s,k] (no fold: no term)
+//            inv[s] = 1 / d[elim[s]],  rv[s] = r[elim[s]]
+//            t[s,k] = (a (a inv),  (a inv) rv)          (two channels)
+//   update:  (d, r)[i] -= fold(t, d_fold)[row], row = d_inv[i] (each row's node d_node)
+//            ustream[u_off ..] = fold(contrib, u_fold),
 //            contrib[m] = a[u_src_i[m]] (a[u_src_j[m]] inv[u_src_j[m] / K])
-//            (folded by u_fold straight into the stream at u_off)
-// apply:
-//   forward: rv[s] = r[elim[s]],  t[s,k] = (a[s,k] inv[s]) rv[s];  r[i] -= sr[d_inv[i]]
-//   back, rounds reversed: lam[elim[s]] = (rv[s] - sum_k a[s,k] lam[nbr_node[s,k]]) inv[s]
-//            (lam[n_core] = 0 backs the pads; the sum runs over k in order)
-// dense tail: gather d and r at the dense nodes and the negated pair values
-// -(init(dp_init[p]) - dpf[p]) for K11, and scatter K11's solution back
-// (tiled_cholesky.cuh's scatter).
+// then the dense tail's gathers: d and r at the dense nodes and the negated
+// pair values -(init(dp_pid[p]) - fold(ustream, dp_fold)[p]) for K11 (or
+// the supernodal fronts, K12b, on d, r and the stream), and, rounds
+// reversed, lam[elim[s]] = (rv[s] - sum_k a[s,k] lam[nbr_node[s,k]]) inv[s]
+// (lam[n_core] = 0 backs the pads; the sum runs over k in order).
 //
-// The products are those of the reference, in its order; every rounding is
-// the plain version's.  Bound: device-memory latency of the gathers (a
-// round's index tables and values are a few hundred kB at most), and one
-// launch each.  One thread per entry, no shared memory, no atomics: the
-// elimination set is independent and d_inv is an inverse map, so each
-// output has one writer.
+// Two launches a solve, walking the packed round table (ops/core_elim.py
+// RoundTable, checked when the plan is uploaded): the forward launch runs
+// each round's factor and forward sweep together (round k's forward needs
+// only round k's a, inv and the swept r) and ends with the tail's gathers;
+// the back launch scatters the tail's solution (or takes the fronts' lam)
+// and back-substitutes.  A phase is a loop over its entries with a barrier
+// after it: two a round (the terms with the slots' stream reads folded in;
+// the update, the diagonal fold's rows and the stream segment's rows, each
+// fill product made as the update fold reads it; one block makes the
+// products in the update and folds them in a third phase, its gathers
+// shorter where each thread takes several rows), one a round back; a
+// fold's earlier levels (segments wider than 64) are a phase each; a fold's
+// last level is summed by its reader, as K10 sums it (fold.cuh), so every
+// fold value is the plain version's to the bit.  A row of 8 terms or more
+// (a late round's slot reads, its back-substitution dot products: up to 63
+// on the 128^2 lattice's fronts) is shared by a group of lanes that load
+// its terms together and add them in order, where a grid has the threads
+// to spare (one block's threads are few for its rows: a lane a row).
+// Two sizes, both hand-written: a core whose phases fit one block runs as
+// one block of 1024 threads with d and r in shared memory and
+// __syncthreads() between phases; a larger one as a cooperative grid, up
+// to its resident blocks, with a grid barrier between phases.
+//
+// The products are those of the reference, in its order (-fmad=false), so
+// every rounding is the plain version's.  Bound: the phases' dependent
+// latency (a barrier, a few gathers and a division each); the bytes (a
+// round's tables and values, a few hundred kB at most) take microseconds.
+// The elimination set is independent and d_node is one-to-one, so each
+// output has one writer; what a launch writes it reads after a barrier, so
+// nothing here is __restrict__.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "tiled_cholesky.cuh"
+#include "fold.cuh"
+
+namespace cg = cooperative_groups;
+
+// The launch's arguments (kernels.core_elim's _CoreArgs, a ctypes mirror).
+struct CoreArgs {
+    int head_words, staged, n_core, tail, zero_lam, grid;
+    const int* tab;
+    const double* w_pairs;
+    const double* dc;
+    const double* rc;
+    double* d;
+    double* r;
+    double* work;
+    double* dd;
+    double* rr;
+    double* neg_ov;
+    const double* x;
+    double* lam;
+};
 
 namespace {
 
-__device__ __forceinline__ double init_value(int i, int P0, const int* init_slot, const double* w_pairs)
-{
-    return i < P0 ? -w_pairs[init_slot[i]] : 0.0;
-}
+// the table's layout (ops/core_elim.py)
+constexpr int FOLD_MAX = 8;
+constexpr int FOLD_WORDS = 1 + 4 * FOLD_MAX;
+enum { G_NCORE, G_P0, G_ROUNDS, G_BD, G_PD, G_DN, G_DPINIT, G_MU, G_A, G_INV, G_RV, G_US, G_T, G_C,
+       G_WORK, G_MAXW, G_DPFOLD };
+constexpr int HEAD_WORDS = G_DPFOLD + FOLD_WORDS;
+enum { R_S, R_K, R_ELIM, R_INIT, R_NBR, R_AOFF, R_SOFF, R_UOFF, R_U1, R_M2, R_U2, R_DNODE, R_USI, R_USJ,
+       R_UREAD };
+constexpr int R_DFOLD = R_UREAD + FOLD_WORDS;
+constexpr int R_UFOLD = R_DFOLD + FOLD_WORDS;
+constexpr int ROUND_WORDS = R_UFOLD + FOLD_WORDS;
 
-__global__ void round_terms_kernel(
-    int S, int K, int P0,
-    const int* __restrict__ elim, const int* __restrict__ init_idx,
-    const int* __restrict__ init_slot, const double* __restrict__ w_pairs,
-    const double* __restrict__ ur, const double* __restrict__ d,
-    double* __restrict__ a, double* __restrict__ inv, double* __restrict__ t)
-{
-    const int e = blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= S * K) return;
-    const int s = e / K;
-    double v = init_value(init_idx[e], P0, init_slot, w_pairs);
-    if (ur != nullptr) v = v - ur[e];
-    const double is = 1.0 / d[elim[s]];
-    a[e] = v;
-    t[e] = v * (v * is);
-    if (e - s * K == 0) inv[s] = is;
-}
+constexpr int ONE_BLOCK = 1024;  // the one-block launch's threads
+constexpr int GRID_THREADS = 512;  // a cooperative block's (a block an SM)
 
-__global__ void round_update_kernel(
-    int n_core, int U1, int M2, int K,
-    const int* __restrict__ d_inv, const double* __restrict__ sd, double* __restrict__ d,
-    const int* __restrict__ u_src_i, const int* __restrict__ u_src_j,
-    const double* __restrict__ a, const double* __restrict__ inv, double* __restrict__ contrib)
-{
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t < n_core) {
-        const int j = d_inv[t];
-        if (j < U1) d[t] = d[t] - sd[j];
+// the launch's threads: one block, or the whole grid
+template <bool GRID>
+struct Team {
+    int tid, nth;
+    __device__ Team()
+    {
+        if constexpr (GRID) {
+            tid = blockIdx.x * blockDim.x + threadIdx.x;
+            nth = gridDim.x * blockDim.x;
+        } else {
+            tid = threadIdx.x;
+            nth = blockDim.x;
+        }
     }
-    if (t < M2) {
-        const int i = u_src_i[t], j = u_src_j[t];
-        contrib[t] = a[i] * (a[j] * inv[j / K]);
+    __device__ void sync() const
+    {
+        if constexpr (GRID)
+            cg::this_grid().sync();
+        else
+            __syncthreads();
+    }
+    // the lanes each of `rows` rows of K terms gets: one in one block, whose
+    // threads are few for its rows (the group code is then compiled out)
+    __device__ int group(int K, long long rows) const
+    {
+        if constexpr (GRID)
+            return fold::group_for(K, rows, nth);
+        else
+            return 1;
+    }
+};
+
+// a slot's initial value from its pair id (-1: a fill slot, 0)
+__device__ __forceinline__ double init_value(int pid, const double* w_pairs)
+{
+    return pid >= 0 ? -w_pairs[pid] : 0.0;
+}
+
+// a fold's level-0 source: n rows of C channels
+struct Src {
+    const double* v;
+    int n, C;
+};
+
+// row `row`, channel c, of level l of the fold whose descriptor is f,
+// summed by one lane or a group of G lanes (fold.cuh)
+__device__ __forceinline__ double fold_at(const int* tab, const int* f, int l, int row, int c, Src src,
+                                          const double* work, int G)
+{
+    const int* lv = f + 1 + 4 * l;
+    const int* idx = tab + lv[0] + static_cast<size_t>(row) * lv[2];
+    const double* v = l == 0 ? src.v : work + lv[-1];  // level l - 1's output,
+    const int n = l == 0 ? src.n : lv[-3];              // and its rows
+    if (G == 1) return fold::row_sum(idx, lv[2], v, n, src.C, c);
+    return fold::group_row_sum(idx, lv[2], n, G, [&](int i) { return v[static_cast<size_t>(i) * src.C + c]; });
+}
+
+// A round's fill products a[u_src_i] (a[u_src_j] inv[u_src_j / K]), made as a
+// fold reads them.
+struct Products {
+    const int* ui;
+    const int* uj;
+    const double* a;
+    const double* inv;
+    int K, M2;
+
+    __device__ __forceinline__ double operator()(int m) const
+    {
+        const int j = uj[m];
+        return a[ui[m]] * (a[j] * inv[j / K]);
+    }
+};
+
+// the same, level 0 reading the products
+__device__ __forceinline__ double fold_at(const int* tab, const int* f, int l, int row, const Products& p,
+                                          const double* work, int G)
+{
+    if (l > 0) return fold_at(tab, f, l, row, 0, Src{nullptr, 0, 1}, work, G);
+    const int* lv = f + 1;
+    return fold::group_row_sum(tab + lv[0] + static_cast<size_t>(row) * lv[2], lv[2], p.M2, G, p);
+}
+
+// the lanes a reader of `rows` rows of the fold's last level gives each row
+template <bool GRID>
+__device__ __forceinline__ int last_group(const Team<GRID>& tm, const int* f, int rows)
+{
+    return f[0] > 0 ? tm.group(f[1 + 4 * (f[0] - 1) + 2], rows) : 1;
+}
+
+// the fold's levels but its last, a phase each, into the work buffer;
+// at(l, row, c, G) sums one of their rows
+template <bool GRID, typename At>
+__device__ void fold_front(const Team<GRID>& tm, const int* f, int C, double* work, At at)
+{
+    for (int l = 0; l + 1 < f[0]; ++l) {
+        const int* lv = f + 1 + 4 * l;
+        const int outs = lv[1] * C;
+        const int G = tm.group(lv[2], outs);
+        double* out = work + lv[3];
+        for (int t = tm.tid; t < outs * G; t += tm.nth) {
+            const int o = t / G;
+            const double v = at(l, o / C, o % C, G);
+            if (t % G == 0) out[o] = v;
+        }
+        tm.sync();
     }
 }
 
-__global__ void apply_terms_kernel(
-    int S, int K, const int* __restrict__ elim, const double* __restrict__ a,
-    const double* __restrict__ inv, const double* __restrict__ r,
-    double* __restrict__ rv, double* __restrict__ t)
+// the header and the round rows: staged into shared memory, or read in place
+__device__ __forceinline__ const int* stage_head(const CoreArgs& A, unsigned char* smem)
 {
-    const int e = blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= S * K) return;
-    const int s = e / K;
-    const double rs = r[elim[s]];
-    t[e] = (a[e] * inv[s]) * rs;
-    if (e - s * K == 0) rv[s] = rs;
+    if (!A.staged) return A.tab;
+    int* h = reinterpret_cast<int*>(smem);
+    for (int i = threadIdx.x; i < A.head_words; i += blockDim.x) h[i] = A.tab[i];
+    __syncthreads();
+    return h;
 }
 
-__global__ void apply_update_kernel(
-    int n_core, int U1, const int* __restrict__ d_inv, const double* __restrict__ sr,
-    double* __restrict__ r)
+__device__ __forceinline__ double* after_head(const CoreArgs& A, unsigned char* smem)
 {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= n_core) return;
-    const int j = d_inv[t];
-    if (j < U1) r[t] = r[t] - sr[j];
+    return reinterpret_cast<double*>(smem) + (A.staged ? (A.head_words + 1) / 2 : 0);
 }
 
-// lam is read at the neighbours and written at elim: disjoint within a
-// round (elim is independent), but no __restrict__ on the one buffer
-__global__ void back_kernel(
-    int S, int K, const int* __restrict__ elim, const int* __restrict__ nbr,
-    const double* __restrict__ a, const double* __restrict__ inv, const double* __restrict__ rv,
-    double* lam)
+template <bool GRID>
+__global__ void __launch_bounds__(ONE_BLOCK) core_forward_kernel(CoreArgs A)
 {
-    const int s = blockIdx.x * blockDim.x + threadIdx.x;
-    if (s >= S) return;
-    const int* nb = nbr + static_cast<size_t>(s) * K;
-    const double* as = a + static_cast<size_t>(s) * K;
-    double acc = as[0] * lam[nb[0]];
-    for (int k = 1; k < K; ++k) acc = acc + as[k] * lam[nb[k]];
-    lam[elim[s]] = (rv[s] - acc) * inv[s];
-}
-
-__global__ void tail_gather_kernel(
-    int Bd, int Pd, int P0, const int* __restrict__ dn, const double* __restrict__ d,
-    const double* __restrict__ r, const int* __restrict__ dp_init,
-    const int* __restrict__ init_slot, const double* __restrict__ w_pairs,
-    const double* __restrict__ dpf, double* __restrict__ dd, double* __restrict__ rr,
-    double* __restrict__ ov)
-{
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t < Bd) {
-        dd[t] = d[dn[t]];
-        rr[t] = r[dn[t]];
+    extern __shared__ __align__(16) unsigned char smem[];
+    const Team<GRID> tm;
+    const int* H = stage_head(A, smem);
+    const int n = H[G_NCORE];
+    double* d = GRID ? A.d : after_head(A, smem);
+    double* r = GRID ? A.r : d + n;
+    double* work = A.work;
+    const Src us{work + H[G_US], H[G_MU], 1};
+    auto us_at = [&](const int* f) {
+        return [&, f](int l, int row, int c, int G) { return fold_at(A.tab, f, l, row, c, us, work, G); };
+    };
+    for (int i = tm.tid; i < n; i += tm.nth) {
+        d[i] = A.dc[i];
+        r[i] = A.rc[i];
     }
-    if (t < Pd) {
-        double v = init_value(dp_init[t], P0, init_slot, w_pairs);
-        if (dpf != nullptr) v = v - dpf[t];
-        ov[t] = -v;
+    tm.sync();
+    for (int k = 0; k < H[G_ROUNDS]; ++k) {
+        const int* R = H + HEAD_WORDS + k * ROUND_WORDS;
+        const int K = R[R_K], SK = R[R_S] * K;
+        const int* elim = A.tab + R[R_ELIM];
+        const int* init_pid = A.tab + R[R_INIT];
+        double* a = work + H[G_A] + R[R_AOFF];
+        double* inv = work + H[G_INV] + R[R_SOFF];
+        double* rv = work + H[G_RV] + R[R_SOFF];
+        double* t = work + H[G_T];
+
+        // terms: the slot values (their stream reads folded in), pivots, swept rhs
+        const int* fu = R + R_UREAD;
+        fold_front(tm, fu, 1, work, us_at(fu));
+        const int Gu = last_group(tm, fu, SK);
+        for (int q = tm.tid; q < SK * Gu; q += tm.nth) {
+            const int e = q / Gu, s = e / K;
+            double v = init_value(init_pid[e], A.w_pairs);
+            if (fu[0] > 0) v = v - fold_at(A.tab, fu, fu[0] - 1, e, 0, us, work, Gu);
+            if (q % Gu) continue;
+            const int el = elim[s];
+            const double is = 1.0 / d[el];
+            const double rs = r[el];
+            const double ai = v * is;
+            a[e] = v;
+            t[2 * e] = v * ai;
+            t[2 * e + 1] = ai * rs;
+            if (e == s * K) {
+                inv[s] = is;
+                rv[s] = rs;
+            }
+        }
+        tm.sync();
+
+        // update: d and r through the diagonal fold, and the round's stream
+        // segment through the update fold of the fill products, each product
+        // made as the fold reads it
+        const int* fd = R + R_DFOLD;
+        const int* ff = R + R_UFOLD;
+        const Src ts{t, SK, 2};
+        const int M2 = R[R_M2];
+        const Products products{A.tab + R[R_USI], A.tab + R[R_USJ], a, inv, K, M2};
+        // a grid makes each product as the fold reads it (a barrier less);
+        // one block, whose threads take several rows each, keeps the gathers
+        // short: the products first, folded in a phase of their own
+        double* contrib = work + H[G_C];
+        const Src cs{contrib, M2, 1};
+        auto stream_at = [&](int l, int row, int, int G) {
+            return GRID ? fold_at(A.tab, ff, l, row, products, work, G)
+                        : fold_at(A.tab, ff, l, row, 0, cs, work, G);
+        };
+        fold_front(tm, fd, 2, work, [&](int l, int row, int c, int G) {
+            return fold_at(A.tab, fd, l, row, c, ts, work, G);
+        });
+        if (!GRID) {
+            for (int m = tm.tid; m < M2; m += tm.nth) contrib[m] = products(m);
+        }
+        if (GRID) fold_front(tm, ff, 1, work, stream_at);
+        const int U1 = R[R_U1], U2 = M2 > 0 ? R[R_U2] : 0;
+        const int* d_node = A.tab + R[R_DNODE];
+        const int Gd = last_group(tm, fd, U1);
+        for (int q = tm.tid; q < U1 * Gd; q += tm.nth) {
+            const int row = q / Gd, node = d_node[row];
+            if (node < 0) continue;  // group-uniform
+            const double sd = fold_at(A.tab, fd, fd[0] - 1, row, 0, ts, work, Gd);
+            const double sr = fold_at(A.tab, fd, fd[0] - 1, row, 1, ts, work, Gd);
+            if (q % Gd == 0) {
+                d[node] = d[node] - sd;
+                r[node] = r[node] - sr;
+            }
+        }
+        if (!GRID && U2 > 0) {
+            tm.sync();
+            fold_front(tm, ff, 1, work, stream_at);
+        }
+        double* seg = work + H[G_US] + R[R_UOFF];
+        const int Gf = last_group(tm, ff, U2);
+        for (int q = tm.tid; q < U2 * Gf; q += tm.nth) {
+            const double v = stream_at(ff[0] - 1, q / Gf, 0, Gf);
+            if (q % Gf == 0) seg[q / Gf] = v;
+        }
+        tm.sync();
+    }
+    if (A.tail) {
+        const int Bd = H[G_BD], Pd = H[G_PD];
+        const int* fp = H + G_DPFOLD;
+        fold_front(tm, fp, 1, work, us_at(fp));
+        const int* dn = A.tab + H[G_DN];
+        const int* dp_pid = A.tab + H[G_DPINIT];
+        for (int q = tm.tid; q < Bd; q += tm.nth) {
+            A.dd[q] = d[dn[q]];
+            A.rr[q] = r[dn[q]];
+        }
+        const int Gp = last_group(tm, fp, Pd);
+        for (int q = tm.tid; q < Pd * Gp; q += tm.nth) {
+            double v = init_value(dp_pid[q / Gp], A.w_pairs);
+            if (fp[0] > 0) v = v - fold_at(A.tab, fp, fp[0] - 1, q / Gp, 0, us, work, Gp);
+            if (q % Gp == 0) A.neg_ov[q / Gp] = -v;
+        }
+    }
+    if (!GRID) {
+        for (int i = tm.tid; i < n; i += tm.nth) {
+            A.d[i] = d[i];
+            A.r[i] = r[i];
+        }
     }
 }
 
-inline int blocks(long long n) { return static_cast<int>((n + 255) / 256); }
+template <bool GRID>
+__global__ void __launch_bounds__(ONE_BLOCK) core_back_kernel(CoreArgs A)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    const Team<GRID> tm;
+    const int* H = stage_head(A, smem);
+    const int n = H[G_NCORE];
+    double* lam = GRID ? A.lam : after_head(A, smem);
+    const double* work = A.work;
+    if (A.zero_lam) {  // the dense tail's solution (none: zeros) into a zero lam
+        for (int i = tm.tid; i <= n; i += tm.nth) lam[i] = 0.0;
+        tm.sync();
+        if (A.tail) {
+            const int* dn = A.tab + H[G_DN];
+            for (int q = tm.tid; q < H[G_BD]; q += tm.nth) lam[dn[q]] = A.x[q];
+        }
+    } else if (!GRID) {  // the fronts' lam
+        for (int i = tm.tid; i <= n; i += tm.nth) lam[i] = A.lam[i];
+    }
+    tm.sync();
+    for (int k = H[G_ROUNDS] - 1; k >= 0; --k) {
+        const int* R = H + HEAD_WORDS + k * ROUND_WORDS;
+        const int S = R[R_S], K = R[R_K];
+        const int* elim = A.tab + R[R_ELIM];
+        const int* nbr = A.tab + R[R_NBR];
+        const double* a = work + H[G_A] + R[R_AOFF];
+        const double* inv = work + H[G_INV] + R[R_SOFF];
+        const double* rv = work + H[G_RV] + R[R_SOFF];
+        const int G = tm.group(K, S);
+        for (int q = tm.tid; q < S * G; q += tm.nth) {
+            const int s = q / G;
+            const int* nb = nbr + static_cast<size_t>(s) * K;
+            const double* as = a + static_cast<size_t>(s) * K;
+            double acc;
+            if (G == 1) {
+                acc = as[0] * lam[nb[0]];
+                for (int j = 1; j < K; ++j) acc = acc + as[j] * lam[nb[j]];
+            } else {
+                acc = fold::group_sum(K, G, [&](int j) { return as[j] * lam[nb[j]]; });
+            }
+            if (q % G == 0) lam[elim[s]] = (rv[s] - acc) * inv[s];
+        }
+        tm.sync();
+    }
+    if (!GRID) {
+        for (int i = tm.tid; i <= n; i += tm.nth) A.lam[i] = lam[i];
+    }
+}
+
+size_t smem_bytes(const CoreArgs& A, size_t doubles)
+{
+    return (A.staged ? 4 * static_cast<size_t>((A.head_words + 1) / 2 * 2) : 0) + 8 * doubles;
+}
+
+// one block, or a cooperative grid of A.grid blocks (all resident)
+template <typename Kernel>
+int launch(Kernel kernel, const CoreArgs& A, size_t smem, cudaStream_t stream)
+{
+    cudaError_t err;
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem))) != cudaSuccess)
+        return static_cast<int>(err);
+    CoreArgs args = A;
+    if (A.grid <= 0) {
+        kernel<<<1, ONE_BLOCK, smem, stream>>>(args);
+        return static_cast<int>(cudaGetLastError());
+    }
+    void* params[] = {&args};
+    return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(A.grid),
+                                                        dim3(GRID_THREADS), params, smem, stream));
+}
 
 }  // namespace
 
-extern "C" int nxfx_core_round_terms(
-    int S, int K, int P0, const int* elim, const int* init_idx, const int* init_slot,
-    const double* w_pairs, const double* ur, const double* d, double* a, double* inv, double* t,
-    cudaStream_t stream)
+// The blocks of a cooperative launch that fit on the device at once with
+// `staged` header words in shared memory (the smaller of the two kernels').
+extern "C" int nxfx_core_grid_blocks(int device, int head_words, int staged)
 {
-    if (S * K <= 0) return 0;
-    round_terms_kernel<<<blocks(static_cast<long long>(S) * K), 256, 0, stream>>>(
-        S, K, P0, elim, init_idx, init_slot, w_pairs, ur, d, a, inv, t);
-    return static_cast<int>(cudaGetLastError());
+    int sms = 0, fwd = 0, back = 0;
+    CoreArgs A = {};
+    A.head_words = head_words;
+    A.staged = staged;
+    const size_t smem = smem_bytes(A, 0);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return -1;
+    if (smem > 48 * 1024) {
+        if (cudaFuncSetAttribute(core_forward_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem)) != cudaSuccess ||
+            cudaFuncSetAttribute(core_back_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem)) != cudaSuccess)
+            return -1;
+    }
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fwd, core_forward_kernel<true>, GRID_THREADS, smem) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&back, core_back_kernel<true>, GRID_THREADS, smem) !=
+            cudaSuccess)
+        return -1;
+    return (fwd < back ? fwd : back) > 0 ? sms : 0;  // a block an SM: the barrier's arrivals stay few
 }
 
-extern "C" int nxfx_core_round_update(
-    int n_core, int U1, int M2, int K, const int* d_inv, const double* sd, double* d,
-    const int* u_src_i, const int* u_src_j, const double* a, const double* inv, double* contrib,
-    cudaStream_t stream)
+// The factor and forward rounds with the tail's gathers (A.tail): d, r (the
+// swept rhs), the work buffer's saved streams and update stream, and dd, rr,
+// neg_ov for K11.  One block (A.grid 0) or a cooperative grid.
+extern "C" int nxfx_core_forward(const CoreArgs* A, cudaStream_t stream)
 {
-    const int n = n_core > M2 ? n_core : M2;
-    if (n <= 0) return 0;
-    round_update_kernel<<<blocks(n), 256, 0, stream>>>(
-        n_core, U1, M2, K, d_inv, sd, d, u_src_i, u_src_j, a, inv, contrib);
-    return static_cast<int>(cudaGetLastError());
+    if (A->grid > 0)
+        return launch(core_forward_kernel<true>, *A, smem_bytes(*A, 0), stream);
+    return launch(core_forward_kernel<false>, *A, smem_bytes(*A, 2 * static_cast<size_t>(A->n_core)), stream);
 }
 
-extern "C" int nxfx_core_apply_terms(
-    int S, int K, const int* elim, const double* a, const double* inv, const double* r,
-    double* rv, double* t, cudaStream_t stream)
+// The back-substitution into lam (n_core + 1): from the tail's solution x
+// scattered into zeros (A.zero_lam), or from the fronts' lam.
+extern "C" int nxfx_core_back(const CoreArgs* A, cudaStream_t stream)
 {
-    if (S * K <= 0) return 0;
-    apply_terms_kernel<<<blocks(static_cast<long long>(S) * K), 256, 0, stream>>>(
-        S, K, elim, a, inv, r, rv, t);
-    return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int nxfx_core_apply_update(
-    int n_core, int U1, const int* d_inv, const double* sr, double* r, cudaStream_t stream)
-{
-    if (n_core <= 0) return 0;
-    apply_update_kernel<<<blocks(n_core), 256, 0, stream>>>(n_core, U1, d_inv, sr, r);
-    return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int nxfx_core_back(
-    int S, int K, const int* elim, const int* nbr, const double* a, const double* inv,
-    const double* rv, double* lam, cudaStream_t stream)
-{
-    if (S <= 0) return 0;
-    back_kernel<<<blocks(S), 256, 0, stream>>>(S, K, elim, nbr, a, inv, rv, lam);
-    return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int nxfx_core_tail_gather(
-    int Bd, int Pd, int P0, const int* dn, const double* d, const double* r, const int* dp_init,
-    const int* init_slot, const double* w_pairs, const double* dpf, double* dd, double* rr,
-    double* ov, cudaStream_t stream)
-{
-    const int n = Bd > Pd ? Bd : Pd;
-    if (n <= 0) return 0;
-    tail_gather_kernel<<<blocks(n), 256, 0, stream>>>(
-        Bd, Pd, P0, dn, d, r, dp_init, init_slot, w_pairs, dpf, dd, rr, ov);
-    return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int nxfx_core_scatter_nodes(
-    int n, const int* nodes, const double* x, double* lam, cudaStream_t stream)
-{
-    if (n <= 0) return 0;
-    tc_scatter_kernel<<<blocks(n), 256, 0, stream>>>(n, nodes, x, lam);
-    return static_cast<int>(cudaGetLastError());
+    if (A->grid > 0)
+        return launch(core_back_kernel<true>, *A, smem_bytes(*A, 0), stream);
+    return launch(core_back_kernel<false>, *A, smem_bytes(*A, static_cast<size_t>(A->n_core) + 1), stream);
 }

@@ -23,7 +23,8 @@
 //   entries (each lane a level-0 chunk sum) and added across the lanes in
 //   ascending order; higher levels walk their entries in ascending order.
 // Every intermediate sum is the value the level-by-level plain version
-// rounds to, added in its order, so the fold equals it bit for bit.
+// rounds to, added in its order, so the fold equals it bit for bit (the
+// row sum is fold.cuh's, which K12a's rounds share).
 // Bound: the latency of a few dependent gathers; the launch count (one a
 // fold instead of one a level) and the host's per-call work are what move
 // the launch-bound chains K10 runs in.
@@ -40,6 +41,8 @@
 // bit, so neither the zero fill nor a launch a group is needed.
 
 #include <cuda_runtime.h>
+
+#include "fold.cuh"
 
 constexpr int SUM_MAX_GROUPS = 4;
 
@@ -69,14 +72,7 @@ __global__ void segsum_kernel(
     if (t >= static_cast<long long>(S) * C) return;
     const int s = static_cast<int>(t / C);
     const int c = static_cast<int>(t % C);
-    const int* row = idx + static_cast<size_t>(s) * K;
-    double acc = 0.0;
-    for (int j = 0; j < K; ++j) {
-        const int i = row[j];
-        const double v = (i >= 0 && i < n) ? vals[static_cast<size_t>(i) * C + c] : 0.0;
-        acc = j == 0 ? v : acc + v;
-    }
-    out[t] = acc;
+    out[t] = fold::row_sum(idx + static_cast<size_t>(s) * K, K, vals, n, C, c);
 }
 
 constexpr int FOLD_MAX_LEVELS = 8;
@@ -91,15 +87,7 @@ struct FoldLevels {
 // level 0's row r, channel c: its K_0 gathers of vals (n rows) in ascending order
 __device__ double fold_level0(const FoldLevels& F, int n, int C, const double* vals, int r, int c)
 {
-    const int K = F.K[0];
-    const int* row = F.idx[0] + static_cast<size_t>(r) * K;
-    double acc = 0.0;
-    for (int j = 0; j < K; ++j) {
-        const int i = row[j];
-        const double v = (i >= 0 && i < n) ? vals[static_cast<size_t>(i) * C + c] : 0.0;
-        acc = j == 0 ? v : acc + v;
-    }
-    return acc;
+    return fold::row_sum(F.idx[0] + static_cast<size_t>(r) * F.K[0], F.K[0], vals, n, C, c);
 }
 
 // level l's row r (l >= 1), warp-uniform: every lane returns the sum
@@ -161,14 +149,7 @@ struct SumLaunch {
 __device__ __forceinline__ double row_sum(const int* idx, int K, int s, const double* vals, int n, int C,
                                           int c)
 {
-    const int* row = idx + static_cast<size_t>(s) * K;
-    double acc = 0.0;
-    for (int j = 0; j < K; ++j) {
-        const int i = row[j];
-        const double v = (i >= 0 && i < n) ? vals[static_cast<size_t>(i) * C + c] : 0.0;
-        acc = j == 0 ? v : acc + v;
-    }
-    return acc;
+    return fold::row_sum(idx + static_cast<size_t>(s) * K, K, vals, n, C, c);
 }
 
 __global__ void __launch_bounds__(SUM_THREADS) segsum_plan_kernel(SumLaunch L)

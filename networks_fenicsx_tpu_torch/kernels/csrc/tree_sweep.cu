@@ -7,192 +7,394 @@
 // and out-edges o_j:
 //   assemble:  d_b = w_i + sum_j w_oj,   r_b = (const_i + Ftot_i) - sum_j const_oj
 //   |r|^2 over the unfolded r (the convergence gate's rhs norm)
-//   fold, bottom-up, level by level: for each child c of b in slot order
+//   fold, bottom-up: for each child c of b in slot order
 //              d_b += sum_c -wn_c (wn_c / d_c),   r_b += sum_c (wn_c / d_c) r_c
 //   back-sub, top-down:  lam_root = r / d,  lam_c = (r_c + wn_c lam_parent) / d_c
 //
-// The sharded blocked solve runs the same kernels in two entries: the
-// forward (assemble, |r|^2 without the root, folds down to level 0), and
-// the back-substitution of levels 1.. from a level 0 it computes itself.
+// Subtree-blocked: the host plan (blocked.SweepPlan, checked when it is
+// made) cuts the forest at a level c.  The top, levels 0 .. c-1, is one
+// block's work; the subtrees rooted at level c are shared out to the
+// blocks of a grid, `group` subtrees a block.  The blocked layout puts
+// child s of position p of level l at position s m_l + p of level l + 1,
+// so a subtree block's nodes at level l are R_l = m_l / m_c runs of g_b
+// consecutive positions at stride m_c; the level table row
+// (offset, m, children, R, P) gives them, P the runs above l in a subtree.
+// A full sweep is three launches:
+//   1. subtree forward: each block assembles its nodes into shared memory
+//      (one pass over all its levels), folds them bottom-up with a barrier
+//      a level, writes d, r, wn and its sum of r^2 (its threads' strided
+//      sums, then a halving tree);
+//   2. top, one block: assembles the top, folds level c (the subtree roots,
+//      from launch 1) into c - 1 and up to the roots, sums the blocks'
+//      partials and the top's r^2 in a fixed order into the norm, solves
+//      the roots and back-substitutes down to level c - 1;
+//   3. subtree back: each block stages its d, r, wn and back-substitutes
+//      its levels from its roots' parents' lam.
+// The sharded blocked solve splits the sweep at level 0 (its shards'
+// forward stops at their chunk roots): the forward half is launches 1 and
+// 2 without the root solve (sum r^2, no square root), the backward half
+// the top's back-substitution from a level 0 the caller wrote, then 3.
 //
-// Bound: launch latency.  The work is O(B) doubles, a few MB at 16
-// generations, but the fold and the back-substitution are sequential in the
-// tree depth: one launch per level (2 L + 2 launches in all).  The parent
-// gathers its children (no atomics), first summing the siblings' terms in
-// slot order and then adding to its own entry, so the result is
-// deterministic and in the reference's order.  The rhs norm is one
-// single-block reduction in a fixed order.
+// Bound: the dependency depth (2 L levels) at a barrier and a division a
+// level; the bytes (a few MB at 16 generations) take a microsecond.  The
+// parent gathers its children (no atomics), first summing the siblings'
+// terms in slot order and then adding to its own entry, the division is
+// the IEEE one, so d, r, wn and lam are those of the level-by-level
+// plain version to the bit; the norm's order is the one above
+// (tree_sweep.tree_sweep_blocked_plain runs it).  Nothing read after a
+// barrier is __restrict__.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int REDUCE_THREADS = 1024;
+struct Lvl {
+    int off, m, nb, R, P;  // a level's table row (blocked.LEVEL_WORDS)
+};
 
-__global__ void assemble_kernel(
-    int B, int Kmax,
-    const int* __restrict__ bif_in,
-    const int* __restrict__ bif_out,
-    const double* __restrict__ w,
-    const double* __restrict__ cst,
-    const double* __restrict__ Ftot,
-    double* __restrict__ d,
-    double* __restrict__ r,
-    double* __restrict__ wn)
+struct SweepArgs {
+    int Kmax, L, cut, group, blocks, first;
+    const int* levels;
+    const int* bif_in;
+    const int* bif_out;
+    const int* bif_parent;
+    const double* w;
+    const double* cst;
+    const double* Ftot;
+    double* d;
+    double* r;
+    double* wn;
+    double* lam;
+    double* partial;
+    double* out;
+};
+
+__device__ __forceinline__ void assemble(const SweepArgs& a, int b, double& db, double& rb, double& wb)
 {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const int ie = bif_in[b];
-    const double w_in = w[ie];
-    double db = w_in;
-    double rb = cst[ie] + Ftot[ie];
-    for (int j = 0; j < Kmax; ++j) {
-        const int oe = bif_out[(size_t)b * Kmax + j];
-        if (oe < 0) break;
-        db = db + w[oe];
-        rb = rb - cst[oe];
+    const int ie = a.bif_in[b];
+    const double w_in = a.w[ie];
+    double dd = w_in;
+    double rr = a.cst[ie] + a.Ftot[ie];
+    const int* row = a.bif_out + static_cast<size_t>(b) * a.Kmax;
+#pragma unroll 4
+    for (int j = 0; j < a.Kmax; ++j) {  // the row's -1 pads trail its edges
+        const int oe = row[j];
+        if (oe >= 0) {
+            dd = dd + a.w[oe];
+            rr = rr - a.cst[oe];
+        }
     }
-    d[b] = db;
-    r[b] = rb;
-    wn[b] = w_in;
+    db = dd;
+    rb = rr;
+    wb = w_in;
 }
 
-// sum x^2 over n entries (its square root with SQRT), one block, fixed
-// summation order
-template <bool SQRT>
-__global__ void norm_kernel(int n, const double* __restrict__ x, double* __restrict__ out)
+// the children ci(0 .. nb-1) of a parent folded into (dp, rp)
+template <typename ChildIndex>
+__device__ __forceinline__ void fold_into(int nb, ChildIndex ci, const double* d, const double* r,
+                                          const double* wn, double* dp, double* rp)
 {
-    __shared__ double part[REDUCE_THREADS];
-    double s = 0.0;
-    for (int i = threadIdx.x; i < n; i += REDUCE_THREADS) s += x[i] * x[i];
-    part[threadIdx.x] = s;
-    __syncthreads();
-    for (int stride = REDUCE_THREADS / 2; stride > 0; stride >>= 1) {
-        if (threadIdx.x < stride) part[threadIdx.x] += part[threadIdx.x + stride];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) out[0] = SQRT ? sqrt(part[0]) : part[0];
-}
-
-// fold the children of the parents in [lo, hi) into them
-__global__ void fold_kernel(
-    int lo, int hi, int Kmax,
-    const int* __restrict__ bif_child,
-    const double* __restrict__ wn,
-    double* __restrict__ d,
-    double* __restrict__ r)
-{
-    const int b = lo + blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= hi) return;
-    const int* ch = bif_child + (size_t)b * Kmax;
-    if (ch[0] < 0) return;
     double upd_d = 0.0, upd_r = 0.0;
-    for (int j = 0; j < Kmax; ++j) {
-        const int c = ch[j];
-        if (c < 0) break;
+    for (int s = 0; s < nb; ++s) {
+        const int c = ci(s);
         const double factor = wn[c] / d[c];
         const double cd = -wn[c] * factor;
         const double cr = factor * r[c];
-        upd_d = j == 0 ? cd : upd_d + cd;
-        upd_r = j == 0 ? cr : upd_r + cr;
+        upd_d = s == 0 ? cd : upd_d + cd;
+        upd_r = s == 0 ? cr : upd_r + cr;
     }
-    d[b] = d[b] + upd_d;
-    r[b] = r[b] + upd_r;
+    *dp = *dp + upd_d;
+    *rp = *rp + upd_r;
 }
 
-// back-substitute the bifurcations in [lo, hi)
-__global__ void backsub_kernel(
-    int lo, int hi,
-    const int* __restrict__ bif_parent,
-    const double* __restrict__ d,
-    const double* __restrict__ r,
-    const double* __restrict__ wn,
-    double* __restrict__ lam)
+// the block's sum of its threads' s (thread 0's result): a halving tree
+// over blockDim.x (a power of two), its last five steps by shuffles in the
+// first warp (the same pairs in the same order)
+__device__ double block_sum(double s, double* part)
 {
-    const int b = lo + blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= hi) return;
-    const int p = bif_parent[b];
-    lam[b] = p < 0 ? r[b] / d[b] : (r[b] + wn[b] * lam[p]) / d[b];
+    part[threadIdx.x] = s;
+    __syncthreads();
+    for (int stride = blockDim.x / 2; stride >= 32; stride >>= 1) {
+        if (threadIdx.x < stride) part[threadIdx.x] += part[threadIdx.x + stride];
+        __syncthreads();
+    }
+    double v = 0.0;
+    if (threadIdx.x < 32) {
+        v = part[threadIdx.x];
+        for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    }
+    return v;
 }
 
-inline int blocks_for(int n) { return (n + THREADS - 1) / THREADS; }
+// shared memory: the halving tree's lanes, the level table, then the values
+__device__ __forceinline__ const Lvl* stage_table(const SweepArgs& a, unsigned char* smem, double** values)
+{
+    double* part = reinterpret_cast<double*>(smem);
+    int* tab = reinterpret_cast<int*>(part + blockDim.x);
+    for (int i = threadIdx.x; i < a.L * 5; i += blockDim.x) tab[i] = a.levels[i];
+    *values = reinterpret_cast<double*>(tab + (a.L * 5 + 1) / 2 * 2);
+    __syncthreads();
+    return reinterpret_cast<const Lvl*>(tab);
+}
+
+// A subtree block's view: its first subtree q0 and its g_b subtrees; local
+// node g_b P_l + i of level l (i = run g_b + j) is position run m_c + q0 + j.
+struct Block {
+    int c, mc, q0, gb, n;
+
+    __device__ Block(const SweepArgs& a, const Lvl* lv)
+    {
+        c = a.cut;
+        mc = lv[c].m;
+        q0 = blockIdx.x * a.group;
+        gb = min(a.group, mc - q0);
+        n = gb * (lv[a.L - 1].P + lv[a.L - 1].R);
+    }
+    __device__ int node(const Lvl* lv, int l, int i) const
+    {
+        const int run = i / gb;
+        return lv[l].off + run * mc + q0 + (i - run * gb);
+    }
+    __device__ int level_of(const Lvl* lv, int L, int k) const
+    {
+        int l = c;
+        while (l + 1 < L && k >= gb * lv[l + 1].P) ++l;
+        return l;
+    }
+};
+
+// Launch 1: assemble, fold and write the block's subtrees; its sum of r^2.
+// SMEM: the values in shared memory (local order), else in d, r, wn.
+template <bool SMEM>
+__global__ void subtree_forward_kernel(SweepArgs a)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    double* vals;
+    const Lvl* lv = stage_table(a, smem, &vals);
+    const Block bk(a, lv);
+    double* vd = SMEM ? vals : a.d;
+    double* vr = SMEM ? vals + bk.n : a.r;
+    double* vwn = SMEM ? vals + 2 * bk.n : a.wn;
+    auto at = [&](int l, int i) { return SMEM ? bk.gb * lv[l].P + i : bk.node(lv, l, i); };
+
+    double s = 0.0;
+    for (int k = threadIdx.x; k < bk.n; k += blockDim.x) {
+        const int l = bk.level_of(lv, a.L, k);
+        const int b = bk.node(lv, l, k - bk.gb * lv[l].P);
+        double db, rb, wb;
+        assemble(a, b, db, rb, wb);
+        const int x = SMEM ? k : b;
+        vd[x] = db;
+        vr[x] = rb;
+        vwn[x] = wb;
+        s += rb * rb;
+    }
+    __syncthreads();
+    for (int l = a.L - 2; l >= bk.c; --l) {
+        const int nb = lv[l].nb, R = lv[l].R, cnt = bk.gb * R;
+        for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+            const int run = i / bk.gb, j = i - run * bk.gb;
+            const int p = at(l, i);
+            fold_into(nb, [&](int sl) { return at(l + 1, (sl * R + run) * bk.gb + j); }, vd, vr, vwn,
+                      vd + p, vr + p);
+        }
+        __syncthreads();
+    }
+    if (SMEM) {
+        for (int k = threadIdx.x; k < bk.n; k += blockDim.x) {
+            const int l = bk.level_of(lv, a.L, k);
+            const int b = bk.node(lv, l, k - bk.gb * lv[l].P);
+            a.d[b] = vd[k];
+            a.r[b] = vr[k];
+            a.wn[b] = vwn[k];
+        }
+    }
+    const double total = block_sum(s, reinterpret_cast<double*>(smem));
+    if (threadIdx.x == 0) a.partial[blockIdx.x] = total;
+}
+
+// Launch 3: the block's levels from max(cut, first) down, the first of them
+// from its parents' lam (bif_parent; r / d at a root).
+template <bool SMEM>
+__global__ void subtree_back_kernel(SweepArgs a)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    double* vals;
+    const Lvl* lv = stage_table(a, smem, &vals);
+    const Block bk(a, lv);
+    const double* vd = SMEM ? vals : a.d;
+    const double* vr = SMEM ? vals + bk.n : a.r;
+    const double* vwn = SMEM ? vals + 2 * bk.n : a.wn;
+    double* vlam = SMEM ? vals + 3 * bk.n : a.lam;
+    auto at = [&](int l, int i) { return SMEM ? bk.gb * lv[l].P + i : bk.node(lv, l, i); };
+    if (SMEM) {
+        for (int k = threadIdx.x; k < bk.n; k += blockDim.x) {
+            const int l = bk.level_of(lv, a.L, k);
+            const int b = bk.node(lv, l, k - bk.gb * lv[l].P);
+            vals[k] = a.d[b];
+            vals[bk.n + k] = a.r[b];
+            vals[2 * bk.n + k] = a.wn[b];
+        }
+        __syncthreads();
+    }
+    const int lf = max(bk.c, a.first);
+    for (int l = lf; l < a.L; ++l) {
+        const int cnt = bk.gb * lv[l].R;
+        for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+            const int x = at(l, i);
+            const int b = bk.node(lv, l, i);
+            double v;
+            if (l == lf) {
+                const int p = a.bif_parent[b];
+                v = p < 0 ? vr[x] / vd[x] : (vr[x] + vwn[x] * a.lam[p]) / vd[x];
+            } else {
+                const int run = i / bk.gb, j = i - run * bk.gb;
+                const double lp = vlam[at(l - 1, (run % lv[l - 1].R) * bk.gb + j)];
+                v = (vr[x] + vwn[x] * lp) / vd[x];
+            }
+            vlam[x] = v;
+            if (SMEM) a.lam[b] = v;
+        }
+        __syncthreads();
+    }
+}
+
+enum TopMode { FULL = 0, FORWARD = 1, BACKWARD = 2 };
+
+// Launch 2, one block: the top's fold (from level cut's folded values),
+// the norm, the roots' solve and the back-substitution (FULL); the fold
+// and sum r^2 (FORWARD); the back-substitution from the caller's level 0
+// (BACKWARD).  The top's values in shared memory by internal position.
+__global__ void top_kernel(SweepArgs a, int mode, int top)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    double* vals;
+    const Lvl* lv = stage_table(a, smem, &vals);
+    const int c = a.cut;
+    double* vd = vals;
+    double* vr = vals + top;
+    double* vwn = vals + 2 * top;
+    double* vlam = vals + 3 * top;
+    if (mode != BACKWARD) {
+        double s = 0.0;
+        for (int i = threadIdx.x; i < a.blocks; i += blockDim.x) s += a.partial[i];
+        for (int b = threadIdx.x; b < top; b += blockDim.x) {
+            double db, rb, wb;
+            assemble(a, b, db, rb, wb);
+            vd[b] = db;
+            vr[b] = rb;
+            vwn[b] = wb;
+            s += rb * rb;
+        }
+        __syncthreads();
+        for (int l = c - 1; l >= 0; --l) {
+            const int nb = lv[l].nb, m = lv[l].m, off = lv[l].off;
+            if (nb == 0) continue;  // the deepest level (block-uniform)
+            const int off1 = lv[l + 1].off;
+            const bool below = l + 1 == c;  // the children are the subtree roots
+            for (int p = threadIdx.x; p < m; p += blockDim.x) {
+                auto ci = [&](int sl) { return off1 + sl * m + p; };
+                if (below)
+                    fold_into(nb, ci, a.d, a.r, a.wn, vd + off + p, vr + off + p);
+                else
+                    fold_into(nb, ci, vd, vr, vwn, vd + off + p, vr + off + p);
+            }
+            __syncthreads();
+        }
+        for (int b = threadIdx.x; b < top; b += blockDim.x) {
+            a.d[b] = vd[b];
+            a.r[b] = vr[b];
+            a.wn[b] = vwn[b];
+        }
+        const double total = block_sum(s, reinterpret_cast<double*>(smem));
+        if (threadIdx.x == 0) a.out[0] = mode == FULL ? sqrt(total) : total;
+        if (mode == FORWARD) return;
+    } else {
+        for (int b = threadIdx.x; b < top; b += blockDim.x) {
+            vd[b] = a.d[b];
+            vr[b] = a.r[b];
+            vwn[b] = a.wn[b];
+            if (c > 0 && b < lv[0].m) vlam[b] = a.lam[b];
+        }
+        __syncthreads();
+    }
+    for (int l = mode == BACKWARD ? 1 : 0; l < c; ++l) {
+        const int m = lv[l].m, off = lv[l].off;
+        for (int p = threadIdx.x; p < m; p += blockDim.x) {
+            const int b = off + p;
+            const double v = l == 0 ? vr[b] / vd[b]
+                                    : (vr[b] + vwn[b] * vlam[lv[l - 1].off + p % lv[l - 1].m]) / vd[b];
+            vlam[b] = v;
+            a.lam[b] = v;
+        }
+        __syncthreads();
+    }
+}
+
+size_t table_bytes(int L) { return sizeof(int) * static_cast<size_t>((L * 5 + 1) / 2 * 2); }
+
+template <typename Kernel>
+int launch(Kernel kernel, int blocks, int threads, size_t smem, cudaStream_t stream, const SweepArgs& a)
+{
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                     static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<blocks, threads, smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int launch_top(int mode, int top, int threads, cudaStream_t stream, const SweepArgs& a)
+{
+    const size_t smem = 8 * static_cast<size_t>(threads) + table_bytes(a.L) + 4 * 8 * static_cast<size_t>(top);
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(top_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                     static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    top_kernel<<<1, threads, smem, stream>>>(a, mode, top);
+    return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
-// level_offsets: host array of L + 1 bifurcation slice bounds per level.
+// One sweep, or one of its halves (mode 0 full, 1 forward, 2 backward), on a
+// blocked.SweepPlan: levels (L, 5) on the device; blocks subtree blocks of
+// threads each, block_nodes the nodes of a full one, smem whether they keep
+// their values in shared memory; top the top's nodes, top_threads its block.
+// out: the norm (full) or sum r^2 (forward).  Returns the kernels enqueued,
+// or minus the CUDA error.
 extern "C" int nxfx_tree_sweep(
-    int B, int Kmax, int L, const long long* level_offsets,
-    const int* bif_in, const int* bif_out, const int* bif_child, const int* bif_parent,
+    int mode, int Kmax, int L, int cut, int group, int blocks, int threads, int block_nodes, int smem,
+    int top, int top_threads, const int* levels,
+    const int* bif_in, const int* bif_out, const int* bif_parent,
     const double* w, const double* cst, const double* Ftot,
-    double* d, double* r, double* wn, double* lam, double* rhs_norm,
+    double* d, double* r, double* wn, double* lam, double* partial, double* out,
     cudaStream_t stream)
 {
-    cudaError_t err;
-    if (B <= 0) return 0;
-    assemble_kernel<<<blocks_for(B), THREADS, 0, stream>>>(
-        B, Kmax, bif_in, bif_out, w, cst, Ftot, d, r, wn);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    norm_kernel<true><<<1, REDUCE_THREADS, 0, stream>>>(B, r, rhs_norm);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    for (int l = L - 2; l >= 0; --l) {  // parents at level l, children at l + 1
-        const int lo = static_cast<int>(level_offsets[l]);
-        const int hi = static_cast<int>(level_offsets[l + 1]);
-        fold_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(
-            lo, hi, Kmax, bif_child, wn, d, r);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    if (L <= 0) return 0;
+    SweepArgs a = {Kmax, L, cut, group, blocks, mode == BACKWARD ? 1 : 0, levels, bif_in, bif_out,
+                   bif_parent, w, cst, Ftot, d, r, wn, lam, partial, out};
+    const size_t head = 8 * static_cast<size_t>(threads) + table_bytes(L);
+    const size_t fwd = head + (smem ? 3 * 8 * static_cast<size_t>(block_nodes) : 0);
+    const size_t back = head + (smem ? 4 * 8 * static_cast<size_t>(block_nodes) : 0);
+    int n = 0, code;
+    if (mode != BACKWARD && blocks > 0) {
+        code = smem ? launch(subtree_forward_kernel<true>, blocks, threads, fwd, stream, a)
+                    : launch(subtree_forward_kernel<false>, blocks, threads, fwd, stream, a);
+        if (code != 0) return -code;
+        ++n;
     }
-    for (int l = 0; l < L; ++l) {
-        const int lo = static_cast<int>(level_offsets[l]);
-        const int hi = static_cast<int>(level_offsets[l + 1]);
-        backsub_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(
-            lo, hi, bif_parent, d, r, wn, lam);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    if (mode != BACKWARD || cut >= 2) {
+        if ((code = launch_top(mode, top, top_threads, stream, a)) != 0) return -code;
+        ++n;
     }
-    return 0;
-}
-
-// The forward half: d, r, wn folded down to level 0 and sum r^2 over the
-// unfolded r (no square root).
-extern "C" int nxfx_tree_sweep_forward(
-    int B, int Kmax, int L, const long long* level_offsets,
-    const int* bif_in, const int* bif_out, const int* bif_child,
-    const double* w, const double* cst, const double* Ftot,
-    double* d, double* r, double* wn, double* rhs_sq,
-    cudaStream_t stream)
-{
-    cudaError_t err;
-    if (B <= 0) return 0;
-    assemble_kernel<<<blocks_for(B), THREADS, 0, stream>>>(
-        B, Kmax, bif_in, bif_out, w, cst, Ftot, d, r, wn);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    norm_kernel<false><<<1, REDUCE_THREADS, 0, stream>>>(B, r, rhs_sq);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    for (int l = L - 2; l >= 0; --l) {
-        const int lo = static_cast<int>(level_offsets[l]);
-        const int hi = static_cast<int>(level_offsets[l + 1]);
-        fold_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(
-            lo, hi, Kmax, bif_child, wn, d, r);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    if (mode != FORWARD && blocks > 0) {
+        code = smem ? launch(subtree_back_kernel<true>, blocks, threads, back, stream, a)
+                    : launch(subtree_back_kernel<false>, blocks, threads, back, stream, a);
+        if (code != 0) return -code;
+        ++n;
     }
-    return 0;
-}
-
-// The backward half: lam of levels 1 .. L-1 from lam's level 0, which the
-// caller has written.
-extern "C" int nxfx_tree_sweep_backward(
-    int B, int L, const long long* level_offsets, const int* bif_parent,
-    const double* d, const double* r, const double* wn, double* lam,
-    cudaStream_t stream)
-{
-    cudaError_t err;
-    for (int l = 1; l < L; ++l) {
-        const int lo = static_cast<int>(level_offsets[l]);
-        const int hi = static_cast<int>(level_offsets[l + 1]);
-        if (hi <= lo) continue;
-        backsub_kernel<<<blocks_for(hi - lo), THREADS, 0, stream>>>(
-            lo, hi, bif_parent, d, r, wn, lam);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    }
-    return 0;
+    return n;
 }

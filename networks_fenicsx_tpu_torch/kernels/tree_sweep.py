@@ -8,32 +8,43 @@ Replaces ``networks_fenicsx_tpu/solver.py:_blocked_forward_factor`` (K2,
 bottom-up, back-substitute ``λ`` top-down, and report ``‖r‖`` over the
 unfolded rhs for the convergence gate.
 
-:func:`tree_sweep` launches the kernels for CUDA tensors (one launch per
-level for the fold and the back-substitution: the sweep is bound by launch
-latency, not bytes) and runs :func:`tree_sweep_plain`, the eager
-transcription of the reference's contiguous-slice program, for CPU tensors.
+:func:`tree_sweep` launches the kernels for CUDA tensors and runs
+:func:`tree_sweep_plain`, the eager transcription of the reference's
+contiguous-slice program, for CPU tensors.  On the card the sweep is cut
+by the device plan's :class:`..blocked.SweepPlan`: a launch of subtree
+blocks folding the subtrees below the cut, one block for the top (its
+fold, the norm, the roots and its back-substitution) and a launch of
+subtree blocks back-substituting them — three launches a sweep
+(:func:`cuda_launches`), whatever the depth.  :func:`tree_sweep_blocked_plain`
+runs the same cut block by block from the plan's tables, and the norm in
+the kernels' order: ``λ``, ``d``, ``r`` and ``wn`` equal
+:func:`tree_sweep_plain`'s to the bit, the norm to roundoff.
 
 The sharded blocked solve splits the sweep where its shards meet the top
 forest: :func:`tree_sweep_forward` stops at level 0 and returns the folded
 ``(d, r, wn)`` with ``Σ r²`` (the reference's ``_blocked_forward``,
-``:2486-2500``), :func:`tree_sweep_backward` back-substitutes levels 1.. from
-a level 0 the caller computes (``_blocked_backward``).  Both count on
-``tree_sweep.launches``.
+``:2486-2500``; the subtree launch and the top's fold), :func:`tree_sweep_backward`
+back-substitutes levels 1.. from a level 0 the caller computes
+(``_blocked_backward``; the top's back-substitution and the subtree
+launch).  Both count on ``tree_sweep.launches``.
 """
 
 from __future__ import annotations
 
-import ctypes
-
+import numpy as np
 import torch
 
-from ..blocked import DevicePlan, _BlockedPlan
+from ..blocked import DevicePlan, SweepPlan, _BlockedPlan
 from . import build
 
 __all__ = [
-    "tree_sweep", "tree_sweep_plain", "tree_sweep_forward", "tree_sweep_forward_plain",
-    "tree_sweep_backward", "tree_sweep_backward_plain",
+    "cuda_launches", "tree_sweep", "tree_sweep_plain", "tree_sweep_forward",
+    "tree_sweep_forward_plain", "tree_sweep_backward", "tree_sweep_backward_plain",
+    "tree_sweep_blocked_plain", "tree_sweep_forward_blocked_plain",
+    "tree_sweep_backward_blocked_plain",
 ]
+
+FULL, FORWARD, BACKWARD = 0, 1, 2  # nxfx_tree_sweep's modes
 
 
 def _parts_concat(vec: torch.Tensor, parts) -> torch.Tensor:
@@ -126,51 +137,275 @@ def tree_sweep_backward_plain(plan: _BlockedPlan, d, r, wn, lam: torch.Tensor):
     return lam
 
 
+# --- the subtree-blocked order (the kernels'), from the sweep plan's tables ---
+
+
+def _group_nodes(sp: SweepPlan, q0s: np.ndarray, gb: int) -> np.ndarray:
+    """``(len(q0s), g_b·S)``: the nodes of the subtree blocks whose first
+    subtrees are ``q0s``, each row in the block's local order (level by
+    level, ``R_l`` runs of ``g_b`` positions at stride ``m_cut``)."""
+    t, c = sp.host_levels, sp.cut
+    mc = int(t[c, 1])
+    parts = []
+    for l in range(c, sp.num_levels):
+        runs = np.arange(int(t[l, 3]))
+        pos = runs[None, :, None] * mc + q0s[:, None, None] + np.arange(gb)[None, None, :]
+        parts.append((int(t[l, 0]) + pos).reshape(len(q0s), -1))
+    return np.concatenate(parts, axis=1)
+
+
+def _block_groups(sp: SweepPlan) -> list:
+    """``[(g_b, first block, nodes (n_blocks, g_b·S))]`` in block order: the
+    full blocks, then a last one with fewer subtrees."""
+    if not sp.blocks:
+        return []
+    mc = int(sp.host_levels[sp.cut, 1])
+    full = mc // sp.group
+    out = []
+    if full:
+        out.append((sp.group, 0, _group_nodes(sp, np.arange(full) * sp.group, sp.group)))
+    if full < sp.blocks:
+        q0 = full * sp.group
+        out.append((mc - q0, full, _group_nodes(sp, np.asarray([q0]), mc - q0)))
+    return out
+
+
+def _lanes(x: torch.Tensor, threads: int, acc: torch.Tensor | None = None) -> torch.Tensor:
+    """Each thread's strided sum of ``x (…, n)`` over the last axis
+    (``threads`` lanes, entry ``i`` to lane ``i mod threads``, in order),
+    continuing ``acc``."""
+    n = x.shape[-1]
+    pad = (-n) % threads
+    if pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+    rows = x.reshape(x.shape[:-1] + (-1, threads))
+    if acc is None:
+        acc = x.new_zeros(x.shape[:-1] + (threads,))
+    for k in range(rows.shape[-2]):
+        acc = acc + rows[..., k, :]
+    return acc
+
+
+def _halving(acc: torch.Tensor) -> torch.Tensor:
+    """The kernels' halving tree over the last axis (a power of two)."""
+    acc = acc.clone()
+    s = acc.shape[-1] // 2
+    while s:
+        acc[..., :s] = acc[..., :s] + acc[..., s : 2 * s]
+        s //= 2
+    return acc[..., 0]
+
+
+def _assemble_plain(dplan: DevicePlan, w, const, Ftot):
+    """Every bifurcation's unfolded ``(d, r, wn)``, as each thread assembles it."""
+    bif_in, bif_out = dplan.bif_in.long(), dplan.bif_out.long()
+    wn = w[bif_in]
+    d = wn
+    r = const[bif_in] + Ftot[bif_in]
+    for j in range(bif_out.shape[1]):
+        oe = bif_out[:, j]
+        ok = oe >= 0
+        safe = torch.where(ok, oe, torch.zeros_like(oe))
+        d = torch.where(ok, d + w[safe], d)
+        r = torch.where(ok, r - const[safe], r)
+    return d, r, wn
+
+
+def _fold_blocks(sp: SweepPlan, d, r, wn):
+    """The subtree blocks' folds in place on ``d, r, wn`` (block by block,
+    in local order); each block's Σ r² partial (from ``r`` unfolded), in
+    block order."""
+    t, c, L = sp.host_levels, sp.cut, sp.num_levels
+    partials = []
+    for gb, _, nodes in _block_groups(sp):
+        idx = torch.as_tensor(nodes, device=d.device)
+        vd, vr, vwn = d[idx], r[idx], wn[idx]
+        partials.append(_halving(_lanes(vr * vr, sp.threads)))
+        for l in range(L - 2, c - 1, -1):
+            R, nb = int(t[l, 3]), int(t[l, 2])
+            i = np.arange(gb * R)
+            run, j = i // gb, i % gb
+            par = torch.as_tensor(gb * int(t[l, 4]) + i, device=d.device)
+            upd_d = upd_r = None
+            for s in range(nb):
+                ch = torch.as_tensor(gb * int(t[l + 1, 4]) + (s * R + run) * gb + j, device=d.device)
+                factor = vwn[:, ch] / vd[:, ch]
+                cd = -vwn[:, ch] * factor
+                cr = factor * vr[:, ch]
+                upd_d = cd if s == 0 else upd_d + cd
+                upd_r = cr if s == 0 else upd_r + cr
+            vd[:, par] = vd[:, par] + upd_d
+            vr[:, par] = vr[:, par] + upd_r
+        d[idx], r[idx] = vd, vr
+    return torch.cat(partials) if partials else d.new_zeros(0)
+
+
+def _top_fold(sp: SweepPlan, d, r, wn) -> None:
+    """The top's fold in place, level ``cut − 1`` up to the roots."""
+    t = sp.host_levels
+    for l in range(sp.cut - 1, -1, -1):
+        nb, m, off = int(t[l, 2]), int(t[l, 1]), int(t[l, 0])
+        if nb == 0:
+            continue
+        off1 = int(t[l + 1, 0])
+        upd_d = upd_r = None
+        for s in range(nb):
+            ch = slice(off1 + s * m, off1 + (s + 1) * m)
+            factor = wn[ch] / d[ch]
+            cd = -wn[ch] * factor
+            cr = factor * r[ch]
+            upd_d = cd if s == 0 else upd_d + cd
+            upd_r = cr if s == 0 else upd_r + cr
+        d[off : off + m] = d[off : off + m] + upd_d
+        r[off : off + m] = r[off : off + m] + upd_r
+
+
+def _top_back(sp: SweepPlan, d, r, wn, lam, first: int) -> None:
+    """The top's back-substitution into ``lam``, levels ``first … cut − 1``."""
+    t = sp.host_levels
+    for l in range(first, sp.cut):
+        m, off = int(t[l, 1]), int(t[l, 0])
+        s = slice(off, off + m)
+        if l == 0:
+            lam[s] = r[s] / d[s]
+        else:
+            mp, offp = int(t[l - 1, 1]), int(t[l - 1, 0])
+            lp = lam[offp + torch.arange(m, device=lam.device) % mp]
+            lam[s] = (r[s] + wn[s] * lp) / d[s]
+
+
+def _back_blocks(sp: SweepPlan, dplan: DevicePlan, d, r, wn, lam, first: int) -> None:
+    """The subtree blocks' back-substitution into ``lam`` from level
+    ``max(cut, first)``, its parents' λ through ``bif_parent``."""
+    t, c, L = sp.host_levels, sp.cut, sp.num_levels
+    lf = max(c, first)
+    parent = dplan.bif_parent.long()
+    for gb, _, nodes in _block_groups(sp):
+        idx = torch.as_tensor(nodes, device=d.device)
+        vd, vr, vwn, vlam = d[idx], r[idx], wn[idx], lam[idx]
+        for l in range(lf, L):
+            R = int(t[l, 3])
+            i = np.arange(gb * R)
+            x = torch.as_tensor(gb * int(t[l, 4]) + i, device=d.device)
+            if l == lf:
+                p = parent[idx[:, x]]
+                lp = lam[torch.where(p >= 0, p, torch.zeros_like(p))]
+                v = torch.where(p < 0, vr[:, x] / vd[:, x], (vr[:, x] + vwn[:, x] * lp) / vd[:, x])
+            else:
+                run, j = i // gb, i % gb
+                px = torch.as_tensor(gb * int(t[l - 1, 4]) + (run % int(t[l - 1, 3])) * gb + j,
+                                     device=d.device)
+                v = (vr[:, x] + vwn[:, x] * vlam[:, px]) / vd[:, x]
+            vlam[:, x] = v
+        lam[idx] = vlam
+
+
+def _forward_blocked(dplan: DevicePlan, w, const, Ftot):
+    """``(d, r, wn, Σ r²)`` folded down to level 0 in the kernels' order."""
+    sp = dplan.sweep
+    d, r, wn = _assemble_plain(dplan, w, const, Ftot)
+    d, r = d.clone(), r.clone()
+    r_top = r[: sp.top_nodes]
+    partials = _fold_blocks(sp, d, r, wn)
+    acc = _lanes(r_top * r_top, sp.top_threads, _lanes(partials, sp.top_threads))
+    _top_fold(sp, d, r, wn)
+    return d, r, wn, _halving(acc)
+
+
+def tree_sweep_blocked_plain(dplan: DevicePlan, w: torch.Tensor, const: torch.Tensor,
+                             Ftot: torch.Tensor):
+    """:func:`tree_sweep_plain`'s ``(lam, rhs_norm, d, r, wn)`` in the
+    kernels' order: the subtree blocks of ``dplan.sweep`` folded block by
+    block from its tables, the top, its back-substitution and the blocks'."""
+    d, r, wn, sq = _forward_blocked(dplan, w, const, Ftot)
+    lam = torch.empty_like(d)
+    _top_back(dplan.sweep, d, r, wn, lam, 0)
+    _back_blocks(dplan.sweep, dplan, d, r, wn, lam, 0)
+    return lam, torch.sqrt(sq), d, r, wn
+
+
+def tree_sweep_forward_blocked_plain(dplan: DevicePlan, w, const, Ftot):
+    """:func:`tree_sweep_forward` in the kernels' order: ``(d, r, wn, Σ r²)``."""
+    return _forward_blocked(dplan, w, const, Ftot)
+
+
+def tree_sweep_backward_blocked_plain(dplan: DevicePlan, d, r, wn, lam: torch.Tensor):
+    """:func:`tree_sweep_backward` in the kernels' order: fills ``lam``'s
+    levels 1.. in place from its level 0."""
+    _top_back(dplan.sweep, d, r, wn, lam, 1)
+    _back_blocks(dplan.sweep, dplan, d, r, wn, lam, 1)
+    return lam
+
+
+# --- the launches ---
+
+
+def cuda_launches(dplan: DevicePlan, mode: int = FULL) -> int:
+    """CUDA kernel launches of one sweep (``FULL``) or half (``FORWARD``,
+    ``BACKWARD``) on ``dplan``: the subtree forward launch where the plan has
+    subtree blocks, the top's (in the backward half only when the top holds
+    more than level 0) and the subtree back launch."""
+    sp = dplan.sweep
+    if sp.num_levels == 0:
+        return 0
+    sub = int(sp.blocks > 0)
+    if mode == FULL:
+        return 2 * sub + 1
+    if mode == FORWARD:
+        return sub + 1
+    return sub + int(sp.cut >= 2)
+
+
+def _launch(mode: int, dplan: DevicePlan, w, const, Ftot, d, r, wn, lam, out) -> None:
+    sp = dplan.sweep
+    dev = d.device
+    partial = torch.empty(max(sp.blocks, 1), dtype=torch.float64, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        code = build.library().nxfx_tree_sweep(
+            mode, dplan.max_out, sp.num_levels, sp.cut, sp.group, sp.blocks, sp.threads,
+            sp.block_nodes, int(sp.smem), sp.top_nodes, sp.top_threads, sp.levels.data_ptr(),
+            dplan.bif_in.data_ptr(), dplan.bif_out.data_ptr(), dplan.bif_parent.data_ptr(),
+            ptr(w), ptr(const), ptr(Ftot), d.data_ptr(), r.data_ptr(), wn.data_ptr(), ptr(lam),
+            partial.data_ptr(), ptr(out), build.stream_handle(dev),
+        )
+    if code < 0:
+        build.check(-code, "tree_sweep")
+    if code != cuda_launches(dplan, mode):
+        raise RuntimeError(f"tree_sweep: {code} launches, the plan counts {cuda_launches(dplan, mode)}")
+    tree_sweep.launches += 1
+    tree_sweep.device += code
+
+
+def _check(dplan: DevicePlan, *vecs):
+    build.require_cuda("tree_sweep", *vecs)
+    build.require_cuda(
+        "tree_sweep", dplan.bif_in, dplan.bif_out, dplan.bif_parent, dplan.sweep.levels,
+        dtype=torch.int32,
+    )
+
+
 def tree_sweep(dplan: DevicePlan, w: torch.Tensor, const: torch.Tensor, Ftot: torch.Tensor):
     """K2–K4 on ``w``'s device: ``(lam, rhs_norm, d, r, wn)``."""
     if w.device.type == "cpu":
         return tree_sweep_plain(dplan.plan, w, const, Ftot)
-    build.require_cuda("tree_sweep", w, const, Ftot)
-    build.require_cuda(
-        "tree_sweep", dplan.bif_in, dplan.bif_out, dplan.bif_child, dplan.bif_parent,
-        dtype=torch.int32,
-    )
+    _check(dplan, w, const, Ftot)
     B, E = dplan.num_bifurcations, dplan.num_edges
     if any(tuple(t.shape) != (E,) for t in (w, const, Ftot)):
         raise ValueError("tree_sweep: w, const and Ftot must be (E,)")
     dev = w.device
     d, r, wn, lam = (torch.empty(B, dtype=torch.float64, device=dev) for _ in range(4))
     rhs_norm = torch.empty((), dtype=torch.float64, device=dev)
-    offs = dplan.level_offsets
-    offsets = (ctypes.c_longlong * len(offs))(*offs)
-    with torch.cuda.device(dev):
-        code = build.library().nxfx_tree_sweep(
-            B, dplan.max_out, len(offs) - 1, ctypes.cast(offsets, ctypes.c_void_p),
-            dplan.bif_in.data_ptr(), dplan.bif_out.data_ptr(),
-            dplan.bif_child.data_ptr(), dplan.bif_parent.data_ptr(),
-            w.data_ptr(), const.data_ptr(), Ftot.data_ptr(),
-            d.data_ptr(), r.data_ptr(), wn.data_ptr(), lam.data_ptr(), rhs_norm.data_ptr(),
-            build.stream_handle(dev),
-        )
-    build.check(code, "tree_sweep")
-    tree_sweep.launches += 1
+    if B:
+        _launch(FULL, dplan, w, const, Ftot, d, r, wn, lam, rhs_norm)
     return lam, rhs_norm, d, r, wn
 
 
-tree_sweep.launches = 0
-
-
-def _check(dplan: DevicePlan, *vecs):
-    build.require_cuda("tree_sweep", *vecs)
-    build.require_cuda(
-        "tree_sweep", dplan.bif_in, dplan.bif_out, dplan.bif_child, dplan.bif_parent,
-        dtype=torch.int32,
-    )
-
-
-def _offsets(dplan: DevicePlan):
-    offs = dplan.level_offsets
-    return (ctypes.c_longlong * len(offs))(*offs)
+tree_sweep.launches = 0  # wrapper calls that launched (the three wrappers')
+tree_sweep.device = 0  # the kernels they enqueued, as the launcher reports them
 
 
 def tree_sweep_forward(dplan: DevicePlan, w: torch.Tensor, const: torch.Tensor, Ftot: torch.Tensor):
@@ -185,17 +420,8 @@ def tree_sweep_forward(dplan: DevicePlan, w: torch.Tensor, const: torch.Tensor, 
     dev = w.device
     d, r, wn = (torch.empty(B, dtype=torch.float64, device=dev) for _ in range(3))
     rhs_sq = torch.empty((), dtype=torch.float64, device=dev)
-    offsets = _offsets(dplan)
-    with torch.cuda.device(dev):
-        code = build.library().nxfx_tree_sweep_forward(
-            B, dplan.max_out, len(offsets) - 1, ctypes.cast(offsets, ctypes.c_void_p),
-            dplan.bif_in.data_ptr(), dplan.bif_out.data_ptr(), dplan.bif_child.data_ptr(),
-            w.data_ptr(), const.data_ptr(), Ftot.data_ptr(),
-            d.data_ptr(), r.data_ptr(), wn.data_ptr(), rhs_sq.data_ptr(),
-            build.stream_handle(dev),
-        )
-    build.check(code, "tree_sweep")
-    tree_sweep.launches += 1
+    if B:
+        _launch(FORWARD, dplan, w, const, Ftot, d, r, wn, None, rhs_sq)
     return d, r, wn, rhs_sq
 
 
@@ -209,13 +435,6 @@ def tree_sweep_backward(dplan: DevicePlan, d, r, wn, lam: torch.Tensor):
     B = dplan.num_bifurcations
     if any(tuple(t.shape) != (B,) for t in (d, r, wn)) or lam.dim() != 1 or lam.shape[0] < B:
         raise ValueError("tree_sweep: d, r, wn must be (B,) and lam at least (B,)")
-    offsets = _offsets(dplan)
-    with torch.cuda.device(d.device):
-        code = build.library().nxfx_tree_sweep_backward(
-            B, len(offsets) - 1, ctypes.cast(offsets, ctypes.c_void_p),
-            dplan.bif_parent.data_ptr(), d.data_ptr(), r.data_ptr(), wn.data_ptr(),
-            lam.data_ptr(), build.stream_handle(d.device),
-        )
-    build.check(code, "tree_sweep")
-    tree_sweep.launches += 1
+    if cuda_launches(dplan, BACKWARD):
+        _launch(BACKWARD, dplan, None, None, None, d, r, wn, lam, None)
     return lam

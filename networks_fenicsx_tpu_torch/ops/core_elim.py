@@ -14,10 +14,11 @@ nodes, the fill among their neighbours gets static value slots, and the
 Schur sums go to an update stream at static offsets that each slot's single
 reader folds.  What remains is solved densely (the dense tail, K11) or, past
 ``dense_cap``, as supernodal fronts.  :func:`device_core_plan` uploads a
-plan once per executor; the numeric phase is K12 (:mod:`..kernels.core_elim`
-for the rounds, :mod:`..kernels.core_fronts` for the fronts) with K10 folds
-and K11 on the dense tail.  The device side of a fold plan is K10
-(:mod:`..kernels.fold`).
+plan once per executor, with the rounds packed into one checked table
+(:class:`RoundTable`) that K12a's two launches walk; the numeric phase is
+K12 (:mod:`..kernels.core_elim` for the rounds, :mod:`..kernels.core_fronts`
+for the fronts) with K11 on the dense tail.  The device side of a fold plan
+is K10 (:mod:`..kernels.fold`).
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ __all__ = [
     "DeviceCorePlan",
     "DeviceCoreRound",
     "DeviceFront",
+    "RoundTable",
     "_inverse_map",
+    "check_round_table",
     "_plan_fold",
     "device_core_plan",
     "nested_dissection_order",
@@ -796,9 +799,6 @@ class DeviceCoreRound:
     Attributes:
         elim, nbr_node, init_idx, u_read, d_fold, d_inv, u_src_i, u_src_j,
             u_fold, e_inv, u_off: the round (see :class:`_Round`).
-        a_off: offset of the round's ``(S, K)`` entries in the saved value
-            stream ``a`` of a solve.
-        s_off: offset of its ``(S,)`` rows in the saved ``inv`` and ``rv``.
     """
 
     elim: torch.Tensor
@@ -812,8 +812,6 @@ class DeviceCoreRound:
     u_fold: tuple
     e_inv: torch.Tensor
     u_off: int
-    a_off: int
-    s_off: int
 
     @property
     def S(self) -> int:
@@ -874,13 +872,242 @@ class DeviceFront:
         return int(self.bnd.shape[0])
 
 
+# The packed round table of K12a (kernels/csrc/core_elim.cu): int32 words, a
+# header, one fixed-size row a round, then the index arrays.  A fold is a
+# descriptor: its level count, then per level the offset of its (rows, K)
+# indices in the table, rows, K and, for all but the last level, the offset
+# of its output in the work buffer (the last level is summed by its reader).
+FOLD_MAX = 8  # levels a fold (kernels.fold.MAX_LEVELS)
+FOLD_WORDS = 1 + 4 * FOLD_MAX
+(G_NCORE, G_P0, G_ROUNDS, G_BD, G_PD, G_DN, G_DPINIT, G_MU, G_A, G_INV, G_RV, G_US, G_T, G_C,
+ G_WORK, G_MAXW) = range(16)
+G_DPFOLD = 16
+HEAD_WORDS = G_DPFOLD + FOLD_WORDS
+(R_S, R_K, R_ELIM, R_INIT, R_NBR, R_AOFF, R_SOFF, R_UOFF, R_U1, R_M2, R_U2, R_DNODE, R_USI,
+ R_USJ) = range(14)
+R_UREAD, R_DFOLD, R_UFOLD = 14, 14 + FOLD_WORDS, 14 + 2 * FOLD_WORDS
+ROUND_WORDS = 14 + 3 * FOLD_WORDS
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundTable:
+    """The rounds of a :class:`CoreElimPlan` packed for K12a, checked once
+    (:func:`check_round_table`).
+
+    The work buffer of a solve (float64) holds, at the header's offsets, the
+    saved slot values ``a``, the pivots' inverses ``inv`` and the saved rhs
+    ``rv`` (the back-substitution reads them), the update stream (``mu``
+    entries), a round's two-channel terms ``(a·a·inv, a·inv·rv)``, its fill
+    products (one block's launch; a grid makes them as the update fold reads
+    them) and the folds' intermediate levels.
+
+    Attributes:
+        host: ``(words,)`` int32, the table (header, ``rounds`` rows of
+            :data:`ROUND_WORDS`, the index arrays).
+        table: the same on the plan's device.
+        rounds: the rounds.
+        head_words: the header and round rows, ``HEAD_WORDS + rounds·ROUND_WORDS``.
+        work_len: the work buffer's doubles.
+        max_work: the widest phase of a round or of the tail (entries).
+    """
+
+    host: np.ndarray
+    table: torch.Tensor
+    rounds: int
+    head_words: int
+    work_len: int
+    max_work: int
+
+    def word(self, i: int) -> int:
+        return int(self.host[i])
+
+
+def _pack_rounds(plan: "CoreElimPlan") -> tuple:
+    """``(words int64, head_words, work_len, max_work)`` of :class:`RoundTable`."""
+    n, P0 = int(plan.n_core), int(np.asarray(plan.init_slot).size)
+    init_slot = np.asarray(plan.init_slot, np.int64)
+
+    def pids(init_idx):  # a slot read's pair id, -1 for a fill slot (init_idx = P0)
+        i = np.asarray(init_idx, np.int64)
+        return np.where(i < P0, init_slot[np.minimum(i, P0 - 1)] if P0 else -1, -1)
+
+    rounds = plan.rounds
+    head_words = HEAD_WORDS + len(rounds) * ROUND_WORDS
+    words = np.zeros(head_words, np.int64)
+    arrays: list = []
+    pos = [head_words]
+
+    def put(a) -> int:
+        a = np.asarray(a, np.int64).ravel()
+        at = pos[0]
+        arrays.append(a)
+        pos[0] += a.size
+        return at
+
+    S_all = [int(np.asarray(rd.nbr_node).shape[0]) for rd in rounds]
+    K_all = [int(np.asarray(rd.nbr_node).shape[1]) for rd in rounds]
+    a_len = sum(S * K for S, K in zip(S_all, K_all))
+    s_len = sum(S_all)
+    mu = int(plan.mu_all)
+    max_sk = max((S * K for S, K in zip(S_all, K_all)), default=0)
+    max_m2 = max((int(np.asarray(rd.u_src_i).size) for rd in rounds), default=0)
+    base = {G_A: 0, G_INV: a_len, G_RV: a_len + s_len, G_US: a_len + 2 * s_len}
+    base[G_T] = base[G_US] + mu
+    base[G_C] = base[G_T] + 2 * max_sk
+    scratch = [base[G_C] + max_m2]
+    widths = [0]
+
+    def fold(at: int, levels, C: int) -> None:
+        levels = tuple(np.asarray(lv) for lv in levels)
+        if len(levels) > FOLD_MAX:
+            raise ValueError(f"round table: a fold of {len(levels)} > {FOLD_MAX} levels")
+        words[at] = len(levels)
+        for l, lv in enumerate(levels):
+            rows, K = lv.shape
+            widths[0] = max(widths[0], rows * C)
+            out = -1
+            if l < len(levels) - 1:
+                out = scratch[0]
+                scratch[0] += rows * C
+            words[at + 1 + 4 * l: at + 5 + 4 * l] = (put(lv), rows, K, out)
+
+    a_off = s_off = 0
+    for k, rd in enumerate(rounds):
+        at = HEAD_WORDS + k * ROUND_WORDS
+        S, K = S_all[k], K_all[k]
+        d_inv = np.asarray(rd.d_inv, np.int64)
+        U1 = int(np.asarray(rd.d_fold[-1]).shape[0])
+        d_node = np.full(U1, -1, np.int64)
+        hit = d_inv < U1
+        d_node[d_inv[hit]] = np.flatnonzero(hit)
+        if np.unique(d_inv[hit]).size != int(hit.sum()):
+            raise ValueError(f"round table: round {k}'s d_inv names a row twice")
+        M2 = int(np.asarray(rd.u_src_i).size)
+        U2 = int(np.asarray(rd.u_fold[-1]).shape[0]) if rd.u_fold else 0
+        if U2 and not M2:
+            raise ValueError(f"round table: round {k} has {U2} stream slots and no contribution")
+        words[at: at + R_UREAD] = (
+            S, K, put(rd.elim), put(pids(rd.init_idx)), put(rd.nbr_node), a_off, s_off, int(rd.u_off),
+            U1, M2, U2, put(d_node), put(rd.u_src_i), put(rd.u_src_j))
+        widths[0] = max(widths[0], S * K, M2, U1, U2)
+        fold(at + R_UREAD, rd.u_read, 1)
+        fold(at + R_DFOLD, rd.d_fold, 2)
+        fold(at + R_UFOLD, rd.u_fold if M2 else (), 1)
+        a_off += S * K
+        s_off += S
+    Bd = int(np.asarray(plan.dense_nodes).size)
+    Pd = int(np.asarray(plan.dp_init).size)
+    widths[0] = max(widths[0], Bd, Pd, n + 1)
+    words[:G_DPFOLD] = (n, P0, len(rounds), Bd, Pd, put(plan.dense_nodes), put(pids(plan.dp_init)), mu,
+                        base[G_A], base[G_INV], base[G_RV], base[G_US], base[G_T], base[G_C],
+                        scratch[0], 0)
+    fold(G_DPFOLD, plan.dp_fold, 1)
+    words[G_MAXW] = widths[0]
+    out = np.concatenate([words] + arrays)
+    if out.size and (out.max() > np.iinfo(np.int32).max or scratch[0] > np.iinfo(np.int32).max):
+        raise ValueError("round table: an entry does not fit in int32")
+    return out, head_words, int(scratch[0]), int(widths[0])
+
+
+def _fold_levels(words: np.ndarray, at: int) -> list:
+    """A fold descriptor's levels: ``[(indices (rows, K), out), ...]``."""
+    out = []
+    for l in range(int(words[at])):
+        off, rows, K, o = (int(x) for x in words[at + 1 + 4 * l: at + 5 + 4 * l])
+        out.append((words[off: off + rows * K].reshape(rows, K), o))
+    return out
+
+
+def _round_arrays(words: np.ndarray, k: int) -> dict:
+    """Round ``k``'s sizes, offsets and index arrays, as the kernels read them."""
+    at = HEAD_WORDS + k * ROUND_WORDS
+    S, K, U1, M2 = (int(words[at + f]) for f in (R_S, R_K, R_U1, R_M2))
+
+    def arr(f, size):
+        off = int(words[at + f])
+        return words[off: off + size]
+
+    return dict(S=S, K=K, U1=U1, M2=M2, U2=int(words[at + R_U2]), a_off=int(words[at + R_AOFF]),
+                s_off=int(words[at + R_SOFF]), u_off=int(words[at + R_UOFF]),
+                elim=arr(R_ELIM, S), init_pid=arr(R_INIT, S * K), nbr=arr(R_NBR, S * K),
+                d_node=arr(R_DNODE, U1), u_src_i=arr(R_USI, M2), u_src_j=arr(R_USJ, M2),
+                u_read=_fold_levels(words, at + R_UREAD), d_fold=_fold_levels(words, at + R_DFOLD),
+                u_fold=_fold_levels(words, at + R_UFOLD))
+
+
+def check_round_table(words: np.ndarray, pid_max: int) -> None:
+    """Raise ``ValueError("round table: ...")`` unless every index of the
+    packed table is in range (pads one past their source; the slots' pair
+    ids in ``[-1, pid_max]``), each round
+    eliminates distinct nodes, every output has one writer (a round's
+    diagonal rows, the update stream's slots across the rounds, the dense
+    tail's nodes) and each fold level indexes within the previous level's
+    rows; the folds' last levels give what their readers take."""
+    words = np.asarray(words, np.int64)
+    n, P0, nr, Bd, Pd = (int(words[f]) for f in (G_NCORE, G_P0, G_ROUNDS, G_BD, G_PD))
+    mu = int(words[G_MU])
+
+    def within(name, a, lo, hi):
+        if a.size and (int(a.min()) < lo or int(a.max()) > hi):
+            raise ValueError(f"round table: {name} outside [{lo}, {hi}]")
+
+    def fold(name, levels, src, rows):
+        prev = src
+        for l, (lv, _) in enumerate(levels):
+            within(f"{name} level {l}", lv, 0, prev)
+            prev = lv.shape[0]
+        if levels and rows is not None and levels[-1][0].shape[0] != rows:
+            raise ValueError(f"round table: {name} gives {levels[-1][0].shape[0]} rows, not {rows}")
+
+    written = np.zeros(mu, np.int64)
+    for k in range(nr):
+        rd = _round_arrays(words, k)
+        S, K = rd["S"], rd["K"]
+        tag = f"round {k}"
+        within(f"{tag} elim", rd["elim"], 0, n - 1)
+        if np.unique(rd["elim"]).size != S:
+            raise ValueError(f"round table: {tag} eliminates a node twice")
+        within(f"{tag} nbr_node", rd["nbr"], 0, n)
+        within(f"{tag} pair ids", rd["init_pid"], -1, pid_max)
+        node = rd["d_node"][rd["d_node"] >= 0]
+        within(f"{tag} d rows", node, 0, n - 1)
+        if np.unique(node).size != node.size:
+            raise ValueError(f"round table: {tag} updates a node from two rows")
+        within(f"{tag} u_src", np.concatenate([rd["u_src_i"], rd["u_src_j"]]), 0, S * K - 1)
+        fold(f"{tag} u_read", rd["u_read"], mu, S * K)
+        fold(f"{tag} d_fold", rd["d_fold"], S * K, rd["U1"])
+        fold(f"{tag} u_fold", rd["u_fold"], rd["M2"], rd["U2"])
+        if rd["U2"]:
+            if rd["u_off"] < 0 or rd["u_off"] + rd["U2"] > mu:
+                raise ValueError(f"round table: {tag} writes past the update stream")
+            written[rd["u_off"]: rd["u_off"] + rd["U2"]] += 1
+    if np.any(written != 1):
+        raise ValueError("round table: an update-stream slot written by no round or by two")
+    dn = words[int(words[G_DN]): int(words[G_DN]) + Bd]
+    within("dense nodes", dn, 0, n - 1)
+    if np.unique(dn).size != Bd:
+        raise ValueError("round table: a dense node twice")
+    within("dp pair ids", words[int(words[G_DPINIT]): int(words[G_DPINIT]) + Pd], -1, pid_max)
+    fold("dp_fold", _fold_levels(words, G_DPFOLD), mu, Pd)
+
+
+def round_table(plan: "CoreElimPlan", device: torch.device | str) -> RoundTable:
+    """Pack, check and upload ``plan``'s rounds."""
+    words, head_words, work_len, max_work = _pack_rounds(plan)
+    check_round_table(words, int(np.max(plan.init_slot, initial=-1)))
+    host = words.astype(np.int32)
+    return RoundTable(host=host, table=torch.as_tensor(host, device=device), rounds=len(plan.rounds),
+                      head_words=head_words, work_len=work_len, max_work=max_work)
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceCorePlan:
     """A :class:`CoreElimPlan` on one device, uploaded once per executor:
     the rounds, the dense tail's nodes, pairs (with their ids ``0, 1, …``
     into the negated pair values K11 takes) and slot reads, and the fronts
     with their buffer offsets (``a_len``, ``s_len``: the saved round streams;
-    ``f_len``: Σ m² of the fronts; ``y_len``: Σ w)."""
+    ``f_len``: Σ m² of the fronts; ``y_len``: Σ w), and the rounds packed
+    for K12a's launches (``rt``, a checked :class:`RoundTable`)."""
 
     plan: CoreElimPlan
     init_slot: torch.Tensor
@@ -896,6 +1123,7 @@ class DeviceCorePlan:
     s_len: int
     f_len: int
     y_len: int
+    rt: RoundTable
 
     @property
     def n_core(self) -> int:
@@ -909,20 +1137,14 @@ class DeviceCorePlan:
     def mu_all(self) -> int:
         return int(self.plan.mu_all)
 
-    @property
-    def max_SK(self) -> int:
-        return max((rd.S * rd.K for rd in self.rounds), default=0)
-
-    @property
-    def max_M2(self) -> int:
-        return max((rd.M2 for rd in self.rounds), default=0)
 
 
 def device_core_plan(plan: CoreElimPlan, device: torch.device | str) -> DeviceCorePlan:
     """Upload ``plan``'s index arrays to ``device`` once, as int32 tensors,
-    with the offsets of every round's and front's slice of the solve's
-    buffers: a solve then runs the launch loop and nothing else per round.
-    Each fold is a :class:`..kernels.fold.FoldPlan`, validated here once."""
+    with the offsets of every front's slice of the solve's buffers and the
+    rounds packed into a checked :class:`RoundTable` (a solve's rounds are
+    then two launches).  Each fold is a :class:`..kernels.fold.FoldPlan`,
+    validated here once (the plain versions and K12b's slot reads use them)."""
     from ..kernels.fold import FoldPlan
 
 
@@ -943,7 +1165,7 @@ def device_core_plan(plan: CoreElimPlan, device: torch.device | str) -> DeviceCo
             elim=up(rd.elim), nbr_node=up(rd.nbr_node), init_idx=up(rd.init_idx),
             u_read=levels(rd.u_read), d_fold=levels(rd.d_fold), d_inv=up(rd.d_inv),
             u_src_i=up(rd.u_src_i), u_src_j=up(rd.u_src_j), u_fold=levels(rd.u_fold),
-            e_inv=up(rd.e_inv), u_off=int(rd.u_off), a_off=a_off, s_off=s_off,
+            e_inv=up(rd.e_inv), u_off=int(rd.u_off),
         ))
         a_off += int(S * K)
         s_off += int(S)
@@ -981,4 +1203,5 @@ def device_core_plan(plan: CoreElimPlan, device: torch.device | str) -> DeviceCo
         s_len=s_off,
         f_len=f_off,
         y_len=y_off,
+        rt=round_table(plan, device),
     )

@@ -98,7 +98,10 @@ K19b on web-cg (:func:`gather_times`), each with the λ for ``--diff``;
 on fronts128, K11 at 455 and 4,096 nodes, K19c's coarsest factor) split by
 launch kind with each panel launch's µs (:func:`fronts_times`), and
 ``--select tsolve`` the T solve on the sharded forest's T and on a 7-node
-one (:func:`tsolve_times`).
+one (:func:`tsolve_times`); ``--select blocked`` K2–K4 on the headline tree
+and on each shard of the sharded tree (:func:`blocked_times`) and
+``--select core`` K12a on web2k, fronts128 and web48's forced plans
+(:func:`core_times`), each with the SHA-256 of λ.
 ``--root``
 imports the port from another checkout (e.g. the parent commit unpacked
 with ``git archive``), so that two versions are compared in one call.
@@ -114,7 +117,7 @@ Otherwise the script
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
-    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist|level|gather|fronts|tsolve] [--root DIR] [--out kernels.json]
+    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist|level|gather|fronts|tsolve|blocked|core] [--root DIR] [--out kernels.json]
     python3 scripts/profile_torch_main_path.py --diff parent.npz change.npz
 
 (``--generations`` sets the depth of ``blocked``, ``callable`` and ``p1tree``.)
@@ -817,6 +820,122 @@ def tsolve_times(dev) -> dict:
                 rec["plan"] = {"levels": tf.depth, "rounds": [int(rd.segs.shape[0]) for rd in tf.rounds],
                                "left_levels": tf.n_lvl}
             out[f"{name}_{label}"] = rec
+    return out
+
+
+def _float_hex(t) -> str:
+    return float(t).hex()
+
+
+def blocked_times(dev) -> dict:
+    """``--select blocked``: K2–K4 on the port that ``sys.path`` finds first
+    (either port's interface), on the inputs their executors give them: the
+    headline tree's sweep (16 generations, N = 40) and the sharded tree's
+    halves on each of its 8 shards, each with :func:`timed_call`'s figures
+    (the shards' summed), the SHA-256 of λ, d, r, wn, the norm (or Σ r²) as
+    a hex float, and the sweep plan where the port has one."""
+    from networks_fenicsx_tpu_torch.kernels import condense, shard_blocked, tree_sweep
+    from networks_fenicsx_tpu_torch.parallel import ShardedNetworkSolver
+    from networks_fenicsx_tpu_torch.solver import build_schur_executor
+
+    asm = chip_smoke.arterial_assembler(P, chip_smoke.GENERATIONS, chip_smoke.N_CELLS)
+    ex = build_schur_executor(asm, P.SolverOptions(), device=dev)
+    R, f, sp, ep = ex.upload(*ex.prepare_args(*asm.schur_arguments()))
+    dp, plan = ex.device_plan, ex.device_plan.plan
+    Rm, fm, _ = asm.coefficient_modes()
+    _, w, _, Ftot, const = condense.condense_plain(plan, asm.network.N, asm.flux_degree, ex._h_e, R, f,
+                                                   Rm, fm, sp, ep)
+    out = {}
+    rec = timed_call(lambda: tree_sweep.tree_sweep(dp, w, const, Ftot), reps=50)
+    lam, norm, d, r, wn = tree_sweep.tree_sweep(dp, w, const, Ftot)
+    rec.update({"lambda_sha256": _digest(lam), "d_r_wn_sha256": _digest(d, r, wn),
+                "rhs_norm": _float_hex(norm),
+                "plain_ms": chip_smoke.cuda_ms(lambda: tree_sweep.tree_sweep_plain(plan, w, const, Ftot),
+                                               reps=5)})
+    if hasattr(dp, "sweep"):
+        sw = dp.sweep
+        rec["sweep_plan"] = {"cut": sw.cut, "top_nodes": sw.top_nodes, "blocks": sw.blocks,
+                             "group": sw.group, "threads": sw.threads, "block_nodes": sw.block_nodes,
+                             "cuda_launches": tree_sweep.cuda_launches(dp)}
+    out["headline"] = rec
+
+    solver = ShardedNetworkSolver(asm, devices=[dev] * chip_smoke.SHARD_TREE["D"])
+    solver.assemble()
+    solver.solve()
+    bex = solver._blocked_exec
+    lp = bex.local[dev]
+    fws = [bex.forward(i, *a) for i, a in enumerate(bex.prepare_args(*solver._coeff_args))]
+    ins = [(fw.w, fw.const, fw.Ftot) for fw in fws]
+    lam_T = torch.full((bex.plan.Tn,), 0.25, dtype=torch.float64, device=dev)  # any λ_T: both ports
+    lam0s = [shard_blocked.lam_ext(sh["tables"], fw.d, fw.r, fw.wn, lam_T) for sh, fw in zip(bex.shards, fws)]
+
+    def forward_all():
+        return [tree_sweep.tree_sweep_forward(lp, *a) for a in ins]
+
+    def backward_all():
+        return [tree_sweep.tree_sweep_backward(lp, fw.d, fw.r, fw.wn, l0.clone())
+                for fw, l0 in zip(fws, lam0s)]
+
+    halves = {}
+    for key, fn in (("forward", forward_all), ("backward", backward_all)):
+        rec = timed_call(fn, reps=20)
+        res = fn()
+        if key == "forward":
+            rec["d_r_wn_sha256"] = _digest(*(t for d_, r_, wn_, _ in res for t in (d_, r_, wn_)))
+            rec["rhs_sq"] = [_float_hex(q) for *_, q in res]
+        else:
+            rec["lambda_sha256"] = _digest(*res)
+        halves[key] = rec
+    if hasattr(lp, "sweep"):
+        halves["sweep_plan"] = {"cut": lp.sweep.cut, "blocks": lp.sweep.blocks,
+                                "launches_forward": tree_sweep.cuda_launches(lp, tree_sweep.FORWARD),
+                                "launches_backward": tree_sweep.cuda_launches(lp, tree_sweep.BACKWARD)}
+    out["sharded_tree_8_shards"] = halves
+    return out
+
+
+def core_times(dev) -> dict:
+    """``--select core``: K12a on the port that ``sys.path`` finds first
+    (either port's interface), on the inputs the tree executor gives the
+    core: web2k (7 rounds, a 628-node tail), the 128² lattice's forced
+    fronts (fronts128: 28 rounds) and the web48 golden's forced plans; on
+    each the rounds alone (the tail and fronts left out) and the whole core
+    solve with :func:`timed_call`'s figures, and the SHA-256 of λ_core; web2k's
+    executor with its device µs by source."""
+    import dataclasses
+
+    from networks_fenicsx_tpu_torch.kernels import core_elim
+
+    cases = {"web2k": (chip_smoke.web2k_assembler(P), None)}
+    grid = chip_smoke.grid128_assembler(P)
+    cases["fronts128"] = (grid, chip_smoke.nd_tree_plan(P, grid, **chip_smoke.FRONTS_KWARGS))
+    web48 = chip_smoke.golden_web48(P)
+    for key, plan in chip_smoke.forced_plans_web48(P, web48).items():
+        cases[f"web48-{key}"] = (web48, plan)
+    out = {}
+    for name, (asm, tree_plan) in cases.items():
+        inp = chip_smoke.core_inputs(P, asm, dev, tree_plan)
+        dcp, dc, rc, w = inp["dcp"], inp["dc"], inp["rc"], inp["w_pairs"]
+        rounds_only = dataclasses.replace(dcp, fronts=(), dense_nodes=dcp.dense_nodes[:0],
+                                          dp_init=dcp.dp_init[:0])
+        rec = {"rounds": len(dcp.rounds), "n_core": dcp.n_core,
+               "tail": int(dcp.dense_nodes.shape[0]), "fronts": len(dcp.fronts)}
+        timed = name in ("web2k", "fronts128")
+        for key, plan_ in (("rounds", rounds_only), ("whole", dcp)):
+            lam = core_elim.core_elim(plan_, dc, w, rc)
+            part = {"lambda_sha256": _digest(lam)}
+            if timed:
+                part.update(timed_call(lambda plan_=plan_: core_elim.core_elim(plan_, dc, w, rc), reps=10))
+            rec[key] = part
+        if hasattr(core_elim, "launch_grid"):
+            rec["launch_grid"] = core_elim.launch_grid(dcp, dev.index or 0)
+        rec["cuda_launches"] = core_elim.cuda_launches(dcp)
+        out[name] = rec
+        if name == "web2k":
+            solver = P.Solver(asm, device=dev)
+            solver.solve()
+            ex = solver._executor
+            out["web2k_executor"] = _executor_record(ex, ex.prepare_args(*asm.schur_arguments()))
     return out
 
 
@@ -1603,15 +1722,18 @@ def main() -> int:
                     help="time the redesigned kernels (K21b, K10, K12a, K11, K12b, K19c's coarsest "
                          "level, K22-reduce, K16, K17) beside their library calls instead of a path")
     ap.add_argument("--select", choices=("all", "lattice", "redesign", "krylov", "mf", "windows",
-                                         "mg1d", "dist", "level", "gather", "fronts", "tsolve"),
+                                         "mg1d", "dist", "level", "gather", "fronts", "tsolve",
+                                         "blocked", "core"),
                     default="all",
                     help="with --kernels: every entry, K16 and K17 alone, K6, K19c, K21a, K18, "
                          "K19a and K19e alone, K19a and K19e alone, K13-K15 on the web, "
                          "chip_smoke's launch-count cases in 20 profiler windows each, K19d on "
                          "skinny-mg, K22c on the sharded forest, K7 on the forest and callable "
                          "paths, K19b on web-cg, the tiled Cholesky's kernels (K12b on fronts128, "
-                         "K11 at 455 and 4,096, K19c's coarsest factor) by launch kind, or the T "
-                         "solve on the sharded forest's and a 7-node T")
+                         "K11 at 455 and 4,096, K19c's coarsest factor) by launch kind, the T "
+                         "solve on the sharded forest's and a 7-node T, K2-K4 on the headline and "
+                         "the sharded tree's shards, or K12a on web2k, fronts128 and web48's forced "
+                         "plans")
     ap.add_argument("--diff", type=pathlib.Path, nargs=2, default=None, metavar=("A", "B"),
                     help="compare the vectors of two --select mf, mg1d, level or gather --out runs (.npz) "
                          "and exit")
@@ -1634,7 +1756,8 @@ def main() -> int:
                      "krylov": krylov_times, "mf": mf_times, "windows": window_probe,
                      "mg1d": mg1d_times, "dist": dist_times, "level": level_times,
                      "gather": gather_times, "fronts": fronts_times,
-                     "tsolve": tsolve_times}[args.select]
+                     "tsolve": tsolve_times, "blocked": blocked_times,
+                     "core": core_times}[args.select]
             rec = {"card": card, "port": str(pathlib.Path(P.__file__).resolve().parent),
                    **times(torch.device("cuda", 0))}
         else:
