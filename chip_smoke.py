@@ -95,6 +95,11 @@ DOFS = 5_341_102
 TOL = 1e-12  # kernel vs plain and port vs plain, times max(1, max |plain|)
 SWEEP_LAUNCHES = 3  # K2–K4 on the headline tree: subtree blocks, the top, subtree blocks (were 31)
 CORE_LAUNCHES = 2  # K12a's own a core solve: the rounds forward, the rounds back (web2k: were 36 + 31 K10)
+# K9's a solve (tree.cuda_launches' peel term): the 100k web's 4 rounds of >= 1,024 nodes a grid
+# launch each way and its 14 narrower in one block each way; web1000's 11 in one block each way
+# (were 4 a round and the core's gather and scatter: 74 and 46)
+PEEL_LAUNCHES = {"web": 10, "web1000": 2}
+STAR_LEAVES = 100  # the star's leaves peeled into its hub in one round: a fold of two levels
 REPS = 20  # timed launches per kernel
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FP64_FLOPS = 34e12  # H100 SXM float64 peak outside the tensor cores: element-wise, matvec work
@@ -837,17 +842,20 @@ def golden_web48(P):
     return asm
 
 
-def compare_cyclic_kernels(P, asm, device, timed: bool, force_mf_leaf: int | None = None) -> dict:
+def compare_cyclic_kernels(P, asm, device, timed: bool, force_mf_leaf: int | None = None,
+                           keep_case: bool = False) -> dict:
     """Each cyclic kernel against its plain version on the inputs the tree
     executor gives it, on the card: the bifurcation system (K9 with K6),
-    the round folds (K10), the peel rounds around one plain core solve (K9),
+    the round folds (K10), the peel rounds around one plain core solve (K9,
+    bit for bit with ``peel_plain`` and ``peel_table_plain``),
     the dense core (K11) where the core has at most 512 nodes, and the
     multifrontal factor and apply (K13–K15) where there is a multifrontal
     plan (``force_mf_leaf`` forces one on a small core, as ``_tree_plan=``
     does).  The refined core solutions are held at ``CYCLIC_TOL``, the rest
     at ``TOL``; so are the unrefined ones (``*_unrefined``: no refinement
     pass, which would hide an error of the factor or the sweeps), K15's on
-    the kernel's own factor, so that only the sweeps differ."""
+    the kernel's own factor, so that only the sweeps differ.  ``keep_case``
+    adds ``_peel_case``, K9's ``(plan, dr, w_pairs)``, for its launch counts."""
     from networks_fenicsx_tpu_torch import levels
     from networks_fenicsx_tpu_torch.kernels import (
         dense_core, edge_data, fold, mf_apply, mf_factor, peel, segsum,
@@ -905,8 +913,9 @@ def compare_cyclic_kernels(P, asm, device, timed: bool, force_mf_leaf: int | Non
         # bit for bit (tolerance 0), one launch a fold
         "fold_apply": (counted_folds(fold_all(fold.fold_apply, checked), len(checked)),
                        fold_all(fold.fold_apply_plain, checked), 0.0),
+        # bit for bit (tolerance 0) on the same core solution
         "peel": (lambda: peel.peel(dtp, dr, w_pairs, plain_core),
-                 lambda: peel.peel_plain(dtp, dr, w_pairs, plain_core), TOL),
+                 lambda: peel.peel_plain(dtp, dr, w_pairs, plain_core), 0.0),
     }
     # K9 is timed around a trivial core solve, so that the time is the rounds';
     # K10 on the peel rounds' folds alone
@@ -939,7 +948,9 @@ def compare_cyclic_kernels(P, asm, device, timed: bool, force_mf_leaf: int | Non
     work, library = cyclic_work(dtp, ed, dr, w_edges, w_pairs, dc, rc, folds, dmf,
                                 st if dmf is not None else None)
     record = {"rounds": len(dtp.rounds), "core": dtp.core_size,
-              "groups": None if dmf is None else len(dmf.plan.groups)}
+              "groups": None if dmf is None else len(dmf.plan.groups),
+              "peel_fold_levels": max((len(rd.fold) for rd in dtp.rounds), default=0),
+              "peel_launches": peel.cuda_launches(dtp)}
     if dmf is not None:
         # the kernels' fronts before the factor (the extend-add through rel)
         # are the gather through lminv's bit for bit, on the kernel's pools
@@ -961,7 +972,31 @@ def compare_cyclic_kernels(P, asm, device, timed: bool, force_mf_leaf: int | Non
             record[name].update(bound(*work[name]))
             if name in library:
                 record[name]["library_ms"] = cuda_ms(library[name], reps=5)
+    # K9 against the plain version in the kernels' order, and its depth (dependent rounds)
+    assert torch.equal(peel.peel(dtp, dr, w_pairs, plain_core),
+                       peel.peel_table_plain(dtp, dr, w_pairs, plain_core))
+    record["peel"].update({"table_plain_equal": True, "depth": 2 * len(dtp.rounds)})
+    if keep_case:
+        record["_peel_case"] = (dtp, dr, w_pairs)
     return record
+
+
+def star_assembler(P, leaves: int = STAR_LEAVES):
+    """A hub on a triangle of bifurcations with ``leaves`` leaf bifurcations,
+    each with a boundary stub, at N = 2 with :func:`forest_forms`: one peel
+    round takes every leaf into the hub, whose fold row of ``leaves`` terms
+    has two levels; the triangle is a 3-node dense core."""
+    ang = np.linspace(0.0, 2 * np.pi, leaves, endpoint=False)
+    ring = np.stack([np.cos(ang), np.sin(ang)], 1)
+    leaf = 3 + np.arange(leaves)
+    net = P.mesh.ArrayNetwork(
+        pos=np.concatenate([[[0.0, 0.0], [0.3, 0.1], [0.1, 0.3]], 2 * ring, 3 * ring]),
+        edges=np.concatenate([[[0, 1], [1, 2], [2, 0]],
+                              np.stack([np.zeros(leaves, np.int64), leaf], 1),
+                              np.stack([leaf, leaf + leaves], 1)]).astype(np.int64))
+    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(net, N=2, color_strategy="fast"))
+    forest_forms(asm)
+    return asm
 
 
 def three_level_fold(device) -> tuple:
@@ -1165,7 +1200,10 @@ def cyclic_main_path(P, device, label: str, build, expect: dict, attach: bool = 
     for name in ("lambda_system", "peel", *used, *CYCLIC_SHARED):
         assert launches[name] >= 1, (name, launches)
     assert all(launches[name] == 0 for name in unused), launches
-    assert launches["fold_apply"] >= 1 or not dtp.rounds, launches
+    # K10 runs in the core engines only (the multifrontal refinement, K12b's fronts): K9 sums
+    # its own folds
+    folds = (dtp.mf is not None and dtp.mf.plan.n_refine > 0) or "fold_apply" in used
+    assert (launches["fold_apply"] >= 1) == folds, launches
 
     info = solver.info
     x = solver.solution_vector()
@@ -2870,6 +2908,36 @@ def sweep_core_launch_counts(sweep_case, core_cases, device) -> dict:
     return out
 
 
+PEEL_PATTERN = r"\bpeel_(grid|block)_(forward|back)_kernel\b"  # K9's
+
+
+def peel_launch_counts(cases: dict, device) -> dict:
+    """K9's device launches of one peel solve (around a Jacobi core, whose
+    division is PyTorch's) on the 100k web and web1000: as the launchers
+    report them (``peel.device``) and as ``torch.profiler`` counts the
+    kernels in the same window (:func:`launch_count_windows`).  Fails unless
+    both equal :data:`PEEL_LAUNCHES` and ``peel.cuda_launches``."""
+    from networks_fenicsx_tpu_torch.kernels import peel
+
+    out = {}
+    for key, (dtp, dr, w_pairs) in cases.items():
+        assert peel.cuda_launches(dtp) == PEEL_LAUNCHES[key], (key, peel.cuda_launches(dtp))
+
+        def run(dtp=dtp, dr=dr, w_pairs=w_pairs):
+            before = peel.peel.device
+            peel.peel(dtp, dr, w_pairs, lambda dc, rc: rc / dc)
+            return peel.peel.device - before
+
+        run()
+        torch.cuda.synchronize()
+        counted_window(lambda: 0, PEEL_PATTERN, device)  # a process's first starts the tracer
+        windows = launch_count_windows(run, PEEL_PATTERN, device)
+        out[f"k9_{key}"] = check_launch_windows(f"k9_{key}", windows, PEEL_LAUNCHES[key])
+        # before: 4 a round, the core's gather and scatter
+        out[f"k9_{key}"]["before"] = 4 * len(dtp.rounds) + 2
+    return out
+
+
 def compare_krylov_kernels(P, asm, device) -> dict:
     """Set (k): K19a and K19b against their plain versions on the web's λ
     system: one K19b matvec and residual, K19a's Chebyshev start, the
@@ -4514,7 +4582,8 @@ def main() -> int:
 
     cyc = {}
     web = web_assembler(P)
-    cyc["a"] = compare_cyclic_kernels(P, web, device, timed=True)
+    cyc["a"] = compare_cyclic_kernels(P, web, device, timed=True, keep_case=True)
+    peel_cases = {"web": cyc["a"].pop("_peel_case")}
     log("phase kernels-cyclic (a) 100k web with anastomoses, N=8, edge R, cell f, k=2: "
         + json.dumps(cyc["a"]))
     del web
@@ -4526,12 +4595,19 @@ def main() -> int:
     cyc["d"] = compare_cyclic_kernels(P, golden_web48(P), device, timed=False, force_mf_leaf=4)
     log("phase kernels-cyclic (d) web48 golden, N=2, multifrontal forced (leaf 4): "
         + json.dumps(cyc["d"]))
-    cyc["e"] = compare_cyclic_kernels(P, web_assembler(P, sites=1_000), device, timed=True)
+    cyc["e"] = compare_cyclic_kernels(P, web_assembler(P, sites=1_000), device, timed=True,
+                                      keep_case=True)
+    peel_cases["web1000"] = cyc["e"].pop("_peel_case")
     log("phase kernels-cyclic (e) 1k web with anastomoses, N=8, edge R, cell f, k=2, dense core: "
         + json.dumps(cyc["e"]))
+    cyc["f"] = compare_cyclic_kernels(P, star_assembler(P), device, timed=False)
+    log(f"phase kernels-cyclic (f) a star of {STAR_LEAVES} leaves on a triangle, N=2, edge R, "
+        "cell f, k=1, K9's fold of two levels: " + json.dumps(cyc["f"]))
     assert (cyc["a"]["rounds"], cyc["a"]["core"], cyc["b"]["core"], cyc["c"]["core"]) == (
         18, 52_571, 6_206, 110)
     assert (cyc["e"]["rounds"], cyc["e"]["core"]) == (11, 455), cyc["e"]
+    star = (cyc["f"]["rounds"], cyc["f"]["core"], cyc["f"]["peel_fold_levels"])
+    assert star == (1, 3, 2), cyc["f"]
 
     web = cyclic_main_path(P, device, "web main path", lambda: web_assembler(P), WEB_SIZES)
     cyclic_timing(P, web, forest_forms, "web", name_power)
@@ -4578,6 +4654,9 @@ def main() -> int:
     log("phase K2–K4 and K12a launches (a headline sweep; a web2k and a fronts128 core solve's "
         "rounds; reported and profiled): "
         + json.dumps(sweep_core_launch_counts(sweep_case, mid.pop("launch_cases"), device)))
+    log("phase K9 launches (a peel solve on the 100k web and on web1000; reported and profiled, "
+        "the counts before beside them): " + json.dumps(peel_launch_counts(peel_cases, device)))
+    del peel_cases
     log("phase panel launches (the tiled Cholesky's panels and trailing updates in one call, "
         "device µs by the profiler, None where it recorded none): "
         + json.dumps(panel_launch_phase(P, device)))
@@ -4618,7 +4697,7 @@ def main() -> int:
             errs = tuple(gen_sets[on][key]["max_abs_err"] for on, key in checks)
             timed_on = gen_sets[checks[0][0]][checks[0][1]]
         else:
-            errs = tuple(cyc[c][key]["max_abs_err"] for c in "abcde"
+            errs = tuple(cyc[c][key]["max_abs_err"] for c in "abcdef"
                          for key in (name, name + "_unrefined") if key in cyc[c]) + lattice_errs
             errs += tuple(rec[key]["max_abs_err"] for rec in core.values()
                           for key in (name, name + "_unrefined") if key in rec)

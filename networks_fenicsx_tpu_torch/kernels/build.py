@@ -97,18 +97,8 @@ _SIGNATURES = {
         _p, _p, _p, _p,  # w, vt, vs, stream
     ],
     "nxfx_rhs_norm": [_i, _p, _p, _p],  # B, dr, out, stream
-    "nxfx_peel_forward": [
-        _i, _p, _p, _p, _i,  # n, elim, parents, pair_ids, has_pairs
-        _p, _p,  # w_pairs, dr
-        _p, _p, _p, _p, _p,  # w, db, rb, terms, stream
-    ],
-    "nxfx_peel_parents": [_i, _p, _p, _p, _p],  # U, upar, s, dr, stream
-    "nxfx_core_gather": [_i, _p, _p, _p, _p, _p],  # n, nodes, dr, dc, rc, stream
-    "nxfx_core_scatter": [_i, _p, _p, _p, _p],  # n, nodes, x, lam, stream
-    "nxfx_peel_back": [
-        _i, _p, _p,  # n, elim, parents
-        _p, _p, _p, _p, _p,  # w, db, rb, lam, stream
-    ],
+    "nxfx_peel_forward": [_p, _p, _p],  # PeelArgs, host table, stream
+    "nxfx_peel_back": [_p, _p, _p],  # PeelArgs, host table, stream
     "nxfx_dense_core": [
         _i, _i, _i, _p, _p, _p, _p,  # n, P0, n_refine, ci, cj, pid, w_pairs
         _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,  # dc, rc, Lc, C, s, v, y, x, ok, stream

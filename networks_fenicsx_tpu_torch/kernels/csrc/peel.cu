@@ -2,8 +2,8 @@
 // the assembly of that Laplacian from the condensed edge data.
 //
 // Replaces networks_fenicsx_tpu/solver.py:_tree_eliminate_factor and
-// _tree_eliminate_apply (the rounds), and the elementwise part of
-// _lambda_system_sorted.  The diagonal d and rhs r live interleaved,
+// _tree_eliminate_apply (the rounds, :3678-3812), and the elementwise part
+// of _lambda_system_sorted.  The diagonal d and rhs r live interleaved,
 // dr[2 b] = d_b, dr[2 b + 1] = r_b.
 //   prepare, per edge:  w = 1 / W,  const = (-p_s [s not bif] + p_t [t not bif] - g) / W,
 //                       (w, const + Ftot) for the target side, (w, -const) for the source side
@@ -11,19 +11,74 @@
 //   |r| over the assembled r (the convergence gate's rhs norm)
 //   forward, per round, for each eliminated node e with parent p over pair q:
 //       w = w_pairs[q] (0 without a parent),  db = d_e,  factor = w / db,  rb = r_e
-//       terms (-w factor, factor rb), folded per unique parent by K10, then
-//       d_p += fold_d,  r_p += fold_r  (unique parents: one writer each)
-//   core: (d, r) of the core nodes out, the core's solution back in
+//       saved (w, db, rb); the terms (-w factor, factor rb) folded per
+//       unique parent (K10's fold, summed by the parent's thread as it reads
+//       them), then d_p += fold_d,  r_p += fold_r, into a working copy of
+//       the updated nodes (a node is read from the assembled system until a
+//       round updates it: the table names each read's copy, so the system is
+//       neither copied nor written)
+//   core: (d, r) of the core nodes out, the core's solution x back in
 //   back, rounds reversed:  lambda_e = (rb + w lambda_p) / db
 //
-// Bound: launch latency.  A round is O(n_r) doubles, and the rounds are
-// sequential (18 on the 100k-site web, a few hundred on near-tree webs):
-// three launches forward and one back per round.  The reference folds the
-// parent sums back through a B-sized inverse-map gather per round (a
-// scatter workaround on the TPU); here the unique parents are written
-// directly.  The saved (w, db, rb) of every round is one flat stream.
+// The rounds walk one packed table (ops/peel_table.py, checked once per
+// executor) in a few launches a direction, their order on the host's launch
+// lists.  A round needs no barrier between its terms and its fold: a unique
+// parent's thread makes each child's terms as it reads its fold row (the
+// products and the order of the plain version) and adds the row's sum into
+// d_p and r_p; a fold of more than one level (a parent with more than 64
+// children in the round) writes its earlier levels to the work buffer, a
+// phase each.
+//   * A round of at least the cut width (1,024 eliminated nodes) is a grid
+//     launch a fold level, the launch boundary its barrier.  Its fields are
+//     a kernel parameter and its first fold level is read as (child, pair)
+//     entries, so a thread's chain is its entries, then their d, r and w.
+//   * A run of narrower rounds is one block of 1,024 threads in shared
+//     memory: the (d, r) of the nodes it touches in local slots, its
+//     children's conductances and saved values, its round rows and its
+//     staged words (cp.async), a __syncthreads() a round and a fold level,
+//     and no device-memory store until its end (the saved stream, the
+//     (d, r) of the slots it does not eliminate, their core gathers; back,
+//     lambda of the slots it eliminates).
+// The core's gather rides on the first forward launch (the nodes no round
+// updates) and on each core node's last update (its parent's thread writes
+// dc, rc; a run at its end), its scatter on the last back launch; the back
+// pass reads a core parent's lambda from x, so no launch waits for the
+// scatter.  (One cooperative launch a direction, a grid barrier between the
+// entries, measured slower on an H100: PERF.md.)
+//
+// Bound: the rounds' dependent latency (a round is a few dependent gathers
+// and a division: ~0.8 us a round forward in a run, the grid launches
+// 2-6 us each), not bytes: the 100k-site web's 18 rounds move ~3 MB.
+// Each eliminated node and unique parent has one thread, the elimination
+// set is independent of its parents and the parents are unique, so each
+// output has one writer; what a launch writes it reads after a barrier, so
+// dr, the work buffer and lambda are not __restrict__.  -fmad=false keeps
+// every rounding the plain version's.
 
 #include <cuda_runtime.h>
+
+#include "fold.cuh"
+#include "level_walk.cuh"
+
+// The launches' arguments (kernels.peel's _PeelArgs, a ctypes mirror).
+struct PeelArgs {
+    int has_pairs, n_peeled, B;
+    const int* tab;
+    const double* w_pairs;
+    const double* dr;  // the assembled system (B, 2), never written
+    double* wk;        // (B, 2): the (d, r) of the nodes a round updated
+    double* work;
+    double* dc;
+    double* rc;
+    const double* x;
+    double* lam;
+};
+
+// a launch entry of the table (ops/peel_table.py), passed by value
+struct PeelEntry {
+    int kind, first, last, level, blocks, duty;
+    int lo, hi, slots, S, bsrc, wsrc, smem, ssrc;  // a block run's staged words, slots and shared memory
+};
 
 namespace {
 
@@ -77,77 +132,453 @@ __global__ void rhs_norm_kernel(int B, const double* __restrict__ dr, double* __
     if (threadIdx.x == 0) out[0] = sqrt(part[0]);
 }
 
-__global__ void peel_forward_kernel(
-    int n,
-    const int* __restrict__ elim,
-    const int* __restrict__ parents,
-    const int* __restrict__ pair_ids,
-    int has_pairs,
-    const double* __restrict__ w_pairs,
-    const double* __restrict__ dr,
-    double* __restrict__ w_out,
-    double* __restrict__ db_out,
-    double* __restrict__ rb_out,
-    double* __restrict__ terms)  // (n, 2)
+
+// ---------------------------------------------------------------- the rounds
+
+// the table's layout (ops/peel_table.py)
+enum { H_B, H_P, H_ROUNDS, H_NPEEL, H_NCORE, H_CORE, H_EARLY, H_NEARLY, H_WORK, H_NFWD, H_FWD, H_NBACK,
+       H_BACK, HEAD_WORDS };
+enum { R_N, R_U, R_OFF, R_ELIM, R_PAR, R_PID, R_BPAR, R_UPAR, R_UCORE, R_LELIM, R_LPAR, R_LUPAR, R_ESRC, R_USRC,
+       R_FSRC, R_FPID, R_FOLD };
+constexpr int FOLD_MAX = 8;
+constexpr int FOLD_WORDS = 1 + 4 * FOLD_MAX;
+constexpr int ROUND_WORDS = R_FOLD + FOLD_WORDS;
+enum { E_KIND, E_FIRST, E_LAST, E_LEVEL, E_BLOCKS, E_DUTY, E_LO, E_HI, E_SLOTS, E_S, E_BSRC, E_WSRC, E_SMEM,
+       E_SSRC, ENTRY_WORDS };
+enum { GRID, BLOCK, DUTY };
+constexpr int GRID_THREADS = 256;   // a grid entry's block
+constexpr int BLOCK_THREADS = 1024;  // a block entry's
+
+__device__ __forceinline__ const int* round_row(const int* tab, int k)
 {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const int e = elim[i];
-    const int q = pair_ids[i];
-    const double w = (has_pairs && parents[i] >= 0) ? w_pairs[q >= 0 ? q : 0] : 0.0;
-    const double db = dr[2 * e];
-    const double factor = w / db;
-    const double rb = dr[2 * e + 1];
-    w_out[i] = w;
-    db_out[i] = db;
-    rb_out[i] = rb;
-    terms[2 * i] = -w * factor;
-    terms[2 * i + 1] = factor * rb;
+    return tab + HEAD_WORDS + static_cast<size_t>(k) * ROUND_WORDS;
 }
 
-__global__ void peel_parents_kernel(
-    int U, const int* __restrict__ upar, const double* __restrict__ s, double* __restrict__ dr)
+inline PeelEntry entry_at(const int* w)
 {
-    const int u = blockIdx.x * blockDim.x + threadIdx.x;
-    if (u >= U) return;
-    const int p = upar[u];
-    dr[2 * p] = dr[2 * p] + s[2 * u];
-    dr[2 * p + 1] = dr[2 * p + 1] + s[2 * u + 1];
+    return {w[E_KIND], w[E_FIRST], w[E_LAST], w[E_LEVEL], w[E_BLOCKS], w[E_DUTY], w[E_LO],
+            w[E_HI], w[E_SLOTS], w[E_S], w[E_BSRC], w[E_WSRC], w[E_SMEM], w[E_SSRC]};
 }
 
-__global__ void core_gather_kernel(
-    int n, const int* __restrict__ nodes, const double* __restrict__ dr,
-    double* __restrict__ dc, double* __restrict__ rc)
+// a node's current (d, r): source v < B in the assembled system, B + v in
+// the working copy (a round updated it)
+__device__ __forceinline__ const double* current(const PeelArgs& A, int src)
 {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const int b = nodes[i];
-    dc[i] = dr[2 * b];
-    rc[i] = dr[2 * b + 1];
+    return src < A.B ? A.dr + 2 * static_cast<size_t>(src) : A.wk + 2 * static_cast<size_t>(src - A.B);
 }
 
-__global__ void core_scatter_kernel(
-    int n, const int* __restrict__ nodes, const double* __restrict__ x, double* __restrict__ lam)
+// One round's fields and one of its fold levels, as a grid launch takes
+// them (a kernel parameter: no load of the table's round row).
+struct GridRound {
+    int n, off, elim, par, pid, bpar, upar, ucore, esrc, usrc, fsrc, fpid;
+    int L, l, idx, rows, K, out, prev_out, prev_rows;  // fold level l of L
+};
+
+inline GridRound grid_round(const int* tab, int k, int l)
 {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    lam[nodes[i]] = x[i];
+    const int* rw = tab + HEAD_WORDS + static_cast<size_t>(k) * ROUND_WORDS;
+    const int* f = rw + R_FOLD;
+    const int* lv = f + 1 + 4 * l;
+    return {rw[R_N], rw[R_OFF], rw[R_ELIM], rw[R_PAR], rw[R_PID], rw[R_BPAR], rw[R_UPAR], rw[R_UCORE],
+            rw[R_ESRC], rw[R_USRC], rw[R_FSRC], rw[R_FPID], f[0], l, lv[0], f[0] ? lv[1] : 0, lv[2], lv[3],
+            l ? lv[-1] : 0, l ? lv[-3] : 0};
 }
 
-__global__ void peel_back_kernel(
-    int n,
-    const int* __restrict__ elim,
-    const int* __restrict__ parents,
-    const double* __restrict__ w,
-    const double* __restrict__ db,
-    const double* __restrict__ rb,
-    double* lam)  // read at the parents, written at the round's nodes
+// phase g.l of a round forward: level 0 writes the saved (w, db, rb) of the
+// round's nodes; each row of the fold level is summed (level 0 making the
+// children's terms as it reads them, from the row's children and pairs),
+// into the work buffer or, on the last level, into its parent (and the
+// parent's core slot on its last update)
+__device__ void forward_phase(const PeelArgs& A, const GridRound& g, int tid, int nth)
 {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const int p = parents[i];
-    const double lp = p >= 0 ? lam[p] : 0.0;
-    lam[elim[i]] = (rb[i] + w[i] * lp) / db[i];
+    const int* tab = A.tab;
+    const int items = (g.l == 0 && g.n > g.rows) ? g.n : g.rows;
+    double* sw = A.work + g.off;
+    double* sd = sw + A.n_peeled;
+    double* sr = sd + A.n_peeled;
+    for (int t = tid; t < items; t += nth) {
+        if (g.l == 0 && t < g.n) {
+            const double* v = current(A, tab[g.esrc + t]);
+            const int q = tab[g.pid + t];
+            sw[t] = (A.has_pairs && tab[g.par + t] >= 0) ? A.w_pairs[q >= 0 ? q : 0] : 0.0;
+            sd[t] = v[0];
+            sr[t] = v[1];
+        }
+        if (t >= g.rows) continue;
+        const int K = g.K;
+        double s0 = 0.0, s1 = 0.0;
+        if (g.l == 0) {
+            const int* node = tab + g.fsrc + static_cast<size_t>(t) * K;
+            const int* pair = tab + g.fpid + static_cast<size_t>(t) * K;
+#pragma unroll 4
+            for (int j = 0; j < K; ++j) {
+                const int e = node[j];
+                const int q = pair[j];
+                double v0 = 0.0, v1 = 0.0;
+                if (e >= 0) {
+                    const double* v = current(A, e);
+                    const double w = (A.has_pairs && q >= 0) ? A.w_pairs[q] : 0.0;
+                    const double factor = w / v[0];
+                    v0 = -w * factor;
+                    v1 = factor * v[1];
+                }
+                s0 = j == 0 ? v0 : s0 + v0;
+                s1 = j == 0 ? v1 : s1 + v1;
+            }
+        } else {
+            const int* row = tab + g.idx + static_cast<size_t>(t) * K;
+            const double* src = A.work + g.prev_out;  // level l - 1's output and its rows
+            s0 = fold::row_sum(row, K, src, g.prev_rows, 2, 0);
+            s1 = fold::row_sum(row, K, src, g.prev_rows, 2, 1);
+        }
+        if (g.l < g.L - 1) {
+            double* out = A.work + g.out;
+            out[2 * t] = s0;
+            out[2 * t + 1] = s1;
+        } else {
+            const int p = tab[g.upar + t];
+            const double* v = current(A, tab[g.usrc + t]);
+            const double d = v[0] + s0;
+            const double r = v[1] + s1;
+            A.wk[2 * p] = d;
+            A.wk[2 * p + 1] = r;
+            const int c = tab[g.ucore + t];
+            if (c >= 0) {
+                A.dc[c] = d;
+                A.rc[c] = r;
+            }
+        }
+    }
+}
+
+// a round back: lambda_e = (rb + w lambda_parent) / db, a core parent's from x
+__device__ void back_round(const PeelArgs& A, const GridRound& g, int tid, int nth)
+{
+    const int* tab = A.tab;
+    const double* sw = A.work + g.off;
+    const double* sd = sw + A.n_peeled;
+    const double* sr = sd + A.n_peeled;
+    for (int t = tid; t < g.n; t += nth) {
+        const int p = tab[g.bpar + t];
+        const double lp = p >= 0 ? A.lam[p] : (p == -1 ? 0.0 : A.x[-2 - p]);
+        A.lam[tab[g.elim + t]] = (sr[t] + sw[t] * lp) / sd[t];
+    }
+}
+
+// the core nodes no round updates: (dc, rc) from the assembled system
+__device__ void gather_duty(const PeelArgs& A, int tid, int nth)
+{
+    const int* tab = A.tab;
+    const int n = tab[H_NEARLY];
+    const int* early = tab + tab[H_EARLY];
+    const int* core = tab + tab[H_CORE];
+    for (int t = tid; t < n; t += nth) {
+        const int c = early[t];
+        const int b = core[c];
+        A.dc[c] = A.dr[2 * b];
+        A.rc[c] = A.dr[2 * b + 1];
+    }
+}
+
+// the core's solution into lambda
+__device__ void scatter_duty(const PeelArgs& A, int tid, int nth)
+{
+    const int* tab = A.tab;
+    const int n = tab[H_NCORE];
+    const int* core = tab + tab[H_CORE];
+    for (int t = tid; t < n; t += nth) A.lam[core[t]] = A.x[t];
+}
+
+// A staging loop with UNROLL items a thread in flight at once: load(i) for
+// i < n, a thread's items all loaded before any is stored
+constexpr int UNROLL = 4;
+
+template <typename Load, typename Store>
+__device__ __forceinline__ void stage(int n, Load load, Store store)
+{
+    for (int j = threadIdx.x; j < n; j += UNROLL * blockDim.x) {
+        decltype(load(0)) v[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            const int i = j + u * blockDim.x;
+            if (i < n) v[u] = load(i);
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            const int i = j + u * blockDim.x;
+            if (i < n) store(i, v[u]);
+        }
+    }
+}
+
+// n items from device to shared memory by cp.async, a thread's every
+// blockDim-th; the caller waits (wait_copies) before its barrier
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, int n)
+{
+    static_assert(sizeof(T) == 4 || sizeof(T) == 8, "cp.async copies 4 or 8 bytes here");
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+        if constexpr (sizeof(T) == 4)
+            level_walk::copy4(dst + j, src + j);
+        else
+            level_walk::copy8(dst + j, src + j);
+    }
+}
+
+__device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+struct Triple {
+    double a, b, c;
+};
+
+// A block run in shared memory: its round rows and its staged words [lo, hi)
+// (the rounds' local slots, core gathers and fold levels), after the run's
+// values; `base` is the saved offset of its first round.
+struct Run {
+    const int* rows;
+    const int* reg;
+    int first, lo, base, n;
+
+    __device__ const int* row(int k) const { return rows + (k - first) * ROUND_WORDS; }
+    __device__ const int* at(int off) const { return reg + (off - lo); }
+};
+
+// start copying the run's round rows and staged words into `words`
+// (cp.async: the caller waits before its barrier)
+__device__ Run stage_run(const PeelArgs& A, const PeelEntry& e, int* words)
+{
+    const int nr = e.last - e.first;
+    const int* rows = round_row(A.tab, e.first);
+    const int* last = round_row(A.tab, e.last - 1);
+    copy_async(words, rows, nr * ROUND_WORDS);
+    int* reg = words + nr * ROUND_WORDS;
+    copy_async(reg, A.tab + e.lo, e.hi - e.lo);
+    return Run{words, reg, e.first, e.lo, rows[R_OFF], last[R_OFF] + last[R_N] - rows[R_OFF]};
+}
+
+// the doubles before a run's words: the (d, r) of its slots (back: their
+// lambda) and its children's saved (w, d, r)
+__device__ __forceinline__ int run_doubles(const PeelArgs& A, const PeelEntry& e, bool forward)
+{
+    const int* first = round_row(A.tab, e.first);
+    const int* last = round_row(A.tab, e.last - 1);
+    const int n = last[R_OFF] + last[R_N] - first[R_OFF];
+    return (forward ? 2 : 1) * e.S + 3 * n;
+}
+
+// phase l of round k of a block run forward, on shared memory: D, Rr the
+// slots' (d, r), Sw, Sd, Sr the run's children's saved (w, d, r)
+__device__ void run_forward_phase(const Run& run, int k, int l, double* D, double* Rr, const double* Sw,
+                                  double* Sd, double* Sr, double* work)
+{
+    const int* rw = run.row(k);
+    const int n = rw[R_N];
+    const int q0 = rw[R_OFF] - run.base;
+    const int* lelim = run.at(rw[R_LELIM]);
+    const double* Wk = Sw + q0;
+    const int* f = rw + R_FOLD;
+    const int L = f[0];
+    const int* lv = f + 1 + 4 * l;
+    const int rows = L ? lv[1] : 0;
+    const int items = (l == 0 && n > rows) ? n : rows;
+    double* sd = Sd + q0;
+    double* sr = Sr + q0;
+    for (int t = threadIdx.x; t < items; t += blockDim.x) {
+        if (l == 0 && t < n) {
+            const int s = lelim[t];
+            sd[t] = D[s];
+            sr[t] = Rr[s];
+        }
+        if (t >= rows) continue;
+        const int K = lv[2];
+        const int* row = run.at(lv[0]) + static_cast<size_t>(t) * K;
+        double s0 = 0.0, s1 = 0.0;
+        if (l == 0) {
+#pragma unroll 4
+            for (int j = 0; j < K; ++j) {
+                const int i = row[j];
+                double v0 = 0.0, v1 = 0.0;
+                if (i >= 0 && i < n) {
+                    const int c = lelim[i];
+                    const double w = Wk[i];
+                    const double factor = w / D[c];
+                    v0 = -w * factor;
+                    v1 = factor * Rr[c];
+                }
+                s0 = j == 0 ? v0 : s0 + v0;
+                s1 = j == 0 ? v1 : s1 + v1;
+            }
+        } else {
+            const double* src = work + lv[-1];  // level l - 1's output and its rows
+            s0 = fold::row_sum(row, K, src, lv[-3], 2, 0);
+            s1 = fold::row_sum(row, K, src, lv[-3], 2, 1);
+        }
+        if (l < L - 1) {
+            double* out = work + lv[3];
+            out[2 * t] = s0;
+            out[2 * t + 1] = s1;
+        } else {
+            const int p = run.at(rw[R_LUPAR])[t];
+            D[p] = D[p] + s0;
+            Rr[p] = Rr[p] + s1;
+        }
+    }
+}
+
+// a block run forward: stage its slots' (d, r), its children's
+// conductances and its words, walk its rounds with a barrier a phase (no
+// device-memory store before a barrier: a barrier waits for them), then
+// write the saved stream, the (d, r) of the slots it does not eliminate and
+// their core gathers (a later launch's gather of a node it updates again
+// writes over it)
+__device__ void run_forward(const PeelArgs& A, const PeelEntry& e, double* smem)
+{
+    double* D = smem;
+    double* Rr = D + e.S;
+    double* Wc = Rr + e.S;
+    const Run run = stage_run(A, e, reinterpret_cast<int*>(smem + run_doubles(A, e, true)));
+    double* Sd = Wc + run.n;
+    double* Sr = Sd + run.n;
+    // the slots' (d, r) and the children's conductances, their gathers in flight together
+    const int* ssrc = A.tab + e.ssrc;
+    const int* wsrc = A.tab + e.wsrc;
+    stage(e.S > run.n ? e.S : run.n,
+          [&](int i) {
+              const double* v = i < e.S ? current(A, ssrc[i]) : nullptr;
+              const int p = i < run.n ? wsrc[i] : -1;
+              return Triple{v ? v[0] : 0.0, v ? v[1] : 0.0, (A.has_pairs && p >= 0) ? A.w_pairs[p] : 0.0};
+          },
+          [&](int i, Triple t) {
+              if (i < e.S) {
+                  D[i] = t.a;
+                  Rr[i] = t.b;
+              }
+              if (i < run.n) Wc[i] = t.c;
+          });
+    wait_copies();
+    __syncthreads();
+    for (int k = e.first; k < e.last; ++k) {
+        const int L = run.row(k)[R_FOLD];
+        for (int l = 0; l < (L > 1 ? L : 1); ++l) {
+            run_forward_phase(run, k, l, D, Rr, Wc, Sd, Sr, A.work);
+            __syncthreads();
+        }
+    }
+    double* saved = A.work + run.base;
+    for (int plane = 0; plane < 3; ++plane) {
+        const double* from = Wc + plane * run.n;
+        double* to = saved + static_cast<size_t>(plane) * A.n_peeled;
+        stage(run.n, [&](int q) { return from[q]; }, [&](int q, double v) { to[q] = v; });
+    }
+    const int* bsrc = A.tab + e.bsrc;
+    const int* slots = A.tab + e.slots;
+    stage(e.S, [&](int s) { return bsrc[s]; }, [&](int s, int c) {
+        if (c == -1) return;  // eliminated here: no later launch reads its (d, r)
+        const int v = slots[s];
+        A.wk[2 * v] = D[s];
+        A.wk[2 * v + 1] = Rr[s];
+        if (c <= -2) {
+            A.dc[-2 - c] = D[s];
+            A.rc[-2 - c] = Rr[s];
+        }
+    });
+}
+
+// a block run back: stage the lambda of the slots it does not eliminate
+// (from lambda or the core's x), its children's saved values and its words,
+// walk its rounds in reverse with a barrier a round, then write the lambda
+// of the slots it eliminates
+__device__ void run_back(const PeelArgs& A, const PeelEntry& e, double* smem)
+{
+    double* Lam = smem;
+    const Run run = stage_run(A, e, reinterpret_cast<int*>(smem + run_doubles(A, e, false)));
+    double* Sw = Lam + e.S;
+    double* Sd = Sw + run.n;
+    double* Sr = Sd + run.n;
+    const double* sw = A.work + run.base;
+    for (int plane = 0; plane < 3; ++plane)
+        copy_async(Sw + plane * run.n, sw + static_cast<size_t>(plane) * A.n_peeled, run.n);
+    const int* bsrc = A.tab + e.bsrc;
+    stage(e.S, [&](int s) { const int c = bsrc[s]; return c >= 0 ? A.lam[c] : (c == -1 ? 0.0 : A.x[-2 - c]); },
+          [&](int s, double v) { Lam[s] = v; });
+    wait_copies();
+    __syncthreads();
+    for (int k = e.last - 1; k >= e.first; --k) {
+        const int* rw = run.row(k);
+        const int n = rw[R_N];
+        const int q0 = rw[R_OFF] - run.base;
+        const int* lelim = run.at(rw[R_LELIM]);
+        const int* lpar = run.at(rw[R_LPAR]);
+        for (int t = threadIdx.x; t < n; t += blockDim.x) {
+            const int p = lpar[t];
+            const double lp = p >= 0 ? Lam[p] : 0.0;
+            Lam[lelim[t]] = (Sr[q0 + t] + Sw[q0 + t] * lp) / Sd[q0 + t];
+        }
+        __syncthreads();
+    }
+    const int* slots = A.tab + e.slots;
+    stage(e.S, [&](int s) { return bsrc[s]; }, [&](int s, int c) {
+        if (c == -1) A.lam[slots[s]] = Lam[s];  // the slots it eliminates
+    });
+}
+
+__global__ void __launch_bounds__(GRID_THREADS) peel_grid_forward_kernel(PeelArgs A, PeelEntry e, GridRound g)
+{
+    const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+    const int nth = gridDim.x * blockDim.x;
+    if (e.kind == GRID) forward_phase(A, g, tid, nth);
+    if (e.duty) gather_duty(A, tid, nth);
+}
+
+__global__ void __launch_bounds__(BLOCK_THREADS) peel_block_forward_kernel(PeelArgs A, PeelEntry e)
+{
+    extern __shared__ double smem[];
+    if (e.duty) gather_duty(A, threadIdx.x, blockDim.x);  // nodes the rounds never touch
+    run_forward(A, e, smem);
+}
+
+__global__ void __launch_bounds__(GRID_THREADS) peel_grid_back_kernel(PeelArgs A, PeelEntry e, GridRound g)
+{
+    const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+    const int nth = gridDim.x * blockDim.x;
+    if (e.kind == GRID) back_round(A, g, tid, nth);
+    if (e.duty) scatter_duty(A, tid, nth);
+}
+
+__global__ void __launch_bounds__(BLOCK_THREADS) peel_block_back_kernel(PeelArgs A, PeelEntry e)
+{
+    extern __shared__ double smem[];
+    run_back(A, e, smem);
+    if (e.duty) scatter_duty(A, threadIdx.x, blockDim.x);  // lambda at the core: nothing reads it here
+}
+
+// a kernel's dynamic shared memory above the default 48 KB
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes)
+{
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// a direction's entries as launches: the kernels enqueued, minus a CUDA error
+template <typename Grid, typename Block>
+int run_entries(const PeelArgs& A, const int* host, int count, int at, Grid grid, Block block,
+                cudaStream_t stream)
+{
+    PeelArgs args = A;
+    cudaError_t err;
+    for (int i = 0; i < count; ++i) {
+        const PeelEntry e = entry_at(host + at + i * ENTRY_WORDS);
+        if (e.kind == BLOCK) {
+            if ((err = allow_smem(block, e.smem)) != cudaSuccess) return -static_cast<int>(err);
+            block<<<1, BLOCK_THREADS, e.smem, stream>>>(args, e);
+        } else {
+            const GridRound g = e.kind == GRID ? grid_round(host, e.first, e.level) : GridRound{};
+            grid<<<e.blocks, GRID_THREADS, 0, stream>>>(args, e, g);
+        }
+        if ((err = cudaGetLastError()) != cudaSuccess) return -static_cast<int>(err);
+    }
+    return count;
 }
 
 }  // namespace
@@ -171,48 +602,20 @@ extern "C" int nxfx_rhs_norm(int B, const double* dr, double* out, cudaStream_t 
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int nxfx_peel_forward(
-    int n, const int* elim, const int* parents, const int* pair_ids, int has_pairs,
-    const double* w_pairs, const double* dr,
-    double* w, double* db, double* rb, double* terms,
-    cudaStream_t stream)
+
+// The rounds forward and the core's gather into dc, rc (A->dr the assembled
+// system, read; A->wk the updated nodes' (d, r); the work buffer's saved
+// stream and fold levels written).  `host` is the table on the host (its
+// launch lists).  Returns the kernels enqueued, or minus a CUDA error.
+extern "C" int nxfx_peel_forward(const PeelArgs* A, const int* host, cudaStream_t stream)
 {
-    if (n <= 0) return 0;
-    peel_forward_kernel<<<blocks_for(n), THREADS, 0, stream>>>(
-        n, elim, parents, pair_ids, has_pairs, w_pairs, dr, w, db, rb, terms);
-    return static_cast<int>(cudaGetLastError());
+    return run_entries(*A, host, host[H_NFWD], host[H_FWD], peel_grid_forward_kernel, peel_block_forward_kernel,
+                       stream);
 }
 
-extern "C" int nxfx_peel_parents(
-    int U, const int* upar, const double* s, double* dr, cudaStream_t stream)
+// The core's solution A->x scattered into lambda and the rounds back.
+extern "C" int nxfx_peel_back(const PeelArgs* A, const int* host, cudaStream_t stream)
 {
-    if (U <= 0) return 0;
-    peel_parents_kernel<<<blocks_for(U), THREADS, 0, stream>>>(U, upar, s, dr);
-    return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int nxfx_core_gather(
-    int n, const int* nodes, const double* dr, double* dc, double* rc, cudaStream_t stream)
-{
-    if (n <= 0) return 0;
-    core_gather_kernel<<<blocks_for(n), THREADS, 0, stream>>>(n, nodes, dr, dc, rc);
-    return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int nxfx_core_scatter(
-    int n, const int* nodes, const double* x, double* lam, cudaStream_t stream)
-{
-    if (n <= 0) return 0;
-    core_scatter_kernel<<<blocks_for(n), THREADS, 0, stream>>>(n, nodes, x, lam);
-    return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int nxfx_peel_back(
-    int n, const int* elim, const int* parents,
-    const double* w, const double* db, const double* rb, double* lam,
-    cudaStream_t stream)
-{
-    if (n <= 0) return 0;
-    peel_back_kernel<<<blocks_for(n), THREADS, 0, stream>>>(n, elim, parents, w, db, rb, lam);
-    return static_cast<int>(cudaGetLastError());
+    return run_entries(*A, host, host[H_NBACK], host[H_BACK], peel_grid_back_kernel, peel_block_back_kernel,
+                       stream);
 }

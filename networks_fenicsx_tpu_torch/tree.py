@@ -10,7 +10,7 @@ Laplacian ``L λ = rhs``:
    prepare pass and two K6 sums added into the sides' sorted unique bins)
    and the per-pair conductances ``w_pairs`` (K6);
 2. peel the degree-≤1 nodes in the plan's rounds, folding each round into
-   its parents (K9 with its K10 folds, :mod:`.kernels.peel`);
+   its parents (K9, :mod:`.kernels.peel`, on the packed round table);
 3. solve the cycle core as ``_tree_eliminate_factor/_apply`` dispatch
    (``:3718-3743``, ``:3777-3798``): by the tree multifrontal engine when
    its plan is an ``MFPlan`` (K13–K14 factor, K15 apply:
@@ -22,8 +22,9 @@ Laplacian ``L λ = rhs``:
 4. back-substitute the rounds in reverse (K9).
 
 :func:`device_tree_plan` precomputes, once per executor, every round's
-tables and fold levels and the core's index tensors, so a solve runs one
-launch loop over the rounds and nothing else per round in Python.
+tables and fold levels, the core's index tensors and the rounds packed and
+checked for K9 (:class:`.ops.peel_table.PeelTable`), so a solve makes one
+host call each way around the core and nothing per round in Python.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from .kernels.segsum import SumPlan
 from .levels import _LambdaPlan, _TreePlan, segsum_matrix
 from .ops.core_elim import CoreElimPlan, DeviceCorePlan, _plan_fold, device_core_plan
 from .ops.multifrontal import DeviceMFPlan, MFPlan, device_mf_plan
+from .ops.peel_table import PeelTable, peel_table
 
 __all__ = [
     "DeviceRound", "DeviceTreePlan", "cuda_launches", "device_tree_plan", "tree_schur_solve",
@@ -48,7 +50,8 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class DeviceRound:
-    """One peel round on the device.
+    """One peel round on the device (the plain version's; the kernels walk
+    :attr:`DeviceTreePlan.peel_table`).
 
     Attributes:
         elim: ``(n,)`` eliminated nodes (ascending, unique).
@@ -57,7 +60,6 @@ class DeviceRound:
         upar: ``(U,)`` sorted unique parents.
         fold: the K10 plan summing the round's ``n`` terms into ``upar``
             (``_plan_fold`` levels as int32 tensors; empty when ``U = 0``).
-        offset: the round's offset in the solve's saved ``(w, d, r)`` stream.
     """
 
     elim: torch.Tensor
@@ -65,7 +67,6 @@ class DeviceRound:
     pair_ids: torch.Tensor
     upar: torch.Tensor
     fold: tuple
-    offset: int
 
     @property
     def size(self) -> int:
@@ -95,6 +96,8 @@ class DeviceTreePlan:
         ce: the min-degree device plan when the core plan is a
             ``CoreElimPlan``, else None.
         num_bifurcations: B.
+        peel_table: the rounds and the core packed for K9 and checked
+            (:func:`.ops.peel_table.peel_table`).
         lambda_sums, pair_sums: the K6 plans (:class:`.kernels.segsum.SumPlan`)
             of the two sides' sums into one ``(B, 2)`` system and of the pair
             sum, validated at upload.
@@ -117,6 +120,7 @@ class DeviceTreePlan:
     mf: DeviceMFPlan | None
     ce: DeviceCorePlan | None
     num_bifurcations: int
+    peel_table: PeelTable
     lambda_sums: SumPlan = dataclasses.field(init=False, compare=False, repr=False)
     pair_sums: SumPlan = dataclasses.field(init=False, compare=False, repr=False)
 
@@ -136,10 +140,6 @@ class DeviceTreePlan:
     def core_size(self) -> int:
         return int(self.core_nodes.shape[0])
 
-    @property
-    def max_round(self) -> int:
-        return max((rd.size for rd in self.rounds), default=0)
-
 
 def round_tables(elim: np.ndarray, parents: np.ndarray) -> tuple[np.ndarray, tuple]:
     """``(upar, fold levels)`` of one round: its sorted unique parents and
@@ -158,7 +158,10 @@ def device_tree_plan(
     """Upload the peel rounds, the λ-system plan and the core to ``device``;
     the core runs the multifrontal engine when its plan is an
     :class:`.ops.multifrontal.MFPlan`, the min-degree elimination when it is
-    a :class:`.ops.core_elim.CoreElimPlan`, and the dense core otherwise."""
+    a :class:`.ops.core_elim.CoreElimPlan`, and the dense core otherwise.
+    The rounds are also packed into K9's checked table, cut at
+    :data:`.kernels.peel.CUT`, read here."""
+    from .kernels import peel
 
     def up(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
@@ -170,17 +173,19 @@ def device_tree_plan(
     ids = ep[sel]
     order = np.argsort(ids, kind="stable")
     pair_idx = segsum_matrix(ids[order], P, E, sel=sel[order])
-    rounds = []
+    rounds, packed = [], []
     off = 0
     for elim, parents, pair_ids in tree_plan.rounds:
         upar, fold = round_tables(elim, parents)
+        packed.append((elim, parents, pair_ids, upar, fold))
         rounds.append(DeviceRound(
             elim=up(elim), parents=up(parents), pair_ids=up(pair_ids), upar=up(upar),
-            fold=FoldPlan(up(lv) for lv in fold) if fold else (), offset=off,
+            fold=FoldPlan(up(lv) for lv in fold) if fold else (),
         ))
         off += int(elim.size)
     cp = np.asarray(tree_plan.core_pairs)
     lp = lam_plan
+    B = int(asm.network.num_multipliers)
     return DeviceTreePlan(
         plan=tree_plan,
         start_bif=up(asm._edge_start_bif),
@@ -200,27 +205,25 @@ def device_tree_plan(
             if isinstance(tree_plan.core_plan, MFPlan) else None),
         ce=(device_core_plan(tree_plan.core_plan, device)
             if isinstance(tree_plan.core_plan, CoreElimPlan) else None),
-        num_bifurcations=int(asm.network.num_multipliers),
+        num_bifurcations=B,
+        peel_table=peel_table(packed, tree_plan.core_nodes, B, P, device, cut=peel.CUT),
     )
 
 
 def cuda_launches(dtp: DeviceTreePlan) -> int:
     """CUDA kernel launches of one :func:`tree_schur_solve` on the card: the
     bifurcation system (prepare, the two sides' sums in one launch, norm)
-    and the pair sum; per peel round a forward pass, its fold and the
-    parent add, and a back pass; the core's gather and scatter and the core solve — the dense
+    and the pair sum; K9's (:func:`.kernels.peel.cuda_launches`: the peel
+    rounds with the core's gather and scatter) and the core solve — the dense
     core's (:func:`.kernels.dense_core.cuda_launches`), the min-degree
     elimination's (:func:`.kernels.core_elim.cuda_launches`), or the
     multifrontal factor's (:func:`.kernels.mf_factor.cuda_launches`: the
     values pass and one or two launches a level) and the apply's
     (:func:`.kernels.mf_apply.cuda_launches`)."""
-    from .kernels import core_elim, dense_core, mf_apply, mf_factor
+    from .kernels import core_elim, dense_core, mf_apply, mf_factor, peel
 
-    n = 3 + (1 if dtp.num_pairs else 0)
-    for rd in dtp.rounds:
-        n += 2 + (2 if rd.upar.shape[0] else 0)
+    n = 3 + (1 if dtp.num_pairs else 0) + peel.cuda_launches(dtp)
     if dtp.core_size:
-        n += 2
         if dtp.mf is not None:
             n += mf_factor.cuda_launches(dtp.mf) + mf_apply.cuda_launches(dtp.mf)
         elif dtp.ce is not None:

@@ -101,7 +101,10 @@ launch kind with each panel launch's µs (:func:`fronts_times`), and
 one (:func:`tsolve_times`); ``--select blocked`` K2–K4 on the headline tree
 and on each shard of the sharded tree (:func:`blocked_times`) and
 ``--select core`` K12a on web2k, fronts128 and web48's forced plans
-(:func:`core_times`), each with the SHA-256 of λ.
+(:func:`core_times`), each with the SHA-256 of λ; ``--select peel`` K9
+on the 100k web, web1000 and the star (:func:`peel_times`: launch by
+launch and, on a port with a peel table, at other cut widths, each with
+the SHA-256 of λ).
 ``--root``
 imports the port from another checkout (e.g. the parent commit unpacked
 with ``git archive``), so that two versions are compared in one call.
@@ -117,7 +120,7 @@ Otherwise the script
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
-    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist|level|gather|fronts|tsolve|blocked|core] [--root DIR] [--out kernels.json]
+    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist|level|gather|fronts|tsolve|blocked|core|peel] [--root DIR] [--out kernels.json]
     python3 scripts/profile_torch_main_path.py --diff parent.npz change.npz
 
 (``--generations`` sets the depth of ``blocked``, ``callable`` and ``p1tree``.)
@@ -939,6 +942,58 @@ def core_times(dev) -> dict:
     return out
 
 
+def peel_times(dev) -> dict:
+    """``--select peel``: K9 on the port that ``sys.path`` finds first
+    (either port's interface), on the inputs the tree executor gives it:
+    the 100k web (18 rounds), web1000 (11) and the star of chip_smoke's set
+    (f) (a fold of two levels).  Per case K9 around a Jacobi core (the
+    ``chip_smoke.py`` timed call) with :func:`timed_call`'s figures, each
+    launch's µs in issue order and the SHA-256 of λ; on a port with a peel table
+    (``DeviceTreePlan.peel_table``) the same at cut widths 2,048 and 4,096
+    (plans made anew)."""
+    from networks_fenicsx_tpu_torch import tree
+    from networks_fenicsx_tpu_torch.kernels import edge_data, peel, segsum
+
+    cases = {"web": chip_smoke.web_assembler(P),
+             "web1000": chip_smoke.web_assembler(P, sites=1_000)}
+    if hasattr(chip_smoke, "star_assembler"):
+        cases["star"] = chip_smoke.star_assembler(P)
+    out = {}
+    for name, asm in cases.items():
+        ex = build_schur_executor(asm, P.SolverOptions(), device=dev)
+        dtp = ex.device_plan
+        R, f, sp, ep = ex.upload(*ex.prepare_args(*asm.schur_arguments()))
+        Rm, fm, f_zero = asm.coefficient_modes()
+        ed = edge_data.edge_data_plain(dtp, ex._N, ex._k, ex._h_e, ex._quad_w, ex._quad_phi, R, f,
+                                       Rm, fm, f_zero, sp, ep)
+        dr, w_edges, _ = peel.lambda_system_plain(dtp, ed)
+        w_pairs = segsum.segsum_plain(dtp.pair_idx, w_edges)
+        rec = {"rounds": [rd.size for rd in dtp.rounds], "core": dtp.core_size}
+
+        def jacobi(dc, rc):
+            return rc / dc
+
+        shapes = {"default": dtp}
+        if hasattr(dtp, "peel_table"):
+            for cut in (2048, 4096):
+                saved, peel.CUT = peel.CUT, cut
+                try:
+                    shapes[f"cut{cut}"] = tree.device_tree_plan(dtp.plan, ex.lambda_plan, asm, dev)
+                finally:
+                    peel.CUT = saved
+        for key, plan in shapes.items():
+            def call(plan=plan):
+                return peel.peel(plan, dr, w_pairs, jacobi)
+            part = timed_call(call, reps=50)
+            part["launch_list"] = launch_list(call)
+            part["lambda_sha256"] = _digest(call())
+            if hasattr(peel, "cuda_launches"):
+                part["cuda_launches"] = peel.cuda_launches(plan)
+            rec[key] = part
+        out[name] = rec
+    return out
+
+
 def mf_times(dev) -> dict:
     """``--select mf``: K13–K14 and K15 on the 100k web's multifrontal core
     as its executor gives them (``dc``, ``w_pairs``, ``rc`` captured from a
@@ -1723,7 +1778,7 @@ def main() -> int:
                          "level, K22-reduce, K16, K17) beside their library calls instead of a path")
     ap.add_argument("--select", choices=("all", "lattice", "redesign", "krylov", "mf", "windows",
                                          "mg1d", "dist", "level", "gather", "fronts", "tsolve",
-                                         "blocked", "core"),
+                                         "blocked", "core", "peel"),
                     default="all",
                     help="with --kernels: every entry, K16 and K17 alone, K6, K19c, K21a, K18, "
                          "K19a and K19e alone, K19a and K19e alone, K13-K15 on the web, "
@@ -1732,8 +1787,8 @@ def main() -> int:
                          "paths, K19b on web-cg, the tiled Cholesky's kernels (K12b on fronts128, "
                          "K11 at 455 and 4,096, K19c's coarsest factor) by launch kind, the T "
                          "solve on the sharded forest's and a 7-node T, K2-K4 on the headline and "
-                         "the sharded tree's shards, or K12a on web2k, fronts128 and web48's forced "
-                         "plans")
+                         "the sharded tree's shards, K12a on web2k, fronts128 and web48's forced "
+                         "plans, or K9 on the 100k web, web1000 and the star")
     ap.add_argument("--diff", type=pathlib.Path, nargs=2, default=None, metavar=("A", "B"),
                     help="compare the vectors of two --select mf, mg1d, level or gather --out runs (.npz) "
                          "and exit")
@@ -1757,7 +1812,7 @@ def main() -> int:
                      "mg1d": mg1d_times, "dist": dist_times, "level": level_times,
                      "gather": gather_times, "fronts": fronts_times,
                      "tsolve": tsolve_times, "blocked": blocked_times,
-                     "core": core_times}[args.select]
+                     "core": core_times, "peel": peel_times}[args.select]
             rec = {"card": card, "port": str(pathlib.Path(P.__file__).resolve().parent),
                    **times(torch.device("cuda", 0))}
         else:
