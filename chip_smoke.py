@@ -94,6 +94,8 @@ N_CELLS = 40
 DOFS = 5_341_102
 TOL = 1e-12  # kernel vs plain and port vs plain, times max(1, max |plain|)
 SWEEP_LAUNCHES = 3  # K2–K4 on the headline tree: subtree blocks, the top, subtree blocks (were 31)
+EDGE_LAUNCHES = 1  # K8a a call: one launch of edge tiles
+SHARD_BLOCKED_LAUNCHES = 2  # K22a a sharded-tree solve on one card: the partials, the λ (were 16)
 CORE_LAUNCHES = 2  # K12a's own a core solve: the rounds forward, the rounds back (web2k: were 36 + 31 K10)
 # K9's a solve (tree.cuda_launches' peel term): the 100k web's 4 rounds of >= 1,024 nodes a grid
 # launch each way and its 14 narrower in one block each way; web1000's 11 in one block each way
@@ -629,9 +631,12 @@ def timing(P, state: dict, name_power: str) -> dict:
             "cuda_launches": 2 + sweep}
 
 
-def compare_level_kernels(P, asm, device, timed: bool) -> dict:
+def compare_level_kernels(P, asm, device, timed: bool, keep_case: bool = False) -> dict:
     """Each general-forest kernel against its plain version on the inputs
-    the level executor gives it, on the card."""
+    the level executor gives it, on the card (K8a bit for bit where its
+    arithmetic is the plain version's: k = 1 and the scalar layouts);
+    ``keep_case``: K8a's arguments under ``_edge_case``, for
+    :func:`edge_shard_launch_counts`."""
     from networks_fenicsx_tpu_torch.kernels import backsub, edge_data, level_eliminate, segsum
     from networks_fenicsx_tpu_torch.kernels.level_eliminate import _prepare_plain
     from networks_fenicsx_tpu_torch.solver import _LevelExecutor, build_schur_executor
@@ -683,6 +688,8 @@ def compare_level_kernels(P, asm, device, timed: bool) -> dict:
                                  device=v.device), seg, v[i[ok].long()]))
     library = {"segsum": lambda: [out.index_add_(0, seg, src) for out, seg, src in adds]}
     record = {"layout": ex.layout, "levels": dlp.num_levels}
+    # K8a's arithmetic is the plain version's but for the library Cholesky of k >= 2
+    exact = {"edge_data": k == 1 or ex.layout != "general"}
     for name, (kernel, plain) in runs.items():
         got = kernel()
         want = plain()
@@ -690,6 +697,9 @@ def compare_level_kernels(P, asm, device, timed: bool) -> dict:
         err, scale = max_err(got, want)
         assert err <= TOL * scale, (name, err, scale)
         record[name] = {"max_abs_err": err, "scale": scale}
+        if exact.get(name):
+            assert all(torch.equal(a, b) for a, b in zip(float_tensors(got), float_tensors(want))), name
+            record[name]["equal"] = True
         if timed:
             record[name]["ms"] = cuda_ms(kernel)
             record[name]["plain_ms"] = cuda_ms(plain, reps=5)
@@ -717,6 +727,8 @@ def compare_level_kernels(P, asm, device, timed: bool) -> dict:
         "cuda_launches": level_eliminate.cuda_launches(dlp)})
     q_T, p_T, finite = backsub.backsub(ed, lam, N, k)
     assert bool(finite), "backsub: non-finite solution"
+    if keep_case:
+        record["_edge_case"] = e_args
     return record
 
 
@@ -1708,6 +1720,10 @@ def compare_lattice_kernels(P, asm, device, timed: bool, tol_solve: float = LATT
 
         runs["edge_data"] = (lambda: edge_data.edge_data(*e_args),
                              lambda: edge_data.edge_data_plain(*e_args), TOL)
+        if k == 1 or edge_data.edge_layout(k, Rm, fm) != "general":  # K8a: the plain arithmetic
+            got = edge_data.edge_data(*e_args)
+            assert all(torch.equal(a, b) for a, b in zip(float_tensors(got), float_tensors(
+                edge_data.edge_data_plain(*e_args)))), "K8a bits"
         runs["lambda_system"] = (lambda: peel.lambda_system(dlp, ed),
                                  lambda: peel.lambda_system_plain(dlp, ed), TOL)
         runs["segsum"] = (  # the class weights' planned launch, as the executor issues it
@@ -2800,6 +2816,61 @@ def dist_launch_counts(case, device) -> dict:
     counted_window(lambda: 0, DIST_PATTERN, device)  # the first session of a process starts the tracer
     windows = launch_count_windows(run, DIST_PATTERN, device)
     return {"shards": tab.S, "solve": check_launch_windows("dist_tree_solve", windows, DIST_LAUNCHES)}
+
+
+EDGE_PATTERN = r"\bedge_(tile|direct|uniform)_kernel\b"  # K8a's
+SHARD_BLOCKED_PATTERN = r"\bshard_(partials|lambda)_kernel\b"  # K22a's
+
+
+def edge_shard_launch_counts(edge_case, blocked_case, device) -> dict:
+    """K8a's device launches of one call on the callable tree (set (a)'s
+    inputs) and K22a's of one sharded-tree solve on the card's 8 shards:
+    as the wrappers report them (``edge_data.launches``,
+    ``shard_blocked.LAUNCHES``) and as ``torch.profiler`` counts the
+    kernels in the same window (:func:`launch_count_windows`; K22a's two
+    stages replayed on a solve's inputs, since a window holds no other
+    elementwise kernel than its padding); and K22a's count over the
+    executor's whole call, reported.  Fails unless they equal
+    :data:`EDGE_LAUNCHES` and :data:`SHARD_BLOCKED_LAUNCHES`
+    (``shard_blocked.cuda_launches``)."""
+    from networks_fenicsx_tpu_torch.kernels import edge_data, shard_blocked, shard_top
+
+    ex, args = blocked_case
+    assert shard_blocked.cuda_launches(ex.groups[0]["tables"]) == SHARD_BLOCKED_LAUNCHES
+    before = shard_blocked.LAUNCHES.launches
+    ex(args)
+    solve = shard_blocked.LAUNCHES.launches - before
+    assert solve == SHARD_BLOCKED_LAUNCHES, solve
+    fws = [ex.forward(i, *a) for i, a in enumerate(args)]
+    rows = ex.partials(0, fws)
+    tot = shard_top.reduce(rows)
+    Tn = ex.plan.Tn
+    lam_T = shard_top.t_solve(ex.t_forest[device], tot[:Tn], tot[Tn : 2 * Tn], tot[2 * Tn : 3 * Tn],
+                              tot[3 * Tn])[0]
+
+    def edge_run():
+        before = edge_data.edge_data.launches
+        edge_data.edge_data(*edge_case)
+        return edge_data.edge_data.launches - before
+
+    def shard_run():
+        before = shard_blocked.LAUNCHES.launches
+        ex.partials(0, fws)
+        ex.lam(0, fws, lam_T)
+        return shard_blocked.LAUNCHES.launches - before
+
+    out = {}
+    for key, run, pattern, want, before in (
+            ("k8a_callable_tree", edge_run, EDGE_PATTERN, EDGE_LAUNCHES, 1),
+            ("k22a_sharded_tree", shard_run, SHARD_BLOCKED_PATTERN, SHARD_BLOCKED_LAUNCHES,
+             2 * ex.plan.D)):
+        run()
+        torch.cuda.synchronize()
+        counted_window(lambda: 0, pattern, device)  # the first session of a process starts the tracer
+        out[key] = check_launch_windows(key, launch_count_windows(run, pattern, device), want)
+        out[key]["before"] = before
+    out["k22a_sharded_tree"]["executor_reported"] = solve
+    return out
 
 
 LEVEL_PATTERN = r"\b(level_\w+_kernel|segsum_plan_kernel)\b"  # K7's kernels and K6's one
@@ -3990,8 +4061,9 @@ SHARDED_CHECKS = {
                       ("lattice", "shard_reduce_placed"), ("lattice", "shard_reduce_tail"),
                       ("web", "shard_reduce"), ("cg", "shard_reduce")), ("web", "shard_reduce")),
     "t_solve": ((("tree", "t_solve"), ("forest", "t_solve")), ("forest", "t_solve")),
-    "shard_blocked": ((("tree", "shard_blocked_partials"), ("tree", "shard_blocked_lambda")),
-                      ("tree", "shard_blocked_partials")),
+    "shard_blocked": ((("tree", "shard_blocked_partials"), ("tree", "shard_blocked_lambda"),
+                       ("tree", "shard_blocked"), ("tree", "shard_blocked_one")),
+                      ("tree", "shard_blocked")),
     "shard_grid": ((("lattice", "shard_grid_window"), ("lattice", "shard_grid_fill")),
                    ("lattice", "shard_grid_window")),
     "dist_tree": ((("forest", "dist_tree_folds"), ("forest", "dist_tree_forward"),
@@ -4132,62 +4204,81 @@ def sharded_path(P, device, label: str, asm, forms, D: int, method: str, want_me
 
 def sharded_tree_checks(state: dict, device) -> dict:
     """K22a, K22-reduce and the T solve on the sharded tree's inputs, and the
-    K2–K4 split against its plain version."""
+    K2–K4 split against its plain version.  K22a as the executor issues
+    it: every shard's partials in one launch, every shard's λ in another,
+    each bit for bit against the batched plain version, and both together
+    (a solve's K22a) timed against their bound; the one-shard wrappers bit
+    for bit too."""
     from networks_fenicsx_tpu_torch.kernels import shard_blocked, shard_top, tree_sweep
 
     ex = state["solver"]._blocked_exec
     plan = ex.plan
     args = ex.prepare_args(*state["solver"]._coeff_args)
     fws = [ex.forward(i, *a) for i, a in enumerate(args)]
-    fw, sh = fws[0], ex.shards[0]
-    tab, lp = sh["tables"], ex.local[device]
+    fw, lp = fws[0], ex.local[device]
+    assert len(ex.groups) == 1 and ex.groups[0]["members"] == tuple(range(plan.D)), ex.groups
+    bt, S, Tn, c = ex.groups[0]["tables"], plan.D, plan.Tn, plan.c
     rec = {}
     rec["tree_sweep_forward"] = check_pair(
         lambda: tree_sweep.tree_sweep_forward(lp, fw.w, fw.const, fw.Ftot),
         lambda: tree_sweep.tree_sweep_forward_plain(lp.plan, fw.w, fw.const, fw.Ftot))
-    pa = (fw.w, fw.const, fw.Ftot, fw.d, fw.r, fw.wn, fw.rhs_sq)
-    n_rows = table_entries(tab.tfold, tab.sfold, tab.pfold)
+    n_rows = table_entries(bt.tfold, bt.sfold, bt.pfold)
+    # bytes: the tables, the rows' values they name, level 0's d, r, wn, the rows written
+    work_p = (tensor_bytes(bt.tfold, bt.sfold, bt.pfold, bt.rfold) + 8 * 3 * n_rows
+              + 8 * 3 * c * S + 8 * S * (3 * Tn + 1), 3 * n_rows + 5 * c * S)
     rec["shard_blocked_partials"] = check_pair(
-        lambda: shard_blocked.partials(tab, *pa), lambda: shard_blocked.partials_plain(tab, *pa),
-        work=(tensor_bytes(tab.tfold, tab.sfold, tab.pfold, tab.rfold) + 8 * 3 * n_rows
-              + 8 * 3 * plan.c + 8 * (3 * plan.Tn + 1), 3 * n_rows + 5 * plan.c))
-    stacked = ex.mesh.stack([f.part for f in fws])
-    n = stacked.shape[1]
+        lambda: ex.partials(0, fws), lambda: ex.partials(0, fws, plain=True), exact=True,
+        work=work_p)
+    rows = ex.partials(0, fws)  # the (S, 3 Tn + 1) rows K22-reduce reads as they are
+    n = rows.shape[1]
     rec["shard_reduce"] = check_pair(
-        lambda: shard_top.reduce(stacked), lambda: shard_top.reduce_plain(stacked), exact=True,
-        work=(tensor_bytes(stacked) + 8 * n, (plan.D - 1) * n),
-        library=lambda: torch.sum(stacked, dim=0))
-    tot = shard_top.reduce(stacked)
-    Tn = plan.Tn
+        lambda: shard_top.reduce(rows), lambda: shard_top.reduce_plain(rows), exact=True,
+        work=(tensor_bytes(rows) + 8 * n, (plan.D - 1) * n),
+        library=lambda: torch.sum(rows, dim=0))
+    tot = shard_top.reduce(rows)
     tf = ex.t_forest[device]
     tparts = (tot[:Tn], tot[Tn : 2 * Tn], tot[2 * Tn : 3 * Tn], tot[3 * Tn])
     rec["t_solve"] = t_solve_check(tf, plan.T_parent, *tparts)
     lam_T = shard_top.t_solve(tf, *tparts)[0]
-    lp_args = (fw.d, fw.r, fw.wn, lam_T)
+    # bytes: root_T, level 0's d, r, wn, λ_T, the rows [λ0 | 0 | λ_T] written
+    work_l = (tensor_bytes(bt.root_T, lam_T) + 8 * 3 * c * S + 8 * S * (plan.B_sub + Tn), 3 * c * S)
     rec["shard_blocked_lambda"] = check_pair(
-        lambda: shard_blocked.lam_ext(tab, *lp_args)[: plan.c],
-        lambda: shard_blocked.lam_ext_plain(tab, *lp_args)[: plan.c])
-    lam0 = shard_blocked.lam_ext(tab, *lp_args)
+        lambda: ex.lam(0, fws, lam_T), lambda: ex.lam(0, fws, lam_T, plain=True), exact=True,
+        work=work_l)
+    rec["shard_blocked"] = check_pair(  # a solve's K22a: 2 launches for the 8 shards
+        lambda: (ex.partials(0, fws), ex.lam(0, fws, lam_T)),
+        lambda: (ex.partials(0, fws, plain=True), ex.lam(0, fws, lam_T, plain=True)), exact=True,
+        work=(work_p[0] + work_l[0], work_p[1] + work_l[1]))
+    rec["shard_blocked"]["cuda_launches"] = shard_blocked.cuda_launches(bt)
+    sh = ex.shards[S - 1]
+    pa = (fws[S - 1].w, fws[S - 1].const, fws[S - 1].Ftot, fws[S - 1].d, fws[S - 1].r, fws[S - 1].wn,
+          fws[S - 1].rhs_sq)
+    rec["shard_blocked_one"] = check_pair(  # the one-shard wrappers, on the last shard
+        lambda: (shard_blocked.partials(sh["tables"], *pa),
+                 shard_blocked.lam_ext(sh["tables"], *pa[3:6], lam_T)),
+        lambda: (shard_blocked.partials_plain(sh["tables"], *pa),
+                 shard_blocked.lam_ext_plain(sh["tables"], *pa[3:6], lam_T)), exact=True)
+    lams = ex.lam(0, fws, lam_T)
     rec["tree_sweep_backward"] = check_pair(
-        lambda: tree_sweep.tree_sweep_backward(lp, fw.d, fw.r, fw.wn, lam0.clone()),
-        lambda: tree_sweep.tree_sweep_backward_plain(lp.plan, fw.d, fw.r, fw.wn, lam0.clone()))
+        lambda: tree_sweep.tree_sweep_backward(lp, fw.d, fw.r, fw.wn, lams[0].clone()),
+        lambda: tree_sweep.tree_sweep_backward_plain(lp.plan, fw.d, fw.r, fw.wn, lams[0].clone()))
     # every shard's halves: the blocked plain order's bits (Σ r² too), λ, d, r,
     # wn the level-by-level plain version's
     digests = []
-    for i, (f_, sh_) in enumerate(zip(fws, ex.shards)):
+    for i, f_ in enumerate(fws):
         got = tree_sweep.tree_sweep_forward(lp, f_.w, f_.const, f_.Ftot)
         assert [sha256(t) for t in got] == [sha256(t) for t in tree_sweep.tree_sweep_forward_blocked_plain(
             lp, f_.w, f_.const, f_.Ftot)], ("tree_sweep_forward", i)
         plain = tree_sweep.tree_sweep_forward_plain(lp.plan, f_.w, f_.const, f_.Ftot)
         assert all(torch.equal(a, b) for a, b in zip(got[:3], plain[:3])), ("tree_sweep_forward", i)
-        l0 = shard_blocked.lam_ext(sh_["tables"], got[0], got[1], got[2], lam_T)
-        lam = tree_sweep.tree_sweep_backward(lp, *got[:3], l0.clone())
-        assert torch.equal(lam, tree_sweep.tree_sweep_backward_plain(lp.plan, *got[:3], l0.clone())), i
+        lam = tree_sweep.tree_sweep_backward(lp, *got[:3], lams[i].clone())
+        assert torch.equal(lam, tree_sweep.tree_sweep_backward_plain(lp.plan, *got[:3], lams[i].clone())), i
         digests.append(sha256(lam))
     rec["tree_sweep_shards"] = {"bit_for_bit": True, "shards": len(digests),
                                 "lambda_sha256": digests,
                                 "launches": [tree_sweep.cuda_launches(lp, m)
                                              for m in (tree_sweep.FORWARD, tree_sweep.BACKWARD)]}
+    rec["launch_case"] = (ex, args)
     return rec
 
 
@@ -4334,6 +4425,17 @@ def sharded_lattice_checks(state: dict, device) -> dict:
     Ex, Ey = ny * (nx - 1), (ny - 1) * nx
     rec["shard_grid_fill"] = check_pair(lambda: shard_grid.fill(Ex, Ey, gdp.num_edges, tail),
                                         lambda: shard_grid.fill_plain(Ex, Ey, gdp.num_edges, tail))
+    # the bound of a solve's K22b work (what its device µs a solve measure):
+    # every strip's window (the timed one's count, each on its own inputs),
+    # then the fill (the placed tail read, the conductances written)
+    windows = [(tensor_bytes(f_.w, f_.const, f_.Ftot, sh["tables"].valid, sh["tables"].st_cell,
+                             sh["tables"].st_fold, sh["tables"].grp_fold, sh["tables"].st_sb)
+                + 8 * shard_grid.row_length(h, nx, r), 12 * (h + 1) * nx)
+               for f_, sh in zip(fws, ex.shards)]
+    rec["shard_grid_solve_bound"] = bound(
+        sum(b for b, _ in windows) + tensor_bytes(tail) + 8 * gdp.num_edges,
+        sum(op for _, op in windows))
+    rec["shard_grid_solve_bound"]["strips"] = len(windows)
     return rec
 
 
@@ -4427,6 +4529,7 @@ def sharded_phases(P, device, name_power: str, serial: dict) -> dict:
     paths["tree"] = sharded_path(P, device, "sharded-tree main path", asm, tree_forms, 8, "auto",
                                  "schur_sharded_blocked", used, x_ser=x)
     sets["tree"] = sharded_tree_checks(paths["tree"], device)
+    blocked_case = sets["tree"].pop("launch_case")
     log("phase kernels-sharded (tree): " + json.dumps(sets["tree"]))
     one = sharded_path(P, device, "sharded-tree D=1", asm, tree_forms, 1, "auto",
                        "schur_sharded_blocked", used, x_ser=x)
@@ -4487,7 +4590,7 @@ def sharded_phases(P, device, name_power: str, serial: dict) -> dict:
     log(f"phase kernels-sharded (cg{n}): " + json.dumps(sets["cg"]))
     del paths["cg"]["asm"], paths["cg"]["solver"], asm
     log(f"phase sharded: card {name_power}")
-    return {"paths": paths, "sets": sets, "dist_case": dist_case}
+    return {"paths": paths, "sets": sets, "dist_case": dist_case, "blocked_case": blocked_case}
 
 
 def panel_launch_phase(P, device) -> dict:
@@ -4554,7 +4657,8 @@ def main() -> int:
     del state["solver"]
 
     sets = {}
-    sets["a"] = compare_level_kernels(P, callable_assembler(P), device, timed=True)
+    sets["a"] = compare_level_kernels(P, callable_assembler(P), device, timed=True, keep_case=True)
+    edge_case = sets["a"].pop("_edge_case")
     log("phase kernels-level (a) 16 gen, N=40, callable R and f, k=1: " + json.dumps(sets["a"]))
     big = forest_mesh(P)
     sets["b"] = compare_level_kernels(P, forest_assembler(P, big), device, timed=True)
@@ -4648,6 +4752,10 @@ def main() -> int:
         + json.dumps(mg1d_launch_counts(P, device)))
     log("phase sharded-forest K22c launches (a solve on 8 shards, reported and profiled): "
         + json.dumps(dist_launch_counts(sharded.pop("dist_case"), device)))
+    log("phase K8a and K22a launches (a callable-tree K8a call; a sharded-tree solve's K22a on 8 "
+        "shards; reported and profiled, the counts before beside them): "
+        + json.dumps(edge_shard_launch_counts(edge_case, sharded.pop("blocked_case"), device)))
+    del edge_case
     log("phase K7 and K19b launches (a forest elimination; a web-cg Chebyshev application and "
         "matvec; reported and profiled, the counts before beside them): "
         + json.dumps(level_gather_launch_counts(P, forest_asm, web_asm, device)))

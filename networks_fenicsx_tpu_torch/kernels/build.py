@@ -65,8 +65,9 @@ _SIGNATURES = {
     ],
     "nxfx_edge_data": [
         _i, _i, _i, _i, _i,  # layout, E, N, k, nq
+        _i, _i, _i, _i, _i, _i, _i,  # the tile: cells, rows, R width, pitch, f width, pitch, shared
         _p, _p, _i, _p, _i, _i,  # h_e, R, mode, f, mode, elide_f
-        _p, _p, _d, _d, _d,  # wq, wphi, wt, cs0, cs1
+        _p, _p, _d, _d, _d,  # wq, phi, wt, cs0, cs1
         _p, _p, _p, _p, _p, _p,  # mt, minv, work, cumF, W, g
         _p, _p, _p, _p,  # rh, ua, uF, stream
     ],
@@ -227,14 +228,14 @@ _SIGNATURES = {
         _p, _p, _p,  # lam, norm (or null), stream
     ],
     "nxfx_shard_blocked_partials": [
-        _i, _i, _i, _i, _i,  # Tn, Kt, Ks, Kp, Kr
+        _p, _i, _i,  # ShardBlockedArgs, first shard, Tn
+        _i, _i, _i, _i,  # Kt, Ks, Kp, Kr
         _p, _p, _p, _p,  # tfold, sfold, pfold, rfold
-        _p, _p, _p, _p, _p, _p, _p,  # w, const, Ftot, d0, r0, w0, rhs_sq
         _p, _p,  # part, stream
     ],
     "nxfx_shard_blocked_lambda": [
-        _i, _i, _i, _p,  # c, B_sub, Tn, root_T
-        _p, _p, _p, _p, _p, _p,  # d0, r0, w0, lam_T, lam_ext, stream
+        _p, _i, _i, _i, _i, _p,  # ShardBlockedArgs, first shard, c, B_sub, Tn, root_T
+        _p, _p, _p,  # lam_T, lam, stream
     ],
     "nxfx_dist_folds": [
         _p, _i, _i, _i,  # DistFoldArgs, first shard, B_loc, Tn

@@ -11,13 +11,17 @@ Inputs are the assembler's compact coefficients in public order (``R``,
 degree and the modes (:func:`..edge_data.edge_layout`); the output is an
 :class:`..edge_data._EdgeData` with j-major per-cell arrays.
 
-:func:`edge_data` launches the kernel for CUDA tensors and runs
-:func:`edge_data_plain`, an eager transcription of the reference, for CPU
-tensors.
+The kernel works on tiles of :data:`TILE_EDGES` consecutive edges, their
+per-cell inputs staged in chunks of cells through shared memory;
+:func:`edge_tile` picks the chunk, the warps and the shared bytes of a
+launch on the host.  :func:`edge_data` launches the kernel for CUDA
+tensors (one launch a call) and runs :func:`edge_data_plain`, an eager
+transcription of the reference, for CPU tensors.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -28,9 +32,117 @@ from ..edge_data import LAYOUTS, _EdgeData, edge_layout, elides_source
 from ..levels import DeviceLevelPlan
 from . import build
 
-__all__ = ["edge_data", "edge_data_plain", "COEFF_MODES"]
+__all__ = ["edge_data", "edge_data_plain", "edge_tile", "EdgeTile", "COEFF_MODES", "TILE_EDGES",
+           "SMEM_MAX"]
 
 COEFF_MODES = {"scalar": 0, "edge": 1, "cell": 2, "quad": 3}
+TILE_EDGES = 32  # edges of a tile: a warp's lanes (csrc: TILE)
+MAX_ROWS = 8  # warps of a block (csrc: MAX_ROWS)
+STAGES = 3  # chunks in flight, the ring's slots (csrc: STAGES)
+CHAIN = 3  # doubles a cell and edge left for the chain (csrc: CHAIN)
+SMEM_MAX = 232_448  # the shared bytes a block may use on the H100 (227 KB)
+SMEM_TARGET = 100 * 1024  # a tile plan's bytes, at most, with its scratch in shared memory
+UNIFORM_THREADS = 128  # the uniform layout and short edges: a thread an edge (csrc: THREADS)
+CHUNK_DOUBLES = 64  # a chunk's staged doubles an edge, about
+DIRECT_DOUBLES = 16  # an edge's inputs, at most, read by a thread an edge (no Cholesky)
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeTile:
+    """A K8a launch: ``blocks`` tiles of ``edges`` edges (the last one
+    partial), each a block of ``rows`` warps; a tile's per-cell inputs
+    staged ``cells`` cells a chunk, ``widths`` doubles a cell of R and of f
+    (0: read from device memory), each edge's row ``pitches`` doubles
+    apart; the interior factor's scratch ``"shared"``, ``"global"`` or
+    ``"none"``; ``smem`` the dynamic shared bytes of a block.  The uniform
+    layout and short edges are a thread an edge (``rows`` 0, no shared
+    memory: :attr:`direct`)."""
+
+    layout: str
+    edges: int
+    cells: int
+    rows: int
+    blocks: int
+    widths: tuple
+    pitches: tuple
+    scratch: str
+    smem: int
+
+    @property
+    def direct(self) -> bool:
+        return self.rows == 0
+
+    @property
+    def threads(self) -> int:
+        """Threads a block."""
+        return UNIFORM_THREADS if self.direct else self.edges * self.rows
+
+
+def _odd(n: int) -> int:
+    """``n`` doubles rounded up to an odd count (0 stays 0): rows an odd
+    number of doubles apart put 32 lanes on 32 banks."""
+    return n | 1 if n else 0
+
+
+def _tile_bytes(k: int, cells: int, rows: int, pitches: tuple, shared_scratch: bool) -> int:
+    n = k - 1
+    doubles = (STAGES * TILE_EDGES * sum(pitches) + CHAIN * cells * TILE_EDGES
+               + (n * n * TILE_EDGES * rows if shared_scratch else 0))
+    return 8 * doubles
+
+
+@functools.lru_cache(maxsize=256)
+def edge_tile(E: int, N: int, k: int, nq: int, modes: tuple, elide: bool = False) -> EdgeTile:
+    """The launch of K8a on ``E`` edges of ``N`` cells at degree ``k`` with
+    ``nq`` quadrature points and ``modes = (R_mode, f_mode)`` (``elide``:
+    the source is not read).  The uniform layout, and edges whose inputs
+    are at most :data:`DIRECT_DOUBLES` without an interior Cholesky, are a
+    thread an edge.  Otherwise R and f in cell or quad mode are staged; a
+    chunk holds at least a cell a warp and about :data:`CHUNK_DOUBLES`
+    doubles an edge, so the bytes do not grow with N.  Warps are taken away
+    (8, 4, 2, 1; never more than the chunk's cells) until the bytes with
+    the interior factor in shared memory are within :data:`SMEM_TARGET`;
+    past that the factor goes to device scratch, the chunk shrinks, and
+    past a chunk of one cell the inputs are read from device memory.  Every
+    N and k has a plan; it raises only if the bytes exceed
+    :data:`SMEM_MAX`, which these rules do not reach."""
+    if E < 0 or N < 1 or k < 1 or nq < 1:
+        raise ValueError(f"edge_tile: N, k, nq must be positive and E not negative, got {(E, N, k, nq)}")
+    R_mode, f_mode = modes
+    layout = edge_layout(k, R_mode, f_mode)
+    width = {"cell": 1, "quad": nq}
+    widths = (width.get(R_mode, 0), 0 if elide else width.get(f_mode, 0))
+    w = sum(widths)
+    scratch = "shared" if layout == "general" and k >= 2 else "none"
+    if layout == "uniform" or (scratch == "none" and N * w <= DIRECT_DOUBLES):
+        return EdgeTile(layout, 1, N, 0, -(-E // UNIFORM_THREADS), (0, 0), (0, 0), "none", 0)
+
+    def plan(rows, cells, ws, where):
+        pitches = tuple(_odd(x * cells) for x in ws)
+        return EdgeTile(layout, TILE_EDGES, cells, rows, -(-E // TILE_EDGES), ws, pitches, where,
+                        _tile_bytes(k, cells, rows, pitches, where == "shared"))
+
+    def chunk(rows):
+        return min(N, max(rows, -(-CHUNK_DOUBLES // w))) if w else min(N, 32)
+
+    for rows in (8, 4, 2, 1):
+        rows = min(rows, chunk(rows))
+        t = plan(rows, chunk(rows), widths, scratch)
+        if t.smem <= SMEM_TARGET:
+            return t
+    if scratch == "shared":
+        scratch = "global"
+    cells = chunk(MAX_ROWS)
+    while True:
+        t = plan(min(MAX_ROWS, cells), cells, widths, scratch)
+        if t.smem <= SMEM_TARGET or cells == 1:
+            break
+        cells = max(1, cells // 2)
+    if t.smem > SMEM_TARGET:
+        t = plan(min(MAX_ROWS, chunk(MAX_ROWS)), min(N, 32), (0, 0), scratch)
+    if t.smem > SMEM_MAX:
+        raise ValueError(f"edge_tile: {t.smem} shared bytes a block exceed the card's {SMEM_MAX}")
+    return t
 
 
 def _fold(terms):
@@ -179,9 +291,10 @@ def edge_data(
     start_pbc: torch.Tensor,
     end_pbc: torch.Tensor,
 ) -> _EdgeData:
-    """K8a on ``h_e``'s device.  ``quad_w (nq,)`` and ``quad_phi (nq, k+1)``
-    are the assembler's Gauss rule; the kernel reads them as the table
-    ``w_q φ_qi φ_qj``."""
+    """K8a on ``h_e``'s device, one launch (:func:`edge_tile`'s plan).
+    ``quad_w (nq,)`` and ``quad_phi (nq, k+1)`` are the assembler's Gauss
+    rule; the kernel forms ``w_q φ_qi φ_qj`` as :func:`quad_table` rounds
+    it."""
     if h_e.device.type == "cpu":
         return edge_data_plain(
             dlp, N, k, h_e, quad_w, quad_phi, R, f, R_mode, f_mode, f_is_zero, start_pbc, end_pbc
@@ -200,12 +313,14 @@ def edge_data(
     dev = h_e.device
     dt = torch.float64
     build.require_cuda("edge_data", quad_w, quad_phi)
-    wphi = quad_table(quad_w, quad_phi)
+    if tuple(quad_w.shape) != (nq,) or tuple(quad_phi.shape) != (nq, k + 1):
+        raise ValueError("edge_data: quad_w must be (k+1,) and quad_phi (k+1, k+1)")
     wt, cs0, cs1 = 1.0, 0.5, 0.5
     if layout == "scalar_k":
         _, csum, wt, _ = _condensed_scalar_constants(k)
         cs0, cs1 = float(csum[0]), float(csum[1])
     elide = elides_source(layout, f_is_zero)
+    tile = edge_tile(E, N, k, nq, (R_mode, f_mode), elide)
     empty = torch.empty(0, dtype=dt, device=dev)
     W = torch.empty(E, dtype=dt, device=dev)
     g = torch.empty(E, dtype=dt, device=dev)
@@ -221,7 +336,8 @@ def edge_data(
         mt = torch.empty((N, 2, 2, E), dtype=dt, device=dev)
         if k > 1:
             minv = torch.empty((N, k - 1, 2, E), dtype=dt, device=dev)
-            work = torch.empty(((k - 1) ** 2, E), dtype=dt, device=dev)
+            if tile.scratch == "global":
+                work = torch.empty((k - 1) ** 2 * tile.blocks * tile.threads, dtype=dt, device=dev)
             interior = (minv,)
     elif layout in ("scalar", "scalar_k"):
         rh = torch.empty((N, E), dtype=dt, device=dev)
@@ -229,11 +345,13 @@ def edge_data(
             interior = (_fixed_recovery(k, dev),)
     with torch.cuda.device(dev):
         code = build.library().nxfx_edge_data(
-            LAYOUTS.index(layout), E, N, k, nq,
+            LAYOUTS.index(layout), E, N, k, nq, tile.cells, tile.rows, tile.widths[0],
+            tile.pitches[0], tile.widths[1], tile.pitches[1], int(tile.scratch == "shared"),
             h_e.data_ptr(), R.data_ptr(), COEFF_MODES[R_mode],
             f.data_ptr(), COEFF_MODES[f_mode], int(elide),
-            quad_w.data_ptr(), wphi.data_ptr(), float(wt), cs0, cs1,
-            mt.data_ptr(), minv.data_ptr(), work.data_ptr(), cumF.data_ptr(),
+            quad_w.data_ptr(), quad_phi.data_ptr(), float(wt), cs0, cs1,
+            mt.data_ptr(), minv.data_ptr(), work.data_ptr() if work.numel() else None,
+            cumF.data_ptr(),
             W.data_ptr(), g.data_ptr(), rh.data_ptr(), ua.data_ptr(), uF.data_ptr(),
             build.stream_handle(dev),
         )

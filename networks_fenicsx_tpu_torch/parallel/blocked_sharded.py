@@ -9,11 +9,12 @@ executor (``:241-301``) and the per-shard body (``_make_local_body``,
 The uniformly-K-ary forest is cut at the shallowest level whose width is a
 multiple of D; each shard owns ``c = m_t / D`` complete subtrees, all of
 one level structure, plus a share of the edges of the top forest T above
-the cut.  Per shard, on its device: K1 on its E_loc rows, the K2–K3
-forward of its subtrees down to their chunk roots, and K22a's T partials;
-across the shards, K22-reduce and the T solve (once per distinct device);
-per shard again, K22a's λ, the K4 back-substitution and K5.  The host maps
-the shards' rows back to the public layout.
+the cut.  Per shard, on its device: K1 on its E_loc rows and the K2–K3
+forward of its subtrees down to their chunk roots; per device, K22a's T
+partials of all its shards in one launch; across the shards, K22-reduce
+and the T solve (once per distinct device); per device again, K22a's λ of
+all its shards in one launch; per shard, the K4 back-substitution and K5.
+The host maps the shards' rows back to the public layout.
 
 ``sharded_blocked_sweep`` (batched scenarios) is ROADMAP A9.
 """
@@ -231,7 +232,6 @@ class _Fwd(typing.NamedTuple):
     r: torch.Tensor
     wn: torch.Tensor
     rhs_sq: torch.Tensor
-    part: torch.Tensor
 
 
 class ShardedBlockedExecutor:
@@ -240,11 +240,15 @@ class ShardedBlockedExecutor:
     Holds, per owned shard, its row tables on its device: the cell widths,
     K22a's fold tables and the row ends for K1 and K5 (its subtree's
     bifurcations, then T behind them); per distinct device, the local
-    plan's tables for K2–K4 and the T forest.  ``prepare_args`` lays the
-    coefficients out per shard on the host; calling the executor runs the
-    solve (``plain=True``: the kernels' plain versions) and returns per
-    owned shard ``q_T (k·N+1, E_loc)``, ``p_T (N, E_loc)``, ``λ_loc
-    (B_sub,)``, and ``λ_T (Tn,)``, ``‖rhs‖`` and the finiteness flag."""
+    plan's tables for K2–K4, the T forest and a group: its shards (in
+    owned order) and their K22a tables stacked
+    (:class:`..kernels.shard_blocked.ShardBatchTables`), so K22a makes 2
+    launches a device a solve whatever its number of shards.
+    ``prepare_args`` lays the coefficients out per shard on the host;
+    calling the executor runs the solve (``plain=True``: the kernels' plain
+    versions) and returns per owned shard ``q_T (k·N+1, E_loc)``, ``p_T (N,
+    E_loc)``, ``λ_loc (B_sub,)``, and ``λ_T (Tn,)``, ``‖rhs‖`` and the
+    finiteness flag."""
 
     method_name = "schur_sharded_blocked"
 
@@ -277,6 +281,11 @@ class ShardedBlockedExecutor:
                 tables=shard_blocked.shard_tables(plan.tT_idx[d], plan.sT_idx[d],
                                                   plan.pT_idx[d], plan.root_T[d], Tn, B_sub, dev),
             ))
+        self.groups = []
+        for dev in mesh.local_devices:
+            members = tuple(i for i, sh in enumerate(self.shards) if sh["device"] == dev)
+            self.groups.append(dict(device=dev, members=members, tables=shard_blocked.batch_tables(
+                [self.shards[i]["tables"] for i in members])))
 
     def prepare_args(self, R_data, f_data, start_pbc, end_pbc):
         """Per owned shard, its ``(R, f, start_pbc, end_pbc)`` rows on its device."""
@@ -285,27 +294,43 @@ class ShardedBlockedExecutor:
         return [tuple(torch.as_tensor(a, device=sh["device"]) for a in rows[d])
                 for d, sh in zip(self.mesh.owned, self.shards)]
 
-    # -- the three stages, also what the kernel checks replay
+    # -- the stages, also what the kernel checks replay
     def forward(self, i: int, R, f, sp, ep, plain: bool = False) -> _Fwd:
-        """Shard ``i`` (of the owned ones) up to its row of the reduce: K1,
-        K2–K3 down to its chunk roots, K22a's partials."""
+        """Shard ``i`` (of the owned ones) down to its chunk roots: K1 and
+        K2–K3."""
         sh = self.shards[i]
         run_condense = condense.condense_plain if plain else condense.condense
         run_forward = tree_sweep.tree_sweep_forward_plain if plain else tree_sweep.tree_sweep_forward
-        run_partials = shard_blocked.partials_plain if plain else shard_blocked.partials
         ends, lp = sh["ends"], self.local[sh["device"]]
         Rm, fm = self._modes
         W, w, g, Ftot, const = run_condense(ends.plan if plain else ends, self._N, self._k,
                                             sh["h_e"], R, f, Rm, fm, sp, ep)
         d_, r_, wn, rhs_sq = run_forward(lp.plan if plain else lp, w, const, Ftot)
-        part = run_partials(sh["tables"], w, const, Ftot, d_, r_, wn, rhs_sq)
-        return _Fwd(R, f, sp, ep, W, w, g, Ftot, const, d_, r_, wn, rhs_sq, part)
+        return _Fwd(R, f, sp, ep, W, w, g, Ftot, const, d_, r_, wn, rhs_sq)
 
-    def top(self, parts, plain: bool = False) -> dict:
-        """K22-reduce of the shards' rows and the T solve, once per device:
-        ``{device: (λ_T, ‖rhs‖)}``."""
+    def partials(self, g: int, fws, plain: bool = False) -> torch.Tensor:
+        """K22a's partials of group ``g``'s shards (``fws`` every owned
+        shard's :meth:`forward`), one launch: their ``(S, 3·Tn + 1)`` rows."""
+        grp = self.groups[g]
+        run = shard_blocked.partials_batch_plain if plain else shard_blocked.partials_batch
+        return run(grp["tables"], [(fws[i].w, fws[i].const, fws[i].Ftot, fws[i].d, fws[i].r,
+                                    fws[i].wn, fws[i].rhs_sq) for i in grp["members"]])
+
+    def top(self, rows, plain: bool = False) -> dict:
+        """K22-reduce of the groups' rows (:meth:`partials`, one tensor a
+        group) and the T solve, once per device: ``{device: (λ_T, ‖rhs‖)}``.
+        One group's rows are the reduce's input as they are; shards on
+        several devices or processes go through :meth:`ShardMesh.stack`."""
         Tn = self.plan.Tn
-        total = self.mesh.reduce(self.mesh.stack(parts), plain=plain)
+        if len(self.groups) == 1 and not self.mesh.distributed:
+            stacked = rows[0]
+        else:
+            parts = [None] * len(self.shards)
+            for grp, part in zip(self.groups, rows):
+                for j, i in enumerate(grp["members"]):
+                    parts[i] = part[j]
+            stacked = self.mesh.stack(parts)
+        total = self.mesh.reduce(stacked, plain=plain)
         solve = shard_top.t_solve_plain if plain else shard_top.t_solve
 
         def run(tot):
@@ -314,15 +339,20 @@ class ShardedBlockedExecutor:
 
         return self.mesh.replicate(run, total)
 
-    def back(self, i: int, fw: _Fwd, lam_T, plain: bool = False):
-        """Shard ``i``'s λ (K22a, then K4 from level 0) and K5: ``(q_T, p_T,
-        λ_loc, finite)``."""
+    def lam(self, g: int, fws, lam_T, plain: bool = False) -> torch.Tensor:
+        """K22a's λ of group ``g``'s shards, one launch: ``(S, B_sub + Tn)``,
+        a row ``[λ0 | 0 … | λ_T]`` a shard."""
+        grp = self.groups[g]
+        run = shard_blocked.lam_batch_plain if plain else shard_blocked.lam_batch
+        return run(grp["tables"], [(fws[i].d, fws[i].r, fws[i].wn) for i in grp["members"]], lam_T)
+
+    def back(self, i: int, fw: _Fwd, lam, plain: bool = False):
+        """Shard ``i``'s K4 from level 0 (in place on its :meth:`lam` row)
+        and K5: ``(q_T, p_T, λ_loc, finite)``."""
         sh = self.shards[i]
-        run_lam = shard_blocked.lam_ext_plain if plain else shard_blocked.lam_ext
         run_back = tree_sweep.tree_sweep_backward_plain if plain else tree_sweep.tree_sweep_backward
         run_expand = expand.expand_plain if plain else expand.expand
         ends, lp = sh["ends"], self.local[sh["device"]]
-        lam = run_lam(sh["tables"], fw.d, fw.r, fw.wn, lam_T)
         lam = run_back(lp.plan if plain else lp, fw.d, fw.r, fw.wn, lam)
         Rm, fm = self._modes
         q_T, p_T, finite = run_expand(ends.plan if plain else ends, self._N, self._k, lam,
@@ -332,9 +362,12 @@ class ShardedBlockedExecutor:
 
     def __call__(self, shard_args, plain: bool = False):
         fws = [self.forward(i, *args, plain=plain) for i, args in enumerate(shard_args)]
-        top = self.top([fw.part for fw in fws], plain)
-        outs = [self.back(i, fw, top[self.shards[i]["device"]][0], plain)
-                for i, fw in enumerate(fws)]
+        top = self.top([self.partials(g, fws, plain) for g in range(len(self.groups))], plain)
+        outs = [None] * len(self.shards)
+        for g, grp in enumerate(self.groups):
+            lam = self.lam(g, fws, top[grp["device"]][0], plain)
+            for j, i in enumerate(grp["members"]):
+                outs[i] = self.back(i, fws[i], lam[j], plain)
         lam_T, rhs_norm = top[self.mesh.home]
         finite = self.mesh.all_finite([o[3] for o in outs], plain)
         return ([o[0] for o in outs], [o[1] for o in outs], [o[2] for o in outs], lam_T,

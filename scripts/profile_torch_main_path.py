@@ -104,7 +104,13 @@ and on each shard of the sharded tree (:func:`blocked_times`) and
 (:func:`core_times`), each with the SHA-256 of λ; ``--select peel`` K9
 on the 100k web, web1000 and the star (:func:`peel_times`: launch by
 launch and, on a port with a peel table, at other cut widths, each with
-the SHA-256 of λ).
+the SHA-256 of λ); ``--select edge`` K8a on the callable tree, set (c)'s
+k = 3 forest, set (b)'s 100k forest and the 512² lattice with callable f
+(:func:`edge_times`: device µs, bound, the SHA-256 of the outputs and the
+tile plan) and
+``--select shards`` K22a on the sharded tree (:func:`shard_times`: a
+solve's partials and λ alone with their launches, the executor, the
+SHA-256 of the rows, λ, q and p).
 ``--root``
 imports the port from another checkout (e.g. the parent commit unpacked
 with ``git archive``), so that two versions are compared in one call.
@@ -120,7 +126,7 @@ Otherwise the script
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
-    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist|level|gather|fronts|tsolve|blocked|core|peel] [--root DIR] [--out kernels.json]
+    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist|level|gather|fronts|tsolve|blocked|core|peel|edge|shards] [--root DIR] [--out kernels.json]
     python3 scripts/profile_torch_main_path.py --diff parent.npz change.npz
 
 (``--generations`` sets the depth of ``blocked``, ``callable`` and ``p1tree``.)
@@ -994,6 +1000,144 @@ def peel_times(dev) -> dict:
     return out
 
 
+def edge_times(dev) -> dict:
+    """``--select edge``: K8a on the port that ``sys.path`` finds first
+    (either port's interface), on the inputs each executor gives it: the
+    callable tree (16 generations, N = 40, callable R and f, k = 1: the
+    general layout), chip_smoke's set (c) (the 2k-site forest, N = 8,
+    callable R and f, k = 3), set (b) (the 100k forest, N = 8, edge R, cell
+    f, k = 2: the scalar_k layout) and the 512² lattice with callable f
+    (N = 1, the scalar layout).  Per case :func:`timed_call`'s figures, the
+    plain version's ms, the bytes bound, whether the outputs equal the
+    plain version's (``torch.equal``), the SHA-256 of the outputs and the
+    tile plan where the port has one; on the callable tree also the SHA-256
+    of the solution of one solve."""
+    from networks_fenicsx_tpu_torch.kernels import edge_data
+
+    def set_c():
+        asm = P.HydraulicNetworkAssembler(chip_smoke.forest_mesh(P, sites=2_000), flux_degree=3,
+                                          pressure_degree=0)
+        chip_smoke.callable_forms(asm)
+        return asm
+
+    cases = {"callable_tree": lambda: chip_smoke.callable_assembler(P),
+             "set_c_k3": set_c,
+             "forest_b_k2": lambda: chip_smoke.forest_assembler(P, chip_smoke.forest_mesh(P)),
+             "lattice_callable": lambda: chip_smoke.lattice_assembler(
+                 P, forms=chip_smoke.lattice_callable_forms)}
+    out = {}
+    for name, build in cases.items():
+        asm = build()
+        solver = P.Solver(asm, device="cuda")
+        solver.solve()
+        ex = solver._executor
+        R, f, sp, ep = ex.upload(*ex.prepare_args(*asm.schur_arguments()))
+        Rm, fm, f_zero = asm.coefficient_modes()
+        e_args = (ex.device_plan, ex._N, ex._k, ex._h_e, ex._quad_w, ex._quad_phi, R, f, Rm, fm,
+                  f_zero, sp, ep)
+        rec = timed_call(lambda: edge_data.edge_data(*e_args), reps=50)
+        rec["plain_ms"] = chip_smoke.cuda_ms(lambda: edge_data.edge_data_plain(*e_args), reps=3)
+        got, want = edge_data.edge_data(*e_args), edge_data.edge_data_plain(*e_args)
+        arrays = [t for t in (got.mt, got.cumF, got.W, got.g, got.rh, got.ua, got.uF) if t is not None]
+        arrays += list(got.interior)
+        plain = [t for t in (want.mt, want.cumF, want.W, want.g, want.rh, want.ua, want.uF)
+                 if t is not None] + list(want.interior)
+        rec["equal_plain"] = all(torch.equal(a, b) for a, b in zip(arrays, plain))
+        rec["max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(arrays, plain))
+        rec["outputs_sha256"] = _digest(*arrays)
+        nq, C = ex._k + 1, asm.network.num_cells  # chip_smoke's count of K8a's work
+        rec.update(chip_smoke.bound(chip_smoke.tensor_bytes(ex._h_e, ex._quad_w, ex._quad_phi, R, f,
+                                                            sp, ep, arrays),
+                                    (3 * nq * (ex._k + 1) ** 2 + 2 * nq + 10) * C))
+        rec["sizes"] = {"edges": asm.network.num_edges, "N": ex._N, "k": ex._k, "modes": [Rm, fm]}
+        if hasattr(edge_data, "edge_tile"):
+            t = edge_data.edge_tile(asm.network.num_edges, ex._N, ex._k, ex._k + 1, (Rm, fm),
+                                    edge_data.elides_source(edge_data.edge_layout(ex._k, Rm, fm),
+                                                            f_zero))
+            rec["tile"] = {"direct": t.rows == 0, "cells": t.cells, "rows": t.rows, "blocks": t.blocks,
+                           "widths": t.widths, "smem": t.smem, "scratch": t.scratch}
+        if name == "callable_tree":
+            rec["solution_sha256"] = _digest(torch.as_tensor(solver.solution_vector()))
+        out[name] = rec
+        del asm, solver, ex, e_args, got, want
+    return out
+
+
+def host_split(fn, calls: int = 5, top: int = 25) -> list:
+    """Host µs a call of ``fn`` by function (``cProfile``, cumulative, the
+    ``top`` largest, over ``calls`` calls after a warm-up one)."""
+    import cProfile
+    import pstats
+
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][3])[:top]
+    return [{"function": f"{pathlib.Path(file).name}:{line}({name})", "calls": nc / calls,
+             "cum_us": ct / calls * 1e6} for (file, line, name), (_, nc, _, ct, _) in rows]
+
+
+def shard_times(dev) -> dict:
+    """``--select shards``: K22a on the sharded tree (the 16-generation tree,
+    N = 40, over 8 shards of the card), on the port that ``sys.path`` finds
+    first (either port's interface): a solve's K22a work alone (the
+    partials and λ of the 8 shards: one launch each for every shard on a
+    port with per-device groups, a launch each a shard otherwise) with
+    :func:`timed_call`'s figures and the SHA-256 of the rows and λ; the
+    executor's call with its device µs by source, its device launches, its
+    host µs by function (:func:`host_split`) and the SHA-256 of λ, q and p; and compute_forms + assemble + solve (host
+    clock, best of 5)."""
+    from networks_fenicsx_tpu_torch.kernels import shard_blocked
+    from networks_fenicsx_tpu_torch.parallel import ShardedNetworkSolver
+
+    asm, forms, _, _ = configure("sharded-tree", chip_smoke.GENERATIONS)
+    solver = ShardedNetworkSolver(asm, devices=[dev] * chip_smoke.SHARD_TREE["D"])
+    solver.assemble()
+    solver.solve()
+    ex = solver._blocked_exec
+    args = ex.prepare_args(*solver._coeff_args)
+    fws = [ex.forward(i, *a) for i, a in enumerate(args)]
+    lam_T = torch.as_tensor(np.random.default_rng(3).uniform(-1, 1, ex.plan.Tn), device=dev)
+    if hasattr(ex, "groups"):
+        def k22a():
+            return [ex.partials(0, fws)], [ex.lam(0, fws, lam_T)]
+    else:
+        def k22a():
+            return ([shard_blocked.partials(sh["tables"], fw.w, fw.const, fw.Ftot, fw.d, fw.r, fw.wn,
+                                            fw.rhs_sq) for sh, fw in zip(ex.shards, fws)],
+                    [shard_blocked.lam_ext(sh["tables"], fw.d, fw.r, fw.wn, lam_T)
+                     for sh, fw in zip(ex.shards, fws)])
+    rec = timed_call(k22a, reps=50)
+    rows, lams = k22a()
+    rec["rows_sha256"] = _digest(*(r.reshape(-1) for r in rows))
+    rec["lambda_sha256"] = _digest(*(x.reshape(-1) for x in lams))
+    if hasattr(shard_blocked, "cuda_launches"):
+        rec["cuda_launches"] = shard_blocked.cuda_launches(ex.groups[0]["tables"])
+    out = {"k22a": rec, "plan": {k: getattr(ex.plan, k) for k in chip_smoke.SHARD_TREE}}
+    exe = timed_call(lambda: ex(args), reps=10)
+    exe["device_by_source"] = by_source(exe["device_us_by_kernel"])
+    exe["host_split"] = host_split(lambda: ex(args))
+    q_T, p_T, lam_loc, lam_T_, _, _ = ex(args)
+    exe["lambda_sha256"] = _digest(*lam_loc, lam_T_)
+    exe["flux_sha256"] = _digest(*q_T)
+    exe["pressure_sha256"] = _digest(*p_T)
+    out["executor"] = exe
+
+    def whole():
+        forms(asm)
+        solver.assemble()
+        solver.solve()
+
+    out["solve_ms"] = best_ms(whole, reps=5)
+    out["solution_sha256"] = _digest(*(torch.as_tensor(np.asarray(fn.values)) for fn in solver.solve()))
+    return out
+
+
 def mf_times(dev) -> dict:
     """``--select mf``: K13–K14 and K15 on the 100k web's multifrontal core
     as its executor gives them (``dc``, ``w_pairs``, ``rc`` captured from a
@@ -1778,7 +1922,7 @@ def main() -> int:
                          "level, K22-reduce, K16, K17) beside their library calls instead of a path")
     ap.add_argument("--select", choices=("all", "lattice", "redesign", "krylov", "mf", "windows",
                                          "mg1d", "dist", "level", "gather", "fronts", "tsolve",
-                                         "blocked", "core", "peel"),
+                                         "blocked", "core", "peel", "edge", "shards"),
                     default="all",
                     help="with --kernels: every entry, K16 and K17 alone, K6, K19c, K21a, K18, "
                          "K19a and K19e alone, K19a and K19e alone, K13-K15 on the web, "
@@ -1788,7 +1932,9 @@ def main() -> int:
                          "K11 at 455 and 4,096, K19c's coarsest factor) by launch kind, the T "
                          "solve on the sharded forest's and a 7-node T, K2-K4 on the headline and "
                          "the sharded tree's shards, K12a on web2k, fronts128 and web48's forced "
-                         "plans, or K9 on the 100k web, web1000 and the star")
+                         "plans, K9 on the 100k web, web1000 and the star, K8a on the callable "
+                         "tree, set (c)'s k = 3 forest and the callable-f lattice, or K22a on the "
+                         "sharded tree")
     ap.add_argument("--diff", type=pathlib.Path, nargs=2, default=None, metavar=("A", "B"),
                     help="compare the vectors of two --select mf, mg1d, level or gather --out runs (.npz) "
                          "and exit")
@@ -1812,7 +1958,8 @@ def main() -> int:
                      "mg1d": mg1d_times, "dist": dist_times, "level": level_times,
                      "gather": gather_times, "fronts": fronts_times,
                      "tsolve": tsolve_times, "blocked": blocked_times,
-                     "core": core_times, "peel": peel_times}[args.select]
+                     "core": core_times, "peel": peel_times, "edge": edge_times,
+                     "shards": shard_times}[args.select]
             rec = {"card": card, "port": str(pathlib.Path(P.__file__).resolve().parent),
                    **times(torch.device("cuda", 0))}
         else:
