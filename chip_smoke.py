@@ -42,13 +42,16 @@ paths through the public API, checks each solution and times it:
   (K21b), MINRES (K19e) and the dense Schur variants;
 * the sharded solves on one card (``parallel.ShardedNetworkSolver`` with
   ``devices=["cuda:0"] * D``): the 16-generation tree over 8 shards
-  (blocked: K1, K2–K4 split at level 0, K22a, K22-reduce, the T solve, K5)
-  and over 1, the 100,001-vessel forest over 8 (``auto`` → tree_dist: K8a,
-  K22c, K8b), the 512² lattice in 8 strips (K1, K22b, K16, K17, K5), the
+  (blocked: K1 of all shards in one launch, K2–K4 split at level 0, K22a,
+  K22-reduce, the T solve, K5) and over 1, the 100,001-vessel forest over 8
+  (``auto`` → tree_dist: K8a, K22c, K8b), the 512² lattice in 8 strips (K1
+  and K22b's windows of all strips in one launch each, K16, K17, K5), the
   web over 4 (the general route's replicated peel + multifrontal solve:
   K8a, K22d, K9–K15, K8b) and the 64² lattice under CG over 8 (K22d's
   matvec part), each against the serial solve of the same assembler, every
-  K22-reduce call bit for bit.
+  K22-reduce call bit for bit; K1 and K22b, one shard and batched, bit for
+  bit against their plain versions, and the sharded tree's and lattice's
+  λ, q and p by SHA-256 against the parent design's.
 
 The lattice sets also hold K17 on two streams at once, on repeated calls
 and in a replayed CUDA graph bit for bit, two K16 solves on two streams bit
@@ -56,8 +59,9 @@ for bit with the solves alone, and K16's product kernel on ragged shapes
 against ``torch.matmul``.  The multifrontal sets hold the kernels'
 assembled fronts (K14's extend-add through ``rel``) bit for bit against the
 gather through ``lminv``.  Last, the Krylov steps' device launches an
-iteration (K19a, K19e) and the web's multifrontal factor and apply (K13–K15,
-on the level schedule) as their wrappers report them are held against
+iteration (K19a, K19e), the web's multifrontal factor and apply (K13–K15,
+on the level schedule) and the others' launches a call or a solve (K1,
+K22b among them) as their wrappers report them are held against
 ``torch.profiler``'s count.
 
 Each kernel is held against its plain version on the card, timed per call
@@ -96,6 +100,8 @@ TOL = 1e-12  # kernel vs plain and port vs plain, times max(1, max |plain|)
 SWEEP_LAUNCHES = 3  # K2–K4 on the headline tree: subtree blocks, the top, subtree blocks (were 31)
 EDGE_LAUNCHES = 1  # K8a a call: one launch of edge tiles
 SHARD_BLOCKED_LAUNCHES = 2  # K22a a sharded-tree solve on one card: the partials, the λ (were 16)
+SHARD_GRID_LAUNCHES = 2  # K22b a sharded-lattice solve on one card: the windows, the fill (were 17)
+CONDENSE_LAUNCHES = 1  # K1 a sharded solve on one card, every shard in one launch (were 8)
 CORE_LAUNCHES = 2  # K12a's own a core solve: the rounds forward, the rounds back (web2k: were 36 + 31 K10)
 # K9's a solve (tree.cuda_launches' peel term): the 100k web's 4 rounds of >= 1,024 nodes a grid
 # launch each way and its 14 narrower in one block each way; web1000's 11 in one block each way
@@ -510,6 +516,8 @@ def compare_kernels(P, asm, device, timed: bool) -> dict:
         "expand": (tensor_bytes(lam, sp, ep, W, w, g, Ftot, h, R, f, ends, x_plain),
                    10 * (k * N + 1) * E),
     }
+    # K1's closed forms (no per-cell sum) are the plain version's bits
+    exact = {"condense": "cell" not in (Rm, fm)}
     record = {}
     for name, (kernel, plain, want) in runs.items():
         got = kernel()
@@ -517,6 +525,9 @@ def compare_kernels(P, asm, device, timed: bool) -> dict:
         err, scale = max_err(got, want)
         assert err <= TOL * scale, (name, err, scale)
         record[name] = {"max_abs_err": err, "scale": scale}
+        if exact.get(name):
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (name, "not bit for bit")
+            record[name]["equal"] = True
         if timed:
             record[name]["ms"] = cuda_ms(kernel)
             record[name]["plain_ms"] = cuda_ms(plain)
@@ -537,12 +548,14 @@ def compare_kernels(P, asm, device, timed: bool) -> dict:
     return record
 
 
-def sha256(t: torch.Tensor) -> str:
-    """SHA-256 of a tensor's float64 values."""
+def sha256(*tensors) -> str:
+    """SHA-256 of the tensors' float64 values, in order."""
     import hashlib
 
-    return hashlib.sha256(np.ascontiguousarray(t.detach().cpu().numpy(), dtype=np.float64).tobytes()
-                          ).hexdigest()
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(np.ascontiguousarray(t.detach().cpu().numpy(), dtype=np.float64).tobytes())
+    return h.hexdigest()
 
 
 def conservation(asm, x: np.ndarray) -> float:
@@ -2873,6 +2886,67 @@ def edge_shard_launch_counts(edge_case, blocked_case, device) -> dict:
     return out
 
 
+GRID_PATTERN = r"\bgrid_(window|fill)_kernel\b"  # K22b's
+CONDENSE_PATTERN = r"\bcondense_kernel\b"  # K1's
+
+
+def strip_condense_launch_counts(blocked_case, lattice_case, device) -> dict:
+    """K22b's device launches of one sharded-lattice solve and K1's of one
+    sharded-tree and one sharded-lattice solve on the card's 8 shards: as
+    the wrappers report them (``shard_grid.LAUNCHES``, ``condense.launches``)
+    over the executors' whole calls and over the stages replayed on a
+    solve's inputs, and as ``torch.profiler`` counts the kernels in the
+    same window (:func:`launch_count_windows`).  Fails unless they equal
+    :data:`SHARD_GRID_LAUNCHES` (``shard_grid.cuda_launches``) and
+    :data:`CONDENSE_LAUNCHES` (``condense.cuda_launches``)."""
+    from networks_fenicsx_tpu_torch.kernels import condense, shard_grid, shard_top
+
+    bex, bargs = blocked_case
+    gex, gargs = lattice_case
+    assert shard_grid.cuda_launches(gex.groups[0]["tables"]) == SHARD_GRID_LAUNCHES
+    assert all(condense.cuda_launches(ex.groups[0]["k1"]) == CONDENSE_LAUNCHES for ex in (bex, gex))
+    executor = {}
+    for key, ex, args in (("sharded_tree", bex, bargs), ("sharded_lattice", gex, gargs)):
+        before = (condense.condense.launches, shard_grid.LAUNCHES.launches)
+        ex(args)
+        executor[key] = {"k1": condense.condense.launches - before[0],
+                         "k22b": shard_grid.LAUNCHES.launches - before[1]}
+    assert executor == {"sharded_tree": {"k1": CONDENSE_LAUNCHES, "k22b": 0},
+                        "sharded_lattice": {"k1": CONDENSE_LAUNCHES, "k22b": SHARD_GRID_LAUNCHES}
+                        }, executor
+    p = gex.plan
+    r = int(p.dct.stub_rows.size)
+    k1 = gex.condense(0, gargs)
+    tail = shard_top.reduce(gex.window(0, k1), 2 + r, 2 * (p.h + 1) * p.nx)
+    Ex, Ey, E = p.ny * (p.nx - 1), (p.ny - 1) * p.nx, gex.grid[device].num_edges
+
+    def k22b_run():
+        before = shard_grid.LAUNCHES.launches
+        gex.window(0, k1)
+        shard_grid.fill(Ex, Ey, E, tail)
+        return shard_grid.LAUNCHES.launches - before
+
+    def k1_run(ex, args):
+        def run():
+            before = condense.condense.launches
+            ex.condense(0, args)
+            return condense.condense.launches - before
+        return run
+
+    out = {}
+    for key, run, pattern, want, before in (
+            ("k22b_sharded_lattice", k22b_run, GRID_PATTERN, SHARD_GRID_LAUNCHES, 2 * p.D + 1),
+            ("k1_sharded_tree", k1_run(bex, bargs), CONDENSE_PATTERN, CONDENSE_LAUNCHES, bex.plan.D),
+            ("k1_sharded_lattice", k1_run(gex, gargs), CONDENSE_PATTERN, CONDENSE_LAUNCHES, p.D)):
+        run()
+        torch.cuda.synchronize()
+        counted_window(lambda: 0, pattern, device)  # the first session of a process starts the tracer
+        out[key] = check_launch_windows(key, launch_count_windows(run, pattern, device), want)
+        out[key]["before"] = before
+    out["executor_reported"] = executor
+    return out
+
+
 LEVEL_PATTERN = r"\b(level_\w+_kernel|segsum_plan_kernel)\b"  # K7's kernels and K6's one
 GATHER_PATTERN = r"\b(cheb_apply_kernel|plan_apply_kernel)\b"  # a K19b application and matvec
 LEVEL_LAUNCHES = 6  # a 100k-forest elimination: prepare, K6, assemble, norm, 2 walks (were 2,484)
@@ -4064,13 +4138,58 @@ SHARDED_CHECKS = {
     "shard_blocked": ((("tree", "shard_blocked_partials"), ("tree", "shard_blocked_lambda"),
                        ("tree", "shard_blocked"), ("tree", "shard_blocked_one")),
                       ("tree", "shard_blocked")),
-    "shard_grid": ((("lattice", "shard_grid_window"), ("lattice", "shard_grid_fill")),
-                   ("lattice", "shard_grid_window")),
+    "shard_grid": ((("lattice", "shard_grid_window"), ("lattice", "shard_grid_batch"),
+                    ("lattice", "shard_grid_fill"), ("lattice", "shard_grid")), ("lattice", "shard_grid")),
     "dist_tree": ((("forest", "dist_tree_folds"), ("forest", "dist_tree_forward"),
                    ("forest", "dist_tree_back"), ("forest", "dist_tree")), ("forest", "dist_tree")),
     "shard_general": ((("web", "shard_general_partials"), ("cg", "shard_general_offdiag")),
                       ("web", "shard_general_partials")),
 }
+
+
+# K1's batched checks on the sharded paths, beside its serial ones
+SHARDED_CONDENSE = (("tree", "condense_batch"), ("lattice", "condense_batch"))
+# SHA-256 of λ, q and p of the sharded executors' call (executor_digests) in
+# the design before K1 and K22b took every shard of a device in one launch,
+# on the same inputs
+SHARD_DIGESTS_BEFORE = {
+    "tree": {"lambda": "83459e895355d34f6ed7dfcacb11976b76a9f370014f7a2cfeb47ee8b8971b8c",
+             "flux": "c7976d5c757ab1e9077e51343ef2ce5f3e8968d42703ec3eaf05cfd425df477a",
+             "pressure": "f7db7eb13476746ba774d320bd43d4e5d8474447b349ec07404c4808dfbf2f6a"},
+    "lattice": {"lambda": "1c11a951381dc7c09c9d33f71a086ce4d39027f9d28d83a10e8604ef9d080b74",
+                "flux": "85280ef8a6d9c353a48ebe110796d51eac4ce1b68bd53d344e928bcf92f04e6e",
+                "pressure": "f0f40f7238bc4d3b94d354ba4b62460df775b02fe8b77e81db691318dd0bef52"},
+}
+
+
+def executor_digests(ex, args) -> dict:
+    """SHA-256 of a sharded executor call's λ (the blocked executor's shards'
+    λ_loc, then λ_T), fluxes q and pressures p, each over the shards in
+    order."""
+    out = ex(args)
+    lam = (*out[2], out[3]) if isinstance(out[2], list) else (out[2],)
+    return {"lambda": sha256(*lam), "flux": sha256(*out[0]), "pressure": sha256(*out[1])}
+
+
+def held_digests(key: str, ex, args) -> dict:
+    """:func:`executor_digests` of ``ex``, held equal to
+    :data:`SHARD_DIGESTS_BEFORE`: λ, q and p bit for bit those of the
+    design before."""
+    got, before = executor_digests(ex, args), SHARD_DIGESTS_BEFORE[key]
+    assert got == before, (key, got, before)
+    return {"digests": got, "before": before, "equal_before": True}
+
+
+def condense_work(ex, args) -> tuple:
+    """K1's work on a sharded executor's group 0: bytes (each shard's h_e,
+    R, f, boundary data and row ends read once, the five planes written
+    once) and operations (12 an edge and cell, as the serial check counts)."""
+    grp = ex.groups[0]
+    batch = grp["k1"]
+    ins = [(ex.shards[i]["h_e"], *args[i]) for i in grp["members"]]
+    ends = [(p.edge_src, p.edge_tgt) for p in batch.plans]
+    cell = batch.N if "cell" in (batch.R_mode, batch.f_mode) else 1
+    return (tensor_bytes(ins, ends) + 8 * 5 * batch.S * batch.E, 12 * batch.E * batch.S * cell)
 
 
 def device_share(fn) -> dict:
@@ -4209,16 +4328,22 @@ def sharded_tree_checks(state: dict, device) -> dict:
     each bit for bit against the batched plain version, and both together
     (a solve's K22a) timed against their bound; the one-shard wrappers bit
     for bit too."""
-    from networks_fenicsx_tpu_torch.kernels import shard_blocked, shard_top, tree_sweep
+    from networks_fenicsx_tpu_torch.kernels import condense, shard_blocked, shard_top, tree_sweep
 
     ex = state["solver"]._blocked_exec
     plan = ex.plan
     args = ex.prepare_args(*state["solver"]._coeff_args)
-    fws = [ex.forward(i, *a) for i, a in enumerate(args)]
-    fw, lp = fws[0], ex.local[device]
     assert len(ex.groups) == 1 and ex.groups[0]["members"] == tuple(range(plan.D)), ex.groups
-    bt, S, Tn, c = ex.groups[0]["tables"], plan.D, plan.Tn, plan.c
     rec = {}
+    # K1 of the 8 shards in one launch, the batched plain version's bits
+    rec["condense_batch"] = check_pair(lambda: ex.condense(0, args),
+                                       lambda: ex.condense(0, args, plain=True), exact=True,
+                                       work=condense_work(ex, args))
+    rec["condense_batch"]["cuda_launches"] = condense.cuda_launches(ex.groups[0]["k1"])
+    k1 = ex.condense(0, args)
+    fws = [ex.forward(i, *a, k1=k1[:, i].unbind(0)) for i, a in enumerate(args)]
+    fw, lp = fws[0], ex.local[device]
+    bt, S, Tn, c = ex.groups[0]["tables"], plan.D, plan.Tn, plan.c
     rec["tree_sweep_forward"] = check_pair(
         lambda: tree_sweep.tree_sweep_forward(lp, fw.w, fw.const, fw.Ftot),
         lambda: tree_sweep.tree_sweep_forward_plain(lp.plan, fw.w, fw.const, fw.Ftot))
@@ -4278,6 +4403,7 @@ def sharded_tree_checks(state: dict, device) -> dict:
                                 "lambda_sha256": digests,
                                 "launches": [tree_sweep.cuda_launches(lp, m)
                                              for m in (tree_sweep.FORWARD, tree_sweep.BACKWARD)]}
+    rec["solution"] = held_digests("tree", ex, args)
     rec["launch_case"] = (ex, args)
     return rec
 
@@ -4396,46 +4522,61 @@ def sharded_forest_checks(state: dict, device) -> dict:
 
 
 def sharded_lattice_checks(state: dict, device) -> dict:
-    """K22b (windows, fill) and the placed K22-reduce on the sharded
-    lattice's inputs."""
-    from networks_fenicsx_tpu_torch.kernels import shard_grid, shard_top
+    """K1 and K22b as the executor issues them on the sharded lattice's
+    inputs: every strip's K1 in one launch, every strip's window in one
+    more, each bit for bit against the batched plain version, one strip's
+    window alone bit for bit against ``window_plain``, and a solve's K22b
+    (the windows and the fill) timed against its bound; the placed
+    K22-reduce on the windows' rows as they are; the solution's digests."""
+    from networks_fenicsx_tpu_torch.kernels import condense, shard_grid, shard_top
 
     ex = state["solver"]._blocked_exec
     plan = ex.plan
     args = ex.prepare_args(*state["solver"]._coeff_args)
-    fws = [ex.forward(i, *a) for i, a in enumerate(args)]
-    fw, tab = fws[0], ex.shards[0]["tables"]
+    assert len(ex.groups) == 1 and ex.groups[0]["members"] == tuple(range(plan.D)), ex.groups
+    bt, S = ex.groups[0]["tables"], plan.D
     h, nx, ny = plan.h, plan.nx, plan.ny
     r = int(plan.dct.stub_rows.size)
-    rec = {"shard_grid_window": check_pair(
-        lambda: shard_grid.window(tab, fw.w, fw.const, fw.Ftot),
-        lambda: shard_grid.window_plain(tab, fw.w, fw.const, fw.Ftot),
-        work=(tensor_bytes(fw.w, fw.const, fw.Ftot, tab.valid, tab.st_cell, tab.st_fold,
-                           tab.grp_fold, tab.st_sb) + 8 * shard_grid.row_length(h, nx, r),
-              12 * (h + 1) * nx))}
-    stacked = ex.mesh.stack([f.part for f in fws])
+    length = shard_grid.row_length(h, nx, r)
+    rec = {"condense_batch": check_pair(lambda: ex.condense(0, args),
+                                        lambda: ex.condense(0, args, plain=True), exact=True,
+                                        work=condense_work(ex, args))}
+    rec["condense_batch"]["cuda_launches"] = condense.cuda_launches(ex.groups[0]["k1"])
+    k1 = ex.condense(0, args)
+    w, const, Ftot = k1[1], k1[4], k1[3]
+    tab = ex.shards[0]["tables"]
+    # bytes: the strip's w, const, Ftot and tables read once (its cell -> stub
+    # map included), its row written once; 12 operations a window cell
+    rec["shard_grid_window"] = check_pair(
+        lambda: shard_grid.window(tab, w[0], const[0], Ftot[0]),
+        lambda: shard_grid.window_plain(tab, w[0], const[0], Ftot[0]), exact=True,
+        work=(tensor_bytes(w[0], const[0], Ftot[0], tab.valid, tab.cell_map, tab.st_fold,
+                           tab.grp_fold, tab.st_sb) + 8 * length, 12 * (h + 1) * nx))
+    work_w = (tensor_bytes(w, const, Ftot, bt.valid, bt.cell_map, bt.st_fold, bt.grp_fold, bt.st_sb)
+              + 8 * S * length, 12 * (h + 1) * nx * S)
+    rec["shard_grid_batch"] = check_pair(  # every strip's window: one launch
+        lambda: ex.window(0, k1), lambda: ex.window(0, k1, plain=True), exact=True, work=work_w)
+    rows = ex.window(0, k1)  # the (S, row) rows the placed reduce reads as they are
     rec["shard_reduce_placed"] = check_pair(
-        lambda: shard_top.reduce_placed(stacked, 0, 2, h, nx, ny),
-        lambda: shard_top.reduce_placed_plain(stacked, 0, 2, h, nx, ny), exact=True)
-    tail = shard_top.reduce(stacked, 2 + r, 2 * (h + 1) * nx)
+        lambda: shard_top.reduce_placed(rows, 0, 2, h, nx, ny),
+        lambda: shard_top.reduce_placed_plain(rows, 0, 2, h, nx, ny), exact=True)
+    tail = shard_top.reduce(rows, 2 + r, 2 * (h + 1) * nx)
     rec["shard_reduce_tail"] = check_pair(
-        lambda: shard_top.reduce(stacked, 2 + r, 2 * (h + 1) * nx),
-        lambda: shard_top.reduce_plain(stacked, 2 + r, 2 * (h + 1) * nx), exact=True)
+        lambda: shard_top.reduce(rows, 2 + r, 2 * (h + 1) * nx),
+        lambda: shard_top.reduce_plain(rows, 2 + r, 2 * (h + 1) * nx), exact=True)
     gdp = ex.grid[device]
-    Ex, Ey = ny * (nx - 1), (ny - 1) * nx
-    rec["shard_grid_fill"] = check_pair(lambda: shard_grid.fill(Ex, Ey, gdp.num_edges, tail),
-                                        lambda: shard_grid.fill_plain(Ex, Ey, gdp.num_edges, tail))
-    # the bound of a solve's K22b work (what its device µs a solve measure):
-    # every strip's window (the timed one's count, each on its own inputs),
-    # then the fill (the placed tail read, the conductances written)
-    windows = [(tensor_bytes(f_.w, f_.const, f_.Ftot, sh["tables"].valid, sh["tables"].st_cell,
-                             sh["tables"].st_fold, sh["tables"].grp_fold, sh["tables"].st_sb)
-                + 8 * shard_grid.row_length(h, nx, r), 12 * (h + 1) * nx)
-               for f_, sh in zip(fws, ex.shards)]
-    rec["shard_grid_solve_bound"] = bound(
-        sum(b for b, _ in windows) + tensor_bytes(tail) + 8 * gdp.num_edges,
-        sum(op for _, op in windows))
-    rec["shard_grid_solve_bound"]["strips"] = len(windows)
+    Ex, Ey, E = ny * (nx - 1), (ny - 1) * nx, gdp.num_edges
+    rec["shard_grid_fill"] = check_pair(lambda: shard_grid.fill(Ex, Ey, E, tail),
+                                        lambda: shard_grid.fill_plain(Ex, Ey, E, tail), exact=True)
+    # a solve's K22b: the windows, then the fill (the placed tail read, the
+    # conductances written)
+    rec["shard_grid"] = check_pair(
+        lambda: (ex.window(0, k1), shard_grid.fill(Ex, Ey, E, tail)),
+        lambda: (ex.window(0, k1, plain=True), shard_grid.fill_plain(Ex, Ey, E, tail)),
+        exact=True, work=(work_w[0] + tensor_bytes(tail) + 8 * E, work_w[1]))
+    rec["shard_grid"].update(cuda_launches=shard_grid.cuda_launches(bt), strips=S)
+    rec["solution"] = held_digests("lattice", ex, args)
+    rec["launch_case"] = (ex, args)
     return rec
 
 
@@ -4563,6 +4704,7 @@ def sharded_phases(P, device, name_power: str, serial: dict) -> dict:
     paths["lattice"] = sharded_path(P, device, "sharded-lattice main path", asm, lattice_forms, 8,
                                     "auto", "schur_sharded_grid", used, x_ser=x, io_bar=1e-9)
     sets["lattice"] = sharded_lattice_checks(paths["lattice"], device)
+    lattice_case = sets["lattice"].pop("launch_case")
     log("phase kernels-sharded (lattice): " + json.dumps(sets["lattice"]))
     del paths["lattice"]["asm"], paths["lattice"]["solver"], asm
 
@@ -4590,7 +4732,8 @@ def sharded_phases(P, device, name_power: str, serial: dict) -> dict:
     log(f"phase kernels-sharded (cg{n}): " + json.dumps(sets["cg"]))
     del paths["cg"]["asm"], paths["cg"]["solver"], asm
     log(f"phase sharded: card {name_power}")
-    return {"paths": paths, "sets": sets, "dist_case": dist_case, "blocked_case": blocked_case}
+    return {"paths": paths, "sets": sets, "dist_case": dist_case, "blocked_case": blocked_case,
+            "lattice_case": lattice_case}
 
 
 def panel_launch_phase(P, device) -> dict:
@@ -4754,8 +4897,13 @@ def main() -> int:
         + json.dumps(dist_launch_counts(sharded.pop("dist_case"), device)))
     log("phase K8a and K22a launches (a callable-tree K8a call; a sharded-tree solve's K22a on 8 "
         "shards; reported and profiled, the counts before beside them): "
-        + json.dumps(edge_shard_launch_counts(edge_case, sharded.pop("blocked_case"), device)))
+        + json.dumps(edge_shard_launch_counts(edge_case, sharded["blocked_case"], device)))
     del edge_case
+    log("phase K22b and K1 launches (a sharded-lattice solve's K22b; a sharded-tree and a "
+        "sharded-lattice solve's K1 on 8 shards; reported over the executor and over the stages, "
+        "and profiled, the counts before beside them): "
+        + json.dumps(strip_condense_launch_counts(sharded.pop("blocked_case"),
+                                                  sharded.pop("lattice_case"), device)))
     log("phase K7 and K19b launches (a forest elimination; a web-cg Chebyshev application and "
         "matvec; reported and profiled, the counts before beside them): "
         + json.dumps(level_gather_launch_counts(P, forest_asm, web_asm, device)))
@@ -4784,6 +4932,8 @@ def main() -> int:
         lattice_errs = tuple(lat[c][name]["max_abs_err"] for c in LATTICE_SETS if name in lat[c])
         if name in full:
             errs = (full[name]["max_abs_err"], small[name]["max_abs_err"]) + lattice_errs
+            if name == "condense":
+                errs += tuple(shard_sets[on][key]["max_abs_err"] for on, key in SHARDED_CONDENSE)
             timed_on = full[name]
         elif name in sets["a"]:
             errs = tuple(sets[c][name]["max_abs_err"] for c in "abcd") + lattice_errs

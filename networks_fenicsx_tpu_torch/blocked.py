@@ -407,6 +407,8 @@ class DevicePlan:
     edge_src: torch.Tensor
     edge_tgt: torch.Tensor
     sweep: SweepPlan
+    # a kernel's fixed launch state on this plan (K1's :class:`.kernels.condense.Batch`)
+    _scratch: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def num_bifurcations(self) -> int:
@@ -506,6 +508,8 @@ class EndsPlan:
     edge_src: torch.Tensor
     edge_tgt: torch.Tensor
     num_bifurcations: int
+    # a kernel's fixed launch state on these ends (K1's :class:`.kernels.condense.Batch`)
+    _scratch: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def num_edges(self) -> int:

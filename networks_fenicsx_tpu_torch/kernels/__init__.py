@@ -3,7 +3,8 @@
 Each module holds one kernel's wrapper beside its plain PyTorch version.
 The blocked forest solve (uniformly-K-ary forests):
 
-* :mod:`.condense` — K1, per-edge static condensation;
+* :mod:`.condense` — K1, per-edge static condensation, every shard of a
+  device in one launch (a :class:`.condense.Batch` a plan or group);
 * :mod:`.tree_sweep` — K2 + K3 + K4, the level sweep (fold and back-substitution),
   three launches cut by the device plan's :class:`..blocked.SweepPlan`;
 * :mod:`.expand` — K5, λ to the solution blocks.
@@ -78,8 +79,9 @@ The sharded solves (:mod:`..parallel`), per shard and across the shards:
   solve of the top forest;
 * :mod:`.shard_blocked` — K22a, the blocked shard's T partials and λ around
   its K1, K2–K4 (split at level 0: ``tree_sweep_forward``/``_backward``) and K5;
-* :mod:`.shard_grid` — K22b, the lattice strip's windows and stub groups,
-  and the replicated per-edge conductances, around K1, K16, K17 and K5;
+* :mod:`.shard_grid` — K22b, the lattice strips' windows and stub groups
+  (every strip of a device in one launch), and the replicated per-edge
+  conductances, around K1, K16, K17 and K5;
 * :mod:`.dist_tree` — K22c, the distributed tree shards' folds and level
   walks around K8a and K8b, every shard of a device in one launch each;
 * :mod:`.shard_general` — K22d, the general shard's λ-system partials and

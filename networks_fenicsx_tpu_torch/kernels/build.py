@@ -35,11 +35,7 @@ CUDA_FLAGS = ("-O3", "-std=c++17", "-fmad=false", "-gencode=arch=compute_90a,cod
 
 _p, _i, _d, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 _SIGNATURES = {
-    "nxfx_condense": [
-        _i, _i, _p, _p, _i, _p, _i, _p, _p, _p, _p,  # E, N, h_e, R, mode, f, mode, pbc, bifs
-        _d, _d, _d, _d,  # wt, cs0, cs1, g_closed
-        _p, _p, _p, _p, _p, _p,  # W, w, g, Ftot, const, stream
-    ],
+    "nxfx_condense": [_p, _p, _p],  # CondenseArgs, out (5, rows, E), stream
     "nxfx_tree_sweep": [
         _i, _i, _i, _i, _i, _i, _i, _i, _i,  # mode, Kmax, L, cut, group, blocks, threads, nodes, smem
         _i, _i, _p,  # top nodes, top threads, level table
@@ -254,9 +250,9 @@ _SIGNATURES = {
         _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam_T, lam, scratch (or null), stream
     ],
     "nxfx_shard_grid_window": [
-        _i, _i, _i, _i, _i, _i, _i,  # h, nx, U, Kc, r, Kg, first
+        _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,  # S, h, nx, U, Kc, r, Kg, E_loc, st_len, first
         _p, _p, _p, _p,  # w, const, Ftot, valid
-        _p, _p, _p, _p,  # st_cell, st_fold, grp_fold, st_sb
+        _p, _p, _p, _p,  # cell_map, st_fold, grp_fold, st_sb
         _p, _p,  # part, stream
     ],
     "nxfx_shard_grid_fill": [_l, _l, _l, _p, _p, _p],  # Ex, Ey, E, wxy, w_grid, stream

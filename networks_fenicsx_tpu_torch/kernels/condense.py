@@ -6,22 +6,36 @@ Replaces ``networks_fenicsx_tpu/solver.py:_blocked_condense``,
 (``:2941-2950``).  All inputs and outputs are float64 in the plan's internal
 edge order; ``"cell"``-mode coefficients are ``(N, E)`` j-major blocks.
 
-:func:`condense` launches the kernel for CUDA tensors and runs
-:func:`condense_plain` — an eager transcription of the reference — for CPU
-tensors.  The kernel is memory-bound: it reads each coefficient once and
-writes five (E,) vectors; one thread walks one edge's column.
+One launch computes K1 for every shard of a device: a :class:`Batch` holds
+what is fixed for the shards of one plan or group (their row ends, ``N``,
+``k``, the modes and the condensed matrix's constants, and the launch's
+struct of pointers), and :func:`condense_batch` takes each shard's
+``(h_e, R, f, start_pbc, end_pbc)`` and returns one ``(5, S, E)`` buffer,
+the planes ``W, w, g, Ftot, const`` (one launch a :data:`MAX_SHARDS`
+shards; :func:`cuda_launches`).  :func:`condense` is the one-plan call the
+serial routes make, the same kernel with S = 1 on a :class:`Batch` kept on
+the plan.  The kernel is memory-bound: it reads each coefficient once and
+writes five rows a shard; one thread walks one edge's column.
+
+Each wrapper launches the kernel for CUDA tensors and runs its plain
+version for CPU tensors: :func:`condense_plain`, an eager transcription of
+the reference, and :func:`condense_batch_plain`, that one a shard, stacked.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..blocked import DevicePlan, _BlockedPlan, _condensed_scalar_constants
 from . import build
 
-__all__ = ["condense", "condense_plain", "MODES"]
+__all__ = ["condense", "condense_plain", "condense_batch", "condense_batch_plain", "Batch",
+           "cuda_launches", "MODES", "MAX_SHARDS"]
 
 MODES = {"scalar": 0, "edge": 1, "cell": 2}
+MAX_SHARDS = 32  # CONDENSE_MAX_SHARDS in csrc/condense.cu: the shards of one launch
 
 
 def _constants(k: int) -> tuple[float, float, float]:
@@ -80,6 +94,139 @@ def condense_plain(
     return W, w, g, Ftot, const
 
 
+# ---------------------------------------------------------------- kernel
+
+
+class _Shard(ctypes.Structure):
+    """``CondenseShard`` of ``csrc/condense.cu``."""
+
+    _fields_ = [(name, ctypes.c_void_p)
+                for name in ("h_e", "R", "f", "start_pbc", "end_pbc", "edge_src", "edge_tgt")]
+
+
+class _Args(ctypes.Structure):
+    """``CondenseArgs`` of ``csrc/condense.cu``."""
+
+    _fields_ = [("S", ctypes.c_int), ("s0", ctypes.c_int), ("rows", ctypes.c_int),
+                ("E", ctypes.c_int), ("N", ctypes.c_int), ("R_mode", ctypes.c_int),
+                ("f_mode", ctypes.c_int), ("wt", ctypes.c_double), ("cs0", ctypes.c_double),
+                ("cs1", ctypes.c_double), ("g_closed", ctypes.c_double),
+                ("s", _Shard * MAX_SHARDS)]
+
+
+class Batch:
+    """What K1 keeps fixed for S shards of one device: each shard's plan
+    (a ``DevicePlan``, ``EndsPlan`` or ``GridDevicePlan``: its ``edge_src``,
+    ``edge_tgt`` and the host ``plan`` the plain version reads), ``N``,
+    ``k``, the modes and the condensed matrix's constants; on a CUDA device
+    the launch's structs of pointers, one a :data:`MAX_SHARDS` shards, with
+    the row ends filled in once.  Every shard has ``E`` rows: plans of
+    unequal length raise."""
+
+    def __init__(self, plans, N: int, k: int, R_mode: str, f_mode: str):
+        self.plans = tuple(plans)
+        if not self.plans:
+            raise ValueError("condense: a batch of at least one shard")
+        lengths = {p.num_edges for p in self.plans}
+        if len(lengths) != 1:
+            raise ValueError(f"condense: the shards must have one length, got {sorted(lengths)}")
+        if R_mode not in MODES or f_mode not in MODES:
+            raise ValueError(f"condense: unknown modes {(R_mode, f_mode)}")
+        (self.E,) = lengths
+        self.S, self.N, self.k = len(self.plans), int(N), int(k)
+        self.R_mode, self.f_mode = R_mode, f_mode
+        self.wt, self.cs0, self.cs1 = _constants(k)
+        self.g_closed = self.wt * (N * (N - 1) / 2.0) + self.cs1 * N
+        self.shapes = {"scalar": (1,), "edge": (self.E,), "cell": (self.N, self.E)}
+        dev = self.plans[0].edge_src.device
+        self.index = dev.index if dev.type == "cuda" else -1
+        self._args = []
+        if self.index < 0:
+            return
+        for p in self.plans:
+            for t in (p.edge_src, p.edge_tgt):
+                if (not t.is_cuda or t.get_device() != self.index or t.dtype != torch.int32
+                        or not t.is_contiguous() or tuple(t.shape) != (self.E,)):
+                    raise ValueError(f"condense: the row ends must be contiguous ({self.E},) int32 "
+                                     f"tensors on CUDA device {self.index}")
+        for s0 in range(0, self.S, MAX_SHARDS):
+            args = _Args(S=min(MAX_SHARDS, self.S - s0), s0=s0, rows=self.S, E=self.E, N=self.N,
+                         R_mode=MODES[R_mode], f_mode=MODES[f_mode], wt=self.wt, cs0=self.cs0,
+                         cs1=self.cs1, g_closed=self.g_closed)
+            for a, p in zip(args.s, self.plans[s0 : s0 + MAX_SHARDS]):
+                a.edge_src, a.edge_tgt = p.edge_src.data_ptr(), p.edge_tgt.data_ptr()
+            self._args.append((args, ctypes.addressof(args)))
+
+    def check(self, ins) -> None:
+        """Raise unless ``ins`` holds one ``(h_e, R, f, start_pbc, end_pbc)``
+        a shard, each of its shard's length (the device is the launch's)."""
+        if len(ins) != self.S:
+            raise ValueError(f"condense: inputs of {self.S} shards expected, got {len(ins)}")
+        R_shape, f_shape = self.shapes[self.R_mode], self.shapes[self.f_mode]
+        for h_e, R, f, sp, ep in ins:
+            if (h_e.shape != (self.E,) or sp.shape != (self.E,) or ep.shape != (self.E,)
+                    or R.shape != R_shape or f.shape != f_shape):
+                raise ValueError(
+                    f"condense: a shard's h_e and boundary data must be ({self.E},), R "
+                    f"{R_shape} and f {f_shape}; got {tuple(h_e.shape)}, {tuple(R.shape)}, "
+                    f"{tuple(f.shape)}, {tuple(sp.shape)}, {tuple(ep.shape)}")
+
+    def launch(self, ins, out: torch.Tensor) -> None:
+        """One launch a :data:`MAX_SHARDS` shards of ``ins`` into ``out``
+        ``(5, S, E)``: the lean path (one check pass, the raw stream, three
+        ctypes arguments)."""
+        index = self.index
+        if index < 0:
+            raise ValueError("condense: the batch's row ends are not on a CUDA device")
+        cell = "cell" in (self.R_mode, self.f_mode)
+        for h_e, R, f, sp, ep in ins:  # their shapes: check()
+            build.require_vectors("condense", index, (h_e, self.E), (sp, self.E), (ep, self.E))
+            if cell:  # a (N, E) block
+                build.require_cuda("condense", h_e, R, f)
+            else:
+                build.require_vectors("condense", index, (R, R.shape[0]), (f, f.shape[0]))
+        lib = build.library()
+        stream = build.raw_stream(index)
+        for chunk, (args, ptr) in enumerate(self._args):
+            s0 = chunk * MAX_SHARDS
+            for a, (h_e, R, f, sp, ep) in zip(args.s, ins[s0 : s0 + MAX_SHARDS]):
+                a.h_e, a.R, a.f = h_e.data_ptr(), R.data_ptr(), f.data_ptr()
+                a.start_pbc, a.end_pbc = sp.data_ptr(), ep.data_ptr()
+            build.check(build.on_device(index, lib.nxfx_condense, ptr, out.data_ptr(), stream),
+                        "condense")
+            condense.launches += 1
+
+
+def cuda_launches(batch: Batch) -> int:
+    """K1's launches a call on ``batch``'s device: one a :data:`MAX_SHARDS`
+    shards (1 a device a solve on the sharded routes)."""
+    return -(-batch.S // MAX_SHARDS)
+
+
+def condense_batch_plain(batch: Batch, ins) -> torch.Tensor:
+    """Eager version of :func:`condense_batch`: :func:`condense_plain` a
+    shard, stacked ``(5, S, E)``."""
+    batch.check(ins)
+    return torch.stack([torch.stack(condense_plain(p.plan, batch.N, batch.k, h_e, R, f,
+                                                   batch.R_mode, batch.f_mode, sp, ep))
+                        for p, (h_e, R, f, sp, ep) in zip(batch.plans, ins)], dim=1)
+
+
+def condense_batch(batch: Batch, ins) -> torch.Tensor:
+    """K1 of every shard of ``batch`` (``ins`` a shard ``(h_e, R, f,
+    start_pbc, end_pbc)``, in the batch's order) on their device: the ``(5,
+    S, E)`` planes ``W, w, g, Ftot, const``, one launch."""
+    batch.check(ins)
+    h_e = ins[0][0]
+    if h_e.device.type == "cpu":
+        return condense_batch_plain(batch, ins)
+    if not h_e.is_cuda:
+        raise ValueError("condense: tensors must be on a CUDA device")
+    out = torch.empty((5, batch.S, batch.E), dtype=torch.float64, device=h_e.device)
+    batch.launch(ins, out)
+    return out
+
+
 def condense(
     dplan: DevicePlan,
     N: int,
@@ -92,34 +239,23 @@ def condense(
     start_pbc: torch.Tensor,
     end_pbc: torch.Tensor,
 ):
-    """K1 on ``h_e``'s device: ``(W, w, g, Ftot, const)``, each (E,)."""
+    """K1 on ``h_e``'s device: ``(W, w, g, Ftot, const)``, each (E,) (views
+    of one buffer on a CUDA device)."""
     if h_e.device.type == "cpu":
         return condense_plain(
             dplan.plan, N, k, h_e, R_data, f_data, R_mode, f_mode, start_pbc, end_pbc
         )
-    build.require_cuda("condense", h_e, R_data, f_data, start_pbc, end_pbc)
-    build.require_cuda("condense", dplan.edge_src, dplan.edge_tgt, dtype=torch.int32)
-    E = dplan.num_edges
-    build.require_coefficients("condense", N, E, ("R", R_data, R_mode), ("f", f_data, f_mode))
-    if tuple(h_e.shape) != (E,) or tuple(start_pbc.shape) != (E,) or tuple(end_pbc.shape) != (E,):
-        raise ValueError("condense: h_e and the boundary data must be (E,)")
-    wt, cs0, cs1 = _constants(k)
-    g_closed = wt * (N * (N - 1) / 2.0) + cs1 * N
-    outs = [torch.empty(E, dtype=torch.float64, device=h_e.device) for _ in range(5)]
-    lib = build.library()
-    with torch.cuda.device(h_e.device):
-        code = lib.nxfx_condense(
-            E, N, h_e.data_ptr(),
-            R_data.data_ptr(), MODES[R_mode], f_data.data_ptr(), MODES[f_mode],
-            start_pbc.data_ptr(), end_pbc.data_ptr(),
-            dplan.edge_src.data_ptr(), dplan.edge_tgt.data_ptr(),
-            wt, cs0, cs1, g_closed,
-            *(o.data_ptr() for o in outs),
-            build.stream_handle(h_e.device),
-        )
-    build.check(code, "condense")
-    condense.launches += 1
-    return tuple(outs)
+    if not h_e.is_cuda:
+        raise ValueError("condense: tensors must be on a CUDA device")
+    key = ("condense", N, k, R_mode, f_mode)
+    batch = dplan._scratch.get(key)
+    if batch is None:
+        batch = dplan._scratch[key] = Batch((dplan,), N, k, R_mode, f_mode)
+    ins = ((h_e, R_data, f_data, start_pbc, end_pbc),)
+    batch.check(ins)
+    out = torch.empty((5, batch.E), dtype=torch.float64, device=h_e.device)
+    batch.launch(ins, out)
+    return out.unbind(0)
 
 
 condense.launches = 0

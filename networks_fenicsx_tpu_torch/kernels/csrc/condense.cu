@@ -1,8 +1,9 @@
-// K1: per-edge static condensation of the blocked forest Schur solve.
+// K1: per-edge static condensation of the blocked forest Schur solve, for
+// every shard of one device in one launch.
 //
 // Replaces networks_fenicsx_tpu/solver.py:_blocked_condense,
 // _blocked_condense_R and _blocked_condense_f (g, Ftot) plus the `const`
-// line of _blocked_uniform_solve.  Per internal edge e:
+// line of _blocked_uniform_solve.  Per internal edge e of a shard:
 //   W     = wt * sum_c R_c h          (scalar/edge R: R h N wt)
 //   w     = 1 / W
 //   Ftot  = sum_c f_c h               (scalar/edge f: f h N)
@@ -10,12 +11,74 @@
 //   const = (-p_s [s not bif] + p_t [t not bif] - g) * w
 //
 // Bound: device-memory bytes.  Scalar/edge modes read and write O(E)
-// doubles; cell mode reads the (N, E) j-major R and f blocks once.  One
-// thread owns one edge and walks its column down the N cells, so each
-// step of the walk is one coalesced row read across the warp; no shared
-// memory, no atomics, every sum in the reference's order along the edge.
+// doubles (~88 bytes an edge with per-row R, f and boundary data);
+// cell mode reads the (N, E) j-major R and f blocks once.  One thread owns
+// one edge and walks its column down the N cells, so each step of the walk
+// is one coalesced row read across the warp; no shared memory, no atomics,
+// every sum in the reference's order along the edge.
+//
+// What the design answers.  The sharded executors made one launch a shard
+// (8 a solve on the 16-generation tree's 8 shards of 8,192 rows, ~0.7 MB
+// each: latency alone) and the wrapper's host path (five allocations, a
+// check of every tensor, 21 ctypes arguments, a device guard) cost ~60 us
+// around ~3.5 us of device time.  Here the grid is (blocks over E, S): the
+// shard is blockIdx.y, its inputs reach the launch through a struct of
+// pointers (CondenseArgs, fixed per plan and group on the host, only the
+// coefficient pointers rewritten a call), and the five outputs go to one
+// (5, rows, E) buffer, so a device makes one launch a solve whatever its
+// number of shards (one a CONDENSE_MAX_SHARDS).  The serial routes launch
+// the same kernel with S = 1.  The body is the one-shard kernel's: each
+// output equals it bit for bit.
+//
+// The serial body, read on the one-shard kernel before this design: the
+// headline's launch (E = 65,535, 5.2 MB, 256 blocks of 256 threads) took
+// 2.31-2.41 us of device time against a 1.57 us byte bound (profiler, NVIDIA
+// H100 80GB HBM3 at 700 W; scripts/profile_torch_main_path.py --kernels
+// --select condense).  Every thread issues all its loads at once, so that is
+// the launch and about one device-memory round trip; wider loads or two
+// edges a thread would not shorten it, and the body stays a thread an edge.
+// Reading the shard's pointers at a dynamic index of a one-shard struct
+// took 4.1 us on the same card (the parameter copied to local memory, as it
+// seems): a one-shard launch reads them at index 0, as its arguments were.
 
 #include <cuda_runtime.h>
+
+constexpr int CONDENSE_MAX_SHARDS = 32;
+
+// One shard's inputs (E rows each; R and f by mode: one value, E, or the
+// (N, E) j-major block) and its row ends (-1 at a boundary).
+struct CondenseShard {
+    const double* h_e;
+    const double* R;
+    const double* f;
+    const double* start_pbc;
+    const double* end_pbc;
+    const int* edge_src;
+    const int* edge_tgt;
+};
+
+// A launch over S <= M shards: shard j writes row s0 + j of each output
+// plane of the (5, rows, E) buffer.  The host passes CondenseArgs (a ctypes
+// Structure of the same fields, one per plan or group and chunk); a
+// one-shard launch copies it into the one-shard instance (120 bytes of
+// parameter, read at a constant index), any other launch passes all 1.8 KB.
+template <int M>
+struct CondenseArgsT {
+    int S;
+    int s0;
+    int rows;
+    int E;
+    int N;
+    int R_mode;
+    int f_mode;
+    double wt;
+    double cs0;
+    double cs1;
+    double g_closed;
+    CondenseShard s[M];
+};
+
+using CondenseArgs = CondenseArgsT<CONDENSE_MAX_SHARDS>;
 
 namespace {
 
@@ -23,57 +86,53 @@ namespace {
 constexpr int MODE_SCALAR = 0;
 constexpr int MODE_EDGE = 1;
 constexpr int MODE_CELL = 2;
+constexpr int THREADS = 256;
 
-__global__ void condense_kernel(
-    int E, int N,
-    const double* __restrict__ h_e,
-    const double* __restrict__ R, int R_mode,
-    const double* __restrict__ f, int f_mode,
-    const double* __restrict__ start_pbc,
-    const double* __restrict__ end_pbc,
-    const int* __restrict__ edge_src,
-    const int* __restrict__ edge_tgt,
-    double wt, double cs0, double cs1, double g_closed,
-    double* __restrict__ W_out,
-    double* __restrict__ w_out,
-    double* __restrict__ g_out,
-    double* __restrict__ Ftot_out,
-    double* __restrict__ const_out)
+// grid (blocks over E, S): edge e of shard blockIdx.y
+template <int M>
+__global__ void __launch_bounds__(THREADS) condense_kernel(const CondenseArgsT<M> a,
+                                                          double* __restrict__ out)
 {
     const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    const int E = a.E;
     if (e >= E) return;
-    const double h = h_e[e];
+    // one shard: a constant index, so its pointers are read from the
+    // parameter space as the one-shard kernel read its arguments
+    const CondenseShard in = a.s[M == 1 ? 0 : blockIdx.y];
+    const int N = a.N;
+    const double wt = a.wt, cs0 = a.cs0, cs1 = a.cs1;
+    const double h = __ldg(in.h_e + e);
     const double dN = static_cast<double>(N);
-    const bool r_cell = R_mode == MODE_CELL;
-    const bool f_cell = f_mode == MODE_CELL;
+    const bool r_cell = a.R_mode == MODE_CELL;
+    const bool f_cell = a.f_mode == MODE_CELL;
 
     // resistance side: a1 = R h per edge, or a2_c = R_c h per cell
     double a1 = 0.0, W;
     if (!r_cell) {
-        a1 = (R_mode == MODE_SCALAR ? R[0] : R[e]) * h;
+        a1 = __ldg(in.R + (a.R_mode == MODE_SCALAR ? 0 : e)) * h;
         W = a1 * (dN * wt);
     } else {
         double s = 0.0;
-        for (int c = 0; c < N; ++c) s += R[(size_t)c * E + e] * h;
+        for (int c = 0; c < N; ++c) s += __ldg(in.R + (size_t)c * E + e) * h;
         W = wt * s;
     }
 
     // source side: F1 = f h per edge, or F2_c = f_c h per cell
     double F1 = 0.0, Ftot, g;
     if (!f_cell) {
-        F1 = (f_mode == MODE_SCALAR ? f[0] : f[e]) * h;
+        F1 = __ldg(in.f + (a.f_mode == MODE_SCALAR ? 0 : e)) * h;
         Ftot = F1 * dN;
     }
     if (!r_cell && !f_cell) {
-        g = a1 * F1 * g_closed;
+        g = a1 * F1 * a.g_closed;
     } else {
         // g = sum_c ab_c (cs0 cumF_c + cs1 cumF_{c+1}), one pass down the column
         double cum = 0.0, acc = 0.0;
         for (int c = 0; c < N; ++c) {
-            const double next = f_cell ? cum + f[(size_t)c * E + e] * h
+            const double next = f_cell ? cum + __ldg(in.f + (size_t)c * E + e) * h
                                        : F1 * static_cast<double>(c + 1);
             const double wsum = cs0 * cum + cs1 * next;
-            acc += r_cell ? (R[(size_t)c * E + e] * h) * wsum : wsum;
+            acc += r_cell ? (__ldg(in.R + (size_t)c * E + e) * h) * wsum : wsum;
             cum = next;
         }
         if (f_cell) Ftot = cum;
@@ -81,33 +140,46 @@ __global__ void condense_kernel(
     }
 
     const double w = 1.0 / W;
-    const double not_s = edge_src[e] >= 0 ? 0.0 : 1.0;
-    const double not_t = edge_tgt[e] >= 0 ? 0.0 : 1.0;
-    W_out[e] = W;
-    w_out[e] = w;
-    g_out[e] = g;
-    Ftot_out[e] = Ftot;
-    const_out[e] = (-start_pbc[e] * not_s + end_pbc[e] * not_t - g) * w;
+    const double not_s = __ldg(in.edge_src + e) >= 0 ? 0.0 : 1.0;
+    const double not_t = __ldg(in.edge_tgt + e) >= 0 ? 0.0 : 1.0;
+    const double cst = (-__ldg(in.start_pbc + e) * not_s + __ldg(in.end_pbc + e) * not_t - g) * w;
+    const size_t plane = static_cast<size_t>(a.rows) * E;
+    double* o = out + static_cast<size_t>(a.s0 + blockIdx.y) * E + e;
+    o[0] = W;
+    o[plane] = w;
+    o[2 * plane] = g;
+    o[3 * plane] = Ftot;
+    o[4 * plane] = cst;
+}
+
+template <int M>
+int launch(const CondenseArgs* a, double* out, cudaStream_t stream)
+{
+    CondenseArgsT<M> b;
+    b.S = a->S;
+    b.s0 = a->s0;
+    b.rows = a->rows;
+    b.E = a->E;
+    b.N = a->N;
+    b.R_mode = a->R_mode;
+    b.f_mode = a->f_mode;
+    b.wt = a->wt;
+    b.cs0 = a->cs0;
+    b.cs1 = a->cs1;
+    b.g_closed = a->g_closed;
+    for (int j = 0; j < a->S; ++j) b.s[j] = a->s[j];
+    const dim3 grid((a->E + THREADS - 1) / THREADS, a->S);
+    condense_kernel<M><<<grid, THREADS, 0, stream>>>(b, out);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int nxfx_condense(
-    int E, int N,
-    const double* h_e,
-    const double* R, int R_mode,
-    const double* f, int f_mode,
-    const double* start_pbc, const double* end_pbc,
-    const int* edge_src, const int* edge_tgt,
-    double wt, double cs0, double cs1, double g_closed,
-    double* W, double* w, double* g, double* Ftot, double* cst,
-    cudaStream_t stream)
+// K1 of shards a->s0 .. a->s0 + a->S - 1 into out (5, a->rows, a->E), one grid.
+extern "C" int nxfx_condense(const CondenseArgs* a, double* out, cudaStream_t stream)
 {
-    if (E <= 0) return 0;
-    const int threads = 256;
-    const int blocks = (E + threads - 1) / threads;
-    condense_kernel<<<blocks, threads, 0, stream>>>(
-        E, N, h_e, R, R_mode, f, f_mode, start_pbc, end_pbc, edge_src, edge_tgt,
-        wt, cs0, cs1, g_closed, W, w, g, Ftot, cst);
-    return static_cast<int>(cudaGetLastError());
+    if (a->S < 0 || a->S > CONDENSE_MAX_SHARDS || a->E < 0 || a->s0 < 0 || a->s0 + a->S > a->rows)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (a->S == 0 || a->E == 0) return 0;
+    return a->S == 1 ? launch<1>(a, out, stream) : launch<CONDENSE_MAX_SHARDS>(a, out, stream);
 }

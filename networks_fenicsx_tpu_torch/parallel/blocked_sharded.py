@@ -9,9 +9,10 @@ executor (``:241-301``) and the per-shard body (``_make_local_body``,
 The uniformly-K-ary forest is cut at the shallowest level whose width is a
 multiple of D; each shard owns ``c = m_t / D`` complete subtrees, all of
 one level structure, plus a share of the edges of the top forest T above
-the cut.  Per shard, on its device: K1 on its E_loc rows and the K2–K3
-forward of its subtrees down to their chunk roots; per device, K22a's T
-partials of all its shards in one launch; across the shards, K22-reduce
+the cut.  Per device, K1 on all its shards' E_loc rows in one launch; per
+shard, on its device, the K2–K3 forward of its subtrees down to their
+chunk roots; per device, K22a's T partials of all its shards in one
+launch; across the shards, K22-reduce
 and the T solve (once per distinct device); per device again, K22a's λ of
 all its shards in one launch; per shard, the K4 back-substitution and K5.
 The host maps the shards' rows back to the public layout.
@@ -241,9 +242,10 @@ class ShardedBlockedExecutor:
     K22a's fold tables and the row ends for K1 and K5 (its subtree's
     bifurcations, then T behind them); per distinct device, the local
     plan's tables for K2–K4, the T forest and a group: its shards (in
-    owned order) and their K22a tables stacked
-    (:class:`..kernels.shard_blocked.ShardBatchTables`), so K22a makes 2
-    launches a device a solve whatever its number of shards.
+    owned order), their K1 batch (:class:`..kernels.condense.Batch`) and
+    their K22a tables stacked
+    (:class:`..kernels.shard_blocked.ShardBatchTables`), so K1 makes 1
+    launch and K22a 2 a device a solve whatever its number of shards.
     ``prepare_args`` lays the coefficients out per shard on the host;
     calling the executor runs the solve (``plain=True``: the kernels' plain
     versions) and returns per owned shard ``q_T (k·N+1, E_loc)``, ``p_T (N,
@@ -284,8 +286,11 @@ class ShardedBlockedExecutor:
         self.groups = []
         for dev in mesh.local_devices:
             members = tuple(i for i, sh in enumerate(self.shards) if sh["device"] == dev)
-            self.groups.append(dict(device=dev, members=members, tables=shard_blocked.batch_tables(
-                [self.shards[i]["tables"] for i in members])))
+            self.groups.append(dict(
+                device=dev, members=members,
+                k1=condense.Batch([self.shards[i]["ends"] for i in members], self._N, self._k,
+                                  *self._modes),
+                tables=shard_blocked.batch_tables([self.shards[i]["tables"] for i in members])))
 
     def prepare_args(self, R_data, f_data, start_pbc, end_pbc):
         """Per owned shard, its ``(R, f, start_pbc, end_pbc)`` rows on its device."""
@@ -295,16 +300,26 @@ class ShardedBlockedExecutor:
                 for d, sh in zip(self.mesh.owned, self.shards)]
 
     # -- the stages, also what the kernel checks replay
-    def forward(self, i: int, R, f, sp, ep, plain: bool = False) -> _Fwd:
-        """Shard ``i`` (of the owned ones) down to its chunk roots: K1 and
-        K2–K3."""
+    def condense(self, g: int, shard_args, plain: bool = False) -> torch.Tensor:
+        """K1 of group ``g``'s shards (``shard_args`` every owned shard's
+        :meth:`prepare_args` row), one launch: the ``(5, S, E_loc)`` planes
+        ``W, w, g, Ftot, const``."""
+        grp = self.groups[g]
+        run = condense.condense_batch_plain if plain else condense.condense_batch
+        return run(grp["k1"], [(self.shards[i]["h_e"], *shard_args[i]) for i in grp["members"]])
+
+    def forward(self, i: int, R, f, sp, ep, plain: bool = False, k1=None) -> _Fwd:
+        """Shard ``i`` (of the owned ones) down to its chunk roots: K2–K3
+        on its K1 outputs ``k1`` (``W, w, g, Ftot, const``: its column of
+        :meth:`condense`), or on its own K1 launch without them."""
         sh = self.shards[i]
-        run_condense = condense.condense_plain if plain else condense.condense
         run_forward = tree_sweep.tree_sweep_forward_plain if plain else tree_sweep.tree_sweep_forward
         ends, lp = sh["ends"], self.local[sh["device"]]
-        Rm, fm = self._modes
-        W, w, g, Ftot, const = run_condense(ends.plan if plain else ends, self._N, self._k,
-                                            sh["h_e"], R, f, Rm, fm, sp, ep)
+        if k1 is None:
+            run_condense = condense.condense_plain if plain else condense.condense
+            k1 = run_condense(ends.plan if plain else ends, self._N, self._k, sh["h_e"], R, f,
+                              *self._modes, sp, ep)
+        W, w, g, Ftot, const = k1
         d_, r_, wn, rhs_sq = run_forward(lp.plan if plain else lp, w, const, Ftot)
         return _Fwd(R, f, sp, ep, W, w, g, Ftot, const, d_, r_, wn, rhs_sq)
 
@@ -361,7 +376,11 @@ class ShardedBlockedExecutor:
         return q_T, p_T, lam[: self.plan.B_sub], finite
 
     def __call__(self, shard_args, plain: bool = False):
-        fws = [self.forward(i, *args, plain=plain) for i, args in enumerate(shard_args)]
+        fws = [None] * len(self.shards)
+        for g, grp in enumerate(self.groups):
+            k1 = self.condense(g, shard_args, plain)
+            for j, i in enumerate(grp["members"]):
+                fws[i] = self.forward(i, *shard_args[i], plain=plain, k1=k1[:, j].unbind(0))
         top = self.top([self.partials(g, fws, plain) for g in range(len(self.groups))], plain)
         outs = [None] * len(self.shards)
         for g, grp in enumerate(self.groups):

@@ -8,12 +8,13 @@ the executor (``:186-245``) and the per-strip body
 
 Each shard owns a strip of ``h = ⌈ny / D⌉`` λ rows and every edge incident
 from it (its x-edges, the y-edges sourced in it, its boundary stubs).  Per
-strip, on its device: K1 on its E_loc slots and K22b's windows; across the
-strips, K22-reduce places the windows at their row offsets (the ghost
-update) and sums the stub groups, then, once per distinct device, K22b's
-fill and the exact DCT capacitance solve (K16) with K17's stencil as its
-matvec and residual; per strip again, K5 reads the strip's λ ends by index
-into the replicated λ.
+device, for all its strips at once: K1 on their E_loc slots (one launch)
+and K22b's windows (one launch, the rows written straight into the
+reduce's input); across the strips, K22-reduce places the windows at their
+row offsets (the ghost update) and sums the stub groups, then, once per
+distinct device, K22b's fill and the exact DCT capacitance solve (K16)
+with K17's stencil as its matvec and residual; per strip again, K5 reads
+the strip's λ ends by index into the replicated λ.
 
 ``sharded_grid_sweep`` (batched scenarios) is ROADMAP A9.
 """
@@ -195,9 +196,13 @@ class ShardedGridExecutor:
     """The strip-sharded lattice solve on a :class:`..parallel.mesh.ShardMesh`.
 
     Holds, per owned strip, its cell widths, K22b's tables and its slot ends
-    into λ on its device; per distinct device, the lattice's K17 plan and
-    K16's operator (its representative conductances at positions 0 and 1,
-    each stub group's at ``2 + group``: the reduce's tail).  Calling it
+    into λ on its device; per distinct device, the lattice's K17 plan, K16's
+    operator (its representative conductances at positions 0 and 1, each
+    stub group's at ``2 + group``: the reduce's tail) and a group: its
+    strips (in owned order), their K1 batch (:class:`..kernels.condense.Batch`)
+    and their K22b tables stacked
+    (:class:`..kernels.shard_grid.StripBatchTables`), so K1 makes 1 launch
+    and K22b 2 a device a solve whatever its number of strips.  Calling it
     returns per owned strip ``q_T``, ``p_T``, and λ (B,), the λ-system
     residual ``‖Lλ − rhs‖`` and the finiteness flag."""
 
@@ -229,6 +234,14 @@ class ShardedGridExecutor:
                 ends=ends_plan(src, tgt, B, dev),
                 tables=shard_grid.strip_tables(plan, d, dev),
             ))
+        self.groups = []
+        for dev in mesh.local_devices:
+            members = tuple(i for i, sh in enumerate(self.shards) if sh["device"] == dev)
+            self.groups.append(dict(
+                device=dev, members=members,
+                k1=condense.Batch([self.shards[i]["ends"] for i in members], self._N, self._k,
+                                  *self._modes),
+                tables=shard_grid.batch_strips([self.shards[i]["tables"] for i in members])))
 
     def prepare_args(self, R_data, f_data, start_pbc, end_pbc):
         """Per owned strip, its ``(R, f, start_pbc, end_pbc)`` slots on its device."""
@@ -237,8 +250,26 @@ class ShardedGridExecutor:
         return [tuple(torch.as_tensor(a, device=sh["device"]) for a in rows[d])
                 for d, sh in zip(self.mesh.owned, self.shards)]
 
+    # -- the stages, also what the kernel checks replay
+    def condense(self, g: int, shard_args, plain: bool = False) -> torch.Tensor:
+        """K1 of group ``g``'s strips (``shard_args`` every owned strip's
+        :meth:`prepare_args` row), one launch: the ``(5, S, E_loc)`` planes
+        ``W, w, g, Ftot, const``."""
+        grp = self.groups[g]
+        run = condense.condense_batch_plain if plain else condense.condense_batch
+        return run(grp["k1"], [(self.shards[i]["h_e"], *shard_args[i]) for i in grp["members"]])
+
+    def window(self, g: int, k1: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        """K22b's windows of group ``g``'s strips from their K1 planes
+        (:meth:`condense`), one launch: their ``(S, row_length)`` rows of
+        the reduce."""
+        run = shard_grid.window_batch_plain if plain else shard_grid.window_batch
+        return run(self.groups[g]["tables"], k1[1], k1[4], k1[3])
+
     def forward(self, i: int, R, f, sp, ep, plain: bool = False) -> _Fwd:
-        """Strip ``i`` (of the owned ones) up to its row of the reduce: K1, K22b."""
+        """Strip ``i`` (of the owned ones) alone up to its row of the
+        reduce: its own K1 and K22b launches (what the stages of a group
+        compute for it)."""
         sh = self.shards[i]
         run_condense = condense.condense_plain if plain else condense.condense
         run_window = shard_grid.window_plain if plain else shard_grid.window
@@ -249,13 +280,23 @@ class ShardedGridExecutor:
         return _Fwd(R, f, sp, ep, W, w, g, Ftot, const,
                     run_window(sh["tables"], w, const, Ftot))
 
-    def top(self, parts, plain: bool = False) -> dict:
-        """The placed reduce, then once per device K22b's fill, K16 and K17:
-        ``{device: (λ, residual)}``."""
+    def top(self, rows, plain: bool = False) -> dict:
+        """The placed reduce of the groups' rows (:meth:`window`, one tensor
+        a group), then once per device K22b's fill, K16 and K17: ``{device:
+        (λ, residual)}``.  One group's rows are the reduce's input as they
+        are; strips on several devices or processes go through
+        :meth:`ShardMesh.stack`."""
         p = self.plan
         nx, ny, h = p.nx, p.ny, p.h
         r = int(p.dct.stub_rows.size)
-        stacked = self.mesh.stack(parts)
+        if len(self.groups) == 1 and not self.mesh.distributed:
+            stacked = rows[0]
+        else:
+            parts = [None] * len(self.shards)
+            for grp, part in zip(self.groups, rows):
+                for j, i in enumerate(grp["members"]):
+                    parts[i] = part[j]
+            stacked = self.mesh.stack(parts)
         windows = self.mesh.reduce_placed(stacked, 2, h, nx, ny, plain=plain)
         tail = self.mesh.reduce(stacked, 2 + r, 2 * (h + 1) * nx, plain=plain)
         fill = shard_grid.fill_plain if plain else shard_grid.fill
@@ -284,8 +325,13 @@ class ShardedGridExecutor:
                           fw.W, fw.w, fw.g, fw.Ftot, sh["h_e"], fw.R, fw.f, Rm, fm)
 
     def __call__(self, shard_args, plain: bool = False):
-        fws = [self.forward(i, *args, plain=plain) for i, args in enumerate(shard_args)]
-        top = self.top([fw.part for fw in fws], plain)
+        fws, rows = [None] * len(self.shards), []
+        for g, grp in enumerate(self.groups):
+            k1 = self.condense(g, shard_args, plain)
+            rows.append(self.window(g, k1, plain))
+            for j, i in enumerate(grp["members"]):
+                fws[i] = _Fwd(*shard_args[i], *k1[:, j].unbind(0), rows[-1][j])
+        top = self.top(rows, plain)
         outs = [self.back(i, fw, top[self.shards[i]["device"]][0], plain)
                 for i, fw in enumerate(fws)]
         lam, res = top[self.mesh.home]

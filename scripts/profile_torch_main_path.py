@@ -110,7 +110,11 @@ k = 3 forest, set (b)'s 100k forest and the 512² lattice with callable f
 tile plan) and
 ``--select shards`` K22a on the sharded tree (:func:`shard_times`: a
 solve's partials and λ alone with their launches, the executor, the
-SHA-256 of the rows, λ, q and p).
+SHA-256 of the rows, λ, q and p); ``--select strips`` K22b and K1 on the
+sharded lattice and its executor (:func:`strip_times`) and ``--select
+condense`` K1 on the headline, the sharded tree's 8 shards and the sharded
+lattice's 8 strips (:func:`condense_times`), each with its launches and
+the SHA-256 of its outputs (and of λ, q, p).
 ``--root``
 imports the port from another checkout (e.g. the parent commit unpacked
 with ``git archive``), so that two versions are compared in one call.
@@ -126,7 +130,7 @@ Otherwise the script
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
-    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist|level|gather|fronts|tsolve|blocked|core|peel|edge|shards] [--root DIR] [--out kernels.json]
+    python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist|level|gather|fronts|tsolve|blocked|core|peel|edge|shards|strips|condense] [--root DIR] [--out kernels.json]
     python3 scripts/profile_torch_main_path.py --diff parent.npz change.npz
 
 (``--generations`` sets the depth of ``blocked``, ``callable`` and ``p1tree``.)
@@ -1138,6 +1142,180 @@ def shard_times(dev) -> dict:
     return out
 
 
+def _sharded(asm, dev, D: int = 8):
+    """The sharded solver of ``asm`` on D shards of the card, solved once,
+    its executor and the executor's per-shard arguments."""
+    from networks_fenicsx_tpu_torch.parallel import ShardedNetworkSolver
+
+    solver = ShardedNetworkSolver(asm, devices=[dev] * D)
+    solver.assemble()
+    solver.solve()
+    ex = solver._blocked_exec
+    return solver, ex, ex.prepare_args(*solver._coeff_args)
+
+
+def _k1_shards(ex, args):
+    """K1 of a sharded executor's shards as the port issues it: the group's
+    one launch where the executor has K1 stages (``condense``), a launch a
+    shard otherwise; returns ``(run, outputs)``, ``outputs()`` each shard's
+    ``(W, w, g, Ftot, const)`` in shard order."""
+    from networks_fenicsx_tpu_torch.kernels import condense
+
+    if hasattr(ex, "condense"):
+        def run():
+            return ex.condense(0, args)
+
+        def outputs():
+            k1 = run()
+            return [tuple(k1[:, j].unbind(0)) for j in range(k1.shape[1])]
+    else:
+        def run():
+            return [condense.condense(sh["ends"], ex._N, ex._k, sh["h_e"], R, f, *ex._modes, sp, ep)
+                    for sh, (R, f, sp, ep) in zip(ex.shards, args)]
+
+        outputs = run
+    return run, outputs
+
+
+# K22b's kernels on either port (the per-strip design's window and stubs kernels too)
+K22B_PATTERN = r"\bgrid_(window|stubs|fill)_kernel\b"
+
+
+def _launches_of(split: dict, pattern: str) -> float:
+    """Launches a call of the kernels of :func:`device_split` whose name
+    matches ``pattern``."""
+    return sum(n for key, (_, n) in split.items() if re.search(pattern, key))
+
+
+def _executor_digests(ex, args) -> dict:
+    """The executor call's :func:`timed_call` figures, its device µs and
+    launches by source and those of K1 and K22b, its host µs by function
+    and ``chip_smoke.executor_digests`` (λ, q, p)."""
+    exe = timed_call(lambda: ex(args), reps=10)
+    exe["device_by_source"] = by_source(exe["device_us_by_kernel"])
+    exe["k1_launches"] = _launches_of(exe["device_us_by_kernel"], chip_smoke.CONDENSE_PATTERN)
+    exe["k22b_launches"] = _launches_of(exe["device_us_by_kernel"], K22B_PATTERN)
+    exe["host_split"] = host_split(lambda: ex(args))
+    exe["sha256"] = chip_smoke.executor_digests(ex, args)
+    return exe
+
+
+def condense_times(dev) -> dict:
+    """``--select condense``: K1 on the port that ``sys.path`` finds first
+    (either port's interface), on the inputs its executors give it: the
+    headline tree (16 generations, N = 40, edge R, zero f; one launch), the
+    sharded tree's 8 shards and the sharded lattice's 8 strips (one launch
+    for every shard where the executor has K1 stages, a launch a shard
+    otherwise), each with :func:`timed_call`'s figures (``dispatch_us``:
+    the wrapper's host µs a call), its K1 launches a call, whether it
+    equals the plain version and the SHA-256 of the outputs (shard by
+    shard, ``W, w, g, Ftot, const``); on the sharded routes also the
+    executor's λ, q, p (``chip_smoke.executor_digests``)."""
+    from networks_fenicsx_tpu_torch.kernels import condense
+    from networks_fenicsx_tpu_torch.solver import build_schur_executor
+
+    asm = chip_smoke.arterial_assembler(P, chip_smoke.GENERATIONS, chip_smoke.N_CELLS)
+    ex = build_schur_executor(asm, P.SolverOptions(), device=dev)
+    R, f, sp, ep = ex.upload(*ex.prepare_args(*asm.schur_arguments()))
+    dp = ex.device_plan
+    Rm, fm, _ = asm.coefficient_modes()
+    c_args = (asm.network.N, asm.flux_degree, ex._h_e, R, f, Rm, fm, sp, ep)
+    rec = timed_call(lambda: condense.condense(dp, *c_args), reps=50)
+    got = condense.condense(dp, *c_args)
+    rec["equal_plain"] = all(torch.equal(a, b) for a, b in
+                             zip(got, condense.condense_plain(dp.plan, *c_args)))
+    rec["outputs_sha256"] = _digest(*got)
+    rec["k1_launches"] = _launches_of(rec["device_us_by_kernel"], chip_smoke.CONDENSE_PATTERN)
+    rec["sizes"] = {"edges": dp.num_edges, "modes": [Rm, fm]}
+    out = {"headline": rec}
+    del ex, got
+    for key, asm_ in (("sharded_tree", asm), ("sharded_lattice", chip_smoke.lattice_assembler(P))):
+        _, sex, sargs = _sharded(asm_, dev)
+        run, outputs = _k1_shards(sex, sargs)
+        rec = timed_call(run, reps=50)
+        res = outputs()
+        plain = [condense.condense_plain(sh["ends"].plan, sex._N, sex._k, sh["h_e"], R_, f_,
+                                         *sex._modes, sp_, ep_)
+                 for sh, (R_, f_, sp_, ep_) in zip(sex.shards, sargs)]
+        rec["equal_plain"] = all(torch.equal(a, b) for o, q in zip(res, plain) for a, b in zip(o, q))
+        rec["outputs_sha256"] = _digest(*(t for o in res for t in o))
+        rec["k1_launches"] = _launches_of(rec["device_us_by_kernel"], chip_smoke.CONDENSE_PATTERN)
+        rec["shards"], rec["E_loc"] = len(sex.shards), sex.plan.E_loc
+        rec["executor_sha256"] = chip_smoke.executor_digests(sex, sargs)
+        if hasattr(sex, "condense"):
+            rec["bound"] = chip_smoke.bound(*chip_smoke.condense_work(sex, sargs))
+        out[key] = rec
+        del sex, sargs, res, plain
+    return out
+
+
+def strip_times(dev) -> dict:
+    """``--select strips``: K22b and K1 on the sharded lattice (the 512²
+    lattice in 8 strips of the card), on the port that ``sys.path`` finds
+    first (either port's interface): a solve's K22b work alone (every
+    strip's window and the fill: one window launch for every strip on a
+    port with stacked strip tables, two a strip otherwise) and K1's (as
+    :func:`_k1_shards`), each with :func:`timed_call`'s figures, its
+    launches and the SHA-256 of its outputs; the executor's call
+    (:func:`_executor_digests`); and compute_forms + assemble + solve (host
+    clock, best of 5)."""
+    from networks_fenicsx_tpu_torch.kernels import shard_grid, shard_top
+
+    asm, forms = chip_smoke.lattice_assembler(P), chip_smoke.lattice_forms
+    solver, ex, args = _sharded(asm, dev)
+    p = ex.plan
+    r = int(p.dct.stub_rows.size)
+    Ex, Ey = p.ny * (p.nx - 1), (p.ny - 1) * p.nx
+    E = ex.grid[dev].num_edges
+    if hasattr(ex, "window"):
+        k1 = ex.condense(0, args)
+
+        def windows():
+            return ex.window(0, k1)
+    else:
+        fws = [ex.forward(i, *a) for i, a in enumerate(args)]
+
+        def windows():
+            return [shard_grid.window(sh["tables"], fw.w, fw.const, fw.Ftot)
+                    for sh, fw in zip(ex.shards, fws)]
+    rows = windows()
+    rows = rows if isinstance(rows, torch.Tensor) else torch.stack(rows)
+    tail = shard_top.reduce(rows, 2 + r, 2 * (p.h + 1) * p.nx)
+
+    def k22b():
+        return windows(), shard_grid.fill(Ex, Ey, E, tail)
+
+    rec = timed_call(k22b, reps=50)
+    rec["rows_sha256"] = _digest(rows)
+    rec["fill_sha256"] = _digest(shard_grid.fill(Ex, Ey, E, tail))
+    rec["k22b_launches"] = _launches_of(rec["device_us_by_kernel"], K22B_PATTERN)
+    if hasattr(shard_grid, "cuda_launches"):
+        bt = ex.groups[0]["tables"]
+        rec["cuda_launches"] = shard_grid.cuda_launches(bt)
+        rec["equal_plain"] = torch.equal(rows, ex.window(0, k1, plain=True))
+        work = (chip_smoke.tensor_bytes(k1[1], k1[4], k1[3], bt.valid, bt.cell_map, bt.st_fold,
+                                        bt.grp_fold, bt.st_sb)
+                + 8 * rows.numel() + chip_smoke.tensor_bytes(tail) + 8 * E,
+                12 * (p.h + 1) * p.nx * p.D)
+        rec["bound"] = chip_smoke.bound(*work)
+    out = {"k22b": rec, "plan": {"D": p.D, "h": p.h, "nx": p.nx, "E_loc": p.E_loc}}
+    run, outputs = _k1_shards(ex, args)
+    k1rec = timed_call(run, reps=50)
+    k1rec["outputs_sha256"] = _digest(*(t for o in outputs() for t in o))
+    k1rec["k1_launches"] = _launches_of(k1rec["device_us_by_kernel"], chip_smoke.CONDENSE_PATTERN)
+    out["k1"] = k1rec
+    out["executor"] = _executor_digests(ex, args)
+
+    def whole():
+        forms(asm)
+        solver.assemble()
+        solver.solve()
+
+    out["solve_ms"] = best_ms(whole, reps=5)
+    out["solution_sha256"] = _digest(*(torch.as_tensor(np.asarray(fn.values)) for fn in solver.solve()))
+    return out
+
+
 def mf_times(dev) -> dict:
     """``--select mf``: K13–K14 and K15 on the 100k web's multifrontal core
     as its executor gives them (``dc``, ``w_pairs``, ``rc`` captured from a
@@ -1922,7 +2100,8 @@ def main() -> int:
                          "level, K22-reduce, K16, K17) beside their library calls instead of a path")
     ap.add_argument("--select", choices=("all", "lattice", "redesign", "krylov", "mf", "windows",
                                          "mg1d", "dist", "level", "gather", "fronts", "tsolve",
-                                         "blocked", "core", "peel", "edge", "shards"),
+                                         "blocked", "core", "peel", "edge", "shards", "strips",
+                                         "condense"),
                     default="all",
                     help="with --kernels: every entry, K16 and K17 alone, K6, K19c, K21a, K18, "
                          "K19a and K19e alone, K19a and K19e alone, K13-K15 on the web, "
@@ -1933,8 +2112,9 @@ def main() -> int:
                          "solve on the sharded forest's and a 7-node T, K2-K4 on the headline and "
                          "the sharded tree's shards, K12a on web2k, fronts128 and web48's forced "
                          "plans, K9 on the 100k web, web1000 and the star, K8a on the callable "
-                         "tree, set (c)'s k = 3 forest and the callable-f lattice, or K22a on the "
-                         "sharded tree")
+                         "tree, set (c)'s k = 3 forest and the callable-f lattice, K22a on the "
+                         "sharded tree, K22b and K1 on the sharded lattice, or K1 on the headline, "
+                         "the sharded tree and the sharded lattice")
     ap.add_argument("--diff", type=pathlib.Path, nargs=2, default=None, metavar=("A", "B"),
                     help="compare the vectors of two --select mf, mg1d, level or gather --out runs (.npz) "
                          "and exit")
@@ -1959,7 +2139,8 @@ def main() -> int:
                      "gather": gather_times, "fronts": fronts_times,
                      "tsolve": tsolve_times, "blocked": blocked_times,
                      "core": core_times, "peel": peel_times, "edge": edge_times,
-                     "shards": shard_times}[args.select]
+                     "shards": shard_times, "strips": strip_times,
+                     "condense": condense_times}[args.select]
             rec = {"card": card, "port": str(pathlib.Path(P.__file__).resolve().parent),
                    **times(torch.device("cuda", 0))}
         else:
