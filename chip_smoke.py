@@ -255,6 +255,37 @@ KERNEL_RECORD = {
                   "networks_fenicsx_tpu/parallel/distributed_tree.py:396"),
     "shard_general": ("networks_fenicsx_tpu_torch/kernels/shard_general.py",
                       "networks_fenicsx_tpu/parallel/sharding.py:248"),
+    # factor reuse: the split kernels' factor and apply entries
+    "tree_sweep_factor": ("networks_fenicsx_tpu_torch/kernels/csrc/tree_sweep.cu",
+                          "networks_fenicsx_tpu/solver.py:2420"),
+    "tree_sweep_apply": ("networks_fenicsx_tpu_torch/kernels/csrc/tree_sweep.cu",
+                         "networks_fenicsx_tpu/solver.py:2453"),
+    "bifurcation_system": ("networks_fenicsx_tpu_torch/kernels/csrc/peel.cu",
+                           "networks_fenicsx_tpu/solver.py:3509"),
+    "peel_factor": ("networks_fenicsx_tpu_torch/kernels/csrc/peel.cu",
+                    "networks_fenicsx_tpu/solver.py:3678"),
+    "peel_apply": ("networks_fenicsx_tpu_torch/kernels/csrc/peel.cu",
+                   "networks_fenicsx_tpu/solver.py:3747"),
+    "dense_gate": ("networks_fenicsx_tpu_torch/kernels/csrc/dense_core.cu",
+                   "networks_fenicsx_tpu/ops/mixed_precision.py:34"),
+    "dense_solve": ("networks_fenicsx_tpu_torch/kernels/csrc/dense_core.cu",
+                    "networks_fenicsx_tpu/ops/mixed_precision.py:49"),
+    "dct_factor": ("networks_fenicsx_tpu_torch/kernels/csrc/dct_lattice.cu",
+                   "networks_fenicsx_tpu/solver.py:941"),
+    "dct_apply": ("networks_fenicsx_tpu_torch/kernels/csrc/dct_lattice.cu",
+                  "networks_fenicsx_tpu/solver.py:1002"),
+}
+# the factor-reuse wrappers: the configurations whose checks hold each, and the one timed
+FACTOR_CHECKS = {
+    "tree_sweep_factor": (("headline",), "headline"),
+    "tree_sweep_apply": (("headline",), "headline"),
+    "bifurcation_system": (("forest", "web", "web1000"), "web"),
+    "peel_factor": (("forest", "web", "web1000"), "web"),
+    "peel_apply": (("forest", "web", "web1000"), "web"),
+    "dense_gate": (("web1000",), "web1000"),
+    "dense_solve": (("web1000", "web1000:dense_solve_unrefined"), "web1000"),
+    "dct_factor": (("lattice",), "lattice"),
+    "dct_apply": (("lattice", "lattice:dct_apply_unrefined"), "lattice"),
 }
 # the checks of each iterative wrapper in the kernels-cg sets (k)-(m), and the
 # set whose record times it
@@ -4736,6 +4767,610 @@ def sharded_phases(P, device, name_power: str, serial: dict) -> dict:
             "lattice_case": lattice_case}
 
 
+# ---------------------------------------------------------------- factor reuse
+
+FACTOR_SOLVES = 3  # rhs-only solves a configuration, each with fresh f and p_bc
+# a factorized solve against the fused one, times the scale.  The forest's fused route is the
+# level elimination (1,240 levels) and its factorization the peel rounds (1,019): two orders,
+# 1.70e-12 apart relative with the plain versions on the CPU and 2.6e-12 on the card, so it is
+# held at 1e-11 there and at TOL against the same factorization's plain versions
+# (FACTOR_SAME_ORDER)
+FACTOR_TOL = {"headline": TOL, "lattice": LATTICE_TOL, "forest": 1e-11, "web": CYCLIC_TOL,
+              "web1000": CYCLIC_TOL}
+FACTOR_SAME_ORDER = {"forest": TOL}  # card against the CPU's plain versions, same factorization
+FACTOR_CLASS = {"headline": "BlockedFactorization", "lattice": "GridFactorization",
+                "forest": "TreeFactorization", "web": "TreeFactorization",
+                "web1000": "TreeFactorization"}
+# the wrappers a factor and an apply launch, by route (besides the core engine's on the tree route)
+FACTOR_USED = {
+    "BlockedFactorization": (("condense", "tree_sweep_factor"),
+                             ("condense", "tree_sweep_apply", "expand")),
+    "GridFactorization": (("condense", "dct_factor"),
+                          ("condense", "grid_core", "dct_apply", "expand")),
+    "TreeFactorization": (("condense", "bifurcation_system", "segsum", "peel_factor"),
+                          ("condense", "bifurcation_system", "segsum", "peel_apply", "expand")),
+}
+# the port's own kernels in a profiler window: neither PyTorch's nor a copy
+FACTOR_PATTERN = r"^(?!.*(at::|Memcpy|Memset))"
+
+
+def factor_rhs_forms(kind: str, fresh_R: bool = False):
+    """``forms(asm, s)``: the configuration's R (its main path's values) with
+    the ``s``-th fresh f and p_bc, same kinds.  The R array is made once,
+    read-only, and passed to every call (the serving pattern: the
+    factorized solve's staleness check is O(1)); with ``fresh_R`` it is made
+    anew, writeable, each call, so that each factorized solve hashes it.
+    The lattice's scalar R is compared by value either way."""
+    held = {}
+
+    def resistance(asm):
+        mesh = asm.network
+        if fresh_R or held.get("asm") is not asm:
+            R = (1.0 / mesh.edge_radius**4 if kind == "poiseuille"
+                 else np.random.default_rng(0).uniform(0.5, 2.0, mesh.num_edges))
+            R.flags.writeable = fresh_R
+            held.update(asm=asm, R=R)
+        return held["R"]
+
+    def forms(asm, s: int) -> None:
+        mesh = asm.network
+        pbc = (lambda x, s=s: (1.0 + 0.1 * s) * x[1] + 0.05 * s * x[0])
+        if kind == "poiseuille":  # the headline tree: R = 1/r⁴, scalar f
+            asm.compute_forms(p_bc_ex=pbc, R=resistance(asm), f=0.1 * s)
+        elif kind == "lattice":  # R = 1, scalar f
+            asm.compute_forms(p_bc_ex=pbc, R=1.0, f=0.1 * s)
+        else:  # forest_forms' R, a fresh per-cell f
+            f = np.random.default_rng(100 + s).uniform(-1.0, 1.0, mesh.num_cells)
+            asm.compute_forms(p_bc_ex=(lambda x, s=s: x[0] + 0.1 * s * x[1]), R=resistance(asm),
+                              f=f)
+    return forms
+
+
+def factor_host_split(solver, asm, rhs_forms, reps: int = 5) -> dict:
+    """Where an rhs-only factorized ``compute_forms`` + ``Solver.solve()``
+    spends its time on the host: each step as ``Solver._factorized_solve``
+    and ``Solver.solve`` run it, best of ``reps`` in ms, the card
+    synchronised at each step's ends — the forms; the staleness check (the
+    arguments, the R generation and the kinds; O(1) on ``rhs_forms``'s one
+    read-only R); the SHA-1 of R's bytes, which a new R array costs a solve
+    instead; the rhs permute and upload; the device apply; the copies to
+    the host (q, p, λ, the finite flag and the lattice's residual); the
+    flatten into the global vector; the scatter into the solution
+    functions — and the whole call, forms included."""
+    import hashlib
+
+    from networks_fenicsx_tpu_torch.solver import _flatten_blocks_host
+
+    rhs_forms(asm, 1)
+    solver.solve()  # re-arms the factor's R generation after another R array
+    fac, state, _, modes, gen = solver._factorization
+    names = ("compute_forms", "check", "sha1_R", "prepare_rhs", "apply", "to_host", "flatten",
+             "scatter", "whole")
+    best = dict.fromkeys(names, float("inf"))
+
+    def clock() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for i in range(reps):
+        s = 1 + i % FACTOR_SOLVES
+        t = [clock()]
+        rhs_forms(asm, s)
+        t.append(clock())
+        args = asm.schur_arguments(device=False)
+        assert asm._R_generation == gen and modes[:2] == asm.coefficient_modes()[:2]
+        t.append(clock())
+        hashlib.sha1(np.ascontiguousarray(args[0]).tobytes()).digest()
+        t.append(clock())
+        rhs = fac.prepare_rhs(*args[1:])
+        t.append(clock())
+        out = fac.solve_prepared(state, rhs)
+        t.append(clock())
+        host = [o.cpu().numpy() for o in out[:3]]
+        assert bool(out[-1]) and (not fac.solve_has_residual or np.isfinite(float(out[-3])))
+        t.append(clock())
+        x = _flatten_blocks_host(*host, asm.network.edge_color, edge_order=fac.edge_order,
+                                 bif_order=fac.bif_order)
+        t.append(clock())
+        solver._scatter_functions(None, x)
+        t.append(clock())
+        for name, a, b in zip(names, t, t[1:]):
+            best[name] = min(best[name], (b - a) * 1e3)
+        t0 = clock()
+        rhs_forms(asm, s)
+        solver.solve()
+        best["whole"] = min(best["whole"], (clock() - t0) * 1e3)
+        assert solver.info.method == "schur_factorized", solver.info
+    return best
+
+
+def factor_launches_want(fac) -> dict:
+    """The device launches of one factor and one apply, from the plans."""
+    from networks_fenicsx_tpu_torch import factorization as F
+    from networks_fenicsx_tpu_torch.kernels import (
+        dct_lattice, dense_core, grid_core, mf_apply, mf_factor, peel, tree_sweep,
+    )
+
+    if isinstance(fac, F.BlockedFactorization):
+        dp = fac.device_plan
+        return {"factor": 1 + tree_sweep.cuda_launches(dp, tree_sweep.FACTOR),
+                "apply": 2 + tree_sweep.cuda_launches(dp, tree_sweep.APPLY)}
+    if isinstance(fac, F.GridFactorization):
+        # K1, K16's factor; K1, K17's assembly, K16's passes, K17's two refinement
+        # residuals and the final one, K5
+        return {"factor": 1 + 2,
+                "apply": 2 + dct_lattice.apply_launches() + grid_core.cuda_launches()}
+    dtp = fac.device_tree_plan
+    # K1; the diagonal (prepare, K6), the pair sums (K6), K9's d channel
+    factor = 1 + 2 + int(dtp.num_pairs > 0) + peel.factor_launches(dtp)
+    apply = 1 + 3 + peel.cuda_launches(dtp) + 1
+    if dtp.core_size:
+        if dtp.mf is not None:
+            factor += mf_factor.cuda_launches(dtp.mf)
+            apply += mf_apply.cuda_launches(dtp.mf)
+        else:
+            n, P0 = dtp.core_size, int(dtp.core_ci.shape[0])
+            factor += 1 + (P0 > 0) + dense_core.tiled_factor_launches(n, n) + 1
+            apply += dense_core.solve_launches(n)
+    return {"factor": factor, "apply": apply}
+
+
+def blocked_factor_checks(fac, state, rhs_args) -> dict:
+    """K2 and K3–K4 on the factorization's inputs: each against its plain
+    version in the kernels' order bit for bit (the norm too) and in the
+    reference's (d, wn, factor, λ and r bit for bit); the apply's λ and norm
+    the full sweep's bits; K1 whole on the resident R gives the factor's
+    W and w bits."""
+    from networks_fenicsx_tpu_torch.kernels import tree_sweep
+
+    dp, (f, sp, ep) = fac.device_plan, rhs_args
+    plan = dp.plan
+    W, w, g, Ftot, const = fac._condense(dp, state.R, f, sp, ep)
+    assert torch.equal(W, state.W) and torch.equal(w, state.w), "K1: the factor's W, w bits"
+    B = dp.num_bifurcations
+    tables = (dp.bif_in, dp.bif_out, dp.sweep.levels)  # both halves assemble from these
+    kout = dp.bif_out.numel()
+    # the apply reads bif_parent at the subtree roots alone (the top's roots solve r / d), and
+    # the factor and wn of the nodes with a parent alone (not the roots of level 0)
+    sw = dp.sweep
+    roots_cut = int(sw.host_levels[sw.cut, 1]) if sw.blocks else 0
+    n_child = B - int(sw.host_levels[0, 1])
+    rec = {"w_equal": True}
+    d, wn, fc = tree_sweep.tree_sweep_factor(dp, w)
+    rec["tree_sweep_factor"] = check_pair(
+        lambda: tree_sweep.tree_sweep_factor(dp, w),
+        lambda: tree_sweep.tree_sweep_factor_blocked_plain(dp, w),
+        (tensor_bytes(w, tables) + 24 * B, 5 * B + kout), exact=True)
+    ref = tree_sweep.tree_sweep_factor_plain(plan, w)
+    assert all(torch.equal(a, b) for a, b in zip((d, wn, fc), ref)), "K2 vs the reference's order"
+    got = tree_sweep.tree_sweep_apply(dp, d, wn, fc, const, Ftot)
+    rec["tree_sweep_apply"] = check_pair(
+        lambda: tree_sweep.tree_sweep_apply(dp, d, wn, fc, const, Ftot),
+        lambda: tree_sweep.tree_sweep_apply_blocked_plain(dp, d, wn, fc, const, Ftot),
+        (tensor_bytes(d, const, Ftot, tables) + 4 * roots_cut + 16 * n_child + 16 * B + 8,
+         8 * B + 2 * kout), exact=True)
+    ref = tree_sweep.tree_sweep_apply_plain(plan, d, wn, fc, const, Ftot)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2]), "K3–K4 vs the reference's"
+    fused = tree_sweep.tree_sweep(dp, w, const, Ftot)
+    assert torch.equal(got[0], fused[0]) and torch.equal(got[1], fused[1]), "apply vs full sweep"
+    assert torch.equal(d, fused[2]) and torch.equal(wn, fused[4]), "factor vs full sweep"
+    rec["tree_sweep_apply"]["lambda_equal_full_sweep"] = True
+    rec["fused_sweep_ms"] = cuda_ms(lambda: tree_sweep.tree_sweep(dp, w, const, Ftot))
+    return rec
+
+
+def grid_factor_checks(fac, state, rhs_args) -> dict:
+    """K16's factor and its passes on a stored factor on the lattice
+    factorization's inputs: the factor at ``TOL``, the passes against their
+    plain version on the same state (``LATTICE_TOL`` refined, ``TOL``
+    unrefined) and the fused solve's bits on the same ``w``."""
+    from networks_fenicsx_tpu_torch.kernels import dct_lattice as K16, grid_core
+
+    gdp, op, (f, sp, ep) = fac.device_plan, fac.operator, rhs_args
+    W, w, g, Ftot, const = fac._condense(gdp, state.R, f, sp, ep)
+    assert torch.equal(W, state.W) and torch.equal(w, state.w), "K1: the factor's W, w bits"
+    rhs, diag, _ = grid_core.grid_core(gdp, w, const, Ftot)
+    st = state.dct
+
+    def res_kernel(lam):
+        return grid_core.grid_residual(gdp, w, diag, lam, rhs)
+
+    def res_plain(lam):
+        return grid_core.grid_residual_plain(gdp, w, diag, lam, rhs)
+
+    lam = K16.dct_apply(op, st, rhs, res_kernel)
+    assert torch.equal(lam, K16.dct_lattice(op, w, rhs, res_kernel)), "dct_apply vs the fused solve"
+    fixed = res_plain(lam)
+    B, n_pass = op.B, 1 + K16.N_REFINE
+    stub_tables = (op.stub_rows, op.stub_edge, op.stub_group)
+    rec = {"w_equal": True, "lambda_equal_fused": True}
+    rec["dct_factor"] = check_pair(
+        lambda: K16.dct_factor(op, w), lambda: K16.factor_plain(op, w),
+        (tensor_bytes(op.lamx, op.lamy, op.g_geo, stub_tables, st) + 8 * (2 + op.stub_edge.numel()),
+         3 * B + 2 * op.r * B, 0.0))
+    rec["dct_apply"] = check_pair(lambda: K16.dct_apply(op, st, rhs, res_kernel),
+                                  lambda: K16.dct_apply_plain(op, st, rhs, res_plain),
+                                  tol=LATTICE_TOL)
+    rec["dct_apply_unrefined"] = check_pair(
+        lambda: K16.dct_apply(op, st, rhs, res_kernel, n_refine=0),
+        lambda: K16.dct_apply_plain(op, st, rhs, res_plain, n_refine=0))
+    # timed alone: its refinement residuals are fixed tensors here, as K16's record
+    timed = check_pair(
+        lambda: K16.dct_apply(op, st, rhs, lambda _: fixed),
+        lambda: K16.dct_apply_plain(op, st, rhs, lambda _: fixed),
+        (tensor_bytes(op.Dx, op.Dy, st, stub_tables) + 8 * B * (2 + K16.N_REFINE),
+         n_pass * (2 * op.r + 3) * B, n_pass * 4 * op.ny * op.s * (op.ny + op.s)),
+        library=lambda: [K16.lplus_plain(op, st, rhs) for _ in range(n_pass)], tol=LATTICE_TOL)
+    rec["dct_apply"].update({key: timed[key] for key in timed if key not in rec["dct_apply"]})
+    rec["fused_dct_ms"] = cuda_ms(lambda: K16.dct_lattice(op, w, rhs, lambda _: fixed), reps=10)
+    return rec
+
+
+def peel_children(dtp) -> int:
+    """The peeled nodes with a parent (a pair and a factor each)."""
+    from networks_fenicsx_tpu_torch.ops import peel_table as T
+
+    words = dtp.peel_table.host
+    return sum(int((T.round_arrays(words, k)["parents"] >= 0).sum())
+               for k in range(int(words[T.H_ROUNDS])))
+
+
+def peel_table_words(dtp, chan: str) -> int:
+    """The int32 words of K9's packed table that one call of a channel reads
+    on the card, each word once: ``"d"`` :func:`peel_factor`'s forward
+    launches, ``"r"`` :func:`peel_apply`'s forward and back launches.  A
+    grid entry reads its round's sources for its fold level (level 0:
+    ``esrc`` and the children's ``fsrc``, the d channel their ``parents``,
+    ``pair_ids`` and ``fpid`` besides; a later level its rows; the last
+    level ``upar``, ``usrc`` and ``ucore``); back, ``bpar`` and ``elim``. A
+    block entry reads its round rows, its staged words, ``ssrc``, ``slots``
+    and ``bsrc`` (the d channel ``wsrc`` besides; back: its round rows,
+    staged words, ``bsrc`` and the slots it eliminates).  The duty reads its
+    gather (``early``, the core's nodes it names) or scatter (``core``).
+    The launch lists are read on the host and a grid round's row is a
+    kernel parameter."""
+    from networks_fenicsx_tpu_torch.ops import peel_table as T
+
+    words = np.asarray(dtp.peel_table.host, np.int64)
+    read = np.zeros(words.size, bool)
+    d = chan == "d"
+
+    def mark(off: int, n: int) -> None:
+        if off >= 0 and n > 0:
+            read[off: off + n] = True
+
+    def field(k: int, f: int) -> int:
+        return int(words[T.HEAD_WORDS + k * T.ROUND_WORDS + f])
+
+    def level(k: int, l: int) -> tuple:  # (offset, rows, width) of fold level l
+        at = T.HEAD_WORDS + k * T.ROUND_WORDS + T.R_FOLD + 1 + 4 * l
+        return int(words[at]), int(words[at + 1]), int(words[at + 2])
+
+    def staged(e) -> None:  # a block entry's round rows and staged words
+        first, last = int(e[T.E_FIRST]), int(e[T.E_LAST])
+        mark(T.HEAD_WORDS + first * T.ROUND_WORDS, (last - first) * T.ROUND_WORDS)
+        mark(int(e[T.E_LO]), int(e[T.E_HI]) - int(e[T.E_LO]))
+
+    core, n_core = int(words[T.H_CORE]), int(words[T.H_NCORE])
+    early, n_early = int(words[T.H_EARLY]), int(words[T.H_NEARLY])
+    fwd, back = T.entries(words)
+    for e in fwd:
+        kind, k, l = int(e[T.E_KIND]), int(e[T.E_FIRST]), int(e[T.E_LEVEL])
+        if int(e[T.E_DUTY]):
+            mark(early, n_early)
+            read[core + words[early: early + n_early]] = True
+        if kind == T.GRID:
+            n, L = field(k, T.R_N), field(k, T.R_FOLD)
+            if l == 0:
+                mark(field(k, T.R_ESRC), n)
+                if d:
+                    mark(field(k, T.R_PAR), n)
+                    mark(field(k, T.R_PID), n)
+                if L:
+                    _, rows, K = level(k, 0)
+                    mark(field(k, T.R_FSRC), rows * K)
+                    if d:
+                        mark(field(k, T.R_FPID), rows * K)
+            else:
+                off, rows, K = level(k, l)
+                mark(off, rows * K)
+            if L and l == L - 1:
+                rows = level(k, l)[1]
+                for f in (T.R_UPAR, T.R_USRC, T.R_UCORE):
+                    mark(field(k, f), rows)
+        elif kind == T.BLOCK:
+            S = int(e[T.E_S])
+            staged(e)
+            for f in (T.E_SSRC, T.E_SLOTS, T.E_BSRC):
+                mark(int(e[f]), S)
+            if d:
+                mark(int(e[T.E_WSRC]), sum(field(j, T.R_N) for j in range(k, int(e[T.E_LAST]))))
+    if not d:
+        for e in back:
+            kind, k = int(e[T.E_KIND]), int(e[T.E_FIRST])
+            if int(e[T.E_DUTY]):
+                mark(core, n_core)
+            if kind == T.GRID:
+                mark(field(k, T.R_BPAR), field(k, T.R_N))
+                mark(field(k, T.R_ELIM), field(k, T.R_N))
+            elif kind == T.BLOCK:
+                S, bsrc, slots = int(e[T.E_S]), int(e[T.E_BSRC]), int(e[T.E_SLOTS])
+                staged(e)
+                mark(bsrc, S)
+                read[slots + np.flatnonzero(words[bsrc: bsrc + S] == -1)] = True
+    return int(read.sum())
+
+
+def tree_factor_checks(fac, state, rhs_args, timed: bool = True) -> dict:
+    """The tree factorization's new entries on its inputs: the bifurcation
+    system; K9's d channel and r channel against their plain versions in the
+    table's order bit for bit (and the reference's order), the apply's λ the
+    two-channel pass's bits on the same core solution (its dc and rc too);
+    on a dense core K11's gate and its solve on the stored factor (refined at
+    ``CYCLIC_TOL``, unrefined at ``TOL``, and ``dense_core``'s bits).
+    ``timed``: each entry also timed with its bound (the kernels line's
+    records are the web's and web1000's)."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core, peel
+
+    dtp, ends, (f, sp, ep) = fac.device_tree_plan, fac.ends, rhs_args
+    W, w, g, Ftot, _ = fac._condense(ends, state.R, f, sp, ep)
+    assert torch.equal(W, state.W) and torch.equal(w, state.w), "K1: the factor's W, w bits"
+    B, E, n_p, n_c = dtp.num_bifurcations, dtp.num_edges, dtp.n_peeled, dtp.core_size
+    n_fac = peel_children(dtp)  # the peeled nodes with a parent: a factor and a pair each
+    rec = {"w_equal": True, "rounds": len(dtp.rounds), "core": n_c,
+           "peel_entries": [dtp.peel_table.n_forward, dtp.peel_table.n_back]}
+    sums = (dtp.t_idx, dtp.s_idx, dtp.t_bins, dtp.s_bins, dtp.start_bif, dtp.end_bif)
+    rec["bifurcation_system"] = check_pair(
+        lambda: peel.bifurcation_system(dtp, W, g, Ftot, sp, ep),
+        lambda: peel.bifurcation_system_plain(dtp, W, g, Ftot, sp, ep),
+        (tensor_bytes(W, g, Ftot, sp, ep, sums) + 8 * (2 * B + E + 1), 10 * E + 2 * B) if timed
+        else None)
+    dr_f = peel.bifurcation_system(dtp, W)[0]  # the factor's: the diagonal alone
+    dr = peel.bifurcation_system(dtp, W, g, Ftot, sp, ep)[0]
+    assert torch.equal(dr_f, peel.bifurcation_system_plain(dtp, W)[0]), "the diagonal alone"
+    assert torch.equal(dr_f[:, 0], dr[:, 0]) and not dr_f[:, 1].any(), "the diagonal's bits"
+    wp = state.w_pairs
+    pf = peel.peel_factor(dtp, dr_f, wp)
+    # reads: the d channel's table words, each child's pair, the diagonal; writes: the saved
+    # w and db, each child's factor (the rest of the factor is a fill before the launch), dc
+    rec["peel_factor"] = check_pair(
+        lambda: peel.peel_factor(dtp, dr_f, wp), lambda: peel.peel_factor_table_plain(dtp, dr_f, wp),
+        (4 * peel_table_words(dtp, "d") + 8 * n_fac + 8 * B + 8 * (2 * n_p + n_fac + n_c),
+         4 * n_p) if timed else None, exact=True)
+    assert all(torch.equal(a, b) for a, b in zip(pf, peel.peel_factor_plain(dtp, dr_f, wp)))
+    assert all(torch.equal(a, b) for a, b in zip(pf, state.peeled)), "peel_factor: repeat bits"
+    cap = {}
+
+    def core(rc):
+        cap["rc"] = rc
+        cap["x"] = fac._core_apply(state)(rc)
+        return cap["x"]
+
+    lam = peel.peel_apply(dtp, pf, dr, core)
+    x = cap.get("x")
+
+    def fixed(rc):
+        return x
+
+    # reads: the r channel's table words, each child's factor, the saved w and db, the rhs and
+    # the core's solution; writes: rc and λ
+    rec["peel_apply"] = check_pair(
+        lambda: peel.peel_apply(dtp, pf, dr, fixed),
+        lambda: peel.peel_apply_table_plain(dtp, pf, dr, fixed),
+        (4 * peel_table_words(dtp, "r") + 8 * (n_fac + 2 * n_p) + 8 * B + 8 * (B + 2 * n_c),
+         5 * n_p) if timed else None, exact=True)
+    assert torch.equal(lam, peel.peel_apply_plain(dtp, pf, dr, fixed)), "K9 apply vs reference order"
+    # the two-channel pass on the same system and core solution: λ, dc and rc bit for bit
+    both = torch.stack([dr_f[:, 0], dr[:, 1]], dim=-1).contiguous()
+    seen = {}
+
+    def fused_core(dc, rc):
+        seen["dc"], seen["rc"] = dc, rc
+        return x
+
+    assert torch.equal(lam, peel.peel(dtp, both, wp, fused_core)), "peel_apply vs peel"
+    if n_c:
+        assert torch.equal(seen["dc"], pf.dc) and torch.equal(seen["rc"], cap["rc"])
+    rec["peel_apply"]["lambda_equal_fused_peel"] = True
+    if timed:
+        rec["fused_peel_ms"] = cuda_ms(lambda: peel.peel(dtp, both, wp, lambda dc, rc: x), reps=5)
+    if n_c and dtp.mf is None:
+        Lc, s, C, ok = state.core
+        rc = cap["rc"]
+        gate = dense_core.dense_gate(C)
+        assert int(gate) == int(ok) == int(dense_core.dense_gate_plain(torch.tril(C))), "K11 gate"
+        rec["dense_gate"] = check_pair(
+            lambda: dense_core.dense_gate(C).double(),
+            lambda: dense_core.dense_gate_plain(torch.tril(C)).double(),
+            (8 * n_c + 4, 3 * n_c), exact=True)
+        rec["dense_gate"]["ok"] = int(ok)
+        n = n_c
+        chol = torch.tril(C)
+        rec["dense_solve"] = check_pair(
+            lambda: dense_core.dense_solve(Lc, s, C, ok, rc),
+            lambda: dense_core.dense_solve_plain(Lc, s, chol, ok, rc),
+            (8 * (n * n + n * (n + 1) // 2 + 3 * n) + 4,
+             (1 + dense_core.N_REFINE) * 2 * n * n + dense_core.N_REFINE * 2 * n * n),
+            library=lambda: torch.cholesky_solve(((rc / s))[:, None], chol)[:, 0] / s,
+            tol=CYCLIC_TOL)
+        rec["dense_solve_unrefined"] = check_pair(
+            lambda: dense_core.dense_solve(Lc, s, C, ok, rc, n_refine=0),
+            lambda: dense_core.dense_solve_plain(Lc, s, chol, ok, rc, n_refine=0))
+        ci, cj, pid = dtp.core_ci, dtp.core_cj, dtp.core_pid
+        assert torch.equal(dense_core.dense_solve(Lc, s, C, ok, rc),
+                           dense_core.dense_core(ci, cj, pid, pf.dc, rc, wp)), "dense_solve bits"
+        rec["dense_solve"]["equal_dense_core"] = True
+        rec["fused_dense_core_ms"] = cuda_ms(
+            lambda: dense_core.dense_core(ci, cj, pid, pf.dc, rc, wp), reps=10)
+    return rec
+
+
+def factor_path(P, device, label: str, asm, kind: str, name_power: str) -> dict:
+    """Factor reuse on one configuration through the public API, on
+    :func:`factor_rhs_forms`'s ``kind``: ``Solver.factorize()`` once
+    (counted), then :data:`FACTOR_SOLVES` rhs-only solves with fresh f and
+    p_bc (each counted, ``schur_factorized``, finite, conserving mass and
+    equal to the fused ``Solver.solve()`` of the same forms at the
+    configuration's bar); then the new entries against their plain
+    versions, the device launches of a factor and of an apply against the
+    plans' (``torch.profiler``), the factor's, the apply's and the fused
+    executor's device time, the rhs-only ``compute_forms`` + ``solve()``
+    loop factorized (one read-only R, and a new R array a call) and fused,
+    and the factorized call's host split (:func:`factor_host_split`)."""
+    from networks_fenicsx_tpu_torch import kernels
+
+    key = label.split()[0]
+    tol = FACTOR_TOL[key]
+    mesh = asm.network
+    rhs_forms = factor_rhs_forms(kind)
+    rhs_forms(asm, 0)
+    solver = P.Solver(asm, device=device)
+    fused = P.Solver(asm, device=device)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    solver.factorize()
+    torch.cuda.synchronize()
+    factor_s = time.perf_counter() - t0
+    factor_run = kernels.launches()
+    fac, state = solver._factorization[:2]
+    assert type(fac).__name__ == FACTOR_CLASS[key], type(fac)
+    used_f, used_a = FACTOR_USED[type(fac).__name__]
+    core_f, core_a = (), ()
+    if key in ("web", "web1000"):
+        dtp = fac.device_tree_plan
+        if dtp.mf is not None:  # K10's folds in the multifrontal refinement
+            core_f, core_a = ("mf_factor",), ("mf_apply",) + (
+                ("fold_apply",) if dtp.mf.plan.n_refine > 0 else ())
+        else:
+            core_f, core_a = ("dense_core", "dense_gate"), ("dense_solve",)
+    assert all(factor_run[n] >= 1 for n in used_f + core_f), (label, factor_run)
+    assert all(n == 0 for name, n in factor_run.items() if name not in used_f + core_f), factor_run
+    runs, errs, times = [factor_run], [], []
+    for s in range(1, FACTOR_SOLVES + 1):
+        rhs_forms(asm, s)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        sol = solver.solve()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        run = kernels.launches()
+        assert all(run[n] >= 1 for n in used_a + core_a), (label, run)
+        assert all(n == 0 for name, n in run.items() if name not in used_a + core_a), (label, run)
+        runs.append(run)
+        info = solver.info
+        assert info.method == "schur_factorized" and info.converged, info
+        x = np.concatenate([np.asarray(fn.values).ravel() for fn in sol])
+        assert x.shape == (asm.num_dofs,) and np.all(np.isfinite(x))
+        imbalance, qmax = conservation(asm, x)
+        assert imbalance <= 1e-10 * qmax, (label, imbalance, qmax)
+        fused.solve()
+        assert fused.info.method == "schur" and fused.info.converged, fused.info
+        x_fused = fused.solution_vector()
+        err = float(np.abs(x - x_fused).max())
+        scale = max(1.0, float(np.abs(x_fused).max()))
+        assert err <= tol * scale, (label, s, err, scale, tol)
+        errs.append(err / scale)
+    same_order = None
+    if key in FACTOR_SAME_ORDER:  # the same factorization on the plain versions (the CPU)
+        cpu = P.Solver(asm, device="cpu")
+        cpu.factorize()
+        cpu.solve()
+        assert cpu.info.method == "schur_factorized", cpu.info
+        x_cpu = cpu.solution_vector()
+        scale = max(1.0, float(np.abs(x_cpu).max()))
+        same_order = float(np.abs(x - x_cpu).max()) / scale
+        assert same_order <= FACTOR_SAME_ORDER[key], (label, same_order)
+        del cpu
+    args = asm.schur_arguments()
+    rhs_args = fac.prepare_rhs(*args[1:])
+    if key == "headline":
+        checks = blocked_factor_checks(fac, state, rhs_args)
+    elif key == "lattice":
+        checks = grid_factor_checks(fac, state, rhs_args)
+    else:  # the forest's are not the kernels line's records: checked, not timed
+        checks = tree_factor_checks(fac, state, rhs_args, timed=key != "forest")
+    # device launches of one factor and one apply: the port's kernels in a profiler window
+    want = factor_launches_want(fac)
+    R_data = args[0]
+    counted_window(lambda: 0, FACTOR_PATTERN, device)  # a process's first starts the tracer
+    launch_rec = {}
+    for part, run_part in (("factor", lambda: fac.factor(R_data)),
+                           ("apply", lambda: fac.solve_prepared(state, rhs_args))):
+        windows = launch_count_windows(lambda: (run_part(), want[part])[1], FACTOR_PATTERN, device)
+        launch_rec[part] = check_launch_windows(f"{key}_{part}", windows, want[part])
+        launch_rec[part].pop("windows")
+    ex = fused._executor
+    ex_args = ex.prepare_args(*args)
+    timing_rec = {
+        "factor_ms": cuda_ms(lambda: fac.factor(R_data), reps=5),
+        "apply_ms": cuda_ms(lambda: fac.solve_prepared(state, rhs_args), reps=10),
+        "solve_ms": cuda_ms(lambda: fac.solve(state, *args[1:]), reps=10),
+        "fused_ms": cuda_ms(lambda: ex(*ex_args), reps=10),
+        "factor_share": device_share(lambda: fac.factor(R_data)),
+        "apply_share": device_share(lambda: fac.solve_prepared(state, rhs_args)),
+        "fused_share": device_share(lambda: ex(*ex_args)),
+    }
+    loops = {}  # compute_forms + solve, ms
+    for name, s_forms, s_solver in (("factorized", rhs_forms, solver),
+                                    ("factorized_new_R", factor_rhs_forms(kind, fresh_R=True),
+                                     solver),
+                                    ("fused", rhs_forms, fused)):
+        loops[name] = []
+        for s in range(FACTOR_SOLVES):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            s_forms(asm, s + 1)
+            s_solver.solve()
+            torch.cuda.synchronize()
+            loops[name].append((time.perf_counter() - t1) * 1e3)
+        want_method = "schur" if s_solver is fused else "schur_factorized"
+        assert s_solver.info.method == want_method, (name, s_solver.info)
+    host = factor_host_split(solver, asm, rhs_forms)
+    log(f"phase factor {label}: {type(fac).__name__}, {mesh.num_edges} edges, "
+        f"{mesh.num_multipliers} bifurcations, {asm.num_dofs} dofs; factorize() {factor_s:.3f} s; "
+        f"{FACTOR_SOLVES} rhs-only solves vs the fused solve max {max(errs):.3e} of scale (bar "
+        f"{tol:.0e})" + ("" if same_order is None else f", vs its plain versions (CPU) "
+                          f"{same_order:.3e} (bar {FACTOR_SAME_ORDER[key]:.0e})")
+        + f"; launches factor {nonzero(factor_run)}, a solve {nonzero(runs[-1])}; "
+        f"device launches {json.dumps(launch_rec)}")
+    log(f"phase timing factor {label}: compute_forms+solve ms, factorized on one read-only R "
+        f"{loops['factorized']}, on a new R array a call {loops['factorized_new_R']}, fused "
+        f"{loops['fused']}; CUDA events: factor {timing_rec['factor_ms']:.4f} ms, "
+        f"apply (rhs resident) {timing_rec['apply_ms']:.4f} ms, solve (rhs uploaded) "
+        f"{timing_rec['solve_ms']:.4f} ms, fused executor {timing_rec['fused_ms']:.4f} ms; "
+        f"profiled device busy: factor {timing_rec['factor_share']['busy_ms']} ms, apply "
+        f"{timing_rec['apply_share']['busy_ms']} ms, fused {timing_rec['fused_share']['busy_ms']} "
+        f"ms; card {name_power}")
+    log(f"phase host factor {label}: best ms of a factorized compute_forms + solve by step "
+        f"{json.dumps(host)}; card {name_power}")
+    log(f"phase kernels-factor ({key}): " + json.dumps(checks))
+    summed = {name: sum(r[name] for r in runs) for name in runs[0]}
+    return {"launches": summed, "checks": checks, "errs": errs, "device_launches": launch_rec,
+            "timing": timing_rec, "loops_ms": loops, "host_ms": host, "same_order": same_order}
+
+
+def factor_phases(P, device, name_power: str, serial: dict) -> dict:
+    """The factor-reuse slice on five configurations at full width: the
+    headline tree (blocked), the 512² lattice (grid), the 100k forest and
+    the 100k web (peel rounds, then the multifrontal core) and web1000 (a
+    455-node dense core) — the serial phases' assemblers, their forms put
+    back after — each through :func:`factor_path`."""
+    paths = {}
+    plan = (("headline tree", "tree", "poiseuille", bed_forms),
+            ("lattice 512^2", "lattice", "lattice", lattice_forms),
+            ("forest 100k", "forest", "forest", forest_forms),
+            ("web 100k", "web", "forest", forest_forms))
+    for label, key, kind, restore in plan:
+        asm = serial[key][0]
+        paths[label.split()[0]] = factor_path(P, device, label, asm, kind, name_power)
+        restore(asm)
+    paths["web1000"] = factor_path(P, device, "web1000 (455-node dense core)",
+                                   web_assembler(P, sites=1_000), "forest", name_power)
+    return paths
+
+
 def panel_launch_phase(P, device) -> dict:
     """The tiled Cholesky's panel and trailing launches (``panel_launches``)
     in one call of K12b on the 128² lattice's forced fronts (set (i)'s
@@ -4882,6 +5517,10 @@ def main() -> int:
     generic = generic_phases(P, device, name_power)
     gen_sets = generic["sets"]
 
+    t_factor = time.perf_counter()
+    factor = factor_phases(P, device, name_power, serial)
+    log(f"phase wall: the factor-reuse phases {time.perf_counter() - t_factor:.1f} s")
+
     t_sharded = time.perf_counter()
     log(f"phase wall: before the sharded phases {t_sharded - t_start:.1f} s")
     sharded = sharded_phases(P, device, name_power, serial)
@@ -4922,7 +5561,8 @@ def main() -> int:
             *(path["launches"] for path in lattice["paths"].values()),
             *(path["launches"] for path in mid["paths"].values()),
             *(path["launches"] for path in iterative["paths"].values()), *generic["runs"],
-            *(path["launches"] for path in sharded["paths"].values()))
+            *(path["launches"] for path in sharded["paths"].values()),
+            *(path["launches"] for path in factor.values()))
     timed_cyclic = {"dense_core": k11[K11_TIMED], "core_elim": core["f"]["core_elim"],
                     "core_fronts": core["i"]["core_fronts"]}
     timed_lattice = {"dct_lattice": lat["a"], "grid_core": lat["a"], "shift_matvec": lat["c"]}
@@ -4950,6 +5590,11 @@ def main() -> int:
             checks, (on, key) = SHARDED_CHECKS[name]
             errs = tuple(shard_sets[s][k]["max_abs_err"] for s, k in checks)
             timed_on = shard_sets[on][key]
+        elif name in FACTOR_CHECKS:
+            checks, on = FACTOR_CHECKS[name]
+            errs = tuple(factor[c.split(":")[0]]["checks"][c.split(":")[1] if ":" in c else name]
+                         ["max_abs_err"] for c in checks)
+            timed_on = factor[on]["checks"][name]
         elif name in GENERIC_CHECKS:
             checks = GENERIC_CHECKS[name]
             errs = tuple(gen_sets[on][key]["max_abs_err"] for on, key in checks)
@@ -4970,7 +5615,7 @@ def main() -> int:
             "bound_ms": timed_on["bound_ms"], "bound_by": timed_on["bound_by"],
             "library_ms": timed_on.get("library_ms"),
         })
-    assert len(kernels) == 34 and all(kr["launches"] > 0 for kr in kernels), kernels
+    assert len(kernels) == 43 and all(kr["launches"] > 0 for kr in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -87,6 +87,13 @@ The sharded solves (:mod:`..parallel`), per shard and across the shards:
 * :mod:`.shard_general` — K22d, the general shard's λ-system partials and
   its part of the CG matvec, on the kernels of K9, K6 and K19b.
 
+Factor reuse (:mod:`..factorization`) splits four of them into a factor
+and an apply: K2 from K3–K4 (``tree_sweep_factor``, ``tree_sweep_apply``),
+K9's channels (``peel_factor``, ``peel_apply``, after the bifurcation
+system of ``bifurcation_system``), K11's solve on a stored factor
+(``dense_gate``, ``dense_solve``) and K16's passes on a stored factor
+(``dct_factor``, ``dct_apply``): the ``FACTORED`` wrappers.
+
 A wrapper launches its kernel for CUDA tensors (building the library from
 ``csrc/`` at first use, see :mod:`.build`) and runs the plain version for
 CPU tensors.  Each wrapper counts its launches in a plain integer attribute
@@ -107,6 +114,7 @@ __all__ = [
     "mf_apply", "mf_factor", "mg1d", "mg2d", "peel", "schur_p", "segsum", "shift_matvec",
     "tree_sweep", "dist_tree", "shard_blocked", "shard_general", "shard_grid", "shard_top",
     "WRAPPERS", "BLOCKED", "GENERAL", "CYCLIC", "LATTICE", "ITERATIVE", "ASSEMBLED", "SHARDED",
+    "FACTORED",
     "reset_launches", "launches",
 ]
 
@@ -121,7 +129,10 @@ ITERATIVE = (krylov.LAUNCHES, gather_matvec.LAUNCHES, mg2d.LAUNCHES, mg1d.LAUNCH
 ASSEMBLED = (csr.FOLD, csr.SPMV, schur_p.FACTOR, schur_p.SOLVE, dense_lu.LAUNCHES, krylov.MINRES)
 SHARDED = (shard_top.REDUCE, shard_top.T_SOLVE, shard_blocked.LAUNCHES, shard_grid.LAUNCHES,
            dist_tree.LAUNCHES, shard_general.LAUNCHES)
-WRAPPERS = BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE + ASSEMBLED + SHARDED
+FACTORED = (tree_sweep.tree_sweep_factor, tree_sweep.tree_sweep_apply, peel.bifurcation_system,
+            peel.peel_factor, peel.peel_apply, dense_core.dense_gate, dense_core.dense_solve,
+            dct_lattice.dct_factor, dct_lattice.dct_apply)
+WRAPPERS = BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE + ASSEMBLED + SHARDED + FACTORED
 
 
 def reset_launches() -> None:

@@ -41,7 +41,7 @@ _SIGNATURES = {
         _i, _i, _p,  # top nodes, top threads, level table
         _p, _p, _p,  # bif_in, bif_out, bif_parent
         _p, _p, _p,  # w, const, Ftot
-        _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam, partials, norm or sum r^2, stream
+        _p, _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam, factor, partials, norm or sum r^2, stream
     ],
     "nxfx_expand": [
         _i, _i, _i, _i,  # E, B, N, k
@@ -104,6 +104,11 @@ _SIGNATURES = {
         _i, _i, _p, _p, _p, _p,  # n, P0, ci, cj, pid, w_pairs
         _p, _p, _p, _p, _p,  # dc, Lc, C, s, stream
     ],
+    "nxfx_dense_gate": [_i, _p, _p, _p],  # n, C, ok, stream
+    "nxfx_dense_solve": [
+        _i, _i, _p, _p, _p, _p,  # n, n_refine, Lc, C, s, ok
+        _p, _p, _p, _p, _p,  # rc, v, y, x, stream
+    ],
     "nxfx_core_forward": [_p, _p],  # CoreArgs, stream
     "nxfx_core_back": [_p, _p],  # CoreArgs, stream
     "nxfx_core_grid_blocks": [_i, _i, _i],  # device, header words, staged
@@ -144,6 +149,7 @@ _SIGNATURES = {
     "nxfx_dct_factor": [_p, _p, _p, _p, _p, _p],  # DctArgs, w, inv, g, Minv, stream
     "nxfx_dct_lplus": [_p, _p, _p, _p, _p],  # DctArgs, inv, b, z, stream
     "nxfx_dct_pass": [_p, _p, _p, _p, _i, _p],  # DctArgs, w (or null), b, lam, accumulate, stream
+    "nxfx_dct_apply": [_p, _p, _p, _p, _p, _p, _i, _p],  # DctArgs, inv, g, Minv, b, lam, accumulate, stream
     "nxfx_dct_matrix": [_i, _d, _d, _p, _p],  # n, scale, scale0, D, stream
     "nxfx_grid_assemble": [_p, _p, _p, _p, _p, _p, _p, _p],  # GridArgs, w, const, Ftot, rhs, diag, norm, stream
     "nxfx_grid_residual": [_p, _p, _p, _p, _p, _p, _p, _p],  # GridArgs, w, diag, lam, rhs, res, norm (or null), stream

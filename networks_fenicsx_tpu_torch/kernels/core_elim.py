@@ -23,10 +23,14 @@ fold inside (as K10 sums it, ``csrc/fold.cuh``) and the tail's gathers,
 then the tail's scatter and the back-substitution, each walking the
 plan's packed round table (:class:`..ops.core_elim.RoundTable`).  A core
 whose phases fit one block runs in one block, ``d`` and ``r`` in shared
-memory; a larger one as a cooperative grid (:func:`launch_grid`).  The port
-solves a core in one call (factor reuse is ROADMAP A3), so the dense tail's
-factor and solve run together after the forward rounds; the arithmetic is
-the reference's.
+memory; a larger one as a cooperative grid (:func:`launch_grid`).  A solve
+factors and solves in one call, so the forward launch runs the rounds'
+factor beside their forward sweep and the dense tail's factor and solve run
+together after it: factor reuse (:mod:`..factorization`) does not take a
+min-degree core yet and raises ``NotImplementedError`` (ROADMAP A3b: the
+rounds split from their forward sweep, the tail's factor from its solve,
+K12b's fronts' factor from their solves).  The arithmetic is the
+reference's.
 
 :func:`core_elim` launches for CUDA tensors and runs :func:`core_elim_plain`
 for CPU tensors.  :func:`core_elim_table_plain` runs the kernels' order from

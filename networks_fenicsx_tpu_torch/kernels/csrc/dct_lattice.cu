@@ -579,6 +579,29 @@ extern "C" int nxfx_dct_lplus(const DctArgs* a, const double* inv, const double*
     return dct_lplus(a, inv, b, z, stream);
 }
 
+namespace {
+
+// One direct pass on b into lam from the factor (inv, g, Minv): the four
+// products, the border and the correction, six launches; the transform
+// grids, the border's partials and sol are the calling stream's scratch.
+int dct_direct(const DctArgs* a, const double* inv, const double* g, const double* Minv, const double* b,
+               double* lam, int accumulate, cudaStream_t stream)
+{
+    int code = dct_lplus(a, inv, b, a->z, stream);
+    if (code != 0) return code;
+    const int m = blocks_for((size_t)a->B, BORDER_THREADS) < BORDER_BLOCKS ? blocks_for((size_t)a->B, BORDER_THREADS)
+                                                                          : BORDER_BLOCKS;
+    dct_border_kernel<<<m, BORDER_THREADS, 0, stream>>>(a->B, a->r, b, a->z, a->stub_rows, Minv, a->partial,
+                                                       a->border_ticket, a->sol);
+    code = static_cast<int>(cudaGetLastError());
+    if (code != 0) return code;
+    dct_correct_kernel<<<blocks_for((size_t)a->B, 256), 256, 0, stream>>>(
+        a->B, a->r, a->z, g, a->sol, accumulate ? lam : nullptr, lam);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // One direct pass on b into lam (lam plus it when accumulate; lam may be
 // read and written in place): the four products, the border and the
 // correction, six launches on the scratch's factor.  With w non-null the
@@ -586,18 +609,18 @@ extern "C" int nxfx_dct_lplus(const DctArgs* a, const double* inv, const double*
 extern "C" int nxfx_dct_pass(const DctArgs* a, const double* w, const double* b, double* lam, int accumulate,
                              cudaStream_t stream)
 {
-    int code = w != nullptr ? dct_factor(a, w, a->inv, a->g, a->Minv, stream) : 0;
-    if (code == 0) code = dct_lplus(a, a->inv, b, a->z, stream);
+    const int code = w != nullptr ? dct_factor(a, w, a->inv, a->g, a->Minv, stream) : 0;
     if (code != 0) return code;
-    const int m = blocks_for((size_t)a->B, BORDER_THREADS) < BORDER_BLOCKS ? blocks_for((size_t)a->B, BORDER_THREADS)
-                                                                          : BORDER_BLOCKS;
-    dct_border_kernel<<<m, BORDER_THREADS, 0, stream>>>(a->B, a->r, b, a->z, a->stub_rows, a->Minv, a->partial,
-                                                       a->border_ticket, a->sol);
-    code = static_cast<int>(cudaGetLastError());
-    if (code != 0) return code;
-    dct_correct_kernel<<<blocks_for((size_t)a->B, 256), 256, 0, stream>>>(
-        a->B, a->r, a->z, a->g, a->sol, accumulate ? lam : nullptr, lam);
-    return static_cast<int>(cudaGetLastError());
+    return dct_direct(a, a->inv, a->g, a->Minv, b, lam, accumulate, stream);
+}
+
+// The same pass on a stored factor (nxfx_dct_factor's inv, g, Minv, which no
+// other solve writes): six launches, the same bits as nxfx_dct_pass on the
+// factor of the same w.
+extern "C" int nxfx_dct_apply(const DctArgs* a, const double* inv, const double* g, const double* Minv,
+                              const double* b, double* lam, int accumulate, cudaStream_t stream)
+{
+    return dct_direct(a, inv, g, Minv, b, lam, accumulate, stream);
 }
 
 extern "C" int nxfx_dct_matrix(int n, double scale, double scale0, double* D, cudaStream_t stream)

@@ -22,7 +22,9 @@
 // panel), the one-launch dataflow triangular solves and the one-block pivot
 // gate of tiled_cholesky.cuh, and a warp per row for each refinement matvec
 // rc - Lc x: 2 + (2 ceil(n / 64) - 1) + 1 + 4 (1 + n_refine) launches for
-// n > 64 (146 at 4,096 nodes, 34 at 455).  Bound: the factor's n^3/3
+// n > 64 (146 at 4,096 nodes, 34 at 455).  Factor reuse runs the factor and
+// the gate once (nxfx_dense_factor, nxfx_dense_gate) and the passes per
+// right-hand side (nxfx_dense_solve: 4 (1 + n_refine) launches).  Bound: the factor's n^3/3
 // operations; then the 2 (1 + n_refine) n^2 / 2 factor entries read by the
 // solves and the n_refine n^2 of Lc read by the matvecs.  (A one-block
 // kernel of the first port, for n <= 512, measured slower than this route
@@ -119,6 +121,30 @@ cudaError_t assemble_and_factor(int n, int P0, const int* ci, const int* cj, con
 
 }  // namespace
 
+namespace {
+
+// The passes after the factor: x = solve(rc), n_refine x: x += solve(rc -
+// Lc x), NaN everywhere unless ok; v and y (n,) are scratch.
+cudaError_t solve_passes(int n, int n_refine, const double* Lc, const double* C, const double* s,
+                         const int* ok, const double* rc, double* v, double* y, double* x, cudaStream_t stream)
+{
+    cudaError_t err;
+    const int rows = (n * 32 + 255) / 256;
+    for (int pass = 0; pass <= n_refine; ++pass) {
+        tiled_residual_kernel<<<rows, 256, 0, stream>>>(n, Lc, rc, s, x, pass == 0, v);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+        // y = C^-1 v, then v = C^-T y (a solve reads its v and writes its x)
+        if ((err = tiled_solve(C, n, n, v, y, false, stream)) != cudaSuccess) return err;
+        if ((err = tiled_solve(C, n, n, y, v, true, stream)) != cudaSuccess) return err;
+        tiled_update_kernel<<<(n + 255) / 256, 256, 0, stream>>>(n, v, s, pass == 0, pass == n_refine,
+                                                                  ok, x);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+}
+
+}  // namespace
+
 // Lc, C (n x n) and s, v, y (n,) are scratch; x (n,) and ok out.
 extern "C" int nxfx_dense_core(
     int n, int P0, int n_refine, const int* ci, const int* cj, const int* pid,
@@ -131,18 +157,7 @@ extern "C" int nxfx_dense_core(
     if (err != cudaSuccess) return static_cast<int>(err);
     tc_gate_kernel<<<1, 1024, 0, stream>>>(n, n, C, PIVOT_RTOL, 1, ok);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    const int rows = (n * 32 + 255) / 256;
-    for (int pass = 0; pass <= n_refine; ++pass) {
-        tiled_residual_kernel<<<rows, 256, 0, stream>>>(n, Lc, rc, s, x, pass == 0, v);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-        // y = C^-1 v, then v = C^-T y (a solve reads its v and writes its x)
-        if ((err = tiled_solve(C, n, n, v, y, false, stream)) != cudaSuccess) return static_cast<int>(err);
-        if ((err = tiled_solve(C, n, n, y, v, true, stream)) != cudaSuccess) return static_cast<int>(err);
-        tiled_update_kernel<<<(n + 255) / 256, 256, 0, stream>>>(n, v, s, pass == 0, pass == n_refine,
-                                                                  ok, x);
-        if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    }
-    return 0;
+    return static_cast<int>(solve_passes(n, n_refine, Lc, C, s, ok, rc, v, y, x, stream));
 }
 
 // The assembly and the factor alone (what the checks of the factor's
@@ -154,4 +169,23 @@ extern "C" int nxfx_dense_factor(
 {
     if (n <= 0) return 0;
     return static_cast<int>(assemble_and_factor(n, P0, ci, cj, pid, w_pairs, dc, Lc, C, s, stream));
+}
+
+// The pivot gate of a factor (ok out): one launch.
+extern "C" int nxfx_dense_gate(int n, const double* C, int* ok, cudaStream_t stream)
+{
+    if (n <= 0) return 0;
+    tc_gate_kernel<<<1, 1024, 0, stream>>>(n, n, C, PIVOT_RTOL, 1, ok);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The solve on a stored factor (nxfx_dense_factor's Lc, C and s, the gate's
+// ok): nxfx_dense_core after its gate, the same bits; v, y (n,) scratch.
+extern "C" int nxfx_dense_solve(
+    int n, int n_refine, const double* Lc, const double* C, const double* s, const int* ok,
+    const double* rc, double* v, double* y, double* x, cudaStream_t stream)
+{
+    if (n <= 0) return 0;
+    if (n_refine < 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(solve_passes(n, n_refine, Lc, C, s, ok, rc, v, y, x, stream));
 }

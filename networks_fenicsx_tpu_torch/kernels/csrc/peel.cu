@@ -46,6 +46,15 @@
 // scatter.  (One cooperative launch a direction, a grid barrier between the
 // entries, measured slower on an H100: PERF.md.)
 //
+// Factor reuse runs the channels apart on the same table and launches (the
+// reference's _tree_eliminate_factor and _tree_eliminate_apply): the d
+// channel alone (the saved w and db, the core's dc, and factor = w / d of
+// each child at its fold, by node) and then, per right-hand side, the r
+// channel alone with the stored factor (factor rb, the product the two-
+// channel pass forms from the same bits), the core's rc, the core solve and
+// the back pass on the stored w, db and the new rb.  A block run keeps a
+// slot's factor where the two-channel pass keeps its d.
+//
 // Bound: the rounds' dependent latency (a round is a few dependent gathers
 // and a division: ~0.8 us a round forward in a run, the grid launches
 // 2-6 us each), not bytes: the 100k-site web's 18 rounds move ~3 MB.
@@ -61,8 +70,10 @@
 #include "level_walk.cuh"
 
 // The launches' arguments (kernels.peel's _PeelArgs, a ctypes mirror).
+enum { BOTH, D_ONLY, R_ONLY };  // the channels a call runs
+
 struct PeelArgs {
-    int has_pairs, n_peeled, B;
+    int has_pairs, n_peeled, B, chan;
     const int* tab;
     const double* w_pairs;
     const double* dr;  // the assembled system (B, 2), never written
@@ -72,6 +83,10 @@ struct PeelArgs {
     double* rc;
     const double* x;
     double* lam;
+    double* sw;   // the saved stream's planes (n_peeled each): w and db at
+    double* sd;   // elimination (the d channel writes them), rb (the r
+    double* sr;   // channel's), read back by the back pass
+    double* fac;  // (B,) a child's factor w / d at its fold: D_ONLY writes, R_ONLY reads
 };
 
 // a launch entry of the table (ops/peel_table.py), passed by value
@@ -104,13 +119,18 @@ __global__ void lambda_prepare_kernel(
     if (e >= E) return;
     const double We = W[e];
     const double w = 1.0 / We;
+    w_out[e] = w;
+    vt[2 * e] = w;
+    vs[2 * e] = w;
+    if (g == nullptr) {  // the diagonal alone (a factor): no rhs terms
+        vt[2 * e + 1] = 0.0;
+        vs[2 * e + 1] = 0.0;
+        return;
+    }
     const double not_s = start_bif[e] >= 0 ? 0.0 : 1.0;
     const double not_t = end_bif[e] >= 0 ? 0.0 : 1.0;
     const double cst = (-start_pbc[e] * not_s + end_pbc[e] * not_t - g[e]) / We;
-    w_out[e] = w;
-    vt[2 * e] = w;
     vt[2 * e + 1] = cst + Ftot[e];
-    vs[2 * e] = w;
     vs[2 * e + 1] = -cst;
 }
 
@@ -167,6 +187,9 @@ __device__ __forceinline__ const double* current(const PeelArgs& A, int src)
     return src < A.B ? A.dr + 2 * static_cast<size_t>(src) : A.wk + 2 * static_cast<size_t>(src - A.B);
 }
 
+// the node of a source (see current)
+__device__ __forceinline__ int node_of(const PeelArgs& A, int src) { return src < A.B ? src : src - A.B; }
+
 // One round's fields and one of its fold levels, as a grid launch takes
 // them (a kernel parameter: no load of the table's round row).
 struct GridRound {
@@ -193,16 +216,18 @@ __device__ void forward_phase(const PeelArgs& A, const GridRound& g, int tid, in
 {
     const int* tab = A.tab;
     const int items = (g.l == 0 && g.n > g.rows) ? g.n : g.rows;
-    double* sw = A.work + g.off;
-    double* sd = sw + A.n_peeled;
-    double* sr = sd + A.n_peeled;
+    double* sw = A.sw + g.off;
+    double* sd = A.sd + g.off;
+    double* sr = A.sr + g.off;
     for (int t = tid; t < items; t += nth) {
         if (g.l == 0 && t < g.n) {
             const double* v = current(A, tab[g.esrc + t]);
-            const int q = tab[g.pid + t];
-            sw[t] = (A.has_pairs && tab[g.par + t] >= 0) ? A.w_pairs[q >= 0 ? q : 0] : 0.0;
-            sd[t] = v[0];
-            sr[t] = v[1];
+            if (A.chan != R_ONLY) {
+                const int q = tab[g.pid + t];
+                sw[t] = (A.has_pairs && tab[g.par + t] >= 0) ? A.w_pairs[q >= 0 ? q : 0] : 0.0;
+                sd[t] = v[0];
+            }
+            if (A.chan != D_ONLY) sr[t] = v[1];
         }
         if (t >= g.rows) continue;
         const int K = g.K;
@@ -217,10 +242,15 @@ __device__ void forward_phase(const PeelArgs& A, const GridRound& g, int tid, in
                 double v0 = 0.0, v1 = 0.0;
                 if (e >= 0) {
                     const double* v = current(A, e);
-                    const double w = (A.has_pairs && q >= 0) ? A.w_pairs[q] : 0.0;
-                    const double factor = w / v[0];
-                    v0 = -w * factor;
-                    v1 = factor * v[1];
+                    if (A.chan == R_ONLY) {
+                        v1 = A.fac[node_of(A, e)] * v[1];
+                    } else {
+                        const double w = (A.has_pairs && q >= 0) ? A.w_pairs[q] : 0.0;
+                        const double factor = w / v[0];
+                        v0 = -w * factor;
+                        v1 = factor * v[1];
+                        if (A.chan == D_ONLY) A.fac[node_of(A, e)] = factor;
+                    }
                 }
                 s0 = j == 0 ? v0 : s0 + v0;
                 s1 = j == 0 ? v1 : s1 + v1;
@@ -228,8 +258,8 @@ __device__ void forward_phase(const PeelArgs& A, const GridRound& g, int tid, in
         } else {
             const int* row = tab + g.idx + static_cast<size_t>(t) * K;
             const double* src = A.work + g.prev_out;  // level l - 1's output and its rows
-            s0 = fold::row_sum(row, K, src, g.prev_rows, 2, 0);
-            s1 = fold::row_sum(row, K, src, g.prev_rows, 2, 1);
+            if (A.chan != R_ONLY) s0 = fold::row_sum(row, K, src, g.prev_rows, 2, 0);
+            if (A.chan != D_ONLY) s1 = fold::row_sum(row, K, src, g.prev_rows, 2, 1);
         }
         if (g.l < g.L - 1) {
             double* out = A.work + g.out;
@@ -238,14 +268,16 @@ __device__ void forward_phase(const PeelArgs& A, const GridRound& g, int tid, in
         } else {
             const int p = tab[g.upar + t];
             const double* v = current(A, tab[g.usrc + t]);
-            const double d = v[0] + s0;
-            const double r = v[1] + s1;
-            A.wk[2 * p] = d;
-            A.wk[2 * p + 1] = r;
             const int c = tab[g.ucore + t];
-            if (c >= 0) {
-                A.dc[c] = d;
-                A.rc[c] = r;
+            if (A.chan != R_ONLY) {
+                const double d = v[0] + s0;
+                A.wk[2 * p] = d;
+                if (c >= 0) A.dc[c] = d;
+            }
+            if (A.chan != D_ONLY) {
+                const double r = v[1] + s1;
+                A.wk[2 * p + 1] = r;
+                if (c >= 0) A.rc[c] = r;
             }
         }
     }
@@ -255,9 +287,9 @@ __device__ void forward_phase(const PeelArgs& A, const GridRound& g, int tid, in
 __device__ void back_round(const PeelArgs& A, const GridRound& g, int tid, int nth)
 {
     const int* tab = A.tab;
-    const double* sw = A.work + g.off;
-    const double* sd = sw + A.n_peeled;
-    const double* sr = sd + A.n_peeled;
+    const double* sw = A.sw + g.off;
+    const double* sd = A.sd + g.off;
+    const double* sr = A.sr + g.off;
     for (int t = tid; t < g.n; t += nth) {
         const int p = tab[g.bpar + t];
         const double lp = p >= 0 ? A.lam[p] : (p == -1 ? 0.0 : A.x[-2 - p]);
@@ -275,8 +307,8 @@ __device__ void gather_duty(const PeelArgs& A, int tid, int nth)
     for (int t = tid; t < n; t += nth) {
         const int c = early[t];
         const int b = core[c];
-        A.dc[c] = A.dr[2 * b];
-        A.rc[c] = A.dr[2 * b + 1];
+        if (A.chan != R_ONLY) A.dc[c] = A.dr[2 * b];
+        if (A.chan != D_ONLY) A.rc[c] = A.dr[2 * b + 1];
     }
 }
 
@@ -367,9 +399,10 @@ __device__ __forceinline__ int run_doubles(const PeelArgs& A, const PeelEntry& e
 }
 
 // phase l of round k of a block run forward, on shared memory: D, Rr the
-// slots' (d, r), Sw, Sd, Sr the run's children's saved (w, d, r)
-__device__ void run_forward_phase(const Run& run, int k, int l, double* D, double* Rr, const double* Sw,
-                                  double* Sd, double* Sr, double* work)
+// slots' (d, r) (R_ONLY: D their factors), Sw, Sd, Sr the run's children's
+// saved (w, d, r); slots the run's nodes (D_ONLY writes their factors)
+__device__ void run_forward_phase(const PeelArgs& A, const Run& run, int k, int l, double* D, double* Rr,
+                                  const double* Sw, double* Sd, double* Sr, double* work, const int* slots)
 {
     const int* rw = run.row(k);
     const int n = rw[R_N];
@@ -386,8 +419,8 @@ __device__ void run_forward_phase(const Run& run, int k, int l, double* D, doubl
     for (int t = threadIdx.x; t < items; t += blockDim.x) {
         if (l == 0 && t < n) {
             const int s = lelim[t];
-            sd[t] = D[s];
-            sr[t] = Rr[s];
+            if (A.chan != R_ONLY) sd[t] = D[s];
+            if (A.chan != D_ONLY) sr[t] = Rr[s];
         }
         if (t >= rows) continue;
         const int K = lv[2];
@@ -400,18 +433,23 @@ __device__ void run_forward_phase(const Run& run, int k, int l, double* D, doubl
                 double v0 = 0.0, v1 = 0.0;
                 if (i >= 0 && i < n) {
                     const int c = lelim[i];
-                    const double w = Wk[i];
-                    const double factor = w / D[c];
-                    v0 = -w * factor;
-                    v1 = factor * Rr[c];
+                    if (A.chan == R_ONLY) {
+                        v1 = D[c] * Rr[c];
+                    } else {
+                        const double w = Wk[i];
+                        const double factor = w / D[c];
+                        v0 = -w * factor;
+                        v1 = factor * Rr[c];
+                        if (A.chan == D_ONLY) A.fac[slots[c]] = factor;
+                    }
                 }
                 s0 = j == 0 ? v0 : s0 + v0;
                 s1 = j == 0 ? v1 : s1 + v1;
             }
         } else {
             const double* src = work + lv[-1];  // level l - 1's output and its rows
-            s0 = fold::row_sum(row, K, src, lv[-3], 2, 0);
-            s1 = fold::row_sum(row, K, src, lv[-3], 2, 1);
+            if (A.chan != R_ONLY) s0 = fold::row_sum(row, K, src, lv[-3], 2, 0);
+            if (A.chan != D_ONLY) s1 = fold::row_sum(row, K, src, lv[-3], 2, 1);
         }
         if (l < L - 1) {
             double* out = work + lv[3];
@@ -419,8 +457,8 @@ __device__ void run_forward_phase(const Run& run, int k, int l, double* D, doubl
             out[2 * t + 1] = s1;
         } else {
             const int p = run.at(rw[R_LUPAR])[t];
-            D[p] = D[p] + s0;
-            Rr[p] = Rr[p] + s1;
+            if (A.chan != R_ONLY) D[p] = D[p] + s0;
+            if (A.chan != D_ONLY) Rr[p] = Rr[p] + s1;
         }
     }
 }
@@ -442,11 +480,13 @@ __device__ void run_forward(const PeelArgs& A, const PeelEntry& e, double* smem)
     // the slots' (d, r) and the children's conductances, their gathers in flight together
     const int* ssrc = A.tab + e.ssrc;
     const int* wsrc = A.tab + e.wsrc;
+    const int* slots = A.tab + e.slots;
     stage(e.S > run.n ? e.S : run.n,
           [&](int i) {
               const double* v = i < e.S ? current(A, ssrc[i]) : nullptr;
-              const int p = i < run.n ? wsrc[i] : -1;
-              return Triple{v ? v[0] : 0.0, v ? v[1] : 0.0, (A.has_pairs && p >= 0) ? A.w_pairs[p] : 0.0};
+              const int p = (i < run.n && A.chan != R_ONLY) ? wsrc[i] : -1;
+              const double first = !v ? 0.0 : (A.chan == R_ONLY ? A.fac[slots[i]] : v[0]);
+              return Triple{first, v ? v[1] : 0.0, (A.has_pairs && p >= 0) ? A.w_pairs[p] : 0.0};
           },
           [&](int i, Triple t) {
               if (i < e.S) {
@@ -460,26 +500,26 @@ __device__ void run_forward(const PeelArgs& A, const PeelEntry& e, double* smem)
     for (int k = e.first; k < e.last; ++k) {
         const int L = run.row(k)[R_FOLD];
         for (int l = 0; l < (L > 1 ? L : 1); ++l) {
-            run_forward_phase(run, k, l, D, Rr, Wc, Sd, Sr, A.work);
+            run_forward_phase(A, run, k, l, D, Rr, Wc, Sd, Sr, A.work, slots);
             __syncthreads();
         }
     }
-    double* saved = A.work + run.base;
+    double* const saved[3] = {A.sw, A.sd, A.sr};
     for (int plane = 0; plane < 3; ++plane) {
+        if (plane == 2 ? A.chan == D_ONLY : A.chan == R_ONLY) continue;  // the other channel's
         const double* from = Wc + plane * run.n;
-        double* to = saved + static_cast<size_t>(plane) * A.n_peeled;
+        double* to = saved[plane] + run.base;
         stage(run.n, [&](int q) { return from[q]; }, [&](int q, double v) { to[q] = v; });
     }
     const int* bsrc = A.tab + e.bsrc;
-    const int* slots = A.tab + e.slots;
     stage(e.S, [&](int s) { return bsrc[s]; }, [&](int s, int c) {
         if (c == -1) return;  // eliminated here: no later launch reads its (d, r)
         const int v = slots[s];
-        A.wk[2 * v] = D[s];
-        A.wk[2 * v + 1] = Rr[s];
+        if (A.chan != R_ONLY) A.wk[2 * v] = D[s];
+        if (A.chan != D_ONLY) A.wk[2 * v + 1] = Rr[s];
         if (c <= -2) {
-            A.dc[-2 - c] = D[s];
-            A.rc[-2 - c] = Rr[s];
+            if (A.chan != R_ONLY) A.dc[-2 - c] = D[s];
+            if (A.chan != D_ONLY) A.rc[-2 - c] = Rr[s];
         }
     });
 }
@@ -495,9 +535,8 @@ __device__ void run_back(const PeelArgs& A, const PeelEntry& e, double* smem)
     double* Sw = Lam + e.S;
     double* Sd = Sw + run.n;
     double* Sr = Sd + run.n;
-    const double* sw = A.work + run.base;
-    for (int plane = 0; plane < 3; ++plane)
-        copy_async(Sw + plane * run.n, sw + static_cast<size_t>(plane) * A.n_peeled, run.n);
+    const double* const saved[3] = {A.sw, A.sd, A.sr};
+    for (int plane = 0; plane < 3; ++plane) copy_async(Sw + plane * run.n, saved[plane] + run.base, run.n);
     const int* bsrc = A.tab + e.bsrc;
     stage(e.S, [&](int s) { const int c = bsrc[s]; return c >= 0 ? A.lam[c] : (c == -1 ? 0.0 : A.x[-2 - c]); },
           [&](int s, double v) { Lam[s] = v; });
@@ -583,6 +622,8 @@ int run_entries(const PeelArgs& A, const int* host, int count, int at, Grid grid
 
 }  // namespace
 
+// The per-edge conductances and the two sides' (diag, rhs) terms; g null:
+// the diagonal alone (start_pbc, end_pbc and Ftot unread, the rhs terms 0).
 extern "C" int nxfx_lambda_prepare(
     int E, const double* W, const double* g, const double* Ftot,
     const double* start_pbc, const double* end_pbc,
@@ -604,9 +645,10 @@ extern "C" int nxfx_rhs_norm(int B, const double* dr, double* out, cudaStream_t 
 
 
 // The rounds forward and the core's gather into dc, rc (A->dr the assembled
-// system, read; A->wk the updated nodes' (d, r); the work buffer's saved
-// stream and fold levels written).  `host` is the table on the host (its
-// launch lists).  Returns the kernels enqueued, or minus a CUDA error.
+// system, read; A->wk the updated nodes' (d, r); the saved planes and the
+// work buffer's fold levels written), on the channels of A->chan (D_ONLY
+// also writes A->fac, R_ONLY reads it).  `host` is the table on the host
+// (its launch lists).  Returns the kernels enqueued, or minus a CUDA error.
 extern "C" int nxfx_peel_forward(const PeelArgs* A, const int* host, cudaStream_t stream)
 {
     return run_entries(*A, host, host[H_NFWD], host[H_FWD], peel_grid_forward_kernel, peel_block_forward_kernel,

@@ -34,6 +34,12 @@
 // forward stops at their chunk roots): the forward half is launches 1 and
 // 2 without the root solve (sum r^2, no square root), the backward half
 // the top's back-substitution from a level 0 the caller wrote, then 3.
+// Factor reuse splits it by channel (the reference's _blocked_forward_factor
+// and _blocked_forward_apply): FACTOR is launches 1 and 2 on d alone, and
+// writes d, wn and factor = wn / d of every bifurcation (d final: its
+// children are folded); APPLY assembles r alone and folds it with the
+// stored factor (factor r, the product the full sweep forms from the same
+// bits), then the norm, the roots and launch 3 as the full sweep.
 //
 // Bound: the dependency depth (2 L levels) at a barrier and a division a
 // level; the bytes (a few MB at 16 generations) take a microsecond.  The
@@ -52,6 +58,8 @@ struct Lvl {
     int off, m, nb, R, P;  // a level's table row (blocked.LEVEL_WORDS)
 };
 
+enum Channel { BOTH = 0, D_ONLY = 1, R_ONLY = 2 };  // what a launch assembles and folds
+
 struct SweepArgs {
     int Kmax, L, cut, group, blocks, first;
     const int* levels;
@@ -65,46 +73,62 @@ struct SweepArgs {
     double* r;
     double* wn;
     double* lam;
+    double* fac;  // factor = wn / d per bifurcation: FACTOR writes it, APPLY reads it
     double* partial;
     double* out;
 };
 
-__device__ __forceinline__ void assemble(const SweepArgs& a, int b, double& db, double& rb, double& wb)
+// a bifurcation's unfolded d and in-edge conductance, and its r: the row's
+// -1 pads trail its edges
+__device__ __forceinline__ void assemble_d(const SweepArgs& a, int b, double& db, double& wb)
 {
     const int ie = a.bif_in[b];
     const double w_in = a.w[ie];
     double dd = w_in;
-    double rr = a.cst[ie] + a.Ftot[ie];
     const int* row = a.bif_out + static_cast<size_t>(b) * a.Kmax;
 #pragma unroll 4
-    for (int j = 0; j < a.Kmax; ++j) {  // the row's -1 pads trail its edges
+    for (int j = 0; j < a.Kmax; ++j) {
         const int oe = row[j];
-        if (oe >= 0) {
-            dd = dd + a.w[oe];
-            rr = rr - a.cst[oe];
-        }
+        if (oe >= 0) dd = dd + a.w[oe];
     }
     db = dd;
-    rb = rr;
     wb = w_in;
 }
 
-// the children ci(0 .. nb-1) of a parent folded into (dp, rp)
-template <typename ChildIndex>
+__device__ __forceinline__ double assemble_r(const SweepArgs& a, int b)
+{
+    const int ie = a.bif_in[b];
+    double rr = a.cst[ie] + a.Ftot[ie];
+    const int* row = a.bif_out + static_cast<size_t>(b) * a.Kmax;
+#pragma unroll 4
+    for (int j = 0; j < a.Kmax; ++j) {
+        const int oe = row[j];
+        if (oe >= 0) rr = rr - a.cst[oe];
+    }
+    return rr;
+}
+
+// the children ci(0 .. nb-1) of a parent folded into its (dp, rp), in slot
+// order: both channels, d alone, or r alone with the stored factor (f)
+template <int CH, typename ChildIndex>
 __device__ __forceinline__ void fold_into(int nb, ChildIndex ci, const double* d, const double* r,
-                                          const double* wn, double* dp, double* rp)
+                                          const double* wn, const double* f, double* dp, double* rp)
 {
     double upd_d = 0.0, upd_r = 0.0;
     for (int s = 0; s < nb; ++s) {
         const int c = ci(s);
-        const double factor = wn[c] / d[c];
-        const double cd = -wn[c] * factor;
-        const double cr = factor * r[c];
-        upd_d = s == 0 ? cd : upd_d + cd;
-        upd_r = s == 0 ? cr : upd_r + cr;
+        const double factor = CH == R_ONLY ? f[c] : wn[c] / d[c];
+        if (CH != R_ONLY) {
+            const double cd = -wn[c] * factor;
+            upd_d = s == 0 ? cd : upd_d + cd;
+        }
+        if (CH != D_ONLY) {
+            const double cr = factor * r[c];
+            upd_r = s == 0 ? cr : upd_r + cr;
+        }
     }
-    *dp = *dp + upd_d;
-    *rp = *rp + upd_r;
+    if (CH != R_ONLY) *dp = *dp + upd_d;
+    if (CH != D_ONLY) *rp = *rp + upd_r;
 }
 
 // the block's sum of its threads' s (thread 0's result): a halving tree
@@ -164,8 +188,10 @@ struct Block {
 };
 
 // Launch 1: assemble, fold and write the block's subtrees; its sum of r^2.
-// SMEM: the values in shared memory (local order), else in d, r, wn.
-template <bool SMEM>
+// SMEM: the values in shared memory (local order), else in d, r, wn.  CH:
+// the channels; R_ONLY keeps the stored factor where the others keep d, and
+// D_ONLY writes the factor of every node (its d is final after the fold).
+template <bool SMEM, int CH>
 __global__ void subtree_forward_kernel(SweepArgs a)
 {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -175,19 +201,27 @@ __global__ void subtree_forward_kernel(SweepArgs a)
     double* vd = SMEM ? vals : a.d;
     double* vr = SMEM ? vals + bk.n : a.r;
     double* vwn = SMEM ? vals + 2 * bk.n : a.wn;
+    const double* vf = SMEM ? vals : a.fac;
     auto at = [&](int l, int i) { return SMEM ? bk.gb * lv[l].P + i : bk.node(lv, l, i); };
 
     double s = 0.0;
     for (int k = threadIdx.x; k < bk.n; k += blockDim.x) {
         const int l = bk.level_of(lv, a.L, k);
         const int b = bk.node(lv, l, k - bk.gb * lv[l].P);
-        double db, rb, wb;
-        assemble(a, b, db, rb, wb);
         const int x = SMEM ? k : b;
-        vd[x] = db;
-        vr[x] = rb;
-        vwn[x] = wb;
-        s += rb * rb;
+        if (CH != R_ONLY) {
+            double db, wb;
+            assemble_d(a, b, db, wb);
+            vd[x] = db;
+            vwn[x] = wb;
+        } else if (SMEM) {
+            vals[k] = a.fac[b];
+        }
+        if (CH != D_ONLY) {
+            const double rb = assemble_r(a, b);
+            vr[x] = rb;
+            s += rb * rb;
+        }
     }
     __syncthreads();
     for (int l = a.L - 2; l >= bk.c; --l) {
@@ -195,20 +229,25 @@ __global__ void subtree_forward_kernel(SweepArgs a)
         for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
             const int run = i / bk.gb, j = i - run * bk.gb;
             const int p = at(l, i);
-            fold_into(nb, [&](int sl) { return at(l + 1, (sl * R + run) * bk.gb + j); }, vd, vr, vwn,
-                      vd + p, vr + p);
+            fold_into<CH>(nb, [&](int sl) { return at(l + 1, (sl * R + run) * bk.gb + j); }, vd, vr, vwn,
+                          vf, vd + p, vr + p);
         }
         __syncthreads();
     }
-    if (SMEM) {
+    if (SMEM || CH == D_ONLY) {
         for (int k = threadIdx.x; k < bk.n; k += blockDim.x) {
             const int l = bk.level_of(lv, a.L, k);
             const int b = bk.node(lv, l, k - bk.gb * lv[l].P);
-            a.d[b] = vd[k];
-            a.r[b] = vr[k];
-            a.wn[b] = vwn[k];
+            const int x = SMEM ? k : b;
+            if (CH != R_ONLY) {
+                a.d[b] = vd[x];
+                a.wn[b] = vwn[x];
+            }
+            if (CH != D_ONLY) a.r[b] = vr[x];
+            if (CH == D_ONLY) a.fac[b] = vwn[x] / vd[x];
         }
     }
+    if (CH == D_ONLY) return;
     const double total = block_sum(s, reinterpret_cast<double*>(smem));
     if (threadIdx.x == 0) a.partial[blockIdx.x] = total;
 }
@@ -259,12 +298,33 @@ __global__ void subtree_back_kernel(SweepArgs a)
     }
 }
 
-enum TopMode { FULL = 0, FORWARD = 1, BACKWARD = 2 };
+enum TopMode { FULL = 0, FORWARD = 1, BACKWARD = 2, FACTOR = 3, APPLY = 4 };
 
 // Launch 2, one block: the top's fold (from level cut's folded values),
 // the norm, the roots' solve and the back-substitution (FULL); the fold
 // and sum r^2 (FORWARD); the back-substitution from the caller's level 0
-// (BACKWARD).  The top's values in shared memory by internal position.
+// (BACKWARD); the fold of d alone, writing d, wn and the factor (FACTOR);
+// FULL on r alone, d, wn and the factor read (APPLY).  The top's values in
+// shared memory by internal position.
+template <int CH>
+__device__ void top_fold(const SweepArgs& a, const Lvl* lv, double* vd, double* vr, double* vwn)
+{
+    for (int l = a.cut - 1; l >= 0; --l) {
+        const int nb = lv[l].nb, m = lv[l].m, off = lv[l].off;
+        if (nb == 0) continue;  // the deepest level (block-uniform)
+        const int off1 = lv[l + 1].off;
+        const bool below = l + 1 == a.cut;  // the children are the subtree roots
+        for (int p = threadIdx.x; p < m; p += blockDim.x) {
+            auto ci = [&](int sl) { return off1 + sl * m + p; };
+            if (below)
+                fold_into<CH>(nb, ci, a.d, a.r, a.wn, a.fac, vd + off + p, vr + off + p);
+            else
+                fold_into<CH>(nb, ci, vd, vr, vwn, a.fac, vd + off + p, vr + off + p);
+        }
+        __syncthreads();
+    }
+}
+
 __global__ void top_kernel(SweepArgs a, int mode, int top)
 {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -277,37 +337,42 @@ __global__ void top_kernel(SweepArgs a, int mode, int top)
     double* vlam = vals + 3 * top;
     if (mode != BACKWARD) {
         double s = 0.0;
-        for (int i = threadIdx.x; i < a.blocks; i += blockDim.x) s += a.partial[i];
+        if (mode != FACTOR)
+            for (int i = threadIdx.x; i < a.blocks; i += blockDim.x) s += a.partial[i];
         for (int b = threadIdx.x; b < top; b += blockDim.x) {
-            double db, rb, wb;
-            assemble(a, b, db, rb, wb);
-            vd[b] = db;
-            vr[b] = rb;
-            vwn[b] = wb;
-            s += rb * rb;
+            if (mode != APPLY) {
+                double db, wb;
+                assemble_d(a, b, db, wb);
+                vd[b] = db;
+                vwn[b] = wb;
+            } else {
+                vd[b] = a.d[b];
+                vwn[b] = a.wn[b];
+            }
+            if (mode != FACTOR) {
+                const double rb = assemble_r(a, b);
+                vr[b] = rb;
+                s += rb * rb;
+            }
         }
         __syncthreads();
-        for (int l = c - 1; l >= 0; --l) {
-            const int nb = lv[l].nb, m = lv[l].m, off = lv[l].off;
-            if (nb == 0) continue;  // the deepest level (block-uniform)
-            const int off1 = lv[l + 1].off;
-            const bool below = l + 1 == c;  // the children are the subtree roots
-            for (int p = threadIdx.x; p < m; p += blockDim.x) {
-                auto ci = [&](int sl) { return off1 + sl * m + p; };
-                if (below)
-                    fold_into(nb, ci, a.d, a.r, a.wn, vd + off + p, vr + off + p);
-                else
-                    fold_into(nb, ci, vd, vr, vwn, vd + off + p, vr + off + p);
-            }
-            __syncthreads();
-        }
+        if (mode == FACTOR)
+            top_fold<D_ONLY>(a, lv, vd, vr, vwn);
+        else if (mode == APPLY)
+            top_fold<R_ONLY>(a, lv, vd, vr, vwn);
+        else
+            top_fold<BOTH>(a, lv, vd, vr, vwn);
         for (int b = threadIdx.x; b < top; b += blockDim.x) {
-            a.d[b] = vd[b];
-            a.r[b] = vr[b];
-            a.wn[b] = vwn[b];
+            if (mode != APPLY) {
+                a.d[b] = vd[b];
+                a.wn[b] = vwn[b];
+            }
+            if (mode != FACTOR) a.r[b] = vr[b];
+            if (mode == FACTOR) a.fac[b] = vwn[b] / vd[b];
         }
+        if (mode == FACTOR) return;
         const double total = block_sum(s, reinterpret_cast<double*>(smem));
-        if (threadIdx.x == 0) a.out[0] = mode == FULL ? sqrt(total) : total;
+        if (threadIdx.x == 0) a.out[0] = mode == FORWARD ? total : sqrt(total);
         if (mode == FORWARD) return;
     } else {
         for (int b = threadIdx.x; b < top; b += blockDim.x) {
@@ -357,32 +422,42 @@ int launch_top(int mode, int top, int threads, cudaStream_t stream, const SweepA
     return static_cast<int>(cudaGetLastError());
 }
 
+template <int CH>
+int launch_forward(int blocks, int threads, size_t smem, int use_smem, cudaStream_t stream, const SweepArgs& a)
+{
+    return use_smem ? launch(subtree_forward_kernel<true, CH>, blocks, threads, smem, stream, a)
+                    : launch(subtree_forward_kernel<false, CH>, blocks, threads, smem, stream, a);
+}
+
 }  // namespace
 
-// One sweep, or one of its halves (mode 0 full, 1 forward, 2 backward), on a
-// blocked.SweepPlan: levels (L, 5) on the device; blocks subtree blocks of
-// threads each, block_nodes the nodes of a full one, smem whether they keep
-// their values in shared memory; top the top's nodes, top_threads its block.
-// out: the norm (full) or sum r^2 (forward).  Returns the kernels enqueued,
-// or minus the CUDA error.
+// One sweep, or one of its parts, on a blocked.SweepPlan (mode 0 full, 1
+// forward, 2 backward, 3 factor, 4 apply): levels (L, 5) on the device;
+// blocks subtree blocks of threads each, block_nodes the nodes of a full
+// one, smem whether they keep their values in shared memory; top the top's
+// nodes, top_threads its block.  out: the norm (full, apply) or sum r^2
+// (forward); fac the factor (factor writes, apply reads).  Returns the
+// kernels enqueued, or minus the CUDA error.
 extern "C" int nxfx_tree_sweep(
     int mode, int Kmax, int L, int cut, int group, int blocks, int threads, int block_nodes, int smem,
     int top, int top_threads, const int* levels,
     const int* bif_in, const int* bif_out, const int* bif_parent,
     const double* w, const double* cst, const double* Ftot,
-    double* d, double* r, double* wn, double* lam, double* partial, double* out,
+    double* d, double* r, double* wn, double* lam, double* fac, double* partial, double* out,
     cudaStream_t stream)
 {
     if (L <= 0) return 0;
+    if (mode < FULL || mode > APPLY) return -static_cast<int>(cudaErrorInvalidValue);
     SweepArgs a = {Kmax, L, cut, group, blocks, mode == BACKWARD ? 1 : 0, levels, bif_in, bif_out,
-                   bif_parent, w, cst, Ftot, d, r, wn, lam, partial, out};
+                   bif_parent, w, cst, Ftot, d, r, wn, lam, fac, partial, out};
     const size_t head = 8 * static_cast<size_t>(threads) + table_bytes(L);
     const size_t fwd = head + (smem ? 3 * 8 * static_cast<size_t>(block_nodes) : 0);
     const size_t back = head + (smem ? 4 * 8 * static_cast<size_t>(block_nodes) : 0);
     int n = 0, code;
     if (mode != BACKWARD && blocks > 0) {
-        code = smem ? launch(subtree_forward_kernel<true>, blocks, threads, fwd, stream, a)
-                    : launch(subtree_forward_kernel<false>, blocks, threads, fwd, stream, a);
+        code = mode == FACTOR  ? launch_forward<D_ONLY>(blocks, threads, fwd, smem, stream, a)
+               : mode == APPLY ? launch_forward<R_ONLY>(blocks, threads, fwd, smem, stream, a)
+                               : launch_forward<BOTH>(blocks, threads, fwd, smem, stream, a);
         if (code != 0) return -code;
         ++n;
     }
@@ -390,7 +465,7 @@ extern "C" int nxfx_tree_sweep(
         if ((code = launch_top(mode, top, top_threads, stream, a)) != 0) return -code;
         ++n;
     }
-    if (mode != FORWARD && blocks > 0) {
+    if (mode != FORWARD && mode != FACTOR && blocks > 0) {
         code = smem ? launch(subtree_back_kernel<true>, blocks, threads, back, stream, a)
                     : launch(subtree_back_kernel<false>, blocks, threads, back, stream, a);
         if (code != 0) return -code;

@@ -21,7 +21,12 @@ port inverts and transforms in float64 throughout and keeps the pass count.
   constants up to :data:`..lattice.HOST_DCT_MAX` per side, generated on the
   device above), the eigenvalues, the geometric stub columns and tables;
 * :func:`dct_lattice` — one solve: factor (``inv``, ``g``, ``M⁻¹``), one
-  direct pass, ``n_refine`` refinement passes.
+  direct pass, ``n_refine`` refinement passes;
+* :func:`dct_apply` — the passes alone on a stored :class:`DctState` (the
+  reference's ``_dct_capacitance_apply``; factor reuse): :func:`_factor`
+  writes the state into tensors of its own, which no other solve touches,
+  and each pass reads it (six launches a pass, 18 a solve; the same bits as
+  :func:`dct_lattice` on the factor of the same ``w``).
 
 :func:`dct_lattice` launches the kernels for CUDA tensors and runs
 :func:`dct_lattice_plain` (``torch.matmul`` for the four products) for CPU
@@ -53,7 +58,8 @@ from . import build
 
 __all__ = ["DctOperator", "DctState", "dct_operator", "dct_matrix", "dct_lattice",
            "dct_lattice_plain", "factor_plain", "transform", "transform_plain", "lplus_plain",
-           "direct_plain", "product", "product_plain", "gemm_plan", "cuda_launches", "N_REFINE"]
+           "direct_plain", "product", "product_plain", "gemm_plan", "cuda_launches", "N_REFINE",
+           "dct_apply", "dct_apply_plain", "apply_launches", "dct_factor"]
 
 N_REFINE = 2  # refinement passes after the direct one (reference ``:1097``)
 
@@ -322,16 +328,24 @@ def direct_plain(op: DctOperator, state: DctState, b: torch.Tensor) -> torch.Ten
     return z - corr + sol[r]
 
 
+def dct_apply_plain(
+    op: DctOperator, state: DctState, rhs: torch.Tensor, residual: Residual,
+    n_refine: int = N_REFINE,
+) -> torch.Tensor:
+    """Eager version of :func:`dct_apply`: the direct pass and ``n_refine``
+    refinement passes on ``state``."""
+    lam = direct_plain(op, state, rhs)
+    for _ in range(n_refine):
+        lam = lam + direct_plain(op, state, residual(lam))
+    return lam
+
+
 def dct_lattice_plain(
     op: DctOperator, w: torch.Tensor, rhs: torch.Tensor, residual: Residual,
     n_refine: int = N_REFINE,
 ) -> torch.Tensor:
     """Eager version of :func:`dct_lattice`."""
-    state = factor_plain(op, w)
-    lam = direct_plain(op, state, rhs)
-    for _ in range(n_refine):
-        lam = lam + direct_plain(op, state, residual(lam))
-    return lam
+    return dct_apply_plain(op, factor_plain(op, w), rhs, residual, n_refine)
 
 
 # ------------------------------------------------------------------ kernels
@@ -343,6 +357,11 @@ def cuda_launches(op: DctOperator, n_refine: int = N_REFINE) -> int:
     and the correction — whatever the lattice's shape or stub rows, since a
     split product adds its slices in its own launch."""
     return 2 + 6 * (1 + n_refine)
+
+
+def apply_launches(n_refine: int = N_REFINE) -> int:
+    """K16's kernel launches in one :func:`dct_apply`: six a pass."""
+    return 6 * (1 + n_refine)
 
 
 def _lib_stream(index: int):
@@ -378,6 +397,18 @@ def _factor(op: DctOperator, w: torch.Tensor) -> DctState:
 
     build.on_device(op.index, run, *_lib_stream(op.index))
     return DctState(inv, g, Minv)
+
+
+def dct_factor(op: DctOperator, w: torch.Tensor) -> DctState:
+    """K16's factor on ``w``'s device into tensors of its own (two launches;
+    :func:`factor_plain` for a CPU tensor): what :func:`dct_apply` reads."""
+    state = _factor(op, w)
+    if w.is_cuda:
+        dct_factor.launches += 1
+    return state
+
+
+dct_factor.launches = 0
 
 
 def product_plain(A: torch.Tensor, Bm: torch.Tensor, transA: bool = False, transB: bool = False,
@@ -484,3 +515,43 @@ def _solve(op: DctOperator, w, rhs, residual: Residual, n_refine: int) -> torch.
 
 
 dct_lattice.launches = 0
+
+
+def dct_apply(
+    op: DctOperator, state: DctState, rhs: torch.Tensor, residual: Residual,
+    n_refine: int = N_REFINE,
+) -> torch.Tensor:
+    """K16's passes on ``rhs``' device from a stored factor (``state``, from
+    :func:`_factor`): ``λ (B,)`` after one direct pass and ``n_refine``
+    passes on ``residual(λ) = rhs − L λ``."""
+    if rhs.device.type == "cpu":
+        return dct_apply_plain(op, state, rhs, residual, n_refine)
+    if not all(isinstance(t, torch.Tensor) and t.is_contiguous() for t in state):
+        raise ValueError("dct_apply: the state's tensors must be contiguous")
+    r, B = op.r, op.B
+    _require(op, (rhs, B), (state.inv.view(-1), B), (state.g.view(-1), r * B),
+             (state.Minv.view(-1), (r + 1) ** 2))
+    lam = build.on_device(op.index, _apply, op, state, rhs, residual, n_refine)
+    dct_apply.launches += 1
+    return lam
+
+
+def _apply(op: DctOperator, state: DctState, rhs, residual: Residual, n_refine: int) -> torch.Tensor:
+    lib, stream = _lib_stream(op.index)
+    ref = op.scratch(stream).ref
+    lam = rhs.new_empty(op.B)
+    lp = lam.data_ptr()
+    fac = (state.inv.data_ptr(), state.g.data_ptr(), state.Minv.data_ptr())
+    code = lib.nxfx_dct_apply(ref, *fac, rhs.data_ptr(), lp, 0, stream)
+    for _ in range(n_refine):
+        if code:
+            break
+        res = residual(lam)
+        _require(op, (res, op.B))
+        code = lib.nxfx_dct_apply(ref, *fac, res.data_ptr(), lp, 1, stream)
+    if code:
+        build.check(code, "dct_lattice")
+    return lam
+
+
+dct_apply.launches = 0

@@ -23,6 +23,13 @@ multi-block factor with its trailing updates on the float64 tensor cores,
 two launches a 64-column panel, and one-launch triangular solves, any core
 up to ``MAX_CORE`` nodes: 146 launches at 4,096 nodes, 34 at 455) and runs
 :func:`dense_core_plain` for CPU tensors.
+
+Factor reuse splits the call: :func:`dense_factor` and :func:`dense_gate`
+once (the reference's ``scaled_cholesky_factor``), then :func:`dense_solve`
+a right-hand side (``scaled_cholesky_solve``: the passes of
+:func:`dense_core` after its gate, NaN everywhere when the gate tripped, the
+same bits as :func:`dense_core` where the same factor feeds both; 16
+launches at three refinement passes, whatever ``n``).
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ from . import build
 
 __all__ = [
     "cuda_launches", "dense_core", "dense_core_plain", "dense_factor", "dense_factor_plain",
-    "assemble_core", "MAX_CORE", "PIVOT_RTOL", "N_REFINE",
+    "assemble_core", "MAX_CORE", "PIVOT_RTOL", "N_REFINE", "dense_gate", "dense_gate_plain",
+    "dense_solve", "dense_solve_plain", "solve_launches",
 ]
 
 MAX_CORE = 8192
@@ -62,16 +70,29 @@ def dense_core_plain(ci, cj, pid, dc, rc, w_pairs, n_refine: int = N_REFINE) -> 
     dscale = torch.sqrt(torch.diagonal(Lc))
     Ls = (Lc / dscale[:, None]) / dscale[None, :]
     chol, info = torch.linalg.cholesky_ex(Ls)
-    piv = torch.diagonal(chol)
-    ok = (info == 0) & torch.all(torch.isfinite(piv)) & (piv.min() > PIVOT_RTOL * piv.max())
+    ok = (info == 0) & dense_gate_plain(chol)
+    return dense_solve_plain(Lc, dscale, chol, ok, rc, n_refine)
+
+
+def dense_gate_plain(C: torch.Tensor) -> torch.Tensor:
+    """Eager version of :func:`dense_gate`: every pivot ``C_ii`` finite and
+    ``min > PIVOT_RTOL·max`` (a bool tensor)."""
+    piv = torch.diagonal(C)
+    return torch.all(torch.isfinite(piv)) & (piv.min() > PIVOT_RTOL * piv.max())
+
+
+def dense_solve_plain(Lc, s, C, ok, rc, n_refine: int = N_REFINE) -> torch.Tensor:
+    """Eager version of :func:`dense_solve`, in :func:`dense_core_plain`'s
+    order: ``x = solve(rc)``, ``n_refine`` passes ``x += solve(rc − Lc x)``
+    with ``solve(v) = C⁻ᵀ C⁻¹ (v / s) / s``, NaN everywhere unless ``ok``."""
 
     def solve_scaled(rv):
-        return torch.cholesky_solve((rv / dscale)[:, None], chol)[:, 0] / dscale
+        return torch.cholesky_solve((rv / s)[:, None], C)[:, 0] / s
 
     x = solve_scaled(rc)
     for _ in range(n_refine):
         x = x + solve_scaled(rc - Lc @ x)
-    return torch.where(ok, x, torch.nan)
+    return torch.where(ok.bool(), x, torch.nan)
 
 
 def dense_core(ci, cj, pid, dc, rc, w_pairs, n_refine: int = N_REFINE) -> torch.Tensor:
@@ -145,6 +166,65 @@ def dense_factor(ci, cj, pid, dc, w_pairs) -> tuple:
     build.check(code, "dense_factor")
     dense_core.launches += 1
     return Lc, s, C
+
+
+def dense_gate(C: torch.Tensor) -> torch.Tensor:
+    """K11's pivot gate of a factor ``C`` (:func:`dense_factor`'s) on its
+    device: an int32 flag, 1 when every pivot is finite and ``min >
+    PIVOT_RTOL·max`` (one launch); :func:`dense_gate_plain` for a CPU tensor."""
+    if C.device.type == "cpu":
+        return dense_gate_plain(C)
+    build.require_cuda("dense_gate", C)
+    n = C.shape[0]
+    if tuple(C.shape) != (n, n) or n > MAX_CORE:
+        raise ValueError(f"dense_gate: C must be (n, n) with n at most {MAX_CORE}")
+    ok = torch.zeros((), dtype=torch.int32, device=C.device)
+    with torch.cuda.device(C.device):
+        code = build.library().nxfx_dense_gate(n, C.data_ptr(), ok.data_ptr(),
+                                               build.stream_handle(C.device))
+    build.check(code, "dense_gate")
+    dense_gate.launches += 1
+    return ok
+
+
+dense_gate.launches = 0
+
+
+def dense_solve(Lc, s, C, ok, rc, n_refine: int = N_REFINE) -> torch.Tensor:
+    """K11's solve on a stored factor on ``rc``'s device: ``(Lc, s, C)`` from
+    :func:`dense_factor`, ``ok`` from :func:`dense_gate`; the solution ``x
+    (n,)`` after ``n_refine`` refinement passes, NaN everywhere unless
+    ``ok``.  Each call allocates its own scratch, so solves on one factor
+    may run on several streams."""
+    if rc.device.type == "cpu":
+        return dense_solve_plain(Lc, s, C, ok, rc, n_refine)
+    build.require_cuda("dense_solve", Lc, s, C, rc)
+    build.require_cuda("dense_solve", ok, dtype=torch.int32)
+    n = rc.shape[0]
+    if (n > MAX_CORE or tuple(Lc.shape) != (n, n) or tuple(C.shape) != (n, n)
+            or tuple(s.shape) != (n,) or ok.numel() != 1 or n_refine < 0):
+        raise ValueError(f"dense_solve: Lc, C (n, n), s, rc (n,) with n at most {MAX_CORE}, "
+                         "one ok flag, n_refine >= 0")
+    dev, dt = rc.device, torch.float64
+    vy = torch.empty((2, n), dtype=dt, device=dev)
+    x = torch.empty(n, dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        code = build.library().nxfx_dense_solve(
+            n, n_refine, Lc.data_ptr(), C.data_ptr(), s.data_ptr(), ok.data_ptr(), rc.data_ptr(),
+            vy[0].data_ptr(), vy[1].data_ptr(), x.data_ptr(), build.stream_handle(dev),
+        )
+    build.check(code, "dense_solve")
+    dense_solve.launches += 1
+    return x
+
+
+dense_solve.launches = 0
+
+
+def solve_launches(n: int, n_refine: int = N_REFINE) -> int:
+    """CUDA kernel launches of one :func:`dense_solve`: per pass a residual,
+    two solves and an update."""
+    return (1 + n_refine) * (2 + 2 * tiled_solve_launches(n)) if n else 0
 
 
 TILE = 64  # the tiled route's panel width (csrc/tiled_cholesky.cuh)

@@ -30,6 +30,19 @@ them; the core's gather and scatter ride on those launches
 the bit, and :func:`peel_table_plain` walks the packed table in the kernels'
 order.
 
+Factor reuse runs the two channels apart on the same table and launches
+(the reference's ``_tree_eliminate_factor`` and ``_tree_eliminate_apply``):
+:func:`peel_factor` the ``d`` channel alone (the forward entries), giving a
+:class:`PeelFactor` — each peeled node's saved ``w`` and ``db``, each
+child's ``factor = w / db`` by node, the core's folded diagonal ``dc`` —;
+:func:`peel_apply`, per right-hand side, the ``r`` channel alone with the
+stored factor, the core solve ``solve_core(r_core) -> λ_core`` and the back
+pass on the stored ``w``, ``db`` (both directions).  The two-channel pass
+forms ``factor·rb`` from the same bits, so λ is :func:`peel`'s to the bit for
+the same core solution.  Their plain versions come in the reference's order
+(:func:`peel_factor_plain`, :func:`peel_apply_plain`) and the table's
+(``…_table_plain``); each counts on its own ``launches`` and ``device``.
+
 Each wrapper launches its kernels for CUDA tensors and runs its plain
 version, an eager transcription of the reference, for CPU tensors.
 """
@@ -45,14 +58,26 @@ import torch
 from ..edge_data import _EdgeData
 from ..ops import peel_table as table_words
 from . import build, fold, segsum
-from .level_eliminate import _prepare_plain
 
 __all__ = ["CUT", "cuda_launches", "lambda_system", "lambda_system_plain", "lambda_sums", "peel",
-           "peel_plain", "peel_table_plain"]
+           "bifurcation_system", "bifurcation_system_plain",
+           "peel_plain", "peel_table_plain", "PeelFactor", "peel_factor", "peel_factor_plain",
+           "peel_factor_table_plain", "peel_apply", "peel_apply_plain", "peel_apply_table_plain",
+           "factor_launches"]
 
 CUT = 1024  # the narrowest round a grid launch takes; narrower runs are one block
 
 CoreSolve = typing.Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+CoreApply = typing.Callable[[torch.Tensor], torch.Tensor]
+
+
+class PeelFactor(typing.NamedTuple):
+    """The ``d`` channel of the peel rounds (:func:`peel_factor`)."""
+
+    w: torch.Tensor  # (n_peeled,) each peeled node's pair conductance to its parent, saved order
+    db: torch.Tensor  # (n_peeled,) its diagonal at elimination
+    factor: torch.Tensor  # (B,) w / db of each node with a parent, by node (0 elsewhere)
+    dc: torch.Tensor  # (n_core,) the core's folded diagonal
 
 
 def lambda_sums(plan) -> segsum.SumPlan:
@@ -63,26 +88,45 @@ def lambda_sums(plan) -> segsum.SumPlan:
                           rows=plan.num_bifurcations)
 
 
-def lambda_system_plain(dtp, ed: _EdgeData):
-    """Eager version: ``(dr (B, 2), w (E,), ‖rhs‖)``."""
-    w_edges, vt, vs = _prepare_plain(ed)
-    dr = torch.zeros((dtp.num_bifurcations, 2), dtype=torch.float64, device=ed.W.device)
+def bifurcation_system_plain(dtp, W, g=None, Ftot=None, start_pbc=None, end_pbc=None):
+    """Eager version of :func:`bifurcation_system`: ``(dr (B, 2), w (E,),
+    ‖rhs‖)``; without ``g`` the diagonal alone (a zero rhs, no norm)."""
+    w_edges = 1.0 / W
+    if g is None:
+        vt = vs = torch.stack([w_edges, torch.zeros_like(W)], dim=-1)
+    else:
+        s_is_bif = dtp.start_bif >= 0
+        t_is_bif = dtp.end_bif >= 0
+        const = (-start_pbc * (~s_is_bif) + end_pbc * (~t_is_bif) - g) / W
+        vt = torch.stack([w_edges, const + Ftot], dim=-1)
+        vs = torch.stack([w_edges, -const], dim=-1)
+    dr = torch.zeros((dtp.num_bifurcations, 2), dtype=torch.float64, device=W.device)
     segsum.segsum_plain(dtp.t_idx, vt, dtp.t_bins, dr)
     segsum.segsum_plain(dtp.s_idx, vs, dtp.s_bins, dr)
-    return dr, w_edges, torch.linalg.norm(dr[:, 1])
+    return dr, w_edges, None if g is None else torch.linalg.norm(dr[:, 1])
 
 
-def lambda_system(dtp, ed: _EdgeData):
-    """The bifurcation system on the edge data's device (see module docs)."""
-    if ed.W.device.type == "cpu":
-        return lambda_system_plain(dtp, ed)
-    Ftot = ed.cumF[-1]
-    build.require_cuda("lambda_system", ed.W, ed.g, Ftot, ed.start_pbc, ed.end_pbc)
+def lambda_system_plain(dtp, ed: _EdgeData):
+    """Eager version: ``(dr (B, 2), w (E,), ‖rhs‖)``."""
+    return bifurcation_system_plain(dtp, ed.W, ed.g, ed.cumF[-1], ed.start_pbc, ed.end_pbc)
+
+
+def bifurcation_system(dtp, W, g=None, Ftot=None, start_pbc=None, end_pbc=None, counter=None):
+    """The bifurcation system on ``W``'s device from per-edge ``(E,)``
+    totals, in public edge order (the reference's ``_lambda_system_sorted``,
+    and the target-then-source adds of ``TreeFactorization``): the prepare
+    kernel, K6's two sides' sums and the norm (three launches).  Without
+    ``g`` (a factor's call) the diagonal alone: the rhs channel 0, no norm
+    (two launches, ``‖rhs‖`` None)."""
+    if W.device.type == "cpu":
+        return bifurcation_system_plain(dtp, W, g, Ftot, start_pbc, end_pbc)
+    rhs = () if g is None else (g, Ftot, start_pbc, end_pbc)
+    build.require_cuda("lambda_system", W, *rhs)
     build.require_cuda("lambda_system", dtp.start_bif, dtp.end_bif, dtype=torch.int32)
     E, B = dtp.num_edges, dtp.num_bifurcations
-    if any(tuple(t.shape) != (E,) for t in (ed.W, ed.g, Ftot, ed.start_pbc, ed.end_pbc)):
+    if any(tuple(t.shape) != (E,) for t in (W, *rhs)):
         raise ValueError("lambda_system: the edge data must be (E,) per edge")
-    dev, dt = ed.W.device, torch.float64
+    dev, dt = W.device, torch.float64
     w_edges = torch.empty(E, dtype=dt, device=dev)
     vt = torch.empty((E, 2), dtype=dt, device=dev)
     vs = torch.empty((E, 2), dtype=dt, device=dev)
@@ -90,19 +134,32 @@ def lambda_system(dtp, ed: _EdgeData):
     stream = build.stream_handle(dev)
     with torch.cuda.device(dev):
         code = lib.nxfx_lambda_prepare(
-            E, ed.W.data_ptr(), ed.g.data_ptr(), Ftot.data_ptr(),
-            ed.start_pbc.data_ptr(), ed.end_pbc.data_ptr(),
+            E, W.data_ptr(), *([t.data_ptr() for t in rhs] if rhs else [None] * 4),
             dtp.start_bif.data_ptr(), dtp.end_bif.data_ptr(),
             w_edges.data_ptr(), vt.data_ptr(), vs.data_ptr(), stream,
         )
     build.check(code, "lambda_system")
     dr, = segsum.segsum_plan(dtp.lambda_sums, vt, vs)
+    if not rhs:
+        (counter or bifurcation_system).launches += 1
+        return dr, w_edges, None
     rhs_norm = torch.empty((), dtype=dt, device=dev)
     with torch.cuda.device(dev):
         code = lib.nxfx_rhs_norm(B, dr.data_ptr(), rhs_norm.data_ptr(), stream)
     build.check(code, "lambda_system")
-    lambda_system.launches += 1
+    (counter or bifurcation_system).launches += 1
     return dr, w_edges, rhs_norm
+
+
+bifurcation_system.launches = 0
+
+
+def lambda_system(dtp, ed: _EdgeData):
+    """The bifurcation system on the edge data's device (see module docs)."""
+    if ed.W.device.type == "cpu":
+        return lambda_system_plain(dtp, ed)
+    return bifurcation_system(dtp, ed.W, ed.g, ed.cumF[-1], ed.start_pbc, ed.end_pbc,
+                              counter=lambda_system)
 
 
 lambda_system.launches = 0
@@ -136,6 +193,65 @@ def peel_plain(dtp, dr: torch.Tensor, w_pairs: torch.Tensor, solve_core: CoreSol
     cn = dtp.core_nodes.long()
     if cn.shape[0]:
         lam[cn] = solve_core(d[cn], r[cn])
+    for e, par, has_par, w, db, rb in reversed(saved):
+        lam_par = torch.where(has_par, lam[torch.clamp(par, min=0)], 0.0)
+        lam[e] = (rb + w * lam_par) / db
+    return lam
+
+
+def _round_w(rd, w_pairs, has_par, dt, dev):
+    if w_pairs.shape[0] > 0:
+        pid = torch.where(rd.pair_ids >= 0, rd.pair_ids, 0).long()
+        return torch.where(has_par, w_pairs[pid], 0.0)
+    return torch.zeros(rd.size, dtype=dt, device=dev)
+
+
+def peel_factor_plain(dtp, dr: torch.Tensor, w_pairs: torch.Tensor) -> PeelFactor:
+    """Eager version of :func:`peel_factor` (the reference's
+    ``_tree_eliminate_factor`` up to the core): only ``dr[:, 0]`` is read."""
+    dt, dev = torch.float64, dr.device
+    d = dr[:, 0].clone()
+    fac = torch.zeros(dtp.num_bifurcations, dtype=dt, device=dev)
+    ws, dbs = [], []
+    for rd in dtp.rounds:
+        e = rd.elim.long()
+        has_par = rd.parents >= 0
+        w = _round_w(rd, w_pairs, has_par, dt, dev)
+        db = d[e]
+        factor = w / db
+        if rd.upar.shape[0]:
+            s = fold.fold_apply_plain(-w * factor, rd.fold)
+            up = rd.upar.long()
+            d[up] = d[up] + s
+        fac[e[has_par]] = factor[has_par]
+        ws.append(w)
+        dbs.append(db)
+    cat = (lambda xs: torch.cat(xs) if xs else torch.zeros(0, dtype=dt, device=dev))
+    return PeelFactor(cat(ws), cat(dbs), fac, d[dtp.core_nodes.long()])
+
+
+def peel_apply_plain(dtp, state: PeelFactor, dr: torch.Tensor, solve_core: CoreApply):
+    """Eager version of :func:`peel_apply` (the reference's
+    ``_tree_eliminate_apply`` around the core): ``λ (B,)``; only ``dr[:, 1]``
+    is read."""
+    dt, dev = torch.float64, dr.device
+    r = dr[:, 1].clone()
+    saved, off = [], 0
+    for rd in dtp.rounds:
+        e = rd.elim.long()
+        par = rd.parents.long()
+        rb = r[e]
+        if rd.upar.shape[0]:
+            s = fold.fold_apply_plain(state.factor[e] * rb, rd.fold)
+            up = rd.upar.long()
+            r[up] = r[up] + s
+        n = rd.size
+        saved.append((e, par, par >= 0, state.w[off : off + n], state.db[off : off + n], rb))
+        off += n
+    lam = torch.zeros(dtp.num_bifurcations, dtype=dt, device=dev)
+    cn = dtp.core_nodes.long()
+    if cn.shape[0]:
+        lam[cn] = solve_core(r[cn])
     for e, par, has_par, w, db, rb in reversed(saved):
         lam_par = torch.where(has_par, lam[torch.clamp(par, min=0)], 0.0)
         lam[e] = (rb + w * lam_par) / db
@@ -198,19 +314,128 @@ def peel_table_plain(dtp, dr: torch.Tensor, w_pairs: torch.Tensor, solve_core: C
     return lam
 
 
+def _table(dtp, dev):
+    W = table_words
+    words = dtp.peel_table.host.astype(np.int64)
+
+    def T(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+    n_core = int(words[W.H_NCORE])
+    core = T(words[int(words[W.H_CORE]): int(words[W.H_CORE]) + n_core])
+    early = T(words[int(words[W.H_EARLY]): int(words[W.H_EARLY]) + int(words[W.H_NEARLY])])
+    rounds = [W.round_arrays(words, k) for k in range(int(words[W.H_ROUNDS]))]
+    return words, T, core, early, rounds
+
+
+def peel_factor_table_plain(dtp, dr: torch.Tensor, w_pairs: torch.Tensor) -> PeelFactor:
+    """:func:`peel_factor_plain` in the kernels' order, every index from the
+    packed table (as :func:`peel_table_plain`, the ``d`` channel alone)."""
+    dt, dev = torch.float64, dr.device
+    words, T, core, early, rounds = _table(dtp, dev)
+    n_peeled = int(words[table_words.H_NPEEL])
+    d = dr[:, 0].clone()
+    sw = torch.empty(n_peeled, dtype=dt, device=dev)
+    sd = torch.empty(n_peeled, dtype=dt, device=dev)
+    fac = torch.zeros(dtp.num_bifurcations, dtype=dt, device=dev)
+    dc = torch.empty(core.shape[0], dtype=dt, device=dev)
+    for rd in rounds:
+        e, par = T(rd["elim"]), T(rd["parents"])
+        if w_pairs.shape[0] > 0:
+            pid = T(rd["pair_ids"])
+            w = torch.where(par >= 0, w_pairs[torch.where(pid >= 0, pid, 0)], 0.0)
+        else:
+            w = torch.zeros(rd["n"], dtype=dt, device=dev)
+        db = d[e]
+        sw[rd["off"]: rd["off"] + rd["n"]] = w
+        sd[rd["off"]: rd["off"] + rd["n"]] = db
+        if not rd["fold"]:
+            continue
+        factor = w / db
+        fac[e[par >= 0]] = factor[par >= 0]
+        vec = -w * factor
+        for lv, _ in rd["fold"]:
+            vec = segsum.segsum_plain(T(lv), vec)
+        up, uc = T(rd["upar"]), T(rd["ucore"])
+        dn = d[up] + vec
+        d[up] = dn
+        hit = uc >= 0
+        dc[uc[hit]] = dn[hit]
+    dc[early] = d[core[early]]
+    return PeelFactor(sw, sd, fac, dc)
+
+
+def peel_apply_table_plain(dtp, state: PeelFactor, dr: torch.Tensor, solve_core: CoreApply):
+    """:func:`peel_apply_plain` in the kernels' order, every index from the
+    packed table (as :func:`peel_table_plain`, the ``r`` channel alone on the
+    stored factor)."""
+    dt, dev = torch.float64, dr.device
+    words, T, core, early, rounds = _table(dtp, dev)
+    n_peeled, n_core = int(words[table_words.H_NPEEL]), core.shape[0]
+    r = dr[:, 1].clone()
+    sr = torch.empty(n_peeled, dtype=dt, device=dev)
+    rc = torch.empty(n_core, dtype=dt, device=dev)
+    for rd in rounds:
+        e = T(rd["elim"])
+        rb = r[e]
+        sr[rd["off"]: rd["off"] + rd["n"]] = rb
+        if not rd["fold"]:
+            continue
+        vec = state.factor[e] * rb
+        for lv, _ in rd["fold"]:
+            vec = segsum.segsum_plain(T(lv), vec)
+        up, uc = T(rd["upar"]), T(rd["ucore"])
+        rn = r[up] + vec
+        r[up] = rn
+        hit = uc >= 0
+        rc[uc[hit]] = rn[hit]
+    rc[early] = r[core[early]]
+    x = solve_core(rc) if n_core else torch.zeros(1, dtype=dt, device=dev)
+    lam = torch.empty(int(words[table_words.H_B]), dtype=dt, device=dev)
+    for rd in reversed(rounds):
+        sl = slice(rd["off"], rd["off"] + rd["n"])
+        bp = T(rd["bpar"])
+        lp = torch.where(bp >= 0, lam[bp.clamp(min=0)],
+                         torch.where(bp == -1, 0.0, x[(-2 - bp).clamp(min=0)]))
+        lam[T(rd["elim"])] = (sr[sl] + state.w[sl] * lp) / state.db[sl]
+    if n_core:
+        lam[core] = x
+    return lam
+
+
 class _PeelArgs(ctypes.Structure):
     """``PeelArgs`` of ``csrc/peel.cu``."""
 
-    _fields_ = ([(f, ctypes.c_int) for f in ("has_pairs", "n_peeled", "B")]
+    _fields_ = ([(f, ctypes.c_int) for f in ("has_pairs", "n_peeled", "B", "chan")]
                 + [(f, ctypes.c_void_p)
-                   for f in ("tab", "w_pairs", "dr", "wk", "work", "dc", "rc", "x", "lam")])
+                   for f in ("tab", "w_pairs", "dr", "wk", "work", "dc", "rc", "x", "lam", "sw",
+                             "sd", "sr", "fac")])
 
 
-def _count(enqueued: int) -> None:
+BOTH, D_ONLY, R_ONLY = 0, 1, 2  # PeelArgs.chan
+
+
+def _count(enqueued: int, counter=None) -> None:
     """Count a launcher's kernels (minus a CUDA error when negative)."""
     if enqueued < 0:
         build.check(-enqueued, "peel")
-    peel.device += enqueued
+    (counter or peel).device += enqueued
+
+
+def _check_call(dtp, dr: torch.Tensor, name: str) -> None:
+    B, pt = dtp.num_bifurcations, dtp.peel_table
+    if tuple(dr.shape) != (B, 2):
+        raise ValueError(f"{name}: dr must be (B, 2)")
+    if pt.table.device != dr.device:
+        raise ValueError(f"{name}: the plan's table must be on dr's device")
+
+
+def _work(dtp, dev):
+    """A call's scratch: the updated nodes' ``(d, r)`` and the work buffer
+    (the saved planes, then the fold levels)."""
+    wk = torch.empty((dtp.num_bifurcations, 2), dtype=torch.float64, device=dev)
+    work = torch.empty(max(dtp.peel_table.work_len, 1), dtype=torch.float64, device=dev)
+    return wk, work
 
 
 def peel(dtp, dr: torch.Tensor, w_pairs: torch.Tensor, solve_core: CoreSolve):
@@ -222,22 +447,22 @@ def peel(dtp, dr: torch.Tensor, w_pairs: torch.Tensor, solve_core: CoreSolve):
         return peel_plain(dtp, dr, w_pairs, solve_core)
     build.require_cuda("peel", dr, w_pairs)
     B, n_c, pt = dtp.num_bifurcations, dtp.core_size, dtp.peel_table
-    if tuple(dr.shape) != (B, 2) or tuple(w_pairs.shape) != (dtp.num_pairs,):
-        raise ValueError("peel: dr must be (B, 2) and w_pairs (P,)")
-    if pt.table.device != dr.device:
-        raise ValueError("peel: the plan's table must be on dr's device")
+    _check_call(dtp, dr, "peel")
+    if tuple(w_pairs.shape) != (dtp.num_pairs,):
+        raise ValueError("peel: w_pairs must be (P,)")
     dev, dt = dr.device, torch.float64
     lib = build.library()
     stream = build.stream_handle(dev)
-    wk = torch.empty((B, 2), dtype=dt, device=dev)  # the updated nodes' (d, r); dr is only read
-    work = torch.empty(max(pt.work_len, 1), dtype=dt, device=dev)
+    wk, work = _work(dtp, dev)  # the updated nodes' (d, r); dr is only read
     dc = torch.empty(n_c, dtype=dt, device=dev)
     rc = torch.empty(n_c, dtype=dt, device=dev)
     lam = torch.empty(B, dtype=dt, device=dev)
-    args = _PeelArgs(has_pairs=int(dtp.num_pairs > 0), n_peeled=dtp.n_peeled, B=B,
+    n_p = dtp.n_peeled
+    args = _PeelArgs(has_pairs=int(dtp.num_pairs > 0), n_peeled=n_p, B=B, chan=BOTH,
                      tab=pt.table.data_ptr(), w_pairs=w_pairs.data_ptr(), dr=dr.data_ptr(),
                      wk=wk.data_ptr(), work=work.data_ptr(), dc=dc.data_ptr(), rc=rc.data_ptr(),
-                     x=None, lam=lam.data_ptr())
+                     x=None, lam=lam.data_ptr(), sw=work.data_ptr(), sd=work[n_p:].data_ptr(),
+                     sr=work[2 * n_p:].data_ptr(), fac=None)
     host = pt.host.ctypes.data
     with torch.cuda.device(dev):
         _count(lib.nxfx_peel_forward(ctypes.byref(args), host, stream))
@@ -259,6 +484,84 @@ peel.device = 0  # K9's kernels enqueued (the launchers report them)
 
 
 def cuda_launches(dtp) -> int:
-    """K9's CUDA launches of one :func:`peel` call: its table's entries each
-    way."""
+    """K9's CUDA launches of one :func:`peel` call, or of one
+    :func:`peel_apply`: its table's entries each way."""
     return dtp.peel_table.launches
+
+
+def factor_launches(dtp) -> int:
+    """K9's CUDA launches of one :func:`peel_factor`: the forward entries."""
+    return dtp.peel_table.n_forward
+
+
+def peel_factor(dtp, dr: torch.Tensor, w_pairs: torch.Tensor) -> PeelFactor:
+    """K9's ``d`` channel on ``dr``'s device: the :class:`PeelFactor` of the
+    assembled diagonal ``dr[:, 0]`` (``dr (B, 2)`` is only read, its rhs
+    channel not at all) and the pair conductances; one launcher call, the
+    table's forward entries."""
+    if dr.device.type == "cpu":
+        return peel_factor_plain(dtp, dr, w_pairs)
+    build.require_cuda("peel_factor", dr, w_pairs)
+    _check_call(dtp, dr, "peel_factor")
+    if tuple(w_pairs.shape) != (dtp.num_pairs,):
+        raise ValueError("peel_factor: w_pairs must be (P,)")
+    dev, dt, B, n_p = dr.device, torch.float64, dtp.num_bifurcations, dtp.n_peeled
+    wk, work = _work(dtp, dev)
+    saved = torch.empty((2, n_p), dtype=dt, device=dev)
+    fac = torch.zeros(B, dtype=dt, device=dev)
+    dc = torch.empty(dtp.core_size, dtype=dt, device=dev)
+    args = _PeelArgs(has_pairs=int(dtp.num_pairs > 0), n_peeled=n_p, B=B, chan=D_ONLY,
+                     tab=dtp.peel_table.table.data_ptr(), w_pairs=w_pairs.data_ptr(),
+                     dr=dr.data_ptr(), wk=wk.data_ptr(), work=work.data_ptr(), dc=dc.data_ptr(),
+                     rc=None, x=None, lam=None, sw=saved[0].data_ptr(), sd=saved[1].data_ptr(),
+                     sr=work[2 * n_p:].data_ptr(), fac=fac.data_ptr())
+    with torch.cuda.device(dev):
+        _count(build.library().nxfx_peel_forward(ctypes.byref(args), dtp.peel_table.host.ctypes.data,
+                                                  build.stream_handle(dev)), peel_factor)
+    peel_factor.launches += 1
+    return PeelFactor(saved[0], saved[1], fac, dc)
+
+
+peel_factor.launches = 0
+peel_factor.device = 0
+
+
+def peel_apply(dtp, state: PeelFactor, dr: torch.Tensor, solve_core: CoreApply):
+    """K9's ``r`` channel on ``dr``'s device from :func:`peel_factor`'s
+    ``state``: ``λ (B,)`` of the rhs ``dr[:, 1]`` (``dr (B, 2)`` is only
+    read, its diagonal channel not at all); ``solve_core`` gets the core's
+    folded rhs and returns its ``λ`` (on the stored core factor).  One
+    launcher call each way around the core solve, as :func:`peel`."""
+    if dr.device.type == "cpu":
+        return peel_apply_plain(dtp, state, dr, solve_core)
+    build.require_cuda("peel_apply", dr, state.w, state.db, state.factor)
+    _check_call(dtp, dr, "peel_apply")
+    dev, dt, B, n_p, n_c = dr.device, torch.float64, dtp.num_bifurcations, dtp.n_peeled, dtp.core_size
+    if (tuple(state.w.shape) != (n_p,) or tuple(state.db.shape) != (n_p,)
+            or tuple(state.factor.shape) != (B,)):
+        raise ValueError("peel_apply: the state must be the plan's peel_factor")
+    wk, work = _work(dtp, dev)
+    rc = torch.empty(n_c, dtype=dt, device=dev)
+    lam = torch.empty(B, dtype=dt, device=dev)
+    args = _PeelArgs(has_pairs=int(dtp.num_pairs > 0), n_peeled=n_p, B=B, chan=R_ONLY,
+                     tab=dtp.peel_table.table.data_ptr(), w_pairs=None, dr=dr.data_ptr(),
+                     wk=wk.data_ptr(), work=work.data_ptr(), dc=None, rc=rc.data_ptr(), x=None,
+                     lam=lam.data_ptr(), sw=state.w.data_ptr(), sd=state.db.data_ptr(),
+                     sr=work[2 * n_p:].data_ptr(), fac=state.factor.data_ptr())
+    lib, host, stream = build.library(), dtp.peel_table.host.ctypes.data, build.stream_handle(dev)
+    with torch.cuda.device(dev):
+        _count(lib.nxfx_peel_forward(ctypes.byref(args), host, stream), peel_apply)
+    if n_c:
+        x = solve_core(rc)
+        build.require_cuda("peel_apply", x)
+        if tuple(x.shape) != (n_c,) or x.device != dev:
+            raise ValueError("peel_apply: the core solve must give (n_core,) on dr's device")
+        args.x = x.data_ptr()
+    with torch.cuda.device(dev):
+        _count(lib.nxfx_peel_back(ctypes.byref(args), host, stream), peel_apply)
+    peel_apply.launches += 1
+    return lam
+
+
+peel_apply.launches = 0
+peel_apply.device = 0

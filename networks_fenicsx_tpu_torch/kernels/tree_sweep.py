@@ -27,6 +27,18 @@ forest: :func:`tree_sweep_forward` stops at level 0 and returns the folded
 back-substitutes levels 1.. from a level 0 the caller computes
 (``_blocked_backward``; the top's back-substitution and the subtree
 launch).  Both count on ``tree_sweep.launches``.
+
+Factor reuse splits it by channel, as the reference's
+``_blocked_forward_factor`` and ``_blocked_forward_apply``:
+:func:`tree_sweep_factor` (K2) folds ``d`` alone and returns the folded
+``d``, ``wn`` and ``factor = wn / d`` of every bifurcation (the subtree
+launch and the top's: two launches); :func:`tree_sweep_apply` (K3–K4)
+assembles ``r`` alone, folds it with the stored factor and back-substitutes
+(three launches).  The full sweep forms ``factor·r`` from the same bits, so
+the apply's ``λ`` is the full sweep's to the bit.  Their plain versions come
+in both orders (``tree_sweep_factor_plain`` / ``tree_sweep_apply_plain``,
+the reference's level by level, and ``…_blocked_plain``, the kernels'), and
+each counts on its own ``launches`` and ``device``.
 """
 
 from __future__ import annotations
@@ -41,10 +53,12 @@ __all__ = [
     "cuda_launches", "tree_sweep", "tree_sweep_plain", "tree_sweep_forward",
     "tree_sweep_forward_plain", "tree_sweep_backward", "tree_sweep_backward_plain",
     "tree_sweep_blocked_plain", "tree_sweep_forward_blocked_plain",
-    "tree_sweep_backward_blocked_plain",
+    "tree_sweep_backward_blocked_plain", "tree_sweep_factor", "tree_sweep_factor_plain",
+    "tree_sweep_factor_blocked_plain", "tree_sweep_apply", "tree_sweep_apply_plain",
+    "tree_sweep_apply_blocked_plain",
 ]
 
-FULL, FORWARD, BACKWARD = 0, 1, 2  # nxfx_tree_sweep's modes
+FULL, FORWARD, BACKWARD, FACTOR, APPLY = 0, 1, 2, 3, 4  # nxfx_tree_sweep's modes
 
 
 def _parts_concat(vec: torch.Tensor, parts) -> torch.Tensor:
@@ -137,6 +151,65 @@ def tree_sweep_backward_plain(plan: _BlockedPlan, d, r, wn, lam: torch.Tensor):
     return lam
 
 
+def _levels_of(plan: _BlockedPlan, v: torch.Tensor) -> list:
+    """``v (B,)`` split into its levels' views."""
+    return list(torch.split(v, np.diff(plan.bif_offsets).tolist()))
+
+
+def tree_sweep_factor_plain(plan: _BlockedPlan, w: torch.Tensor):
+    """Eager version of :func:`tree_sweep_factor` (the reference's
+    ``_blocked_forward_factor``): ``(d, wn, factor)``, each (B,) in internal
+    order, ``d`` folded and ``factor = wn / d`` (at a root too)."""
+    L = len(plan.levels)
+    d_lev: list = [None] * L
+    wn_lev: list = [None] * L
+    for l, lv in enumerate(plan.levels):
+        w_in = _parts_concat(w, lv.in_parts)
+        d = w_in
+        for o, _ in lv.outs:
+            d = d + w[o : o + lv.m]
+        d_lev[l], wn_lev[l] = d, w_in
+    for l in range(L - 1, 0, -1):
+        m_par = plan.levels[l - 1].m
+        nb = plan.levels[l - 1].n_bif_outs
+        wn = wn_lev[l]
+        cd = -wn * (wn / d_lev[l])
+        upd_d = cd[:m_par]
+        for j in range(1, nb):
+            upd_d = upd_d + cd[j * m_par : (j + 1) * m_par]
+        d_lev[l - 1] = d_lev[l - 1] + upd_d
+    d, wn = torch.cat(d_lev), torch.cat(wn_lev)
+    return d, wn, wn / d
+
+
+def tree_sweep_apply_plain(plan: _BlockedPlan, d, wn, factor, const: torch.Tensor,
+                           Ftot: torch.Tensor):
+    """Eager version of :func:`tree_sweep_apply` (the reference's
+    ``_blocked_forward_apply`` and ``_blocked_backward``): ``(lam, rhs_norm,
+    r)``, ``r`` the folded rhs, from the factor's ``(d, wn, factor)``."""
+    L = len(plan.levels)
+    r_lev: list = [None] * L
+    cF = const + Ftot
+    for l, lv in enumerate(plan.levels):
+        r = _parts_concat(cF, lv.in_parts)
+        for o, _ in lv.outs:
+            r = r - const[o : o + lv.m]
+        r_lev[l] = r
+    rhs_sq = sum(torch.sum(r * r) for r in r_lev)
+    f_lev = _levels_of(plan, factor)
+    for l in range(L - 1, 0, -1):
+        m_par = plan.levels[l - 1].m
+        nb = plan.levels[l - 1].n_bif_outs
+        cr = f_lev[l] * r_lev[l]
+        upd_r = cr[:m_par]
+        for j in range(1, nb):
+            upd_r = upd_r + cr[j * m_par : (j + 1) * m_par]
+        r_lev[l - 1] = r_lev[l - 1] + upd_r
+    d_lev, wn_lev = _levels_of(plan, d), _levels_of(plan, wn)
+    lam = _backward_levels(plan, d_lev, r_lev, wn_lev, r_lev[0] / d_lev[0])
+    return lam, torch.sqrt(rhs_sq), torch.cat(r_lev)
+
+
 # --- the subtree-blocked order (the kernels'), from the sweep plan's tables ---
 
 
@@ -196,52 +269,73 @@ def _halving(acc: torch.Tensor) -> torch.Tensor:
     return acc[..., 0]
 
 
-def _assemble_plain(dplan: DevicePlan, w, const, Ftot):
-    """Every bifurcation's unfolded ``(d, r, wn)``, as each thread assembles it."""
+def _assemble_d_plain(dplan: DevicePlan, w):
+    """Every bifurcation's unfolded ``(d, wn)``, as each thread assembles it."""
     bif_in, bif_out = dplan.bif_in.long(), dplan.bif_out.long()
     wn = w[bif_in]
     d = wn
+    for j in range(bif_out.shape[1]):
+        oe = bif_out[:, j]
+        ok = oe >= 0
+        d = torch.where(ok, d + w[torch.where(ok, oe, torch.zeros_like(oe))], d)
+    return d, wn
+
+
+def _assemble_r_plain(dplan: DevicePlan, const, Ftot):
+    """Every bifurcation's unfolded ``r``, as each thread assembles it."""
+    bif_in, bif_out = dplan.bif_in.long(), dplan.bif_out.long()
     r = const[bif_in] + Ftot[bif_in]
     for j in range(bif_out.shape[1]):
         oe = bif_out[:, j]
         ok = oe >= 0
-        safe = torch.where(ok, oe, torch.zeros_like(oe))
-        d = torch.where(ok, d + w[safe], d)
-        r = torch.where(ok, r - const[safe], r)
-    return d, r, wn
+        r = torch.where(ok, r - const[torch.where(ok, oe, torch.zeros_like(oe))], r)
+    return r
 
 
-def _fold_blocks(sp: SweepPlan, d, r, wn):
-    """The subtree blocks' folds in place on ``d, r, wn`` (block by block,
+def _fold_blocks(sp: SweepPlan, d, r, wn, fac=None):
+    """The subtree blocks' folds in place on ``d`` and ``r`` (block by block,
     in local order); each block's Σ r² partial (from ``r`` unfolded), in
-    block order."""
+    block order.  ``r`` None folds ``d`` alone; ``fac`` given folds ``r``
+    alone with that factor (``d`` and ``wn`` unread)."""
     t, c, L = sp.host_levels, sp.cut, sp.num_levels
+    dev = (r if d is None else d).device
     partials = []
     for gb, _, nodes in _block_groups(sp):
-        idx = torch.as_tensor(nodes, device=d.device)
-        vd, vr, vwn = d[idx], r[idx], wn[idx]
-        partials.append(_halving(_lanes(vr * vr, sp.threads)))
+        idx = torch.as_tensor(nodes, device=dev)
+        vd, vwn = (None, None) if fac is not None else (d[idx], wn[idx])
+        vr = None if r is None else r[idx]
+        vf = None if fac is None else fac[idx]
+        if vr is not None:
+            partials.append(_halving(_lanes(vr * vr, sp.threads)))
         for l in range(L - 2, c - 1, -1):
             R, nb = int(t[l, 3]), int(t[l, 2])
             i = np.arange(gb * R)
             run, j = i // gb, i % gb
-            par = torch.as_tensor(gb * int(t[l, 4]) + i, device=d.device)
+            par = torch.as_tensor(gb * int(t[l, 4]) + i, device=dev)
             upd_d = upd_r = None
             for s in range(nb):
-                ch = torch.as_tensor(gb * int(t[l + 1, 4]) + (s * R + run) * gb + j, device=d.device)
-                factor = vwn[:, ch] / vd[:, ch]
-                cd = -vwn[:, ch] * factor
-                cr = factor * vr[:, ch]
-                upd_d = cd if s == 0 else upd_d + cd
-                upd_r = cr if s == 0 else upd_r + cr
-            vd[:, par] = vd[:, par] + upd_d
-            vr[:, par] = vr[:, par] + upd_r
-        d[idx], r[idx] = vd, vr
-    return torch.cat(partials) if partials else d.new_zeros(0)
+                ch = torch.as_tensor(gb * int(t[l + 1, 4]) + (s * R + run) * gb + j, device=dev)
+                factor = vf[:, ch] if vf is not None else vwn[:, ch] / vd[:, ch]
+                if vd is not None:
+                    cd = -vwn[:, ch] * factor
+                    upd_d = cd if s == 0 else upd_d + cd
+                if vr is not None:
+                    cr = factor * vr[:, ch]
+                    upd_r = cr if s == 0 else upd_r + cr
+            if vd is not None:
+                vd[:, par] = vd[:, par] + upd_d
+            if vr is not None:
+                vr[:, par] = vr[:, par] + upd_r
+        if vd is not None:
+            d[idx] = vd
+        if vr is not None:
+            r[idx] = vr
+    return torch.cat(partials) if partials else torch.zeros(0, dtype=torch.float64, device=dev)
 
 
-def _top_fold(sp: SweepPlan, d, r, wn) -> None:
-    """The top's fold in place, level ``cut − 1`` up to the roots."""
+def _top_fold(sp: SweepPlan, d, r, wn, fac=None) -> None:
+    """The top's fold in place, level ``cut − 1`` up to the roots (channels
+    as :func:`_fold_blocks`)."""
     t = sp.host_levels
     for l in range(sp.cut - 1, -1, -1):
         nb, m, off = int(t[l, 2]), int(t[l, 1]), int(t[l, 0])
@@ -251,13 +345,17 @@ def _top_fold(sp: SweepPlan, d, r, wn) -> None:
         upd_d = upd_r = None
         for s in range(nb):
             ch = slice(off1 + s * m, off1 + (s + 1) * m)
-            factor = wn[ch] / d[ch]
-            cd = -wn[ch] * factor
-            cr = factor * r[ch]
-            upd_d = cd if s == 0 else upd_d + cd
-            upd_r = cr if s == 0 else upd_r + cr
-        d[off : off + m] = d[off : off + m] + upd_d
-        r[off : off + m] = r[off : off + m] + upd_r
+            factor = fac[ch] if fac is not None else wn[ch] / d[ch]
+            if fac is None:
+                cd = -wn[ch] * factor
+                upd_d = cd if s == 0 else upd_d + cd
+            if r is not None:
+                cr = factor * r[ch]
+                upd_r = cr if s == 0 else upd_r + cr
+        if fac is None:
+            d[off : off + m] = d[off : off + m] + upd_d
+        if r is not None:
+            r[off : off + m] = r[off : off + m] + upd_r
 
 
 def _top_back(sp: SweepPlan, d, r, wn, lam, first: int) -> None:
@@ -300,15 +398,18 @@ def _back_blocks(sp: SweepPlan, dplan: DevicePlan, d, r, wn, lam, first: int) ->
         lam[idx] = vlam
 
 
-def _forward_blocked(dplan: DevicePlan, w, const, Ftot):
-    """``(d, r, wn, Σ r²)`` folded down to level 0 in the kernels' order."""
+def _forward_blocked(dplan: DevicePlan, w, const, Ftot, d=None, wn=None, fac=None):
+    """``(d, r, wn, Σ r²)`` folded down to level 0 in the kernels' order;
+    with ``fac``, ``r`` alone folded with it (``d``, ``wn`` the factor's)."""
     sp = dplan.sweep
-    d, r, wn = _assemble_plain(dplan, w, const, Ftot)
-    d, r = d.clone(), r.clone()
+    if fac is None:
+        d, wn = _assemble_d_plain(dplan, w)
+        d = d.clone()
+    r = _assemble_r_plain(dplan, const, Ftot).clone()
     r_top = r[: sp.top_nodes]
-    partials = _fold_blocks(sp, d, r, wn)
+    partials = _fold_blocks(sp, d, r, wn, fac)
     acc = _lanes(r_top * r_top, sp.top_threads, _lanes(partials, sp.top_threads))
-    _top_fold(sp, d, r, wn)
+    _top_fold(sp, d, r, wn, fac)
     return d, r, wn, _halving(acc)
 
 
@@ -337,26 +438,50 @@ def tree_sweep_backward_blocked_plain(dplan: DevicePlan, d, r, wn, lam: torch.Te
     return lam
 
 
+def tree_sweep_factor_blocked_plain(dplan: DevicePlan, w: torch.Tensor):
+    """:func:`tree_sweep_factor_plain`'s ``(d, wn, factor)`` in the kernels'
+    order (the subtree blocks' folds of ``d``, then the top's)."""
+    sp = dplan.sweep
+    d, wn = _assemble_d_plain(dplan, w)
+    d = d.clone()
+    _fold_blocks(sp, d, None, wn)
+    _top_fold(sp, d, None, wn)
+    return d, wn, wn / d
+
+
+def tree_sweep_apply_blocked_plain(dplan: DevicePlan, d, wn, factor, const: torch.Tensor,
+                                   Ftot: torch.Tensor):
+    """:func:`tree_sweep_apply_plain`'s ``(lam, rhs_norm, r)`` in the kernels'
+    order: ``λ`` equals :func:`tree_sweep_blocked_plain`'s to the bit."""
+    _, r, _, sq = _forward_blocked(dplan, None, const, Ftot, d, wn, factor)
+    lam = torch.empty_like(d)
+    _top_back(dplan.sweep, d, r, wn, lam, 0)
+    _back_blocks(dplan.sweep, dplan, d, r, wn, lam, 0)
+    return lam, torch.sqrt(sq), r
+
+
 # --- the launches ---
 
 
 def cuda_launches(dplan: DevicePlan, mode: int = FULL) -> int:
-    """CUDA kernel launches of one sweep (``FULL``) or half (``FORWARD``,
-    ``BACKWARD``) on ``dplan``: the subtree forward launch where the plan has
-    subtree blocks, the top's (in the backward half only when the top holds
-    more than level 0) and the subtree back launch."""
+    """CUDA kernel launches of one sweep (``FULL``, or ``APPLY`` on a stored
+    factor) or part (``FORWARD``, ``BACKWARD``, ``FACTOR``) on ``dplan``:
+    the subtree forward launch where the plan has subtree blocks, the top's
+    (in the backward half only when the top holds more than level 0) and the
+    subtree back launch (not in the forward half or the factor)."""
     sp = dplan.sweep
     if sp.num_levels == 0:
         return 0
     sub = int(sp.blocks > 0)
-    if mode == FULL:
+    if mode in (FULL, APPLY):
         return 2 * sub + 1
-    if mode == FORWARD:
+    if mode in (FORWARD, FACTOR):
         return sub + 1
     return sub + int(sp.cut >= 2)
 
 
-def _launch(mode: int, dplan: DevicePlan, w, const, Ftot, d, r, wn, lam, out) -> None:
+def _launch(mode: int, dplan: DevicePlan, w, const, Ftot, d, r, wn, lam, out, fac=None,
+            counter=None) -> None:
     sp = dplan.sweep
     dev = d.device
     partial = torch.empty(max(sp.blocks, 1), dtype=torch.float64, device=dev)
@@ -369,15 +494,16 @@ def _launch(mode: int, dplan: DevicePlan, w, const, Ftot, d, r, wn, lam, out) ->
             mode, dplan.max_out, sp.num_levels, sp.cut, sp.group, sp.blocks, sp.threads,
             sp.block_nodes, int(sp.smem), sp.top_nodes, sp.top_threads, sp.levels.data_ptr(),
             dplan.bif_in.data_ptr(), dplan.bif_out.data_ptr(), dplan.bif_parent.data_ptr(),
-            ptr(w), ptr(const), ptr(Ftot), d.data_ptr(), r.data_ptr(), wn.data_ptr(), ptr(lam),
+            ptr(w), ptr(const), ptr(Ftot), ptr(d), ptr(r), ptr(wn), ptr(lam), ptr(fac),
             partial.data_ptr(), ptr(out), build.stream_handle(dev),
         )
     if code < 0:
         build.check(-code, "tree_sweep")
     if code != cuda_launches(dplan, mode):
         raise RuntimeError(f"tree_sweep: {code} launches, the plan counts {cuda_launches(dplan, mode)}")
-    tree_sweep.launches += 1
-    tree_sweep.device += code
+    counter = counter or tree_sweep
+    counter.launches += 1
+    counter.device += code
 
 
 def _check(dplan: DevicePlan, *vecs):
@@ -438,3 +564,48 @@ def tree_sweep_backward(dplan: DevicePlan, d, r, wn, lam: torch.Tensor):
     if cuda_launches(dplan, BACKWARD):
         _launch(BACKWARD, dplan, None, None, None, d, r, wn, lam, None)
     return lam
+
+
+def tree_sweep_factor(dplan: DevicePlan, w: torch.Tensor):
+    """K2 on ``w``'s device: ``(d, wn, factor)``, each (B,) in internal order —
+    the folded diagonal, the in-edge conductances and ``wn / d``, what
+    :func:`tree_sweep_apply` reads for every right-hand side."""
+    if w.device.type == "cpu":
+        return tree_sweep_factor_plain(dplan.plan, w)
+    _check(dplan, w)
+    B, E = dplan.num_bifurcations, dplan.num_edges
+    if tuple(w.shape) != (E,):
+        raise ValueError("tree_sweep_factor: w must be (E,)")
+    d, wn, fac = (torch.empty(B, dtype=torch.float64, device=w.device) for _ in range(3))
+    if B:
+        _launch(FACTOR, dplan, w, None, None, d, None, wn, None, None, fac=fac,
+                counter=tree_sweep_factor)
+    return d, wn, fac
+
+
+tree_sweep_factor.launches = 0
+tree_sweep_factor.device = 0
+
+
+def tree_sweep_apply(dplan: DevicePlan, d: torch.Tensor, wn: torch.Tensor, factor: torch.Tensor,
+                     const: torch.Tensor, Ftot: torch.Tensor):
+    """K3–K4 on ``const``'s device from :func:`tree_sweep_factor`'s ``(d, wn,
+    factor)``: ``(lam, rhs_norm, r)``, ``r`` the folded rhs (B,)."""
+    if const.device.type == "cpu":
+        return tree_sweep_apply_plain(dplan.plan, d, wn, factor, const, Ftot)
+    _check(dplan, d, wn, factor, const, Ftot)
+    B, E = dplan.num_bifurcations, dplan.num_edges
+    if any(tuple(t.shape) != (B,) for t in (d, wn, factor)) or any(
+            tuple(t.shape) != (E,) for t in (const, Ftot)):
+        raise ValueError("tree_sweep_apply: d, wn, factor must be (B,) and const, Ftot (E,)")
+    dev = const.device
+    r, lam = (torch.empty(B, dtype=torch.float64, device=dev) for _ in range(2))
+    rhs_norm = torch.empty((), dtype=torch.float64, device=dev)
+    if B:
+        _launch(APPLY, dplan, None, const, Ftot, d, r, wn, lam, rhs_norm, fac=factor,
+                counter=tree_sweep_apply)
+    return lam, rhs_norm, r
+
+
+tree_sweep_apply.launches = 0
+tree_sweep_apply.device = 0

@@ -63,9 +63,11 @@ the assembled matrix (:func:`_generic_solve`): ``"dense"`` (K21b
 
 The device is explicit: ``Solver(asm, device="cuda")`` (the default) runs the
 CUDA kernels and raises when CUDA is absent; ``device="cpu"`` runs their
-plain PyTorch versions.  ``factorize()`` (A3) and float32 (A4) raise
-``NotImplementedError`` naming their ROADMAP item; the sharded solves are
-:mod:`.parallel`.
+plain PyTorch versions.  :meth:`Solver.factorize` keeps a resistance-side
+factorization for rhs-only re-solves (:mod:`.factorization`: the blocked,
+lattice and peel-then-core classes; a min-degree core raises
+``NotImplementedError`` naming ROADMAP A3b); float32 (A4) raises naming its
+item; the sharded solves are :mod:`.parallel`.
 """
 
 from __future__ import annotations
@@ -192,6 +194,7 @@ class Solver:
         self._info: SolveInfo | None = None
         self._executor = None
         self._executor_key = None
+        self._factorization = None  # (fac, state, R digest, modes, R generation) of factorize()
         self._A = None
         self._b = None
 
@@ -215,9 +218,82 @@ class Solver:
         """Diagnostics of the last solve."""
         return self._info
 
+    def set_executor(self, executor) -> None:
+        """Install a pre-built fused Schur executor, keyed to the assembler's
+        current coefficient kinds."""
+        self._executor = executor
+        self._executor_key = self._assembler.coefficient_modes()
+
     def factorize(self) -> None:
-        """Factor reuse across rhs-only solves — not ported."""
-        raise NotImplementedError("ROADMAP A3: factorize() is not ported yet")
+        """Keep a resistance-side factorization for rhs-only re-solves
+        (reference ``solver.py:153-206``).
+
+        The classes of :mod:`.factorization` are tried in order (blocked,
+        lattice, peel-then-core); the first that takes the problem factors
+        ``R`` on the solver's device.  Later :meth:`solve` calls whose R is
+        unchanged (only ``f`` and ``p_bc`` differ between ``compute_forms``
+        calls) run the rhs half against it; a changed R, or a changed
+        coefficient kind, drops it and the solve falls through to the fused
+        path.  The factorized solve is the same exact elimination, gated on
+        finiteness (``SolveInfo.residual`` is the λ residual on the lattice,
+        0 elsewhere).  Raises ``ValueError`` outside every envelope, and
+        ``NotImplementedError`` (ROADMAP A3b) for a min-degree core."""
+        import hashlib
+
+        from .factorization import BlockedFactorization, GridFactorization, TreeFactorization
+
+        if self._method() != "schur":
+            raise ValueError("factorize() applies to the schur method only")
+        asm = self._assembler
+        R_data = asm.schur_arguments(device=False)[0]
+        digest = hashlib.sha1(np.ascontiguousarray(R_data).tobytes()).digest()
+        fac = None
+        for cls in (BlockedFactorization, GridFactorization, TreeFactorization):
+            try:
+                fac = cls(asm, self._options, device=self._device)
+                break
+            except ValueError:
+                continue
+        if fac is None:
+            raise ValueError(
+                "factorize() requires scalar/per-edge/per-cell coefficients "
+                "and a topology the direct paths serve (uniformly-K-ary "
+                "forest, uniform lattice, or the general peel-then-core "
+                "plan — quad-mode callables and fill-budget-breaching "
+                "cores stay on the fused path)"
+            )
+        self._factorization = (
+            fac, fac.factor(R_data), digest, asm.coefficient_modes(),
+            getattr(asm, "_R_generation", 0),
+        )
+
+    def _factorized_solve(self):
+        """``(x, info)`` from the stored factorization, or None when it is
+        stale (dropped: R or a coefficient kind changed).  The staleness
+        check is O(1) while the assembler's R generation is unchanged; after
+        a bump the R bytes are hashed once and, on a match, the generation
+        re-armed (reference ``:237-302``).  The ``f_zero`` flag is not
+        compared: the factorized solve always processes f."""
+        import hashlib
+
+        fac, state, digest, modes, gen = self._factorization
+        asm = self._assembler
+        args = asm.schur_arguments(device=False)
+        gen_now = getattr(asm, "_R_generation", 0)
+        fresh = gen_now == gen
+        if not fresh:
+            now = hashlib.sha1(np.ascontiguousarray(args[0]).tobytes()).digest()
+            if now == digest:
+                fresh = True
+                self._factorization = (fac, state, digest, modes, gen_now)
+        if not (fresh and modes[:2] == asm.coefficient_modes()[:2]):
+            self._factorization = None
+            return None
+        out = fac.solve(state, args[1], args[2], args[3])
+        x = fac.solution_vector(out)
+        finite = bool(out[-1])
+        residual = float(out[-3]) if fac.solve_has_residual else 0.0
+        return x, SolveInfo("schur_factorized", 0, residual, finite)
 
     def _method(self) -> str:
         m = self._options.method
@@ -256,7 +332,12 @@ class Solver:
                 "boundary node — the system is singular (pressure level "
                 "undetermined)"
             )
-        if method == "schur":
+        factored = None
+        if method == "schur" and self._factorization is not None:
+            factored = self._factorized_solve()
+        if factored is not None:
+            x, info = factored
+        elif method == "schur":
             key = asm.coefficient_modes()
             if self._executor is None or self._executor_key != key:
                 self._executor = build_schur_executor(asm, self._options, device=self._device)
@@ -280,6 +361,10 @@ class Solver:
                 f"residual={info.residual:.3e} converged={info.converged}"
             )
         if self._options.error_if_not_converged and not info.converged:
+            if factored is not None:
+                raise RuntimeError(
+                    "Solver did not converge: factorized solve produced non-finite values"
+                )
             raise RuntimeError(
                 f"Solver did not converge: method={info.method}, "
                 f"residual={info.residual:.3e}"
@@ -327,11 +412,11 @@ class _Executor:
         return R_data, f_data, start_pbc, end_pbc
 
     def upload(self, *arrays) -> list[torch.Tensor]:
-        """Host arrays -> contiguous float64 tensors on the executor's device."""
-        return [
-            torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64), device=self._device)
-            for a in arrays
-        ]
+        """Host arrays -> contiguous float64 tensors on the executor's device
+        (a read-only array, an immutable R, is copied: a tensor needs
+        writeable memory)."""
+        return [torch.as_tensor(np.require(a, np.float64, "CW"), device=self._device)
+                for a in arrays]
 
     def __call__(self, R_data, f_data, start_pbc, end_pbc):
         return self._run(R_data, f_data, start_pbc, end_pbc, plain=False)

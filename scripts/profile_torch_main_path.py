@@ -53,6 +53,15 @@ Builds one configuration of ``chip_smoke.py`` (``--path``):
   K5), the distributed tree elimination (K8a, K22c, K8b), the lattice
   strips (K1, K22b, K16, K17, K5) and the general route's replicated tree
   solve (K8a, K22d, K9–K15, K8b);
+* ``factor-headline``, ``factor-lattice``, ``factor-forest``, ``factor-web``,
+  ``factor-web1000`` — factor reuse on the ``blocked``, ``lattice``,
+  ``forest``, ``web`` and ``web1000`` configurations (:func:`factor_profile`):
+  ``Solver.factorize()``, then the factor, the apply (its rhs resident), a
+  rhs-only solve (its rhs uploaded) and the fused executor on the same forms,
+  each with its device µs and launches by kernel name and by CUDA source
+  (``torch.profiler``) and its best host ms, and the rhs-only
+  ``compute_forms`` + ``Solver.solve()`` loop factorized (one read-only R,
+  and a new R array a call) and fused;
 
 or, with ``--kernels``, times the redesigned kernels against their
 library calls on the same inputs: K21b's factor and solve at n = 4,096
@@ -130,6 +139,7 @@ Otherwise the script
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
+    python3 scripts/profile_torch_main_path.py --path factor-headline|factor-lattice|factor-forest|factor-web|factor-web1000 [--out x.json]
     python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist|level|gather|fronts|tsolve|blocked|core|peel|edge|shards|strips|condense] [--root DIR] [--out kernels.json]
     python3 scripts/profile_torch_main_path.py --diff parent.npz change.npz
 
@@ -170,6 +180,10 @@ from networks_fenicsx_tpu_torch.solver import (  # noqa: E402
 
 GENERIC_PATHS = ("p1tree", "minres", "dense")
 SHARDED_PATHS = {"sharded-tree": 8, "sharded-forest": 8, "sharded-lattice": 8, "sharded-web": 4}
+# factor reuse: the configuration each path factors, and chip_smoke's rhs-only forms for it
+FACTOR_PATHS = {"factor-headline": ("blocked", "poiseuille"), "factor-lattice": ("lattice", "lattice"),
+                "factor-forest": ("forest", "forest"), "factor-web": ("web", "forest"),
+                "factor-web1000": ("web1000", "forest")}
 
 
 def kernel_sources() -> dict[str, str]:
@@ -2042,6 +2056,57 @@ def device_split(fn, reps: int = 3) -> dict:
     return dict(sorted(split.items(), key=lambda kv: -kv[1][0]))
 
 
+def factor_profile(path: str, generations: int, reps: int, card: str) -> dict:
+    """``--path factor-*``: ``Solver.factorize()`` on the configuration, then
+    its factor, apply, rhs-only solve and the fused executor on the same
+    forms, each by :func:`device_split` (device µs and launches by kernel,
+    summed by source) and its best host ms; the rhs-only ``compute_forms``
+    + ``Solver.solve()`` loop, factorized (on one read-only R, and on a new
+    R array a call, which each solve hashes) and fused."""
+    base, kind = FACTOR_PATHS[path]
+    asm, _, _, _ = configure(base, generations)
+    rhs_forms = chip_smoke.factor_rhs_forms(kind)
+    rhs_forms(asm, 0)
+    solver = P.Solver(asm, device="cuda")
+    fused = P.Solver(asm, device="cuda")
+    t0 = sync_clock()
+    solver.factorize()
+    factorize_ms = (sync_clock() - t0) * 1e3
+    fac, state = solver._factorization[:2]
+    rhs_forms(asm, 1)
+    solver.solve()
+    fused.solve()
+    assert solver.info.method == "schur_factorized", solver.info
+    args = asm.schur_arguments()
+    rhs_args = fac.prepare_rhs(*args[1:])
+    ex = fused._executor
+    ex_args = ex.prepare_args(*args)
+    rec = {"card": card, "path": path, "factorization": type(fac).__name__,
+           "executor": type(ex).__name__, "dofs": asm.num_dofs, "factorize_ms": factorize_ms}
+    for name, fn in (("factor", lambda: fac.factor(args[0])),
+                     ("apply", lambda: fac.solve_prepared(state, rhs_args)),
+                     ("solve", lambda: fac.solve(state, *args[1:])),
+                     ("fused", lambda: ex(*ex_args))):
+        split = device_split(fn, reps)
+        rec[name] = {"device_us": sum(us for us, _ in split.values()),
+                     "launches": sum(n for _, n in split.values()),
+                     "best_ms": best_ms(fn, reps=10), "by_source": by_source(split),
+                     "by_kernel": split}
+    new_R = chip_smoke.factor_rhs_forms(kind, fresh_R=True)
+    for name, forms, s in (("rhs_only_factorized_ms", rhs_forms, solver),
+                           ("rhs_only_factorized_new_R_ms", new_R, solver),
+                           ("rhs_only_fused_ms", rhs_forms, fused)):
+        times = []
+        for i in range(reps):
+            t0 = sync_clock()
+            forms(asm, 2 + i)
+            s.solve()
+            times.append((sync_clock() - t0) * 1e3)
+        rec[name] = times
+    assert solver.info.method == "schur_factorized", solver.info
+    return rec
+
+
 def k11_times(n: int, dev) -> dict:
     """K11 at ``n`` nodes (chip_smoke's seeded Laplacian): the whole call,
     its assembly and factor alone (``dense_factor``), the refined solve as
@@ -2090,7 +2155,7 @@ def main() -> int:
     ap.add_argument("--path", choices=("blocked", "callable", "forest", "web", "web1000", "bed",
                                        "lattice", "lattice-callable", "web2k", "lattice64",
                                        "fronts128", "cg512", "web-cg", "skinny-mg",
-                                       *GENERIC_PATHS, *SHARDED_PATHS),
+                                       *GENERIC_PATHS, *SHARDED_PATHS, *FACTOR_PATHS),
                     default="blocked")
     ap.add_argument("--generations", type=int, default=16)
     ap.add_argument("--reps", type=int, default=5)
@@ -2156,6 +2221,13 @@ def main() -> int:
             args.out.write_text(text)
         return 0
 
+    if args.path in FACTOR_PATHS:
+        text = json.dumps(factor_profile(args.path, args.generations, args.reps, card), indent=1)
+        print(text)
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(text)
+        return 0
     asm, forms, options, tree_plan = configure(args.path, args.generations)
     if args.path in SHARDED_PATHS:
         from networks_fenicsx_tpu_torch.parallel import ShardedNetworkSolver

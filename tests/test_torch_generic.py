@@ -572,13 +572,23 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 
 def test_items_left_still_raise():
-    """``factorize()`` (A3) and float32 (A4) raise naming their ROADMAP
-    items; serial ``"tree_dist"`` runs the reference's CG branch and equals
-    the JAX package (method, iterations within 1, values at 1e-9·scale)."""
+    """``factorize()`` (A3a) gives the reference's factorized solve at
+    1e-12·scale, float32 (A4) raises naming its ROADMAP item; serial
+    ``"tree_dist"`` runs the reference's CG branch and equals the JAX
+    package (method, iterations within 1, values at 1e-9·scale)."""
     asm = P.HydraulicNetworkAssembler(P.NetworkMesh(_tree()(P), N=2))
     asm.compute_forms(p_bc_ex=lambda x: x[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        P.Solver(asm, device="cpu").factorize()
+    factored = []
+    for pkg, a in ((J, None), (P, asm)):
+        if a is None:
+            a = J.HydraulicNetworkAssembler(J.NetworkMesh(_tree()(J), N=2))
+            a.compute_forms(p_bc_ex=lambda x: x[1])
+        s = pkg.Solver(a, **({"device": "cpu"} if pkg is P else {}))
+        s.factorize()
+        s.solve()
+        assert s.info.method == "schur_factorized"
+        factored.append(np.asarray(s.solution_vector()))
+    _close(factored[1], factored[0], 1e-12)
     with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         P.Solver(asm, device="cpu", options=P.SolverOptions(dtype="float32")).solve()
     xs, infos = [], []

@@ -6,7 +6,7 @@ max |x|)) — the blocked route on the cases of ``tests/test_blocked.py``, the
 general level route on irregular forests and callable (quad-mode)
 coefficients —, its cyclic solves (peel rounds, then a dense or multifrontal
 core) at 1e-10·scale, match every golden at 1e-10, and raise
-``NotImplementedError`` for what is left (A3, A4); the
+``NotImplementedError`` for what is left (A3b, A4); the
 continuous-pressure and assembled-matrix routes are in
 ``tests/test_torch_generic.py``.
 """
@@ -590,15 +590,25 @@ def _tree_dist_matches_reference():
     _assert_equal_at_scale(xs[1], xs[0], tol=1e-9)
 
 
+def _min_degree_core_factorize():
+    """``factorize()`` on the reference's 2k-site web (a 1,994-node core the
+    planner gives min-degree rounds and a dense tail): ROADMAP A3b."""
+    G = P.network_generation.make_random_network(2000, keep=0.7, num_boundary=8, seed=5)
+    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(G, N=1))
+    asm.compute_forms(p_bc_ex=lambda x: x[0], R=np.linspace(0.5, 2.0, asm.network.num_edges))
+    P.Solver(asm, device="cpu").factorize()
+
+
 @pytest.mark.parametrize("make,match", [
-    (lambda: P.Solver(_tree_assembler(), device="cpu").factorize(), "ROADMAP A3"),
+    (_min_degree_core_factorize, "ROADMAP A3"),
     (lambda: P.Solver(_tree_assembler(), device="cpu",
                       options=P.SolverOptions(dtype="float32")).solve(), "ROADMAP A4"),
     pytest.param(_tree_dist_matches_reference, None, id="tree_dist-matches-reference"),
 ])
 def test_outside_envelope_raises(make, match):
-    """A3 and A4 raise naming their ROADMAP item; serial ``"tree_dist"``, once
-    outside the port too, now equals the reference's CG solve."""
+    """Factor reuse of a min-degree core (A3b) and float32 (A4) raise naming
+    their ROADMAP item; serial ``"tree_dist"``, once outside the port too,
+    now equals the reference's CG solve."""
     if match is None:
         make()
         return
