@@ -51,7 +51,17 @@ paths through the public API, checks each solution and times it:
   matvec part), each against the serial solve of the same assembler, every
   K22-reduce call bit for bit; K1 and K22b, one shard and batched, bit for
   bit against their plain versions, and the sharded tree's and lattice's
-  λ, q and p by SHA-256 against the parent design's.
+  λ, q and p by SHA-256 against the parent design's;
+* factor reuse (``Solver.factorize()``, then rhs-only ``compute_forms`` +
+  ``solve()`` against the fused solve): the headline tree, the 512²
+  lattice, the 100k forest, the 100k web, web1000, web2k (K12a's factor
+  and apply in one block with K11's factor and solve on the dense tail) and
+  the 128² lattice on its forced fronts plan through
+  ``build_tree_factorization`` (K12a's as a cooperative grid, K12b's factor
+  and sweeps), each split entry against its plain version, the factor's
+  and the apply's launches against the plans', and the fused λ_core of
+  web2k and of the 128² fronts by SHA-256 against the design's before the
+  split.
 
 The lattice sets also hold K17 on two streams at once, on repeated calls
 and in a replayed CUDA graph bit for bit, two K16 solves on two streams bit
@@ -88,6 +98,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 import numpy as np
@@ -103,6 +114,13 @@ SHARD_BLOCKED_LAUNCHES = 2  # K22a a sharded-tree solve on one card: the partial
 SHARD_GRID_LAUNCHES = 2  # K22b a sharded-lattice solve on one card: the windows, the fill (were 17)
 CONDENSE_LAUNCHES = 1  # K1 a sharded solve on one card, every shard in one launch (were 8)
 CORE_LAUNCHES = 2  # K12a's own a core solve: the rounds forward, the rounds back (web2k: were 36 + 31 K10)
+# K12a's own under factor reuse: a factor's one launch, an apply's forward and back
+CORE_SPLIT_LAUNCHES = {"factor": 1, "apply": 2}
+# SHA-256 of the fused λ_core (core_elim) on compare_core_kernels' inputs of web2k (set (f)) and
+# the 128² forced fronts (set (i)) in the design before K12a's rounds were split into a factor and
+# an apply (the factor buffer apart from the scratch)
+CORE_LAMBDA_BEFORE = {"web2k": "7a5df519c3cb0c6dedd62644167f06d6e0aa1cd6f7e6e92ab4481db8b9956c6a",
+                      "fronts128": "1b11f8bbefc02f6b3c7e4b3645a58dd7b1e8c6e6f4569e81590fadb226e9afd4"}
 # K9's a solve (tree.cuda_launches' peel term): the 100k web's 4 rounds of >= 1,024 nodes a grid
 # launch each way and its 14 narrower in one block each way; web1000's 11 in one block each way
 # (were 4 a round and the core's gather and scatter: 74 and 46)
@@ -274,6 +292,14 @@ KERNEL_RECORD = {
                    "networks_fenicsx_tpu/solver.py:941"),
     "dct_apply": ("networks_fenicsx_tpu_torch/kernels/csrc/dct_lattice.cu",
                   "networks_fenicsx_tpu/solver.py:1002"),
+    "core_factor": ("networks_fenicsx_tpu_torch/kernels/csrc/core_elim.cu",
+                    "networks_fenicsx_tpu/ops/core_elim.py:879"),
+    "core_apply": ("networks_fenicsx_tpu_torch/kernels/csrc/core_elim.cu",
+                   "networks_fenicsx_tpu/ops/core_elim.py:995"),
+    "core_fronts_factor": ("networks_fenicsx_tpu_torch/kernels/csrc/core_fronts.cu",
+                           "networks_fenicsx_tpu/ops/core_elim.py:934"),
+    "core_fronts_apply": ("networks_fenicsx_tpu_torch/kernels/csrc/core_fronts.cu",
+                          "networks_fenicsx_tpu/ops/core_elim.py:1016"),
 }
 # the factor-reuse wrappers: the configurations whose checks hold each, and the one timed
 FACTOR_CHECKS = {
@@ -286,6 +312,11 @@ FACTOR_CHECKS = {
     "dense_solve": (("web1000", "web1000:dense_solve_unrefined"), "web1000"),
     "dct_factor": (("lattice",), "lattice"),
     "dct_apply": (("lattice", "lattice:dct_apply_unrefined"), "lattice"),
+    "core_factor": (("web2k", "fronts128"), "web2k"),
+    "core_apply": (("web2k", "fronts128", "web2k:core_apply_whole", "fronts128:core_apply_whole"),
+                   "web2k"),
+    "core_fronts_factor": (("fronts128",), "fronts128"),
+    "core_fronts_apply": (("fronts128",), "fronts128"),
 }
 # the checks of each iterative wrapper in the kernels-cg sets (k)-(m), and the
 # set whose record times it
@@ -1462,7 +1493,7 @@ def core_inputs(P, asm, device, tree_plan=None) -> dict:
     versions: the plans ``dtp`` and ``dcp``, the core's ``dc``, ``rc`` and
     ``w_pairs``, and after the rounds the factor state ``st`` and the
     forward-swept rhs ``r_fw``, the inputs of the fronts and of the tail."""
-    from networks_fenicsx_tpu_torch.kernels import core_elim, edge_data, fold, peel, segsum
+    from networks_fenicsx_tpu_torch.kernels import core_elim, edge_data, peel, segsum
     from networks_fenicsx_tpu_torch.solver import _TreeExecutor, build_schur_executor
 
     opts = P.SolverOptions(schur_method="tree") if tree_plan is not None else P.SolverOptions()
@@ -1485,17 +1516,17 @@ def core_inputs(P, asm, device, tree_plan=None) -> dict:
 
     peel.peel_plain(dtp, dr, w_pairs, capture)
     dc, rc = core_in["dc"], core_in["rc"]
-    st = core_elim.core_factor_plain(dcp, dc, w_pairs)
-    r_fw = rc.clone()
+    factor = core_elim.core_factor_plain(dcp, dc, w_pairs)
     zero = torch.zeros(1, dtype=torch.float64, device=device)
-    for rd, (a, inv) in zip(dcp.rounds, st.rounds):
-        rv = r_fw[rd.elim.long()]
-        s_ = fold.fold_apply_plain(((a * inv[:, None]) * rv[:, None]).reshape(-1), rd.d_fold)
-        r_fw = r_fw - torch.cat([s_, zero])[rd.d_inv.long()]
+    st = types.SimpleNamespace(  # the rounds' half of the factor: the inputs of the fronts and tail
+        d=factor.d, ustream=torch.cat([core_elim.factor_stream(dcp, factor.fac), zero]),
+        rounds=core_elim.factor_rounds(dcp, factor.fac))
+    r_fw = core_elim.apply_forward_plain(dcp, factor.fac, rc)[0]
     return {"dtp": dtp, "dcp": dcp, "dc": dc, "rc": rc, "w_pairs": w_pairs, "st": st, "r_fw": r_fw}
 
 
-def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=None) -> dict:
+def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=None,
+                         before: str | None = None) -> dict:
     """K12a (:mod:`core_elim`), K12b (:mod:`core_fronts`) and K11 on a dense
     tail against their plain versions on the inputs the tree executor gives
     the core (``tree_plan`` forces a plan, as the reference's tests do): the
@@ -1507,7 +1538,8 @@ def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=Non
     sums them inside its own launches).  K12a's rounds alone
     bit for bit with the packed table's plain order.  Timed: K12a on the
     rounds alone (the tail and fronts left out), K12b on the fronts alone,
-    K11 on the tail."""
+    K11 on the tail.  ``before``: the whole core's λ held by SHA-256 to
+    :data:`CORE_LAMBDA_BEFORE`'s (the design before the split)."""
     from networks_fenicsx_tpu_torch.kernels import core_elim, core_fronts, dense_core, fold
 
     inp = core_inputs(P, asm, device, tree_plan)
@@ -1602,6 +1634,10 @@ def compare_core_kernels(P, asm, device, timed: bool, tree_plan=None, expect=Non
         "lambda_sha256": sha256(core_elim.core_elim(dcp, dc, w_pairs, rc)),
         "cuda_launches": core_elim.cuda_launches(dcp),
         "launch_grid": core_elim.launch_grid(dcp, device.index or 0)})
+    if before is not None:
+        got = record["core_elim"]["lambda_sha256"]
+        assert got == CORE_LAMBDA_BEFORE[before], (before, got, CORE_LAMBDA_BEFORE[before])
+        record["core_elim"]["lambda_sha256_before"] = CORE_LAMBDA_BEFORE[before]
     record["_case"] = (dcp, dc, w_pairs, rc)
     return record
 
@@ -2276,7 +2312,7 @@ def core_phases(P, device, name_power: str) -> dict:
 
     core = {}
     core["f"] = compare_core_kernels(P, web2k_assembler(P), device, timed=True,
-                                     expect={k: WEB2K_SIZES[k] for k in BED4_SIZES})
+                                     expect={k: WEB2K_SIZES[k] for k in BED4_SIZES}, before="web2k")
     web2k_case = core["f"].pop("_case")
     k12a = core["f"]["core_elim"]
     assert k12a["launch_grid"] == 0, k12a  # one block
@@ -2301,7 +2337,7 @@ def core_phases(P, device, name_power: str) -> dict:
     plan_i = nd_tree_plan(P, grid, **FRONTS_KWARGS)
     t_i = time.perf_counter() - t0
     core["i"] = compare_core_kernels(P, grid, device, timed=True, tree_plan=plan_i,
-                                     expect=GRID128_FRONTS_SIZES)
+                                     expect=GRID128_FRONTS_SIZES, before="fronts128")
     fronts_case = core["i"].pop("_case")
     assert core["i"]["core_elim"]["launch_grid"] > 0, core["i"]["core_elim"]  # a cooperative grid
     log(f"phase kernels-core (i) 128^2 edge-R lattice, forced fronts (host planning {t_i:.3f} s): "
@@ -2340,7 +2376,8 @@ def core_phases(P, device, name_power: str) -> dict:
         paths["web48-" + key] = forced_core_path(P, device, f"web48 forced {key} path", web48, plan,
                                                  {}, name_power)
     return {"sets": core, "k11": k11, "k11_guards": guards, "paths": paths,
-            "launch_cases": {"web2k": web2k_case, "fronts128": fronts_case}}
+            "launch_cases": {"web2k": web2k_case, "fronts128": fronts_case},
+            "fronts128": (grid, plan_i)}
 
 
 def cg512_forms(asm) -> None:
@@ -3043,17 +3080,19 @@ def level_gather_launch_counts(P, forest_asm, web_asm, device) -> dict:
 
 
 SWEEP_PATTERN = r"\b(subtree_forward_kernel|top_kernel|subtree_back_kernel)\b"  # K2–K4's kernels
-CORE_PATTERN = r"\bcore_(forward|back)_kernel\b"  # K12a's two
+CORE_PATTERN = r"\bcore_(rounds|back)_kernel\b"  # K12a's (the rounds' forward, factor, apply; back)
 
 
 def sweep_core_launch_counts(sweep_case, core_cases, device) -> dict:
     """K2–K4's device launches of one headline sweep and K12a's of one core
-    solve (web2k in one block, fronts128 in a cooperative grid; K11's and
-    K12b's launches between them are theirs): as the launchers report them
-    (``tree_sweep.device``, ``core_elim.device``) and as ``torch.profiler``
+    solve, one factor and one apply (web2k in one block, fronts128 in a
+    cooperative grid; K11's and K12b's launches between them are theirs):
+    as the launchers report them (``tree_sweep.device``, ``core_elim.device``,
+    ``core_factor.device``, ``core_apply.device``) and as ``torch.profiler``
     counts the kernels in the same window (:func:`launch_count_windows`).
     Fails unless both equal :data:`SWEEP_LAUNCHES`
-    (:func:`tree_sweep.cuda_launches`) and :data:`CORE_LAUNCHES`."""
+    (:func:`tree_sweep.cuda_launches`), :data:`CORE_LAUNCHES` and
+    :data:`CORE_SPLIT_LAUNCHES`."""
     from networks_fenicsx_tpu_torch.kernels import core_elim, tree_sweep
 
     dp, s_args = sweep_case
@@ -3073,6 +3112,21 @@ def sweep_core_launch_counts(sweep_case, core_cases, device) -> dict:
             return core_elim.core_elim.device - before
 
         runs.append((f"k12a_{name}", core_run, CORE_PATTERN, CORE_LAUNCHES, None))
+        factor = core_elim.core_factor(dcp, dc, w_pairs)
+
+        def factor_run(dcp=dcp, dc=dc, w_pairs=w_pairs):
+            before = core_elim.core_factor.device
+            core_elim.core_factor(dcp, dc, w_pairs)
+            return core_elim.core_factor.device - before
+
+        def apply_run(dcp=dcp, factor=factor, rc=rc):
+            before = core_elim.core_apply.device
+            core_elim.core_apply(dcp, factor, rc)
+            return core_elim.core_apply.device - before
+
+        runs.append((f"k12a_factor_{name}", factor_run, CORE_PATTERN, CORE_SPLIT_LAUNCHES["factor"],
+                     None))
+        runs.append((f"k12a_apply_{name}", apply_run, CORE_PATTERN, CORE_SPLIT_LAUNCHES["apply"], None))
     out = {}
     for key, run, pattern, want, before in runs:
         run()
@@ -4776,11 +4830,12 @@ FACTOR_SOLVES = 3  # rhs-only solves a configuration, each with fresh f and p_bc
 # held at 1e-11 there and at TOL against the same factorization's plain versions
 # (FACTOR_SAME_ORDER)
 FACTOR_TOL = {"headline": TOL, "lattice": LATTICE_TOL, "forest": 1e-11, "web": CYCLIC_TOL,
-              "web1000": CYCLIC_TOL}
+              "web1000": CYCLIC_TOL, "web2k": CYCLIC_TOL, "fronts128": CYCLIC_TOL}
 FACTOR_SAME_ORDER = {"forest": TOL}  # card against the CPU's plain versions, same factorization
 FACTOR_CLASS = {"headline": "BlockedFactorization", "lattice": "GridFactorization",
                 "forest": "TreeFactorization", "web": "TreeFactorization",
-                "web1000": "TreeFactorization"}
+                "web1000": "TreeFactorization", "web2k": "TreeFactorization",
+                "fronts128": "TreeFactorization"}
 # the wrappers a factor and an apply launch, by route (besides the core engine's on the tree route)
 FACTOR_USED = {
     "BlockedFactorization": (("condense", "tree_sweep_factor"),
@@ -4888,7 +4943,7 @@ def factor_launches_want(fac) -> dict:
     """The device launches of one factor and one apply, from the plans."""
     from networks_fenicsx_tpu_torch import factorization as F
     from networks_fenicsx_tpu_torch.kernels import (
-        dct_lattice, dense_core, grid_core, mf_apply, mf_factor, peel, tree_sweep,
+        core_elim, dct_lattice, dense_core, grid_core, mf_apply, mf_factor, peel, tree_sweep,
     )
 
     if isinstance(fac, F.BlockedFactorization):
@@ -4908,6 +4963,9 @@ def factor_launches_want(fac) -> dict:
         if dtp.mf is not None:
             factor += mf_factor.cuda_launches(dtp.mf)
             apply += mf_apply.cuda_launches(dtp.mf)
+        elif dtp.ce is not None:
+            factor += core_elim.factor_launches(dtp.ce)
+            apply += core_elim.apply_launches(dtp.ce)
         else:
             n, P0 = dtp.core_size, int(dtp.core_ci.shape[0])
             factor += 1 + (P0 > 0) + dense_core.tiled_factor_launches(n, n) + 1
@@ -5101,13 +5159,196 @@ def peel_table_words(dtp, chan: str) -> int:
     return int(read.sum())
 
 
+def core_round_words(dcp, part: str) -> tuple[int, int]:
+    """``(words, fold terms)``: the int32 table words K12a's ``part``
+    (``"factor"``: the terms with their stream reads, the diagonal update,
+    the fill products and their fold, the tail's gathers; ``"apply"``: the
+    swept rhs, the diagonal fold, the back-substitution's neighbours, the
+    tail's nodes) reads, the header and round rows included, and the terms
+    its folds add."""
+    from networks_fenicsx_tpu_torch.ops import core_elim as W
+
+    words = dcp.rt.host.astype(np.int64)
+    n, adds = dcp.rt.head_words, 0
+
+    def levels(lvs) -> int:
+        return sum(idx.size for idx, _ in lvs)
+
+    for k in range(dcp.rt.rounds):
+        rd = W._round_arrays(words, k)
+        S, SK, U1, M2 = rd["S"], rd["S"] * rd["K"], rd["U1"], rd["M2"]
+        if part == "factor":
+            fl = levels(rd["u_read"]) + levels(rd["d_fold"]) + levels(rd["u_fold"])
+            n += S + SK + U1 + 2 * M2 + fl
+        else:
+            fl = levels(rd["d_fold"])
+            n += S + U1 + SK + fl
+        adds += fl
+    Bd, Pd = int(dcp.dense_nodes.shape[0]), int(dcp.dp_init.shape[0])
+    if Bd and not dcp.fronts:
+        if part == "factor":
+            fl = levels(W._fold_levels(words, W.G_DPFOLD))
+            n, adds = n + Bd + Pd + fl, adds + fl
+        else:
+            n += Bd
+    return n, adds
+
+
+def front_blocks(dcp, ff) -> list:
+    """Each front's ``L`` (w, w) and ``Yᵀ`` (b, w) of a K12b factor: the
+    kernel's front buffer blocks, or the plain version's pairs."""
+    out = []
+    for fr, i in zip(dcp.fronts, range(len(dcp.fronts))):
+        w, m = fr.w, fr.w + fr.b
+        if isinstance(ff.fronts, torch.Tensor):
+            F = ff.fronts[fr.f_off: fr.f_off + m * m].view(m, m)
+            out += [torch.tril(F[:w, :w]), F[w:, :w]]
+        else:
+            L, Y = ff.fronts[i]
+            out += [L, Y.T if Y is not None else L.new_zeros((0, w))]
+    return out
+
+
+def two_stream_applies(apply, rhs: tuple) -> list:
+    """``apply(r)`` of each rhs on a stream of its own, side by side."""
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in rhs]
+    outs = []
+    for stream, r in zip(streams, rhs):
+        with torch.cuda.stream(stream):
+            outs.append(apply(r))
+    torch.cuda.synchronize()
+    return outs
+
+
+def core_split_checks(dcp, dc, w_pairs, rc, stored, timed: bool = True) -> dict:
+    """Factor reuse's K12a (and on fronts K12b) on a tree factorization's
+    core inputs (the peeled diagonal ``dc``, ``w_pairs`` and the apply's
+    ``rc``) and its stored factor ``stored``.  K12a's factor launch and its
+    apply's two on the rounds alone, bit for bit with their plain versions
+    in the kernels' order (and the factor with the reference's order's);
+    the whole split core's λ_core within 1e-12·scale of the fused
+    ``core_elim``'s and within the fused bar of its plain version; two
+    applies on two streams against one factor, each its own bits, the
+    factor's bytes unchanged.  On fronts, K12b's factor (every front's ``L``
+    and ``Yᵀ``) and sweeps against their plain versions at ``CYCLIC_TOL``,
+    the two in a row ``core_fronts``'s bits.  ``timed``: each entry with
+    its bound (the rounds alone for K12a, as ``core_elim``'s record), and
+    the whole wrappers' and the fused core's times."""
+    import dataclasses as dc_
+
+    from networks_fenicsx_tpu_torch.kernels import core_elim, core_fronts
+
+    n, rt = dcp.n_core, dcp.rt
+    idx = dc.device.index or 0
+    n_tail = int(dcp.dense_nodes.shape[0])
+    rec = {"core_plan": {"core": n, "rounds": len(dcp.rounds), "dense_tail": n_tail,
+                         "fronts": len(dcp.fronts)},
+           "launch_grid": {"factor": core_elim.launch_grid(dcp, idx, (core_elim.FACTOR,)),
+                           "apply": core_elim.launch_grid(dcp, idx, (core_elim.APPLY,)),
+                           "back": core_elim.launch_grid(dcp, idx, (core_elim.BACK,))}}
+    f = core_elim.core_factor(dcp, dc, w_pairs)
+    ft = core_elim.core_factor_table_plain(dcp, dc, w_pairs)
+    fr = core_elim.core_factor_plain(dcp, dc, w_pairs)
+    assert torch.equal(f.fac, ft.fac) and torch.equal(f.d, ft.d), "core_factor vs table order"
+    assert torch.equal(ft.fac, fr.fac) and torch.equal(ft.d, fr.d), "core_factor: the two orders"
+    assert torch.equal(f.fac, stored.fac), "core_factor: the factorization's factor, repeat bits"
+    rounds_only = dc_.replace(dcp, fronts=(), dense_nodes=dcp.dense_nodes[:0], dp_init=dcp.dp_init[:0])
+    f_r = core_elim.core_factor(rounds_only, dc, w_pairs)
+    w_f, adds_f = core_round_words(rounds_only, "factor")
+    w_a, adds_a = core_round_words(rounds_only, "apply")
+    SK = sum(rd.S * rd.K for rd in dcp.rounds)
+    S_all = sum(rd.S for rd in dcp.rounds)
+    M2 = sum(rd.M2 for rd in dcp.rounds)
+    used_pairs = sum(int((rd.init_idx < dcp.n_pairs).sum()) for rd in dcp.rounds)
+    # reads: the table words, the used pair conductances, dc; writes: the factor buffer, d
+    rec["core_factor"] = check_pair(
+        lambda: core_elim.core_factor(rounds_only, dc, w_pairs)[:2],
+        lambda: core_elim.core_factor_table_plain(rounds_only, dc, w_pairs)[:2],
+        (4 * w_f + 8 * (used_pairs + n) + 8 * (rt.fac_len + n), 3 * SK + S_all + 3 * M2 + adds_f)
+        if timed else None, exact=True)
+    # reads: the table words, a and inv, rc; writes: λ (the forward's r and rv are the back's)
+    rec["core_apply"] = check_pair(
+        lambda: core_elim.core_apply(rounds_only, f_r, rc),
+        lambda: core_elim.core_apply_table_plain(rounds_only, f_r, rc),
+        (4 * w_a + 8 * (dcp.a_len + dcp.s_len + n) + 8 * (n + 1), 4 * SK + 2 * S_all + adds_a)
+        if timed else None, exact=True)
+    lam = core_elim.core_apply(dcp, f, rc)
+    fused = core_elim.core_elim(dcp, dc, w_pairs, rc)
+    err, scale = max_err(lam, fused)
+    assert err <= TOL * scale, ("split core vs fused core_elim", err, scale)
+    tol = TOL if n_tail <= 628 and not dcp.fronts else CYCLIC_TOL
+    rec["core_apply_whole"] = check_pair(lambda: core_elim.core_apply(dcp, f, rc),
+                                         lambda: core_elim.core_apply_table_plain(dcp, ft, rc), tol=tol)
+    rec["core_apply_whole"].update({"vs_fused_core_elim": err, "scale": scale, "tol": tol})
+    kept = sha256(f.fac)
+    rc2 = rc.flip(0).contiguous()
+    outs = two_stream_applies(lambda r: core_elim.core_apply(dcp, f, r), (rc, rc2))
+    assert torch.equal(outs[0], lam) and torch.equal(outs[1], core_elim.core_apply(dcp, f, rc2))
+    assert sha256(f.fac) == kept, "core_apply wrote the factor"
+    rec["core_apply"]["two_streams_equal"] = rec["core_apply"]["factor_unchanged"] = True
+    if timed:
+        rec["core_factor"]["whole_ms"] = cuda_ms(lambda: core_elim.core_factor(dcp, dc, w_pairs),
+                                                 reps=5)
+        rec["core_apply"]["whole_ms"] = cuda_ms(lambda: core_elim.core_apply(dcp, f, rc), reps=10)
+        rec["core_apply"]["fused_core_elim_ms"] = cuda_ms(
+            lambda: core_elim.core_elim(dcp, dc, w_pairs, rc), reps=10)
+    if dcp.fronts:
+        zero = torch.zeros(1, dtype=torch.float64, device=dc.device)
+        d, us = f.d, core_elim.factor_stream(dcp, f.fac)
+        r = core_elim.apply_forward_plain(dcp, f.fac, rc)[0]
+        ff = core_fronts.core_fronts_factor(dcp, d, us, w_pairs)
+        fp = core_fronts.core_fronts_factor_plain(dcp, d, torch.cat([us, zero]), w_pairs)
+        assert int(ff.ok) == int(fp.ok) == 1, "K12b's gate"
+        fl = sum(fr_.w**3 / 3 + fr_.w**2 * fr_.b + fr_.w * fr_.b**2 for fr_ in dcp.fronts)
+        tables = [(fr_.nodes, fr_.slot_i, fr_.slot_j, fr_.f_init, fr_.f_fold, fr_.lminv)
+                  for fr_ in dcp.fronts]
+        n_slots = sum(int(fr_.slot_i.shape[0]) for fr_ in dcp.fronts)
+        # reads: the front tables, d at the pivots, the stream's folded slots; writes: the buffer
+        rec["core_fronts_factor"] = check_pair(
+            lambda: front_blocks(dcp, core_fronts.core_fronts_factor(dcp, d, us, w_pairs)),
+            lambda: front_blocks(dcp, core_fronts.core_fronts_factor_plain(
+                dcp, d, torch.cat([us, zero]), w_pairs)),
+            None, tol=CYCLIC_TOL)
+        if timed:
+            rec["core_fronts_factor"].update({
+                "ms": cuda_ms(lambda: core_fronts.core_fronts_factor(dcp, d, us, w_pairs), reps=5),
+                "plain_ms": cuda_ms(lambda: core_fronts.core_fronts_factor_plain(
+                    dcp, d, torch.cat([us, zero]), w_pairs), reps=3, warmup=1),
+                **bound(tensor_bytes(tables) + 8 * (sum(fr_.w for fr_ in dcp.fronts) + n_slots)
+                        + 8 * dcp.f_len, 2 * sum((fr_.w + fr_.b) ** 2 for fr_ in dcp.fronts), fl),
+                "library_ms": None})
+        kept_f = sha256(ff.fronts)
+        # reads: each front's L and Yᵀ once (the back sweep's second read stays in L2, as
+        # K12a's apply counts a and inv once), nodes, boundary, r; writes: λ
+        lf = sum(fr_.w * (fr_.w + 1) // 2 + fr_.w * fr_.b for fr_ in dcp.fronts)
+        rec["core_fronts_apply"] = check_pair(
+            lambda: core_fronts.core_fronts_apply(dcp, ff, r.clone()),
+            lambda: core_fronts.core_fronts_apply_plain(dcp, fp, r),
+            (8 * lf + tensor_bytes([(fr_.nodes, fr_.bnd) for fr_ in dcp.fronts]) + 8 * n
+             + 8 * (n + 1), sum(4 * fr_.w**2 + 8 * fr_.w * fr_.b for fr_ in dcp.fronts))
+            if timed else None, tol=CYCLIC_TOL)
+        assert torch.equal(core_fronts.core_fronts_apply(dcp, ff, r.clone()),
+                           core_fronts.core_fronts(dcp, d, us, w_pairs, r.clone())), "K12b split bits"
+        outs = two_stream_applies(lambda v: core_fronts.core_fronts_apply(dcp, ff, v.clone()),
+                                  (r, r.flip(0).contiguous()))
+        assert torch.equal(outs[0], core_fronts.core_fronts_apply(dcp, ff, r.clone()))
+        assert sha256(ff.fronts) == kept_f, "core_fronts_apply wrote the factor"
+        rec["core_fronts_apply"].update({"equal_core_fronts": True, "factor_unchanged": True})
+        if timed:
+            rec["core_fronts_apply"]["fused_core_fronts_ms"] = cuda_ms(
+                lambda: core_fronts.core_fronts(dcp, d, us, w_pairs, r.clone()), reps=5)
+    return rec
+
+
 def tree_factor_checks(fac, state, rhs_args, timed: bool = True) -> dict:
     """The tree factorization's new entries on its inputs: the bifurcation
     system; K9's d channel and r channel against their plain versions in the
     table's order bit for bit (and the reference's order), the apply's λ the
     two-channel pass's bits on the same core solution (its dc and rc too);
     on a dense core K11's gate and its solve on the stored factor (refined at
-    ``CYCLIC_TOL``, unrefined at ``TOL``, and ``dense_core``'s bits).
+    ``CYCLIC_TOL``, unrefined at ``TOL``, and ``dense_core``'s bits); on a
+    min-degree core the split K12a and K12b (:func:`core_split_checks`).
     ``timed``: each entry also timed with its bound (the kernels line's
     records are the web's and web1000's)."""
     from networks_fenicsx_tpu_torch.kernels import dense_core, peel
@@ -5174,7 +5415,9 @@ def tree_factor_checks(fac, state, rhs_args, timed: bool = True) -> dict:
     rec["peel_apply"]["lambda_equal_fused_peel"] = True
     if timed:
         rec["fused_peel_ms"] = cuda_ms(lambda: peel.peel(dtp, both, wp, lambda dc, rc: x), reps=5)
-    if n_c and dtp.mf is None:
+    if dtp.ce is not None:
+        rec.update(core_split_checks(dtp.ce, pf.dc, wp, cap["rc"], state.core, timed))
+    elif n_c and dtp.mf is None:
         Lc, s, C, ok = state.core
         rc = cap["rc"]
         gate = dense_core.dense_gate(C)
@@ -5205,69 +5448,117 @@ def tree_factor_checks(fac, state, rhs_args, timed: bool = True) -> dict:
     return rec
 
 
-def factor_path(P, device, label: str, asm, kind: str, name_power: str) -> dict:
-    """Factor reuse on one configuration through the public API, on
-    :func:`factor_rhs_forms`'s ``kind``: ``Solver.factorize()`` once
-    (counted), then :data:`FACTOR_SOLVES` rhs-only solves with fresh f and
-    p_bc (each counted, ``schur_factorized``, finite, conserving mass and
-    equal to the fused ``Solver.solve()`` of the same forms at the
-    configuration's bar); then the new entries against their plain
-    versions, the device launches of a factor and of an apply against the
-    plans' (``torch.profiler``), the factor's, the apply's and the fused
-    executor's device time, the rhs-only ``compute_forms`` + ``solve()``
-    loop factorized (one read-only R, and a new R array a call) and fused,
-    and the factorized call's host split (:func:`factor_host_split`)."""
-    from networks_fenicsx_tpu_torch import kernels
+def core_engine_used(fac) -> tuple[tuple, tuple]:
+    """The core engine's wrappers a factor and an apply launch on the tree
+    route (none on the others)."""
+    dtp = getattr(fac, "device_tree_plan", None)
+    if dtp is None or not dtp.core_size:
+        return (), ()
+    if dtp.mf is not None:  # K10's folds in the multifrontal refinement
+        return ("mf_factor",), ("mf_apply",) + (("fold_apply",) if dtp.mf.plan.n_refine > 0 else ())
+    ce = dtp.ce
+    if ce is None:
+        return ("dense_core", "dense_gate"), ("dense_solve",)
+    k12a = bool(ce.rounds or ce.dense_nodes.shape[0])
+    f, a = (("core_factor",), ("core_apply",)) if k12a else ((), ())
+    if ce.fronts:  # K12b, with K10's slot folds in its factor
+        f += ("core_fronts_factor",) + (("fold_apply",) if any(fr.f_fold for fr in ce.fronts) else ())
+        a += ("core_fronts_apply",)
+    elif ce.dense_nodes.shape[0]:  # K11's factor (counted as dense_core's) and gate; its solve
+        f += ("dense_core", "dense_gate")
+        a += ("dense_solve",)
+    assert k12a or ce.fronts
+    return f, a
+
+
+def factor_path(P, device, label: str, asm, kind: str, name_power: str,
+                tree_plan=None) -> dict:
+    """Factor reuse on one configuration, on :func:`factor_rhs_forms`'s
+    ``kind``: the factor once (counted), then :data:`FACTOR_SOLVES` rhs-only
+    solves with fresh f and p_bc (each counted, ``schur_factorized``, finite,
+    conserving mass and equal to the fused solve of the same forms at the
+    configuration's bar); then the new entries against their plain versions,
+    the device launches of a factor and of an apply against the plans'
+    (``torch.profiler``), and the factor's, the apply's and the fused
+    executor's device time.  Through the public API (``tree_plan`` None):
+    ``Solver.factorize()`` and ``Solver.solve()``, then the rhs-only
+    ``compute_forms`` + ``solve()`` loop factorized (one read-only R, and a
+    new R array a call) and fused, and the factorized call's host split
+    (:func:`factor_host_split`).  On a forced core plan (``tree_plan``, the
+    hook the reference's own tests force supernodal fronts with):
+    ``build_tree_factorization(_tree_plan=...)`` against the fused tree
+    executor on the same plan at ``CYCLIC_TOL``, and a ``solve_batch`` of
+    the solves' rhs (each row ``solve()``'s bits)."""
+    from networks_fenicsx_tpu_torch import factorization as F, kernels
+    from networks_fenicsx_tpu_torch.solver import _schur_solve, build_schur_executor
 
     key = label.split()[0]
-    tol = FACTOR_TOL[key]
     mesh = asm.network
     rhs_forms = factor_rhs_forms(kind)
     rhs_forms(asm, 0)
-    solver = P.Solver(asm, device=device)
-    fused = P.Solver(asm, device=device)
+    if tree_plan is None:
+        tol = FACTOR_TOL[key]
+        solver, fused = P.Solver(asm, device=device), P.Solver(asm, device=device)
+
+        def factor():
+            solver.factorize()
+            return solver._factorization[:2]
+
+        def solve(state):
+            sol = solver.solve()
+            assert solver.info.method == "schur_factorized" and solver.info.converged, solver.info
+            return np.concatenate([np.asarray(fn.values).ravel() for fn in sol])
+
+        def solve_fused():
+            fused.solve()
+            assert fused.info.method == "schur" and fused.info.converged, fused.info
+            return fused.solution_vector()
+    else:
+        tol, opts = CYCLIC_TOL, P.SolverOptions(schur_method="tree")
+        ex = build_schur_executor(asm, opts, device=device, _tree_plan=tree_plan)
+        forced = F.build_tree_factorization(asm, opts, device=device, _tree_plan=tree_plan)
+        rows = []
+
+        def factor():
+            return forced, forced.factor(asm.schur_arguments(device=False)[0])
+
+        def solve(state):
+            rows.append(asm.schur_arguments(device=False)[1:])
+            out = forced.solve(state, *rows[-1])
+            assert bool(out[-1]), label
+            return forced.solution_vector(out)
+
+        def solve_fused():
+            x_fused, info = _schur_solve(asm, opts, ex)
+            assert info.converged, info
+            return x_fused
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    solver.factorize()
+    fac, state = factor()
     torch.cuda.synchronize()
     factor_s = time.perf_counter() - t0
     factor_run = kernels.launches()
-    fac, state = solver._factorization[:2]
     assert type(fac).__name__ == FACTOR_CLASS[key], type(fac)
     used_f, used_a = FACTOR_USED[type(fac).__name__]
-    core_f, core_a = (), ()
-    if key in ("web", "web1000"):
-        dtp = fac.device_tree_plan
-        if dtp.mf is not None:  # K10's folds in the multifrontal refinement
-            core_f, core_a = ("mf_factor",), ("mf_apply",) + (
-                ("fold_apply",) if dtp.mf.plan.n_refine > 0 else ())
-        else:
-            core_f, core_a = ("dense_core", "dense_gate"), ("dense_solve",)
+    core_f, core_a = core_engine_used(fac)
     assert all(factor_run[n] >= 1 for n in used_f + core_f), (label, factor_run)
     assert all(n == 0 for name, n in factor_run.items() if name not in used_f + core_f), factor_run
-    runs, errs, times = [factor_run], [], []
+    runs, errs = [factor_run], []
     for s in range(1, FACTOR_SOLVES + 1):
         rhs_forms(asm, s)
         torch.cuda.synchronize()
         kernels.reset_launches()
-        t1 = time.perf_counter()
-        sol = solver.solve()
+        x = solve(state)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
         run = kernels.launches()
         assert all(run[n] >= 1 for n in used_a + core_a), (label, run)
         assert all(n == 0 for name, n in run.items() if name not in used_a + core_a), (label, run)
         runs.append(run)
-        info = solver.info
-        assert info.method == "schur_factorized" and info.converged, info
-        x = np.concatenate([np.asarray(fn.values).ravel() for fn in sol])
         assert x.shape == (asm.num_dofs,) and np.all(np.isfinite(x))
         imbalance, qmax = conservation(asm, x)
         assert imbalance <= 1e-10 * qmax, (label, imbalance, qmax)
-        fused.solve()
-        assert fused.info.method == "schur" and fused.info.converged, fused.info
-        x_fused = fused.solution_vector()
+        x_fused = solve_fused()
         err = float(np.abs(x - x_fused).max())
         scale = max(1.0, float(np.abs(x_fused).max()))
         assert err <= tol * scale, (label, s, err, scale, tol)
@@ -5283,6 +5574,11 @@ def factor_path(P, device, label: str, asm, kind: str, name_power: str) -> dict:
         same_order = float(np.abs(x - x_cpu).max()) / scale
         assert same_order <= FACTOR_SAME_ORDER[key], (label, same_order)
         del cpu
+    if tree_plan is not None:
+        batch = fac.solve_batch(state, *(np.stack(col) for col in zip(*rows)))
+        for i, row in enumerate(rows):
+            assert all(torch.equal(a, b) for a, b in zip((t[i] for t in batch),
+                                                         fac.solve(state, *row))), (label, i)
     args = asm.schur_arguments()
     rhs_args = fac.prepare_rhs(*args[1:])
     if key == "headline":
@@ -5301,7 +5597,8 @@ def factor_path(P, device, label: str, asm, kind: str, name_power: str) -> dict:
         windows = launch_count_windows(lambda: (run_part(), want[part])[1], FACTOR_PATTERN, device)
         launch_rec[part] = check_launch_windows(f"{key}_{part}", windows, want[part])
         launch_rec[part].pop("windows")
-    ex = fused._executor
+    if tree_plan is None:
+        ex = fused._executor
     ex_args = ex.prepare_args(*args)
     timing_rec = {
         "factor_ms": cuda_ms(lambda: fac.factor(R_data), reps=5),
@@ -5312,51 +5609,59 @@ def factor_path(P, device, label: str, asm, kind: str, name_power: str) -> dict:
         "apply_share": device_share(lambda: fac.solve_prepared(state, rhs_args)),
         "fused_share": device_share(lambda: ex(*ex_args)),
     }
-    loops = {}  # compute_forms + solve, ms
-    for name, s_forms, s_solver in (("factorized", rhs_forms, solver),
-                                    ("factorized_new_R", factor_rhs_forms(kind, fresh_R=True),
-                                     solver),
-                                    ("fused", rhs_forms, fused)):
-        loops[name] = []
-        for s in range(FACTOR_SOLVES):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            s_forms(asm, s + 1)
-            s_solver.solve()
-            torch.cuda.synchronize()
-            loops[name].append((time.perf_counter() - t1) * 1e3)
-        want_method = "schur" if s_solver is fused else "schur_factorized"
-        assert s_solver.info.method == want_method, (name, s_solver.info)
-    host = factor_host_split(solver, asm, rhs_forms)
-    log(f"phase factor {label}: {type(fac).__name__}, {mesh.num_edges} edges, "
-        f"{mesh.num_multipliers} bifurcations, {asm.num_dofs} dofs; factorize() {factor_s:.3f} s; "
-        f"{FACTOR_SOLVES} rhs-only solves vs the fused solve max {max(errs):.3e} of scale (bar "
-        f"{tol:.0e})" + ("" if same_order is None else f", vs its plain versions (CPU) "
-                          f"{same_order:.3e} (bar {FACTOR_SAME_ORDER[key]:.0e})")
+    log(f"phase factor {label}: {type(fac).__name__}"
+        + ("" if tree_plan is None else " on a forced plan")
+        + f", {mesh.num_edges} edges, {mesh.num_multipliers} bifurcations, {asm.num_dofs} dofs; "
+        f"factor {factor_s:.3f} s; {FACTOR_SOLVES} rhs-only solves vs the fused solve max "
+        f"{max(errs):.3e} of scale (bar {tol:.0e})"
+        + ("" if same_order is None else f", vs its plain versions (CPU) "
+           f"{same_order:.3e} (bar {FACTOR_SAME_ORDER[key]:.0e})")
+        + ("" if tree_plan is None else ", solve_batch rows bit for bit")
         + f"; launches factor {nonzero(factor_run)}, a solve {nonzero(runs[-1])}; "
         f"device launches {json.dumps(launch_rec)}")
-    log(f"phase timing factor {label}: compute_forms+solve ms, factorized on one read-only R "
-        f"{loops['factorized']}, on a new R array a call {loops['factorized_new_R']}, fused "
-        f"{loops['fused']}; CUDA events: factor {timing_rec['factor_ms']:.4f} ms, "
+    log(f"phase timing factor {label}: CUDA events: factor {timing_rec['factor_ms']:.4f} ms, "
         f"apply (rhs resident) {timing_rec['apply_ms']:.4f} ms, solve (rhs uploaded) "
         f"{timing_rec['solve_ms']:.4f} ms, fused executor {timing_rec['fused_ms']:.4f} ms; "
         f"profiled device busy: factor {timing_rec['factor_share']['busy_ms']} ms, apply "
         f"{timing_rec['apply_share']['busy_ms']} ms, fused {timing_rec['fused_share']['busy_ms']} "
         f"ms; card {name_power}")
-    log(f"phase host factor {label}: best ms of a factorized compute_forms + solve by step "
-        f"{json.dumps(host)}; card {name_power}")
     log(f"phase kernels-factor ({key}): " + json.dumps(checks))
     summed = {name: sum(r[name] for r in runs) for name in runs[0]}
-    return {"launches": summed, "checks": checks, "errs": errs, "device_launches": launch_rec,
-            "timing": timing_rec, "loops_ms": loops, "host_ms": host, "same_order": same_order}
+    rec = {"launches": summed, "checks": checks, "errs": errs, "device_launches": launch_rec,
+           "timing": timing_rec, "same_order": same_order}
+    if tree_plan is None:
+        rec["loops_ms"] = loops = {}  # compute_forms + solve, ms
+        for name, s_forms, s_solver in (("factorized", rhs_forms, solver),
+                                        ("factorized_new_R", factor_rhs_forms(kind, fresh_R=True),
+                                         solver),
+                                        ("fused", rhs_forms, fused)):
+            loops[name] = []
+            for s in range(FACTOR_SOLVES):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                s_forms(asm, s + 1)
+                s_solver.solve()
+                torch.cuda.synchronize()
+                loops[name].append((time.perf_counter() - t1) * 1e3)
+            want_method = "schur" if s_solver is fused else "schur_factorized"
+            assert s_solver.info.method == want_method, (name, s_solver.info)
+        rec["host_ms"] = host = factor_host_split(solver, asm, rhs_forms)
+        log(f"phase loops factor {label}: compute_forms+solve ms, factorized on one read-only R "
+            f"{loops['factorized']}, on a new R array a call {loops['factorized_new_R']}, fused "
+            f"{loops['fused']}; best ms of a factorized compute_forms + solve by step "
+            f"{json.dumps(host)}; card {name_power}")
+    return rec
 
 
-def factor_phases(P, device, name_power: str, serial: dict) -> dict:
-    """The factor-reuse slice on five configurations at full width: the
+def factor_phases(P, device, name_power: str, serial: dict, fronts128: tuple) -> dict:
+    """The factor-reuse slice on seven configurations at full width: the
     headline tree (blocked), the 512² lattice (grid), the 100k forest and
-    the 100k web (peel rounds, then the multifrontal core) and web1000 (a
-    455-node dense core) — the serial phases' assemblers, their forms put
-    back after — each through :func:`factor_path`."""
+    the 100k web (peel rounds, then the multifrontal core), web1000 (a
+    455-node dense core) and web2k (a 1,994-node core: min-degree rounds
+    and a 628-node dense tail) — the serial phases' assemblers, their forms
+    put back after — each through :func:`factor_path`, and the 128²
+    lattice on its forced supernodal-fronts plan (``fronts128``: the
+    assembler and the plan; rounds in a cooperative grid, then K12b)."""
     paths = {}
     plan = (("headline tree", "tree", "poiseuille", bed_forms),
             ("lattice 512^2", "lattice", "lattice", lattice_forms),
@@ -5368,6 +5673,12 @@ def factor_phases(P, device, name_power: str, serial: dict) -> dict:
         restore(asm)
     paths["web1000"] = factor_path(P, device, "web1000 (455-node dense core)",
                                    web_assembler(P, sites=1_000), "forest", name_power)
+    paths["web2k"] = factor_path(P, device, "web2k (min-degree rounds + 628-node dense tail)",
+                                 web2k_assembler(P), "forest", name_power)
+    grid, plan = fronts128
+    paths["fronts128"] = factor_path(P, device, "fronts128 (128^2 forced supernodal fronts)",
+                                     grid, "forest", name_power, tree_plan=plan)
+    grid128_forms(grid)
     return paths
 
 
@@ -5428,6 +5739,7 @@ def main() -> int:
     small.pop("_case")
     log("phase kernels (10 gen, N=8, cell R, cell f, k=2): " + json.dumps(small))
 
+    log(f"phase wall: the build and the kernels' phases {time.perf_counter() - t_start:.1f} s")
     state = main_path(P, device)
     timing(P, state, name_power)
     # the serial main paths' assemblers and solutions, for the sharded phases
@@ -5462,6 +5774,7 @@ def main() -> int:
     serial["forest"] = (forest.pop("asm"), forest.pop("solver").solution_vector())
     forest_asm = serial["forest"][0]  # for K7's launch counts at the end
 
+    log(f"phase wall: the main path and the level phases {time.perf_counter() - t_start:.1f} s")
     cyc = {}
     web = web_assembler(P)
     cyc["a"] = compare_cyclic_kernels(P, web, device, timed=True, keep_case=True)
@@ -5504,6 +5817,7 @@ def main() -> int:
 
     del web1000["asm"], web1000["solver"]
 
+    log(f"phase wall: the cyclic phases {time.perf_counter() - t_start:.1f} s")
     lattice = lattice_phases(P, device, name_power)
     lat = lattice["sets"]
     serial["lattice"] = lattice.pop("auto")
@@ -5518,7 +5832,7 @@ def main() -> int:
     gen_sets = generic["sets"]
 
     t_factor = time.perf_counter()
-    factor = factor_phases(P, device, name_power, serial)
+    factor = factor_phases(P, device, name_power, serial, mid.pop("fronts128"))
     log(f"phase wall: the factor-reuse phases {time.perf_counter() - t_factor:.1f} s")
 
     t_sharded = time.perf_counter()
@@ -5615,7 +5929,7 @@ def main() -> int:
             "bound_ms": timed_on["bound_ms"], "bound_by": timed_on["bound_by"],
             "library_ms": timed_on.get("library_ms"),
         })
-    assert len(kernels) == 43 and all(kr["launches"] > 0 for kr in kernels), kernels
+    assert len(kernels) == 47 and all(kr["launches"] > 0 for kr in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -29,15 +29,20 @@ the global layout.
   plan), the bifurcation diagonal (the prepare kernel and K6), the pair
   conductances (K6), K9's ``d`` channel (``peel_factor``) and the core's
   factor — the multifrontal K13–K14 (``mf_factor``) for an ``MFPlan`` core,
+  K12a's rounds with K11's factor and gate on the dense tail or K12b's
+  fronts' factor (``core_factor``) for a min-degree ``CoreElimPlan`` core,
   K11's factor and gate (``dense_factor``, ``dense_gate``) without a core
-  plan; a ``CoreElimPlan`` core raises ``NotImplementedError`` (ROADMAP
-  A3b).  The solve is K1, the bifurcation rhs, K9's ``r`` channel
-  (``peel_apply``) around the core's apply (K15 ``mf_apply``, K11's
-  ``dense_solve``) and K5.  Returns ``(q_T, p_T, λ, ‖rhs‖, finite)``.
+  plan.  The solve is K1, the bifurcation rhs, K9's ``r`` channel
+  (``peel_apply``) around the core's apply (K15 ``mf_apply``, K12a's
+  ``core_apply`` with K11's solve or K12b's sweeps, K11's ``dense_solve``)
+  and K5.  Returns ``(q_T, p_T, λ, ‖rhs‖, finite)``.
 
 The solves are exact eliminations: ``Solver`` gates them on finiteness, and
 only the lattice's reports its λ residual (``solve_has_residual``).
-``solve_batch`` (many right-hand sides at once) is ROADMAP A9.
+:meth:`solve_batch` runs many right-hand sides against one factor: the
+reference's leading scenario axis over :meth:`solve`'s layouts, a row at a
+time on the same kernels (each row :meth:`solve`'s bits); apply kernels
+that take the rows in one launch are ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ import numpy as np
 import torch
 
 from .blocked import _permute_coefficient, _plan_blocked, device_plan, ends_plan
-from .kernels import condense, dct_lattice, dense_core, expand, grid_core, mf_apply, mf_factor
+from .kernels import condense, core_elim, dct_lattice, dense_core, expand, grid_core, mf_apply
+from .kernels import mf_factor
 from .kernels import peel, segsum, tree_sweep
 from .lattice import _plan_dct_lattice, _plan_grid_layout, _plan_shift_matvec, device_grid_plan
 from .levels import _build_lambda_plan, _cached_tree_plan, attach_core_plan
@@ -101,7 +107,7 @@ class TreeState(typing.NamedTuple):
     w: torch.Tensor
     w_pairs: torch.Tensor  # (P,) pair conductances
     peeled: peel.PeelFactor  # K9's d channel
-    core: typing.Any  # MFState, or K11's (Lc, s, C, ok), or None without a core
+    core: typing.Any  # MFState, CoreFactor, or K11's (Lc, s, C, ok); None without a core
 
 
 class _Factorization:
@@ -159,8 +165,25 @@ class _Factorization:
         return self.solve_prepared(state, self.prepare_rhs(f_data, start_pbc, end_pbc))
 
     def solve_batch(self, state, f_batch, start_pbc_batch, end_pbc_batch):
-        """Many right-hand sides at once — not ported."""
-        raise NotImplementedError("ROADMAP A9: solve_batch() is not ported yet")
+        """Many right-hand sides against one factor: the arguments carry a
+        leading scenario axis over :meth:`solve`'s per-rhs layouts; returns
+        :meth:`solve`'s tuple with each entry stacked along that axis (row
+        ``i`` is :meth:`solve` of row ``i`` to the bit: the rows run one at
+        a time into the preallocated outputs)."""
+        f_rows = np.asarray(f_batch)
+        sp_rows, ep_rows = np.asarray(start_pbc_batch), np.asarray(end_pbc_batch)
+        if not 0 < f_rows.shape[0] == sp_rows.shape[0] == ep_rows.shape[0]:
+            raise ValueError("solve_batch: f, start_pbc and end_pbc need one leading scenario axis "
+                             "of at least one row")
+        outs = None
+        for i in range(f_rows.shape[0]):
+            row = self.solve_prepared(state, self.prepare_rhs(f_rows[i], sp_rows[i], ep_rows[i]))
+            if outs is None:
+                outs = tuple(torch.empty((f_rows.shape[0],) + tuple(t.shape), dtype=t.dtype,
+                                         device=t.device) for t in row)
+            for out, t in zip(outs, row):
+                out[i].copy_(t)
+        return outs
 
     def solution_vector(self, out) -> np.ndarray:
         """Global flat block vector from a :meth:`solve` result."""
@@ -315,11 +338,7 @@ class TreeFactorization(_Factorization):
                 "sparse-elimination fill budget was exceeded; the fused "
                 "dense/CG path keeps serving it)"
             )
-        if isinstance(plan.core_plan, CoreElimPlan):
-            raise NotImplementedError(
-                "ROADMAP A3b: factor reuse of a min-degree core (CoreElimPlan: K12a's "
-                "rounds and dense tail, K12b's fronts) is not ported yet")
-        if plan.core_plan is not None and not isinstance(plan.core_plan, MFPlan):
+        if plan.core_plan is not None and not isinstance(plan.core_plan, (MFPlan, CoreElimPlan)):
             raise ValueError(f"TreeFactorization: unknown core plan {type(plan.core_plan).__name__}")
         self._setup(asm, opts, device, R_mode, f_mode)
         self._plan = plan
@@ -330,7 +349,8 @@ class TreeFactorization(_Factorization):
 
     def factor(self, R_data) -> TreeState:
         """The resistance side: K1, the bifurcation diagonal, the pair
-        conductances, K9's ``d`` channel and the core's factor."""
+        conductances, K9's ``d`` channel and the core's factor (K13–K14,
+        K12a's with K11's or K12b's, or K11's)."""
         dtp = self.device_tree_plan
         R, W, w = self._condense_R(self.ends, R_data)
         dr, w_edges, _ = peel.bifurcation_system(dtp, W)  # the diagonal alone
@@ -343,6 +363,8 @@ class TreeFactorization(_Factorization):
         if dtp.core_size:
             if dtp.mf is not None:
                 core = mf_factor.mf_factor(dtp.mf, pf.dc, w_pairs)
+            elif dtp.ce is not None:
+                core = core_elim.core_factor(dtp.ce, pf.dc, w_pairs)
             else:
                 Lc, s, C = dense_core.dense_factor(dtp.core_ci, dtp.core_cj, dtp.core_pid, pf.dc,
                                                    w_pairs)
@@ -353,6 +375,8 @@ class TreeFactorization(_Factorization):
         dtp = self.device_tree_plan
         if dtp.mf is not None:
             return lambda rc: mf_apply.mf_apply(dtp.mf, state.core, rc)
+        if dtp.ce is not None:
+            return lambda rc: core_elim.core_apply(dtp.ce, state.core, rc)
         return lambda rc: dense_core.dense_solve(*state.core, rc)
 
     def solve_prepared(self, state: TreeState, rhs_args):

@@ -29,7 +29,7 @@ The cyclic solve (peel rounds, then the cycle core), after K8a and before K8b:
   multi-block factor, up to 8,192 nodes);
 * :mod:`.core_elim` — K12a, the min-degree rounds of a sparse core plan, two
   launches a solve on its packed :class:`..ops.core_elim.RoundTable`, the folds
-  inside;
+  inside (a factor's one and an apply's two under factor reuse);
 * :mod:`.core_fronts` — K12b, its supernodal fronts;
 * :mod:`.mf_factor` — K13 + K14, the multifrontal factor;
 * :mod:`.mf_apply` — K15, the multifrontal apply with its refinement.
@@ -87,12 +87,14 @@ The sharded solves (:mod:`..parallel`), per shard and across the shards:
 * :mod:`.shard_general` — K22d, the general shard's λ-system partials and
   its part of the CG matvec, on the kernels of K9, K6 and K19b.
 
-Factor reuse (:mod:`..factorization`) splits four of them into a factor
+Factor reuse (:mod:`..factorization`) splits six of them into a factor
 and an apply: K2 from K3–K4 (``tree_sweep_factor``, ``tree_sweep_apply``),
 K9's channels (``peel_factor``, ``peel_apply``, after the bifurcation
 system of ``bifurcation_system``), K11's solve on a stored factor
-(``dense_gate``, ``dense_solve``) and K16's passes on a stored factor
-(``dct_factor``, ``dct_apply``): the ``FACTORED`` wrappers.
+(``dense_gate``, ``dense_solve``), K16's passes on a stored factor
+(``dct_factor``, ``dct_apply``), K12a's rounds (``core_factor``,
+``core_apply``) and K12b's fronts (``core_fronts_factor``,
+``core_fronts_apply``): the ``FACTORED`` wrappers.
 
 A wrapper launches its kernel for CUDA tensors (building the library from
 ``csrc/`` at first use, see :mod:`.build`) and runs the plain version for
@@ -131,7 +133,8 @@ SHARDED = (shard_top.REDUCE, shard_top.T_SOLVE, shard_blocked.LAUNCHES, shard_gr
            dist_tree.LAUNCHES, shard_general.LAUNCHES)
 FACTORED = (tree_sweep.tree_sweep_factor, tree_sweep.tree_sweep_apply, peel.bifurcation_system,
             peel.peel_factor, peel.peel_apply, dense_core.dense_gate, dense_core.dense_solve,
-            dct_lattice.dct_factor, dct_lattice.dct_apply)
+            dct_lattice.dct_factor, dct_lattice.dct_apply, core_elim.core_factor,
+            core_elim.core_apply, core_fronts.core_fronts_factor, core_fronts.core_fronts_apply)
 WRAPPERS = BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE + ASSEMBLED + SHARDED + FACTORED
 
 

@@ -110,8 +110,10 @@ _SIGNATURES = {
         _p, _p, _p, _p, _p,  # rc, v, y, x, stream
     ],
     "nxfx_core_forward": [_p, _p],  # CoreArgs, stream
+    "nxfx_core_factor": [_p, _p],  # CoreArgs, stream
+    "nxfx_core_apply": [_p, _p],  # CoreArgs, stream
     "nxfx_core_back": [_p, _p],  # CoreArgs, stream
-    "nxfx_core_grid_blocks": [_i, _i, _i],  # device, header words, staged
+    "nxfx_core_grid_blocks": [_i, _i, _i, _i],  # device, header words, staged, kernel
     "nxfx_front_factor": [
         _i, _i, _i, _i, _i, _p, _p,  # w, b, ns, P0, first, nodes, d
         _p, _p, _p, _p, _p, _p,  # slot_i, slot_j, f_init, init_slot, w_pairs, sf (or null)

@@ -25,8 +25,14 @@
 // each round's factor and forward sweep together (round k's forward needs
 // only round k's a, inv and the swept r) and ends with the tail's gathers;
 // the back launch scatters the tail's solution (or takes the fronts' lam)
-// and back-substitutes.  A phase is a loop over its entries with a barrier
-// after it: two a round (the terms with the slots' stream reads folded in;
+// and back-substitutes.  Factor reuse splits the forward launch in two:
+// the factor (the d channel, the slot values, the update stream and the
+// tail's dd and -ov gathers) once, into a factor buffer [a | inv | ustream]
+// kept across solves, and an apply (the r channel on the stored a and inv,
+// the tail's rr gather) a right-hand side, with a scratch of its own
+// [rv | t | the diagonal folds' levels] that the back launch reads; an
+// apply only reads the factor.  A phase is a loop over its entries with a
+// barrier after it: two a round (the terms with the slots' stream reads folded in;
 // the update, the diagonal fold's rows and the stream segment's rows, each
 // fill product made as the update fold reads it; one block makes the
 // products in the update and folds them in a third phase, its gathers
@@ -68,6 +74,7 @@ struct CoreArgs {
     double* d;
     double* r;
     double* work;
+    double* fac;
     double* dd;
     double* rr;
     double* neg_ov;
@@ -81,7 +88,7 @@ namespace {
 constexpr int FOLD_MAX = 8;
 constexpr int FOLD_WORDS = 1 + 4 * FOLD_MAX;
 enum { G_NCORE, G_P0, G_ROUNDS, G_BD, G_PD, G_DN, G_DPINIT, G_MU, G_A, G_INV, G_RV, G_US, G_T, G_C,
-       G_WORK, G_MAXW, G_DPFOLD };
+       G_WORK, G_MAXW, G_FAC, G_AWORK, G_DPFOLD };
 constexpr int HEAD_WORDS = G_DPFOLD + FOLD_WORDS;
 enum { R_S, R_K, R_ELIM, R_INIT, R_NBR, R_AOFF, R_SOFF, R_UOFF, R_U1, R_M2, R_U2, R_DNODE, R_USI, R_USJ,
        R_UREAD };
@@ -215,23 +222,36 @@ __device__ __forceinline__ double* after_head(const CoreArgs& A, unsigned char* 
     return reinterpret_cast<double*>(smem) + (A.staged ? (A.head_words + 1) / 2 : 0);
 }
 
-template <bool GRID>
-__global__ void __launch_bounds__(ONE_BLOCK) core_forward_kernel(CoreArgs A)
+// The rounds forward.  FUSED: each round's factor and forward sweep
+// together, both channels (d, r); FACTOR: the factor alone, the d channel
+// (the slot values, the pivots' inverses, the update stream); APPLY: the
+// forward sweep alone on a stored factor, the r channel, a·inv re-formed
+// from the stored a and inv as FUSED forms it.  One channel's folds sum the
+// same rows in the same order as that channel of the two-channel fold, so
+// a split launch's d and r are FUSED's to the bit.
+enum Mode { FUSED, FACTOR, APPLY };
+
+template <bool GRID, int MODE>
+__global__ void __launch_bounds__(ONE_BLOCK) core_rounds_kernel(CoreArgs A)
 {
+    constexpr bool HAS_D = MODE != APPLY, HAS_R = MODE != FACTOR;
+    constexpr int C = HAS_D && HAS_R ? 2 : 1;  // the terms' channels
     extern __shared__ __align__(16) unsigned char smem[];
     const Team<GRID> tm;
     const int* H = stage_head(A, smem);
     const int n = H[G_NCORE];
-    double* d = GRID ? A.d : after_head(A, smem);
-    double* r = GRID ? A.r : d + n;
+    double* staged = after_head(A, smem);
+    double* d = GRID ? A.d : staged;
+    double* r = GRID ? A.r : (HAS_D ? staged + n : staged);
     double* work = A.work;
-    const Src us{work + H[G_US], H[G_MU], 1};
+    double* fac = A.fac;
+    const Src us{fac + H[G_US], H[G_MU], 1};
     auto us_at = [&](const int* f) {
         return [&, f](int l, int row, int c, int G) { return fold_at(A.tab, f, l, row, c, us, work, G); };
     };
     for (int i = tm.tid; i < n; i += tm.nth) {
-        d[i] = A.dc[i];
-        r[i] = A.rc[i];
+        if constexpr (HAS_D) d[i] = A.dc[i];
+        if constexpr (HAS_R) r[i] = A.rc[i];
     }
     tm.sync();
     for (int k = 0; k < H[G_ROUNDS]; ++k) {
@@ -239,30 +259,42 @@ __global__ void __launch_bounds__(ONE_BLOCK) core_forward_kernel(CoreArgs A)
         const int K = R[R_K], SK = R[R_S] * K;
         const int* elim = A.tab + R[R_ELIM];
         const int* init_pid = A.tab + R[R_INIT];
-        double* a = work + H[G_A] + R[R_AOFF];
-        double* inv = work + H[G_INV] + R[R_SOFF];
+        double* a = fac + H[G_A] + R[R_AOFF];
+        double* inv = fac + H[G_INV] + R[R_SOFF];
         double* rv = work + H[G_RV] + R[R_SOFF];
         double* t = work + H[G_T];
 
-        // terms: the slot values (their stream reads folded in), pivots, swept rhs
-        const int* fu = R + R_UREAD;
-        fold_front(tm, fu, 1, work, us_at(fu));
-        const int Gu = last_group(tm, fu, SK);
-        for (int q = tm.tid; q < SK * Gu; q += tm.nth) {
-            const int e = q / Gu, s = e / K;
-            double v = init_value(init_pid[e], A.w_pairs);
-            if (fu[0] > 0) v = v - fold_at(A.tab, fu, fu[0] - 1, e, 0, us, work, Gu);
-            if (q % Gu) continue;
-            const int el = elim[s];
-            const double is = 1.0 / d[el];
-            const double rs = r[el];
-            const double ai = v * is;
-            a[e] = v;
-            t[2 * e] = v * ai;
-            t[2 * e + 1] = ai * rs;
-            if (e == s * K) {
-                inv[s] = is;
-                rv[s] = rs;
+        if constexpr (MODE == APPLY) {
+            // terms: the swept rhs and the r channel on the stored a and inv
+            for (int e = tm.tid; e < SK; e += tm.nth) {
+                const int s = e / K;
+                const double rs = r[elim[s]];
+                t[e] = (a[e] * inv[s]) * rs;
+                if (e == s * K) rv[s] = rs;
+            }
+        } else {
+            // terms: the slot values (their stream reads folded in), pivots, swept rhs
+            const int* fu = R + R_UREAD;
+            fold_front(tm, fu, 1, work, us_at(fu));
+            const int Gu = last_group(tm, fu, SK);
+            for (int q = tm.tid; q < SK * Gu; q += tm.nth) {
+                const int e = q / Gu, s = e / K;
+                double v = init_value(init_pid[e], A.w_pairs);
+                if (fu[0] > 0) v = v - fold_at(A.tab, fu, fu[0] - 1, e, 0, us, work, Gu);
+                if (q % Gu) continue;
+                const int el = elim[s];
+                const double is = 1.0 / d[el];
+                const double ai = v * is;
+                a[e] = v;
+                if constexpr (MODE == FUSED) {
+                    const double rs = r[el];
+                    t[2 * e] = v * ai;
+                    t[2 * e + 1] = ai * rs;
+                    if (e == s * K) rv[s] = rs;
+                } else {
+                    t[e] = v * ai;
+                }
+                if (e == s * K) inv[s] = is;
             }
         }
         tm.sync();
@@ -272,8 +304,8 @@ __global__ void __launch_bounds__(ONE_BLOCK) core_forward_kernel(CoreArgs A)
         // made as the fold reads it
         const int* fd = R + R_DFOLD;
         const int* ff = R + R_UFOLD;
-        const Src ts{t, SK, 2};
-        const int M2 = R[R_M2];
+        const Src ts{t, SK, C};
+        const int M2 = HAS_D ? R[R_M2] : 0;
         const Products products{A.tab + R[R_USI], A.tab + R[R_USJ], a, inv, K, M2};
         // a grid makes each product as the fold reads it (a barrier less);
         // one block, whose threads take several rows each, keeps the gathers
@@ -284,31 +316,39 @@ __global__ void __launch_bounds__(ONE_BLOCK) core_forward_kernel(CoreArgs A)
             return GRID ? fold_at(A.tab, ff, l, row, products, work, G)
                         : fold_at(A.tab, ff, l, row, 0, cs, work, G);
         };
-        fold_front(tm, fd, 2, work, [&](int l, int row, int c, int G) {
+        fold_front(tm, fd, C, work, [&](int l, int row, int c, int G) {
             return fold_at(A.tab, fd, l, row, c, ts, work, G);
         });
-        if (!GRID) {
-            for (int m = tm.tid; m < M2; m += tm.nth) contrib[m] = products(m);
+        if constexpr (HAS_D) {
+            if (!GRID) {
+                for (int m = tm.tid; m < M2; m += tm.nth) contrib[m] = products(m);
+            }
+            if (GRID) fold_front(tm, ff, 1, work, stream_at);
         }
-        if (GRID) fold_front(tm, ff, 1, work, stream_at);
         const int U1 = R[R_U1], U2 = M2 > 0 ? R[R_U2] : 0;
         const int* d_node = A.tab + R[R_DNODE];
         const int Gd = last_group(tm, fd, U1);
         for (int q = tm.tid; q < U1 * Gd; q += tm.nth) {
             const int row = q / Gd, node = d_node[row];
             if (node < 0) continue;  // group-uniform
-            const double sd = fold_at(A.tab, fd, fd[0] - 1, row, 0, ts, work, Gd);
-            const double sr = fold_at(A.tab, fd, fd[0] - 1, row, 1, ts, work, Gd);
-            if (q % Gd == 0) {
-                d[node] = d[node] - sd;
-                r[node] = r[node] - sr;
+            if constexpr (MODE == FUSED) {
+                const double sd = fold_at(A.tab, fd, fd[0] - 1, row, 0, ts, work, Gd);
+                const double sr = fold_at(A.tab, fd, fd[0] - 1, row, 1, ts, work, Gd);
+                if (q % Gd == 0) {
+                    d[node] = d[node] - sd;
+                    r[node] = r[node] - sr;
+                }
+            } else {
+                const double sv = fold_at(A.tab, fd, fd[0] - 1, row, 0, ts, work, Gd);
+                double* x = HAS_D ? d : r;
+                if (q % Gd == 0) x[node] = x[node] - sv;
             }
         }
         if (!GRID && U2 > 0) {
             tm.sync();
             fold_front(tm, ff, 1, work, stream_at);
         }
-        double* seg = work + H[G_US] + R[R_UOFF];
+        double* seg = fac + H[G_US] + R[R_UOFF];
         const int Gf = last_group(tm, ff, U2);
         for (int q = tm.tid; q < U2 * Gf; q += tm.nth) {
             const double v = stream_at(ff[0] - 1, q / Gf, 0, Gf);
@@ -318,25 +358,27 @@ __global__ void __launch_bounds__(ONE_BLOCK) core_forward_kernel(CoreArgs A)
     }
     if (A.tail) {
         const int Bd = H[G_BD], Pd = H[G_PD];
-        const int* fp = H + G_DPFOLD;
-        fold_front(tm, fp, 1, work, us_at(fp));
         const int* dn = A.tab + H[G_DN];
-        const int* dp_pid = A.tab + H[G_DPINIT];
         for (int q = tm.tid; q < Bd; q += tm.nth) {
-            A.dd[q] = d[dn[q]];
-            A.rr[q] = r[dn[q]];
+            if constexpr (HAS_D) A.dd[q] = d[dn[q]];
+            if constexpr (HAS_R) A.rr[q] = r[dn[q]];
         }
-        const int Gp = last_group(tm, fp, Pd);
-        for (int q = tm.tid; q < Pd * Gp; q += tm.nth) {
-            double v = init_value(dp_pid[q / Gp], A.w_pairs);
-            if (fp[0] > 0) v = v - fold_at(A.tab, fp, fp[0] - 1, q / Gp, 0, us, work, Gp);
-            if (q % Gp == 0) A.neg_ov[q / Gp] = -v;
+        if constexpr (HAS_D) {
+            const int* fp = H + G_DPFOLD;
+            fold_front(tm, fp, 1, work, us_at(fp));
+            const int* dp_pid = A.tab + H[G_DPINIT];
+            const int Gp = last_group(tm, fp, Pd);
+            for (int q = tm.tid; q < Pd * Gp; q += tm.nth) {
+                double v = init_value(dp_pid[q / Gp], A.w_pairs);
+                if (fp[0] > 0) v = v - fold_at(A.tab, fp, fp[0] - 1, q / Gp, 0, us, work, Gp);
+                if (q % Gp == 0) A.neg_ov[q / Gp] = -v;
+            }
         }
     }
     if (!GRID) {
         for (int i = tm.tid; i < n; i += tm.nth) {
-            A.d[i] = d[i];
-            A.r[i] = r[i];
+            if constexpr (HAS_D) A.d[i] = d[i];
+            if constexpr (HAS_R) A.r[i] = r[i];
         }
     }
 }
@@ -366,8 +408,8 @@ __global__ void __launch_bounds__(ONE_BLOCK) core_back_kernel(CoreArgs A)
         const int S = R[R_S], K = R[R_K];
         const int* elim = A.tab + R[R_ELIM];
         const int* nbr = A.tab + R[R_NBR];
-        const double* a = work + H[G_A] + R[R_AOFF];
-        const double* inv = work + H[G_INV] + R[R_SOFF];
+        const double* a = A.fac + H[G_A] + R[R_AOFF];
+        const double* inv = A.fac + H[G_INV] + R[R_SOFF];
         const double* rv = work + H[G_RV] + R[R_SOFF];
         const int G = tm.group(K, S);
         for (int q = tm.tid; q < S * G; q += tm.nth) {
@@ -416,43 +458,66 @@ int launch(Kernel kernel, const CoreArgs& A, size_t smem, cudaStream_t stream)
 
 }  // namespace
 
-// The blocks of a cooperative launch that fit on the device at once with
-// `staged` header words in shared memory (the smaller of the two kernels').
-extern "C" int nxfx_core_grid_blocks(int device, int head_words, int staged)
+// The blocks of a cooperative launch of one kernel (0: the fused forward,
+// 1: the back-substitution, 2: the factor, 3: the apply's forward) that fit
+// on the device at once with `staged` header words in shared memory: a
+// block an SM when one fits (the barrier's arrivals stay few), else 0.
+extern "C" int nxfx_core_grid_blocks(int device, int head_words, int staged, int kernel)
 {
-    int sms = 0, fwd = 0, back = 0;
+    const void* fns[] = {reinterpret_cast<const void*>(core_rounds_kernel<true, FUSED>),
+                         reinterpret_cast<const void*>(core_back_kernel<true>),
+                         reinterpret_cast<const void*>(core_rounds_kernel<true, FACTOR>),
+                         reinterpret_cast<const void*>(core_rounds_kernel<true, APPLY>)};
+    if (kernel < 0 || kernel > 3) return -1;
+    int sms = 0, blocks = 0;
     CoreArgs A = {};
     A.head_words = head_words;
     A.staged = staged;
     const size_t smem = smem_bytes(A, 0);
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return -1;
-    if (smem > 48 * 1024) {
-        if (cudaFuncSetAttribute(core_forward_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem)) != cudaSuccess ||
-            cudaFuncSetAttribute(core_back_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem)) != cudaSuccess)
-            return -1;
-    }
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fwd, core_forward_kernel<true>, GRID_THREADS, smem) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&back, core_back_kernel<true>, GRID_THREADS, smem) !=
-            cudaSuccess)
+    if (smem > 48 * 1024 && cudaFuncSetAttribute(fns[kernel], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem)) != cudaSuccess)
         return -1;
-    return (fwd < back ? fwd : back) > 0 ? sms : 0;  // a block an SM: the barrier's arrivals stay few
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[kernel], GRID_THREADS, smem) != cudaSuccess)
+        return -1;
+    return blocks > 0 ? sms : 0;
 }
 
 // The factor and forward rounds with the tail's gathers (A.tail): d, r (the
-// swept rhs), the work buffer's saved streams and update stream, and dd, rr,
-// neg_ov for K11.  One block (A.grid 0) or a cooperative grid.
+// swept rhs), the factor buffer (a, inv, the update stream), the scratch's
+// saved rhs, and dd, rr, neg_ov for K11.  One block (A.grid 0) or a
+// cooperative grid.
 extern "C" int nxfx_core_forward(const CoreArgs* A, cudaStream_t stream)
 {
     if (A->grid > 0)
-        return launch(core_forward_kernel<true>, *A, smem_bytes(*A, 0), stream);
-    return launch(core_forward_kernel<false>, *A, smem_bytes(*A, 2 * static_cast<size_t>(A->n_core)), stream);
+        return launch(core_rounds_kernel<true, FUSED>, *A, smem_bytes(*A, 0), stream);
+    return launch(core_rounds_kernel<false, FUSED>, *A, smem_bytes(*A, 2 * static_cast<size_t>(A->n_core)),
+                  stream);
 }
 
-// The back-substitution into lam (n_core + 1): from the tail's solution x
-// scattered into zeros (A.zero_lam), or from the fronts' lam.
+// The rounds' factor alone with the tail's factor-side gathers (A.tail): d,
+// the factor buffer, and dd, neg_ov for K11.
+extern "C" int nxfx_core_factor(const CoreArgs* A, cudaStream_t stream)
+{
+    if (A->grid > 0)
+        return launch(core_rounds_kernel<true, FACTOR>, *A, smem_bytes(*A, 0), stream);
+    return launch(core_rounds_kernel<false, FACTOR>, *A, smem_bytes(*A, static_cast<size_t>(A->n_core)),
+                  stream);
+}
+
+// The forward sweep alone on a stored factor (A.fac, read only) with the
+// tail's rhs gather (A.tail): r, the scratch's saved rhs, and rr for K11.
+extern "C" int nxfx_core_apply(const CoreArgs* A, cudaStream_t stream)
+{
+    if (A->grid > 0)
+        return launch(core_rounds_kernel<true, APPLY>, *A, smem_bytes(*A, 0), stream);
+    return launch(core_rounds_kernel<false, APPLY>, *A, smem_bytes(*A, static_cast<size_t>(A->n_core)),
+                  stream);
+}
+
+// The back-substitution into lam (n_core + 1) on the factor's a and inv and
+// the scratch's saved rhs: from the tail's solution x scattered into zeros
+// (A.zero_lam), or from the fronts' lam.
 extern "C" int nxfx_core_back(const CoreArgs* A, cudaStream_t stream)
 {
     if (A->grid > 0)

@@ -15,7 +15,7 @@ Schur sums go to an update stream at static offsets that each slot's single
 reader folds.  What remains is solved densely (the dense tail, K11) or, past
 ``dense_cap``, as supernodal fronts.  :func:`device_core_plan` uploads a
 plan once per executor, with the rounds packed into one checked table
-(:class:`RoundTable`) that K12a's two launches walk; the numeric phase is
+(:class:`RoundTable`) that K12a's launches walk; the numeric phase is
 K12 (:mod:`..kernels.core_elim` for the rounds, :mod:`..kernels.core_fronts`
 for the fronts) with K11 on the dense tail.  The device side of a fold plan
 is K10 (:mod:`..kernels.fold`).
@@ -876,12 +876,12 @@ class DeviceFront:
 # header, one fixed-size row a round, then the index arrays.  A fold is a
 # descriptor: its level count, then per level the offset of its (rows, K)
 # indices in the table, rows, K and, for all but the last level, the offset
-# of its output in the work buffer (the last level is summed by its reader).
+# of its output in the scratch buffer (the last level is summed by its reader).
 FOLD_MAX = 8  # levels a fold (kernels.fold.MAX_LEVELS)
 FOLD_WORDS = 1 + 4 * FOLD_MAX
 (G_NCORE, G_P0, G_ROUNDS, G_BD, G_PD, G_DN, G_DPINIT, G_MU, G_A, G_INV, G_RV, G_US, G_T, G_C,
- G_WORK, G_MAXW) = range(16)
-G_DPFOLD = 16
+ G_WORK, G_MAXW, G_FAC, G_AWORK) = range(18)
+G_DPFOLD = 18
 HEAD_WORDS = G_DPFOLD + FOLD_WORDS
 (R_S, R_K, R_ELIM, R_INIT, R_NBR, R_AOFF, R_SOFF, R_UOFF, R_U1, R_M2, R_U2, R_DNODE, R_USI,
  R_USJ) = range(14)
@@ -894,12 +894,19 @@ class RoundTable:
     """The rounds of a :class:`CoreElimPlan` packed for K12a, checked once
     (:func:`check_round_table`).
 
-    The work buffer of a solve (float64) holds, at the header's offsets, the
-    saved slot values ``a``, the pivots' inverses ``inv`` and the saved rhs
-    ``rv`` (the back-substitution reads them), the update stream (``mu``
-    entries), a round's two-channel terms ``(a·a·inv, a·inv·rv)``, its fill
-    products (one block's launch; a grid makes them as the update fold reads
-    them) and the folds' intermediate levels.
+    A solve's float64 buffers are two.  The factor (``fac_len``, the
+    header's ``G_FAC``) holds the saved slot values ``a`` (``G_A``), the
+    pivots' inverses ``inv`` (``G_INV``) and the update stream (``G_US``,
+    ``mu`` entries): what depends on R alone, kept by factor reuse.  The
+    scratch (``work_len``, ``G_WORK``) holds the saved rhs ``rv`` (``G_RV``),
+    a round's terms ``t`` (``G_T``, two channels ``(a·a·inv, a·inv·rv)`` of
+    the fused forward launch, one of the split ones), the diagonal folds'
+    intermediate levels, then (from ``G_C``) a round's fill products (one
+    block's launch; a grid makes them as the update fold reads them) and the
+    other folds' levels.  Its first ``apply_len`` entries (``G_AWORK``:
+    ``rv``, ``t`` and the diagonal folds' levels) are all an rhs-only apply
+    reads and writes, so each apply takes a scratch of its own and only
+    reads the factor.
 
     Attributes:
         host: ``(words,)`` int32, the table (header, ``rounds`` rows of
@@ -907,7 +914,9 @@ class RoundTable:
         table: the same on the plan's device.
         rounds: the rounds.
         head_words: the header and round rows, ``HEAD_WORDS + rounds·ROUND_WORDS``.
-        work_len: the work buffer's doubles.
+        fac_len: the factor's doubles.
+        work_len: the scratch's doubles.
+        apply_len: the apply's scratch doubles (a prefix of the scratch).
         max_work: the widest phase of a round or of the tail (entries).
     """
 
@@ -915,7 +924,9 @@ class RoundTable:
     table: torch.Tensor
     rounds: int
     head_words: int
+    fac_len: int
     work_len: int
+    apply_len: int
     max_work: int
 
     def word(self, i: int) -> int:
@@ -923,7 +934,7 @@ class RoundTable:
 
 
 def _pack_rounds(plan: "CoreElimPlan") -> tuple:
-    """``(words int64, head_words, work_len, max_work)`` of :class:`RoundTable`."""
+    """``(words int64, head_words, max_work)`` of :class:`RoundTable`."""
     n, P0 = int(plan.n_core), int(np.asarray(plan.init_slot).size)
     init_slot = np.asarray(plan.init_slot, np.int64)
 
@@ -951,11 +962,8 @@ def _pack_rounds(plan: "CoreElimPlan") -> tuple:
     mu = int(plan.mu_all)
     max_sk = max((S * K for S, K in zip(S_all, K_all)), default=0)
     max_m2 = max((int(np.asarray(rd.u_src_i).size) for rd in rounds), default=0)
-    base = {G_A: 0, G_INV: a_len, G_RV: a_len + s_len, G_US: a_len + 2 * s_len}
-    base[G_T] = base[G_US] + mu
-    base[G_C] = base[G_T] + 2 * max_sk
-    scratch = [base[G_C] + max_m2]
     widths = [0]
+    scratch = [s_len + 2 * max_sk]  # after rv and t: the diagonal folds' levels first
 
     def fold(at: int, levels, C: int) -> None:
         levels = tuple(np.asarray(lv) for lv in levels)
@@ -990,23 +998,28 @@ def _pack_rounds(plan: "CoreElimPlan") -> tuple:
             S, K, put(rd.elim), put(pids(rd.init_idx)), put(rd.nbr_node), a_off, s_off, int(rd.u_off),
             U1, M2, U2, put(d_node), put(rd.u_src_i), put(rd.u_src_j))
         widths[0] = max(widths[0], S * K, M2, U1, U2)
-        fold(at + R_UREAD, rd.u_read, 1)
         fold(at + R_DFOLD, rd.d_fold, 2)
-        fold(at + R_UFOLD, rd.u_fold if M2 else (), 1)
         a_off += S * K
         s_off += S
+    apply_len = scratch[0]
+    scratch[0] += max_m2  # the fill products, then the factor's other folds
+    for k, rd in enumerate(rounds):
+        at = HEAD_WORDS + k * ROUND_WORDS
+        fold(at + R_UREAD, rd.u_read, 1)
+        fold(at + R_UFOLD, rd.u_fold if int(np.asarray(rd.u_src_i).size) else (), 1)
     Bd = int(np.asarray(plan.dense_nodes).size)
     Pd = int(np.asarray(plan.dp_init).size)
     widths[0] = max(widths[0], Bd, Pd, n + 1)
     words[:G_DPFOLD] = (n, P0, len(rounds), Bd, Pd, put(plan.dense_nodes), put(pids(plan.dp_init)), mu,
-                        base[G_A], base[G_INV], base[G_RV], base[G_US], base[G_T], base[G_C],
-                        scratch[0], 0)
+                        0, a_len, 0, a_len + s_len, s_len, apply_len, 0, 0, a_len + s_len + mu,
+                        apply_len)
     fold(G_DPFOLD, plan.dp_fold, 1)
+    words[G_WORK] = scratch[0]
     words[G_MAXW] = widths[0]
     out = np.concatenate([words] + arrays)
     if out.size and (out.max() > np.iinfo(np.int32).max or scratch[0] > np.iinfo(np.int32).max):
         raise ValueError("round table: an entry does not fit in int32")
-    return out, head_words, int(scratch[0]), int(widths[0])
+    return out, head_words, int(widths[0])
 
 
 def _fold_levels(words: np.ndarray, at: int) -> list:
@@ -1042,10 +1055,16 @@ def check_round_table(words: np.ndarray, pid_max: int) -> None:
     eliminates distinct nodes, every output has one writer (a round's
     diagonal rows, the update stream's slots across the rounds, the dense
     tail's nodes) and each fold level indexes within the previous level's
-    rows; the folds' last levels give what their readers take."""
+    rows; the folds' last levels give what their readers take.  The buffers'
+    layout: the factor is ``a``, ``inv`` and the update stream end to end,
+    each round's slots and pivots at the running offsets; in the scratch
+    ``rv``, the two-channel ``t``, the fill products and every fold's
+    intermediate levels are disjoint and within it, and the apply's part
+    (``rv``, ``t``, the diagonal folds' levels) ends by ``G_AWORK``."""
     words = np.asarray(words, np.int64)
     n, P0, nr, Bd, Pd = (int(words[f]) for f in (G_NCORE, G_P0, G_ROUNDS, G_BD, G_PD))
     mu = int(words[G_MU])
+    _check_buffers(words)
 
     def within(name, a, lo, hi):
         if a.size and (int(a.min()) < lo or int(a.max()) > hi):
@@ -1091,13 +1110,56 @@ def check_round_table(words: np.ndarray, pid_max: int) -> None:
     fold("dp_fold", _fold_levels(words, G_DPFOLD), mu, Pd)
 
 
+def _check_buffers(words: np.ndarray) -> None:
+    """The factor's and the scratch's layout (see :func:`check_round_table`)."""
+    nr = int(words[G_ROUNDS])
+    a_len = s_len = max_sk = max_m2 = 0
+    for k in range(nr):
+        R = words[HEAD_WORDS + k * ROUND_WORDS:]
+        if int(R[R_AOFF]) != a_len or int(R[R_SOFF]) != s_len:
+            raise ValueError(f"round table: round {k}'s slot or pivot offset is not the running one")
+        a_len += int(R[R_S] * R[R_K])
+        s_len += int(R[R_S])
+        max_sk, max_m2 = max(max_sk, int(R[R_S] * R[R_K])), max(max_m2, int(R[R_M2]))
+    mu = int(words[G_MU])
+    if (int(words[G_A]), int(words[G_INV]), int(words[G_US]), int(words[G_FAC])) != (
+            0, a_len, a_len + s_len, a_len + s_len + mu):
+        raise ValueError("round table: the factor is not a, inv and the update stream end to end")
+    work, apply_end = int(words[G_WORK]), int(words[G_AWORK])
+    spans = [("rv", int(words[G_RV]), s_len, True), ("t", int(words[G_T]), 2 * max_sk, True),
+             ("fill products", int(words[G_C]), max_m2, False)]
+
+    def levels(name, at, C, in_apply):
+        for l in range(int(words[at]) - 1):
+            lv = words[at + 1 + 4 * l: at + 5 + 4 * l]
+            spans.append((f"{name} level {l}", int(lv[3]), int(lv[1]) * C, in_apply))
+
+    for k in range(nr):
+        at = HEAD_WORDS + k * ROUND_WORDS
+        levels(f"round {k} d_fold", at + R_DFOLD, 2, True)
+        levels(f"round {k} u_read", at + R_UREAD, 1, False)
+        levels(f"round {k} u_fold", at + R_UFOLD, 1, False)
+    levels("dp_fold", G_DPFOLD, 1, False)
+    if not 0 <= apply_end <= work:
+        raise ValueError(f"round table: the apply's scratch {apply_end} outside [0, {work}]")
+    end = 0
+    for name, off, size, in_apply in sorted(spans, key=lambda sp: (sp[1], sp[2])):
+        if off < 0 or off + size > (apply_end if in_apply else work):
+            where = "the apply's scratch" if in_apply else "the scratch"
+            raise ValueError(f"round table: {name} outside {where}")
+        if size and off < end:
+            raise ValueError(f"round table: {name} overlaps another scratch entry")
+        end = max(end, off + size)
+
+
 def round_table(plan: "CoreElimPlan", device: torch.device | str) -> RoundTable:
     """Pack, check and upload ``plan``'s rounds."""
-    words, head_words, work_len, max_work = _pack_rounds(plan)
+    words, head_words, max_work = _pack_rounds(plan)
     check_round_table(words, int(np.max(plan.init_slot, initial=-1)))
     host = words.astype(np.int32)
     return RoundTable(host=host, table=torch.as_tensor(host, device=device), rounds=len(plan.rounds),
-                      head_words=head_words, work_len=work_len, max_work=max_work)
+                      head_words=head_words, fac_len=int(words[G_FAC]), work_len=int(words[G_WORK]),
+                      apply_len=int(words[G_AWORK]), max_work=max_work)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1142,8 +1204,8 @@ class DeviceCorePlan:
 def device_core_plan(plan: CoreElimPlan, device: torch.device | str) -> DeviceCorePlan:
     """Upload ``plan``'s index arrays to ``device`` once, as int32 tensors,
     with the offsets of every front's slice of the solve's buffers and the
-    rounds packed into a checked :class:`RoundTable` (a solve's rounds are
-    then two launches).  Each fold is a :class:`..kernels.fold.FoldPlan`,
+    rounds packed into a checked :class:`RoundTable` (a fused solve's rounds
+    are then two launches, a factor's one and an apply's two).  Each fold is a :class:`..kernels.fold.FoldPlan`,
     validated here once (the plain versions and K12b's slot reads use them)."""
     from ..kernels.fold import FoldPlan
 

@@ -65,9 +65,9 @@ The device is explicit: ``Solver(asm, device="cuda")`` (the default) runs the
 CUDA kernels and raises when CUDA is absent; ``device="cpu"`` runs their
 plain PyTorch versions.  :meth:`Solver.factorize` keeps a resistance-side
 factorization for rhs-only re-solves (:mod:`.factorization`: the blocked,
-lattice and peel-then-core classes; a min-degree core raises
-``NotImplementedError`` naming ROADMAP A3b); float32 (A4) raises naming its
-item; the sharded solves are :mod:`.parallel`.
+lattice and peel-then-core classes, every core engine: multifrontal,
+min-degree rounds with a dense tail or fronts, dense); float32 (A4) raises
+naming its item; the sharded solves are :mod:`.parallel`.
 """
 
 from __future__ import annotations
@@ -236,8 +236,7 @@ class Solver:
         coefficient kind, drops it and the solve falls through to the fused
         path.  The factorized solve is the same exact elimination, gated on
         finiteness (``SolveInfo.residual`` is the λ residual on the lattice,
-        0 elsewhere).  Raises ``ValueError`` outside every envelope, and
-        ``NotImplementedError`` (ROADMAP A3b) for a min-degree core."""
+        0 elsewhere).  Raises ``ValueError`` outside every envelope."""
         import hashlib
 
         from .factorization import BlockedFactorization, GridFactorization, TreeFactorization

@@ -54,8 +54,13 @@ Builds one configuration of ``chip_smoke.py`` (``--path``):
   strips (K1, K22b, K16, K17, K5) and the general route's replicated tree
   solve (K8a, K22d, K9–K15, K8b);
 * ``factor-headline``, ``factor-lattice``, ``factor-forest``, ``factor-web``,
-  ``factor-web1000`` — factor reuse on the ``blocked``, ``lattice``,
-  ``forest``, ``web`` and ``web1000`` configurations (:func:`factor_profile`):
+  ``factor-web1000``, ``factor-web2k``, ``factor-fronts128`` — factor reuse
+  on the ``blocked``, ``lattice``, ``forest``, ``web``, ``web1000``,
+  ``web2k`` (a min-degree core: K12a's factor and apply, K11's on its
+  dense tail) and ``fronts128`` (the forced fronts plan through
+  ``build_tree_factorization``: K12a as a cooperative grid, K12b; its
+  rhs-only loop the class's solve and flatten) configurations
+  (:func:`factor_profile`):
   ``Solver.factorize()``, then the factor, the apply (its rhs resident), a
   rhs-only solve (its rhs uploaded) and the fused executor on the same forms,
   each with its device µs and launches by kernel name and by CUDA source
@@ -139,7 +144,7 @@ Otherwise the script
 Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/profile_torch_main_path.py [--path blocked] [--generations 16] [--reps 5]
-    python3 scripts/profile_torch_main_path.py --path factor-headline|factor-lattice|factor-forest|factor-web|factor-web1000 [--out x.json]
+    python3 scripts/profile_torch_main_path.py --path factor-headline|factor-lattice|factor-forest|factor-web|factor-web1000|factor-web2k|factor-fronts128 [--out x.json]
     python3 scripts/profile_torch_main_path.py --kernels [--select lattice|redesign|krylov|mf|windows|mg1d|dist|level|gather|fronts|tsolve|blocked|core|peel|edge|shards|strips|condense] [--root DIR] [--out kernels.json]
     python3 scripts/profile_torch_main_path.py --diff parent.npz change.npz
 
@@ -183,7 +188,8 @@ SHARDED_PATHS = {"sharded-tree": 8, "sharded-forest": 8, "sharded-lattice": 8, "
 # factor reuse: the configuration each path factors, and chip_smoke's rhs-only forms for it
 FACTOR_PATHS = {"factor-headline": ("blocked", "poiseuille"), "factor-lattice": ("lattice", "lattice"),
                 "factor-forest": ("forest", "forest"), "factor-web": ("web", "forest"),
-                "factor-web1000": ("web1000", "forest")}
+                "factor-web1000": ("web1000", "forest"), "factor-web2k": ("web2k", "forest"),
+                "factor-fronts128": ("fronts128", "forest")}
 
 
 def kernel_sources() -> dict[str, str]:
@@ -2057,29 +2063,40 @@ def device_split(fn, reps: int = 3) -> dict:
 
 
 def factor_profile(path: str, generations: int, reps: int, card: str) -> dict:
-    """``--path factor-*``: ``Solver.factorize()`` on the configuration, then
+    """``--path factor-*``: ``Solver.factorize()`` on the configuration (on a
+    forced core plan, ``build_tree_factorization`` and its factor), then
     its factor, apply, rhs-only solve and the fused executor on the same
     forms, each by :func:`device_split` (device µs and launches by kernel,
     summed by source) and its best host ms; the rhs-only ``compute_forms``
     + ``Solver.solve()`` loop, factorized (on one read-only R, and on a new
     R array a call, which each solve hashes) and fused."""
     base, kind = FACTOR_PATHS[path]
-    asm, _, _, _ = configure(base, generations)
+    asm, _, options, tree_plan = configure(base, generations)
     rhs_forms = chip_smoke.factor_rhs_forms(kind)
     rhs_forms(asm, 0)
-    solver = P.Solver(asm, device="cuda")
-    fused = P.Solver(asm, device="cuda")
-    t0 = sync_clock()
-    solver.factorize()
-    factorize_ms = (sync_clock() - t0) * 1e3
-    fac, state = solver._factorization[:2]
-    rhs_forms(asm, 1)
-    solver.solve()
-    fused.solve()
-    assert solver.info.method == "schur_factorized", solver.info
+    if tree_plan is not None:  # a forced core plan: the factorization class and the executor
+        from networks_fenicsx_tpu_torch.factorization import build_tree_factorization
+
+        t0 = sync_clock()
+        fac = build_tree_factorization(asm, options, device="cuda", _tree_plan=tree_plan)
+        state = fac.factor(asm.schur_arguments(device=False)[0])
+        factorize_ms = (sync_clock() - t0) * 1e3
+        ex = build_schur_executor(asm, options, device="cuda", _tree_plan=tree_plan)
+        rhs_forms(asm, 1)
+    else:
+        solver = P.Solver(asm, device="cuda")
+        fused = P.Solver(asm, device="cuda")
+        t0 = sync_clock()
+        solver.factorize()
+        factorize_ms = (sync_clock() - t0) * 1e3
+        fac, state = solver._factorization[:2]
+        rhs_forms(asm, 1)
+        solver.solve()
+        fused.solve()
+        assert solver.info.method == "schur_factorized", solver.info
+        ex = fused._executor
     args = asm.schur_arguments()
     rhs_args = fac.prepare_rhs(*args[1:])
-    ex = fused._executor
     ex_args = ex.prepare_args(*args)
     rec = {"card": card, "path": path, "factorization": type(fac).__name__,
            "executor": type(ex).__name__, "dofs": asm.num_dofs, "factorize_ms": factorize_ms}
@@ -2092,6 +2109,15 @@ def factor_profile(path: str, generations: int, reps: int, card: str) -> dict:
                      "launches": sum(n for _, n in split.values()),
                      "best_ms": best_ms(fn, reps=10), "by_source": by_source(split),
                      "by_kernel": split}
+    if tree_plan is not None:  # no Solver on a forced plan: the rhs-only loop is the class's
+        times = []
+        for i in range(reps):
+            t0 = sync_clock()
+            rhs_forms(asm, 2 + i)
+            fac.solution_vector(fac.solve(state, *asm.schur_arguments(device=False)[1:]))
+            times.append((sync_clock() - t0) * 1e3)
+        rec["rhs_only_factorized_ms"] = times
+        return rec
     new_R = chip_smoke.factor_rhs_forms(kind, fresh_R=True)
     for name, forms, s in (("rhs_only_factorized_ms", rhs_forms, solver),
                            ("rhs_only_factorized_new_R_ms", new_R, solver),

@@ -263,11 +263,12 @@ def test_core_elim_plain_matches_reference(case, tol):
     state, want = _reference(pj, dc, w, rc)
     dcp = PCE.device_core_plan(pp, "cpu")
     st = core_elim.core_factor_plain(dcp, _t(dc), _t(w))
-    assert len(st.rounds) == len(state["rounds"]) == len(pp.rounds) > 0
-    for (a, inv), (a_j, inv_j) in zip(st.rounds, state["rounds"]):
+    rounds = core_elim.factor_rounds(dcp, st.fac)
+    assert len(rounds) == len(state["rounds"]) == len(pp.rounds) > 0
+    for (a, inv), (a_j, inv_j) in zip(rounds, state["rounds"]):
         _close(a, a_j, 1e-12)
         _close(inv, inv_j, 1e-12)
-    _close(core_elim.core_apply_plain(dcp, st, _t(w), _t(rc)), want, tol)
+    _close(core_elim.core_apply_plain(dcp, st, _t(rc)), want, tol)
     _close(core_elim.core_elim(dcp, _t(dc), _t(w), _t(rc)), want, tol)
     if pp.dense_nodes.size:  # the tail's matrix is the reference's
         from networks_fenicsx_tpu_torch.kernels import fold
@@ -275,7 +276,7 @@ def test_core_elim_plain_matches_reference(case, tol):
         d = st.d[dcp.dense_nodes.long()]
         ov = core_elim.init_values_plain(dcp, _t(w))[dcp.dp_init.long()]
         if dcp.dp_fold:
-            ov = ov - fold.fold_apply_plain(st.ustream, dcp.dp_fold)
+            ov = ov - fold.fold_apply_plain(core_elim.factor_stream(dcp, st.fac), dcp.dp_fold)
         Lc = dense_core.assemble_core(dcp.dense_di, dcp.dense_dj, dcp.dense_pid, d, -ov)
         _close(Lc, state["dense"]["Lc"], 1e-12)
 

@@ -17,12 +17,16 @@ launches walk.  Here:
   the tolerances ``tests/test_torch_core_elim.py`` pins;
 * the launch count (two a solve, plus the tail's or the fronts') and the
   launch size (one block on web2k, a cooperative grid past the one-block
-  limits).
+  limits);
+* factor reuse's split (``core_factor`` / ``core_apply``): the factor
+  buffer in both orders bit for bit, each apply ``core_elim_plain``'s
+  ``λ_core`` bit for bit, singular cores NaN, and the table's refusal of a
+  broken factor or scratch layout.
 
-The ``cuda``-marked test holds the kernels, in one block and in a forced
-cooperative grid, to the table's plain version bit for bit on the rounds
-(the tail and fronts left out) and within chip_smoke's bar with them;
-this file imports no JAX.
+The ``cuda``-marked tests hold the kernels, fused and split, in one block
+and in a forced cooperative grid, to the table's plain version bit for
+bit on the rounds (the tail and fronts left out) and within chip_smoke's
+bar with them; this file imports no JAX.
 """
 
 import dataclasses
@@ -176,6 +180,87 @@ def test_table_plain_equals_plain(case):
     assert torch.equal(unrefined, core_elim.core_elim_plain(dcp, dc, w, rc, n_refine=0))
 
 
+def _same(got, want):
+    """``torch.equal`` with NaN where NaN is."""
+    return torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(
+        torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_split_plain_equals_plain(case):
+    """Factor reuse's split: the factor in the table's order and in the
+    reference's gives the same factor buffer (``a``, ``inv``, the update
+    stream) and diagonal bit for bit, each apply on it gives
+    ``core_elim_plain``'s ``λ_core`` bit for bit (refined and not), the
+    wrappers' CPU path is the plain version, and an apply leaves the factor
+    as it was."""
+    pp = _plan(case)
+    dcp = PCE.device_core_plan(pp, "cpu")
+    dc, w, rc = _system(case, seed=5)
+    fp = core_elim.core_factor_plain(dcp, dc, w)
+    ft = core_elim.core_factor_table_plain(dcp, dc, w)
+    assert fp.fac.shape == (dcp.rt.fac_len,) and torch.equal(fp.fac, ft.fac) and torch.equal(fp.d, ft.d)
+    assert torch.equal(core_elim.factor_stream(dcp, fp.fac), core_elim.core_factor_plain(
+        dcp, dc, w).fac[dcp.a_len + dcp.s_len:])
+    kept = fp.fac.clone()
+    for n_refine in (dense_core.N_REFINE, 0):
+        want = core_elim.core_elim_plain(dcp, dc, w, rc, n_refine)
+        assert _same(core_elim.core_apply_plain(dcp, fp, rc, n_refine), want), case
+        assert _same(core_elim.core_apply_table_plain(dcp, ft, rc, n_refine), want), case
+        assert _same(core_elim.core_apply(dcp, core_elim.core_factor(dcp, dc, w), rc, n_refine), want)
+    assert torch.equal(fp.fac, kept)
+    rounds_only = dataclasses.replace(dcp, fronts=(), dense_nodes=dcp.dense_nodes[:0],
+                                      dp_init=dcp.dp_init[:0])
+    fr = core_elim.core_factor_table_plain(rounds_only, dc, w)
+    assert fr.tail is None and fr.fronts is None
+    assert torch.equal(core_elim.core_apply_table_plain(rounds_only, fr, rc),
+                       core_elim.core_elim_plain(rounds_only, dc, w, rc))
+
+
+@pytest.mark.parametrize("case", ["web2k-default", "grid40-fronts"])
+def test_split_singular_core_is_nan(case):
+    """An indefinite core (the diagonal negated): the tail's K11 gate or a
+    front's gate trips in the factor and the apply's ``λ_core`` is NaN
+    where ``core_elim_plain``'s is, all of it on the fronts."""
+    dcp = PCE.device_core_plan(_plan(case), "cpu")
+    dc, w, rc = _system(case, seed=6)
+    f = core_elim.core_factor(dcp, -dc, w)
+    gate = f.tail[3] if f.tail is not None else f.fronts.ok
+    assert not bool(gate)
+    lam = core_elim.core_apply(dcp, f, rc)
+    assert torch.isnan(lam).any() and _same(lam, core_elim.core_elim_plain(dcp, -dc, w, rc))
+    if dcp.fronts:
+        assert torch.isnan(lam).all()
+
+
+def test_round_table_refuses_bad_buffer_offsets():
+    """The factor's and the scratch's layout: a factor offset off its
+    running place, an apply scratch too short for ``t`` or longer than the
+    scratch, scratch entries that overlap, one past the scratch."""
+    pp = _plan("web2k-default")
+    words = PCE.device_core_plan(pp, "cpu").rt.host.astype(np.int64)
+    top = int(pp.init_slot.max())
+    check = lambda w: PCE.check_round_table(w, top)
+
+    def head(field, value):
+        out = words.copy()
+        out[field] = value
+        return out
+
+    with pytest.raises(ValueError, match="factor is not"):
+        check(head(PCE.G_US, words[PCE.G_US] + 1))
+    with pytest.raises(ValueError, match="running one"):
+        check(_broken(words, 1, PCE.R_AOFF, 0))
+    with pytest.raises(ValueError, match="outside the apply's scratch"):
+        check(head(PCE.G_AWORK, words[PCE.G_T] + 1))
+    with pytest.raises(ValueError, match="overlaps"):
+        check(head(PCE.G_T, words[PCE.G_RV]))
+    with pytest.raises(ValueError, match="outside the scratch"):
+        check(head(PCE.G_C, words[PCE.G_WORK]))
+    with pytest.raises(ValueError, match="apply's scratch .* outside"):
+        check(head(PCE.G_AWORK, words[PCE.G_WORK] + 1))
+
+
 def test_launches_and_launch_size(monkeypatch):
     """web2k: two launches and K11's on its 628-node tail, in one block;
     past the one-block limits a cooperative grid of the widest phase over
@@ -193,6 +278,12 @@ def test_launches_and_launch_size(monkeypatch):
     pf = _plan("grid40-fronts")
     dcf = PCE.device_core_plan(pf, "cpu")
     assert core_elim.cuda_launches(dcf) == 2 + core_elim.core_fronts.cuda_launches(dcf)
+    # the split: the factor's one launch and the apply's two around K11's or K12b's halves
+    for plan in (dcp, dcf, rounds_only):
+        assert (core_elim.factor_launches(plan) + core_elim.apply_launches(plan)
+                == core_elim.cuda_launches(plan) + 1)
+    assert core_elim.apply_launches(dcp) == 2 + dense_core.solve_launches(628) == 18
+    assert core_elim.factor_launches(rounds_only) == 1
 
 
 # ------------------------------------------------------------------ card
@@ -226,3 +317,46 @@ def test_core_rounds_on_card(monkeypatch, case, grid):
     tol = 1e-12 if pp.dense_nodes.size <= 628 and not pp.fronts else 1e-10
     assert float((got - want).abs().max()) <= tol * scale, case
     assert torch.equal(core_elim.core_elim(dcp, dc, w, rc), got)  # repeat calls bit for bit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_split_core_on_card(monkeypatch, case, grid):
+    """Factor reuse's split on a CUDA device, in one block and in a
+    cooperative grid: the factor launch's buffer and diagonal bit for bit
+    with the table's plain version; the apply on the rounds alone bit for
+    bit; the whole apply (K11's split solve or K12b's sweeps) within the
+    fused ``core_elim``'s bar of it; two applies on two streams against one
+    factor each their own bits, the factor unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if grid:
+        monkeypatch.setattr(core_elim, "ONE_BLOCK_CORE", 0)
+    dev = torch.device("cuda")
+    pp = _plan(case)
+    dcp = PCE.device_core_plan(pp, dev)
+    dc, w, rc = (t.to(dev) for t in _system(case, seed=9))
+    f = core_elim.core_factor(dcp, dc, w)
+    ft = core_elim.core_factor_table_plain(dcp, dc, w)
+    assert torch.equal(f.fac, ft.fac) and torch.equal(f.d, ft.d), case
+    rounds_only = dataclasses.replace(dcp, fronts=(), dense_nodes=dcp.dense_nodes[:0],
+                                      dp_init=dcp.dp_init[:0])
+    fr = core_elim.core_factor(rounds_only, dc, w)
+    assert torch.equal(core_elim.core_apply(rounds_only, fr, rc),
+                       core_elim.core_apply_table_plain(rounds_only, fr, rc)), case
+    got = core_elim.core_apply(dcp, f, rc)
+    fused = core_elim.core_elim(dcp, dc, w, rc)
+    scale = max(1.0, float(fused.abs().max()))
+    tol = 1e-12 if pp.dense_nodes.size <= 628 and not pp.fronts else 1e-10
+    assert float((got - fused).abs().max()) <= tol * scale, case
+    kept, rc2 = f.fac.clone(), rc.flip(0).contiguous()
+    want2 = core_elim.core_apply(dcp, f, rc2)
+    torch.cuda.synchronize()
+    streams = torch.cuda.Stream(), torch.cuda.Stream()
+    outs = []
+    for stream, r in zip(streams, (rc, rc2)):
+        with torch.cuda.stream(stream):
+            outs.append(core_elim.core_apply(dcp, f, r))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], got) and torch.equal(outs[1], want2) and torch.equal(f.fac, kept)

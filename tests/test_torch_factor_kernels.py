@@ -42,7 +42,8 @@ def test_factored_wrappers_are_counted():
     others; their CPU paths (the plain versions) launch nothing."""
     names = {fn.__name__ for fn in kernels.FACTORED}
     assert names == {"tree_sweep_factor", "tree_sweep_apply", "bifurcation_system", "peel_factor",
-                     "peel_apply", "dense_gate", "dense_solve", "dct_factor", "dct_apply"}
+                     "peel_apply", "dense_gate", "dense_solve", "dct_factor", "dct_apply",
+                     "core_factor", "core_apply", "core_fronts_factor", "core_fronts_apply"}
     assert names <= set(kernels.launches())
     kernels.reset_launches()
     asm = _web(300, keep=0.1)
@@ -168,11 +169,12 @@ def test_dense_solve_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["tree", "lattice", "forest", "web"])
+@pytest.mark.parametrize("case", ["tree", "lattice", "forest", "web", "web2k"])
 def test_factorize_on_card(case):
     """``Solver.factorize()`` on the card: the class of the case, rhs-only
     solves equal to the fused solve (1e-12·scale on the tree; 1e-10 on the
-    lattice, the forest's other elimination order and a cycle core)."""
+    lattice, the forest's other elimination order and a cycle core: web2k's
+    is min-degree rounds with a dense tail)."""
     dev = _card()
     if case == "tree":
         net = P.network_generation.make_arterial_tree(8, direction=[0.1, 1, 0], arrays=True)
@@ -182,6 +184,12 @@ def test_factorize_on_card(case):
         net = P.network_generation.make_grid(40, 30, arrays=True)
         asm = P.HydraulicNetworkAssembler(P.NetworkMesh(net, N=2, color_strategy="fast"))
         R, tol, cls = 1.5, 1e-10, "GridFactorization"
+    elif case == "web2k":
+        net = P.network_generation.make_random_network(2000, keep=0.7, num_boundary=8, seed=5,
+                                                       arrays=True)
+        asm = P.HydraulicNetworkAssembler(P.NetworkMesh(net, N=1, color_strategy="fast"))
+        R = np.random.default_rng(7).uniform(0.5, 2.0, asm.network.num_edges)
+        tol, cls = 1e-10, "TreeFactorization"
     else:
         asm = _web(3000 if case == "forest" else 1000, 0.0 if case == "forest" else 0.05)
         R, tol, cls = asm.schur_arguments()[0].copy(), 1e-10, "TreeFactorization"
@@ -201,3 +209,41 @@ def test_factorize_on_card(case):
         assert solver.info.method == "schur_factorized" and solver.info.converged
         x, xf = solver.solution_vector(), fused.solution_vector()
         assert np.abs(x - xf).max() <= tol * max(1.0, np.abs(xf).max()), (case, s)
+
+
+@pytest.mark.cuda
+def test_forced_fronts_factorization_on_card():
+    """A forced supernodal-fronts plan on a 26² per-edge-R lattice (as
+    tests/test_core_elim.py:550 forces it) factored on the card: rhs-only
+    solves within 1e-10·scale of the same factorization's plain versions,
+    and each ``solve_batch`` row ``solve()``'s bits."""
+    from networks_fenicsx_tpu_torch import factorization as PF
+    from networks_fenicsx_tpu_torch.ops import core_elim as PCE
+
+    dev = _card()
+    net = P.network_generation.make_grid(26, 26, arrays=True)
+    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(net, N=1, color_strategy="fast"))
+    rng = np.random.default_rng(31)
+    E = asm.network.num_edges
+    R = rng.uniform(0.5, 2.0, E)
+    asm.compute_forms(p_bc_ex=lambda x: x[0], R=R, f=rng.uniform(-1.0, 1.0, E))
+    plan = PL._plan_tree_elimination(asm, force_rounds=True)
+    pairs = np.asarray(plan.core_pairs)
+    cp = PCE.plan_core_elimination(
+        pairs, plan.core_size, dense_cutoff=64, kcap=24, dense_cap=16, supernodal_tail=True,
+        front_max=23, tail_stop=False,
+        order=PCE.nested_dissection_order(pairs, plan.core_size, leaf=8))
+    assert cp is not None and cp.fronts
+    facs = [PF.build_tree_factorization(asm, device=d, _tree_plan=plan._replace(core_plan=cp))
+            for d in (dev, "cpu")]
+    states = [fac.factor(R) for fac in facs]
+    fb = rng.uniform(-1.0, 1.0, (3, E))
+    _, _, sp, ep = asm.schur_arguments(device=False)
+    spb, epb = np.broadcast_to(sp, (3, E)).copy(), np.broadcast_to(ep, (3, E)).copy()
+    outb = facs[0].solve_batch(states[0], fb, spb, epb)
+    for i in range(3):
+        got = facs[0].solve(states[0], fb[i], sp, ep)
+        assert all(torch.equal(a[i], b) for a, b in zip(outb, got))
+        x = facs[0].solution_vector(got)
+        want = facs[1].solution_vector(facs[1].solve(states[1], fb[i], sp, ep))
+        assert np.abs(x - want).max() <= 1e-10 * max(1.0, np.abs(want).max()), i

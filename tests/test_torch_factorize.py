@@ -10,8 +10,10 @@ kind change, O(1) staleness, in-place mutation, mutate-then-freeze,
 read-only view, irregular forest and ``f_zero`` cases of
 ``tests/test_solver.py``, the factorization cases of ``test_blocked.py``,
 ``test_grid_blocked.py``, ``test_multifrontal.py`` and
-``test_vascular_bed.py``, and a ``CoreElimPlan`` core, which the reference
-factors and the port refuses naming ROADMAP A3b.
+``test_vascular_bed.py``, and the min-degree (``CoreElimPlan``) cases of
+``test_core_elim.py`` (the 700-site web with its ``solve_batch``, the 26²
+forced fronts) at 1e-10·scale of host LU; ``solve_batch`` rows equal
+``solve()``'s bits.
 
 The split kernels' plain versions are held against the reference
 functions they replace: K2 and K3–K4 (``_blocked_forward_factor``,
@@ -347,8 +349,15 @@ def test_blocked_factorization_reuse(gens, N, k, fkind):
         _close(op[3], oj[3], 1e-12)
         out = fp.solve_prepared(stp, fp.prepare_rhs(*args[1:]))
         assert all(torch.equal(a, b) for a, b in zip(out, op))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        fp.solve_batch(stp, None, None, None)
+    # a batch of two: each row the single solve's bits, the stacked layout
+    fs = rng.uniform(-1.0, 1.0, (2, E if fkind == "edge" else C))
+    sp, ep = (np.stack([np.asarray(a)] * 2) for a in args[2:])
+    outb = fp.solve_batch(stp, fs, sp, ep)
+    assert len(outb) == 5 and all(o.shape[0] == 2 for o in outb)
+    for i in range(2):
+        assert all(torch.equal(a[i], b) for a, b in zip(outb, fp.solve(stp, fs[i], sp[i], ep[i])))
+    with pytest.raises(ValueError, match="leading scenario axis"):
+        fp.solve_batch(stp, fs, sp[:1], ep)
 
 
 def test_factorization_envelopes():
@@ -464,11 +473,13 @@ def test_vascular_bed_factorize():
 
 
 def test_core_elim_core_raises_a3b():
-    """A ``CoreElimPlan`` core (forced supernodal fronts on the bed, as
-    tests/test_core_elim.py:578 forces them): the reference factors it and
-    solves at 1e-10·scale of host LU; the port raises naming ROADMAP A3b,
-    from the class and from ``Solver.factorize()`` on a core the planner
-    gives a min-degree plan."""
+    """A ``CoreElimPlan`` core, which raised ``NotImplementedError`` (ROADMAP
+    A3b) until the port factored it: forced supernodal fronts on the bed (as
+    tests/test_core_elim.py:578 forces them) through the class, equal to the
+    reference's factorization of the same plan and to its host LU at
+    1e-10·scale; and ``Solver.factorize()`` on the 2k web, whose core the
+    planner gives min-degree rounds and a dense tail, equal to the
+    reference's factorized solve at 1e-10·scale."""
     graph = lambda pkg: pkg.network_generation.make_vascular_bed(3, 12, 8, arrays=True)
     aj, ap = _pair(graph, N=2, strategy="fast")
     R = np.random.default_rng(5).uniform(0.5, 2.0, ap.network.num_edges)
@@ -488,13 +499,175 @@ def test_core_elim_core_raises_a3b():
     pp = PL._plan_tree_elimination(ap, force_rounds=True)
     cpp = PCE.plan_core_elimination(
         pairs, pp.core_size, order=PCE.nested_dissection_order(pairs, pp.core_size, leaf=8), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
-        PF.build_tree_factorization(ap, **CPU, _tree_plan=pp._replace(core_plan=cpp))
-    web = P.HydraulicNetworkAssembler(P.NetworkMesh(
-        P.network_generation.make_random_network(2000, keep=0.7, num_boundary=8, seed=5), N=1))
-    web.compute_forms(p_bc_ex=lambda x: x[0], R=np.linspace(0.5, 2.0, web.network.num_edges))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
-        P.Solver(web, **CPU).factorize()
+    fp = PF.build_tree_factorization(ap, **CPU, _tree_plan=pp._replace(core_plan=cpp))
+    assert fp.device_tree_plan.ce is not None and fp.device_tree_plan.ce.fronts
+    op = fp.solve(fp.factor(R), *ap.schur_arguments(device=False)[1:])
+    assert bool(op[4])
+    _close(fp.solution_vector(op), fj.solution_vector(oj), 1e-10)
+    _close(fp.solution_vector(op), _x(ref), 1e-10)
+
+    web = lambda pkg: pkg.network_generation.make_random_network(2000, keep=0.7, num_boundary=8,
+                                                                 seed=5)
+    aj, ap = _pair(web, N=1, strategy=None)
+    R = np.linspace(0.5, 2.0, ap.network.num_edges)
+    _both(lambda a: a.compute_forms(p_bc_ex=lambda x: x[0], R=R), aj, ap)
+    sj, sp = _solvers(aj, ap)
+    sj.factorize()
+    sp.factorize()
+    fac = sp._factorization[0]
+    ce = fac.device_tree_plan.ce
+    assert ce is not None and ce.rounds and ce.dense_nodes.shape[0] and not ce.fronts
+    _both(lambda a: a.compute_forms(p_bc_ex=lambda x: 2.0 * x[1] - x[0], f=0.4, R=R), aj, ap)
+    sj.solve()
+    sp.solve()
+    assert sj.info.method == sp.info.method == "schur_factorized" and sp.info.converged
+    _close(_x(sp), _x(sj), 1e-10)
+
+
+def _web700():
+    """Both packages' assemblers of the 700-site web of
+    tests/test_core_elim.py:208 (a 686-node core: two min-degree rounds and
+    a 352-node dense tail), its first forms, R and the rng."""
+    graph = lambda pkg: pkg.network_generation.make_random_network(700, keep=0.55, seed=21)
+    aj, ap = _pair(graph, N=2)
+    rng = np.random.default_rng(9)
+    E = ap.network.num_edges
+    R = rng.uniform(0.5, 3.0, E)
+    f0 = rng.uniform(-1.0, 1.0, E)
+    _both(lambda a: a.compute_forms(p_bc_ex=lambda x: x[0], f=f0, R=R), aj, ap)
+    return aj, ap, R, f0, rng
+
+
+def _host_lu(asm) -> np.ndarray:
+    ref = J.Solver(asm, options=J.SolverOptions(method="host_lu"))
+    ref.solve()
+    return _x(ref)
+
+
+def test_tree_factorization_unstructured_web():
+    """tests/test_core_elim.py:208 in full: the 700-site web factored once
+    (the min-degree rounds and K11's factor of the dense tail), the solve
+    and an rhs-only re-solve at 1e-10·scale of the JAX package's host LU, a
+    ``solve_batch`` of three right-hand sides (each row against host LU,
+    and ``solve()``'s bits), and ``Solver.factorize()`` routing the tree
+    factorization (``schur_factorized``)."""
+    aj, ap, R, f0, rng = _web700()
+    E = ap.network.num_edges
+    fac = PF.build_tree_factorization(ap, **CPU)
+    cp = fac.device_tree_plan.plan.core_plan
+    assert isinstance(cp, PCE.CoreElimPlan) and len(cp.rounds) == 2 and cp.dense_nodes.size == 352
+    state = fac.factor(R)
+    args = ap.schur_arguments(device=False)
+    _close(fac.solution_vector(fac.solve(state, *args[1:])), _host_lu(aj), 1e-10)
+    f1 = rng.uniform(-1.0, 1.0, E)
+    _both(lambda a: a.compute_forms(p_bc_ex=lambda x: 3.0 * x[1], f=f1, R=R), aj, ap)
+    args1 = ap.schur_arguments(device=False)
+    _close(fac.solution_vector(fac.solve(state, *args1[1:])), _host_lu(aj), 1e-10)
+    S = 3
+    fb = rng.uniform(-1.0, 1.0, (S, E))
+    spb = np.broadcast_to(args1[2], (S, E)).copy()
+    epb = np.broadcast_to(args1[3], (S, E)).copy()
+    outb = fac.solve_batch(state, fb, spb, epb)
+    for i in range(S):
+        aj.compute_forms(p_bc_ex=lambda x: 3.0 * x[1], f=fb[i], R=R)
+        _close(fac.solution_vector([o[i] for o in outb]), _host_lu(aj), 1e-10)
+        assert all(torch.equal(a[i], b) for a, b in zip(outb, fac.solve(state, fb[i], spb[i], epb[i])))
+    asm2 = P.HydraulicNetworkAssembler(ap.network)
+    asm2.compute_forms(p_bc_ex=lambda x: x[0], f=f0, R=R)
+    s2 = P.Solver(asm2, **CPU)
+    s2.factorize()
+    assert isinstance(s2._factorization[0], PF.TreeFactorization)
+    asm2.compute_forms(p_bc_ex=lambda x: x[0] - x[1], f=f1, R=R)
+    s2.solve()
+    assert s2.info.method == "schur_factorized"
+    aj.compute_forms(p_bc_ex=lambda x: x[0] - x[1], f=f1, R=R)
+    _close(_x(s2), _host_lu(aj), 1e-10)
+
+
+def test_tree_factorization_supernodal_fronts():
+    """tests/test_core_elim.py:550: a forced fronts plan on the 26² per-edge
+    R lattice (``front_max=23``) factored once; the solve and an rhs-only
+    re-solve at 1e-10·scale of host LU and of the reference's factorization
+    of the same plan."""
+    graph = lambda pkg: pkg.network_generation.make_grid(26, 26, arrays=True)
+    aj, ap = _pair(graph, N=1)
+    R = np.random.default_rng(31).uniform(0.5, 2.0, ap.network.num_edges)
+    _both(lambda a: a.compute_forms(p_bc_ex=lambda x: x[0], R=R), aj, ap)
+    kw = dict(dense_cutoff=64, kcap=24, dense_cap=16, supernodal_tail=True, front_max=23,
+              tail_stop=False)
+    pj = JS._plan_tree_elimination(aj, force_rounds=True)
+    pairs = np.asarray(pj.core_pairs)
+    cpj = JCE.plan_core_elimination(
+        pairs, pj.core_size, order=JCE.nested_dissection_order(pairs, pj.core_size, leaf=8), **kw)
+    pp = PL._plan_tree_elimination(ap, force_rounds=True)
+    cpp = PCE.plan_core_elimination(
+        pairs, pp.core_size, order=PCE.nested_dissection_order(pairs, pp.core_size, leaf=8), **kw)
+    assert cpp is not None and cpp.fronts and cpp.rounds
+    fj = JS.build_tree_factorization(aj, _tree_plan=pj._replace(core_plan=cpj))
+    fp = PF.build_tree_factorization(ap, **CPU, _tree_plan=pp._replace(core_plan=cpp))
+    stj, stp = fj.factor(R), fp.factor(R)
+    for forms in (dict(p_bc_ex=lambda x: x[0], R=R), dict(p_bc_ex=lambda x: 2.0 * x[1] - x[0], R=R)):
+        _both(lambda a: a.compute_forms(**forms), aj, ap)
+        args = ap.schur_arguments(device=False)
+        x = fp.solution_vector(fp.solve(stp, *args[1:]))
+        _close(x, _host_lu(aj), 1e-10)
+        _close(x, fj.solution_vector(fj.solve(stj, *args[1:])), 1e-10)
+
+
+@pytest.mark.parametrize("fac_class", ["blocked", "grid"])
+def test_factorization_solve_batch(fac_class):
+    """tests/test_blocked.py:372 (blocked) and the lattice class alike:
+    ``solve_batch`` rows against per-rhs solves, the reference's
+    ``solve_batch`` at its 1e-14 (blocked) or the lattice's 1e-10·scale,
+    and ``solve()``'s bits."""
+    rng = np.random.default_rng(12)
+    if fac_class == "blocked":
+        aj, ap = _pair(lambda pkg: pkg.network_generation.make_tree(5, 1.0, 2.0, arrays=True))
+        E = ap.network.num_edges
+        R = rng.uniform(0.5, 2.0, E)
+        _both(lambda a: a.compute_forms(p_bc_ex=lambda x: x[1], f=rng.uniform(-1, 1, E), R=R),
+              aj, ap)
+        fj, fp = JS.build_blocked_factorization(aj), PF.build_blocked_factorization(ap, **CPU)
+        tol = 1e-14
+    else:
+        aj, ap = _pair(lambda pkg: pkg.network_generation.make_grid(6, 5, arrays=True),
+                       strategy=None)
+        E = ap.network.num_edges
+        R = 1.8
+        _both(lambda a: a.compute_forms(p_bc_ex=lambda x: x[0], f=0.3, R=R), aj, ap)
+        fj, fp = JS.build_grid_factorization(aj), PF.build_grid_factorization(ap, **CPU)
+        R = ap.schur_arguments()[0]
+        tol = 1e-10
+    stj, stp = fj.factor(R), fp.factor(R)
+    S = 3
+    fb = rng.uniform(-1.0, 1.0, (S, E))
+    _, _, spbc, epbc = ap.schur_arguments(device=False)
+    sp_b = np.broadcast_to(np.asarray(spbc), (S, E))
+    ep_b = np.broadcast_to(np.asarray(epbc), (S, E))
+    outs = fp.solve_batch(stp, fb, sp_b, ep_b)
+    outs_j = fj.solve_batch(stj, fb, sp_b, ep_b)
+    for i in range(S):
+        single = fp.solve(stp, fb[i], spbc, epbc)
+        assert all(torch.equal(a[i], b) for a, b in zip(outs, single))
+        _close(fp.solution_vector([o[i] for o in outs]),
+               fj.solution_vector([o[i] for o in outs_j]), tol)
+
+
+def test_tree_factorization_singular_core_raises():
+    """A zero-pivot gate that trips in the stored factor (the 700-site
+    web's dense tail) makes λ NaN, and ``Solver`` raises its non-finite
+    error, as on the fused path."""
+    _, ap, R, _, _ = _web700()
+    s = P.Solver(ap, options=P.SolverOptions(error_if_not_converged=True), **CPU)
+    s.factorize()
+    fac, state = s._factorization[:2]
+    Lc, sc, C, ok = state.core.tail
+    core = state.core._replace(tail=(Lc, sc, C, torch.zeros_like(ok)))
+    s._factorization = (fac, state._replace(core=core), *s._factorization[2:])
+    out = fac.solve(state._replace(core=core), *ap.schur_arguments(device=False)[1:])
+    assert torch.isnan(out[2]).any() and not bool(out[4])
+    with pytest.raises(RuntimeError, match="factorized solve produced non-finite"):
+        s.solve()
 
 
 # ------------------------------------------------------------ the split kernels' plain versions

@@ -592,23 +592,41 @@ def _tree_dist_matches_reference():
 
 def _min_degree_core_factorize():
     """``factorize()`` on the reference's 2k-site web (a 1,994-node core the
-    planner gives min-degree rounds and a dense tail): ROADMAP A3b."""
-    G = P.network_generation.make_random_network(2000, keep=0.7, num_boundary=8, seed=5)
-    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(G, N=1))
-    asm.compute_forms(p_bc_ex=lambda x: x[0], R=np.linspace(0.5, 2.0, asm.network.num_edges))
-    P.Solver(asm, device="cpu").factorize()
+    planner gives min-degree rounds and a dense tail; ROADMAP A3b, now
+    ported): an rhs-only re-solve is ``schur_factorized`` and equals the
+    reference's solve of the same forms at 1e-10·scale."""
+    xs = []
+    for pkg in (J, P):
+        G = pkg.network_generation.make_random_network(2000, keep=0.7, num_boundary=8, seed=5)
+        asm = pkg.HydraulicNetworkAssembler(pkg.NetworkMesh(G, N=1))
+        R = np.linspace(0.5, 2.0, asm.network.num_edges)
+        asm.compute_forms(p_bc_ex=lambda x: x[0], R=R)
+        if pkg is P:
+            s = P.Solver(asm, device="cpu")
+            s.factorize()
+            asm.compute_forms(p_bc_ex=lambda x: x[0] - 2.0 * x[1], f=0.3, R=R)
+            s.solve()
+            assert s.info.method == "schur_factorized" and s.info.converged
+            fac = s._factorization[0]
+            assert type(fac.device_tree_plan.plan.core_plan).__name__ == "CoreElimPlan"
+        else:
+            asm.compute_forms(p_bc_ex=lambda x: x[0] - 2.0 * x[1], f=0.3, R=R)
+            s = J.Solver(asm, options=J.SolverOptions(method="host_lu"))
+            s.solve()
+        xs.append(np.asarray(s.solution_vector()))
+    _assert_equal_at_scale(xs[1], xs[0], tol=1e-10)
 
 
 @pytest.mark.parametrize("make,match", [
-    (_min_degree_core_factorize, "ROADMAP A3"),
+    pytest.param(_min_degree_core_factorize, None, id="_min_degree_core_factorize-ROADMAP A3"),
     (lambda: P.Solver(_tree_assembler(), device="cpu",
                       options=P.SolverOptions(dtype="float32")).solve(), "ROADMAP A4"),
     pytest.param(_tree_dist_matches_reference, None, id="tree_dist-matches-reference"),
 ])
 def test_outside_envelope_raises(make, match):
-    """Factor reuse of a min-degree core (A3b) and float32 (A4) raise naming
-    their ROADMAP item; serial ``"tree_dist"``, once outside the port too,
-    now equals the reference's CG solve."""
+    """float32 (A4) raises naming its ROADMAP item; factor reuse of a
+    min-degree core (A3b) and serial ``"tree_dist"``, once outside the port
+    too, now equal the reference's solves."""
     if match is None:
         make()
         return
