@@ -61,7 +61,16 @@ paths through the public API, checks each solution and times it:
   and sweeps), each split entry against its plain version, the factor's
   and the apply's launches against the plans', and the fused λ_core of
   web2k and of the 128² fronts by SHA-256 against the design's before the
-  split.
+  split;
+* the sweeps (``solve_sweep``): the headline tree's 16 per-edge R and 16
+  p_bc scenarios on the blocked route's scenario axis (K1, K2–K4 and K5 in
+  one solve's launches, counted by the profiler), rows 0, 7 and 15 against
+  ``Solver.solve()`` bit for bit, the sweep against 16 ``compute_forms`` +
+  ``solve()`` with ``.x`` timed apart, each scenario kernel against the
+  one-scenario kernel a row and its plain version (S ∈ {1, 16}, k = 1 and
+  2, every coefficient mode), the routes that run a sweep's rows (the demo
+  tree dense beside its batched blocked route, a 32² lattice, the 100k
+  forest) and ``devices=["cuda:0"] * 2``.
 
 The lattice sets also hold K17 on two streams at once, on repeated calls
 and in a replayed CUDA graph bit for bit, two K16 solves on two streams bit
@@ -300,6 +309,15 @@ KERNEL_RECORD = {
                            "networks_fenicsx_tpu/ops/core_elim.py:934"),
     "core_fronts_apply": ("networks_fenicsx_tpu_torch/kernels/csrc/core_fronts.cu",
                           "networks_fenicsx_tpu/ops/core_elim.py:1016"),
+    # sweeps: the blocked route's kernels over a scenario axis
+    "condense_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/condense.cu",
+                           "networks_fenicsx_tpu/solver.py:2776"),
+    "tree_sweep_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/tree_sweep.cu",
+                             "networks_fenicsx_tpu/solver.py:2420"),
+    "tree_sweep_apply_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/tree_sweep.cu",
+                                   "networks_fenicsx_tpu/solver.py:2453"),
+    "expand_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/expand.cu",
+                         "networks_fenicsx_tpu/solver.py:2743"),
 }
 # the factor-reuse wrappers: the configurations whose checks hold each, and the one timed
 FACTOR_CHECKS = {
@@ -2619,9 +2637,9 @@ def counted_window(run, pattern: str, device) -> dict:
     :data:`PAD_KERNELS` padding kernels at each edge (``add_`` before it,
     ``mul_`` after it, on a vector of their own): ``reported``, what
     ``run()`` returns (its launches as the wrappers report them);
-    ``profiled``, the device kernels whose name matches ``pattern``;
-    ``pad_start`` and ``pad_end``, the padding kernels recorded; ``other``,
-    the rest of the device events."""
+    ``profiled``, the device kernels whose name matches ``pattern``, and
+    ``us``, their device µs; ``pad_start`` and ``pad_end``, the padding
+    kernels recorded; ``other``, the rest of the device events."""
     from torch.profiler import ProfilerActivity, profile
 
     pad = torch.zeros(64, dtype=torch.float64, device=device)
@@ -2635,7 +2653,8 @@ def counted_window(run, pattern: str, device) -> dict:
         for _ in range(PAD_KERNELS):
             pad.mul_(1.0)
         torch.cuda.synchronize()
-    out = {"reported": reported, "profiled": 0, "pad_start": 0, "pad_end": 0, "other": 0}
+    out = {"reported": reported, "profiled": 0, "pad_start": 0, "pad_end": 0, "other": 0,
+           "us": 0.0}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -2643,6 +2662,8 @@ def counted_window(run, pattern: str, device) -> dict:
                 else "pad_start" if re.search(r"(?i)add", ev.key)
                 else "pad_end" if re.search(r"(?i)mul", ev.key) else "other")
         out[kind] += ev.count
+        if kind == "profiled":
+            out["us"] += getattr(ev, "device_time_total", 0.0) or 0.0
     return out
 
 
@@ -5709,6 +5730,440 @@ def panel_launch_phase(P, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- sweeps
+
+SWEEP_S = 16  # scenarios of a full-width sweep
+SWEEP_SCALES = np.linspace(0.5, 2.0, SWEEP_S)  # the scales of demos/demo_sweep.py
+SWEEP_ROWS = (0, 7, 15)  # rows held against Solver.solve() bit for bit
+SWEEP_REPS = 3  # timed sweeps (best of)
+# the kernels of a sweep's launches: K1's scenario kernel, K2–K4's, K5's
+SCENARIO_PATTERNS = {"condense": r"\bcondense_scen_kernel\b", "tree_sweep": SWEEP_PATTERN,
+                     "expand": r"\bexpand_kernel\b"}
+# the scenario wrappers: the kernel-check cases that hold each, and the one timed
+SCENARIO_CHECKS = {
+    "condense_scenarios": "headline_R16",
+    "tree_sweep_scenarios": "headline_R16",
+    "tree_sweep_apply_scenarios": "headline_pbc16",
+    "expand_scenarios": "headline_R16",
+}
+
+
+def sweep_launch_counts(key: str, run_sweep, want: dict, device) -> dict:
+    """A sweep's launches of each blocked kernel (``want``: kernel ->
+    launches) as its wrappers report them and as ``torch.profiler`` counts
+    them in the same window (:func:`launch_count_windows`), with their
+    device µs; fails unless both equal ``want``."""
+    from networks_fenicsx_tpu_torch.kernels import condense, expand, tree_sweep
+
+    counters = {"condense": lambda: condense.condense_scenarios.launches,
+                "tree_sweep": lambda: (tree_sweep.tree_sweep_scenarios.device
+                                       + tree_sweep.tree_sweep_apply_scenarios.device
+                                       + tree_sweep.tree_sweep_factor.device),
+                "expand": lambda: expand.expand_scenarios.launches}
+    out = {}
+    for kernel, n in want.items():
+        def run(count=counters[kernel]):
+            before = count()
+            run_sweep()
+            return count() - before
+
+        run()
+        torch.cuda.synchronize()
+        counted_window(lambda: 0, SCENARIO_PATTERNS[kernel], device)  # starts the tracer
+        windows = launch_count_windows(run, SCENARIO_PATTERNS[kernel], device)
+        rec = check_launch_windows(f"{key}:{kernel}", windows, n)
+        out[kernel] = {"launches": rec["profiler"], "device_us": windows[-1]["us"] or None,
+                       "windows": len(windows)}
+    return out
+
+
+def best_ms(fn, reps: int = SWEEP_REPS) -> float:
+    """Best of ``reps`` CUDA-synchronised host-clock milliseconds of ``fn()``."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times)
+
+
+def headline_sweep(P, device, asm, label: str, batch: dict, forms_of_row, R0) -> dict:
+    """One full-width sweep through ``solve_sweep`` on the card, counted:
+    every wrapper's launches set to 0 just before it and read just after
+    (the blocked scenario kernels must all have launched, nothing else of
+    the route); rows :data:`SWEEP_ROWS` against ``Solver.solve()`` of that
+    row, the blocks by ``torch.equal`` and ``x`` by ``np.array_equal``; the
+    profiler's kernel counts against the wrappers'."""
+    from networks_fenicsx_tpu_torch import kernels
+    from networks_fenicsx_tpu_torch.kernels import tree_sweep
+
+    asm.compute_forms(p_bc_ex=lambda x: x[1], R=R0)
+    P.solve_sweep(asm, device=device, **batch)  # the executor, built once and cached
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = P.solve_sweep(asm, device=device, **batch)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    r_batch = "R" in batch
+    used = ["condense_scenarios", "expand_scenarios",
+            "tree_sweep_scenarios" if r_batch else "tree_sweep_apply_scenarios"]
+    if not r_batch:
+        used.append("tree_sweep_factor")
+    assert all(launches[n] == 1 for n in used), (label, launches)
+    assert all(v == 0 for n, v in launches.items() if n not in used), (label, launches)
+    ex = list(asm._sweep_cache.values())[-1][1]
+    assert type(ex).__name__ == "_BlockedExecutor" and ex.has_scenario_axis, type(ex)
+    dp = ex.device_plan
+
+    sweep_ms = best_ms(lambda: P.solve_sweep(asm, device=device, **batch))
+    share = device_share(lambda: P.solve_sweep(asm, device=device, **batch))
+    res = P.solve_sweep(asm, device=device, **batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = res.x
+    flatten_ms = (time.perf_counter() - t0) * 1e3
+    assert x.shape == (SWEEP_S, DOFS) and np.all(np.isfinite(x)), x.shape
+
+    solver = P.Solver(asm, device=device)
+    rows = {}
+    for i in SWEEP_ROWS:
+        forms_of_row(i)
+        solver.solve()
+        assert solver.info.converged and solver.info.method == "schur", solver.info
+        same_x = np.array_equal(solver.solution_vector(), x[i])
+        sx = solver._executor
+        one = sx(*sx.prepare_args(*asm.schur_arguments()))
+        same_blocks = all(torch.equal(res.blocks[j][i], one[j]) for j in range(3))
+        assert same_x and same_blocks, (label, i, same_x, same_blocks)
+        rows[i] = True
+
+    want_k24 = (tree_sweep.cuda_launches(dp, tree_sweep.FULL) if r_batch
+                else tree_sweep.cuda_launches(dp, tree_sweep.FACTOR)
+                + tree_sweep.cuda_launches(dp, tree_sweep.APPLY))
+    counts = sweep_launch_counts(label, lambda: P.solve_sweep(asm, device=device, **batch),
+                                 {"condense": 1, "tree_sweep": want_k24, "expand": 1}, device)
+    asm.compute_forms(p_bc_ex=lambda x: x[1], R=R0)
+    return {"res": res, "launches": launches, "sweep_ms": sweep_ms, "flatten_ms": flatten_ms,
+            "device": share, "rows_bit_for_bit": sorted(rows), "counts": counts}
+
+
+def scenario_inputs(dp, N: int, R_mode: str, f_mode: str, S: int, shared, seed: int, device):
+    """Random inputs of the scenario kernels on ``dp`` (internal layout): each
+    of R, f, sp, ep batched ``(S, ...)`` unless named in ``shared``; the
+    boundary data zero where an end is a bifurcation."""
+    E = dp.num_edges
+    rng = np.random.default_rng(seed)
+    shapes = {"scalar": (1,), "edge": (E,), "cell": (N, E)}
+    plan = dp.plan
+
+    def t(name, shape, lo, hi, mask=None):
+        full = shape if name in shared else (S,) + shape
+        a = rng.uniform(lo, hi, full)
+        if mask is not None:
+            a = a * ~mask
+        return torch.as_tensor(a, device=device)
+
+    return (t("R", shapes[R_mode], 0.5, 2.0), t("f", shapes[f_mode], -1.0, 1.0),
+            t("sp", (E,), -1.0, 1.0, plan.s_is_bif), t("ep", (E,), -1.0, 1.0, plan.t_is_bif))
+
+
+def compare_scenario_kernels(dp, N: int, k: int, h, ins, R_mode: str, f_mode: str,
+                             timed: bool) -> dict:
+    """Each scenario wrapper on the card against the one-scenario wrapper a
+    row (``torch.equal``: the same per-scenario body) and against its plain
+    version (the one-scenario plain version a row, stacked) at
+    :data:`TOL`·scale — ``torch.equal`` for K1 without a per-cell sum and
+    for K2–K4 in the kernels' (blocked) order; timed with its bound."""
+    from networks_fenicsx_tpu_torch.kernels import condense, expand, tree_sweep
+
+    R, f, sp, ep = ins
+    r_dims = 1 if R_mode != "cell" else 2
+    f_dims = 1 if f_mode != "cell" else 2
+    S = next(t.shape[0] for t, n in zip(ins, (r_dims, f_dims, 1, 1)) if t.dim() > n)
+
+    def row(t, dims, i):
+        return t[i] if t.dim() > dims else t
+
+    rec = {}
+    E, B = dp.num_edges, dp.num_bifurcations
+    cell = "cell" in (R_mode, f_mode)
+
+    def hold(name, got, ones, plain, exact, work, kernel, plain_fn):
+        torch.cuda.synchronize()
+        ft = float_tensors(got)
+        assert all(torch.equal(a, b) for a, b in zip(ft, float_tensors(ones))), (name, "rows")
+        err, scale = max_err(got, plain)
+        assert err <= TOL * scale, (name, err, scale)
+        equal = all(torch.equal(a, b) for a, b in zip(ft, float_tensors(plain)))
+        if exact:
+            assert equal, (name, "not bit for bit against the plain version")
+        r = {"max_abs_err": err, "scale": scale, "rows_equal": True, "equal": equal, "S": S}
+        if timed:
+            r["ms"] = cuda_ms(kernel)
+            r["plain_ms"] = cuda_ms(plain_fn, reps=3, warmup=1)
+            r.update(bound(*work))
+            r["library_ms"] = None
+        rec[name] = r
+
+    c_args = (dp, N, k, h, R, f, R_mode, f_mode, sp, ep)
+    k1 = lambda: condense.condense_scenarios(*c_args)  # noqa: E731
+    k1_plain = lambda: condense.condense_scenarios_plain(*c_args)  # noqa: E731
+    out = k1()
+    ones = torch.stack([torch.stack(condense.condense(dp, N, k, h, row(R, r_dims, i),
+                                                      row(f, f_dims, i), R_mode, f_mode,
+                                                      row(sp, 1, i), row(ep, 1, i)))
+                        for i in range(S)], dim=1)
+    hold("condense_scenarios", out, ones, k1_plain(), not cell,
+         (tensor_bytes(h, R, f, sp, ep, dp.edge_src, dp.edge_tgt, out), 12 * E * S * (N if cell else 1)),
+         k1, k1_plain)
+    W, w, g, Ftot, const = out
+    plan_b = tensor_bytes(dp.bif_in, dp.bif_out, dp.bif_parent, dp.sweep.levels)
+    if R.dim() > r_dims:
+        s_args = (dp, w, const, Ftot)
+        k2 = lambda: tree_sweep.tree_sweep_scenarios(*s_args)  # noqa: E731
+        k2_plain = lambda: tree_sweep.tree_sweep_scenarios_plain(*s_args)  # noqa: E731
+        got = k2()
+        ones = [torch.stack(col) for col in zip(*(tree_sweep.tree_sweep(dp, w[i], const[i], Ftot[i])
+                                                 for i in range(S)))]
+        blk = tree_sweep.tree_sweep_scenarios_plain(*s_args, blocked=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, blk)), "tree_sweep_scenarios vs blocked"
+        hold("tree_sweep_scenarios", got, ones, k2_plain(), False,
+             (tensor_bytes(w, const, Ftot, got) + plan_b, (16 * B + 4 * dp.bif_out.numel()) * S),
+             k2, k2_plain)
+        rec["tree_sweep_scenarios"]["blocked_equal"] = True
+        lam = got[0]
+    else:
+        fac = tree_sweep.tree_sweep_factor(dp, w[0])
+        a_args = (dp, *fac, const, Ftot)
+        k3 = lambda: tree_sweep.tree_sweep_apply_scenarios(*a_args)  # noqa: E731
+        k3_plain = lambda: tree_sweep.tree_sweep_apply_scenarios_plain(*a_args)  # noqa: E731
+        got = k3()
+        ones = [torch.stack(col) for col in zip(*(tree_sweep.tree_sweep_apply(dp, *fac, const[i],
+                                                                              Ftot[i])
+                                                 for i in range(S)))]
+        blk = tree_sweep.tree_sweep_apply_scenarios_plain(*a_args, blocked=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, blk)), "apply_scenarios vs blocked"
+        hold("tree_sweep_apply_scenarios", got, ones, k3_plain(), False,
+             (tensor_bytes(fac, const, Ftot, got) + plan_b, 8 * B * S + 4 * dp.bif_out.numel() * S),
+             k3, k3_plain)
+        rec["tree_sweep_apply_scenarios"]["blocked_equal"] = True
+        lam = got[0]
+    x_args = (dp, N, k, lam, sp, ep, W, w, g, Ftot, h, R, f, R_mode, f_mode)
+    k5 = lambda: expand.expand_scenarios(*x_args)  # noqa: E731
+    k5_plain = lambda: expand.expand_scenarios_plain(*x_args)  # noqa: E731
+    got = k5()
+    ones = [torch.stack(col) for col in zip(*(expand.expand(
+        dp, N, k, lam[i], row(sp, 1, i), row(ep, 1, i), W[i], w[i], g[i], Ftot[i], h,
+        row(R, r_dims, i), row(f, f_dims, i), R_mode, f_mode) for i in range(S)))]
+    assert torch.equal(got[2], ones[2]), "expand_scenarios: finite flags"
+    hold("expand_scenarios", got, ones, k5_plain(), False,
+         (tensor_bytes(lam, sp, ep, W, w, g, Ftot, h, R, f, dp.edge_src, dp.edge_tgt, got[:2]),
+          10 * (k * N + 1) * E * S), k5, k5_plain)
+    return rec
+
+
+def scenario_kernel_sets(P, device, asm) -> dict:
+    """The scenario kernels on the card, S ∈ {1, 16}, batched and shared
+    inputs mixed: the headline tree (k = 1, per-edge R; an R batch, a p_bc
+    batch, S = 1) timed, and a 10-generation tree at N = 8 in every mode at
+    k = 1 and 2."""
+    from networks_fenicsx_tpu_torch.solver import build_schur_executor
+
+    out = {}
+    ex = build_schur_executor(asm, P.SolverOptions(), device=device)
+    dp, N, h = ex.device_plan, asm.network.N, ex._h_e
+    R0 = torch.as_tensor(ex.prepare_args(*asm.schur_arguments())[0], device=device)
+    scales = torch.as_tensor(SWEEP_SCALES, device=device)
+    zero_f = torch.zeros(1, dtype=torch.float64, device=device)
+    sp, ep = scenario_inputs(dp, N, "edge", "scalar", SWEEP_S, (), 1, device)[2:]
+    cases = {
+        "headline_R16": ((R0[None] * scales[:, None]).contiguous(), zero_f, sp[0], ep[0]),
+        "headline_pbc16": (R0, zero_f, sp, ep),
+        "headline_S1": (R0[None].contiguous(), zero_f, sp[:1].contiguous(), ep[0]),
+        "headline_pbc1": (R0, zero_f, sp[:1].contiguous(), ep[:1].contiguous()),
+    }
+    for name, ins in cases.items():
+        out[name] = compare_scenario_kernels(dp, N, 1, h, ins, "edge", "scalar",
+                                             timed=name in ("headline_R16", "headline_pbc16"))
+    small = arterial_assembler(P, 10, 8, k=2, per_cell=True, seed=3)
+    for k in (1, 2):
+        a = P.HydraulicNetworkAssembler(small.network, flux_degree=k, pressure_degree=0)
+        a.compute_forms(p_bc_ex=lambda x: x[1])
+        sx = build_schur_executor(a, P.SolverOptions(), device=device)
+        for j, (Rm, fm) in enumerate((R_, f_) for R_ in ("scalar", "edge", "cell")
+                                     for f_ in ("scalar", "edge", "cell")):
+            for S, shared in ((SWEEP_S, ("f", "ep")), (SWEEP_S, ("R",)), (1, ("sp",))):
+                ins = scenario_inputs(sx.device_plan, 8, Rm, fm, S, shared, 10 * k + j, device)
+                key = f"small_k{k}_{Rm}_{fm}_S{S}_{'Rshared' if 'R' in shared else 'Rbatched'}"
+                out[key] = compare_scenario_kernels(sx.device_plan, 8, k, sx._h_e, ins, Rm, fm,
+                                                    timed=False)
+    return out
+
+
+def row_route_sweeps(P, device, forest_asm) -> dict:
+    """One sweep on each route that runs its rows (no scenario axis yet),
+    each row against the row's ``Solver.solve()``: bit for bit on the same
+    route, at the reference's tolerances against ``Solver``'s own route
+    under ``auto``; and the small demo tree on the dense rows (``auto``)
+    beside the batched blocked route (``schur_method="tree"``), timed."""
+    out = {}
+    # demos/demo_sweep.py: make_arterial_tree(6), N = 10, per-edge R, S = 16
+    small = arterial_assembler(P, 6, 10)
+    R0 = 1.0 / small.network.edge_radius**4
+    Rb = R0[None] * SWEEP_SCALES[:, None]
+    tree = P.SolverOptions(schur_method="tree")
+    dense = P.solve_sweep(small, R=Rb, device=device)
+    ex = list(small._sweep_cache.values())[-1][1]
+    assert type(ex).__name__ == "_DenseExecutor", type(ex)
+    blocked = P.solve_sweep(small, R=Rb, options=tree, device=device)
+    assert list(small._sweep_cache.values())[-1][1].has_scenario_axis
+    xd, xb = dense.x, blocked.x
+    scale = max(1.0, float(np.abs(xb).max()))
+    err = float(np.abs(xd - xb).max())
+    assert err <= 1e-11 * scale, (err, scale)
+    for i in SWEEP_ROWS:
+        small.compute_forms(p_bc_ex=lambda x: x[1], R=Rb[i])
+        s = P.Solver(small, options=P.SolverOptions(schur_method="dense"), device=device)
+        s.solve()
+        assert np.array_equal(s.solution_vector(), xd[i]), ("dense rows", i)
+    small.compute_forms(p_bc_ex=lambda x: x[1], R=R0)
+    out["demo_tree"] = {
+        "edges": small.network.num_edges, "bifurcations": small.network.num_multipliers,
+        "dofs": small.num_dofs, "S": SWEEP_S, "dense_vs_blocked": err, "scale": scale,
+        "dense_rows_ms": best_ms(lambda: P.solve_sweep(small, R=Rb, device=device)),
+        "blocked_ms": best_ms(lambda: P.solve_sweep(small, R=Rb, options=tree, device=device)),
+        "dense_rows_device": device_share(lambda: P.solve_sweep(small, R=Rb, device=device)),
+        "blocked_device": device_share(lambda: P.solve_sweep(small, R=Rb, options=tree,
+                                                             device=device)),
+    }
+
+    # a lattice under auto: the DCT solve on the grid route, a row at a time
+    lat = lattice_assembler(P, 32, 32, N=2)
+    lat.compute_forms(p_bc_ex=lambda x: x[0], f=0.3, R=1.0)
+    fb = np.random.default_rng(11).uniform(-1.0, 1.0, (4, 1))
+    res = P.solve_sweep(lat, f=fb, device=device)
+    ex = list(lat._sweep_cache.values())[-1][1]
+    assert type(ex).__name__ == "_GridExecutor", type(ex)
+    errs = []
+    for i in range(4):
+        lat.compute_forms(p_bc_ex=lambda x: x[0], f=float(fb[i, 0]), R=1.0)
+        s = P.Solver(lat, options=P.SolverOptions(schur_method="dct"), device=device)
+        s.solve()
+        assert np.array_equal(s.solution_vector(), res.x[i]), ("lattice rows", i)
+        a = P.Solver(lat, device=device)
+        a.solve()
+        ref = a.solution_vector()
+        errs.append(float(np.abs(res.x[i] - ref).max()) / max(1.0, float(np.abs(ref).max())))
+        assert errs[-1] <= LATTICE_TOL, errs
+    out["lattice32"] = {"dofs": lat.num_dofs, "S": 4, "vs_auto_solve": max(errs)}
+
+    # the 100k forest: the level executor, a row at a time
+    mesh = forest_asm.network
+    rng = np.random.default_rng(0)
+    R_f = rng.uniform(0.5, 2.0, mesh.num_edges)
+    f_f = rng.uniform(-1.0, 1.0, mesh.num_cells)
+    Rb = R_f[None] * np.array([[1.0], [1.5]])
+    forest_asm.compute_forms(p_bc_ex=lambda x: x[0], R=R_f, f=f_f)
+    t0 = time.perf_counter()
+    res = P.solve_sweep(forest_asm, R=Rb, device=device)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    ex = list(forest_asm._sweep_cache.values())[-1][1]
+    assert type(ex).__name__ == "_LevelExecutor", type(ex)
+    x = res.x
+    for i in range(2):
+        forest_asm.compute_forms(p_bc_ex=lambda x: x[0], R=Rb[i], f=f_f)
+        s = P.Solver(forest_asm, device=device)
+        s.solve()
+        assert np.array_equal(s.solution_vector(), x[i]), ("forest rows", i)
+    forest_forms(forest_asm)
+    out["forest100k"] = {"dofs": forest_asm.num_dofs, "S": 2, "first_sweep_ms": first_ms,
+                         "rows_bit_for_bit": True}
+    return out
+
+
+def sweep_phases(P, device, name_power: str, serial: dict) -> dict:
+    """The sweeps: the headline tree's R and p_bc sweeps of 16 scenarios on
+    the batched blocked route (the main path of the scenario kernels), the
+    sweep against 16 ``compute_forms`` + ``solve()`` calls, the scenario
+    kernels against their plain versions, the row routes and ``devices=``."""
+    t_start = time.perf_counter()
+    asm = serial["tree"][0]
+    R0 = 1.0 / asm.network.edge_radius**4
+    Rb = R0[None] * SWEEP_SCALES[:, None]
+    pb = asm.network.vertices[: asm.network.num_graph_nodes][:, 1]
+    pbb = SWEEP_SCALES[:, None] * pb[None]
+    paths = {}
+    paths["R"] = headline_sweep(
+        P, device, asm, "sweep-R", {"R": Rb},
+        lambda i: asm.compute_forms(p_bc_ex=lambda x: x[1], R=Rb[i]), R0)
+    paths["p_bc"] = headline_sweep(
+        P, device, asm, "sweep-p_bc", {"p_bc_node_values": pbb},
+        lambda i: asm.compute_forms(p_bc_ex=lambda x, s=SWEEP_SCALES[i]: s * x[1], R=R0), R0)
+
+    # physics: q ∝ 1/R (f = 0), x linear in p_bc
+    offs = asm.block_offsets
+    M = asm.network.num_edge_colors
+    xr = paths["R"]["res"].x
+    q = xr[:, : offs[M]] * SWEEP_SCALES[:, None]
+    np.testing.assert_allclose(q[:, 0], q[0, 0], rtol=1e-10)
+    q_err = float(np.abs(q - q[:1]).max()) / float(np.abs(q[0]).max())
+    assert q_err <= 1e-10, q_err
+    xp = paths["p_bc"]["res"].x
+    lin = xp[0][None] * (SWEEP_SCALES / SWEEP_SCALES[0])[:, None]
+    p_scale = max(1.0, float(np.abs(lin).max()))
+    p_err = float(np.abs(xp - lin).max())
+    assert p_err <= 1e-11 * p_scale, (p_err, p_scale)
+    log(f"phase sweep physics: q·s relative spread {q_err:.3e} (rtol 1e-10), p_bc linearity "
+        f"{p_err:.3e} (scale {p_scale:.3e}, 1e-11·scale)")
+
+    # the sweep against 16 compute_forms + solve() calls
+    solver = P.Solver(asm, device=device)
+
+    def solves():
+        for i in range(SWEEP_S):
+            asm.compute_forms(p_bc_ex=lambda x: x[1], R=Rb[i])
+            solver.solve()
+
+    solves()
+    loop_ms = best_ms(solves, reps=2)
+    loop_dev = device_share(solves)
+    asm.compute_forms(p_bc_ex=lambda x: x[1], R=R0)
+    for key, path in paths.items():
+        rec = {k: path[k] for k in ("sweep_ms", "flatten_ms", "device", "rows_bit_for_bit",
+                                    "counts")}
+        log(f"phase sweep {key} (16 gen, N=40, S={SWEEP_S}): " + json.dumps(rec))
+    log("phase sweep timing (16 gen, N=40, S=16 per-edge R; " + name_power + "): " + json.dumps({
+        "sweep_ms": paths["R"]["sweep_ms"], "flatten_ms": paths["R"]["flatten_ms"],
+        "sweep_device": paths["R"]["device"], "solves_ms": loop_ms, "solves_device": loop_dev}))
+
+    # devices=["cuda:0"] * 2 on the R sweep: the one-device sweep's bits
+    two = P.solve_sweep(asm, R=Rb, devices=[device] * 2)
+    assert all(torch.equal(a, b) for a, b in zip(two.blocks, paths["R"]["res"].blocks)), "devices"
+    log("phase sweep devices=['cuda:0'] * 2: the one-device sweep's blocks bit for bit")
+    runs = [paths["R"]["launches"], paths["p_bc"]["launches"]]
+    del two
+    for path in paths.values():
+        del path["res"]
+
+    sets = scenario_kernel_sets(P, device, asm)
+    for name in ("headline_R16", "headline_pbc16"):
+        log(f"phase kernels-sweep {name}: " + json.dumps(sets[name]))
+    exact = {n: f"{sum(rec[n]['equal'] for rec in sets.values() if n in rec)} of "
+                f"{sum(n in rec for rec in sets.values())}" for n in SCENARIO_CHECKS}
+    log(f"phase kernels-sweep: {len(sets)} cases (S in {{1, 16}}, k = 1 and 2, every mode, "
+        "batched and shared inputs), each against the one-scenario wrapper a row bit for bit "
+        "(K2–K4 also against the plain version in the kernels' order) and against the plain "
+        "version at TOL·scale; the cases bit for bit against the plain version: "
+        + json.dumps(exact))
+    rows = row_route_sweeps(P, device, serial["forest"][0])
+    log("phase sweep row routes: " + json.dumps(rows))
+    log(f"phase wall: the sweep phases {time.perf_counter() - t_start:.1f} s")
+    return {"sets": sets, "runs": runs}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5835,6 +6290,9 @@ def main() -> int:
     factor = factor_phases(P, device, name_power, serial, mid.pop("fronts128"))
     log(f"phase wall: the factor-reuse phases {time.perf_counter() - t_factor:.1f} s")
 
+    sweeps = sweep_phases(P, device, name_power, serial)
+    sweep_sets = sweeps["sets"]
+
     t_sharded = time.perf_counter()
     log(f"phase wall: before the sharded phases {t_sharded - t_start:.1f} s")
     sharded = sharded_phases(P, device, name_power, serial)
@@ -5876,7 +6334,7 @@ def main() -> int:
             *(path["launches"] for path in mid["paths"].values()),
             *(path["launches"] for path in iterative["paths"].values()), *generic["runs"],
             *(path["launches"] for path in sharded["paths"].values()),
-            *(path["launches"] for path in factor.values()))
+            *(path["launches"] for path in factor.values()), *sweeps["runs"])
     timed_cyclic = {"dense_core": k11[K11_TIMED], "core_elim": core["f"]["core_elim"],
                     "core_fronts": core["i"]["core_fronts"]}
     timed_lattice = {"dct_lattice": lat["a"], "grid_core": lat["a"], "shift_matvec": lat["c"]}
@@ -5909,6 +6367,9 @@ def main() -> int:
             errs = tuple(factor[c.split(":")[0]]["checks"][c.split(":")[1] if ":" in c else name]
                          ["max_abs_err"] for c in checks)
             timed_on = factor[on]["checks"][name]
+        elif name in SCENARIO_CHECKS:
+            errs = tuple(rec[name]["max_abs_err"] for rec in sweep_sets.values() if name in rec)
+            timed_on = sweep_sets[SCENARIO_CHECKS[name]][name]
         elif name in GENERIC_CHECKS:
             checks = GENERIC_CHECKS[name]
             errs = tuple(gen_sets[on][key]["max_abs_err"] for on, key in checks)
@@ -5929,7 +6390,7 @@ def main() -> int:
             "bound_ms": timed_on["bound_ms"], "bound_by": timed_on["bound_by"],
             "library_ms": timed_on.get("library_ms"),
         })
-    assert len(kernels) == 47 and all(kr["launches"] > 0 for kr in kernels), kernels
+    assert len(kernels) == 51 and all(kr["launches"] > 0 for kr in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -26,13 +26,21 @@ explicit assembly returns every matrix kind (dense, sparse COO, per-block,
 CSR), and the generic methods ``"dense"``, ``"minres"`` and ``"host_lu"``
 solve the assembled system.  Multi-device and distributed solves run through
 :class:`.parallel.ShardedNetworkSolver` (shards on one or several CUDA
-devices, and across processes under ``torch.distributed``).  What is left
-(factor reuse, float32, batched and sharded sweeps, output) is listed in
-ROADMAP.md.
+devices, and across processes under ``torch.distributed``).
+:meth:`Solver.factorize` keeps a resistance-side factorization for
+rhs-only re-solves (:mod:`.factorization`).  :func:`solve_sweep`
+(:mod:`.batch`) solves a batch of coefficient scenarios: the blocked forest
+route takes them in its kernels' scenario axis (the launches of one solve),
+every other route a row at a time.
+
+What is left is listed in ROADMAP.md: the scenario axis on the other
+routes (A9b), gradients through the solve (A9c), float32 (A4b), the
+sharded sweeps (A9d), and output and I/O (A11).
 """
 
-from . import network_generation, post_processing
+from . import batch, network_generation, post_processing
 from .assembly import HydraulicNetworkAssembler
+from .batch import SweepResult, solve_sweep
 from .function import FunctionSpace, NetworkFunction
 from .mesh import ArrayNetwork, NetworkMesh, color_graph
 from .solver import Solver
@@ -53,4 +61,7 @@ __all__ = [
     "color_graph",
     "SolverOptions",
     "ShardingOptions",
+    "batch",
+    "solve_sweep",
+    "SweepResult",
 ]

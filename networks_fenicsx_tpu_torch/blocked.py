@@ -3,7 +3,8 @@
 Counterpart of the blocked planner in ``networks_fenicsx_tpu/solver.py``:
 ``_BlockedLevel``/``_BlockedPlan`` (``:2249-2297``), ``_blocked_walk``,
 ``_blocked_csr`` and ``_plan_blocked`` (``:2300-2412``),
-``_permute_coefficient`` (``:2976-2993``) and
+``_permute_coefficient`` (``:2976-2993``, and its batched mirror of
+``batch.py:248-257``) and
 ``_condensed_scalar_constants`` (``:440-464``).  The same plan gives the same
 elimination order, so values match the reference to roundoff.
 
@@ -197,6 +198,20 @@ def _permute_coefficient(arr, mode: str, N: int, edge_order=None):
             a2 = a2[edge_order]
         return np.ascontiguousarray(a2.T)
     return a if edge_order is None else a[edge_order]
+
+
+def _permute_coefficient_batch(arr, mode: str, edge_order=None) -> np.ndarray:
+    """:func:`_permute_coefficient` of each row of an ``(S, ...)`` batch, in
+    one relayout: ``(S, C)`` cell data to ``(S, N, E)`` j-major blocks,
+    ``(S, E)`` edge data reordered, anything else (and everything when
+    ``edge_order`` is None) as it is."""
+    a = np.asarray(arr, dtype=np.float64)
+    if edge_order is not None and mode == "cell":
+        E = edge_order.shape[0]
+        return np.ascontiguousarray(a.reshape(a.shape[0], E, -1)[:, edge_order].swapaxes(1, 2))
+    if edge_order is not None and mode != "scalar":
+        return np.ascontiguousarray(a[:, edge_order])
+    return a
 
 
 @functools.lru_cache(maxsize=None)

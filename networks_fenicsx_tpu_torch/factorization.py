@@ -40,9 +40,10 @@ the global layout.
 The solves are exact eliminations: ``Solver`` gates them on finiteness, and
 only the lattice's reports its λ residual (``solve_has_residual``).
 :meth:`solve_batch` runs many right-hand sides against one factor: the
-reference's leading scenario axis over :meth:`solve`'s layouts, a row at a
-time on the same kernels (each row :meth:`solve`'s bits); apply kernels
-that take the rows in one launch are ROADMAP A9.
+reference's leading scenario axis over :meth:`solve`'s layouts, each row
+:meth:`solve`'s bits.  The blocked class runs all rows in one launch of K1,
+K3–K4 and K5 (their scenario axis); the lattice and tree classes a row at a
+time on the same kernels (ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -52,7 +53,9 @@ import typing
 import numpy as np
 import torch
 
-from .blocked import _permute_coefficient, _plan_blocked, device_plan, ends_plan
+from .blocked import (
+    _permute_coefficient, _permute_coefficient_batch, _plan_blocked, device_plan, ends_plan,
+)
 from .kernels import condense, core_elim, dct_lattice, dense_core, expand, grid_core, mf_apply
 from .kernels import mf_factor
 from .kernels import peel, segsum, tree_sweep
@@ -164,17 +167,22 @@ class _Factorization:
         order."""
         return self.solve_prepared(state, self.prepare_rhs(f_data, start_pbc, end_pbc))
 
+    @staticmethod
+    def _batch_rows(f_batch, start_pbc_batch, end_pbc_batch):
+        f_rows = np.asarray(f_batch)
+        sp_rows, ep_rows = np.asarray(start_pbc_batch), np.asarray(end_pbc_batch)
+        if not 0 < f_rows.shape[0] == sp_rows.shape[0] == ep_rows.shape[0]:
+            raise ValueError("solve_batch: f, start_pbc and end_pbc need one leading scenario axis "
+                             "of at least one row")
+        return f_rows, sp_rows, ep_rows
+
     def solve_batch(self, state, f_batch, start_pbc_batch, end_pbc_batch):
         """Many right-hand sides against one factor: the arguments carry a
         leading scenario axis over :meth:`solve`'s per-rhs layouts; returns
         :meth:`solve`'s tuple with each entry stacked along that axis (row
         ``i`` is :meth:`solve` of row ``i`` to the bit: the rows run one at
         a time into the preallocated outputs)."""
-        f_rows = np.asarray(f_batch)
-        sp_rows, ep_rows = np.asarray(start_pbc_batch), np.asarray(end_pbc_batch)
-        if not 0 < f_rows.shape[0] == sp_rows.shape[0] == ep_rows.shape[0]:
-            raise ValueError("solve_batch: f, start_pbc and end_pbc need one leading scenario axis "
-                             "of at least one row")
+        f_rows, sp_rows, ep_rows = self._batch_rows(f_batch, start_pbc_batch, end_pbc_batch)
         outs = None
         for i in range(f_rows.shape[0]):
             row = self.solve_prepared(state, self.prepare_rhs(f_rows[i], sp_rows[i], ep_rows[i]))
@@ -237,6 +245,23 @@ class BlockedFactorization(_Factorization):
                                                         const, Ftot)
         q_T, p_T, finite = expand.expand(dp, self._N, self._k, lam, sp, ep, W, w, g, Ftot,
                                          self._h_e, state.R, f, self._R_mode, self._f_mode)
+        return q_T, p_T, lam, rhs_norm, finite
+
+    def solve_batch(self, state: BlockedState, f_batch, start_pbc_batch, end_pbc_batch):
+        """:meth:`solve` of S right-hand sides in one launch each of K1 (on
+        the resident R, read once for all rows), K3–K4 (on the stored
+        factor) and K5: the tuple with a leading ``S`` on each entry, row
+        ``i`` :meth:`solve` of row ``i`` to the bit."""
+        f_rows, sp_rows, ep_rows = self._batch_rows(f_batch, start_pbc_batch, end_pbc_batch)
+        eo, dp, N, k = self.edge_order, self.device_plan, self._N, self._k
+        f = self._upload(_permute_coefficient_batch(f_rows, self._f_mode, eo))
+        sp, ep = self._upload(sp_rows[:, eo]), self._upload(ep_rows[:, eo])
+        W, w, g, Ftot, const = condense.condense_scenarios(
+            dp, N, k, self._h_e, state.R, f, self._R_mode, self._f_mode, sp, ep)
+        lam, rhs_norm, _ = tree_sweep.tree_sweep_apply_scenarios(dp, state.d, state.wn,
+                                                                  state.factor, const, Ftot)
+        q_T, p_T, finite = expand.expand_scenarios(dp, N, k, lam, sp, ep, W, w, g, Ftot, self._h_e,
+                                                   state.R, f, self._R_mode, self._f_mode)
         return q_T, p_T, lam, rhs_norm, finite
 
 

@@ -96,6 +96,12 @@ system of ``bifurcation_system``), K11's solve on a stored factor
 ``core_apply``) and K12b's fronts (``core_fronts_factor``,
 ``core_fronts_apply``): the ``FACTORED`` wrappers.
 
+A sweep (:mod:`..batch`) gives the blocked route a scenario axis: K1
+(``condense_scenarios``), K2–K4 (``tree_sweep_scenarios``, the full sweep
+of S resistance rows; ``tree_sweep_apply_scenarios``, S right-hand sides on
+one stored factor) and K5 (``expand_scenarios``) take S scenarios in the
+launches of one solve: the ``SCENARIO`` wrappers.
+
 A wrapper launches its kernel for CUDA tensors (building the library from
 ``csrc/`` at first use, see :mod:`.build`) and runs the plain version for
 CPU tensors.  Each wrapper counts its launches in a plain integer attribute
@@ -116,7 +122,7 @@ __all__ = [
     "mf_apply", "mf_factor", "mg1d", "mg2d", "peel", "schur_p", "segsum", "shift_matvec",
     "tree_sweep", "dist_tree", "shard_blocked", "shard_general", "shard_grid", "shard_top",
     "WRAPPERS", "BLOCKED", "GENERAL", "CYCLIC", "LATTICE", "ITERATIVE", "ASSEMBLED", "SHARDED",
-    "FACTORED",
+    "FACTORED", "SCENARIO",
     "reset_launches", "launches",
 ]
 
@@ -135,7 +141,10 @@ FACTORED = (tree_sweep.tree_sweep_factor, tree_sweep.tree_sweep_apply, peel.bifu
             peel.peel_factor, peel.peel_apply, dense_core.dense_gate, dense_core.dense_solve,
             dct_lattice.dct_factor, dct_lattice.dct_apply, core_elim.core_factor,
             core_elim.core_apply, core_fronts.core_fronts_factor, core_fronts.core_fronts_apply)
-WRAPPERS = BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE + ASSEMBLED + SHARDED + FACTORED
+SCENARIO = (condense.condense_scenarios, tree_sweep.tree_sweep_scenarios,
+            tree_sweep.tree_sweep_apply_scenarios, expand.expand_scenarios)
+WRAPPERS = (BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE + ASSEMBLED + SHARDED + FACTORED
+            + SCENARIO)
 
 
 def reset_launches() -> None:

@@ -19,11 +19,13 @@ import functools
 import hashlib
 import pathlib
 
+import numpy as np
 import torch
 
 __all__ = [
     "library", "check", "require_cuda", "require_vectors", "require_coefficients", "on_device",
-    "stream_handle", "raw_stream", "Counter", "BUILD_ROOT",
+    "stream_handle", "raw_stream", "Counter", "BUILD_ROOT", "scenarios", "batched", "scenario_row",
+    "scenario_stride",
 ]
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
@@ -36,12 +38,14 @@ CUDA_FLAGS = ("-O3", "-std=c++17", "-fmad=false", "-gencode=arch=compute_90a,cod
 _p, _i, _d, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
 _SIGNATURES = {
     "nxfx_condense": [_p, _p, _p],  # CondenseArgs, out (5, rows, E), stream
+    "nxfx_condense_scen": [_p, _p, _p],  # CondenseScenArgs, out (5, S, E), stream
     "nxfx_tree_sweep": [
         _i, _i, _i, _i, _i, _i, _i, _i, _i,  # mode, Kmax, L, cut, group, blocks, threads, nodes, smem
         _i, _i, _p,  # top nodes, top threads, level table
         _p, _p, _p,  # bif_in, bif_out, bif_parent
         _p, _p, _p,  # w, const, Ftot
-        _p, _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam, factor, partials, norm or sum r^2, stream
+        _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam, factor, partials, norm or sum r^2
+        _i, _l, _l, _l, _l, _p,  # scenarios, strides (w; const, Ftot; d, wn, factor; r, lam), stream
     ],
     "nxfx_expand": [
         _i, _i, _i, _i,  # E, B, N, k
@@ -51,6 +55,7 @@ _SIGNATURES = {
         _d, _d, _d, _d, _p,  # condensed matrix, Minv
         _p, _p, _p, _p,  # q_T, p_T, finite, stream
     ],
+    "nxfx_expand_scen": [_p, _p],  # ExpandArgs, stream
     "nxfx_segsum_plan": [
         _p, _i,  # SumPlanArgs, n
         _p, _p, _p, _p, _p, _p, _p, _p, _p,  # four value arrays, four outputs, stream
@@ -364,6 +369,42 @@ def on_device(index: int, fn, *args):
         return fn(*args)
     with torch.cuda.device(index):
         return fn(*args)
+
+
+def scenarios(name: str, *pairs, S: int | None = None) -> int:
+    """The scenario count of a call over a scenario axis: each ``(tensor,
+    base shape)`` is either batched, ``(S,) + base`` (contiguous), or shared
+    by every scenario, ``base`` itself.  Raise on any other shape, on
+    batched inputs of different counts, and when nothing is batched and
+    ``S`` is not given."""
+    for t, base in pairs:
+        base = tuple(base)
+        if tuple(t.shape) == base:
+            continue
+        if t.dim() != len(base) + 1 or tuple(t.shape[1:]) != base or not t.is_contiguous():
+            raise ValueError(f"{name}: expected {base} or a contiguous (S,) + {base}, "
+                             f"got {tuple(t.shape)}")
+        if S is not None and t.shape[0] != S:
+            raise ValueError(f"{name}: batched inputs of {S} and {t.shape[0]} scenarios")
+        S = int(t.shape[0])
+    if S is None:
+        raise ValueError(f"{name}: no input carries a scenario axis")
+    return S
+
+
+def batched(t: torch.Tensor, base) -> bool:
+    """Whether ``t`` carries a scenario axis over ``base`` (see :func:`scenarios`)."""
+    return t.dim() == len(tuple(base)) + 1
+
+
+def scenario_row(t: torch.Tensor, base, i: int) -> torch.Tensor:
+    """Scenario ``i``'s row of ``t``: ``t[i]`` when batched, ``t`` when shared."""
+    return t[i] if batched(t, base) else t
+
+
+def scenario_stride(t: torch.Tensor, base) -> int:
+    """Elements between two scenarios' rows of ``t``: 0 when shared."""
+    return int(np.prod(tuple(base), dtype=np.int64)) if batched(t, base) else 0
 
 
 def require_coefficients(name: str, N: int, E: int, *coeffs: tuple) -> None:

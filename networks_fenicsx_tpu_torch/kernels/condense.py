@@ -17,9 +17,17 @@ serial routes make, the same kernel with S = 1 on a :class:`Batch` kept on
 the plan.  The kernel is memory-bound: it reads each coefficient once and
 writes five rows a shard; one thread walks one edge's column.
 
+A sweep (:mod:`...batch`) runs K1 over S scenarios of one plan in one
+launch, whatever S: :func:`condense_scenarios` takes each of ``R``, ``f``,
+``start_pbc`` and ``end_pbc`` either with a leading scenario axis or shared
+by every scenario (read with stride 0, not copied) and returns one ``(5, S,
+E)`` buffer; scenario ``i``'s column is :func:`condense` of row ``i`` bit
+for bit (the same per-edge body).
+
 Each wrapper launches the kernel for CUDA tensors and runs its plain
 version for CPU tensors: :func:`condense_plain`, an eager transcription of
-the reference, and :func:`condense_batch_plain`, that one a shard, stacked.
+the reference, :func:`condense_batch_plain`, that one a shard, stacked, and
+:func:`condense_scenarios_plain`, that one a scenario, stacked.
 """
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ from ..blocked import DevicePlan, _BlockedPlan, _condensed_scalar_constants
 from . import build
 
 __all__ = ["condense", "condense_plain", "condense_batch", "condense_batch_plain", "Batch",
-           "cuda_launches", "MODES", "MAX_SHARDS"]
+           "cuda_launches", "MODES", "MAX_SHARDS", "condense_scenarios",
+           "condense_scenarios_plain"]
 
 MODES = {"scalar": 0, "edge": 1, "cell": 2}
 MAX_SHARDS = 32  # CONDENSE_MAX_SHARDS in csrc/condense.cu: the shards of one launch
@@ -259,3 +268,82 @@ def condense(
 
 
 condense.launches = 0
+
+
+# ---------------------------------------------------------------- scenarios
+
+
+class _ScenArgs(ctypes.Structure):
+    """``CondenseScenArgs`` of ``csrc/condense.cu``."""
+
+    _fields_ = [("S", ctypes.c_int), ("E", ctypes.c_int), ("N", ctypes.c_int),
+                ("R_mode", ctypes.c_int), ("f_mode", ctypes.c_int), ("wt", ctypes.c_double),
+                ("cs0", ctypes.c_double), ("cs1", ctypes.c_double), ("g_closed", ctypes.c_double),
+                ("s", _Shard), ("sR", ctypes.c_longlong), ("sf", ctypes.c_longlong),
+                ("ssp", ctypes.c_longlong), ("sep", ctypes.c_longlong)]
+
+
+def _scenario_shapes(N: int, E: int, R_mode: str, f_mode: str) -> dict:
+    """A scenario's shapes: what each input is when it is shared."""
+    shapes = {"scalar": (1,), "edge": (E,), "cell": (N, E)}
+    if R_mode not in shapes or f_mode not in shapes:
+        raise ValueError(f"condense: unknown modes {(R_mode, f_mode)}")
+    return {"R": shapes[R_mode], "f": shapes[f_mode], "sp": (E,), "ep": (E,)}
+
+
+def condense_scenarios_plain(dplan, N: int, k: int, h_e: torch.Tensor, R_data: torch.Tensor,
+                             f_data: torch.Tensor, R_mode: str, f_mode: str,
+                             start_pbc: torch.Tensor, end_pbc: torch.Tensor) -> torch.Tensor:
+    """Eager version of :func:`condense_scenarios`: :func:`condense_plain` a
+    scenario, stacked ``(5, S, E)``."""
+    base = _scenario_shapes(N, h_e.shape[0], R_mode, f_mode)
+    ins = {"R": R_data, "f": f_data, "sp": start_pbc, "ep": end_pbc}
+    S = build.scenarios("condense", *((t, base[n]) for n, t in ins.items()))
+    rows = []
+    for i in range(S):
+        r = {n: build.scenario_row(t, base[n], i) for n, t in ins.items()}
+        rows.append(torch.stack(condense_plain(dplan.plan, N, k, h_e, r["R"], r["f"], R_mode,
+                                               f_mode, r["sp"], r["ep"])))
+    return torch.stack(rows, dim=1)
+
+
+def condense_scenarios(dplan, N: int, k: int, h_e: torch.Tensor, R_data: torch.Tensor,
+                       f_data: torch.Tensor, R_mode: str, f_mode: str, start_pbc: torch.Tensor,
+                       end_pbc: torch.Tensor) -> torch.Tensor:
+    """K1 of S scenarios of ``dplan`` on ``h_e``'s device, one launch: each of
+    ``R_data``, ``f_data``, ``start_pbc``, ``end_pbc`` is batched, ``(S,) +``
+    its one-scenario shape, or shared; returns the ``(5, S, E)`` planes ``W,
+    w, g, Ftot, const``."""
+    if h_e.device.type == "cpu":
+        return condense_scenarios_plain(dplan, N, k, h_e, R_data, f_data, R_mode, f_mode,
+                                        start_pbc, end_pbc)
+    if not h_e.is_cuda:
+        raise ValueError("condense: tensors must be on a CUDA device")
+    E = dplan.num_edges
+    base = _scenario_shapes(N, E, R_mode, f_mode)
+    ins = {"R": R_data, "f": f_data, "sp": start_pbc, "ep": end_pbc}
+    S = build.scenarios("condense", *((t, base[n]) for n, t in ins.items()))
+    build.require_vectors("condense", h_e.get_device(), (h_e, E))
+    build.require_cuda("condense", h_e, R_data, f_data, start_pbc, end_pbc)
+    build.require_cuda("condense", dplan.edge_src, dplan.edge_tgt, dtype=torch.int32)
+    wt, cs0, cs1 = _constants(k)
+    args = _ScenArgs(S=S, E=E, N=N, R_mode=MODES[R_mode], f_mode=MODES[f_mode], wt=wt, cs0=cs0,
+                     cs1=cs1, g_closed=wt * (N * (N - 1) / 2.0) + cs1 * N,
+                     sR=build.scenario_stride(R_data, base["R"]),
+                     sf=build.scenario_stride(f_data, base["f"]),
+                     ssp=build.scenario_stride(start_pbc, base["sp"]),
+                     sep=build.scenario_stride(end_pbc, base["ep"]))
+    a = args.s
+    a.h_e, a.R, a.f = h_e.data_ptr(), R_data.data_ptr(), f_data.data_ptr()
+    a.start_pbc, a.end_pbc = start_pbc.data_ptr(), end_pbc.data_ptr()
+    a.edge_src, a.edge_tgt = dplan.edge_src.data_ptr(), dplan.edge_tgt.data_ptr()
+    out = torch.empty((5, S, E), dtype=torch.float64, device=h_e.device)
+    index = h_e.get_device()
+    lib = build.library()
+    build.check(build.on_device(index, lib.nxfx_condense_scen, ctypes.addressof(args),
+                                out.data_ptr(), build.raw_stream(index)), "condense_scenarios")
+    condense_scenarios.launches += 1
+    return out
+
+
+condense_scenarios.launches = 0

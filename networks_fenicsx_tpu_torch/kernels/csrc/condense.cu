@@ -30,6 +30,16 @@
 // the same kernel with S = 1.  The body is the one-shard kernel's: each
 // output equals it bit for bit.
 //
+// A sweep (batch.solve_sweep) runs K1 over S scenarios of one plan in one
+// launch: condense_scen_kernel, grid (blocks over E, min(S, 65,535)), each
+// block row looping over the scenarios y, y + gridDim.y, ...  Each input
+// has its own stride a scenario (0 for an input that all scenarios share,
+// read in place, never copied S times); the row ends, h_e, N, the modes
+// and the constants are the plan's, fixed for the launch.  The output is
+// one (5, S, E) buffer.  The per-edge body is the one the shard kernel
+// runs (condense_edge), so a scenario's row is its one-scenario launch's
+// bit for bit.
+//
 // The serial body, read on the one-shard kernel before this design: the
 // headline's launch (E = 65,535, 5.2 MB, 256 blocks of 256 threads) took
 // 2.31-2.41 us of device time against a 1.57 us byte bound (profiler, NVIDIA
@@ -80,6 +90,26 @@ struct CondenseArgsT {
 
 using CondenseArgs = CondenseArgsT<CONDENSE_MAX_SHARDS>;
 
+// A launch over S scenarios of one plan: scenario s reads each input at
+// s times its stride (0: one row for all scenarios) and writes row s of
+// each output plane of the (5, S, E) buffer.
+struct CondenseScenArgs {
+    int S;
+    int E;
+    int N;
+    int R_mode;
+    int f_mode;
+    double wt;
+    double cs0;
+    double cs1;
+    double g_closed;
+    CondenseShard in;  // the plan's row ends and the scenarios' first rows
+    long long sR;      // stride a scenario of R, f, start_pbc, end_pbc
+    long long sf;
+    long long ssp;
+    long long sep;
+};
+
 namespace {
 
 // coefficient modes, as passed by kernels/condense.py
@@ -88,28 +118,20 @@ constexpr int MODE_EDGE = 1;
 constexpr int MODE_CELL = 2;
 constexpr int THREADS = 256;
 
-// grid (blocks over E, S): edge e of shard blockIdx.y
-template <int M>
-__global__ void __launch_bounds__(THREADS) condense_kernel(const CondenseArgsT<M> a,
-                                                          double* __restrict__ out)
+// K1 of edge e: the five outputs at o, o + plane, ... (one thread an edge)
+__device__ __forceinline__ void condense_edge(const CondenseShard& in, int e, int E, int N,
+                                              int R_mode, int f_mode, double wt, double cs0,
+                                              double cs1, double g_closed, double* o, size_t plane)
 {
-    const int e = blockIdx.x * blockDim.x + threadIdx.x;
-    const int E = a.E;
-    if (e >= E) return;
-    // one shard: a constant index, so its pointers are read from the
-    // parameter space as the one-shard kernel read its arguments
-    const CondenseShard in = a.s[M == 1 ? 0 : blockIdx.y];
-    const int N = a.N;
-    const double wt = a.wt, cs0 = a.cs0, cs1 = a.cs1;
     const double h = __ldg(in.h_e + e);
     const double dN = static_cast<double>(N);
-    const bool r_cell = a.R_mode == MODE_CELL;
-    const bool f_cell = a.f_mode == MODE_CELL;
+    const bool r_cell = R_mode == MODE_CELL;
+    const bool f_cell = f_mode == MODE_CELL;
 
     // resistance side: a1 = R h per edge, or a2_c = R_c h per cell
     double a1 = 0.0, W;
     if (!r_cell) {
-        a1 = __ldg(in.R + (a.R_mode == MODE_SCALAR ? 0 : e)) * h;
+        a1 = __ldg(in.R + (R_mode == MODE_SCALAR ? 0 : e)) * h;
         W = a1 * (dN * wt);
     } else {
         double s = 0.0;
@@ -120,11 +142,11 @@ __global__ void __launch_bounds__(THREADS) condense_kernel(const CondenseArgsT<M
     // source side: F1 = f h per edge, or F2_c = f_c h per cell
     double F1 = 0.0, Ftot, g;
     if (!f_cell) {
-        F1 = __ldg(in.f + (a.f_mode == MODE_SCALAR ? 0 : e)) * h;
+        F1 = __ldg(in.f + (f_mode == MODE_SCALAR ? 0 : e)) * h;
         Ftot = F1 * dN;
     }
     if (!r_cell && !f_cell) {
-        g = a1 * F1 * a.g_closed;
+        g = a1 * F1 * g_closed;
     } else {
         // g = sum_c ab_c (cs0 cumF_c + cs1 cumF_{c+1}), one pass down the column
         double cum = 0.0, acc = 0.0;
@@ -143,13 +165,47 @@ __global__ void __launch_bounds__(THREADS) condense_kernel(const CondenseArgsT<M
     const double not_s = __ldg(in.edge_src + e) >= 0 ? 0.0 : 1.0;
     const double not_t = __ldg(in.edge_tgt + e) >= 0 ? 0.0 : 1.0;
     const double cst = (-__ldg(in.start_pbc + e) * not_s + __ldg(in.end_pbc + e) * not_t - g) * w;
-    const size_t plane = static_cast<size_t>(a.rows) * E;
-    double* o = out + static_cast<size_t>(a.s0 + blockIdx.y) * E + e;
     o[0] = W;
     o[plane] = w;
     o[2 * plane] = g;
     o[3 * plane] = Ftot;
     o[4 * plane] = cst;
+}
+
+// grid (blocks over E, S): edge e of shard blockIdx.y
+template <int M>
+__global__ void __launch_bounds__(THREADS) condense_kernel(const CondenseArgsT<M> a,
+                                                          double* __restrict__ out)
+{
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    const int E = a.E;
+    if (e >= E) return;
+    // one shard: a constant index, so its pointers are read from the
+    // parameter space as the one-shard kernel read its arguments
+    const CondenseShard in = a.s[M == 1 ? 0 : blockIdx.y];
+    const size_t plane = static_cast<size_t>(a.rows) * E;
+    condense_edge(in, e, E, a.N, a.R_mode, a.f_mode, a.wt, a.cs0, a.cs1, a.g_closed,
+                  out + static_cast<size_t>(a.s0 + blockIdx.y) * E + e, plane);
+}
+
+// grid (blocks over E, min(S, 65,535)): edge e of scenarios blockIdx.y,
+// blockIdx.y + gridDim.y, ...
+__global__ void __launch_bounds__(THREADS) condense_scen_kernel(const CondenseScenArgs a,
+                                                               double* __restrict__ out)
+{
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    const int E = a.E;
+    if (e >= E) return;
+    const size_t plane = static_cast<size_t>(a.S) * E;
+    for (int s = blockIdx.y; s < a.S; s += gridDim.y) {
+        CondenseShard in = a.in;
+        in.R += s * a.sR;
+        in.f += s * a.sf;
+        in.start_pbc += s * a.ssp;
+        in.end_pbc += s * a.sep;
+        condense_edge(in, e, E, a.N, a.R_mode, a.f_mode, a.wt, a.cs0, a.cs1, a.g_closed,
+                      out + static_cast<size_t>(s) * E + e, plane);
+    }
 }
 
 template <int M>
@@ -174,6 +230,16 @@ int launch(const CondenseArgs* a, double* out, cudaStream_t stream)
 }
 
 }  // namespace
+
+// K1 of a->S scenarios of one plan into out (5, a->S, a->E), one grid.
+extern "C" int nxfx_condense_scen(const CondenseScenArgs* a, double* out, cudaStream_t stream)
+{
+    if (a->S < 0 || a->E < 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (a->S == 0 || a->E == 0) return 0;
+    const dim3 grid((a->E + THREADS - 1) / THREADS, a->S < 65535 ? a->S : 65535);
+    condense_scen_kernel<<<grid, THREADS, 0, stream>>>(*a, out);
+    return static_cast<int>(cudaGetLastError());
+}
 
 // K1 of shards a->s0 .. a->s0 + a->S - 1 into out (5, a->rows, a->E), one grid.
 extern "C" int nxfx_condense(const CondenseArgs* a, double* out, cudaStream_t stream)

@@ -18,8 +18,42 @@
 // mode).  One thread owns one edge and walks down its column: each row of
 // q_T / p_T is written by a warp as one coalesced run.  The finiteness flag
 // only ever goes from 1 to 0, so concurrent plain stores suffice.
+//
+// A sweep (batch.solve_sweep) expands S scenarios in one launch: grid
+// (blocks over max(E, B), min(S, 65,535)), each block row looping over the
+// scenarios y, y + gridDim.y, ...  Every input and output moves by its own
+// stride a scenario (0 for an input the scenarios share: the row ends,
+// h_e and the recovery matrix always, R, f or the boundary data when they
+// are not batched), each scenario has its own finiteness flag, and the
+// per-edge body is the one-scenario kernel's (expand_edge), so a
+// scenario's blocks are its one-scenario launch's bit for bit.  The
+// one-scenario call passes S = 1.
 
 #include <cuda_runtime.h>
+
+// The launch's arguments: the first scenario's pointers and each one's
+// stride a scenario (0: shared by all scenarios).
+struct ExpandArgs {
+    int S, E, B, N, k, R_mode, f_mode;
+    double mt00, mt01, mt10, mt11;
+    const int* edge_src;
+    const int* edge_tgt;
+    const double* h_e;
+    const double* Minv;  // (k - 1, 2) interior recovery
+    const double* lam;
+    const double* start_pbc;
+    const double* end_pbc;
+    const double* W;
+    const double* w;
+    const double* g;
+    const double* Ftot;
+    const double* R;
+    const double* f;
+    double* q_T;
+    double* p_T;
+    int* finite;
+    long long s_lam, s_sp, s_ep, s_cond, s_R, s_f, s_q, s_p;  // s_cond: W, w, g, Ftot
+};
 
 namespace {
 
@@ -31,8 +65,9 @@ __device__ inline double coeff(const double* a, int mode, int c, int e, int E)
     return mode == MODE_SCALAR ? a[0] : (mode == MODE_CELL ? a[(size_t)c * E + e] : a[e]);
 }
 
-__global__ void expand_kernel(
-    int E, int B, int N, int k,
+// edge e (and multiplier e < B) of one scenario
+__device__ __forceinline__ void expand_edge(
+    int e, int E, int B, int N, int k,
     const double* __restrict__ lam,
     const int* __restrict__ edge_src,
     const int* __restrict__ edge_tgt,
@@ -46,12 +81,11 @@ __global__ void expand_kernel(
     const double* __restrict__ R, int R_mode,
     const double* __restrict__ f, int f_mode,
     double mt00, double mt01, double mt10, double mt11,
-    const double* __restrict__ Minv,  // (k - 1, 2) interior recovery
+    const double* __restrict__ Minv,
     double* __restrict__ q_T,
     double* __restrict__ p_T,
     int* __restrict__ finite)
 {
-    const int e = blockIdx.x * blockDim.x + threadIdx.x;
     if (e < B && !isfinite(lam[e])) *finite = 0;
     if (e >= E) return;
     const int s = edge_src[e];
@@ -112,7 +146,38 @@ __global__ void expand_kernel(
     q_T[(size_t)(N * k) * E + e] = qj;
 }
 
+// grid (blocks over max(E, B), min(S, 65,535)): edge e of scenarios
+// blockIdx.y, blockIdx.y + gridDim.y, ...
+__global__ void expand_kernel(const ExpandArgs a)
+{
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    for (int s = blockIdx.y; s < a.S; s += gridDim.y) {
+        expand_edge(e, a.E, a.B, a.N, a.k, a.lam + s * a.s_lam, a.edge_src, a.edge_tgt,
+                    a.start_pbc + s * a.s_sp, a.end_pbc + s * a.s_ep, a.W + s * a.s_cond,
+                    a.w + s * a.s_cond, a.g + s * a.s_cond, a.Ftot + s * a.s_cond, a.h_e,
+                    a.R + s * a.s_R, a.R_mode, a.f + s * a.s_f, a.f_mode, a.mt00, a.mt01,
+                    a.mt10, a.mt11, a.Minv, a.q_T + s * a.s_q, a.p_T + s * a.s_p, a.finite + s);
+    }
+}
+
+int launch(const ExpandArgs& a, cudaStream_t stream)
+{
+    const int n = a.E > a.B ? a.E : a.B;
+    if (n <= 0 || a.S == 0) return 0;
+    if (a.S < 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = 256;
+    const dim3 grid((n + threads - 1) / threads, a.S < 65535 ? a.S : 65535);
+    expand_kernel<<<grid, threads, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// K5 of a->S scenarios (q_T (S, k N + 1, E), p_T (S, N, E), finite (S,)).
+extern "C" int nxfx_expand_scen(const ExpandArgs* a, cudaStream_t stream)
+{
+    return launch(*a, stream);
+}
 
 extern "C" int nxfx_expand(
     int E, int B, int N, int k,
@@ -124,12 +189,8 @@ extern "C" int nxfx_expand(
     double* q_T, double* p_T, int* finite,
     cudaStream_t stream)
 {
-    const int n = E > B ? E : B;
-    if (n <= 0) return 0;
-    const int threads = 256;
-    const int blocks = (n + threads - 1) / threads;
-    expand_kernel<<<blocks, threads, 0, stream>>>(
-        E, B, N, k, lam, edge_src, edge_tgt, start_pbc, end_pbc, W, w, g, Ftot,
-        h_e, R, R_mode, f, f_mode, mt00, mt01, mt10, mt11, Minv, q_T, p_T, finite);
-    return static_cast<int>(cudaGetLastError());
+    const ExpandArgs a = {1, E, B, N, k, R_mode, f_mode, mt00, mt01, mt10, mt11, edge_src,
+                          edge_tgt, h_e, Minv, lam, start_pbc, end_pbc, W, w, g, Ftot, R, f,
+                          q_T, p_T, finite, 0, 0, 0, 0, 0, 0, 0, 0};
+    return launch(a, stream);
 }

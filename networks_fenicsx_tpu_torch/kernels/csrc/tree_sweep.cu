@@ -41,6 +41,18 @@
 // stored factor (factor r, the product the full sweep forms from the same
 // bits), then the norm, the roots and launch 3 as the full sweep.
 //
+// A sweep (batch.solve_sweep) runs S scenarios in the same launches: the
+// scenario is one more grid dimension (y of the subtree launches, x of the
+// top's, min(S, 65,535) of them, each block looping over the scenarios
+// y, y + gridDim.y, ... with a barrier between two).  Each pointer moves by
+// its own stride a scenario: w; const and Ftot; d, wn and the factor (0 in
+// APPLY on one stored factor that all scenarios share); r and lam; the
+// partials by the plan's blocks and the norm by one.  The shared scratch
+// (the halving tree's lanes, the values) and the partials are a
+// scenario's while its block walks it.  Each scenario does the
+// one-scenario arithmetic in the same order, so its outputs are its own
+// launch's bit for bit.  The one-scenario calls pass S = 1.
+//
 // Bound: the dependency depth (2 L levels) at a barrier and a division a
 // level; the bytes (a few MB at 16 generations) take a microsecond.  The
 // parent gathers its children (no atomics), first summing the siblings'
@@ -62,6 +74,8 @@ enum Channel { BOTH = 0, D_ONLY = 1, R_ONLY = 2 };  // what a launch assembles a
 
 struct SweepArgs {
     int Kmax, L, cut, group, blocks, first;
+    int S;                     // scenarios
+    long long sw, sc, sd, sr;  // strides a scenario: w; cst, Ftot; d, wn, fac; r, lam
     const int* levels;
     const int* bif_in;
     const int* bif_out;
@@ -77,6 +91,30 @@ struct SweepArgs {
     double* partial;
     double* out;
 };
+
+// p moved by n elements; a mode's unused (null) pointers stay null
+template <typename T>
+__device__ __forceinline__ T* moved(T* p, long long n)
+{
+    return p ? p + n : p;
+}
+
+// scenario s's view of the arguments: its pointers moved by their strides
+__device__ __forceinline__ SweepArgs scenario(const SweepArgs& a0, int s)
+{
+    SweepArgs a = a0;
+    a.w = moved(a0.w, s * a0.sw);
+    a.cst = moved(a0.cst, s * a0.sc);
+    a.Ftot = moved(a0.Ftot, s * a0.sc);
+    a.d = moved(a0.d, s * a0.sd);
+    a.wn = moved(a0.wn, s * a0.sd);
+    a.fac = moved(a0.fac, s * a0.sd);
+    a.r = moved(a0.r, s * a0.sr);
+    a.lam = moved(a0.lam, s * a0.sr);
+    a.partial = moved(a0.partial, static_cast<long long>(s) * a0.blocks);
+    a.out = moved(a0.out, s);
+    return a;
+}
 
 // a bifurcation's unfolded d and in-edge conductance, and its r: the row's
 // -1 pads trail its edges
@@ -192,7 +230,7 @@ struct Block {
 // the channels; R_ONLY keeps the stored factor where the others keep d, and
 // D_ONLY writes the factor of every node (its d is final after the fold).
 template <bool SMEM, int CH>
-__global__ void subtree_forward_kernel(SweepArgs a)
+__device__ void subtree_forward(const SweepArgs& a)
 {
     extern __shared__ __align__(16) unsigned char smem[];
     double* vals;
@@ -252,10 +290,19 @@ __global__ void subtree_forward_kernel(SweepArgs a)
     if (threadIdx.x == 0) a.partial[blockIdx.x] = total;
 }
 
+template <bool SMEM, int CH>
+__global__ void subtree_forward_kernel(SweepArgs a)
+{
+    for (int s = blockIdx.y; s < a.S; s += gridDim.y) {
+        subtree_forward<SMEM, CH>(scenario(a, s));
+        __syncthreads();
+    }
+}
+
 // Launch 3: the block's levels from max(cut, first) down, the first of them
 // from its parents' lam (bif_parent; r / d at a root).
 template <bool SMEM>
-__global__ void subtree_back_kernel(SweepArgs a)
+__device__ void subtree_back(const SweepArgs& a)
 {
     extern __shared__ __align__(16) unsigned char smem[];
     double* vals;
@@ -298,6 +345,15 @@ __global__ void subtree_back_kernel(SweepArgs a)
     }
 }
 
+template <bool SMEM>
+__global__ void subtree_back_kernel(SweepArgs a)
+{
+    for (int s = blockIdx.y; s < a.S; s += gridDim.y) {
+        subtree_back<SMEM>(scenario(a, s));
+        __syncthreads();
+    }
+}
+
 enum TopMode { FULL = 0, FORWARD = 1, BACKWARD = 2, FACTOR = 3, APPLY = 4 };
 
 // Launch 2, one block: the top's fold (from level cut's folded values),
@@ -325,7 +381,7 @@ __device__ void top_fold(const SweepArgs& a, const Lvl* lv, double* vd, double* 
     }
 }
 
-__global__ void top_kernel(SweepArgs a, int mode, int top)
+__device__ void top_body(const SweepArgs& a, int mode, int top)
 {
     extern __shared__ __align__(16) unsigned char smem[];
     double* vals;
@@ -396,7 +452,19 @@ __global__ void top_kernel(SweepArgs a, int mode, int top)
     }
 }
 
+// one block a scenario: blockIdx.x, blockIdx.x + gridDim.x, ...
+__global__ void top_kernel(SweepArgs a, int mode, int top_nodes)
+{
+    for (int s = blockIdx.x; s < a.S; s += gridDim.x) {
+        top_body(scenario(a, s), mode, top_nodes);
+        __syncthreads();
+    }
+}
+
 size_t table_bytes(int L) { return sizeof(int) * static_cast<size_t>((L * 5 + 1) / 2 * 2); }
+
+// the scenarios a launch's grid row holds at once (each block loops over the rest)
+int scen_grid(int S) { return S < 65535 ? S : 65535; }
 
 template <typename Kernel>
 int launch(Kernel kernel, int blocks, int threads, size_t smem, cudaStream_t stream, const SweepArgs& a)
@@ -406,7 +474,7 @@ int launch(Kernel kernel, int blocks, int threads, size_t smem, cudaStream_t str
                                                      static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    kernel<<<blocks, threads, smem, stream>>>(a);
+    kernel<<<dim3(blocks, scen_grid(a.S)), threads, smem, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,7 +486,7 @@ int launch_top(int mode, int top, int threads, cudaStream_t stream, const SweepA
                                                      static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    top_kernel<<<1, threads, smem, stream>>>(a, mode, top);
+    top_kernel<<<scen_grid(a.S), threads, smem, stream>>>(a, mode, top);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -432,7 +500,8 @@ int launch_forward(int blocks, int threads, size_t smem, int use_smem, cudaStrea
 }  // namespace
 
 // One sweep, or one of its parts, on a blocked.SweepPlan (mode 0 full, 1
-// forward, 2 backward, 3 factor, 4 apply): levels (L, 5) on the device;
+// forward, 2 backward, 3 factor, 4 apply), for S scenarios (S = 1: one
+// sweep; the strides as SweepArgs's): levels (L, 5) on the device;
 // blocks subtree blocks of threads each, block_nodes the nodes of a full
 // one, smem whether they keep their values in shared memory; top the top's
 // nodes, top_threads its block.  out: the norm (full, apply) or sum r^2
@@ -444,12 +513,13 @@ extern "C" int nxfx_tree_sweep(
     const int* bif_in, const int* bif_out, const int* bif_parent,
     const double* w, const double* cst, const double* Ftot,
     double* d, double* r, double* wn, double* lam, double* fac, double* partial, double* out,
-    cudaStream_t stream)
+    int S, long long sw, long long sc, long long sd, long long sr, cudaStream_t stream)
 {
-    if (L <= 0) return 0;
-    if (mode < FULL || mode > APPLY) return -static_cast<int>(cudaErrorInvalidValue);
-    SweepArgs a = {Kmax, L, cut, group, blocks, mode == BACKWARD ? 1 : 0, levels, bif_in, bif_out,
-                   bif_parent, w, cst, Ftot, d, r, wn, lam, fac, partial, out};
+    if (L <= 0 || S == 0) return 0;
+    if (mode < FULL || mode > APPLY || S < 0) return -static_cast<int>(cudaErrorInvalidValue);
+    SweepArgs a = {Kmax, L, cut, group, blocks, mode == BACKWARD ? 1 : 0, S, sw, sc, sd, sr,
+                   levels, bif_in, bif_out, bif_parent, w, cst, Ftot, d, r, wn, lam, fac, partial,
+                   out};
     const size_t head = 8 * static_cast<size_t>(threads) + table_bytes(L);
     const size_t fwd = head + (smem ? 3 * 8 * static_cast<size_t>(block_nodes) : 0);
     const size_t back = head + (smem ? 4 * 8 * static_cast<size_t>(block_nodes) : 0);

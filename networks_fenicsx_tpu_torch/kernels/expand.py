@@ -13,10 +13,18 @@ affine in them).
 :func:`expand` launches the kernel for CUDA tensors and runs
 :func:`expand_plain`, the eager transcription of the reference, for CPU
 tensors.  The kernel is bound by the bytes of the solution it writes.
+
+A sweep (:mod:`...batch`) expands S scenarios in one launch:
+:func:`expand_scenarios` takes each input batched (a leading scenario axis)
+or shared by every scenario (read with stride 0) and writes ``q_T (S, k·N+1,
+E)``, ``p_T (S, N, E)`` and a finiteness flag a scenario; scenario ``i`` is
+:func:`expand` of row ``i`` bit for bit.  :func:`expand_scenarios_plain`
+stacks :func:`expand_plain` a scenario.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -27,7 +35,7 @@ from ..lattice import _GridPlan
 from . import build
 from .condense import MODES
 
-__all__ = ["expand", "expand_plain"]
+__all__ = ["expand", "expand_plain", "expand_scenarios", "expand_scenarios_plain"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -231,3 +239,89 @@ def expand(
 
 
 expand.launches = 0
+
+
+# ---------------------------------------------------------------- scenarios
+
+
+class _ScenArgs(ctypes.Structure):
+    """``ExpandArgs`` of ``csrc/expand.cu``."""
+
+    _fields_ = ([(n, ctypes.c_int) for n in ("S", "E", "B", "N", "k", "R_mode", "f_mode")]
+                + [(n, ctypes.c_double) for n in ("mt00", "mt01", "mt10", "mt11")]
+                + [(n, ctypes.c_void_p) for n in (
+                    "edge_src", "edge_tgt", "h_e", "Minv", "lam", "start_pbc", "end_pbc", "W",
+                    "w", "g", "Ftot", "R", "f", "q_T", "p_T", "finite")]
+                + [(n, ctypes.c_longlong) for n in (
+                    "s_lam", "s_sp", "s_ep", "s_cond", "s_R", "s_f", "s_q", "s_p")])
+
+
+def _scenario_inputs(N: int, E: int, B: int, R_mode: str, f_mode: str, lam, start_pbc, end_pbc,
+                     W, w, g, Ftot, R_data, f_data) -> tuple[int, dict, dict]:
+    """``(S, inputs, their one-scenario shapes)``; W, w, g and Ftot share one
+    stride (all batched or all shared)."""
+    coeff = {"scalar": (1,), "edge": (E,), "cell": (N, E)}
+    ins = {"lam": lam, "sp": start_pbc, "ep": end_pbc, "W": W, "w": w, "g": g, "Ftot": Ftot,
+           "R": R_data, "f": f_data}
+    base = {n: (E,) for n in ins}
+    base.update(lam=(B,), R=coeff[R_mode], f=coeff[f_mode])
+    S = build.scenarios("expand", *((t, base[n]) for n, t in ins.items()))
+    if len({build.batched(ins[n], (E,)) for n in ("W", "w", "g", "Ftot")}) != 1:
+        raise ValueError("expand_scenarios: W, w, g and Ftot must all be batched or all shared")
+    return S, ins, base
+
+
+def expand_scenarios_plain(dplan, N: int, k: int, lam, start_pbc, end_pbc, W, w, g, Ftot, h_e,
+                           R_data, f_data, R_mode: str, f_mode: str):
+    """Eager version of :func:`expand_scenarios`: :func:`expand_plain` a
+    scenario, stacked ``(q_T, p_T, finite)``."""
+    S, ins, base = _scenario_inputs(N, h_e.shape[0], dplan.num_bifurcations, R_mode, f_mode, lam,
+                                    start_pbc, end_pbc, W, w, g, Ftot, R_data, f_data)
+    rows = []
+    for i in range(S):
+        r = {n: build.scenario_row(t, base[n], i) for n, t in ins.items()}
+        rows.append(expand_plain(dplan.plan, N, k, r["lam"], r["sp"], r["ep"], r["W"], r["w"],
+                                 r["g"], r["Ftot"], h_e, r["R"], r["f"], R_mode, f_mode))
+    return tuple(torch.stack(col) for col in zip(*rows))
+
+
+def expand_scenarios(dplan, N: int, k: int, lam, start_pbc, end_pbc, W, w, g, Ftot, h_e, R_data,
+                     f_data, R_mode: str, f_mode: str):
+    """K5 of S scenarios on ``lam``'s device, one launch: ``(q_T (S, k·N+1, E),
+    p_T (S, N, E), finite (S,))``; each input batched (a leading ``S``) or
+    shared, ``h_e`` and the plan's row ends shared."""
+    if lam.device.type == "cpu":
+        return expand_scenarios_plain(dplan, N, k, lam, start_pbc, end_pbc, W, w, g, Ftot, h_e,
+                                      R_data, f_data, R_mode, f_mode)
+    B, E = dplan.num_bifurcations, dplan.num_edges
+    S, ins, base = _scenario_inputs(N, E, B, R_mode, f_mode, lam, start_pbc, end_pbc, W, w, g,
+                                    Ftot, R_data, f_data)
+    build.require_cuda("expand", h_e, *ins.values())
+    build.require_cuda("expand", dplan.edge_src, dplan.edge_tgt, dtype=torch.int32)
+    if tuple(h_e.shape) != (E,):
+        raise ValueError("expand: h_e must be (E,)")
+    dev = lam.device
+    Mt = _condensed_scalar_constants(k)[0]
+    minv = _recovery_matrix(k, dev)
+    q_T = torch.empty((S, k * N + 1, E), dtype=torch.float64, device=dev)
+    p_T = torch.empty((S, N, E), dtype=torch.float64, device=dev)
+    finite = torch.ones(S, dtype=torch.int32, device=dev)
+    stride = {n: build.scenario_stride(t, base[n]) for n, t in ins.items()}
+    a = _ScenArgs(S=S, E=E, B=B, N=N, k=k, R_mode=MODES[R_mode], f_mode=MODES[f_mode],
+                  mt00=float(Mt[0, 0]), mt01=float(Mt[0, 1]), mt10=float(Mt[1, 0]),
+                  mt11=float(Mt[1, 1]), edge_src=dplan.edge_src.data_ptr(),
+                  edge_tgt=dplan.edge_tgt.data_ptr(), h_e=h_e.data_ptr(), Minv=minv.data_ptr(),
+                  lam=lam.data_ptr(), start_pbc=start_pbc.data_ptr(), end_pbc=end_pbc.data_ptr(),
+                  W=W.data_ptr(), w=w.data_ptr(), g=g.data_ptr(), Ftot=Ftot.data_ptr(),
+                  R=R_data.data_ptr(), f=f_data.data_ptr(), q_T=q_T.data_ptr(),
+                  p_T=p_T.data_ptr(), finite=finite.data_ptr(), s_lam=stride["lam"],
+                  s_sp=stride["sp"], s_ep=stride["ep"], s_cond=stride["W"], s_R=stride["R"],
+                  s_f=stride["f"], s_q=(k * N + 1) * E, s_p=N * E)
+    with torch.cuda.device(dev):
+        code = build.library().nxfx_expand_scen(ctypes.addressof(a), build.stream_handle(dev))
+    build.check(code, "expand_scenarios")
+    expand_scenarios.launches += 1
+    return q_T, p_T, finite.bool()
+
+
+expand_scenarios.launches = 0

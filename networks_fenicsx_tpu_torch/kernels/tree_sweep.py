@@ -39,6 +39,15 @@ the apply's ``λ`` is the full sweep's to the bit.  Their plain versions come
 in both orders (``tree_sweep_factor_plain`` / ``tree_sweep_apply_plain``,
 the reference's level by level, and ``…_blocked_plain``, the kernels'), and
 each counts on its own ``launches`` and ``device``.
+
+A sweep (:mod:`...batch`) runs S scenarios in the same launches:
+:func:`tree_sweep_scenarios` is the full sweep of S rows of ``(w, const,
+Ftot)`` (R varies by scenario), :func:`tree_sweep_apply_scenarios` the apply
+of S right-hand sides on one stored factor; three launches each whatever S
+(the scenario is one more grid dimension).  Row
+``i`` is the one-scenario call's bits.  Their plain versions stack the
+one-scenario plain versions, in the reference's order or (``blocked=True``)
+the kernels'.
 """
 
 from __future__ import annotations
@@ -55,7 +64,8 @@ __all__ = [
     "tree_sweep_blocked_plain", "tree_sweep_forward_blocked_plain",
     "tree_sweep_backward_blocked_plain", "tree_sweep_factor", "tree_sweep_factor_plain",
     "tree_sweep_factor_blocked_plain", "tree_sweep_apply", "tree_sweep_apply_plain",
-    "tree_sweep_apply_blocked_plain",
+    "tree_sweep_apply_blocked_plain", "tree_sweep_scenarios", "tree_sweep_scenarios_plain",
+    "tree_sweep_apply_scenarios", "tree_sweep_apply_scenarios_plain",
 ]
 
 FULL, FORWARD, BACKWARD, FACTOR, APPLY = 0, 1, 2, 3, 4  # nxfx_tree_sweep's modes
@@ -481,10 +491,12 @@ def cuda_launches(dplan: DevicePlan, mode: int = FULL) -> int:
 
 
 def _launch(mode: int, dplan: DevicePlan, w, const, Ftot, d, r, wn, lam, out, fac=None,
-            counter=None) -> None:
+            counter=None, S: int = 1, strides=(0, 0, 0, 0)) -> None:
+    """One sweep or part; ``S`` scenarios with ``strides`` (elements a
+    scenario of w; const and Ftot; d, wn and the factor; r and lam)."""
     sp = dplan.sweep
     dev = d.device
-    partial = torch.empty(max(sp.blocks, 1), dtype=torch.float64, device=dev)
+    partial = torch.empty(S * max(sp.blocks, 1), dtype=torch.float64, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -495,7 +507,7 @@ def _launch(mode: int, dplan: DevicePlan, w, const, Ftot, d, r, wn, lam, out, fa
             sp.block_nodes, int(sp.smem), sp.top_nodes, sp.top_threads, sp.levels.data_ptr(),
             dplan.bif_in.data_ptr(), dplan.bif_out.data_ptr(), dplan.bif_parent.data_ptr(),
             ptr(w), ptr(const), ptr(Ftot), ptr(d), ptr(r), ptr(wn), ptr(lam), ptr(fac),
-            partial.data_ptr(), ptr(out), build.stream_handle(dev),
+            partial.data_ptr(), ptr(out), S, *strides, build.stream_handle(dev),
         )
     if code < 0:
         build.check(-code, "tree_sweep")
@@ -609,3 +621,85 @@ def tree_sweep_apply(dplan: DevicePlan, d: torch.Tensor, wn: torch.Tensor, facto
 
 tree_sweep_apply.launches = 0
 tree_sweep_apply.device = 0
+
+
+# --- the scenario axis (a sweep's S rows in the same launches) ---
+
+
+def tree_sweep_scenarios_plain(dplan: DevicePlan, w: torch.Tensor, const: torch.Tensor,
+                               Ftot: torch.Tensor, blocked: bool = False):
+    """Eager version of :func:`tree_sweep_scenarios`: :func:`tree_sweep_plain`
+    (or, ``blocked``, :func:`tree_sweep_blocked_plain`) a row, stacked."""
+    rows = [tree_sweep_blocked_plain(dplan, *row) if blocked else tree_sweep_plain(dplan.plan, *row)
+            for row in zip(w, const, Ftot)]
+    return tuple(torch.stack(col) for col in zip(*rows))
+
+
+def _scenario_rows(name: str, dplan: DevicePlan, *rows: torch.Tensor) -> int:
+    """S of ``rows``, each ``(S, E)``."""
+    S, E = rows[0].shape[0], dplan.num_edges
+    if any(tuple(t.shape) != (S, E) for t in rows):
+        raise ValueError(f"{name}: the rows must be (S, {E}) alike, got "
+                         f"{[tuple(t.shape) for t in rows]}")
+    return S
+
+
+def tree_sweep_scenarios(dplan: DevicePlan, w: torch.Tensor, const: torch.Tensor,
+                         Ftot: torch.Tensor):
+    """K2–K4 of S scenarios on ``w``'s device, ``w``, ``const``, ``Ftot`` each
+    ``(S, E)``: ``(lam, rhs_norm, d, r, wn)``, each with a leading ``S``;
+    :func:`cuda_launches` launches whatever S."""
+    if w.device.type == "cpu":
+        return tree_sweep_scenarios_plain(dplan, w, const, Ftot)
+    _check(dplan, w, const, Ftot)
+    S = _scenario_rows("tree_sweep_scenarios", dplan, w, const, Ftot)
+    E, B = dplan.num_edges, dplan.num_bifurcations
+    dev = w.device
+    d, r, wn, lam = (torch.empty((S, B), dtype=torch.float64, device=dev) for _ in range(4))
+    rhs_norm = torch.empty(S, dtype=torch.float64, device=dev)
+    if B:
+        _launch(FULL, dplan, w, const, Ftot, d, r, wn, lam, rhs_norm,
+                counter=tree_sweep_scenarios, S=S, strides=(E, E, B, B))
+    return lam, rhs_norm, d, r, wn
+
+
+tree_sweep_scenarios.launches = 0
+tree_sweep_scenarios.device = 0
+
+
+def tree_sweep_apply_scenarios_plain(dplan: DevicePlan, d, wn, factor, const: torch.Tensor,
+                                     Ftot: torch.Tensor, blocked: bool = False):
+    """Eager version of :func:`tree_sweep_apply_scenarios`:
+    :func:`tree_sweep_apply_plain` (or, ``blocked``,
+    :func:`tree_sweep_apply_blocked_plain`) a row, stacked."""
+    rows = [tree_sweep_apply_blocked_plain(dplan, d, wn, factor, c, F) if blocked
+            else tree_sweep_apply_plain(dplan.plan, d, wn, factor, c, F)
+            for c, F in zip(const, Ftot)]
+    return tuple(torch.stack(col) for col in zip(*rows))
+
+
+def tree_sweep_apply_scenarios(dplan: DevicePlan, d: torch.Tensor, wn: torch.Tensor,
+                               factor: torch.Tensor, const: torch.Tensor, Ftot: torch.Tensor):
+    """K3–K4 of S right-hand sides on ``const``'s device, ``const`` and ``Ftot``
+    each ``(S, E)``, on one stored factor of :func:`tree_sweep_factor`
+    (``d``, ``wn``, ``factor``, each ``(B,)``, read by every scenario):
+    ``(lam, rhs_norm, r)``, each with a leading ``S``; three launches
+    whatever S."""
+    if const.device.type == "cpu":
+        return tree_sweep_apply_scenarios_plain(dplan, d, wn, factor, const, Ftot)
+    _check(dplan, d, wn, factor, const, Ftot)
+    S = _scenario_rows("tree_sweep_apply_scenarios", dplan, const, Ftot)
+    E, B = dplan.num_edges, dplan.num_bifurcations
+    if any(tuple(t.shape) != (B,) for t in (d, wn, factor)):
+        raise ValueError("tree_sweep_apply_scenarios: d, wn and factor must be (B,)")
+    dev = const.device
+    r, lam = (torch.empty((S, B), dtype=torch.float64, device=dev) for _ in range(2))
+    rhs_norm = torch.empty(S, dtype=torch.float64, device=dev)
+    if B:
+        _launch(APPLY, dplan, None, const, Ftot, d, r, wn, lam, rhs_norm, fac=factor,
+                counter=tree_sweep_apply_scenarios, S=S, strides=(0, E, 0, B))
+    return lam, rhs_norm, r
+
+
+tree_sweep_apply_scenarios.launches = 0
+tree_sweep_apply_scenarios.device = 0

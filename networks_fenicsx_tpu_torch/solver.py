@@ -406,6 +406,8 @@ class _Executor:
     blocks_out = True
     edge_order = None
     bif_order = None
+    # whether :meth:`scenarios` runs S scenarios in one launch of each kernel
+    has_scenario_axis = False
 
     def prepare_args(self, R_data, f_data, start_pbc, end_pbc):
         return R_data, f_data, start_pbc, end_pbc
@@ -436,7 +438,10 @@ class _BlockedExecutor(_Executor):
     their plain versions instead), returning the
     reference's 7-tuple blocks contract
     ``(q_T, p_T, lam, iters, residual, rhs_norm, finite)`` in internal order
-    (``edge_order``/``bif_order`` map it back to the public layout)."""
+    (``edge_order``/``bif_order`` map it back to the public layout).
+    :meth:`scenarios` runs S scenarios in the launches of one solve."""
+
+    has_scenario_axis = True
 
     def __init__(
         self, asm, plan, R_mode: str, f_mode: str, device: torch.device,
@@ -491,6 +496,28 @@ class _BlockedExecutor(_Executor):
         iters = torch.zeros((), dtype=torch.int32, device=self._device)
         residual = torch.zeros((), dtype=torch.float64, device=self._device)
         return q_T, p_T, lam, iters, residual, rhs_norm, finite
+
+    def scenarios(self, R, f, start_pbc, end_pbc):
+        """S scenarios on the executor's device, internal layout: each
+        argument a tensor there, batched (a leading ``S``) or shared by every
+        scenario.  K1 once; K2–K4 once over the S rows when R is batched,
+        else K2's factor once on the shared R and K3–K4 once over the S
+        right-hand sides; K5 once.  Returns ``(q_T, p_T, lam, rhs_norm,
+        finite)``, each with a leading ``S``; row ``i`` is the executor's
+        call on row ``i`` bit for bit."""
+        dp, N, k, h = self.device_plan, self._N, self._k, self._h_e
+        Rm, fm = self._R_mode, self._f_mode
+        W, w, g, Ftot, const = condense.condense_scenarios(dp, N, k, h, R, f, Rm, fm, start_pbc,
+                                                           end_pbc)
+        if R.dim() > (2 if Rm == "cell" else 1):  # R batched: one factor a scenario
+            lam, rhs_norm, *_ = tree_sweep.tree_sweep_scenarios(dp, w, const, Ftot)
+        else:
+            # one R for every scenario: its factor once, the rows' rhs on it
+            factor = tree_sweep.tree_sweep_factor(dp, w[0])
+            lam, rhs_norm, _ = tree_sweep.tree_sweep_apply_scenarios(dp, *factor, const, Ftot)
+        q_T, p_T, finite = expand.expand_scenarios(dp, N, k, lam, start_pbc, end_pbc, W, w, g,
+                                                   Ftot, h, R, f, Rm, fm)
+        return q_T, p_T, lam, rhs_norm, finite
 
 
 class _LevelExecutor(_Executor):
@@ -608,7 +635,9 @@ class _GridExecutor(_BlockedExecutor):
     (one direct and two refinement passes on K17's stencil) → K17 residual
     → K5, returning the 7-tuple blocks contract in internal edge order
     (``bif_order`` None: λ stays in node order) with the residual norm and
-    ``iters = 0``."""
+    ``iters = 0``.  It has no scenario axis yet: a sweep runs its rows."""
+
+    has_scenario_axis = False
 
     def __init__(self, asm, plan, R_mode: str, f_mode: str, device: torch.device):
         super().__init__(asm, plan, R_mode, f_mode, device, make_device_plan=device_grid_plan)
@@ -971,6 +1000,7 @@ def build_schur_executor(
     opts: SolverOptions,
     device: torch.device | str = "cuda",
     _tree_plan=None,
+    elide_zero_f: bool = True,
 ) -> _Executor:
     """Build the executor, or raise ``NotImplementedError`` (naming the
     ROADMAP item) for float32.
@@ -992,13 +1022,16 @@ def build_schur_executor(
     on the grid executor or the general DCT executor (:func:`_dct_executor`).
     ``_tree_plan`` overrides the cached tree plan (tests use it to force
     the multifrontal engine on a small core).  ``level_scan="on"`` runs the
-    same kernels (the two reference variants are pinned equal)."""
+    same kernels (the two reference variants are pinned equal).
+    ``elide_zero_f=False`` keeps the source's terms when the assembler's f
+    is the scalar zero (a sweep whose f varies by scenario)."""
     if opts.dtype != "float64" or opts.output_dtype not in ("same", "float64"):
         raise NotImplementedError("ROADMAP A4: float32 solves and outputs are not ported yet")
     if asm.pressure_degree != 0:
         raise ValueError("schur method requires discontinuous (degree-0) pressure")
     device = resolve_device(device)
     R_mode, f_mode, f_zero = asm.coefficient_modes()
+    f_zero = f_zero and elide_zero_f
     if asm.network.num_multipliers == 0 and opts.schur_method != "dct":
         return _EdgeExecutor(asm, R_mode, f_mode, f_zero, device)
     if opts.schur_method in ("dense", "dense_f64"):

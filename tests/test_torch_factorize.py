@@ -653,6 +653,39 @@ def test_factorization_solve_batch(fac_class):
                fj.solution_vector([o[i] for o in outs_j]), tol)
 
 
+def test_blocked_solve_batch_scenario_axis(monkeypatch):
+    """``BlockedFactorization.solve_batch`` of three per-cell right-hand sides
+    at k = 2: each of K1, K3–K4 and K5 called once for all rows (their
+    scenario axis), each row ``solve()``'s bits."""
+    from networks_fenicsx_tpu_torch.kernels import condense, expand
+
+    rng = np.random.default_rng(13)
+    ap = P.HydraulicNetworkAssembler(P.NetworkMesh(_tree(P, 5), N=3, color_strategy="fast"),
+                                     flux_degree=2)
+    E, C = ap.network.num_edges, ap.network.num_cells
+    R = rng.uniform(0.5, 2.0, E)
+    ap.compute_forms(p_bc_ex=lambda x: x[1], f=rng.uniform(-1, 1, C), R=R)
+    fp = PF.build_blocked_factorization(ap, **CPU)
+    stp = fp.factor(R)
+    S = 3
+    fb = rng.uniform(-1.0, 1.0, (S, C))
+    _, _, spbc, epbc = ap.schur_arguments()
+    sp_b = np.stack([spbc * s for s in (1.0, -0.5, 2.0)])
+    ep_b = np.stack([epbc * s for s in (1.0, -0.5, 2.0)])
+    calls = []
+    for mod, name in ((condense, "condense_scenarios"), (tree_sweep, "tree_sweep_apply_scenarios"),
+                      (expand, "expand_scenarios")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **kw: calls.append(_n)
+                            or _fn(*a, **kw))
+    outs = fp.solve_batch(stp, fb, sp_b, ep_b)
+    assert calls == ["condense_scenarios", "tree_sweep_apply_scenarios", "expand_scenarios"]
+    assert len(outs) == 5 and all(o.shape[0] == S for o in outs)
+    for i in range(S):
+        single = fp.solve(stp, fb[i], sp_b[i], ep_b[i])
+        assert all(torch.equal(a[i], b) for a, b in zip(outs, single))
+
+
 def test_tree_factorization_singular_core_raises():
     """A zero-pivot gate that trips in the stored factor (the 700-site
     web's dense tail) makes λ NaN, and ``Solver`` raises its non-finite
