@@ -68,9 +68,19 @@ paths through the public API, checks each solution and times it:
   ``Solver.solve()`` bit for bit, the sweep against 16 ``compute_forms`` +
   ``solve()`` with ``.x`` timed apart, each scenario kernel against the
   one-scenario kernel a row and its plain version (S ∈ {1, 16}, k = 1 and
-  2, every coefficient mode), the routes that run a sweep's rows (the demo
-  tree dense beside its batched blocked route, a 32² lattice, the 100k
-  forest) and ``devices=["cuda:0"] * 2``.
+  2, every coefficient mode), the routes that run a sweep's rows (a 32²
+  lattice, the 100k forest), the demo tree on the batched dense route beside
+  its batched blocked route, and ``devices=["cuda:0"] * 2``;
+* the dense route's scenario axis (``solve_sweep`` under ``auto`` for 0 <
+  B ≤ 4,096): the 13-generation arterial tree at N = 10 (B = 4,095; 16 per-edge
+  R scenarios in two chunks of K11 factors, 16 p_bc scenarios on one factor,
+  against the batched blocked route at 1e-11·scale) and web2k (B = 1,994; R
+  and p_bc), rows 0, 7 and 15 against ``Solver(schur_method="dense")`` bit
+  for bit, the launches at S = 1 and 16 by the profiler, each dense scenario
+  kernel (K8a, the bifurcation system, K6, K11's factor, gate and solve,
+  K8b) against the one-scenario kernel a row and its plain version (n ∈ {31,
+  455, 4,095}, S ∈ {1, 16}, k = 1 and 2, a row that trips the pivot gate, a
+  sweep in chunks), and one edge without bifurcations on K8a and K8b over S.
 
 The lattice sets also hold K17 on two streams at once, on repeated calls
 and in a replayed CUDA graph bit for bit, two K16 solves on two streams bit
@@ -318,6 +328,21 @@ KERNEL_RECORD = {
                                    "networks_fenicsx_tpu/solver.py:2453"),
     "expand_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/expand.cu",
                          "networks_fenicsx_tpu/solver.py:2743"),
+    # sweeps: the dense route's kernels over a scenario axis
+    "edge_data_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/edge_data.cu",
+                            "networks_fenicsx_tpu/solver.py:569"),
+    "bifurcation_system_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/peel.cu",
+                                     "networks_fenicsx_tpu/solver.py:700"),
+    "segsum_plan_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/segsum.cu",
+                              "networks_fenicsx_tpu/solver.py:2058"),
+    "dense_factor_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/dense_core.cu",
+                               "networks_fenicsx_tpu/ops/mixed_precision.py:34"),
+    "dense_gate_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/dense_core.cu",
+                             "networks_fenicsx_tpu/ops/mixed_precision.py:34"),
+    "dense_solve_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/dense_core.cu",
+                              "networks_fenicsx_tpu/ops/mixed_precision.py:49"),
+    "backsub_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/backsub.cu",
+                          "networks_fenicsx_tpu/solver.py:4418"),
 }
 # the factor-reuse wrappers: the configurations whose checks hold each, and the one timed
 FACTOR_CHECKS = {
@@ -2677,7 +2702,7 @@ def holds_its_run(window: dict) -> bool:
     return window["pad_start"] >= 1 and window["pad_end"] == PAD_KERNELS
 
 
-def launch_count_windows(run, pattern: str, device, attempts: int = 3) -> list[dict]:
+def launch_count_windows(run, pattern: str, device, attempts: int = 6) -> list[dict]:
     """Windows (:func:`counted_window`) of ``run``, at most ``attempts``,
     until one holds its run (:func:`holds_its_run`): such a window stands,
     whatever its counts; one that does not shows, by padding kernels that
@@ -6006,8 +6031,9 @@ def row_route_sweeps(P, device, forest_asm) -> dict:
     """One sweep on each route that runs its rows (no scenario axis yet),
     each row against the row's ``Solver.solve()``: bit for bit on the same
     route, at the reference's tolerances against ``Solver``'s own route
-    under ``auto``; and the small demo tree on the dense rows (``auto``)
-    beside the batched blocked route (``schur_method="tree"``), timed."""
+    under ``auto``; and the small demo tree on the batched dense route
+    (``auto``) beside the batched blocked route (``schur_method="tree"``),
+    timed."""
     out = {}
     # demos/demo_sweep.py: make_arterial_tree(6), N = 10, per-edge R, S = 16
     small = arterial_assembler(P, 6, 10)
@@ -6016,7 +6042,7 @@ def row_route_sweeps(P, device, forest_asm) -> dict:
     tree = P.SolverOptions(schur_method="tree")
     dense = P.solve_sweep(small, R=Rb, device=device)
     ex = list(small._sweep_cache.values())[-1][1]
-    assert type(ex).__name__ == "_DenseExecutor", type(ex)
+    assert type(ex).__name__ == "_DenseExecutor" and ex.has_scenario_axis, type(ex)
     blocked = P.solve_sweep(small, R=Rb, options=tree, device=device)
     assert list(small._sweep_cache.values())[-1][1].has_scenario_axis
     xd, xb = dense.x, blocked.x
@@ -6027,14 +6053,14 @@ def row_route_sweeps(P, device, forest_asm) -> dict:
         small.compute_forms(p_bc_ex=lambda x: x[1], R=Rb[i])
         s = P.Solver(small, options=P.SolverOptions(schur_method="dense"), device=device)
         s.solve()
-        assert np.array_equal(s.solution_vector(), xd[i]), ("dense rows", i)
+        assert np.array_equal(s.solution_vector(), xd[i]), ("dense sweep rows", i)
     small.compute_forms(p_bc_ex=lambda x: x[1], R=R0)
     out["demo_tree"] = {
         "edges": small.network.num_edges, "bifurcations": small.network.num_multipliers,
         "dofs": small.num_dofs, "S": SWEEP_S, "dense_vs_blocked": err, "scale": scale,
-        "dense_rows_ms": best_ms(lambda: P.solve_sweep(small, R=Rb, device=device)),
+        "dense_ms": best_ms(lambda: P.solve_sweep(small, R=Rb, device=device)),
         "blocked_ms": best_ms(lambda: P.solve_sweep(small, R=Rb, options=tree, device=device)),
-        "dense_rows_device": device_share(lambda: P.solve_sweep(small, R=Rb, device=device)),
+        "dense_device": device_share(lambda: P.solve_sweep(small, R=Rb, device=device)),
         "blocked_device": device_share(lambda: P.solve_sweep(small, R=Rb, options=tree,
                                                              device=device)),
     }
@@ -6083,6 +6109,629 @@ def row_route_sweeps(P, device, forest_asm) -> dict:
                          "rows_bit_for_bit": True}
     return out
 
+
+# ---------------------------------------------------------------- dense sweeps
+
+DENSE_GENERATIONS = 13  # make_arterial_tree(13): 4,095 bifurcations, the top of auto's dense band
+DENSE_N = 10
+WEB455 = 456  # make_random_network(456, keep=0.7, num_boundary=8, seed=5): 455 bifurcations
+DENSE_TRIP_ROW = 5  # the R row of a kernel set that trips the pivot gate
+EDGE_CELLS = 4_096  # the network without bifurcations: one edge of 4,096 cells
+# the dense route's scenario wrappers, and the kernel-check case that times each
+DENSE_SCENARIO_CHECKS = {
+    "edge_data_scenarios": "dense_tree13_R16",
+    "bifurcation_system_scenarios": "dense_tree13_R16",
+    "segsum_plan_scenarios": "dense_tree13_R16",
+    "dense_factor_scenarios": "dense_tree13_R16",
+    "dense_gate_scenarios": "dense_tree13_R16",
+    "dense_solve_scenarios": "dense_tree13_R16",
+    "backsub_scenarios": "dense_tree13_R16",
+}
+
+
+def dense_calls(ex, S: int, r_batch: bool) -> dict:
+    """The wrapper counts a dense sweep of S scenarios must show: each
+    scenario wrapper once, K11's a chunk (an R batch) or the factor and gate
+    once on the shared R (``dense_core`` counts ``dense_factor``; ``segsum``
+    the pair sums of one R)."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core
+
+    B = ex.device_plan.num_bifurcations
+    chunks = -(-S // dense_core.scenario_chunk(B, r_batch, ex.scenario_budget))
+    want = {"edge_data_scenarios": 1, "bifurcation_system_scenarios": 1, "backsub_scenarios": 1,
+            "dense_solve_scenarios": chunks}
+    if r_batch:
+        want.update(segsum_plan_scenarios=2, dense_factor_scenarios=chunks,
+                    dense_gate_scenarios=chunks)
+    else:
+        want.update(segsum_plan_scenarios=1, segsum=1, dense_core=1, dense_gate=1)
+    return want
+
+
+def dense_sweep_path(P, device, asm, label: str, batch: dict, row_forms, base_forms,
+                     blocked: bool = False) -> dict:
+    """One dense sweep through ``solve_sweep`` under ``auto`` on the card,
+    counted (every wrapper's launches set to 0 just before it and read just
+    after: the dense scenario wrappers as :func:`dense_calls` says, nothing
+    else); rows :data:`SWEEP_ROWS` against ``Solver(schur_method="dense")``
+    of that row, ``x`` by ``np.array_equal`` and the blocks by
+    ``torch.equal``; the whole sweep against the same sweep a row at a time
+    (``batch._run_rows``, the route before its scenario axis) bit for bit;
+    ``blocked``: against the batched blocked route's at 1e-11·scale; its
+    time without ``.x`` (and a row at a time), the device's busy time, idle
+    share and launches, and its device time by kernel family."""
+    from networks_fenicsx_tpu_torch import batch as PB
+    from networks_fenicsx_tpu_torch import kernels
+
+    base_forms()
+    P.solve_sweep(asm, device=device, **batch)  # the executor, built once and cached
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    res = P.solve_sweep(asm, device=device, **batch)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    ex = list(asm._sweep_cache.values())[-1][1]
+    assert type(ex).__name__ == "_DenseExecutor" and ex.has_scenario_axis, (label, type(ex))
+    S = next(int(np.shape(v)[0]) for v in batch.values())
+    want = dense_calls(ex, S, "R" in batch)
+    got = {n: v for n, v in launches.items() if v}
+    assert got == want, (label, got, want)
+    sweep_ms = best_ms(lambda: P.solve_sweep(asm, device=device, **batch))
+    share = device_share(lambda: P.solve_sweep(asm, device=device, **batch))
+    x = res.x
+    assert x.shape == (S, asm.num_dofs) and np.all(np.isfinite(x)), (label, x.shape)
+    key = next(k for k, e in asm._sweep_cache.items() if e[1] is ex)
+    entry = asm._sweep_cache[key]
+    asm._sweep_cache[key] = (PB._run_rows, *entry[1:])  # the same executor, a row a call
+    try:
+        assert np.array_equal(P.solve_sweep(asm, device=device, **batch).x, x), (label, "rows")
+        rows_ms = best_ms(lambda: P.solve_sweep(asm, device=device, **batch))
+    finally:
+        asm._sweep_cache[key] = entry
+    solver = P.Solver(asm, options=P.SolverOptions(schur_method="dense"), device=device)
+    for i in SWEEP_ROWS:
+        row_forms(i)
+        solver.solve()
+        assert solver.info.converged, (label, i, solver.info)
+        sx = solver._executor
+        one = sx(*sx.prepare_args(*asm.schur_arguments()))
+        same_x = np.array_equal(solver.solution_vector(), x[i])
+        same_blocks = all(torch.equal(res.blocks[j][i], one[j]) for j in range(3))
+        assert same_x and same_blocks, (label, i, same_x, same_blocks)
+    base_forms()
+    rec = {"S": S, "B": asm.network.num_multipliers, "dofs": asm.num_dofs, "sweep_ms": sweep_ms,
+           "rows_ms": rows_ms, "device": share, "wrapper_calls": want,
+           "rows_bit_for_bit": list(SWEEP_ROWS),
+           "device_split": dense_device_split(lambda: P.solve_sweep(asm, device=device, **batch))}
+    if blocked:
+        tree = P.SolverOptions(schur_method="tree")
+        xb = P.solve_sweep(asm, options=tree, device=device, **batch).x
+        assert list(asm._sweep_cache.values())[-1][1].has_scenario_axis
+        scale = max(1.0, float(np.abs(xb).max()))
+        err = float(np.abs(x - xb).max())
+        assert err <= 1e-11 * scale, (label, err, scale)
+        rec.update(dense_vs_blocked=err, scale=scale,
+                   blocked_ms=best_ms(lambda: P.solve_sweep(asm, options=tree, device=device,
+                                                            **batch)))
+    return {"rec": rec, "launches": launches}
+
+
+K11_KERNELS = r"\b(tiled_\w+|tc_\w+|ts_\w+)_kernel\b"  # K11's kernels (dense_core.cu's and the header's)
+# a dense sweep's kernels by family, for its device split
+DENSE_FAMILIES = {"K8a": r"\bedge_\w+_kernel\b", "system": r"\blambda_prepare_scen_kernel\b",
+                  "K6": r"\bsegsum_plan_kernel\b", "K11": K11_KERNELS,
+                  "K8b": r"\bbacksub_blocks_kernel\b"}
+
+
+def dense_device_split(run) -> dict | None:
+    """One ``run()`` under ``torch.profiler``: device µs and launches of each
+    family of :data:`DENSE_FAMILIES` and of the rest (copies and PyTorch's
+    kernels); None where the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {name: {"us": 0.0, "launches": 0} for name in (*DENSE_FAMILIES, "other")}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((n for n, pat in DENSE_FAMILIES.items() if re.search(pat, ev.key)), "other")
+        out[name]["us"] += getattr(ev, "device_time_total", 0.0) or 0.0
+        out[name]["launches"] += ev.count
+    return out if any(v["us"] for v in out.values()) else None
+
+
+def kernel_counts(run, device) -> dict:
+    """``{kernel or copy name: count}`` of the device events of one
+    ``torch.profiler`` window around ``run()``, padded as
+    :func:`counted_window` pads (the padding left out); None when the
+    window does not hold its run (:func:`holds_its_run`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = torch.zeros(64, dtype=torch.float64, device=device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PAD_KERNELS):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+        for _ in range(PAD_KERNELS):
+            pad.mul_(1.0)
+        torch.cuda.synchronize()
+    counts, pads = {}, {"pad_start": 0, "pad_end": 0}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if re.search(r"(?i)add", ev.key):
+            pads["pad_start"] += ev.count
+        elif re.search(r"(?i)mul", ev.key):
+            pads["pad_end"] += ev.count
+        else:
+            counts[ev.key] = counts.get(ev.key, 0) + ev.count
+    return counts if holds_its_run(pads) else None
+
+
+def dense_launches_vs_S(P, device, asm, make_batch, label: str) -> dict:
+    """A dense sweep's device events as the profiler counts them (kernels
+    and copies, by name) at S = 1 and S = 16: equal, but for one more
+    chunk's K11 launches a chunk past the first, and the copy that joins
+    the chunks' λ."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core
+
+    counts = {}
+    for S in (SWEEP_S, 1, SWEEP_S):
+        batch = make_batch(S)
+        P.solve_sweep(asm, device=device, **batch)  # warm: the cache, the solve states
+        for _ in range(6):
+            got = kernel_counts(lambda: P.solve_sweep(asm, device=device, **batch), device)
+            if got is not None:
+                break
+        assert got is not None, (label, S, "no window held its run")
+        counts[S] = got
+    ex = next(e[1] for e in asm._sweep_cache.values() if type(e[1]).__name__ == "_DenseExecutor")
+    r_batch = "R" in make_batch(1)
+    B, P0 = ex.device_plan.num_bifurcations, int(ex._pid.shape[0])
+    chunks = -(-SWEEP_S // dense_core.scenario_chunk(B, r_batch, ex.scenario_budget))
+    per_chunk = dense_core.cuda_launches(B, P0) if r_batch else dense_core.solve_launches(B)
+    c1, c16 = counts[1], counts[SWEEP_S]
+    diff = {k: c16.get(k, 0) - c1.get(k, 0) for k in set(c1) | set(c16)}
+    diff = {k: v for k, v in diff.items() if v}
+    k11 = sum(v for k, v in diff.items() if re.search(K11_KERNELS, k))
+    other = {k: v for k, v in diff.items() if not re.search(K11_KERNELS, k)}
+    assert k11 == (chunks - 1) * per_chunk, (label, k11, chunks, per_chunk, diff)
+    assert sum(other.values()) == (chunks > 1), (label, other)  # the one cat
+    return {"S1": sum(c1.values()), "S16": sum(c16.values()), "chunks": chunks,
+            "k11_launches_a_chunk": per_chunk, "k11_more": k11, "other_more": other}
+
+
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``torch.equal`` with NaN equal to NaN (a tripped gate's rows)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def nan_close(name, got, want, tol) -> tuple[float, float]:
+    """``max_err`` where ``want`` is not NaN, after checking that ``got`` is
+    NaN exactly where ``want`` is."""
+    g, w = float_tensors(got), float_tensors(want)
+    assert len(g) == len(w), name
+    err, scale = 0.0, 1.0
+    for a, b in zip(g, w):
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), (name, "NaN pattern")
+        m = ~torch.isnan(b)
+        if m.any():
+            err = max(err, float((a[m] - b[m]).abs().max()))
+            scale = max(scale, float(b[m].abs().max()))
+    assert err <= tol * scale, (name, err, scale)
+    return err, scale
+
+
+def compare_dense_scenario_kernels(ex, ins, timed: bool) -> dict:
+    """Each dense scenario wrapper on the card against the one-scenario
+    wrapper a row (``torch.equal``) and against its plain version (the
+    one-scenario plain version a row, stacked): K8a at :data:`TOL`·scale
+    (bit for bit but the library Cholesky of its general layout at k ≥ 2),
+    the system and the pair sums bit for bit, K11's assembly bit for bit and
+    its factor by its backward error (≤ 8·n·ε, each scenario), the gate's
+    flags equal, the refined solve at :data:`CYCLIC_TOL`·scale (and one
+    unrefined pass at :data:`TOL`·scale up to 628 nodes, CYCLIC_TOL above),
+    K8b at TOL·scale; NaN rows (a tripped gate) NaN in both.  An R batch
+    runs S factors, one R (``ins[0]`` unbatched) one factor and the solves
+    over S.  ``timed``: each wrapper's time beside its plain version's, its
+    bound and the library call."""
+    from networks_fenicsx_tpu_torch.edge_data import scenario_row
+    from networks_fenicsx_tpu_torch.kernels import backsub, dense_core, edge_data, peel, segsum
+
+    R, f, sp, ep = ins
+    dlp, N, k = ex.device_plan, ex._N, ex._k
+    modes = (ex._R_mode, ex._f_mode, ex._f_is_zero)
+    r_dims = 2 if ex._R_mode == "quad" else 1
+    r_batch = R.dim() > r_dims
+    mk = (dlp, N, k, ex._h_e, ex._quad_w, ex._quad_phi)
+    S = next(t.shape[0] for t, d in zip(ins, (r_dims, 1, 1, 1)) if t.dim() > d)
+    E, B, C = dlp.num_edges, dlp.num_bifurcations, dlp.num_edges * N
+    nq = k + 1
+    rec = {}
+
+    def row(t, dims, i):
+        return t[i] if t.dim() > dims else t
+
+    def fields(ed):
+        out = [t for t in (ed.mt, ed.cumF, ed.W, ed.g, ed.rh, ed.ua, ed.uF) if t is not None]
+        return out + [t for t in ed.interior if t.dim() > 2]
+
+    def hold(name, got, ones, plain, tol, exact, work=None, kernel=None, plain_fn=None,
+             library=None):
+        torch.cuda.synchronize()
+        ft = float_tensors(got)
+        assert all(same(a, b) for a, b in zip(ft, float_tensors(ones))), (name, "rows")
+        err, scale = nan_close(name, got, plain, tol)
+        equal = all(same(a, b) for a, b in zip(ft, float_tensors(plain)))
+        if exact:
+            assert equal, (name, "not bit for bit against the plain version")
+        r = {"max_abs_err": err, "scale": scale, "rows_equal": True, "equal": equal, "S": S}
+        if timed and kernel is not None:
+            r["ms"] = cuda_ms(kernel, reps=10)
+            r["plain_ms"] = cuda_ms(plain_fn, reps=2, warmup=1)
+            r.update(bound(*work))
+            r["library_ms"] = cuda_ms(library, reps=5) if library is not None else None
+        rec[name] = r
+        return r
+
+    # K8a
+    e_args = (*mk, R, f, *modes, sp, ep)
+    ed = edge_data.edge_data_scenarios(*e_args)
+    ones = [edge_data.edge_data(*mk, row(R, r_dims, i), row(f, 1, i), *modes, row(sp, 1, i),
+                                row(ep, 1, i)) for i in range(S)]
+    ones = [torch.stack(col) for col in zip(*(fields(o) for o in ones))]
+    general = ed.mt is not None
+    hold("edge_data_scenarios", fields(ed), ones,
+         fields(edge_data.edge_data_scenarios_plain(*e_args)), TOL, k == 1 or not general,
+         (tensor_bytes(ex._h_e, ex._quad_w, ex._quad_phi, R, f, sp, ep, dlp.start_bif,
+                       dlp.end_bif, fields(ed)), (3 * nq * (k + 1) ** 2 + 2 * nq + 10) * C * S),
+         lambda: edge_data.edge_data_scenarios(*e_args),
+         lambda: edge_data.edge_data_scenarios_plain(*e_args))
+    del ones
+    # the bifurcation systems
+    s_args = (dlp, ed.W, ed.g, ed.cumF[:, -1], ed.start_pbc, ed.end_pbc)
+    dr, w = peel.bifurcation_system_scenarios(*s_args)
+    ones = [torch.stack(col) for col in zip(*(
+        peel.bifurcation_system(dlp, ed.W[i], ed.g[i], ed.cumF[i, -1], row(sp, 1, i),
+                                row(ep, 1, i))[:2] for i in range(S)))]
+    sys_tables = tensor_bytes(dlp.t_idx, dlp.s_idx, dlp.t_bins, dlp.s_bins)
+    hold("bifurcation_system_scenarios", (dr, w), ones,
+         peel.bifurcation_system_scenarios_plain(*s_args), TOL, True,
+         (tensor_bytes(ed.W, ed.g, sp, ep, dlp.start_bif, dlp.end_bif, dr, w) + 8 * E * S
+          + sys_tables, 14 * E * S),
+         lambda: peel.bifurcation_system_scenarios(*s_args),
+         lambda: peel.bifurcation_system_scenarios_plain(*s_args))
+    # the pair sums
+    idx = ex._pair_idx
+    (wp,) = segsum.segsum_plan_scenarios(ex._pair_sums, w)
+    ones = torch.stack([segsum.segsum_plan(ex._pair_sums, w[i])[0] for i in range(S)])
+    okx = (idx >= 0) & (idx < E)
+    seg = torch.arange(idx.shape[0], device=idx.device)[:, None].expand_as(idx)[okx]
+    src = w[:, idx[okx].long()].contiguous()
+    hold("segsum_plan_scenarios", wp, ones,
+         segsum.segsum_plan_scenarios_plain(ex._pair_sums, w)[0], TOL, True,
+         (tensor_bytes(idx, w, wp), int(okx.sum()) * S),
+         lambda: segsum.segsum_plan_scenarios(ex._pair_sums, w),
+         lambda: segsum.segsum_plan_scenarios_plain(ex._pair_sums, w),
+         lambda: torch.zeros((S, idx.shape[0]), dtype=torch.float64,
+                             device=w.device).index_add_(1, seg, src))
+    del ones
+    # K11
+    pairs = (ex._ci, ex._cj, ex._pid)
+    P0 = int(ex._pid.shape[0])
+    diag, rhs = dr[:, :, 0].contiguous(), dr[:, :, 1].contiguous()
+    nr = dense_core.N_REFINE
+    if r_batch:
+        Lc, s, Cf = dense_core.dense_factor_scenarios(*pairs, diag, wp)
+        torch.cuda.synchronize()
+        Lp, sp_, Cp = dense_core.dense_factor_scenarios_plain(*pairs, diag, wp)
+        assert same(Lc, Lp) and same(s, sp_), "K11 assembly bits"
+        berr, fin = 0.0, []
+        for i in range(S):
+            one = dense_core.dense_factor(*pairs, diag[i], wp[i])
+            assert all(same(a[i], b) for a, b in zip((Lc, s, Cf), one)), ("factor", i)
+            L = torch.tril(Cf[i])
+            fin.append(bool(torch.isfinite(L).all()))
+            if fin[-1]:
+                Ls = (Lc[i] / s[i][:, None]) / s[i][None, :]
+                berr = max(berr, float((Ls - L @ L.T).abs().max()))
+        del one, L
+        assert berr <= 8 * B * EPS, ("factor backward error", berr, 8 * B * EPS)
+        r = {"max_abs_err": berr, "backward_bar": 8 * B * EPS, "rows_equal": True,
+             "assembly_equal": True, "S": S, "finite": fin}
+        if timed:
+            chol = torch.tril(Cf)
+            Ls_all = (Lc / s[:, :, None]) / s[:, None, :]
+            r["ms"] = cuda_ms(lambda: dense_core.dense_factor_scenarios(*pairs, diag, wp), reps=3)
+            r["plain_ms"] = cuda_ms(lambda: dense_core.dense_factor_scenarios_plain(
+                *pairs, diag, wp), reps=2, warmup=1)
+            r.update(bound(tensor_bytes(diag, wp, *pairs) + 8 * S * (2 * B * B + B), 0.0,
+                           S * B**3 / 3))
+            r["library_ms"] = cuda_ms(lambda: torch.linalg.cholesky_ex(Ls_all), reps=3)
+            del Ls_all
+        rec["dense_factor_scenarios"] = r
+        del Lp, sp_, Cp
+        ok = dense_core.dense_gate_scenarios(Cf)
+        ones = torch.stack([dense_core.dense_gate(Cf[i]) for i in range(S)])
+        assert torch.equal(ok, ones), "gate rows"
+        okp = dense_core.dense_gate_scenarios_plain(torch.tril(Cf))
+        assert torch.equal(ok.bool(), okp), "gate vs plain"
+        r = {"max_abs_err": 0.0, "equal": True, "rows_equal": True, "S": S,
+             "ok": ok.tolist()}
+        if timed:
+            r["ms"] = cuda_ms(lambda: dense_core.dense_gate_scenarios(Cf))
+            r["plain_ms"] = cuda_ms(lambda: dense_core.dense_gate_scenarios_plain(Cf), reps=3)
+            r.update(bound(8 * B * S + 4 * S, 3 * B * S))
+            r["library_ms"] = None
+        rec["dense_gate_scenarios"] = r
+        fac = (Lc, s, Cf, ok)
+        ones_fac = lambda i: (Lc[i], s[i], Cf[i], ok[i])  # noqa: E731
+        solve_bytes = 8 * S * (B * B + B * (B + 1) // 2 + B)
+    else:
+        one = dense_core.dense_factor(*pairs, diag[0], wp[0])
+        fac = (*one, dense_core.dense_gate(one[2]))
+        ones_fac = lambda i: fac  # noqa: E731
+        solve_bytes = 8 * (B * B + B * (B + 1) // 2 + B)
+    solve_name = "dense_solve_scenarios" if r_batch else "dense_solve_scenarios_shared"
+    chol_of = torch.tril(fac[2])
+    lam = dense_core.dense_solve_scenarios(*fac, rhs)
+    ones = torch.stack([dense_core.dense_solve(*ones_fac(i), rhs[i]) for i in range(S)])
+    lib_rhs = ((rhs / fac[1]) if fac[1].dim() == 2 else (rhs / fac[1][None]))[..., None]
+    lib_chol = chol_of if chol_of.dim() == 3 else chol_of[None].expand(S, B, B)
+    hold(solve_name, lam, ones,
+         dense_core.dense_solve_scenarios_plain(fac[0], fac[1], chol_of, fac[3], rhs),
+         CYCLIC_TOL, False,
+         (solve_bytes + 16 * S * B, S * ((1 + nr) * 2 * B * B + nr * 2 * B * B)),
+         lambda: dense_core.dense_solve_scenarios(*fac, rhs),
+         lambda: dense_core.dense_solve_scenarios_plain(fac[0], fac[1], chol_of, fac[3], rhs),
+         lambda: torch.cholesky_solve(lib_rhs, lib_chol))
+    lam0 = dense_core.dense_solve_scenarios(*fac, rhs, n_refine=0)
+    ones0 = torch.stack([dense_core.dense_solve(*ones_fac(i), rhs[i], n_refine=0)
+                         for i in range(S)])
+    assert same(lam0, ones0), "unrefined rows"
+    err0, _ = nan_close("unrefined", lam0, dense_core.dense_solve_scenarios_plain(
+        fac[0], fac[1], chol_of, fac[3], rhs, n_refine=0), TOL if B <= 628 else CYCLIC_TOL)
+    rec[solve_name]["unrefined_err"] = err0
+    if r_batch:  # the fused one-scenario K11 on each row: the same bits
+        for i in range(S):
+            assert same(lam[i], dense_core.dense_core(*pairs, diag[i], rhs[i], wp[i])), i
+    del fac, chol_of, lib_chol, ones, ones0
+    # K8b
+    q_T, p_T, fin = backsub.backsub_scenarios(ed, lam, N, k)
+    ones = [backsub.backsub(scenario_row(ed, i), lam[i], N, k) for i in range(S)]
+    assert torch.equal(fin, torch.stack([o[2] for o in ones])), "finite flags"
+    ones = [torch.stack([o[j] for o in ones]) for j in range(2)]
+    plain = backsub.backsub_scenarios_plain(ed, lam, N, k)
+    assert torch.equal(fin, plain[2]), "finite flags vs plain"
+    hold("backsub_scenarios", (q_T, p_T), ones, plain[:2], TOL, False,
+         (tensor_bytes(lam, fields(ed), sp, ep, dlp.start_bif, dlp.end_bif, q_T, p_T),
+          10 * (k * N + 1) * E * S),
+         lambda: backsub.backsub_scenarios(ed, lam, N, k),
+         lambda: backsub.backsub_scenarios_plain(ed, lam, N, k))
+    rec["finite"] = fin.tolist()
+    return rec
+
+
+def dense_case(P, device, asm, S: int, kind: str, seed: int, trip: int | None = None):
+    """A dense executor on ``asm`` (its executor for ``schur_method="dense"``
+    on the card, f kept) and inputs in its public order: ``kind`` "R" an R
+    batch of S at :data:`SWEEP_SCALES` (S = 16) or random scales, "pbc" a
+    boundary-pressure batch on the shared R, "f" a source batch; ``trip``:
+    that R row's every third edge negated and scaled by 4 (an indefinite
+    Laplacian: the pivot gate trips)."""
+    from networks_fenicsx_tpu_torch.solver import build_schur_executor
+
+    ex = build_schur_executor(asm, P.SolverOptions(schur_method="dense"), device=device,
+                              elide_zero_f=False)
+    R0, f0, sp0, ep0 = ex.upload(*asm.schur_arguments())
+    rng = np.random.default_rng(seed)
+    dlp = ex.device_plan
+    if kind == "R":
+        scales = SWEEP_SCALES if S == SWEEP_S else rng.uniform(0.5, 2.0, S)
+        R = R0[None] * torch.as_tensor(scales, device=device)[:, None]
+        if trip is not None:
+            R[trip, ::3] *= -4.0
+        return ex, (R.contiguous(), f0, sp0, ep0)
+    if kind == "f":
+        f = torch.as_tensor(rng.uniform(-1.0, 1.0, (S,) + tuple(f0.shape)), device=device)
+        return ex, (R0, f, sp0, ep0)
+    mask_s = (dlp.start_bif < 0).double()
+    mask_e = (dlp.end_bif < 0).double()
+    sp = torch.as_tensor(rng.uniform(-1.0, 1.0, (S, dlp.num_edges)), device=device) * mask_s
+    ep = torch.as_tensor(rng.uniform(-1.0, 1.0, (S, dlp.num_edges)), device=device) * mask_e
+    return ex, (R0, f0, sp.contiguous(), ep.contiguous())
+
+
+def dense_kernel_sets(P, device, tree13) -> dict:
+    """The dense route's scenario kernels on the card, S ∈ {1, 16}, n ∈ {31,
+    455, 4,095}, k = 1 and 2, R batches (S factors) and boundary-pressure or
+    source batches (one factor): the 13-generation tree's R batch timed (the
+    kernels line) and its p_bc batch (the solves on one factor) timed; a
+    455-node web's R row that trips the pivot gate (NaN alone); the web's R
+    sweep in chunks of 5 against its one-chunk sweep bit for bit."""
+    from networks_fenicsx_tpu_torch.kernels import dense_core
+
+    out = {}
+    for kind in ("R", "pbc"):
+        ex, ins = dense_case(P, device, tree13, SWEEP_S, kind, seed=1)
+        out[f"dense_tree13_{kind}16"] = compare_dense_scenario_kernels(ex, ins, timed=True)
+        del ex, ins
+    ex, ins = dense_case(P, device, tree13, 1, "R", seed=2)
+    out["dense_tree13_R1"] = compare_dense_scenario_kernels(ex, ins, timed=False)
+    web = web455_assembler(P)
+    for k in (1, 2):
+        demo = arterial_assembler(P, 6, 10, k=k, per_cell=True, seed=4)
+        w = web if k == 1 else web455_assembler(P, k=k)
+        for name, asm in (("demo", demo), ("web455", w)):
+            for S, kind in ((SWEEP_S, "R"), (SWEEP_S, "pbc"), (SWEEP_S, "f"), (1, "R")):
+                ex, ins = dense_case(P, device, asm, S, kind, seed=10 * k + S)
+                out[f"dense_{name}_k{k}_{kind}{S}"] = compare_dense_scenario_kernels(
+                    ex, ins, timed=False)
+    # a row that trips the gate: NaN alone, in the kernels and through the sweep
+    ex, ins = dense_case(P, device, web, SWEEP_S, "R", seed=5, trip=DENSE_TRIP_ROW)
+    rec = compare_dense_scenario_kernels(ex, ins, timed=False)
+    assert rec["dense_gate_scenarios"]["ok"] == [int(i != DENSE_TRIP_ROW) for i in range(SWEEP_S)]
+    assert rec["finite"] == [i != DENSE_TRIP_ROW for i in range(SWEEP_S)], rec["finite"]
+    out["dense_web455_trip"] = rec
+    R0 = web.schur_arguments()[0]
+    Rb = R0[None] * SWEEP_SCALES[:, None]
+    Rb[DENSE_TRIP_ROW, ::3] *= -4.0
+    x = P.solve_sweep(web, R=Rb, device=device).x
+    keep = [i for i in range(SWEEP_S) if i != DENSE_TRIP_ROW]
+    assert np.isnan(x[DENSE_TRIP_ROW]).any() and not np.isnan(x[keep]).any()
+    assert np.array_equal(P.solve_sweep(web, R=Rb[keep], device=device).x, x[keep]), "trip rows"
+    # an R sweep in chunks of 5 scenarios: the one-chunk sweep's bits, a factor call a chunk
+    Rb = R0[None] * SWEEP_SCALES[:, None]
+    whole = P.solve_sweep(web, R=Rb, device=device).x
+    ex = list(web._sweep_cache.values())[-1][1]
+    B = web.network.num_multipliers
+    ex.scenario_budget = 5 * 16 * B * B
+    before = dense_core.dense_factor_scenarios.launches
+    chunked = P.solve_sweep(web, R=Rb, device=device).x
+    calls = dense_core.dense_factor_scenarios.launches - before
+    ex.scenario_budget = dense_core.SCENARIO_BUDGET
+    assert calls == 4 and np.array_equal(chunked, whole), (calls, "chunks")
+    out["dense_web455_chunks"] = {"chunk": 5, "factor_calls": calls, "bit_for_bit": True}
+    return out
+
+
+def web455_assembler(P, k: int = 1):
+    """``make_random_network(456, keep=0.7, num_boundary=8, seed=5)`` (455
+    bifurcations) at N = 2, per-edge R from ``default_rng(456)``, per-cell f,
+    p_bc = x."""
+    net = P.network_generation.make_random_network(WEB455, keep=0.7, num_boundary=8, seed=5,
+                                                   arrays=True)
+    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(net, N=2, color_strategy="fast"),
+                                      flux_degree=k, pressure_degree=0)
+    rng = np.random.default_rng(WEB455)
+    asm.compute_forms(p_bc_ex=lambda x: x[0], R=rng.uniform(0.5, 2.0, asm.network.num_edges),
+                      f=rng.uniform(-1.0, 1.0, asm.network.num_cells))
+    assert asm.network.num_multipliers == 455, asm.network.num_multipliers
+    return asm
+
+
+def edge_only_sweep(P, device) -> dict:
+    """A network without bifurcations (one edge of :data:`EDGE_CELLS` cells,
+    k = 2) on ``_EdgeExecutor.scenarios``: an R and a source sweep of 16,
+    K8a and K8b over S once each and nothing else, rows against
+    ``Solver.solve()`` bit for bit."""
+    import networkx as nx
+
+    from networks_fenicsx_tpu_torch import kernels
+
+    G = nx.DiGraph()
+    G.add_node(0, pos=np.array([0.0, 0.0, 0.0]))
+    G.add_node(1, pos=np.array([0.0, 1.0, 0.0]))
+    G.add_edge(0, 1)
+    asm = P.HydraulicNetworkAssembler(P.NetworkMesh(G, N=EDGE_CELLS), flux_degree=2)
+    rng = np.random.default_rng(12)
+    R0, f0 = rng.uniform(0.5, 2.0, 1), rng.uniform(-1.0, 1.0, EDGE_CELLS)
+    asm.compute_forms(p_bc_ex=lambda x: x[1], R=R0, f=f0)
+    out, runs = {}, []
+    for name, batch in (("R", {"R": R0[None] * SWEEP_SCALES[:, None]}),
+                        ("f", {"f": rng.uniform(-1.0, 1.0, (SWEEP_S, EDGE_CELLS))})):
+        P.solve_sweep(asm, device=device, **batch)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = P.solve_sweep(asm, device=device, **batch)
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        got = {n: v for n, v in launches.items() if v}
+        assert got == {"edge_data_scenarios": 1, "backsub_scenarios": 1}, (name, got)
+        ex = list(asm._sweep_cache.values())[-1][1]
+        assert type(ex).__name__ == "_EdgeExecutor" and ex.has_scenario_axis, type(ex)
+        x = res.x
+        for i in SWEEP_ROWS:
+            forms = {"R": batch["R"][i] if "R" in batch else R0,
+                     "f": batch["f"][i] if "f" in batch else f0}
+            asm.compute_forms(p_bc_ex=lambda x: x[1], **forms)
+            s = P.Solver(asm, device=device)
+            s.solve()
+            assert np.array_equal(s.solution_vector(), x[i]), (name, i)
+        asm.compute_forms(p_bc_ex=lambda x: x[1], R=R0, f=f0)
+        out[name] = {"S": SWEEP_S, "dofs": asm.num_dofs, "rows_bit_for_bit": list(SWEEP_ROWS),
+                     "sweep_ms": best_ms(lambda: P.solve_sweep(asm, device=device, **batch))}
+        runs.append(launches)
+    return {"rec": out, "runs": runs}
+
+
+def dense_sweeps(P, device, name_power: str) -> dict:
+    """The dense route's scenario axis on the card: the 13-generation
+    arterial tree (B = 4,095, the top of ``auto``'s dense band; an R batch of
+    16 in two chunks and a p_bc batch of 16 on one factor, against the
+    batched blocked route), web2k (B = 1,994, cyclic; R and p_bc batches),
+    the launches at S = 1 and 16, the kernel sets and the network without
+    bifurcations."""
+    t0 = time.perf_counter()
+    tree13 = arterial_assembler(P, DENSE_GENERATIONS, DENSE_N)
+    mesh = tree13.network
+    assert mesh.num_multipliers == 4_095, mesh.num_multipliers
+    R0 = 1.0 / mesh.edge_radius**4
+    pb = mesh.vertices[: mesh.num_graph_nodes][:, 1]
+    paths, runs = {}, []
+
+    def tree_forms(R=R0, s=1.0):
+        tree13.compute_forms(p_bc_ex=lambda x: s * x[1], R=R)
+
+    Rb = R0[None] * SWEEP_SCALES[:, None]
+    paths["tree13_R16"] = dense_sweep_path(
+        P, device, tree13, "dense tree13 R", {"R": Rb}, lambda i: tree_forms(R=Rb[i]),
+        tree_forms, blocked=True)
+    paths["tree13_pbc16"] = dense_sweep_path(
+        P, device, tree13, "dense tree13 p_bc", {"p_bc_node_values": SWEEP_SCALES[:, None] * pb},
+        lambda i: tree_forms(s=SWEEP_SCALES[i]), tree_forms, blocked=True)
+    web = web2k_assembler(P)
+    assert web.network.num_multipliers == 1_994, web.network.num_multipliers
+    Rw = web.schur_arguments()[0]
+    Rwb = Rw[None] * SWEEP_SCALES[:, None]
+    px = web.network.vertices[: web.network.num_graph_nodes][:, 0]
+    paths["web2k_R16"] = dense_sweep_path(
+        P, device, web, "dense web2k R", {"R": Rwb},
+        lambda i: web.compute_forms(p_bc_ex=lambda x: x[0], R=Rwb[i]), lambda: web2k_forms(web))
+    paths["web2k_pbc16"] = dense_sweep_path(
+        P, device, web, "dense web2k p_bc", {"p_bc_node_values": SWEEP_SCALES[:, None] * px},
+        lambda i: web.compute_forms(p_bc_ex=lambda x, s=SWEEP_SCALES[i]: s * x[0], R=Rw),
+        lambda: web2k_forms(web))
+    for key, path in paths.items():
+        runs.append(path["launches"])
+        log(f"phase sweep dense {key} ({name_power}): " + json.dumps(path["rec"]))
+    counts = {
+        "tree13_R": dense_launches_vs_S(
+            P, device, tree13, lambda S: {"R": R0[None] * np.linspace(0.5, 2.0, S)[:, None]},
+            "tree13 R"),
+        "tree13_pbc": dense_launches_vs_S(
+            P, device, tree13,
+            lambda S: {"p_bc_node_values": np.linspace(0.5, 2.0, S)[:, None] * pb}, "tree13 p_bc"),
+        "web2k_R": dense_launches_vs_S(
+            P, device, web, lambda S: {"R": Rw[None] * np.linspace(0.5, 2.0, S)[:, None]},
+            "web2k R"),
+    }
+    log("phase sweep dense launches (profiled, S = 1 and 16; a chunk past the first adds its "
+        "K11 launches and one cat): " + json.dumps(counts))
+    del web
+    sets = dense_kernel_sets(P, device, tree13)
+    for name in ("dense_tree13_R16", "dense_tree13_pbc16"):
+        log(f"phase kernels-sweep {name}: " + json.dumps(sets[name]))
+    log(f"phase kernels-sweep dense: {len(sets)} cases (n in {{31, 455, 4,095}}, S in {{1, 16}}, "
+        "k = 1 and 2, R batches on S factors, p_bc and f batches on one, a row that trips the "
+        "gate, a sweep in chunks), each wrapper against the one-scenario wrapper a row bit for "
+        "bit and against its plain version: "
+        + json.dumps({n: sorted(k for k in rec if isinstance(rec[k], dict))
+                      for n, rec in sets.items() if n.startswith("dense_tree13")}))
+    edge = edge_only_sweep(P, device)
+    runs += edge["runs"]
+    log("phase sweep without bifurcations (one edge, 4,096 cells, k = 2): "
+        + json.dumps(edge["rec"]))
+    log(f"phase wall: the dense sweep phases {time.perf_counter() - t0:.1f} s")
+    return {"sets": sets, "runs": runs}
 
 def sweep_phases(P, device, name_power: str, serial: dict) -> dict:
     """The sweeps: the headline tree's R and p_bc sweeps of 16 scenarios on
@@ -6160,6 +6809,9 @@ def sweep_phases(P, device, name_power: str, serial: dict) -> dict:
         + json.dumps(exact))
     rows = row_route_sweeps(P, device, serial["forest"][0])
     log("phase sweep row routes: " + json.dumps(rows))
+    dense = dense_sweeps(P, device, name_power)
+    sets.update(dense["sets"])
+    runs += dense["runs"]
     log(f"phase wall: the sweep phases {time.perf_counter() - t_start:.1f} s")
     return {"sets": sets, "runs": runs}
 
@@ -6367,9 +7019,9 @@ def main() -> int:
             errs = tuple(factor[c.split(":")[0]]["checks"][c.split(":")[1] if ":" in c else name]
                          ["max_abs_err"] for c in checks)
             timed_on = factor[on]["checks"][name]
-        elif name in SCENARIO_CHECKS:
+        elif name in SCENARIO_CHECKS or name in DENSE_SCENARIO_CHECKS:
             errs = tuple(rec[name]["max_abs_err"] for rec in sweep_sets.values() if name in rec)
-            timed_on = sweep_sets[SCENARIO_CHECKS[name]][name]
+            timed_on = sweep_sets[{**SCENARIO_CHECKS, **DENSE_SCENARIO_CHECKS}[name]][name]
         elif name in GENERIC_CHECKS:
             checks = GENERIC_CHECKS[name]
             errs = tuple(gen_sets[on][key]["max_abs_err"] for on, key in checks)
@@ -6390,7 +7042,7 @@ def main() -> int:
             "bound_ms": timed_on["bound_ms"], "bound_by": timed_on["bound_by"],
             "library_ms": timed_on.get("library_ms"),
         })
-    assert len(kernels) == 51 and all(kr["launches"] > 0 for kr in kernels), kernels
+    assert len(kernels) == 58 and all(kr["launches"] > 0 for kr in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

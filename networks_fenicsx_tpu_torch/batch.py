@@ -11,9 +11,16 @@ scenarios run:
   launches of one solve (``_BlockedExecutor.scenarios``: the full sweep when
   R varies by scenario, else K2's factor once and K3–K4 over the S
   right-hand sides);
-* every other route (dense, DCT and grid, tree, level, CG, no multiplier)
-  runs its rows through its executor, one solve a row, into preallocated
-  ``(S, ·)`` device outputs (ROADMAP A9b names the routes still to batch).
+* so has the dense route (:class:`.solver._DenseExecutor` under
+  ``schur_method="dense"``, which ``auto`` picks for every network with 0 <
+  B ≤ 4,096 that is not a scalar-R lattice): K8a, the bifurcation system
+  (K9's prepare kernel, K6), K11 and K8b over S (``_DenseExecutor.scenarios``:
+  S factors when R varies by scenario, in chunks that bound the factors'
+  memory, else one factor and S right-hand sides), and the route without
+  multipliers (:class:`.solver._EdgeExecutor`: K8a and K8b over S);
+* every other route (``dense_f64``, DCT and grid, tree, level, CG) runs its
+  rows through its executor, one solve a row, into preallocated ``(S, ·)``
+  device outputs (ROADMAP A9b names the routes still to batch).
 
 Either way row ``i`` is the executor's call on row ``i`` bit for bit.  The
 device is explicit, as for :class:`.solver.Solver`: ``device="cuda"`` by
@@ -102,9 +109,9 @@ class SweepResult:
 
 
 def _run_scenarios(executor, args, in_axes):
-    """The blocked route: every argument uploaded once (a batched one with
-    its scenario axis, a shared one as one row) and the S scenarios in one
-    launch of each kernel."""
+    """A route with a scenario axis: every argument uploaded once (a batched
+    one with its scenario axis, a shared one as one row) and the S scenarios
+    in the launches of one solve."""
     del in_axes  # the shapes carry it
     q_T, p_T, lam, _, _ = executor.scenarios(*executor.upload(*args))
     return q_T, p_T, lam

@@ -21,6 +21,14 @@ j-major — cell index first, edge last — so that one GPU thread per edge
 walking down its cells touches consecutive addresses across a warp.  The
 kernels that fill and read it are K8a (:mod:`.kernels.edge_data`) and K8b
 (:mod:`.kernels.backsub`).
+
+A sweep's edge data (:func:`.kernels.edge_data.edge_data_scenarios`) is one
+:class:`_EdgeData` whose per-scenario fields carry a leading S: ``W``,
+``g`` ``(S, E)``, ``cumF`` ``(S, N+1, E)``, ``mt``, ``rh``, ``ua``, ``uF``
+and a per-cell ``Minv_IE`` likewise; ``start_pbc`` and ``end_pbc`` ``(S,
+E)`` when batched, ``(E,)`` when every scenario shares them; the
+bifurcation tables and the fixed recovery matrix shared.
+:func:`scenario_row` takes one scenario's.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import typing
 
 import torch
 
-__all__ = ["LAYOUTS", "edge_layout", "elides_source"]
+__all__ = ["LAYOUTS", "edge_layout", "elides_source", "scenario_row"]
 
 LAYOUTS = ("uniform", "scalar", "scalar_k", "general")
 
@@ -67,3 +75,17 @@ def elides_source(layout: str, f_is_zero: bool) -> bool:
     """Whether the layout skips the source cumsums: the reference elides
     them for a zero scalar source in the scalar layouts only."""
     return f_is_zero and layout in ("scalar", "scalar_k")
+
+
+def scenario_row(ed: _EdgeData, i: int) -> _EdgeData:
+    """Scenario ``i``'s :class:`_EdgeData` of a sweep's (see module docs)."""
+
+    def row(t):
+        return None if t is None else t[i]
+
+    pbc = [t[i] if t.dim() == 2 else t for t in (ed.start_pbc, ed.end_pbc)]
+    interior = tuple(t[i] if t.dim() == 5 else t for t in ed.interior)
+    return _EdgeData(mt=row(ed.mt), cumF=ed.cumF[i], W=ed.W[i], g=ed.g[i],
+                     start_bif=ed.start_bif, end_bif=ed.end_bif, start_pbc=pbc[0],
+                     end_pbc=pbc[1], interior=interior, rh=row(ed.rh), ua=row(ed.ua),
+                     uF=row(ed.uF))

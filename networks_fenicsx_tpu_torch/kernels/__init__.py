@@ -100,7 +100,12 @@ A sweep (:mod:`..batch`) gives the blocked route a scenario axis: K1
 (``condense_scenarios``), K2–K4 (``tree_sweep_scenarios``, the full sweep
 of S resistance rows; ``tree_sweep_apply_scenarios``, S right-hand sides on
 one stored factor) and K5 (``expand_scenarios``) take S scenarios in the
-launches of one solve: the ``SCENARIO`` wrappers.
+launches of one solve; so do the dense route's kernels: K8a
+(``edge_data_scenarios``), the bifurcation system (K9's
+``bifurcation_system_scenarios`` on K6's ``segsum_plan_scenarios``, which
+also sums the pair conductances), K11 (``dense_factor_scenarios``,
+``dense_gate_scenarios``, ``dense_solve_scenarios`` on S factors or on one)
+and K8b (``backsub_scenarios``): the ``SCENARIO`` wrappers.
 
 A wrapper launches its kernel for CUDA tensors (building the library from
 ``csrc/`` at first use, see :mod:`.build`) and runs the plain version for
@@ -142,7 +147,11 @@ FACTORED = (tree_sweep.tree_sweep_factor, tree_sweep.tree_sweep_apply, peel.bifu
             dct_lattice.dct_factor, dct_lattice.dct_apply, core_elim.core_factor,
             core_elim.core_apply, core_fronts.core_fronts_factor, core_fronts.core_fronts_apply)
 SCENARIO = (condense.condense_scenarios, tree_sweep.tree_sweep_scenarios,
-            tree_sweep.tree_sweep_apply_scenarios, expand.expand_scenarios)
+            tree_sweep.tree_sweep_apply_scenarios, expand.expand_scenarios,
+            edge_data.edge_data_scenarios, peel.bifurcation_system_scenarios,
+            segsum.segsum_plan_scenarios, dense_core.dense_factor_scenarios,
+            dense_core.dense_gate_scenarios, dense_core.dense_solve_scenarios,
+            backsub.backsub_scenarios)
 WRAPPERS = (BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE + ASSEMBLED + SHARDED + FACTORED
             + SCENARIO)
 

@@ -72,6 +72,15 @@ _SIGNATURES = {
         _p, _p, _p, _p, _p, _p,  # mt, minv, work, cumF, W, g
         _p, _p, _p, _p,  # rh, ua, uF, stream
     ],
+    "nxfx_edge_data_scen": [
+        _i, _i, _i, _i, _i,  # layout, E, N, k, nq
+        _i, _i, _i, _i, _i, _i, _i,  # the tile: cells, rows, R width, pitch, f width, pitch, shared
+        _p, _p, _i, _p, _i, _i,  # h_e, R, mode, f, mode, elide_f
+        _p, _p, _d, _d, _d,  # wq, phi, wt, cs0, cs1
+        _p, _p, _p, _p, _p, _p,  # mt, minv, work, cumF, W, g
+        _p, _p, _p,  # rh, ua, uF
+        _i, _i, _l, _l, _p,  # S, rows of blocks, R stride, f stride, stream
+    ],
     "nxfx_level_prepare": [
         _i, _p, _p, _p,  # E, W, g, Ftot
         _p, _p, _p, _p,  # start_pbc, end_pbc, start_bif, end_bif
@@ -93,6 +102,23 @@ _SIGNATURES = {
         _d, _d, _d, _d,  # condensed matrix
         _p, _p, _p, _p,  # q_T, p_T, finite, stream
     ],
+    "nxfx_backsub_scen": [
+        _i, _i, _i, _i, _i, _i, _p,  # layout, E, B, N, k, S, host strides (10)
+        _p, _p, _p, _p, _p,  # lam, start_bif, end_bif, start_pbc, end_pbc
+        _p, _p, _p,  # W, g, cumF
+        _p, _p, _p, _i, _p, _p,  # mt, rh, minv, per_cell, ua, uF
+        _d, _d, _d, _d,  # condensed matrix
+        _p, _p, _p, _p,  # q_T, p_T, finite (S,), stream
+    ],
+    "nxfx_lambda_prepare_scen": [
+        _i, _i, _l, _l, _l,  # E, S, Ftot, start_pbc, end_pbc strides
+        _p, _p, _p, _p, _p, _p, _p,  # W, g, Ftot, start_pbc, end_pbc, start_bif, end_bif
+        _p, _p, _p, _p,  # w, vt, vs, stream
+    ],
+    "nxfx_segsum_plan_scen": [
+        _p, _i, _i,  # SumPlanArgs, n, S
+        _p, _p, _p, _p, _p, _p, _p, _p, _p,  # four value arrays, four outputs, stream
+    ],
     "nxfx_lambda_prepare": [
         _i, _p, _p, _p,  # E, W, g, Ftot
         _p, _p, _p, _p,  # start_pbc, end_pbc, start_bif, end_bif
@@ -113,6 +139,15 @@ _SIGNATURES = {
     "nxfx_dense_solve": [
         _i, _i, _p, _p, _p, _p,  # n, n_refine, Lc, C, s, ok
         _p, _p, _p, _p, _p,  # rc, v, y, x, stream
+    ],
+    "nxfx_dense_factor_scen": [
+        _i, _i, _i, _l, _p, _p, _p, _p,  # n, S, P0, P, ci, cj, pid, w_pairs (S, P)
+        _p, _p, _p, _p, _p,  # dc (S, n), Lc, C (S, n, n), s (S, n), stream
+    ],
+    "nxfx_dense_gate_scen": [_i, _i, _p, _p, _p],  # n, S, C (S, n, n), ok (S,), stream
+    "nxfx_dense_solve_scen": [
+        _i, _i, _i, _i, _p, _p, _p, _p,  # n, S, n_refine, shared, Lc, C, s, ok
+        _p, _p, _p, _p, _p,  # rc (S, n), v, y, x, stream
     ],
     "nxfx_core_forward": [_p, _p],  # CoreArgs, stream
     "nxfx_core_factor": [_p, _p],  # CoreArgs, stream

@@ -21,6 +21,15 @@
 // column, so each row of q_T / p_T and of the j-major inputs is one
 // coalesced run across the warp.  The finiteness flag only ever goes from
 // 1 to 0, so concurrent plain stores suffice.
+//
+// A sweep (batch.solve_sweep on the dense route and without multipliers)
+// expands S scenarios in one launch (nxfx_backsub_scen): the grid's y,
+// min(S, 65,535) rows of blocks walking the scenarios y, y + gridDim.y, ...;
+// every array moves by its own stride a scenario (0 when shared: the
+// boundary pressures of an R or f batch, the fixed recovery matrix), each
+// scenario has its own finiteness flag, and the per-edge body is the
+// one-scenario launch's, so a scenario's blocks are that launch's bit for
+// bit.
 
 #include <cuda_runtime.h>
 
@@ -30,8 +39,14 @@ constexpr int LAYOUT_UNIFORM = 0;
 constexpr int LAYOUT_SCALAR = 1;
 constexpr int LAYOUT_SCALAR_K = 2;
 
-__global__ void backsub_blocks_kernel(
-    int layout, int E, int B, int N, int k,
+// The doubles between two scenarios' arrays (0: shared or unused).
+struct BacksubStrides {
+    long long lam, sp, ep, edge, cumF, mt, rh, minv, qT, pT;
+};
+
+// edge e (and multiplier e < B) of one scenario
+__device__ __forceinline__ void backsub_edge(
+    int e, int layout, int E, int B, int N, int k,
     const double* __restrict__ lam,
     const int* __restrict__ start_bif,
     const int* __restrict__ end_bif,
@@ -51,7 +66,6 @@ __global__ void backsub_blocks_kernel(
     double* __restrict__ p_T,
     int* __restrict__ finite)
 {
-    const int e = blockIdx.x * blockDim.x + threadIdx.x;
     if (e < B && !isfinite(lam[e])) *finite = 0;
     if (e >= E) return;
     const size_t sE = static_cast<size_t>(E);
@@ -127,6 +141,46 @@ __global__ void backsub_blocks_kernel(
     if (!ok) *finite = 0;
 }
 
+// S scenarios (S = 1: the one-scenario launch), scenario z's arrays z
+// strides further on and its flag finite[z]
+__global__ void backsub_blocks_kernel(
+    int layout, int E, int B, int N, int k, int S, BacksubStrides z0,
+    const double* lam, const int* start_bif, const int* end_bif, const double* start_pbc,
+    const double* end_pbc, const double* W, const double* g, const double* cumF, const double* mt,
+    const double* rh, const double* minv, int minv_per_cell, const double* ua, const double* uF,
+    double mt00, double mt01, double mt10, double mt11, double* q_T, double* p_T, int* finite)
+{
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    for (int zi = blockIdx.y; zi < S; zi += gridDim.y) {
+        const size_t z = static_cast<size_t>(zi);
+        backsub_edge(e, layout, E, B, N, k, lam + z * z0.lam, start_bif, end_bif, start_pbc + z * z0.sp,
+                     end_pbc + z * z0.ep, W + z * z0.edge, g + z * z0.edge, cumF + z * z0.cumF, mt + z * z0.mt,
+                     rh + z * z0.rh, minv + z * z0.minv, minv_per_cell, ua + z * z0.edge, uF + z * z0.edge,
+                     mt00, mt01, mt10, mt11, q_T + z * z0.qT, p_T + z * z0.pT, finite + z);
+    }
+}
+
+int launch_backsub(
+    int layout, int E, int B, int N, int k, int S, const BacksubStrides& z0,
+    const double* lam, const int* start_bif, const int* end_bif,
+    const double* start_pbc, const double* end_pbc,
+    const double* W, const double* g, const double* cumF,
+    const double* mt, const double* rh, const double* minv, int minv_per_cell,
+    const double* ua, const double* uF,
+    double mt00, double mt01, double mt10, double mt11,
+    double* q_T, double* p_T, int* finite,
+    cudaStream_t stream)
+{
+    const int n = E > B ? E : B;
+    if (n <= 0 || S <= 0) return 0;
+    const int threads = 256;
+    const dim3 grid((n + threads - 1) / threads, S < 65535 ? S : 65535);
+    backsub_blocks_kernel<<<grid, threads, 0, stream>>>(
+        layout, E, B, N, k, S, z0, lam, start_bif, end_bif, start_pbc, end_pbc, W, g, cumF,
+        mt, rh, minv, minv_per_cell, ua, uF, mt00, mt01, mt10, mt11, q_T, p_T, finite);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int nxfx_backsub(
@@ -140,12 +194,29 @@ extern "C" int nxfx_backsub(
     double* q_T, double* p_T, int* finite,
     cudaStream_t stream)
 {
-    const int n = E > B ? E : B;
-    if (n <= 0) return 0;
-    const int threads = 256;
-    const int blocks = (n + threads - 1) / threads;
-    backsub_blocks_kernel<<<blocks, threads, 0, stream>>>(
-        layout, E, B, N, k, lam, start_bif, end_bif, start_pbc, end_pbc, W, g, cumF,
-        mt, rh, minv, minv_per_cell, ua, uF, mt00, mt01, mt10, mt11, q_T, p_T, finite);
-    return static_cast<int>(cudaGetLastError());
+    return launch_backsub(layout, E, B, N, k, 1, BacksubStrides{}, lam, start_bif, end_bif, start_pbc, end_pbc,
+                          W, g, cumF, mt, rh, minv, minv_per_cell, ua, uF, mt00, mt01, mt10, mt11, q_T, p_T,
+                          finite, stream);
+}
+
+// K8b of S scenarios in one launch: the one-scenario arguments (the first
+// scenario's pointers) with S and the host array of the strides (lam,
+// start_pbc, end_pbc, the (E,) edge data W, g, ua, uF, cumF, mt, rh, minv,
+// q_T, p_T; 0 when shared or unused); finite (S,).
+extern "C" int nxfx_backsub_scen(
+    int layout, int E, int B, int N, int k, int S, const long long* strides,
+    const double* lam, const int* start_bif, const int* end_bif,
+    const double* start_pbc, const double* end_pbc,
+    const double* W, const double* g, const double* cumF,
+    const double* mt, const double* rh, const double* minv, int minv_per_cell,
+    const double* ua, const double* uF,
+    double mt00, double mt01, double mt10, double mt11,
+    double* q_T, double* p_T, int* finite,
+    cudaStream_t stream)
+{
+    const BacksubStrides z0{strides[0], strides[1], strides[2], strides[3], strides[4],
+                            strides[5], strides[6], strides[7], strides[8], strides[9]};
+    return launch_backsub(layout, E, B, N, k, S, z0, lam, start_bif, end_bif, start_pbc, end_pbc, W, g, cumF,
+                          mt, rh, minv, minv_per_cell, ua, uF, mt00, mt01, mt10, mt11, q_T, p_T, finite,
+                          stream);
 }

@@ -142,7 +142,7 @@ extern "C" int nxfx_front_factor(
     }
     const cudaError_t err = tiled_cholesky(F, m, m, w, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
-    tc_gate_kernel<<<1, 1024, 0, stream>>>(w, m, F, FRONT_PIVOT_RTOL, first, ok);
+    tc_gate_kernel<<<1, 1024, 0, stream>>>(w, m, F, FRONT_PIVOT_RTOL, first, ok, 0);
     NXFX_CHECK();
     return 0;
 }

@@ -49,6 +49,15 @@
 // (kernels/edge_data.py:edge_tile); the launcher recomputes the bytes and
 // refuses what the card would.  The uniform layout reads one value an edge:
 // a thread an edge.
+//
+// A sweep (batch.solve_sweep) forms S scenarios' edge data in one launch
+// (nxfx_edge_data_scen): the grid's y, min(S, 65,535) rows of blocks, each
+// block walking the scenarios y, y + gridDim.y, ...  R and f move by their
+// own stride a scenario (0 when every scenario shares one), every output by
+// its size; h_e and the Gauss rule are shared.  The plan (layout, tile,
+// chunk, warps) is the one-scenario call's, and each scenario runs the
+// one-scenario body on its pointers, so its rows are that call's bit for
+// bit.  A tile launch's device scratch holds a set a block of the grid.
 
 #include <cuda_runtime.h>
 
@@ -87,7 +96,28 @@ struct EdgeArgs {
     double* rh;          // (N, E)                  scalar layouts
     double* ua;          // (E,)                    uniform
     double* uF;
+    // scenarios: S, and the doubles between two scenarios' R, f, mt, minv,
+    // cumF, (E,) outputs (W, g, ua, uF) and rh (0: shared or unused)
+    int S;
+    long long zR, zF, zmt, zminv, zcumF, zE, zrh;
 };
+
+// Scenario z's arguments.
+__device__ __forceinline__ EdgeArgs at_scenario(EdgeArgs a, int z)
+{
+    const size_t Z = static_cast<size_t>(z);
+    a.R += Z * a.zR;
+    a.f += Z * a.zF;
+    a.mt += Z * a.zmt;
+    a.minv += Z * a.zminv;
+    a.cumF += Z * a.zcumF;
+    a.W += Z * a.zE;
+    a.g += Z * a.zE;
+    a.ua += Z * a.zE;
+    a.uF += Z * a.zE;
+    a.rh += Z * a.zrh;
+    return a;
+}
 
 // A tile launch's plan: the chunk's cells, a cell's staged doubles of R
 // and f (0: read from device memory) and their rows' pitches, and where
@@ -121,10 +151,12 @@ __host__ __device__ inline long long tile_doubles(int k, int CY, const TilePlan&
            + static_cast<long long>(CHAIN) * t.CN * TILE + (t.shared_scratch ? n * n * TILE * CY : 0);
 }
 
-__global__ void edge_uniform_kernel(EdgeArgs a)
+__global__ void edge_uniform_kernel(EdgeArgs a0)
 {
     const int e = blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= a.E) return;
+    if (e >= a0.E) return;
+    for (int z = blockIdx.y; z < a0.S; z += gridDim.y) {
+    const EdgeArgs a = at_scenario(a0, z);
     const double h = a.h_e[e];
     const double dN = static_cast<double>(a.N);
     const double ra = (a.R_mode == MODE_SCALAR ? a.R[0] : a.R[e]) * h;
@@ -134,6 +166,7 @@ __global__ void edge_uniform_kernel(EdgeArgs a)
     a.cumF[e] = F * dN;
     a.ua[e] = ra;
     a.uF[e] = F;
+    }
 }
 
 // A coefficient of cell cg (public index e N + c) of edge e: from its staged
@@ -254,10 +287,12 @@ __device__ __forceinline__ void finish(const EdgeArgs& a, int e, double Wacc, do
 
 // short edges: a thread an edge, its cells from device memory (no k >= 2)
 template <bool GENERAL>
-__global__ void __launch_bounds__(THREADS) edge_direct_kernel(EdgeArgs a)
+__global__ void __launch_bounds__(THREADS) edge_direct_kernel(EdgeArgs a0)
 {
     const int e = blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= a.E) return;
+    if (e >= a0.E) return;
+    for (int z = blockIdx.y; z < a0.S; z += gridDim.y) {
+    const EdgeArgs a = at_scenario(a0, z);
     const size_t sE = static_cast<size_t>(a.E);
     const double h = a.h_e[e];
     double cum = 0.0, Wacc = 0.0, gacc = 0.0, F, v1, v2;
@@ -267,6 +302,7 @@ __global__ void __launch_bounds__(THREADS) edge_direct_kernel(EdgeArgs a)
         a.cumF[(c + 1) * sE + e] = chain_step<GENERAL>(a, F, v1, v2, cum, Wacc, gacc);
     }
     finish(a, e, Wacc, gacc);
+    }
 }
 
 // The runs of cells [c0, c0 + cn) of the tile's ne edges from `src` (w
@@ -292,9 +328,12 @@ __device__ __forceinline__ void copy_runs(
 // (k-1)^2 a thread.
 // GENERAL: the general layout (else the scalar ones); CHOL: its k >= 2.
 template <bool GENERAL, bool CHOL>
-__global__ void __launch_bounds__(TILE * MAX_ROWS) edge_tile_kernel(EdgeArgs a, TilePlan t, double* work)
+__global__ void __launch_bounds__(TILE * MAX_ROWS) edge_tile_kernel(EdgeArgs a0, TilePlan t, double* work)
 {
     extern __shared__ __align__(16) double smem[];
+    for (int z = blockIdx.y; z < a0.S; z += gridDim.y) {
+    __syncthreads();  // the previous scenario's tile is done with shared memory
+    const EdgeArgs a = at_scenario(a0, z);
     const int lane = threadIdx.x, row = threadIdx.y, CY = blockDim.y;
     const int tid = row * TILE + lane, nthreads = TILE * CY;
     const int e0 = blockIdx.x * TILE;
@@ -312,9 +351,9 @@ __global__ void __launch_bounds__(TILE * MAX_ROWS) edge_tile_kernel(EdgeArgs a, 
         if (t.shared_scratch) {
             L = sC + CHAIN * CN * TILE + tid;
             Ls = static_cast<size_t>(nthreads);
-        } else {
-            L = work + static_cast<size_t>(blockIdx.x) * nthreads + tid;
-            Ls = static_cast<size_t>(gridDim.x) * nthreads;
+        } else {  // a set a block of the grid
+            L = work + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * nthreads + tid;
+            Ls = static_cast<size_t>(gridDim.x) * gridDim.y * nthreads;
         }
     }
     const double h = live ? a.h_e[e] : 0.0;
@@ -369,6 +408,48 @@ __global__ void __launch_bounds__(TILE * MAX_ROWS) edge_tile_kernel(EdgeArgs a, 
     }
     wait_all();
     if (row == 0 && live) finish(a, e, Wacc, gacc);
+    }
+}
+
+}  // namespace
+
+namespace {
+
+// The launch of a (S scenarios, gy rows of blocks; the tile kernels'
+// device scratch holds gy sets).
+int launch_edge_data(const EdgeArgs& a, int CN, int CY, int wR, int pR, int wF, int pF, int shared_scratch,
+                     double* work, int gy, cudaStream_t stream)
+{
+    const int E = a.E, N = a.N, k = a.k, layout = a.layout;
+    if (E <= 0 || a.S <= 0) return 0;
+    if (gy < 1 || gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    const bool general = layout > LAYOUT_SCALAR_K;
+    if (layout == LAYOUT_UNIFORM) {
+        edge_uniform_kernel<<<dim3((E + THREADS - 1) / THREADS, gy), THREADS, 0, stream>>>(a);
+        return static_cast<int>(cudaGetLastError());
+    }
+    if (N < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (CY == 0) {
+        if (general && k >= 2) return static_cast<int>(cudaErrorInvalidValue);
+        auto kernel = general ? edge_direct_kernel<true> : edge_direct_kernel<false>;
+        kernel<<<dim3((E + THREADS - 1) / THREADS, gy), THREADS, 0, stream>>>(a);
+        return static_cast<int>(cudaGetLastError());
+    }
+    const TilePlan t{CN, wR, pR, wF, pF, shared_scratch};
+    if (CN < 1 || CY < 1 || CY > MAX_ROWS || wR < 0 || wF < 0 || pR < wR * CN || pF < wF * CN
+        || (!shared_scratch && general && k >= 2 && work == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long bytes = 8 * tile_doubles(k, CY, t);
+    if (bytes > static_cast<long long>(SMEM_MAX)) return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = !general ? edge_tile_kernel<false, false>
+                           : (k == 1 ? edge_tile_kernel<true, false> : edge_tile_kernel<true, true>);
+    if (bytes > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<dim3((E + TILE - 1) / TILE, gy), dim3(TILE, CY), static_cast<size_t>(bytes), stream>>>(a, t, work);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -385,34 +466,30 @@ extern "C" int nxfx_edge_data(
     double* rh, double* ua, double* uF,
     cudaStream_t stream)
 {
-    if (E <= 0) return 0;
     const EdgeArgs a{layout, E, N, k, nq, R_mode, f_mode, elide_f, h_e, R, f, wq, phi, wt, cs0, cs1,
-                     mt, minv, cumF, W, g, rh, ua, uF};
-    const bool general = layout > LAYOUT_SCALAR_K;
-    if (layout == LAYOUT_UNIFORM) {
-        edge_uniform_kernel<<<(E + THREADS - 1) / THREADS, THREADS, 0, stream>>>(a);
-        return static_cast<int>(cudaGetLastError());
-    }
-    if (N < 1) return static_cast<int>(cudaErrorInvalidValue);
-    if (CY == 0) {
-        if (general && k >= 2) return static_cast<int>(cudaErrorInvalidValue);
-        auto kernel = general ? edge_direct_kernel<true> : edge_direct_kernel<false>;
-        kernel<<<(E + THREADS - 1) / THREADS, THREADS, 0, stream>>>(a);
-        return static_cast<int>(cudaGetLastError());
-    }
-    const TilePlan t{CN, wR, pR, wF, pF, shared_scratch};
-    if (CN < 1 || CY < 1 || CY > MAX_ROWS || wR < 0 || wF < 0 || pR < wR * CN || pF < wF * CN
-        || (!shared_scratch && general && k >= 2 && work == nullptr))
-        return static_cast<int>(cudaErrorInvalidValue);
-    const long long bytes = 8 * tile_doubles(k, CY, t);
-    if (bytes > static_cast<long long>(SMEM_MAX)) return static_cast<int>(cudaErrorInvalidValue);
-    auto kernel = !general ? edge_tile_kernel<false, false>
-                           : (k == 1 ? edge_tile_kernel<true, false> : edge_tile_kernel<true, true>);
-    if (bytes > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    kernel<<<(E + TILE - 1) / TILE, dim3(TILE, CY), static_cast<size_t>(bytes), stream>>>(a, t, work);
-    return static_cast<int>(cudaGetLastError());
+                     mt, minv, cumF, W, g, rh, ua, uF, 1, 0, 0, 0, 0, 0, 0, 0};
+    return launch_edge_data(a, CN, CY, wR, pR, wF, pF, shared_scratch, work, 1, stream);
+}
+
+// K8a of S scenarios in one launch (gy rows of blocks, each walking the
+// scenarios y, y + gy, ...): the one-scenario arguments (the first
+// scenario's pointers), then S, gy and the strides of R and f (0: shared);
+// every output (S,) + its one-scenario shape, the scratch gy sets.
+extern "C" int nxfx_edge_data_scen(
+    int layout, int E, int N, int k, int nq, int CN, int CY, int wR, int pR, int wF, int pF,
+    int shared_scratch,
+    const double* h_e, const double* R, int R_mode, const double* f, int f_mode, int elide_f,
+    const double* wq, const double* phi, double wt, double cs0, double cs1,
+    double* mt, double* minv, double* work, double* cumF, double* W, double* g,
+    double* rh, double* ua, double* uF,
+    int S, int gy, long long zR, long long zF,
+    cudaStream_t stream)
+{
+    const long long sE = E, sN = N;
+    const bool uniform = layout == LAYOUT_UNIFORM, general = layout > LAYOUT_SCALAR_K;
+    const EdgeArgs a{layout, E, N, k, nq, R_mode, f_mode, elide_f, h_e, R, f, wq, phi, wt, cs0, cs1,
+                     mt, minv, cumF, W, g, rh, ua, uF, S, zR, zF,
+                     general ? sN * 4 * sE : 0, general && k > 1 ? sN * (k - 1) * 2 * sE : 0,
+                     (uniform ? 1 : sN + 1) * sE, sE, !uniform && !general ? sN * sE : 0};
+    return launch_edge_data(a, CN, CY, wR, pR, wF, pF, shared_scratch, work, gy, stream);
 }

@@ -55,6 +55,13 @@
 // the back pass on the stored w, db and the new rb.  A block run keeps a
 // slot's factor where the two-channel pass keeps its d.
 //
+// A sweep (batch.solve_sweep on the dense route) prepares S scenarios in
+// one launch (nxfx_lambda_prepare_scen): the grid's y, min(S, 65,535) rows
+// of blocks walking the scenarios y, y + gridDim.y, ...; W, g, the outputs a
+// row a scenario, Ftot and the boundary pressures at their own strides (0:
+// shared), each edge the one-scenario kernel's operations.  Its sums are
+// K6's nxfx_segsum_plan_scen; it has no |r| (the sweep drops it).
+//
 // Bound: the rounds' dependent latency (a round is a few dependent gathers
 // and a division: ~0.8 us a round forward in a run, the grid launches
 // 2-6 us each), not bytes: the 100k-site web's 18 rounds move ~3 MB.
@@ -102,8 +109,9 @@ constexpr int REDUCE_THREADS = 1024;
 
 inline int blocks_for(long long n) { return static_cast<int>((n + THREADS - 1) / THREADS); }
 
-__global__ void lambda_prepare_kernel(
-    int E,
+// edge e of one scenario
+__device__ __forceinline__ void lambda_prepare_edge(
+    int e,
     const double* __restrict__ W,
     const double* __restrict__ g,
     const double* __restrict__ Ftot,
@@ -115,8 +123,6 @@ __global__ void lambda_prepare_kernel(
     double* __restrict__ vt,   // (E, 2)
     double* __restrict__ vs)   // (E, 2)
 {
-    const int e = blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= E) return;
     const double We = W[e];
     const double w = 1.0 / We;
     w_out[e] = w;
@@ -132,6 +138,31 @@ __global__ void lambda_prepare_kernel(
     const double cst = (-start_pbc[e] * not_s + end_pbc[e] * not_t - g[e]) / We;
     vt[2 * e + 1] = cst + Ftot[e];
     vs[2 * e + 1] = -cst;
+}
+
+__global__ void lambda_prepare_kernel(
+    int E, const double* W, const double* g, const double* Ftot, const double* start_pbc,
+    const double* end_pbc, const int* start_bif, const int* end_bif, double* w_out, double* vt, double* vs)
+{
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= E) return;
+    lambda_prepare_edge(e, W, g, Ftot, start_pbc, end_pbc, start_bif, end_bif, w_out, vt, vs);
+}
+
+// S scenarios: W, g, w_out a row (E) a scenario, vt, vs 2 E, Ftot, start_pbc
+// and end_pbc at their strides
+__global__ void lambda_prepare_scen_kernel(
+    int E, int S, long long sFt, long long ssp, long long sep, const double* W, const double* g,
+    const double* Ftot, const double* start_pbc, const double* end_pbc, const int* start_bif,
+    const int* end_bif, double* w_out, double* vt, double* vs)
+{
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= E) return;
+    for (int z = blockIdx.y; z < S; z += gridDim.y) {
+        const size_t Z = static_cast<size_t>(z), sE = static_cast<size_t>(E);
+        lambda_prepare_edge(e, W + Z * sE, g + Z * sE, Ftot + Z * sFt, start_pbc + Z * ssp, end_pbc + Z * sep,
+                            start_bif, end_bif, w_out + Z * sE, vt + 2 * Z * sE, vs + 2 * Z * sE);
+    }
 }
 
 // sqrt(sum r^2) over the rhs channel of dr, one block, fixed summation order
@@ -634,6 +665,21 @@ extern "C" int nxfx_lambda_prepare(
     if (E <= 0) return 0;
     lambda_prepare_kernel<<<blocks_for(E), THREADS, 0, stream>>>(
         E, W, g, Ftot, start_pbc, end_pbc, start_bif, end_bif, w, vt, vs);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The same for S scenarios (g, Ftot and the boundary pressures required):
+// W, g (S, E), Ftot rows sFt apart, start_pbc, end_pbc rows ssp, sep apart
+// (0: shared); w (S, E), vt, vs (S, E, 2) out.  One launch.
+extern "C" int nxfx_lambda_prepare_scen(
+    int E, int S, long long sFt, long long ssp, long long sep, const double* W, const double* g,
+    const double* Ftot, const double* start_pbc, const double* end_pbc, const int* start_bif,
+    const int* end_bif, double* w, double* vt, double* vs, cudaStream_t stream)
+{
+    if (E <= 0 || S <= 0) return 0;
+    const dim3 grid(blocks_for(E), S < 65535 ? S : 65535);
+    lambda_prepare_scen_kernel<<<grid, THREADS, 0, stream>>>(E, S, sFt, ssp, sep, W, g, Ftot, start_pbc,
+                                                             end_pbc, start_bif, end_bif, w, vt, vs);
     return static_cast<int>(cudaGetLastError());
 }
 

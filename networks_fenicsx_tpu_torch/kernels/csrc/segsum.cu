@@ -39,6 +39,12 @@
 // plan's inverse table `inv`, -1 elsewhere).  That is the plain version's
 // zero-filled output with each group's sum added into it in turn, to the
 // bit, so neither the zero fill nor a launch a group is needed.
+//
+// nxfx_segsum_plan_scen runs a plan over S scenarios in one launch: the
+// grid's y, min(S, 65,535) rows of blocks walking the scenarios y, y +
+// gridDim.y, ...; scenario z's values are each group's (n, C) rows z times
+// n C further on, its outputs z times their size.  A scenario's sums are
+// the one-scenario launch's bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -143,6 +149,7 @@ struct SumLaunch {
     int group[SUM_MAX_GROUPS + 1];
     int jobs, n, C_shared;
     double* shared;
+    int S;  // scenarios (1: the one-scenario launch)
 };
 
 // segment s's sum of channel c: its K gathers in ascending order
@@ -150,6 +157,12 @@ __device__ __forceinline__ double row_sum(const int* idx, int K, int s, const do
                                           int c)
 {
     return fold::row_sum(idx + static_cast<size_t>(s) * K, K, vals, n, C, c);
+}
+
+// group h's values of scenario z
+__device__ __forceinline__ const double* scen_vals(const SumLaunch& L, int h, size_t z)
+{
+    return L.vals[h] + z * static_cast<size_t>(L.n) * L.p.C[h];
 }
 
 __global__ void __launch_bounds__(SUM_THREADS) segsum_plan_kernel(SumLaunch L)
@@ -160,21 +173,24 @@ __global__ void __launch_bounds__(SUM_THREADS) segsum_plan_kernel(SumLaunch L)
     while (t >= L.start[j + 1]) ++j;
     const long long local = t - L.start[j];
     const int g = L.group[j];
-    if (g >= 0) {
-        const int C = L.p.C[g];
-        L.out[g][local] = row_sum(L.p.idx[g], L.p.K[g], static_cast<int>(local / C), L.vals[g], L.n, C,
-                                  static_cast<int>(local % C));
-        return;
+    for (int zi = blockIdx.y; zi < L.S; zi += gridDim.y) {
+        const size_t z = static_cast<size_t>(zi);
+        if (g >= 0) {
+            const int C = L.p.C[g];
+            L.out[g][z * L.p.S[g] * C + local] = row_sum(L.p.idx[g], L.p.K[g], static_cast<int>(local / C),
+                                                         scen_vals(L, g, z), L.n, C, static_cast<int>(local % C));
+            continue;
+        }
+        const int C = L.C_shared;
+        const int b = static_cast<int>(local / C), c = static_cast<int>(local % C);
+        double acc = 0.0;
+        for (int h = 0; h < L.p.G; ++h) {
+            if (L.p.inv[h] == nullptr) continue;
+            const int s = L.p.inv[h][b];
+            if (s >= 0) acc = acc + row_sum(L.p.idx[h], L.p.K[h], s, scen_vals(L, h, z), L.n, C, c);
+        }
+        L.shared[z * L.p.rows * C + local] = acc;
     }
-    const int C = L.C_shared;
-    const int b = static_cast<int>(local / C), c = static_cast<int>(local % C);
-    double acc = 0.0;
-    for (int h = 0; h < L.p.G; ++h) {
-        if (L.p.inv[h] == nullptr) continue;
-        const int s = L.p.inv[h][b];
-        if (s >= 0) acc = acc + row_sum(L.p.idx[h], L.p.K[h], s, L.vals[h], L.n, C, c);
-    }
-    L.shared[local] = acc;
 }
 
 }  // namespace
@@ -215,16 +231,16 @@ extern "C" int nxfx_fold(
     return static_cast<int>(cudaGetLastError());
 }
 
-// K6 on a sum plan: one launch for all its groups.  vals: the groups' value
-// arrays (n rows each; a null past the plan's groups); out: each group's
-// output (the groups with bins name the shared output).
-extern "C" int nxfx_segsum_plan(
-    const SumPlanArgs* plan, int n,
+namespace {
+
+int launch_segsum_plan(
+    const SumPlanArgs* plan, int n, int S,
     const double* v0, const double* v1, const double* v2, const double* v3,
     double* o0, double* o1, double* o2, double* o3, cudaStream_t stream)
 {
-    if (plan->G < 1 || plan->G > SUM_MAX_GROUPS) return static_cast<int>(cudaErrorInvalidValue);
+    if (plan->G < 1 || plan->G > SUM_MAX_GROUPS || S < 1) return static_cast<int>(cudaErrorInvalidValue);
     SumLaunch L = {};
+    L.S = S;
     L.p = *plan;
     const double* vals[SUM_MAX_GROUPS] = {v0, v1, v2, v3};
     double* outs[SUM_MAX_GROUPS] = {o0, o1, o2, o3};
@@ -252,6 +268,30 @@ extern "C" int nxfx_segsum_plan(
     L.start[L.jobs] = total;
     if (total <= 0) return 0;
     const long long blocks = (total + SUM_THREADS - 1) / SUM_THREADS;
-    segsum_plan_kernel<<<static_cast<unsigned>(blocks), SUM_THREADS, 0, stream>>>(L);
+    const dim3 grid(static_cast<unsigned>(blocks), S < 65535 ? S : 65535);
+    segsum_plan_kernel<<<grid, SUM_THREADS, 0, stream>>>(L);
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K6 on a sum plan: one launch for all its groups.  vals: the groups' value
+// arrays (n rows each; a null past the plan's groups); out: each group's
+// output (the groups with bins name the shared output).
+extern "C" int nxfx_segsum_plan(
+    const SumPlanArgs* plan, int n,
+    const double* v0, const double* v1, const double* v2, const double* v3,
+    double* o0, double* o1, double* o2, double* o3, cudaStream_t stream)
+{
+    return launch_segsum_plan(plan, n, 1, v0, v1, v2, v3, o0, o1, o2, o3, stream);
+}
+
+// The same over S scenarios in one launch: each value array (S, n, C) and
+// each output (S,) + its one-scenario shape.
+extern "C" int nxfx_segsum_plan_scen(
+    const SumPlanArgs* plan, int n, int S,
+    const double* v0, const double* v1, const double* v2, const double* v3,
+    double* o0, double* o1, double* o2, double* o3, cudaStream_t stream)
+{
+    return launch_segsum_plan(plan, n, S, v0, v1, v2, v3, o0, o1, o2, o3, stream);
 }

@@ -17,6 +17,16 @@ per-cell inputs staged in chunks of cells through shared memory;
 launch on the host.  :func:`edge_data` launches the kernel for CUDA
 tensors (one launch a call) and runs :func:`edge_data_plain`, an eager
 transcription of the reference, for CPU tensors.
+
+A sweep (:func:`..batch.solve_sweep` on the dense route and without
+multipliers) forms S scenarios in one launch, :func:`edge_data_scenarios`:
+each of ``R``, ``f``, ``start_pbc`` and ``end_pbc`` batched (a leading S) or
+shared (read at stride 0), the plan :func:`edge_tile`'s for one scenario,
+the outputs an :class:`..edge_data._EdgeData` whose per-scenario fields
+carry a leading S (the fixed recovery matrix of the ``scalar_k`` layout and
+the bifurcation tables stay shared).  Row ``i`` is :func:`edge_data` of row
+``i`` bit for bit; :func:`edge_data_scenarios_plain` stacks
+:func:`edge_data_plain`.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from ..levels import DeviceLevelPlan
 from . import build
 
 __all__ = ["edge_data", "edge_data_plain", "edge_tile", "EdgeTile", "COEFF_MODES", "TILE_EDGES",
-           "SMEM_MAX"]
+           "SMEM_MAX", "edge_data_scenarios", "edge_data_scenarios_plain", "MAX_GRID_Y"]
 
 COEFF_MODES = {"scalar": 0, "edge": 1, "cell": 2, "quad": 3}
 TILE_EDGES = 32  # edges of a tile: a warp's lanes (csrc: TILE)
@@ -45,6 +55,7 @@ SMEM_TARGET = 100 * 1024  # a tile plan's bytes, at most, with its scratch in sh
 UNIFORM_THREADS = 128  # the uniform layout and short edges: a thread an edge (csrc: THREADS)
 CHUNK_DOUBLES = 64  # a chunk's staged doubles an edge, about
 DIRECT_DOUBLES = 16  # an edge's inputs, at most, read by a thread an edge (no Cholesky)
+MAX_GRID_Y = 65_535  # rows of blocks over the scenarios, at most (the grid's y limit)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,17 +310,39 @@ def edge_data(
         return edge_data_plain(
             dlp, N, k, h_e, quad_w, quad_phi, R, f, R_mode, f_mode, f_is_zero, start_pbc, end_pbc
         )
-    layout = edge_layout(k, R_mode, f_mode)
     build.require_cuda("edge_data", h_e, R, f, start_pbc, end_pbc)
-    build.require_cuda("edge_data", dlp.start_bif, dlp.end_bif, dtype=torch.int32)
     E = dlp.num_edges
-    C, nq = E * N, k + 1
-    expect = {"scalar": (1,), "edge": (E,), "cell": (C,), "quad": (C, nq)}
+    expect = _input_shapes(E, N, k, R_mode, f_mode)
     for label, t, mode in (("R", R, R_mode), ("f", f, f_mode)):
-        if tuple(t.shape) != expect[mode]:
+        if tuple(t.shape) != expect[label]:
             raise ValueError(f"edge_data: {label} of mode {mode!r} has shape {tuple(t.shape)}")
     if any(tuple(t.shape) != (E,) for t in (h_e, start_pbc, end_pbc)):
         raise ValueError("edge_data: h_e and the boundary data must be (E,)")
+    ed = _launch(dlp, N, k, h_e, quad_w, quad_phi, R, f, R_mode, f_mode, f_is_zero, start_pbc,
+                 end_pbc, None)
+    edge_data.launches += 1
+    return ed
+
+
+edge_data.launches = 0
+
+
+def _input_shapes(E: int, N: int, k: int, R_mode: str, f_mode: str) -> dict:
+    """A scenario's shapes of the inputs (what each is when shared)."""
+    C = E * N
+    expect = {"scalar": (1,), "edge": (E,), "cell": (C,), "quad": (C, k + 1)}
+    return {"R": expect[R_mode], "f": expect[f_mode], "sp": (E,), "ep": (E,)}
+
+
+def _launch(dlp, N, k, h_e, quad_w, quad_phi, R, f, R_mode, f_mode, f_is_zero, start_pbc,
+            end_pbc, S):
+    """K8a's launch on checked inputs: one scenario (``S`` None) or ``S``
+    scenarios (R and f batched or shared; outputs with a leading S)."""
+    layout = edge_layout(k, R_mode, f_mode)
+    build.require_cuda("edge_data", dlp.start_bif, dlp.end_bif, dtype=torch.int32)
+    E = dlp.num_edges
+    nq = k + 1
+    lead = () if S is None else (S,)
     dev = h_e.device
     dt = torch.float64
     build.require_cuda("edge_data", quad_w, quad_phi)
@@ -321,42 +354,51 @@ def edge_data(
         cs0, cs1 = float(csum[0]), float(csum[1])
     elide = elides_source(layout, f_is_zero)
     tile = edge_tile(E, N, k, nq, (R_mode, f_mode), elide)
+    # rows of blocks over the scenarios (each walks y, y + gy, ...); device
+    # scratch of the interior factor holds a set a row, so it takes few
+    gy = 1 if S is None else min(S, MAX_GRID_Y if tile.scratch != "global" else 8)
     empty = torch.empty(0, dtype=dt, device=dev)
-    W = torch.empty(E, dtype=dt, device=dev)
-    g = torch.empty(E, dtype=dt, device=dev)
+    W = torch.empty(lead + (E,), dtype=dt, device=dev)
+    g = torch.empty(lead + (E,), dtype=dt, device=dev)
     mt = minv = work = rh = ua = uF = empty
     interior: tuple = ()
     if layout == "uniform":
-        cumF = torch.empty((1, E), dtype=dt, device=dev)
-        ua = torch.empty(E, dtype=dt, device=dev)
-        uF = torch.empty(E, dtype=dt, device=dev)
+        cumF = torch.empty(lead + (1, E), dtype=dt, device=dev)
+        ua = torch.empty(lead + (E,), dtype=dt, device=dev)
+        uF = torch.empty(lead + (E,), dtype=dt, device=dev)
     else:
-        cumF = torch.empty((N + 1, E), dtype=dt, device=dev)
+        cumF = torch.empty(lead + (N + 1, E), dtype=dt, device=dev)
     if layout == "general":
-        mt = torch.empty((N, 2, 2, E), dtype=dt, device=dev)
+        mt = torch.empty(lead + (N, 2, 2, E), dtype=dt, device=dev)
         if k > 1:
-            minv = torch.empty((N, k - 1, 2, E), dtype=dt, device=dev)
+            minv = torch.empty(lead + (N, k - 1, 2, E), dtype=dt, device=dev)
             if tile.scratch == "global":
-                work = torch.empty((k - 1) ** 2 * tile.blocks * tile.threads, dtype=dt, device=dev)
+                work = torch.empty((k - 1) ** 2 * tile.blocks * tile.threads * gy, dtype=dt,
+                                   device=dev)
             interior = (minv,)
     elif layout in ("scalar", "scalar_k"):
-        rh = torch.empty((N, E), dtype=dt, device=dev)
+        rh = torch.empty(lead + (N, E), dtype=dt, device=dev)
         if layout == "scalar_k":
             interior = (_fixed_recovery(k, dev),)
+    args = (
+        LAYOUTS.index(layout), E, N, k, nq, tile.cells, tile.rows, tile.widths[0],
+        tile.pitches[0], tile.widths[1], tile.pitches[1], int(tile.scratch == "shared"),
+        h_e.data_ptr(), R.data_ptr(), COEFF_MODES[R_mode],
+        f.data_ptr(), COEFF_MODES[f_mode], int(elide),
+        quad_w.data_ptr(), quad_phi.data_ptr(), float(wt), cs0, cs1,
+        mt.data_ptr(), minv.data_ptr(), work.data_ptr() if work.numel() else None,
+        cumF.data_ptr(),
+        W.data_ptr(), g.data_ptr(), rh.data_ptr(), ua.data_ptr(), uF.data_ptr(),
+    )
+    shapes = _input_shapes(E, N, k, R_mode, f_mode)
     with torch.cuda.device(dev):
-        code = build.library().nxfx_edge_data(
-            LAYOUTS.index(layout), E, N, k, nq, tile.cells, tile.rows, tile.widths[0],
-            tile.pitches[0], tile.widths[1], tile.pitches[1], int(tile.scratch == "shared"),
-            h_e.data_ptr(), R.data_ptr(), COEFF_MODES[R_mode],
-            f.data_ptr(), COEFF_MODES[f_mode], int(elide),
-            quad_w.data_ptr(), quad_phi.data_ptr(), float(wt), cs0, cs1,
-            mt.data_ptr(), minv.data_ptr(), work.data_ptr() if work.numel() else None,
-            cumF.data_ptr(),
-            W.data_ptr(), g.data_ptr(), rh.data_ptr(), ua.data_ptr(), uF.data_ptr(),
-            build.stream_handle(dev),
-        )
-    build.check(code, "edge_data")
-    edge_data.launches += 1
+        if S is None:
+            code = build.library().nxfx_edge_data(*args, build.stream_handle(dev))
+        else:
+            code = build.library().nxfx_edge_data_scen(
+                *args, S, gy, build.scenario_stride(R, shapes["R"]),
+                build.scenario_stride(f, shapes["f"]), build.stream_handle(dev))
+    build.check(code, "edge_data" if S is None else "edge_data_scenarios")
     return _EdgeData(
         mt=mt if layout == "general" else None,
         cumF=cumF, W=W, g=g,
@@ -368,4 +410,57 @@ def edge_data(
     )
 
 
-edge_data.launches = 0
+def edge_data_scenarios_plain(dlp, N, k, h_e, quad_w, quad_phi, R, f, R_mode, f_mode, f_is_zero,
+                              start_pbc, end_pbc) -> _EdgeData:
+    """Eager version of :func:`edge_data_scenarios`: :func:`edge_data_plain` a
+    scenario, its per-scenario fields stacked."""
+    shapes = _input_shapes(dlp.num_edges, N, k, R_mode, f_mode)
+    ins = {"R": R, "f": f, "sp": start_pbc, "ep": end_pbc}
+    S = build.scenarios("edge_data_scenarios", *((t, shapes[n]) for n, t in ins.items()))
+    rows = []
+    for i in range(S):
+        r = {n: build.scenario_row(t, shapes[n], i) for n, t in ins.items()}
+        rows.append(edge_data_plain(dlp, N, k, h_e, quad_w, quad_phi, r["R"], r["f"], R_mode,
+                                    f_mode, f_is_zero, r["sp"], r["ep"]))
+    return _stack_rows(rows, start_pbc, end_pbc)
+
+
+def _stack_rows(rows, start_pbc, end_pbc) -> _EdgeData:
+    first = rows[0]
+
+    def stack(name):
+        v = getattr(first, name)
+        return None if v is None else torch.stack([getattr(r, name) for r in rows])
+
+    per_cell = bool(first.interior) and first.interior[0].dim() == 4
+    interior = ((torch.stack([r.interior[0] for r in rows]),) if per_cell else first.interior)
+    return _EdgeData(mt=stack("mt"), cumF=stack("cumF"), W=stack("W"), g=stack("g"),
+                     start_bif=first.start_bif, end_bif=first.end_bif, start_pbc=start_pbc,
+                     end_pbc=end_pbc, interior=interior, rh=stack("rh"), ua=stack("ua"),
+                     uF=stack("uF"))
+
+
+def edge_data_scenarios(dlp, N, k, h_e, quad_w, quad_phi, R, f, R_mode, f_mode, f_is_zero,
+                        start_pbc, end_pbc) -> _EdgeData:
+    """K8a of S scenarios on ``h_e``'s device in one launch: each of ``R``,
+    ``f``, ``start_pbc``, ``end_pbc`` batched, ``(S,) +`` its one-scenario
+    shape, or shared.  Returns an :class:`_EdgeData` whose per-scenario
+    fields carry a leading S (``start_pbc``, ``end_pbc`` as given); row ``i``
+    is :func:`edge_data` of row ``i`` bit for bit."""
+    if h_e.device.type == "cpu":
+        return edge_data_scenarios_plain(dlp, N, k, h_e, quad_w, quad_phi, R, f, R_mode, f_mode,
+                                         f_is_zero, start_pbc, end_pbc)
+    E = dlp.num_edges
+    shapes = _input_shapes(E, N, k, R_mode, f_mode)
+    ins = {"R": R, "f": f, "sp": start_pbc, "ep": end_pbc}
+    S = build.scenarios("edge_data_scenarios", *((t, shapes[n]) for n, t in ins.items()))
+    build.require_cuda("edge_data_scenarios", h_e, R, f, start_pbc, end_pbc)
+    if tuple(h_e.shape) != (E,):
+        raise ValueError("edge_data_scenarios: h_e must be (E,)")
+    ed = _launch(dlp, N, k, h_e, quad_w, quad_phi, R, f, R_mode, f_mode, f_is_zero, start_pbc,
+                 end_pbc, S)
+    edge_data_scenarios.launches += 1
+    return ed
+
+
+edge_data_scenarios.launches = 0

@@ -43,6 +43,13 @@ the same core solution.  Their plain versions come in the reference's order
 (:func:`peel_factor_plain`, :func:`peel_apply_plain`) and the table's
 (``…_table_plain``); each counts on its own ``launches`` and ``device``.
 
+A sweep on the dense route assembles S scenarios' systems in the launches
+of one (:func:`bifurcation_system_scenarios`: the prepare kernel over S rows,
+then K6's two sides over S rows, :func:`.segsum.segsum_plan_scenarios`),
+giving ``dr (S, B, 2)`` and ``w (S, E)``, row ``i`` :func:`bifurcation_system`
+of row ``i`` bit for bit.  It forms no ``‖rhs‖``: the sweep drops it, as the
+reference's vmapped solve returns only ``q_T``, ``p_T`` and λ.
+
 Each wrapper launches its kernels for CUDA tensors and runs its plain
 version, an eager transcription of the reference, for CPU tensors.
 """
@@ -63,7 +70,8 @@ __all__ = ["CUT", "cuda_launches", "lambda_system", "lambda_system_plain", "lamb
            "bifurcation_system", "bifurcation_system_plain",
            "peel_plain", "peel_table_plain", "PeelFactor", "peel_factor", "peel_factor_plain",
            "peel_factor_table_plain", "peel_apply", "peel_apply_plain", "peel_apply_table_plain",
-           "factor_launches"]
+           "factor_launches", "bifurcation_system_scenarios",
+           "bifurcation_system_scenarios_plain"]
 
 CUT = 1024  # the narrowest round a grid launch takes; narrower runs are one block
 
@@ -152,6 +160,63 @@ def bifurcation_system(dtp, W, g=None, Ftot=None, start_pbc=None, end_pbc=None, 
 
 
 bifurcation_system.launches = 0
+
+
+def bifurcation_system_scenarios_plain(dtp, W, g, Ftot, start_pbc, end_pbc):
+    """Eager version of :func:`bifurcation_system_scenarios`:
+    :func:`bifurcation_system_plain` a scenario, stacked ``(dr, w)``."""
+    S, E = _system_shapes(dtp, W, g, Ftot, start_pbc, end_pbc)
+    rows = []
+    for i in range(S):
+        sp, ep = (build.scenario_row(t, (E,), i) for t in (start_pbc, end_pbc))
+        rows.append(bifurcation_system_plain(dtp, W[i], g[i], Ftot[i], sp, ep)[:2])
+    return tuple(torch.stack(t) for t in zip(*rows))
+
+
+def _system_shapes(dtp, W, g, Ftot, start_pbc, end_pbc) -> tuple:
+    """``(S, E)`` of a scenario system, or raise."""
+    name, E = "bifurcation_system_scenarios", dtp.num_edges
+    if W.dim() != 2 or W.shape[1] != E or W.shape[0] < 1:
+        raise ValueError(f"{name}: W must be (S, E), S >= 1")
+    S = W.shape[0]
+    if tuple(g.shape) != (S, E) or tuple(Ftot.shape) != (S, E) or Ftot.stride(1) != 1:
+        raise ValueError(f"{name}: g and Ftot must be (S, E), Ftot's rows contiguous")
+    build.scenarios(name, (start_pbc, (E,)), (end_pbc, (E,)), S=S)
+    return S, E
+
+
+def bifurcation_system_scenarios(dtp, W, g, Ftot, start_pbc, end_pbc):
+    """The bifurcation systems of S scenarios on ``W``'s device, in two
+    launches (the prepare kernel over S rows, K6 over S rows): ``W``, ``g``
+    ``(S, E)``, ``Ftot`` ``(S, E)`` with contiguous rows (a sweep passes
+    ``cumF[:, -1]``), ``start_pbc`` and ``end_pbc`` ``(S, E)`` or shared
+    ``(E,)``.  Returns ``(dr (S, B, 2), w (S, E))``; no ``‖rhs‖``."""
+    if W.device.type == "cpu":
+        return bifurcation_system_scenarios_plain(dtp, W, g, Ftot, start_pbc, end_pbc)
+    name = "bifurcation_system_scenarios"
+    S, E = _system_shapes(dtp, W, g, Ftot, start_pbc, end_pbc)
+    build.require_cuda(name, W, g, start_pbc, end_pbc)
+    build.require_cuda(name, Ftot, contiguous=False)
+    build.require_cuda(name, dtp.start_bif, dtp.end_bif, dtype=torch.int32)
+    dev, dt = W.device, torch.float64
+    w_edges = torch.empty((S, E), dtype=dt, device=dev)
+    vt = torch.empty((S, E, 2), dtype=dt, device=dev)
+    vs = torch.empty((S, E, 2), dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        code = build.library().nxfx_lambda_prepare_scen(
+            E, S, Ftot.stride(0), build.scenario_stride(start_pbc, (E,)),
+            build.scenario_stride(end_pbc, (E,)), W.data_ptr(), g.data_ptr(), Ftot.data_ptr(),
+            start_pbc.data_ptr(), end_pbc.data_ptr(), dtp.start_bif.data_ptr(),
+            dtp.end_bif.data_ptr(), w_edges.data_ptr(), vt.data_ptr(), vs.data_ptr(),
+            build.stream_handle(dev),
+        )
+    build.check(code, name)
+    bifurcation_system_scenarios.launches += 1
+    dr, = segsum.segsum_plan_scenarios(dtp.lambda_sums, vt, vs)
+    return dr, w_edges
+
+
+bifurcation_system_scenarios.launches = 0
 
 
 def lambda_system(dtp, ed: _EdgeData):

@@ -22,6 +22,12 @@ the others ``(+0.0 + sum of the first group) + sum of the next ...`` in
 group order — the plain version's zero-filled output with each group added
 into it in turn (:func:`segsum_plan_plain`), to the bit.  CPU values run
 :func:`segsum_plan_plain`.  The launches count on :data:`LAUNCHES`.
+
+A sweep runs a plan over S scenarios in one launch,
+:func:`segsum_plan_scenarios`: each value tensor ``(S, n)`` or ``(S, n, C)``,
+each output ``(S,) +`` its one-scenario shape, scenario ``i`` the
+one-scenario launch on row ``i`` bit for bit (its own count,
+``segsum_plan_scenarios.launches``).
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ import torch
 
 from . import build
 
-__all__ = ["segsum_plain", "SumPlan", "segsum_plan", "segsum_plan_plain", "MAX_GROUPS", "LAUNCHES"]
+__all__ = ["segsum_plain", "SumPlan", "segsum_plan", "segsum_plan_plain", "MAX_GROUPS", "LAUNCHES",
+           "segsum_plan_scenarios", "segsum_plan_scenarios_plain"]
 
 MAX_GROUPS = 4  # SUM_MAX_GROUPS in csrc/segsum.cu
 LAUNCHES = build.Counter("segsum")
@@ -250,3 +257,57 @@ def launch_plan(plan: SumPlan, vals, out=None, name: str = "segsum_plan") -> tup
             code = lib.nxfx_segsum_plan(*args)
     build.check(code, name)
     return outs
+
+
+def _scenario_values(name: str, plan: SumPlan, vals) -> tuple:
+    """``(S, n)`` of a scenario call's values, or raise."""
+    if len(vals) != len(plan.groups):
+        raise ValueError(f"{name}: {len(plan.groups)} value tensors expected, got {len(vals)}")
+    S = vals[0].shape[0] if vals[0].dim() > 1 else 0
+    n = vals[0].shape[1] if vals[0].dim() > 1 else -1
+    for v, C in zip(vals, plan.channels):
+        if (v.dtype is not torch.float64 or not v.is_contiguous() or v.dim() != (2 if C == 1 else 3)
+                or v.shape[0] != S or v.shape[1] != n or (C > 1 and v.shape[2] != C)):
+            raise ValueError(f"{name}: expected contiguous float64 values (S, n) or (S, n, C) of "
+                             f"one S and n and the plan's channels, got {v.dtype} {tuple(v.shape)}")
+    if S < 1 or n < plan.src_max:
+        raise ValueError(f"{name}: at least one scenario of at least {plan.src_max} rows")
+    return S, n
+
+
+def segsum_plan_scenarios_plain(plan: SumPlan, *vals: torch.Tensor) -> tuple:
+    """Eager version of :func:`segsum_plan_scenarios`: :func:`segsum_plan_plain`
+    a scenario, stacked."""
+    S, _ = _scenario_values("segsum_plan_scenarios", plan, vals)
+    rows = [segsum_plan_plain(plan, *(v[i] for v in vals)) for i in range(S)]
+    return tuple(torch.stack(t) for t in zip(*rows))
+
+
+def segsum_plan_scenarios(plan: SumPlan, *vals: torch.Tensor) -> tuple:
+    """K6 on a plan over S scenarios, one launch: ``vals`` one float64 tensor
+    a group, ``(S, n)`` or ``(S, n, C)`` by the plan's channels (one S and one
+    ``n`` for all); returns the outputs of :func:`segsum_plan`, each with a
+    leading S."""
+    if vals and vals[0].device.type == "cpu":
+        return segsum_plan_scenarios_plain(plan, *vals)
+    name = "segsum_plan_scenarios"
+    S, n = _scenario_values(name, plan, vals)
+    index = plan.index
+    if any(not v.is_cuda or v.get_device() != index for v in vals):
+        raise ValueError(f"{name}: values must be on the plan's CUDA device {index}")
+    buf = vals[0].new_empty(S * plan._total)
+    outs, at = [], 0
+    for shape, _, _ in plan._layout:
+        outs.append(buf[at: at + S * shape.numel()].view((S,) + tuple(shape)))
+        at += S * shape.numel()
+    pad = [None] * (MAX_GROUPS - len(vals))
+    with torch.cuda.device(index):
+        code = build.library().nxfx_segsum_plan_scen(
+            plan._addr, n, S, *(v.data_ptr() for v in vals), *pad,
+            *(outs[k].data_ptr() for k in plan.slots), *pad, build.raw_stream(index))
+    build.check(code, name)
+    segsum_plan_scenarios.launches += 1
+    return tuple(outs)
+
+
+segsum_plan_scenarios.launches = 0

@@ -52,6 +52,11 @@ level; flux and pressure then follow from λ edge by edge.  The routes:
   pivot gate), the residual on K18 or K19b, K8b;
 * no multiplier — a network without bifurcations: K8a and K8b, λ empty.
 
+A sweep (:mod:`.batch`) runs S scenarios in the launches of one solve on
+three routes (``has_scenario_axis``, :meth:`_BlockedExecutor.scenarios`,
+:meth:`_DenseExecutor.scenarios`, :meth:`_EdgeExecutor.scenarios`); the
+others run a row a call.
+
 Besides ``"schur"``: ``"schur_p"`` (``auto`` with continuous pressure), the
 reduced solve of :func:`_continuous_pressure_solve` — the per-edge flux
 blocks factored and applied by K21a (:mod:`.kernels.schur_p`), ``J = [B;
@@ -855,7 +860,17 @@ class _DenseExecutor(_CgExecutor):
     factor, the pivot gate ``min > 1e-7·max``, three refinement passes);
     ``"dense_f64"``: K11's factor alone and one solve on K21b's triangular
     solves, λ NaN unless every unscaled pivot ``s_i·C_ii`` (the reference's
-    ``diag(cholesky(L))``) is finite and ``min > 1e-7·max``."""
+    ``diag(cholesky(L))``) is finite and ``min > 1e-7·max``.
+
+    ``"dense"`` has a scenario axis (:meth:`scenarios`); ``"dense_f64"``
+    keeps its rows (:meth:`_solve_lambda_f64`)."""
+
+    # scenarios' K11 arrays a chunk holds, in bytes (dense_core.scenario_chunk)
+    scenario_budget = dense_core.SCENARIO_BUDGET
+
+    @property
+    def has_scenario_axis(self) -> bool:
+        return self._opts.schur_method == "dense"
 
     def _plan_lambda_solve(self, asm) -> None:
         """The pairs of the Laplacian (pair nodes, ids) and the K6 gather
@@ -890,14 +905,74 @@ class _DenseExecutor(_CgExecutor):
         if self._opts.schur_method == "dense":
             solve = dense_core.dense_core_plain if plain else dense_core.dense_core
             return solve(*pairs, op.diag, rhs, w_pairs), 0
+        return self._solve_lambda_f64(pairs, op.diag, rhs, w_pairs, plain), 0
+
+    def _solve_lambda_f64(self, pairs, diag, rhs, w_pairs, plain: bool):
+        """``schur_method="dense_f64"``: K11's factor, one solve on K21b's
+        ``trsv`` and the unscaled pivot gate.  A sweep runs it a row a call
+        (``has_scenario_axis`` False): ``auto`` never picks it, and K21b's
+        ``trsv`` has no scenario axis yet (ROADMAP A9b)."""
         factor = dense_core.dense_factor_plain if plain else dense_core.dense_factor
         tri = dense_lu.trsv_plain if plain else dense_lu.trsv
-        _, s, C = factor(*pairs, op.diag, w_pairs)
+        _, s, C = factor(*pairs, diag, w_pairs)
         y = tri(C, (rhs / s).contiguous(), lower=True)
         lam = tri(C, y, lower=True, trans=True) / s
         piv = s * torch.diagonal(C)
         ok = torch.all(torch.isfinite(piv)) & (piv.min() > dense_core.PIVOT_RTOL * piv.max())
-        return torch.where(ok, lam, torch.nan), 0
+        return torch.where(ok, lam, torch.nan)
+
+    def scenarios(self, R, f, start_pbc, end_pbc):
+        """S scenarios of ``schur_method="dense"`` on the executor's device,
+        public order: each argument a tensor there, batched (a leading ``S``)
+        or shared by every scenario.  K8a over S, the bifurcation systems over
+        S (the prepare kernel and K6); with R batched the pair sums (K6),
+        K11's factors, gates and solves over S, in chunks of
+        :func:`.kernels.dense_core.scenario_chunk` at :attr:`scenario_budget`
+        (each chunk one factor's launches); with one R the pair sums, factor
+        and gate once on row 0 and the solves over S; then K8b over S.  The
+        sweep drops ``‖rhs‖`` and the residual (the reference's vmapped solve
+        returns only ``q_T``, ``p_T``, λ), so neither the norm kernel nor the
+        K18/K19b operator runs.  Returns ``(q_T, p_T, lam, None, finite)``,
+        each with a leading ``S``; row ``i`` is the executor's call on row
+        ``i`` bit for bit."""
+        if not self.has_scenario_axis:
+            raise ValueError(f"schur_method={self._opts.schur_method!r} has no scenario axis")
+        dlp, N, k = self.device_plan, self._N, self._k
+        ed = edge_data.edge_data_scenarios(
+            dlp, N, k, self._h_e, self._quad_w, self._quad_phi, R, f, self._R_mode, self._f_mode,
+            self._f_is_zero, start_pbc, end_pbc,
+        )
+        dr, w_edges = peel.bifurcation_system_scenarios(dlp, ed.W, ed.g, ed.cumF[:, -1],
+                                                        ed.start_pbc, ed.end_pbc)
+        diag, rhs = dr[:, :, 0].contiguous(), dr[:, :, 1].contiguous()
+        R_batched = R.dim() > (2 if self._R_mode == "quad" else 1)
+        lam = self._lambda_scenarios(diag, rhs, w_edges, R_batched)
+        q_T, p_T, finite = backsub.backsub_scenarios(ed, lam, N, k)
+        return q_T, p_T, lam, None, finite
+
+    def _lambda_scenarios(self, diag, rhs, w_edges, R_batched: bool):
+        """λ ``(S, B)`` of S systems: S factors (R batched) or one (shared)."""
+        S, B = rhs.shape
+        pairs = (self._ci, self._cj, self._pid)
+        P = self._pid.shape[0]
+        chunk = dense_core.scenario_chunk(B, R_batched, self.scenario_budget)
+        parts = []
+        if R_batched:
+            w_pairs = (segsum.segsum_plan_scenarios(self._pair_sums, w_edges)[0] if P
+                       else w_edges.new_zeros((S, 0)))
+            for i0 in range(0, S, chunk):
+                rows = slice(i0, i0 + chunk)
+                Lc, s, C = dense_core.dense_factor_scenarios(*pairs, diag[rows], w_pairs[rows])
+                ok = dense_core.dense_gate_scenarios(C)
+                parts.append(dense_core.dense_solve_scenarios(Lc, s, C, ok, rhs[rows]))
+        else:  # one R: its factor once, as the reference's vmap batches only the rhs
+            w_pairs = (segsum.segsum_plan(self._pair_sums, w_edges[0])[0] if P
+                       else w_edges.new_zeros(0))
+            Lc, s, C = dense_core.dense_factor(*pairs, diag[0], w_pairs)
+            ok = dense_core.dense_gate(C)
+            for i0 in range(0, S, chunk):
+                parts.append(dense_core.dense_solve_scenarios(Lc, s, C, ok, rhs[i0: i0 + chunk]))
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -916,7 +991,10 @@ class _EdgePlan:
 class _EdgeExecutor(_Executor):
     """A network without bifurcations (the reference's ``B = 0`` branch of
     ``_finish``, ``:4244-4248``): K8a and K8b with an empty λ, in public
-    order; iterations 0, residual 0 and ``‖rhs‖ = 0``."""
+    order; iterations 0, residual 0 and ``‖rhs‖ = 0``.  :meth:`scenarios`
+    runs S scenarios in one launch each of K8a and K8b."""
+
+    has_scenario_axis = True
 
     def __init__(self, asm, R_mode, f_mode, f_is_zero, device):
         mesh = asm.network
@@ -951,6 +1029,19 @@ class _EdgeExecutor(_Executor):
         zero = torch.zeros((), dtype=torch.float64, device=self._device)
         iters = torch.zeros((), dtype=torch.int32, device=self._device)
         return q_T, p_T, lam, iters, zero, zero, finite
+
+    def scenarios(self, R, f, start_pbc, end_pbc):
+        """S scenarios on the executor's device (each argument batched or
+        shared): K8a and K8b over S, λ ``(S, 0)``.  Returns ``(q_T, p_T, lam,
+        None, finite)``, row ``i`` the executor's call on row ``i`` bit for
+        bit."""
+        ed = edge_data.edge_data_scenarios(
+            self.device_plan, self._N, self._k, self._h_e, self._quad_w, self._quad_phi, R, f,
+            self._R_mode, self._f_mode, self._f_is_zero, start_pbc, end_pbc,
+        )
+        lam = torch.zeros((ed.W.shape[0], 0), dtype=torch.float64, device=self._device)
+        q_T, p_T, finite = backsub.backsub_scenarios(ed, lam, self._N, self._k)
+        return q_T, p_T, lam, None, finite
 
 
 def _dct_executor(asm, dct: _DctPlan, R_mode, f_mode, f_zero, device):

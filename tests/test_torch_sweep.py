@@ -9,7 +9,7 @@ scenario axis on two devices (``:233``) and the cache keyed on every option
 field (``:271``; the float32 sweep raises naming ROADMAP A4 and leaves no
 entry).  The port's sweeps are held against the JAX package's
 ``solve_sweep`` on the same seeded inputs: a small tree under ``auto``
-(dense rows), the same tree under ``schur_method="tree"`` (the batched
+(the batched dense route), the same tree under ``schur_method="tree"`` (the batched
 blocked route) with R, per-cell f and p_bc batches, and a small lattice
 (DCT rows).  Every row of a sweep is the port's own ``Solver.solve()`` of
 that row bit for bit; each batched plain version is its unbatched plain
@@ -379,7 +379,7 @@ def test_sweep_rows_equal_solve(route, batch):
         pb = mesh.vertices[: mesh.num_graph_nodes][:, coord]
         rows = [dict(R=R0[1], f=f0, p_bc_ex=p_bc(s)) for s in scales]
         res = P.solve_sweep(asm, p_bc_node_values=scales[:, None] * pb[None], options=opts, **CPU)
-    assert _executor(asm).has_scenario_axis == (route == "blocked")
+    assert _executor(asm).has_scenario_axis == (route in ("blocked", "dense"))
     for i, forms in enumerate(rows):
         assert np.array_equal(res.x[i], _row_solve(asm, opts, **forms)), (route, batch, i)
 
