@@ -68,8 +68,9 @@ paths through the public API, checks each solution and times it:
   ``Solver.solve()`` bit for bit, the sweep against 16 ``compute_forms`` +
   ``solve()`` with ``.x`` timed apart, each scenario kernel against the
   one-scenario kernel a row and its plain version (S ∈ {1, 16}, k = 1 and
-  2, every coefficient mode), the routes that run a sweep's rows (a 32²
-  lattice, the 100k forest), the demo tree on the batched dense route beside
+  2, every coefficient mode), a 32² lattice (now on the grid route's
+  scenario axis) and a route that runs a sweep's rows (the 100k forest),
+  the demo tree on the batched dense route beside
   its batched blocked route, and ``devices=["cuda:0"] * 2``;
 * the dense route's scenario axis (``solve_sweep`` under ``auto`` for 0 <
   B ≤ 4,096): the 13-generation arterial tree at N = 10 (B = 4,095; 16 per-edge
@@ -80,7 +81,21 @@ paths through the public API, checks each solution and times it:
   kernel (K8a, the bifurcation system, K6, K11's factor, gate and solve,
   K8b) against the one-scenario kernel a row and its plain version (n ∈ {31,
   455, 4,095}, S ∈ {1, 16}, k = 1 and 2, a row that trips the pivot gate, a
-  sweep in chunks), and one edge without bifurcations on K8a and K8b over S.
+  sweep in chunks), and one edge without bifurcations on K8a and K8b over S;
+* the lattice route's scenario axis (``solve_sweep`` on a uniform scalar-R
+  lattice): the 512² lattice under ``auto`` on the grid route (16 scalar-R
+  and 16 p_bc scenarios: K1, K17, K16's factors or one factor and its
+  passes, K5 over S) and with a callable source on the general route (K8a,
+  the system, K6, K16 with K18, K8b over S), rows 0, 7 and 15 against
+  ``Solver(schur_method="dct")`` bit for bit, each sweep against the same
+  sweep a row at a time and the R sweep against 16 ``compute_forms`` +
+  ``solve()``, the launches at S = 1 and 16 by the profiler (25 on the grid
+  route, 27 on the general one, at both), the 64² lattice (B = 4,096, the
+  sweep's own DCT band), ``GridFactorization.solve_batch`` of 16 rows
+  against ``solve()`` bit for bit, and K16's, K17's and K18's scenario
+  kernels against the one-scenario kernels a row and their plain versions,
+  timed beside their bounds and batched ``torch.matmul`` or a CSR
+  ``torch.sparse.mm``, with K16 over S on two streams at once.
 
 The lattice sets also hold K17 on two streams at once, on repeated calls
 and in a replayed CUDA graph bit for bit, two K16 solves on two streams bit
@@ -343,6 +358,17 @@ KERNEL_RECORD = {
                               "networks_fenicsx_tpu/ops/mixed_precision.py:49"),
     "backsub_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/backsub.cu",
                           "networks_fenicsx_tpu/solver.py:4418"),
+    # sweeps: the lattice route's kernels over a scenario axis
+    "dct_factor_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/dct_lattice.cu",
+                             "networks_fenicsx_tpu/solver.py:941"),
+    "dct_apply_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/dct_lattice.cu",
+                            "networks_fenicsx_tpu/solver.py:1002"),
+    "grid_core_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/grid_core.cu",
+                            "networks_fenicsx_tpu/solver.py:1184"),
+    "grid_residual_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/grid_core.cu",
+                                "networks_fenicsx_tpu/solver.py:1184"),
+    "shift_matvec_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/shift_matvec.cu",
+                               "networks_fenicsx_tpu/solver.py:806"),
 }
 # the factor-reuse wrappers: the configurations whose checks hold each, and the one timed
 FACTOR_CHECKS = {
@@ -6028,12 +6054,13 @@ def scenario_kernel_sets(P, device, asm) -> dict:
 
 
 def row_route_sweeps(P, device, forest_asm) -> dict:
-    """One sweep on each route that runs its rows (no scenario axis yet),
-    each row against the row's ``Solver.solve()``: bit for bit on the same
-    route, at the reference's tolerances against ``Solver``'s own route
-    under ``auto``; and the small demo tree on the batched dense route
-    (``auto``) beside the batched blocked route (``schur_method="tree"``),
-    timed."""
+    """A sweep on a route that runs its rows (the 100k forest's level
+    route, no scenario axis yet) and on a 32² lattice (under ``auto`` the
+    grid route, which now takes the scenario axis), each row against the
+    row's ``Solver.solve()``: bit for bit on the same route, at the
+    reference's tolerances against ``Solver``'s own route under ``auto``;
+    and the small demo tree on the batched dense route (``auto``) beside the
+    batched blocked route (``schur_method="tree"``), timed."""
     out = {}
     # demos/demo_sweep.py: make_arterial_tree(6), N = 10, per-edge R, S = 16
     small = arterial_assembler(P, 6, 10)
@@ -6065,13 +6092,13 @@ def row_route_sweeps(P, device, forest_asm) -> dict:
                                                              device=device)),
     }
 
-    # a lattice under auto: the DCT solve on the grid route, a row at a time
+    # a lattice under auto: the DCT solve on the grid route's scenario axis
     lat = lattice_assembler(P, 32, 32, N=2)
     lat.compute_forms(p_bc_ex=lambda x: x[0], f=0.3, R=1.0)
     fb = np.random.default_rng(11).uniform(-1.0, 1.0, (4, 1))
     res = P.solve_sweep(lat, f=fb, device=device)
     ex = list(lat._sweep_cache.values())[-1][1]
-    assert type(ex).__name__ == "_GridExecutor", type(ex)
+    assert type(ex).__name__ == "_GridExecutor" and ex.has_scenario_axis, type(ex)
     errs = []
     for i in range(4):
         lat.compute_forms(p_bc_ex=lambda x: x[0], f=float(fb[i, 0]), R=1.0)
@@ -6148,18 +6175,21 @@ def dense_calls(ex, S: int, r_batch: bool) -> dict:
     return want
 
 
-def dense_sweep_path(P, device, asm, label: str, batch: dict, row_forms, base_forms,
-                     blocked: bool = False) -> dict:
-    """One dense sweep through ``solve_sweep`` under ``auto`` on the card,
-    counted (every wrapper's launches set to 0 just before it and read just
-    after: the dense scenario wrappers as :func:`dense_calls` says, nothing
-    else); rows :data:`SWEEP_ROWS` against ``Solver(schur_method="dense")``
+def route_sweep_path(P, device, asm, label: str, batch: dict, row_forms, base_forms,
+                     method: str, executor: str, calls, families: dict, blocked: bool = False,
+                     solves: bool = False) -> dict:
+    """One sweep through ``solve_sweep`` under ``auto`` on the card, on the
+    route of ``executor`` (``schur_method=method`` for one solve), counted
+    (every wrapper's launches set to 0 just before it and read just after:
+    the scenario wrappers as ``calls(ex, S, R batched)`` says, nothing
+    else); rows :data:`SWEEP_ROWS` against ``Solver(schur_method=method)``
     of that row, ``x`` by ``np.array_equal`` and the blocks by
     ``torch.equal``; the whole sweep against the same sweep a row at a time
     (``batch._run_rows``, the route before its scenario axis) bit for bit;
     ``blocked``: against the batched blocked route's at 1e-11·scale; its
-    time without ``.x`` (and a row at a time), the device's busy time, idle
-    share and launches, and its device time by kernel family."""
+    time without ``.x`` (and a row at a time, and with ``solves`` as S
+    ``compute_forms`` + ``solve()``), the device's busy time, idle share and
+    launches, and its device time by kernel family (``families``)."""
     from networks_fenicsx_tpu_torch import batch as PB
     from networks_fenicsx_tpu_torch import kernels
 
@@ -6171,9 +6201,9 @@ def dense_sweep_path(P, device, asm, label: str, batch: dict, row_forms, base_fo
     torch.cuda.synchronize()
     launches = kernels.launches()
     ex = list(asm._sweep_cache.values())[-1][1]
-    assert type(ex).__name__ == "_DenseExecutor" and ex.has_scenario_axis, (label, type(ex))
+    assert type(ex).__name__ == executor and ex.has_scenario_axis, (label, type(ex))
     S = next(int(np.shape(v)[0]) for v in batch.values())
-    want = dense_calls(ex, S, "R" in batch)
+    want = calls(ex, S, "R" in batch)
     got = {n: v for n, v in launches.items() if v}
     assert got == want, (label, got, want)
     sweep_ms = best_ms(lambda: P.solve_sweep(asm, device=device, **batch))
@@ -6188,7 +6218,7 @@ def dense_sweep_path(P, device, asm, label: str, batch: dict, row_forms, base_fo
         rows_ms = best_ms(lambda: P.solve_sweep(asm, device=device, **batch))
     finally:
         asm._sweep_cache[key] = entry
-    solver = P.Solver(asm, options=P.SolverOptions(schur_method="dense"), device=device)
+    solver = P.Solver(asm, options=P.SolverOptions(schur_method=method), device=device)
     for i in SWEEP_ROWS:
         row_forms(i)
         solver.solve()
@@ -6202,7 +6232,18 @@ def dense_sweep_path(P, device, asm, label: str, batch: dict, row_forms, base_fo
     rec = {"S": S, "B": asm.network.num_multipliers, "dofs": asm.num_dofs, "sweep_ms": sweep_ms,
            "rows_ms": rows_ms, "device": share, "wrapper_calls": want,
            "rows_bit_for_bit": list(SWEEP_ROWS),
-           "device_split": dense_device_split(lambda: P.solve_sweep(asm, device=device, **batch))}
+           "device_split": device_split(lambda: P.solve_sweep(asm, device=device, **batch),
+                                        families)}
+    if solves:
+        def loop():
+            for i in range(S):
+                row_forms(i)
+                solver.solve()
+
+        loop()
+        rec["solves_ms"] = best_ms(loop, reps=2)
+        rec["solves_device"] = device_share(loop)
+        base_forms()
     if blocked:
         tree = P.SolverOptions(schur_method="tree")
         xb = P.solve_sweep(asm, options=tree, device=device, **batch).x
@@ -6216,6 +6257,14 @@ def dense_sweep_path(P, device, asm, label: str, batch: dict, row_forms, base_fo
     return {"rec": rec, "launches": launches}
 
 
+def dense_sweep_path(P, device, asm, label: str, batch: dict, row_forms, base_forms,
+                     blocked: bool = False) -> dict:
+    """:func:`route_sweep_path` on the dense route: the wrapper calls of
+    :func:`dense_calls`, rows against ``Solver(schur_method="dense")``."""
+    return route_sweep_path(P, device, asm, label, batch, row_forms, base_forms, "dense",
+                            "_DenseExecutor", dense_calls, DENSE_FAMILIES, blocked=blocked)
+
+
 K11_KERNELS = r"\b(tiled_\w+|tc_\w+|ts_\w+)_kernel\b"  # K11's kernels (dense_core.cu's and the header's)
 # a dense sweep's kernels by family, for its device split
 DENSE_FAMILIES = {"K8a": r"\bedge_\w+_kernel\b", "system": r"\blambda_prepare_scen_kernel\b",
@@ -6223,10 +6272,10 @@ DENSE_FAMILIES = {"K8a": r"\bedge_\w+_kernel\b", "system": r"\blambda_prepare_sc
                   "K8b": r"\bbacksub_blocks_kernel\b"}
 
 
-def dense_device_split(run) -> dict | None:
+def device_split(run, families: dict) -> dict | None:
     """One ``run()`` under ``torch.profiler``: device µs and launches of each
-    family of :data:`DENSE_FAMILIES` and of the rest (copies and PyTorch's
-    kernels); None where the profiler recorded no device time."""
+    family of ``families`` and of the rest (copies and PyTorch's kernels);
+    None where the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -6234,11 +6283,11 @@ def dense_device_split(run) -> dict | None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    out = {name: {"us": 0.0, "launches": 0} for name in (*DENSE_FAMILIES, "other")}
+    out = {name: {"us": 0.0, "launches": 0} for name in (*families, "other")}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = next((n for n, pat in DENSE_FAMILIES.items() if re.search(pat, ev.key)), "other")
+        name = next((n for n, pat in families.items() if re.search(pat, ev.key)), "other")
         out[name]["us"] += getattr(ev, "device_time_total", 0.0) or 0.0
         out[name]["launches"] += ev.count
     return out if any(v["us"] for v in out.values()) else None
@@ -6733,6 +6782,376 @@ def dense_sweeps(P, device, name_power: str) -> dict:
     log(f"phase wall: the dense sweep phases {time.perf_counter() - t0:.1f} s")
     return {"sets": sets, "runs": runs}
 
+# ---------------------------------------------------------------- lattice sweeps
+
+LATTICE64 = 64  # make_grid(64, 64): B = 4,096, the top of the sweep's DCT band under auto
+# a lattice sweep's wrapper calls: K17's stencil once a refinement pass
+LATTICE_SWEEP_CALLS = {
+    ("grid", True): {"condense_scenarios": 1, "grid_core_scenarios": 1, "dct_factor_scenarios": 1,
+                     "dct_apply_scenarios": 1, "grid_residual_scenarios": 2,
+                     "expand_scenarios": 1},
+    ("grid", False): {"condense_scenarios": 1, "grid_core_scenarios": 1, "dct_factor": 1,
+                      "dct_apply_scenarios": 1, "grid_residual_scenarios": 2,
+                      "expand_scenarios": 1},
+    ("general", True): {"edge_data_scenarios": 1, "bifurcation_system_scenarios": 1,
+                        "segsum_plan_scenarios": 2, "dct_factor_scenarios": 1,
+                        "dct_apply_scenarios": 1, "shift_matvec_scenarios": 2,
+                        "backsub_scenarios": 1},
+    ("general", False): {"edge_data_scenarios": 1, "bifurcation_system_scenarios": 1,
+                         "segsum_plan_scenarios": 1, "segsum": 1, "dct_factor": 1,
+                         "dct_apply_scenarios": 1, "shift_matvec_scenarios": 2,
+                         "backsub_scenarios": 1},
+}
+# a lattice sweep's kernel launches, whatever S: the grid route K1 1, K17 3, K16 20, K5 1; the
+# general route K8a 1, the system 2, the class weights 1, K16 20, K18 2, K8b 1
+LATTICE_SWEEP_LAUNCHES = {"grid": 25, "general": 27}
+LATTICE_KERNELS = (r"\b(condense_scen_kernel|grid_(assemble|residual)_kernel|dct_\w+_kernel|"
+                   r"expand_kernel|edge_\w+_kernel|lambda_prepare_scen_kernel|segsum_plan_kernel|"
+                   r"shift_apply_kernel|backsub_blocks_kernel)\b")
+# a lattice sweep's kernels by family, for its device split
+LATTICE_FAMILIES = {"K1": r"\bcondense_scen_kernel\b", "K17": r"\bgrid_(assemble|residual)_kernel\b",
+                    "K16": r"\bdct_\w+_kernel\b", "K5": r"\bexpand_kernel\b",
+                    "K8a": r"\bedge_\w+_kernel\b", "system": r"\blambda_prepare_scen_kernel\b",
+                    "K6": r"\bsegsum_plan_kernel\b", "K18": r"\bshift_apply_kernel\b",
+                    "K8b": r"\bbacksub_blocks_kernel\b"}
+# the lattice route's scenario wrappers, and the kernel-check case that times each
+LATTICE_SCENARIO_CHECKS = {
+    "dct_factor_scenarios": "lattice512_R16",
+    "dct_apply_scenarios": "lattice512_R16",
+    "grid_core_scenarios": "lattice512_R16",
+    "grid_residual_scenarios": "lattice512_pbc16",
+    "shift_matvec_scenarios": "lattice512_callable_pbc16",
+}
+
+
+def lattice_sweep_path(P, device, asm, label: str, batch: dict, row_forms, base_forms,
+                       route: str, solves: bool = False) -> dict:
+    """:func:`route_sweep_path` on a lattice route (``route``: the grid or
+    the general one): the wrapper calls of :data:`LATTICE_SWEEP_CALLS`, rows
+    against ``Solver(schur_method="dct")``."""
+    return route_sweep_path(
+        P, device, asm, label, batch, row_forms, base_forms, "dct",
+        "_GridExecutor" if route == "grid" else "_DctExecutor",
+        lambda ex, S, r_batch: LATTICE_SWEEP_CALLS[(route, r_batch)], LATTICE_FAMILIES,
+        solves=solves)
+
+
+def lattice_launches_vs_S(P, device, asm, make_batch, label: str, route: str) -> dict:
+    """A lattice sweep's device events as the profiler counts them at S = 1
+    and S = 16 (kernels and copies, by name): equal, and the route's own
+    kernels :data:`LATTICE_SWEEP_LAUNCHES` at both."""
+    counts = {}
+    for S in (SWEEP_S, 1):
+        batch = make_batch(S)
+        P.solve_sweep(asm, device=device, **batch)  # warm: the cache, the scratch
+        for _ in range(6):
+            got = kernel_counts(lambda: P.solve_sweep(asm, device=device, **batch), device)
+            if got is not None:
+                break
+        assert got is not None, (label, S, "no window held its run")
+        counts[S] = got
+    c1, c16 = counts[1], counts[SWEEP_S]
+    ours = {S: sum(v for k, v in c.items() if re.search(LATTICE_KERNELS, k))
+            for S, c in counts.items()}
+    assert c1 == c16, (label, c1, c16)
+    assert ours[1] == ours[SWEEP_S] == LATTICE_SWEEP_LAUNCHES[route], (label, ours)
+    return {"S1": sum(c1.values()), "S16": sum(c16.values()), "kernels": ours[1],
+            "by_name": {k: v for k, v in c16.items()}}
+
+
+def compare_lattice_scenario_kernels(P, device, asm, batch: str, timed: bool) -> dict:
+    """The lattice route's scenario wrappers on the card on the inputs a
+    512² sweep of 16 gives them (``batch``: an R or a p_bc batch; the grid
+    route, or the general one for a callable source), each against the
+    one-scenario wrapper a row (``torch.equal``) and against its plain
+    version (the one-scenario plain version a row, stacked) at
+    :data:`TOL`·scale (K16's refined passes at :data:`LATTICE_TOL`); timed
+    beside its bound and, where one exists, one PyTorch call computing the
+    same; and K16 over S on two streams at once, bit for bit with each
+    alone."""
+    from networks_fenicsx_tpu_torch.kernels import (
+        condense, dct_lattice as K16, edge_data, grid_core, peel, segsum, shift_matvec,
+    )
+    from networks_fenicsx_tpu_torch.solver import build_schur_executor
+
+    ex = build_schur_executor(asm, P.SolverOptions(schur_method="dct"), device=device)
+    grid = type(ex).__name__ == "_GridExecutor"
+    R0, f0, sp0, ep0 = ex.upload(*ex.prepare_args(*asm.schur_arguments()))
+    scales = torch.as_tensor(SWEEP_SCALES, device=device)
+    r_batch = batch == "R"
+    if r_batch:
+        R = (R0[None] * scales[:, None]).contiguous()
+        sp, ep = sp0, ep0
+    else:
+        R = R0
+        sp, ep = (sp0[None] * scales[:, None]).contiguous(), (ep0[None] * scales[:, None]).contiguous()
+    S, op, N, k, h = SWEEP_S, ex.operator, ex._N, ex._k, ex._h_e
+    rec, B = {}, op.B
+
+    def hold(name, got, ones, plain, tol, work, kernel, plain_fn, library=None):
+        torch.cuda.synchronize()
+        ft = float_tensors(got)
+        assert all(torch.equal(a, b) for a, b in zip(ft, float_tensors(ones))), (name, "rows")
+        err, scale = max_err(got, plain)
+        assert err <= tol * scale, (name, err, scale)
+        r = {"max_abs_err": err, "scale": scale, "rows_equal": True, "S": S}
+        if timed:
+            r["ms"] = cuda_ms(kernel)
+            r["plain_ms"] = cuda_ms(plain_fn, reps=3, warmup=1)
+            r.update(bound(*work))
+            r["library_ms"] = None if library is None else cuda_ms(library)
+        rec[name] = r
+
+    def stack(rows):
+        return [torch.stack(col) for col in zip(*rows)]
+
+    if grid:
+        gdp = ex.device_plan
+        Rm, fm = ex._R_mode, ex._f_mode
+        W, w, g, Ftot, const = condense.condense_scenarios(gdp, N, k, h, R, f0, Rm, fm, sp, ep)
+        ws = w if r_batch else w[0]
+        args = (gdp, ws, const, Ftot)
+        got = grid_core.grid_core_scenarios(*args)
+        rhs, diag, _ = got
+
+        def row_w(i):
+            return ws[i] if r_batch else ws
+
+        ones = stack([grid_core.grid_core(gdp, row_w(i), const[i], Ftot[i]) for i in range(S)])
+        if not r_batch:  # one diag for every row
+            assert all(torch.equal(diag, d) for d in ones[1]), "grid_core_scenarios: shared diag"
+            ones[1] = ones[1][0]
+        hold("grid_core_scenarios", got, ones, grid_core.grid_core_scenarios_plain(*args), TOL,
+             (tensor_bytes(ws, const, Ftot, got, gdp.stub_rows, gdp.stub_s_bif), 12 * B * S),
+             lambda: grid_core.grid_core_scenarios(*args),
+             lambda: grid_core.grid_core_scenarios_plain(*args))
+        gen = torch.Generator(device=device).manual_seed(28)
+        lam_any = torch.randn((S, B), generator=gen, dtype=torch.float64, device=device)
+        r_args = (gdp, ws, diag, lam_any, rhs)
+        got = grid_core.grid_residual_scenarios(*r_args, norm=True)
+        ones = stack([grid_core.grid_residual(gdp, row_w(i), diag[i] if r_batch else diag,
+                                              lam_any[i], rhs[i], norm=True) for i in range(S)])
+        library = None
+        if not r_batch:  # one Laplacian: the yardstick is one sparse product on (B, S)
+            L = lattice_csr_grid(gdp, ws, diag)
+            lam_t = lam_any.T.contiguous()
+            library = lambda: torch.sparse.mm(L, lam_t)  # noqa: E731
+        hold("grid_residual_scenarios", got, ones,
+             grid_core.grid_residual_scenarios_plain(*r_args, norm=True), TOL,
+             (tensor_bytes(ws, diag, lam_any, rhs, got), 10 * B * S),
+             lambda: grid_core.grid_residual_scenarios(*r_args),
+             lambda: grid_core.grid_residual_scenarios_plain(*r_args), library)
+        w_edges = w
+
+        def resid(x):
+            return grid_core.grid_residual_scenarios(gdp, ws, diag, x, rhs)
+
+        def resid_one(i):
+            return lambda x: grid_core.grid_residual(gdp, row_w(i), diag[i] if r_batch else diag,
+                                                     x, rhs[i])
+    else:
+        dlp = ex.device_plan
+        ed = edge_data.edge_data_scenarios(dlp, N, k, h, ex._quad_w, ex._quad_phi, R, f0,
+                                           ex._R_mode, ex._f_mode, ex._f_is_zero, sp, ep)
+        dr, w_edges = peel.bifurcation_system_scenarios(dlp, ed.W, ed.g, ed.cumF[:, -1],
+                                                        ed.start_pbc, ed.end_pbc)
+        C = dlp.offsets.size
+        cw = (segsum.segsum_plan_scenarios(dlp.class_sums, w_edges)[0].view(S, C, -1) if r_batch
+              else segsum.segsum_plan(dlp.class_sums, w_edges[0])[0].view(C, -1))
+        diag_v, rhs_v = dr[:, :, 0], dr[:, :, 1]
+        rhs = rhs_v.contiguous()
+        gen = torch.Generator(device=device).manual_seed(28)
+        lam_any = torch.randn((S, B), generator=gen, dtype=torch.float64, device=device)
+        s_args = (dlp.shift, cw, diag_v, lam_any, rhs_v)
+        got = shift_matvec.shift_matvec_scenarios(*s_args, norm=True)
+        ones = stack([shift_matvec.shift_matvec(dlp.shift, cw[i] if r_batch else cw, diag_v[i],
+                                                lam_any[i], rhs_v[i], norm=True)
+                      for i in range(S)])
+        library = None
+        if not r_batch:  # one Laplacian's diagonal would be row 0's: the product alone
+            L = lattice_csr(dlp.offsets, cw, dr[0, :, 0])
+            lam_t = lam_any.T.contiguous()
+            library = lambda: torch.sparse.mm(L, lam_t)  # noqa: E731
+        hold("shift_matvec_scenarios", got, ones,
+             shift_matvec.shift_matvec_scenarios_plain(*s_args, norm=True), TOL,
+             (tensor_bytes(cw, dr, lam_any, got) + 4 * C, (2 + 2 * C) * B * S),
+             lambda: shift_matvec.shift_matvec_scenarios(*s_args),
+             lambda: shift_matvec.shift_matvec_scenarios_plain(*s_args), library)
+
+        def resid(x):
+            return shift_matvec.shift_matvec_scenarios(dlp.shift, cw, diag_v, x, rhs_v)
+
+        def resid_one(i):
+            return lambda x: shift_matvec.shift_matvec(dlp.shift, cw[i] if r_batch else cw,
+                                                       diag_v[i], x, rhs_v[i])
+
+    stub_tables = (op.stub_rows, op.stub_edge, op.stub_group)
+    if r_batch:
+        got = K16.dct_factor_scenarios(op, w_edges)
+        ones = stack([K16.dct_factor(op, w_edges[i]) for i in range(S)])
+        hold("dct_factor_scenarios", got, ones, K16.dct_factor_scenarios_plain(op, w_edges), TOL,
+             (tensor_bytes(op.lamx, op.lamy, op.g_geo, stub_tables, got) + 8 * S * (2 + op.r),
+              S * (B * 3 + op.r * B + 4 * (op.r + 1) ** 3)),
+             lambda: K16.dct_factor_scenarios(op, w_edges),
+             lambda: K16.dct_factor_scenarios_plain(op, w_edges))
+        state = got
+    else:
+        state = K16.dct_factor(op, w_edges[0])
+    lam = K16.dct_apply_scenarios(op, state, rhs, resid)
+    fixed = K16.dct_apply_scenarios_plain(op, state, rhs, resid)  # the refinement residuals, fixed
+    res_fixed = resid(fixed)
+    ones = torch.stack([K16.dct_apply(op, state if not r_batch else K16.DctState(
+        *(t[i] for t in state)), rhs[i], resid_one(i)) for i in range(S)])
+    unref = K16.dct_apply_scenarios(op, state, rhs, resid, n_refine=0)
+    err0, scale0 = max_err(unref, K16.dct_apply_scenarios_plain(op, state, rhs, resid, n_refine=0))
+    assert err0 <= TOL * scale0, ("dct_apply_scenarios unrefined", err0, scale0)
+    n_pass = 1 + K16.N_REFINE
+    # the library yardstick: the four products of each pass as batched torch.matmul (12 calls)
+    Dy, Dx = op.Dy, op.Dx
+    inv3 = state.inv
+
+    def library():
+        b3 = rhs.view(S, op.ny, op.s)
+        for _ in range(n_pass):
+            c = torch.matmul(torch.matmul(Dy, b3), Dx.T) * inv3
+            torch.matmul(torch.matmul(Dy.T, c), Dx)
+
+    hold("dct_apply_scenarios", lam, ones, fixed, LATTICE_TOL,
+         (tensor_bytes(op.Dx, op.Dy, state, stub_tables) + 8 * B * S * (2 + K16.N_REFINE),
+          S * (n_pass * (2 * op.r + 3) * B),
+          S * n_pass * 4 * op.ny * op.s * (op.ny + op.s)),
+         lambda: K16.dct_apply_scenarios(op, state, rhs, lambda _: res_fixed),
+         lambda: K16.dct_apply_scenarios_plain(op, state, rhs, lambda _: res_fixed), library)
+    rec["dct_apply_scenarios"]["unrefined_err"] = err0
+    rec["dct_apply_scenarios"]["shared_factor"] = not r_batch
+    # K16 over S on two streams at once: each stream's scenario scratch, the bits of each alone
+    rhs2 = (rhs, (rhs + lam_any).contiguous())
+    alone = [K16.dct_apply_scenarios(op, state, b, lambda _: res_fixed) for b in rhs2]
+    torch.cuda.synchronize()
+    streams = torch.cuda.Stream(device), torch.cuda.Stream(device)
+    for order in (streams, streams[::-1]):
+        got2 = []
+        for st, b in zip(order, rhs2):
+            with torch.cuda.stream(st):
+                got2.append(K16.dct_apply_scenarios(op, state, b, lambda _: res_fixed))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got2, alone)), "K16 over S: two streams"
+    rec["dct_apply_scenarios"]["two_streams"] = "bit for bit"
+    rec["route"] = "grid" if grid else "general"
+    return rec
+
+
+def lattice_sweeps(P, device, name_power: str) -> dict:
+    """The lattice route's scenario axis on the card: the 512² lattice under
+    ``auto`` (the grid route; 16 R and 16 p_bc scenarios, against the same
+    sweeps a row at a time and 16 ``compute_forms`` + ``solve()``), with a
+    callable source (the general route; R and p_bc), the 64² lattice (B =
+    4,096, the sweep's own DCT band), the launches at S = 1 and 16,
+    ``GridFactorization.solve_batch`` of 16 rows against ``solve()``, and
+    the scenario kernels against the one-scenario kernels and their plain
+    versions."""
+    from networks_fenicsx_tpu_torch import factorization as PF
+    from networks_fenicsx_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    lat = lattice_assembler(P)
+    mesh = lat.network
+    y = mesh.vertices[: mesh.num_graph_nodes][:, 1]
+    Rb = SWEEP_SCALES[:, None].copy()
+    pbb = SWEEP_SCALES[:, None] * y[None]
+    paths, runs = {}, []
+
+    def forms(R=1.0, s=1.0, source=None):
+        lat.compute_forms(p_bc_ex=lambda x: s * x[1], R=R, f=source)
+
+    paths["lattice512_R16"] = lattice_sweep_path(
+        P, device, lat, "lattice512 R", {"R": Rb}, lambda i: forms(R=float(Rb[i, 0])), forms,
+        "grid", solves=True)
+    paths["lattice512_pbc16"] = lattice_sweep_path(
+        P, device, lat, "lattice512 p_bc", {"p_bc_node_values": pbb},
+        lambda i: forms(s=SWEEP_SCALES[i]), forms, "grid")
+    counts = {"grid_R": lattice_launches_vs_S(
+        P, device, lat, lambda S: {"R": np.linspace(0.5, 2.0, S)[:, None]}, "lattice512 R", "grid")}
+    sets = {"lattice512_R16": compare_lattice_scenario_kernels(P, device, lat, "R", timed=True),
+            "lattice512_pbc16": compare_lattice_scenario_kernels(P, device, lat, "p_bc",
+                                                                 timed=True)}
+
+    # factor reuse: 16 right-hand sides on one stored factor
+    fac = PF.build_grid_factorization(lat, device=device)
+    R0, _, sp0, ep0 = lat.schur_arguments(device=False)
+    state = fac.factor(R0)
+    f_b = SWEEP_SCALES[:, None] * 0.25
+    sp_b, ep_b = SWEEP_SCALES[:, None] * np.asarray(sp0)[None], SWEEP_SCALES[:, None] * np.asarray(ep0)[None]
+    fac.solve_batch(state, f_b, sp_b, ep_b)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    outs = fac.solve_batch(state, f_b, sp_b, ep_b)
+    torch.cuda.synchronize()
+    fl = kernels.launches()
+    want = {"condense_scenarios": 1, "grid_core_scenarios": 1, "dct_apply_scenarios": 1,
+            "grid_residual_scenarios": 3, "expand_scenarios": 1}
+    assert {n: v for n, v in fl.items() if v} == want, fl
+    runs.append(fl)
+    for i in range(SWEEP_S):
+        one = fac.solve(state, f_b[i], sp_b[i], ep_b[i])
+        assert all(torch.equal(a[i], b) for a, b in zip(outs, one)), ("solve_batch", i)
+    assert bool(torch.all(outs[5])), "solve_batch: finite"
+    rel = float((outs[3] / outs[4]).max())
+    assert rel <= 1e-10, ("solve_batch residual", rel)
+
+    def solves():
+        for i in range(SWEEP_S):
+            fac.solve(state, f_b[i], sp_b[i], ep_b[i])
+
+    batch_rec = {"S": SWEEP_S, "rows_bit_for_bit": SWEEP_S, "wrapper_calls": want,
+                 "max_rel_residual": rel,
+                 "solve_batch_ms": best_ms(lambda: fac.solve_batch(state, f_b, sp_b, ep_b)),
+                 "solves_ms": best_ms(solves),
+                 "device": device_share(lambda: fac.solve_batch(state, f_b, sp_b, ep_b))}
+    log(f"phase sweep lattice solve_batch (512^2, GridFactorization, {name_power}): "
+        + json.dumps(batch_rec))
+    del fac, state, outs
+
+    # the general route: a callable source
+    src = lattice_source
+    forms(source=src)
+    paths["lattice512_callable_R16"] = lattice_sweep_path(
+        P, device, lat, "lattice512 callable R", {"R": Rb},
+        lambda i: forms(R=float(Rb[i, 0]), source=src), lambda: forms(source=src), "general")
+    paths["lattice512_callable_pbc16"] = lattice_sweep_path(
+        P, device, lat, "lattice512 callable p_bc", {"p_bc_node_values": pbb},
+        lambda i: forms(s=SWEEP_SCALES[i], source=src), lambda: forms(source=src), "general")
+    forms(source=src)
+    counts["general_pbc"] = lattice_launches_vs_S(
+        P, device, lat, lambda S: {"p_bc_node_values": np.linspace(0.5, 2.0, S)[:, None] * y[None]},
+        "lattice512 callable p_bc", "general")
+    sets["lattice512_callable_pbc16"] = compare_lattice_scenario_kernels(P, device, lat, "p_bc",
+                                                                         timed=True)
+    sets["lattice512_callable_R16"] = compare_lattice_scenario_kernels(P, device, lat, "R",
+                                                                       timed=False)
+    forms()
+    del lat
+
+    # the 64² lattice under auto: B = 4,096, the sweep's own DCT band
+    small = lattice_assembler(P, LATTICE64, LATTICE64)
+    assert small.network.num_multipliers == 4_096, small.network.num_multipliers
+    Rs = SWEEP_SCALES[:, None].copy()
+    paths["lattice64_R16"] = lattice_sweep_path(
+        P, device, small, "lattice64 R", {"R": Rs},
+        lambda i: small.compute_forms(p_bc_ex=lambda x: x[1], R=float(Rs[i, 0])),
+        lambda: lattice_forms(small), "grid")
+    del small
+
+    for key, path in paths.items():
+        runs.append(path["launches"])
+        log(f"phase sweep lattice {key} ({name_power}): " + json.dumps(path["rec"]))
+    log("phase sweep lattice launches (profiled, S = 1 and 16): " + json.dumps(counts))
+    for name in ("lattice512_R16", "lattice512_pbc16", "lattice512_callable_pbc16"):
+        log(f"phase kernels-sweep {name}: " + json.dumps(sets[name]))
+    log(f"phase wall: the lattice sweep phases {time.perf_counter() - t0:.1f} s")
+    return {"sets": sets, "runs": runs}
+
+
 def sweep_phases(P, device, name_power: str, serial: dict) -> dict:
     """The sweeps: the headline tree's R and p_bc sweeps of 16 scenarios on
     the batched blocked route (the main path of the scenario kernels), the
@@ -6812,6 +7231,9 @@ def sweep_phases(P, device, name_power: str, serial: dict) -> dict:
     dense = dense_sweeps(P, device, name_power)
     sets.update(dense["sets"])
     runs += dense["runs"]
+    lattice = lattice_sweeps(P, device, name_power)
+    sets.update(lattice["sets"])
+    runs += lattice["runs"]
     log(f"phase wall: the sweep phases {time.perf_counter() - t_start:.1f} s")
     return {"sets": sets, "runs": runs}
 
@@ -7019,9 +7441,10 @@ def main() -> int:
             errs = tuple(factor[c.split(":")[0]]["checks"][c.split(":")[1] if ":" in c else name]
                          ["max_abs_err"] for c in checks)
             timed_on = factor[on]["checks"][name]
-        elif name in SCENARIO_CHECKS or name in DENSE_SCENARIO_CHECKS:
+        elif name in {**SCENARIO_CHECKS, **DENSE_SCENARIO_CHECKS, **LATTICE_SCENARIO_CHECKS}:
             errs = tuple(rec[name]["max_abs_err"] for rec in sweep_sets.values() if name in rec)
-            timed_on = sweep_sets[{**SCENARIO_CHECKS, **DENSE_SCENARIO_CHECKS}[name]][name]
+            timed_on = sweep_sets[{**SCENARIO_CHECKS, **DENSE_SCENARIO_CHECKS,
+                                   **LATTICE_SCENARIO_CHECKS}[name]][name]
         elif name in GENERIC_CHECKS:
             checks = GENERIC_CHECKS[name]
             errs = tuple(gen_sets[on][key]["max_abs_err"] for on, key in checks)
@@ -7042,7 +7465,7 @@ def main() -> int:
             "bound_ms": timed_on["bound_ms"], "bound_by": timed_on["bound_by"],
             "library_ms": timed_on.get("library_ms"),
         })
-    assert len(kernels) == 58 and all(kr["launches"] > 0 for kr in kernels), kernels
+    assert len(kernels) == 63 and all(kr["launches"] > 0 for kr in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

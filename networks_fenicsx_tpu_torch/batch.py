@@ -18,9 +18,17 @@ scenarios run:
   S factors when R varies by scenario, in chunks that bound the factors'
   memory, else one factor and S right-hand sides), and the route without
   multipliers (:class:`.solver._EdgeExecutor`: K8a and K8b over S);
-* every other route (``dense_f64``, DCT and grid, tree, level, CG) runs its
-  rows through its executor, one solve a row, into preallocated ``(S, ·)``
-  device outputs (ROADMAP A9b names the routes still to batch).
+* so has the lattice route, under ``auto`` (a uniform scalar-R lattice at
+  any B) or ``schur_method="dct"``: on the grid route
+  (:class:`.solver._GridExecutor`) K1, K17's assembly, K16's factors (S of
+  them when R varies by scenario, else one) and passes with K17's stencil
+  over S as their residual, and K5; on the general route
+  (:class:`.solver._DctExecutor`, a callable source) K8a, the bifurcation
+  system, K6's class weights, K16 with K18 over S, and K8b
+  (``scenarios`` of each);
+* every other route (``dense_f64``, tree, level, CG) runs its rows through
+  its executor, one solve a row, into preallocated ``(S, ·)`` device
+  outputs (ROADMAP A9b names the routes still to batch).
 
 Either way row ``i`` is the executor's call on row ``i`` bit for bit.  The
 device is explicit, as for :class:`.solver.Solver`: ``device="cuda"`` by
@@ -244,15 +252,19 @@ def solve_sweep(
     base_R, base_f, base_sp, base_ep = executor.prepare_args(base_R, base_f, base_sp, base_ep)
 
     if p_bc_node_values is not None:
-        # boundary-pressure expansion in the executor's edge order
+        # boundary-pressure expansion in the executor's edge order: each
+        # boundary end's node value, 0 at a bifurcation end (only the
+        # boundary columns are gathered: a lattice has two of 523,266)
         pbv = np.asarray(p_bc_node_values, dtype=np.float64)
         edges = mesh.edges if edge_order is None else mesh.edges[edge_order]
         sb = np.asarray(asm._edge_start_bif)
         eb = np.asarray(asm._edge_end_bif)
         if edge_order is not None:
             sb, eb = sb[edge_order], eb[edge_order]
-        sp_batch = np.where((sb < 0)[None, :], pbv[:, edges[:, 0]], 0.0)
-        ep_batch = np.where((eb < 0)[None, :], pbv[:, edges[:, 1]], 0.0)
+        sp_batch, ep_batch = (np.zeros((pbv.shape[0], edges.shape[0])) for _ in range(2))
+        for out, bif, end in ((sp_batch, sb, 0), (ep_batch, eb, 1)):
+            cols = np.flatnonzero(bif < 0)
+            out[:, cols] = pbv[:, edges[cols, end]]
     else:
         sp_batch = ep_batch = None
 

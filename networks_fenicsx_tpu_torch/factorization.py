@@ -42,7 +42,9 @@ only the lattice's reports its λ residual (``solve_has_residual``).
 :meth:`solve_batch` runs many right-hand sides against one factor: the
 reference's leading scenario axis over :meth:`solve`'s layouts, each row
 :meth:`solve`'s bits.  The blocked class runs all rows in one launch of K1,
-K3–K4 and K5 (their scenario axis); the lattice and tree classes a row at a
+K3–K4 and K5 (their scenario axis), the lattice class in one launch of K1,
+K17's assembly, K16's six a pass (on the stored factor, read at stride 0)
+with K17's stencil and K5 (their scenario axis); the tree class a row at a
 time on the same kernels (ROADMAP A9b).
 """
 
@@ -302,6 +304,8 @@ class GridFactorization(_Factorization):
             stub_group=plan.stub_group, rep_x=0, rep_y=plan.Ex,
         )
         self._h_e = self._upload(plan.h_e)
+        self._edge_order_dev = torch.as_tensor(plan.edge_order, dtype=torch.int64,
+                                               device=self._device)
 
     def factor(self, R_data) -> GridState:
         """The conductance side: K1, then K16's factor (two launches)."""
@@ -323,11 +327,40 @@ class GridFactorization(_Factorization):
                                          self._h_e, state.R, f, self._R_mode, self._f_mode)
         return q_T, p_T, lam, res_norm, rhs_norm, finite
 
+    def solve_batch(self, state: GridState, f_batch, start_pbc_batch, end_pbc_batch):
+        """:meth:`solve` of S right-hand sides in one launch each of K1 (on
+        the resident R, read once for all rows), K17's assembly, K16's passes
+        (on the stored factor, read at stride 0) with K17's stencil, the
+        residual with its norms and K5: the tuple with a leading ``S`` on
+        each entry, row ``i`` :meth:`solve` of row ``i`` to the bit."""
+        f_rows, sp_rows, ep_rows = self._batch_rows(f_batch, start_pbc_batch, end_pbc_batch)
+        eo, gdp, N, k = self.edge_order, self.device_plan, self._N, self._k
+        if self._f_mode == "scalar":  # a scalar row is its first entry, as solve() reads it
+            f_rows = f_rows.reshape(f_rows.shape[0], -1)[:, :1]
+        f = self._upload(_permute_coefficient_batch(f_rows, self._f_mode, eo))
+        # the boundary rows uploaded as given and put in the edge order on the
+        # device: one gather there, where the host's column gather of (S, E)
+        # rows costs more than the solve
+        sp, ep = (self._upload(a).index_select(1, self._edge_order_dev) for a in (sp_rows, ep_rows))
+        W, w, g, Ftot, const = condense.condense_scenarios(
+            gdp, N, k, self._h_e, state.R, f, self._R_mode, self._f_mode, sp, ep)
+        w0 = w[0]  # the resident R's conductances, every row's bits
+        rhs, diag, rhs_norm = grid_core.grid_core_scenarios(gdp, w0, const, Ftot)
+        lam = dct_lattice.dct_apply_scenarios(
+            self.operator, state.dct, rhs,
+            lambda lam: grid_core.grid_residual_scenarios(gdp, w0, diag, lam, rhs))
+        _, res_norm = grid_core.grid_residual_scenarios(gdp, w0, diag, lam, rhs, norm=True)
+        q_T, p_T, finite = expand.expand_scenarios(gdp, N, k, lam, sp, ep, W, w, g, Ftot, self._h_e,
+                                                   state.R, f, self._R_mode, self._f_mode)
+        return q_T, p_T, lam, res_norm, rhs_norm, finite
+
 
 class TreeFactorization(_Factorization):
     """Factor reuse on any topology by the peel rounds and the core (see the
     module docs); ``_tree_plan`` replaces the cached plan (tests force a
-    core engine with it, as the reference's).
+    core engine with it, as the reference's).  Its :meth:`solve_batch` runs
+    the rows one at a time (K9's channels and the cores have no scenario
+    axis yet: ROADMAP A9b).
 
     Attributes:
         device_tree_plan: the tree plan on the device (K9, K6 and the core

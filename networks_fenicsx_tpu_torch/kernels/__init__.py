@@ -105,7 +105,11 @@ launches of one solve; so do the dense route's kernels: K8a
 ``bifurcation_system_scenarios`` on K6's ``segsum_plan_scenarios``, which
 also sums the pair conductances), K11 (``dense_factor_scenarios``,
 ``dense_gate_scenarios``, ``dense_solve_scenarios`` on S factors or on one)
-and K8b (``backsub_scenarios``): the ``SCENARIO`` wrappers.
+and K8b (``backsub_scenarios``); and so do the lattice route's: K16's
+factors and passes (``dct_factor_scenarios``, ``dct_apply_scenarios`` on S
+factors or on one), K17's assembly and stencil (``grid_core_scenarios``,
+``grid_residual_scenarios``) and K18 (``shift_matvec_scenarios``): the
+``SCENARIO`` wrappers.
 
 A wrapper launches its kernel for CUDA tensors (building the library from
 ``csrc/`` at first use, see :mod:`.build`) and runs the plain version for
@@ -151,7 +155,9 @@ SCENARIO = (condense.condense_scenarios, tree_sweep.tree_sweep_scenarios,
             edge_data.edge_data_scenarios, peel.bifurcation_system_scenarios,
             segsum.segsum_plan_scenarios, dense_core.dense_factor_scenarios,
             dense_core.dense_gate_scenarios, dense_core.dense_solve_scenarios,
-            backsub.backsub_scenarios)
+            backsub.backsub_scenarios, dct_lattice.dct_factor_scenarios,
+            dct_lattice.dct_apply_scenarios, grid_core.grid_core_scenarios,
+            grid_core.grid_residual_scenarios, shift_matvec.shift_matvec_scenarios)
 WRAPPERS = (BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE + ASSEMBLED + SHARDED + FACTORED
             + SCENARIO)
 

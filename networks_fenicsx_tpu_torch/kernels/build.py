@@ -25,7 +25,7 @@ import torch
 __all__ = [
     "library", "check", "require_cuda", "require_vectors", "require_coefficients", "on_device",
     "stream_handle", "raw_stream", "Counter", "BUILD_ROOT", "scenarios", "batched", "scenario_row",
-    "scenario_stride",
+    "scenario_stride", "norm_scratch",
 ]
 
 CSRC = pathlib.Path(__file__).parent / "csrc"
@@ -192,10 +192,27 @@ _SIGNATURES = {
     "nxfx_dct_lplus": [_p, _p, _p, _p, _p],  # DctArgs, inv, b, z, stream
     "nxfx_dct_pass": [_p, _p, _p, _p, _i, _p],  # DctArgs, w (or null), b, lam, accumulate, stream
     "nxfx_dct_apply": [_p, _p, _p, _p, _p, _p, _i, _p],  # DctArgs, inv, g, Minv, b, lam, accumulate, stream
+    "nxfx_dct_factor_scen": [_p, _i, _p, _l, _p, _p, _p, _p],  # DctArgs, S, w, row stride, inv, g, Minv, stream
+    "nxfx_dct_apply_scen": [
+        _p, _p, _i, _i,  # DctArgs, DctScen, S, shared
+        _p, _p, _p, _p, _p, _i, _p,  # inv, g, Minv, b, lam, accumulate, stream
+    ],
     "nxfx_dct_matrix": [_i, _d, _d, _p, _p],  # n, scale, scale0, D, stream
     "nxfx_grid_assemble": [_p, _p, _p, _p, _p, _p, _p, _p],  # GridArgs, w, const, Ftot, rhs, diag, norm, stream
     "nxfx_grid_residual": [_p, _p, _p, _p, _p, _p, _p, _p],  # GridArgs, w, diag, lam, rhs, res, norm (or null), stream
+    "nxfx_grid_assemble_scen": [
+        _p, _i, _p, _p, _p, _p,  # GridArgs, S, GridStrides, w, const, Ftot
+        _p, _p, _p, _p, _p, _p,  # rhs, diag, norms (or null), partials, tickets, stream
+    ],
+    "nxfx_grid_residual_scen": [
+        _p, _i, _p, _p, _p, _p, _p,  # GridArgs, S, GridStrides, w, diag, lam, rhs
+        _p, _p, _p, _p, _p,  # res, norms (or null), partials, tickets, stream
+    ],
     "nxfx_shift_matvec": [_p, _p, _p, _p, _p, _p, _p, _p],  # ShiftArgs, cw, diag, x, b, out, norm, stream
+    "nxfx_shift_matvec_scen": [
+        _p, _i, _l, _l, _l,  # ShiftArgs, S, strides of cw, diag and b
+        _p, _p, _p, _p, _p, _p, _p, _p, _p,  # cw, diag, x, b, out, norms, partials, tickets, stream
+    ],
     "nxfx_shift_cheb": [
         _p, _p, _p, _p, _p, _p, _p, _p,  # ShiftArgs, cw, diag, s, rs, dvec, x_in, x_out
         _d, _d, _p, _p, _p,  # c1, c2, z (or null), base (or null), stream
@@ -440,6 +457,24 @@ def scenario_row(t: torch.Tensor, base, i: int) -> torch.Tensor:
 def scenario_stride(t: torch.Tensor, base) -> int:
     """Elements between two scenarios' rows of ``t``: 0 when shared."""
     return int(np.prod(tuple(base), dtype=np.int64)) if batched(t, base) else 0
+
+
+def norm_scratch(store: dict, stream: int, index: int, S: int, blocks: int) -> tuple[int, int]:
+    """``(partials, tickets)`` addresses of the scenario norms' scratch of a
+    kernel on CUDA stream ``stream`` (``ticket_norm.cuh`` over S scenarios):
+    ``S`` rows of ``blocks`` float64 partial sums, then ``S`` ticket words,
+    in one buffer zeroed on the stream and kept in ``store`` under
+    ``("scen", stream)``.  It is made anew for more scenarios than it holds
+    once the stream has drained (its launches may still use the old one);
+    the kernels leave every ticket at 0."""
+    key = ("scen", stream)
+    entry = store.get(key)
+    if entry is None or entry[0] < S:
+        if entry is not None:
+            torch.cuda.current_stream(index).synchronize()
+        buf = torch.zeros(S * blocks + -(-S // 2), dtype=torch.float64, device=f"cuda:{index}")
+        entry = store[key] = (S, buf, buf.data_ptr(), buf.data_ptr() + 8 * S * blocks)
+    return entry[2], entry[3]
 
 
 def require_coefficients(name: str, N: int, E: int, *coeffs: tuple) -> None:

@@ -60,6 +60,17 @@
 // no __restrict__ and are read past L1 (__ldcg).  The bordered matrix (r + 1
 // <= 17) is inverted in one block by Gauss-Jordan with partial pivoting, in
 // float64.
+//
+// Over S scenarios (a sweep's resistance or right-hand-side batch) every
+// launch takes them all, so a pass is six launches and a solve 20 whatever
+// S: a product puts the scenario beside its column tiles in grid x and keeps
+// one scenario's k split (the split decides the bits), each operand moving by
+// its own stride (0 for Dx, Dy and a factor that every scenario shares); the
+// factor's scale kernel, the border and the correction walk the scenarios in
+// grid y, and the bordered inverse is one block a scenario.  Each scenario
+// has its own grids, border partials, ticket and sol in the calling stream's
+// scenario scratch, and the border's block count is one scenario's, so row i
+// is the bits of a call of one on row i.
 
 #include <atomic>
 #include <cstdint>
@@ -144,24 +155,37 @@ __device__ __forceinline__ double frag(const double* S, int row, int k)
     return KC ? S[row * LDK + k] : S[k * (ROWS + 4) + row];
 }
 
-// C (M, N) = op(A) (M, K) op(B) (K, N) [o S], all row-major.  op(A) = A
-// stored (M, K) (k-contiguous: AKC), or A^T with A stored (K, M); op(B) =
-// B stored (K, N), or B^T with B stored (N, K) (k-contiguous: BKC).  Block
-// (x, y, z): the BM x BN output tile (y, x), k in [z kchunk, (z + 1)
-// kchunk); the gridDim.z blocks of a tile form one cluster.  Warp w owns
+// Elements between two scenarios' operands of a product (0: shared).
+struct GemmStrides {
+    long long a, b, s, c;
+};
+
+// C (M, N) = op(A) (M, K) op(B) (K, N) [o S], all row-major, for each of
+// gridDim.x / tiles_n scenarios, each operand st's stride further on.
+// op(A) = A stored (M, K) (k-contiguous: AKC), or A^T with A stored (K, M);
+// op(B) = B stored (K, N), or B^T with B stored (N, K) (k-contiguous: BKC).
+// Block (x, y, z): the BM x BN output tile (y, x % tiles_n) of scenario
+// x / tiles_n, k in [z kchunk, (z + 1) kchunk); the gridDim.z blocks of a
+// tile form one cluster, so a scenario's k split is one scenario's.  Warp w owns
 // rows 32 (w / WN) .. + 32 and columns 16 (w % WN) .. + 16 of the tile:
 // acc[mi][ni] the 16 x 8 block at rows + 16 mi, columns + 8 ni (see
 // tc_mma16x8x16).
 template <bool AKC, bool BKC>
 __global__ void __launch_bounds__(GEMM_THREADS) dct_gemm_kernel(
-    int M, int N, int K, int kchunk, int vec,
+    int M, int N, int K, int kchunk, int vec, int tiles_n, GemmStrides st,
     const double* __restrict__ A, const double* __restrict__ Bm,
     const double* __restrict__ S, double* __restrict__ C)
 {
     extern __shared__ __align__(16) double dct_smem[];
     double* As = dct_smem;                       // [STAGES][SLAB_A]
     double* Bs = dct_smem + STAGES * SLAB_A;     // [STAGES][SLAB_B]
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, z = blockIdx.z;
+    // block x: column tile x % tiles_n of scenario x / tiles_n
+    const int sc = blockIdx.x / tiles_n;
+    A += static_cast<size_t>(sc) * st.a;
+    Bm += static_cast<size_t>(sc) * st.b;
+    C += static_cast<size_t>(sc) * st.c;
+    if (S) S += static_cast<size_t>(sc) * st.s;
+    const int m0 = blockIdx.y * BM, n0 = (blockIdx.x - sc * tiles_n) * BN, z = blockIdx.z;
     const int k_begin = z * kchunk;
     const int k_end = min(K, k_begin + kchunk);
     const int nk = (k_end - k_begin + BK - 1) / BK;
@@ -294,20 +318,23 @@ cudaError_t gemm_allow_smem()
     return err;
 }
 
-// One launch of a cluster of zs blocks a tile (zs = the effective split).
+// One launch of a cluster of zs blocks a tile (zs = the effective split),
+// nscen scenarios side by side in grid x.
 template <bool AKC, bool BKC>
 int launch_gemm(int M, int N, int K, const double* A, const double* B, const double* S, double* C, int split,
-                cudaStream_t stream)
+                int nscen, GemmStrides st, cudaStream_t stream)
 {
     const int kchunk = ((K + split - 1) / split + BK - 1) / BK * BK;
     const int zs = (K + kchunk - 1) / kchunk;
-    // 16-byte copies when every staged row starts 16-byte aligned
+    const int tiles_n = (N + BN - 1) / BN;
+    if (static_cast<long long>(tiles_n) * nscen > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+    // 16-byte copies when every staged row of every scenario starts 16-byte aligned
     const bool vec = (reinterpret_cast<uintptr_t>(A) % 16 == 0) && (reinterpret_cast<uintptr_t>(B) % 16 == 0)
-                     && (AKC ? K : M) % 2 == 0 && (BKC ? K : N) % 2 == 0;
+                     && (AKC ? K : M) % 2 == 0 && (BKC ? K : N) % 2 == 0 && st.a % 2 == 0 && st.b % 2 == 0;
     cudaError_t err = gemm_allow_smem<AKC, BKC>();
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, zs);
+    cfg.gridDim = dim3(tiles_n * nscen, (M + BM - 1) / BM, zs);
     cfg.blockDim = dim3(GEMM_THREADS);
     cfg.dynamicSmemBytes = GEMM_SMEM;
     cfg.stream = stream;
@@ -318,36 +345,42 @@ int launch_gemm(int M, int N, int K, const double* A, const double* B, const dou
     attr[0].val.clusterDim.z = zs;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, dct_gemm_kernel<AKC, BKC>, M, N, K, kchunk, static_cast<int>(vec), A, B, S, C);
+    err = cudaLaunchKernelEx(&cfg, dct_gemm_kernel<AKC, BKC>, M, N, K, kchunk, static_cast<int>(vec), tiles_n, st,
+                             A, B, S, C);
     return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// inv (ny, s) and g = kappa g_geo (r, B), one element per thread
+// inv (ny, s) and g = kappa g_geo (r, B), one element per thread, for
+// scenarios y, y + gridDim.y, ... of S: w sw further on, inv B and g r B
 __global__ void dct_scale_kernel(
-    int s, int ny, int r, int B,
-    const double* __restrict__ w, int rep_x, int rep_y, double len_x,
+    int s, int ny, int r, int B, int S,
+    const double* __restrict__ w, long long sw, int rep_x, int rep_y, double len_x,
     const double* __restrict__ lamx, const double* __restrict__ lamy,
     const double* __restrict__ g_geo,
     double* __restrict__ inv, double* __restrict__ g)
 {
     const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    const double wx = w[rep_x];
-    const double wy = w[rep_y];
-    if (i < (size_t)ny * s) {
-        const int row = (int)(i / s), col = (int)(i % s);
-        const double sym = wx * lamx[col] + wy * lamy[row];
-        inv[i] = sym > 0.0 ? 1.0 / sym : 0.0;
-    }
-    if (i < (size_t)r * B) {
-        const double kappa = 1.0 / (wx * len_x);
-        g[i] = kappa * g_geo[i];
+    for (int sc = blockIdx.y; sc < S; sc += gridDim.y) {
+        const double* ws = w + (size_t)sc * sw;
+        const double wx = ws[rep_x];
+        const double wy = ws[rep_y];
+        if (i < (size_t)ny * s) {
+            const int row = (int)(i / s), col = (int)(i % s);
+            const double sym = wx * lamx[col] + wy * lamy[row];
+            inv[(size_t)sc * B + i] = sym > 0.0 ? 1.0 / sym : 0.0;
+        }
+        if (i < (size_t)r * B) {
+            const double kappa = 1.0 / (wx * len_x);
+            g[(size_t)sc * r * B + i] = kappa * g_geo[i];
+        }
     }
 }
 
-// w_r, the bordered matrix M and its inverse, in one block
+// w_r, the bordered matrix M and its inverse, in one block a scenario
+// (block x: w sw, g r B, Minv (r + 1)^2 further on)
 __global__ void dct_minv_kernel(
     int r, int n_stub, int B,
-    const double* __restrict__ w,
+    const double* __restrict__ w, long long sw,
     const int* __restrict__ stub_edge, const int* __restrict__ stub_group,
     const int* __restrict__ stub_rows,
     const double* __restrict__ g,
@@ -359,6 +392,9 @@ __global__ void dct_minv_kernel(
     __shared__ int piv;
     const int n = r + 1;
     const int tid = threadIdx.x;
+    w += (size_t)blockIdx.x * sw;
+    g += (size_t)blockIdx.x * r * B;
+    Minv += (size_t)blockIdx.x * n * n;
     if (tid == 0) {
         for (int t = 0; t < r; ++t) wr[t] = 0.0;
         for (int i = 0; i < n_stub; ++i) wr[stub_group[i]] += w[stub_edge[i]];
@@ -410,65 +446,84 @@ __global__ void dct_minv_kernel(
 }
 
 // sol = Minv [z[rows], sum b]: per-block partial sums of b (grid-stride),
-// then the last block (a ticket) adds them in block order and forms sol
+// then the last block (a ticket) adds them in block order and forms sol.
+// Scenarios y, y + gridDim.y, ... of S, each with its own partial row
+// (BORDER_BLOCKS apart), ticket and sol (r + 1 apart), b and z B apart and
+// Minv sM apart; every scenario has the same gridDim.x blocks, so the same
+// sums in the same order as a call of one.
 __global__ void __launch_bounds__(BORDER_THREADS) dct_border_kernel(
-    int B, int r,
+    int B, int r, int S,
     const double* __restrict__ b, const double* __restrict__ z,
-    const int* __restrict__ stub_rows, const double* __restrict__ Minv,
+    const int* __restrict__ stub_rows, const double* __restrict__ Minv, long long sM,
     double* partial, unsigned int* ticket, double* __restrict__ sol)
 {
     __shared__ double part[BORDER_THREADS];
     __shared__ bool last;
     const int tid = threadIdx.x;
-    double acc = 0.0;
-    for (int i = blockIdx.x * BORDER_THREADS + tid; i < B; i += gridDim.x * BORDER_THREADS) acc += b[i];
-    part[tid] = acc;
-    __syncthreads();
-    for (int half = BORDER_THREADS / 2; half > 0; half /= 2) {
-        if (tid < half) part[tid] = part[tid] + part[tid + half];
-        __syncthreads();
-    }
-    if (tid == 0) {
-        partial[blockIdx.x] = part[0];
-        __threadfence();
-        last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    acc = 0.0;
-    for (int i = tid; i < static_cast<int>(gridDim.x); i += BORDER_THREADS) acc += __ldcg(partial + i);
-    part[tid] = acc;
-    __syncthreads();
-    for (int half = BORDER_THREADS / 2; half > 0; half /= 2) {
-        if (tid < half) part[tid] = part[tid] + part[tid + half];
-        __syncthreads();
-    }
     const int n = r + 1;
-    if (tid < n) {
-        double v = 0.0;
-        for (int j = 0; j < n; ++j) {
-            const double vj = j < r ? z[stub_rows[j]] : part[0];
-            v += Minv[tid * n + j] * vj;
+    for (int sc = blockIdx.y; sc < S; sc += gridDim.y) {
+        const double* bs = b + (size_t)sc * B;
+        double* ps = partial + (size_t)sc * BORDER_BLOCKS;
+        unsigned int* ts = ticket + sc;
+        double acc = 0.0;
+        for (int i = blockIdx.x * BORDER_THREADS + tid; i < B; i += gridDim.x * BORDER_THREADS) acc += bs[i];
+        part[tid] = acc;
+        __syncthreads();
+        for (int half = BORDER_THREADS / 2; half > 0; half /= 2) {
+            if (tid < half) part[tid] = part[tid] + part[tid + half];
+            __syncthreads();
         }
-        sol[tid] = v;
+        if (tid == 0) {
+            ps[blockIdx.x] = part[0];
+            __threadfence();
+            last = atomicAdd(ts, 1u) == gridDim.x - 1;
+        }
+        __syncthreads();
+        if (last) {
+            __threadfence();
+            acc = 0.0;
+            for (int i = tid; i < static_cast<int>(gridDim.x); i += BORDER_THREADS) acc += __ldcg(ps + i);
+            part[tid] = acc;
+            __syncthreads();
+            for (int half = BORDER_THREADS / 2; half > 0; half /= 2) {
+                if (tid < half) part[tid] = part[tid] + part[tid + half];
+                __syncthreads();
+            }
+            if (tid < n) {
+                const double* zs = z + (size_t)sc * B;
+                const double* Ms = Minv + (size_t)sc * sM;
+                double v = 0.0;
+                for (int j = 0; j < n; ++j) {
+                    const double vj = j < r ? zs[stub_rows[j]] : part[0];
+                    v += Ms[tid * n + j] * vj;
+                }
+                sol[(size_t)sc * n + tid] = v;
+            }
+            if (tid == 0) *ts = 0u;
+        }
+        __syncthreads();  // part and last are free for the next scenario
     }
-    if (tid == 0) *ticket = 0u;
 }
 
 // out = (z - sum_t sol_t g_t) + sol_r, plus lam_in when refining (lam_out may be
-// lam_in: each thread reads its entry before it writes it)
+// lam_in: each thread reads its entry before it writes it), for scenarios y,
+// y + gridDim.y, ... of S: z and lam B apart, g sg apart, sol r + 1 apart
 __global__ void dct_correct_kernel(
-    int B, int r,
-    const double* __restrict__ z, const double* __restrict__ g,
+    int B, int r, int S,
+    const double* __restrict__ z, const double* __restrict__ g, long long sg,
     const double* __restrict__ sol, const double* lam_in, double* lam_out)
 {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= B) return;
-    double corr = sol[0] * g[i];
-    for (int t = 1; t < r; ++t) corr += sol[t] * g[(size_t)t * B + i];
-    const double v = (z[i] - corr) + sol[r];
-    lam_out[i] = lam_in ? lam_in[i] + v : v;
+    for (int sc = blockIdx.y; sc < S; sc += gridDim.y) {
+        const size_t o = (size_t)sc * B + i;
+        const double* gs = g + (size_t)sc * sg;
+        const double* ss = sol + (size_t)sc * (r + 1);
+        double corr = ss[0] * gs[i];
+        for (int t = 1; t < r; ++t) corr += ss[t] * gs[(size_t)t * B + i];
+        const double v = (z[o] - corr) + ss[r];
+        lam_out[o] = lam_in ? lam_in[o] + v : v;
+    }
 }
 
 // the orthonormal DCT-II matrix of a side above the host-constant limit
@@ -515,42 +570,91 @@ struct DctArgs {
     unsigned int* border_ticket;
 };
 
+// One stream's scratch of a scenario call (dct_apply_scenarios): the
+// transform grids t1, t2, z (B a scenario), the border's partial sums
+// (BORDER_BLOCKS a scenario), sol (r + 1 a scenario) and one ticket a
+// scenario, for at most `capacity` scenarios; built by the Python operator
+// when the stream's scratch grows (a ctypes Structure of the same fields).
+struct DctScen {
+    int capacity;
+    double* t1;
+    double* t2;
+    double* z;
+    double* partial;
+    double* sol;
+    unsigned int* tickets;
+};
+
 namespace {
 
-// the factor into inv, g and Minv: two launches
-int dct_factor(const DctArgs* a, const double* w, double* inv, double* g, double* Minv, cudaStream_t stream)
+// the grid rows of a launch over S scenarios: one a scenario up to the
+// grid's y limit, each row then walking the scenarios y, y + gridDim.y, ...
+unsigned int scen_rows(int S) { return static_cast<unsigned int>(S < 65535 ? S : 65535); }
+
+// the factors of S scenarios into inv, g and Minv (each scenario's B, r B
+// and (r + 1)^2 further on), w sw further on a scenario: two launches
+int dct_factor(const DctArgs* a, int S, const double* w, long long sw, double* inv, double* g, double* Minv,
+               cudaStream_t stream)
 {
-    if (a->r < 1 || a->r + 1 > MAX_BORDER) return static_cast<int>(cudaErrorInvalidValue);
+    if (a->r < 1 || a->r + 1 > MAX_BORDER || S < 1) return static_cast<int>(cudaErrorInvalidValue);
     const size_t n = (size_t)a->ny * a->s > (size_t)a->r * a->B ? (size_t)a->ny * a->s : (size_t)a->r * a->B;
-    dct_scale_kernel<<<blocks_for(n, 256), 256, 0, stream>>>(
-        a->s, a->ny, a->r, a->B, w, a->rep_x, a->rep_y, a->len_x, a->lamx, a->lamy, a->g_geo, inv, g);
+    dct_scale_kernel<<<dim3(blocks_for(n, 256), scen_rows(S)), 256, 0, stream>>>(
+        a->s, a->ny, a->r, a->B, S, w, sw, a->rep_x, a->rep_y, a->len_x, a->lamx, a->lamy, a->g_geo, inv, g);
     int code = static_cast<int>(cudaGetLastError());
     if (code != 0) return code;
-    dct_minv_kernel<<<1, 2 * MAX_BORDER * 4, 0, stream>>>(
-        a->r, a->n_stub, a->B, w, a->stub_edge, a->stub_group, a->stub_rows, g, Minv);
+    dct_minv_kernel<<<S, 2 * MAX_BORDER * 4, 0, stream>>>(
+        a->r, a->n_stub, a->B, w, sw, a->stub_edge, a->stub_group, a->stub_rows, g, Minv);
     return static_cast<int>(cudaGetLastError());
 }
 
 int dct_gemm(int M, int N, int K, const double* A, int transA, const double* B, int transB, const double* S,
-             double* C, int split, cudaStream_t stream)
+             double* C, int split, int nscen, GemmStrides st, cudaStream_t stream)
 {
     if (M <= 0 || N <= 0) return 0;
-    if (K <= 0 || split < 1 || split > MAX_SPLIT || (M + BM - 1) / BM > 65535)
+    if (K <= 0 || split < 1 || split > MAX_SPLIT || (M + BM - 1) / BM > 65535 || nscen < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (!transA && transB) return launch_gemm<true, true>(M, N, K, A, B, S, C, split, stream);
-    if (!transA) return launch_gemm<true, false>(M, N, K, A, B, S, C, split, stream);
-    if (transB) return launch_gemm<false, true>(M, N, K, A, B, S, C, split, stream);
-    return launch_gemm<false, false>(M, N, K, A, B, S, C, split, stream);
+    if (!transA && transB) return launch_gemm<true, true>(M, N, K, A, B, S, C, split, nscen, st, stream);
+    if (!transA) return launch_gemm<true, false>(M, N, K, A, B, S, C, split, nscen, st, stream);
+    if (transB) return launch_gemm<false, true>(M, N, K, A, B, S, C, split, nscen, st, stream);
+    return launch_gemm<false, false>(M, N, K, A, B, S, C, split, nscen, st, stream);
 }
 
-// z = Dy^T ((Dy b Dx^T) o inv) Dx through t1 and t2: four launches
-int dct_lplus(const DctArgs* a, const double* inv, const double* b, double* z, cudaStream_t stream)
+// The buffers of one pass over S scenarios: the grids and border scratch
+// (B, B, B, BORDER_BLOCKS, r + 1 and one ticket a scenario) and the factor's
+// strides (0: one factor shared by every scenario).
+struct PassBufs {
+    int S;
+    double* t1;
+    double* t2;
+    double* z;
+    double* partial;
+    double* sol;
+    unsigned int* tickets;
+    long long s_inv, s_g, s_minv;
+};
+
+// the one-scenario pass's buffers: the stream's scratch of DctArgs
+PassBufs one_scenario(const DctArgs* a)
+{
+    return PassBufs{1, a->t1, a->t2, a->z, a->partial, a->sol, a->border_ticket, 0, 0, 0};
+}
+
+// z = Dy^T ((Dy b Dx^T) o inv) Dx through t1 and t2, b and z B apart a
+// scenario: four launches.  Each product keeps one scenario's k split, so
+// a scenario's bits are those of a call of one.
+int dct_lplus(const DctArgs* a, const PassBufs& p, const double* inv, const double* b, double* z,
+              cudaStream_t stream)
 {
     const int s = a->s, ny = a->ny;
-    int code = dct_gemm(ny, s, ny, a->Dy, 0, b, 0, nullptr, a->t1, a->split_y, stream);
-    if (code == 0) code = dct_gemm(ny, s, s, a->t1, 0, a->Dx, 1, inv, a->t2, a->split_x, stream);
-    if (code == 0) code = dct_gemm(ny, s, ny, a->Dy, 1, a->t2, 0, nullptr, a->t1, a->split_y, stream);
-    if (code == 0) code = dct_gemm(ny, s, s, a->t1, 0, a->Dx, 0, nullptr, z, a->split_x, stream);
+    const long long B = a->B;
+    int code = dct_gemm(ny, s, ny, a->Dy, 0, b, 0, nullptr, p.t1, a->split_y, p.S, GemmStrides{0, B, 0, B}, stream);
+    if (code == 0)
+        code = dct_gemm(ny, s, s, p.t1, 0, a->Dx, 1, inv, p.t2, a->split_x, p.S, GemmStrides{B, 0, p.s_inv, B},
+                        stream);
+    if (code == 0)
+        code = dct_gemm(ny, s, ny, a->Dy, 1, p.t2, 0, nullptr, p.t1, a->split_y, p.S, GemmStrides{0, B, 0, B}, stream);
+    if (code == 0)
+        code = dct_gemm(ny, s, s, p.t1, 0, a->Dx, 0, nullptr, z, a->split_x, p.S, GemmStrides{B, 0, 0, B}, stream);
     return code;
 }
 
@@ -562,41 +666,49 @@ extern "C" int nxfx_dct_gemm(
     int M, int N, int K, const double* A, int transA, const double* B, int transB,
     const double* S, double* C, int split, cudaStream_t stream)
 {
-    return dct_gemm(M, N, K, A, transA, B, transB, S, C, split, stream);
+    return dct_gemm(M, N, K, A, transA, B, transB, S, C, split, 1, GemmStrides{0, 0, 0, 0}, stream);
 }
 
 // The factor into the given buffers: two launches.
 extern "C" int nxfx_dct_factor(const DctArgs* a, const double* w, double* inv, double* g, double* Minv,
                                cudaStream_t stream)
 {
-    return dct_factor(a, w, inv, g, Minv, stream);
+    return dct_factor(a, 1, w, 0, inv, g, Minv, stream);
+}
+
+// The factors of S scenarios into (S, ny, s) inv, (S, r, B) g and (S, r + 1,
+// r + 1) Minv, w's rows sw apart: the same two launches as one factor.
+extern "C" int nxfx_dct_factor_scen(const DctArgs* a, int S, const double* w, long long sw, double* inv, double* g,
+                                    double* Minv, cudaStream_t stream)
+{
+    return dct_factor(a, S, w, sw, inv, g, Minv, stream);
 }
 
 // One transform solve z = L+ b with the given inv: four launches.
 extern "C" int nxfx_dct_lplus(const DctArgs* a, const double* inv, const double* b, double* z,
                               cudaStream_t stream)
 {
-    return dct_lplus(a, inv, b, z, stream);
+    return dct_lplus(a, one_scenario(a), inv, b, z, stream);
 }
 
 namespace {
 
-// One direct pass on b into lam from the factor (inv, g, Minv): the four
-// products, the border and the correction, six launches; the transform
-// grids, the border's partials and sol are the calling stream's scratch.
-int dct_direct(const DctArgs* a, const double* inv, const double* g, const double* Minv, const double* b,
-               double* lam, int accumulate, cudaStream_t stream)
+// One direct pass over p.S scenarios on b (S, B) into lam (S, B) from the
+// factor (inv, g, Minv, each read at p's stride): the four products, the
+// border and the correction, six launches whatever S.
+int dct_direct(const DctArgs* a, const PassBufs& p, const double* inv, const double* g, const double* Minv,
+               const double* b, double* lam, int accumulate, cudaStream_t stream)
 {
-    int code = dct_lplus(a, inv, b, a->z, stream);
+    int code = dct_lplus(a, p, inv, b, p.z, stream);
     if (code != 0) return code;
     const int m = blocks_for((size_t)a->B, BORDER_THREADS) < BORDER_BLOCKS ? blocks_for((size_t)a->B, BORDER_THREADS)
                                                                           : BORDER_BLOCKS;
-    dct_border_kernel<<<m, BORDER_THREADS, 0, stream>>>(a->B, a->r, b, a->z, a->stub_rows, Minv, a->partial,
-                                                       a->border_ticket, a->sol);
+    dct_border_kernel<<<dim3(m, scen_rows(p.S)), BORDER_THREADS, 0, stream>>>(
+        a->B, a->r, p.S, b, p.z, a->stub_rows, Minv, p.s_minv, p.partial, p.tickets, p.sol);
     code = static_cast<int>(cudaGetLastError());
     if (code != 0) return code;
-    dct_correct_kernel<<<blocks_for((size_t)a->B, 256), 256, 0, stream>>>(
-        a->B, a->r, a->z, g, a->sol, accumulate ? lam : nullptr, lam);
+    dct_correct_kernel<<<dim3(blocks_for((size_t)a->B, 256), scen_rows(p.S)), 256, 0, stream>>>(
+        a->B, a->r, p.S, p.z, g, p.s_g, p.sol, accumulate ? lam : nullptr, lam);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -609,9 +721,9 @@ int dct_direct(const DctArgs* a, const double* inv, const double* g, const doubl
 extern "C" int nxfx_dct_pass(const DctArgs* a, const double* w, const double* b, double* lam, int accumulate,
                              cudaStream_t stream)
 {
-    const int code = w != nullptr ? dct_factor(a, w, a->inv, a->g, a->Minv, stream) : 0;
+    const int code = w != nullptr ? dct_factor(a, 1, w, 0, a->inv, a->g, a->Minv, stream) : 0;
     if (code != 0) return code;
-    return dct_direct(a, a->inv, a->g, a->Minv, b, lam, accumulate, stream);
+    return dct_direct(a, one_scenario(a), a->inv, a->g, a->Minv, b, lam, accumulate, stream);
 }
 
 // The same pass on a stored factor (nxfx_dct_factor's inv, g, Minv, which no
@@ -620,7 +732,22 @@ extern "C" int nxfx_dct_pass(const DctArgs* a, const double* w, const double* b,
 extern "C" int nxfx_dct_apply(const DctArgs* a, const double* inv, const double* g, const double* Minv,
                               const double* b, double* lam, int accumulate, cudaStream_t stream)
 {
-    return dct_direct(a, inv, g, Minv, b, lam, accumulate, stream);
+    return dct_direct(a, one_scenario(a), inv, g, Minv, b, lam, accumulate, stream);
+}
+
+// One pass over S scenarios on b (S, B) into lam (S, B), on S stored factors
+// (nxfx_dct_factor_scen's) or, with shared, on one read at stride 0, through
+// the stream's scenario scratch sc (capacity at least S): six launches, row
+// i the bits of nxfx_dct_apply on row i's factor and b.
+extern "C" int nxfx_dct_apply_scen(const DctArgs* a, const DctScen* sc, int S, int shared, const double* inv,
+                                   const double* g, const double* Minv, const double* b, double* lam,
+                                   int accumulate, cudaStream_t stream)
+{
+    if (S < 1 || S > sc->capacity) return static_cast<int>(cudaErrorInvalidValue);
+    const long long B = a->B, r = a->r;
+    const PassBufs p{S, sc->t1, sc->t2, sc->z, sc->partial, sc->sol, sc->tickets,
+                     shared ? 0 : B, shared ? 0 : r * B, shared ? 0 : (r + 1) * (r + 1)};
+    return dct_direct(a, p, inv, g, Minv, b, lam, accumulate, stream);
 }
 
 extern "C" int nxfx_dct_matrix(int n, double scale, double scale0, double* D, cudaStream_t stream)

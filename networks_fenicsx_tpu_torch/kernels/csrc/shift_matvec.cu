@@ -23,6 +23,11 @@
 // bit; the reads of x at the C offsets are coalesced across the warp.  x_in
 // and x_out are different buffers: a row reads its neighbours' x.
 //
+// Over S scenarios (the general DCT route's sweep) a call is still one
+// launch: the scenarios walk grid y, each operand moving by its own stride
+// (0 for class weights that every scenario shares), each scenario's norm
+// with its own partials and ticket, so row i is the bits of a call of one.
+//
 // Each call is one launch.  The rows, classes, offsets and stride are packed
 // once per plan into a ShiftArgs (kernels/shift_matvec.py:ShiftPlan), with
 // the norm's partials and ticket as scratch of the calling stream, so two
@@ -49,31 +54,39 @@ namespace {
 
 constexpr int THREADS = 256;
 
+// out = L x or b - L x (and its norm) of scenarios y, y + gridDim.y, ... of
+// S: cw, diag and b s_cw, s_diag and s_b further on a scenario (0: shared),
+// x and out B; each scenario's norm with its own partials (one scenario's
+// gridDim.x) and ticket
 __global__ void __launch_bounds__(THREADS) shift_apply_kernel(
-    ShiftArgs a,
+    ShiftArgs a, int S, long long s_cw, long long s_diag, long long s_b,
     const double* __restrict__ cw,
     const double* diag,
     const double* __restrict__ x,
     const double* b,
     double* __restrict__ out,
-    double* norm)
+    double* norm, double* partial, unsigned int* ticket)
 {
     const int B = a.B;
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    double r = 0.0;
-    if (i < B) {
-        double o = diag[static_cast<size_t>(a.stride) * i] * x[i];
+    for (int sc = blockIdx.y; sc < S; sc += gridDim.y) {
+        const double* cs = cw + (size_t)sc * s_cw;
+        const double* xs = x + (size_t)sc * B;
+        double r = 0.0;
+        if (i < B) {
+            double o = diag[(size_t)sc * s_diag + static_cast<size_t>(a.stride) * i] * xs[i];
 #pragma unroll
-        for (int c = 0; c < SHIFT_MAX_CLASSES; ++c) {  // unrolled: the offsets stay kernel parameters
-            if (c >= a.C) break;
-            const long long j = (long long)i + a.d[c];
-            const double v = (j >= 0 && j < B) ? x[j] : 0.0;
-            o = o - cw[(size_t)c * B + i] * v;
+            for (int c = 0; c < SHIFT_MAX_CLASSES; ++c) {  // unrolled: the offsets stay kernel parameters
+                if (c >= a.C) break;
+                const long long j = (long long)i + a.d[c];
+                const double v = (j >= 0 && j < B) ? xs[j] : 0.0;
+                o = o - cs[(size_t)c * B + i] * v;
+            }
+            r = b != nullptr ? b[(size_t)sc * s_b + static_cast<size_t>(a.stride) * i] - o : o;
+            out[(size_t)sc * B + i] = r;
         }
-        r = b != nullptr ? b[static_cast<size_t>(a.stride) * i] - o : o;
-        out[i] = r;
+        if (norm != nullptr) ticket_norm<THREADS>(r, partial + (size_t)sc * gridDim.x, ticket + sc, norm + sc);
     }
-    if (norm != nullptr) ticket_norm<THREADS>(r, a.partial, a.ticket, norm);
 }
 
 __global__ void __launch_bounds__(THREADS) shift_cheb_kernel(
@@ -119,7 +132,26 @@ extern "C" int nxfx_shift_matvec(
 {
     if (a->B <= 0) return 0;
     if (a->C < 0 || a->C > SHIFT_MAX_CLASSES) return static_cast<int>(cudaErrorInvalidValue);
-    shift_apply_kernel<<<blocks_of(a->B), THREADS, 0, stream>>>(*a, cw, diag, x, b, out, norm);
+    shift_apply_kernel<<<blocks_of(a->B), THREADS, 0, stream>>>(*a, 1, 0, 0, 0, cw, diag, x, b, out, norm, a->partial,
+                                                                a->ticket);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// One launch over S scenarios: out (S, B) = L x, or b - L x when b is given,
+// x (S, B) contiguous, cw, diag and b s_cw, s_diag and s_b apart a scenario
+// (0: shared; diag and b at the plan's stride within a row); with norm
+// non-null (and b given) the S norms, partial holding S blocks_of(B)
+// doubles and tickets S words, 0 on entry and exit.
+extern "C" int nxfx_shift_matvec_scen(
+    const ShiftArgs* a, int S, long long s_cw, long long s_diag, long long s_b, const double* cw,
+    const double* diag, const double* x, const double* b, double* out, double* norm, double* partial,
+    unsigned int* tickets, cudaStream_t stream)
+{
+    if (a->B <= 0) return 0;
+    if (a->C < 0 || a->C > SHIFT_MAX_CLASSES || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(blocks_of(a->B), S < 65535 ? S : 65535);
+    shift_apply_kernel<<<grid, THREADS, 0, stream>>>(*a, S, s_cw, s_diag, s_b, cw, diag, x, b, out, norm, partial,
+                                                     tickets);
     return static_cast<int>(cudaGetLastError());
 }
 

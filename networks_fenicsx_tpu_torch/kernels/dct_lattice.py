@@ -28,6 +28,14 @@ port inverts and transforms in float64 throughout and keeps the pass count.
   and each pass reads it (six launches a pass, 18 a solve; the same bits as
   :func:`dct_lattice` on the factor of the same ``w``).
 
+* :func:`dct_factor_scenarios`, :func:`dct_apply_scenarios` — the factor
+  and the passes over S scenarios (a sweep, S right-hand sides on one
+  stored factor) in the launches of one: S factors in the factor's two,
+  each pass's six over S factors or one read at stride 0, row ``i`` the
+  one-scenario call's bits on row ``i`` (each product keeps one scenario's
+  k split); the scenarios' grids, border partials, ``sol`` and tickets are
+  the calling stream's scenario scratch (:meth:`DctOperator.scenario_scratch`).
+
 :func:`dct_lattice` launches the kernels for CUDA tensors and runs
 :func:`dct_lattice_plain` (``torch.matmul`` for the four products) for CPU
 tensors.  Its ``launches`` counts solves; :func:`cuda_launches` gives the
@@ -59,7 +67,8 @@ from . import build
 __all__ = ["DctOperator", "DctState", "dct_operator", "dct_matrix", "dct_lattice",
            "dct_lattice_plain", "factor_plain", "transform", "transform_plain", "lplus_plain",
            "direct_plain", "product", "product_plain", "gemm_plan", "cuda_launches", "N_REFINE",
-           "dct_apply", "dct_apply_plain", "apply_launches", "dct_factor"]
+           "dct_apply", "dct_apply_plain", "apply_launches", "dct_factor", "dct_factor_scenarios",
+           "dct_factor_scenarios_plain", "dct_apply_scenarios", "dct_apply_scenarios_plain"]
 
 N_REFINE = 2  # refinement passes after the direct one (reference ``:1097``)
 
@@ -131,6 +140,8 @@ class DctOperator:
     plans: tuple = dataclasses.field(init=False, compare=False)
     # the scratch of each calling stream: {raw stream handle: _Scratch}
     _scratch: dict = dataclasses.field(init=False, compare=False, repr=False)
+    # the scenario scratch of each calling stream: {raw stream handle: _ScenScratch}
+    _scen_scratch: dict = dataclasses.field(init=False, compare=False, repr=False)
 
     def __post_init__(self):
         s, ny, r = self.s, self.ny, int(self.stub_rows.shape[0])
@@ -167,6 +178,7 @@ class DctOperator:
         object.__setattr__(self, "n_edges", max(self.rep_x, self.rep_y, edge_max) + 1)
         object.__setattr__(self, "plans", plans)
         object.__setattr__(self, "_scratch", {})
+        object.__setattr__(self, "_scen_scratch", {})
 
     @property
     def r(self) -> int:
@@ -182,6 +194,18 @@ class DctOperator:
         scr = self._scratch.get(stream)
         if scr is None:
             scr = self._scratch[stream] = _Scratch(self)
+        return scr
+
+    def scenario_scratch(self, stream: int, S: int) -> "_ScenScratch":
+        """The scenario scratch of the CUDA stream ``stream`` for at least
+        ``S`` scenarios, made (zeroed) on that stream at its first use there
+        and made anew for more scenarios than it holds, once the stream has
+        drained (its launches may still read the old one)."""
+        scr = self._scen_scratch.get(stream)
+        if scr is None or scr.capacity < S:
+            if scr is not None:
+                torch.cuda.current_stream(self.Dx.device).synchronize()
+            scr = self._scen_scratch[stream] = _ScenScratch(self, S)
         return scr
 
 
@@ -224,6 +248,38 @@ class _Scratch:
             Dx=op.Dx.data_ptr(), Dy=op.Dy.data_ptr(), lamx=op.lamx.data_ptr(),
             lamy=op.lamy.data_ptr(), g_geo=op.g_geo.data_ptr(), stub_rows=op.stub_rows.data_ptr(),
             stub_edge=op.stub_edge.data_ptr(), stub_group=op.stub_group.data_ptr(), **ptrs)
+        self.ref = ctypes.addressof(self.args)
+
+
+class _ScenArgs(ctypes.Structure):
+    """``DctScen`` of ``csrc/dct_lattice.cu``: one stream's scenario scratch."""
+
+    _fields_ = [("capacity", ctypes.c_int)] + [
+        (n, ctypes.c_void_p) for n in ("t1", "t2", "z", "partial", "sol", "tickets")]
+
+
+class _ScenScratch:
+    """One calling stream's scratch of :func:`dct_apply_scenarios` for
+    ``capacity`` scenarios: one zeroed float64 buffer holding a scenario's
+    transform grids ``t1``, ``t2``, ``z`` (B each), border partials
+    (:data:`BORDER_BLOCKS`) and ``sol`` (r + 1) side by side, and a ticket a
+    scenario (32-bit words the kernel resets); ``args`` their
+    :class:`_ScenArgs`, ``ref`` its address."""
+
+    __slots__ = ("capacity", "buf", "args", "ref")
+
+    def __init__(self, op: DctOperator, capacity: int):
+        B, r, S = op.B, op.r, capacity
+        sizes = (("t1", S * B), ("t2", S * B), ("z", S * B), ("partial", S * BORDER_BLOCKS),
+                 ("sol", S * (r + 1)), ("tickets", -(-S // 2)))
+        sizes = tuple((name, n + n % 2) for name, n in sizes)  # 16-byte aligned regions
+        self.capacity = S
+        self.buf = torch.zeros(sum(n for _, n in sizes), dtype=torch.float64, device=op.Dx.device)
+        ptrs, ptr = {}, self.buf.data_ptr()
+        for name, n in sizes:
+            ptrs[name] = ptr
+            ptr += 8 * n
+        self.args = _ScenArgs(capacity=S, **ptrs)
         self.ref = ctypes.addressof(self.args)
 
 
@@ -321,7 +377,12 @@ def direct_plain(op: DctOperator, state: DctState, b: torch.Tensor) -> torch.Ten
     r = op.r
     z = lplus_plain(op, state, b)
     v = torch.cat([z[op.stub_rows.long()], torch.sum(b)[None]])
-    sol = state.Minv @ v
+    # sol = Minv v as the border kernel adds it, column by column: the same
+    # bits whatever Minv's layout (a row of a stacked factor, or the
+    # column-major inverse of torch.linalg.inv)
+    sol = state.Minv[:, 0] * v[0]
+    for j in range(1, r + 1):
+        sol = sol + state.Minv[:, j] * v[j]
     corr = sol[0] * state.g[0]
     for t in range(1, r):
         corr = corr + sol[t] * state.g[t]
@@ -555,3 +616,143 @@ def _apply(op: DctOperator, state: DctState, rhs, residual: Residual, n_refine: 
 
 
 dct_apply.launches = 0
+
+
+# ------------------------------------------------------------------ scenarios
+
+
+def _factor_rows(name: str, op: DctOperator, w: torch.Tensor) -> int:
+    """``S`` of the ``(S, ≥ n_edges)`` conductance rows of a scenario factor,
+    or raise."""
+    if (w.dtype is not torch.float64 or w.dim() != 2 or w.shape[0] < 1
+            or w.shape[1] < op.n_edges or not w.is_contiguous()):
+        raise ValueError(f"{name}: w must be contiguous float64 (S, E) rows, S >= 1 and E >= "
+                         f"{op.n_edges}, got {w.dtype} {tuple(w.shape)}")
+    return int(w.shape[0])
+
+
+def dct_factor_scenarios_plain(op: DctOperator, w: torch.Tensor) -> DctState:
+    """Eager version of :func:`dct_factor_scenarios`: :func:`factor_plain` a
+    row, stacked."""
+    S = _factor_rows("dct_factor_scenarios", op, w)
+    return DctState(*(torch.stack(t) for t in zip(*(factor_plain(op, w[i]) for i in range(S)))))
+
+
+def dct_factor_scenarios(op: DctOperator, w: torch.Tensor) -> DctState:
+    """K16's factors of S scenarios on ``w``'s device, in the two launches of
+    one: ``w`` the ``(S, E)`` conductance rows; returns a :class:`DctState`
+    whose tensors have a leading ``S`` (``inv (S, ny, s)``, ``g (S, r, B)``,
+    ``Minv (S, r+1, r+1)``), row ``i`` the bits of :func:`dct_factor` on
+    ``w[i]`` (:func:`dct_factor_scenarios_plain` for a CPU tensor)."""
+    if w.device.type == "cpu":
+        return dct_factor_scenarios_plain(op, w)
+    S = _factor_rows("dct_factor_scenarios", op, w)
+    if not w.is_cuda or w.get_device() != op.index:
+        raise ValueError(f"dct_factor_scenarios: w must be on CUDA device {op.index}")
+    r, B = op.r, op.B
+    inv = w.new_empty((S, op.ny, op.s))
+    g = w.new_empty((S, r, B))
+    Minv = w.new_empty((S, r + 1, r + 1))
+
+    def run(lib, stream):
+        code = lib.nxfx_dct_factor_scen(op.scratch(stream).ref, S, w.data_ptr(), w.stride(0),
+                                        inv.data_ptr(), g.data_ptr(), Minv.data_ptr(), stream)
+        build.check(code, "dct_factor_scenarios")
+
+    build.on_device(op.index, run, *_lib_stream(op.index))
+    dct_factor_scenarios.launches += 1
+    return DctState(inv, g, Minv)
+
+
+dct_factor_scenarios.launches = 0
+
+
+def _apply_shapes(name: str, op: DctOperator, state: DctState, rhs: torch.Tensor) -> tuple:
+    """``(S, shared)`` of a scenario apply: ``rhs`` the contiguous ``(S, B)``
+    right-hand sides, ``state`` one factor (:func:`dct_factor`'s shapes) or
+    ``S`` (:func:`dct_factor_scenarios`'); raise otherwise."""
+    r, B = op.r, op.B
+    if rhs.dtype is not torch.float64 or rhs.dim() != 2 or rhs.shape[0] < 1 or rhs.shape[1] != B \
+            or not rhs.is_contiguous():
+        raise ValueError(f"{name}: rhs must be contiguous float64 (S, {B}), S >= 1, got "
+                         f"{rhs.dtype} {tuple(rhs.shape)}")
+    S = int(rhs.shape[0])
+    one = ((op.ny, op.s), (r, B), (r + 1, r + 1))
+    shapes = tuple(tuple(t.shape) for t in state)
+    if shapes == one:
+        shared = True
+    elif shapes == tuple((S,) + sh for sh in one):
+        shared = False
+    else:
+        raise ValueError(f"{name}: the state must be one factor {one} or {S} of them, got {shapes}")
+    return S, shared
+
+
+def dct_apply_scenarios_plain(
+    op: DctOperator, state: DctState, rhs: torch.Tensor, residual: Residual,
+    n_refine: int = N_REFINE,
+) -> torch.Tensor:
+    """Eager version of :func:`dct_apply_scenarios`: :func:`direct_plain` a
+    row, stacked, around ``residual`` on all rows."""
+    S, shared = _apply_shapes("dct_apply_scenarios", op, state, rhs)
+    states = [state if shared else DctState(*(t[i] for t in state)) for i in range(S)]
+
+    def direct(b):  # each row a fresh tensor, as a call of one gets it
+        return torch.stack([direct_plain(op, states[i], b[i].clone()) for i in range(S)])
+
+    lam = direct(rhs)
+    for _ in range(n_refine):
+        lam = lam + direct(residual(lam))
+    return lam
+
+
+def dct_apply_scenarios(
+    op: DctOperator, state: DctState, rhs: torch.Tensor, residual: Residual,
+    n_refine: int = N_REFINE,
+) -> torch.Tensor:
+    """K16's passes over S scenarios on ``rhs``' device, six launches a pass
+    whatever S: ``rhs`` the ``(S, B)`` right-hand sides, ``state`` S factors
+    (:func:`dct_factor_scenarios`) or one that every scenario shares
+    (:func:`dct_factor`, read at stride 0), ``residual`` maps ``(S, B)`` λ
+    to ``(S, B)`` residuals.  Returns ``λ (S, B)``, row ``i`` the bits of
+    :func:`dct_apply` on row ``i``'s factor and right-hand side (with the
+    same residual a row).  The stream's scenario scratch holds the S
+    scenarios' grids: 8·(3B + 256 + r + 1) bytes and a ticket a scenario
+    (6 MiB at 512², 96 MiB for S = 16), on top of a batched factor's
+    8·((r + 1)·B + (r + 1)²)."""
+    if rhs.device.type == "cpu":
+        return dct_apply_scenarios_plain(op, state, rhs, residual, n_refine)
+    S, shared = _apply_shapes("dct_apply_scenarios", op, state, rhs)
+    build.require_cuda("dct_apply_scenarios", rhs, *state)
+    if any(t.get_device() != op.index for t in (rhs, *state)):
+        raise ValueError(f"dct_apply_scenarios: tensors must be on CUDA device {op.index}")
+    lam = build.on_device(op.index, _apply_scenarios, op, state, rhs, residual, n_refine, S,
+                          shared)
+    dct_apply_scenarios.launches += 1
+    return lam
+
+
+def _apply_scenarios(op: DctOperator, state: DctState, rhs, residual: Residual, n_refine: int,
+                     S: int, shared: bool) -> torch.Tensor:
+    lib, stream = _lib_stream(op.index)
+    ref, scen = op.scratch(stream).ref, op.scenario_scratch(stream, S).ref
+    lam = rhs.new_empty((S, op.B))
+    lp = lam.data_ptr()
+    fac = (state.inv.data_ptr(), state.g.data_ptr(), state.Minv.data_ptr())
+    code = lib.nxfx_dct_apply_scen(ref, scen, S, int(shared), *fac, rhs.data_ptr(), lp, 0, stream)
+    for _ in range(n_refine):
+        if code:
+            break
+        res = residual(lam)
+        if (not res.is_cuda or res.get_device() != op.index or res.dtype is not torch.float64
+                or tuple(res.shape) != (S, op.B) or not res.is_contiguous()):
+            raise ValueError(f"dct_apply_scenarios: the residual must be a contiguous float64 "
+                             f"({S}, {op.B}) tensor on CUDA device {op.index}")
+        code = lib.nxfx_dct_apply_scen(ref, scen, S, int(shared), *fac, res.data_ptr(), lp, 1,
+                                       stream)
+    if code:
+        build.check(code, "dct_apply_scenarios")
+    return lam
+
+
+dct_apply_scenarios.launches = 0

@@ -20,6 +20,13 @@ only when it is not already current, and takes its partial sums and ticket
 from the plan's scratch of the calling stream.  Outputs are fresh tensors.
 Both count on ``grid_core.launches``: :func:`cuda_launches` a grid-route
 solve (one assembly and three stencils).
+
+Over a scenario axis (a lattice sweep, ``GridFactorization.solve_batch``),
+:func:`grid_core_scenarios` and :func:`grid_residual_scenarios` take S
+scenarios in one launch each, every input batched (a leading ``S``) or
+shared (the conductances and the diagonal of one R), each scenario's norm
+with its own partials and ticket (:func:`.build.norm_scratch`); row ``i``
+is the one-scenario call's bits on row ``i``.  Each counts its own calls.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from . import build
 
 __all__ = [
     "grid_core", "grid_core_plain", "grid_residual", "grid_residual_plain", "cuda_launches",
+    "grid_core_scenarios", "grid_core_scenarios_plain", "grid_residual_scenarios",
+    "grid_residual_scenarios_plain",
 ]
 
 
@@ -166,3 +175,109 @@ def grid_residual(
             diag.data_ptr(), lam.data_ptr(), rhs.data_ptr(), res.data_ptr(),
             out.data_ptr() if norm else None, stream)
     return (res, out) if norm else res
+
+
+# ------------------------------------------------------------------ scenarios
+
+
+class _GridStrides(ctypes.Structure):
+    """``GridStrides`` of ``csrc/grid_core.cu``: elements between two
+    scenarios' rows of each input (0: shared)."""
+
+    _fields_ = [(n, ctypes.c_longlong) for n in ("w", "cst", "F", "diag", "lam", "rhs")]
+
+
+def _rows(gdp: GridDevicePlan):
+    return (gdp.num_edges,), (gdp.num_bifurcations,)
+
+
+def grid_core_scenarios_plain(gdp: GridDevicePlan, w, const, Ftot, norm: bool = True):
+    """Eager version of :func:`grid_core_scenarios`: :func:`grid_core_plain`
+    a scenario, stacked (``diag`` of the first row when ``w`` is shared)."""
+    e, _ = _rows(gdp)
+    S = build.scenarios("grid_core_scenarios", (w, e), (const, e), (Ftot, e))
+    rows = [grid_core_plain(gdp, *(build.scenario_row(t, e, i) for t in (w, const, Ftot)))
+            for i in range(S)]
+    rhs, diag, nrm = (torch.stack(t) for t in zip(*rows))
+    return rhs, diag if build.batched(w, e) else diag[0], nrm if norm else None
+
+
+def grid_core_scenarios(gdp: GridDevicePlan, w, const, Ftot, norm: bool = True):
+    """K17's assembly of S scenarios on ``w``'s device, one launch: ``w``,
+    ``const``, ``Ftot`` each ``(S, E)`` or shared ``(E,)``; returns ``rhs (S,
+    B)``, ``diag`` (``(S, B)``, or ``(B,)`` for a shared ``w``) and, with
+    ``norm``, ``‖rhs‖ (S,)`` (else None)."""
+    if w.device.type == "cpu":
+        return grid_core_scenarios_plain(gdp, w, const, Ftot, norm)
+    name, (e, b) = "grid_core_scenarios", _rows(gdp)
+    S = build.scenarios(name, (w, e), (const, e), (Ftot, e))
+    index, B = gdp.index, b[0]
+    build.require_cuda(name, w, const, Ftot)
+    if w.get_device() != index:
+        raise ValueError(f"{name}: tensors must be on CUDA device {index}")
+    w_rows = build.batched(w, e)
+    rhs = w.new_empty((S, B))
+    diag = w.new_empty((S, B) if w_rows else (B,))
+    nrm = w.new_empty(S) if norm else None
+    st = _GridStrides(w=build.scenario_stride(w, e), cst=build.scenario_stride(const, e),
+                      F=build.scenario_stride(Ftot, e), diag=B if w_rows else 0)
+    stream = build.raw_stream(index)
+    partial, tickets = build.norm_scratch(gdp._scratch, stream, index, S, gdp.blocks)
+    code = build.on_device(index, build.library().nxfx_grid_assemble_scen, _args(gdp, stream), S,
+                           ctypes.addressof(st), w.data_ptr(), const.data_ptr(), Ftot.data_ptr(),
+                           rhs.data_ptr(), diag.data_ptr(), None if nrm is None else nrm.data_ptr(),
+                           partial, tickets, stream)
+    if code:
+        build.check(code, name)
+    grid_core_scenarios.launches += 1
+    return rhs, diag, nrm
+
+
+grid_core_scenarios.launches = 0
+
+
+def grid_residual_scenarios_plain(gdp: GridDevicePlan, w, diag, lam, rhs, norm: bool = False):
+    """Eager version of :func:`grid_residual_scenarios`:
+    :func:`grid_residual_plain` a scenario, stacked."""
+    e, b = _rows(gdp)
+    ins = ((w, e), (diag, b), (lam, b), (rhs, b))
+    S = build.scenarios("grid_residual_scenarios", *ins)
+    rows = [grid_residual_plain(gdp, *(build.scenario_row(t, base, i) for t, base in ins), norm)
+            for i in range(S)]
+    if not norm:
+        return torch.stack(rows)
+    res, nrm = (torch.stack(t) for t in zip(*rows))
+    return res, nrm
+
+
+def grid_residual_scenarios(gdp: GridDevicePlan, w, diag, lam, rhs, norm: bool = False):
+    """K17's stencil over S scenarios on ``lam``'s device, one launch: ``res
+    (S, B) = rhs − L λ`` (and with ``norm`` also ``‖res‖ (S,)``); ``w`` ``(S,
+    E)`` or shared ``(E,)``, ``diag``, ``lam``, ``rhs`` ``(S, B)`` or shared
+    ``(B,)``."""
+    if lam.device.type == "cpu":
+        return grid_residual_scenarios_plain(gdp, w, diag, lam, rhs, norm)
+    name, (e, b) = "grid_residual_scenarios", _rows(gdp)
+    ins = ((w, e), (diag, b), (lam, b), (rhs, b))
+    S = build.scenarios(name, *ins)
+    index, B = gdp.index, b[0]
+    build.require_cuda(name, w, diag, lam, rhs)
+    if lam.get_device() != index:
+        raise ValueError(f"{name}: tensors must be on CUDA device {index}")
+    res = lam.new_empty((S, B))
+    nrm = lam.new_empty(S) if norm else None
+    sw, sd, sl, sr = (build.scenario_stride(t, base) for t, base in ins)
+    st = _GridStrides(w=sw, diag=sd, lam=sl, rhs=sr)
+    stream = build.raw_stream(index)
+    partial, tickets = build.norm_scratch(gdp._scratch, stream, index, S, gdp.blocks)
+    code = build.on_device(index, build.library().nxfx_grid_residual_scen, _args(gdp, stream), S,
+                           ctypes.addressof(st), w.data_ptr(), diag.data_ptr(), lam.data_ptr(),
+                           rhs.data_ptr(), res.data_ptr(), None if nrm is None else nrm.data_ptr(),
+                           partial, tickets, stream)
+    if code:
+        build.check(code, name)
+    grid_residual_scenarios.launches += 1
+    return (res, nrm) if norm else res
+
+
+grid_residual_scenarios.launches = 0

@@ -19,6 +19,12 @@ the lean path: one pass of checks, the raw stream, no device switch when the
 device is current, the norm's scratch from the plan — and runs its plain
 version, the reference's zero-padded shifts in eager PyTorch, for CPU
 tensors.
+
+:func:`shift_matvec_scenarios` takes S scenarios in one launch (the general
+DCT route's sweep): ``x`` ``(S, B)``, the class weights, ``diag`` and ``b``
+batched or shared, each scenario's norm with its own partials and ticket
+(:func:`.build.norm_scratch`); row ``i`` is :func:`shift_matvec`'s bits on
+row ``i``.  It counts its own calls.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from . import build
 
 __all__ = [
     "ShiftPlan", "shift_matvec", "shift_matvec_plain", "shift_cheb", "shift_cheb_plain",
+    "shift_matvec_scenarios", "shift_matvec_scenarios_plain",
 ]
 
 THREADS = 256
@@ -183,3 +190,79 @@ def shift_cheb(plan: ShiftPlan, cw, diag, s, rs, dvec, x_in, x_out, c1: float, c
     if code:
         build.check(code, "shift_cheb")
     shift_matvec.launches += 1
+
+
+def _scenario_shapes(name: str, plan: ShiftPlan, cw, diag, x, b) -> tuple:
+    """``(S, s_cw, s_diag, s_b)`` of a scenario call, or raise: ``x`` the
+    contiguous ``(S, B)`` rows, ``cw`` ``(C, B)`` or ``(S, C, B)``
+    contiguous, ``diag`` and ``b`` ``(B,)`` or ``(S, B)`` at the plan's
+    stride within a row and any row stride."""
+    B, C = plan.B, plan.C
+    if x.dtype is not torch.float64 or x.dim() != 2 or x.shape[1] != B or x.shape[0] < 1 \
+            or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous float64 (S, {B}), got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    S = int(x.shape[0])
+    if cw.dtype is not torch.float64 or tuple(cw.shape) not in ((C, B), (S, C, B)) \
+            or not cw.is_contiguous():
+        raise ValueError(f"{name}: cw must be contiguous float64 ({C}, {B}) or ({S}, {C}, {B}), "
+                         f"got {cw.dtype} {tuple(cw.shape)}")
+    strides = []
+    for t in (diag, b):
+        if t is None:
+            strides.append(0)
+            continue
+        if t.dtype is not torch.float64 or tuple(t.shape) not in ((B,), (S, B)) \
+                or (B > 1 and t.stride(-1) != plan.stride):
+            raise ValueError(f"{name}: diag and b must be float64 ({B},) or ({S}, {B}) at stride "
+                             f"{plan.stride} within a row, got {t.dtype} {tuple(t.shape)}")
+        strides.append(t.stride(0) if t.dim() == 2 else 0)
+    return S, (C * B if cw.dim() == 3 else 0), strides[0], strides[1]
+
+
+def shift_matvec_scenarios_plain(plan: ShiftPlan, cw, diag, x, b=None, norm: bool = False):
+    """Eager version of :func:`shift_matvec_scenarios`: :func:`shift_matvec_plain`
+    a row, stacked."""
+    S = _scenario_shapes("shift_matvec_scenarios", plan, cw, diag, x, b)[0]
+
+    def row(t, dims, i):
+        return t[i] if t is not None and t.dim() > dims else t
+
+    rows = [shift_matvec_plain(plan.offsets, row(cw, 2, i), row(diag, 1, i), x[i], row(b, 1, i),
+                               norm) for i in range(S)]
+    if not norm:
+        return torch.stack(rows)
+    out, nrm = (torch.stack(t) for t in zip(*rows))
+    return out, nrm
+
+
+def shift_matvec_scenarios(plan: ShiftPlan, cw, diag, x, b=None, norm: bool = False):
+    """K18 over S scenarios on ``x``'s device, one launch: ``L x`` or ``b −
+    L x`` (and its norm ``(S,)``) of each row of ``x (S, B)``; ``cw`` ``(C,
+    B)`` or ``(S, C, B)``, ``diag`` and ``b`` ``(B,)`` or ``(S, B)`` at the
+    plan's stride within a row (any row stride: the columns of the
+    ``(S, B, 2)`` systems)."""
+    if x.device.type == "cpu":
+        return shift_matvec_scenarios_plain(plan, cw, diag, x, b, norm)
+    name, index = "shift_matvec_scenarios", plan.index
+    S, s_cw, s_diag, s_b = _scenario_shapes(name, plan, cw, diag, x, b)
+    if norm and b is None:
+        raise ValueError(f"{name}: the norm is of the residual b - L x: b is needed")
+    build.require_cuda(name, x, cw, diag, *(() if b is None else (b,)), contiguous=False)
+    if x.get_device() != index:
+        raise ValueError(f"{name}: tensors must be on CUDA device {index}")
+    out = x.new_empty((S, plan.B))
+    nrm = x.new_empty(S) if norm else None
+    stream = build.raw_stream(index)
+    partial, tickets = build.norm_scratch(plan._scratch, stream, index, S, plan.blocks)
+    code = build.on_device(index, build.library().nxfx_shift_matvec_scen, plan._args(stream), S,
+                           s_cw, s_diag, s_b, cw.data_ptr(), diag.data_ptr(), x.data_ptr(),
+                           None if b is None else b.data_ptr(), out.data_ptr(),
+                           None if nrm is None else nrm.data_ptr(), partial, tickets, stream)
+    if code:
+        build.check(code, name)
+    shift_matvec_scenarios.launches += 1
+    return (out, nrm) if norm else out
+
+
+shift_matvec_scenarios.launches = 0

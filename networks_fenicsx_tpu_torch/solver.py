@@ -640,9 +640,8 @@ class _GridExecutor(_BlockedExecutor):
     (one direct and two refinement passes on K17's stencil) → K17 residual
     → K5, returning the 7-tuple blocks contract in internal edge order
     (``bif_order`` None: λ stays in node order) with the residual norm and
-    ``iters = 0``.  It has no scenario axis yet: a sweep runs its rows."""
-
-    has_scenario_axis = False
+    ``iters = 0``.  :meth:`scenarios` runs S scenarios in the launches of
+    one solve."""
 
     def __init__(self, asm, plan, R_mode: str, f_mode: str, device: torch.device):
         super().__init__(asm, plan, R_mode, f_mode, device, make_device_plan=device_grid_plan)
@@ -683,6 +682,32 @@ class _GridExecutor(_BlockedExecutor):
         iters = torch.zeros((), dtype=torch.int32, device=self._device)
         return q_T, p_T, lam, iters, res_norm, rhs_norm, finite
 
+    def scenarios(self, R, f, start_pbc, end_pbc):
+        """S scenarios on the executor's device, internal layout: each
+        argument a tensor there, batched (a leading ``S``; R ``(S, 1)``) or
+        shared.  K1 once over S; K17's assembly once (on the shared
+        conductances when R is shared); K16's factors once over the S rows
+        when R is batched, else its factor once on the shared R; K16's
+        passes once over S with K17's stencil over S as their residual; K5
+        once.  The sweep drops ``‖rhs‖`` and the final residual (the
+        reference's vmapped solve returns only ``q_T``, ``p_T``, λ).  Returns
+        ``(q_T, p_T, lam, None, finite)``, each with a leading ``S``; row
+        ``i`` is the executor's call on row ``i`` bit for bit."""
+        gdp, N, k, h, op = self.device_plan, self._N, self._k, self._h_e, self.operator
+        Rm, fm = self._R_mode, self._f_mode
+        W, w, g, Ftot, const = condense.condense_scenarios(gdp, N, k, h, R, f, Rm, fm, start_pbc,
+                                                           end_pbc)
+        R_batched = R.dim() > 1  # scalar R: (1,) shared, (S, 1) batched
+        w_s = w if R_batched else w[0]  # one R: its conductances, read at stride 0
+        rhs, diag, _ = grid_core.grid_core_scenarios(gdp, w_s, const, Ftot, norm=False)
+        state = (dct_lattice.dct_factor_scenarios(op, w) if R_batched
+                 else dct_lattice.dct_factor(op, w[0]))
+        lam = dct_lattice.dct_apply_scenarios(
+            op, state, rhs, lambda lam: grid_core.grid_residual_scenarios(gdp, w_s, diag, lam, rhs))
+        q_T, p_T, finite = expand.expand_scenarios(gdp, N, k, lam, start_pbc, end_pbc, W, w, g,
+                                                   Ftot, h, R, f, Rm, fm)
+        return q_T, p_T, lam, None, finite
+
 
 class _DctExecutor(_Executor):
     """The general DCT lattice route on one device (the reference's generic
@@ -694,7 +719,10 @@ class _DctExecutor(_Executor):
     the class weights (K6), K16 with K18 as its refinement matvec, K18's
     final residual and K8b, and returns the 7-tuple blocks contract with
     the residual norm and ``iters = 0``; ``plain`` runs their plain
-    versions."""
+    versions.  :meth:`scenarios` runs S scenarios in the launches of one
+    solve."""
+
+    has_scenario_axis = True
 
     def __init__(self, asm, dct: _DctPlan, R_mode, f_mode, f_is_zero, device):
         mesh = asm.network
@@ -741,6 +769,37 @@ class _DctExecutor(_Executor):
         q_T, p_T, finite = expand_lam(ed, lam, N, k)
         iters = torch.zeros((), dtype=torch.int32, device=self._device)
         return q_T, p_T, lam, iters, res_norm, rhs_norm, finite
+
+    def scenarios(self, R, f, start_pbc, end_pbc):
+        """S scenarios on the executor's device, public order: each argument
+        a tensor there, batched (a leading ``S``) or shared.  K8a over S, the
+        bifurcation systems over S (the prepare kernel and K6); with R
+        batched the class weights (K6) and K16's factors over S, with one R
+        both once on row 0 (read at stride 0); K16's passes over S with K18
+        over S as their residual; K8b over S.  The sweep drops ``‖rhs‖`` and
+        the final residual.  Returns ``(q_T, p_T, lam, None, finite)``, each
+        with a leading ``S``; row ``i`` is the executor's call on row ``i``
+        bit for bit."""
+        dlp, N, k, op = self.device_plan, self._N, self._k, self.operator
+        ed = edge_data.edge_data_scenarios(
+            dlp, N, k, self._h_e, self._quad_w, self._quad_phi, R, f, self._R_mode, self._f_mode,
+            self._f_is_zero, start_pbc, end_pbc,
+        )
+        dr, w_edges = peel.bifurcation_system_scenarios(dlp, ed.W, ed.g, ed.cumF[:, -1],
+                                                        ed.start_pbc, ed.end_pbc)
+        S, C = dr.shape[0], dlp.offsets.size
+        if R.dim() > 1:  # scalar R batched, (S, 1): S factors
+            cw = segsum.segsum_plan_scenarios(dlp.class_sums, w_edges)[0].view(S, C, -1)
+            state = dct_lattice.dct_factor_scenarios(op, w_edges)
+        else:  # one R: its class weights and factor once
+            cw = _class_weights(dlp, w_edges[0], plain=False)
+            state = dct_lattice.dct_factor(op, w_edges[0])
+        diag, rhs = dr[:, :, 0], dr[:, :, 1]  # stride-2 columns, as K18's plan reads them
+        lam = dct_lattice.dct_apply_scenarios(
+            op, state, rhs.contiguous(),
+            lambda lam: shift_matvec.shift_matvec_scenarios(dlp.shift, cw, diag, lam, rhs))
+        q_T, p_T, finite = backsub.backsub_scenarios(ed, lam, N, k)
+        return q_T, p_T, lam, None, finite
 
 
 def _class_weights(dlp, w_edges, plain: bool) -> torch.Tensor:

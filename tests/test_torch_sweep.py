@@ -379,7 +379,7 @@ def test_sweep_rows_equal_solve(route, batch):
         pb = mesh.vertices[: mesh.num_graph_nodes][:, coord]
         rows = [dict(R=R0[1], f=f0, p_bc_ex=p_bc(s)) for s in scales]
         res = P.solve_sweep(asm, p_bc_node_values=scales[:, None] * pb[None], options=opts, **CPU)
-    assert _executor(asm).has_scenario_axis == (route in ("blocked", "dense"))
+    assert _executor(asm).has_scenario_axis  # blocked, dense and lattice routes alike
     for i, forms in enumerate(rows):
         assert np.array_equal(res.x[i], _row_solve(asm, opts, **forms)), (route, batch, i)
 
