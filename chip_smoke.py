@@ -369,6 +369,19 @@ KERNEL_RECORD = {
                                 "networks_fenicsx_tpu/solver.py:1184"),
     "shift_matvec_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/shift_matvec.cu",
                                "networks_fenicsx_tpu/solver.py:806"),
+    # sweeps: the level and tree routes' kernels over a scenario axis
+    "level_eliminate_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/level_eliminate.cu",
+                                  "networks_fenicsx_tpu/solver.py:2131"),
+    "peel_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/peel.cu",
+                       "networks_fenicsx_tpu/solver.py:3678"),
+    "peel_apply_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/peel.cu",
+                             "networks_fenicsx_tpu/solver.py:3747"),
+    "fold_apply_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/segsum.cu",
+                             "networks_fenicsx_tpu/ops/core_elim.py:394"),
+    "mf_factor_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/mf_factor.cu",
+                            "networks_fenicsx_tpu/ops/multifrontal.py:679"),
+    "mf_apply_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/mf_apply.cu",
+                           "networks_fenicsx_tpu/ops/multifrontal.py:744"),
 }
 # the factor-reuse wrappers: the configurations whose checks hold each, and the one timed
 FACTOR_CHECKS = {
@@ -573,13 +586,15 @@ def forest_mesh(P, sites: int = FOREST_SITES, N: int = FOREST_N):
     return P.NetworkMesh(net, N=N, color_strategy="fast")
 
 
-def forest_forms(asm, f_kind: str = "cell") -> None:
-    """Per-edge R and per-cell (or scalar) f from ``default_rng(0)``, p_bc = x."""
+def forest_forms(asm, f_kind: str = "cell", R=None, f=None, s: float = 1.0) -> None:
+    """Per-edge R and per-cell (or scalar) f from ``default_rng(0)``, p_bc = x
+    (a sweep row: ``R``, ``f`` in their place, p_bc = s·x)."""
     mesh = asm.network
     rng = np.random.default_rng(0)
-    R = rng.uniform(0.5, 2.0, mesh.num_edges)
-    f = rng.uniform(-1.0, 1.0, mesh.num_cells) if f_kind == "cell" else 0.3
-    asm.compute_forms(p_bc_ex=lambda x: x[0], R=R, f=f)
+    R0 = rng.uniform(0.5, 2.0, mesh.num_edges)
+    f0 = rng.uniform(-1.0, 1.0, mesh.num_cells) if f_kind == "cell" else 0.3
+    asm.compute_forms(p_bc_ex=lambda x: s * x[0], R=R0 if R is None else R,
+                      f=f0 if f is None else f)
 
 
 def forest_assembler(P, mesh, k: int = FOREST_K, f_kind: str = "cell"):
@@ -6053,9 +6068,10 @@ def scenario_kernel_sets(P, device, asm) -> dict:
     return out
 
 
-def row_route_sweeps(P, device, forest_asm) -> dict:
-    """A sweep on a route that runs its rows (the 100k forest's level
-    route, no scenario axis yet) and on a 32² lattice (under ``auto`` the
+def row_route_sweeps(P, device) -> dict:
+    """A sweep on a route that runs its rows (web2k under
+    ``schur_method="tree"``: its min-degree core has no scenario axis yet)
+    and on a 32² lattice (under ``auto`` the
     grid route, which now takes the scenario axis), each row against the
     row's ``Solver.solve()``: bit for bit on the same route, at the
     reference's tolerances against ``Solver``'s own route under ``auto``;
@@ -6112,28 +6128,26 @@ def row_route_sweeps(P, device, forest_asm) -> dict:
         assert errs[-1] <= LATTICE_TOL, errs
     out["lattice32"] = {"dofs": lat.num_dofs, "S": 4, "vs_auto_solve": max(errs)}
 
-    # the 100k forest: the level executor, a row at a time
-    mesh = forest_asm.network
-    rng = np.random.default_rng(0)
-    R_f = rng.uniform(0.5, 2.0, mesh.num_edges)
-    f_f = rng.uniform(-1.0, 1.0, mesh.num_cells)
-    Rb = R_f[None] * np.array([[1.0], [1.5]])
-    forest_asm.compute_forms(p_bc_ex=lambda x: x[0], R=R_f, f=f_f)
+    # web2k under schur_method="tree": a min-degree core (K12a), a row at a time
+    web = web2k_assembler(P)
+    Rw = web.schur_arguments()[0]
+    Rwb = Rw[None] * np.array([[1.0], [1.5]])
+    opts = P.SolverOptions(schur_method="tree")
     t0 = time.perf_counter()
-    res = P.solve_sweep(forest_asm, R=Rb, device=device)
+    res = P.solve_sweep(web, R=Rwb, options=opts, device=device)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    ex = list(forest_asm._sweep_cache.values())[-1][1]
-    assert type(ex).__name__ == "_LevelExecutor", type(ex)
+    ex = list(web._sweep_cache.values())[-1][1]
+    assert type(ex).__name__ == "_TreeExecutor" and not ex.has_scenario_axis, type(ex)
+    assert ex.device_plan.ce is not None and ex.device_plan.mf is None
     x = res.x
     for i in range(2):
-        forest_asm.compute_forms(p_bc_ex=lambda x: x[0], R=Rb[i], f=f_f)
-        s = P.Solver(forest_asm, device=device)
+        web.compute_forms(p_bc_ex=lambda x: x[0], R=Rwb[i])
+        s = P.Solver(web, options=opts, device=device)
         s.solve()
-        assert np.array_equal(s.solution_vector(), x[i]), ("forest rows", i)
-    forest_forms(forest_asm)
-    out["forest100k"] = {"dofs": forest_asm.num_dofs, "S": 2, "first_sweep_ms": first_ms,
-                         "rows_bit_for_bit": True}
+        assert np.array_equal(s.solution_vector(), x[i]), ("web2k rows", i)
+    out["web2k_tree"] = {"dofs": web.num_dofs, "S": 2, "first_sweep_ms": first_ms,
+                         "core_rounds": len(ex.device_plan.ce.rounds), "rows_bit_for_bit": True}
     return out
 
 
@@ -6177,9 +6191,10 @@ def dense_calls(ex, S: int, r_batch: bool) -> dict:
 
 def route_sweep_path(P, device, asm, label: str, batch: dict, row_forms, base_forms,
                      method: str, executor: str, calls, families: dict, blocked: bool = False,
-                     solves: bool = False) -> dict:
-    """One sweep through ``solve_sweep`` under ``auto`` on the card, on the
-    route of ``executor`` (``schur_method=method`` for one solve), counted
+                     solves: bool = False, sweep_method: str = "auto") -> dict:
+    """One sweep through ``solve_sweep`` under ``schur_method=sweep_method``
+    (``auto`` by default) on the card, on the route of ``executor``
+    (``schur_method=method`` for one solve), counted
     (every wrapper's launches set to 0 just before it and read just after:
     the scenario wrappers as ``calls(ex, S, R batched)`` says, nothing
     else); rows :data:`SWEEP_ROWS` against ``Solver(schur_method=method)``
@@ -6193,6 +6208,8 @@ def route_sweep_path(P, device, asm, label: str, batch: dict, row_forms, base_fo
     from networks_fenicsx_tpu_torch import batch as PB
     from networks_fenicsx_tpu_torch import kernels
 
+    if sweep_method != "auto":
+        batch = {**batch, "options": P.SolverOptions(schur_method=sweep_method)}
     base_forms()
     P.solve_sweep(asm, device=device, **batch)  # the executor, built once and cached
     torch.cuda.synchronize()
@@ -6202,7 +6219,7 @@ def route_sweep_path(P, device, asm, label: str, batch: dict, row_forms, base_fo
     launches = kernels.launches()
     ex = list(asm._sweep_cache.values())[-1][1]
     assert type(ex).__name__ == executor and ex.has_scenario_axis, (label, type(ex))
-    S = next(int(np.shape(v)[0]) for v in batch.values())
+    S = next(int(np.shape(v)[0]) for k, v in batch.items() if k != "options")
     want = calls(ex, S, "R" in batch)
     got = {n: v for n, v in launches.items() if v}
     assert got == want, (label, got, want)
@@ -6246,14 +6263,16 @@ def route_sweep_path(P, device, asm, label: str, batch: dict, row_forms, base_fo
         base_forms()
     if blocked:
         tree = P.SolverOptions(schur_method="tree")
-        xb = P.solve_sweep(asm, options=tree, device=device, **batch).x
+        xb = P.solve_sweep(asm, options=tree, device=device,
+                           **{k: v for k, v in batch.items() if k != "options"}).x
         assert list(asm._sweep_cache.values())[-1][1].has_scenario_axis
         scale = max(1.0, float(np.abs(xb).max()))
         err = float(np.abs(x - xb).max())
         assert err <= 1e-11 * scale, (label, err, scale)
         rec.update(dense_vs_blocked=err, scale=scale,
-                   blocked_ms=best_ms(lambda: P.solve_sweep(asm, options=tree, device=device,
-                                                            **batch)))
+                   blocked_ms=best_ms(lambda: P.solve_sweep(
+                       asm, options=tree, device=device,
+                       **{k: v for k, v in batch.items() if k != "options"})))
     return {"rec": rec, "launches": launches}
 
 
@@ -7152,6 +7171,454 @@ def lattice_sweeps(P, device, name_power: str) -> dict:
     return {"sets": sets, "runs": runs}
 
 
+# ---------------------------------------------------------------- level and tree sweeps
+
+LEVEL_FAMILIES = {"K8a": r"\bedge_\w+_kernel\b", "K7": r"\blevel_\w+_kernel\b",
+                  "K6": r"\bsegsum_plan_kernel\b", "K8b": r"\bbacksub_blocks_kernel\b"}
+TREE_FAMILIES = {"K8a": r"\bedge_\w+_kernel\b",
+                 "system": r"\b(lambda_prepare_scen|rhs_norm)_kernel\b",
+                 "K6": r"\bsegsum_plan_kernel\b", "K9": r"\bpeel_\w+_kernel\b",
+                 "K13-K14": r"\bmf_(values|front|wide)_kernel\b",
+                 "K15": r"\bmf_(forward|backward|gather|terms|residual|gate)_kernel\b",
+                 "K10": r"\b(fold|segsum)_kernel\b", "K11": K11_KERNELS,
+                 "K8b": r"\bbacksub_blocks_kernel\b"}
+# the level and tree routes' scenario wrappers, and the kernel-check case that times each
+TREE_SCENARIO_CHECKS = {
+    "level_eliminate_scenarios": "level_forest_R16",
+    "peel_scenarios": "tree_web_R16",
+    "peel_apply_scenarios": "tree_web_pbc16",
+    "fold_apply_scenarios": "tree_web_R16",
+    "mf_factor_scenarios": "tree_web_R16",
+    "mf_apply_scenarios": "tree_web_R16",
+}
+MF_TRIP_ROW = 5  # the row of the web's kernel set whose diagonal trips the multifrontal gate
+
+
+def level_calls(ex, S: int, r_batch: bool) -> dict:
+    """The wrapper counts of a level sweep: each scenario wrapper once (K7
+    over S makes K6's three sums over S), whatever S and batch."""
+    return {"edge_data_scenarios": 1, "level_eliminate_scenarios": 1, "segsum_plan_scenarios": 1,
+            "backsub_scenarios": 1}
+
+
+def tree_calls(ex, S: int, r_batch: bool) -> dict:
+    """The wrapper counts of a tree sweep: K8a, the systems and K8b over S
+    once; with an R batch the pair sums and K9 over S once and the core's
+    factor and solve over S a chunk (the multifrontal refinement's two folds
+    a pass), with one R the pair sums, K9's ``d`` channel and the core's
+    factor once (``segsum``, ``peel_factor``, ``mf_factor`` or K11's
+    ``dense_core`` and ``dense_gate``) and K9's ``r`` channel and the core's
+    apply over S."""
+    from networks_fenicsx_tpu_torch import tree as PT
+
+    dtp = ex.device_plan
+    pairs = dtp.num_pairs > 0
+    want = {"edge_data_scenarios": 1, "bifurcation_system_scenarios": 1, "backsub_scenarios": 1}
+    dmf = dtp.mf
+    folds = 0 if dmf is None else dmf.plan.n_refine * sum(
+        1 for plan in (dmf.mv_fold_i, dmf.mv_fold_j) if plan.rows)
+    if r_batch:
+        chunks = -(-S // PT.core_chunk(dtp, True, ex.scenario_budget))
+        want.update(segsum_plan_scenarios=1 + int(pairs), peel_scenarios=1)
+        if dmf is not None:
+            want.update(mf_factor_scenarios=chunks, mf_apply_scenarios=chunks)
+            if folds:
+                want["fold_apply_scenarios"] = folds * chunks
+        elif dtp.core_size:
+            want.update(dense_factor_scenarios=chunks, dense_gate_scenarios=chunks,
+                        dense_solve_scenarios=chunks)
+        return want
+    want.update(segsum_plan_scenarios=1, peel_factor=1, peel_apply_scenarios=1)
+    if pairs:
+        want["segsum"] = 1
+    if dmf is not None:
+        want.update(mf_factor=1, mf_apply_scenarios=1)
+        if folds:
+            want["fold_apply_scenarios"] = folds
+    elif dtp.core_size:
+        want.update(dense_core=1, dense_gate=1,
+                    dense_solve_scenarios=-(-S // PT.core_chunk(dtp, False, ex.scenario_budget)))
+    return want
+
+
+def route_launches_vs_S(P, device, asm, make_batch, label: str, executor: str,
+                        sweep_method: str = "auto") -> dict:
+    """A sweep's device events as the profiler counts them (kernels and
+    copies, by name) at S = 16, 1 and 16: equal, one chunk of the core's
+    factors holding 16 scenarios."""
+    opts = P.SolverOptions(schur_method=sweep_method)
+    counts = {}
+    for S in (SWEEP_S, 1, SWEEP_S):
+        batch = make_batch(S)
+        P.solve_sweep(asm, options=opts, device=device, **batch)  # warm: the cache
+        for _ in range(6):
+            got = kernel_counts(lambda: P.solve_sweep(asm, options=opts, device=device, **batch),
+                                device)
+            if got is not None:
+                break
+        assert got is not None, (label, S, "no window held its run")
+        counts[S] = got
+    ex = next(e[1] for e in asm._sweep_cache.values() if type(e[1]).__name__ == executor)
+    if executor == "_TreeExecutor":
+        from networks_fenicsx_tpu_torch import tree as PT
+
+        assert PT.core_chunk(ex.device_plan, True, ex.scenario_budget) >= SWEEP_S, label
+    c1, c16 = counts[1], counts[SWEEP_S]
+    assert c1 == c16, (label, {k: (c1.get(k), c16.get(k)) for k in set(c1) | set(c16)
+                               if c1.get(k) != c16.get(k)})
+    return {"S1": sum(c1.values()), "S16": sum(c16.values()), "kernels": len(c16)}
+
+
+def timed_call(fn) -> tuple:
+    """``(fn(), its device ms)`` of one call, by CUDA events (a plain version
+    timed on the call whose result is checked)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def hold_scenario(rec: dict, name: str, got, ones, plain, tol: float, exact: bool,
+                  kernel=None, plain_ms: float | None = None, work=None, library=None) -> dict:
+    """A scenario wrapper's result ``got`` against the one-scenario wrapper a
+    row (``ones``, stacked: bit for bit, NaN where NaN) and against its plain
+    version within ``tol``·scale (``exact``: bit for bit too); with
+    ``kernel``, its CUDA-event ms beside its plain version's (``plain_ms``),
+    its bound (``work``) and the ``library`` call's ms."""
+    torch.cuda.synchronize()
+    ft = float_tensors(got)
+    assert all(same(a, b) for a, b in zip(ft, float_tensors(ones))), (name, "rows")
+    err, scale = nan_close(name, got, plain, tol)
+    equal = all(same(a, b) for a, b in zip(ft, float_tensors(plain)))
+    if exact:
+        assert equal, (name, "not bit for bit against the plain version")
+    r = {"max_abs_err": err, "scale": scale, "rows_equal": True, "equal": equal}
+    if kernel is not None:
+        r["ms"] = cuda_ms(kernel, reps=5)
+        r["plain_ms"] = plain_ms
+        r.update(bound(*work))
+        r["library_ms"] = cuda_ms(library, reps=5) if library is not None else None
+    rec[name] = r
+    return r
+
+
+def level_tree_kernel_sets(P, device, forest_asm, web_asm) -> dict:
+    """The level and tree routes' scenario kernels on the card, S = 16, each
+    against the one-scenario wrapper a row (``torch.equal``) and its plain
+    version, timed beside its bound: K7 over S on the 100k forest's R batch
+    (at 1e-12·scale); on the 100k web's R batch K9 over S (both channels,
+    around a diagonal core solve ``r / d``: the rounds alone), K13–K14 over S
+    on the rows' folded diagonals with row :data:`MF_TRIP_ROW` negated (its
+    gate trips: its λ NaN alone), K15 over S on those 16 factors (1e-10·scale)
+    and K10 over S on the refinement's pair terms (beside batched
+    ``index_add_``); on its p_bc batch K9's ``r`` channel and K15 on one
+    shared factor."""
+    from networks_fenicsx_tpu_torch import edge_data as PE
+    from networks_fenicsx_tpu_torch import solver as PS
+    from networks_fenicsx_tpu_torch.kernels import (
+        edge_data, fold, level_eliminate, mf_apply, mf_factor, peel, segsum,
+    )
+
+    S = SWEEP_S
+    scales = torch.as_tensor(SWEEP_SCALES, device=device)
+    out = {}
+
+    def sweep_data(ex, R, f, sp, ep):
+        return edge_data.edge_data_scenarios(ex.device_plan, ex._N, ex._k, ex._h_e, ex._quad_w,
+                                             ex._quad_phi, R, f, ex._R_mode, ex._f_mode,
+                                             ex._f_is_zero, sp, ep)
+
+    # K7 over S: the 100k forest's R batch
+    ex = PS.build_schur_executor(forest_asm, P.SolverOptions(), device=device, elide_zero_f=False)
+    assert type(ex).__name__ == "_LevelExecutor", type(ex)
+    R0, f0, sp0, ep0 = ex.upload(*forest_asm.schur_arguments())
+    dlp = ex.device_plan
+    ed = sweep_data(ex, (R0[None] * scales[:, None]).contiguous(), f0, sp0, ep0)
+    rec = {"S": S}
+    lam, norm = level_eliminate.level_eliminate_scenarios(dlp, ed)
+    ones = [level_eliminate.level_eliminate(dlp, PE.scenario_row(ed, i)) for i in range(S)]
+    E, B = dlp.num_edges, dlp.num_bifurcations
+    tables = tensor_bytes(dlp.sums.groups, dlp.levels, dlp.parent_pos, dlp.parent_pair,
+                          dlp.child_ptr, dlp.kids, dlp.inv_perm, dlp.start_bif, dlp.end_bif)
+    adds = sum(valid_entries(idx, E) for idx, _ in dlp.sums.groups)
+    plain, plain_ms = timed_call(lambda: level_eliminate.level_eliminate_scenarios_plain(dlp, ed))
+    hold_scenario(rec, "level_eliminate_scenarios", (lam, norm),
+                  [torch.stack([o[j] for o in ones]) for j in range(2)], plain, TOL, False,
+                  lambda: level_eliminate.level_eliminate_scenarios(dlp, ed), plain_ms,
+                  (tables + tensor_bytes(ed.W, ed.g, sp0, ep0, lam, norm) + 8 * S * E,
+                   S * (10 * E + 3 * adds + 8 * B)))
+    rec["level_eliminate_scenarios"]["one_ms"] = cuda_ms(
+        lambda: [level_eliminate.level_eliminate(dlp, PE.scenario_row(ed, i)) for i in range(S)],
+        reps=2)
+    out["level_forest_R16"] = rec
+    del ex, ed, ones, lam
+
+    # the 100k web (its multifrontal core): R batch, then a p_bc batch on one R
+    ex = PS.build_schur_executor(web_asm, P.SolverOptions(), device=device, elide_zero_f=False)
+    dtp, dmf = ex.device_plan, ex.device_plan.mf
+    assert dmf is not None, "the web's core is multifrontal"
+    R0, f0, sp0, ep0 = ex.upload(*web_asm.schur_arguments())
+    ed = sweep_data(ex, (R0[None] * scales[:, None]).contiguous(), f0, sp0, ep0)
+    dr, w = peel.bifurcation_system_scenarios(dtp, ed.W, ed.g, ed.cumF[:, -1], sp0, ep0)
+    wp = segsum.segsum_plan_scenarios(dtp.pair_sums, w)[0]
+    E, B, P_ = dtp.num_edges, dtp.num_bifurcations, dtp.num_pairs
+    n_c, n_p = dtp.core_size, dtp.n_peeled
+    rec = {"S": S}
+    diag = lambda d, r: r / d  # noqa: E731 (a core "solve" that leaves the rounds alone)
+    lam = peel.peel_scenarios(dtp, dr, wp, diag)
+    ones = torch.stack([peel.peel(dtp, dr[i], wp[i], diag) for i in range(S)])
+    folds = sum(int((rd.parents >= 0).sum()) for rd in dtp.rounds)  # a term a child
+    peel_bytes = tensor_bytes(dtp.peel_table.table)
+    plain, plain_ms = timed_call(lambda: peel.peel_scenarios_plain(dtp, dr, wp, diag))
+    hold_scenario(rec, "peel_scenarios", lam, ones, plain, TOL, True,
+                  lambda: peel.peel_scenarios(dtp, dr, wp, diag), plain_ms,
+                  (peel_bytes + tensor_bytes(dr, wp, lam) + 16 * S * n_c,
+                   S * (6 * n_p + 2 * folds + n_c)))
+    # K13–K14 over S on the rows' folded diagonals, one row tripping the gate
+    dc = torch.stack([peel.peel_factor(dtp, dr[i], wp[i]).dc for i in range(S)])
+    dc[MF_TRIP_ROW] = -dc[MF_TRIP_ROW]
+    fac = mf_factor.mf_factor_scenarios(dmf, dc, wp)
+    assert fac.ok.tolist() == [int(i != MF_TRIP_ROW) for i in range(S)], fac.ok.tolist()
+    one_fac = [mf_factor.mf_factor(dmf, dc[i], wp[i]) for i in range(S)]
+    keep = [i for i in range(S) if i != MF_TRIP_ROW]
+    plain_fac, plain_ms = timed_call(lambda: mf_factor.mf_factor_scenarios_plain(dmf, dc, wp))
+    groups = dmf.plan.groups
+    fac_ops = sum(g.k * (g.w**3 / 3 + g.w**2 * g.b + g.w * g.b**2) for g in groups)
+    mf_index = tensor_bytes(dmf.init_slot, dmf.nodes_all, dmf.cval_all, dmf.ccol_all, dmf.rel_all,
+                            dmf.xadd_ptr, dmf.xadd, dmf.fronts, dmf.groups_dev)
+    hold_scenario(rec, "mf_factor_scenarios", [t[keep] for t in fac[:3]],
+                  [torch.stack([one_fac[i][j] for i in keep]) for j in range(3)],
+                  [t[keep] for t in plain_fac[:3]], TOL, False,
+                  lambda: mf_factor.mf_factor_scenarios(dmf, dc, wp), plain_ms,
+                  (mf_index + tensor_bytes(dc, wp, fac.fac, fac.pools, fac.vals, fac.ok),
+                   0.0, S * fac_ops))
+    assert same(fac.fac[MF_TRIP_ROW], one_fac[MF_TRIP_ROW].fac), "the tripped row's factor"
+    # K15 over S on the 16 factors: the tripped row NaN alone
+    rc = (torch.linspace(-1.0, 1.0, n_c, dtype=torch.float64, device=device)[None]
+          * scales[:, None]).contiguous()
+    x = mf_apply.mf_apply_scenarios(dmf, fac, rc)
+    assert torch.isnan(x[MF_TRIP_ROW]).all() and not torch.isnan(x[keep]).any(), "the gate"
+    nr = dmf.plan.n_refine
+    sweep_ops = sum(g.k * (2 * g.w**2 + 4 * g.w * g.b) for g in groups)
+    apply_index = tensor_bytes(dmf.nodes_all, dmf.bndpos_all, dmf.xadd_ptr, dmf.xadd, dmf.fronts,
+                               dmf.lam_pos, dmf.pci, dmf.pcj, dmf.mv_inv_i, dmf.mv_inv_j,
+                               dmf.mv_fold_i, dmf.mv_fold_j)
+    plain, plain_ms = timed_call(lambda: mf_apply.mf_apply_scenarios_plain(dmf, plain_fac, rc))
+    hold_scenario(rec, "mf_apply_scenarios", x,
+                  torch.stack([mf_apply.mf_apply(dmf, one_fac[i], rc[i]) for i in range(S)]),
+                  plain, CYCLIC_TOL, False, lambda: mf_apply.mf_apply_scenarios(dmf, fac, rc),
+                  plain_ms, (apply_index + tensor_bytes(fac.fac, fac.vals, fac.ok, dc, rc, x),
+                             S * ((1 + nr) * sweep_ops + nr * 4 * dmf.plan.n_pairs)))
+    del plain_fac, one_fac
+    # K10 over S: the refinement's fold of the pair terms into their rows
+    P0 = dmf.plan.n_pairs
+    ti = (torch.linspace(-1.0, 1.0, P0, dtype=torch.float64, device=device)[None]
+          * scales[:, None]).contiguous()
+    plan = dmf.mv_fold_i
+    seg = torch.unique(dmf.pci.long(), return_inverse=True)[1]
+    plain, plain_ms = timed_call(lambda: fold.fold_apply_scenarios_plain(ti, plan))
+    hold_scenario(rec, "fold_apply_scenarios", fold.fold_apply_scenarios(ti, plan),
+                  torch.stack([fold.fold_apply(ti[i].contiguous(), plan) for i in range(S)]),
+                  plain, 0.0, True, lambda: fold.fold_apply_scenarios(ti, plan), plain_ms,
+                  (tensor_bytes(plan, ti) + 8 * S * plan.rows, S * P0),
+                  lambda: torch.zeros((S, plan.rows), dtype=torch.float64,
+                                      device=device).index_add_(1, seg, ti))
+    out["tree_web_R16"] = rec
+
+    # the p_bc batch on one R: K9's r channel and K15 on one shared factor
+    mask_s, mask_e = (dtp.start_bif < 0).double(), (dtp.end_bif < 0).double()
+    spb = (sp0[None] * scales[:, None] + mask_s[None] * scales[:, None]).contiguous()
+    epb = (ep0[None] * scales[:, None] - mask_e[None] * scales[:, None]).contiguous()
+    ed = sweep_data(ex, R0, f0, spb, epb)
+    dr, w = peel.bifurcation_system_scenarios(dtp, ed.W, ed.g, ed.cumF[:, -1], spb, epb)
+    wp0 = segsum.segsum_plan(dtp.pair_sums, w[0])[0]
+    pf = peel.peel_factor(dtp, dr[0], wp0)
+    rec = {"S": S}
+    scale_core = lambda r: r / pf.dc  # noqa: E731
+    lam = peel.peel_apply_scenarios(dtp, pf, dr, scale_core)
+    plain, plain_ms = timed_call(lambda: peel.peel_apply_scenarios_plain(dtp, pf, dr, scale_core))
+    hold_scenario(rec, "peel_apply_scenarios", lam,
+                  torch.stack([peel.peel_apply(dtp, pf, dr[i], scale_core) for i in range(S)]),
+                  plain, TOL, True, lambda: peel.peel_apply_scenarios(dtp, pf, dr, scale_core),
+                  plain_ms, (peel_bytes + tensor_bytes(dr[:, :, 1], pf.w, pf.db, pf.factor, lam)
+                   + 16 * S * n_c, S * (3 * n_p + folds + n_c)))
+    st = mf_factor.mf_factor(dmf, pf.dc, wp0)
+    rc = (torch.linspace(-1.0, 1.0, n_c, dtype=torch.float64, device=device)[None]
+          * scales[:, None]).contiguous()
+    x = mf_apply.mf_apply_scenarios(dmf, st, rc)
+    st_plain = mf_factor.mf_factor_plain(dmf, pf.dc, wp0)
+    plain, plain_ms = timed_call(lambda: mf_apply.mf_apply_scenarios_plain(dmf, st_plain, rc))
+    hold_scenario(rec, "mf_apply_scenarios", x,
+                  torch.stack([mf_apply.mf_apply(dmf, st, rc[i]) for i in range(S)]),
+                  plain, CYCLIC_TOL, False, lambda: mf_apply.mf_apply_scenarios(dmf, st, rc),
+                  plain_ms, (apply_index + tensor_bytes(st.fac, st.vals, st.ok, pf.dc, rc, x),
+                   S * ((1 + nr) * sweep_ops + nr * 4 * P0)))
+    out["tree_web_pbc16"] = rec
+    return out
+
+
+def tree_solve_batches(P, device, cases: dict, name_power: str) -> list:
+    """``TreeFactorization.solve_batch`` of 16 right-hand sides (f and the
+    boundary pressures scaled by :data:`SWEEP_SCALES`) on each case's stored
+    factor: one call of each scenario wrapper (counted), every row
+    ``solve()`` of that row bit for bit, its ms beside 16 ``solve()`` calls',
+    the device's busy time and idle share.  Returns the counted launches."""
+    from networks_fenicsx_tpu_torch import factorization as PF
+    from networks_fenicsx_tpu_torch import kernels
+
+    runs = []
+    for label, (asm, base_forms) in cases.items():
+        base_forms()
+        fac = PF.build_tree_factorization(asm, device=device)
+        dtp = fac.device_tree_plan
+        R0, f0, sp0, ep0 = (np.asarray(a) for a in asm.schur_arguments())
+        state = fac.factor(R0)
+        f_b = SWEEP_SCALES[:, None] * f0.reshape(-1)[None]
+        sp_b, ep_b = SWEEP_SCALES[:, None] * sp0[None], SWEEP_SCALES[:, None] * ep0[None]
+        fac.solve_batch(state, f_b, sp_b, ep_b)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        outs = fac.solve_batch(state, f_b, sp_b, ep_b)
+        torch.cuda.synchronize()
+        fl = kernels.launches()
+        want = {"condense_scenarios": 1, "bifurcation_system_scenarios": 1,
+                "segsum_plan_scenarios": 1, "peel_apply_scenarios": 1, "expand_scenarios": 1}
+        if dtp.mf is not None:
+            want["mf_apply_scenarios"] = 1
+            n_folds = sum(1 for plan in (dtp.mf.mv_fold_i, dtp.mf.mv_fold_j) if plan.rows)
+            if n_folds * dtp.mf.plan.n_refine:
+                want["fold_apply_scenarios"] = n_folds * dtp.mf.plan.n_refine
+        elif dtp.core_size:
+            want["dense_solve_scenarios"] = 1
+        got = {n: v for n, v in fl.items() if v}
+        assert got == want, (label, got, want)
+        runs.append(fl)
+        for i in range(SWEEP_S):
+            one = fac.solve(state, f_b[i], sp_b[i], ep_b[i])
+            assert all(torch.equal(a[i], b) for a, b in zip(outs, one)), (label, "row", i)
+        assert bool(torch.all(outs[4])), (label, "finite")
+
+        def solves():
+            for i in range(SWEEP_S):
+                fac.solve(state, f_b[i], sp_b[i], ep_b[i])
+
+        rec = {"S": SWEEP_S, "rows_bit_for_bit": SWEEP_S, "wrapper_calls": want,
+               "rounds": len(dtp.rounds), "core": dtp.core_size,
+               "core_engine": "multifrontal" if dtp.mf is not None else (
+                   "dense" if dtp.core_size else "none"),
+               "solve_batch_ms": best_ms(lambda: fac.solve_batch(state, f_b, sp_b, ep_b)),
+               "solves_ms": best_ms(solves, reps=2),
+               "device": device_share(lambda: fac.solve_batch(state, f_b, sp_b, ep_b))}
+        log(f"phase sweep tree solve_batch {label} (TreeFactorization, {name_power}): "
+            + json.dumps(rec))
+        del fac, state, outs
+    return runs
+
+
+def level_tree_sweeps(P, device, name_power: str, serial: dict) -> dict:
+    """The level and tree routes' scenario axis on the card: the 100k forest
+    (R and f batches of 16, the level route), the 100k web (R and p_bc, the
+    tree route with its multifrontal core; the R batch one chunk), the
+    perfusion bed (R), web1000 under ``schur_method="tree"`` (R and p_bc, its
+    dense core), each against ``Solver.solve()`` and the same sweep a row at
+    a time bit for bit with its launches at S = 1 and 16;
+    ``TreeFactorization.solve_batch`` of 16 on the web, web1000 and the 100k
+    forest (its forced rounds); the scenario kernels against the
+    one-scenario kernels and their plain versions."""
+    t0 = time.perf_counter()
+    forest, web = serial["forest"][0], serial["web"][0]
+    paths, runs, counts = {}, [], {}
+
+    def cyc_forms(asm):
+        return lambda **row: forest_forms(asm, **row)
+
+    # the 100k forest: the level route
+    ff = cyc_forms(forest)
+    R0f, f0f = forest.schur_arguments()[:2]
+    Rfb = np.asarray(R0f)[None] * SWEEP_SCALES[:, None]
+    ffb = np.asarray(f0f)[None] * SWEEP_SCALES[:, None]
+    paths["forest_R16"] = route_sweep_path(
+        P, device, forest, "level forest R", {"R": Rfb}, lambda i: ff(R=Rfb[i]), ff, "auto",
+        "_LevelExecutor", level_calls, LEVEL_FAMILIES)
+    paths["forest_f16"] = route_sweep_path(
+        P, device, forest, "level forest f", {"f": ffb}, lambda i: ff(f=ffb[i]), ff, "auto",
+        "_LevelExecutor", level_calls, LEVEL_FAMILIES)
+    counts["forest_R"] = route_launches_vs_S(
+        P, device, forest, lambda S: {"R": np.asarray(R0f)[None] * np.linspace(0.5, 2.0, S)[:, None]},
+        "forest R", "_LevelExecutor")
+    ff()
+
+    # the 100k web: the tree route, its multifrontal core
+    wf = cyc_forms(web)
+    R0w = np.asarray(web.schur_arguments()[0])
+    Rwb = R0w[None] * SWEEP_SCALES[:, None]
+    xw = web.network.vertices[: web.network.num_graph_nodes][:, 0]
+    paths["web_R16"] = route_sweep_path(
+        P, device, web, "tree web R", {"R": Rwb}, lambda i: wf(R=Rwb[i]), wf, "auto",
+        "_TreeExecutor", tree_calls, TREE_FAMILIES, solves=True)
+    paths["web_pbc16"] = route_sweep_path(
+        P, device, web, "tree web p_bc", {"p_bc_node_values": SWEEP_SCALES[:, None] * xw[None]},
+        lambda i: wf(s=SWEEP_SCALES[i]), wf, "auto", "_TreeExecutor", tree_calls, TREE_FAMILIES)
+    counts["web_R"] = route_launches_vs_S(
+        P, device, web, lambda S: {"R": R0w[None] * np.linspace(0.5, 2.0, S)[:, None]}, "web R",
+        "_TreeExecutor")
+    counts["web_pbc"] = route_launches_vs_S(
+        P, device, web,
+        lambda S: {"p_bc_node_values": np.linspace(0.5, 2.0, S)[:, None] * xw[None]}, "web p_bc",
+        "_TreeExecutor")
+    wf()
+
+    # the perfusion bed: the tree route, its multifrontal core (no rounds)
+    bed = bed_assembler(P)
+    R0b = 1.0 / bed.network.edge_radius**4
+    Rbb = R0b[None] * SWEEP_SCALES[:, None]
+    paths["bed_R16"] = route_sweep_path(
+        P, device, bed, "tree bed R", {"R": Rbb},
+        lambda i: bed.compute_forms(p_bc_ex=lambda x: x[1], R=Rbb[i]), lambda: bed_forms(bed),
+        "auto", "_TreeExecutor", tree_calls, TREE_FAMILIES)
+    counts["bed_R"] = route_launches_vs_S(
+        P, device, bed, lambda S: {"R": R0b[None] * np.linspace(0.5, 2.0, S)[:, None]}, "bed R",
+        "_TreeExecutor")
+    del bed
+
+    # web1000 under schur_method="tree": its dense core (455 nodes)
+    w1k = web_assembler(P, sites=1_000)
+    kf = cyc_forms(w1k)
+    R0k = np.asarray(w1k.schur_arguments()[0])
+    Rkb = R0k[None] * SWEEP_SCALES[:, None]
+    xk = w1k.network.vertices[: w1k.network.num_graph_nodes][:, 0]
+    paths["web1000_R16"] = route_sweep_path(
+        P, device, w1k, "tree web1000 R", {"R": Rkb}, lambda i: kf(R=Rkb[i]), kf, "tree",
+        "_TreeExecutor", tree_calls, TREE_FAMILIES, sweep_method="tree")
+    paths["web1000_pbc16"] = route_sweep_path(
+        P, device, w1k, "tree web1000 p_bc", {"p_bc_node_values": SWEEP_SCALES[:, None] * xk[None]},
+        lambda i: kf(s=SWEEP_SCALES[i]), kf, "tree", "_TreeExecutor", tree_calls, TREE_FAMILIES,
+        sweep_method="tree")
+    counts["web1000_R"] = route_launches_vs_S(
+        P, device, w1k, lambda S: {"R": R0k[None] * np.linspace(0.5, 2.0, S)[:, None]},
+        "web1000 R", "_TreeExecutor", sweep_method="tree")
+    kf()
+    for key, path in paths.items():
+        runs.append(path["launches"])
+        log(f"phase sweep level/tree {key} ({name_power}): " + json.dumps(path["rec"]))
+    log("phase sweep level/tree launches (profiled, S = 1 and 16): " + json.dumps(counts))
+
+    runs += tree_solve_batches(P, device, {"web": (web, wf), "web1000": (w1k, kf),
+                                           "forest": (forest, ff)}, name_power)
+    del w1k
+    sets = level_tree_kernel_sets(P, device, forest, web)
+    ff()
+    wf()
+    for name, rec in sets.items():
+        log(f"phase kernels-sweep {name}: " + json.dumps(rec))
+    log(f"phase wall: the level and tree sweep phases {time.perf_counter() - t0:.1f} s")
+    return {"sets": sets, "runs": runs}
+
+
 def sweep_phases(P, device, name_power: str, serial: dict) -> dict:
     """The sweeps: the headline tree's R and p_bc sweeps of 16 scenarios on
     the batched blocked route (the main path of the scenario kernels), the
@@ -7226,7 +7693,7 @@ def sweep_phases(P, device, name_power: str, serial: dict) -> dict:
         "(K2–K4 also against the plain version in the kernels' order) and against the plain "
         "version at TOL·scale; the cases bit for bit against the plain version: "
         + json.dumps(exact))
-    rows = row_route_sweeps(P, device, serial["forest"][0])
+    rows = row_route_sweeps(P, device)
     log("phase sweep row routes: " + json.dumps(rows))
     dense = dense_sweeps(P, device, name_power)
     sets.update(dense["sets"])
@@ -7234,6 +7701,9 @@ def sweep_phases(P, device, name_power: str, serial: dict) -> dict:
     lattice = lattice_sweeps(P, device, name_power)
     sets.update(lattice["sets"])
     runs += lattice["runs"]
+    level_tree = level_tree_sweeps(P, device, name_power, serial)
+    sets.update(level_tree["sets"])
+    runs += level_tree["runs"]
     log(f"phase wall: the sweep phases {time.perf_counter() - t_start:.1f} s")
     return {"sets": sets, "runs": runs}
 
@@ -7441,10 +7911,11 @@ def main() -> int:
             errs = tuple(factor[c.split(":")[0]]["checks"][c.split(":")[1] if ":" in c else name]
                          ["max_abs_err"] for c in checks)
             timed_on = factor[on]["checks"][name]
-        elif name in {**SCENARIO_CHECKS, **DENSE_SCENARIO_CHECKS, **LATTICE_SCENARIO_CHECKS}:
+        elif name in {**SCENARIO_CHECKS, **DENSE_SCENARIO_CHECKS, **LATTICE_SCENARIO_CHECKS,
+                      **TREE_SCENARIO_CHECKS}:
             errs = tuple(rec[name]["max_abs_err"] for rec in sweep_sets.values() if name in rec)
             timed_on = sweep_sets[{**SCENARIO_CHECKS, **DENSE_SCENARIO_CHECKS,
-                                   **LATTICE_SCENARIO_CHECKS}[name]][name]
+                                   **LATTICE_SCENARIO_CHECKS, **TREE_SCENARIO_CHECKS}[name]][name]
         elif name in GENERIC_CHECKS:
             checks = GENERIC_CHECKS[name]
             errs = tuple(gen_sets[on][key]["max_abs_err"] for on, key in checks)
@@ -7465,7 +7936,7 @@ def main() -> int:
             "bound_ms": timed_on["bound_ms"], "bound_by": timed_on["bound_by"],
             "library_ms": timed_on.get("library_ms"),
         })
-    assert len(kernels) == 63 and all(kr["launches"] > 0 for kr in kernels), kernels
+    assert len(kernels) == 69 and all(kr["launches"] > 0 for kr in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -26,9 +26,18 @@ scenarios run:
   (:class:`.solver._DctExecutor`, a callable source) K8a, the bifurcation
   system, K6's class weights, K16 with K18 over S, and K8b
   (``scenarios`` of each);
-* every other route (``dense_f64``, tree, level, CG) runs its rows through
-  its executor, one solve a row, into preallocated ``(S, ·)`` device
-  outputs (ROADMAP A9b names the routes still to batch).
+* so has the level route (:class:`.solver._LevelExecutor`: every forest
+  with B > 4,096 that is not uniformly K-ary, callable R or f): K8a, K7 with
+  its K6 sums and K8b over S (``_LevelExecutor.scenarios``);
+* so has the tree route (:class:`.solver._TreeExecutor`, a cyclic graph with
+  B > 4,096, or ``schur_method="tree"``) when its core is dense, multifrontal
+  or absent: K8a, the bifurcation system, K9's peel rounds over S around the
+  core over S (S multifrontal or dense factors in chunks when R varies by
+  scenario, else K9's ``d`` channel and one core factor, then the ``r``
+  channel and the core's apply over S), K8b (``_TreeExecutor.scenarios``);
+* every other route (a min-degree core, ``dense_f64``, CG) runs its rows
+  through its executor, one solve a row, into preallocated ``(S, ·)``
+  device outputs (ROADMAP A9b names the routes still to batch).
 
 Either way row ``i`` is the executor's call on row ``i`` bit for bit.  The
 device is explicit, as for :class:`.solver.Solver`: ``device="cuda"`` by

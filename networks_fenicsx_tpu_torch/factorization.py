@@ -44,8 +44,12 @@ reference's leading scenario axis over :meth:`solve`'s layouts, each row
 :meth:`solve`'s bits.  The blocked class runs all rows in one launch of K1,
 K3–K4 and K5 (their scenario axis), the lattice class in one launch of K1,
 K17's assembly, K16's six a pass (on the stored factor, read at stride 0)
-with K17's stencil and K5 (their scenario axis); the tree class a row at a
-time on the same kernels (ROADMAP A9b).
+with K17's stencil and K5 (their scenario axis), the tree class with a
+multifrontal or dense core (or none) in one launch of K1, the bifurcation
+rhs and its norm, K9's ``r`` channel (``peel_apply_scenarios``) around the
+core's apply over S (K15's, or K11's solves, on the stored factor read at
+stride 0) and K5; a min-degree core's tree class a row at a time (K12a and
+K12b have no scenario axis yet, ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ from .levels import _build_lambda_plan, _cached_tree_plan, attach_core_plan
 from .ops.core_elim import CoreElimPlan
 from .ops.multifrontal import MFPlan
 from .solver import _flatten_blocks_host, resolve_device
-from .tree import device_tree_plan
+from .tree import core_apply_scenarios, device_tree_plan
 from .utils.config import SolverOptions
 
 __all__ = [
@@ -359,8 +363,9 @@ class TreeFactorization(_Factorization):
     """Factor reuse on any topology by the peel rounds and the core (see the
     module docs); ``_tree_plan`` replaces the cached plan (tests force a
     core engine with it, as the reference's).  Its :meth:`solve_batch` runs
-    the rows one at a time (K9's channels and the cores have no scenario
-    axis yet: ROADMAP A9b).
+    the rows in one launch of each scenario wrapper for a multifrontal or
+    dense core and for a plan without a core, and one row at a time for a
+    min-degree core (K12a and K12b have no scenario axis yet: ROADMAP A9b).
 
     Attributes:
         device_tree_plan: the tree plan on the device (K9, K6 and the core
@@ -447,6 +452,38 @@ class TreeFactorization(_Factorization):
         lam = peel.peel_apply(dtp, state.peeled, dr, self._core_apply(state))
         q_T, p_T, finite = expand.expand(ends, self._N, self._k, lam, sp, ep, W, w, g, Ftot,
                                          self._h_e, state.R, f, self._R_mode, self._f_mode)
+        return q_T, p_T, lam, rhs_norm, finite
+
+    def solve_batch(self, state: TreeState, f_batch, start_pbc_batch, end_pbc_batch):
+        """:meth:`solve` of S right-hand sides: for a multifrontal or dense
+        core (or none) in one launch of K1 (on the resident R), the
+        bifurcation rhs and its norm (the prepare kernel, K6, the norm over
+        S), K9's ``r`` channel (``peel_apply_scenarios``, the stored
+        :class:`.kernels.peel.PeelFactor` read at stride 0) around the core's
+        apply over S (K15's, or K11's solves, on the stored core factor) and
+        K5; for a min-degree core one row at a time (the inherited loop: K12a
+        and K12b have no scenario axis yet).  Returns the tuple with a
+        leading ``S`` on each entry, row ``i`` :meth:`solve` of row ``i`` to
+        the bit."""
+        dtp, ends, N, k = self.device_tree_plan, self.ends, self._N, self._k
+        if dtp.ce is not None:
+            return super().solve_batch(state, f_batch, start_pbc_batch, end_pbc_batch)
+        f_rows, sp_rows, ep_rows = self._batch_rows(f_batch, start_pbc_batch, end_pbc_batch)
+        S = f_rows.shape[0]
+        if self._f_mode == "scalar":  # a scalar row is its first entry, as solve() reads it
+            f_rows = f_rows.reshape(S, -1)[:, :1]
+        f = self._upload(f_rows)
+        if self._f_mode == "cell":  # public (S, C) rows to j-major (S, N, E) blocks, on the device
+            f = f.view(S, self._E, self._N).transpose(1, 2).contiguous()
+        sp, ep = self._upload(sp_rows), self._upload(ep_rows)
+        W, w, g, Ftot, _ = condense.condense_scenarios(ends, N, k, self._h_e, state.R, f,
+                                                       self._R_mode, self._f_mode, sp, ep)
+        dr, _, rhs_norm = peel.bifurcation_system_scenarios(dtp, W, g, Ftot, sp, ep, norm=True)
+        apply = core_apply_scenarios(dtp, state.core) if dtp.core_size else None
+        lam = peel.peel_apply_scenarios(dtp, state.peeled, dr, apply)
+        q_T, p_T, finite = expand.expand_scenarios(ends, N, k, lam, sp, ep, W, w, g, Ftot,
+                                                   self._h_e, state.R, f, self._R_mode,
+                                                   self._f_mode)
         return q_T, p_T, lam, rhs_norm, finite
 
 

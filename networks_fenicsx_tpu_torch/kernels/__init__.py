@@ -108,8 +108,12 @@ also sums the pair conductances), K11 (``dense_factor_scenarios``,
 and K8b (``backsub_scenarios``); and so do the lattice route's: K16's
 factors and passes (``dct_factor_scenarios``, ``dct_apply_scenarios`` on S
 factors or on one), K17's assembly and stencil (``grid_core_scenarios``,
-``grid_residual_scenarios``) and K18 (``shift_matvec_scenarios``): the
-``SCENARIO`` wrappers.
+``grid_residual_scenarios``) and K18 (``shift_matvec_scenarios``); the level
+route's K7 (``level_eliminate_scenarios``), and the tree route's K9 rounds
+(``peel_scenarios``, both channels; ``peel_apply_scenarios``, S right-hand
+sides on one stored factor), K10 (``fold_apply_scenarios``, the
+multifrontal refinement's folds) and K13–K15 (``mf_factor_scenarios``,
+``mf_apply_scenarios`` on S factors or on one): the ``SCENARIO`` wrappers.
 
 A wrapper launches its kernel for CUDA tensors (building the library from
 ``csrc/`` at first use, see :mod:`.build`) and runs the plain version for
@@ -157,7 +161,10 @@ SCENARIO = (condense.condense_scenarios, tree_sweep.tree_sweep_scenarios,
             dense_core.dense_gate_scenarios, dense_core.dense_solve_scenarios,
             backsub.backsub_scenarios, dct_lattice.dct_factor_scenarios,
             dct_lattice.dct_apply_scenarios, grid_core.grid_core_scenarios,
-            grid_core.grid_residual_scenarios, shift_matvec.shift_matvec_scenarios)
+            grid_core.grid_residual_scenarios, shift_matvec.shift_matvec_scenarios,
+            level_eliminate.level_eliminate_scenarios, peel.peel_scenarios,
+            peel.peel_apply_scenarios, fold.fold_apply_scenarios, mf_factor.mf_factor_scenarios,
+            mf_apply.mf_apply_scenarios)
 WRAPPERS = (BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE + ASSEMBLED + SHARDED + FACTORED
             + SCENARIO)
 

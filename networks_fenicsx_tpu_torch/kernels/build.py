@@ -64,6 +64,10 @@ _SIGNATURES = {
         _i, _p, _p, _p, _i, _i,  # L, host level pointers, rows, widths, C, n
         _p, _p, _p,  # vals, out, stream
     ],
+    "nxfx_fold_scen": [
+        _i, _p, _p, _p, _i, _i, _i,  # L, host level pointers, rows, widths, C, n, S
+        _p, _p, _p,  # vals (S, n, C), out (S, rows, C), stream
+    ],
     "nxfx_edge_data": [
         _i, _i, _i, _i, _i,  # layout, E, N, k, nq
         _i, _i, _i, _i, _i, _i, _i,  # the tile: cells, rows, R width, pitch, f width, pitch, shared
@@ -88,6 +92,15 @@ _SIGNATURES = {
     ],
     "nxfx_level_eliminate": [
         _p, _p, _p, _p,  # LevelWalkArgs, w_pairs, dt_t, dt_s
+        _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam_perm, lam, rhs_norm, stream
+    ],
+    "nxfx_level_prepare_scen": [
+        _i, _i, _l, _l, _l,  # E, S, Ftot, start_pbc, end_pbc strides
+        _p, _p, _p, _p, _p, _p, _p,  # W, g, Ftot, start_pbc, end_pbc, start_bif, end_bif
+        _p, _p, _p, _p,  # w, vt, vs, stream
+    ],
+    "nxfx_level_eliminate_scen": [
+        _p, _i, _l, _p, _p, _p,  # LevelWalkArgs, S, w_pairs stride, w_pairs, dt_t, dt_s
         _p, _p, _p, _p, _p, _p, _p,  # d, r, wn, lam_perm, lam, rhs_norm, stream
     ],
     "nxfx_level_eliminate_system": [
@@ -125,6 +138,7 @@ _SIGNATURES = {
         _p, _p, _p, _p,  # w, vt, vs, stream
     ],
     "nxfx_rhs_norm": [_i, _p, _p, _p],  # B, dr, out, stream
+    "nxfx_rhs_norm_scen": [_i, _i, _p, _p, _p],  # B, S, dr (S, B, 2), out (S,), stream
     "nxfx_peel_forward": [_p, _p, _p],  # PeelArgs, host table, stream
     "nxfx_peel_back": [_p, _p, _p],  # PeelArgs, host table, stream
     "nxfx_dense_core": [
@@ -170,6 +184,27 @@ _SIGNATURES = {
         _p, _p, _p,  # xadd_ptr, xadd, pools_in
         _p, _p, _p, _p, _p,  # vals, fac, pools, ok, stream
     ],
+    "nxfx_mf_factor_scen": [
+        _i, _p, _i, _i, _i,  # n_levels, host level table, n_core, P0, S
+        _p, _p,  # device group and front tables
+        _p, _l, _p, _l, _p,  # init_slot, w_pairs stride, w_pairs, dc stride, dc
+        _p, _p, _p, _p,  # nodes_all, cval_all, ccol_all, rel_all
+        _p, _p,  # xadd_ptr, xadd
+        _p, _l, _p, _l, _p, _p, _p,  # vals, fac stride, fac, pool stride, pools, ok, stream
+    ],
+    "nxfx_mf_sweep_scen": [
+        _i, _p, _i, _i, _i,  # n_levels, host level table, n_core, lam_len, S
+        _p, _p,  # device group and front tables
+        _l, _p, _p, _p, _p, _p, _p,  # rc stride, rc, nodes_all, bndpos_all, xadd_ptr, xadd, lam_pos
+        _l, _p, _l, _p, _p, _p, _p, _i, _p,  # fac stride, fac, vpool stride, vpools, ys, lam, x, accumulate
+    ],
+    "nxfx_mf_terms_scen": [_i, _i, _i, _l, _p, _p, _p, _p, _p, _p, _p],  # P0, n, S, vals stride, ...
+    "nxfx_mf_residual_scen": [
+        _i, _i, _l, _p, _l, _p, _p,  # n, S, rc stride, rc, dc stride, dc, x
+        _p, _i, _p, _p, _i, _p,  # inv_i, n_i, si, inv_j, n_j, sj
+        _p, _p,  # r, stream
+    ],
+    "nxfx_mf_gate_scen": [_i, _i, _l, _p, _p, _p],  # n, S, ok stride, ok, x, stream
     "nxfx_mf_sweep": [
         _i, _p, _i, _i,  # n_levels, host level table, n_core, lam_len
         _p, _p,  # device group and front tables

@@ -33,7 +33,16 @@
 // (bit for bit the gather's).  The triangles are solved on the front's
 // vector in shared memory, a 32-row block at a time by warp 0 with
 // reciprocal pivots, the block staged in shared memory (lower_solve_block).  The launches hold no state
-// across calls: two streams and CUDA-graph replays are safe.  The buffers
+// across calls: two streams and CUDA-graph replays are safe.
+//
+// S right-hand sides (a sweep on the tree route, a tree factorization's
+// solve_batch) take the launches of one apply: every launch takes the
+// scenario as its grid's y (min(S, 65,535) rows walking the scenarios y,
+// y + gridDim.y, ...), each scenario with its own stride into rc, the
+// factor (0: one factor for all, as a shared R gives), the v pools, the y
+// and lambda streams, x, the refinement's terms and residual and the gate
+// flag.  The scenario only selects base pointers: each row is the
+// one-scenario launch's bits.  The buffers
 // a thread writes and another reads after a barrier carry no __restrict__
 // (with it the compiler may keep a value in a register across the barrier).
 
@@ -162,12 +171,25 @@ struct SweepArgs {
     double* vpools;            // every group's v pool (children read, each front writes its own)
     double* ys;                // (lam_len,) the y stream
     double* lam;               // (lam_len,) the lambda stream (ancestors read)
+    int S;                     // scenarios (1: one apply)
+    long long s_rc, s_fac, s_vp;  // strides of rc, fac (0: shared) and vpools; ys and lam lam_len
 };
 
-__global__ void __launch_bounds__(WIDE_THREADS, 2) mf_forward_kernel(SweepArgs a, int first)
+// scenario z's arguments: each buffer its stride z further on
+__device__ __forceinline__ SweepArgs scenario(const SweepArgs& A, int z)
 {
-    extern __shared__ double bv[];     // (m,): b, then y = L^-1 b_S in the first w
-    __shared__ double Ls[32 * 33];     // a diagonal block of L
+    const size_t Z = static_cast<size_t>(z);
+    SweepArgs a = A;
+    a.rc = A.rc + Z * A.s_rc;
+    a.fac = A.fac + Z * A.s_fac;
+    a.vpools = A.vpools + Z * A.s_vp;
+    a.ys = A.ys + Z * A.lam_len;
+    a.lam = A.lam + Z * A.lam_len;
+    return a;
+}
+
+__device__ void forward_front(const SweepArgs& a, int first, double* bv, double* Ls)
+{
     const int f = first + blockIdx.x;
     const long long* row = a.groups + static_cast<size_t>(a.fronts[2 * f]) * G_COLS;
     const int p = a.fronts[2 * f + 1];
@@ -201,10 +223,18 @@ __global__ void __launch_bounds__(WIDE_THREADS, 2) mf_forward_kernel(SweepArgs a
     for (int i = tid; i < w; i += blockDim.x) ys[i] = bv[i];
 }
 
-__global__ void __launch_bounds__(WIDE_THREADS, 2) mf_backward_kernel(SweepArgs a, int first)
+__global__ void __launch_bounds__(WIDE_THREADS, 2) mf_forward_kernel(SweepArgs a0, int first)
 {
-    extern __shared__ double z[];      // (m,): y - Y lambda_B, then L^-T of it; lambda_B after w
+    extern __shared__ double bv[];     // (m,): b, then y = L^-1 b_S in the first w
     __shared__ double Ls[32 * 33];     // a diagonal block of L
+    for (int z = blockIdx.y; z < a0.S; z += gridDim.y) {  // a block a scenario's front
+        forward_front(scenario(a0, z), first, bv, Ls);
+        __syncthreads();
+    }
+}
+
+__device__ void backward_front(const SweepArgs& a, int first, double* z, double* Ls)
+{
     const int f = first + blockIdx.x;
     const long long* row = a.groups + static_cast<size_t>(a.fronts[2 * f]) * G_COLS;
     const int p = a.fronts[2 * f + 1];
@@ -231,25 +261,46 @@ __global__ void __launch_bounds__(WIDE_THREADS, 2) mf_backward_kernel(SweepArgs 
     for (int i = tid; i < w; i += blockDim.x) out[i] = z[i];
 }
 
+__global__ void __launch_bounds__(WIDE_THREADS, 2) mf_backward_kernel(SweepArgs a0, int first)
+{
+    extern __shared__ double zs[];     // (m,): y - Y lambda_B, then L^-T of it; lambda_B after w
+    __shared__ double Ls[32 * 33];     // a diagonal block of L
+    for (int z = blockIdx.y; z < a0.S; z += gridDim.y) {  // a block a scenario's front
+        backward_front(scenario(a0, z), first, zs, Ls);
+        __syncthreads();
+    }
+}
+
+// The elementwise passes: scenario z's rows their strides z further on (a
+// lambda stream lam_len, x and r n, the terms P0, the folds n_i and n_j).
 __global__ void mf_gather_kernel(
     int n, const int* __restrict__ lam_pos, const double* __restrict__ lam, int accumulate,
-    double* __restrict__ x)
+    double* __restrict__ x, int S, long long s_lam)
 {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const double v = lam[lam_pos[i]];
-    x[i] = accumulate ? x[i] + v : v;
+    for (int z = blockIdx.y; z < S; z += gridDim.y) {
+        const size_t Z = static_cast<size_t>(z);
+        const double v = lam[Z * s_lam + lam_pos[i]];
+        double* xz = x + Z * n;
+        xz[i] = accumulate ? xz[i] + v : v;
+    }
 }
 
 __global__ void mf_terms_kernel(
     int P0, const double* __restrict__ vals, const int* __restrict__ pci,
     const int* __restrict__ pcj, const double* __restrict__ x,
-    double* __restrict__ ti, double* __restrict__ tj)
+    double* __restrict__ ti, double* __restrict__ tj, int S, long long s_vals, int n)
 {
     const int p = blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= P0) return;
-    ti[p] = vals[p] * x[pcj[p]];  // pairs touch row ci with -w x[cj]
-    tj[p] = vals[p] * x[pci[p]];
+    for (int z = blockIdx.y; z < S; z += gridDim.y) {
+        const size_t Z = static_cast<size_t>(z);
+        const double v = vals[Z * s_vals + p];
+        const double* xz = x + Z * n;
+        ti[Z * P0 + p] = v * xz[pcj[p]];  // pairs touch row ci with -w x[cj]
+        tj[Z * P0 + p] = v * xz[pci[p]];
+    }
 }
 
 __global__ void mf_residual_kernel(
@@ -257,21 +308,32 @@ __global__ void mf_residual_kernel(
     const double* __restrict__ x,
     const int* __restrict__ inv_i, int n_i, const double* __restrict__ si,
     const int* __restrict__ inv_j, int n_j, const double* __restrict__ sj,
-    double* __restrict__ r)
+    double* __restrict__ r, int S, long long s_rc, long long s_dc)
 {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const int a = inv_i[i], c = inv_j[i];
-    const double ax = dc[i] * x[i] + (a < n_i ? si[a] : 0.0) + (c < n_j ? sj[c] : 0.0);
-    r[i] = rc[i] - ax;
+    for (int z = blockIdx.y; z < S; z += gridDim.y) {
+        const size_t Z = static_cast<size_t>(z);
+        const double* xz = x + Z * n;
+        const double ax = dc[Z * s_dc + i] * xz[i] + (a < n_i ? si[Z * n_i + a] : 0.0)
+                          + (c < n_j ? sj[Z * n_j + c] : 0.0);
+        r[Z * n + i] = rc[Z * s_rc + i] - ax;
+    }
 }
 
-__global__ void mf_gate_kernel(int n, const int* __restrict__ ok, double* __restrict__ x)
+__global__ void mf_gate_kernel(int n, const int* __restrict__ ok, double* __restrict__ x, int S,
+                               long long s_ok)
 {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n || ok[0]) return;
-    x[i] = __longlong_as_double(0x7ff8000000000000LL);
+    if (i >= n) return;
+    for (int z = blockIdx.y; z < S; z += gridDim.y) {
+        const size_t Z = static_cast<size_t>(z);
+        if (!ok[Z * s_ok]) x[Z * n + i] = __longlong_as_double(0x7ff8000000000000LL);
+    }
 }
+
+inline unsigned scen_rows(int S) { return S < 65535 ? S : 65535; }
 
 // Raise the dynamic shared memory of the kernels k1 (and k2) to bytes where
 // that is beyond what was set on this device before (the default, 48 KB
@@ -293,17 +355,18 @@ cudaError_t allow_shared(int bytes, K1 k1, K2 k2)
 
 }  // namespace
 
-// One sweep: x = sweep(rc) (accumulate = 0) or x += sweep(rc) (accumulate = 1).
-// levels: host (n_levels, L_COLS) table; groups, fronts: device tables.
-extern "C" int nxfx_mf_sweep(
-    int n_levels, const long long* levels, int n_core, int lam_len,
+namespace {
+
+int mf_sweep_launch(
+    int n_levels, const long long* levels, int n_core, int lam_len, int S,
     const long long* groups, const int* fronts,
-    const double* rc, const int* nodes_all, const int* bndpos_all,
+    long long s_rc, const double* rc, const int* nodes_all, const int* bndpos_all,
     const int* xadd_ptr, const int* xadd, const int* lam_pos,
-    const double* fac, double* vpools, double* ys, double* lam, double* x, int accumulate,
-    cudaStream_t stream)
+    long long s_fac, const double* fac, long long s_vp, double* vpools, double* ys, double* lam, double* x,
+    int accumulate, cudaStream_t stream)
 {
     cudaError_t err;
+    if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
     long long m_max = 0;
     for (int l = 0; l < n_levels; ++l) {
         const long long* lv = levels + static_cast<size_t>(l) * L_COLS;
@@ -314,7 +377,8 @@ extern "C" int nxfx_mf_sweep(
                             mf_backward_kernel)) != cudaSuccess)
         return static_cast<int>(err);
     SweepArgs a{n_core, lam_len, groups, fronts, rc, nodes_all, bndpos_all, xadd_ptr, xadd, fac,
-                vpools, ys, lam};
+                vpools, ys, lam, S, s_rc, s_fac, s_vp};
+    const unsigned ys_rows = scen_rows(S);
     for (int pass = 0; pass < 2; ++pass) {  // forward bottom-up, then backward top-down
         for (int i = 0; i < n_levels; ++i) {
             const long long* lv = levels + static_cast<size_t>(pass ? n_levels - 1 - i : i) * L_COLS;
@@ -322,13 +386,44 @@ extern "C" int nxfx_mf_sweep(
             const int threads = lv[L_WIDE] > 0 ? WIDE_THREADS : THREADS;
             const size_t shared = static_cast<size_t>(m) * sizeof(double);
             const int count = static_cast<int>(lv[L_COUNT]), start = static_cast<int>(lv[L_START]);
-            if (pass == 0) mf_forward_kernel<<<count, threads, shared, stream>>>(a, start);
-            else mf_backward_kernel<<<count, threads, shared, stream>>>(a, start);
+            if (pass == 0) mf_forward_kernel<<<dim3(count, ys_rows), threads, shared, stream>>>(a, start);
+            else mf_backward_kernel<<<dim3(count, ys_rows), threads, shared, stream>>>(a, start);
             if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
         }
     }
-    mf_gather_kernel<<<blocks_for(n_core), THREADS, 0, stream>>>(n_core, lam_pos, lam, accumulate, x);
+    mf_gather_kernel<<<dim3(blocks_for(n_core), ys_rows), THREADS, 0, stream>>>(n_core, lam_pos, lam, accumulate,
+                                                                               x, S, lam_len);
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One sweep: x = sweep(rc) (accumulate = 0) or x += sweep(rc) (accumulate = 1).
+// levels: host (n_levels, L_COLS) table; groups, fronts: device tables.
+extern "C" int nxfx_mf_sweep(
+    int n_levels, const long long* levels, int n_core, int lam_len,
+    const long long* groups, const int* fronts,
+    const double* rc, const int* nodes_all, const int* bndpos_all,
+    const int* xadd_ptr, const int* xadd, const int* lam_pos,
+    const double* fac, double* vpools, double* ys, double* lam, double* x, int accumulate,
+    cudaStream_t stream)
+{
+    return mf_sweep_launch(n_levels, levels, n_core, lam_len, 1, groups, fronts, 0, rc, nodes_all, bndpos_all,
+                           xadd_ptr, xadd, lam_pos, 0, fac, 0, vpools, ys, lam, x, accumulate, stream);
+}
+
+// The same sweep of S right-hand sides in its launches: rc rows s_rc apart,
+// the factor s_fac (0: one factor), vpools s_vp; ys, lam (S, lam_len), x (S, n).
+extern "C" int nxfx_mf_sweep_scen(
+    int n_levels, const long long* levels, int n_core, int lam_len, int S,
+    const long long* groups, const int* fronts,
+    long long s_rc, const double* rc, const int* nodes_all, const int* bndpos_all,
+    const int* xadd_ptr, const int* xadd, const int* lam_pos,
+    long long s_fac, const double* fac, long long s_vp, double* vpools, double* ys, double* lam, double* x,
+    int accumulate, cudaStream_t stream)
+{
+    return mf_sweep_launch(n_levels, levels, n_core, lam_len, S, groups, fronts, s_rc, rc, nodes_all, bndpos_all,
+                           xadd_ptr, xadd, lam_pos, s_fac, fac, s_vp, vpools, ys, lam, x, accumulate, stream);
 }
 
 extern "C" int nxfx_mf_terms(
@@ -336,7 +431,18 @@ extern "C" int nxfx_mf_terms(
     double* ti, double* tj, cudaStream_t stream)
 {
     if (P0 <= 0) return 0;
-    mf_terms_kernel<<<blocks_for(P0), THREADS, 0, stream>>>(P0, vals, pci, pcj, x, ti, tj);
+    mf_terms_kernel<<<blocks_for(P0), THREADS, 0, stream>>>(P0, vals, pci, pcj, x, ti, tj, 1, 0, 0);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// S scenarios: vals rows s_vals apart (0: shared), x (S, n), ti, tj (S, P0)
+extern "C" int nxfx_mf_terms_scen(
+    int P0, int n, int S, long long s_vals, const double* vals, const int* pci, const int* pcj,
+    const double* x, double* ti, double* tj, cudaStream_t stream)
+{
+    if (P0 <= 0 || S <= 0) return 0;
+    mf_terms_kernel<<<dim3(blocks_for(P0), scen_rows(S)), THREADS, 0, stream>>>(P0, vals, pci, pcj, x, ti, tj,
+                                                                               S, s_vals, n);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -347,13 +453,34 @@ extern "C" int nxfx_mf_residual(
 {
     if (n <= 0) return 0;
     mf_residual_kernel<<<blocks_for(n), THREADS, 0, stream>>>(
-        n, rc, dc, x, inv_i, n_i, si, inv_j, n_j, sj, r);
+        n, rc, dc, x, inv_i, n_i, si, inv_j, n_j, sj, r, 1, 0, 0);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// S scenarios: rc, dc rows s_rc, s_dc apart (0: shared), x and r (S, n),
+// si (S, n_i), sj (S, n_j)
+extern "C" int nxfx_mf_residual_scen(
+    int n, int S, long long s_rc, const double* rc, long long s_dc, const double* dc, const double* x,
+    const int* inv_i, int n_i, const double* si, const int* inv_j, int n_j, const double* sj,
+    double* r, cudaStream_t stream)
+{
+    if (n <= 0 || S <= 0) return 0;
+    mf_residual_kernel<<<dim3(blocks_for(n), scen_rows(S)), THREADS, 0, stream>>>(
+        n, rc, dc, x, inv_i, n_i, si, inv_j, n_j, sj, r, S, s_rc, s_dc);
     return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int nxfx_mf_gate(int n, const int* ok, double* x, cudaStream_t stream)
 {
     if (n <= 0) return 0;
-    mf_gate_kernel<<<blocks_for(n), THREADS, 0, stream>>>(n, ok, x);
+    mf_gate_kernel<<<blocks_for(n), THREADS, 0, stream>>>(n, ok, x, 1, 0);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// S scenarios: ok s_ok apart (0: one factor's), x (S, n)
+extern "C" int nxfx_mf_gate_scen(int n, int S, long long s_ok, const int* ok, double* x, cudaStream_t stream)
+{
+    if (n <= 0 || S <= 0) return 0;
+    mf_gate_kernel<<<dim3(blocks_for(n), scen_rows(S)), THREADS, 0, stream>>>(n, ok, x, S, s_ok);
     return static_cast<int>(cudaGetLastError());
 }

@@ -64,6 +64,14 @@
 // The factor buffer stays in device memory for the apply.  A buffer written
 // by one thread and read by another after a barrier carries no __restrict__
 // (with it the compiler may keep a value in a register across the barrier).
+//
+// S factors (a sweep's R batch on the tree route) take the launches of one:
+// every launch of the level schedule takes the scenario as its grid's y
+// (min(S, 65,535) rows walking the scenarios y, y + gridDim.y, ...; the wide
+// fronts' clusters stay along x), each scenario with its own stride into
+// the pair conductances, the peeled diagonal, vals, fac, the pools and ok.
+// The scenario only selects base pointers: each factor is the one-scenario
+// launch's bits.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -102,7 +110,23 @@ struct FactorArgs {
     double* fac;
     double* pools;                  // this factor's U pools, written
     int* ok;
+    int S;                          // scenarios (1: one factor)
+    long long s_dc, s_vals, s_pin, s_fac, s_pools, s_ok;  // their strides
 };
+
+// scenario z's arguments: each buffer its stride z further on
+__device__ __forceinline__ FactorArgs scenario(const FactorArgs& A, int z)
+{
+    const size_t Z = static_cast<size_t>(z);
+    FactorArgs a = A;
+    a.dc = A.dc + Z * A.s_dc;
+    a.vals = A.vals + Z * A.s_vals;
+    a.pools_in = A.pools_in + Z * A.s_pin;
+    a.fac = A.fac + Z * A.s_fac;
+    a.pools = A.pools + Z * A.s_pools;
+    a.ok = A.ok + Z * A.s_ok;
+    return a;
+}
 
 struct FrontRef {
     const long long* row;  // the group's row of the group table
@@ -132,15 +156,20 @@ inline int front_threads(int m)
 // offset of row i in a packed lower triangle
 __host__ __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
 
+// scenario z's w_pairs s_wp z further on, its vals P0 + 1, its ok 1
 __global__ void mf_values_kernel(
     int P0, const int* __restrict__ init_slot, const double* __restrict__ w_pairs,
-    double* __restrict__ vals, int* __restrict__ ok)
+    double* __restrict__ vals, int* __restrict__ ok, int S, long long s_wp)
 {
     const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p < P0) vals[p] = -w_pairs[init_slot[p]];
-    if (p == P0) {
-        vals[P0] = 0.0;
-        ok[0] = 1;
+    for (int z = blockIdx.y; z < S; z += gridDim.y) {
+        const size_t Z = static_cast<size_t>(z);
+        double* v = vals + Z * (P0 + 1);
+        if (p < P0) v[p] = -w_pairs[Z * s_wp + init_slot[p]];
+        if (p == P0) {
+            v[P0] = 0.0;
+            ok[Z] = 1;
+        }
     }
 }
 
@@ -352,18 +381,14 @@ __device__ void tile_update(At at, Load load, int m, int k0, int nb, int r_lo, i
 // packed in shared memory (row i at tri(i): the 16 rows of a half-warp's
 // column reads hit 16 distinct bank pairs)
 
-__global__ void __launch_bounds__(NARROW_THREADS, NARROW_BLOCKS) mf_front_kernel(FactorArgs a, int first)
+__device__ void narrow_front(const FactorArgs& a, int first, double* F, double* Ld, double* rinv, double* Z)
 {
-    extern __shared__ double F[];  // (tri(m),)
-    __shared__ double Ld[32 * 33];  // the panel's factored diagonal block
-    __shared__ double rinv[32];     // and its pivots' reciprocals
-    __shared__ double Z[32 * 33];   // and its inverse
     const FrontRef fr = front_ref(a, first + blockIdx.x);
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
     const int w = fr.w, b = fr.b, m = fr.m;
     double* out = a.fac + fr.row[G_FAC] + static_cast<size_t>(fr.p) * m * m;
 
-    assemble_front<8>(a, fr, 0, 1, [](int i, int j) -> double& { return F[tri(i) + j]; });
+    assemble_front<8>(a, fr, 0, 1, [F](int i, int j) -> double& { return F[tri(i) + j]; });
     if (a.assemble_only) {  // the assembled front is symmetric: its upper triangle mirrored
         for (int i = warp; i < m; i += n_warps)
             for (int j = lane; j < m; j += 32)
@@ -378,7 +403,7 @@ __global__ void __launch_bounds__(NARROW_THREADS, NARROW_BLOCKS) mf_front_kernel
         diag_factor(Ld, rinv, Z, nb);
         if (warp == 0)
             for (int c = 0; c <= lane && lane < nb; ++c) F[tri(k0 + lane) + k0 + c] = Ld[lane * 33 + c];
-        const auto at = [](int i, int j) { return F + tri(i) + j; };
+        const auto at = [F](int i, int j) { return F + tri(i) + j; };
         const auto load = [](const double* v) { return *v; };
         panel_rows(at, load, Z, m, k0, nb, k0 + nb, warp, n_warps);
         __syncthreads();
@@ -405,6 +430,18 @@ __global__ void __launch_bounds__(NARROW_THREADS, NARROW_BLOCKS) mf_front_kernel
             const int hi = i > j ? i : j, lo = i > j ? j : i;
             pool[static_cast<size_t>(i) * b + j] = F[tri(w + hi) + w + lo];
         }
+}
+
+__global__ void __launch_bounds__(NARROW_THREADS, NARROW_BLOCKS) mf_front_kernel(FactorArgs a0, int first)
+{
+    extern __shared__ double F[];  // (tri(m),)
+    __shared__ double Ld[32 * 33];  // the panel's factored diagonal block
+    __shared__ double rinv[32];     // and its pivots' reciprocals
+    __shared__ double Z[32 * 33];   // and its inverse
+    for (int z = blockIdx.y; z < a0.S; z += gridDim.y) {  // a block a scenario's front
+        narrow_front(scenario(a0, z), first, F, Ld, rinv, Z);
+        __syncthreads();
+    }
 }
 
 // ---- wide fronts (m > WIDE_M): a cluster of CLUSTER CTAs, the front in L2
@@ -441,14 +478,8 @@ __device__ void wide_panel(double* F, int m, int k0, int nb, double* Ld, double*
                static_cast<int>(blockDim.x >> 5));
 }
 
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(WIDE_THREADS)
-    mf_wide_kernel(FactorArgs a, int first)
+__device__ void wide_front(const FactorArgs& a, int first, int rank, double* Ld, double* rinv, double* Z)
 {
-    __shared__ double Ld[32 * 33];
-    __shared__ double rinv[32];
-    __shared__ double Z[32 * 33];
-    cg::cluster_group cluster = cg::this_cluster();
-    const int rank = static_cast<int>(cluster.block_rank());
     const FrontRef fr = front_ref(a, first + static_cast<int>(blockIdx.x) / CLUSTER);
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
     const int w = fr.w, b = fr.b, m = fr.m;
@@ -501,6 +532,20 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(WIDE_THREADS)
         }
 }
 
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(WIDE_THREADS)
+    mf_wide_kernel(FactorArgs a0, int first)
+{
+    __shared__ double Ld[32 * 33];
+    __shared__ double rinv[32];
+    __shared__ double Z[32 * 33];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = static_cast<int>(cluster.block_rank());
+    for (int z = blockIdx.y; z < a0.S; z += gridDim.y) {  // a cluster a scenario's front
+        wide_front(scenario(a0, z), first, rank, Ld, rinv, Z);
+        cluster_sync_all();
+    }
+}
+
 // Raise the dynamic shared memory of the kernels k1 (and k2) to bytes where
 // that is beyond what was set on this device before (the default, 48 KB
 // less the kernel's static shared memory, may be too little below 48 KB), so
@@ -524,17 +569,23 @@ cudaError_t allow_shared(int bytes, K1 k1, K2 k2)
 // levels: host (n_levels, L_COLS) table; groups, fronts: device tables.
 // assemble_only: write each front's assembled block into fac (children read
 // from pools_in) and stop.
-extern "C" int nxfx_mf_factor(
+namespace {
+
+int mf_factor_launch(
     int n_levels, const long long* levels, int n_core, int P0, int assemble_only,
     const long long* groups, const int* fronts,
     const int* init_slot, const double* w_pairs, const double* dc,
     const int* nodes_all, const int* cval_all, const int* ccol_all,
     const int* rel_all, const int* xadd_ptr, const int* xadd,
     const double* pools_in, double* vals, double* fac, double* pools, int* ok,
+    int S, long long s_wp, long long s_dc, long long s_fac, long long s_pools,
     cudaStream_t stream)
 {
     cudaError_t err;
-    mf_values_kernel<<<(P0 + 1 + 255) / 256, 256, 0, stream>>>(P0, init_slot, w_pairs, vals, ok);
+    if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned ys = S < 65535 ? S : 65535;
+    mf_values_kernel<<<dim3((P0 + 1 + 255) / 256, ys), 256, 0, stream>>>(P0, init_slot, w_pairs, vals, ok, S,
+                                                                          s_wp);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     long long narrow_max = 0;
     for (int l = 0; l < n_levels; ++l) {
@@ -546,22 +597,56 @@ extern "C" int nxfx_mf_factor(
         return static_cast<int>(err);
 
     FactorArgs a{n_core, assemble_only, groups, fronts, nodes_all, cval_all, ccol_all,
-                 rel_all, xadd_ptr, xadd, vals, dc, pools_in, fac, pools, ok};
+                 rel_all, xadd_ptr, xadd, vals, dc, pools_in, fac, pools, ok,
+                 S, s_dc, P0 + 1, s_pools, s_fac, s_pools, 1};
     for (int l = 0; l < n_levels; ++l) {
         const long long* lv = levels + static_cast<size_t>(l) * L_COLS;
         const int start = static_cast<int>(lv[L_START]);
         const int wide = static_cast<int>(lv[L_WIDE]);
         const int narrow = static_cast<int>(lv[L_COUNT]) - wide;
         if (wide > 0) {
-            mf_wide_kernel<<<wide * CLUSTER, WIDE_THREADS, 0, stream>>>(a, start);
+            mf_wide_kernel<<<dim3(wide * CLUSTER, ys), WIDE_THREADS, 0, stream>>>(a, start);
             if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
         }
         if (narrow > 0) {
             const int mn = static_cast<int>(lv[L_NARROW_M]);
             const size_t shared = static_cast<size_t>(tri(mn)) * sizeof(double);
-            mf_front_kernel<<<narrow, front_threads(mn), shared, stream>>>(a, start + wide);
+            mf_front_kernel<<<dim3(narrow, ys), front_threads(mn), shared, stream>>>(a, start + wide);
             if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
         }
     }
     return 0;
+}
+
+}  // namespace
+
+extern "C" int nxfx_mf_factor(
+    int n_levels, const long long* levels, int n_core, int P0, int assemble_only,
+    const long long* groups, const int* fronts,
+    const int* init_slot, const double* w_pairs, const double* dc,
+    const int* nodes_all, const int* cval_all, const int* ccol_all,
+    const int* rel_all, const int* xadd_ptr, const int* xadd,
+    const double* pools_in, double* vals, double* fac, double* pools, int* ok,
+    cudaStream_t stream)
+{
+    return mf_factor_launch(n_levels, levels, n_core, P0, assemble_only, groups, fronts, init_slot, w_pairs, dc,
+                            nodes_all, cval_all, ccol_all, rel_all, xadd_ptr, xadd, pools_in, vals, fac, pools, ok,
+                            1, 0, 0, 0, 0, stream);
+}
+
+// S factors in one factor's launches: w_pairs rows s_wp apart (0: shared),
+// dc rows s_dc apart (0: shared), vals (S, P0 + 1), fac (S, s_fac), pools
+// (S, s_pools), ok (S,).
+extern "C" int nxfx_mf_factor_scen(
+    int n_levels, const long long* levels, int n_core, int P0, int S,
+    const long long* groups, const int* fronts,
+    const int* init_slot, long long s_wp, const double* w_pairs, long long s_dc, const double* dc,
+    const int* nodes_all, const int* cval_all, const int* ccol_all,
+    const int* rel_all, const int* xadd_ptr, const int* xadd,
+    double* vals, long long s_fac, double* fac, long long s_pools, double* pools, int* ok,
+    cudaStream_t stream)
+{
+    return mf_factor_launch(n_levels, levels, n_core, P0, 0, groups, fronts, init_slot, w_pairs, dc,
+                            nodes_all, cval_all, ccol_all, rel_all, xadd_ptr, xadd, pools, vals, fac, pools, ok,
+                            S, s_wp, s_dc, s_fac, s_pools, stream);
 }

@@ -60,7 +60,19 @@
 // of blocks walking the scenarios y, y + gridDim.y, ...; W, g, the outputs a
 // row a scenario, Ftot and the boundary pressures at their own strides (0:
 // shared), each edge the one-scenario kernel's operations.  Its sums are
-// K6's nxfx_segsum_plan_scen; it has no |r| (the sweep drops it).
+// K6's nxfx_segsum_plan_scen; its |r| (a factorization's solve_batch reads
+// it; the sweep drops it) is one more launch, a block a scenario.
+//
+// The rounds over S scenarios (a sweep on the tree route, a tree
+// factorization's solve_batch) take the launches of one call: each launch
+// of the table takes the scenario as its grid's y (min(S, 65,535) rows of
+// blocks walking the scenarios y, y + gridDim.y, ...), a grid round so
+// becoming gridDim.x x S blocks and a block run S blocks of 1,024 threads,
+// one a scenario.  PeelArgs carries a stride per buffer (0: shared, as the
+// stored d channel of R_ONLY is): each scenario has its own system, working
+// copy, work buffer, saved planes, core gathers, core solution and lambda,
+// and the scenario only selects base pointers, so each row is the
+// one-scenario launch's bits.
 //
 // Bound: the rounds' dependent latency (a round is a few dependent gathers
 // and a division: ~0.8 us a round forward in a run, the grid launches
@@ -94,6 +106,8 @@ struct PeelArgs {
     double* sd;   // elimination (the d channel writes them), rb (the r
     double* sr;   // channel's), read back by the back pass
     double* fac;  // (B,) a child's factor w / d at its fold: D_ONLY writes, R_ONLY reads
+    int S;        // scenarios (1: one call's)
+    long long s_wp, s_dr, s_wk, s_work, s_dc, s_rc, s_x, s_lam, s_sw, s_sd, s_sr, s_fac;  // their strides
 };
 
 // a launch entry of the table (ops/peel_table.py), passed by value
@@ -165,22 +179,27 @@ __global__ void lambda_prepare_scen_kernel(
     }
 }
 
-// sqrt(sum r^2) over the rhs channel of dr, one block, fixed summation order
-__global__ void rhs_norm_kernel(int B, const double* __restrict__ dr, double* __restrict__ out)
+// sqrt(sum r^2) over the rhs channel of dr, one block a scenario (dr 2 B
+// apart), fixed summation order
+__global__ void rhs_norm_kernel(int B, int S, const double* dr0, double* out)
 {
     __shared__ double part[REDUCE_THREADS];
-    double s = 0.0;
-    for (int i = threadIdx.x; i < B; i += REDUCE_THREADS) {
-        const double r = dr[2 * i + 1];
-        s += r * r;
-    }
-    part[threadIdx.x] = s;
-    __syncthreads();
-    for (int stride = REDUCE_THREADS / 2; stride > 0; stride >>= 1) {
-        if (threadIdx.x < stride) part[threadIdx.x] += part[threadIdx.x + stride];
+    for (int z = blockIdx.y; z < S; z += gridDim.y) {
+        const double* dr = dr0 + 2 * static_cast<size_t>(z) * B;
+        double s = 0.0;
+        for (int i = threadIdx.x; i < B; i += REDUCE_THREADS) {
+            const double r = dr[2 * i + 1];
+            s += r * r;
+        }
+        part[threadIdx.x] = s;
+        __syncthreads();
+        for (int stride = REDUCE_THREADS / 2; stride > 0; stride >>= 1) {
+            if (threadIdx.x < stride) part[threadIdx.x] += part[threadIdx.x + stride];
+            __syncthreads();
+        }
+        if (threadIdx.x == 0) out[z] = sqrt(part[0]);
         __syncthreads();
     }
-    if (threadIdx.x == 0) out[0] = sqrt(part[0]);
 }
 
 
@@ -592,34 +611,74 @@ __device__ void run_back(const PeelArgs& A, const PeelEntry& e, double* smem)
     });
 }
 
-__global__ void __launch_bounds__(GRID_THREADS) peel_grid_forward_kernel(PeelArgs A, PeelEntry e, GridRound g)
+// scenario z's arguments: each buffer its stride z further on
+template <typename T>
+__device__ __forceinline__ T* at_scenario(T* p, long long stride, size_t z)
+{
+    return p == nullptr ? p : p + z * static_cast<size_t>(stride);
+}
+
+__device__ __forceinline__ PeelArgs scenario(const PeelArgs& A, int z)
+{
+    const size_t Z = static_cast<size_t>(z);
+    PeelArgs a = A;
+    a.w_pairs = at_scenario(A.w_pairs, A.s_wp, Z);
+    a.dr = at_scenario(A.dr, A.s_dr, Z);
+    a.wk = at_scenario(A.wk, A.s_wk, Z);
+    a.work = at_scenario(A.work, A.s_work, Z);
+    a.dc = at_scenario(A.dc, A.s_dc, Z);
+    a.rc = at_scenario(A.rc, A.s_rc, Z);
+    a.x = at_scenario(A.x, A.s_x, Z);
+    a.lam = at_scenario(A.lam, A.s_lam, Z);
+    a.sw = at_scenario(A.sw, A.s_sw, Z);
+    a.sd = at_scenario(A.sd, A.s_sd, Z);
+    a.sr = at_scenario(A.sr, A.s_sr, Z);
+    a.fac = at_scenario(A.fac, A.s_fac, Z);
+    return a;
+}
+
+__global__ void __launch_bounds__(GRID_THREADS) peel_grid_forward_kernel(PeelArgs A0, PeelEntry e, GridRound g)
 {
     const int tid = blockIdx.x * blockDim.x + threadIdx.x;
     const int nth = gridDim.x * blockDim.x;
-    if (e.kind == GRID) forward_phase(A, g, tid, nth);
-    if (e.duty) gather_duty(A, tid, nth);
+    for (int z = blockIdx.y; z < A0.S; z += gridDim.y) {
+        const PeelArgs A = scenario(A0, z);
+        if (e.kind == GRID) forward_phase(A, g, tid, nth);
+        if (e.duty) gather_duty(A, tid, nth);
+    }
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS) peel_block_forward_kernel(PeelArgs A, PeelEntry e)
+__global__ void __launch_bounds__(BLOCK_THREADS) peel_block_forward_kernel(PeelArgs A0, PeelEntry e)
 {
     extern __shared__ double smem[];
-    if (e.duty) gather_duty(A, threadIdx.x, blockDim.x);  // nodes the rounds never touch
-    run_forward(A, e, smem);
+    for (int z = blockIdx.y; z < A0.S; z += gridDim.y) {  // a block a scenario
+        const PeelArgs A = scenario(A0, z);
+        if (e.duty) gather_duty(A, threadIdx.x, blockDim.x);  // nodes the rounds never touch
+        run_forward(A, e, smem);
+        __syncthreads();
+    }
 }
 
-__global__ void __launch_bounds__(GRID_THREADS) peel_grid_back_kernel(PeelArgs A, PeelEntry e, GridRound g)
+__global__ void __launch_bounds__(GRID_THREADS) peel_grid_back_kernel(PeelArgs A0, PeelEntry e, GridRound g)
 {
     const int tid = blockIdx.x * blockDim.x + threadIdx.x;
     const int nth = gridDim.x * blockDim.x;
-    if (e.kind == GRID) back_round(A, g, tid, nth);
-    if (e.duty) scatter_duty(A, tid, nth);
+    for (int z = blockIdx.y; z < A0.S; z += gridDim.y) {
+        const PeelArgs A = scenario(A0, z);
+        if (e.kind == GRID) back_round(A, g, tid, nth);
+        if (e.duty) scatter_duty(A, tid, nth);
+    }
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS) peel_block_back_kernel(PeelArgs A, PeelEntry e)
+__global__ void __launch_bounds__(BLOCK_THREADS) peel_block_back_kernel(PeelArgs A0, PeelEntry e)
 {
     extern __shared__ double smem[];
-    run_back(A, e, smem);
-    if (e.duty) scatter_duty(A, threadIdx.x, blockDim.x);  // lambda at the core: nothing reads it here
+    for (int z = blockIdx.y; z < A0.S; z += gridDim.y) {  // a block a scenario
+        const PeelArgs A = scenario(A0, z);
+        run_back(A, e, smem);
+        if (e.duty) scatter_duty(A, threadIdx.x, blockDim.x);  // lambda at the core: nothing reads it here
+        __syncthreads();
+    }
 }
 
 // a kernel's dynamic shared memory above the default 48 KB
@@ -636,15 +695,17 @@ int run_entries(const PeelArgs& A, const int* host, int count, int at, Grid grid
                 cudaStream_t stream)
 {
     PeelArgs args = A;
+    if (args.S < 1) return -static_cast<int>(cudaErrorInvalidValue);
+    const unsigned ys = args.S < 65535 ? args.S : 65535;  // the scenarios: the grid's y
     cudaError_t err;
     for (int i = 0; i < count; ++i) {
         const PeelEntry e = entry_at(host + at + i * ENTRY_WORDS);
         if (e.kind == BLOCK) {
             if ((err = allow_smem(block, e.smem)) != cudaSuccess) return -static_cast<int>(err);
-            block<<<1, BLOCK_THREADS, e.smem, stream>>>(args, e);
+            block<<<dim3(1, ys), BLOCK_THREADS, e.smem, stream>>>(args, e);
         } else {
             const GridRound g = e.kind == GRID ? grid_round(host, e.first, e.level) : GridRound{};
-            grid<<<e.blocks, GRID_THREADS, 0, stream>>>(args, e, g);
+            grid<<<dim3(e.blocks, ys), GRID_THREADS, 0, stream>>>(args, e, g);
         }
         if ((err = cudaGetLastError()) != cudaSuccess) return -static_cast<int>(err);
     }
@@ -685,7 +746,15 @@ extern "C" int nxfx_lambda_prepare_scen(
 
 extern "C" int nxfx_rhs_norm(int B, const double* dr, double* out, cudaStream_t stream)
 {
-    rhs_norm_kernel<<<1, REDUCE_THREADS, 0, stream>>>(B, dr, out);
+    rhs_norm_kernel<<<1, REDUCE_THREADS, 0, stream>>>(B, 1, dr, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The norms of S scenarios' systems dr (S, B, 2) into out (S,), one launch.
+extern "C" int nxfx_rhs_norm_scen(int B, int S, const double* dr, double* out, cudaStream_t stream)
+{
+    if (S <= 0) return 0;
+    rhs_norm_kernel<<<dim3(1, S < 65535 ? S : 65535), REDUCE_THREADS, 0, stream>>>(B, S, dr, out);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,7 +27,11 @@
 // row sum is fold.cuh's, which K12a's rounds share).
 // Bound: the latency of a few dependent gathers; the launch count (one a
 // fold instead of one a level) and the host's per-call work are what move
-// the launch-bound chains K10 runs in.
+// the launch-bound chains K10 runs in.  nxfx_fold_scen folds S scenarios'
+// vectors (n C apart, their outputs rows C apart) in the same one launch,
+// the scenario the grid's y (min(S, 65,535) rows of blocks walking the
+// scenarios y, y + gridDim.y, ...): each scenario's sums are the
+// one-scenario launch's bits.
 //
 // nxfx_segsum_plan is one launch for all the sums of a route (a sum plan of
 // up to SUM_MAX_GROUPS groups, each a gather matrix over one value array):
@@ -67,18 +71,22 @@ struct SumPlanArgs {
 
 namespace {
 
-// out[s, c] = sum (K10's one-level fold)
+// out[s, c] = sum (K10's one-level fold); scenario z's vals sv z further
+// on, its out so z
 __global__ void segsum_kernel(
     int S, int K, int C, int n,
     const int* __restrict__ idx,
     const double* __restrict__ vals,
-    double* __restrict__ out)
+    double* __restrict__ out,
+    int Z, long long sv, long long so)
 {
     const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (t >= static_cast<long long>(S) * C) return;
     const int s = static_cast<int>(t / C);
     const int c = static_cast<int>(t % C);
-    out[t] = fold::row_sum(idx + static_cast<size_t>(s) * K, K, vals, n, C, c);
+    for (int z = blockIdx.y; z < Z; z += gridDim.y)
+        out[static_cast<size_t>(z) * so + t] =
+            fold::row_sum(idx + static_cast<size_t>(s) * K, K, vals + static_cast<size_t>(z) * sv, n, C, c);
 }
 
 constexpr int FOLD_MAX_LEVELS = 8;
@@ -128,13 +136,16 @@ __device__ double fold_row(const FoldLevels& F, int l, int r, int n, int C, cons
 
 __global__ void __launch_bounds__(FOLD_THREADS) fold_kernel(FoldLevels F, int L, int C, int n,
                                                             const double* __restrict__ vals,
-                                                            double* __restrict__ out)
+                                                            double* __restrict__ out,
+                                                            int Z, long long sv, long long so)
 {
     const long long wid = (static_cast<long long>(blockIdx.x) * FOLD_THREADS + threadIdx.x) >> 5;
     if (wid >= static_cast<long long>(F.rows[L - 1]) * C) return;  // warp-uniform
     const int g = static_cast<int>(wid / C), c = static_cast<int>(wid % C);
-    const double v = fold_row(F, L - 1, g, n, C, vals, c);
-    if ((threadIdx.x & 31) == 0) out[wid] = v;
+    for (int z = blockIdx.y; z < Z; z += gridDim.y) {
+        const double v = fold_row(F, L - 1, g, n, C, vals + static_cast<size_t>(z) * sv, c);
+        if ((threadIdx.x & 31) == 0) out[static_cast<size_t>(z) * so + wid] = v;
+    }
 }
 
 constexpr int SUM_THREADS = 256;
@@ -198,13 +209,34 @@ __global__ void __launch_bounds__(SUM_THREADS) segsum_plan_kernel(SumLaunch L)
 namespace {
 
 int launch_segsum(
-    int S, int K, int C, int n, const int* idx, const double* vals, double* out, cudaStream_t stream)
+    int S, int K, int C, int n, const int* idx, const double* vals, double* out, int Z, cudaStream_t stream)
 {
     const long long total = static_cast<long long>(S) * C;
     if (total <= 0) return 0;
     const int threads = 256;
     const int blocks = static_cast<int>((total + threads - 1) / threads);
-    segsum_kernel<<<blocks, threads, 0, stream>>>(S, K, C, n, idx, vals, out);
+    segsum_kernel<<<dim3(blocks, Z < 65535 ? Z : 65535), threads, 0, stream>>>(
+        S, K, C, n, idx, vals, out, Z, static_cast<long long>(n) * C, total);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K10 on Z scenarios' vals (Z, n, C) into out (Z, rows[L - 1], C)
+int launch_fold(int L, const int* const* idx, const int* rows, const int* K, int C, int n, int Z,
+                const double* vals, double* out, cudaStream_t stream)
+{
+    if (L < 1 || L > FOLD_MAX_LEVELS || Z < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (L == 1) return launch_segsum(rows[0], K[0], C, n, idx[0], vals, out, Z, stream);
+    FoldLevels F = {};
+    for (int l = 0; l < L; ++l) {
+        F.idx[l] = idx[l];
+        F.rows[l] = rows[l];
+        F.K[l] = K[l];
+    }
+    const long long warps = static_cast<long long>(rows[L - 1]) * C;
+    if (warps <= 0) return 0;
+    const long long blocks = (warps * 32 + FOLD_THREADS - 1) / FOLD_THREADS;
+    fold_kernel<<<dim3(static_cast<unsigned>(blocks), Z < 65535 ? Z : 65535), FOLD_THREADS, 0, stream>>>(
+        F, L, C, n, vals, out, Z, static_cast<long long>(n) * C, warps);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -216,19 +248,15 @@ extern "C" int nxfx_fold(
     int L, const int* const* idx, const int* rows, const int* K, int C, int n,
     const double* vals, double* out, cudaStream_t stream)
 {
-    if (L < 1 || L > FOLD_MAX_LEVELS) return static_cast<int>(cudaErrorInvalidValue);
-    if (L == 1) return launch_segsum(rows[0], K[0], C, n, idx[0], vals, out, stream);
-    FoldLevels F = {};
-    for (int l = 0; l < L; ++l) {
-        F.idx[l] = idx[l];
-        F.rows[l] = rows[l];
-        F.K[l] = K[l];
-    }
-    const long long warps = static_cast<long long>(rows[L - 1]) * C;
-    if (warps <= 0) return 0;
-    const long long blocks = (warps * 32 + FOLD_THREADS - 1) / FOLD_THREADS;
-    fold_kernel<<<static_cast<unsigned>(blocks), FOLD_THREADS, 0, stream>>>(F, L, C, n, vals, out);
-    return static_cast<int>(cudaGetLastError());
+    return launch_fold(L, idx, rows, K, C, n, 1, vals, out, stream);
+}
+
+// The same over S scenarios in one launch: vals (S, n, C), out (S, rows[L - 1], C).
+extern "C" int nxfx_fold_scen(
+    int L, const int* const* idx, const int* rows, const int* K, int C, int n, int S,
+    const double* vals, double* out, cudaStream_t stream)
+{
+    return launch_fold(L, idx, rows, K, C, n, S, vals, out, stream);
 }
 
 namespace {

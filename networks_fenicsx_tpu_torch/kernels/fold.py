@@ -19,6 +19,12 @@ read without a Python ``Stream`` object.
 
 :func:`fold_apply` launches for CUDA tensors and runs :func:`fold_apply_plain`,
 the reference's level loop with K6's plain sum, for CPU tensors.
+
+:func:`fold_apply_scenarios` folds S scenarios' vectors ``(S, n)`` or ``(S, n,
+C)`` in the same one launch (``nxfx_fold_scen``, the scenario its grid's y),
+row ``i`` :func:`fold_apply` of row ``i`` bit for bit (the multifrontal
+apply's refinement over S runs its two folds so); its plain version is
+:func:`fold_apply_plain` a row, stacked.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ import torch
 
 from . import build, segsum
 
-__all__ = ["FoldPlan", "fold_apply", "fold_apply_plain", "MAX_LEVELS"]
+__all__ = ["FoldPlan", "fold_apply", "fold_apply_plain", "MAX_LEVELS", "fold_apply_scenarios",
+           "fold_apply_scenarios_plain"]
 
 MAX_LEVELS = 8  # FOLD_MAX_LEVELS in csrc/segsum.cu: segments of up to 64^8 entries
 
@@ -149,3 +156,48 @@ def _launch(plan: FoldPlan, C: int, n: int, vec, out, index: int) -> int:
 
 
 fold_apply.launches = 0
+
+
+def _scenario_shape(vec: torch.Tensor) -> tuple:
+    """``(S, n, C)`` of a scenario fold's ``vec``, or raise."""
+    if vec.dim() not in (2, 3) or vec.shape[0] < 1:
+        raise ValueError("fold_apply_scenarios: vec must be (S, n) or (S, n, C), S >= 1")
+    return int(vec.shape[0]), int(vec.shape[1]), int(vec.shape[2]) if vec.dim() == 3 else 1
+
+
+def fold_apply_scenarios_plain(vec: torch.Tensor, levels) -> torch.Tensor:
+    """Eager version of :func:`fold_apply_scenarios`: :func:`fold_apply_plain`
+    a scenario, stacked."""
+    S, _, _ = _scenario_shape(vec)
+    return torch.stack([fold_apply_plain(vec[i], levels) for i in range(S)])
+
+
+def fold_apply_scenarios(vec: torch.Tensor, plan) -> torch.Tensor:
+    """K10 over S scenarios on ``vec``'s device, one launch: ``vec (S, n)``
+    or ``(S, n, C)``; returns ``(S, plan.rows) + vec.shape[2:]``, row ``i``
+    :func:`fold_apply` of ``vec[i]`` bit for bit.  On CUDA ``plan`` is a
+    :class:`FoldPlan` on ``vec``'s device."""
+    if vec.device.type == "cpu":
+        return fold_apply_scenarios_plain(vec, plan)
+    name = "fold_apply_scenarios"
+    if type(plan) is not FoldPlan:
+        raise TypeError(f"{name}: a CUDA fold takes a FoldPlan")
+    S, n, C = _scenario_shape(vec)
+    if (not vec.is_cuda or vec.get_device() != plan.index or vec.dtype is not torch.float64
+            or not vec.is_contiguous()):
+        raise ValueError(f"{name}: vec must be contiguous float64 on the plan's CUDA device")
+    if n < plan.src_max:
+        raise ValueError(f"{name}: the plan reads row {plan.src_max} of a {n}-row vec")
+    out = vec.new_empty((S, plan.rows) + tuple(vec.shape[2:]))
+    if plan.rows * C == 0:
+        return out
+    index = plan.index
+    code = build.on_device(index, build.library().nxfx_fold_scen, plan.n_levels, plan._ptrs,
+                           plan._rows, plan._widths, C, n, S, vec.data_ptr(), out.data_ptr(),
+                           build.raw_stream(index))
+    build.check(code, name)
+    fold_apply_scenarios.launches += 1
+    return out
+
+
+fold_apply_scenarios.launches = 0

@@ -22,6 +22,16 @@ the kernels do.
 
 Both wrappers count on :data:`LAUNCHES`: ``launches`` a call, ``device`` the
 kernels its launchers enqueued, as they report them.
+
+A sweep on the level route runs S scenarios in the launches of one call,
+:func:`level_eliminate_scenarios`: the prepare pass over S rows of the edge
+data of :func:`.edge_data.edge_data_scenarios`, K6's three sums over S
+(:func:`.segsum.segsum_plan_scenarios`), then the same schedule with the
+scenario as every launch's grid y (a walk row S blocks, one a scenario, each
+with its own ``d, r, wn, λ`` rows); both channels run for every scenario.
+Row ``i`` is :func:`level_eliminate` of row ``i`` bit for bit; the plain
+version is :func:`level_eliminate_plain` a row, stacked.  It counts on its own
+``launches`` and ``device``.
 """
 
 from __future__ import annotations
@@ -38,7 +48,8 @@ from . import build, segsum
 __all__ = [
     "level_eliminate", "level_eliminate_plain", "level_eliminate_system",
     "level_eliminate_system_plain", "level_walk_plain", "walk_schedule", "cuda_launches",
-    "LevelWalk", "WALK_MAX", "WALK", "GRID", "LAUNCHES",
+    "LevelWalk", "WALK_MAX", "WALK", "GRID", "LAUNCHES", "level_eliminate_scenarios",
+    "level_eliminate_scenarios_plain",
 ]
 
 LAUNCHES = build.Counter("level_eliminate")
@@ -286,11 +297,11 @@ def _empty(dev):
     return torch.empty(0, dtype=torch.float64, device=dev), torch.zeros((), dtype=torch.float64, device=dev)
 
 
-def _count(enqueued: int) -> None:
+def _count(enqueued: int, counter=None) -> None:
     """Count a launcher's kernels (minus a CUDA error when negative)."""
     if enqueued < 0:
         build.check(-enqueued, "level_eliminate")
-    LAUNCHES.device += enqueued
+    (counter or LAUNCHES).device += enqueued
 
 
 def level_eliminate_system(dlp: DeviceLevelPlan, dr: torch.Tensor, w_pairs: torch.Tensor):
@@ -354,3 +365,82 @@ def level_eliminate(dlp: DeviceLevelPlan, ed: _EdgeData):
         ))
     LAUNCHES.launches += 1
     return lam, rhs_norm
+
+
+def _scenario_count(name: str, dlp: DeviceLevelPlan, ed: _EdgeData) -> int:
+    """The scenario count of a sweep's edge data, or raise: ``W``, ``g``
+    ``(S, E)``, ``cumF`` ``(S, ·, E)``, the boundary pressures ``(S, E)`` or
+    shared ``(E,)``."""
+    E = dlp.num_edges
+    if ed.W.dim() != 2 or ed.W.shape[1] != E or ed.W.shape[0] < 1:
+        raise ValueError(f"{name}: the edge data must be a sweep's, W (S, E)")
+    S = int(ed.W.shape[0])
+    if (tuple(ed.g.shape) != (S, E) or ed.cumF.dim() != 3 or ed.cumF.shape[0] != S
+            or ed.cumF.shape[2] != E):
+        raise ValueError(f"{name}: g must be (S, E) and cumF (S, ·, E)")
+    build.scenarios(name, (ed.start_pbc, (E,)), (ed.end_pbc, (E,)), S=S)
+    return S
+
+
+def level_eliminate_scenarios_plain(dlp: DeviceLevelPlan, ed: _EdgeData):
+    """Eager version of :func:`level_eliminate_scenarios`:
+    :func:`level_eliminate_plain` a scenario, stacked ``(λ (S, B), ‖rhs‖ (S,))``."""
+    from ..edge_data import scenario_row
+
+    S = _scenario_count("level_eliminate_scenarios", dlp, ed)
+    rows = [level_eliminate_plain(dlp, scenario_row(ed, i)) for i in range(S)]
+    return torch.stack([r[0] for r in rows]), torch.stack([r[1] for r in rows])
+
+
+def level_eliminate_scenarios(dlp: DeviceLevelPlan, ed: _EdgeData):
+    """K7 (with its K6 sums) of S scenarios on the edge data's device, in the
+    launches of one :func:`level_eliminate` call: ``ed`` a sweep's edge data
+    (:func:`.edge_data.edge_data_scenarios`, a leading S); returns ``(λ (S,
+    B), ‖rhs‖ (S,))``, row ``i`` :func:`level_eliminate` of row ``i`` bit for
+    bit."""
+    if ed.W.device.type == "cpu":
+        return level_eliminate_scenarios_plain(dlp, ed)
+    name = "level_eliminate_scenarios"
+    S = _scenario_count(name, dlp, ed)
+    Ftot = ed.cumF[:, -1]
+    build.require_cuda(name, ed.W, ed.g, ed.start_pbc, ed.end_pbc)
+    build.require_cuda(name, Ftot, contiguous=False)
+    build.require_cuda(name, dlp.start_bif, dlp.end_bif, dtype=torch.int32)
+    if Ftot.stride(1) != 1:
+        raise ValueError(f"{name}: cumF's rows must be contiguous")
+    E, B = dlp.num_edges, dlp.num_bifurcations
+    dev, dt = ed.W.device, torch.float64
+    args = dlp.walk.address(dev)
+    if B == 0:
+        return (torch.empty((S, 0), dtype=dt, device=dev),
+                torch.zeros(S, dtype=dt, device=dev))
+    w_edges = torch.empty((S, E), dtype=dt, device=dev)
+    vt = torch.empty((S, E, 2), dtype=dt, device=dev)
+    vs = torch.empty((S, E, 2), dtype=dt, device=dev)
+    lib = build.library()
+    stream = build.stream_handle(dev)
+    counter = level_eliminate_scenarios
+    with torch.cuda.device(dev):
+        _count(lib.nxfx_level_prepare_scen(
+            E, S, Ftot.stride(0), build.scenario_stride(ed.start_pbc, (E,)),
+            build.scenario_stride(ed.end_pbc, (E,)), ed.W.data_ptr(), ed.g.data_ptr(),
+            Ftot.data_ptr(), ed.start_pbc.data_ptr(), ed.end_pbc.data_ptr(),
+            dlp.start_bif.data_ptr(), dlp.end_bif.data_ptr(), w_edges.data_ptr(), vt.data_ptr(),
+            vs.data_ptr(), stream,
+        ), counter)
+    w_pairs, dt_t, dt_s = segsum.segsum_plan_scenarios(dlp.sums, w_edges, vt, vs)
+    scratch = torch.empty((4, S, B), dtype=dt, device=dev)  # d, r, wn, permuted λ a scenario
+    lam = torch.empty((S, B), dtype=dt, device=dev)
+    rhs_norm = torch.empty(S, dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        _count(lib.nxfx_level_eliminate_scen(
+            args, S, dlp.num_pairs, w_pairs.data_ptr(), dt_t.data_ptr(), dt_s.data_ptr(),
+            *(scratch[j].data_ptr() for j in range(4)), lam.data_ptr(), rhs_norm.data_ptr(),
+            stream,
+        ), counter)
+    level_eliminate_scenarios.launches += 1
+    return lam, rhs_norm
+
+
+level_eliminate_scenarios.launches = 0
+level_eliminate_scenarios.device = 0  # kernels enqueued (the launchers report them)

@@ -17,6 +17,13 @@ call of a forward launch per level of the plan's
 level, top-down, and a gather; per refinement pass, a terms pass, two K10
 folds and a residual pass: :func:`cuda_launches`) and runs
 :func:`mf_apply_plain` for CPU tensors.
+
+:func:`mf_apply_scenarios` solves S right-hand sides ``rc (S, n)`` in the
+launches of one apply (every launch with the scenario as its grid's y, the
+refinement's folds :func:`.fold.fold_apply_scenarios`), on S factors of
+:func:`.mf_factor.mf_factor_scenarios` or on one factor read at stride 0;
+row ``i`` is :func:`mf_apply` of its factor and ``rc[i]`` bit for bit.  Its
+plain version is :func:`mf_apply_plain` a row, stacked.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from . import build, fold
 from .core_fronts import fold_launches
 from .mf_factor import MFState, _child_pool, _child_rel, group_views
 
-__all__ = ["mf_apply", "mf_apply_plain", "cuda_launches", "sweep_rhs_plain"]
+__all__ = ["mf_apply", "mf_apply_plain", "cuda_launches", "sweep_rhs_plain",
+           "mf_apply_scenarios", "mf_apply_scenarios_plain"]
 
 
 def cuda_launches(dmf: DeviceMFPlan) -> int:
@@ -192,3 +200,94 @@ def mf_apply(dmf: DeviceMFPlan, state: MFState, rc: torch.Tensor) -> torch.Tenso
 
 
 mf_apply.launches = 0
+
+
+def _scenario_state(name: str, dmf: DeviceMFPlan, state: MFState, rc: torch.Tensor) -> tuple:
+    """``(S, shared)`` of an apply over S: ``rc (S, n)``, the state one
+    factor's (shared) or S factors' (a leading S), or raise."""
+    n = dmf.plan.n_core
+    if rc.dim() != 2 or rc.shape[1] != n or rc.shape[0] < 1:
+        raise ValueError(f"{name}: rc must be (S, n_core), S >= 1")
+    S = int(rc.shape[0])
+    shared = state.fac.dim() == 1
+    want = (() if shared else (S,))
+    if (tuple(state.fac.shape) != want + (dmf.fac_len,) or tuple(state.dc.shape) != want + (n,)
+            or tuple(state.ok.shape) != want or state.vals.shape[-1] != dmf.plan.n_pairs + 1):
+        raise ValueError(f"{name}: the state must be one factor of this plan or S of them")
+    return S, shared
+
+
+def mf_apply_scenarios_plain(dmf: DeviceMFPlan, state: MFState, rc: torch.Tensor) -> torch.Tensor:
+    """Eager version of :func:`mf_apply_scenarios`: :func:`mf_apply_plain` a
+    scenario (on its factor), stacked."""
+    S, shared = _scenario_state("mf_apply_scenarios", dmf, state, rc)
+    return torch.stack([mf_apply_plain(dmf, state if shared else MFState(*(t[i] for t in state)),
+                                       rc[i]) for i in range(S)])
+
+
+def mf_apply_scenarios(dmf: DeviceMFPlan, state: MFState, rc: torch.Tensor) -> torch.Tensor:
+    """K15 over S right-hand sides on ``rc``'s device in the launches of one
+    :func:`mf_apply`: ``rc (S, n_core)``, ``state`` S factors
+    (:func:`.mf_factor.mf_factor_scenarios`) or one (:func:`.mf_factor.mf_factor`,
+    read at stride 0).  Returns ``x (S, n_core)``, row ``i`` :func:`mf_apply`
+    of its factor and ``rc[i]`` bit for bit."""
+    if rc.device.type == "cpu":
+        return mf_apply_scenarios_plain(dmf, state, rc)
+    name = "mf_apply_scenarios"
+    S, shared = _scenario_state(name, dmf, state, rc)
+    build.require_cuda(name, rc, state.fac, state.pools, state.vals)
+    build.require_cuda(name, state.dc, contiguous=False)
+    build.require_cuda(name, state.ok, dtype=torch.int32)
+    build.require_cuda(
+        name, dmf.nodes_all, dmf.bndpos_all, dmf.xadd_ptr, dmf.xadd, dmf.fronts,
+        dmf.lam_pos, dmf.pci, dmf.pcj, dmf.mv_inv_i, dmf.mv_inv_j, dtype=torch.int32,
+    )
+    build.require_cuda(name, dmf.groups_dev, dtype=torch.int64)
+    plan = dmf.plan
+    n, P0 = plan.n_core, plan.n_pairs
+    s_dc = 0 if shared else state.dc.stride(0)
+    if state.dc.stride(-1) != 1:
+        raise ValueError(f"{name}: the state's dc rows must be contiguous")
+    dev, dt = rc.device, torch.float64
+    lib = build.library()
+    stream = build.stream_handle(dev)
+    sched = dmf.schedule
+    vl = max(dmf.vpool_len, 1)
+    ys = torch.empty((S, plan.lam_len), dtype=dt, device=dev)
+    lam = torch.empty((S, plan.lam_len), dtype=dt, device=dev)
+    vpools = torch.empty((S, vl), dtype=dt, device=dev)
+    x = torch.empty((S, n), dtype=dt, device=dev)
+    r = torch.empty((S, n), dtype=dt, device=dev)
+    ti = torch.empty((S, P0), dtype=dt, device=dev)
+    tj = torch.empty((S, P0), dtype=dt, device=dev)
+
+    def run(fn, *args):
+        with torch.cuda.device(dev):
+            code = fn(*args)
+        build.check(code, name)
+
+    def sweep(rhs, accumulate):
+        run(lib.nxfx_mf_sweep_scen, sched.n_levels, sched.levels.ctypes.data, n, plan.lam_len, S,
+            dmf.groups_dev.data_ptr(), dmf.fronts.data_ptr(), n, rhs.data_ptr(),
+            dmf.nodes_all.data_ptr(), dmf.bndpos_all.data_ptr(), dmf.xadd_ptr.data_ptr(),
+            dmf.xadd.data_ptr(), dmf.lam_pos.data_ptr(), 0 if shared else dmf.fac_len,
+            state.fac.data_ptr(), vl, vpools.data_ptr(), ys.data_ptr(), lam.data_ptr(),
+            x.data_ptr(), int(accumulate), stream)
+
+    sweep(rc, False)
+    for _ in range(plan.n_refine):
+        run(lib.nxfx_mf_terms_scen, P0, n, S, 0 if shared else state.vals.shape[-1],
+            state.vals.data_ptr(), dmf.pci.data_ptr(), dmf.pcj.data_ptr(), x.data_ptr(),
+            ti.data_ptr(), tj.data_ptr(), stream)
+        si = fold.fold_apply_scenarios(ti, dmf.mv_fold_i)
+        sj = fold.fold_apply_scenarios(tj, dmf.mv_fold_j)
+        run(lib.nxfx_mf_residual_scen, n, S, n, rc.data_ptr(), s_dc, state.dc.data_ptr(),
+            x.data_ptr(), dmf.mv_inv_i.data_ptr(), si.shape[1], si.data_ptr(),
+            dmf.mv_inv_j.data_ptr(), sj.shape[1], sj.data_ptr(), r.data_ptr(), stream)
+        sweep(r, True)
+    run(lib.nxfx_mf_gate_scen, n, S, 0 if shared else 1, state.ok.data_ptr(), x.data_ptr(), stream)
+    mf_apply_scenarios.launches += 1
+    return x
+
+
+mf_apply_scenarios.launches = 0

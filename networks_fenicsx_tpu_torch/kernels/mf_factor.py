@@ -27,6 +27,13 @@ runs :func:`mf_factor_plain` for CPU tensors.  :func:`assemble_fronts`
 writes the assembled fronts alone (the kernels' extend-add through ``rel``),
 :func:`assemble_fronts_plain` the same by the reference's gather through
 ``lminv`` (``rel=True``: by a scatter through ``rel``).
+
+:func:`mf_factor_scenarios` makes S factors in the launches of one (every
+launch of the schedule with the scenario as its grid's y): ``dc (S, n)``
+and ``w_pairs (S, P)`` (either may be shared, one row), an :class:`MFState`
+whose entries carry a leading S, row ``i`` :func:`mf_factor` of row ``i`` bit
+for bit; its plain version is :func:`mf_factor_plain` a row, stacked.
+:func:`scenario_chunk` bounds the factors a sweep holds at once.
 """
 
 from __future__ import annotations
@@ -40,10 +47,12 @@ from ..ops.multifrontal import (
     DeviceMFPlan,
 )
 from . import build
+from .dense_core import MAX_SCENARIOS, SCENARIO_BUDGET
 
 __all__ = [
     "MFState", "assemble_fronts", "assemble_fronts_plain", "cuda_launches", "front_factor_plain",
-    "group_views", "mf_factor", "mf_factor_plain",
+    "group_views", "mf_factor", "mf_factor_plain", "mf_factor_scenarios", "mf_factor_scenarios_plain",
+    "scenario_chunk",
 ]
 
 
@@ -254,3 +263,76 @@ def assemble_fronts(dmf: DeviceMFPlan, dc: torch.Tensor, w_pairs: torch.Tensor,
 
 
 assemble_fronts.launches = 0
+
+
+def scenario_chunk(dmf: DeviceMFPlan, budget: int = SCENARIO_BUDGET) -> int:
+    """Factors a chunk of a sweep's R batch holds: a factor's buffer, its U
+    pools and its apply's v pools (8 bytes each of ``fac_len + pool_len +
+    vpool_len``) as many times as ``budget`` holds, at least 1 and at most
+    :data:`MAX_SCENARIOS` (36 on the 100k web, 134 on the perfusion bed)."""
+    per = 8 * max(dmf.fac_len + dmf.pool_len + dmf.vpool_len, 1)
+    return max(1, min(MAX_SCENARIOS, budget // per))
+
+
+def _scenario_inputs(name: str, dmf: DeviceMFPlan, dc, w_pairs) -> int:
+    """The scenario count of a factor call over S (``dc`` (S, n) or (n,),
+    ``w_pairs`` (S, P) or (P,)), or raise."""
+    S = build.scenarios(name, (dc, (dmf.plan.n_core,)), (w_pairs, (w_pairs.shape[-1],)))
+    if S > MAX_SCENARIOS:
+        raise ValueError(f"{name}: at most {MAX_SCENARIOS} scenarios a call, got {S}")
+    return S
+
+
+def mf_factor_scenarios_plain(dmf: DeviceMFPlan, dc: torch.Tensor, w_pairs: torch.Tensor) -> MFState:
+    """Eager version of :func:`mf_factor_scenarios`: :func:`mf_factor_plain` a
+    scenario, stacked."""
+    S = _scenario_inputs("mf_factor_scenarios", dmf, dc, w_pairs)
+    n, P = dmf.plan.n_core, w_pairs.shape[-1]
+    rows = [mf_factor_plain(dmf, build.scenario_row(dc, (n,), i),
+                            build.scenario_row(w_pairs, (P,), i)) for i in range(S)]
+    return MFState(*(torch.stack(t) for t in zip(*rows)))
+
+
+def mf_factor_scenarios(dmf: DeviceMFPlan, dc: torch.Tensor, w_pairs: torch.Tensor) -> MFState:
+    """K13 + K14 of S cores on ``dc``'s device in the launches of one
+    :func:`mf_factor`: ``dc (S, n_core)`` the peeled diagonals and ``w_pairs
+    (S, P)`` the pair conductances (either shared as one row).  Returns an
+    :class:`MFState` with a leading S on ``fac``, ``pools``, ``vals``, ``ok``
+    and ``dc``; row ``i`` is :func:`mf_factor` of row ``i`` bit for bit."""
+    if dc.device.type == "cpu":
+        return mf_factor_scenarios_plain(dmf, dc, w_pairs)
+    name = "mf_factor_scenarios"
+    S = _scenario_inputs(name, dmf, dc, w_pairs)
+    build.require_cuda(name, dc, w_pairs)
+    build.require_cuda(
+        name, dmf.init_slot, dmf.nodes_all, dmf.cval_all, dmf.ccol_all, dmf.rel_all,
+        dmf.xadd_ptr, dmf.xadd, dmf.fronts, dtype=torch.int32,
+    )
+    build.require_cuda(name, dmf.groups_dev, dtype=torch.int64)
+    plan = dmf.plan
+    n, P0, P = plan.n_core, plan.n_pairs, w_pairs.shape[-1]
+    dev, dt = dc.device, torch.float64
+    vals = torch.empty((S, P0 + 1), dtype=dt, device=dev)
+    fac = torch.empty((S, dmf.fac_len), dtype=dt, device=dev)
+    pl = max(dmf.pool_len, 1)
+    pools = torch.empty((S, pl), dtype=dt, device=dev)
+    ok = torch.empty(S, dtype=torch.int32, device=dev)
+    sched = dmf.schedule
+    with torch.cuda.device(dev):
+        code = build.library().nxfx_mf_factor_scen(
+            sched.n_levels, sched.levels.ctypes.data, n, P0, S,
+            dmf.groups_dev.data_ptr(), dmf.fronts.data_ptr(), dmf.init_slot.data_ptr(),
+            build.scenario_stride(w_pairs, (P,)), w_pairs.data_ptr(),
+            build.scenario_stride(dc, (n,)), dc.data_ptr(),
+            dmf.nodes_all.data_ptr(), dmf.cval_all.data_ptr(), dmf.ccol_all.data_ptr(),
+            dmf.rel_all.data_ptr(), dmf.xadd_ptr.data_ptr(), dmf.xadd.data_ptr(),
+            vals.data_ptr(), dmf.fac_len, fac.data_ptr(), pl, pools.data_ptr(), ok.data_ptr(),
+            build.stream_handle(dev),
+        )
+    build.check(code, name)
+    mf_factor_scenarios.launches += 1
+    dc_rows = dc if dc.dim() == 2 else dc[None].expand(S, n)
+    return MFState(fac, pools[:, : dmf.pool_len], vals, ok, dc_rows)
+
+
+mf_factor_scenarios.launches = 0

@@ -71,7 +71,8 @@ __all__ = ["CUT", "cuda_launches", "lambda_system", "lambda_system_plain", "lamb
            "peel_plain", "peel_table_plain", "PeelFactor", "peel_factor", "peel_factor_plain",
            "peel_factor_table_plain", "peel_apply", "peel_apply_plain", "peel_apply_table_plain",
            "factor_launches", "bifurcation_system_scenarios",
-           "bifurcation_system_scenarios_plain"]
+           "bifurcation_system_scenarios_plain", "peel_scenarios", "peel_scenarios_plain",
+           "peel_apply_scenarios", "peel_apply_scenarios_plain"]
 
 CUT = 1024  # the narrowest round a grid launch takes; narrower runs are one block
 
@@ -162,14 +163,15 @@ def bifurcation_system(dtp, W, g=None, Ftot=None, start_pbc=None, end_pbc=None, 
 bifurcation_system.launches = 0
 
 
-def bifurcation_system_scenarios_plain(dtp, W, g, Ftot, start_pbc, end_pbc):
+def bifurcation_system_scenarios_plain(dtp, W, g, Ftot, start_pbc, end_pbc, norm: bool = False):
     """Eager version of :func:`bifurcation_system_scenarios`:
-    :func:`bifurcation_system_plain` a scenario, stacked ``(dr, w)``."""
+    :func:`bifurcation_system_plain` a scenario, stacked ``(dr, w)`` (and
+    ``‖rhs‖`` with ``norm``)."""
     S, E = _system_shapes(dtp, W, g, Ftot, start_pbc, end_pbc)
     rows = []
     for i in range(S):
         sp, ep = (build.scenario_row(t, (E,), i) for t in (start_pbc, end_pbc))
-        rows.append(bifurcation_system_plain(dtp, W[i], g[i], Ftot[i], sp, ep)[:2])
+        rows.append(bifurcation_system_plain(dtp, W[i], g[i], Ftot[i], sp, ep)[:3 if norm else 2])
     return tuple(torch.stack(t) for t in zip(*rows))
 
 
@@ -185,14 +187,15 @@ def _system_shapes(dtp, W, g, Ftot, start_pbc, end_pbc) -> tuple:
     return S, E
 
 
-def bifurcation_system_scenarios(dtp, W, g, Ftot, start_pbc, end_pbc):
+def bifurcation_system_scenarios(dtp, W, g, Ftot, start_pbc, end_pbc, norm: bool = False):
     """The bifurcation systems of S scenarios on ``W``'s device, in two
     launches (the prepare kernel over S rows, K6 over S rows): ``W``, ``g``
     ``(S, E)``, ``Ftot`` ``(S, E)`` with contiguous rows (a sweep passes
     ``cumF[:, -1]``), ``start_pbc`` and ``end_pbc`` ``(S, E)`` or shared
-    ``(E,)``.  Returns ``(dr (S, B, 2), w (S, E))``; no ``‖rhs‖``."""
+    ``(E,)``.  Returns ``(dr (S, B, 2), w (S, E))``; with ``norm`` also
+    ``‖rhs‖ (S,)`` (one more launch, a block a scenario)."""
     if W.device.type == "cpu":
-        return bifurcation_system_scenarios_plain(dtp, W, g, Ftot, start_pbc, end_pbc)
+        return bifurcation_system_scenarios_plain(dtp, W, g, Ftot, start_pbc, end_pbc, norm)
     name = "bifurcation_system_scenarios"
     S, E = _system_shapes(dtp, W, g, Ftot, start_pbc, end_pbc)
     build.require_cuda(name, W, g, start_pbc, end_pbc)
@@ -213,7 +216,14 @@ def bifurcation_system_scenarios(dtp, W, g, Ftot, start_pbc, end_pbc):
     build.check(code, name)
     bifurcation_system_scenarios.launches += 1
     dr, = segsum.segsum_plan_scenarios(dtp.lambda_sums, vt, vs)
-    return dr, w_edges
+    if not norm:
+        return dr, w_edges
+    rhs_norm = torch.empty(S, dtype=dt, device=dev)
+    with torch.cuda.device(dev):
+        code = build.library().nxfx_rhs_norm_scen(dtp.num_bifurcations, S, dr.data_ptr(),
+                                                  rhs_norm.data_ptr(), build.stream_handle(dev))
+    build.check(code, name)
+    return dr, w_edges, rhs_norm
 
 
 bifurcation_system_scenarios.launches = 0
@@ -230,8 +240,8 @@ def lambda_system(dtp, ed: _EdgeData):
 lambda_system.launches = 0
 
 
-def peel_plain(dtp, dr: torch.Tensor, w_pairs: torch.Tensor, solve_core: CoreSolve):
-    """Eager version: returns ``λ (B,)``; ``dr`` is not modified."""
+def _forward_plain(dtp, dr: torch.Tensor, w_pairs: torch.Tensor):
+    """The rounds forward of :func:`peel_plain`: ``(d, r, saved)``."""
     dt, dev = torch.float64, dr.device
     d = dr[:, 0].clone()
     r = dr[:, 1].clone()
@@ -254,14 +264,28 @@ def peel_plain(dtp, dr: torch.Tensor, w_pairs: torch.Tensor, solve_core: CoreSol
             d[up] = d[up] + s[:, 0]
             r[up] = r[up] + s[:, 1]
         saved.append((e, par, has_par, w, db, rb))
-    lam = torch.zeros(dtp.num_bifurcations, dtype=dt, device=dev)
+    return d, r, saved
+
+
+def _back_plain(dtp, saved, x, dev) -> torch.Tensor:
+    """The core's solution ``x`` (None without a core) into λ and the rounds
+    back (:func:`peel_plain`'s and :func:`peel_apply_plain`'s)."""
+    lam = torch.zeros(dtp.num_bifurcations, dtype=torch.float64, device=dev)
     cn = dtp.core_nodes.long()
     if cn.shape[0]:
-        lam[cn] = solve_core(d[cn], r[cn])
+        lam[cn] = x
     for e, par, has_par, w, db, rb in reversed(saved):
         lam_par = torch.where(has_par, lam[torch.clamp(par, min=0)], 0.0)
         lam[e] = (rb + w * lam_par) / db
     return lam
+
+
+def peel_plain(dtp, dr: torch.Tensor, w_pairs: torch.Tensor, solve_core: CoreSolve):
+    """Eager version: returns ``λ (B,)``; ``dr`` is not modified."""
+    d, r, saved = _forward_plain(dtp, dr, w_pairs)
+    cn = dtp.core_nodes.long()
+    x = solve_core(d[cn], r[cn]) if cn.shape[0] else None
+    return _back_plain(dtp, saved, x, dr.device)
 
 
 def _round_w(rd, w_pairs, has_par, dt, dev):
@@ -295,11 +319,8 @@ def peel_factor_plain(dtp, dr: torch.Tensor, w_pairs: torch.Tensor) -> PeelFacto
     return PeelFactor(cat(ws), cat(dbs), fac, d[dtp.core_nodes.long()])
 
 
-def peel_apply_plain(dtp, state: PeelFactor, dr: torch.Tensor, solve_core: CoreApply):
-    """Eager version of :func:`peel_apply` (the reference's
-    ``_tree_eliminate_apply`` around the core): ``λ (B,)``; only ``dr[:, 1]``
-    is read."""
-    dt, dev = torch.float64, dr.device
+def _apply_forward_plain(dtp, state: PeelFactor, dr: torch.Tensor):
+    """The rounds forward of :func:`peel_apply_plain`: ``(r, saved)``."""
     r = dr[:, 1].clone()
     saved, off = [], 0
     for rd in dtp.rounds:
@@ -313,14 +334,17 @@ def peel_apply_plain(dtp, state: PeelFactor, dr: torch.Tensor, solve_core: CoreA
         n = rd.size
         saved.append((e, par, par >= 0, state.w[off : off + n], state.db[off : off + n], rb))
         off += n
-    lam = torch.zeros(dtp.num_bifurcations, dtype=dt, device=dev)
+    return r, saved
+
+
+def peel_apply_plain(dtp, state: PeelFactor, dr: torch.Tensor, solve_core: CoreApply):
+    """Eager version of :func:`peel_apply` (the reference's
+    ``_tree_eliminate_apply`` around the core): ``λ (B,)``; only ``dr[:, 1]``
+    is read."""
+    r, saved = _apply_forward_plain(dtp, state, dr)
     cn = dtp.core_nodes.long()
-    if cn.shape[0]:
-        lam[cn] = solve_core(r[cn])
-    for e, par, has_par, w, db, rb in reversed(saved):
-        lam_par = torch.where(has_par, lam[torch.clamp(par, min=0)], 0.0)
-        lam[e] = (rb + w * lam_par) / db
-    return lam
+    x = solve_core(r[cn]) if cn.shape[0] else None
+    return _back_plain(dtp, saved, x, dr.device)
 
 
 def peel_table_plain(dtp, dr: torch.Tensor, w_pairs: torch.Tensor, solve_core: CoreSolve):
@@ -474,7 +498,11 @@ class _PeelArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_int) for f in ("has_pairs", "n_peeled", "B", "chan")]
                 + [(f, ctypes.c_void_p)
                    for f in ("tab", "w_pairs", "dr", "wk", "work", "dc", "rc", "x", "lam", "sw",
-                             "sd", "sr", "fac")])
+                             "sd", "sr", "fac")]
+                + [("S", ctypes.c_int)]
+                + [(f, ctypes.c_longlong)
+                   for f in ("s_wp", "s_dr", "s_wk", "s_work", "s_dc", "s_rc", "s_x", "s_lam",
+                             "s_sw", "s_sd", "s_sr", "s_fac")])
 
 
 BOTH, D_ONLY, R_ONLY = 0, 1, 2  # PeelArgs.chan
@@ -523,7 +551,7 @@ def peel(dtp, dr: torch.Tensor, w_pairs: torch.Tensor, solve_core: CoreSolve):
     rc = torch.empty(n_c, dtype=dt, device=dev)
     lam = torch.empty(B, dtype=dt, device=dev)
     n_p = dtp.n_peeled
-    args = _PeelArgs(has_pairs=int(dtp.num_pairs > 0), n_peeled=n_p, B=B, chan=BOTH,
+    args = _PeelArgs(S=1, has_pairs=int(dtp.num_pairs > 0), n_peeled=n_p, B=B, chan=BOTH,
                      tab=pt.table.data_ptr(), w_pairs=w_pairs.data_ptr(), dr=dr.data_ptr(),
                      wk=wk.data_ptr(), work=work.data_ptr(), dc=dc.data_ptr(), rc=rc.data_ptr(),
                      x=None, lam=lam.data_ptr(), sw=work.data_ptr(), sd=work[n_p:].data_ptr(),
@@ -575,7 +603,7 @@ def peel_factor(dtp, dr: torch.Tensor, w_pairs: torch.Tensor) -> PeelFactor:
     saved = torch.empty((2, n_p), dtype=dt, device=dev)
     fac = torch.zeros(B, dtype=dt, device=dev)
     dc = torch.empty(dtp.core_size, dtype=dt, device=dev)
-    args = _PeelArgs(has_pairs=int(dtp.num_pairs > 0), n_peeled=n_p, B=B, chan=D_ONLY,
+    args = _PeelArgs(S=1, has_pairs=int(dtp.num_pairs > 0), n_peeled=n_p, B=B, chan=D_ONLY,
                      tab=dtp.peel_table.table.data_ptr(), w_pairs=w_pairs.data_ptr(),
                      dr=dr.data_ptr(), wk=wk.data_ptr(), work=work.data_ptr(), dc=dc.data_ptr(),
                      rc=None, x=None, lam=None, sw=saved[0].data_ptr(), sd=saved[1].data_ptr(),
@@ -608,7 +636,7 @@ def peel_apply(dtp, state: PeelFactor, dr: torch.Tensor, solve_core: CoreApply):
     wk, work = _work(dtp, dev)
     rc = torch.empty(n_c, dtype=dt, device=dev)
     lam = torch.empty(B, dtype=dt, device=dev)
-    args = _PeelArgs(has_pairs=int(dtp.num_pairs > 0), n_peeled=n_p, B=B, chan=R_ONLY,
+    args = _PeelArgs(S=1, has_pairs=int(dtp.num_pairs > 0), n_peeled=n_p, B=B, chan=R_ONLY,
                      tab=dtp.peel_table.table.data_ptr(), w_pairs=None, dr=dr.data_ptr(),
                      wk=wk.data_ptr(), work=work.data_ptr(), dc=None, rc=rc.data_ptr(), x=None,
                      lam=lam.data_ptr(), sw=state.w.data_ptr(), sd=state.db.data_ptr(),
@@ -630,3 +658,147 @@ def peel_apply(dtp, state: PeelFactor, dr: torch.Tensor, solve_core: CoreApply):
 
 peel_apply.launches = 0
 peel_apply.device = 0
+
+
+# ---------------------------------------------------------------- the rounds over S
+
+
+def _scenario_system(name: str, dtp, dr: torch.Tensor) -> int:
+    """The scenario count of ``dr (S, B, 2)``, or raise."""
+    B = dtp.num_bifurcations
+    if dr.dim() != 3 or tuple(dr.shape[1:]) != (B, 2) or dr.shape[0] < 1:
+        raise ValueError(f"{name}: dr must be (S, B, 2), S >= 1")
+    return int(dr.shape[0])
+
+
+def _core_values(name: str, x: torch.Tensor, S: int, n_c: int, dev) -> None:
+    build.require_cuda(name, x)
+    if tuple(x.shape) != (S, n_c) or x.device != dev:
+        raise ValueError(f"{name}: the core solve must give (S, n_core) on dr's device")
+
+
+def peel_scenarios_plain(dtp, dr: torch.Tensor, w_pairs: torch.Tensor, solve_core: CoreSolve):
+    """Eager version of :func:`peel_scenarios`: the rounds forward of
+    :func:`peel_plain` a scenario, ``solve_core`` once on the stacked core
+    values, the rounds back a scenario; ``λ (S, B)``."""
+    name = "peel_scenarios"
+    S = _scenario_system(name, dtp, dr)
+    P = dtp.num_pairs
+    build.scenarios(name, (w_pairs, (P,)), S=S)
+    rows = [_forward_plain(dtp, dr[i], build.scenario_row(w_pairs, (P,), i)) for i in range(S)]
+    cn = dtp.core_nodes.long()
+    x = (solve_core(torch.stack([d[cn] for d, _, _ in rows]), torch.stack([r[cn] for _, r, _ in rows]))
+         if cn.shape[0] else None)
+    return torch.stack([_back_plain(dtp, saved, None if x is None else x[i], dr.device)
+                        for i, (_, _, saved) in enumerate(rows)])
+
+
+def peel_scenarios(dtp, dr: torch.Tensor, w_pairs: torch.Tensor, solve_core: CoreSolve):
+    """K9's two channels over S scenarios on ``dr``'s device, in the launches
+    of one :func:`peel` call: ``dr (S, B, 2)`` the assembled systems (only
+    read), ``w_pairs (S, P)`` their pair conductances or ``(P,)`` shared;
+    ``solve_core`` gets the cores' folded ``(S, n_core)`` diagonals and right-hand
+    sides and returns their ``(S, n_core)`` λ.  Returns ``λ (S, B)``, row
+    ``i`` :func:`peel` of row ``i`` bit for bit (for the same core solution)."""
+    if dr.device.type == "cpu":
+        return peel_scenarios_plain(dtp, dr, w_pairs, solve_core)
+    name = "peel_scenarios"
+    S = _scenario_system(name, dtp, dr)
+    P = dtp.num_pairs
+    build.scenarios(name, (w_pairs, (P,)), S=S)
+    build.require_cuda(name, dr, w_pairs)
+    pt = dtp.peel_table
+    if pt.table.device != dr.device:
+        raise ValueError(f"{name}: the plan's table must be on dr's device")
+    B, n_c, n_p = dtp.num_bifurcations, dtp.core_size, dtp.n_peeled
+    dev, dt = dr.device, torch.float64
+    wl = max(pt.work_len, 1)
+    wk = torch.empty((S, B, 2), dtype=dt, device=dev)  # each scenario's updated (d, r)
+    work = torch.empty((S, wl), dtype=dt, device=dev)  # its saved planes, then its fold levels
+    dc = torch.empty((S, n_c), dtype=dt, device=dev)
+    rc = torch.empty((S, n_c), dtype=dt, device=dev)
+    lam = torch.empty((S, B), dtype=dt, device=dev)
+    w0 = work.data_ptr()
+    args = _PeelArgs(has_pairs=int(P > 0), n_peeled=n_p, B=B, chan=BOTH, tab=pt.table.data_ptr(),
+                     w_pairs=w_pairs.data_ptr(), dr=dr.data_ptr(), wk=wk.data_ptr(), work=w0,
+                     dc=dc.data_ptr(), rc=rc.data_ptr(), x=None, lam=lam.data_ptr(), sw=w0,
+                     sd=w0 + 8 * n_p, sr=w0 + 16 * n_p, fac=None, S=S,
+                     s_wp=build.scenario_stride(w_pairs, (P,)), s_dr=2 * B, s_wk=2 * B,
+                     s_work=wl, s_dc=n_c, s_rc=n_c, s_x=n_c, s_lam=B, s_sw=wl, s_sd=wl, s_sr=wl,
+                     s_fac=0)
+    lib, host, stream = build.library(), pt.host.ctypes.data, build.stream_handle(dev)
+    with torch.cuda.device(dev):
+        _count(lib.nxfx_peel_forward(ctypes.byref(args), host, stream), peel_scenarios)
+    if n_c:
+        x = solve_core(dc, rc)
+        _core_values(name, x, S, n_c, dev)
+        args.x = x.data_ptr()
+    with torch.cuda.device(dev):
+        _count(lib.nxfx_peel_back(ctypes.byref(args), host, stream), peel_scenarios)
+    peel_scenarios.launches += 1
+    return lam
+
+
+peel_scenarios.launches = 0
+peel_scenarios.device = 0
+
+
+def peel_apply_scenarios_plain(dtp, state: PeelFactor, dr: torch.Tensor, solve_core: CoreApply):
+    """Eager version of :func:`peel_apply_scenarios`: the rounds forward of
+    :func:`peel_apply_plain` a scenario, ``solve_core`` once on the stacked
+    core right-hand sides, the rounds back a scenario; ``λ (S, B)``."""
+    S = _scenario_system("peel_apply_scenarios", dtp, dr)
+    rows = [_apply_forward_plain(dtp, state, dr[i]) for i in range(S)]
+    cn = dtp.core_nodes.long()
+    x = solve_core(torch.stack([r[cn] for r, _ in rows])) if cn.shape[0] else None
+    return torch.stack([_back_plain(dtp, saved, None if x is None else x[i], dr.device)
+                        for i, (_, saved) in enumerate(rows)])
+
+
+def peel_apply_scenarios(dtp, state: PeelFactor, dr: torch.Tensor, solve_core: CoreApply):
+    """K9's ``r`` channel over S right-hand sides on one stored factor, on
+    ``dr``'s device in the launches of one :func:`peel_apply` call: ``dr (S,
+    B, 2)`` (only its rhs channel read), ``state`` :func:`peel_factor`'s
+    (read at stride 0); ``solve_core`` gets the cores' folded ``(S, n_core)``
+    right-hand sides and returns their ``(S, n_core)`` λ.  Returns ``λ (S,
+    B)``, row ``i`` :func:`peel_apply` of row ``i`` bit for bit."""
+    if dr.device.type == "cpu":
+        return peel_apply_scenarios_plain(dtp, state, dr, solve_core)
+    name = "peel_apply_scenarios"
+    S = _scenario_system(name, dtp, dr)
+    build.require_cuda(name, dr, state.w, state.db, state.factor)
+    pt = dtp.peel_table
+    if pt.table.device != dr.device:
+        raise ValueError(f"{name}: the plan's table must be on dr's device")
+    B, n_c, n_p = dtp.num_bifurcations, dtp.core_size, dtp.n_peeled
+    if (tuple(state.w.shape) != (n_p,) or tuple(state.db.shape) != (n_p,)
+            or tuple(state.factor.shape) != (B,)):
+        raise ValueError(f"{name}: the state must be the plan's peel_factor")
+    dev, dt = dr.device, torch.float64
+    wl = max(pt.work_len, 1)
+    wk = torch.empty((S, B, 2), dtype=dt, device=dev)
+    work = torch.empty((S, wl), dtype=dt, device=dev)
+    rc = torch.empty((S, n_c), dtype=dt, device=dev)
+    lam = torch.empty((S, B), dtype=dt, device=dev)
+    w0 = work.data_ptr()
+    args = _PeelArgs(has_pairs=int(dtp.num_pairs > 0), n_peeled=n_p, B=B, chan=R_ONLY,
+                     tab=pt.table.data_ptr(), w_pairs=None, dr=dr.data_ptr(), wk=wk.data_ptr(),
+                     work=w0, dc=None, rc=rc.data_ptr(), x=None, lam=lam.data_ptr(),
+                     sw=state.w.data_ptr(), sd=state.db.data_ptr(), sr=w0 + 16 * n_p,
+                     fac=state.factor.data_ptr(), S=S, s_wp=0, s_dr=2 * B, s_wk=2 * B, s_work=wl,
+                     s_dc=0, s_rc=n_c, s_x=n_c, s_lam=B, s_sw=0, s_sd=0, s_sr=wl, s_fac=0)
+    lib, host, stream = build.library(), pt.host.ctypes.data, build.stream_handle(dev)
+    with torch.cuda.device(dev):
+        _count(lib.nxfx_peel_forward(ctypes.byref(args), host, stream), peel_apply_scenarios)
+    if n_c:
+        x = solve_core(rc)
+        _core_values(name, x, S, n_c, dev)
+        args.x = x.data_ptr()
+    with torch.cuda.device(dev):
+        _count(lib.nxfx_peel_back(ctypes.byref(args), host, stream), peel_apply_scenarios)
+    peel_apply_scenarios.launches += 1
+    return lam
+
+
+peel_apply_scenarios.launches = 0
+peel_apply_scenarios.device = 0

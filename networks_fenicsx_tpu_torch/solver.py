@@ -53,9 +53,10 @@ level; flux and pressure then follow from λ edge by edge.  The routes:
 * no multiplier — a network without bifurcations: K8a and K8b, λ empty.
 
 A sweep (:mod:`.batch`) runs S scenarios in the launches of one solve on
-three routes (``has_scenario_axis``, :meth:`_BlockedExecutor.scenarios`,
-:meth:`_DenseExecutor.scenarios`, :meth:`_EdgeExecutor.scenarios`); the
-others run a row a call.
+the blocked, level, tree (a dense or multifrontal core), dense, lattice and
+no-multiplier routes (``has_scenario_axis``; each executor's
+``scenarios``); the others (a min-degree core, ``dense_f64``, CG,
+``schur_p``) run a row a call.
 
 Besides ``"schur"``: ``"schur_p"`` (``auto`` with continuous pressure), the
 reduced solve of :func:`_continuous_pressure_solve` — the per-edge flux
@@ -85,6 +86,7 @@ import numpy as np
 import torch
 
 from . import assembly as _assembly
+from . import tree as _tree
 from .blocked import _permute_coefficient, _plan_blocked, device_plan
 from .edge_data import edge_layout
 from .function import NetworkFunction
@@ -536,7 +538,10 @@ class _LevelExecutor(_Executor):
     K8b (``plain`` runs their plain versions instead), returning the
     reference's 7-tuple blocks contract
     ``(q_T, p_T, lam, iters, residual, rhs_norm, finite)``; ``edge_order``
-    and ``bif_order`` are None."""
+    and ``bif_order`` are None.  :meth:`scenarios` runs S scenarios in the
+    launches of one solve."""
+
+    has_scenario_axis = True
 
     def __init__(self, asm, tree_plan, level_plan, R_mode, f_mode, f_is_zero, device):
         mesh = asm.network
@@ -578,6 +583,22 @@ class _LevelExecutor(_Executor):
         residual = torch.zeros((), dtype=torch.float64, device=self._device)
         return q_T, p_T, lam, iters, residual, rhs_norm, finite
 
+    def scenarios(self, R, f, start_pbc, end_pbc):
+        """S scenarios on the executor's device, public order: each argument
+        a tensor there, batched (a leading ``S``) or shared by every
+        scenario.  K8a over S, K7 with its K6 sums over S (both channels for
+        every scenario), K8b over S: one solve's launches whatever S.
+        Returns ``(q_T, p_T, lam, rhs_norm, finite)``, each with a leading
+        ``S``; row ``i`` is the executor's call on row ``i`` bit for bit."""
+        dlp, N, k = self.device_plan, self._N, self._k
+        ed = edge_data.edge_data_scenarios(
+            dlp, N, k, self._h_e, self._quad_w, self._quad_phi, R, f, self._R_mode, self._f_mode,
+            self._f_is_zero, start_pbc, end_pbc,
+        )
+        lam, rhs_norm = level_eliminate.level_eliminate_scenarios(dlp, ed)
+        q_T, p_T, finite = backsub.backsub_scenarios(ed, lam, N, k)
+        return q_T, p_T, lam, rhs_norm, finite
+
 
 class _TreeExecutor(_Executor):
     """The peel-then-core solve of a cyclic bifurcation graph on one device
@@ -591,7 +612,16 @@ class _TreeExecutor(_Executor):
     the peel rounds and the core (K9, K10, K11 or K13–K15), and K8b with
     the finiteness flag over ``q_T``, ``p_T`` and ``λ``; ``plain`` runs
     their plain versions.  Returns the 7-tuple blocks contract in public
-    order (``edge_order``/``bif_order`` None)."""
+    order (``edge_order``/``bif_order`` None).  :meth:`scenarios` runs S
+    scenarios in the launches of one solve unless the core is a min-degree
+    one (``has_scenario_axis``)."""
+
+    # the core factors a sweep chunk holds, in bytes (tree.core_chunk)
+    scenario_budget = dense_core.SCENARIO_BUDGET
+
+    @property
+    def has_scenario_axis(self) -> bool:
+        return _tree.has_scenario_axis(self.device_plan)
 
     def __init__(self, asm, tree_plan, R_mode, f_mode, f_is_zero, device):
         mesh = asm.network
@@ -626,6 +656,34 @@ class _TreeExecutor(_Executor):
         iters = torch.zeros((), dtype=torch.int32, device=self._device)
         residual = torch.zeros((), dtype=torch.float64, device=self._device)
         return q_T, p_T, lam, iters, residual, rhs_norm, finite
+
+    def scenarios(self, R, f, start_pbc, end_pbc):
+        """S scenarios on the executor's device, public order: each argument
+        a tensor there, batched (a leading ``S``) or shared by every
+        scenario.  K8a over S, the bifurcation systems over S (the prepare
+        kernel and K6), then :func:`.tree.tree_solve_scenarios` — with R
+        batched the pair sums and K9's rounds over S around S core factors
+        and solves (K13–K15 or K11 over S, in chunks of
+        :func:`.tree.core_chunk` at :attr:`scenario_budget`), with one R the
+        pair sums, K9's ``d`` channel and the core's factor once and K9's
+        ``r`` channel with the core's apply over S — then K8b over S.  The
+        sweep drops ``‖rhs‖`` (as :meth:`_DenseExecutor.scenarios`).  Returns
+        ``(q_T, p_T, lam, None, finite)``, each with a leading ``S``; row
+        ``i`` is the executor's call on row ``i`` bit for bit.  Raises for a
+        min-degree core."""
+        if not self.has_scenario_axis:
+            raise ValueError("a min-degree core has no scenario axis (ROADMAP A9b)")
+        dtp, N, k = self.device_plan, self._N, self._k
+        ed = edge_data.edge_data_scenarios(
+            dtp, N, k, self._h_e, self._quad_w, self._quad_phi, R, f, self._R_mode, self._f_mode,
+            self._f_is_zero, start_pbc, end_pbc,
+        )
+        dr, w_edges = peel.bifurcation_system_scenarios(dtp, ed.W, ed.g, ed.cumF[:, -1],
+                                                        ed.start_pbc, ed.end_pbc)
+        R_batched = R.dim() > (2 if self._R_mode == "quad" else 1)
+        lam = _tree.tree_solve_scenarios(dtp, dr, w_edges, R_batched, self.scenario_budget)
+        q_T, p_T, finite = backsub.backsub_scenarios(ed, lam, N, k)
+        return q_T, p_T, lam, None, finite
 
 
 class _GridExecutor(_BlockedExecutor):

@@ -25,6 +25,17 @@ Laplacian ``L λ = rhs``:
 tables and fold levels, the core's index tensors and the rounds packed and
 checked for K9 (:class:`.ops.peel_table.PeelTable`), so a solve makes one
 host call each way around the core and nothing per round in Python.
+
+A sweep solves S systems in the launches of one solve
+(:func:`tree_solve_scenarios`): with S resistance rows, K9's two channels
+over S (:func:`.kernels.peel.peel_scenarios`) around S core factors and
+solves — the multifrontal K13–K15 over S or the dense K11 over S, in chunks
+that bound the factors' memory (:func:`core_chunk`); with one R, K9's
+``d`` channel and the core's factor once and the ``r`` channel with the
+core's apply over the S right-hand sides
+(:func:`.kernels.peel.peel_apply_scenarios`, :func:`core_apply_scenarios`).
+A min-degree core (K12a, K12b) has no scenario axis yet
+(:func:`has_scenario_axis`).
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .kernels.dense_core import SCENARIO_BUDGET
 from .kernels.fold import FoldPlan
 from .kernels.peel import lambda_sums
 from .kernels.segsum import SumPlan
@@ -44,7 +56,8 @@ from .ops.peel_table import PeelTable, peel_table
 
 __all__ = [
     "DeviceRound", "DeviceTreePlan", "cuda_launches", "device_tree_plan", "tree_schur_solve",
-    "tree_solve_system",
+    "tree_solve_system", "has_scenario_axis", "core_chunk", "core_factor", "core_apply_scenarios",
+    "tree_solve_scenarios",
 ]
 
 
@@ -279,3 +292,98 @@ def tree_solve_system(dtp: DeviceTreePlan, dr: torch.Tensor, w_pairs: torch.Tens
             return dense(dtp.core_ci, dtp.core_cj, dtp.core_pid, dc, rc, w_pairs)
 
     return run_peel(dtp, dr, w_pairs, solve_core)
+
+
+# ---------------------------------------------------------------- S scenarios
+
+
+def has_scenario_axis(dtp: DeviceTreePlan) -> bool:
+    """Whether the plan's solve runs S scenarios in its launches: every core
+    but the min-degree one (K12a's rounds and K12b's fronts, ROADMAP A9b)."""
+    return dtp.ce is None
+
+
+def core_chunk(dtp: DeviceTreePlan, factors: bool, budget: int = SCENARIO_BUDGET) -> int:
+    """Scenarios a chunk of a sweep's core work: the multifrontal factors
+    (:func:`.kernels.mf_factor.scenario_chunk`; one factor's applies are not
+    chunked) or K11's (:func:`.kernels.dense_core.scenario_chunk`)."""
+    from .kernels import dense_core, mf_factor
+
+    if dtp.mf is not None:
+        return mf_factor.scenario_chunk(dtp.mf, budget) if factors else dense_core.MAX_SCENARIOS
+    return dense_core.scenario_chunk(dtp.core_size, factors, budget)
+
+
+def _chunks(fn, S: int, chunk: int, *rows):
+    """``fn`` on the rows of each chunk of ``chunk`` scenarios, joined."""
+    parts = [fn(*(t[i0: i0 + chunk] for t in rows)) for i0 in range(0, S, chunk)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def core_factor(dtp: DeviceTreePlan, dc: torch.Tensor, w_pairs: torch.Tensor):
+    """The core's factor of one R: :class:`.kernels.mf_factor.MFState`, or
+    K11's ``(Lc, s, C, ok)`` without a core plan (a dense core)."""
+    from .kernels import dense_core, mf_factor
+
+    if dtp.mf is not None:
+        return mf_factor.mf_factor(dtp.mf, dc, w_pairs)
+    Lc, s, C = dense_core.dense_factor(dtp.core_ci, dtp.core_cj, dtp.core_pid, dc, w_pairs)
+    return Lc, s, C, dense_core.dense_gate(C)
+
+
+def core_apply_scenarios(dtp: DeviceTreePlan, state, budget: int = SCENARIO_BUDGET):
+    """``rc (S, n) -> x (S, n)`` on one stored core factor (``state`` of
+    :func:`core_factor`): K15 over S, or K11's solves over S in chunks."""
+    from .kernels import dense_core, mf_apply
+
+    if dtp.mf is not None:
+        return lambda rc: mf_apply.mf_apply_scenarios(dtp.mf, state, rc)
+    chunk = core_chunk(dtp, False, budget)
+    return lambda rc: _chunks(lambda r: dense_core.dense_solve_scenarios(*state, r), rc.shape[0],
+                              chunk, rc)
+
+
+def _core_solve_scenarios(dtp: DeviceTreePlan, w_pairs: torch.Tensor, budget: int):
+    """``(dc (S, n), rc (S, n)) -> x (S, n)`` with S factors (``w_pairs (S,
+    P)``), in chunks of :func:`core_chunk`: K13–K15 or K11 over S."""
+    from .kernels import dense_core, mf_apply, mf_factor
+
+    chunk = core_chunk(dtp, True, budget)
+    if dtp.mf is not None:
+        def solve(dc, rc, wp):
+            return mf_apply.mf_apply_scenarios(dtp.mf, mf_factor.mf_factor_scenarios(dtp.mf, dc, wp),
+                                               rc)
+    else:
+        pairs = (dtp.core_ci, dtp.core_cj, dtp.core_pid)
+
+        def solve(dc, rc, wp):
+            Lc, s, C = dense_core.dense_factor_scenarios(*pairs, dc, wp)
+            return dense_core.dense_solve_scenarios(Lc, s, C, dense_core.dense_gate_scenarios(C), rc)
+
+    return lambda dc, rc: _chunks(solve, dc.shape[0], chunk, dc, rc, w_pairs)
+
+
+def tree_solve_scenarios(dtp: DeviceTreePlan, dr: torch.Tensor, w_edges: torch.Tensor,
+                         R_batched: bool, budget: int = SCENARIO_BUDGET) -> torch.Tensor:
+    """``λ (S, B)`` of S assembled systems ``dr (S, B, 2)`` with the per-edge
+    conductances ``w_edges (S, E)``: with ``R_batched`` the pair sums (K6)
+    and K9's two channels over S around S core factors and solves; else (one
+    R: every row's diagonal and conductances the same bits) the pair sums,
+    K9's ``d`` channel and the core's factor once on row 0, then K9's ``r``
+    channel and the core's apply over S.  Row ``i`` is :func:`tree_schur_solve`'s
+    λ of row ``i`` bit for bit.  Raises for a min-degree core."""
+    from .kernels import peel, segsum
+
+    if not has_scenario_axis(dtp):
+        raise ValueError("tree_solve_scenarios: a min-degree core has no scenario axis")
+    S, dev = dr.shape[0], dr.device
+    if R_batched:
+        w_pairs = (segsum.segsum_plan_scenarios(dtp.pair_sums, w_edges)[0] if dtp.num_pairs
+                   else torch.zeros((S, 0), dtype=torch.float64, device=dev))
+        return peel.peel_scenarios(dtp, dr, w_pairs, _core_solve_scenarios(dtp, w_pairs, budget))
+    w_pairs = (segsum.segsum_plan(dtp.pair_sums, w_edges[0])[0] if dtp.num_pairs
+               else torch.zeros(0, dtype=torch.float64, device=dev))
+    pf = peel.peel_factor(dtp, dr[0], w_pairs)
+    apply = (core_apply_scenarios(dtp, core_factor(dtp, pf.dc, w_pairs), budget) if dtp.core_size
+             else None)
+    return peel.peel_apply_scenarios(dtp, pf, dr, apply)

@@ -347,17 +347,26 @@ def test_sweep_matches_jax_lattice_rows():
 # ------------------------------------------------------- rows, plain versions, launches
 
 
-@pytest.mark.parametrize("route", ["blocked", "dense", "lattice"])
+@pytest.mark.parametrize("route", ["blocked", "dense", "lattice", "level", "tree"])
 @pytest.mark.parametrize("batch", ["R", "f", "p_bc"])
 def test_sweep_rows_equal_solve(route, batch):
     """Every row of a sweep is the port's own ``Solver.solve()`` of that row
-    (on the same route) bit for bit."""
+    (on the same route) bit for bit; ``"level"`` an irregular forest and
+    ``"tree"`` a cyclic web (its dense core) under ``schur_method="tree"``."""
     rng = np.random.default_rng(10)
     if route == "lattice":
         mesh = P.NetworkMesh(P.network_generation.make_grid(5, 4, arrays=True), N=2)
         R0, f0 = (np.array([1.3]), 1.3), rng.uniform(-1.0, 1.0, mesh.num_edges)
         opts = P.SolverOptions(schur_method="dct")
         p_bc = lambda s: (lambda x: s * x[0])
+    elif route in ("level", "tree"):
+        keep = 0.0 if route == "level" else 0.3
+        G = P.network_generation.make_random_network(60, keep=keep, seed=2, arrays=True)
+        mesh = P.NetworkMesh(G, N=3)
+        R_e = rng.uniform(0.5, 2.0, mesh.num_edges)
+        R0, f0 = (R_e, R_e), rng.uniform(-1.0, 1.0, mesh.num_cells)
+        opts = P.SolverOptions(schur_method="tree")
+        p_bc = lambda s: (lambda x: s * x[1])
     else:
         mesh = P.NetworkMesh(P.network_generation.make_tree(5, 1.0, 2.0, arrays=True), N=3)
         R_e = rng.uniform(0.5, 2.0, mesh.num_edges)
@@ -379,7 +388,9 @@ def test_sweep_rows_equal_solve(route, batch):
         pb = mesh.vertices[: mesh.num_graph_nodes][:, coord]
         rows = [dict(R=R0[1], f=f0, p_bc_ex=p_bc(s)) for s in scales]
         res = P.solve_sweep(asm, p_bc_node_values=scales[:, None] * pb[None], options=opts, **CPU)
-    assert _executor(asm).has_scenario_axis  # blocked, dense and lattice routes alike
+    assert _executor(asm).has_scenario_axis  # every route here alike
+    want = {"level": PS._LevelExecutor, "tree": PS._TreeExecutor}.get(route)
+    assert want is None or isinstance(_executor(asm), want)
     for i, forms in enumerate(rows):
         assert np.array_equal(res.x[i], _row_solve(asm, opts, **forms)), (route, batch, i)
 
