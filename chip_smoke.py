@@ -95,7 +95,17 @@ paths through the public API, checks each solution and times it:
   against ``solve()`` bit for bit, and K16's, K17's and K18's scenario
   kernels against the one-scenario kernels a row and their plain versions,
   timed beside their bounds and batched ``torch.matmul`` or a CSR
-  ``torch.sparse.mm``, with K16 over S on two streams at once.
+  ``torch.sparse.mm``, with K16 over S on two streams at once;
+* the gradients through the blocked solve (``adjoint.BlockedSolve``):
+  ``Σ q_T[0]²`` of the headline tree with respect to R, f and both boundary
+  arrays (the forward's K1, K2's factor, K3–K4's apply and K5, the
+  backward's K5ᵀ ``expand_vjp``, its fold ``expand_vjp_fold``, the adjoint
+  apply and K1ᵀ ``condense_vjp``, counted), the no-grad outputs against
+  the grad-mode outputs bit for bit, the gradient against autograd of the
+  plain path and against a central difference, forward-with-grad and
+  backward timed with device µs by kernel, each adjoint kernel against its
+  plain version, and the demo tree's five most sensitive vessels through
+  ``outputs="flat"`` against the CPU plain path's.
 
 The lattice sets also hold K17 on two streams at once, on repeated calls
 and in a replayed CUDA graph bit for bit, two K16 solves on two streams bit
@@ -382,6 +392,13 @@ KERNEL_RECORD = {
                             "networks_fenicsx_tpu/ops/multifrontal.py:679"),
     "mf_apply_scenarios": ("networks_fenicsx_tpu_torch/kernels/csrc/mf_apply.cu",
                            "networks_fenicsx_tpu/ops/multifrontal.py:744"),
+    # gradients: the blocked route's transposes of K1 and K5 (what jax.grad makes of them)
+    "condense_vjp": ("networks_fenicsx_tpu_torch/kernels/csrc/condense.cu",
+                     "networks_fenicsx_tpu/solver.py:2776"),
+    "expand_vjp": ("networks_fenicsx_tpu_torch/kernels/csrc/expand.cu",
+                   "networks_fenicsx_tpu/solver.py:2743"),
+    "expand_vjp_fold": ("networks_fenicsx_tpu_torch/kernels/csrc/expand.cu",
+                        "networks_fenicsx_tpu/solver.py:2743"),
 }
 # the factor-reuse wrappers: the configurations whose checks hold each, and the one timed
 FACTOR_CHECKS = {
@@ -2696,12 +2713,28 @@ def device_launches(counter, fn) -> int:
 
 
 PAD_KERNELS = 8  # padding kernels at each edge of a launch-count window
+PAD_PAUSE_S = 0.005  # the pause between the two halves of a window's start padding
+
+
+def start_padding(op) -> None:
+    """A launch-count window's start padding: :data:`PAD_KERNELS` calls of
+    ``op`` (a kernel each), a synchronised pause of :data:`PAD_PAUSE_S`,
+    and as many calls again.  Where the card's profiler loses records of a
+    window it loses the first ones, on some machines all of a first eight
+    window after window (PERF.md §7); the second half, after the pause,
+    keeps the window able to show it holds its run."""
+    for _ in range(2):
+        for _ in range(PAD_KERNELS):
+            op()
+        torch.cuda.synchronize()
+        time.sleep(PAD_PAUSE_S)
 
 
 def counted_window(run, pattern: str, device) -> dict:
     """One ``torch.profiler`` window around ``run()``, with
-    :data:`PAD_KERNELS` padding kernels at each edge (``add_`` before it,
-    ``mul_`` after it, on a vector of their own): ``reported``, what
+    padding kernels at each edge (:func:`start_padding`'s ``add_`` before
+    it, :data:`PAD_KERNELS` ``mul_`` after it, on a vector of their own):
+    ``reported``, what
     ``run()`` returns (its launches as the wrappers report them);
     ``profiled``, the device kernels whose name matches ``pattern``, and
     ``us``, their device µs; ``pad_start`` and ``pad_end``, the padding
@@ -2711,9 +2744,7 @@ def counted_window(run, pattern: str, device) -> dict:
     pad = torch.zeros(64, dtype=torch.float64, device=device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PAD_KERNELS):
-            pad.add_(1.0)
-        torch.cuda.synchronize()
+        start_padding(lambda: pad.add_(1.0))
         reported = run()
         torch.cuda.synchronize()
         for _ in range(PAD_KERNELS):
@@ -6312,6 +6343,48 @@ def device_split(run, families: dict) -> dict | None:
     return out if any(v["us"] for v in out.values()) else None
 
 
+def padded_split(run, families: dict, device, setup=lambda: None, attempts: int = 6) -> dict:
+    """:func:`device_split` of ``run(setup())`` in a padded window (``setup``
+    outside it): :func:`start_padding`'s ``neg_`` kernels before the run and
+    :data:`PAD_KERNELS` ``abs_`` after it on a vector of their own (a gradient's own kernels
+    include ``add`` and ``mul``), left out of the families and the rest;
+    taken again, at most ``attempts`` times, until it holds its run
+    (:func:`holds_its_run`).  ``windows`` counts the windows taken, ``holds``
+    says whether the last held its run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pad = torch.ones(64, dtype=torch.float64, device=device)
+    run(setup())
+    torch.cuda.synchronize()
+    for taken in range(1, attempts + 1):
+        state = setup()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start_padding(pad.neg_)
+            run(state)
+            torch.cuda.synchronize()
+            for _ in range(PAD_KERNELS):
+                pad.abs_()
+            torch.cuda.synchronize()
+        out = {name: {"us": 0.0, "launches": 0} for name in (*families, "other")}
+        window = {"pad_start": 0, "pad_end": 0}
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if re.search(r"(?i)neg", ev.key):
+                window["pad_start"] += ev.count
+                continue
+            if re.search(r"(?i)abs", ev.key):
+                window["pad_end"] += ev.count
+                continue
+            name = next((n for n, pat in families.items() if re.search(pat, ev.key)), "other")
+            out[name]["us"] += getattr(ev, "device_time_total", 0.0) or 0.0
+            out[name]["launches"] += ev.count
+        if holds_its_run(window):
+            break
+    return {**out, "windows": taken, "holds": holds_its_run(window)}
+
+
 def kernel_counts(run, device) -> dict:
     """``{kernel or copy name: count}`` of the device events of one
     ``torch.profiler`` window around ``run()``, padded as
@@ -6322,9 +6395,7 @@ def kernel_counts(run, device) -> dict:
     pad = torch.zeros(64, dtype=torch.float64, device=device)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PAD_KERNELS):
-            pad.add_(1.0)
-        torch.cuda.synchronize()
+        start_padding(lambda: pad.add_(1.0))
         run()
         torch.cuda.synchronize()
         for _ in range(PAD_KERNELS):
@@ -7708,6 +7779,235 @@ def sweep_phases(P, device, name_power: str, serial: dict) -> dict:
     return {"sets": sets, "runs": runs}
 
 
+# ---------------------------------------------------------------- gradients
+
+ADJOINT_SEED = 30  # the seeded cotangents and central-difference direction
+ADJOINT_CD_EPS = 1e-6  # the central difference's step, times each input's scale
+ADJOINT_CD_RTOL = 1e-6  # its bar (tests/test_transforms.py:107)
+ADJOINT_REPS = 5  # forward-with-grad and backward timings, best of
+ADJOINT_DEMO_TOP = 5  # the demo's most sensitive vessels (demos/demo_sweep.py:55)
+# the adjoint wrappers, checked and timed on the headline's kernel set
+ADJOINT_CHECKS = ("condense_vjp", "expand_vjp", "expand_vjp_fold")
+# a gradient's kernels by family: the forward (K1, K2's factor and K3–K4's apply, K5) and the
+# backward (K5ᵀ, the fold, K3–K4's apply, K1ᵀ)
+ADJOINT_FAMILIES = {"condense": r"\bcondense_kernel", "tree_sweep": SWEEP_PATTERN,
+                    "expand": r"\bexpand_kernel\b", "expand_vjp": r"\bexpand_vjp_kernel\b",
+                    "expand_vjp_fold": r"\bexpand_vjp_fold_kernel\b",
+                    "condense_vjp": r"\bcondense_vjp_(kernel|finish)\b"}
+# a gradient's wrapper calls on the blocked route: the forward, then the backward
+ADJOINT_LAUNCHES = {"condense": 1, "tree_sweep_factor": 1, "tree_sweep_apply": 2, "expand": 1,
+                    "expand_vjp": 1, "expand_vjp_fold": 1, "condense_vjp": 1}
+
+
+def adjoint_kernel_checks(ex, base: list, device) -> dict:
+    """``expand_vjp``, ``expand_vjp_fold`` and ``condense_vjp`` on the card
+    against their plain versions on the same inputs (the forward's saved
+    tensors on ``base`` and seeded cotangents of the blocks and λ), at
+    TOL·scale, each timed beside its bound (no PyTorch call computes
+    them)."""
+    from networks_fenicsx_tpu_torch.kernels import condense, expand, tree_sweep
+
+    dp, N, k, h, Rm, fm = ex.device_plan, ex._N, ex._k, ex._h_e, ex._R_mode, ex._f_mode
+    plan, E, B = dp.plan, dp.num_edges, dp.num_bifurcations
+    R, f, sp, ep = base
+    W, w, g, Ftot, const = condense.condense(dp, N, k, h, R, f, Rm, fm, sp, ep)
+    d, wn, fac = tree_sweep.tree_sweep_factor(dp, w)
+    lam = tree_sweep.tree_sweep_apply(dp, d, wn, fac, const, Ftot)[0]
+    rng = np.random.default_rng(ADJOINT_SEED)
+    q_bar, p_bar, lam_bar = (torch.as_tensor(rng.standard_normal(shape), device=device)
+                             for shape in ((k * N + 1, E), (N, E), (B,)))
+    ends = (dp.edge_src, dp.edge_tgt)
+    rec = {}
+    parts = 8 * ((N * E if Rm == "cell" else E) + (N * E if fm == "cell" else E))
+    # K5ᵀ: the cotangents read once, λ, the boundary data, w, g, h, R, f and the row ends; bars
+    # and the two parts written
+    rec["expand_vjp"] = check_pair(
+        lambda: expand.expand_vjp(dp, N, k, lam, sp, ep, w, g, h, R, f, Rm, fm, q_bar, p_bar),
+        lambda: expand.expand_vjp_plain(plan, N, k, lam, sp, ep, w, g, h, R, f, Rm, fm, q_bar,
+                                        p_bar),
+        work=(tensor_bytes(q_bar, p_bar, lam, sp, ep, w, g, h, R, f, ends) + 8 * 3 * E + parts,
+              (30 + 4 * (k - 1)) * N * E))
+    bars, R_part, f_part = expand.expand_vjp(dp, N, k, lam, sp, ep, w, g, h, R, f, Rm, fm, q_bar,
+                                             p_bar)
+    # the fold: λ̄, each bifurcation's in-edge and out-edges (and their r̄N, r̄0), the edges'
+    # targets; rho and Ftot_adj written
+    outs = table_entries(dp.bif_out)
+    rec["expand_vjp_fold"] = check_pair(
+        lambda: expand.expand_vjp_fold(dp, lam_bar, bars),
+        lambda: expand.expand_vjp_fold_plain(dp, lam_bar, bars),
+        work=(tensor_bytes(lam_bar, dp.bif_in, dp.bif_out, dp.edge_tgt) + 8 * (2 * B + outs + E),
+              B + outs))
+    rho, rhs_edges = expand.expand_vjp_fold(dp, lam_bar, bars)
+    rec["expand_vjp_fold"]["equal"] = bool(torch.equal(
+        rho, expand.expand_vjp_fold_plain(dp, lam_bar, bars)[0]))
+    z = tree_sweep.tree_sweep_solve(dp, d, wn, fac, rhs_edges)
+    # K1ᵀ: the per-edge inputs, λ and z once each, bars, the parts and the row ends read; the
+    # boundary cotangents and R's and f's written
+    args = (dp, N, k, h, R, f, Rm, fm, sp, ep, w, g, lam, z, bars)
+    rec["condense_vjp"] = check_pair(
+        lambda: condense.condense_vjp(*args, R_part.clone(), f_part.clone()),
+        lambda: condense.condense_vjp_plain(plan, *args[1:], R_part, f_part))
+    scratch = (R_part.clone(), f_part.clone())  # written over by the timed calls
+    rec["condense_vjp"]["ms"] = cuda_ms(lambda: condense.condense_vjp(*args, *scratch))
+    rec["condense_vjp"]["plain_ms"] = cuda_ms(
+        lambda: condense.condense_vjp_plain(plan, *args[1:], R_part, f_part), reps=3, warmup=1)
+    rec["condense_vjp"].update(bound(
+        tensor_bytes(h, R, f, sp, ep, w, g, lam, z, bars, R_part, f_part, ends) + 8 * 2 * E
+        + 8 * (R.numel() if Rm != "scalar" else 1) + 8 * (f.numel() if fm != "scalar" else 1),
+        40 * E * (N if "cell" in (Rm, fm) else 1)))
+    rec["condense_vjp"]["library_ms"] = None
+    return rec
+
+
+def adjoint_headline(P, device, asm, name_power: str) -> dict:
+    """Gradients of ``Σ q_T[0]²`` with respect to R, f and both boundary
+    arrays through the headline's blocked solve (5,341,102 dofs), counted
+    (every wrapper's launches set to 0 just before the gradient and read
+    just after: the forward's K1, K2's factor, K3–K4's apply, K5 and the
+    backward's K5ᵀ, fold, apply, K1ᵀ, nothing else); the no-grad outputs
+    against the grad-mode outputs bit for bit; the gradient against
+    PyTorch's autograd of the plain path at TOL·scale a input and against a
+    central difference along a seeded direction; forward-with-grad and
+    backward ms, synchronised, best of :data:`ADJOINT_REPS`; device µs by
+    kernel family."""
+    from networks_fenicsx_tpu_torch import kernels
+    from networks_fenicsx_tpu_torch.solver import build_schur_executor
+
+    ex = build_schur_executor(asm, P.SolverOptions(), device=device)
+    assert type(ex).__name__ == "_BlockedExecutor" and ex.has_adjoint, type(ex)
+    base = ex.upload(*ex.prepare_args(*asm.schur_arguments()))
+    names = ("R", "f", "start_pbc", "end_pbc")
+
+    def leaves():
+        return [t.clone().requires_grad_(True) for t in base]
+
+    def gradient(run):
+        xs = leaves()
+        loss = torch.sum(run(*xs)[0][0] ** 2)
+        return loss, torch.autograd.grad(loss, xs)
+
+    gradient(ex)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    loss, grads = gradient(ex)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    assert all(launches[n] == v for n, v in ADJOINT_LAUNCHES.items()), launches
+    assert all(v == 0 for n, v in launches.items() if n not in ADJOINT_LAUNCHES), launches
+
+    with torch.no_grad():
+        plain_out = ex(*base)
+    grad_out = ex(*leaves())
+    same = all(torch.equal(a, b) for a, b in zip(plain_out[:3], grad_out[:3]))
+    assert same, "the grad-mode outputs differ from the no-grad solve's"
+
+    loss_p, grads_p = gradient(ex.plain)
+    vs_plain = {}
+    for name, a, b in zip(names, grads, grads_p):
+        err, scale = max_err(a, b)
+        vs_plain[name] = {"max_abs_err": err, "scale": scale}
+    log("phase adjoint headline: gradient vs autograd of the plain path " + json.dumps(vs_plain))
+    assert all(v["max_abs_err"] <= TOL * v["scale"] for v in vs_plain.values()), vs_plain
+
+    rng = np.random.default_rng(ADJOINT_SEED)
+    dirs = [torch.as_tensor(rng.standard_normal(tuple(t.shape)), device=device)
+            * torch.clamp(t.abs(), min=1.0) for t in base]
+    ad = float(sum(torch.sum(a * d) for a, d in zip(grads, dirs)))
+
+    def loss_at(step: float) -> float:
+        with torch.no_grad():
+            q_T = ex(*(t + step * d for t, d in zip(base, dirs)))[0]
+        return float(torch.sum(q_T[0] ** 2))
+
+    lp, lm = loss_at(ADJOINT_CD_EPS), loss_at(-ADJOINT_CD_EPS)
+    fd = (lp - lm) / (2 * ADJOINT_CD_EPS)
+    cd = {"directional": ad, "central_difference": fd, "rel_err": abs(ad - fd) / abs(fd)}
+    assert cd["rel_err"] <= ADJOINT_CD_RTOL, cd
+
+    def forward_ms():
+        times = []
+        for _ in range(ADJOINT_REPS):
+            xs = leaves()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.sum(ex(*xs)[0][0] ** 2)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    def backward_ms():
+        times = []
+        for _ in range(ADJOINT_REPS):
+            xs = leaves()
+            loss = torch.sum(ex(*xs)[0][0] ** 2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.autograd.grad(loss, xs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    def graph():
+        xs = leaves()
+        return xs, torch.sum(ex(*xs)[0][0] ** 2)
+
+    with torch.no_grad():
+        nograd_ms = best_ms(lambda: ex(*base), reps=ADJOINT_REPS)
+    timing = {"forward_with_grad_ms": forward_ms(), "backward_ms": backward_ms(),
+              "no_grad_solve_ms": nograd_ms, "device": {
+                  "forward": padded_split(lambda xs: torch.sum(ex(*xs)[0][0] ** 2),
+                                          ADJOINT_FAMILIES, device, setup=leaves),
+                  "backward": padded_split(lambda g: torch.autograd.grad(g[1], g[0]),
+                                           ADJOINT_FAMILIES, device, setup=graph)}}
+    log("phase adjoint headline (16 gen, N=40, per-edge R, Σ q_T[0]², d/dR, f, p_s, p_t; "
+        + name_power + "): " + json.dumps({"launches": {n: launches[n] for n in ADJOINT_LAUNCHES},
+                                           "no_grad_bit_for_bit": same, "central": cd, **timing}))
+    sets = adjoint_kernel_checks(ex, base, device)
+    log("phase kernels-adjoint (16 gen, N=40, per-edge R, scalar f, k=1): " + json.dumps(sets))
+    return {"launches": launches, "set": sets}
+
+
+def adjoint_demo(P, device) -> dict:
+    """The demo's adjoint (demos/demo_sweep.py:46-58): d(root flux)/dR_e of
+    ``make_arterial_tree(6)`` at N = 10 through ``outputs="flat"``, its
+    :data:`ADJOINT_DEMO_TOP` most sensitive vessels on the card equal the
+    CPU plain path's, the gradients at TOL·scale."""
+    from networks_fenicsx_tpu_torch.solver import build_schur_executor
+
+    net = P.network_generation.make_arterial_tree(6, direction=[0.1, 1.0, 0.0], arrays=True)
+    mesh = P.NetworkMesh(net, N=10, color_strategy="fast")
+    asm = P.HydraulicNetworkAssembler(mesh)
+    R0 = 1.0 / mesh.edge_radius**4
+    asm.compute_forms(p_bc_ex=lambda x: x[1], R=R0)
+    _, f_arg, sp, ep = asm.schur_arguments(device=False)
+
+    def sensitivity(dev, plain: bool) -> np.ndarray:
+        ex = build_schur_executor(asm, P.SolverOptions(), device=dev, outputs="flat")
+        R = torch.tensor(R0, device=dev, requires_grad=True)
+        x = (ex.plain if plain else ex)(R, f_arg, sp, ep)[0]
+        return torch.autograd.grad(x[0], R)[0].cpu().numpy()
+
+    g_card, g_cpu = sensitivity(device, False), sensitivity("cpu", True)
+    top_card, top_cpu = (np.argsort(np.abs(g))[::-1][:ADJOINT_DEMO_TOP] for g in (g_card, g_cpu))
+    err, scale = float(np.abs(g_card - g_cpu).max()), max(1.0, float(np.abs(g_cpu).max()))
+    rec = {"top": top_card.tolist(), "cpu_top": top_cpu.tolist(), "max_abs_err": err,
+           "scale": scale}
+    assert np.array_equal(top_card, top_cpu) and err <= TOL * scale, rec
+    return rec
+
+
+def adjoint_phases(P, device, name_power: str, serial: dict) -> dict:
+    """The blocked route's gradients: the headline (the adjoint kernels'
+    main path) and the demo tree."""
+    t_start = time.perf_counter()
+    head = adjoint_headline(P, device, serial["tree"][0], name_power)
+    demo = adjoint_demo(P, device)
+    log("phase adjoint demo (make_arterial_tree(6), N=10, outputs='flat', d x[0] / dR): "
+        + json.dumps(demo))
+    log(f"phase wall: the adjoint phases {time.perf_counter() - t_start:.1f} s")
+    return {"sets": {"headline": head["set"]}, "runs": [head["launches"]]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -7836,6 +8136,7 @@ def main() -> int:
 
     sweeps = sweep_phases(P, device, name_power, serial)
     sweep_sets = sweeps["sets"]
+    adjoint = adjoint_phases(P, device, name_power, serial)
 
     t_sharded = time.perf_counter()
     log(f"phase wall: before the sharded phases {t_sharded - t_start:.1f} s")
@@ -7878,7 +8179,7 @@ def main() -> int:
             *(path["launches"] for path in mid["paths"].values()),
             *(path["launches"] for path in iterative["paths"].values()), *generic["runs"],
             *(path["launches"] for path in sharded["paths"].values()),
-            *(path["launches"] for path in factor.values()), *sweeps["runs"])
+            *(path["launches"] for path in factor.values()), *sweeps["runs"], *adjoint["runs"])
     timed_cyclic = {"dense_core": k11[K11_TIMED], "core_elim": core["f"]["core_elim"],
                     "core_fronts": core["i"]["core_fronts"]}
     timed_lattice = {"dct_lattice": lat["a"], "grid_core": lat["a"], "shift_matvec": lat["c"]}
@@ -7916,6 +8217,9 @@ def main() -> int:
             errs = tuple(rec[name]["max_abs_err"] for rec in sweep_sets.values() if name in rec)
             timed_on = sweep_sets[{**SCENARIO_CHECKS, **DENSE_SCENARIO_CHECKS,
                                    **LATTICE_SCENARIO_CHECKS, **TREE_SCENARIO_CHECKS}[name]][name]
+        elif name in ADJOINT_CHECKS:
+            errs = tuple(rec[name]["max_abs_err"] for rec in adjoint["sets"].values())
+            timed_on = adjoint["sets"]["headline"][name]
         elif name in GENERIC_CHECKS:
             checks = GENERIC_CHECKS[name]
             errs = tuple(gen_sets[on][key]["max_abs_err"] for on, key in checks)
@@ -7936,7 +8240,7 @@ def main() -> int:
             "bound_ms": timed_on["bound_ms"], "bound_by": timed_on["bound_by"],
             "library_ms": timed_on.get("library_ms"),
         })
-    assert len(kernels) == 69 and all(kr["launches"] > 0 for kr in kernels), kernels
+    assert len(kernels) == 72 and all(kr["launches"] > 0 for kr in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -33,9 +33,21 @@ rhs-only re-solves (:mod:`.factorization`).  :func:`solve_sweep`
 route takes them in its kernels' scenario axis (the launches of one solve),
 every other route a row at a time.
 
+Differentiable: the blocked route.  ``build_schur_executor(asm, opts)`` on
+a uniformly-K-ary forest returns an executor whose outputs carry PyTorch's
+autograd graph back to R, f and the boundary data when an input requires
+grad (:mod:`.adjoint`: hand-written transposes of K1 and K5 and the adjoint
+λ solve on the stored factor); ``outputs="flat"`` gives the reference's
+``(x, iters, residual, rhs_norm, finite)`` contract on public-order
+inputs, so ``torch.autograd.grad`` of any functional of ``x`` works as
+``jax.grad`` does in the reference.  Every other route, the sweeps and
+the sharded solves raise ``NotImplementedError`` (ROADMAP A9c) for an
+input that requires grad; a double backward raises.
+
 What is left is listed in ROADMAP.md: the scenario axis on the other
-routes (A9b), gradients through the solve (A9c), float32 (A4b), the
-sharded sweeps (A9d), and output and I/O (A11).
+routes (A9b), gradients through the other routes, the sweeps and the
+factorizations (A9c-2 to A9c-4), float32 (A4b), the sharded sweeps (A9d),
+and output and I/O (A11).
 """
 
 from . import batch, network_generation, post_processing

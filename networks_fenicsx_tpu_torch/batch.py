@@ -53,6 +53,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .adjoint import refuse_grad
 from .assembly import HydraulicNetworkAssembler
 from .blocked import _permute_coefficient_batch
 from .function import NetworkFunction
@@ -190,6 +191,7 @@ def solve_sweep(
     opts = options or SolverOptions()
     if asm.network.has_floating_component():
         raise RuntimeError("network has a component with no boundary node")
+    refuse_grad("solve_sweep", R, f, p_bc_node_values)  # ROADMAP A9c-4
 
     sizes = [int(np.shape(a)[0]) for a in (R, f, p_bc_node_values) if a is not None]
     if not sizes:

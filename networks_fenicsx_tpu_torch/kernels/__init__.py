@@ -115,6 +115,13 @@ sides on one stored factor), K10 (``fold_apply_scenarios``, the
 multifrontal refinement's folds) and K13–K15 (``mf_factor_scenarios``,
 ``mf_apply_scenarios`` on S factors or on one): the ``SCENARIO`` wrappers.
 
+The blocked route's adjoint (:mod:`..adjoint`) transposes K1 and K5 by
+hand: ``expand_vjp`` (K5ᵀ, a thread an edge), ``expand_vjp_fold`` (its
+endpoint cotangents gathered into the bifurcations) and ``condense_vjp``
+(K1ᵀ back to R, f and the boundary data); the adjoint λ solve runs K3–K4's
+apply on K2's stored factor (``tree_sweep.tree_sweep_solve``): the
+``ADJOINT`` wrappers.
+
 A wrapper launches its kernel for CUDA tensors (building the library from
 ``csrc/`` at first use, see :mod:`.build`) and runs the plain version for
 CPU tensors.  Each wrapper counts its launches in a plain integer attribute
@@ -135,7 +142,7 @@ __all__ = [
     "mf_apply", "mf_factor", "mg1d", "mg2d", "peel", "schur_p", "segsum", "shift_matvec",
     "tree_sweep", "dist_tree", "shard_blocked", "shard_general", "shard_grid", "shard_top",
     "WRAPPERS", "BLOCKED", "GENERAL", "CYCLIC", "LATTICE", "ITERATIVE", "ASSEMBLED", "SHARDED",
-    "FACTORED", "SCENARIO",
+    "FACTORED", "SCENARIO", "ADJOINT",
     "reset_launches", "launches",
 ]
 
@@ -165,8 +172,9 @@ SCENARIO = (condense.condense_scenarios, tree_sweep.tree_sweep_scenarios,
             level_eliminate.level_eliminate_scenarios, peel.peel_scenarios,
             peel.peel_apply_scenarios, fold.fold_apply_scenarios, mf_factor.mf_factor_scenarios,
             mf_apply.mf_apply_scenarios)
+ADJOINT = (condense.condense_vjp, expand.expand_vjp, expand.expand_vjp_fold)
 WRAPPERS = (BLOCKED + GENERAL + CYCLIC + LATTICE + ITERATIVE + ASSEMBLED + SHARDED + FACTORED
-            + SCENARIO)
+            + SCENARIO + ADJOINT)
 
 
 def reset_launches() -> None:

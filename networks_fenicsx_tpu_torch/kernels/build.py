@@ -56,6 +56,12 @@ _SIGNATURES = {
         _p, _p, _p, _p,  # q_T, p_T, finite, stream
     ],
     "nxfx_expand_scen": [_p, _p],  # ExpandArgs, stream
+    "nxfx_condense_vjp": [_p, _p],  # CondenseVjpArgs, stream
+    "nxfx_expand_vjp": [_p, _p],  # ExpandVjpArgs, stream
+    "nxfx_expand_vjp_fold": [
+        _i, _i, _i, _p, _p, _p,  # E, B, K_max, bif_in, bif_out, edge_tgt
+        _p, _p, _p, _p, _p,  # lam_bar, bars, rho, Ftot_adj, stream
+    ],
     "nxfx_segsum_plan": [
         _p, _i,  # SumPlanArgs, n
         _p, _p, _p, _p, _p, _p, _p, _p, _p,  # four value arrays, four outputs, stream

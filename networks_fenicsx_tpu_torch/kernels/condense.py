@@ -28,6 +28,12 @@ Each wrapper launches the kernel for CUDA tensors and runs its plain
 version for CPU tensors: :func:`condense_plain`, an eager transcription of
 the reference, :func:`condense_batch_plain`, that one a shard, stacked, and
 :func:`condense_scenarios_plain`, that one a scenario, stacked.
+
+The blocked route's adjoint (:mod:`...adjoint`) ends in K1's transpose:
+:func:`condense_vjp` (plain version :func:`condense_vjp_plain`), a thread
+an edge reading the saved λ and the adjoint solve's ``z`` at the edge's
+ends, chains their cotangents through ``const``, ``w = 1/W``, ``W(R)``,
+``g(R, f)`` and ``Ftot(f)`` back to R, f and the boundary data.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from . import build
 
 __all__ = ["condense", "condense_plain", "condense_batch", "condense_batch_plain", "Batch",
            "cuda_launches", "MODES", "MAX_SHARDS", "condense_scenarios",
-           "condense_scenarios_plain"]
+           "condense_scenarios_plain", "condense_vjp", "condense_vjp_plain"]
 
 MODES = {"scalar": 0, "edge": 1, "cell": 2}
 MAX_SHARDS = 32  # CONDENSE_MAX_SHARDS in csrc/condense.cu: the shards of one launch
@@ -347,3 +353,145 @@ def condense_scenarios(dplan, N: int, k: int, h_e: torch.Tensor, R_data: torch.T
 
 
 condense_scenarios.launches = 0
+
+
+# ---------------------------------------------------------------- the adjoint (K1ᵀ)
+
+
+def condense_vjp_plain(plan, N: int, k: int, h_e: torch.Tensor, R_data: torch.Tensor,
+                       f_data: torch.Tensor, R_mode: str, f_mode: str, start_pbc: torch.Tensor,
+                       end_pbc: torch.Tensor, w: torch.Tensor, g: torch.Tensor, lam: torch.Tensor,
+                       z: torch.Tensor, bars: torch.Tensor, R_part: torch.Tensor,
+                       f_part: torch.Tensor):
+    """Eager version of :func:`condense_vjp`: ``(R_bar, f_bar, sp_bar, ep_bar)``.
+
+    With ``a_e`` the edge's column of the bifurcation incidence (+1 at its
+    target, -1 at its source, 0 at a boundary end), the λ solve is ``S(w) λ
+    = A const + T Ftot`` with ``S = Σ_e w_e a_e a_eᵀ``; given the adjoint
+    ``z = S⁻¹ rho`` and K5's cotangents ``bars`` (:func:`..expand.expand_vjp`)
+    each edge gets ``w̄ = q̄0 (r0 + rN - g) - (a_eᵀz)(a_eᵀλ) + (a_eᵀz) ĉ``
+    (``ĉ = const / w``), ``c̄onst = a_eᵀz``, ``F̄tot = z_t``, then the chain
+    through ``const``, ``w = 1/W``, ``W(R)``, ``g(R, f)`` and ``Ftot(f)``,
+    added to K5's shares ``R_part`` and ``f_part`` (summed over the edges for
+    a ``"scalar"`` coefficient)."""
+    from .expand import _lambda_to_edges
+
+    dt, dev = torch.float64, h_e.device
+    E = h_e.shape[0]
+    wt, cs0, cs1 = _constants(k)
+    s_b = torch.as_tensor(plan.s_is_bif, device=dev)
+    t_b = torch.as_tensor(plan.t_is_bif, device=dev)
+    lam_s, lam_t = _lambda_to_edges(plan, lam)
+    z_s, z_t = _lambda_to_edges(plan, z)
+    r0 = torch.where(s_b, lam_s, -start_pbc)
+    rN = torch.where(t_b, -lam_t, end_pbc)
+    num = r0 + rN - g  # q0 / w
+    cnum = -start_pbc * (~s_b) + end_pbc * (~t_b) - g  # const / w
+    q0_bar, r0_bar, rN_bar = bars
+    a_z = z_t - z_s  # the cotangent of const
+    w_bar = q0_bar * num - a_z * (lam_t - lam_s) + a_z * cnum
+    g_bar = -(q0_bar + a_z) * w
+    W_bar = -w_bar * w * w
+    zero = torch.zeros_like(w)
+    sp_bar = torch.where(s_b, zero, -r0_bar - a_z * w)
+    ep_bar = torch.where(t_b, zero, rN_bar + a_z * w)
+    r_cell, f_cell = R_mode == "cell", f_mode == "cell"
+    a1 = None if r_cell else (R_data if R_mode == "edge" else R_data[0]) * h_e
+    F1 = None if f_cell else (f_data if f_mode == "edge" else f_data[0]) * h_e
+    if not r_cell and not f_cell:
+        g_closed = wt * (N * (N - 1) / 2.0) + cs1 * N
+        R_own = (W_bar * (N * wt) + g_bar * F1 * g_closed) * h_e
+        f_own = (g_bar * a1 * g_closed + z_t * N) * h_e
+    else:
+        zrow = torch.zeros((1, E), dtype=dt, device=dev)
+        c = torch.arange(N + 1, dtype=dt, device=dev)[:, None]
+        cumF = torch.cat([zrow, torch.cumsum(f_data * h_e[None, :], dim=0)]) if f_cell else F1 * c
+        wsum = cs0 * cumF[:-1] + cs1 * cumF[1:]
+        ab = R_data * h_e[None, :] if r_cell else a1 * torch.ones((N, E), dtype=dt, device=dev)
+        if r_cell:
+            R_own = (g_bar * wsum + W_bar * wt) * h_e[None, :]
+        else:
+            R_own = (W_bar * (N * wt) + g_bar * torch.sum(wsum, dim=0)) * h_e
+        if f_cell:
+            # cumF_j's cotangent ḡ (cs0 ab_j + cs1 ab_{j-1}), summed from j = c + 1 up
+            cum_bar = g_bar * (cs0 * torch.cat([ab[1:], zrow]) + cs1 * ab)
+            suffix = torch.flip(torch.cumsum(torch.flip(cum_bar, [0]), dim=0), [0])
+            f_own = (suffix + z_t) * h_e[None, :]
+        else:
+            f_own = (g_bar * torch.sum(ab * (cs0 * c[:-1] + cs1 * c[1:]), dim=0) + z_t * N) * h_e
+    R_bar, f_bar = R_part + R_own, f_part + f_own
+    if R_mode == "scalar":
+        R_bar = torch.sum(R_bar).reshape(1)
+    if f_mode == "scalar":
+        f_bar = torch.sum(f_bar).reshape(1)
+    return R_bar, f_bar, sp_bar, ep_bar
+
+
+class _VjpArgs(ctypes.Structure):
+    """``CondenseVjpArgs`` of ``csrc/condense.cu``."""
+
+    _fields_ = ([(n, ctypes.c_int) for n in ("E", "N", "R_mode", "f_mode", "blocks")]
+                + [(n, ctypes.c_double) for n in ("wt", "cs0", "cs1", "g_closed")]
+                + [(n, ctypes.c_void_p) for n in (
+                    "edge_src", "edge_tgt", "h_e", "R", "f", "start_pbc", "end_pbc", "w", "g",
+                    "lam", "z", "bars", "R_part", "f_part", "R_bar", "f_bar", "sp_bar", "ep_bar",
+                    "partial")])
+
+
+VJP_THREADS = 256  # THREADS in csrc/condense.cu: a block's edges, its partial's share
+
+
+def condense_vjp(dplan: DevicePlan, N: int, k: int, h_e: torch.Tensor, R_data: torch.Tensor,
+                 f_data: torch.Tensor, R_mode: str, f_mode: str, start_pbc: torch.Tensor,
+                 end_pbc: torch.Tensor, w: torch.Tensor, g: torch.Tensor, lam: torch.Tensor,
+                 z: torch.Tensor, bars: torch.Tensor, R_part: torch.Tensor,
+                 f_part: torch.Tensor):
+    """K1's transpose on ``h_e``'s device (see :func:`condense_vjp_plain`):
+    ``(R_bar, f_bar, sp_bar, ep_bar)``, the cotangents of K1's inputs, from
+    the saved ``λ``, the adjoint ``z`` (both (B,)) and
+    :func:`..expand.expand_vjp`'s outputs.  One launch a thread an edge,
+    reading ``λ`` and ``z`` at the edge's ends through the plan's row ends;
+    an ``"edge"`` or ``"cell"`` coefficient's cotangent is written over its
+    ``R_part`` or ``f_part`` (returned as ``R_bar``, ``f_bar``); a
+    ``"scalar"`` one's is summed deterministically (each block's partial in a
+    halving tree, then a second launch of one block adding the partials in
+    block order)."""
+    if h_e.device.type == "cpu":
+        return condense_vjp_plain(dplan.plan, N, k, h_e, R_data, f_data, R_mode, f_mode,
+                                  start_pbc, end_pbc, w, g, lam, z, bars, R_part, f_part)
+    build.require_cuda("condense_vjp", h_e, R_data, f_data, start_pbc, end_pbc, w, g, lam, z,
+                       bars, R_part, f_part)
+    build.require_cuda("condense_vjp", dplan.edge_src, dplan.edge_tgt, dtype=torch.int32)
+    B, E = dplan.num_bifurcations, dplan.num_edges
+    if (any(tuple(t.shape) != (E,) for t in (h_e, start_pbc, end_pbc, w, g))
+            or tuple(lam.shape) != (B,) or tuple(z.shape) != (B,) or tuple(bars.shape) != (3, E)):
+        raise ValueError("condense_vjp: the per-edge inputs must be (E,), lam and z (B,), bars "
+                         "(3, E)")
+    build.require_coefficients("condense_vjp", N, E, ("R", R_data, R_mode), ("f", f_data, f_mode))
+    part_shape = {"scalar": (E,), "edge": (E,), "cell": (N, E)}
+    if tuple(R_part.shape) != part_shape[R_mode] or tuple(f_part.shape) != part_shape[f_mode]:
+        raise ValueError("condense_vjp: R_part and f_part must be (N, E) in cell mode, else (E,)")
+    dev = h_e.device
+    blocks = -(-E // VJP_THREADS)
+    R_bar = torch.empty(1, dtype=torch.float64, device=dev) if R_mode == "scalar" else R_part
+    f_bar = torch.empty(1, dtype=torch.float64, device=dev) if f_mode == "scalar" else f_part
+    sp_bar, ep_bar = (torch.empty(E, dtype=torch.float64, device=dev) for _ in range(2))
+    partial = torch.empty(2 * max(blocks, 1), dtype=torch.float64, device=dev)
+    wt, cs0, cs1 = _constants(k)
+    a = _VjpArgs(E=E, N=N, R_mode=MODES[R_mode], f_mode=MODES[f_mode], blocks=blocks, wt=wt,
+                 cs0=cs0, cs1=cs1, g_closed=wt * (N * (N - 1) / 2.0) + cs1 * N,
+                 edge_src=dplan.edge_src.data_ptr(), edge_tgt=dplan.edge_tgt.data_ptr(),
+                 h_e=h_e.data_ptr(), R=R_data.data_ptr(), f=f_data.data_ptr(),
+                 start_pbc=start_pbc.data_ptr(), end_pbc=end_pbc.data_ptr(), w=w.data_ptr(),
+                 g=g.data_ptr(), lam=lam.data_ptr(), z=z.data_ptr(), bars=bars.data_ptr(),
+                 R_part=R_part.data_ptr(), f_part=f_part.data_ptr(), R_bar=R_bar.data_ptr(),
+                 f_bar=f_bar.data_ptr(), sp_bar=sp_bar.data_ptr(), ep_bar=ep_bar.data_ptr(),
+                 partial=partial.data_ptr())
+    index = h_e.get_device()
+    build.check(build.on_device(index, build.library().nxfx_condense_vjp, ctypes.addressof(a),
+                                build.raw_stream(index)), "condense_vjp")
+    condense_vjp.launches += 1
+    return R_bar, f_bar, sp_bar, ep_bar
+
+
+condense_vjp.launches = 0

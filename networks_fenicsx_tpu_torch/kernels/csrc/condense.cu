@@ -249,3 +249,201 @@ extern "C" int nxfx_condense(const CondenseArgs* a, double* out, cudaStream_t st
     if (a->S == 0 || a->E == 0) return 0;
     return a->S == 1 ? launch<1>(a, out, stream) : launch<CONDENSE_MAX_SHARDS>(a, out, stream);
 }
+
+// ---------------------------------------------------------------- K1's transpose
+//
+// The blocked route's adjoint (adjoint.py; what jax.grad makes of the
+// reference's _blocked_condense and the `const` line).  With a_e the
+// edge's incidence column (+1 at its target bifurcation, -1 at its source,
+// 0 at a boundary end), the lambda solve is S(w) lam = A const + T Ftot,
+// S = sum_e w_e a_e a_e^T; given z = S^-1 rho (the adjoint solve) and
+// K5's cotangents (expand_vjp: q0_bar, r0_bar, rN_bar), per internal edge:
+//   const_bar = a_e^T z = z_t - z_s,   Ftot_bar = z_t
+//   w_bar = q0_bar (r0 + rN - g) - (a_e^T z)(a_e^T lam) + const_bar const / w
+//   g_bar = -(q0_bar + const_bar) w,   W_bar = -w_bar w^2
+//   p_s's = -r0_bar - const_bar w (s a boundary),  p_t's = rN_bar + const_bar w (t a boundary)
+// then back through W(R) = wt sum_c a_c, g = sum_c a_c (cs0 cumF_c + cs1
+// cumF_{c+1}) (closed form when neither R nor f is per cell) and Ftot =
+// cumF_N, added to K5's shares R_part, f_part: a forward walk down the
+// column for a_c's cotangent, and in per-cell f mode a backward walk for
+// the suffix sums of cumF's.  lam and z are read at the edge's ends
+// through its row ends, as K5 reads lam.
+//
+// A per-edge or per-cell coefficient's cotangent is written over its part
+// (R_bar may be R_part: each entry is read and written by its one thread).
+// A scalar coefficient's is a sum over the edges, kept deterministic with
+// no atomics: each block sums its edges in a halving tree into partial
+// (R's row, then f's), and a second launch of one block adds the partials
+// in block order, then halves.
+//
+// Bound: device-memory bytes, ~20 doubles an edge (10 MB at 16
+// generations) plus the (N, E) blocks of a per-cell coefficient.
+
+struct CondenseVjpArgs {
+    int E;
+    int N;
+    int R_mode;
+    int f_mode;
+    int blocks;  // ceil(E / THREADS): the rows of partial
+    double wt;
+    double cs0;
+    double cs1;
+    double g_closed;
+    const int* edge_src;
+    const int* edge_tgt;
+    const double* h_e;
+    const double* R;
+    const double* f;
+    const double* start_pbc;
+    const double* end_pbc;
+    const double* w;
+    const double* g;
+    const double* lam;
+    const double* z;
+    const double* bars;    // (3, E): q0_bar, r0_bar, rN_bar
+    const double* R_part;  // K5's share: (N, E) in cell mode, else (E,)
+    const double* f_part;
+    double* R_bar;  // (1,) for a scalar coefficient, else its part's shape (may be R_part)
+    double* f_bar;
+    double* sp_bar;
+    double* ep_bar;
+    double* partial;  // (2, blocks)
+};
+
+namespace {
+
+// the block's sum of v in a halving tree (every thread calls it)
+__device__ double block_sum(double v, double* part)
+{
+    part[threadIdx.x] = v;
+    __syncthreads();
+    for (int half = THREADS / 2; half > 0; half /= 2) {
+        if (threadIdx.x < half) part[threadIdx.x] = part[threadIdx.x] + part[threadIdx.x + half];
+        __syncthreads();
+    }
+    const double out = part[0];
+    __syncthreads();
+    return out;
+}
+
+__global__ void __launch_bounds__(THREADS) condense_vjp_kernel(const CondenseVjpArgs a)
+{
+    __shared__ double part[THREADS];
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    const int E = a.E, N = a.N;
+    const bool r_cell = a.R_mode == MODE_CELL;
+    const bool f_cell = a.f_mode == MODE_CELL;
+    double R_sum = 0.0, f_sum = 0.0;  // the edge's share of a scalar coefficient's cotangent
+    if (e < E) {
+        const int s = a.edge_src[e];
+        const int t = a.edge_tgt[e];
+        const double ls = s >= 0 ? a.lam[s] : 0.0;
+        const double lt = t >= 0 ? a.lam[t] : 0.0;
+        const double zs = s >= 0 ? a.z[s] : 0.0;
+        const double zt = t >= 0 ? a.z[t] : 0.0;
+        const double sp = a.start_pbc[e], ep = a.end_pbc[e], ge = a.g[e], we = a.w[e];
+        const double not_s = s >= 0 ? 0.0 : 1.0;
+        const double not_t = t >= 0 ? 0.0 : 1.0;
+        const double r0 = s >= 0 ? ls : -sp;
+        const double rN = t >= 0 ? -lt : ep;
+        const double num = r0 + rN - ge;
+        const double cnum = -sp * not_s + ep * not_t - ge;
+        const double q0b = a.bars[e], r0b = a.bars[(size_t)E + e], rNb = a.bars[2 * (size_t)E + e];
+        const double az = zt - zs;
+        const double wb = q0b * num - az * (lt - ls) + az * cnum;
+        const double gb = -(q0b + az) * we;
+        const double Wb = -wb * we * we;
+        a.sp_bar[e] = s >= 0 ? 0.0 : -r0b - az * we;
+        a.ep_bar[e] = t >= 0 ? 0.0 : rNb + az * we;
+
+        const double h = a.h_e[e];
+        const double dN = static_cast<double>(N);
+        const double a1 = r_cell ? 0.0 : a.R[a.R_mode == MODE_SCALAR ? 0 : e] * h;
+        const double F1 = f_cell ? 0.0 : a.f[a.f_mode == MODE_SCALAR ? 0 : e] * h;
+        double a1b = 0.0, F1b = 0.0;
+        if (!r_cell && !f_cell) {
+            a1b = Wb * (dN * a.wt) + gb * F1 * a.g_closed;
+            F1b = gb * a1 * a.g_closed + zt * dN;
+        } else {
+            double cum = 0.0, wsum_sum = 0.0, moment = 0.0;
+            for (int c = 0; c < N; ++c) {
+                const size_t ic = (size_t)c * E + e;
+                const double next = f_cell ? cum + a.f[ic] * h : F1 * static_cast<double>(c + 1);
+                const double wsum = a.cs0 * cum + a.cs1 * next;
+                const double ab = r_cell ? a.R[ic] * h : a1;
+                if (r_cell)
+                    a.R_bar[ic] = a.R_part[ic] + (gb * wsum + Wb * a.wt) * h;
+                else
+                    wsum_sum += wsum;
+                if (!f_cell)
+                    moment += ab * (a.cs0 * static_cast<double>(c) + a.cs1 * static_cast<double>(c + 1));
+                cum = next;
+            }
+            a1b = Wb * (dN * a.wt) + gb * wsum_sum;
+            if (f_cell) {
+                // cumF_j's cotangent g_bar (cs0 a_j + cs1 a_{j-1}), summed from j = c + 1 up
+                double suffix = 0.0, ab_next = 0.0;
+                for (int c = N - 1; c >= 0; --c) {
+                    const size_t ic = (size_t)c * E + e;
+                    const double ab = r_cell ? a.R[ic] * h : a1;
+                    suffix += gb * (a.cs0 * ab_next + a.cs1 * ab);
+                    a.f_bar[ic] = a.f_part[ic] + (suffix + zt) * h;
+                    ab_next = ab;
+                }
+            } else {
+                F1b = gb * moment + zt * dN;
+            }
+        }
+        if (!r_cell) {
+            const double v = a.R_part[e] + a1b * h;
+            if (a.R_mode == MODE_SCALAR)
+                R_sum = v;
+            else
+                a.R_bar[e] = v;
+        }
+        if (!f_cell) {
+            const double v = a.f_part[e] + F1b * h;
+            if (a.f_mode == MODE_SCALAR)
+                f_sum = v;
+            else
+                a.f_bar[e] = v;
+        }
+    }
+    if (a.R_mode == MODE_SCALAR) {
+        const double v = block_sum(R_sum, part);
+        if (threadIdx.x == 0) a.partial[blockIdx.x] = v;
+    }
+    if (a.f_mode == MODE_SCALAR) {
+        const double v = block_sum(f_sum, part);
+        if (threadIdx.x == 0) a.partial[(size_t)a.blocks + blockIdx.x] = v;
+    }
+}
+
+// one block: each scalar coefficient's partials added in block order (a
+// thread's strided run, then the halving tree)
+__global__ void __launch_bounds__(THREADS) condense_vjp_finish(const CondenseVjpArgs a)
+{
+    __shared__ double part[THREADS];
+    for (int row = 0; row < 2; ++row) {
+        if ((row == 0 ? a.R_mode : a.f_mode) != MODE_SCALAR) continue;
+        double acc = 0.0;
+        for (int i = threadIdx.x; i < a.blocks; i += THREADS) acc += a.partial[(size_t)row * a.blocks + i];
+        const double v = block_sum(acc, part);
+        if (threadIdx.x == 0) *(row == 0 ? a.R_bar : a.f_bar) = v;
+    }
+}
+
+}  // namespace
+
+// K1's transpose over the a->E edges: one launch, and a second of one block
+// when R or f is a scalar.
+extern "C" int nxfx_condense_vjp(const CondenseVjpArgs* a, cudaStream_t stream)
+{
+    if (a->E < 1 || a->N < 1 || a->blocks != (a->E + THREADS - 1) / THREADS)
+        return static_cast<int>(cudaErrorInvalidValue);
+    condense_vjp_kernel<<<a->blocks, THREADS, 0, stream>>>(*a);
+    const int code = static_cast<int>(cudaGetLastError());
+    if (code != 0 || (a->R_mode != MODE_SCALAR && a->f_mode != MODE_SCALAR)) return code;
+    condense_vjp_finish<<<1, THREADS, 0, stream>>>(*a);
+    return static_cast<int>(cudaGetLastError());
+}

@@ -194,3 +194,169 @@ extern "C" int nxfx_expand(
                           q_T, p_T, finite, 0, 0, 0, 0, 0, 0, 0, 0};
     return launch(a, stream);
 }
+
+// ---------------------------------------------------------------- K5's transpose
+//
+// The blocked route's adjoint (adjoint.py; what jax.grad makes of the
+// reference's _blocked_lambda_to_edges and `back` closure).  Per internal
+// edge e, from the cotangents q_bar (k N + 1, E) and p_bar (N, E) of K5's
+// blocks:
+//   P_c   = sum_{i >= c} p_bar_i        (minus the cotangent of cell c's mc0;
+//                                        P_{c+1} that of its mc1)
+//   Q_j   = the cotangent of q_chain_j = q0 + cumF_j: q_bar's chain row, the
+//           interior rows through -Minv, and the momenta's a_c Mt terms
+//   q0_bar = sum_j Q_j,  r0's = P_0 + q0_bar w,  rN's = q0_bar w
+//   R: a_c's cotangent -P_c (Mt[0,:] q) - P_{c+1} (Mt[1,:] q), times h
+//   f: cumF_j's is Q_j (j >= 1): per cell sum_{j > c} Q_j, per edge sum_j j Q_j, times h
+// One thread an edge walks its column from the last cell to the first (the
+// suffix sums), rebuilding cumF_c = cumF_{c+1} - f_c h from the forward
+// pass's sum in per-cell f mode.  Writes bars (3, E) = (q0_bar, r0_bar,
+// rN_bar) and K5's share of R's and f's cotangents, per cell (N, E) in
+// cell mode, else per edge (E,).
+//
+// Bound: device-memory bytes.  It reads the (k N + 1 + N) E cotangents
+// once (42.5 MB at 16 generations, N = 40) and O(E) (O(N E) in cell mode)
+// besides; each step of the walk is one coalesced row read across the warp.
+//
+// The fold (expand_vjp_fold_kernel), a thread a bifurcation b with in-edge
+// i and out-edges o_j:  rho_b = lam_bar_b - rN_bar_i + sum_j r0_bar_oj,
+// written to rho and to Ftot_adj at i; a thread an edge zeroes Ftot_adj at
+// the edges that end at a boundary.  bif_in names every bifurcation once
+// and no edge twice, so every entry has one writer: no atomics.  Ftot_adj
+// is the right-hand side on which K3-K4's apply (const = 0) solves S z = rho.
+
+struct ExpandVjpArgs {
+    int E, B, N, k, R_mode, f_mode;
+    double mt00, mt01, mt10, mt11;
+    const int* edge_src;
+    const int* edge_tgt;
+    const double* h_e;
+    const double* Minv;  // (k - 1, 2) interior recovery
+    const double* lam;
+    const double* start_pbc;
+    const double* end_pbc;
+    const double* w;
+    const double* g;
+    const double* R;
+    const double* f;
+    const double* q_bar;  // (k N + 1, E)
+    const double* p_bar;  // (N, E)
+    double* bars;         // (3, E): q0_bar, r0_bar, rN_bar
+    double* R_part;       // (N, E) in cell mode, else (E,)
+    double* f_part;
+};
+
+namespace {
+
+constexpr int VJP_THREADS = 256;
+
+__global__ void __launch_bounds__(VJP_THREADS) expand_vjp_kernel(const ExpandVjpArgs a)
+{
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    const int E = a.E, N = a.N, k = a.k;
+    if (e >= E) return;
+    const int s = a.edge_src[e];
+    const int t = a.edge_tgt[e];
+    const double r0 = s >= 0 ? a.lam[s] : -a.start_pbc[e];
+    const double rN = t >= 0 ? -a.lam[t] : a.end_pbc[e];
+    const double we = a.w[e];
+    const double q0 = (r0 + rN - a.g[e]) * we;
+    const double h = a.h_e[e];
+    const bool r_cell = a.R_mode == MODE_CELL;
+    const bool f_cell = a.f_mode == MODE_CELL;
+    const double a1 = r_cell ? 0.0 : coeff(a.R, a.R_mode, 0, e, E) * h;
+    const double F1 = f_cell ? 0.0 : coeff(a.f, a.f_mode, 0, e, E) * h;
+
+    double cum_next;  // cumF_{c+1}: cumF_N first, as the forward pass sums it
+    if (f_cell) {
+        double cum = 0.0;
+        for (int c = 0; c < N; ++c) cum = cum + a.f[(size_t)c * E + e] * h;
+        cum_next = cum;
+    } else {
+        cum_next = F1 * static_cast<double>(N);
+    }
+    double P = 0.0;                                // P_{c+1}
+    double Qn = a.q_bar[(size_t)(N * k) * E + e];  // Q_{c+1}, complete once cell c is done
+    double q0b = 0.0, Fsuf = 0.0, F1b = 0.0, a1b = 0.0;
+    for (int c = N - 1; c >= 0; --c) {
+        const size_t ic = (size_t)c * E + e;
+        const double cum = f_cell ? cum_next - a.f[ic] * h : F1 * static_cast<double>(c);
+        const double qj = q0 + cum;
+        const double qj1 = q0 + cum_next;
+        const double Pc = P + a.p_bar[ic];
+        const double ab = r_cell ? a.R[ic] * h : a1;
+        const double abb = -Pc * (a.mt00 * qj + a.mt01 * qj1) - P * (a.mt10 * qj + a.mt11 * qj1);
+        double Qc = a.q_bar[(size_t)(c * k) * E + e];
+        for (int i = 0; i < k - 1; ++i) {
+            const double qb = a.q_bar[(size_t)(c * k + 1 + i) * E + e];
+            Qc = Qc - a.Minv[2 * i] * qb;
+            Qn = Qn - a.Minv[2 * i + 1] * qb;
+        }
+        Qc = Qc + ab * (-a.mt00 * Pc - a.mt10 * P);
+        Qn = Qn + ab * (-a.mt01 * Pc - a.mt11 * P);
+        q0b += Qn;
+        if (f_cell) {
+            Fsuf += Qn;
+            a.f_part[ic] = Fsuf * h;
+        } else {
+            F1b += static_cast<double>(c + 1) * Qn;
+        }
+        if (r_cell)
+            a.R_part[ic] = abb * h;
+        else
+            a1b += abb;
+        P = Pc;
+        Qn = Qc;
+        cum_next = cum;
+    }
+    q0b += Qn;  // node 0 (cumF_0 = 0 is no input)
+    a.bars[e] = q0b;
+    a.bars[(size_t)E + e] = P + q0b * we;
+    a.bars[2 * (size_t)E + e] = q0b * we;
+    if (!r_cell) a.R_part[e] = a1b * h;
+    if (!f_cell) a.f_part[e] = F1b * h;
+}
+
+// grid over max(E, B)
+__global__ void __launch_bounds__(VJP_THREADS) expand_vjp_fold_kernel(
+    int E, int B, int K, const int* __restrict__ bif_in, const int* __restrict__ bif_out,
+    const int* __restrict__ edge_tgt, const double* __restrict__ lam_bar,
+    const double* __restrict__ bars, double* __restrict__ rho, double* __restrict__ Ftot_adj)
+{
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < E && edge_tgt[i] < 0) Ftot_adj[i] = 0.0;
+    if (i >= B) return;
+    const int in = bif_in[i];
+    double r = lam_bar[i] - bars[2 * (size_t)E + in];
+    for (int j = 0; j < K; ++j) {
+        const int o = bif_out[(size_t)i * K + j];
+        if (o >= 0) r = r + bars[(size_t)E + o];
+    }
+    rho[i] = r;
+    Ftot_adj[in] = r;
+}
+
+}  // namespace
+
+// K5's transpose over the a->E edges, one launch.
+extern "C" int nxfx_expand_vjp(const ExpandVjpArgs* a, cudaStream_t stream)
+{
+    if (a->E < 0 || a->N < 1 || a->k < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (a->E == 0) return 0;
+    expand_vjp_kernel<<<(a->E + VJP_THREADS - 1) / VJP_THREADS, VJP_THREADS, 0, stream>>>(*a);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The fold into rho (B,) and Ftot_adj (E,), one launch.
+extern "C" int nxfx_expand_vjp_fold(int E, int B, int K, const int* bif_in, const int* bif_out,
+                                    const int* edge_tgt, const double* lam_bar,
+                                    const double* bars, double* rho, double* Ftot_adj,
+                                    cudaStream_t stream)
+{
+    if (E < 0 || B < 0 || K < 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int n = E > B ? E : B;
+    if (n == 0) return 0;
+    expand_vjp_fold_kernel<<<(n + VJP_THREADS - 1) / VJP_THREADS, VJP_THREADS, 0, stream>>>(
+        E, B, K, bif_in, bif_out, edge_tgt, lam_bar, bars, rho, Ftot_adj);
+    return static_cast<int>(cudaGetLastError());
+}

@@ -20,6 +20,15 @@ or shared by every scenario (read with stride 0) and writes ``q_T (S, k·N+1,
 E)``, ``p_T (S, N, E)`` and a finiteness flag a scenario; scenario ``i`` is
 :func:`expand` of row ``i`` bit for bit.  :func:`expand_scenarios_plain`
 stacks :func:`expand_plain` a scenario.
+
+The blocked route's adjoint (:mod:`...adjoint`) runs K5's transpose in two
+launches: :func:`expand_vjp`, a thread an edge walking its columns of the
+blocks' cotangents from the last cell to the first, gives per edge the
+cotangents of ``q0``, ``r0`` and ``rN`` and K5's share of the coefficients'
+(per cell in ``"cell"`` mode); :func:`expand_vjp_fold`, a thread a
+bifurcation, gathers the endpoint cotangents into ``rho``, the right-hand
+side of the adjoint λ solve.  Their plain versions are
+:func:`expand_vjp_plain` and :func:`expand_vjp_fold_plain`.
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ from ..lattice import _GridPlan
 from . import build
 from .condense import MODES
 
-__all__ = ["expand", "expand_plain", "expand_scenarios", "expand_scenarios_plain"]
+__all__ = ["expand", "expand_plain", "expand_scenarios", "expand_scenarios_plain", "expand_vjp",
+           "expand_vjp_plain", "expand_vjp_fold", "expand_vjp_fold_plain"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -239,6 +249,170 @@ def expand(
 
 
 expand.launches = 0
+
+
+# ---------------------------------------------------------------- the adjoint (K5ᵀ)
+
+
+def _reverse_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``out[c] = Σ_{i ≥ c} x[i]`` along the first axis."""
+    return torch.flip(torch.cumsum(torch.flip(x, [0]), dim=0), [0])
+
+
+def expand_vjp_plain(plan, N: int, k: int, lam, start_pbc, end_pbc, w, g, h_e, R_data, f_data,
+                     R_mode: str, f_mode: str, q_bar, p_bar):
+    """Eager version of :func:`expand_vjp`: ``(bars (3, E), R_part, f_part)``.
+
+    K5 reads the multipliers and the boundary data through ``q0 = (r0 + rN -
+    g) w`` and the endpoint value ``r0``, and the coefficients through the
+    cell momenta.  Given the cotangents ``q_bar (k·N+1, E)`` and ``p_bar (N,
+    E)`` of its blocks, ``bars`` holds per edge ``q̄0``, the whole cotangent
+    of ``r0`` (``Σ p̄ + q̄0 w``) and that of ``rN`` (``q̄0 w``); ``R_part``
+    and ``f_part`` are K5's own share of the coefficients' cotangents, per
+    cell ``(N, E)`` in ``"cell"`` mode, else per edge ``(E,)`` (summed over
+    the edges for a ``"scalar"`` coefficient by :func:`..condense.condense_vjp`)."""
+    dt, dev = torch.float64, lam.device
+    E = h_e.shape[0]
+    s_b = torch.as_tensor(plan.s_is_bif, device=dev)
+    t_b = torch.as_tensor(plan.t_is_bif, device=dev)
+    lam_s, lam_t = _lambda_to_edges(plan, lam)
+    r0 = torch.where(s_b, lam_s, -start_pbc)
+    rN = torch.where(t_b, -lam_t, end_pbc)
+    q0 = (r0 + rN - g) * w
+    r_cell, f_cell = R_mode == "cell", f_mode == "cell"
+    ones = torch.ones((N, E), dtype=dt, device=dev)
+    if r_cell:
+        ab = R_data * h_e[None, :]
+    else:
+        ab = (R_data if R_mode == "edge" else R_data[0]) * h_e * ones
+    zrow = torch.zeros((1, E), dtype=dt, device=dev)
+    j = torch.arange(N + 1, dtype=dt, device=dev)[:, None]
+    if f_cell:
+        cumF = torch.cat([zrow, torch.cumsum(f_data * h_e[None, :], dim=0)])
+    else:
+        cumF = (f_data if f_mode == "edge" else f_data[0]) * h_e * j
+    q_chain = q0 + cumF
+    qj, qj1 = q_chain[:-1], q_chain[1:]
+    Mt, _, _, Minv = _condensed_scalar_constants(k)
+    m00, m01, m10, m11 = (float(Mt[a, b]) for a, b in ((0, 0), (0, 1), (1, 0), (1, 1)))
+    P = _reverse_cumsum(p_bar)  # Σ_{i ≥ c} p̄_i: minus the cotangent of cell c's mc0
+    P_next = torch.cat([P[1:], zrow])  # minus that of its mc1
+    ab_bar = -P * (m00 * qj + m01 * qj1) - P_next * (m10 * qj + m11 * qj1)
+    if k == 1:
+        Q = q_bar.clone()
+    else:
+        qb = q_bar[: N * k].reshape(N, k, E)
+        Q = torch.cat([qb[:, 0], q_bar[N * k :]])
+        for i in range(k - 1):
+            Q[:-1] = Q[:-1] - float(Minv[i, 0]) * qb[:, 1 + i]
+            Q[1:] = Q[1:] - float(Minv[i, 1]) * qb[:, 1 + i]
+    Q[:-1] = Q[:-1] + ab * (-m00 * P - m10 * P_next)
+    Q[1:] = Q[1:] + ab * (-m01 * P - m11 * P_next)
+    q0_bar = torch.sum(Q, dim=0)
+    cumF_bar = Q[1:]  # cumF_0 = 0 is no input
+    if f_cell:
+        f_part = _reverse_cumsum(cumF_bar) * h_e[None, :]
+    else:
+        f_part = torch.sum(cumF_bar * j[1:], dim=0) * h_e
+    R_part = ab_bar * h_e[None, :] if r_cell else torch.sum(ab_bar, dim=0) * h_e
+    bars = torch.stack([q0_bar, P[0] + q0_bar * w, q0_bar * w])
+    return bars, R_part, f_part
+
+
+class _VjpArgs(ctypes.Structure):
+    """``ExpandVjpArgs`` of ``csrc/expand.cu``."""
+
+    _fields_ = ([(n, ctypes.c_int) for n in ("E", "B", "N", "k", "R_mode", "f_mode")]
+                + [(n, ctypes.c_double) for n in ("mt00", "mt01", "mt10", "mt11")]
+                + [(n, ctypes.c_void_p) for n in (
+                    "edge_src", "edge_tgt", "h_e", "Minv", "lam", "start_pbc", "end_pbc", "w",
+                    "g", "R", "f", "q_bar", "p_bar", "bars", "R_part", "f_part")])
+
+
+def expand_vjp(dplan: DevicePlan, N: int, k: int, lam, start_pbc, end_pbc, w, g, h_e, R_data,
+               f_data, R_mode: str, f_mode: str, q_bar, p_bar):
+    """K5's transpose on ``lam``'s device, one launch: ``(bars (3, E),
+    R_part, f_part)`` (see :func:`expand_vjp_plain`) from the cotangents
+    ``q_bar (k·N+1, E)`` and ``p_bar (N, E)`` of K5's blocks."""
+    if lam.device.type == "cpu":
+        return expand_vjp_plain(dplan.plan, N, k, lam, start_pbc, end_pbc, w, g, h_e, R_data,
+                                f_data, R_mode, f_mode, q_bar, p_bar)
+    build.require_cuda("expand_vjp", lam, start_pbc, end_pbc, w, g, h_e, R_data, f_data, q_bar,
+                       p_bar)
+    build.require_cuda("expand_vjp", dplan.edge_src, dplan.edge_tgt, dtype=torch.int32)
+    B, E = dplan.num_bifurcations, dplan.num_edges
+    if tuple(lam.shape) != (B,) or any(tuple(t.shape) != (E,)
+                                       for t in (start_pbc, end_pbc, w, g, h_e)):
+        raise ValueError("expand_vjp: lam must be (B,) and the per-edge inputs (E,)")
+    if tuple(q_bar.shape) != (k * N + 1, E) or tuple(p_bar.shape) != (N, E):
+        raise ValueError("expand_vjp: q_bar must be (k·N+1, E) and p_bar (N, E)")
+    build.require_coefficients("expand_vjp", N, E, ("R", R_data, R_mode), ("f", f_data, f_mode))
+    dev = lam.device
+    Mt = _condensed_scalar_constants(k)[0]
+    bars = torch.empty((3, E), dtype=torch.float64, device=dev)
+    R_part = torch.empty((N, E) if R_mode == "cell" else (E,), dtype=torch.float64, device=dev)
+    f_part = torch.empty((N, E) if f_mode == "cell" else (E,), dtype=torch.float64, device=dev)
+    a = _VjpArgs(E=E, B=B, N=N, k=k, R_mode=MODES[R_mode], f_mode=MODES[f_mode],
+                 mt00=float(Mt[0, 0]), mt01=float(Mt[0, 1]), mt10=float(Mt[1, 0]),
+                 mt11=float(Mt[1, 1]), edge_src=dplan.edge_src.data_ptr(),
+                 edge_tgt=dplan.edge_tgt.data_ptr(), h_e=h_e.data_ptr(),
+                 Minv=_recovery_matrix(k, dev).data_ptr(), lam=lam.data_ptr(),
+                 start_pbc=start_pbc.data_ptr(), end_pbc=end_pbc.data_ptr(), w=w.data_ptr(),
+                 g=g.data_ptr(), R=R_data.data_ptr(), f=f_data.data_ptr(),
+                 q_bar=q_bar.data_ptr(), p_bar=p_bar.data_ptr(), bars=bars.data_ptr(),
+                 R_part=R_part.data_ptr(), f_part=f_part.data_ptr())
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    build.check(build.on_device(index, build.library().nxfx_expand_vjp, ctypes.addressof(a),
+                                build.raw_stream(index)), "expand_vjp")
+    expand_vjp.launches += 1
+    return bars, R_part, f_part
+
+
+expand_vjp.launches = 0
+
+
+def expand_vjp_fold_plain(dplan: DevicePlan, lam_bar, bars):
+    """Eager version of :func:`expand_vjp_fold`: ``(rho (B,), Ftot_adj (E,))``."""
+    bif_in, bif_out = dplan.bif_in.long(), dplan.bif_out.long()
+    rho = lam_bar - bars[2][bif_in]
+    for j in range(bif_out.shape[1]):
+        oe = bif_out[:, j]
+        ok = oe >= 0
+        rho = torch.where(ok, rho + bars[1][torch.where(ok, oe, torch.zeros_like(oe))], rho)
+    Ftot_adj = torch.zeros(bars.shape[1], dtype=bars.dtype, device=bars.device)
+    Ftot_adj[bif_in] = rho
+    return rho, Ftot_adj
+
+
+def expand_vjp_fold(dplan: DevicePlan, lam_bar, bars):
+    """The fold of :func:`expand_vjp`'s endpoint cotangents into the
+    bifurcations, one launch (a thread a bifurcation, a gather over its in-
+    and out-edges: no atomics): ``rho = λ̄ - r̄N[in] + Σ r̄0[out]`` (B,), and
+    ``Ftot_adj (E,)`` holding ``rho_b`` at ``bif_in[b]`` and 0 elsewhere — the
+    right-hand side whose K3–K4 apply (``const = 0``) is the adjoint solve
+    ``S⁻¹ rho`` (:func:`.tree_sweep.tree_sweep_solve`)."""
+    if lam_bar.device.type == "cpu":
+        return expand_vjp_fold_plain(dplan, lam_bar, bars)
+    build.require_cuda("expand_vjp_fold", lam_bar, bars)
+    build.require_cuda("expand_vjp_fold", dplan.bif_in, dplan.bif_out, dplan.edge_tgt,
+                       dtype=torch.int32)
+    B, E = dplan.num_bifurcations, dplan.num_edges
+    if tuple(lam_bar.shape) != (B,) or tuple(bars.shape) != (3, E):
+        raise ValueError("expand_vjp_fold: lam_bar must be (B,) and bars (3, E)")
+    dev = lam_bar.device
+    rho = torch.empty(B, dtype=torch.float64, device=dev)
+    Ftot_adj = torch.empty(E, dtype=torch.float64, device=dev)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    build.check(build.on_device(index, build.library().nxfx_expand_vjp_fold, E, B,
+                                dplan.max_out, dplan.bif_in.data_ptr(), dplan.bif_out.data_ptr(),
+                                dplan.edge_tgt.data_ptr(), lam_bar.data_ptr(), bars.data_ptr(),
+                                rho.data_ptr(), Ftot_adj.data_ptr(), build.raw_stream(index)),
+                "expand_vjp_fold")
+    expand_vjp_fold.launches += 1
+    return rho, Ftot_adj
+
+
+expand_vjp_fold.launches = 0
 
 
 # ---------------------------------------------------------------- scenarios

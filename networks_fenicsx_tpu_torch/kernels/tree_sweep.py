@@ -48,6 +48,10 @@ of S right-hand sides on one stored factor; three launches each whatever S
 ``i`` is the one-scenario call's bits.  Their plain versions stack the
 one-scenario plain versions, in the reference's order or (``blocked=True``)
 the kernels'.
+
+The blocked route's adjoint solves ``S z = ρ`` on the forward pass's stored
+factor with :func:`tree_sweep_solve`: the apply's launches on ``const = 0``
+and ``ρ`` placed at each bifurcation's in-edge (no kernel of its own).
 """
 
 from __future__ import annotations
@@ -65,7 +69,8 @@ __all__ = [
     "tree_sweep_backward_blocked_plain", "tree_sweep_factor", "tree_sweep_factor_plain",
     "tree_sweep_factor_blocked_plain", "tree_sweep_apply", "tree_sweep_apply_plain",
     "tree_sweep_apply_blocked_plain", "tree_sweep_scenarios", "tree_sweep_scenarios_plain",
-    "tree_sweep_apply_scenarios", "tree_sweep_apply_scenarios_plain",
+    "tree_sweep_apply_scenarios", "tree_sweep_apply_scenarios_plain", "tree_sweep_solve",
+    "tree_sweep_solve_plain",
 ]
 
 FULL, FORWARD, BACKWARD, FACTOR, APPLY = 0, 1, 2, 3, 4  # nxfx_tree_sweep's modes
@@ -621,6 +626,32 @@ def tree_sweep_apply(dplan: DevicePlan, d: torch.Tensor, wn: torch.Tensor, facto
 
 tree_sweep_apply.launches = 0
 tree_sweep_apply.device = 0
+
+
+def _zero_const(dplan: DevicePlan, like: torch.Tensor) -> torch.Tensor:
+    """A zero ``const (E,)`` on ``like``'s device, kept on the plan."""
+    key = ("zero_const", like.device)
+    zero = dplan._scratch.get(key)
+    if zero is None:
+        zero = dplan._scratch[key] = torch.zeros(dplan.num_edges, dtype=torch.float64,
+                                                 device=like.device)
+    return zero
+
+
+def tree_sweep_solve_plain(dplan: DevicePlan, d, wn, factor, rhs_edges: torch.Tensor):
+    """Eager version of :func:`tree_sweep_solve` (the reference's order)."""
+    return tree_sweep_apply_plain(dplan.plan, d, wn, factor, _zero_const(dplan, rhs_edges),
+                                  rhs_edges)[0]
+
+
+def tree_sweep_solve(dplan: DevicePlan, d, wn, factor, rhs_edges: torch.Tensor) -> torch.Tensor:
+    """``S⁻¹ ρ`` on :func:`tree_sweep_factor`'s stored factor, through
+    :func:`tree_sweep_apply`'s launches (K3–K4): the apply assembles ``r_b =
+    const[in_b] + Ftot[in_b] - Σ const[out_b]``, so with ``const = 0`` and
+    ``rhs_edges (E,)`` holding ``ρ_b`` at each bifurcation's in-edge (0
+    elsewhere) it solves for ``ρ``.  The adjoint λ solve of the blocked
+    route (``rhs_edges`` from :func:`.expand.expand_vjp_fold`)."""
+    return tree_sweep_apply(dplan, d, wn, factor, _zero_const(dplan, rhs_edges), rhs_edges)[0]
 
 
 # --- the scenario axis (a sweep's S rows in the same launches) ---

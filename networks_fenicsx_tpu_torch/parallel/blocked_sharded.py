@@ -27,6 +27,7 @@ import typing
 import numpy as np
 import torch
 
+from ..adjoint import refuse_grad
 from ..blocked import _BlockedPlan, _blocked_csr, _blocked_walk, _plan_blocked, device_plan, ends_plan
 from ..kernels import condense, expand, shard_blocked, shard_top, tree_sweep
 
@@ -376,6 +377,7 @@ class ShardedBlockedExecutor:
         return q_T, p_T, lam[: self.plan.B_sub], finite
 
     def __call__(self, shard_args, plain: bool = False):
+        refuse_grad(type(self).__name__, *(t for args in shard_args for t in args))
         fws = [None] * len(self.shards)
         for g, grp in enumerate(self.groups):
             k1 = self.condense(g, shard_args, plain)

@@ -23,6 +23,7 @@ import typing
 import numpy as np
 import torch
 
+from ..adjoint import refuse_grad
 from ..kernels import backsub, dist_tree, edge_data, shard_top
 
 __all__ = ["DistTreePlan", "plan_distributed_tree", "plan_rows", "DistTreeExecutor"]
@@ -493,6 +494,7 @@ class DistTreeExecutor:
         return outs
 
     def __call__(self, shard_args, plain: bool = False):
+        refuse_grad(type(self).__name__, *(t for args in shard_args for t in args))
         fws = [self.forward(g, shard_args, plain) for g in range(len(self.groups))]
         parts = [None] * len(self.shards)
         for grp, fw in zip(self.groups, fws):

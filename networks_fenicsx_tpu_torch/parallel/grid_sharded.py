@@ -26,6 +26,7 @@ import typing
 import numpy as np
 import torch
 
+from ..adjoint import refuse_grad
 from ..blocked import ends_plan
 from ..kernels import condense, dct_lattice, expand, grid_core, shard_grid
 from ..lattice import (
@@ -325,6 +326,7 @@ class ShardedGridExecutor:
                           fw.W, fw.w, fw.g, fw.Ftot, sh["h_e"], fw.R, fw.f, Rm, fm)
 
     def __call__(self, shard_args, plain: bool = False):
+        refuse_grad(type(self).__name__, *(t for args in shard_args for t in args))
         fws, rows = [None] * len(self.shards), []
         for g, grp in enumerate(self.groups):
             k1 = self.condense(g, shard_args, plain)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import adjoint
 from .. import assembly as _assembly
 from ..blocked import _condensed_scalar_constants
 from ..edge_data import _EdgeData
@@ -269,6 +270,7 @@ class ShardedGeneralExecutor:
         return expand_lam(ed, lam, self._N, self._k)
 
     def __call__(self, shard_args, plain: bool = False):
+        adjoint.refuse_grad(type(self).__name__, *(t for args in shard_args for t in args))
         fws = [self.forward(i, args, plain) for i, args in enumerate(shard_args)]
         lam = self.solve_lambda(fws, plain)
         lam_home = lam[self.mesh.home]

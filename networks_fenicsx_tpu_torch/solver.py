@@ -74,6 +74,12 @@ factorization for rhs-only re-solves (:mod:`.factorization`: the blocked,
 lattice and peel-then-core classes, every core engine: multifrontal,
 min-degree rounds with a dense tail or fronts, dense); float32 (A4) raises
 naming its item; the sharded solves are :mod:`.parallel`.
+
+:func:`build_schur_executor` returns the blocks contract by default and,
+with ``outputs="flat"``, the reference's default contract on the device
+(:class:`_FlatExecutor`).  The blocked route is differentiable
+(:mod:`.adjoint`); every other executor raises for an input that requires
+grad (``has_adjoint``).
 """
 
 from __future__ import annotations
@@ -85,6 +91,7 @@ import typing
 import numpy as np
 import torch
 
+from . import adjoint
 from . import assembly as _assembly
 from . import tree as _tree
 from .blocked import _permute_coefficient, _plan_blocked, device_plan
@@ -415,23 +422,35 @@ class _Executor:
     bif_order = None
     # whether :meth:`scenarios` runs S scenarios in one launch of each kernel
     has_scenario_axis = False
+    # whether a call differentiates (:mod:`.adjoint`); without it an input
+    # that requires grad raises, naming ROADMAP A9c
+    has_adjoint = False
+    # whether the reference's program ignores its f argument (a zero scalar
+    # source elided at build time): its gradient is then zero
+    f_elided = False
 
     def prepare_args(self, R_data, f_data, start_pbc, end_pbc):
         return R_data, f_data, start_pbc, end_pbc
 
     def upload(self, *arrays) -> list[torch.Tensor]:
-        """Host arrays -> contiguous float64 tensors on the executor's device
-        (a read-only array, an immutable R, is copied: a tensor needs
-        writeable memory)."""
-        return [torch.as_tensor(np.require(a, np.float64, "CW"), device=self._device)
+        """Host arrays or tensors -> contiguous float64 tensors on the
+        executor's device.  A float64 tensor already there is passed as it is
+        (its autograd graph kept); a host array is copied (a read-only array,
+        an immutable R, too: a tensor needs writeable memory)."""
+        return [a.to(self._device, torch.float64).contiguous() if isinstance(a, torch.Tensor)
+                else torch.as_tensor(np.require(a, np.float64, "CW"), device=self._device)
                 for a in arrays]
 
     def __call__(self, R_data, f_data, start_pbc, end_pbc):
+        if not self.has_adjoint:
+            adjoint.refuse_grad(type(self).__name__, R_data, f_data, start_pbc, end_pbc)
         return self._run(R_data, f_data, start_pbc, end_pbc, plain=False)
 
     def plain(self, R_data, f_data, start_pbc, end_pbc):
         """The same solve through the kernels' plain PyTorch versions, on the
         executor's device — what the kernels are checked against."""
+        if not self.has_adjoint:
+            adjoint.refuse_grad(type(self).__name__, R_data, f_data, start_pbc, end_pbc)
         return self._run(R_data, f_data, start_pbc, end_pbc, plain=True)
 
 
@@ -446,9 +465,16 @@ class _BlockedExecutor(_Executor):
     reference's 7-tuple blocks contract
     ``(q_T, p_T, lam, iters, residual, rhs_norm, finite)`` in internal order
     (``edge_order``/``bif_order`` map it back to the public layout).
-    :meth:`scenarios` runs S scenarios in the launches of one solve."""
+    :meth:`scenarios` runs S scenarios in the launches of one solve.
+
+    Differentiable (``has_adjoint``): when grad mode is on and an input
+    requires grad, ``__call__`` runs :class:`.adjoint.BlockedSolve` (K1, K2's
+    factor, K3–K4's apply, K5; its backward the hand-written transpose), and
+    ``plain`` the plain versions under PyTorch's own autograd; otherwise the
+    launches and bits are the no-grad solve's."""
 
     has_scenario_axis = True
+    has_adjoint = True
 
     def __init__(
         self, asm, plan, R_mode: str, f_mode: str, device: torch.device,
@@ -483,6 +509,11 @@ class _BlockedExecutor(_Executor):
     def _run(self, R_data, f_data, start_pbc, end_pbc, plain: bool):
         R, f, sp, ep = self.upload(R_data, f_data, start_pbc, end_pbc)
         dp, N, k = self.device_plan, self._N, self._k
+        if adjoint.wants_grad(R, f, sp, ep):
+            if not plain:
+                return self._zeros_after(adjoint.BlockedSolve.apply(self, R, f, sp, ep))
+            if self.f_elided:
+                f = f.detach()
         if plain:
             plan = dp.plan
             run_condense, run_sweep, run_expand = (
@@ -500,6 +531,12 @@ class _BlockedExecutor(_Executor):
         q_T, p_T, finite = run_expand(
             plan, N, k, lam, sp, ep, W, w, g, Ftot, self._h_e, R, f, self._R_mode, self._f_mode
         )
+        return self._zeros_after((q_T, p_T, lam, rhs_norm, finite))
+
+    def _zeros_after(self, out):
+        """``(q_T, p_T, lam, rhs_norm, finite)`` as the 7-tuple contract: a
+        direct elimination reports ``iters = 0`` and residual 0."""
+        q_T, p_T, lam, rhs_norm, finite = out
         iters = torch.zeros((), dtype=torch.int32, device=self._device)
         residual = torch.zeros((), dtype=torch.float64, device=self._device)
         return q_T, p_T, lam, iters, residual, rhs_norm, finite
@@ -512,6 +549,7 @@ class _BlockedExecutor(_Executor):
         right-hand sides; K5 once.  Returns ``(q_T, p_T, lam, rhs_norm,
         finite)``, each with a leading ``S``; row ``i`` is the executor's
         call on row ``i`` bit for bit."""
+        adjoint.refuse_grad("a sweep's scenario axis", R, f, start_pbc, end_pbc)
         dp, N, k, h = self.device_plan, self._N, self._k, self._h_e
         Rm, fm = self._R_mode, self._f_mode
         W, w, g, Ftot, const = condense.condense_scenarios(dp, N, k, h, R, f, Rm, fm, start_pbc,
@@ -699,7 +737,10 @@ class _GridExecutor(_BlockedExecutor):
     → K5, returning the 7-tuple blocks contract in internal edge order
     (``bif_order`` None: λ stays in node order) with the residual norm and
     ``iters = 0``.  :meth:`scenarios` runs S scenarios in the launches of
-    one solve."""
+    one solve.  No adjoint: K16's λ solve has no transpose yet (ROADMAP
+    A9c-3), so an input that requires grad raises."""
+
+    has_adjoint = False
 
     def __init__(self, asm, plan, R_mode: str, f_mode: str, device: torch.device):
         super().__init__(asm, plan, R_mode, f_mode, device, make_device_plan=device_grid_plan)
@@ -1209,9 +1250,38 @@ def build_schur_executor(
     device: torch.device | str = "cuda",
     _tree_plan=None,
     elide_zero_f: bool = True,
-) -> _Executor:
+    outputs: str = "blocks",
+):
     """Build the executor, or raise ``NotImplementedError`` (naming the
     ROADMAP item) for float32.
+
+    ``outputs="blocks"``, the port's default (every caller in the port reads
+    the blocks): the reference's ``outputs="blocks", internal_layout=True``
+    contract, ``(q_T, p_T, lam, iters, residual, rhs_norm, finite)`` in the
+    executor's internal order from arguments in that order
+    (``prepare_args``).  ``outputs="flat"``: the reference's default
+    contract, ``(x, iters, residual, rhs_norm, finite)`` with ``x`` the
+    global vector on the device, from public-order arguments
+    (:class:`_FlatExecutor`).  The blocked route is differentiable either
+    way (:mod:`.adjoint`); every other route raises ``NotImplementedError``
+    (ROADMAP A9c) for an input that requires grad.  Under ``"flat"`` a zero
+    scalar f is elided as the reference's flat program elides it (its
+    gradient zero), except at flux degree 1 with scalar or per-edge R and f,
+    whose program reads it; the reference's blocked program never elides."""
+    if outputs not in ("blocks", "flat"):
+        raise ValueError(f"outputs must be 'blocks' or 'flat', got {outputs!r}")
+    ex = _route_executor(asm, opts, device, _tree_plan, elide_zero_f)
+    if outputs == "blocks":
+        return ex
+    R_mode, f_mode, f_zero = asm.coefficient_modes()
+    uniform = asm.flux_degree == 1 and {R_mode, f_mode} <= {"scalar", "edge"}
+    ex.f_elided = bool(f_zero and elide_zero_f and not uniform)
+    return _FlatExecutor(ex, asm)
+
+
+def _route_executor(asm, opts: SolverOptions, device, _tree_plan,
+                    elide_zero_f: bool) -> _Executor:
+    """The blocks executor of :func:`build_schur_executor`.
 
     Routes as the reference's
     ``build_schur_executor(outputs="blocks", internal_layout=True)``:
@@ -1272,6 +1342,76 @@ def build_schur_executor(
             return _BlockedExecutor(asm, plan, R_mode, f_mode, device)
     level_plan = _plan_level_elimination(asm, tree_plan)
     return _LevelExecutor(asm, tree_plan, level_plan, R_mode, f_mode, f_zero, device)
+
+
+class _FlatExecutor:
+    """The reference's ``outputs="flat"`` contract around a blocks executor.
+
+    Takes the public-order arguments of ``asm.schur_arguments()`` (host
+    arrays or tensors; a ``"cell"`` coefficient ``(C,)``) and permutes them
+    into the inner executor's layout on the device (``"cell"`` to its ``(N,
+    E)`` blocks); returns ``(x, iters, residual, rhs_norm, finite)`` with
+    ``x`` the global vector ``[q_0..q_{M-1}, p, λ]`` on the device: one
+    gather of the blocks by an index built once (at the first call, from the
+    blocks' shapes), the composition of ``argsort(edge_order)``, the
+    ``edge_color`` order and ``bif_order`` that :func:`_flatten_blocks_host`
+    applies on the host, so ``x`` is its result bit for bit.  Both relayouts
+    are PyTorch gathers, differentiable: gradients reach the public-order
+    inputs where the inner executor has an adjoint.  Other attributes are
+    the inner executor's."""
+
+    blocks_out = False
+
+    def __init__(self, inner: _Executor, asm):
+        self.inner = inner
+        self._edge_color = asm.network.edge_color
+        self._out_index = None
+        eo = inner.edge_order
+        if eo is not None:  # public edge rows (and cells) in the inner executor's order
+            N = inner._N
+            self._edge_index = torch.as_tensor(np.asarray(eo, np.int64), device=inner._device)
+            self._cell_index = torch.as_tensor((eo[None, :] * N + np.arange(N)[:, None]).ravel(),
+                                               device=inner._device)
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["inner"], name)
+
+    def __call__(self, R_data, f_data, start_pbc, end_pbc):
+        return self._run(R_data, f_data, start_pbc, end_pbc, plain=False)
+
+    def plain(self, R_data, f_data, start_pbc, end_pbc):
+        """The same through the inner executor's plain versions."""
+        return self._run(R_data, f_data, start_pbc, end_pbc, plain=True)
+
+    def _internal(self, R, f, sp, ep):
+        """Public-order arguments to the inner executor's layout, on the device."""
+        inner = self.inner
+        if inner.edge_order is None:
+            return R, f, sp, ep
+
+        def permute(a, mode):
+            if mode == "cell":
+                return a.index_select(0, self._cell_index).view(inner._N, -1)
+            return a if mode == "scalar" else a.index_select(0, self._edge_index)
+
+        return (permute(R, inner._R_mode), permute(f, inner._f_mode), permute(sp, "edge"),
+                permute(ep, "edge"))
+
+    def _run(self, R_data, f_data, start_pbc, end_pbc, plain: bool):
+        inner = self.inner  # refuses inputs that require grad where it has no adjoint
+        args = self._internal(*inner.upload(R_data, f_data, start_pbc, end_pbc))
+        q_T, p_T, lam, iters, residual, rhs_norm, finite = (
+            inner.plain if plain else inner)(*args)
+        if self._out_index is None:
+            sizes = np.cumsum([0, q_T.numel(), p_T.numel()])
+            idx = _flatten_blocks_host(
+                np.arange(q_T.numel()).reshape(q_T.shape),
+                sizes[1] + np.arange(p_T.numel()).reshape(p_T.shape),
+                sizes[2] + np.arange(lam.numel()), self._edge_color,
+                edge_order=inner.edge_order, bif_order=inner.bif_order)
+            self._out_index = torch.as_tensor(idx, device=inner._device)
+        blocks = torch.cat([q_T.reshape(-1), p_T.reshape(-1), lam])
+        return blocks.index_select(0, self._out_index), iters, residual, rhs_norm, finite
 
 
 def _schur_solve(
